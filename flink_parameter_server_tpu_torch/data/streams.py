@@ -1,0 +1,205 @@
+"""Host-side data ingestion — the ``DataStream`` stand-in.
+
+A numpy-only copy of ``flink_parameter_server_tpu/data/streams.py``: the port
+imports nothing of the JAX package, whose ``__init__`` imports JAX.
+
+Reference parity: the reference trains from a Flink ``DataStream[T]``
+(collection sources in tests, file/Kafka sources in examples — SURVEY.md
+§4, §2 #11).  The rebuild keeps a thin host-side streaming driver: plain
+Python iterables for the event backend, and microbatch iterators (numpy
+pytrees, static shapes) feeding the jitted step for the TPU backend —
+host→device transfer happens only at this edge (SURVEY.md §2 "TPU-native
+equivalent").
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+
+def from_collection(records: Sequence[Any]) -> Iterable[Any]:
+    """Parity helper for ``env.fromCollection`` (reference tests' source)."""
+    return list(records)
+
+
+def microbatches(
+    arrays: Dict[str, np.ndarray],
+    batch_size: int,
+    *,
+    epochs: int = 1,
+    drop_remainder: bool = False,
+    pad_value: int = 0,
+    shuffle_seed: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Slice column arrays into fixed-shape microbatches.
+
+    The last partial batch is zero-padded with a ``"mask"`` column added
+    (static shapes keep XLA from recompiling — SURVEY.md §7 "Dynamic
+    shapes"); set ``drop_remainder`` to skip it instead.
+    """
+    n = len(next(iter(arrays.values())))
+    for k, v in arrays.items():
+        assert len(v) == n, f"column {k} length {len(v)} != {n}"
+    rng = np.random.default_rng(shuffle_seed) if shuffle_seed is not None else None
+    for _ in range(epochs):
+        order = rng.permutation(n) if rng is not None else np.arange(n)
+        for start in range(0, n, batch_size):
+            idx = order[start : start + batch_size]
+            if len(idx) < batch_size:
+                if drop_remainder:
+                    break
+                pad = batch_size - len(idx)
+                batch = {
+                    k: np.concatenate(
+                        [v[idx], np.full((pad,) + v.shape[1:], pad_value, v.dtype)]
+                    )
+                    for k, v in arrays.items()
+                }
+                batch["mask"] = np.concatenate(
+                    [np.ones(len(idx), bool), np.zeros(pad, bool)]
+                )
+            else:
+                batch = {k: v[idx] for k, v in arrays.items()}
+                batch["mask"] = np.ones(batch_size, bool)
+            yield batch
+
+
+def partitioned_microbatches(
+    arrays: Dict[str, np.ndarray],
+    batch_size: int,
+    num_partitions: int,
+    *,
+    key: str,
+    capacity: int,
+    epochs: int = 1,
+    shuffle_seed: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Microbatches whose row-blocks are aligned to a dp partitioning of
+    the ``key`` column (``partition = key * num_partitions // capacity``).
+
+    The reference keys its MF input stream by user so each worker owns its
+    users' state locally (SURVEY.md §2 "Data parallelism").  The TPU
+    analogue: when worker state is dp-sharded by blocks of ``capacity //
+    num_partitions`` rows, feeding batches whose i-th row-block only
+    contains partition-i keys makes the state gather/scatter shard-local —
+    zero cross-dp traffic for worker state.
+
+    Each step emits ``batch_size`` rows = ``num_partitions`` equal blocks
+    (padded + masked per block as partitions run dry); iteration ends when
+    every partition is exhausted.
+    """
+    assert batch_size % num_partitions == 0, (batch_size, num_partitions)
+    per = batch_size // num_partitions
+    n = len(arrays[key])
+    part_of = (
+        arrays[key].astype(np.int64) * num_partitions // capacity
+    ).clip(0, num_partitions - 1)
+    rng = np.random.default_rng(shuffle_seed) if shuffle_seed is not None else None
+    for _ in range(epochs):
+        part_indices = []
+        for p in range(num_partitions):
+            idx = np.nonzero(part_of == p)[0]
+            if rng is not None:
+                idx = rng.permutation(idx)
+            part_indices.append(idx)
+        cursors = [0] * num_partitions
+        while any(c < len(part_indices[p]) for p, c in enumerate(cursors)):
+            blocks = {k: [] for k in arrays}
+            mask_blocks = []
+            for p in range(num_partitions):
+                idx = part_indices[p][cursors[p] : cursors[p] + per]
+                cursors[p] += per
+                pad = per - len(idx)
+                for k, v in arrays.items():
+                    col = v[idx]
+                    if pad:
+                        col = np.concatenate(
+                            [col, np.zeros((pad,) + v.shape[1:], v.dtype)]
+                        )
+                    blocks[k].append(col)
+                mask_blocks.append(np.arange(per) < len(idx))
+            batch = {k: np.concatenate(v) for k, v in blocks.items()}
+            batch["mask"] = np.concatenate(mask_blocks)
+            yield batch
+
+
+def sparse_feature_batches(
+    X: np.ndarray,
+    y: np.ndarray,
+    batch_size: int,
+    *,
+    epochs: int = 1,
+    shuffle_seed: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Densify a sparse (N, F) example matrix into the padded sparse batch
+    contract consumed by the PA and FM logics: ``ids``/``values``/
+    ``feat_mask`` (B, K) with K = max nonzeros, plus ``label``/``mask``.
+
+    The multi-pull pattern (SURVEY.md §3.4): only present feature ids are
+    pulled, padding lanes masked out.
+    """
+    n, _f = X.shape
+    nnz_max = max(int((X != 0).sum(1).max()), 1)
+    rng = np.random.default_rng(shuffle_seed) if shuffle_seed is not None else None
+    for _ in range(epochs):
+        order = rng.permutation(n) if rng is not None else np.arange(n)
+        for s in range(0, n, batch_size):
+            idx = order[s : s + batch_size]
+            m = len(idx)
+            ids = np.zeros((batch_size, nnz_max), np.int32)
+            vals = np.zeros((batch_size, nnz_max), np.float32)
+            fm = np.zeros((batch_size, nnz_max), bool)
+            for r, i in enumerate(idx):
+                nz = np.nonzero(X[i])[0]
+                ids[r, : len(nz)] = nz
+                vals[r, : len(nz)] = X[i, nz]
+                fm[r, : len(nz)] = True
+            labels = np.zeros(batch_size, np.float32)
+            labels[:m] = y[idx]
+            yield {
+                "ids": ids,
+                "values": vals,
+                "feat_mask": fm,
+                "label": labels,
+                "mask": np.arange(batch_size) < m,
+            }
+
+
+def prefetch(it: Iterator[Any], size: int = 2) -> Iterator[Any]:
+    """Background-thread prefetch of host batches (keeps the device fed
+    while the host prepares the next microbatch)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    sentinel = object()
+    failure = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:  # propagate, never swallow (a crashed
+            q.put((failure, e))     # stream must not look like a clean end)
+            return
+        q.put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, tuple) and len(item) == 2 and item[0] is failure:
+            raise item[1]
+        yield item
+
+
+__all__ = [
+    "from_collection",
+    "microbatches",
+    "partitioned_microbatches",
+    "sparse_feature_batches",
+    "prefetch",
+]

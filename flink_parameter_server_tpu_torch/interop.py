@@ -1,0 +1,91 @@
+"""Carry tables and worker state between the JAX package and the port.
+
+The two packages share no code, so arrays cross as numpy.  A store crosses
+as its PHYSICAL table (padding rows and, for ``layout="packed"``, the
+packed lanes included): the port's ``StoreSpec`` arithmetic is the
+reference's, so the same spec fields give the same table shape and every
+element keeps its place.  numpy has no bfloat16 of its own, so a bfloat16
+array crosses widened to float32 and is narrowed again on arrival (exact:
+every bfloat16 value is a float32 value).
+
+From the JAX side::
+
+    spec = spec_from_reference(jax_store.spec)
+    store = store_from_numpy(spec, np.asarray(jax_store.table, np.float32))
+    state = state_from_numpy(np.asarray(jax_user_state, np.float32))
+
+and back: ``to_numpy(store.table)`` is the reference's physical table
+(``jax.numpy.asarray(arr, spec.dtype)``), ``to_numpy(state)`` its state.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core.store import ShardedParamStore, StoreSpec
+from .utils.device import DeviceLike, check_mesh, resolve_device
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float64": torch.float64,
+    "int32": torch.int32,
+    "int64": torch.int64,
+}
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch dtype, a dtype name, or anything numpy
+    reads as a dtype (the reference's ``jnp.float32`` and friends)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise ValueError(f"no torch dtype for {dtype!r}")
+    return _DTYPES[name]
+
+
+def spec_from_reference(ref: Any) -> StoreSpec:
+    """The port's :class:`StoreSpec` for a reference ``StoreSpec`` (read
+    by attribute, so nothing of the JAX package is imported).  Only
+    ``update="add"`` crosses: a custom update is a JAX function."""
+    check_mesh(ref.mesh)
+    if ref.update != "add":
+        raise ValueError("only update='add' stores cross between the packages")
+    return StoreSpec(
+        capacity=ref.capacity,
+        value_shape=tuple(ref.value_shape),
+        dtype=torch_dtype(ref.dtype),
+        scatter_impl=ref.scatter_impl,
+        layout=ref.layout,
+    )
+
+
+def store_from_numpy(spec: StoreSpec, table: np.ndarray, *, device: DeviceLike = None) -> ShardedParamStore:
+    """A store from the reference's physical table."""
+    table = np.asarray(table)
+    if tuple(table.shape) != tuple(spec.table_shape()):
+        raise ValueError(
+            f"table shape {tuple(table.shape)} != spec.table_shape() {spec.table_shape()}"
+        )
+    t = torch.from_numpy(np.array(table))  # a copy: the source may be read-only
+    return ShardedParamStore(spec, t.to(resolve_device(device), spec.dtype).contiguous())
+
+
+def state_from_numpy(state: np.ndarray, *, dtype: Any = torch.float32, device: DeviceLike = None) -> torch.Tensor:
+    """Worker state (e.g. MF user factors) from the reference's array."""
+    t = torch.from_numpy(np.array(state))
+    return t.to(resolve_device(device), torch_dtype(dtype)).contiguous()
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A table or state tensor as numpy (bfloat16 widened to float32)."""
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.detach().cpu().numpy()
+
+
+__all__ = ["torch_dtype", "spec_from_reference", "store_from_numpy", "state_from_numpy", "to_numpy"]

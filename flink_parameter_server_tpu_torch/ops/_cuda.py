@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (plain C interface over ctypes).
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library under ``build/kernels/`` at the repository root (a
+directory git ignores).  The library's name carries a hash of the sources
+and flags, so an edit rebuilds and an unchanged tree loads what is there.
+Nothing is built when a module is imported: the first launch builds, and
+:func:`build` compiles every library at once, one ``nvcc`` per source
+started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = {"scatter_add": "scatter_add.cu", "fused_mf": "fused_mf.cu"}
+_HEADERS = ("runs.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# dtype codes of the C interface (csrc/runs.cuh ``DType``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, else ``PATH``, else the
+    toolkit's usual home."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named libraries that are missing, all in parallel.
+
+    Returns ``{name: compiler diagnostics}`` for what was compiled (the
+    ``-Xptxas -v`` register and spill report).  Raises with the compiler's
+    output if any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            out,
+        )
+    reports, failures = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        reports[name] = text
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return reports
+
+
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The library ``name``, built on first use, with ``signatures``
+    (``{function: argtypes}``, every function returning ``int``) declared."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+__all__ = ["build", "load", "check", "library_path", "stream_handle", "DTYPE_CODES", "BUILD_DIR"]

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+These need an NVIDIA card and skip elsewhere.  This file imports nothing
+of JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest``: tests/conftest.py imports JAX for the rest of the
+suite.)  Tolerances: float32 1e-5 relative (the kernel splits a hot run
+over warps, so its sums are added in another order than the plain
+version's); bfloat16 one unit in the last place of the table's values;
+int32 exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from flink_parameter_server_tpu_torch.ops import mf_kernel, scatter_kernel
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _zipf_ids(rng, n, rows, a=1.2):
+    return ((rng.zipf(a, n) - 1) % rows).astype(np.int64)
+
+
+def _sorted_case(rng, n, rows, hot=0):
+    ids = _zipf_ids(rng, n, rows)
+    if hot:
+        ids[:hot] = 1  # one run over many chunks
+    return np.sort(ids).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "dtype,n,rows,width,sub_k,hot",
+    [
+        (torch.float32, 1, 4, 8, 1, 0),
+        (torch.float32, 33, 16, 1, 1, 0),
+        (torch.float32, 1000, 64, 64, 1, 700),
+        (torch.float32, 4096, 512, 200, 1, 0),
+        (torch.float32, 5000, 40, 64, 2, 3000),
+        (torch.float32, 700, 50, 17, 7, 0),
+        (torch.bfloat16, 2000, 64, 64, 1, 900),
+        (torch.int32, 3000, 32, 128, 1, 2500),
+    ],
+)
+def test_scatter_kernel_matches_plain(cuda, dtype, n, rows, width, sub_k, hot):
+    rng = np.random.default_rng(n)
+    W = 128 if sub_k > 1 else width
+    ids = torch.from_numpy(_sorted_case(rng, n, rows * sub_k, hot))
+    if dtype == torch.int32:
+        table = torch.from_numpy(rng.integers(0, 2**30, (rows, W)).astype(np.int32))
+        deltas = torch.from_numpy(rng.integers(-5, 6, (n, width)).astype(np.int32))
+    else:
+        table = torch.from_numpy(rng.normal(0, 1, (rows, W)).astype(np.float32)).to(dtype)
+        deltas = torch.from_numpy(rng.normal(0, 0.1, (n, width)).astype(np.float32)).to(dtype)
+    want = scatter_kernel.sorted_scatter_add(table.clone(), ids, deltas, sub_k=sub_k)
+    before = scatter_kernel.sorted_scatter_add.launches
+    got = scatter_kernel.sorted_scatter_add(
+        table.to(cuda), ids.to(cuda), deltas.to(cuda), sub_k=sub_k
+    )
+    torch.cuda.synchronize()
+    assert scatter_kernel.sorted_scatter_add.launches == before + 1
+    got = got.cpu()
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    elif dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "dtype,n,rows,dim,sub_k,hot",
+    [
+        (torch.float32, 1, 4, 8, 1, 0),
+        (torch.float32, 1000, 64, 128, 1, 700),
+        (torch.float32, 3000, 200, 64, 2, 2000),
+        (torch.float32, 500, 30, 17, 7, 0),
+        (torch.float32, 400, 30, 256, 1, 300),
+        (torch.bfloat16, 2000, 64, 128, 1, 900),
+    ],
+)
+def test_fused_mf_kernel_matches_plain(cuda, dtype, n, rows, dim, sub_k, hot):
+    rng = np.random.default_rng(n + dim)
+    W = 128 if sub_k > 1 else dim
+    items = torch.from_numpy(_sorted_case(rng, n, rows * sub_k, hot))
+    table = torch.from_numpy(rng.normal(0, 0.3, (rows, W)).astype(np.float32)).to(dtype)
+    p = torch.from_numpy(rng.normal(0, 0.3, (n, dim)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(0, 1, n).astype(np.float32))
+    m = torch.from_numpy((rng.random(n) > 0.1).astype(np.float32))
+    kw = dict(learning_rate=0.05, regularization=0.01, sub_k=sub_k)
+    want_t = table.clone()
+    want_u, want_p = mf_kernel.sorted_fused_mf_sgd(want_t, items, p, r, m, **kw)
+    before = mf_kernel.sorted_fused_mf_sgd.launches
+    got_t = table.to(cuda)
+    got_u, got_p = mf_kernel.sorted_fused_mf_sgd(
+        got_t, items.to(cuda), p.to(cuda), r.to(cuda), m.to(cuda), **kw
+    )
+    torch.cuda.synchronize()
+    assert mf_kernel.sorted_fused_mf_sgd.launches == before + 1
+    torch.testing.assert_close(got_p.cpu(), want_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_u.cpu(), want_u, rtol=1e-5, atol=1e-5)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got_t.cpu().float(), want_t.float(), rtol=2**-7, atol=1e-2)
+    else:
+        torch.testing.assert_close(got_t.cpu(), want_t, rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    table = torch.zeros(8, 4, dtype=torch.float64, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32, bfloat16 or int32"):
+        scatter_kernel.sorted_scatter_add(table, ids, torch.ones(2, 4, dtype=torch.float64, device=cuda))
+    wide = torch.zeros(8, 512, device=cuda)
+    ones = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        mf_kernel.sorted_fused_mf_sgd(
+            wide, ids, torch.ones(2, 512, device=cuda), ones, ones,
+            learning_rate=0.1, regularization=0.0,
+        )
+
+
+def test_store_push_on_card_goes_through_the_kernel(cuda):
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(_zipf_ids(rng, 512, 40))
+    deltas = torch.from_numpy(rng.normal(0, 1, (512, 8)).astype(np.float32))
+    cpu = ShardedParamStore.create(40, (8,), scatter_impl="pallas", device="cpu").push(ids, deltas)
+    before = scatter_kernel.sorted_scatter_add.launches
+    gpu = ShardedParamStore.create(40, (8,), scatter_impl="pallas", device=cuda).push(
+        ids.to(cuda), deltas.to(cuda)
+    )
+    assert scatter_kernel.sorted_scatter_add.launches == before + 1
+    torch.testing.assert_close(gpu.values().cpu(), cpu.values(), rtol=1e-5, atol=1e-5)
