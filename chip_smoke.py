@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's online-MF main path on one NVIDIA card.
+"""Drive the torch port's two paths on one NVIDIA card: online MF and
+Transformer LM training through the dense parameter server.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -9,20 +10,30 @@ CUDA toolkit:
 It imports nothing of JAX and nothing of the JAX package.  Phases, one
 line each; any failure exits non-zero before the last line:
 
-  1. build   compile every CUDA kernel of the path (one nvcc per source,
-             all at once) into build/kernels/.
-  2. check   each kernel against its plain torch version on the card, at
-             the main path's full width (131,072 items, 65,536-lane Zipf
-             microbatch), float32, bfloat16, int32 and packed tables.
+  1. build   compile every CUDA kernel (one nvcc per source, all at once)
+             into build/kernels/.
+  2. check   each kernel against its plain torch version on the card: the
+             MF kernels at the MF path's full width (131,072 items,
+             65,536-lane Zipf microbatch), float32, bfloat16, int32 and
+             packed tables; the flash-attention forward, dQ and dK/dV at
+             the LM's shape (B 16, T 512, H 8, D 64, bfloat16) and at B 2,
+             T 1024, H 8, D 128 in float32.
   3. main    ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
-             dim 128, over 100,000 users x 131,072 items; the launch
-             counts are zeroed just before each of the two and read just
-             after it: each must launch its kernel once a step and the
-             other kernel not at all.
-             A small run is held against the CPU (plain) path first.
+             dim 128, over 100,000 users x 131,072 items; then the LM:
+             Transformer-base (vocab 32,000, d_model 512, 8 heads, 6
+             layers, d_ff 2,048, bfloat16, ``flash_attention="on"``)
+             through ``DenseParameterServer(init_params(...), adamw(3e-3))``
+             and ``transform_dense`` for 20 steps of 16 x 512 bigram tokens.
+             The launch counts are zeroed just before each path and read
+             just after it: each path must launch its own kernels (once a
+             step for MF, once a layer a step for the LM) and no other.
+             A small run of each path is held against the CPU (plain) path
+             first, and a few more LM steps are traced with torch.profiler.
   4. timing  each kernel's median time beside its bound, its plain
-             version's time and (for the scatter-add) ``index_add_``'s.
+             version's time and the library call's (``index_add_`` for
+             the scatter-add, ``scaled_dot_product_attention`` forward and
+             backward for the flash kernels).
 
 The line before the last is the card's name and power limit, the last is
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +55,10 @@ LEARNING_RATE = 0.01
 BATCHES_PER_EPOCH, EPOCHS = 2, 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
+LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
+LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -91,6 +106,48 @@ def zipf_batch(rng):
     return items, users, ratings
 
 
+def _counters():
+    """Every kernel wrapper of the port, by the name the kernels line uses."""
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+    from flink_parameter_server_tpu_torch.ops import mf_kernel, scatter_kernel
+
+    return {
+        "scatter_add": scatter_kernel.sorted_scatter_add,
+        "fused_mf_sgd": mf_kernel.sorted_fused_mf_sgd,
+        "flash_fwd": fa.flash_fwd,
+        "flash_bwd_dq": fa.flash_bwd_dq,
+        "flash_bwd_dkv": fa.flash_bwd_dkv,
+    }
+
+
+def zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts(path: str, want: dict) -> dict:
+    """Every kernel's launches since :func:`zero_counts`: those in ``want``
+    must have launched exactly that often, every other kernel not at all."""
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    print(f"main: kernel launches in {path}: {counts}")
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"{path} launched {name} {n} times, expected {want.get(name, 0)}")
+    return counts
+
+
+def bigram_batches(n, B, T, vocab, seed=0):
+    """examples/transformer_lm.py's token stream: each row follows a fixed
+    random permutation from a random first token."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(vocab)
+    for _ in range(n):
+        toks = np.empty((B, T), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, B)
+        for t in range(1, T):
+            toks[:, t] = perm[toks[:, t - 1]]
+        yield {"tokens": toks}
+
+
 def phase_build():
     from flink_parameter_server_tpu_torch.ops import _cuda
 
@@ -98,6 +155,10 @@ def phase_build():
     built = _cuda.build()
     print(f"build: {', '.join(_cuda.SOURCES)} ready in {time.perf_counter() - t0:.2f} s "
           f"({len(built)} compiled now, the rest found in {_cuda.BUILD_DIR})")
+    for name, report in built.items():  # ptxas: registers and spills of each kernel
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"build: {name}: {line.strip()}")
 
 
 def _compare(torch, name, got, want, rtol, atol, exact=False):
@@ -174,6 +235,56 @@ def phase_kernels(torch, dev, gen):
     errs["fused_mf_sgd"] = k2(f"fused_mf_sgd dense f32 ({NUM_ITEMS},{DIM_FUSED})", NUM_ITEMS, DIM_FUSED)
     k2(f"fused_mf_sgd packed sub_k=2 f32 ({NUM_ITEMS // 2},128) dim {DIM_UNFUSED}",
        NUM_ITEMS // 2, DIM_UNFUSED, sub_k=2)
+    errs.update(_flash_checks(torch, dev, gen))
+    return errs
+
+
+def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
+    """q, k, v as the LM hands them to the kernels: q scaled by 1/sqrt(D)
+    in float32 and contiguous, k and v strided views of one (B, T, 3, H, D)
+    projection; and a random dO."""
+    qkv = (torch.randn(B, T, 3, H, D, generator=gen, device=dev) * 0.8).to(dtype)
+    q = (qkv[:, :, 0].float() * D**-0.5).to(dtype).contiguous()
+    do = torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype)
+    return q, qkv[:, :, 1], qkv[:, :, 2], do
+
+
+def _flash_checks(torch, dev, gen):
+    """K3a/b/c vs their plain versions on identical inputs, at the LM's
+    shape in bfloat16 and at a longer, wider float32 shape.
+
+    Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
+    for K1: both sides sum the same float32 products in another order.
+    bfloat16: the outputs (O, dQ, dK, dV) are rounded to bfloat16 from
+    float32 values that differ only in summation order, so they may land
+    one bfloat16 unit apart: rtol 2**-7 and atol 2**-8 of the largest value
+    (about 2**-8 relative).  L and D stay float32 in both, so they keep the
+    float32 bar."""
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for B, T, H, D, dtype in ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (2, 1024, 8, 128, torch.float32)):
+        q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
+        o, lse = fa.flash_fwd(q, k, v)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+        dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o, do, lse)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+        tol = dict(rtol=2**-7, atol=2**-8) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+        f32 = dict(rtol=1e-5, atol=1e-5)
+        label = f"(B {B}, T {T}, H {H}, D {D}) {str(dtype).replace('torch.', '')}"
+        found = {
+            "flash_fwd": max(_compare(torch, f"flash_fwd O {label}", o, o_p, **tol),
+                             _compare(torch, f"flash_fwd L {label}", lse, lse_p, **f32)),
+            "flash_bwd_dq": max(_compare(torch, f"flash_bwd_dq dQ {label}", dq, dq_p, **tol),
+                                _compare(torch, f"flash_bwd_dq D {label}", delta, delta_p, **f32)),
+            "flash_bwd_dkv": max(_compare(torch, f"flash_bwd_dkv dK {label}", dk, dk_p, **tol),
+                                 _compare(torch, f"flash_bwd_dkv dV {label}", dv, dv_p, **tol)),
+        }
+        if not errs:  # the LM's shape: the error the kernels line reports
+            errs = found
     return errs
 
 
@@ -207,7 +318,6 @@ def phase_main(torch, dev):
     from flink_parameter_server_tpu_torch.core.transform import to_device
     from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
     from flink_parameter_server_tpu_torch.data.streams import microbatches
-    from flink_parameter_server_tpu_torch.ops import mf_kernel, scatter_kernel
 
     _small_run_matches_cpu(torch)
     data = synthetic_ratings(NUM_USERS, NUM_ITEMS, BATCHES_PER_EPOCH * BATCH, seed=0)
@@ -216,23 +326,6 @@ def phase_main(torch, dev):
     def epoch_rmse(errs):
         return [round(statistics.fmean(errs[i:i + BATCHES_PER_EPOCH]), 6)
                 for i in range(0, len(errs), BATCHES_PER_EPOCH)]
-
-    def zero_counts():
-        scatter_kernel.sorted_scatter_add.launches = 0
-        mf_kernel.sorted_fused_mf_sgd.launches = 0
-
-    def read_counts(path, runs):
-        """This path's counts; ``runs`` names the one kernel it must launch
-        once a step, and every other kernel must not have launched."""
-        counts = {
-            "scatter_add": scatter_kernel.sorted_scatter_add.launches,
-            "fused_mf_sgd": mf_kernel.sorted_fused_mf_sgd.launches,
-        }
-        print(f"main: kernel launches in {path}: {counts}")
-        for name, n in counts.items():
-            want = steps if name == runs else 0
-            check(n == want, f"{path} launched {name} {n} times, expected {want}")
-        return counts[runs]
 
     errs, stamps = [], []
 
@@ -247,7 +340,7 @@ def phase_main(torch, dev):
         on_step=on_step,
     )
     torch.cuda.synchronize()
-    launches = {"scatter_add": read_counts("ps_online_mf", "scatter_add")}
+    launches = {"scatter_add": read_counts("ps_online_mf", {"scatter_add": steps})["scatter_add"]}
     items, users = result.store.values(), result.worker_state
     rate = (steps - BATCHES_PER_EPOCH) * BATCH / (stamps[-1] - stamps[BATCHES_PER_EPOCH - 1])
     curve = epoch_rmse(errs)
@@ -271,14 +364,151 @@ def phase_main(torch, dev):
         item_t, user_t, out = step(item_t, user_t, to_device(batch, dev))
         on_step(None, out)
     torch.cuda.synchronize()
-    launches["fused_mf_sgd"] = read_counts("the fused step", "fused_mf_sgd")
+    launches["fused_mf_sgd"] = read_counts("the fused step", {"fused_mf_sgd": steps})["fused_mf_sgd"]
     fused_rate = (steps - BATCHES_PER_EPOCH) * BATCH / (stamps[-1] - stamps[BATCHES_PER_EPOCH - 1])
     curve = epoch_rmse(errs)
     print(f"main: make_fused_mf_train_step dim {DIM_FUSED}: {steps} microbatches of {BATCH}, "
           f"training rmse by epoch {curve}, {fused_rate:.0f} updates/s after the first epoch")
     check(bool(torch.isfinite(item_t).all() and torch.isfinite(user_t).all()), "non-finite fused tables")
     check(curve[-1] < curve[0], "fused training error did not fall")
+    launches.update(phase_lm(torch, dev))
     return launches
+
+
+def _small_lm_matches_cpu(torch):
+    """A tiny float32 LM (vocab 256, d_model 128, 2 heads, 2 layers, T 128,
+    B 4), 3 sgd(0.1) steps from the same weights: on the card with
+    flash_attention="on" (the kernels) vs the CPU with "auto" (the reference
+    attention).  Tolerance rtol 1e-4 / atol 1e-5: float32 throughout, but
+    the card's products, the flash kernels' sums and the CPU's einsum
+    attention add in different orders, and three steps carry that on."""
+    from flink_parameter_server_tpu_torch import (
+        DenseParameterServer, TransformerConfig, init_params, lm_loss, sgd, transform_dense,
+    )
+    from flink_parameter_server_tpu_torch.interop import transformer_params_to_numpy
+
+    small = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256, max_seq=128,
+                 dtype=torch.float32)
+    runs = {}
+    for dev, mode in (("cuda", "on"), ("cpu", "auto")):
+        cfg = TransformerConfig(**small, flash_attention=mode)
+        model = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+        losses = []
+        result = transform_dense(bigram_batches(3, 4, 128, 256, seed=1), lambda m, b, c=cfg: lm_loss(m, b, c),
+                                 DenseParameterServer(model, sgd(0.1)),
+                                 on_step=lambda i, loss, out=losses: out.append(float(loss)))
+        runs[mode] = (np.array(losses), transformer_params_to_numpy(result.server_outputs[0]))
+    (card_l, card_p), (cpu_l, cpu_p) = runs["on"], runs["auto"]
+    leaves = lambda t: [t["embed"], t["final_norm"]] + [v for layer in t["layers"] for v in layer.values()]  # noqa: E731
+    pairs = [(card_l, cpu_l)] + list(zip(leaves(card_p), leaves(cpu_p)))
+    err = max(float(np.abs(a - b).max()) for a, b in pairs)
+    ok = all(np.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in pairs)
+    print(f"main: small LM (vocab 256, d 128, 2 layers, T 128, B 4, f32, sgd 0.1, 3 steps) card 'on' "
+          f"vs cpu 'auto': losses {card_l.round(6).tolist()} vs {cpu_l.round(6).tolist()}, "
+          f"max_abs_err over losses and params {err:.3e} (rtol=1e-4 atol=1e-5) {'ok' if ok else 'MISMATCH'}")
+    check(ok, "small LM run on the card disagrees with the CPU")
+
+
+def phase_lm(torch, dev):
+    """Transformer-base LM training at full width through the dense PS, as
+    examples/transformer_lm.py --mode single drives it."""
+    from flink_parameter_server_tpu_torch import (
+        DenseParameterServer, TransformerConfig, adamw, init_params, lm_loss, transform_dense,
+    )
+
+    _small_lm_matches_cpu(torch)
+    cfg = TransformerConfig(flash_attention="on")  # the defaults are Transformer-base, bfloat16
+    check(cfg.head_dim == LM_D and cfg.n_heads == LM_H, "Transformer-base heads changed")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    server = DenseParameterServer(model, adamw(3e-3))
+    batches = list(bigram_batches(LM_STEPS + LM_TRACED, LM_B, LM_T, cfg.vocab_size, seed=0))
+    loss_fn = lambda m, b: lm_loss(m, b, cfg)  # noqa: E731
+    losses, stamps = [], []
+
+    def on_step(i, loss):
+        losses.append(float(loss))  # synchronises once a step
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    result = transform_dense(batches[:LM_STEPS], loss_fn, server, on_step=on_step)
+    torch.cuda.synchronize()
+    per_run = cfg.n_layers * LM_STEPS
+    counts = read_counts("transform_dense (LM)", {name: per_run for name in FLASH})
+    peak = torch.cuda.max_memory_allocated()
+    tokens = LM_B * LM_T
+    rate = (LM_STEPS - LM_WARMUP) * tokens / (stamps[-1] - stamps[LM_WARMUP - 1])
+    steps_ms = [round((b - a) * 1e3, 3) for a, b in zip(stamps[LM_WARMUP - 1:], stamps[LM_WARMUP:])]
+    print(f"main: LM Transformer-base ({n_params} params, {str(cfg.dtype).replace('torch.', '')}, "
+          f"flash on) {LM_STEPS} steps of "
+          f"{LM_B}x{LM_T} tokens, adamw(3e-3): loss by step {[round(x, 4) for x in losses]}")
+    print(f"main: LM {rate:.0f} tokens/s after {LM_WARMUP} warm-up steps (one sync a step), "
+          f"step ms {steps_ms}, peak memory {peak / 2**30:.2f} GiB")
+    check(len(losses) == LM_STEPS and all(np.isfinite(losses)), "LM losses missing or not finite")
+    check(statistics.fmean(losses[-5:]) < losses[0], "LM loss did not fall")
+    final = result.server_outputs[0]
+    check(all(bool(torch.isfinite(p).all()) for p in final.parameters()), "non-finite LM parameters")
+    _trace_lm_steps(torch, final, loss_fn, batches[LM_STEPS:], statistics.median(steps_ms))
+    return {name: counts[name] for name in FLASH}
+
+
+def _trace_lm_steps(torch, model, loss_fn, batches, step_ms):
+    """Where an LM step's time goes, outside the counted run.  First the
+    steps with no synchronisation between them (the host may run ahead of
+    the card), on the host clock; then the same steps under torch.profiler:
+    device time by kernel family (the flash kernels, the matrix products,
+    the rest), the device's idle share against ``step_ms`` (the counted
+    run's median step), and the host operators that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_parameter_server_tpu_torch import adamw, make_dense_train_step
+    from flink_parameter_server_tpu_torch.core.transform import to_device
+
+    step = make_dense_train_step(loss_fn)
+    opt = adamw(3e-3)(model.parameters())
+    dev = next(model.parameters()).device
+
+    def run():
+        for batch in batches:
+            step(model, opt, to_device(batch, dev))
+        torch.cuda.synchronize()
+
+    run()  # warm: the optimizer's state
+    t0 = time.perf_counter()
+    run()
+    free_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    # kernel events only: an operator's row, and a range such as
+    # Optimizer.step's, repeat their kernels' time
+    kernels = [ev for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False) and "#" not in ev.key]
+    rules = (("flash", ("fps::flash_",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+             ("softmax", ("softmax",)), ("optimizer", ("multi_tensor",)), ("copy", ("copy",)))
+    families = dict.fromkeys([name for name, _ in rules] + ["other"], 0.0)
+    for ev in kernels:
+        key = ev.key.lower()
+        family = next((name for name, marks in rules if any(m in key for m in marks)), "other")
+        families[family] += ev.self_device_time_total
+    busy = sum(families.values())
+    if busy <= 0:
+        print("trace: torch.profiler showed no device time; the step breakdown is not measured")
+        return
+    per_step = busy / 1e3 / len(batches)
+    shares = ", ".join(f"{k} {v / 1e3 / len(batches):.3f} ms ({v / busy:.1%})" for k, v in families.items())
+    print(f"trace: {len(batches)} LM steps, device time a step by family: {shares}; device busy "
+          f"{per_step:.3f} ms a step against the counted run's median step {step_ms:.3f} ms "
+          f"(idle {1 - per_step / step_ms:.1%})")
+    print(f"trace: with no synchronisation between steps a step takes {free_ms:.3f} ms on the host clock")
+    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"trace:   device {ev.self_device_time_total / 1e3 / len(batches):9.3f} ms a step  "
+              f"{ev.count // len(batches):4d}x  {ev.key[:90]}")
+    host = [ev for ev in prof.key_averages() if not str(ev.device_type).endswith("CUDA")]
+    for ev in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"trace:   host {ev.self_cpu_time_total / 1e3 / len(batches):9.3f} ms a step  "
+              f"{ev.count // len(batches):4d}x  {ev.key[:90]}")
 
 
 def phase_timing(torch, dev, gen, launches, errs):
@@ -305,7 +535,8 @@ def phase_timing(torch, dev, gen, launches, errs):
     ops = n * d + unique * d
     rows.append(_row("scatter_add", "flink_parameter_server_tpu_torch/csrc/scatter_add.cu",
                      "flink_parameter_server_tpu/ops/pallas_scatter.py:73", launches, errs,
-                     k_ms, p_ms, l_ms, nbytes, ops / F32_OPS_PER_S, unique, f"({NUM_ITEMS},{d}) f32"))
+                     k_ms, p_ms, l_ms, nbytes, ops / F32_OPS_PER_S,
+                     f"({NUM_ITEMS},{d}) f32, {BATCH} lanes, {unique} unique rows"))
 
     # K2: the fused step, dense float32 dim 128
     d = DIM_FUSED
@@ -323,16 +554,66 @@ def phase_timing(torch, dev, gen, launches, errs):
     ops = n * (9 * d + 4) + unique * d
     rows.append(_row("fused_mf_sgd", "flink_parameter_server_tpu_torch/csrc/fused_mf.cu",
                      "flink_parameter_server_tpu/ops/pallas_mf.py:65", launches, errs,
-                     k_ms, p_ms, None, nbytes, ops / F32_OPS_PER_S, unique, f"({NUM_ITEMS},{d}) f32"))
+                     k_ms, p_ms, None, nbytes, ops / F32_OPS_PER_S,
+                     f"({NUM_ITEMS},{d}) f32, {BATCH} lanes, {unique} unique rows"))
+    rows += _flash_timing(torch, dev, gen, flush, launches, errs)
     return rows
 
 
-def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, unique, shape):
+def _flash_timing(torch, dev, gen, flush, launches, errs):
+    """K3a/b/c at the LM's shape (bfloat16).  Bound: the larger of the
+    bytes (each input read once, each output written once) over 3.35 TB/s
+    and the products of the 64 x 64 tiles the causal mask keeps over the
+    bfloat16 tensor-core peak.  Library: scaled_dot_product_attention,
+    forward for K3a and its backward (dQ, dK and dV together) for K3b and
+    K3c; it is timed here only and the port never calls it."""
+    import torch.nn.functional as F
+
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = LM_B, LM_T, LM_H, LM_D
+    q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    elems, stat = B * T * H * D * q.element_size(), B * H * T * 4
+    n = T // fa.BLOCK
+    tile_products = n * (n + 1) // 2 * B * H * 2 * fa.BLOCK * fa.BLOCK * D  # flops of one product per kept tile
+
+    heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]  # (B, H, T, D) views
+    out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
+    do_h = do.transpose(1, 2)
+    sdpa_fwd = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+        *(t.detach() for t in heads), is_causal=True, scale=1.0), flush)
+    sdpa_bwd = gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do_h, retain_graph=True), flush)
+    cases = [
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v), sdpa_fwd,
+         4 * elems + stat, 2 * tile_products, ":1137 forward"),
+        ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
+         lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse), sdpa_bwd,
+         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ"),
+        ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+         lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), sdpa_bwd,
+         6 * elems + 2 * stat, 4 * tile_products, ":2196 dK/dV"),
+    ]
+    rows = []
+    for name, kernel, plain, l_ms, nbytes, flops, splash in cases:
+        k_ms = gpu_ms(torch, kernel, flush)
+        p_ms = gpu_ms(torch, plain, flush, reps=5)
+        rows.append(_row(
+            name, "flink_parameter_server_tpu_torch/csrc/flash_attn.cu",
+            f"flink_parameter_server_tpu/ops/flash_attention.py:117 (splash_attention_kernel.py{splash})",
+            launches, errs, k_ms, p_ms, l_ms, nbytes, flops / BF16_OPS_PER_S,
+            f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in kept tiles, "
+            f"{launches[name] // LM_STEPS} launches a step"))
+    return rows
+
+
+def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, detail):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_s * 1e3
     bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     lib = "n/a" if l_ms is None else f"{l_ms:.4f} ms"
-    print(f"timing: {name} {shape}, {BATCH} lanes, {unique} unique rows: kernel {k_ms:.4f} ms, "
+    print(f"timing: {name} {detail}: kernel {k_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B), plain {p_ms:.4f} ms, library {lib}")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

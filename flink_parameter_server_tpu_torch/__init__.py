@@ -2,11 +2,13 @@
 
 A port of ``flink_parameter_server_tpu`` (JAX on a TPU) to PyTorch on an
 NVIDIA H100.  The JAX package stays the reference; this package imports
-nothing of it and nothing of JAX.  This slice covers the online-MF main
-path: per-id init, the parameter store, the batched PS loop and the two
-hand-written CUDA kernels on it (the sorted scatter-add push and the fused
-MF-SGD step).  Entry points run on ``cuda`` unless given ``device="cpu"``;
-on the CPU each kernel's plain torch version runs instead.
+nothing of it and nothing of JAX.  Two paths are ported: online MF (per-id
+init, the parameter store, the batched PS loop, and the sorted scatter-add
+and fused MF-SGD kernels) and Transformer LM training through the dense
+parameter server (the model, optax-default optimizers, and the causal
+flash-attention forward, dQ and dK/dV kernels).  Entry points run on
+``cuda`` unless given ``device="cpu"``; on the CPU each kernel's plain torch
+version runs instead.
 
 Quickstart::
 
@@ -19,8 +21,20 @@ Quickstart::
                           num_items=1200, dim=16, scatter_impl="pallas",
                           device="cuda")
     item_factors = result.store.values()
+
+and the LM (``batches`` yields ``{"tokens": (B, T) int array}``)::
+
+    from flink_parameter_server_tpu_torch import (
+        DenseParameterServer, TransformerConfig, adamw, init_params, lm_loss,
+        transform_dense)
+
+    cfg = TransformerConfig(flash_attention="on")
+    server = DenseParameterServer(init_params(cfg, device="cuda"), adamw(3e-3))
+    result = transform_dense(batches, lambda m, b: lm_loss(m, b, cfg), server)
 """
 from .core.batched import BatchedWorkerLogic, PushRequest
+from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
+from .core.optim import adam, adamw, sgd
 from .core.store import ShardedParamStore, StoreSpec
 from .core.transform import (
     TransformResult,
@@ -33,12 +47,34 @@ from .models.matrix_factorization import (
     SGDUpdater,
     ps_online_mf,
 )
+from .models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    forward,
+    init_params,
+    lm_loss,
+    next_token_xent,
+)
+from .ops.flash_attention import flash_mha
 from .ops.mf_kernel import make_fused_mf_train_step
 from .utils.initializers import normal_factor, ranged_random_factor, zeros
 
 __all__ = [
     "BatchedWorkerLogic",
     "PushRequest",
+    "DenseParameterServer",
+    "make_dense_train_step",
+    "transform_dense",
+    "adam",
+    "adamw",
+    "sgd",
+    "TransformerConfig",
+    "TransformerLM",
+    "forward",
+    "init_params",
+    "lm_loss",
+    "next_token_xent",
+    "flash_mha",
     "ShardedParamStore",
     "StoreSpec",
     "TransformResult",

@@ -16,15 +16,19 @@ From the JAX side::
 
 and back: ``to_numpy(store.table)`` is the reference's physical table
 (``jax.numpy.asarray(arr, spec.dtype)``), ``to_numpy(state)`` its state.
+
+The LM's parameter pytree crosses the same way, leaf for leaf
+(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from .core.store import ShardedParamStore, StoreSpec
+from .models.transformer import TransformerConfig, TransformerLM
 from .utils.device import DeviceLike, check_mesh, resolve_device
 
 _DTYPES = {
@@ -88,4 +92,41 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-__all__ = ["torch_dtype", "spec_from_reference", "store_from_numpy", "state_from_numpy", "to_numpy"]
+_LAYER_KEYS = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_up", "w_down")
+
+
+def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
+                                  device: DeviceLike = None) -> TransformerLM:
+    """The LM from the reference's parameter pytree as numpy (``embed``,
+    ``final_norm``, ``layers[i].{attn_norm, wqkv, wo, mlp_norm, w_up,
+    w_down}``; bfloat16 leaves widened to float32).  Layouts are the
+    reference's, so the copy is element for element: weights narrow to
+    ``cfg.dtype``, norm gains stay float32."""
+    dev = resolve_device(device)
+
+    def leaf(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
+
+    layers = [
+        {key: leaf(layer[key], torch.float32 if key.endswith("norm") else cfg.dtype) for key in _LAYER_KEYS}
+        for layer in tree["layers"]
+    ]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, cfg.n_layers={cfg.n_layers}")
+    return TransformerLM(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32),
+                         layers)
+
+
+def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
+    """The reference's pytree layout as numpy (bfloat16 widened to float32)."""
+    return {
+        "embed": to_numpy(model.embed),
+        "final_norm": to_numpy(model.final_norm),
+        "layers": [{key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS} for layer in model.layers],
+    }
+
+
+__all__ = [
+    "torch_dtype", "spec_from_reference", "store_from_numpy", "state_from_numpy", "to_numpy",
+    "transformer_params_from_numpy", "transformer_params_to_numpy",
+]

@@ -1,0 +1,253 @@
+"""Decoder-only Transformer LM: the dense data-parallel configuration.
+
+Counterpart of ``flink_parameter_server_tpu/models/transformer.py``
+(BASELINE config #5, "Transformer-base LM data-parallel"), trained through
+:class:`..core.dense.DenseParameterServer`.  Parameters live in an
+``nn.Module`` whose names and layouts are the reference pytree's
+(``embed``, ``final_norm``, ``layers[i].{attn_norm, wqkv, wo, mlp_norm,
+w_up, w_down}``; ``wqkv`` is ``(d, 3d)`` used as ``h @ W``), so weights
+cross element for element (``interop.transformer_params_from_numpy``).
+
+Numerics follow the reference: weights and activations in ``cfg.dtype``
+(bfloat16 by default), RMSNorm and RoPE in float32, norm gains float32,
+tanh-approximated GELU (``jax.nn.gelu``'s default), float32 logits from
+the tied embedding.  Attention goes through the flash kernels
+(``ops/flash_attention.py``) when eligible, else the O(T²) reference.
+
+Single-device: ring attention, tensor / sequence / pipeline parallelism
+(ROADMAP Queue 1 #9) and switch-MoE layers (Queue 1 #10) raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops import flash_attention as _flash
+from ..parallel.ring_attention import reference_attention
+from ..utils.device import DeviceLike, check_mesh, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32_000
+    d_model: int = 512
+    n_heads: int = 8
+    n_layers: int = 6
+    d_ff: int = 2048
+    max_seq: int = 1024
+    dtype: torch.dtype = torch.bfloat16
+    use_ring_attention: bool = False
+    # "auto": the flash kernels when eligible (a CUDA tensor, T % 128 == 0,
+    # head_dim % 64 == 0, no mesh; a head width the kernels lack raises),
+    # else the reference path; "on": the kernels or an error; "off": always
+    # the reference path
+    flash_attention: str = "auto"
+    # recompute each block in the backward pass (activation memory per
+    # layer O(T·d_model) instead of O(T·d_ff))
+    remat: bool = False
+    # the reference's parallelism and MoE fields; anything but these
+    # defaults raises until the Queue item named in __post_init__
+    dp_axis: Optional[str] = "dp"
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    pp_axis: Optional[str] = None
+    num_experts: int = 0
+    ep_axis: Optional[str] = None
+    moe_capacity: int = 0
+
+    def __post_init__(self):
+        if self.flash_attention not in ("auto", "on", "off"):
+            raise ValueError(
+                f"flash_attention must be 'auto', 'on' or 'off', got {self.flash_attention!r}"
+            )
+        if self.num_experts > 0 or self.ep_axis is not None or self.moe_capacity:
+            raise NotImplementedError(
+                "switch-MoE layers (num_experts, ep_axis, moe_capacity) are not ported yet: "
+                "ROADMAP Queue 1 #10"
+            )
+        if self.dp_axis != "dp" or self.use_ring_attention or self.sp_axis or self.tp_axis or self.pp_axis:
+            raise NotImplementedError(
+                "ring attention, a dp_axis other than 'dp' and tp/sp/pp model parallelism "
+                "are multi-device: "
+                "ROADMAP Queue 1 #9"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of n_heads {self.n_heads}")
+        return self.d_model // self.n_heads
+
+
+class TransformerBlock(nn.Module):
+    """One pre-norm residual block's parameters (attention + MLP)."""
+
+    def __init__(self, attn_norm, wqkv, wo, mlp_norm, w_up, w_down):
+        super().__init__()
+        self.attn_norm = nn.Parameter(attn_norm)
+        self.wqkv = nn.Parameter(wqkv)
+        self.wo = nn.Parameter(wo)
+        self.mlp_norm = nn.Parameter(mlp_norm)
+        self.w_up = nn.Parameter(w_up)
+        self.w_down = nn.Parameter(w_down)
+
+
+class TransformerLM(nn.Module):
+    """The LM's parameters; ``model(tokens)`` is :func:`forward`."""
+
+    def __init__(self, cfg: TransformerConfig, embed: torch.Tensor, final_norm: torch.Tensor,
+                 layers: List[Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed)
+        self.final_norm = nn.Parameter(final_norm)
+        self.layers = nn.ModuleList(TransformerBlock(**layer) for layer in layers)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, tokens, self.cfg)
+
+
+def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> TransformerLM:
+    """A freshly initialised LM on ``device`` (``cuda`` by default).
+
+    The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
+    float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
+    ``(2·n_layers·f)**-0.5`` (w_down) and 0.02 (the tied embedding), cast
+    to ``cfg.dtype``; norm gains float32 ones.  The draws come from
+    ``generator`` (seed 0 on the CPU if None), not from JAX's keys."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def dense(shape, scale):
+        w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale
+        return w.to(dev, cfg.dtype)
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=dev)
+
+    embed = dense((cfg.vocab_size, d), 0.02)
+    layers = [
+        dict(
+            attn_norm=ones(),
+            wqkv=dense((d, 3 * d), d**-0.5),
+            wo=dense((d, d), (2 * cfg.n_layers * d) ** -0.5),
+            mlp_norm=ones(),
+            w_up=dense((d, f), d**-0.5),
+            w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5),
+        )
+        for _ in range(cfg.n_layers)
+    ]
+    return TransformerLM(cfg, embed, ones(), layers)
+
+
+def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    return (xf * scale * gain).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rotary position embedding on (B, T, H, D), half-split (not interleaved)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[:, :, None, None].to(torch.float32) * freqs  # B, T, 1, half
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _unsharded_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+    """The flash kernels when eligible (see TransformerConfig.flash_attention),
+    else the O(T²) reference."""
+    T, Dh = q.shape[1], q.shape[3]
+    if cfg.flash_attention == "off":
+        return reference_attention(q, k, v)
+    if _flash.eligible(T, Dh, q.device):
+        return _flash.flash_mha(q, k, v)
+    if cfg.flash_attention == "on":
+        # "on" means the kernels or an error: a quiet reference fallback
+        # would mislabel measurements
+        raise ValueError(
+            f"flash_attention='on' but the flash path is ineligible (device={q.device}, "
+            f"T={T}, head_dim={Dh}); flash needs a CUDA tensor, T % 128 == 0, "
+            f"head_dim % 64 == 0 and no mesh. Use 'auto' to fall back gracefully."
+        )
+    return reference_attention(q, k, v)
+
+
+def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfig) -> torch.Tensor:
+    """One pre-norm residual block (attention + MLP) on (B, T, d)."""
+    B, T, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.head_dim
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    h = _rmsnorm(x, layer.attn_norm)
+    qkv = (h @ layer.wqkv).reshape(B, T, 3, H, Dh)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    q = _rope(q, positions)
+    k = _rope(k, positions)
+    attn = _unsharded_attention(q, k, v, cfg).reshape(B, T, H * Dh)
+    x = x + attn @ layer.wo
+    h = _rmsnorm(x, layer.mlp_norm)
+    return x + F.gelu(h @ layer.w_up, approximate="tanh") @ layer.w_down
+
+
+def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            mesh: Optional[Any] = None) -> torch.Tensor:
+    """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits."""
+    check_mesh(mesh)
+    tokens = torch.as_tensor(tokens, device=params.embed.device)
+    T = tokens.shape[1]
+    if T > cfg.max_seq:
+        raise ValueError(f"sequence length {T} > max_seq {cfg.max_seq}")
+    x = params.embed[tokens.long()]
+    for layer in params.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_apply_block, x, layer, cfg, use_reentrant=False)
+        else:
+            x = _apply_block(x, layer, cfg)
+    x = _rmsnorm(x, params.final_norm)
+    return (x @ params.embed.T.to(x.dtype)).to(torch.float32)
+
+
+def next_token_xent(logits: torch.Tensor, tokens: torch.Tensor,
+                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy: targets are the tokens shifted left, the
+    last position is masked; optional (B,) or (B, T) row mask."""
+    tokens = torch.as_tensor(tokens, device=logits.device).long()
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    if row_mask is not None:
+        row_mask = torch.as_tensor(row_mask, device=logits.device).to(nll.dtype)
+        if row_mask.ndim == 1:  # (B,) row mask from microbatches()
+            row_mask = row_mask[:, None]
+        mask = mask * row_mask
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def lm_loss(params: TransformerLM, batch: Dict[str, Any], cfg: TransformerConfig, *,
+            mesh: Optional[Any] = None) -> torch.Tensor:
+    """Next-token cross entropy through :func:`forward`."""
+    tokens = batch["tokens"]
+    logits = forward(params, tokens, cfg, mesh=mesh)
+    return next_token_xent(logits, tokens, batch.get("mask"))
+
+
+__all__ = [
+    "TransformerConfig",
+    "TransformerBlock",
+    "TransformerLM",
+    "init_params",
+    "forward",
+    "next_token_xent",
+    "lm_loss",
+]

@@ -1,0 +1,140 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+``reference_attention`` against the reference's; the flash path's plain
+versions (``flash_mha_plain`` — the tiles, online softmax and explicit
+backward the CUDA kernels compute) against the splash kernel run in
+interpret mode and against the reference attention.  Bars, those of
+tests/test_flash_attention.py: float32 forward atol 1e-5, bfloat16 0.02,
+float32 gradients 1e-4.  The same inputs, made with numpy, go to both.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flink_parameter_server_tpu.ops.flash_attention import flash_mha as ref_flash_mha
+from flink_parameter_server_tpu.parallel.ring_attention import reference_attention as ref_attention
+from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+from flink_parameter_server_tpu_torch.parallel.ring_attention import reference_attention
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _qkv(B, T, H, D, dtype="float32", seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [(rng.normal(size=(B, T, H, D)) * 0.5).astype(np.float32) for _ in range(3)]
+    jdt, tdt = DTYPES[dtype]
+    return [jnp.asarray(a, jdt) for a in arrs], [torch.from_numpy(a).to(tdt) for a in arrs]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6), ("bfloat16", 0.02)])
+def test_reference_attention_matches(dtype, tol):
+    (jq, jk, jv), (q, k, v) = _qkv(2, 48, 3, 16, dtype)
+    got, want = reference_attention(q, k, v), ref_attention(jq, jk, jv)
+    assert got.dtype == q.dtype  # bfloat16 stays bfloat16, as in the reference
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    np.testing.assert_allclose(
+        _np(reference_attention(q, k, v, causal=False)), _np(ref_attention(jq, jk, jv, causal=False)),
+        atol=tol,
+    )
+
+
+@pytest.mark.parametrize(
+    "B,T,H,D,dtype,tol",
+    [(2, 128, 2, 64, "float32", 1e-5), (1, 128, 2, 128, "float32", 1e-5), (1, 128, 2, 64, "bfloat16", 0.02)],
+)
+def test_plain_flash_forward_matches_splash_and_reference(B, T, H, D, dtype, tol):
+    (jq, jk, jv), (q, k, v) = _qkv(B, T, H, D, dtype, seed=D)
+    got = fa.flash_mha_plain(q, k, v)
+    assert got.shape == q.shape and got.dtype == v.dtype
+    np.testing.assert_allclose(_np(got), _np(ref_flash_mha(jq, jk, jv, interpret=True)), atol=tol)
+    np.testing.assert_allclose(_np(got), _np(ref_attention(jq, jk, jv)), atol=tol)
+    # on a CPU tensor flash_mha is the plain path, and launches nothing
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    torch.testing.assert_close(fa.flash_mha(q, k, v), got, rtol=0, atol=0)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
+def _grads(fn, q, k, v):
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    fn(q, k, v).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+def test_plain_flash_gradients_match_splash():
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 2, 64)
+    want = jax.grad(lambda a, b, c: ref_flash_mha(a, b, c, interpret=True).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(_grads(fa.flash_mha_plain, q, k, v), want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4)
+
+
+def test_causal_tile_skip_at_256(monkeypatch):
+    """T 256 is four 64-row tiles: the plain versions skip the six tiles
+    above the diagonal and mask inside the four on it."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 256, 2, 64, seed=3)
+    np.testing.assert_allclose(_np(fa.flash_mha_plain(q, k, v)), _np(ref_attention(jq, jk, jv)), atol=1e-5)
+    want = jax.grad(lambda a, b, c: ref_attention(a, b, c).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(_grads(fa.flash_mha_plain, q, k, v), want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-4)
+    visited = []
+    real = fa._probs
+
+    def spy(qh, kh, lse, rows, cols, diagonal, above):
+        visited.append((rows.start // fa.BLOCK, cols.start // fa.BLOCK))
+        return real(qh, kh, lse, rows, cols, diagonal, above)
+
+    monkeypatch.setattr(fa, "_probs", spy)
+    _grads(fa.flash_mha_plain, q, k, v)
+    assert sorted(set(visited)) == [(i, j) for i in range(4) for j in range(i + 1)]
+    assert len(visited) == 2 * 10  # dQ and dK/dV each visit the ten kept tiles once
+
+
+def test_kernel_plain_pieces_fit_together():
+    """O and L from the forward, D from the dQ pass: L is the row
+    log-sum-exp of the scaled, masked scores and D = rowsum(dO * O)."""
+    _, (q, k, v) = _qkv(1, 128, 2, 64, seed=5)
+    o, lse = fa.flash_fwd(q, k, v)
+    s = torch.einsum("bthd,bshd->bhts", q, k).masked_fill(torch.ones(128, 128, dtype=torch.bool).triu(1),
+                                                          float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5, atol=1e-5)
+    do = torch.ones_like(o)
+    _, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    torch.testing.assert_close(delta, o.sum(-1).permute(0, 2, 1), rtol=1e-5, atol=1e-5)
+
+
+def test_shape_gate_and_errors():
+    assert fa.supports_shape(128, 64) and fa.supports_shape(2048, 128)
+    assert not fa.supports_shape(100, 64) and not fa.supports_shape(128, 65)
+    assert not fa.supports_shape(64, 64)
+    q = torch.zeros(1, 100, 2, 64)
+    with pytest.raises(ValueError, match="T % 128"):
+        fa.flash_mha(q, q, q)
+    assert not fa.eligible(128, 64, "cpu")
+    # the reference's gate: any D % 64 on cuda; the wrappers refuse a head width the kernels lack
+    assert fa.eligible(128, 256, "cuda") and fa.eligible(256, 64, "cuda")
+    assert not fa.eligible(128, 64, "cuda", mesh=object()) and not fa.eligible(128, 96, "cuda")
+    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+        fa.eligible_dp(128, 64, 4, mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+        fa.flash_mha_dp(q, q, q, mesh=None)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,match",
+    [((1, 128, 2, 64), torch.float16, "float32 or bfloat16"), ((1, 128, 2, 256), torch.float32, "head_dim"),
+     ((1, 96, 2, 64), torch.float32, "T % 64")],
+)
+def test_kernel_wrappers_reject_what_the_kernels_lack(shape, dtype, match):
+    """The wrappers check on the CPU what the kernels take on the card."""
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_fwd(x, x, x)

@@ -9,12 +9,15 @@ of JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 suite.)  Tolerances: float32 1e-5 relative (the kernel splits a hot run
 over warps, so its sums are added in another order than the plain
 version's); bfloat16 one unit in the last place of the table's values;
-int32 exact.
+int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
+largest value (float32 dot products in another order); bfloat16 outputs
+one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 """
 import numpy as np
 import pytest
 import torch
 
+from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 from flink_parameter_server_tpu_torch.ops import mf_kernel, scatter_kernel
 
 torch.set_num_threads(2)
@@ -143,3 +146,97 @@ def test_store_push_on_card_goes_through_the_kernel(cuda):
     )
     assert scatter_kernel.sorted_scatter_add.launches == before + 1
     torch.testing.assert_close(gpu.values().cpu(), cpu.values(), rtol=1e-5, atol=1e-5)
+
+
+def _close(got, want, dtype):
+    scale = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-8 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize(
+    "B,T,H,D,dtype",
+    [(1, 64, 1, 64, torch.float32), (2, 192, 3, 64, torch.float32), (1, 256, 2, 128, torch.float32),
+     (2, 128, 2, 64, torch.bfloat16), (1, 192, 2, 128, torch.bfloat16)],
+)
+def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    qkv = (torch.randn(B, T, 3, H, D, generator=g, device=cuda) * 0.8).to(dtype)
+    q = (qkv[:, :, 0].float() * D**-0.5).to(dtype).contiguous()
+    k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the model passes them
+    do = torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        c + 1 for c in counts)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o, do, lse)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    _close(o, o_p, dtype)
+    for got, want in ((lse, lse_p), (delta, delta_p)):
+        _close(got, want, torch.float32)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        _close(got, want, dtype)
+
+
+def test_flash_mha_on_card_matches_plain_with_grads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=g, device=cuda) * 0.5 for _ in range(3))
+
+    def run(fn):
+        a, b, c = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(a, b, c)
+        out.square().sum().backward()
+        return [out.detach(), a.grad, b.grad, c.grad]
+
+    for got, want in zip(run(fa.flash_mha), run(fa.flash_mha_plain)):
+        _close(got, want, torch.float32)
+
+
+def test_flash_kernels_reject_what_they_lack(cuda):
+    half = torch.zeros(1, 128, 2, 64, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_fwd(half, half, half)
+    wide = torch.zeros(1, 128, 2, 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(wide, wide, wide)
+
+
+def test_lm_auto_at_a_head_width_the_kernels_lack_raises(cuda):
+    """head_dim 256 is eligible, as in the reference; "auto" then reaches
+    the kernel wrappers, which refuse it, and never runs the reference."""
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=256, n_heads=1, n_layers=1, d_ff=64,
+                               max_seq=128, dtype=torch.float32, flash_attention="auto")
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    tokens = torch.zeros(1, 128, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tr.forward(model, tokens, cfg)
+
+
+def test_lm_on_card_goes_through_the_flash_kernels(cuda):
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=128, n_heads=2, n_layers=2, d_ff=128,
+                               max_seq=128, dtype=torch.float32, flash_attention="on")
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    tokens = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(1)).to(cuda)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    tr.lm_loss(model, {"tokens": tokens}, cfg).backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        c + 2 for c in counts)
+    got = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    import dataclasses
+
+    off = dataclasses.replace(cfg, flash_attention="off")
+    tr.lm_loss(model, {"tokens": tokens}, off).backward()
+    for a, p in zip(got, model.parameters()):
+        torch.testing.assert_close(a, p.grad, rtol=1e-4, atol=1e-6)
