@@ -16,8 +16,11 @@ line each; any failure exits non-zero before the last line:
              MF kernels at the MF path's full width (131,072 items,
              65,536-lane Zipf microbatch), float32, bfloat16, int32 and
              packed tables; the flash-attention forward, dQ and dK/dV at
-             the LM's shape (B 16, T 512, H 8, D 64, bfloat16) and at B 2,
-             T 1024, H 8, D 128 in float32.
+             the LM's shape (B 16, T 512, H 8, D 64, bfloat16), at B 2,
+             T 1024, H 8, D 128 in float32, and at head_dim 256 (B 2,
+             T 1024, H 4) in both dtypes; for each bfloat16 output the
+             error of scaled_dot_product_attention against the same plain
+             version is printed beside the kernel's, as a yardstick.
   3. main    ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -59,6 +62,8 @@ BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
 LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
 LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BOUND_TILE = 64  # the causal tiling the flash bound counts, fixed to the work, not to a kernel's tiles
+TENSOR_CORES, SIMT = "tensor cores (bf16 mma.sync)", "SIMT (float32 FMA)"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -156,9 +161,48 @@ def phase_build():
     print(f"build: {', '.join(_cuda.SOURCES)} ready in {time.perf_counter() - t0:.2f} s "
           f"({len(built)} compiled now, the rest found in {_cuda.BUILD_DIR})")
     for name, report in built.items():  # ptxas: registers and spills of each kernel
-        for line in report.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"build: {name}: {line.strip()}")
+        kernels = ptxas_report(report)
+        for kernel, (regs, spill) in kernels.items():
+            print(f"build: {name}: {kernel}: {regs} registers, {spill} bytes spilled")
+        spilled = sorted(k for k, (_, b) in kernels.items() if b)
+        print(f"build: {name}: {len(kernels)} kernels, {len(spilled)} spill: {spilled or 'none'}")
+
+
+def ptxas_report(text: str) -> dict:
+    """``{kernel: (registers, spill store bytes)}`` from ``-Xptxas -v``."""
+    import re
+
+    out, kernel, spill = {}, None, 0
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel, spill = entry.group(1), 0
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = int(stores.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and kernel:
+            out[_demangled(kernel)] = (int(regs.group(1)), spill)
+    return out
+
+
+def _demangled(symbol: str) -> str:
+    """fps::name<template args> from an Itanium-mangled kernel symbol, as far
+    as these kernels need: the name, then each type (f, 13__nv_bfloat16) or
+    integer (Li64E) argument."""
+    import re
+
+    m = re.match(r"_ZN3fps(\d+)", symbol)
+    if not m:
+        return symbol
+    n = int(m.group(1))
+    name = symbol[m.end():m.end() + n]
+    rest = symbol[m.end() + n:]
+    args = []
+    if rest.startswith("I"):
+        for tok in re.finditer(r"Li(\d+)E|13__nv_bfloat16|(?<=[IE])f", rest.split("EEv")[0] + "E"):
+            args.append(tok.group(1) or ("bf16" if "bfloat" in tok.group(0) else "float"))
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def _compare(torch, name, got, want, rtol, atol, exact=False):
@@ -251,19 +295,27 @@ def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
 
 def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
-    shape in bfloat16 and at a longer, wider float32 shape.
+    shape in bfloat16, at a longer, wider float32 shape, and at head_dim
+    256 in both dtypes (bfloat16 runs the tensor-core forward and dK/dV,
+    float32 the SIMT kernels).
 
     Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
     for K1: both sides sum the same float32 products in another order.
     bfloat16: the outputs (O, dQ, dK, dV) are rounded to bfloat16 from
-    float32 values that differ only in summation order, so they may land
-    one bfloat16 unit apart: rtol 2**-7 and atol 2**-8 of the largest value
-    (about 2**-8 relative).  L and D stay float32 in both, so they keep the
-    float32 bar."""
+    float32 values that differ only in summation order (the forward's P
+    split into two bf16 operands carries it to about 2**-16; the dK/dV
+    kernel rounds P and dS to bfloat16 as its plain version does), so they
+    may land one bfloat16 unit apart: rtol 2**-7 and atol 2**-8 of the
+    largest value (about 2**-8 relative).  L and D stay float32 in both, so
+    they keep the float32 bar.  For each bfloat16 output,
+    scaled_dot_product_attention's own error against the same plain
+    version is printed: the bar is no looser than the library's error."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    for B, T, H, D, dtype in ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (2, 1024, 8, 128, torch.float32)):
+    shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (2, 1024, 8, 128, torch.float32),
+              (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32))
+    for B, T, H, D, dtype in shapes:
         q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
         o, lse = fa.flash_fwd(q, k, v)
         dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
@@ -283,9 +335,25 @@ def _flash_checks(torch, dev, gen):
             "flash_bwd_dkv": max(_compare(torch, f"flash_bwd_dkv dK {label}", dk, dk_p, **tol),
                                  _compare(torch, f"flash_bwd_dkv dV {label}", dv, dv_p, **tol)),
         }
+        if dtype == torch.bfloat16:
+            _sdpa_yardstick(torch, label, q, k, v, do, {"O": o_p, "dQ": dq_p, "dK": dk_p, "dV": dv_p})
         if not errs:  # the LM's shape: the error the kernels line reports
             errs = found
     return errs
+
+
+def _sdpa_yardstick(torch, label, q, k, v, do, plain):
+    """scaled_dot_product_attention's max error against the plain versions
+    on the same bfloat16 inputs (timed nowhere, called nowhere in the port)."""
+    import torch.nn.functional as F
+
+    heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]  # (B, H, T, D) views
+    out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
+    grads = torch.autograd.grad(out, heads, do.transpose(1, 2))
+    lib = {"O": out.detach().transpose(1, 2), "dQ": grads[0].transpose(1, 2), "dK": grads[1].transpose(1, 2),
+           "dV": grads[2].transpose(1, 2)}
+    errs = ", ".join(f"{n} {float((lib[n].double() - plain[n].double()).abs().max()):.3e}" for n in plain)
+    print(f"check: yardstick {label}: scaled_dot_product_attention vs the plain versions: {errs}")
 
 
 def _small_run_matches_cpu(torch):
@@ -576,8 +644,8 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
     o, lse = fa.flash_fwd(q, k, v)
     dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
     elems, stat = B * T * H * D * q.element_size(), B * H * T * 4
-    n = T // fa.BLOCK
-    tile_products = n * (n + 1) // 2 * B * H * 2 * fa.BLOCK * fa.BLOCK * D  # flops of one product per kept tile
+    n = T // BOUND_TILE
+    tile_products = n * (n + 1) // 2 * B * H * 2 * BOUND_TILE * BOUND_TILE * D  # flops of one product per kept tile
 
     heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]  # (B, H, T, D) views
     out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
@@ -587,16 +655,16 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
     sdpa_bwd = gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do_h, retain_graph=True), flush)
     cases = [
         ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v), sdpa_fwd,
-         4 * elems + stat, 2 * tile_products, ":1137 forward"),
+         4 * elems + stat, 2 * tile_products, ":1137 forward", TENSOR_CORES),
         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
          lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse), sdpa_bwd,
-         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ"),
+         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ", SIMT),
         ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), sdpa_bwd,
-         6 * elems + 2 * stat, 4 * tile_products, ":2196 dK/dV"),
+         6 * elems + 2 * stat, 4 * tile_products, ":2196 dK/dV", TENSOR_CORES),
     ]
     rows = []
-    for name, kernel, plain, l_ms, nbytes, flops, splash in cases:
+    for name, kernel, plain, l_ms, nbytes, flops, splash, design in cases:
         k_ms = gpu_ms(torch, kernel, flush)
         p_ms = gpu_ms(torch, plain, flush, reps=5)
         rows.append(_row(
@@ -604,19 +672,19 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
             f"flink_parameter_server_tpu/ops/flash_attention.py:117 (splash_attention_kernel.py{splash})",
             launches, errs, k_ms, p_ms, l_ms, nbytes, flops / BF16_OPS_PER_S,
             f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in kept tiles, "
-            f"{launches[name] // LM_STEPS} launches a step"))
+            f"{launches[name] // LM_STEPS} launches a step", design))
     return rows
 
 
-def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, detail):
+def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, detail, design=SIMT):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_s * 1e3
     bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     lib = "n/a" if l_ms is None else f"{l_ms:.4f} ms"
-    print(f"timing: {name} {detail}: kernel {k_ms:.4f} ms, "
+    print(f"timing: {name} {detail}, {design}: kernel {k_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B), plain {p_ms:.4f} ms, library {lib}")
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "name": name, "route": "cuda", "design": design, "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": l_ms,
     }

@@ -3,9 +3,10 @@
 // Replaces the TPU kernels behind flink_parameter_server_tpu/ops/
 // flash_attention.py (_make_kernel: JAX's splash attention).  Splash runs
 // three pallas_calls for training with its default block sizes: the
-// forward (splash_attention_kernel.py flash_attention_kernel), dQ
-// (_flash_attention_dq_kernel) and dK/dV (_flash_attention_dkv_kernel).
-// This file has one kernel for each:
+// forward (splash_attention_kernel.py pallas_call :1137, body
+// flash_attention_kernel), dQ (:1635, _flash_attention_dq_kernel) and
+// dK/dV (:2196, _flash_attention_dkv_kernel).  This file has one kernel
+// for each, and two routes for the forward and dK/dV:
 //
 //   flash_fwd     O = softmax(q k^T + causal) v with an online softmax over
 //                 key tiles; writes O and the float32 log-sum-exp L = m +
@@ -16,41 +17,65 @@
 //   flash_bwd_dkv one block per key tile, over the query tiles at or below
 //                 the diagonal: dV = sum P^T dO, dK = sum dS^T q.
 //
+// Routes.  bfloat16 inputs take the tensor-core kernels (flash_fwd_mma,
+// flash_bwd_dkv_mma): bf16 mma.sync m16n8k16 with float32 sums, operands
+// fed by ldmatrix from bf16 tiles that cp.async streams through a
+// two-stage ring.  float32 inputs, and the dQ kernel in both types, take
+// the SIMT kernels: float32 FMAs on the CUDA cores.  The tensor cores have
+// no mode that keeps float32's digits (TF32 keeps about three decimal
+// digits; the float32 bar is rtol 1e-5), so float32 stays on the CUDA
+// cores.  dQ is the next kernel to move to the tensor cores.
+//
 // q arrives scaled by 1/sqrt(D) (the wrapper scales it, as splash's caller
 // does), so no kernel scales.  Every score, softmax statistic and sum is
-// float32 whatever the load type (float32 or bfloat16); outputs are written
-// in the load type.  No atomics: every output element is summed by one
-// thread in a fixed order, so results are the same on every run.
+// float32 whatever the load type; outputs are written in the load type.
+// Roundings are the reference's: the forward keeps P in float32 (splash
+// multiplies float32 P by v cast to float32) by splitting it into two bf16
+// operands, hi + lo, and the dK/dV kernel rounds P and dS to bf16 before
+// their products with dO and q, as splash's dK/dV kernel does.  No atomics:
+// every output element is summed by one thread in a fixed order, so results
+// are the same on every run.
 //
 // What bounds them on an H100.  At the LM's shape (B 16, T 512, H 8, D 64,
 // bf16) the bytes (q, k, v, O in and out once, ~34 MB, ~10 us) outweigh
-// the tensor-core time of the kept tiles (~5 us).  These kernels do their
-// products with float32 FMAs on the CUDA cores (67 TFLOP/s, about 64 us
-// for the forward), so operations bound them, and, more than the FMA rate,
-// the shared-memory reads behind each FMA: a thread reads one q and one k
-// value for every four FMAs of its 4 x 4 sub-tile.  What the design does:
-// a 64 x 64 (query x key) tile in shared memory, rows padded by one float
-// so the 16 rows a warp reads fall in 16 banks; tiles wholly above the
-// causal diagonal are never loaded or computed, and only the diagonal tile
-// applies the mask; the longest query rows are scheduled first.
-// Tensor-core products (mma.sync / wgmma), TMA loads and pipelining are
-// later work.
+// the tensor-core time of the kept 64 x 64 tiles (~5 us forward, ~7 us
+// with the forward's third product).  What the designs do:
 //
-// Thread layout: 256 threads as 16 x 16 (ty, tx).  A thread owns rows
-// ty + 16 i and columns tx + 16 j (i, j < 4) of a 64 x 64 tile, and output
-// columns tx + 16 c (c < D / 16) of its four rows.  The 16 threads of a row
-// sit in one half-warp, so row reductions are four xor shuffles.
+//   tensor-core kernels: a block owns 64 rows (4 warps x 16; where a
+//   warp's float32 accumulators would crowd out its score fragments, two
+//   sets of 4 warps split the output columns: dK/dV above D 64, the
+//   forward at D 256), streams 64-row
+//   tiles of the other side through the cp.async ring so the next tile's
+//   load overlaps this tile's products, keeps scores in registers and turns
+//   a product's accumulators into the next product's A operand without
+//   shared memory.  Tile rows are padded by 16 B so the eight rows of an
+//   ldmatrix fall in eight different banks.
+//   SIMT kernels: a kT x kT (query x key) tile in shared memory, kT 64 or,
+//   where 64-row float tiles outgrow shared memory, 32; rows padded by one
+//   float so the 16 rows a warp reads fall in 16 banks.
+//
+// Both skip tiles wholly above the causal diagonal (never loaded or
+// computed), mask only the diagonal tile, and schedule the longest query
+// rows first.
+//
+// SIMT thread layout: 256 threads as 16 x 16 (ty, tx).  A thread owns rows
+// ty + 16 i and columns tx + 16 j (i, j < kT / 16) of a tile, and output
+// columns tx + 16 c (c < D / 16) of its rows.  The 16 threads of a row sit
+// in one half-warp, so row reductions are four xor shuffles.
+#include "mma.cuh"
 #include "runs.cuh"
 
 #include <math.h>
 
+#include <type_traits>
+
 namespace fps {
 
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kSide = 16;       // threads per side of the 16 x 16 block
+using bf16 = __nv_bfloat16;
+
+constexpr int kSide = 16;  // threads per side of the SIMT kernels' 16 x 16 block
 constexpr int kThreads = kSide * kSide;
-constexpr int kPer = kTile / kSide;  // rows (and columns) of a tile per thread
-constexpr int kPad = kTile + 1;      // row stride of a 64 x 64 score tile in shared memory
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on an H100
 
 // Element strides of one (B, T, H, D) tensor; the last dimension is contiguous.
 struct Layout {
@@ -58,9 +83,9 @@ struct Layout {
 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // Sum (or max) over the 16 threads of a row: lanes tx = 0..15 of one half-warp.
 __device__ __forceinline__ float row_sum(float v) {
@@ -74,60 +99,64 @@ __device__ __forceinline__ float row_max(float v) {
   return v;
 }
 
-// Rows [row0, row0 + 64) of head (b, h) into shared memory as float, row
+// ---- SIMT kernels (float32 FMAs) ----
+
+// Rows [row0, row0 + kT) of head (b, h) into shared memory as float, row
 // stride D + 1.  Consecutive threads read consecutive columns.
-template <typename T, int D>
+template <typename T, int D, int kT>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, const Layout& lay, int b, int h,
                                           int row0) {
   const T* base = src + b * lay.b + h * lay.h + static_cast<int64_t>(row0) * lay.t;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < kT * D; i += kThreads) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] = load_f(base + r * lay.t + c);
   }
 }
 
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d]   (A B^T on a 64 x 64 tile)
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[kPer][kPer], const float* A, const float* B,
-                                         int ty, int tx) {
+// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d]   (A B^T on a kT x kT tile)
+template <int D, int kT>
+__device__ __forceinline__ void tile_abt(float (&acc)[kT / kSide][kT / kSide], const float* A,
+                                         const float* B, int ty, int tx) {
+  constexpr int P = kT / kSide;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[kPer], b[kPer];
+    float a[P], b[P];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) a[i] = A[(ty + kSide * i) * (D + 1) + d];
+    for (int i = 0; i < P; ++i) a[i] = A[(ty + kSide * i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) b[j] = B[(tx + kSide * j) * (D + 1) + d];
+    for (int j = 0; j < P; ++j) b[j] = B[(tx + kSide * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) acc[i][j] += a[i] * b[j];
+      for (int j = 0; j < P; ++j) acc[i][j] += a[i] * b[j];
   }
 }
 
-// out[i][c] += sum_kk S[ty + 16 i][kk] * V[kk][tx + 16 c]   (S V with S 64 x 64)
-template <int D>
-__device__ __forceinline__ void tile_sv(float (&out)[kPer][D / kSide], const float* S, const float* V,
-                                        int ty, int tx) {
+// out[i][c] += sum_kk S[ty + 16 i][kk] * V[kk][tx + 16 c]   (S V with S kT x kT, row stride kT + 1)
+template <int D, int kT>
+__device__ __forceinline__ void tile_sv(float (&out)[kT / kSide][D / kSide], const float* S,
+                                        const float* V, int ty, int tx) {
+  constexpr int P = kT / kSide;
 #pragma unroll 4
-  for (int kk = 0; kk < kTile; ++kk) {
-    float s[kPer];
+  for (int kk = 0; kk < kT; ++kk) {
+    float s[P];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) s[i] = S[(ty + kSide * i) * kPad + kk];
+    for (int i = 0; i < P; ++i) s[i] = S[(ty + kSide * i) * (kT + 1) + kk];
 #pragma unroll
     for (int c = 0; c < D / kSide; ++c) {
       const float v = V[kk * (D + 1) + tx + kSide * c];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) out[i][c] += s[i] * v;
+      for (int i = 0; i < P; ++i) out[i][c] += s[i] * v;
     }
   }
 }
 
-// Write a thread's rows of a 64 x D float tile to a contiguous (B, T, H, D) output.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[kPer][D / kSide], int b, int h,
-                                           int H, int T_len, int row0, int ty, int tx) {
+// Write a thread's rows of a kT x D float tile to a contiguous (B, T, H, D) output.
+template <typename T, int D, int kT>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide][D / kSide], int b,
+                                           int h, int H, int T_len, int row0, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < kT / kSide; ++i) {
     const int64_t row = row0 + ty + kSide * i;
     T* dst = out + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
 #pragma unroll
@@ -135,32 +164,41 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[kPer][D / 
   }
 }
 
-template <int D>
-constexpr int fwd_smem_floats() { return 3 * kTile * (D + 1) + kTile * kPad; }
-template <int D>
-constexpr int dq_smem_floats() { return 4 * kTile * (D + 1) + kTile * kPad; }
-template <int D>
-constexpr int dkv_smem_floats() { return 4 * kTile * (D + 1) + 2 * kTile * kPad + 2 * kTile; }
+template <int D, int kT>
+constexpr int fwd_smem_floats() { return 3 * kT * (D + 1) + kT * (kT + 1); }
+template <int D, int kT>
+constexpr int dq_smem_floats() { return 4 * kT * (D + 1) + kT * (kT + 1); }
+template <int D, int kT>
+constexpr int dkv_smem_floats() { return 4 * kT * (D + 1) + 2 * kT * (kT + 1) + 2 * kT; }
 
-// grid (T / 64, B * H): block x takes query tile T/64 - 1 - x (longest first).
-template <typename T, int D>
+// Tile rows of each SIMT kernel: 64, or 32 where 64-row float tiles do not
+// fit in shared memory (dQ and dK/dV at D 256).
+template <int D>
+constexpr int fwd_tile() { return fwd_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
+template <int D>
+constexpr int dq_tile() { return dq_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
+template <int D>
+constexpr int dkv_tile() { return dkv_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
+
+// grid (T / kT, B * H): block x takes query tile T/kT - 1 - x (longest first).
+template <typename T, int D, int kT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layout lv, T* o,
                  float* lse, int H, int T_len) {
+  constexpr int P = kT / kSide, C = D / kSide;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTile * (D + 1);
-  float* Vs = Ks + kTile * (D + 1);
-  float* Ps = Vs + kTile * (D + 1);
-  constexpr int C = D / kSide;
+  float* Ks = Qs + kT * (D + 1);
+  float* Vs = Ks + kT * (D + 1);
+  float* Ps = Vs + kT * (D + 1);
   const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
 
-  load_tile<T, D>(Qs, q, lq, b, h, qt * kTile);
-  float m[kPer], l[kPer], acc[kPer][C];
+  load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
+  float m[P], l[P], acc[P][C];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < P; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -169,33 +207,33 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layou
 
   for (int kt = 0; kt <= qt; ++kt) {  // key tiles above the diagonal are skipped
     __syncthreads();  // the previous tile's Ks, Vs, Ps are consumed
-    load_tile<T, D>(Ks, k, lk, b, h, kt * kTile);
-    load_tile<T, D>(Vs, v, lv, b, h, kt * kTile);
+    load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
+    load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
     __syncthreads();
-    float s[kPer][kPer];
+    float s[P][P];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-    tile_abt<D>(s, Qs, Ks, ty, tx);
+      for (int j = 0; j < P; ++j) s[i][j] = 0.f;
+    tile_abt<D, kT>(s, Qs, Ks, ty, tx);
     if (kt == qt) {  // the diagonal tile: key column > query row is masked
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
+      for (int i = 0; i < P; ++i)
 #pragma unroll
-        for (int j = 0; j < kPer; ++j)
+        for (int j = 0; j < P; ++j)
           if (tx + kSide * j > ty + kSide * i) s[i][j] = -INFINITY;
     }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
+    for (int i = 0; i < P; ++i) {
       float mx = s[i][0];
 #pragma unroll
-      for (int j = 1; j < kPer; ++j) mx = fmaxf(mx, s[i][j]);
+      for (int j = 1; j < P; ++j) mx = fmaxf(mx, s[i][j]);
       // every row keeps key 0 of tile 0, so m_new is finite from the first tile on
       const float m_new = fmaxf(m[i], row_max(mx));
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < P; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         sum += s[i][j];
       }
@@ -204,48 +242,48 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layou
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) Ps[(ty + kSide * i) * kPad + tx + kSide * j] = s[i][j];
+      for (int j = 0; j < P; ++j) Ps[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = s[i][j];
     }
     __syncthreads();
-    tile_sv<D>(acc, Ps, Vs, ty, tx);
+    tile_sv<D, kT>(acc, Ps, Vs, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < P; ++i) {
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] *= inv;
-    if (tx == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kTile + ty + kSide * i] = m[i] + logf(l[i]);
+    if (tx == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
   }
-  store_rows<T, D>(o, acc, b, h, H, T_len, qt * kTile, ty, tx);
+  store_rows<T, D, kT>(o, acc, b, h, H, T_len, qt * kT, ty, tx);
 }
 
-// grid (T / 64, B * H): block x takes query tile T/64 - 1 - x.  Also writes
+// grid (T / kT, B * H): block x takes query tile T/kT - 1 - x.  Also writes
 // delta = rowsum(dO * O) for the dK/dV kernel.
-template <typename T, int D>
+template <typename T, int D, int kT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* o, const T* dout, Layout lq,
                     Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse, float* delta,
                     T* dq, int H, int T_len) {
+  constexpr int P = kT / kSide, C = D / kSide;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kTile * (D + 1);
-  float* Ks = dOs + kTile * (D + 1);
-  float* Vs = Ks + kTile * (D + 1);
-  float* Ss = Vs + kTile * (D + 1);
-  constexpr int C = D / kSide;
+  float* dOs = Qs + kT * (D + 1);
+  float* Ks = dOs + kT * (D + 1);
+  float* Vs = Ks + kT * (D + 1);
+  float* Ss = Vs + kT * (D + 1);
   const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kTile;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT;
 
-  load_tile<T, D>(Qs, q, lq, b, h, qt * kTile);
-  load_tile<T, D>(dOs, dout, ldo, b, h, qt * kTile);
-  load_tile<T, D>(Ks, o, lo, b, h, qt * kTile);  // O, for delta only
+  load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
+  load_tile<T, D, kT>(dOs, dout, ldo, b, h, qt * kT);
+  load_tile<T, D, kT>(Ks, o, lo, b, h, qt * kT);  // O, for delta only
   __syncthreads();
-  float L[kPer], Di[kPer], acc[kPer][C];
+  float L[P], Di[P], acc[P][C];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int r = ty + kSide * i;
     float part = 0.f;
 #pragma unroll
@@ -259,95 +297,426 @@ flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* o, const T* dou
 
   for (int kt = 0; kt <= qt; ++kt) {
     __syncthreads();
-    load_tile<T, D>(Ks, k, lk, b, h, kt * kTile);
-    load_tile<T, D>(Vs, v, lv, b, h, kt * kTile);
+    load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
+    load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
     __syncthreads();
-    float s[kPer][kPer], dp[kPer][kPer];
+    float s[P][P], dp[P][P];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D>(s, Qs, Ks, ty, tx);
-    tile_abt<D>(dp, dOs, Vs, ty, tx);
+      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_abt<D, kT>(s, Qs, Ks, ty, tx);
+    tile_abt<D, kT>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < P; ++j) {
         const bool masked = kt == qt && tx + kSide * j > ty + kSide * i;
         const float p = masked ? 0.f : expf(s[i][j] - L[i]);
-        Ss[(ty + kSide * i) * kPad + tx + kSide * j] = p * (dp[i][j] - Di[i]);
+        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = p * (dp[i][j] - Di[i]);
       }
     __syncthreads();
-    tile_sv<D>(acc, Ss, Ks, ty, tx);
+    tile_sv<D, kT>(acc, Ss, Ks, ty, tx);
   }
-  store_rows<T, D>(dq, acc, b, h, H, T_len, qt * kTile, ty, tx);
+  store_rows<T, D, kT>(dq, acc, b, h, H, T_len, qt * kT, ty, tx);
 }
 
-// grid (T / 64, B * H): block x takes key tile x (the lowest tiles see the
+// grid (T / kT, B * H): block x takes key tile x (the lowest tiles see the
 // most query tiles, so they start first).  Thread rows are key rows.
-template <typename T, int D>
+template <typename T, int D, int kT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, Layout lq, Layout lk,
                      Layout lv, Layout ldo, const float* lse, const float* delta, T* dk, T* dv,
                      int H, int T_len) {
+  constexpr int P = kT / kSide, C = D / kSide;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kTile * (D + 1);
-  float* Qs = Vs + kTile * (D + 1);
-  float* dOs = Qs + kTile * (D + 1);
-  float* Pt = dOs + kTile * (D + 1);  // P^T: key row x query column
-  float* dSt = Pt + kTile * kPad;     // dS^T
-  float* Ls = dSt + kTile * kPad;
-  float* Ds = Ls + kTile;
-  constexpr int C = D / kSide;
+  float* Vs = Ks + kT * (D + 1);
+  float* Qs = Vs + kT * (D + 1);
+  float* dOs = Qs + kT * (D + 1);
+  float* Pt = dOs + kT * (D + 1);  // P^T: key row x query column
+  float* dSt = Pt + kT * (kT + 1);  // dS^T
+  float* Ls = dSt + kT * (kT + 1);
+  float* Ds = Ls + kT;
   const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
   const int kt = blockIdx.x;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
 
-  load_tile<T, D>(Ks, k, lk, b, h, kt * kTile);
-  load_tile<T, D>(Vs, v, lv, b, h, kt * kTile);
-  float dK[kPer][C], dV[kPer][C];
+  load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
+  load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
+  float dK[P][C], dV[P][C];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) dK[i][c] = dV[i][c] = 0.f;
 
   for (int qt = kt; qt < static_cast<int>(gridDim.x); ++qt) {  // query tiles at or below the diagonal
     __syncthreads();
-    load_tile<T, D>(Qs, q, lq, b, h, qt * kTile);
-    load_tile<T, D>(dOs, dout, ldo, b, h, qt * kTile);
-    if (threadIdx.x < kTile) {
-      const int64_t at = static_cast<int64_t>(blockIdx.y) * T_len + qt * kTile + threadIdx.x;
+    load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
+    load_tile<T, D, kT>(dOs, dout, ldo, b, h, qt * kT);
+    if (threadIdx.x < kT) {
+      const int64_t at = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + threadIdx.x;
       Ls[threadIdx.x] = lse[at];
       Ds[threadIdx.x] = delta[at];
     }
     __syncthreads();
-    float s[kPer][kPer], dp[kPer][kPer];
+    float s[P][P], dp[P][P];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D>(s, Ks, Qs, ty, tx);    // s[i][j] = k[key i] . q[query j]
-    tile_abt<D>(dp, Vs, dOs, ty, tx);  // dp[i][j] = v[key i] . dO[query j]
+      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_abt<D, kT>(s, Ks, Qs, ty, tx);    // s[i][j] = k[key i] . q[query j]
+    tile_abt<D, kT>(dp, Vs, dOs, ty, tx);  // dp[i][j] = v[key i] . dO[query j]
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < P; ++j) {
         const int key = ty + kSide * i, query = tx + kSide * j;
         const bool masked = qt == kt && key > query;
         const float p = masked ? 0.f : expf(s[i][j] - Ls[query]);
-        Pt[key * kPad + query] = p;
-        dSt[key * kPad + query] = p * (dp[i][j] - Ds[query]);
+        Pt[key * (kT + 1) + query] = p;
+        dSt[key * (kT + 1) + query] = p * (dp[i][j] - Ds[query]);
       }
     __syncthreads();
-    tile_sv<D>(dV, Pt, dOs, ty, tx);
-    tile_sv<D>(dK, dSt, Qs, ty, tx);
+    tile_sv<D, kT>(dV, Pt, dOs, ty, tx);
+    tile_sv<D, kT>(dK, dSt, Qs, ty, tx);
   }
-  store_rows<T, D>(dk, dK, b, h, H, T_len, kt * kTile, ty, tx);
-  store_rows<T, D>(dv, dV, b, h, H, T_len, kt * kTile, ty, tx);
+  store_rows<T, D, kT>(dk, dK, b, h, H, T_len, kt * kT, ty, tx);
+  store_rows<T, D, kT>(dv, dV, b, h, H, T_len, kt * kT, ty, tx);
+}
+
+// ---- tensor-core kernels (bf16 mma.sync) ----
+
+constexpr int kMma = 64;  // rows of every tile: a block's own 64 rows (4 warps x 16) and each streamed tile
+
+// Row stride in shared memory, in bf16: D + 8, so consecutive rows start
+// 16 B further along the 128-B bank cycle and the eight row addresses of
+// an ldmatrix hit eight different bank groups.
+template <int D>
+__host__ __device__ constexpr int row_stride() { return D + 8; }
+
+// Rows [row0, row0 + 64) of head (b, h) into shared memory with cp.async,
+// 16 B a thread per copy, kN threads.  Needs 16-byte aligned rows (the
+// wrapper checks the pointers and strides).
+template <int D, int kN>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, const Layout& lay, int b, int h,
+                                           int row0) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  const bf16* base = src + b * lay.b + h * lay.h + static_cast<int64_t>(row0) * lay.t;
+  for (int i = threadIdx.x; i < kMma * kChunks; i += kN) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    cp_async_16(dst + r * row_stride<D>() + c, base + r * lay.t + c);
+  }
+}
+
+// Where each lane points ldmatrix_x4 at a 16 x 16 piece of a row-major
+// tile (row r, column c relative to the piece):
+//   A operand, rows = the product's rows:            r = lane % 16,                 c = 8 (lane / 16)
+//   B operand, rows = n (the product's columns):     r = 8 (lane / 16) + lane % 8,  c = 8 (lane / 8 % 2)
+//     -> r[0], r[1] are b0, b1 of columns 0-7; r[2], r[3] of columns 8-15
+//   B operand, rows = k, transposed (P V, P^T dO):   r = 8 (lane / 8 % 2) + lane % 8, c = 8 (lane / 16)
+//     -> the same registers, for the tile's columns 0-7 and 8-15
+struct Lanes {
+  int a_row, a_col, b_row, b_col, t_row, t_col, g, t4;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : a_row(lane % 16), a_col(8 * (lane / 16)), b_row(8 * (lane / 16) + lane % 8),
+        b_col(8 * (lane / 8 % 2)), t_row(8 * (lane / 8 % 2) + lane % 8), t_col(8 * (lane / 16)),
+        g(lane / 4), t4(lane % 4) {}
+};
+
+// The forward's shape by head width, from ptxas's register report (no
+// spills): at D 256 two sets of four warps split O's columns, both
+// computing the same S, so that a lane holds 64 O accumulators, not 128;
+// above D 64 a warp takes its 64-key tile in two softmax steps of 32 keys.
+template <int D>
+__host__ __device__ constexpr int fwd_splits() { return D <= 192 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int fwd_key_step() { return D <= 64 ? 64 : 32; }
+template <int D>
+constexpr int fwd_mma_smem_bytes() { return 5 * kMma * row_stride<D>() * 2; }  // Q, 2 x K, 2 x V
+
+// grid (T / 64, B * H), 128 x fwd_splits threads: block x takes query tile
+// T/64 - 1 - x (longest first).  Warp w owns query rows 16 (w % 4) .. + 15
+// of the tile and O's columns (w / 4) D / splits onwards; lane (g, t4)
+// holds rows g and g + 8 of them.
+template <int D>
+__global__ void __launch_bounds__(128 * fwd_splits<D>())
+flash_fwd_mma_kernel(const bf16* q, const bf16* k, const bf16* v, Layout lq, Layout lk, Layout lv,
+                     bf16* o, float* lse, int H, int T_len) {
+  constexpr int kN = 128 * fwd_splits<D>(), DS = D / fwd_splits<D>(), KS = fwd_key_step<D>();
+  constexpr int S = row_stride<D>(), kTileElems = kMma * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kTileElems;      // two stages
+  bf16* Vs = Ks + 2 * kTileElems;  // two stages
+  const Lanes ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % 4), c0 = DS * (warp / 4);  // query rows and O columns of the warp
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+
+  tile_async<D, kN>(Qs, q, lq, b, h, qt * kMma);
+  tile_async<D, kN>(Ks, k, lk, b, h, 0);
+  tile_async<D, kN>(Vs, v, lv, b, h, 0);
+  cp_async_commit();
+
+  float acc[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  for (int kt = 0; kt <= qt; ++kt) {  // key tiles above the diagonal are skipped
+    const int st = kt & 1;
+    if (kt < qt) {  // the next tile streams in while this one is used
+      tile_async<D, kN>(Ks + (st ^ 1) * kTileElems, k, lk, b, h, (kt + 1) * kMma);
+      tile_async<D, kN>(Vs + (st ^ 1) * kTileElems, v, lv, b, h, (kt + 1) * kMma);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * kTileElems;
+    const bf16* Vt = Vs + st * kTileElems;
+
+#pragma unroll
+    for (int kc = 0; kc < kMma; kc += KS) {  // keys kc .. kc + KS - 1 of the tile
+      float s[KS / 8][4];  // S = q k^T: 16 rows x KS keys, 16 x 8 pieces
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, Qs + (w0 + ln.a_row) * S + 16 * kd + ln.a_col);
+#pragma unroll
+        for (int n = 0; n < KS / 8; n += 2) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, Kt + (kc + 8 * n + ln.b_row) * S + 16 * kd + ln.b_col);
+          mma_bf16(s[n], a, bb[0], bb[1]);
+          mma_bf16(s[n + 1], a, bb[2], bb[3]);
+        }
+      }
+      if (kt == qt) {  // the diagonal tile: key column > query row is masked
+#pragma unroll
+        for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kc + 8 * n + 2 * ln.t4 + (e & 1) > w0 + ln.g + 8 * (e >> 1)) s[n][e] = -INFINITY;
+      }
+      // online softmax; the four lanes of a row group (xor 1, 2) share its rows
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        alpha[i] = expf(m[i] - mx[i]);  // every row keeps key 0 of tile 0, so mx is finite
+        m[i] = mx[i];
+      }
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - mx[e >> 1]);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DS / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // O += P v with P = hi + lo, both bf16: P keeps float32's digits
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {  // keys kc + 16 kk .. + 15
+        uint32_t hi[4], lo[4];
+        acc_to_a_split(hi, lo, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < DS / 8; n += 2) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, Vt + (kc + 16 * kk + ln.t_row) * S + c0 + 8 * n + ln.t_col);
+          mma_bf16(acc[n], hi, bb[0], bb[1]);
+          mma_bf16(acc[n], lo, bb[0], bb[1]);
+          mma_bf16(acc[n + 1], hi, bb[2], bb[3]);
+          mma_bf16(acc[n + 1], lo, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = qt * kMma + w0 + ln.g + 8 * i;
+    const float inv = 1.f / l[i];
+    bf16* dst = o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) = pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (c0 == 0 && ln.t4 == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + row] = m[i] + logf(l[i]);
+  }
+}
+
+// The dK/dV kernel's warp sets: above D 64 two sets of four warps split the
+// output columns, each set holding D / 2 columns of dK and dV, and both
+// computing the same S^T and dP^T.  Above 96 columns a warp takes its 64
+// query columns in four passes of 16, so that its scores fit beside the
+// accumulators (ptxas's register report: no spills).
+template <int D>
+__host__ __device__ constexpr int dkv_splits() { return D <= 64 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_pass() { return D / dkv_splits<D>() <= 96 ? 64 : 16; }
+template <int D>
+constexpr int dkv_mma_smem_bytes() {  // K, V, 2 x q, 2 x dO, 2 x (L, D)
+  return 6 * kMma * row_stride<D>() * 2 + 4 * kMma * 4;
+}
+
+// grid (T / 64, B * H), 128 x dkv_splits threads: block x takes key tile x
+// (the lowest tiles see the most query tiles, so they start first).  Warp
+// w owns key rows 16 (w % 4) .. + 15 and output columns (w / 4) D / splits
+// onwards.
+template <int D>
+__global__ void __launch_bounds__(128 * dkv_splits<D>())
+flash_bwd_dkv_mma_kernel(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, Layout lq,
+                         Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta,
+                         bf16* dk, bf16* dv, int H, int T_len) {
+  constexpr int kN = 128 * dkv_splits<D>(), DS = D / dkv_splits<D>(), QP = dkv_pass<D>();
+  constexpr int S = row_stride<D>(), kTileElems = kMma * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kTileElems;
+  bf16* Qs = Vs + kTileElems;        // two stages
+  bf16* dOs = Qs + 2 * kTileElems;   // two stages
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // two stages of 64
+  float* Ds = Ls + 2 * kMma;                                   // two stages of 64
+  const Lanes ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % 4), c0 = DS * (warp / 4);  // key rows and output columns of the warp
+  const int kt = blockIdx.x, nq = gridDim.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len;
+
+  // q, dO, L and D of query tile qt into stage st
+  auto load_queries = [&](int qt, int st) {
+    tile_async<D, kN>(Qs + st * kTileElems, q, lq, b, h, qt * kMma);
+    tile_async<D, kN>(dOs + st * kTileElems, dout, ldo, b, h, qt * kMma);
+    const int i = threadIdx.x;
+    if (i < kMma / 4) cp_async_16(Ls + st * kMma + 4 * i, lse + stat0 + qt * kMma + 4 * i);
+    else if (i < kMma / 2) cp_async_16(Ds + st * kMma + 4 * (i - kMma / 4), delta + stat0 + qt * kMma + 4 * (i - kMma / 4));
+  };
+  tile_async<D, kN>(Ks, k, lk, b, h, kt * kMma);
+  tile_async<D, kN>(Vs, v, lv, b, h, kt * kMma);
+  load_queries(kt, 0);
+  cp_async_commit();
+
+  float dK[DS / 8][4], dV[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
+
+  for (int qt = kt; qt < nq; ++qt) {  // query tiles at or below the diagonal
+    const int st = (qt - kt) & 1;
+    if (qt + 1 < nq) {  // the next tile streams in while this one is used
+      load_queries(qt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * kTileElems;
+    const bf16* dOt = dOs + st * kTileElems;
+    const float* Lt = Ls + st * kMma;
+    const float* Dt = Ds + st * kMma;
+
+#pragma unroll
+    for (int qp = 0; qp < kMma; qp += QP) {  // query columns qp .. qp + QP - 1
+      float s[QP / 8][4], dp[QP / 8][4];  // S^T = k q^T and dP^T = v dO^T: 16 keys x QP queries
+#pragma unroll
+      for (int n = 0; n < QP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, Ks + (w0 + ln.a_row) * S + 16 * kd + ln.a_col);
+        ldmatrix_x4(va, Vs + (w0 + ln.a_row) * S + 16 * kd + ln.a_col);
+#pragma unroll
+        for (int n = 0; n < QP / 8; n += 2) {
+          uint32_t qb[4], ob[4];
+          ldmatrix_x4(qb, Qt + (qp + 8 * n + ln.b_row) * S + 16 * kd + ln.b_col);
+          ldmatrix_x4(ob, dOt + (qp + 8 * n + ln.b_row) * S + 16 * kd + ln.b_col);
+          mma_bf16(s[n], ka, qb[0], qb[1]);
+          mma_bf16(s[n + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[n], va, ob[0], ob[1]);
+          mma_bf16(dp[n + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P^T = exp(S^T - L), masked above the diagonal; dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int n = 0; n < QP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = w0 + ln.g + 8 * (e >> 1), query = qp + 8 * n + 2 * ln.t4 + (e & 1);
+          const float p = (qt == kt && key > query) ? 0.f : expf(s[n][e] - Lt[query]);
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - Dt[query]);
+        }
+      // dV += P^T dO and dK += dS^T q, with P^T and dS^T rounded to bf16 as splash does
+#pragma unroll
+      for (int kk = 0; kk < QP / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < DS / 8; n += 2) {
+          uint32_t ob[4], qb[4];
+          ldmatrix_x4_trans(ob, dOt + (qp + 16 * kk + ln.t_row) * S + c0 + 8 * n + ln.t_col);
+          ldmatrix_x4_trans(qb, Qt + (qp + 16 * kk + ln.t_row) * S + c0 + 8 * n + ln.t_col);
+          mma_bf16(dV[n], pa, ob[0], ob[1]);
+          mma_bf16(dV[n + 1], pa, ob[2], ob[3]);
+          mma_bf16(dK[n], da, qb[0], qb[1]);
+          mma_bf16(dK[n + 1], da, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = kt * kMma + w0 + ln.g + 8 * i;
+    const int64_t at = ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n) = pack_bf16(dK[n][2 * i], dK[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * n) = pack_bf16(dV[n][2 * i], dV[n][2 * i + 1]);
+    }
+  }
 }
 
 // ---- launchers ----
+
+// kernel<<<grid, threads, smem, stream>>>: the CPU emulation defines its own
+#ifndef FPS_LAUNCH
+#define FPS_LAUNCH(kernel, grid, threads, smem, stream) kernel<<<grid, threads, smem, stream>>>
+#endif
 
 inline Layout layout_at(const int64_t* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -362,13 +731,25 @@ int prepare(Kernel kernel, int smem_bytes) {
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int64_t* st, void* o, float* lse,
                int B, int T_len, int H, cudaStream_t stream) {
-  const int smem = fwd_smem_floats<D>() * static_cast<int>(sizeof(float));
-  int err = prepare(flash_fwd_kernel<T, D>, smem);
-  if (err != 0) return err;
-  dim3 grid(T_len / kTile, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = fwd_mma_smem_bytes<D>();
+    static_assert(smem <= kSmemLimit, "forward tiles outgrow shared memory");
+    const auto kernel = flash_fwd_mma_kernel<D>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kMma, B * H), 128 * fwd_splits<D>(), smem, stream)(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<bf16*>(o), lse, H, T_len);
+  } else {
+    constexpr int kT = fwd_tile<D>(), smem = fwd_smem_floats<D, kT>() * 4;
+    static_assert(smem <= kSmemLimit, "forward tiles outgrow shared memory");
+    const auto kernel = flash_fwd_kernel<T, D, kT>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,11 +757,12 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const int64_t* st, const float* lse, float* delta, void* dq, int B, int T_len, int H,
               cudaStream_t stream) {
-  const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  int err = prepare(flash_bwd_dq_kernel<T, D>, smem);
+  constexpr int kT = dq_tile<D>(), smem = dq_smem_floats<D, kT>() * 4;
+  static_assert(smem <= kSmemLimit, "dQ tiles outgrow shared memory");
+  const auto kernel = flash_bwd_dq_kernel<T, D, kT>;
+  int err = prepare(kernel, smem);
   if (err != 0) return err;
-  dim3 grid(T_len / kTile, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
       layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H,
@@ -392,33 +774,51 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const int64_t* st,
                const float* lse, const float* delta, void* dk, void* dv, int B, int T_len, int H,
                cudaStream_t stream) {
-  const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  int err = prepare(flash_bwd_dkv_kernel<T, D>, smem);
-  if (err != 0) return err;
-  dim3 grid(T_len / kTile, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
-      layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = dkv_mma_smem_bytes<D>();
+    static_assert(smem <= kSmemLimit, "dK/dV tiles outgrow shared memory");
+    const auto kernel = flash_bwd_dkv_mma_kernel<D>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kMma, B * H), 128 * dkv_splits<D>(), smem, stream)(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
+        layout_at(st, 3), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_len);
+  } else {
+    constexpr int kT = dkv_tile<D>(), smem = dkv_smem_floats<D, kT>() * 4;
+    static_assert(smem <= kSmemLimit, "dK/dV tiles outgrow shared memory");
+    const auto kernel = flash_bwd_dkv_kernel<T, D, kT>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
+        layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Picks the template for (dtype, head_dim); cudaErrorInvalidValue for any other.
-#define FPS_FLASH_DISPATCH(CALL)                                                  \
-  switch (dtype * 1000 + head_dim) {                                              \
-    case fps::kF32 * 1000 + 64: return CALL(float, 64);                           \
-    case fps::kF32 * 1000 + 128: return CALL(float, 128);                         \
-    case fps::kBF16 * 1000 + 64: return CALL(__nv_bfloat16, 64);                  \
-    case fps::kBF16 * 1000 + 128: return CALL(__nv_bfloat16, 128);                \
-    default: return static_cast<int>(cudaErrorInvalidValue);                      \
+#define FPS_FLASH_DISPATCH(CALL)                                 \
+  switch (dtype * 1000 + head_dim) {                             \
+    case fps::kF32 * 1000 + 64: return CALL(float, 64);          \
+    case fps::kF32 * 1000 + 128: return CALL(float, 128);        \
+    case fps::kF32 * 1000 + 192: return CALL(float, 192);        \
+    case fps::kF32 * 1000 + 256: return CALL(float, 256);        \
+    case fps::kBF16 * 1000 + 64: return CALL(fps::bf16, 64);     \
+    case fps::kBF16 * 1000 + 128: return CALL(fps::bf16, 128);   \
+    case fps::kBF16 * 1000 + 192: return CALL(fps::bf16, 192);   \
+    case fps::kBF16 * 1000 + 256: return CALL(fps::bf16, 256);   \
+    default: return static_cast<int>(cudaErrorInvalidValue);     \
   }
 
 }  // namespace fps
 
 // strides: (b, t, h) element strides of each input in argument order, from a
 // host array.  Outputs (o, dq, dk, dv) are contiguous (B, T, H, D); lse and
-// delta contiguous (B, H, T) float32.  T must be a multiple of 64.  Each
-// returns the CUDA error code of its launch (0 = ok).
+// delta contiguous (B, H, T) float32.  T must be a multiple of 64, and
+// bfloat16 inputs 16-byte aligned rows (pointer and strides).  Each returns
+// the CUDA error code of its launch (0 = ok).
 extern "C" int fps_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                              const int64_t* strides, void* o, float* lse, int B, int T, int H,
                              void* stream) {

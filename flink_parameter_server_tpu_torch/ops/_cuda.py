@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"scatter_add": "scatter_add.cu", "fused_mf": "fused_mf.cu", "flash_attn": "flash_attn.cu"}
-_HEADERS = ("runs.cuh",)
+_HEADERS = ("runs.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

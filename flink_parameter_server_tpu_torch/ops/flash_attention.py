@@ -11,11 +11,18 @@ in ``csrc/flash_attn.cu``:
 * :func:`flash_bwd_dq` — per query tile: ``P = exp(q kᵀ - L)``, ``D =
   rowsum(dO ∘ O)``, ``dQ = Σ P ∘ (dO vᵀ - D) k``; returns ``dQ`` and ``D``.
 * :func:`flash_bwd_dkv` — per key tile, over the query tiles at or below
-  the diagonal: ``dV = Σ Pᵀ dO``, ``dK = Σ (P ∘ (dP - D))ᵀ q``.
+  the diagonal: ``dV = Σ Pᵀ dO``, ``dK = Σ (P ∘ (dP - D))ᵀ q``, with ``P``
+  and ``dS`` rounded to the inputs' dtype before those two products, as
+  splash rounds them.
 
-Every kernel skips the 64 x 64 tiles wholly above the causal diagonal and
-keeps scores, softmax statistics and sums in float32 for float32 and
-bfloat16 inputs.  Its bound on an H100 and its design are in the source.
+Two routes, by dtype: bfloat16 takes tensor-core kernels for the forward
+and dK/dV (bf16 ``mma.sync``, ``cp.async`` tile ring); float32, and dQ in
+both dtypes, take SIMT kernels (float32 FMAs), since the tensor cores have
+no mode that keeps float32's digits.  Head widths: :data:`KERNEL_HEAD_DIMS`;
+wider heads raise (a D-split, ROADMAP Queue 3).  Every kernel skips the
+tiles wholly above the causal diagonal and keeps scores, softmax
+statistics and sums in float32.  Its bound on an H100 and its design are
+in the source.
 
 Contract of :func:`flash_mha` (that of the reference's): ``(B, T, H, D)``
 in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded
@@ -38,7 +45,7 @@ from . import _cuda
 from ..utils.device import check_mesh
 
 BLOCK = 64  # query rows and key rows per tile, as in the kernels
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -150,7 +157,11 @@ def flash_bwd_dq_plain(q, k, v, o, do, lse, *, block: int = BLOCK):
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, block: int = BLOCK):
-    """Plain version of :func:`flash_bwd_dkv`.  Returns ``(dK, dV)``."""
+    """Plain version of :func:`flash_bwd_dkv`.  Returns ``(dK, dV)``.
+
+    P and dS are rounded to the inputs' dtype before their products with
+    dO and q, as splash's dK/dV kernel does (``p.astype(do.dtype)``,
+    ``ds.astype(do.dtype)``); a no-op for float32."""
     B, T, H, D = q.shape
     qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
     dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
@@ -163,9 +174,14 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, block: int = BLOCK):
             p = _probs(qh, kh, lse, rows, cols, kt == qt, above)
             dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
             ds = p * (dp - delta[:, :, rows].unsqueeze(-1))
-            dv[:, :, cols] += p.transpose(-1, -2) @ doh[:, :, rows]
-            dk[:, :, cols] += ds.transpose(-1, -2) @ qh[:, :, rows]
+            dv[:, :, cols] += _rounded(p, do.dtype).transpose(-1, -2) @ doh[:, :, rows]
+            dk[:, :, cols] += _rounded(ds, do.dtype).transpose(-1, -2) @ qh[:, :, rows]
     return _out(dk, k.dtype), _out(dv, v.dtype)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` and back."""
+    return x.to(dtype).to(torch.float32)
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -183,7 +199,10 @@ def _check(*ts: torch.Tensor) -> Tuple[int, int, int, int]:
         if t.device != ts[0].device:
             raise ValueError("flash kernel inputs must be on one device")
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}")
+        raise ValueError(
+            f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}; wider heads wait for "
+            f"a D-split (ROADMAP Queue 3)"
+        )
     if T % BLOCK:
         raise ValueError(f"flash kernels take T % {BLOCK} == 0, got T={T}")
     if B * H > 65535:
@@ -194,8 +213,16 @@ def _check(*ts: torch.Tensor) -> Tuple[int, int, int, int]:
     return B, T, H, D
 
 
-def _rows_contiguous(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy unless its rows are contiguous and
+    start on 16-byte boundaries (the tensor-core kernels copy 16 B a
+    thread).  A copy, not ``contiguous()``: a contiguous view that starts
+    off a boundary would come back as it is."""
+    step = 16 // t.element_size()
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s % step == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1
+    )
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*ts: torch.Tensor):
@@ -213,7 +240,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     B, T, H, D = _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
-    q, k, v = (_rows_contiguous(t) for t in (q, k, v))
+    q, k, v = (_rows_aligned(t) for t in (q, k, v))
     o = torch.empty((B, T, H, D), dtype=v.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch("fps_flash_fwd", q.dtype, D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v),
@@ -227,7 +254,7 @@ def flash_bwd_dq(q, k, v, o, do, lse):
     B, T, H, D = _check(q, k, v, o, do)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, do, lse)
-    q, k, v, o, do = (_rows_contiguous(t) for t in (q, k, v, o, do))
+    q, k, v, o, do = (_rows_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -243,7 +270,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
     B, T, H, D = _check(q, k, v, do)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
-    q, k, v, do = (_rows_contiguous(t) for t in (q, k, v, do))
+    q, k, v, do = (_rows_aligned(t) for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.empty((B, T, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, H, D), dtype=v.dtype, device=q.device)

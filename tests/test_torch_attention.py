@@ -5,7 +5,11 @@ versions (``flash_mha_plain`` — the tiles, online softmax and explicit
 backward the CUDA kernels compute) against the splash kernel run in
 interpret mode and against the reference attention.  Bars, those of
 tests/test_flash_attention.py: float32 forward atol 1e-5, bfloat16 0.02,
-float32 gradients 1e-4.  The same inputs, made with numpy, go to both.
+float32 gradients 1e-4; bfloat16 gradients 2**-6 of each gradient's
+largest magnitude (two bfloat16 units: the outputs round to bfloat16, and
+splash's dQ rounds dS to bfloat16 where the port's dQ keeps it float32;
+dK and dV round P and dS as splash does).  The same inputs, made with
+numpy, go to both.
 """
 import jax
 import jax.numpy as jnp
@@ -66,8 +70,12 @@ def test_plain_flash_forward_matches_splash_and_reference(B, T, H, D, dtype, tol
 
 def _grads(fn, q, k, v):
     q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
-    fn(q, k, v).sum().backward()
+    fn(q, k, v).float().sum().backward()
     return q.grad, k.grad, v.grad
+
+
+def _grad_tol(dtype, want):
+    return 1e-4 if dtype == "float32" else 2**-6 * float(np.abs(_np(want)).max())
 
 
 def test_plain_flash_gradients_match_splash():
@@ -75,6 +83,51 @@ def test_plain_flash_gradients_match_splash():
     want = jax.grad(lambda a, b, c: ref_flash_mha(a, b, c, interpret=True).sum(), argnums=(0, 1, 2))(jq, jk, jv)
     for g, w in zip(_grads(fa.flash_mha_plain, q, k, v), want):
         np.testing.assert_allclose(_np(g), _np(w), atol=1e-4)
+
+
+def test_plain_flash_bfloat16_gradients_match_splash():
+    """bfloat16 through both: the plain dK/dV rounds P and dS as splash's
+    dK/dV kernel does, so dK and dV land within a unit of splash's."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 2, 64, "bfloat16", seed=7)
+    want = jax.grad(lambda a, b, c: ref_flash_mha(a, b, c, interpret=True).astype(jnp.float32).sum(),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(_grads(fa.flash_mha_plain, q, k, v), want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(g), _np(w), atol=_grad_tol("bfloat16", w))
+
+
+_SPLASH_RUNS = {}
+
+
+def _splash_or_reference(D):
+    """Splash in interpret mode where the installed jax runs it at head
+    width D (the probe of tests/test_flash_attention.py), else the
+    reference attention."""
+    if D not in _SPLASH_RUNS:
+        z = jnp.zeros((1, 128, 1, D), jnp.float32)
+        try:
+            ref_flash_mha(z, z, z, interpret=True)
+            _SPLASH_RUNS[D] = True
+        except NotImplementedError:
+            _SPLASH_RUNS[D] = False
+    if _SPLASH_RUNS[D]:
+        return lambda a, b, c: ref_flash_mha(a, b, c, interpret=True)
+    return ref_attention
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_at_wide_heads(D, dtype):
+    """head_dim 192 and 256, which the kernels now take: forward and
+    gradients of the plain path against splash (or the reference)."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 2, D, dtype, seed=D)
+    ref = _splash_or_reference(D)
+    got = fa.flash_mha_plain(q, k, v)
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(_np(got), _np(ref(jq, jk, jv)), atol=1e-5 if dtype == "float32" else 0.02)
+    want = jax.grad(lambda a, b, c: ref(a, b, c).astype(jnp.float32).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(_grads(fa.flash_mha_plain, q, k, v), want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=_grad_tol(dtype, w))
 
 
 def test_causal_tile_skip_at_256(monkeypatch):
@@ -130,7 +183,7 @@ def test_shape_gate_and_errors():
 
 @pytest.mark.parametrize(
     "shape,dtype,match",
-    [((1, 128, 2, 64), torch.float16, "float32 or bfloat16"), ((1, 128, 2, 256), torch.float32, "head_dim"),
+    [((1, 128, 2, 64), torch.float16, "float32 or bfloat16"), ((1, 128, 2, 320), torch.float32, "head_dim"),
      ((1, 96, 2, 64), torch.float32, "T % 64")],
 )
 def test_kernel_wrappers_reject_what_the_kernels_lack(shape, dtype, match):
@@ -138,3 +191,32 @@ def test_kernel_wrappers_reject_what_the_kernels_lack(shape, dtype, match):
     x = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=match):
         fa.flash_fwd(x, x, x)
+
+
+def test_kernel_widths_and_the_error_past_them():
+    """The kernels take head_dim 64 to 256 (192 and 256 since the
+    tensor-core redesign); past that the wrappers name the open item."""
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 192, 256)
+    for D in fa.KERNEL_HEAD_DIMS:
+        x = torch.zeros(1, 64, 1, D)
+        fa.flash_fwd(x, x, x)  # the CPU takes the plain version; the check passes
+    x = torch.zeros(1, 64, 1, 320)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
+        fa.flash_fwd(x, x, x)
+
+
+def test_rows_aligned_copies_only_what_the_kernels_cannot_read():
+    """The tensor-core kernels copy 16 B a thread: rows must be contiguous
+    and start on 16-byte boundaries.  The LM's strided k/v views pass as
+    they are; a view whose rows start off a boundary is copied."""
+    qkv = torch.zeros(2, 128, 3, 2, 64, dtype=torch.bfloat16)
+    k = qkv[:, :, 1]
+    assert fa._rows_aligned(k) is k
+    flat = torch.zeros(2 * 128 * 2 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 128, 2, 64)  # starts 2 B past the allocation
+    got = fa._rows_aligned(shifted)
+    assert got is not shifted and got.data_ptr() % 16 == 0 and got.is_contiguous()
+    transposed = torch.zeros(2, 2, 128, 64, dtype=torch.bfloat16).transpose(1, 2)  # (B, T, H, D) view
+    assert fa._rows_aligned(transposed) is transposed  # rows contiguous, strides multiples of 8
+    cols = torch.zeros(2, 128, 64, 2, dtype=torch.bfloat16).transpose(2, 3)  # D not contiguous
+    assert fa._rows_aligned(cols).stride(-1) == 1

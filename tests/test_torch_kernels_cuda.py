@@ -159,7 +159,10 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize(
     "B,T,H,D,dtype",
     [(1, 64, 1, 64, torch.float32), (2, 192, 3, 64, torch.float32), (1, 256, 2, 128, torch.float32),
-     (2, 128, 2, 64, torch.bfloat16), (1, 192, 2, 128, torch.bfloat16)],
+     (2, 128, 2, 64, torch.bfloat16), (1, 192, 2, 128, torch.bfloat16),
+     (1, 192, 2, 192, torch.float32), (1, 256, 1, 256, torch.float32),  # SIMT, 64- and 32-row tiles
+     (1, 192, 2, 192, torch.bfloat16), (2, 256, 1, 256, torch.bfloat16),  # tensor cores, split warps
+     (1, 1024, 2, 64, torch.bfloat16)],  # sixteen tiles a side: the ring refilled many times
 )
 def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + D)
@@ -184,6 +187,19 @@ def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
         _close(got, want, dtype)
 
 
+def test_flash_kernels_take_rows_off_a_16_byte_boundary(cuda):
+    """bf16 tensors whose rows start 2 B past a boundary: the wrappers copy
+    them (cp.async moves 16 B a thread), and the results match."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = 1 * 128 * 2 * 64
+    flat = (torch.randn(3 * n + 1, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(1, 128, 2, 64) for i in range(3))
+    o, lse = fa.flash_fwd(q, k, v)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+    _close(o, o_p, torch.bfloat16)
+    _close(lse, lse_p, torch.float32)
+
+
 def test_flash_mha_on_card_matches_plain_with_grads(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, 256, 2, 64, generator=g, device=cuda) * 0.5 for _ in range(3))
@@ -202,22 +218,60 @@ def test_flash_kernels_reject_what_they_lack(cuda):
     half = torch.zeros(1, 128, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_fwd(half, half, half)
-    wide = torch.zeros(1, 128, 2, 256, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    wide = torch.zeros(1, 128, 2, 320, device=cuda)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
         fa.flash_fwd(wide, wide, wide)
 
 
 def test_lm_auto_at_a_head_width_the_kernels_lack_raises(cuda):
-    """head_dim 256 is eligible, as in the reference; "auto" then reaches
+    """head_dim 320 is eligible, as in the reference; "auto" then reaches
     the kernel wrappers, which refuse it, and never runs the reference."""
     from flink_parameter_server_tpu_torch.models import transformer as tr
 
-    cfg = tr.TransformerConfig(vocab_size=64, d_model=256, n_heads=1, n_layers=1, d_ff=64,
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=320, n_heads=1, n_layers=1, d_ff=64,
                                max_seq=128, dtype=torch.float32, flash_attention="auto")
     model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
     tokens = torch.zeros(1, 128, dtype=torch.int64, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
         tr.forward(model, tokens, cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_at_head_dim_256_goes_through_the_flash_kernels(cuda, dtype):
+    """d_model 512 with 2 heads: head_dim 256 runs the three kernels (SIMT
+    for float32, the tensor-core forward and dK/dV for bfloat16) and
+    matches flash_attention="off" (the reference attention).  float32:
+    rtol 1e-4 / atol 1e-6, as at head_dim 64.  bfloat16: the two paths
+    round in other places (the kernels keep float32 inside, the reference
+    rounds its einsums to bfloat16), so each gradient within 2**-4 of its
+    largest magnitude, and the loss within 1e-2."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=512, n_heads=2, n_layers=1, d_ff=128,
+                               max_seq=256, dtype=dtype, flash_attention="on")
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    tokens = torch.randint(0, 64, (2, 256), generator=torch.Generator().manual_seed(1)).to(cuda)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    loss = tr.lm_loss(model, {"tokens": tokens}, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        c + 1 for c in counts)
+    got = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    off_loss = tr.lm_loss(model, {"tokens": tokens}, dataclasses.replace(cfg, flash_attention="off"))
+    off_loss.backward()
+    if dtype == torch.float32:
+        torch.testing.assert_close(loss, off_loss, rtol=1e-5, atol=0)
+        for a, p in zip(got, model.parameters()):
+            torch.testing.assert_close(a, p.grad, rtol=1e-4, atol=1e-6)
+    else:
+        torch.testing.assert_close(loss.float(), off_loss.float(), rtol=1e-2, atol=0)
+        for a, p in zip(got, model.parameters()):
+            scale = float(p.grad.float().abs().max())
+            torch.testing.assert_close(a.float(), p.grad.float(), rtol=0, atol=2**-4 * scale)
 
 
 def test_lm_on_card_goes_through_the_flash_kernels(cuda):

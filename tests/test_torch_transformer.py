@@ -96,11 +96,11 @@ def test_eligible_head_width_the_kernels_lack_raises(monkeypatch):
     """An eligible shape goes to the kernel wrappers, which refuse a head
     width the kernels lack; "auto" never quietly runs the reference then.
     Eligibility is patched to stand for a CUDA tensor."""
-    _, cfg = _configs(d_model=256, n_heads=1, flash_attention="auto")  # head_dim 256
+    _, cfg = _configs(d_model=320, n_heads=1, flash_attention="auto")  # head_dim 320
     model = tr.init_params(cfg, device="cpu")
     monkeypatch.setattr(fa, "eligible", lambda T, D, device, mesh=None: fa.supports_shape(T, D))
     monkeypatch.setattr(tr, "reference_attention", lambda *a: pytest.fail("ran the reference"))
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
         tr.forward(model, torch.from_numpy(_tokens(1, 128)), cfg)
 
 
