@@ -17,10 +17,12 @@ line each; any failure exits non-zero before the last line:
              65,536-lane Zipf microbatch), float32, bfloat16, int32 and
              packed tables; the flash-attention forward, dQ and dK/dV at
              the LM's shape (B 16, T 512, H 8, D 64, bfloat16), at B 2,
-             T 1024, H 8, D 128 in float32, and at head_dim 256 (B 2,
-             T 1024, H 4) in both dtypes; for each bfloat16 output the
-             error of scaled_dot_product_attention against the same plain
-             version is printed beside the kernel's, as a yardstick.
+             T 1024, H 8, D 128 in float32, at head_dim 256 (B 2, T 1024,
+             H 4) in both dtypes, and at head_dim 320 and 512 (B 2,
+             T 1024, H 2; the column-split kernels) in both dtypes; for
+             each bfloat16 output the error of scaled_dot_product_attention
+             against the same plain version is printed beside the
+             kernel's, as a yardstick.
   3. main    ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -33,10 +35,15 @@ line each; any failure exits non-zero before the last line:
              step for MF, once a layer a step for the LM) and no other.
              A small run of each path is held against the CPU (plain) path
              first, and a few more LM steps are traced with torch.profiler.
+             Before the LM, small LMs at head_dim 320 (d_model 640, 2
+             heads, ``flash_attention="auto"``) in both dtypes must launch
+             the three flash kernels and match ``"off"``.
   4. timing  each kernel's median time beside its bound, its plain
              version's time and the library call's (``index_add_`` for
              the scatter-add, ``scaled_dot_product_attention`` forward and
-             backward for the flash kernels).
+             backward for the flash kernels; K3b + K3c beside the whole
+             backward); the column-split kernels' times at head_dim 320
+             and 512.
 
 The line before the last is the card's name and power limit, the last is
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +69,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
 LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
 LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPLIT_DS = (320, 512)  # head widths past 256: the column-split kernels
 BOUND_TILE = 64  # the causal tiling the flash bound counts, fixed to the work, not to a kernel's tiles
 TENSOR_CORES, SIMT = "tensor cores (bf16 mma.sync)", "SIMT (float32 FMA)"
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -295,26 +303,29 @@ def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
 
 def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
-    shape in bfloat16, at a longer, wider float32 shape, and at head_dim
-    256 in both dtypes (bfloat16 runs the tensor-core forward and dK/dV,
-    float32 the SIMT kernels).
+    shape in bfloat16, at a longer, wider float32 shape, at head_dim 256 in
+    both dtypes (bfloat16 runs the tensor-core kernels, float32 the SIMT
+    kernels), and at head_dim 320 and 512 in both dtypes (the column-split
+    SIMT kernels).
 
     Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
     for K1: both sides sum the same float32 products in another order.
     bfloat16: the outputs (O, dQ, dK, dV) are rounded to bfloat16 from
     float32 values that differ only in summation order (the forward's P
-    split into two bf16 operands carries it to about 2**-16; the dK/dV
-    kernel rounds P and dS to bfloat16 as its plain version does), so they
-    may land one bfloat16 unit apart: rtol 2**-7 and atol 2**-8 of the
-    largest value (about 2**-8 relative).  L and D stay float32 in both, so
-    they keep the float32 bar.  For each bfloat16 output,
-    scaled_dot_product_attention's own error against the same plain
-    version is printed: the bar is no looser than the library's error."""
+    split into two bf16 operands carries it to about 2**-16; the dQ kernel
+    rounds dS, and the dK/dV kernel P and dS, to bfloat16 as their plain
+    versions do), so they may land one bfloat16 unit apart: rtol 2**-7 and
+    atol 2**-8 of the largest value (about 2**-8 relative).  L and D stay
+    float32 in both, so they keep the float32 bar.  For each bfloat16
+    output, scaled_dot_product_attention's own error against the same
+    plain version is printed: the bar is no looser than the library's
+    error."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 
     errs = {}
     shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (2, 1024, 8, 128, torch.float32),
-              (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32))
+              (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
+                  (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32))
     for B, T, H, D, dtype in shapes:
         q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
         o, lse = fa.flash_fwd(q, k, v)
@@ -477,6 +488,46 @@ def _small_lm_matches_cpu(torch):
     check(ok, "small LM run on the card disagrees with the CPU")
 
 
+def _wide_lm_matches_off(torch, dev, dtype):
+    """A small LM at head_dim 320 (vocab 64, d_model 640, 2 heads, 1 layer,
+    T 256, B 2) under flash_attention="auto": one forward and backward must
+    launch each flash kernel once (the column-split kernels) and match
+    "off" (the reference attention).  Tolerances, those of the card tests:
+    float32 loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6; bfloat16 loss
+    rtol 1e-2 and each gradient within 2**-4 of its largest magnitude (the
+    reference rounds its einsums to bfloat16, the kernels keep float32)."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch import TransformerConfig, init_params, lm_loss
+
+    cfg = TransformerConfig(vocab_size=64, d_model=640, n_heads=2, n_layers=1, d_ff=128, max_seq=256,
+                            dtype=dtype, flash_attention="auto")
+    model = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    batch = {"tokens": torch.randint(0, 64, (2, 256), generator=torch.Generator().manual_seed(1)).to(dev)}
+    zero_counts()
+    loss = lm_loss(model, batch, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    name = f"small LM head_dim {cfg.head_dim} {str(dtype).replace('torch.', '')} 'auto'"
+    read_counts(name, {n: 1 for n in FLASH})
+    got = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    off = lm_loss(model, batch, dataclasses.replace(cfg, flash_attention="off"))
+    off.backward()
+    pairs = list(zip(got, (p.grad for p in model.parameters())))
+    if dtype == torch.float32:
+        ok = bool(torch.allclose(loss, off, rtol=1e-5, atol=0)) and all(
+            bool(torch.allclose(a, g, rtol=1e-4, atol=1e-6)) for a, g in pairs)
+    else:
+        ok = bool(torch.allclose(loss.float(), off.float(), rtol=1e-2, atol=0)) and all(
+            bool(torch.allclose(a.float(), g.float(), rtol=0, atol=2**-4 * float(g.float().abs().max())))
+            for a, g in pairs)
+    err = max(float((a.double() - g.double()).abs().max()) for a, g in pairs)
+    print(f"main: {name} vs 'off': loss {loss.item():.6f} vs {off.item():.6f}, "
+          f"max gradient difference {err:.3e} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name} disagrees with the reference attention")
+
+
 def phase_lm(torch, dev):
     """Transformer-base LM training at full width through the dense PS, as
     examples/transformer_lm.py --mode single drives it."""
@@ -485,6 +536,8 @@ def phase_lm(torch, dev):
     )
 
     _small_lm_matches_cpu(torch)
+    for dtype in (torch.float32, torch.bfloat16):
+        _wide_lm_matches_off(torch, dev, dtype)
     cfg = TransformerConfig(flash_attention="on")  # the defaults are Transformer-base, bfloat16
     check(cfg.head_dim == LM_D and cfg.n_heads == LM_H, "Transformer-base heads changed")
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -658,7 +711,7 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
          4 * elems + stat, 2 * tile_products, ":1137 forward", TENSOR_CORES),
         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
          lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse), sdpa_bwd,
-         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ", SIMT),
+         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ", TENSOR_CORES),
         ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), sdpa_bwd,
          6 * elems + 2 * stat, 4 * tile_products, ":2196 dK/dV", TENSOR_CORES),
@@ -673,7 +726,32 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
             launches, errs, k_ms, p_ms, l_ms, nbytes, flops / BF16_OPS_PER_S,
             f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in kept tiles, "
             f"{launches[name] // LM_STEPS} launches a step", design))
+    dq_ms, dkv_ms = rows[1]["ms"], rows[2]["ms"]
+    print(f"timing: the backward, K3b + K3c {dq_ms:.4f} + {dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms "
+          f"against scaled_dot_product_attention's whole backward (dQ, dK, dV) {sdpa_bwd:.4f} ms "
+          f"({(dq_ms + dkv_ms) / sdpa_bwd:.2f}x)")
+    _split_timing(torch, dev, gen, flush)
     return rows
+
+
+def _split_timing(torch, dev, gen, flush):
+    """The column-split kernels (head widths past 256) at B 2, T 1024, H 2:
+    each kernel's median time, beside the same kernel at head_dim 256 (its
+    own template) for scale."""
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (256,) + SPLIT_DS:
+            q, k, v, do = flash_inputs(torch, dev, gen, 2, 1024, 2, D, dtype)
+            o, lse = fa.flash_fwd(q, k, v)
+            dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+            times = [gpu_ms(torch, fn, flush) for fn in (
+                lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))]
+            route = "column-split SIMT" if D in SPLIT_DS else "own template"
+            print(f"timing: (B 2, T 1024, H 2, D {D}) {str(dtype).replace('torch.', '')}, {route}: "
+                  f"flash_fwd {times[0]:.4f} ms, flash_bwd_dq {times[1]:.4f} ms, "
+                  f"flash_bwd_dkv {times[2]:.4f} ms")
 
 
 def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, detail, design=SIMT):

@@ -123,28 +123,29 @@ struct Launch {
   template <typename... Args>
   void operator()(Args... args) const {
     assert(threads % 32 == 0 && threads <= 1024);
-    for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::memset(fps::smem, 0xff, kSharedBytes);
-        std::memset(fps::smem_raw, 0xff, kSharedBytes);
-        Block blk;
-        blk.bar = std::make_unique<std::barrier<>>(threads);
-        for (int w = 0; w < threads / 32; ++w) blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
-        block = &blk;
-        std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t)
-          pool.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by);
-            gridDim = grid;
-            blockDim = dim3(threads);
-            lane = t % 32;
-            warp = t / 32;
-            kernel(args...);
-            assert(open_group.empty() && committed.empty());
-          });
-        for (auto& th : pool) th.join();
-      }
+    for (unsigned bz = 0; bz < grid.z; ++bz)
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          std::memset(fps::smem, 0xff, kSharedBytes);
+          std::memset(fps::smem_raw, 0xff, kSharedBytes);
+          Block blk;
+          blk.bar = std::make_unique<std::barrier<>>(threads);
+          for (int w = 0; w < threads / 32; ++w) blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+          block = &blk;
+          std::vector<std::thread> pool;
+          for (int t = 0; t < threads; ++t)
+            pool.emplace_back([&, t] {
+              threadIdx = dim3(t);
+              blockIdx = dim3(bx, by, bz);
+              gridDim = grid;
+              blockDim = dim3(threads);
+              lane = t % 32;
+              warp = t / 32;
+              kernel(args...);
+              assert(open_group.empty() && committed.empty());
+            });
+          for (auto& th : pool) th.join();
+        }
   }
 };
 

@@ -6,7 +6,7 @@
 // forward (splash_attention_kernel.py pallas_call :1137, body
 // flash_attention_kernel), dQ (:1635, _flash_attention_dq_kernel) and
 // dK/dV (:2196, _flash_attention_dkv_kernel).  This file has one kernel
-// for each, and two routes for the forward and dK/dV:
+// for each, in three routes:
 //
 //   flash_fwd     O = softmax(q k^T + causal) v with an online softmax over
 //                 key tiles; writes O and the float32 log-sum-exp L = m +
@@ -17,22 +17,24 @@
 //   flash_bwd_dkv one block per key tile, over the query tiles at or below
 //                 the diagonal: dV = sum P^T dO, dK = sum dS^T q.
 //
-// Routes.  bfloat16 inputs take the tensor-core kernels (flash_fwd_mma,
-// flash_bwd_dkv_mma): bf16 mma.sync m16n8k16 with float32 sums, operands
-// fed by ldmatrix from bf16 tiles that cp.async streams through a
-// two-stage ring.  float32 inputs, and the dQ kernel in both types, take
-// the SIMT kernels: float32 FMAs on the CUDA cores.  The tensor cores have
-// no mode that keeps float32's digits (TF32 keeps about three decimal
-// digits; the float32 bar is rtol 1e-5), so float32 stays on the CUDA
-// cores.  dQ is the next kernel to move to the tensor cores.
+// Routes.  At head widths 64, 128, 192 and 256 bfloat16 inputs take the
+// tensor-core kernels (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma):
+// bf16 mma.sync m16n8k16 with float32 sums, operands fed by ldmatrix from
+// bf16 tiles that cp.async streams through a two-stage ring.  float32
+// inputs take the SIMT kernels: float32 FMAs on the CUDA cores.  The tensor
+// cores have no mode that keeps float32's digits (TF32 keeps about three
+// decimal digits; the float32 bar is rtol 1e-5), so float32 stays on the
+// CUDA cores.  Every wider multiple of 64 takes the column-split SIMT
+// kernels in both dtypes (see there).
 //
 // q arrives scaled by 1/sqrt(D) (the wrapper scales it, as splash's caller
 // does), so no kernel scales.  Every score, softmax statistic and sum is
 // float32 whatever the load type; outputs are written in the load type.
 // Roundings are the reference's: the forward keeps P in float32 (splash
-// multiplies float32 P by v cast to float32) by splitting it into two bf16
-// operands, hi + lo, and the dK/dV kernel rounds P and dS to bf16 before
-// their products with dO and q, as splash's dK/dV kernel does.  No atomics:
+// multiplies float32 P by v cast to float32; the tensor-core forward splits
+// it into two bf16 operands, hi + lo), the dQ kernel rounds dS to bf16
+// before its product with k, and the dK/dV kernel rounds P and dS to bf16
+// before their products with dO and q, as splash's kernels do.  No atomics:
 // every output element is summed by one thread in a fixed order, so results
 // are the same on every run.
 //
@@ -43,8 +45,8 @@
 //
 //   tensor-core kernels: a block owns 64 rows (4 warps x 16; where a
 //   warp's float32 accumulators would crowd out its score fragments, two
-//   sets of 4 warps split the output columns: dK/dV above D 64, the
-//   forward at D 256), streams 64-row
+//   sets of 4 warps split the output columns: dK/dV above D 64, dQ above
+//   D 128, the forward at D 256), streams 64-row
 //   tiles of the other side through the cp.async ring so the next tile's
 //   load overlaps this tile's products, keeps scores in registers and turns
 //   a product's accumulators into the next product's A operand without
@@ -54,7 +56,7 @@
 //   where 64-row float tiles outgrow shared memory, 32; rows padded by one
 //   float so the 16 rows a warp reads fall in 16 banks.
 //
-// Both skip tiles wholly above the causal diagonal (never loaded or
+// All skip tiles wholly above the causal diagonal (never loaded or
 // computed), mask only the diagonal tile, and schedule the longest query
 // rows first.
 //
@@ -86,6 +88,14 @@ __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// v rounded to T and back: where T is bf16, splash rounds dS (and P in
+// dK/dV) to it before their products; for float32 nothing changes.
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  if constexpr (std::is_same<T, bf16>::value) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
 
 // Sum (or max) over the 16 threads of a row: lanes tx = 0..15 of one half-warp.
 __device__ __forceinline__ float row_sum(float v) {
@@ -151,16 +161,18 @@ __device__ __forceinline__ void tile_sv(float (&out)[kT / kSide][D / kSide], con
   }
 }
 
-// Write a thread's rows of a kT x D float tile to a contiguous (B, T, H, D) output.
-template <typename T, int D, int kT>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide][D / kSide], int b,
-                                           int h, int H, int T_len, int row0, int ty, int tx) {
+// Write a thread's rows of a kT x W float tile to columns [col0, col0 + W)
+// of a contiguous (B, T, H, D) output.
+template <typename T, int W, int kT>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide][W / kSide], int b,
+                                           int h, int H, int T_len, int D, int col0, int row0, int ty,
+                                           int tx) {
 #pragma unroll
   for (int i = 0; i < kT / kSide; ++i) {
     const int64_t row = row0 + ty + kSide * i;
-    T* dst = out + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
+    T* dst = out + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + col0;
 #pragma unroll
-    for (int c = 0; c < D / kSide; ++c) store_f(dst + tx + kSide * c, acc[i][c]);
+    for (int c = 0; c < W / kSide; ++c) store_f(dst + tx + kSide * c, acc[i][c]);
   }
 }
 
@@ -255,7 +267,7 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layou
     for (int c = 0; c < C; ++c) acc[i][c] *= inv;
     if (tx == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
   }
-  store_rows<T, D, kT>(o, acc, b, h, H, T_len, qt * kT, ty, tx);
+  store_rows<T, D, kT>(o, acc, b, h, H, T_len, D, 0, qt * kT, ty, tx);
 }
 
 // grid (T / kT, B * H): block x takes query tile T/kT - 1 - x.  Also writes
@@ -313,12 +325,12 @@ flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* o, const T* dou
       for (int j = 0; j < P; ++j) {
         const bool masked = kt == qt && tx + kSide * j > ty + kSide * i;
         const float p = masked ? 0.f : expf(s[i][j] - L[i]);
-        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = p * (dp[i][j] - Di[i]);
+        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = rounded<T>(p * (dp[i][j] - Di[i]));
       }
     __syncthreads();
     tile_sv<D, kT>(acc, Ss, Ks, ty, tx);
   }
-  store_rows<T, D, kT>(dq, acc, b, h, H, T_len, qt * kT, ty, tx);
+  store_rows<T, D, kT>(dq, acc, b, h, H, T_len, D, 0, qt * kT, ty, tx);
 }
 
 // grid (T / kT, B * H): block x takes key tile x (the lowest tiles see the
@@ -374,15 +386,257 @@ flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, Layout l
         const int key = ty + kSide * i, query = tx + kSide * j;
         const bool masked = qt == kt && key > query;
         const float p = masked ? 0.f : expf(s[i][j] - Ls[query]);
-        Pt[key * (kT + 1) + query] = p;
-        dSt[key * (kT + 1) + query] = p * (dp[i][j] - Ds[query]);
+        Pt[key * (kT + 1) + query] = rounded<T>(p);
+        dSt[key * (kT + 1) + query] = rounded<T>(p * (dp[i][j] - Ds[query]));
       }
     __syncthreads();
     tile_sv<D, kT>(dV, Pt, dOs, ty, tx);
     tile_sv<D, kT>(dK, dSt, Qs, ty, tx);
   }
-  store_rows<T, D, kT>(dk, dK, b, h, H, T_len, kt * kT, ty, tx);
-  store_rows<T, D, kT>(dv, dV, b, h, H, T_len, kt * kT, ty, tx);
+  store_rows<T, D, kT>(dk, dK, b, h, H, T_len, D, 0, kt * kT, ty, tx);
+  store_rows<T, D, kT>(dv, dV, b, h, H, T_len, D, 0, kt * kT, ty, tx);
+}
+
+// ---- column-split SIMT kernels (head widths past 256, D a runtime multiple of 64) ----
+//
+// One block per (64-row tile, head, 64-column slice of the output): grid
+// (T / 64, B * H, D / 64).  Each block builds its scores over the full D in
+// 64-column chunks through shared memory, so shared memory does not grow
+// with D, and writes only its own 64 columns.  Every slice computes the
+// same scores in the same order, so the softmax statistics agree; slice 0
+// writes L and delta.  The score work is repeated D / 64 times.
+constexpr int kSplit = 64;  // tile rows and output columns of a column-split block
+constexpr int kSplitTile = kSplit * (kSplit + 1);  // floats of a 64 x 64 tile, rows padded by one
+// shared memory: forward q and k chunks, v, P; dQ q, dO, k and v chunks, dS;
+// dK/dV k, v, q and dO chunks, P^T, dS^T, L and D
+constexpr int fwd_split_smem_bytes() { return 4 * kSplitTile * 4; }
+constexpr int dq_split_smem_bytes() { return 5 * kSplitTile * 4; }
+constexpr int dkv_split_smem_bytes() { return (6 * kSplitTile + 2 * kSplit) * 4; }
+
+// grid (T / 64, B * H, D / 64): block x takes query tile T/64 - 1 - x.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_split_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layout lv, T* o,
+                       float* lse, int H, int T_len, int D) {
+  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
+  extern __shared__ float smem[];
+  float* Qc = smem;
+  float* Kc = Qc + kSplitTile;
+  float* Vs = Kc + kSplitTile;
+  float* Ps = Vs + kSplitTile;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const int qt = gridDim.x - 1 - blockIdx.x, col0 = kSplit * blockIdx.z;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+
+  float m[P], l[P], acc[P][C];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    float s[P][P];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S = q k^T over the full D
+      __syncthreads();  // also: the previous tile's Vs and Ps are consumed
+      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
+      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
+      __syncthreads();
+      tile_abt<kSplit, kT>(s, Qc, Kc, ty, tx);
+    }
+    load_tile<T, kSplit, kT>(Vs, v + col0, lv, b, h, kt * kT);
+    if (kt == qt) {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          if (tx + kSide * j > ty + kSide * i) s[i][j] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < P; ++j) mx = fmaxf(mx, s[i][j]);
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < P; ++j) Ps[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = s[i][j];
+    }
+    __syncthreads();
+    tile_sv<kSplit, kT>(acc, Ps, Vs, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] *= inv;
+    if (blockIdx.z == 0 && tx == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
+  }
+  store_rows<T, kSplit, kT>(o, acc, b, h, H, T_len, D, col0, qt * kT, ty, tx);
+}
+
+// grid (T / 64, B * H, D / 64): block x takes query tile T/64 - 1 - x.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_split_kernel(const T* q, const T* k, const T* v, const T* o, const T* dout, Layout lq,
+                          Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse, float* delta,
+                          T* dq, int H, int T_len, int D) {
+  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
+  extern __shared__ float smem[];
+  float* Qc = smem;
+  float* dOc = Qc + kSplitTile;
+  float* Kc = dOc + kSplitTile;
+  float* Vc = Kc + kSplitTile;
+  float* Ss = Vc + kSplitTile;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const int qt = gridDim.x - 1 - blockIdx.x, col0 = kSplit * blockIdx.z;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT;
+
+  float part[P], L[P], Di[P], acc[P][C];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    part[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+  for (int c0 = 0; c0 < D; c0 += kSplit) {  // delta = rowsum(dO * O) over the full D
+    __syncthreads();
+    load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
+    load_tile<T, kSplit, kT>(Qc, o + c0, lo, b, h, qt * kT);  // O, for delta only
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int at = (ty + kSide * i) * (kSplit + 1) + tx + kSide * c;
+        part[i] += dOc[at] * Qc[at];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int r = ty + kSide * i;
+    Di[i] = row_sum(part[i]);
+    L[i] = lse[stat0 + r];
+    if (blockIdx.z == 0 && tx == 0) delta[stat0 + r] = Di[i];
+  }
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    float s[P][P], dp[P][P];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S = q k^T and dP = dO v^T over the full D
+      __syncthreads();
+      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
+      load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
+      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
+      load_tile<T, kSplit, kT>(Vc, v + c0, lv, b, h, kt * kT);
+      __syncthreads();
+      tile_abt<kSplit, kT>(s, Qc, Kc, ty, tx);
+      tile_abt<kSplit, kT>(dp, dOc, Vc, ty, tx);
+    }
+    __syncthreads();  // the last chunk is consumed before Kc takes the block's columns of k
+    load_tile<T, kSplit, kT>(Kc, k + col0, lk, b, h, kt * kT);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const bool masked = kt == qt && tx + kSide * j > ty + kSide * i;
+        const float p = masked ? 0.f : expf(s[i][j] - L[i]);
+        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = rounded<T>(p * (dp[i][j] - Di[i]));
+      }
+    __syncthreads();
+    tile_sv<kSplit, kT>(acc, Ss, Kc, ty, tx);
+  }
+  store_rows<T, kSplit, kT>(dq, acc, b, h, H, T_len, D, col0, qt * kT, ty, tx);
+}
+
+// grid (T / 64, B * H, D / 64): block x takes key tile x.  Thread rows are key rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_split_kernel(const T* q, const T* k, const T* v, const T* dout, Layout lq, Layout lk,
+                           Layout lv, Layout ldo, const float* lse, const float* delta, T* dk, T* dv,
+                           int H, int T_len, int D) {
+  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
+  extern __shared__ float smem[];
+  float* Kc = smem;
+  float* Vc = Kc + kSplitTile;
+  float* Qc = Vc + kSplitTile;
+  float* dOc = Qc + kSplitTile;
+  float* Pt = dOc + kSplitTile;  // P^T: key row x query column
+  float* dSt = Pt + kSplitTile;  // dS^T
+  float* Ls = dSt + kSplitTile;
+  float* Ds = Ls + kT;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const int kt = blockIdx.x, col0 = kSplit * blockIdx.z;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+
+  float dK[P][C], dV[P][C];
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) dK[i][c] = dV[i][c] = 0.f;
+
+  for (int qt = kt; qt < static_cast<int>(gridDim.x); ++qt) {
+    float s[P][P], dp[P][P];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S^T = k q^T and dP^T = v dO^T over the full D
+      __syncthreads();
+      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
+      load_tile<T, kSplit, kT>(Vc, v + c0, lv, b, h, kt * kT);
+      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
+      load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
+      if (c0 == 0 && threadIdx.x < kT) {
+        const int64_t at = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + threadIdx.x;
+        Ls[threadIdx.x] = lse[at];
+        Ds[threadIdx.x] = delta[at];
+      }
+      __syncthreads();
+      tile_abt<kSplit, kT>(s, Kc, Qc, ty, tx);
+      tile_abt<kSplit, kT>(dp, Vc, dOc, ty, tx);
+    }
+    __syncthreads();  // the last chunk is consumed before Qc and dOc take the block's columns
+    load_tile<T, kSplit, kT>(Qc, q + col0, lq, b, h, qt * kT);
+    load_tile<T, kSplit, kT>(dOc, dout + col0, ldo, b, h, qt * kT);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int key = ty + kSide * i, query = tx + kSide * j;
+        const bool masked = qt == kt && key > query;
+        const float p = masked ? 0.f : expf(s[i][j] - Ls[query]);
+        Pt[key * (kT + 1) + query] = rounded<T>(p);
+        dSt[key * (kT + 1) + query] = rounded<T>(p * (dp[i][j] - Ds[query]));
+      }
+    __syncthreads();
+    tile_sv<kSplit, kT>(dV, Pt, dOc, ty, tx);
+    tile_sv<kSplit, kT>(dK, dSt, Qc, ty, tx);
+  }
+  store_rows<T, kSplit, kT>(dk, dK, b, h, H, T_len, D, col0, kt * kT, ty, tx);
+  store_rows<T, kSplit, kT>(dv, dV, b, h, H, T_len, D, col0, kt * kT, ty, tx);
 }
 
 // ---- tensor-core kernels (bf16 mma.sync) ----
@@ -572,6 +826,156 @@ flash_fwd_mma_kernel(const bf16* q, const bf16* k, const bf16* v, Layout lq, Lay
   }
 }
 
+// The dQ kernel's shape by head width: above D 128 two sets of four warps
+// split dQ's columns, both computing the same S and dP, so that a lane
+// holds at most 64 dQ accumulators; above D 64 a warp takes its 64-key
+// tile in two steps of 32 keys, so that S and dP fit beside them.
+template <int D>
+__host__ __device__ constexpr int dq_splits() { return D <= 128 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int dq_key_step() { return D <= 64 ? 64 : 32; }
+template <int D>
+constexpr int dq_mma_smem_bytes() {  // q, dO, 2 x K, 2 x V; delta
+  return 6 * kMma * row_stride<D>() * 2 + kMma * 4;
+}
+
+// grid (T / 64, B * H), 128 x dq_splits threads: block x takes query tile
+// T/64 - 1 - x (longest first).  Warp w owns query rows 16 (w % 4) .. + 15
+// and dQ's columns (w / 4) D / splits onwards.  What splash's dQ kernel
+// computes: delta = rowsum(dO * O) in float32 (written for the dK/dV
+// kernel), and over the key tiles at or below the diagonal P = exp(q k^T -
+// L), dP = dO v^T, dS = P (dP - delta), dQ += bf16(dS) k.
+template <int D>
+__global__ void __launch_bounds__(128 * dq_splits<D>())
+flash_bwd_dq_mma_kernel(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+                        Layout lq, Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse,
+                        float* delta, bf16* dq, int H, int T_len) {
+  constexpr int kN = 128 * dq_splits<D>(), DS = D / dq_splits<D>(), KS = dq_key_step<D>();
+  constexpr int S = row_stride<D>(), kTileElems = kMma * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kTileElems;
+  bf16* Ks = dOs + kTileElems;     // two stages
+  bf16* Vs = Ks + 2 * kTileElems;  // two stages
+  float* Ds = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // delta of the tile's rows
+  const Lanes ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % 4), c0 = DS * (warp / 4);  // query rows and dQ columns of the warp
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kMma;
+
+  tile_async<D, kN>(Qs, q, lq, b, h, qt * kMma);
+  tile_async<D, kN>(dOs, dout, ldo, b, h, qt * kMma);
+  tile_async<D, kN>(Ks, k, lk, b, h, 0);
+  tile_async<D, kN>(Vs, v, lv, b, h, 0);
+  cp_async_commit();
+
+  {  // delta while the tiles stream in: kN / 64 neighbouring threads share a row
+    constexpr int kParts = kN / kMma, kCols = D / kParts;
+    const int r = threadIdx.x / kParts, c = (threadIdx.x % kParts) * kCols;
+    const int64_t row = qt * kMma + r;
+    const uint32_t* ow = reinterpret_cast<const uint32_t*>(o + b * lo.b + h * lo.h + row * lo.t + c);
+    const uint32_t* dw = reinterpret_cast<const uint32_t*>(dout + b * ldo.b + h * ldo.h + row * ldo.t + c);
+    float part = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < kCols / 2; ++j) {
+      const uint32_t x = ow[j], y = dw[j];
+      part += bf16_lo(x) * bf16_lo(y) + bf16_hi(x) * bf16_hi(y);
+    }
+#pragma unroll
+    for (int off = kParts / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (threadIdx.x % kParts == 0) {
+      Ds[r] = part;
+      delta[stat0 + r] = part;
+    }
+  }
+  __syncthreads();
+  float L[2], Di[2];  // rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    L[i] = lse[stat0 + w0 + ln.g + 8 * i];
+    Di[i] = Ds[w0 + ln.g + 8 * i];
+  }
+  float acc[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {  // key tiles above the diagonal are skipped
+    const int st = kt & 1;
+    if (kt < qt) {  // the next tile streams in while this one is used
+      tile_async<D, kN>(Ks + (st ^ 1) * kTileElems, k, lk, b, h, (kt + 1) * kMma);
+      tile_async<D, kN>(Vs + (st ^ 1) * kTileElems, v, lv, b, h, (kt + 1) * kMma);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * kTileElems;
+    const bf16* Vt = Vs + st * kTileElems;
+
+#pragma unroll
+    for (int kc = 0; kc < kMma; kc += KS) {  // keys kc .. kc + KS - 1 of the tile
+      float s[KS / 8][4], dp[KS / 8][4];  // S = q k^T and dP = dO v^T: 16 rows x KS keys
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t qa[4], oa[4];
+        ldmatrix_x4(qa, Qs + (w0 + ln.a_row) * S + 16 * kd + ln.a_col);
+        ldmatrix_x4(oa, dOs + (w0 + ln.a_row) * S + 16 * kd + ln.a_col);
+#pragma unroll
+        for (int n = 0; n < KS / 8; n += 2) {
+          uint32_t kb[4], vb[4];
+          ldmatrix_x4(kb, Kt + (kc + 8 * n + ln.b_row) * S + 16 * kd + ln.b_col);
+          ldmatrix_x4(vb, Vt + (kc + 8 * n + ln.b_row) * S + 16 * kd + ln.b_col);
+          mma_bf16(s[n], qa, kb[0], kb[1]);
+          mma_bf16(s[n + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[n], oa, vb[0], vb[1]);
+          mma_bf16(dp[n + 1], oa, vb[2], vb[3]);
+        }
+      }
+      // P = exp(S - L), masked above the diagonal; dS = P (dP - delta), into dp
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = w0 + ln.g + 8 * (e >> 1), key = kc + 8 * n + 2 * ln.t4 + (e & 1);
+          const float p = (kt == qt && key > row) ? 0.f : expf(s[n][e] - L[e >> 1]);
+          dp[n][e] = p * (dp[n][e] - Di[e >> 1]);
+        }
+      // dQ += dS k, with dS rounded to bf16 as splash does
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {  // keys kc + 16 kk .. + 15
+        uint32_t da[4];
+        acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < DS / 8; n += 2) {
+          uint32_t kb[4];
+          ldmatrix_x4_trans(kb, Kt + (kc + 16 * kk + ln.t_row) * S + c0 + 8 * n + ln.t_col);
+          mma_bf16(acc[n], da, kb[0], kb[1]);
+          mma_bf16(acc[n + 1], da, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = qt * kMma + w0 + ln.g + 8 * i;
+    bf16* dst = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) = pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
 // The dK/dV kernel's warp sets: above D 64 two sets of four warps split the
 // output columns, each set holding D / 2 columns of dK and dV, and both
 // computing the same S^T and dP^T.  Above 96 columns a warp takes its 64
@@ -757,16 +1161,29 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const int64_t* st, const float* lse, float* delta, void* dq, int B, int T_len, int H,
               cudaStream_t stream) {
-  constexpr int kT = dq_tile<D>(), smem = dq_smem_floats<D, kT>() * 4;
-  static_assert(smem <= kSmemLimit, "dQ tiles outgrow shared memory");
-  const auto kernel = flash_bwd_dq_kernel<T, D, kT>;
-  int err = prepare(kernel, smem);
-  if (err != 0) return err;
-  FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
-      layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H,
-      T_len);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = dq_mma_smem_bytes<D>();
+    static_assert(smem <= kSmemLimit, "dQ tiles outgrow shared memory");
+    const auto kernel = flash_bwd_dq_mma_kernel<D>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kMma, B * H), 128 * dq_splits<D>(), smem, stream)(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), layout_at(st, 0), layout_at(st, 1),
+        layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<bf16*>(dq), H,
+        T_len);
+  } else {
+    constexpr int kT = dq_tile<D>(), smem = dq_smem_floats<D, kT>() * 4;
+    static_assert(smem <= kSmemLimit, "dQ tiles outgrow shared memory");
+    const auto kernel = flash_bwd_dq_kernel<T, D, kT>;
+    int err = prepare(kernel, smem);
+    if (err != 0) return err;
+    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
+        layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H,
+        T_len);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -798,25 +1215,74 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// Picks the template for (dtype, head_dim); cudaErrorInvalidValue for any other.
-#define FPS_FLASH_DISPATCH(CALL)                                 \
-  switch (dtype * 1000 + head_dim) {                             \
-    case fps::kF32 * 1000 + 64: return CALL(float, 64);          \
-    case fps::kF32 * 1000 + 128: return CALL(float, 128);        \
-    case fps::kF32 * 1000 + 192: return CALL(float, 192);        \
-    case fps::kF32 * 1000 + 256: return CALL(float, 256);        \
-    case fps::kBF16 * 1000 + 64: return CALL(fps::bf16, 64);     \
-    case fps::kBF16 * 1000 + 128: return CALL(fps::bf16, 128);   \
-    case fps::kBF16 * 1000 + 192: return CALL(fps::bf16, 192);   \
-    case fps::kBF16 * 1000 + 256: return CALL(fps::bf16, 256);   \
-    default: return static_cast<int>(cudaErrorInvalidValue);     \
-  }
+// The column-split route: head widths past 256, any multiple of 64.
+template <typename T>
+int launch_fwd_split(const void* q, const void* k, const void* v, const int64_t* st, void* o, float* lse,
+                     int B, int T_len, int H, int D, cudaStream_t stream) {
+  constexpr int smem = fwd_split_smem_bytes();
+  const auto kernel = flash_fwd_split_kernel<T>;
+  int err = prepare(kernel, smem);
+  if (err != 0) return err;
+  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), layout_at(st, 0),
+      layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dq_split(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const int64_t* st, const float* lse, float* delta, void* dq, int B, int T_len, int H,
+                    int D, cudaStream_t stream) {
+  constexpr int smem = dq_split_smem_bytes();
+  const auto kernel = flash_bwd_dq_split_kernel<T>;
+  int err = prepare(kernel, smem);
+  if (err != 0) return err;
+  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
+      layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H, T_len, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkv_split(const void* q, const void* k, const void* v, const void* dout, const int64_t* st,
+                     const float* lse, const float* delta, void* dk, void* dv, int B, int T_len, int H,
+                     int D, cudaStream_t stream) {
+  constexpr int smem = dkv_split_smem_bytes();
+  const auto kernel = flash_bwd_dkv_split_kernel<T>;
+  int err = prepare(kernel, smem);
+  if (err != 0) return err;
+  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
+      layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Picks the kernels for (dtype, head_dim): a template of its own at 64, 128,
+// 192 and 256, the column-split kernels at any wider multiple of 64;
+// cudaErrorInvalidValue for anything else.
+#define FPS_FLASH_DISPATCH(CALL, SPLIT)                                   \
+  if (dtype == fps::kF32 || dtype == fps::kBF16) {                        \
+    const bool f32 = dtype == fps::kF32;                                  \
+    switch (head_dim) {                                                   \
+      case 64: return f32 ? CALL(float, 64) : CALL(fps::bf16, 64);        \
+      case 128: return f32 ? CALL(float, 128) : CALL(fps::bf16, 128);     \
+      case 192: return f32 ? CALL(float, 192) : CALL(fps::bf16, 192);     \
+      case 256: return f32 ? CALL(float, 256) : CALL(fps::bf16, 256);     \
+      default:                                                            \
+        if (head_dim > 256 && head_dim % fps::kSplit == 0)                \
+          return f32 ? SPLIT(float) : SPLIT(fps::bf16);                   \
+    }                                                                     \
+  }                                                                       \
+  return static_cast<int>(cudaErrorInvalidValue);
 
 }  // namespace fps
 
 // strides: (b, t, h) element strides of each input in argument order, from a
 // host array.  Outputs (o, dq, dk, dv) are contiguous (B, T, H, D); lse and
-// delta contiguous (B, H, T) float32.  T must be a multiple of 64, and
+// delta contiguous (B, H, T) float32.  head_dim is 64, 128, 192, 256 or a
+// wider multiple of 64; T must be a multiple of 64, and
 // bfloat16 inputs 16-byte aligned rows (pointer and strides).  Each returns
 // the CUDA error code of its launch (0 = ok).
 extern "C" int fps_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -824,7 +1290,9 @@ extern "C" int fps_flash_fwd(int dtype, int head_dim, const void* q, const void*
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FPS_CALL(TYPE, DIM) fps::launch_fwd<TYPE, DIM>(q, k, v, strides, o, lse, B, T, H, s)
-  FPS_FLASH_DISPATCH(FPS_CALL)
+#define FPS_SPLIT(TYPE) fps::launch_fwd_split<TYPE>(q, k, v, strides, o, lse, B, T, H, head_dim, s)
+  FPS_FLASH_DISPATCH(FPS_CALL, FPS_SPLIT)
+#undef FPS_SPLIT
 #undef FPS_CALL
 }
 
@@ -835,7 +1303,10 @@ extern "C" int fps_flash_bwd_dq(int dtype, int head_dim, const void* q, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FPS_CALL(TYPE, DIM) \
   fps::launch_dq<TYPE, DIM>(q, k, v, o, dout, strides, lse, delta, dq, B, T, H, s)
-  FPS_FLASH_DISPATCH(FPS_CALL)
+#define FPS_SPLIT(TYPE) \
+  fps::launch_dq_split<TYPE>(q, k, v, o, dout, strides, lse, delta, dq, B, T, H, head_dim, s)
+  FPS_FLASH_DISPATCH(FPS_CALL, FPS_SPLIT)
+#undef FPS_SPLIT
 #undef FPS_CALL
 }
 
@@ -846,6 +1317,9 @@ extern "C" int fps_flash_bwd_dkv(int dtype, int head_dim, const void* q, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FPS_CALL(TYPE, DIM) \
   fps::launch_dkv<TYPE, DIM>(q, k, v, dout, strides, lse, delta, dk, dv, B, T, H, s)
-  FPS_FLASH_DISPATCH(FPS_CALL)
+#define FPS_SPLIT(TYPE) \
+  fps::launch_dkv_split<TYPE>(q, k, v, dout, strides, lse, delta, dk, dv, B, T, H, head_dim, s)
+  FPS_FLASH_DISPATCH(FPS_CALL, FPS_SPLIT)
+#undef FPS_SPLIT
 #undef FPS_CALL
 }

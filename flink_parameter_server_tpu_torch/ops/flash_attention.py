@@ -9,20 +9,23 @@ in ``csrc/flash_attn.cu``:
   softmax over 64-key tiles; returns ``O`` (in v's dtype) and the float32
   log-sum-exp ``L`` of each query row, ``(B, H, T)``.
 * :func:`flash_bwd_dq` — per query tile: ``P = exp(q kᵀ - L)``, ``D =
-  rowsum(dO ∘ O)``, ``dQ = Σ P ∘ (dO vᵀ - D) k``; returns ``dQ`` and ``D``.
+  rowsum(dO ∘ O)``, ``dQ = Σ dS k`` with ``dS = P ∘ (dO vᵀ - D)`` rounded
+  to the inputs' dtype before that product, as splash rounds it; returns
+  ``dQ`` and ``D``.
 * :func:`flash_bwd_dkv` — per key tile, over the query tiles at or below
   the diagonal: ``dV = Σ Pᵀ dO``, ``dK = Σ (P ∘ (dP - D))ᵀ q``, with ``P``
   and ``dS`` rounded to the inputs' dtype before those two products, as
   splash rounds them.
 
-Two routes, by dtype: bfloat16 takes tensor-core kernels for the forward
-and dK/dV (bf16 ``mma.sync``, ``cp.async`` tile ring); float32, and dQ in
-both dtypes, take SIMT kernels (float32 FMAs), since the tensor cores have
-no mode that keeps float32's digits.  Head widths: :data:`KERNEL_HEAD_DIMS`;
-wider heads raise (a D-split, ROADMAP Queue 3).  Every kernel skips the
-tiles wholly above the causal diagonal and keeps scores, softmax
-statistics and sums in float32.  Its bound on an H100 and its design are
-in the source.
+Routes.  At head widths 64, 128, 192 and 256 bfloat16 takes tensor-core
+kernels (bf16 ``mma.sync``, ``cp.async`` tile ring) and float32 SIMT
+kernels (float32 FMAs), since the tensor cores have no mode that keeps
+float32's digits.  Every wider head width the reference's gate takes (a
+multiple of 64) runs column-split SIMT kernels in both dtypes: one block
+per 64 output columns, the scores built over the full width in 64-column
+chunks.  Every kernel skips the tiles wholly above the causal diagonal and
+keeps scores, softmax statistics and sums in float32.  Its bound on an
+H100 and its design are in the source.
 
 Contract of :func:`flash_mha` (that of the reference's): ``(B, T, H, D)``
 in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded
@@ -45,7 +48,6 @@ from . import _cuda
 from ..utils.device import check_mesh
 
 BLOCK = 64  # query rows and key rows per tile, as in the kernels
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
@@ -66,8 +68,8 @@ def supports_shape(seq_len: int, head_dim: int) -> bool:
 def eligible(seq_len: int, head_dim: int, device, mesh=None) -> bool:
     """The ``"auto"`` gate, the reference's: true iff the tensors are on
     ``cuda``, the shape passes :func:`supports_shape` and there is no mesh.
-    An eligible call launches the kernels or raises: a head width or dtype
-    they lack is refused by the wrappers, never run by the reference."""
+    An eligible call launches the kernels or raises: a dtype they lack is
+    refused by the wrappers, never run by the reference."""
     return mesh is None and torch.device(device).type == "cuda" and supports_shape(seq_len, head_dim)
 
 
@@ -139,7 +141,10 @@ def _probs(qh, kh, lse, rows, cols, diagonal, above):
 
 
 def flash_bwd_dq_plain(q, k, v, o, do, lse, *, block: int = BLOCK):
-    """Plain version of :func:`flash_bwd_dq`.  Returns ``(dQ, D)``."""
+    """Plain version of :func:`flash_bwd_dq`.  Returns ``(dQ, D)``.
+
+    dS is rounded to the inputs' dtype before its product with k, as
+    splash's dQ kernel does (``ds.astype(k.dtype)``); a no-op for float32."""
     B, T, H, D = q.shape
     qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
     delta = (_heads(o) * doh).sum(-1)
@@ -152,7 +157,7 @@ def flash_bwd_dq_plain(q, k, v, o, do, lse, *, block: int = BLOCK):
             p = _probs(qh, kh, lse, rows, cols, kt == qt, above)
             dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
             ds = p * (dp - delta[:, :, rows].unsqueeze(-1))
-            dq[:, :, rows] += ds @ kh[:, :, cols]
+            dq[:, :, rows] += _rounded(ds, k.dtype) @ kh[:, :, cols]
     return _out(dq, q.dtype), delta
 
 
@@ -198,11 +203,8 @@ def _check(*ts: torch.Tensor) -> Tuple[int, int, int, int]:
             raise ValueError(f"flash kernels take float32 or bfloat16 tensors of one dtype, got {t.dtype}")
         if t.device != ts[0].device:
             raise ValueError("flash kernel inputs must be on one device")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {D}; wider heads wait for "
-            f"a D-split (ROADMAP Queue 3)"
-        )
+    if D <= 0 or D % 64:
+        raise ValueError(f"flash kernels take head_dim a multiple of 64 (the reference's gate), got {D}")
     if T % BLOCK:
         raise ValueError(f"flash kernels take T % {BLOCK} == 0, got T={T}")
     if B * H > 65535:
@@ -335,7 +337,6 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 __all__ = [
     "BLOCK",
-    "KERNEL_HEAD_DIMS",
     "supports_shape",
     "eligible",
     "eligible_dp",

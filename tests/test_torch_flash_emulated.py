@@ -70,11 +70,14 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize(
     "B,T,H,D,dtype",
     [
-        (1, 128, 2, 64, torch.bfloat16),   # the LM's width: one warp set, one softmax step a tile
+        (1, 128, 2, 64, torch.bfloat16),   # the LM's width: one warp set, one softmax (or dQ key) step a tile
         (1, 192, 1, 128, torch.bfloat16),  # three tiles: the cp.async ring refills a used stage
-        (1, 128, 1, 256, torch.bfloat16),  # two warp sets split O, dK and dV; 16-query passes
+        (1, 128, 1, 256, torch.bfloat16),  # two warp sets split O, dQ, dK and dV; 16-query passes
+        (1, 192, 1, 256, torch.bfloat16),  # three tiles with two warp sets: dQ's ring refilled
         (1, 128, 1, 192, torch.float32),   # SIMT, 64-row tiles
         (1, 128, 1, 256, torch.float32),   # SIMT, 32-row tiles for dQ and dK/dV
+        (1, 128, 1, 320, torch.float32),   # the column-split route: five 64-column slices
+        (1, 128, 1, 320, torch.bfloat16),  # the same, rounding dS (and P in dK/dV) as splash does
     ],
 )
 def test_emulated_kernels_match_plain(lib, B, T, H, D, dtype):
@@ -99,8 +102,11 @@ def test_emulated_kernels_match_plain(lib, B, T, H, D, dtype):
 
 
 def test_emulated_library_refuses_a_width_it_lacks(lib):
-    x = torch.zeros(1, 64, 1, 320)
+    """96 is no multiple of 64: the reference's gate refuses it, and so does
+    the library, in both dtypes."""
     lse = torch.empty(1, 1, 64)
-    err = lib.fps_flash_fwd(_cuda.DTYPE_CODES[torch.float32], 320, x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                            fa._strides(x, x, x), x.data_ptr(), lse.data_ptr(), 1, 64, 1, None)
-    assert err != 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 64, 1, 96, dtype=dtype)
+        err = lib.fps_flash_fwd(_cuda.DTYPE_CODES[dtype], 96, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                fa._strides(x, x, x), x.data_ptr(), lse.data_ptr(), 1, 64, 1, None)
+        assert err != 0

@@ -162,7 +162,9 @@ def _close(got, want, dtype):
      (2, 128, 2, 64, torch.bfloat16), (1, 192, 2, 128, torch.bfloat16),
      (1, 192, 2, 192, torch.float32), (1, 256, 1, 256, torch.float32),  # SIMT, 64- and 32-row tiles
      (1, 192, 2, 192, torch.bfloat16), (2, 256, 1, 256, torch.bfloat16),  # tensor cores, split warps
-     (1, 1024, 2, 64, torch.bfloat16)],  # sixteen tiles a side: the ring refilled many times
+     (1, 1024, 2, 64, torch.bfloat16),  # sixteen tiles a side: the ring refilled many times
+     (1, 128, 2, 320, torch.float32), (1, 192, 1, 320, torch.bfloat16),  # column-split SIMT kernels
+     (1, 128, 1, 512, torch.float32), (2, 128, 1, 512, torch.bfloat16)],
 )
 def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + D)
@@ -218,29 +220,39 @@ def test_flash_kernels_reject_what_they_lack(cuda):
     half = torch.zeros(1, 128, 2, 64, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_fwd(half, half, half)
-    wide = torch.zeros(1, 128, 2, 320, device=cuda)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
-        fa.flash_fwd(wide, wide, wide)
+    odd = torch.zeros(1, 128, 2, 96, device=cuda)  # off the reference's gate
+    with pytest.raises(ValueError, match="head_dim.*multiple of 64"):
+        fa.flash_fwd(odd, odd, odd)
 
 
-def test_lm_auto_at_a_head_width_the_kernels_lack_raises(cuda):
-    """head_dim 320 is eligible, as in the reference; "auto" then reaches
-    the kernel wrappers, which refuse it, and never runs the reference."""
+def test_lm_at_a_head_width_off_the_gate_takes_no_kernel(cuda):
+    """head_dim 96 fails the reference's gate: "auto" runs the reference
+    attention and launches nothing, "on" raises."""
+    import dataclasses
+
     from flink_parameter_server_tpu_torch.models import transformer as tr
 
-    cfg = tr.TransformerConfig(vocab_size=64, d_model=320, n_heads=1, n_layers=1, d_ff=64,
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=192, n_heads=2, n_layers=1, d_ff=64,
                                max_seq=128, dtype=torch.float32, flash_attention="auto")
     model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
     tokens = torch.zeros(1, 128, dtype=torch.int64, device=cuda)
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
-        tr.forward(model, tokens, cfg)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    assert torch.isfinite(tr.forward(model, tokens, cfg)).all()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == counts
+    with pytest.raises(ValueError, match="ineligible"):
+        tr.forward(model, tokens, dataclasses.replace(cfg, flash_attention="on"))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lm_at_head_dim_256_goes_through_the_flash_kernels(cuda, dtype):
-    """d_model 512 with 2 heads: head_dim 256 runs the three kernels (SIMT
-    for float32, the tensor-core forward and dK/dV for bfloat16) and
-    matches flash_attention="off" (the reference attention).  float32:
+@pytest.mark.parametrize(
+    "d_model,n_heads,mode,dtype",
+    [(512, 2, "on", torch.float32), (512, 2, "on", torch.bfloat16),
+     (640, 2, "auto", torch.float32), (640, 2, "auto", torch.bfloat16)],
+)
+def test_lm_at_wide_heads_goes_through_the_flash_kernels(cuda, d_model, n_heads, mode, dtype):
+    """head_dim 256 (d_model 512, 2 heads: SIMT for float32, the tensor-core
+    kernels for bfloat16) and head_dim 320 under "auto" (d_model 640, 2
+    heads: the column-split kernels in both dtypes) run the three kernels
+    and match flash_attention="off" (the reference attention).  float32:
     rtol 1e-4 / atol 1e-6, as at head_dim 64.  bfloat16: the two paths
     round in other places (the kernels keep float32 inside, the reference
     rounds its einsums to bfloat16), so each gradient within 2**-4 of its
@@ -249,8 +261,8 @@ def test_lm_at_head_dim_256_goes_through_the_flash_kernels(cuda, dtype):
 
     from flink_parameter_server_tpu_torch.models import transformer as tr
 
-    cfg = tr.TransformerConfig(vocab_size=64, d_model=512, n_heads=2, n_layers=1, d_ff=128,
-                               max_seq=256, dtype=dtype, flash_attention="on")
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=d_model, n_heads=n_heads, n_layers=1, d_ff=128,
+                               max_seq=256, dtype=dtype, flash_attention=mode)
     model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
     tokens = torch.randint(0, 64, (2, 256), generator=torch.Generator().manual_seed(1)).to(cuda)
     counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)

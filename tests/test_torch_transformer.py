@@ -93,15 +93,23 @@ def test_flash_on_raises_on_the_cpu():
 
 
 def test_eligible_head_width_the_kernels_lack_raises(monkeypatch):
-    """An eligible shape goes to the kernel wrappers, which refuse a head
-    width the kernels lack; "auto" never quietly runs the reference then.
-    Eligibility is patched to stand for a CUDA tensor."""
-    _, cfg = _configs(d_model=320, n_heads=1, flash_attention="auto")  # head_dim 320
-    model = tr.init_params(cfg, device="cpu")
+    """An eligible shape goes to the kernel wrappers and never quietly to
+    the reference: head_dim 320 (the column-split kernels on the card, their
+    plain versions here) matches the JAX reference's logits, and a dtype
+    the kernels lack raises.  Eligibility is patched to stand for a CUDA
+    tensor."""
+    ref_cfg, cfg = _configs(d_model=320, n_heads=1, flash_attention="auto")  # head_dim 320
+    params, model = _carried(ref_cfg, cfg)
+    tokens = _tokens(1, 128)
     monkeypatch.setattr(fa, "eligible", lambda T, D, device, mesh=None: fa.supports_shape(T, D))
     monkeypatch.setattr(tr, "reference_attention", lambda *a: pytest.fail("ran the reference"))
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP Queue 3"):
-        tr.forward(model, torch.from_numpy(_tokens(1, 128)), cfg)
+    off = dataclasses.replace(ref_cfg, flash_attention="off")
+    want = np.asarray(ref_tr.forward(params, jnp.asarray(tokens), off))
+    got = tr.forward(model, torch.from_numpy(tokens), cfg)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=2e-4)
+    half = tr.init_params(dataclasses.replace(cfg, dtype=torch.float16), device="cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tr.forward(half, torch.from_numpy(tokens), cfg)
 
 
 @pytest.mark.parametrize("mask", [None, "rows", "cells"])
