@@ -15,7 +15,8 @@ line each; any failure exits non-zero before the last line:
   2. check   each kernel against its plain torch version on the card: the
              MF kernels at the MF path's full width (131,072 items,
              65,536-lane Zipf microbatch), float32, bfloat16, int32 and
-             packed tables; the flash-attention forward, dQ and dK/dV at
+             packed tables, and in float32 twice on the same inputs, which
+             must agree bit for bit; the flash-attention forward, dQ and dK/dV at
              the LM's shape (B 16, T 512, H 8, D 64, bfloat16), at B 2,
              T 1024, H 8, D 128 in float32, at head_dim 256 (B 2, T 1024,
              H 4) in both dtypes, and at head_dim 320 and 512 (B 2,
@@ -34,7 +35,9 @@ line each; any failure exits non-zero before the last line:
              just after it: each path must launch its own kernels (once a
              step for MF, once a layer a step for the LM) and no other.
              A small run of each path is held against the CPU (plain) path
-             first, and a few more LM steps are traced with torch.profiler.
+             first, and after the counted runs a few more steps of each
+             path (the LM, ps_online_mf, the fused step) are traced with
+             torch.profiler.
              Before the LM, small LMs at head_dim 320 (d_model 640, 2
              heads, ``flash_attention="auto"``) in both dtypes must launch
              the three flash kernels and match ``"off"``.
@@ -50,6 +53,7 @@ The line before the last is the card's name and power limit, the last is
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -68,6 +72,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
 LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
 LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
+MF_TRACED = 4  # MF steps under torch.profiler, after the counted runs
+LM_FAMILIES = (("flash", ("fps::flash_",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+               ("softmax", ("softmax",)), ("optimizer", ("multi_tensor",)), ("copy", ("copy",)))
+MF_FAMILIES = (("K1/K2 pass 1", ("scatter_tile_pass", "mf_tile_pass")),
+               ("K1/K2 pass 2", ("combine_spanning_runs",)), ("sort", ("sort", "radix")),
+               ("gather/scatter", ("index", "gather", "scatter")), ("copy", ("copy", "memcpy", "memset")))
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPLIT_DS = (320, 512)  # head widths past 256: the column-split kernels
 BOUND_TILE = 64  # the causal tiling the flash bound counts, fixed to the work, not to a kernel's tiles
@@ -240,7 +250,14 @@ def phase_kernels(torch, dev, gen):
     mask = torch.rand(BATCH, generator=gen, device=dev) > 0.01
     errs = {}
 
-    def k1(label, dtype, rows, width, sub_k=1):
+    def same_twice(label, first, again):
+        """The kernel's outputs from a second call on the same inputs: no
+        atomics, so every bit agrees."""
+        ok = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+        print(f"check: {label}: two runs on the same inputs bitwise equal: {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{label} differs between two runs on the same inputs")
+
+    def k1(label, dtype, rows, width, sub_k=1, twice=False):
         W = 128 if sub_k > 1 else width
         if dtype == torch.int32:
             table = torch.randint(0, 2**30, (rows, W), generator=gen, device=dev, dtype=torch.int32)
@@ -251,6 +268,9 @@ def phase_kernels(torch, dev, gen):
         s_ids, s_d = scatter_kernel.sort_lanes(ids, deltas, mask, rows * sub_k, dtype)
         got = scatter_kernel.sorted_scatter_add(table.clone(), s_ids, s_d, sub_k=sub_k)
         want = scatter_kernel.run_sum_write_plain(table.clone(), s_ids, s_d, sub_k=sub_k)
+        if twice:
+            again = scatter_kernel.sorted_scatter_add(table.clone(), s_ids, s_d, sub_k=sub_k)
+            same_twice(label, [got], [again])
         torch.cuda.synchronize()
         if dtype == torch.int32:
             return _compare(torch, label, got, want, 0, 0, exact=True)
@@ -259,7 +279,7 @@ def phase_kernels(torch, dev, gen):
         return _compare(torch, label, got, want, rtol=1e-5, atol=1e-5)
 
     errs["scatter_add"] = k1(f"scatter_add dense f32 ({NUM_ITEMS},{DIM_UNFUSED})", torch.float32,
-                             NUM_ITEMS, DIM_UNFUSED)
+                             NUM_ITEMS, DIM_UNFUSED, twice=True)
     k1(f"scatter_add dense bf16 ({NUM_ITEMS},{DIM_UNFUSED})", torch.bfloat16, NUM_ITEMS, DIM_UNFUSED)
     k1(f"scatter_add dense int32 ({NUM_ITEMS},{DIM_UNFUSED})", torch.int32, NUM_ITEMS, DIM_UNFUSED)
     k1(f"scatter_add packed sub_k=2 f32 ({NUM_ITEMS // 2},128)", torch.float32, NUM_ITEMS // 2,
@@ -269,7 +289,7 @@ def phase_kernels(torch, dev, gen):
     u = torch.from_numpy(users).to(dev)
     r = torch.from_numpy(ratings).to(dev)
 
-    def k2(label, rows, dim, sub_k=1):
+    def k2(label, rows, dim, sub_k=1, twice=False):
         W = 128 if sub_k > 1 else dim
         table = torch.randn(rows, W, generator=gen, device=dev) * 0.1
         lanes = mf_kernel.sort_lanes(rows * sub_k, user_table[:, :dim], u, ids, r, mask)
@@ -279,12 +299,17 @@ def phase_kernels(torch, dev, gen):
         got_u, got_p = mf_kernel.sorted_fused_mf_sgd(got_t, s_items, s_p, s_r, s_m, **kw)
         want_t = table.clone()
         want_u, want_p = mf_kernel.fused_mf_sgd_plain(want_t, s_items, s_p, s_r, s_m, **kw)
+        if twice:
+            again_t = table.clone()
+            again = mf_kernel.sorted_fused_mf_sgd(again_t, s_items, s_p, s_r, s_m, **kw)
+            same_twice(label, [got_t, got_u, got_p], [again_t, *again])
         torch.cuda.synchronize()
         e = _compare(torch, f"{label} item table", got_t, want_t, rtol=1e-5, atol=1e-5)
         e = max(e, _compare(torch, f"{label} user deltas", got_u, want_u, rtol=1e-5, atol=1e-5))
         return max(e, _compare(torch, f"{label} predictions", got_p, want_p, rtol=1e-5, atol=1e-5))
 
-    errs["fused_mf_sgd"] = k2(f"fused_mf_sgd dense f32 ({NUM_ITEMS},{DIM_FUSED})", NUM_ITEMS, DIM_FUSED)
+    errs["fused_mf_sgd"] = k2(f"fused_mf_sgd dense f32 ({NUM_ITEMS},{DIM_FUSED})", NUM_ITEMS, DIM_FUSED,
+                              twice=True)
     k2(f"fused_mf_sgd packed sub_k=2 f32 ({NUM_ITEMS // 2},128) dim {DIM_UNFUSED}",
        NUM_ITEMS // 2, DIM_UNFUSED, sub_k=2)
     errs.update(_flash_checks(torch, dev, gen))
@@ -424,12 +449,21 @@ def phase_main(torch, dev):
     rate = (steps - BATCHES_PER_EPOCH) * BATCH / (stamps[-1] - stamps[BATCHES_PER_EPOCH - 1])
     curve = epoch_rmse(errs)
     print(f"main: ps_online_mf scatter_impl=pallas dim {DIM_UNFUSED}: {steps} microbatches of {BATCH}, "
-          f"training rmse by epoch {curve}, {rate:.0f} updates/s after the first epoch")
+          f"training rmse by epoch {curve}, {rate:.0f} updates/s after the first epoch, "
+          f"median step {median_step_ms(stamps):.3f} ms")
     check(len(errs) == steps, "ps_online_mf ran the wrong number of steps")
     check(tuple(items.shape) == (NUM_ITEMS, DIM_UNFUSED) and tuple(users.shape) == (NUM_USERS, DIM_UNFUSED),
           "ps_online_mf returned tables of the wrong shape")
     check(bool(torch.isfinite(items).all() and torch.isfinite(users).all()), "non-finite MF tables")
     check(curve[-1] < curve[0], "ps_online_mf training error did not fall")
+    unfused_ms = median_step_ms(stamps)
+
+    def drive_unfused(after_step):
+        ps_online_mf(
+            itertools.islice(microbatches(data, BATCH, epochs=EPOCHS), MF_TRACED + 2), num_users=NUM_USERS,
+            num_items=NUM_ITEMS, dim=DIM_UNFUSED, learning_rate=LEARNING_RATE, scatter_impl="pallas",
+            device=dev, on_step=lambda i, out: after_step(out),
+        )
 
     store = ShardedParamStore.create(NUM_ITEMS, (DIM_FUSED,), init_fn=ranged_random_factor(1, (DIM_FUSED,)),
                                      device=dev)
@@ -447,11 +481,86 @@ def phase_main(torch, dev):
     fused_rate = (steps - BATCHES_PER_EPOCH) * BATCH / (stamps[-1] - stamps[BATCHES_PER_EPOCH - 1])
     curve = epoch_rmse(errs)
     print(f"main: make_fused_mf_train_step dim {DIM_FUSED}: {steps} microbatches of {BATCH}, "
-          f"training rmse by epoch {curve}, {fused_rate:.0f} updates/s after the first epoch")
+          f"training rmse by epoch {curve}, {fused_rate:.0f} updates/s after the first epoch, "
+          f"median step {median_step_ms(stamps):.3f} ms")
     check(bool(torch.isfinite(item_t).all() and torch.isfinite(user_t).all()), "non-finite fused tables")
     check(curve[-1] < curve[0], "fused training error did not fall")
+
+    def drive_fused(after_step):
+        tables = [item_t, user_t]
+        for batch in itertools.islice(microbatches(data, BATCH, epochs=EPOCHS), MF_TRACED + 2):
+            tables[0], tables[1], out = step(tables[0], tables[1], to_device(batch, dev))
+            after_step(out)
+
+    fused_ms = median_step_ms(stamps)
     launches.update(phase_lm(torch, dev))
+    # after every counted run, so that no counted run follows a profiler
+    # session in this process
+    _trace_mf_steps("ps_online_mf", drive_unfused, unfused_ms)
+    _trace_mf_steps("fused MF", drive_fused, fused_ms)
     return launches
+
+
+def median_step_ms(stamps) -> float:
+    """The counted run's median step after the first epoch, from the
+    host's stamps (each taken after a synchronising read of the step)."""
+    tail = stamps[BATCHES_PER_EPOCH - 1:]
+    return statistics.median((b - a) * 1e3 for a, b in zip(tail, tail[1:]))
+
+
+def _trace_mf_steps(what, drive, step_ms):
+    """Where an MF step's time goes, outside the counted run: ``drive``
+    runs MF_TRACED + 2 steps, calling its argument after each with the
+    step's output; the first two are skipped (set-up, warm-up) and the rest
+    recorded by torch.profiler.  Each step ends in the same synchronising
+    read of the error as in the counted run."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    found = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=MF_TRACED, repeat=1),
+                 on_trace_ready=lambda p: found.append(p.key_averages())) as prof:
+        def after_step(out):
+            float(out["error"].pow(2).mean())
+            prof.step()
+
+        drive(after_step)
+    if not found:
+        print(f"trace: torch.profiler recorded no {what} steps; the step breakdown is not measured")
+        return
+    _report_trace(found[-1], what, MF_TRACED, step_ms, MF_FAMILIES)
+
+
+def _report_trace(averages, what, steps, step_ms, rules):
+    """Device time a step by kernel family, device busy and idle share
+    against ``step_ms`` (the counted run's median step), and the ten device
+    kernels and host operators that take the most time."""
+    # kernel events only: an operator's row, and a range such as
+    # Optimizer.step's, repeat their kernels' time
+    kernels = [ev for ev in averages
+               if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False) and "#" not in ev.key]
+    families = dict.fromkeys([name for name, _ in rules] + ["other"], 0.0)
+    for ev in kernels:
+        key = ev.key.lower()
+        family = next((name for name, marks in rules if any(m in key for m in marks)), "other")
+        families[family] += ev.self_device_time_total
+    busy = sum(families.values())
+    if busy <= 0:
+        print(f"trace: torch.profiler showed no device time for {what}; the step breakdown is not measured")
+        return
+    per_step = busy / 1e3 / steps
+    shares = ", ".join(f"{k} {v / 1e3 / steps:.3f} ms ({v / busy:.1%})" for k, v in families.items())
+    print(f"trace: {steps} {what} steps, device time a step by family: {shares}; device busy "
+          f"{per_step:.3f} ms a step against the counted run's median step {step_ms:.3f} ms "
+          f"(idle {1 - per_step / step_ms:.1%})")
+    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"trace:   device {ev.self_device_time_total / 1e3 / steps:9.3f} ms a step  "
+              f"{ev.count // steps:4d}x  {ev.key[:90]}")
+    host = [ev for ev in averages if not str(ev.device_type).endswith("CUDA")]
+    for ev in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"trace:   host {ev.self_cpu_time_total / 1e3 / steps:9.3f} ms a step  "
+              f"{ev.count // steps:4d}x  {ev.key[:90]}")
 
 
 def _small_lm_matches_cpu(torch):
@@ -601,35 +710,8 @@ def _trace_lm_steps(torch, model, loss_fn, batches, step_ms):
     free_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    # kernel events only: an operator's row, and a range such as
-    # Optimizer.step's, repeat their kernels' time
-    kernels = [ev for ev in prof.key_averages()
-               if str(ev.device_type).endswith("CUDA") and ev.self_device_time_total > 0
-               and not getattr(ev, "is_user_annotation", False) and "#" not in ev.key]
-    rules = (("flash", ("fps::flash_",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
-             ("softmax", ("softmax",)), ("optimizer", ("multi_tensor",)), ("copy", ("copy",)))
-    families = dict.fromkeys([name for name, _ in rules] + ["other"], 0.0)
-    for ev in kernels:
-        key = ev.key.lower()
-        family = next((name for name, marks in rules if any(m in key for m in marks)), "other")
-        families[family] += ev.self_device_time_total
-    busy = sum(families.values())
-    if busy <= 0:
-        print("trace: torch.profiler showed no device time; the step breakdown is not measured")
-        return
-    per_step = busy / 1e3 / len(batches)
-    shares = ", ".join(f"{k} {v / 1e3 / len(batches):.3f} ms ({v / busy:.1%})" for k, v in families.items())
-    print(f"trace: {len(batches)} LM steps, device time a step by family: {shares}; device busy "
-          f"{per_step:.3f} ms a step against the counted run's median step {step_ms:.3f} ms "
-          f"(idle {1 - per_step / step_ms:.1%})")
-    print(f"trace: with no synchronisation between steps a step takes {free_ms:.3f} ms on the host clock")
-    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"trace:   device {ev.self_device_time_total / 1e3 / len(batches):9.3f} ms a step  "
-              f"{ev.count // len(batches):4d}x  {ev.key[:90]}")
-    host = [ev for ev in prof.key_averages() if not str(ev.device_type).endswith("CUDA")]
-    for ev in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
-        print(f"trace:   host {ev.self_cpu_time_total / 1e3 / len(batches):9.3f} ms a step  "
-              f"{ev.count // len(batches):4d}x  {ev.key[:90]}")
+    print(f"trace: with no synchronisation between LM steps a step takes {free_ms:.3f} ms on the host clock")
+    _report_trace(prof.key_averages(), "LM", len(batches), step_ms, LM_FAMILIES)
 
 
 def phase_timing(torch, dev, gen, launches, errs):

@@ -1,12 +1,14 @@
-// A CPU emulation of the CUDA the flash kernels use, so that g++ can build
-// csrc/flash_attn.cu into a shared library with the same C interface and
-// the kernels' logic can be checked without a card:
+// A CPU emulation of the CUDA the port's kernels use, so that g++ can build
+// csrc/flash_attn.cu, csrc/scatter_add.cu or csrc/fused_mf.cu into a shared
+// library with the same C interface and the kernels' logic can be checked
+// without a card:
 //
 //   g++ -std=c++20 -O2 -shared -fPIC -pthread -x c++ -I csrc/emulation \
 //       -include cuda_emu.h -o libflash_emu.so csrc/flash_attn.cu
 //
 // One std::thread per CUDA thread, blocks one after another; std::barrier
-// for __syncthreads and for the warp-collective instructions; cp.async
+// for __syncthreads, __syncthreads_count and the warp-collective
+// instructions; float4 as a 16-byte aligned struct; cp.async
 // copies deferred until the cp.async.wait_group that covers them; ldmatrix
 // and mma.m16n8k16 (bf16 in, float32 sums) with the PTX ISA's fragment
 // layouts.  Shared memory is filled with NaN before each block, and every
@@ -21,6 +23,7 @@
 #include <cassert>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <utility>
 #include <vector>
@@ -70,6 +73,11 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short s) { return {s}; }
 inline int64_t min(int64_t a, int64_t b) { return a < b ? a : b; }
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+
 namespace emu {
 
 constexpr size_t kSharedBytes = 232448;  // what a block may use on an H100
@@ -79,6 +87,7 @@ struct Block {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   const void* ptr[32][32];
   float val[32][32];
+  int count = 0;
   uint32_t a[32][32][4];
   uint32_t b[32][32][2];
 };
@@ -160,6 +169,21 @@ inline cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int bytes) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 inline void __syncthreads() { emu::block->bar->arrive_and_wait(); }
+
+inline int __syncthreads_count(int pred) {
+  auto& b = *emu::block;
+  static std::mutex m;
+  b.bar->arrive_and_wait();
+  if (pred) {
+    std::lock_guard<std::mutex> hold(m);
+    ++b.count;
+  }
+  b.bar->arrive_and_wait();
+  const int total = b.count;
+  b.bar->arrive_and_wait();
+  if (threadIdx.x == 0) b.count = 0;  // before any thread passes the next call's first barrier
+  return total;
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   auto& b = *emu::block;

@@ -21,7 +21,9 @@ Packed tables (``ops/packed.py``): the math runs over the item's own
 column slice of its physical row; user rows stay at logical width.
 
 Bound on an H100: bytes (the per-lane user rows in and user deltas out
-dominate).  Hot runs are split over warps by ``csrc/runs.cuh``.
+dominate).  Hot runs are split over warps and tiles and recombined in a
+fixed order by ``csrc/runs.cuh``: the result is the same, bit for bit, on
+every run with the same inputs.
 
 Dispatch: an item table on the CPU takes :func:`fused_mf_sgd_plain`; a
 CUDA table launches the kernel or raises.  ``sorted_fused_mf_sgd.launches``
@@ -40,7 +42,7 @@ from .packed import pack_k
 from .rows import add_rows_
 from .scatter_kernel import _check_sorted_args, _row_columns, run_sum_write_plain
 
-MAX_DIM = 256  # the kernel keeps a row in registers: d <= 8 columns x 32 lanes
+MAX_DIM = 256  # the kernel's widest tile: 32 lanes of 256 floats in 32 KB of shared memory
 
 _SIGNATURES = {
     "fps_fused_mf_sgd": (

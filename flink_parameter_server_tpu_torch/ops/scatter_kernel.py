@@ -15,8 +15,10 @@ id ``i`` lives in physical row ``i // sub_k`` at column ``(i % sub_k) *
 sub_width``, and each run writes only its own column slice.
 
 Bound on an H100: bytes (every delta read once, every unique row read and
-written once).  Hot runs are split over warps and recombined in a fixed
-order (``csrc/runs.cuh``), so the result is deterministic.
+written once).  The lanes are cut into 256-lane tiles, one block each;
+hot runs are split over warps and tiles and recombined in a fixed order
+(``csrc/runs.cuh``), with no atomics, so two runs on the same inputs give
+the same bits.
 
 Dispatch: a table on the CPU takes :func:`run_sum_write_plain`, the plain
 torch version of the same function; a CUDA table launches the kernel or

@@ -7,9 +7,9 @@ of JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: tests/conftest.py imports JAX for the rest of the
 suite.)  Tolerances: float32 1e-5 relative (the kernel splits a hot run
-over warps, so its sums are added in another order than the plain
-version's); bfloat16 one unit in the last place of the table's values;
-int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
+over warps and tiles, so its sums are added in another order than the
+plain version's, though always the same order); bfloat16 one unit in the
+last place of the table's values; int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
 largest value (float32 dot products in another order); bfloat16 outputs
 one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 """
@@ -90,6 +90,7 @@ def test_scatter_kernel_matches_plain(cuda, dtype, n, rows, width, sub_k, hot):
         (torch.float32, 3000, 200, 64, 2, 2000),
         (torch.float32, 500, 30, 17, 7, 0),
         (torch.float32, 400, 30, 256, 1, 300),
+        (torch.float32, 3000, 100, 256, 1, 2000),  # d 256: 32-lane tiles, a run over ~60 of them
         (torch.bfloat16, 2000, 64, 128, 1, 900),
     ],
 )
@@ -117,6 +118,85 @@ def test_fused_mf_kernel_matches_plain(cuda, dtype, n, rows, dim, sub_k, hot):
         torch.testing.assert_close(got_t.cpu().float(), want_t.float(), rtol=2**-7, atol=1e-2)
     else:
         torch.testing.assert_close(got_t.cpu(), want_t, rtol=1e-5, atol=1e-5)
+
+
+def _edge_ids(n, rows, tile):
+    """Sorted ids whose first run ends exactly on the second tile's edge and
+    whose second covers the third tile and one lane past it."""
+    ids = np.empty(n, np.int64)
+    ids[: 2 * tile] = 0
+    ids[2 * tile: 3 * tile + 1] = 1
+    ids[3 * tile + 1:] = 2 + np.arange(n - 3 * tile - 1) % (rows - 2)
+    return torch.from_numpy(np.sort(ids).astype(np.int32))
+
+
+def _mf_inputs(rng, n, rows, dim):
+    table = torch.from_numpy(rng.normal(0, 0.3, (rows, dim)).astype(np.float32))
+    p = torch.from_numpy(rng.normal(0, 0.3, (n, dim)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(0, 1, n).astype(np.float32))
+    m = torch.from_numpy((rng.random(n) > 0.1).astype(np.float32))
+    return table, p, r, m
+
+
+def test_kernels_take_runs_ending_on_a_tile_edge(cuda):
+    """K1's tiles are 256 lanes; K2's are 64 at d 128."""
+    rng = np.random.default_rng(11)
+    ids = _edge_ids(1500, 300, 256)
+    table = torch.from_numpy(rng.normal(0, 1, (300, 64)).astype(np.float32))
+    deltas = torch.from_numpy(rng.normal(0, 0.1, (1500, 64)).astype(np.float32))
+    want = scatter_kernel.run_sum_write_plain(table.clone(), ids, deltas)
+    got = scatter_kernel.sorted_scatter_add(table.to(cuda), ids.to(cuda), deltas.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+    items = _edge_ids(600, 200, 64)
+    table, p, r, m = _mf_inputs(rng, 600, 200, 128)
+    kw = dict(learning_rate=0.05, regularization=0.01)
+    want_t = table.clone()
+    want_u, want_p = mf_kernel.fused_mf_sgd_plain(want_t, items, p, r, m, **kw)
+    got_t = table.to(cuda)
+    got_u, got_p = mf_kernel.sorted_fused_mf_sgd(
+        got_t, items.to(cuda), p.to(cuda), r.to(cuda), m.to(cuda), **kw
+    )
+    for got, want in ((got_p, want_p), (got_u, want_u), (got_t, want_t)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_kernel_takes_deltas_off_a_16_byte_boundary(cuda):
+    """A contiguous deltas view 4 bytes past a boundary takes the scalar copy."""
+    rng = np.random.default_rng(12)
+    n, d, rows = 3000, 64, 100
+    ids = torch.from_numpy(_sorted_case(rng, n, rows, hot=2000))
+    flat = torch.from_numpy(rng.normal(0, 0.1, n * d + 1).astype(np.float32)).to(cuda)
+    deltas = flat[1:].view(n, d)
+    assert deltas.data_ptr() % 16 != 0
+    table = torch.from_numpy(rng.normal(0, 1, (rows, d)).astype(np.float32))
+    want = scatter_kernel.run_sum_write_plain(table.clone(), ids, deltas.cpu())
+    got = scatter_kernel.sorted_scatter_add(table.to(cuda), ids.to(cuda), deltas)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_are_deterministic_at_the_main_path_shape(cuda):
+    """No atomics: two runs on the same inputs give the same bits.  The main
+    path's shape: 65,536 Zipf-1.2 lanes over 131,072 rows, K1 at d 64, K2 at
+    d 128."""
+    rng = np.random.default_rng(0)
+    n, rows = 65_536, 131_072
+    ids = torch.from_numpy(_sorted_case(rng, n, rows)).to(cuda)
+    table = torch.randn(rows, 64, device=cuda)
+    deltas = torch.randn(n, 64, device=cuda) * 0.01
+    a = scatter_kernel.sorted_scatter_add(table.clone(), ids, deltas)
+    b = scatter_kernel.sorted_scatter_add(table.clone(), ids, deltas)
+    assert torch.equal(a, b)
+    table = torch.randn(rows, 128, device=cuda) * 0.1
+    p = torch.randn(n, 128, device=cuda) * 0.1
+    r, m = torch.randn(n, device=cuda), (torch.rand(n, device=cuda) > 0.01).float()
+    kw = dict(learning_rate=0.01, regularization=0.01)
+    runs = []
+    for _ in range(2):
+        t = table.clone()
+        runs.append((t,) + mf_kernel.sorted_fused_mf_sgd(t, ids, p, r, m, **kw))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
