@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the torch port's two paths on one NVIDIA card: online MF and
-Transformer LM training through the dense parameter server.
+"""Drive the torch port's two paths on one NVIDIA card: online MF (bare and
+through the job envelope) and Transformer LM training through the dense
+parameter server.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -24,6 +25,21 @@ line each; any failure exits non-zero before the last line:
              each bfloat16 output the error of scaled_dot_product_attention
              against the same plain version is printed beside the
              kernel's, as a yardstick.
+  determinism  ``ps_online_mf`` twice on the same full-width stream (8
+             microbatches) under each ``scatter_impl``: the item table and
+             the user state must agree bit for bit; ``index_add_`` and
+             ``index_put_(accumulate=True)`` twice on the user scatter's
+             inputs, repeatable or not, and their times.
+  driver     the job envelope at the MF path's full width (24 microbatches,
+             dim 64, ``scatter_impl="pallas"``): an uninterrupted
+             ``StreamingDriver`` run (K1 once a step and no other kernel),
+             the same stream through ``RecoveringDriver`` with a crash at
+             step 13 (restore step 8, replay the WAL tail) bitwise equal to
+             it, ``load_model`` of the final checkpoint, the corrupt-latest
+             fallback, the NaN guard, and the envelope's costs (updates/s
+             against bare ``transform_batched``, a checkpoint save, a WAL
+             append, the NaN check), each beside the card's name and power
+             limit.  A ``profile_dir`` run comes last of the whole script.
   3. main    ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -127,6 +143,281 @@ def zipf_batch(rng):
     users = rng.integers(0, NUM_USERS, BATCH).astype(np.int64)
     ratings = rng.normal(0, 1, BATCH).astype(np.float32)
     return items, users, ratings
+
+
+def zipf_stream(seed: int, n: int) -> list:
+    """``n`` microbatches of :func:`zipf_batch`, made from ``seed``: a list,
+    so the same stream can be fed again from the start."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        items, users, ratings = zipf_batch(rng)
+        out.append({"user": users.astype(np.int32), "item": items.astype(np.int32), "rating": ratings,
+                    "mask": np.ones(BATCH, bool)})
+    return out
+
+
+def phase_determinism(torch, dev):
+    """Two runs of ``ps_online_mf`` on the same full-width stream (8
+    microbatches) under each ``scatter_impl``, with
+    ``torch.use_deterministic_algorithms`` left off: the item table and the
+    user state must agree bit for bit (crash recovery rests on it).  Beside
+    them, ``index_add_`` itself twice on the user scatter's inputs (65,536
+    lanes into 100,000 x 64 float32), whether its bits agree, and its time
+    against ``index_put_(accumulate=True)``, the form the port's row
+    scatter-add takes on the card."""
+    from flink_parameter_server_tpu_torch import ps_online_mf
+
+    check(not torch.are_deterministic_algorithms_enabled(), "deterministic mode is on")
+    stream = zipf_stream(1, 8)
+    differ = []
+    for impl in ("pallas", "xla_sorted", "xla"):
+        runs = [ps_online_mf(iter(stream), num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED,
+                             learning_rate=LEARNING_RATE, scatter_impl=impl, device=dev,
+                             collect_outputs=False, dump_model=False) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = {}
+        for what in ("item table", "user state"):
+            a, b = ((r.store.values() if what == "item table" else r.worker_state) for r in runs)
+            same[what] = bool(torch.equal(a, b))
+            print(f"determinism: ps_online_mf scatter_impl={impl} dim {DIM_UNFUSED}, 8 microbatches twice: "
+                  f"{what} bitwise equal: {'yes' if same[what] else 'NO'}, "
+                  f"largest difference {float((a - b).abs().max()):.3e}")
+        differ += [impl] if not all(same.values()) else []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    users = torch.from_numpy(stream[0]["user"]).to(dev).long()
+    deltas = torch.randn(BATCH, DIM_UNFUSED, generator=gen, device=dev) * 0.01
+    table = torch.randn(NUM_USERS, DIM_UNFUSED, generator=gen, device=dev) * 0.1
+    forms = {"index_add_": lambda t: t.index_add_(0, users, deltas),
+             "index_put_(accumulate=True)": lambda t: t.index_put_((users,), deltas, accumulate=True)}
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    for name, fn in forms.items():
+        a, b = fn(table.clone()), fn(table.clone())
+        ms = gpu_ms(torch, lambda: fn(table), flush)
+        print(f"determinism: {name} ({BATCH} lanes into ({NUM_USERS},{DIM_UNFUSED}) f32, uniform users): "
+              f"two calls bitwise equal: {'yes' if torch.equal(a, b) else 'no'}, "
+              f"largest difference {float((a - b).abs().max()):.3e}, {ms:.4f} ms")
+    check(not differ, f"two runs on the same stream differ under scatter_impl {differ}")
+
+
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_CRASH_AT = 24, 8, 13
+DRIVER_REPEATS = 5  # timed runs of each loop (after one untimed run of each)
+
+
+def _driver_parts(torch, dev, **cfg):
+    """The driver phase's job: MF at dim 64 over the main path's tables,
+    SGDUpdater(0.01), scatter_impl="pallas", no model dump."""
+    from flink_parameter_server_tpu_torch import (
+        OnlineMatrixFactorization, SGDUpdater, ShardedParamStore, ranged_random_factor,
+    )
+    from flink_parameter_server_tpu_torch.training.driver import DriverConfig, StreamingDriver
+
+    logic = OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), seed=0,
+                                      device=dev)
+    store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=ranged_random_factor(1, (DIM_UNFUSED,)),
+                                     scatter_impl="pallas", device=dev)
+    return logic, store, StreamingDriver(logic, store, config=DriverConfig(dump_model=False, **cfg))
+
+
+def _same(torch, what, a, b):
+    equal = bool(torch.equal(a, b))
+    print(f"driver: {what}: bitwise equal: {'yes' if equal else 'NO'}, "
+          f"largest difference {float((a.double() - b.double()).abs().max()):.3e}")
+    check(equal, f"{what} differ")
+
+
+def phase_driver(torch, dev, card):
+    """The job envelope at the main path's full width (100,000 users x
+    131,072 items, dim 64, 24 microbatches of 65,536 Zipf-1.2 ratings from a
+    seeded stream): an uninterrupted StreamingDriver run (K1 counted: once a
+    step, no other kernel), then the same stream through RecoveringDriver
+    with a crash at step 13 (restore step 8, replay the WAL tail, finish)
+    held bit for bit against it; load_model of the final checkpoint; the
+    corrupt-latest fallback; the NaN guard; and the envelope's costs, each
+    printed beside the card's name and power limit."""
+    import tempfile
+    import warnings
+
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+    from flink_parameter_server_tpu_torch.resilience import (
+        FaultPlan, RecoveringDriver, RestartPolicy, corrupt_latest_checkpoint,
+    )
+    from flink_parameter_server_tpu_torch.training import checkpoint as ckpt
+    from flink_parameter_server_tpu_torch.training.driver import TrainingDiverged
+
+    stream = zipf_stream(2, DRIVER_STEPS)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="driver-", dir=os.path.join(REPO, "build")) as tmp:
+        # 1. the oracle, K1 counted
+        _, _, oracle_drv = _driver_parts(torch, dev)
+        snaps = {}
+
+        def snapshot(step, n, table, state, outs):  # the oracle's tables at the fallback step
+            if step == 2 * DRIVER_CKPT_EVERY:
+                snaps["table"], snaps["state"] = table[:NUM_ITEMS].clone(), state.clone()
+
+        oracle_drv.add_group_hook(snapshot)
+        zero_counts()
+        oracle = oracle_drv.run(iter(stream))
+        torch.cuda.synchronize()
+        read_counts("StreamingDriver (oracle)", {"scatter_add": DRIVER_STEPS})
+        check(oracle_drv.step_idx == DRIVER_STEPS, "the oracle ran the wrong number of steps")
+        check(bool(torch.isfinite(oracle.store.values()).all()), "non-finite oracle table")
+
+        # 2. crash at step 13, restore, replay, finish
+        ck, wal = os.path.join(tmp, "ckpt"), os.path.join(tmp, "wal")
+        _, _, drv = _driver_parts(torch, dev, checkpoint_every=DRIVER_CKPT_EVERY, checkpoint_dir=ck,
+                                  wal_dir=wal, metrics_every=DRIVER_CKPT_EVERY)
+        drv.metrics_sink = open(os.devnull, "w")
+        drv.add_group_hook(FaultPlan().crash_at(DRIVER_CRASH_AT).driver_hook())
+        rec = RecoveringDriver(drv, lambda: iter(stream), policy=RestartPolicy(jitter=0.0, backoff_base_s=0.0))
+        zero_counts()
+        t0 = time.perf_counter()
+        res = rec.run()
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        drv.metrics_sink.close()
+        event = rec.events[0]
+        print(f"driver: recovery: {rec.restarts} restart ({event['failure']}), restored step "
+              f"{event.get('restored_step')}, replayed {event.get('replayed_steps')} WAL steps, "
+              f"{drv.step_idx} steps in all, {rec_s:.3f} s; retained checkpoints {drv._ckpt_mgr.all_steps()}")
+        check(rec.restarts == 1 and event["failure"] == "device", "recovery did not restart exactly once")
+        check(event.get("restored_step") == DRIVER_CKPT_EVERY, "recovery did not restore step 8")
+        check(event.get("replayed_steps", 0) >= 1, "recovery replayed no WAL step")
+        check(drv.step_idx == DRIVER_STEPS, "recovery ended at the wrong step")
+        # K1 once a step, replays included: 13 steps, steps 9..T replayed, T+1..24
+        read_counts("RecoveringDriver", {"scatter_add": DRIVER_STEPS + DRIVER_CRASH_AT - DRIVER_CKPT_EVERY})
+        _same(torch, "recovered item table vs the uninterrupted run", res.store.values(), oracle.store.values())
+        _same(torch, "recovered user state vs the uninterrupted run", res.worker_state, oracle.worker_state)
+
+        # 5. load_model of the final checkpoint
+        final = ckpt.load_model(ck, device=dev, scatter_impl="pallas")
+        _same(torch, f"load_model of step {drv._ckpt_mgr.latest_step()} vs the uninterrupted run",
+              final.values(), oracle.store.values())
+
+        # 4. the corrupt latest: a fresh driver falls back one step
+        corrupt_latest_checkpoint(ck, seed=0)
+        _, _, fresh = _driver_parts(torch, dev, checkpoint_dir=ck)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            check(fresh.resume(), "resume() after the corruption restored nothing")
+        fell_back = [w for w in caught if "falling back" in str(w.message)]
+        print(f"driver: corrupt latest checkpoint: resume() warned {len(fell_back)} time(s) and restored "
+              f"step {fresh.step_idx}")
+        check(len(fell_back) == 1 and fresh.step_idx == 2 * DRIVER_CKPT_EVERY, "no fallback to step 16")
+        _same(torch, "fallback table vs the uninterrupted run's at step 16", fresh.store.values(), snaps["table"])
+        _same(torch, "fallback user state vs the uninterrupted run's at step 16", fresh._state, snaps["state"])
+
+        # 6. the NaN guard: a table poisoned at step 10 is never checkpointed
+        nan_dir = os.path.join(tmp, "nan")
+        _, _, guarded = _driver_parts(torch, dev, checkpoint_every=5, nan_check_every=5, checkpoint_dir=nan_dir)
+
+        def poison(step, n, table, state, outs):
+            if step == 10:
+                table[0, 0] = float("nan")
+
+        guarded.add_group_hook(poison)
+        try:
+            guarded.run(iter(stream[:12]))
+            raised = None
+        except TrainingDiverged as e:
+            raised = e
+        steps = guarded._ckpt_mgr.all_steps()
+        print(f"driver: NaN guard: {type(raised).__name__ if raised else 'nothing'} raised at step "
+              f"{getattr(raised, 'step', None)}; checkpoints on disk {steps}")
+        check(raised is not None and raised.step == 10, "the NaN guard did not fire at step 10")
+        check(steps == [5], "a checkpoint after the poisoned step was written")
+
+        _driver_costs(torch, dev, card, stream, tmp, transform_batched, ckpt)
+
+
+def _driver_costs(torch, dev, card, stream, tmp, transform_batched, ckpt):
+    """updates/s through StreamingDriver (with and without its prefetch
+    thread) against bare transform_batched on the same stream (one untimed
+    run of each, then DRIVER_REPEATS of each in turns, no profiler), one
+    checkpoint save (sync and async), one WAL
+    append, and the NaN guard's reduction."""
+    from flink_parameter_server_tpu_torch import ShardedParamStore
+    from flink_parameter_server_tpu_torch.resilience import UpdateWAL
+    from flink_parameter_server_tpu_torch.training.driver import _all_finite
+
+    updates = DRIVER_STEPS * BATCH
+    # the driver as configured by default, the driver without its prefetch
+    # thread, and the bare loop
+    arms = {"StreamingDriver": {}, "StreamingDriver prefetch=0": {"prefetch": 0}, "transform_batched": None}
+    rates = {name: [] for name in arms}
+    for i in range(DRIVER_REPEATS + 1):
+        for name, cfg in arms.items():
+            logic, store, drv = _driver_parts(torch, dev, **(cfg or {}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cfg is not None:
+                result = drv.run(iter(stream))
+            else:
+                result = transform_batched(iter(stream), logic, store, collect_outputs=False, dump_model=False)
+            torch.cuda.synchronize()
+            if i:  # the first run of each warms up
+                rates[name].append(updates / (time.perf_counter() - t0))
+    for name, r in rates.items():
+        print(f"driver: {name}: {DRIVER_STEPS} microbatches of {BATCH} (tables built and copied in the "
+              f"timed call), median {statistics.median(r):.0f} updates/s, spread {min(r):.0f}-{max(r):.0f} "
+              f"over {len(r)} runs; {card}")
+
+    table_mb = result.store.values().numel() * 4 / 2**20
+    state_mb = result.worker_state.numel() * 4 / 2**20
+    for use_async in (False, True):
+        mgr = ckpt.JobCheckpointManager(os.path.join(tmp, f"save-{use_async}"), use_async=use_async)
+        returned, durable = [], []
+        for step in range(1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(step, result.store, result.worker_state)
+            returned.append((time.perf_counter() - t0) * 1e3)
+            mgr.wait()
+            durable.append((time.perf_counter() - t0) * 1e3)
+        mode = "async" if use_async else "sync"
+        print(f"driver: checkpoint save ({mode}, {table_mb:.1f} MiB table + {state_mb:.1f} MiB user state): "
+              f"median {statistics.median(returned):.2f} ms until save() returns, "
+              f"{statistics.median(durable):.2f} ms until durable, over 3 saves; {card}")
+    wal = UpdateWAL(os.path.join(tmp, "wal-cost"))
+    times = []
+    for i, batch in enumerate(stream[:8]):
+        t0 = time.perf_counter()
+        wal.append(i, 1, batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    wal.close()
+    print(f"driver: WAL append of one {BATCH}-rating batch ({wal.bytes_written // 8} bytes, fsync each): "
+          f"median {statistics.median(times):.3f} ms, spread {min(times):.3f}-{max(times):.3f} over 8; {card}")
+    outs = {"prediction": torch.zeros(BATCH, device=dev), "error": torch.zeros(BATCH, device=dev)}
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(bool(_all_finite(outs, result.store.table, result.worker_state)), "finite tables read as not")
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"driver: nan_check (one reduction over the outputs, the item table and the user state, one "
+          f"host read): median {statistics.median(times[2:]):.3f} ms over 18; {card}")
+
+
+def phase_driver_trace(torch, dev):
+    """A StreamingDriver run with profile_dir (steps 3-5 of 8 traced), last
+    of all: the chrome trace it writes must hold K1's kernel events."""
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="profile-", dir=os.path.join(REPO, "build")) as tmp:
+        _, _, drv = _driver_parts(torch, dev, profile_dir=tmp, profile_steps=(2, 5))
+        drv.run(iter(zipf_stream(3, 8)))
+        torch.cuda.synchronize()
+        traces = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        check(len(traces) == 1, f"profile_dir holds {traces}")
+        with open(os.path.join(tmp, traces[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        k1 = [ev for ev in events if ev.get("cat") == "kernel" and "scatter_tile_pass" in ev.get("name", "")]
+        print(f"driver: profile_dir trace: {len(events)} events, {len(k1)} of K1's pass-1 kernel "
+              f"(fps::scatter_tile_pass) over the traced steps")
+        check(len(k1) >= 1, "the driver's trace holds no K1 kernel event")
 
 
 def _counters():
@@ -872,9 +1163,12 @@ def main() -> int:
     try:
         phase_build()
         errs = phase_kernels(torch, dev, gen)
+        phase_determinism(torch, dev)
+        card = card_line()
+        phase_driver(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs)
-        card = card_line()
+        phase_driver_trace(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

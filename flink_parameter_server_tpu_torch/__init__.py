@@ -6,7 +6,10 @@ nothing of it and nothing of JAX.  Two paths are ported: online MF (per-id
 init, the parameter store, the batched PS loop, and the sorted scatter-add
 and fused MF-SGD kernels) and Transformer LM training through the dense
 parameter server (the model, optax-default optimizers, and the causal
-flash-attention forward, dQ and dK/dV kernels).  Entry points run on
+flash-attention forward, dQ and dK/dV kernels).  Around the MF loop sits
+the job envelope (``training/``, ``resilience/``, ``telemetry/``): the
+streaming driver, checkpoints, the write-ahead log and crash recovery.
+Entry points run on
 ``cuda`` unless given ``device="cpu"``; on the CPU each kernel's plain torch
 version runs instead.
 
@@ -31,6 +34,16 @@ and the LM (``batches`` yields ``{"tokens": (B, T) int array}``)::
     cfg = TransformerConfig(flash_attention="on")
     server = DenseParameterServer(init_params(cfg, device="cuda"), adamw(3e-3))
     result = transform_dense(batches, lambda m, b: lm_loss(m, b, cfg), server)
+
+and a job that checkpoints, logs ahead and survives a crash::
+
+    from flink_parameter_server_tpu_torch import DriverConfig, StreamingDriver
+    from flink_parameter_server_tpu_torch.resilience import RecoveringDriver
+
+    driver = StreamingDriver(logic, store, config=DriverConfig(
+        checkpoint_dir="ckpt", checkpoint_every=100, wal_dir="wal"))
+    driver.resume()                    # continue a saved job, if any
+    result = RecoveringDriver(driver, make_stream).run()
 """
 from .core.batched import BatchedWorkerLogic, PushRequest
 from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
@@ -40,7 +53,9 @@ from .core.transform import (
     TransformResult,
     make_scan_train_step,
     make_train_step,
+    transform,
     transform_batched,
+    transform_with_model_load,
 )
 from .models.matrix_factorization import (
     OnlineMatrixFactorization,
@@ -57,6 +72,8 @@ from .models.transformer import (
 )
 from .ops.flash_attention import flash_mha
 from .ops.mf_kernel import make_fused_mf_train_step
+from .training.checkpoint import load_model
+from .training.driver import DriverConfig, StreamingDriver, TrainingDiverged
 from .utils.initializers import normal_factor, ranged_random_factor, zeros
 
 __all__ = [
@@ -80,7 +97,13 @@ __all__ = [
     "TransformResult",
     "make_scan_train_step",
     "make_train_step",
+    "transform",
     "transform_batched",
+    "transform_with_model_load",
+    "DriverConfig",
+    "StreamingDriver",
+    "TrainingDiverged",
+    "load_model",
     "OnlineMatrixFactorization",
     "SGDUpdater",
     "ps_online_mf",

@@ -17,7 +17,9 @@ port's train step owns its table, as the reference's jitted step owns a
 donated buffer.  :meth:`ShardedParamStore.push` stays functional: it
 pushes into a copy.
 
-``scatter_impl`` arms: ``"xla"`` is ``index_add_``; ``"xla_sorted"`` is
+``scatter_impl`` arms: ``"xla"`` is a row scatter-add
+(``ops/rows.add_rows_``, which sums duplicates in a fixed order on the
+card too); ``"xla_sorted"`` is
 sort + segment-sum + one add per unique row (``ops/sorted_scatter.py``);
 ``"pallas"`` is the CUDA sorted-run kernel (``ops/scatter_kernel.py``), or
 its plain version for a table on the CPU; both take float32, bfloat16 and
@@ -305,6 +307,17 @@ class ShardedParamStore:
             layout=_resolve_layout(layout, update, tuple(values.shape[1:])),
         )
         return cls(spec, _place(spec, values.to(resolve_device(device))))
+
+    @classmethod
+    def from_spec_values(
+        cls, spec: StoreSpec, values: torch.Tensor, *, device: DeviceLike = None
+    ) -> "ShardedParamStore":
+        """Seed a store carrying the *full* target ``spec`` (update rule,
+        ``scatter_impl``, layout) from an unpadded ``(capacity, ...)``
+        value tensor — the checkpoint-restore path, which must not drop
+        spec fields the way a shape-inferred rebuild would.  The table
+        goes on ``device`` (default: the card)."""
+        return cls(spec, _place(spec, values.to(resolve_device(device), spec.dtype)))
 
     def pull(self, ids: torch.Tensor) -> torch.Tensor:
         return pull(self.spec, self.table, ids)

@@ -2,17 +2,20 @@
 
 Counterpart of the batched half of ``flink_parameter_server_tpu/core/
 transform.py`` (``make_train_step``, ``make_scan_train_step``,
-``transform_batched``, ``TransformResult``).  PyTorch runs eagerly, so the
-step is a plain function; it updates the table and the worker state in
-place (the reference's jitted step donates both buffers), and
-:func:`transform_batched` copies the caller's store and state first, so
-those stay valid.  ``steps_per_call=K`` groups K microbatches per call,
-run as a loop (a CUDA graph of the group is later work).
+``transform_batched``, ``TransformResult``) and the batched overloads of
+``transform`` and ``transform_with_model_load``; their event-API
+overloads raise until the event backend is ported (ROADMAP Queue 1 #5).
+PyTorch runs eagerly, so the step is a plain function; it updates the
+table and the worker state in place (the reference's jitted step donates
+both buffers), and :func:`transform_batched` copies the caller's store and
+state first, so those stay valid.  ``steps_per_call=K`` groups K
+microbatches per call, run as a loop (a CUDA graph of the group is later
+work).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Generic, Iterable, List, Optional, Tuple, TypeVar
+from typing import Any, Callable, Generic, Iterable, List, Optional, Tuple, TypeVar, Union
 
 import numpy as np
 import torch
@@ -144,7 +147,7 @@ def make_scan_train_step(
     base = make_train_step(logic, spec, presort=presort)
 
     def step(table, state, batches):
-        k = next(x for x in _leaves(batches) if isinstance(x, torch.Tensor)).shape[0]
+        k = next(x for x in tree_leaves(batches) if isinstance(x, torch.Tensor)).shape[0]
         outs = []
         for i in range(k):
             table, state, out = base(table, state, tree_map(lambda x: x[i], batches))
@@ -154,7 +157,9 @@ def make_scan_train_step(
     return step
 
 
-def _leaves(tree: Any) -> List[Any]:
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of nested dicts / lists / tuples, in :func:`tree_map`'s
+    order."""
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
@@ -274,11 +279,95 @@ def transform_batched(
     )
 
 
+# ---------------------------------------------------------------------------
+# The public overload family.
+# ---------------------------------------------------------------------------
+
+_EVENT_API = (
+    "the event API (WorkerLogic / ParameterServerLogic and the local "
+    "event runtime) is not ported yet: ROADMAP Queue 1 #5"
+)
+
+
+def transform(
+    data: Iterable,
+    worker_logic: Any,
+    ps_logic: Union[ShardedParamStore, Any, None] = None,
+    *,
+    param_init: Optional[Callable[[int], Any]] = None,
+    param_update: Optional[Callable[[Any, Any], Any]] = None,
+    worker_parallelism: int = 1,
+    ps_parallelism: int = 1,
+    iteration_wait_time: Optional[float] = None,
+    partitioner: Optional[Callable[[Any, int], int]] = None,
+    input_window: Optional[int] = None,
+    client_sender=None,
+    ps_sender=None,
+    **batched_kwargs,
+) -> TransformResult:
+    """Wire ``data`` + worker logic + server into a PS job (the reference's
+    ``FlinkParameterServer.transform`` overloads).
+
+    ``transform(batches, batched_worker, sharded_store, **kw)`` is
+    :func:`transform_batched`; the event-API overloads (``param_init`` /
+    ``param_update``, custom server logic) raise ``NotImplementedError``.
+    As in the reference, the event-only arguments are ignored on the
+    batched path."""
+    if isinstance(worker_logic, BatchedWorkerLogic):
+        if not isinstance(ps_logic, ShardedParamStore):
+            raise TypeError("batched worker logic requires a ShardedParamStore server")
+        return transform_batched(data, worker_logic, ps_logic, **batched_kwargs)
+    raise NotImplementedError(_EVENT_API)
+
+
+def _host_row(value: Any) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return torch.as_tensor(np.asarray(value))
+
+
+def transform_with_model_load(
+    model: Iterable[Tuple[int, Any]],
+    data: Iterable,
+    worker_logic: Any,
+    ps_logic: Union[ShardedParamStore, Any, None] = None,
+    **kwargs,
+) -> TransformResult:
+    """Seed the server from an initial ``(id, value)`` stream before
+    training — the reference's ``transformWithModelLoad`` overload.
+
+    With a ``ShardedParamStore`` the values are SET into a copy of its
+    table (negative ids wrap once, ids past the end are dropped), as the
+    reference's ``table.at[ids].set`` does.  That set addresses the
+    PHYSICAL table, so a packed-layout store raises where the reference
+    raises: the (n, row) values do not broadcast to its (n, 128) rows.
+    Seed a packed store with ``ShardedParamStore.from_values`` instead.
+    The event-API overload raises ``NotImplementedError``."""
+    if not isinstance(ps_logic, ShardedParamStore):
+        raise NotImplementedError(_EVENT_API)
+    model = list(model)
+    table = ps_logic.table.clone()
+    ids = torch.tensor([int(i) for i, _ in model], dtype=torch.int64, device=table.device)
+    vals = torch.stack([_host_row(v) for _, v in model]).to(table.device, table.dtype)
+    dst = (ids.shape[0],) + tuple(table.shape[1:])
+    src = tuple(vals.shape)
+    if len(src) > len(dst) or any(a not in (1, b) for a, b in zip(src[::-1], dst[::-1])):
+        raise ValueError(f"Incompatible shapes for broadcasting: {src} and requested shape {dst}")
+    rows = table.shape[0]
+    ids = torch.where(ids < 0, ids + rows, ids)
+    keep = (ids >= 0) & (ids < rows)
+    table[ids[keep]] = vals.expand(dst)[keep]
+    return transform(data, worker_logic, ShardedParamStore(ps_logic.spec, table), **kwargs)
+
+
 __all__ = [
     "TransformResult",
+    "transform",
+    "transform_with_model_load",
     "transform_batched",
     "make_train_step",
     "make_scan_train_step",
     "tree_map",
+    "tree_leaves",
     "to_device",
 ]

@@ -7,6 +7,14 @@ the end with NaN, and ``t.at[i].add(v, mode="drop")`` wraps a negative
 index once and drops the rest.  These helpers route every index into
 range first, so the port keeps those rules on both devices without a
 host round trip.
+
+Duplicate indices add up in a fixed order on both devices.  On a CUDA
+tensor ``index_add_`` adds them with atomics, in whatever order the
+threads reach them, so two runs of the same float32 step could differ in
+the last bits; there the add goes through ``index_put_(accumulate=True)``,
+which sorts the indices (a stable sort) and sums each run of equal
+indices in that order.  On the CPU ``index_add_`` is already repeatable
+(torch lists it as nondeterministic on CUDA only), and stays.
 """
 from __future__ import annotations
 
@@ -35,6 +43,14 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def accumulate_rows_(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``table[idx[i]] += values[i]`` in place for in-range int64 ``idx``,
+    duplicates summed in the same order on every run.  Returns ``table``."""
+    if table.is_cuda:
+        return table.index_put_((idx,), values, accumulate=True)
+    return table.index_add_(0, idx, values)
+
+
 def add_rows_(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``table.at[idx].add(values, mode="drop")`` in place: negatives wrap,
     the rest out of range add nothing.  Returns ``table``."""
@@ -42,7 +58,7 @@ def add_rows_(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> t
     values = values.to(table.dtype).reshape((-1,) + tuple(table.shape[1:]))
     valid = valid.reshape(-1)
     values = torch.where(_expand(valid, values), values, torch.zeros_like(values))
-    return table.index_add_(0, safe.reshape(-1), values)
+    return accumulate_rows_(table, safe.reshape(-1), values)
 
 
-__all__ = ["take_rows", "add_rows_"]
+__all__ = ["take_rows", "add_rows_", "accumulate_rows_"]

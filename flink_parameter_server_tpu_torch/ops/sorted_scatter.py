@@ -4,11 +4,13 @@ add per UNIQUE row.
 Counterpart of ``flink_parameter_server_tpu/ops/sorted_scatter.py`` (the
 ``scatter_impl="xla_sorted"`` arm).  The reference built it to stop XLA
 serializing the read-modify-write of duplicate rows; here it is the
-plain-torch arm of the same semantics, beside plain ``index_add_``
+plain-torch arm of the same semantics, beside the plain row scatter-add
 (``"xla"``) and the CUDA kernel (``"pallas"``).  Empty segment slots get
 distinct out-of-range row ids, which the drop-mode add discards.
 
-Unlike the reference, which is functional, this updates ``table`` in
+The segment sum goes through ``ops/rows.accumulate_rows_``, so its sums
+are the same bits on every run on the card too.  Unlike the reference,
+which is functional, this updates ``table`` in
 place and returns it (the port's step owns its table, as a donated
 buffer does under ``jit``).
 """
@@ -18,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .rows import add_rows_
+from .rows import accumulate_rows_, add_rows_
 
 _INT32_MAX = 2**31 - 1
 
@@ -66,7 +68,7 @@ def sorted_dedup_scatter_add(
     first = torch.ones_like(sid, dtype=torch.bool)
     first[1:] = sid[1:] != sid[:-1]
     seg = torch.cumsum(first.to(torch.int64), 0) - 1
-    sums = torch.zeros_like(sdl).index_add_(0, seg, sdl)
+    sums = accumulate_rows_(torch.zeros_like(sdl), seg, sdl)
     # representative row per segment slot; empty slots stay out of range
     rep = oob + torch.arange(n, dtype=torch.int64, device=ids.device)
     rep[seg] = sid

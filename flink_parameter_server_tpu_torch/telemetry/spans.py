@@ -1,0 +1,317 @@
+"""Wall-clock span tracer — host-side phase attribution.
+
+A copy of ``flink_parameter_server_tpu/telemetry/spans.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.
+
+``training/tracing.py`` covers the DEVICE side (``torch.profiler``
+ranges inside the step, Chrome traces of the card).  What it
+cannot see is where the HOST went: ingest wait, WAL fsync, snapshot
+publish, dispatch queueing — precisely the silent stalls the straggler
+study (arXiv:2308.15482) blames for PS throughput loss.  This tracer
+makes those visible next to the device steps: nestable ``span("pull")``
+context managers, a fixed-size ring buffer (old spans fall off; tracing
+a week-long job must not OOM the host), and a Chrome trace-event JSON
+export (``chrome://tracing`` / Perfetto ``ui.perfetto.dev`` both load
+it) so the host timeline sits beside the profiler's device timeline.
+
+Distributed tracing (telemetry/distributed.py): a span can carry a
+``(trace_id, span_id, parent_id)`` identity.  Nested spans on the same
+thread inherit the enclosing span's trace; handing a ``trace_id`` /
+``parent_id`` explicitly stitches causality ACROSS threads and — via
+the ``t=<trace>:<span>`` wire token cluster/shard.py speaks — across
+processes.  Untraced spans carry ``None`` ids and cost no id
+generation.
+
+Overhead discipline: a disabled tracer's ``span()`` returns a shared
+no-op context manager — two attribute reads, no allocation — so the
+driver can leave the call sites in place unconditionally.
+
+Stack bookkeeping: per-thread span stacks live in a dict keyed by
+thread ident, with dead-thread entries evicted whenever a NEW thread
+first spans and the table has grown past a small bound — a
+``LineServer`` front end spawns one handler thread per TCP connection,
+and a long-lived server that churns thousands of short connections
+must not keep a stack list per thread that ever existed
+(tests/test_tracing.py pins the bound with a 200-connection churn).
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+# prune dead-thread stacks once the table outgrows this many entries
+_STACK_TABLE_SOFT_CAP = 32
+
+
+def gen_id(nbytes: int = 8) -> str:
+    """A random hex id (trace ids: 8 bytes, span ids: 4) — unique
+    across processes, cheap enough for one per traced request."""
+    return os.urandom(nbytes).hex()
+
+
+class _NullSpan:
+    """Shared do-nothing context manager for the disabled path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = (
+        "tracer", "name", "component", "t0",
+        "trace_id", "span_id", "parent_id",
+    )
+
+    def __init__(
+        self,
+        tracer: "SpanTracer",
+        name: str,
+        component: str,
+        trace_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+        span_id: Optional[str] = None,
+    ):
+        self.tracer = tracer
+        self.name = name
+        self.component = component
+        self.trace_id = trace_id
+        self.parent_id = parent_id
+        self.span_id = span_id
+
+    def __enter__(self):
+        stack = self.tracer._stack()
+        if self.trace_id is None and stack:
+            # same-thread nesting inherits the enclosing trace (the
+            # cross-thread/process case hands ids in explicitly)
+            top = stack[-1]
+            if top.trace_id is not None:
+                self.trace_id = top.trace_id
+                self.parent_id = top.span_id
+        if self.trace_id is not None and self.span_id is None:
+            self.span_id = gen_id(4)
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        stack = self.tracer._stack()
+        depth = len(stack) - 1
+        stack.pop()
+        self.tracer._record(
+            self.name, self.component, self.t0, t1, depth,
+            self.trace_id, self.span_id, self.parent_id,
+        )
+        return False
+
+
+class SpanTracer:
+    """Ring-buffered wall-clock tracer.
+
+    Spans nest per-thread (a ``publish`` inside a ``dispatch`` carries
+    depth 1); the buffer holds the most recent ``capacity`` spans across
+    all threads.  ``export_chrome_trace()`` emits the standard
+    trace-event JSON array of complete (``ph: "X"``) events — depth is
+    preserved implicitly by Chrome's per-tid flame stacking and
+    explicitly in each event's ``args.depth``.
+
+    ``process`` names this tracer's lane when several rings are merged
+    into one cross-process trace (telemetry/distributed.py
+    ``TraceCollector``); ``pid`` defaults to the OS pid.
+    """
+
+    def __init__(
+        self,
+        capacity: int = 65536,
+        *,
+        enabled: bool = True,
+        pid: Optional[int] = None,
+        process: Optional[str] = None,
+    ):
+        if capacity <= 0:
+            raise ValueError(f"capacity={capacity}: must be > 0")
+        self.capacity = int(capacity)
+        self.enabled = bool(enabled)
+        self.pid = int(pid) if pid is not None else os.getpid()
+        self.process = process
+        self._lock = threading.Lock()
+        self._spans: deque = deque(maxlen=self.capacity)
+        self._stacks: Dict[int, list] = {}
+        self._stacks_lock = threading.Lock()
+        # perf_counter has an arbitrary epoch; anchor it to wall time
+        # once so exported timestamps are meaningful across processes
+        self._epoch_wall = time.time()
+        self._epoch_perf = time.perf_counter()
+
+    # -- recording ---------------------------------------------------------
+    def _stack(self) -> list:
+        # dict reads are GIL-atomic; only creation takes the lock
+        ident = threading.get_ident()
+        st = self._stacks.get(ident)
+        if st is None:
+            with self._stacks_lock:
+                st = self._stacks.setdefault(ident, [])
+                if len(self._stacks) > _STACK_TABLE_SOFT_CAP:
+                    live = {t.ident for t in threading.enumerate()}
+                    for k in list(self._stacks):
+                        if k != ident and k not in live:
+                            del self._stacks[k]
+        return st
+
+    def stack_count(self) -> int:
+        """Per-thread stack entries currently tracked (bounded by live
+        threads + the soft cap, NOT by threads ever seen)."""
+        with self._stacks_lock:
+            return len(self._stacks)
+
+    def _record(
+        self, name: str, component: str, t0: float, t1: float, depth: int,
+        trace_id: Optional[str] = None, span_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+    ) -> None:
+        with self._lock:
+            self._spans.append((
+                name, component, t0, t1, depth, threading.get_ident(),
+                trace_id, span_id, parent_id,
+            ))
+
+    def span(
+        self,
+        name: str,
+        component: str = "host",
+        *,
+        trace_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+        span_id: Optional[str] = None,
+    ):
+        """``with tracer.span("ingest", component="ingest"): ...`` —
+        returns the shared no-op when disabled.  ``trace_id`` /
+        ``parent_id`` attach the span to a distributed trace (same-
+        thread children then inherit it automatically)."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, component, trace_id, parent_id, span_id)
+
+    def record(
+        self, name: str, t0: float, t1: float, component: str = "host",
+        *,
+        trace_id: Optional[str] = None,
+        span_id: Optional[str] = None,
+        parent_id: Optional[str] = None,
+    ) -> None:
+        """Retroactive span from already-taken ``time.perf_counter()``
+        stamps — for intervals whose boundaries live in someone else's
+        control flow (the driver times dispatches at callback edges;
+        wrapping the jitted call itself would mean forking the loop)."""
+        if not self.enabled:
+            return
+        self._record(
+            name, component, float(t0), float(t1), 0,
+            trace_id, span_id, parent_id,
+        )
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+    # -- reads -------------------------------------------------------------
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._spans)
+
+    def wall_clock_anchor(self) -> tuple:
+        """``(epoch_wall, epoch_perf)`` — the wall-time anchoring of
+        this ring's perf_counter timestamps (the collector's raw
+        material for cross-process clock alignment)."""
+        return self._epoch_wall, self._epoch_perf
+
+    def spans(self) -> List[Dict[str, Any]]:
+        """Recorded spans, oldest first: name/component/start/dur/depth/
+        tid (seconds, perf_counter timebase) plus trace_id/span_id/
+        parent_id (None for untraced spans)."""
+        with self._lock:
+            raw = list(self._spans)
+        return [
+            {
+                "name": n, "component": c, "start": t0,
+                "dur": t1 - t0, "depth": d, "tid": tid,
+                "trace_id": tr, "span_id": sp, "parent_id": pa,
+            }
+            for (n, c, t0, t1, d, tid, tr, sp, pa) in raw
+        ]
+
+    def export_chrome_trace(self, path: Optional[str] = None) -> str:
+        """Chrome trace-event JSON (the array form — both catapult and
+        Perfetto accept it).  Timestamps are microseconds since the
+        tracer's wall-clock epoch; writes to ``path`` when given,
+        returns the JSON string either way."""
+        events = []
+        if self.process is not None:
+            events.append({
+                "name": "process_name", "ph": "M", "pid": self.pid,
+                "tid": 0, "args": {"name": self.process},
+            })
+        with self._lock:
+            raw = list(self._spans)
+        for (name, component, t0, t1, depth, tid, tr, sp, pa) in raw:
+            args: Dict[str, Any] = {"depth": depth}
+            if tr is not None:
+                args["trace_id"] = tr
+                args["span_id"] = sp
+                args["parent_id"] = pa
+            events.append({
+                "name": name,
+                "cat": component,
+                "ph": "X",
+                "ts": round((t0 - self._epoch_perf) * 1e6, 3),
+                "dur": round((t1 - t0) * 1e6, 3),
+                "pid": self.pid,
+                "tid": tid,
+                "args": args,
+            })
+        doc = json.dumps(events)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(doc)
+        return doc
+
+
+# -- the process-wide default -------------------------------------------------
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT: Optional[SpanTracer] = None
+
+
+def get_tracer() -> SpanTracer:
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = SpanTracer()
+        return _DEFAULT
+
+
+def set_tracer(tracer: Optional[SpanTracer]) -> None:
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        _DEFAULT = tracer
+
+
+def span(name: str, component: str = "host"):
+    """Module-level convenience over the default tracer."""
+    return get_tracer().span(name, component)
+
+
+__all__ = ["SpanTracer", "gen_id", "get_tracer", "set_tracer", "span"]

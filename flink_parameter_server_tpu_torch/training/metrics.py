@@ -1,0 +1,148 @@
+"""Step metrics & observability.
+
+A copy of ``flink_parameter_server_tpu/training/metrics.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.
+
+Reference parity (SURVEY.md §5 "Metrics / logging"): the reference exposes
+only Flink's operator metrics (throughput, backpressure).  The rebuild's
+north-star metrics (BASELINE.md) are measured here: updates/sec/chip and
+pull→push latency percentiles, plus a JSON-lines emitter as the
+"accumulator" analogue.
+
+With a :class:`~..telemetry.MetricsRegistry` attached the tracker also
+publishes through the unified plane (``component=train``): step/event
+counters, the pull→push latency histogram, and a live updates/sec
+probe gauge — which is what the ``/metrics`` endpoint scrapes while
+the run is in flight.  The JSON emit line stays (same keys, now
+stamped with the shared ``ts``/``run_id``).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..telemetry.registry import json_line
+
+
+@dataclass
+class StepMetrics:
+    """Rolling throughput/latency tracker for the PS train loop.
+
+    ``events_per_step`` = microbatch size (one "event" = one reference
+    record: a rating, an example, a token pair).  Latency per step is the
+    full pull→compute→push round trip — the analogue of the reference's
+    per-message pull→push latency, amortised over the batch.
+    """
+
+    events_per_step: int
+    window: int = 100
+    registry: Optional[Any] = None  # telemetry.MetricsRegistry or None
+    _durations: List[float] = field(default_factory=list)
+    _window_events: List[int] = field(default_factory=list)
+    _t_last: Optional[float] = None
+    total_steps: int = 0
+    total_events: int = 0
+    started_at: float = field(default_factory=time.perf_counter)
+
+    def __post_init__(self) -> None:
+        reg = self.registry
+        self._c_steps = self._c_events = self._h_latency = None
+        if reg is not None:
+            self._c_steps = reg.counter(
+                "train_steps_total", component="train"
+            )
+            self._c_events = reg.counter(
+                "train_events_total", component="train"
+            )
+            self._h_latency = reg.histogram(
+                "pull_push_latency_seconds", component="train"
+            )
+            # probe gauge: the scrape reads the CURRENT windowed rate,
+            # at zero per-step cost
+            reg.gauge(
+                "updates_per_sec", component="train",
+                fn=self.updates_per_sec,
+            )
+
+    def count_untimed(self, steps: int, events: int) -> None:
+        """Count steps/events that were never timed (a run's first
+        dispatch has no prior timestamp; recovery bookkeeping) — totals
+        and registry counters stay exact, latency stays honest."""
+        self.total_steps += steps
+        self.total_events += events
+        if self._c_steps is not None:
+            self._c_steps.inc(steps)
+            self._c_events.inc(events)
+
+    def step_start(self) -> None:
+        self._t_last = time.perf_counter()
+
+    def step_end(
+        self, events: Optional[int] = None, *, n_steps: int = 1
+    ) -> None:
+        """``events`` overrides the event count for the timed interval
+        (e.g. a padded final batch contributes only its masked-in rows).
+        ``n_steps`` > 1 records one GROUP dispatch covering that many
+        steps (``transform_batched(steps_per_call=K)``): one duration
+        entry — the latency percentiles then time dispatches — while
+        step/event totals and the rate stay exact."""
+        assert self._t_last is not None, "step_start() not called"
+        n_events = self.events_per_step * n_steps if events is None else events
+        dur = time.perf_counter() - self._t_last
+        self._durations.append(dur)
+        self._window_events.append(n_events)
+        if len(self._durations) > self.window:
+            self._durations.pop(0)
+            self._window_events.pop(0)
+        self.total_steps += n_steps
+        self.total_events += n_events
+        if self._c_steps is not None:
+            self._c_steps.inc(n_steps)
+            self._c_events.inc(n_events)
+            # one observation per DISPATCH (n_steps steps), matching the
+            # percentile semantics of the rolling window
+            self._h_latency.observe(dur)
+
+    # -- reporting --------------------------------------------------------
+    def updates_per_sec(self) -> float:
+        if not self._durations:
+            return 0.0
+        return sum(self._window_events) / sum(self._durations)
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        if not self._durations:
+            return {"p50": 0.0, "p90": 0.0, "p99": 0.0}
+        d = np.array(self._durations)
+        return {
+            "p50": float(np.percentile(d, 50)),
+            "p90": float(np.percentile(d, 90)),
+            "p99": float(np.percentile(d, 99)),
+        }
+
+    def snapshot(self) -> Dict[str, Any]:
+        lat = self.latency_percentiles()
+        return {
+            "steps": self.total_steps,
+            "events": self.total_events,
+            "updates_per_sec": round(self.updates_per_sec(), 1),
+            "pull_push_p50_ms": round(lat["p50"] * 1e3, 3),
+            "pull_push_p90_ms": round(lat["p90"] * 1e3, 3),
+            "pull_push_p99_ms": round(lat["p99"] * 1e3, 3),
+            "wall_s": round(time.perf_counter() - self.started_at, 3),
+        }
+
+    def emit(self, sink=None) -> str:
+        """One single-line JSON sample (shared ``ts``/``run_id`` stamped
+        by the unified plane; guaranteed to round-trip ``json.loads``)."""
+        return json_line(
+            self.snapshot(), sink,
+            run_id=self.registry.run_id if self.registry else None,
+        )
+
+
+__all__ = ["StepMetrics"]

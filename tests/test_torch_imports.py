@@ -48,6 +48,8 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert len(modules) >= 15
+    assert {"flink_parameter_server_tpu_torch.training.driver",
+            "flink_parameter_server_tpu_torch.resilience"} <= set(modules)
 
 
 def test_sources_have_no_forbidden_imports():

@@ -386,3 +386,57 @@ def test_lm_on_card_goes_through_the_flash_kernels(cuda):
     tr.lm_loss(model, {"tokens": tokens}, off).backward()
     for a, p in zip(got, model.parameters()):
         torch.testing.assert_close(a, p.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla_sorted", "xla"])
+def test_online_mf_twice_on_the_card_is_bitwise_equal(cuda, impl):
+    """Two runs of ps_online_mf on the same Zipf stream (many duplicate
+    users and items in a batch), deterministic mode off: every arm's item
+    table and user state agree bit for bit (the row scatter-adds sum
+    duplicates in a fixed order; crash recovery rests on it)."""
+    from flink_parameter_server_tpu_torch import ps_online_mf
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    rng = np.random.default_rng(3)
+    stream = [{"user": rng.integers(0, 500, 4096).astype(np.int32),
+               "item": _zipf_ids(rng, 4096, 2048).astype(np.int32),
+               "rating": rng.normal(0, 1, 4096).astype(np.float32),
+               "mask": np.ones(4096, bool)} for _ in range(4)]
+    runs = [ps_online_mf(iter(stream), num_users=500, num_items=2048, dim=32, learning_rate=0.01,
+                         scatter_impl=impl, device=cuda, collect_outputs=False) for _ in range(2)]
+    assert torch.equal(runs[0].store.values(), runs[1].store.values())
+    assert torch.equal(runs[0].worker_state, runs[1].worker_state)
+
+
+def test_driver_recovers_bitwise_on_the_card(cuda, tmp_path):
+    """Crash at step 7, restore step 4, replay the WAL tail: the card's
+    tables equal the uninterrupted run's bit for bit."""
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization, SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.resilience import FaultPlan, RecoveringDriver, RestartPolicy
+    from flink_parameter_server_tpu_torch.training.driver import DriverConfig, StreamingDriver
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    rng = np.random.default_rng(4)
+    stream = [{"user": rng.integers(0, 300, 2048).astype(np.int32),
+               "item": _zipf_ids(rng, 2048, 1024).astype(np.int32),
+               "rating": rng.normal(0, 1, 2048).astype(np.float32),
+               "mask": np.ones(2048, bool)} for _ in range(10)]
+
+    def driver(**cfg):
+        logic = OnlineMatrixFactorization(300, 16, updater=SGDUpdater(0.01), device=cuda)
+        store = ShardedParamStore.create(1024, (16,), init_fn=ranged_random_factor(1, (16,)),
+                                         scatter_impl="pallas", device=cuda)
+        return StreamingDriver(logic, store, config=DriverConfig(dump_model=False, **cfg))
+
+    oracle = driver().run(iter(stream))
+    d = driver(checkpoint_every=4, checkpoint_dir=str(tmp_path / "ckpt"), wal_dir=str(tmp_path / "wal"))
+    d.add_group_hook(FaultPlan().crash_at(7).driver_hook())
+    rec = RecoveringDriver(d, lambda: iter(stream), policy=RestartPolicy(jitter=0.0, backoff_base_s=0.0))
+    res = rec.run()
+    assert rec.restarts == 1 and rec.events[0]["restored_step"] == 4 and rec.steps_replayed >= 1
+    assert res.store.table.is_cuda
+    assert torch.equal(oracle.store.values(), res.store.values())
+    assert torch.equal(oracle.worker_state, res.worker_state)
