@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the torch port's two paths on one NVIDIA card: online MF (bare and
-through the job envelope) and Transformer LM training through the dense
-parameter server.
+"""Drive the torch port's two paths on one NVIDIA card: online MF (bare,
+through the job envelope, and answering top-K queries while it trains)
+and Transformer LM training through the dense parameter server.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -40,7 +40,20 @@ line each; any failure exits non-zero before the last line:
              against bare ``transform_batched``, a checkpoint save, a WAL
              append, the NaN check), each beside the card's name and power
              limit.  A ``profile_dir`` run comes last of the whole script.
-  3. main    ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
+  serving    train-while-serve at the same width: ``StreamingDriver(...)
+             .serve_with(publish_every=4, max_batch=64, ...)`` trains ~3 s
+             over a pool of 32 seeded microbatches while 8 client threads
+             send ``top_k(k=10)`` (half with 50 excluded ids).  K1 once a
+             step and no other kernel; 32 answers sampled over the run
+             held against a float64 CPU oracle on their own snapshots; the
+             final answer equal to ``query_topk`` on the trained store; a
+             TCP round trip; no dispatch error; a snapshot bitwise frozen
+             while K1 writes 8 more steps; ``make_mf_topk_step`` against
+             ``dense_topk`` on the pre-push table.  ``serving:`` lines
+             give QPS, latency, staleness, fill, publish ms, the 64-query
+             top-K batch's device ms beside its bound, and updates/s with
+             and without serving (3 runs each, in turns).
+  3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
              Transformer-base (vocab 32,000, d_model 512, 8 heads, 6
@@ -418,6 +431,403 @@ def phase_driver_trace(torch, dev):
         print(f"driver: profile_dir trace: {len(events)} events, {len(k1)} of K1's pass-1 kernel "
               f"(fps::scatter_tile_pass) over the traced steps")
         check(len(k1) >= 1, "the driver's trace holds no K1 kernel event")
+
+
+SERVE_POOL, SERVE_SECONDS = 32, 3.0  # seeded microbatches, cycled; the train-while-serve run's length
+SERVE_KW = dict(publish_every=4, max_batch=64, max_delay_ms=2.0, max_queue=512)  # benchmarks/serving_qps.py
+SERVE_CLIENTS, SERVE_K, SERVE_EXCLUDE, SERVE_USERS = 8, 10, 50, 256
+SERVE_MAX_B = SERVE_KW["max_batch"]  # the top-K batch timed on its own
+SERVE_CHECKED = 4  # answers each client keeps for the oracle, so 32 in all
+SERVE_RATE_STEPS, SERVE_RATE_REPEATS = 128, 3
+ISOLATION_AT, ISOLATION_STEPS = 4, 8  # publish at step 4, compare after 8 more steps
+# The oracle's float64 scores against the engine's (float64 sums rounded
+# once to float32): scores rtol 1e-6 and atol 1e-6 of the largest |score|;
+# ids must agree wherever neighbouring oracle scores are further apart
+# than 1e-6 of the largest |score| (closer ones may round to one float32).
+SERVE_RTOL, SERVE_GAP = 1e-6, 1e-6
+
+
+def _serving_clients(service, users, excluded, done, seed):
+    """SERVE_CLIENTS threads sending ``top_k(k=SERVE_K)`` in a closed loop
+    until ``done`` is set, every other query with a (SERVE_EXCLUDE,)
+    exclusion list (the user's top items on the pre-training tables).
+    Returns (threads, record): ``record`` gathers each answer's latency,
+    version and staleness; a uniform sample of SERVE_CHECKED answers a
+    client, each with the snapshot it was answered from (answers for which
+    the latest snapshot was the same object before the query and after the
+    answer, with the answer's version); and any exception a query raised."""
+    import threading
+
+    record = {"lat": [], "version": [], "stale": [], "checked": [], "errors": []}
+    lock = threading.Lock()
+
+    def loop(i):
+        rng = np.random.default_rng(seed + i)
+        client = service.client()
+        n, eligible, kept = 0, 0, []
+        try:
+            while not done.is_set():
+                j = int(rng.integers(len(users)))
+                exclude = tuple(excluded[j]) if n % 2 else ()
+                before = service.snapshots.latest()
+                t0 = time.perf_counter()
+                ans = client.top_k(int(users[j]), SERVE_K, exclude=exclude, timeout=60)
+                lat = time.perf_counter() - t0
+                after = service.snapshots.latest()
+                with lock:
+                    record["lat"].append(lat)
+                    record["version"].append(ans.version)
+                    record["stale"].append(ans.staleness)
+                if before is after and ans.version == before.version:
+                    # a reservoir sample of the client's answers over the run
+                    eligible += 1
+                    slot = len(kept) if len(kept) < SERVE_CHECKED else int(rng.integers(eligible))
+                    if slot < SERVE_CHECKED:
+                        kept[slot:slot + 1] = [(int(users[j]), exclude, ans, before)]
+                n += 1
+        except BaseException as e:  # noqa: BLE001 — re-raised by the caller
+            with lock:
+                record["errors"].append(e)
+        with lock:
+            record["checked"] += kept
+
+    threads = [threading.Thread(target=loop, args=(i,), name=f"serving-client-{i}") for i in range(SERVE_CLIENTS)]
+    return threads, record
+
+
+def _train_while_serving(torch, dev, users, excluded, stream, serve=True):
+    """One StreamingDriver run over ``stream`` at the main path's width, with
+    a service and SERVE_CLIENTS clients (``serve``) or without.  Returns
+    (driver, service or None, result, seconds run() took, client record,
+    seconds the clients ran, {span name: median ms} of the driver's host
+    spans in this run)."""
+    import threading
+
+    from flink_parameter_server_tpu_torch.telemetry import get_tracer
+
+    _, _, drv = _driver_parts(torch, dev)
+    get_tracer().clear()
+    service = drv.serve_with(**SERVE_KW) if serve else None
+    out, failure = {}, []
+
+    def train():
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["result"] = drv.run(stream)
+            torch.cuda.synchronize()
+            out["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failure.append(e)
+
+    trainer = threading.Thread(target=train, name="trainer")
+    done = threading.Event()
+    threads, record = [], None
+    trainer.start()
+    try:
+        if serve:
+            check(service.wait_for_snapshot(120, min_version=2), "no mid-training snapshot within 120 s")
+            threads, record = _serving_clients(service, users, excluded, done, seed=100)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+    finally:
+        trainer.join(timeout=600)
+        done.set()
+        for t in threads:
+            t.join(timeout=120)
+    client_s = time.perf_counter() - t0 if serve else 0.0
+    check(not trainer.is_alive() and not any(t.is_alive() for t in threads), "a thread did not finish")
+    if failure:
+        raise SmokeFailure(f"the training thread raised {type(failure[0]).__name__}: {failure[0]}")
+    if record is not None and record["errors"]:
+        e = record["errors"][0]
+        raise SmokeFailure(f"{len(record['errors'])} queries raised, first {type(e).__name__}: {e}")
+    if service is not None:
+        check(service.dispatch_errors == 0, f"the dispatch loop failed {service.dispatch_errors} batches")
+    spans = {}
+    for sp in get_tracer().spans():
+        spans.setdefault(sp["name"], []).append(sp["dur"] * 1e3)
+    medians = {name: statistics.median(d) for name, d in spans.items()}
+    return drv, service, out["result"], out["seconds"], record, client_s, medians
+
+
+def _against_oracle(ans, table, uvec, exclude) -> bool:
+    """One top-K answer against the float64 oracle on the CPU: ``table`` and
+    ``uvec`` are the snapshot's item table and the user's vector as float64
+    numpy; excluded ids are masked, then a stable descending sort.  Returns
+    whether the exclusions removed an item of the unexcluded top-k."""
+    check(not set(exclude) & set(int(i) for i in ans.item_ids), "an excluded id was answered")
+    s = table @ uvec
+    plain = np.argsort(-s, kind="stable")[:SERVE_K]
+    if exclude:
+        s[list(exclude)] = -np.inf
+    order = np.argsort(-s, kind="stable")[:SERVE_K + 1]
+    top = s[order]
+    scale = float(np.abs(top).max())
+    check(np.allclose(ans.scores, top[:SERVE_K], rtol=SERVE_RTOL, atol=SERVE_RTOL * scale),
+          f"answer scores {ans.scores} differ from the oracle's {top[:SERVE_K]}")
+    gaps = np.abs(np.diff(top)) > SERVE_GAP * scale
+    for j in range(SERVE_K):
+        if gaps[j] and (j == 0 or gaps[j - 1]):
+            check(int(ans.item_ids[j]) == int(order[j]), f"answer ids {ans.item_ids} vs oracle {order[:SERVE_K]}")
+    if gaps[SERVE_K - 1]:
+        check(set(int(i) for i in ans.item_ids) == set(order[:SERVE_K].tolist()), "answer id set differs")
+    return bool(set(plain.tolist()) & set(exclude))
+
+
+def _oracle_check(record):
+    """Each kept mid-training answer against the oracle over ITS OWN
+    snapshot."""
+    table, version, versions, checked, bitten = None, None, set(), 0, 0
+    for user, exclude, ans, snap in sorted(record["checked"], key=lambda c: c[2].version):
+        check(ans.version >= 2 and ans.staleness >= 0, f"answer version {ans.version} staleness {ans.staleness}")
+        if snap.version != version:
+            table, version = snap.table[:NUM_ITEMS].cpu().double().numpy(), snap.version
+            versions.add(version)
+        bitten += _against_oracle(ans, table, snap.aux[user].cpu().double().numpy(), exclude)
+        checked += 1
+    check(checked >= 20, f"only {checked} mid-training answers were checked against the oracle")
+    return checked, len(versions), bitten
+
+
+def _serving_breakdown(torch, service, store, user_vectors, users, exclude, card):
+    """Where a served batch's time goes, with no trainer beside it: the
+    admission-to-answer latency the service recorded in the counted run;
+    the host time of ``QueryEngine.top_k`` for 64 users (the answer read
+    back included), with and without exclusions; and the device time of
+    one 64-query top-K batch by kernel (torch.profiler, 8 batches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_parameter_server_tpu_torch.models.topk_recommender import query_topk
+
+    lat = service.metrics.latency_percentiles()
+    host = {}
+    for name, excl in (("plain", None), ("excluding", exclude.cpu().numpy())):
+        times = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            service.engine.top_k(users.cpu().numpy(), SERVE_K, exclude=excl)
+            times.append((time.perf_counter() - t0) * 1e3)
+        host[name] = statistics.median(times[2:])
+    print(f"serving: admission to answer in the counted run (the service's last {service.metrics.window}): "
+          f"p50 {lat['p50'] * 1e3:.3f} ms p99 {lat['p99'] * 1e3:.3f} ms; QueryEngine.top_k of {users.numel()} "
+          f"users alone, host clock to the answer on the host: {host['plain']:.3f} ms, excluding "
+          f"{host['excluding']:.3f} ms; {card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            query_topk(store, user_vectors, users, SERVE_K, exclude=exclude)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0 and "#" not in ev.key]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3 / 8
+    print(f"serving: device time of one excluding top-{SERVE_K} batch by kernel (torch.profiler, 8 batches): "
+          f"{busy:.4f} ms in all")
+    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"serving:   device {ev.self_device_time_total / 1e3 / 8:8.4f} ms a batch  {ev.count // 8:3d}x  "
+              f"{ev.key[:90]}")
+
+
+def phase_serving(torch, dev, card):
+    """Train-while-serve at the main path's full width: StreamingDriver
+    (100,000 x 131,072, dim 64, scatter_impl="pallas", SGDUpdater(0.01))
+    over a pool of 32 seeded 65,536-rating Zipf microbatches cycled for
+    about 3 s, through ``serve_with(publish_every=4, max_batch=64,
+    max_delay_ms=2.0, max_queue=512)``, with 8 client threads sending
+    ``top_k(k=10)``, half of them with a 50-id exclusion list.  Checks:
+    mid-training answers against a float64 oracle on their own snapshots,
+    snapshot isolation while K1 writes the live table, the final answer
+    against query_topk, make_mf_topk_step at full width against
+    dense_topk, a TCP round trip, no dispatch error, K1 once a step and no
+    other kernel.  Prints QPS, latency, staleness, fill, rejections,
+    publish ms, the top-K batch's device ms beside its bound, and updates/s
+    with and without serving (3 runs of each, in turns)."""
+    from flink_parameter_server_tpu_torch.core.transform import to_device
+    from flink_parameter_server_tpu_torch.models.topk_recommender import make_mf_topk_step, query_topk
+    from flink_parameter_server_tpu_torch.ops.rows import take_rows
+    from flink_parameter_server_tpu_torch.ops.topk import dense_topk
+    from flink_parameter_server_tpu_torch.serving import ServingServer, SnapshotManager
+    from flink_parameter_server_tpu_torch.serving.server import tcp_request
+
+    pool = zipf_stream(4, SERVE_POOL)
+    rng = np.random.default_rng(5)
+    users = rng.choice(NUM_USERS, SERVE_USERS, replace=False)
+    # exclusion lists: each user's top-50 on the pre-training tables, so
+    # that an exclusion removes items that would have been answered
+    logic, store, _ = _driver_parts(torch, dev)
+    _, top50 = query_topk(store, logic.init_state(), torch.from_numpy(users).to(dev), SERVE_EXCLUDE)
+    excluded = top50.cpu().numpy()
+
+    def timed(seconds):
+        t_end = time.perf_counter() + seconds
+        i = 0
+        while time.perf_counter() < t_end:
+            yield pool[i % SERVE_POOL]
+            i += 1
+
+    # 1. the counted run: K1 once a step, no other kernel
+    zero_counts()
+    drv, service, result, run_s, record, client_s, spans = _train_while_serving(
+        torch, dev, users, excluded, timed(SERVE_SECONDS))
+    steps = drv.step_idx
+    read_counts("train-while-serve", {"scatter_add": steps})
+    n = len(record["lat"])
+    lat = np.array(record["lat"]) * 1e3
+    stale = np.array(record["stale"])
+    metrics = service.metrics
+    print(f"serving: train-while-serve {steps} steps of {BATCH} in {run_s:.3f} s "
+          f"({steps * BATCH / run_s:.0f} updates/s), {n} top_k(k={SERVE_K}) answers from {SERVE_CLIENTS} clients "
+          f"in {client_s:.3f} s: {n / client_s:.1f} queries/s; latency p50 {np.percentile(lat, 50):.3f} ms "
+          f"p99 {np.percentile(lat, 99):.3f} ms (client side); {card}")
+    print(f"serving: staleness mean {stale.mean():.3f} max {int(stale.max())} steps; versions "
+          f"{min(record['version'])}-{max(record['version'])} of {service.snapshots.latest().version}; "
+          f"{metrics.total_batches} batches, fill {metrics.batch_fill():.3f} (last {metrics.window}), "
+          f"{n / max(1, metrics.total_batches):.2f} queries a batch, {metrics.total_rejected} rejected, "
+          f"dispatch errors {service.dispatch_errors}; {card}")
+    print(f"serving: the trainer's host spans in that run, medians: "
+          f"{', '.join(f'{k} {v:.3f} ms' for k, v in sorted(spans.items()))}; {card}")
+    checked, snaps, bitten = _oracle_check(record)
+    print(f"serving: {checked} mid-training answers over {snaps} snapshots match the float64 oracle on "
+          f"their own snapshot (rtol {SERVE_RTOL:g}, ids where gaps > {SERVE_GAP:g} of the top score); "
+          f"{bitten} of the excluding ones lost an item of their unexcluded top-{SERVE_K}")
+
+    # 2. the final answer: query_topk on the trained store and state, and
+    # the oracle; the exclusions are each user's top-50 on the final table
+    client = service.client()
+    final = drv.store.values().cpu().double().numpy()
+    for j in range(4):
+        u = int(users[j])
+        exclude = ()
+        if j % 2:
+            _, top50 = query_topk(drv.store, result.worker_state, torch.tensor([u], device=dev), SERVE_EXCLUDE)
+            exclude = tuple(top50[0].tolist())
+        got = client.top_k(u, SERVE_K, exclude=exclude)
+        want_s, want_i = query_topk(drv.store, result.worker_state, torch.tensor([u], device=dev), SERVE_K,
+                                    exclude=torch.tensor([exclude], device=dev) if exclude else None)
+        check(np.array_equal(got.item_ids, want_i[0].cpu().numpy())
+              and np.array_equal(got.scores, want_s[0].cpu().numpy()) and got.staleness == 0,
+              f"the final answer for user {u} differs from query_topk on the trained store")
+        bit = _against_oracle(got, final, result.worker_state[u].cpu().double().numpy(), exclude)
+        check(bit == bool(exclude), "a final exclusion list did not remove the user's top items")
+    print("serving: 4 final answers (2 excluding the user's top-50) equal query_topk on the trained store "
+          "and the float64 oracle, staleness 0")
+
+    # 3. one TCP round trip on 127.0.0.1
+    server = ServingServer(service).start()
+    try:
+        u, exclude = int(users[1]), excluded[1]
+        resp = tcp_request(server.host, server.port, f"topk {u} {SERVE_K} {','.join(str(e) for e in exclude)}")
+        want = client.top_k(u, SERVE_K, exclude=tuple(exclude))
+        check(resp["ok"] and resp["item_ids"] == want.item_ids.tolist()
+              and np.allclose(resp["scores"], want.scores, rtol=1e-5), f"TCP topk answered {resp}")
+        rows = [0, 17, NUM_ITEMS - 1]
+        pulled = tcp_request(server.host, server.port, "pull " + ",".join(map(str, rows)))
+        table = service.snapshots.latest().table
+        check(pulled["ok"] and np.allclose(np.array(pulled["values"]), table[rows].cpu().numpy(), rtol=1e-5),
+              "TCP pull differs from the snapshot's rows")
+    finally:
+        server.stop()
+    print(f"serving: TCP on 127.0.0.1:{server.port}: topk with {len(exclude)} exclusions and pull of 3 rows "
+          f"answered as the in-process client and the snapshot")
+
+    # 4. costs: a publish (clone of the table and the user state, then the
+    # sync), and one 64-query top-K batch on the card beside its bound
+    snap = service.snapshots.latest()
+    mgr = SnapshotManager(drv.store.spec)
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.publish(drv.store.table, i, aux=result.worker_state)
+        times.append((time.perf_counter() - t0) * 1e3)
+    mib = (drv.store.table.numel() + result.worker_state.numel()) * 4 / 2**20
+    print(f"serving: publish (clone of the {drv.store.table.numel() * 4 / 2**20:.1f} MiB table and the "
+          f"{result.worker_state.numel() * 4 / 2**20:.1f} MiB user state, then the stream sync): median "
+          f"{statistics.median(times[2:]):.3f} ms, spread {min(times[2:]):.3f}-{max(times[2:]):.3f} over 10 "
+          f"({mib:.1f} MiB copied); {card}")
+    del mgr
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    q_users = torch.from_numpy(users[:SERVE_MAX_B]).to(dev)
+    q_excl = torch.from_numpy(excluded[:SERVE_MAX_B]).to(dev)
+    snap_store = snap.store()
+    plain_ms = gpu_ms(torch, lambda: query_topk(snap_store, snap.aux, q_users, SERVE_K), flush)
+    excl_ms = gpu_ms(torch, lambda: query_topk(snap_store, snap.aux, q_users, SERVE_K, exclude=q_excl), flush)
+    queries = take_rows(snap.aux, q_users)
+    f32_ms = gpu_ms(torch, lambda: torch.topk(queries @ snap.table.T, SERVE_K), flush)
+    nbytes = snap.table.numel() * 4
+    flops = 2 * SERVE_MAX_B * DIM_UNFUSED * NUM_ITEMS
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S) * 1e3
+    print(f"serving: one {SERVE_MAX_B}-query top-{SERVE_K} batch over ({NUM_ITEMS},{DIM_UNFUSED}) f32 on the "
+          f"card: {plain_ms:.4f} ms, with ({SERVE_MAX_B},{SERVE_EXCLUDE}) exclusions {excl_ms:.4f} ms; bound "
+          f"{bound:.4f} ms (larger of {nbytes} B at 3.35 TB/s and {flops} flop at 67 TFLOP/s); yardstick "
+          f"float32 torch.matmul + torch.topk (no float64 sums, no tie order) {f32_ms:.4f} ms; {card}")
+    del flush
+    _serving_breakdown(torch, service, snap_store, snap.aux, q_users, q_excl, card)
+
+    # 5. snapshot isolation: publish at step 4, clone the live tensors then,
+    # and after 8 more K1 steps the snapshot equals the clone, not the live
+    held = {}
+
+    def isolation(step, n_steps, table, state, outs):
+        if step == ISOLATION_AT:
+            held["snap"] = service_i.snapshots.latest()
+            held["table"], held["state"] = table.clone(), state.clone()
+        elif step == ISOLATION_AT + ISOLATION_STEPS:
+            snap_i = held["snap"]
+            held["frozen"] = torch.equal(snap_i.table, held["table"]) and torch.equal(snap_i.aux, held["state"])
+            held["moved"] = not torch.equal(snap_i.table, table) and not torch.equal(snap_i.aux, state)
+            held["version"], held["train_step"] = snap_i.version, snap_i.train_step
+
+    _, _, drv_i = _driver_parts(torch, dev)
+    service_i = drv_i.serve_with(**SERVE_KW)
+    drv_i.add_group_hook(isolation)
+    zero_counts()
+    drv_i.run(iter(pool[:ISOLATION_AT + ISOLATION_STEPS]))
+    torch.cuda.synchronize()
+    service_i.stop()
+    read_counts("snapshot isolation run", {"scatter_add": ISOLATION_AT + ISOLATION_STEPS})
+    check("frozen" in held, "the isolation hook never reached its second step")
+    print(f"serving: snapshot v{held['version']} (step {held['train_step']}) after {ISOLATION_STEPS} more K1 "
+          f"steps: bitwise equal to the clone taken at publish: {'yes' if held['frozen'] else 'NO'}; differs "
+          f"from the live table and state: {'yes' if held['moved'] else 'NO'}")
+    check(held["train_step"] == ISOLATION_AT and held["frozen"] and held["moved"], "snapshot isolation failed")
+
+    # 6. make_mf_topk_step at full width: answers from the pre-push table
+    logic, store, _ = _driver_parts(torch, dev)
+    state = logic.init_state()
+    step = make_mf_topk_step(logic, store.spec, SERVE_K)
+    batch = dict(to_device(pool[0], dev), query_user=q_users)
+    table = store.table
+    pre = table.clone()
+    zero_counts()
+    table, state, out = step(table, state, batch)
+    torch.cuda.synchronize()
+    read_counts("make_mf_topk_step", {"scatter_add": 1})
+    want_s, want_i = dense_topk(pre, take_rows(state, q_users), SERVE_K, valid_rows=NUM_ITEMS)
+    same = torch.equal(out["topk_ids"], want_i) and torch.equal(out["topk_scores"], want_s)
+    print(f"serving: make_mf_topk_step ({SERVE_MAX_B} query users, one {BATCH}-rating step): top-{SERVE_K} "
+          f"equal to dense_topk on the pre-push table: {'yes' if same else 'NO'}; table pushed: "
+          f"{'yes' if not torch.equal(pre, table) else 'NO'}")
+    check(same and not torch.equal(pre, table), "make_mf_topk_step disagrees with dense_topk on the pre-push table")
+    service.stop()
+
+    # 7. updates/s with serving against the same steps without, in turns
+    rates = {"with serving": [], "without serving": []}
+    step_spans = {"with serving": [], "without serving": []}
+    for i in range(SERVE_RATE_REPEATS):
+        order = (True, False) if i % 2 == 0 else (False, True)
+        for serve in order:
+            stream = iter([pool[j % SERVE_POOL] for j in range(SERVE_RATE_STEPS)])
+            _, svc, _, secs, rec, c_s, spans = _train_while_serving(torch, dev, users, excluded, stream, serve)
+            rates["with serving" if serve else "without serving"].append(SERVE_RATE_STEPS * BATCH / secs)
+            step_spans["with serving" if serve else "without serving"].append(spans["pull_compute_push"])
+            if svc is not None:
+                print(f"serving: rate run {i}: {len(rec['lat'])} answers in {c_s:.3f} s beside "
+                      f"{SERVE_RATE_STEPS} steps in {secs:.3f} s")
+                svc.stop()
+    for name, r in rates.items():
+        print(f"serving: trainer {name}: {SERVE_RATE_STEPS} steps of {BATCH}, median {statistics.median(r):.0f} "
+              f"updates/s, spread {min(r):.0f}-{max(r):.0f} over {len(r)} runs; median pull_compute_push span "
+              f"by run {[round(x, 3) for x in step_spans[name]]} ms; {card}")
 
 
 def _counters():
@@ -1166,6 +1576,7 @@ def main() -> int:
         phase_determinism(torch, dev)
         card = card_line()
         phase_driver(torch, dev, card)
+        phase_serving(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs)
         phase_driver_trace(torch, dev)

@@ -8,10 +8,11 @@ and fused MF-SGD kernels) and Transformer LM training through the dense
 parameter server (the model, optax-default optimizers, and the causal
 flash-attention forward, dQ and dK/dV kernels).  Around the MF loop sits
 the job envelope (``training/``, ``resilience/``, ``telemetry/``): the
-streaming driver, checkpoints, the write-ahead log and crash recovery.
-Entry points run on
-``cuda`` unless given ``device="cpu"``; on the CPU each kernel's plain torch
-version runs instead.
+streaming driver, checkpoints, the write-ahead log and crash recovery;
+beside it the query plane (``serving/``) answers exact top-K
+recommendations from versioned snapshots while the driver trains.
+Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
+each kernel's plain torch version runs instead.
 
 Quickstart::
 
@@ -44,6 +45,13 @@ and a job that checkpoints, logs ahead and survives a crash::
         checkpoint_dir="ckpt", checkpoint_every=100, wal_dir="wal"))
     driver.resume()                    # continue a saved job, if any
     result = RecoveringDriver(driver, make_stream).run()
+
+and one that answers queries while it trains::
+
+    service = driver.serve_with(publish_every=4)
+    client = service.client()
+    ...                                  # driver.run(batches) in a thread
+    answer = client.top_k(user, k=10)    # .item_ids, .scores, .staleness
 """
 from .core.batched import BatchedWorkerLogic, PushRequest
 from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
@@ -72,6 +80,13 @@ from .models.transformer import (
 )
 from .ops.flash_attention import flash_mha
 from .ops.mf_kernel import make_fused_mf_train_step
+from .serving import (
+    QueryEngine,
+    ServingClient,
+    ServingServer,
+    ServingService,
+    SnapshotManager,
+)
 from .training.checkpoint import load_model
 from .training.driver import DriverConfig, StreamingDriver, TrainingDiverged
 from .utils.initializers import normal_factor, ranged_random_factor, zeros
@@ -108,6 +123,11 @@ __all__ = [
     "SGDUpdater",
     "ps_online_mf",
     "make_fused_mf_train_step",
+    "QueryEngine",
+    "ServingClient",
+    "ServingServer",
+    "ServingService",
+    "SnapshotManager",
     "normal_factor",
     "ranged_random_factor",
     "zeros",

@@ -9,14 +9,15 @@ duplicated):
     fast-forward,
   * the write-ahead update log (``resilience/wal``) and the NaN guard,
   * optional ``torch.profiler`` tracing of steady-state steps,
-  * close-time model dump, host prefetch.
+  * close-time model dump, host prefetch,
+  * train-while-serve (``serve_with``): table snapshots published to a
+    ``serving.ServingService`` at its cadence.
 
 Where the port differs from the reference: the step updates the table
 and the worker state IN PLACE (the reference's jitted step donates the
-buffers), so whatever keeps them past a step — a checkpoint — copies them
-to the host first; ``rng`` is a ``torch.Generator``; the metrics sync
-synchronises the store's device.  ``serve_with`` waits for the serving
-port (ROADMAP Queue 1 #6).
+buffers), so whatever keeps them past a step — a checkpoint, a serving
+snapshot — copies them first; ``rng`` is a ``torch.Generator``; the
+metrics sync synchronises the store's device.
 """
 from __future__ import annotations
 
@@ -181,6 +182,7 @@ class StreamingDriver:
         # hooks (chaos injection and friends), and the update WAL
         self.health = health
         self._group_hooks = []
+        self._serving = None
         self._last_ckpt_step: Optional[int] = None
         self._wal = None
         if self.config.wal_dir is not None:
@@ -253,12 +255,39 @@ class StreamingDriver:
         its partial result (same path as ``stop_signals``)."""
         self._stop_requested = True
 
+    # -- train-while-serve -------------------------------------------------
     def serve_with(self, service=None, **service_kwargs):
-        """Train-while-serve: waits for the serving port."""
-        raise NotImplementedError(
-            "StreamingDriver.serve_with needs the serving modules, which are "
-            "not ported yet: ROADMAP Queue 1 #6"
-        )
+        """Attach an online-serving service (``serving/``): the driver
+        publishes table snapshots at the service's ``publish_every``
+        dispatch cadence — worker state riding along as the query-side
+        user vectors — so top-K queries are answered mid-training
+        without ever reading the live tensors the step updates in place.
+
+        Pass a prebuilt :class:`~..serving.ServingService`, or kwargs
+        for :meth:`ServingService.for_spec <..serving.ServingService.for_spec>`
+        (``publish_every=``, ``max_batch=``, ``max_queue=``, ...).
+        Returns the service — ``service.client()`` is the query handle;
+        serving starts at ``run()`` entry (the pre-training table is
+        published immediately) and keeps answering from the final
+        snapshot after ``run()`` returns.  With ``metrics_every`` set,
+        serving metrics lines are emitted to ``metrics_sink`` alongside
+        the training lines."""
+        if service is None:
+            from ..serving import ServingService
+
+            service = ServingService.for_spec(
+                self.store.spec, **service_kwargs
+            )
+        elif service_kwargs:
+            raise ValueError(
+                "pass either a prebuilt service or for_spec kwargs, not both"
+            )
+        if self.health is not None:
+            # one monitor spans the stack: ingest + train beats come
+            # from this driver, serving-dispatch beats from the service
+            service.attach_health(self.health)
+        self._serving = service
+        return service
 
     def resume(self) -> bool:
         """Restore (store, worker state, step cursor) from the latest
@@ -291,6 +320,13 @@ class StreamingDriver:
         skip = self._pending_skip if fast_forward else 0
         self._pending_skip = 0
         self._stop_requested = False  # a fresh run clears a prior stop
+        if self._serving is not None:
+            # serving is live from step 0: publish the pre-training
+            # table (queries that need worker state answer after the
+            # first mid-training publish carries it)
+            self._serving.on_train_start(
+                self.store, self.step_idx, state=self._state
+            )
 
         event_counts: "collections.deque" = collections.deque()
 
@@ -399,6 +435,12 @@ class StreamingDriver:
             self.step_idx = global_step
             if self.health is not None:
                 self.health.beat("train")
+            if self._serving is not None:
+                # snapshot publish (clone-on-publish, cadence-gated) runs
+                # on THIS thread, so the clone is queued before the next
+                # step updates the table in place
+                with tracer.span("publish", component="train"):
+                    self._serving.on_dispatch(table, state, global_step)
             for hook in self._group_hooks:
                 # user/chaos hooks see the applied dispatch before the
                 # checkpoint cadence runs — a hook that raises here
@@ -443,6 +485,8 @@ class StreamingDriver:
                     )
             if crossed(cfg.metrics_every):
                 self.metrics.emit(self.metrics_sink)
+                if self._serving is not None:
+                    self._serving.metrics.emit(self.metrics_sink)
             if is_ckpt_step:
                 # Save from the live tensors WITHOUT stashing them on self:
                 # the next step updates them in place.  Both save modes
@@ -532,6 +576,14 @@ class StreamingDriver:
 
         self.store = result.store
         self._state = result.worker_state
+        if self._serving is not None:
+            # close-time publish: post-run queries answer from the FINAL
+            # table (the serve-path analogue of the model flush)
+            with tracer.span("publish", component="train"):
+                self._serving.on_dispatch(
+                    self.store.table, self._state, self.step_idx,
+                    force=True,
+                )
         self.save()
         return result
 

@@ -471,9 +471,32 @@ def test_driver_registry_and_health_wiring():
     assert mon.beats("train") == 6
 
 
-def test_serve_with_waits_for_the_serving_port():
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        _driver().serve_with()
+def test_serve_with_returns_a_service_published_at_run_start():
+    """``serve_with()`` returns a ServingService; its first snapshot (the
+    pre-training table) is published when ``run()`` starts, and the
+    close-time publish leaves the final table; a prebuilt service and
+    kwargs together raise, as in the reference."""
+    from flink_parameter_server_tpu_torch.serving import ServingService
+
+    d = _driver()
+    initial = d.store.table.clone()
+    service = d.serve_with(publish_every=10**9)
+    assert isinstance(service, ServingService) and service.snapshots.latest() is None
+    seen = []
+    d.add_group_hook(lambda step, n, table, state, outs: seen.append(service.snapshots.latest()))
+    try:
+        d.run(_stream(3))
+        first = seen[0]
+        assert (first.version, first.train_step) == (1, 0)
+        # no worker state before the first step: the first snapshot has none
+        assert torch.equal(first.table, initial) and first.aux is None
+        last = service.snapshots.latest()
+        assert (last.version, last.train_step) == (2, 3)
+        assert torch.equal(last.table, d.store.table) and torch.equal(last.aux, d._state)
+    finally:
+        service.stop()
+    with pytest.raises(ValueError, match="not both"):
+        _driver().serve_with(service, publish_every=2)
 
 
 def test_transform_batched_overload_and_model_load_match_jax():

@@ -49,7 +49,12 @@ def test_importing_the_port_loads_no_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert len(modules) >= 15
     assert {"flink_parameter_server_tpu_torch.training.driver",
-            "flink_parameter_server_tpu_torch.resilience"} <= set(modules)
+            "flink_parameter_server_tpu_torch.resilience",
+            "flink_parameter_server_tpu_torch.serving",
+            "flink_parameter_server_tpu_torch.models.topk_recommender",
+            "flink_parameter_server_tpu_torch.ops.topk",
+            "flink_parameter_server_tpu_torch.utils.net",
+            "flink_parameter_server_tpu_torch.telemetry.profiler"} <= set(modules)
 
 
 def test_sources_have_no_forbidden_imports():

@@ -12,6 +12,8 @@ plain version's, though always the same order); bfloat16 one unit in the
 last place of the table's values; int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
 largest value (float32 dot products in another order); bfloat16 outputs
 one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
+The serving engine on the card against the CPU: ids equal, scores rtol
+1e-6 (both sum the products in float64 and round once to float32).
 """
 import numpy as np
 import pytest
@@ -440,3 +442,60 @@ def test_driver_recovers_bitwise_on_the_card(cuda, tmp_path):
     assert res.store.table.is_cuda
     assert torch.equal(oracle.store.values(), res.store.values())
     assert torch.equal(oracle.worker_state, res.worker_state)
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(cuda):
+    """The same snapshot served on the card and on the CPU: equal top-K ids
+    (with and without exclusions), scores within float32 rounding, even
+    with TF32 switched on for the process (the engine must not take it)."""
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.serving import QueryEngine, SnapshotManager
+
+    rng = np.random.default_rng(6)
+    table = rng.normal(0, 1, (4096, 64)).astype(np.float32)
+    uv = rng.normal(0, 1, (300, 64)).astype(np.float32)
+    users = rng.integers(0, 300, 64).astype(np.int32)
+    exclude = rng.integers(-1, 4096, (64, 50)).astype(np.int32)
+    answers = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            store = ShardedParamStore.from_values(torch.from_numpy(table), device=dev)
+            mgr = SnapshotManager(store.spec)
+            mgr.publish(store.table, step=0, aux=torch.from_numpy(uv).to(dev))
+            engine = QueryEngine(mgr)
+            answers[dev.type] = [engine.top_k(users, 10), engine.top_k(users, 10, exclude=exclude)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for card, cpu in zip(answers["cuda"], answers["cpu"]):
+        np.testing.assert_array_equal(card.item_ids, cpu.item_ids)
+        np.testing.assert_allclose(card.scores, cpu.scores, rtol=1e-6)
+
+
+def test_snapshot_stays_frozen_while_k1_updates_the_live_table(cuda):
+    """A published snapshot is a copy: K1 and the row scatter-add then
+    write into the live item table and user state in place, and the
+    snapshot keeps the bits it was published with."""
+    from flink_parameter_server_tpu_torch.core import store as store_mod
+    from flink_parameter_server_tpu_torch.ops.rows import add_rows_
+    from flink_parameter_server_tpu_torch.serving import SnapshotManager
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    store = store_mod.ShardedParamStore.create(4096, (64,), init_fn=ranged_random_factor(1, (64,)),
+                                               scatter_impl="pallas", device=cuda)
+    state = torch.randn(300, 64, device=cuda)
+    mgr = SnapshotManager(store.spec)
+    snap = mgr.publish(store.table, step=0, aux=state)
+    table_then, state_then = store.table.clone(), state.clone()
+    rng = np.random.default_rng(7)
+    before = scatter_kernel.sorted_scatter_add.launches
+    for _ in range(8):
+        ids = torch.from_numpy(_zipf_ids(rng, 8192, 4096)).to(cuda)
+        store_mod.push(store.spec, store.table, ids, torch.randn(8192, 64, device=cuda) * 0.01)
+        add_rows_(state, torch.from_numpy(rng.integers(0, 300, 8192)).to(cuda),
+                  torch.randn(8192, 64, device=cuda) * 0.01)
+    torch.cuda.synchronize()
+    assert scatter_kernel.sorted_scatter_add.launches == before + 8
+    assert torch.equal(snap.table, table_then) and torch.equal(snap.aux, state_then)
+    assert not torch.equal(snap.table, store.table) and not torch.equal(snap.aux, state)
