@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the torch port's two paths on one NVIDIA card: online MF (bare,
-through the job envelope, and answering top-K queries while it trains)
-and Transformer LM training through the dense parameter server.
+"""Drive the torch port on one NVIDIA card: online MF (bare, through the
+job envelope, and answering top-K queries while it trains), the other
+batched workloads (passive-aggressive, the sketches, word2vec, the
+factorization machine) and the event API, and Transformer LM training
+through the dense parameter server.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -53,6 +55,28 @@ line each; any failure exits non-zero before the last line:
              give QPS, latency, staleness, fill, publish ms, the 64-query
              top-K batch's device ms beside its bound, and updates/s with
              and without serving (3 runs each, in turns).
+  workloads  the other batched workloads at full width, each through
+             ``transform_batched`` over its logic's store with
+             ``scatter_impl="pallas"`` (K1 a push): PA binary (2,000,000
+             features, 65,536 examples of 32, Zipf 1.3; dense and packed
+             tables), PA multiclass (4 classes, dense), SGNS (1,000,000 x
+             (2, 128), 32,768 pairs, 5 negatives), the FM (4,194,304 x 17,
+             32,768 examples of 39, Zipf 1.2; packed and dense) and the
+             count-min 8,192 x 4, Bloom-pair 32,768 x 4 and tug-of-war 8 x
+             32 sketches over 65,536-token microbatches (dense and packed).
+             Each arm: K1 against its plain version on its first push and
+             on random deltas, twice, bitwise; 8 counted steps (K1 once a
+             step, no other kernel); the learning check (the loss falls;
+             sketch tables equal a numpy oracle, count-min never under the
+             true count); the rate and K1's time beside its bound, with the
+             card's name and power limit.  Then the same stream with
+             ``scatter_impl="xla"`` against each pallas arm (sketch tables
+             exact after 8 steps; float tables after the first step, at K1's
+             bar plus the xla arm's own float32 error against float64 sums),
+             each workload at reduced width on the card against the CPU, and
+             the event API's MF job (``MFWorkerLogic``, 2,000 ratings) on the
+             card against the CPU.  A torch.profiler trace of
+             4 steps of each workload runs after every counted run.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -830,6 +854,451 @@ def phase_serving(torch, dev, card):
               f"by run {[round(x, 3) for x in step_spans[name]]} ms; {card}")
 
 
+WL_STEPS, WL_TRACED = 8, 4  # counted steps an arm; steps traced with torch.profiler, last of the script
+# BASELINE configs 2-4 at the shapes benchmarks/baseline_configs.py gives the TPU, and the sketches at
+# examples/streaming_sketches.py:115-133's widths over 65,536-token microbatches
+WL_FULL = dict(
+    pa=dict(F=2_000_000, B=65_536, K=32, C=4),  # :137-176; C = tests/test_passive_aggressive.py's class count
+    sgns=dict(V=1_000_000, dim=128, B=32_768, N=5),  # :179-215
+    fm=dict(F=4_194_304, dim=16, K=39, B=32_768),  # :218-256, Criteo's 39 fields
+    sketch=dict(vocab=1_000_000, T=65_536, cm=(8192, 4), bloom=(1 << 15, 4), tow=(8, 32)),
+)
+WL_SMALL = dict(  # the reduced widths held against the CPU
+    pa=dict(F=5_000, B=1_024, K=8, C=4),
+    sgns=dict(V=3_000, dim=16, B=512, N=5),
+    fm=dict(F=10_000, dim=4, K=6, B=512),
+    sketch=dict(vocab=5_000, T=2_048, cm=(256, 4), bloom=(1024, 4), tow=(4, 8)),
+)
+# Step sizes: every duplicate id's deltas in a microbatch are summed, so at these widths the bench's
+# PA-I C=1, FM lr 0.01 and SGNS lr 0.025 move a Zipf-hot row by its count times one example's step and
+# diverge in a few steps.  These keep 8 steps stable: PA-I's aggressiveness, FM's and SGNS's rates.
+PA_AGGR, FM_LR, SG_LR = 2e-6, 1e-5, 0.005
+WL_FAMILIES = (("K1 pass 1", ("scatter_tile_pass",)), ("K1 pass 2", ("combine_spanning_runs",)),
+               ("sort", ("sort", "radix")), ("gather/scatter", ("index", "gather", "scatter")),
+               ("copy", ("copy", "memcpy", "memset")))
+
+
+def _planted_sparse(rng, B, K, F, zipf_a, w_true, steps, classes=0):
+    """Sparse examples (Zipf ids, normal values) labelled by a planted
+    linear model: ±1 by the sign of the score, or the argmax class."""
+    out = []
+    for _ in range(steps):
+        ids = ((rng.zipf(zipf_a, (B, K)) - 1) % F).astype(np.int32)
+        x = rng.normal(0, 1, (B, K)).astype(np.float32)
+        score = np.einsum("bk,bk...->b...", x, w_true[ids])
+        label = score.argmax(1).astype(np.int32) if classes else np.where(score >= 0, 1.0, -1.0).astype(np.float32)
+        out.append({"ids": ids, "values": x, "feat_mask": np.ones((B, K), bool), "label": label,
+                    "mask": np.ones(B, bool)})
+    return out
+
+
+def _workload_specs(size, steps, seed=0):
+    """Each workload as its users build it: logic, store factory, seeded
+    stream, pallas layouts, unit, and the check that it learned."""
+    from flink_parameter_server_tpu_torch import ShardedParamStore
+    from flink_parameter_server_tpu_torch.data.text import cooccurrence_pairs, synthetic_corpus
+    from flink_parameter_server_tpu_torch.models import factorization_machine as fm
+    from flink_parameter_server_tpu_torch.models import passive_aggressive as pa
+    from flink_parameter_server_tpu_torch.models import sketches as sk
+    from flink_parameter_server_tpu_torch.models import word2vec as w2v
+    from flink_parameter_server_tpu_torch.utils.initializers import zeros
+
+    rng = np.random.default_rng(seed)
+    p, s, f, t = size["pa"], size["sgns"], size["fm"], size["sketch"]
+    rule = pa.PARule("PA-I", C=PA_AGGR)
+    fm_cfg = fm.FMConfig(num_features=f["F"], dim=f["dim"], learning_rate=FM_LR)
+    tokens = synthetic_corpus(t["vocab"], steps * t["T"], zipf_a=1.3, seed=seed)
+    token_batches = [{"key": tokens[i * t["T"]:(i + 1) * t["T"]], "mask": np.ones(t["T"], bool)} for i in range(steps)]
+    pairs = list(itertools.islice(cooccurrence_pairs(tokens[:steps * t["T"] // 2 + 2], window=2, batch_size=t["T"]),
+                                  steps))
+    cm = sk.CountMinSketch(sk.CountMinConfig(width=t["cm"][0], depth=t["cm"][1], seed=0))
+    bloom = sk.BloomCooccurrence(sk.CountMinConfig(width=t["bloom"][0], depth=t["bloom"][1], seed=1))
+    tow = sk.TugOfWarSketch(sk.TugOfWarConfig(groups=t["tow"][0], per_group=t["tow"][1], seed=2))
+    both = ("dense", "packed")
+    return [
+        dict(name="PA binary", unit="examples", per_step=p["B"], layouts=both, learn="loss",
+             logic=pa.PassiveAggressiveBinary(rule),
+             store=lambda impl, layout, dev: ShardedParamStore.create(
+                 p["F"], (), init_fn=zeros(()), scatter_impl=impl, layout=layout, device=dev),
+             stream=_planted_sparse(rng, p["B"], p["K"], p["F"], 1.3, rng.normal(0, 1, p["F"]).astype(np.float32),
+                                    steps)),
+        dict(name=f"PA multiclass C={p['C']}", unit="examples", per_step=p["B"], layouts=("dense",), learn="loss",
+             classes=p["C"],
+             logic=pa.PassiveAggressiveMulticlass(p["C"], rule),
+             store=lambda impl, layout, dev: ShardedParamStore.create(
+                 p["F"], (p["C"],), init_fn=zeros((p["C"],)), scatter_impl=impl, layout=layout, device=dev),
+             stream=_planted_sparse(rng, p["B"], p["K"], p["F"], 1.3,
+                                    rng.normal(0, 1, (p["F"], p["C"])).astype(np.float32), steps, classes=p["C"])),
+        dict(name="SGNS", unit="pairs", per_step=s["B"], layouts=("dense",), learn="loss",
+             logic=w2v.SkipGramNS(SG_LR),
+             store=lambda impl, layout, dev: w2v.make_store(s["V"], s["dim"], seed=0, scatter_impl=impl,
+                                                            layout=layout, device=dev),
+             stream=[{"center": ((rng.zipf(1.3, s["B"]) - 1) % s["V"]).astype(np.int32),
+                      "context": ((rng.zipf(1.3, s["B"]) - 1) % s["V"]).astype(np.int32),
+                      "negatives": rng.integers(0, s["V"], (s["B"], s["N"])).astype(np.int32),
+                      "mask": np.ones(s["B"], bool)} for _ in range(steps)]),
+        dict(name="FM", unit="examples", per_step=f["B"], layouts=("packed", "dense"), learn="loss",
+             logic=fm.FactorizationMachine(fm_cfg),
+             store=lambda impl, layout, dev: fm.make_store(fm_cfg, seed=0, scatter_impl=impl, layout=layout,
+                                                           device=dev),
+             stream=_planted_sparse(rng, f["B"], f["K"], f["F"], 1.2, rng.normal(0, 1, f["F"]).astype(np.float32),
+                                    steps)),
+        dict(name="count-min", unit="tokens", per_step=t["T"], layouts=both, learn="counts", logic=cm,
+             store=lambda impl, layout, dev: cm.make_store(scatter_impl=impl, layout=layout, device=dev),
+             stream=token_batches),
+        dict(name="Bloom pairs", unit="pairs", per_step=t["T"], layouts=both, learn="cells", logic=bloom,
+             store=lambda impl, layout, dev: bloom.make_store(scatter_impl=impl, layout=layout, device=dev),
+             stream=pairs),
+        dict(name="tug-of-war", unit="tokens", per_step=t["T"], layouts=both, learn="signs", logic=tow,
+             store=lambda impl, layout, dev: tow.make_store(scatter_impl=impl, layout=layout, device=dev),
+             stream=token_batches),
+    ]
+
+
+def _exact(spec) -> bool:
+    return spec["learn"] in ("counts", "cells", "signs")
+
+
+def _learned(torch, spec, store, losses, accuracy, dev):
+    """The learning check of each workload after its counted run: the
+    mean loss of the last step below the first's (for the multiclass PA
+    also the accuracy of the last step's predictions, taken before its
+    update, above the first's); sketch tables equal to a numpy oracle."""
+    from flink_parameter_server_tpu_torch.ops.hashing import sign_hash
+
+    name, logic, stream = spec["name"], spec["logic"], spec["stream"]
+    if spec["learn"] == "loss":
+        ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        print(f"workloads: {name}: mean loss by step {[round(x, 5) for x in losses]} "
+              f"{'falls' if ok else 'DOES NOT FALL'}")
+        check(ok, f"{name} loss did not fall")
+        if accuracy:
+            ok = accuracy[-1] > accuracy[0]
+            print(f"workloads: {name}: accuracy by step {[round(x, 4) for x in accuracy]} "
+                  f"{'rises' if ok else 'DOES NOT RISE'}")
+            check(ok, f"{name} accuracy did not rise")
+        return
+    table = store.values().double().cpu().numpy()
+    oracle = np.zeros(table.shape, np.float64)
+    if spec["learn"] == "signs":  # z_j = sum over tokens of s_j(token)
+        for b in stream:
+            oracle += sign_hash(torch.from_numpy(b["key"]).to(dev), logic._a, logic._b).double().sum(0).cpu().numpy()
+        counts = np.bincount(np.concatenate([b["key"] for b in stream])).astype(np.float64)
+        print(f"workloads: {name}: F2 estimate {float(logic.estimate_f2(store)):.6g} against the stream's "
+              f"{float((counts**2).sum()):.6g}")
+    else:  # one count per token (pair) in each depth row's cell
+        for b in stream:
+            cells = logic.keys({k: torch.from_numpy(v).to(dev) for k, v in b.items()}).cpu().numpy()
+            np.add.at(oracle, cells[b["mask"]].ravel(), 1.0)
+    same = bool(np.array_equal(table, oracle))
+    print(f"workloads: {name}: table equal to a numpy np.add.at oracle over the port's own hashed cells: "
+          f"{'yes' if same else 'NO'} ({int(oracle.sum())} total)")
+    check(same, f"{name} table differs from its oracle")
+    if spec["learn"] == "counts":
+        keys = np.concatenate([b["key"] for b in stream])
+        uniq, true = np.unique(keys, return_counts=True)
+        est = logic.query(store, torch.from_numpy(uniq).to(dev)).cpu().numpy()
+        ok = bool((est >= true).all())
+        print(f"workloads: {name}: estimates of all {len(uniq)} distinct tokens >= their true counts: "
+              f"{'yes' if ok else 'NO'} (largest overestimate {float((est - true).max()):.0f})")
+        check(ok, f"{name} underestimates a count")
+
+
+def _arms_agree(torch, what, got, want, ref64):
+    """The pallas arm's table after its first step against the xla arm's,
+    at K1's bar plus the xla arm's own distance from the float64 sums of
+    that push (``ref64``): the xla arm sums a hot run in float32 in one
+    long sequence, which errs past the bar at these run lengths, while
+    K1's partial sums stay within it (``_k1_checks``)."""
+    check(got.shape == want.shape == ref64.shape, f"{what}: table shapes differ")
+    got, want, ref64 = got.double().cpu(), want.double().cpu(), ref64.cpu()
+    slack = (want - ref64).abs()
+    diff = (got - want).abs()
+    ok = bool((diff <= 1e-5 * want.abs() + 1e-5 * float(want.abs().max()) + slack).all())
+    print(f"workloads: {what}: max_abs_err={float(diff.max()):.3e} (rtol=1e-5 atol=1e-5 of max, plus the xla arm's "
+          f"own error against float64 sums, at most {float(slack.max()):.3e}; K1's "
+          f"{float((got - ref64).abs().max()):.3e}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{what} disagree")
+
+
+def _capture_k1(torch, fn):
+    """The (table before, sorted ids, sorted deltas, sub_k) of each K1
+    call ``fn`` makes: its real inputs, for the checks and the timings."""
+    from flink_parameter_server_tpu_torch.ops import scatter_kernel
+
+    orig, seen = scatter_kernel.sorted_scatter_add, []
+
+    def spy(table, ids, deltas, *, sub_k=1):
+        seen.append((table.clone(), ids.clone(), deltas.clone(), sub_k))
+        return orig(table, ids, deltas, sub_k=sub_k)
+
+    # the wrapper counts on the module's name, which is the spy meanwhile
+    spy.launches = orig.launches
+    scatter_kernel.sorted_scatter_add = spy
+    try:
+        fn()
+    finally:
+        scatter_kernel.sorted_scatter_add = orig
+        orig.launches = spy.launches
+    torch.cuda.synchronize()
+    return seen
+
+
+def _sum64(torch, table, ids, deltas, sub_k):
+    """The scatter-add in float64: each touched row slice plus its deltas,
+    summed by ``index_add_`` at float64 precision (its atomics' order moves
+    the float64 sums by far less than a float32 unit)."""
+    from flink_parameter_server_tpu_torch.ops import scatter_kernel
+
+    out = table.double()
+    cols = scatter_kernel._row_columns(ids, sub_k, deltas.shape[1], table.shape[1]).reshape(-1)
+    out.view(-1).index_add_(0, cols, deltas.double().reshape(-1))
+    return out
+
+
+def _k1_checks(torch, gen, label, table, ids, deltas, sub_k, exact):
+    """K1 against its plain version on the card at one shape, twice each:
+    on the main path's own first push, then phase_kernels' style (random
+    deltas, whole numbers for a sketch, the same ids permuted, 64 lanes
+    negative, 64 past the end, 1 % masked, through sort_lanes).
+
+    Float shapes are held at K1's bar (rtol 1e-5, atol 1e-5 of the largest
+    value) against the same sums taken in float64 and rounded once: these
+    pushes put up to half a million lanes on one row (a Zipf-hot feature),
+    and the plain version's own float32 sums of such a run, in
+    ``index_add_``'s order, err past that bar.  Its distance from the
+    float64 sums and from K1 is printed beside.  Sketch shapes (whole
+    numbers) are exact against the plain version."""
+    from flink_parameter_server_tpu_torch.ops import scatter_kernel
+
+    err = 0.0
+    n, d = deltas.shape
+    rows = table.shape[0]
+    perm = torch.randperm(n, generator=gen, device=ids.device)
+    raw = ids.long()[perm]
+    raw[:64] = -1
+    raw[64:128] = rows * sub_k + 5
+    if exact:
+        synth = torch.randint(-1, 2, (n, d), generator=gen, device=ids.device).to(table.dtype)
+    else:
+        synth = (torch.randn(n, d, generator=gen, device=ids.device) * float(deltas.abs().max() + 1e-3)).to(table.dtype)
+    mask = torch.rand(n, generator=gen, device=ids.device) > 0.01
+    s_ids, s_d = scatter_kernel.sort_lanes(raw, synth, mask, rows * sub_k, table.dtype)
+    for what, (i, v) in (("first microbatch", (ids, deltas)), ("random deltas", (s_ids, s_d))):
+        runs = [scatter_kernel.sorted_scatter_add(table.clone(), i, v, sub_k=sub_k) for _ in range(2)]
+        want = scatter_kernel.run_sum_write_plain(table.clone(), i, v, sub_k=sub_k)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(runs[0], runs[1]))
+        print(f"check: scatter_add {label} ({what}): two runs on the same inputs bitwise equal: "
+              f"{'ok' if same else 'MISMATCH'}")
+        check(same, f"scatter_add {label} differs between two runs on the same inputs")
+        if exact:
+            err = max(err, _compare(torch, f"scatter_add {label} ({what})", runs[0], want, 0, 0, exact=True))
+            continue
+        exact64 = _sum64(torch, table, i, v, sub_k)
+        err = max(err, _compare(torch, f"scatter_add {label} ({what}) vs float64 sums", runs[0],
+                                exact64.float(), rtol=1e-5, atol=1e-5))
+        plain = float((want.double() - exact64).abs().max())
+        print(f"check: yardstick scatter_add {label} ({what}): the float32 plain version vs float64 sums "
+              f"{plain:.3e}, vs K1 {float((want.double() - runs[0].double()).abs().max()):.3e}")
+    return err
+
+
+def _k1_timing(torch, label, table, ids, deltas, sub_k, flush):
+    """K1's median time on the main path's first push, beside its bound
+    (each delta and id read once, each touched row slice read and written
+    once, over 3.35 TB/s), the plain version and ``index_add_`` on the
+    element indices of the same slices (computed beforehand)."""
+    from flink_parameter_server_tpu_torch.ops import scatter_kernel
+
+    n, d = deltas.shape
+    unique = int(torch.unique_consecutive(ids).numel())
+    cols = scatter_kernel._row_columns(ids, sub_k, d, table.shape[1]).reshape(-1)
+    flat = deltas.reshape(-1)
+    k_ms = gpu_ms(torch, lambda: scatter_kernel.sorted_scatter_add(table, ids, deltas, sub_k=sub_k), flush)
+    p_ms = gpu_ms(torch, lambda: scatter_kernel.run_sum_write_plain(table, ids, deltas, sub_k=sub_k), flush, reps=5)
+    l_ms = gpu_ms(torch, lambda: table.view(-1).index_add_(0, cols, flat), flush)
+    nbytes = n * d * deltas.element_size() + n * 4 + 2 * unique * d * table.element_size()
+    ops = n * d + unique * d
+    detail = (f"{label}: ({table.shape[0]},{table.shape[1]}) sub_k {sub_k}, {n} lanes of {d}, "
+              f"{unique} unique ids")
+    return detail, k_ms, p_ms, l_ms, nbytes, ops
+
+
+def phase_workloads(torch, dev, card):
+    """The other batched workloads at full width through their entry point,
+    ``transform_batched`` over the logic's store with
+    ``scatter_impl="pallas"``: PA binary (2,000,000 features, 65,536
+    examples of 32, Zipf 1.3; dense and packed), PA multiclass (4 classes,
+    dense), SGNS (1,000,000 x (2, 128), 32,768 pairs, 5 negatives), the FM
+    (4,194,304 x 17, 32,768 examples of 39, Zipf 1.2; packed and dense),
+    and count-min 8,192 x 4, Bloom pairs 32,768 x 4 and tug-of-war 8 x 32
+    over 65,536-token microbatches (Zipf 1.3, vocabulary 1,000,000; dense
+    and packed).  Each arm: K1 against its plain version on its first push
+    and on random deltas (twice, bitwise); 8 counted steps (K1 once a step,
+    no other kernel); the learning check; the rate; K1's time beside its
+    bound.  Then the same stream with ``scatter_impl="xla"`` (no kernel),
+    held against each pallas arm after the first step (sketches after all
+    8, exactly; a float table's 8-step difference is printed, not held:
+    the two arms sum hot runs in different orders, and 8 steps of the
+    learning dynamics carry that on); a reduced-width run of each workload
+    on the card against the CPU; and the event API's MF job on the card
+    against the CPU.  Returns the kernels line's rows and the traces to
+    take after every counted run of the script."""
+    from flink_parameter_server_tpu_torch import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import make_train_step, to_device, transform_batched
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    rows, traces, launches, errs = [], [], {}, {}
+    for spec in _workload_specs(WL_FULL, WL_STEPS):
+        name, logic, stream, exact = spec["name"], spec["logic"], spec["stream"], _exact(spec)
+        finals, firsts, refs = {}, {}, {}
+        for impl, layout in [("pallas", lay) for lay in spec["layouts"]] + [("xla", "dense")]:
+            arm = f"{name} scatter_impl={impl} layout={layout}"
+            store = spec["store"](impl, layout, dev)
+            if impl == "pallas":
+                step = make_train_step(logic, store.spec)
+                table, state = store.table.clone(), logic.init_state(None)
+                (k1_in,) = _capture_k1(torch, lambda: step(table, state, to_device(stream[0], dev)))
+                del table
+                tbl, ids, deltas, sub_k = k1_in
+                label = f"{name} {layout} d {deltas.shape[1]}" + (f" sub_k {sub_k}" if sub_k > 1 else "")
+                row = f"scatter_add[{label}]"
+                errs[row] = _k1_checks(torch, gen, label, tbl, ids, deltas, sub_k, exact)
+                t64 = _sum64(torch, tbl, ids, deltas, sub_k).reshape(store.table.shape)
+                refs[layout] = ShardedParamStore(store.spec, t64).values()
+            losses, accuracy, stamps = [], [], []
+
+            def on_step(i, out):
+                if "loss" in out:
+                    losses.append(float(out["loss"].float().mean()))  # synchronises
+                if spec.get("classes"):
+                    accuracy.append(float((out["prediction"].cpu().numpy() == stream[i]["label"]).mean()))
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            def first_step(i, table, state, out, spec_=store.spec, key=(impl, layout)):
+                if i == 0:
+                    firsts[key] = ShardedParamStore(spec_, table).values().clone()
+
+            zero_counts()
+            res = transform_batched(iter(stream), logic, store, on_step=on_step, state_callback=first_step,
+                                    collect_outputs=False, dump_model=False)
+            torch.cuda.synchronize()
+            want = {"scatter_add": WL_STEPS} if impl == "pallas" else {}
+            counts = read_counts(arm, want)
+            rate = spec["per_step"] * (WL_STEPS - 1) / (stamps[-1] - stamps[0])
+            step_ms = statistics.median((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+            print(f"workloads: {arm}: {WL_STEPS} steps of {spec['per_step']} {spec['unit']}, "
+                  f"{rate:.0f} {spec['unit']}/s after the first step, median step {step_ms:.3f} ms; {card}")
+            finals[(impl, layout)] = res.store.values()
+            if impl == "pallas":
+                launches[row] = counts["scatter_add"]
+                _learned(torch, spec, res.store, losses, accuracy, dev)
+                detail, k_ms, p_ms, l_ms, nbytes, ops = _k1_timing(torch, label, tbl, ids, deltas, sub_k, flush)
+                print(f"workloads: {arm}: K1 {k_ms:.4f} ms a step against a bound of "
+                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B); {card}")
+                rows.append(_row(row, "flink_parameter_server_tpu_torch/csrc/scatter_add.cu",
+                                 "flink_parameter_server_tpu/ops/pallas_scatter.py:73", launches, errs,
+                                 k_ms, p_ms, l_ms, nbytes, ops / F32_OPS_PER_S, detail))
+                del tbl, ids, deltas, k1_in
+                if layout == spec["layouts"][0]:
+                    traces.append(_workload_trace(torch, spec, layout, dev, step_ms))
+            del res, store
+        for (impl, layout), vals in finals.items():
+            if impl != "pallas":
+                continue
+            xla, what = finals[("xla", "dense")], f"{name} pallas {layout} vs xla dense"
+            if exact:
+                _compare(torch, f"{what}, {WL_STEPS} steps", vals, xla, 0, 0, exact=True)
+                continue
+            _arms_agree(torch, f"{what}, first step", firsts[(impl, layout)], firsts[("xla", "dense")], refs[layout])
+            diff = float((vals.double() - xla.double()).abs().max())
+            print(f"workloads: {what}, {WL_STEPS} steps (not held): max_abs_err={diff:.3e}, "
+                  f"{diff / float(xla.abs().max()):.2e} of the largest value")
+        del finals, firsts, refs
+        torch.cuda.empty_cache()
+    _small_workloads_match_cpu(torch, dev)
+    _event_mf_matches_cpu(torch, dev, card)
+    print(f"workloads: phase took {time.perf_counter() - t0:.1f} s")
+    return rows, traces
+
+
+def _workload_trace(torch, spec, layout, dev, step_ms):
+    """A closure that traces WL_TRACED steps of the arm (after a set-up
+    and a warm-up step) with torch.profiler: device time by family, K1's
+    share, device busy and idle share against the counted run's median
+    step."""
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+
+    def trace():
+        def drive(after_step):
+            transform_batched(iter(spec["stream"][:WL_TRACED + 2]), spec["logic"], spec["store"]("pallas", layout, dev),
+                              on_step=lambda i, out: after_step(out), collect_outputs=False, dump_model=False)
+
+        _trace_steps(f"{spec['name']} ({layout}, pallas)", drive, step_ms, steps=WL_TRACED,
+                        read=lambda out: torch.cuda.synchronize(), rules=WL_FAMILIES)
+
+    return trace
+
+
+def _small_workloads_match_cpu(torch, dev):
+    """Each workload at reduced width, 3 steps with scatter_impl="pallas":
+    on the card (K1) against the CPU (K1's plain version)."""
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+
+    for spec in _workload_specs(WL_SMALL, 3, seed=1):
+        layout = spec["layouts"][0]
+        vals = [transform_batched(iter(spec["stream"]), spec["logic"], spec["store"]("pallas", layout, d),
+                                  collect_outputs=False, dump_model=False).store.values() for d in (dev, "cpu")]
+        _compare(torch, f"small {spec['name']} ({layout}) card vs cpu, 3 steps", vals[0].cpu(), vals[1],
+                 rtol=1e-5, atol=1e-5, exact=_exact(spec))
+
+
+EVENT_RATINGS, EVENT_DIM = 2_000, 64
+
+
+def _event_mf_matches_cpu(torch, dev, card):
+    """The event API's MF job: MFWorkerLogic (dim 64, SGDUpdater(0.01))
+    over 2,000 ratings through ``transform`` with a SimplePSLogic store,
+    on the card and on the CPU.  Predictions, item vectors and user vectors
+    at rtol 1e-5 / atol 1e-7; records/s of each (host code: one pull, one
+    push and a synchronising read of the prediction a record)."""
+    from flink_parameter_server_tpu_torch import MFWorkerLogic, SGDUpdater, ranged_random_factor, transform
+
+    rng = np.random.default_rng(4)
+    ratings = [(int(u), int(i), float(r)) for u, i, r in zip(
+        rng.integers(0, 500, EVENT_RATINGS), (rng.zipf(1.2, EVENT_RATINGS) - 1) % 4000,
+        rng.normal(0, 1, EVENT_RATINGS))]
+    init = ranged_random_factor(1, (EVENT_DIM,))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        worker = MFWorkerLogic(EVENT_DIM, SGDUpdater(LEARNING_RATE), seed=0, device=d)
+        t0 = time.perf_counter()
+        res = transform(ratings, worker, param_init=lambda i, d=d: init(torch.tensor([i], device=d))[0],
+                        param_update=lambda c, delta: c + delta)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"workloads: event API MFWorkerLogic dim {EVENT_DIM} on {d.type}: {EVENT_RATINGS} ratings in "
+              f"{secs:.3f} s, {EVENT_RATINGS / secs:.0f} records/s; {card}")
+        runs.append((res, worker))
+    (card_res, card_w), (cpu_res, cpu_w) = runs
+    check([o[:2] for o in card_res.worker_outputs] == [o[:2] for o in cpu_res.worker_outputs],
+          "event MF outputs in another order on the card")
+    pairs = [(torch.tensor([o[2] for o in card_res.worker_outputs]), torch.tensor([o[2] for o in cpu_res.worker_outputs])),
+             (torch.stack([v.cpu() for _, v in card_res.server_outputs]), torch.stack([v for _, v in cpu_res.server_outputs])),
+             (torch.stack([card_w.user_vectors[u].cpu() for u in sorted(card_w.user_vectors)]),
+              torch.stack([cpu_w.user_vectors[u] for u in sorted(cpu_w.user_vectors)]))]
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    ok = all(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-7)) for a, b in pairs)
+    print(f"workloads: event API MF card vs cpu: predictions, item and user vectors max_abs_err={err:.3e} "
+          f"(rtol=1e-5 atol=1e-7) {'ok' if ok else 'MISMATCH'}")
+    check(ok, "the event API's MF job on the card disagrees with the CPU")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -1197,8 +1666,8 @@ def phase_main(torch, dev):
     launches.update(phase_lm(torch, dev))
     # after every counted run, so that no counted run follows a profiler
     # session in this process
-    _trace_mf_steps("ps_online_mf", drive_unfused, unfused_ms)
-    _trace_mf_steps("fused MF", drive_fused, fused_ms)
+    _trace_steps("ps_online_mf", drive_unfused, unfused_ms)
+    _trace_steps("fused MF", drive_fused, fused_ms)
     return launches
 
 
@@ -1209,27 +1678,28 @@ def median_step_ms(stamps) -> float:
     return statistics.median((b - a) * 1e3 for a, b in zip(tail, tail[1:]))
 
 
-def _trace_mf_steps(what, drive, step_ms):
-    """Where an MF step's time goes, outside the counted run: ``drive``
-    runs MF_TRACED + 2 steps, calling its argument after each with the
-    step's output; the first two are skipped (set-up, warm-up) and the rest
+def _trace_steps(what, drive, step_ms, steps=MF_TRACED, read=None, rules=MF_FAMILIES):
+    """Where a step's time goes, outside the counted run: ``drive`` runs
+    ``steps`` + 2 steps, calling its argument after each with the step's
+    output; the first two are skipped (set-up, warm-up) and the rest
     recorded by torch.profiler.  Each step ends in the same synchronising
-    read of the error as in the counted run."""
+    read as in the counted run (``read``; the MF error by default)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    read = read or (lambda out: float(out["error"].pow(2).mean()))
     found = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=MF_TRACED, repeat=1),
+                 schedule=schedule(wait=1, warmup=1, active=steps, repeat=1),
                  on_trace_ready=lambda p: found.append(p.key_averages())) as prof:
         def after_step(out):
-            float(out["error"].pow(2).mean())
+            read(out)
             prof.step()
 
         drive(after_step)
     if not found:
         print(f"trace: torch.profiler recorded no {what} steps; the step breakdown is not measured")
         return
-    _report_trace(found[-1], what, MF_TRACED, step_ms, MF_FAMILIES)
+    _report_trace(found[-1], what, steps, step_ms, rules)
 
 
 def _report_trace(averages, what, steps, step_ms, rules):
@@ -1577,8 +2047,11 @@ def main() -> int:
         card = card_line()
         phase_driver(torch, dev, card)
         phase_serving(torch, dev, card)
+        wl_rows, wl_traces = phase_workloads(torch, dev, card)
         launches = phase_main(torch, dev)
-        rows = phase_timing(torch, dev, gen, launches, errs)
+        rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
+        for trace in wl_traces:  # after every counted run, as the MF traces are
+            trace()
         phase_driver_trace(torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

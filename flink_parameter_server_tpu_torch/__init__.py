@@ -10,9 +10,15 @@ flash-attention forward, dQ and dK/dV kernels).  Around the MF loop sits
 the job envelope (``training/``, ``resilience/``, ``telemetry/``): the
 streaming driver, checkpoints, the write-ahead log and crash recovery;
 beside it the query plane (``serving/``) answers exact top-K
-recommendations from versioned snapshots while the driver trains.
-Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
-each kernel's plain torch version runs instead.
+recommendations from versioned snapshots while the driver trains.  The
+other batched workloads run on the same store and push (K1 with
+``scatter_impl="pallas"``): passive-aggressive classification, the
+count-min / Bloom / tug-of-war sketches, word2vec SGNS and the
+factorization machine; the event API (``WorkerLogic``,
+``ParameterServerLogic``, ``transform`` with ``param_init`` /
+``param_update``) runs the reference system's per-record callbacks on the
+host.  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+CPU each kernel's plain torch version runs instead.
 
 Quickstart::
 
@@ -46,6 +52,19 @@ and a job that checkpoints, logs ahead and survives a crash::
     driver.resume()                    # continue a saved job, if any
     result = RecoveringDriver(driver, make_stream).run()
 
+the other workloads (``models/{passive_aggressive,sketches,word2vec,
+factorization_machine}.py``)::
+
+    from flink_parameter_server_tpu_torch.models.passive_aggressive import transform_binary
+    result = transform_binary(batches, num_features=2_000_000, scatter_impl="pallas",
+                              device="cuda")
+
+and the event API::
+
+    from flink_parameter_server_tpu_torch import transform
+    result = transform(records, MyWorkerLogic, param_init=lambda k: 0.0,
+                       param_update=lambda cur, delta: cur + delta)
+
 and one that answers queries while it trains::
 
     service = driver.serve_with(publish_every=4)
@@ -53,6 +72,14 @@ and one that answers queries while it trains::
     ...                                  # driver.run(batches) in a thread
     answer = client.top_k(user, k=10)    # .item_ids, .scores, .staleness
 """
+from .core.api import (
+    ParameterServer,
+    ParameterServerClient,
+    ParameterServerLogic,
+    SimplePSLogic,
+    WorkerLogic,
+    add_pull_limiter,
+)
 from .core.batched import BatchedWorkerLogic, PushRequest
 from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
 from .core.optim import adam, adamw, sgd
@@ -65,7 +92,9 @@ from .core.transform import (
     transform_batched,
     transform_with_model_load,
 )
+from .core.entities import Pull, PullAnswer, Push, PSToWorker, WorkerToPS
 from .models.matrix_factorization import (
+    MFWorkerLogic,
     OnlineMatrixFactorization,
     SGDUpdater,
     ps_online_mf,
@@ -92,6 +121,17 @@ from .training.driver import DriverConfig, StreamingDriver, TrainingDiverged
 from .utils.initializers import normal_factor, ranged_random_factor, zeros
 
 __all__ = [
+    "ParameterServer",
+    "ParameterServerClient",
+    "ParameterServerLogic",
+    "SimplePSLogic",
+    "WorkerLogic",
+    "add_pull_limiter",
+    "Pull",
+    "Push",
+    "PullAnswer",
+    "WorkerToPS",
+    "PSToWorker",
     "BatchedWorkerLogic",
     "PushRequest",
     "DenseParameterServer",
@@ -119,6 +159,7 @@ __all__ = [
     "StreamingDriver",
     "TrainingDiverged",
     "load_model",
+    "MFWorkerLogic",
     "OnlineMatrixFactorization",
     "SGDUpdater",
     "ps_online_mf",

@@ -1,26 +1,35 @@
-"""The batched PS loop: pull -> worker step -> push, once per microbatch.
+"""The PS loop: the batched step on the card and the host event backend.
 
-Counterpart of the batched half of ``flink_parameter_server_tpu/core/
-transform.py`` (``make_train_step``, ``make_scan_train_step``,
-``transform_batched``, ``TransformResult``) and the batched overloads of
-``transform`` and ``transform_with_model_load``; their event-API
-overloads raise until the event backend is ported (ROADMAP Queue 1 #5).
-PyTorch runs eagerly, so the step is a plain function; it updates the
-table and the worker state in place (the reference's jitted step donates
-both buffers), and :func:`transform_batched` copies the caller's store and
-state first, so those stay valid.  ``steps_per_call=K`` groups K
-microbatches per call, run as a loop (a CUDA graph of the group is later
-work).
+Counterpart of ``flink_parameter_server_tpu/core/transform.py``: the
+batched half (``make_train_step``, ``make_scan_train_step``,
+``transform_batched``, ``TransformResult``), the event backend (the
+``_LocalRuntime`` event loop with FIFO queues between worker and server
+partitions, reproducing the reference system's per-record callback
+semantics, races included when ``input_window`` > 1), and the
+``transform`` / ``transform_with_model_load`` overloads that take either.
+PyTorch runs eagerly, so the batched step is a plain function; it updates
+the table and the worker state in place (the reference's jitted step
+donates both buffers), and :func:`transform_batched` copies the caller's
+store and state first, so those stay valid.  ``steps_per_call=K`` groups
+K microbatches per call, run as a loop (a CUDA graph of the group is
+later work).  The event backend is host code, as in the reference; what
+its logics compute per record runs where they put their tensors.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
+import zlib
 from typing import Any, Callable, Generic, Iterable, List, Optional, Tuple, TypeVar, Union
 
 import numpy as np
 import torch
 
+from .api import ParameterServer, ParameterServerClient, ParameterServerLogic, SimplePSLogic, WorkerLogic
 from .batched import BatchedWorkerLogic
+from .entities import Pull, PullAnswer, Push, PSToWorker, WorkerToPS
+from .senders import SIMPLE, BufferingSender, SenderPolicy
 from .store import ShardedParamStore, StoreSpec
 from . import store as store_mod
 from ..utils.device import check_mesh
@@ -55,6 +64,20 @@ def _clone(x: Any) -> Any:
     return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, x)
 
 
+def stable_route_hash(key) -> int:
+    """Routing hash for ``hash(paramId) % psParallelism`` that is stable
+    across processes (Python's ``hash`` of a string changes with
+    PYTHONHASHSEED).  Ints keep their identity, as the reference system's
+    ``paramId.hashCode`` does for Scala Ints."""
+    if isinstance(key, (int, np.integer)):
+        return int(key)
+    if isinstance(key, str):
+        return zlib.crc32(key.encode("utf-8"))
+    if isinstance(key, bytes):
+        return zlib.crc32(key)
+    return zlib.crc32(repr(key).encode("utf-8"))
+
+
 @dataclasses.dataclass
 class TransformResult(Generic[WOut, PSOut]):
     """The worker and server output streams of a PS job (the reference
@@ -70,6 +93,169 @@ class TransformResult(Generic[WOut, PSOut]):
         return [("left", w) for w in self.worker_outputs] + [
             ("right", s) for s in self.server_outputs
         ]
+
+
+# ---------------------------------------------------------------------------
+# Local (event) backend: the reference system's callback semantics on the host.
+# ---------------------------------------------------------------------------
+
+
+class _LocalClient(ParameterServerClient):
+    def __init__(self, runtime: "_LocalRuntime", worker_idx: int):
+        self._rt = runtime
+        self._widx = worker_idx
+
+    def pull(self, param_id: int) -> None:
+        self._rt.send_w2ps(self._widx, WorkerToPS(self._widx, Pull(param_id)))
+
+    def push(self, param_id: int, delta) -> None:
+        self._rt.send_w2ps(self._widx, WorkerToPS(self._widx, Push(param_id, delta)))
+
+    def output(self, w_out) -> None:
+        self._rt.worker_outputs.append(w_out)
+
+
+class _LocalPSIface(ParameterServer):
+    def __init__(self, runtime: "_LocalRuntime", server_idx: int):
+        self._rt = runtime
+        self._sidx = server_idx
+
+    def answer_pull(self, param_id: int, value, worker_idx: int) -> None:
+        self._rt.send_ps2w(self._sidx, PSToWorker(worker_idx, PullAnswer(param_id, value)))
+
+    def output(self, ps_out) -> None:
+        self._rt.server_outputs.append(ps_out)
+
+
+class _LocalRuntime:
+    """Single FIFO event loop emulating the Flink iteration.
+
+    Input records are admitted up to ``input_window`` ahead of message
+    processing, so pulls and pushes from different workers interleave:
+    the reference system's asynchronous hazards (SURVEY.md §3.2),
+    reproduced deterministically."""
+
+    def __init__(
+        self,
+        worker_logics: List[WorkerLogic],
+        ps_logics: List[ParameterServerLogic],
+        partitioner: Optional[Callable[[Any, int], int]],
+        input_window: int,
+        client_sender: Optional[SenderPolicy] = None,
+        ps_sender: Optional[SenderPolicy] = None,
+    ):
+        self.workers = worker_logics
+        self.servers = ps_logics
+        self.partitioner = partitioner
+        self.input_window = max(1, input_window)
+        self.events: collections.deque = collections.deque()
+        self.worker_outputs: List[Any] = []
+        self.server_outputs: List[Any] = []
+        self.ps_ifaces = [_LocalPSIface(self, s) for s in range(len(self.servers))]
+        self.clients = [_LocalClient(self, i) for i in range(len(self.workers))]
+        self.tick = 0
+        self.client_senders = [BufferingSender(client_sender or SIMPLE) for _ in self.workers]
+        self.ps_senders = [BufferingSender(ps_sender or SIMPLE) for _ in self.servers]
+        # only interval-triggered senders ever flush from poll(); the
+        # default SIMPLE policy leaves this empty
+        self._interval_senders = [
+            ("w2ps", s) for s in self.client_senders if s.policy.interval is not None
+        ] + [("ps2w", s) for s in self.ps_senders if s.policy.interval is not None]
+
+    def send_w2ps(self, worker_idx: int, msg: WorkerToPS) -> None:
+        for m in self.client_senders[worker_idx].offer(msg, self.tick):
+            self.events.append(("w2ps", m))
+
+    def send_ps2w(self, server_idx: int, msg: PSToWorker) -> None:
+        for m in self.ps_senders[server_idx].offer(msg, self.tick):
+            self.events.append(("ps2w", m))
+
+    def _poll_senders(self) -> None:
+        for tag, s in self._interval_senders:
+            for m in s.poll(self.tick):
+                self.events.append((tag, m))
+
+    def _force_flush_senders(self) -> bool:
+        flushed = False
+        for s in self.client_senders:
+            for m in s.flush(self.tick):
+                self.events.append(("w2ps", m))
+                flushed = True
+        for s in self.ps_senders:
+            for m in s.flush(self.tick):
+                self.events.append(("ps2w", m))
+                flushed = True
+        return flushed
+
+    def _route_server(self, param_id: int) -> int:
+        # partitionCustom(hash(paramId) % psParallelism), with a hash
+        # that does not depend on PYTHONHASHSEED
+        return stable_route_hash(param_id) % len(self.servers)
+
+    def run(self, data: Iterable) -> None:
+        it = iter(data)
+        rr = itertools.cycle(range(len(self.workers)))
+        exhausted = False
+        in_window = 0
+        while True:
+            while not exhausted and in_window < self.input_window:
+                try:
+                    record = next(it)
+                except StopIteration:
+                    exhausted = True
+                    break
+                widx = self.partitioner(record, len(self.workers)) if self.partitioner else next(rr)
+                self.events.append(("input", widx, record))
+                in_window += 1
+            if not self.events:
+                if exhausted:
+                    # input done and queue drained: flush what combination
+                    # senders still hold before concluding
+                    if self._force_flush_senders():
+                        continue
+                    break
+                continue
+            ev = self.events.popleft()
+            self.tick += 1
+            if ev[0] == "input":
+                _, widx, record = ev
+                in_window -= 1
+                self.workers[widx].on_recv(record, self.clients[widx])
+            elif ev[0] == "w2ps":
+                msg: WorkerToPS = ev[1]
+                sidx = self._route_server(msg.message.param_id)
+                if isinstance(msg.message, Pull):
+                    self.servers[sidx].on_pull_recv(
+                        msg.message.param_id, msg.worker_partition_index, self.ps_ifaces[sidx]
+                    )
+                else:
+                    self.servers[sidx].on_push_recv(
+                        msg.message.param_id, msg.message.delta, self.ps_ifaces[sidx]
+                    )
+            else:  # ps2w
+                msg2: PSToWorker = ev[1]
+                w = msg2.worker_partition_index
+                self.workers[w].on_pull_recv(msg2.answer.param_id, msg2.answer.value, self.clients[w])
+            self._poll_senders()
+        # input exhausted and every message delivered: the close hooks (the
+        # reference's iterationWaitTime moment, made explicit)
+        for w in self.workers:
+            w.close()
+        for sidx, s in enumerate(self.servers):
+            s.close(self.ps_ifaces[sidx])
+
+
+def _instances(factory_or_instance, n: int, what: str) -> List[Any]:
+    if callable(factory_or_instance) and not isinstance(
+        factory_or_instance, (WorkerLogic, ParameterServerLogic)
+    ):
+        return [factory_or_instance() for _ in range(n)]
+    if n != 1:
+        raise ValueError(
+            f"{what} parallelism {n} > 1 requires a zero-arg factory, got an "
+            f"instance (stateful logics cannot be shared across partitions)"
+        )
+    return [factory_or_instance]
 
 
 def make_train_step(
@@ -283,41 +469,57 @@ def transform_batched(
 # The public overload family.
 # ---------------------------------------------------------------------------
 
-_EVENT_API = (
-    "the event API (WorkerLogic / ParameterServerLogic and the local "
-    "event runtime) is not ported yet: ROADMAP Queue 1 #5"
-)
-
-
 def transform(
     data: Iterable,
-    worker_logic: Any,
-    ps_logic: Union[ShardedParamStore, Any, None] = None,
+    worker_logic: Union[WorkerLogic, Callable[[], WorkerLogic], BatchedWorkerLogic],
+    ps_logic: Union[ParameterServerLogic, Callable[[], ParameterServerLogic], ShardedParamStore, None] = None,
     *,
     param_init: Optional[Callable[[int], Any]] = None,
     param_update: Optional[Callable[[Any, Any], Any]] = None,
     worker_parallelism: int = 1,
     ps_parallelism: int = 1,
-    iteration_wait_time: Optional[float] = None,
+    iteration_wait_time: Optional[float] = None,  # accepted for parity; unused
     partitioner: Optional[Callable[[Any, int], int]] = None,
     input_window: Optional[int] = None,
-    client_sender=None,
-    ps_sender=None,
+    client_sender: Optional[SenderPolicy] = None,
+    ps_sender: Optional[SenderPolicy] = None,
     **batched_kwargs,
 ) -> TransformResult:
     """Wire ``data`` + worker logic + server into a PS job (the reference's
-    ``FlinkParameterServer.transform`` overloads).
+    ``FlinkParameterServer.transform`` overloads):
 
-    ``transform(batches, batched_worker, sharded_store, **kw)`` is
-    :func:`transform_batched`; the event-API overloads (``param_init`` /
-    ``param_update``, custom server logic) raise ``NotImplementedError``.
-    As in the reference, the event-only arguments are ignored on the
-    batched path."""
+    * ``transform(data, worker, param_init=f, param_update=g, ...)``: the
+      simple keyed-store server (``SimplePSLogic``);
+    * ``transform(data, worker, ps_logic, ...)``: custom server logic;
+    * ``transform(batches, batched_worker, sharded_store, **kw)``:
+      :func:`transform_batched`, on the store's device.
+
+    Worker and server logics are instances or zero-argument factories (a
+    factory is needed for a parallelism above 1).  ``iteration_wait_time``
+    is accepted and ignored: the job ends when the input is exhausted and
+    every message is delivered.  ``client_sender`` / ``ps_sender``
+    (combination batching) apply to the event backend only; the batched
+    path ignores them, as the reference does."""
     if isinstance(worker_logic, BatchedWorkerLogic):
         if not isinstance(ps_logic, ShardedParamStore):
             raise TypeError("batched worker logic requires a ShardedParamStore server")
         return transform_batched(data, worker_logic, ps_logic, **batched_kwargs)
-    raise NotImplementedError(_EVENT_API)
+    if ps_logic is None:
+        if param_init is None or param_update is None:
+            raise TypeError("provide either ps_logic or (param_init, param_update)")
+        ps_logic = lambda: SimplePSLogic(param_init, param_update)  # noqa: E731
+    workers = _instances(worker_logic, worker_parallelism, "worker")
+    servers = _instances(ps_logic, ps_parallelism, "ps")
+    runtime = _LocalRuntime(
+        workers,
+        servers,
+        partitioner,
+        input_window if input_window is not None else worker_parallelism,
+        client_sender=client_sender,
+        ps_sender=ps_sender,
+    )
+    runtime.run(data)
+    return TransformResult(worker_outputs=runtime.worker_outputs, server_outputs=runtime.server_outputs)
 
 
 def _host_row(value: Any) -> torch.Tensor:
@@ -342,10 +544,14 @@ def transform_with_model_load(
     PHYSICAL table, so a packed-layout store raises where the reference
     raises: the (n, row) values do not broadcast to its (n, 128) rows.
     Seed a packed store with ``ShardedParamStore.from_values`` instead.
-    The event-API overload raises ``NotImplementedError``."""
-    if not isinstance(ps_logic, ShardedParamStore):
-        raise NotImplementedError(_EVENT_API)
+
+    On the event path (server logic, a factory of one, or ``param_init``
+    / ``param_update`` in ``kwargs``) the model stream is delivered
+    before the training data: a ``SimplePSLogic`` server has each value
+    SET, any other server receives it through ``on_push_recv``."""
     model = list(model)
+    if not isinstance(ps_logic, ShardedParamStore):
+        return _event_model_load(model, data, worker_logic, ps_logic, kwargs)
     table = ps_logic.table.clone()
     ids = torch.tensor([int(i) for i, _ in model], dtype=torch.int64, device=table.device)
     vals = torch.stack([_host_row(v) for _, v in model]).to(table.device, table.dtype)
@@ -360,6 +566,40 @@ def transform_with_model_load(
     return transform(data, worker_logic, ShardedParamStore(ps_logic.spec, table), **kwargs)
 
 
+class _SeedIface(ParameterServer):
+    """The server interface of the model-load phase: seeds never pull."""
+
+    def __init__(self):
+        self.outs: List[Any] = []
+
+    def answer_pull(self, *args) -> None:
+        raise RuntimeError("the model-load phase must not answer pulls")
+
+    def output(self, ps_out) -> None:
+        self.outs.append(ps_out)
+
+
+def _event_model_load(model, data, worker_logic, ps_logic, kwargs) -> TransformResult:
+    kwargs = dict(kwargs)
+    if ps_logic is None:
+        param_init = kwargs.pop("param_init", None)
+        param_update = kwargs.pop("param_update", None)
+        if param_init is None or param_update is None:
+            raise TypeError("provide either ps_logic or (param_init, param_update)")
+        ps_logic = lambda: SimplePSLogic(param_init, param_update)  # noqa: E731
+    ps_par = kwargs.get("ps_parallelism", 1)
+    servers = _instances(ps_logic, ps_par, "ps")
+    for pid, value in model:
+        target = servers[stable_route_hash(pid) % ps_par]
+        if isinstance(target, SimplePSLogic):
+            target.store[pid] = value  # a model load SETS the value
+        else:
+            target.on_push_recv(pid, value, _SeedIface())
+    seeded = iter(servers)
+    kwargs["ps_parallelism"] = ps_par
+    return transform(data, worker_logic, lambda: next(seeded), **kwargs)
+
+
 __all__ = [
     "TransformResult",
     "transform",
@@ -370,4 +610,5 @@ __all__ = [
     "tree_map",
     "tree_leaves",
     "to_device",
+    "stable_route_hash",
 ]

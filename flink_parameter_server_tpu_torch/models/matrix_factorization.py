@@ -6,6 +6,8 @@ vectors live in worker state, item vectors in the store; per microbatch of
 ratings, pull the item rows, run SGD on each (user, item) pair, update the
 user rows locally and push the item deltas.  Duplicate users or items in
 one microbatch combine additively (or by mean with ``dedup_scale``).
+:class:`MFWorkerLogic` is the same model in the event API, one rating at
+a time.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..core.api import WorkerLogic
 from ..core.batched import BatchedWorkerLogic, PushRequest
 from ..core.store import ShardedParamStore
 from ..ops.dedup import occurrence_scale
@@ -122,6 +125,55 @@ class OnlineMatrixFactorization(BatchedWorkerLogic):
         return {"user_factors": state}
 
 
+class MFWorkerLogic(WorkerLogic):
+    """Event-API MF worker, the reference system's programming model
+    (SURVEY.md §3.2): buffer the rating, pull the item vector, and on the
+    answer run SGD, update the local user vector and push the item delta.
+
+    User vectors (per-id init from ``seed``) and the SGD math live on
+    ``device`` (default ``"cuda"``); the item delta is pushed as a tensor
+    there, and a pulled value is taken as a tensor on it.  Outputs are
+    ``(user, item, prediction)`` with the prediction a Python float."""
+
+    def __init__(
+        self,
+        dim: int,
+        updater: SGDUpdater = SGDUpdater(),
+        seed: int = 0,
+        init_low: float = -0.01,
+        init_high: float = 0.01,
+        *,
+        device: DeviceLike = None,
+    ):
+        self.dim = dim
+        self.updater = updater
+        self.device = resolve_device(device)
+        self._init = ranged_random_factor(seed, (dim,), low=init_low, high=init_high)
+        self.user_vectors: Dict[int, torch.Tensor] = {}
+        self.pending: Dict[int, list] = {}
+
+    def _user_vec(self, u: int) -> torch.Tensor:
+        if u not in self.user_vectors:
+            ids = torch.tensor([u], dtype=torch.int64, device=self.device)
+            self.user_vectors[u] = self._init(ids)[0]
+        return self.user_vectors[u]
+
+    def on_recv(self, data, ps):
+        u, i, r = data
+        self.pending.setdefault(i, []).append((u, r))
+        ps.pull(i)
+
+    def on_pull_recv(self, param_id, param_value, ps):
+        item_vec = torch.as_tensor(param_value, dtype=torch.float32, device=self.device)
+        for u, r in self.pending.pop(param_id, []):
+            user_vec = self._user_vec(u)
+            rating = torch.tensor(r, dtype=torch.float32, device=self.device)
+            ud, idelta, pred = self.updater.delta(rating, user_vec, item_vec)
+            self.user_vectors[u] = user_vec + ud
+            ps.push(param_id, idelta)
+            ps.output((u, param_id, float(pred)))
+
+
 def ps_online_mf(
     ratings,
     *,
@@ -173,4 +225,4 @@ def ps_online_mf(
     return transform_batched(ratings, logic, store, **transform_kwargs)
 
 
-__all__ = ["SGDUpdater", "OnlineMatrixFactorization", "ps_online_mf"]
+__all__ = ["SGDUpdater", "OnlineMatrixFactorization", "MFWorkerLogic", "ps_online_mf"]

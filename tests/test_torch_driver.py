@@ -7,9 +7,8 @@ the JAX ``StreamingDriver`` (no checkpoint) and the port's, for
 table and user state match at rtol 1e-5 / atol 1e-6 (float32 sums of the
 same terms in another order), the tolerance of tests/test_torch_mf.py.
 
-Mirrors: tests/test_driver_determinism.py (12 of its 13 tests; the
-event-backend schedule test waits for the event API, ROADMAP Queue 1 #5)
-and tests/test_driver_steps_per_call.py (7 tests; the composed-knobs test
+Mirrors: tests/test_driver_determinism.py (all 13 tests; the
+event-backend schedule test runs the port's event backend) and tests/test_driver_steps_per_call.py (7 tests; the composed-knobs test
 without its 2-shard mesh, since the port is single-device, Queue 1 #9).
 Within the port, resume and crash recovery are held bit for bit.
 """
@@ -146,11 +145,32 @@ def test_batched_backend_bitwise_deterministic():
 
 
 def test_event_backend_waits_for_the_event_api():
-    """The reference's event-schedule test needs the event API, which is
-    ROADMAP Queue 1 #5: the port's transform says so."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        transform([("k", i) for i in range(30)], object(), param_init=lambda _k: 0,
-                  param_update=lambda c, d: c + d, worker_parallelism=3)
+    """Mirror of the reference's test_event_backend_schedule_deterministic,
+    now that the port has the event backend: the same config and input
+    order give the same event schedule, the interleaved (racy) one too."""
+    from flink_parameter_server_tpu_torch.core.api import WorkerLogic
+
+    class CountingWorker(WorkerLogic):
+        def __init__(self):
+            self.pending = {}
+
+        def on_recv(self, data, ps):
+            key, inc = data
+            self.pending.setdefault(key, []).append(inc)
+            ps.pull(key)
+
+        def on_pull_recv(self, param_id, param_value, ps):
+            for inc in self.pending.pop(param_id, []):
+                ps.push(param_id, inc)
+            ps.output((param_id, param_value))
+
+    def run():
+        return transform([("k", i) for i in range(30)], CountingWorker, param_init=lambda _k: 0,
+                         param_update=lambda c, d: c + d, worker_parallelism=3, input_window=5)
+
+    a, b = run(), run()
+    assert a.worker_outputs == b.worker_outputs  # the same stale-read pattern
+    assert a.server_outputs == b.server_outputs == [("k", sum(range(30)))]
 
 
 def test_prefetch_propagates_stream_errors():

@@ -55,6 +55,16 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.ops.topk",
             "flink_parameter_server_tpu_torch.utils.net",
             "flink_parameter_server_tpu_torch.telemetry.profiler"} <= set(modules)
+    # the other batched workloads and the event API
+    assert {"flink_parameter_server_tpu_torch.ops.hashing",
+            "flink_parameter_server_tpu_torch.data.text",
+            "flink_parameter_server_tpu_torch.models.sketches",
+            "flink_parameter_server_tpu_torch.models.passive_aggressive",
+            "flink_parameter_server_tpu_torch.models.word2vec",
+            "flink_parameter_server_tpu_torch.models.factorization_machine",
+            "flink_parameter_server_tpu_torch.core.api",
+            "flink_parameter_server_tpu_torch.core.entities",
+            "flink_parameter_server_tpu_torch.core.senders"} <= set(modules)
 
 
 def test_sources_have_no_forbidden_imports():

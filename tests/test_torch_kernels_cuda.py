@@ -13,7 +13,9 @@ last place of the table's values; int32 exact.  The flash kernels: float32 rtol 
 largest value (float32 dot products in another order); bfloat16 outputs
 one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 The serving engine on the card against the CPU: ids equal, scores rtol
-1e-6 (both sum the products in float64 and round once to float32).
+1e-6 (both sum the products in float64 and round once to float32).  K1 at
+the other workloads' row shapes: float32 rtol 1e-5 with atol 1e-5 of the
+largest value; sketch-shaped pushes (whole-number counts) exact.
 """
 import numpy as np
 import pytest
@@ -499,3 +501,113 @@ def test_snapshot_stays_frozen_while_k1_updates_the_live_table(cuda):
     assert scatter_kernel.sorted_scatter_add.launches == before + 8
     assert torch.equal(snap.table, table_then) and torch.equal(snap.aux, state_then)
     assert not torch.equal(snap.table, store.table) and not torch.equal(snap.aux, state)
+
+
+# The other batched workloads' pushes (PA, the sketches, SGNS, FM): K1 at
+# their row shapes.  Sketch-shaped pushes carry whole-number float32 deltas,
+# so every order of summing them gives the same bits: exact.
+K1_WORKLOAD_SHAPES = [
+    # label, rows, width, sub_k, lanes, whole-number deltas
+    ("PA binary dense d 1", 2_000_000, 1, 1, 262_144, False),
+    ("PA binary packed sub_k 128 d 1", 15_625, 1, 128, 262_144, False),
+    ("count-min packed sub_k 128 d 1", 256, 1, 128, 262_144, True),
+    ("PA multiclass dense d 4", 2_000_000, 4, 1, 262_144, False),
+    ("FM dense d 17 (unaligned rows)", 4_194_304, 17, 1, 131_072, False),
+    ("FM packed sub_k 7 d 17", 599_187, 17, 7, 131_072, False),
+    ("SGNS dense d 256", 1_000_000, 256, 1, 229_376, False),
+]
+
+
+def _k1_case(rng, rows, width, sub_k, n, whole):
+    ids = np.sort(_zipf_ids(rng, n, rows * sub_k, a=1.3)).astype(np.int32)
+    W = 128 if sub_k > 1 else width
+    if whole:
+        table = rng.integers(-50, 50, (rows, W)).astype(np.float32)
+        deltas = rng.choice([-1.0, 1.0], (n, width)).astype(np.float32)
+    else:
+        table = rng.normal(0, 0.1, (rows, W)).astype(np.float32)
+        deltas = rng.normal(0, 0.01, (n, width)).astype(np.float32)
+    return torch.from_numpy(ids), torch.from_numpy(table), torch.from_numpy(deltas)
+
+
+@pytest.mark.parametrize("label,rows,width,sub_k,n,whole", K1_WORKLOAD_SHAPES,
+                         ids=[s[0] for s in K1_WORKLOAD_SHAPES])
+def test_k1_at_the_workload_shapes(cuda, label, rows, width, sub_k, n, whole):
+    """K1 against its plain version (on the CPU) at each workload's row
+    shape, twice on the card with the same bits."""
+    rng = np.random.default_rng(rows + width)
+    ids, table, deltas = _k1_case(rng, rows, width, sub_k, n, whole)
+    want = scatter_kernel.run_sum_write_plain(table.clone(), ids, deltas, sub_k=sub_k)
+    d_ids, d_table, d_deltas = ids.to(cuda), table.to(cuda), deltas.to(cuda)
+    a = scatter_kernel.sorted_scatter_add(d_table.clone(), d_ids, d_deltas, sub_k=sub_k)
+    b = scatter_kernel.sorted_scatter_add(d_table.clone(), d_ids, d_deltas, sub_k=sub_k)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), label
+    if whole:
+        assert torch.equal(a.cpu(), want), label
+    else:
+        torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_k1_takes_the_tug_of_war_push(cuda):
+    """The most duplicate-heavy push: every one of 65,536 tokens adds ±1
+    to each of 256 estimators, so 16.8 M lanes fall into 256 runs of
+    65,536 lanes, each crossing 256 tiles; exact, and the same bits twice."""
+    rng = np.random.default_rng(3)
+    tokens, est = 65_536, 256
+    ids = torch.arange(est, dtype=torch.int32).repeat_interleave(tokens)
+    deltas = torch.from_numpy(rng.choice([-1.0, 1.0], (tokens * est, 1)).astype(np.float32))
+    table = torch.from_numpy(rng.integers(-1000, 1000, (est, 1)).astype(np.float32))
+    want = table + deltas.view(est, tokens).sum(1, keepdim=True)
+    d_ids, d_table, d_deltas = ids.to(cuda), table.to(cuda), deltas.to(cuda)
+    a = scatter_kernel.sorted_scatter_add(d_table.clone(), d_ids, d_deltas)
+    b = scatter_kernel.sorted_scatter_add(d_table.clone(), d_ids, d_deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+def _one_step_both_arms(cuda, logic, make_store, batch):
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+
+    tables, launches = {}, {}
+    for impl in ("pallas", "xla"):
+        before = scatter_kernel.sorted_scatter_add.launches
+        res = transform_batched([batch], logic, make_store(impl), dump_model=False, collect_outputs=False)
+        torch.cuda.synchronize()
+        launches[impl] = scatter_kernel.sorted_scatter_add.launches - before
+        tables[impl] = res.store.table.cpu()
+    assert launches == {"pallas": 1, "xla": 0}
+    return tables["pallas"], tables["xla"]
+
+
+def test_pa_sketch_and_fm_steps_match_the_xla_arm(cuda):
+    """One PA, one count-min and one FM step with scatter_impl="pallas"
+    (one K1 launch each) against the same step with "xla" on the card:
+    PA and FM at rtol 1e-5 with atol 1e-5 of the largest value, the
+    sketch exact."""
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.models import factorization_machine as fm
+    from flink_parameter_server_tpu_torch.models.passive_aggressive import PassiveAggressiveBinary
+    from flink_parameter_server_tpu_torch.models.sketches import CountMinConfig, CountMinSketch
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    rng = np.random.default_rng(1)
+    B, K, F = 8192, 32, 200_000
+    sparse = {"ids": ((rng.zipf(1.3, (B, K)) - 1) % F).astype(np.int32),
+              "values": rng.normal(0, 1, (B, K)).astype(np.float32), "feat_mask": np.ones((B, K), bool),
+              "label": rng.choice([-1.0, 1.0], B).astype(np.float32), "mask": np.ones(B, bool)}
+    got, want = _one_step_both_arms(cuda, PassiveAggressiveBinary(), lambda impl: ShardedParamStore.create(
+        F, (), init_fn=ranged_random_factor(0, ()), scatter_impl=impl, layout="packed", device=cuda), sparse)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+    sketch = CountMinSketch(CountMinConfig(width=8192, depth=4))
+    keys = {"key": ((rng.zipf(1.3, 65_536) - 1) % 1_000_000).astype(np.int32), "mask": np.ones(65_536, bool)}
+    got, want = _one_step_both_arms(cuda, sketch, lambda impl: sketch.make_store(scatter_impl=impl, device=cuda),
+                                    keys)
+    assert torch.equal(got, want)
+
+    cfg = fm.FMConfig(num_features=F, dim=16, learning_rate=0.01)
+    got, want = _one_step_both_arms(cuda, fm.FactorizationMachine(cfg), lambda impl: fm.make_store(
+        cfg, scatter_impl=impl, device=cuda), sparse)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
