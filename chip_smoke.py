@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the torch port on one NVIDIA card: online MF (bare, through the
-job envelope, and answering top-K queries while it trains), the other
-batched workloads (passive-aggressive, the sketches, word2vec, the
-factorization machine) and the event API, and Transformer LM training
-through the dense parameter server.
+job envelope, answering top-K queries while it trains, and through the
+parameter-server cluster and the mesh store), the other batched workloads
+(passive-aggressive, the sketches, word2vec, the factorization machine)
+and the event API, and Transformer LM training through the dense
+parameter server.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -77,6 +78,29 @@ line each; any failure exits non-zero before the last line:
              the event API's MF job (``MFWorkerLogic``, 2,000 ratings) on the
              card against the CPU.  A torch.profiler trace of
              4 steps of each workload runs after every counted run.
+  cluster    the parameter-server cluster at the MF path's full width
+             (100,000 users x 131,072 items, dim 64, lr 0.01, 12
+             microbatches of 65,536 Zipf-1.2 ratings; only the run length
+             is cut) through ``ClusterDriver``: socket BSP, 4 shards x 2
+             workers, range and hash partitions (every shard's slice a
+             CUDA tensor), held at the reference's bar (rtol 1e-4, atol
+             1e-6) against the single-process ``transform_batched``; 1
+             worker twice, bitwise; a supervised shard crash at round 6
+             over a WAL, bitwise against the uninterrupted run; SSP bound
+             2 with a worker held back (the fast one stops 2 rounds
+             ahead), and async; 2 shard processes against the
+             thread-backed run over one ``hashed_uniform`` init, bitwise;
+             the mesh store (``store_backend="mesh"``: the table and the
+             rows the step gets are CUDA tensors; 1 worker twice bitwise;
+             2 workers BSP at the bar; a store rebuilt over the WAL
+             bitwise, ``verify_against_log()``).  No kernel of the port
+             launches (the cluster takes the store's ``"xla"`` arm, as
+             the reference does).  ``cluster:`` lines give rounds/s and
+             updates/s of each arm, the frames' phases, the client's round
+             trips (p50, p99), the host-mirror rebuild and the mesh
+             scatter, and, from a separate range run with a synchronize
+             after each step, a worker's round split into pull, step and
+             push, beside the card's name and power limit.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -1299,6 +1323,283 @@ def _event_mf_matches_cpu(torch, dev, card):
     check(ok, "the event API's MF job on the card disagrees with the CPU")
 
 
+CLUSTER_ROUNDS = 12  # only the run length is cut
+CLUSTER_SHARDS, CLUSTER_WORKERS = 4, 2
+CLUSTER_CRASH_ROUND, CLUSTER_SSP_BOUND, CLUSTER_PROCS = 6, 2, 2
+CLUSTER_PROC_INIT = {"kind": "hashed_uniform", "scale": 0.01, "seed": 11}
+CLUSTER_BAR = dict(rtol=1e-4, atol=1e-6)  # the reference's cluster parity bar
+
+
+def _percentiles(prof, verb, n):
+    """p50 / p99 (ms) of the first ``n`` per-frame round trips the
+    clients timed on ``prof`` (the training rounds, not the final dump)."""
+    vals = sorted(list(prof._site(verb, "rtt")[1])[:n])
+    if not vals:
+        return float("nan"), float("nan")
+    return tuple(float(np.percentile(vals, q)) * 1e3 for q in (50, 99))
+
+
+def _f64_errors(torch, dev, stream, init, logic, tables, base):
+    """Each arm's largest error against a float64 run of the same sums,
+    beside the float32 single-process table's: printed when an arm
+    breaks the bar, for ROADMAP Queue 3."""
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+
+    store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), dtype=torch.float64,
+                                     init_fn=lambda ids: init(ids).double(), device=dev)
+    ref = transform_batched(stream, logic(torch.float64), store, dump_model=False,
+                            collect_outputs=False).store.values().cpu().numpy()
+    for name, vals in [("single-process float32", base)] + list(tables.items()):
+        err = float(np.abs(vals.astype(np.float64) - ref).max())
+        print(f"cluster: {name} against a float64 run of the same sums: max_abs_err={err:.3e}")
+
+
+def phase_cluster(torch, dev, card):
+    """The parameter-server cluster at the MF path's full width (100,000
+    users x 131,072 items, dim 64, lr 0.01, 12 microbatches of 65,536
+    Zipf-1.2 ratings, ``ranged_random_factor`` init; only the run length
+    is cut), every arm through ``ClusterDriver`` on the card: socket BSP 4
+    shards x 2 workers with range and hash partitions (every slice a CUDA
+    tensor) held at the reference's bar (rtol 1e-4, atol 1e-6) against the
+    single-process ``transform_batched`` of the same logic, init and
+    stream; socket at 1 worker twice (bitwise) and with a supervised shard
+    crash at round 6 over a WAL (bitwise); SSP bound 2 with a worker held
+    back, and async; 2 shard processes against the thread-backed run over
+    the same ``hashed_uniform`` init (bitwise); the mesh store (the table
+    and the pulled rows CUDA tensors, 1 worker twice bitwise, 2 workers
+    BSP at the bar, a store rebuilt over its WAL bitwise and
+    ``verify_against_log()``).  A worker's round is split into pull, step
+    and push in a separate range run, whose timers would slow the counted
+    ones.  No kernel of the port launches: the cluster takes the store's
+    ``"xla"`` arm, as the reference does."""
+    import shutil
+    import tempfile
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+    from flink_parameter_server_tpu_torch.meshstore import MeshParamStore
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization, SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.telemetry.profiler import PhaseProfiler, set_profiler
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    t_phase = time.perf_counter()
+    stream = zipf_stream(9, CLUSTER_ROUNDS)
+    init = ranged_random_factor(1, (DIM_UNFUSED,))  # ps_online_mf's item init (seed + 1)
+    pulled_on, timed = [], {}
+
+    class Logic(OnlineMatrixFactorization):
+        def step(self, state, batch, pulled):
+            pulled_on.append(pulled.device.type if isinstance(pulled, torch.Tensor) else "host")
+            if "step" not in timed:
+                return super().step(state, batch, pulled)
+            t0 = time.perf_counter()
+            out = super().step(state, batch, pulled)
+            torch.cuda.synchronize()
+            timed["step"].append(time.perf_counter() - t0)
+            return out
+
+    def logic(dtype=torch.float32):
+        return Logic(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), dtype=dtype, device=dev)
+
+    def run(what, registry=False, init_fn=init, hook=None, inspect=None, **cfg):
+        driver = ClusterDriver(logic(), capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=init_fn,
+                               config=ClusterConfig(**cfg), registry=registry, device=dev)
+        with driver:
+            if inspect is not None:
+                inspect(driver)
+            r = driver.run(stream, round_hook=None if hook is None else (lambda w, t: hook(driver, w, t)))
+            if cfg.get("store_backend") == "mesh" and cfg.get("wal_dir"):
+                check(driver.mesh_store.verify_against_log(), f"{what}: verify_against_log() is False")
+        rate = f"{r.rounds / r.wall_s:.2f} rounds/s, {r.updates_per_sec:.0f} updates/s"
+        print(f"cluster: {what}: {r.rounds} rounds in {r.wall_s:.3f} s: {rate}; {card}")
+        return r
+
+    def on_card(what, tensors):
+        check(all(t.device.type == dev.type for t in tensors), f"{what}: not every table is on {dev.type}")
+
+    failures = []
+
+    def at_bar(what, vals):
+        err = float(np.abs(vals.astype(np.float64) - base).max())
+        ok = bool(np.allclose(vals, base, **CLUSTER_BAR))
+        print(f"cluster: {what} against the single-process table: max_abs_err={err:.3e} "
+              f"(rtol=1e-4 atol=1e-6) {'ok' if ok else 'BREAKS THE BAR'}")
+        if not ok:
+            failures.append(what)
+
+    def bitwise(what, a, b):
+        same = a.tobytes() == b.tobytes()
+        print(f"cluster: {what}: {'bitwise equal' if same else 'DIFFER'}")
+        check(same, f"{what} are not bitwise equal")
+
+    zero_counts()
+    # the single-process table: the same logic, init and stream (timed
+    # the second time)
+    store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, device=dev)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = transform_batched(stream, logic(), store, dump_model=False, collect_outputs=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    base = single.store.values().cpu().numpy()
+    del single, store
+    print(f"cluster: single-process transform_batched: {CLUSTER_ROUNDS} rounds in {wall:.3f} s: "
+          f"{CLUSTER_ROUNDS / wall:.2f} rounds/s, {CLUSTER_ROUNDS * BATCH / wall:.0f} updates/s; {card}")
+    check(bool(np.isfinite(base).all()), "the single-process table is not finite")
+
+    tables = {}
+    for part in ("range", "hash"):
+        what = f"socket {part} BSP {CLUSTER_SHARDS}x{CLUSTER_WORKERS}"
+        prof = PhaseProfiler(MetricsRegistry(), reservoir=1 << 16)
+        marks = {}
+
+        def inspect(d, what=what, prof=prof, marks=marks):
+            on_card(what, [s.store.table for s in d.shards])
+            dump = d.final_values
+
+            def final_values():  # mark where the training rounds' frames end
+                marks.update({v: len(prof._site(v, "rtt")[1]) for v in ("pull", "push")})
+                return dump()
+
+            d.final_values = final_values
+
+        set_profiler(prof)  # the clients time their frames on it
+        try:
+            r = run(what, registry=MetricsRegistry(), num_shards=CLUSTER_SHARDS, num_workers=CLUSTER_WORKERS,
+                    staleness_bound=0, partition=part, inspect=inspect)
+        finally:
+            set_profiler(None)
+        pull, push = _percentiles(prof, "pull", marks["pull"]), _percentiles(prof, "push", marks["push"])
+        if part == "range":
+            for verb in ("pull", "push"):
+                b = prof.budget(verb)
+                print(f"cluster: {what}: {verb} frame phases, mean ms over {b['rounds']} frames: " + ", ".join(
+                    f"{ph['phase']} {ph['mean_ms']:.3f}" for ph in b["phases"]) + f"; {card}")
+        rebuilds = sum(s["mirror_rebuilds"] for s in r.shard_stats)
+        rebuild_s = sum(s["mirror_rebuild_s"] for s in r.shard_stats)
+        print(f"cluster: {what}: client round trip a frame, pull p50 {pull[0]:.3f} ms p99 {pull[1]:.3f} ms, "
+              f"push p50 {push[0]:.3f} ms p99 {push[1]:.3f} ms; host-mirror rebuild "
+              f"{rebuild_s / max(1, rebuilds) * 1e3:.3f} ms each ({rebuilds} rebuilds, one copy of a "
+              f"{NUM_ITEMS // CLUSTER_SHARDS}-row slice off the card); {card}")
+        check(r.clock["clocks"] == [CLUSTER_ROUNDS] * CLUSTER_WORKERS and r.clock["staleness"] == 0,
+              f"{what}: the clock did not run BSP: {r.clock}")
+        tables[what] = r.values
+        at_bar(what, r.values)
+
+    # a round's parts, timed in a run of their own: the timers and the
+    # synchronize after each step would slow the counted runs above
+    def time_parts(d):
+        timed.update(step=[], pull=[], push=[])
+        for c in d._clients:
+            for verb in ("pull", "push"):
+                fn = getattr(c, f"{verb}_batch")
+
+                def call(*a, fn=fn, verb=verb, **k):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    timed[verb].append(time.perf_counter() - t0)
+                    return out
+
+                setattr(c, f"{verb}_batch", call)
+
+    what = f"socket range BSP {CLUSTER_SHARDS}x{CLUSTER_WORKERS}, a round's parts timed"
+    r = run(what, num_shards=CLUSTER_SHARDS, num_workers=CLUSTER_WORKERS, staleness_bound=0, inspect=time_parts)
+    n = CLUSTER_ROUNDS * CLUSTER_WORKERS
+    parts = {k: sum(v[:n]) / n * 1e3 for k, v in timed.items()}
+    timed.clear()
+    rest = r.wall_s / CLUSTER_ROUNDS * 1e3 - sum(parts.values())  # the workers run side by side
+    print(f"cluster: {what}: a worker's round, means over {n}: pull_batch {parts['pull']:.3f} ms, step "
+          f"{parts['step']:.3f} ms (to its end on the card), push_batch {parts['push']:.3f} ms, the rest "
+          f"(batch copy, keys, barrier, clock) {rest:.3f} ms; {card}")
+    at_bar(what, r.values)
+
+    one = run("socket 1 worker", num_shards=CLUSTER_SHARDS, num_workers=1).values
+    bitwise("socket 1-worker runs", one, run("socket 1 worker, again", num_shards=CLUSTER_SHARDS,
+                                            num_workers=1).values)
+    tmp = tempfile.mkdtemp(prefix="cluster-", dir=os.path.join(REPO, "build"))
+    try:
+        def crash(driver, w, t):
+            if t == CLUSTER_CRASH_ROUND:
+                driver.shards[1].crash()
+
+        r = run(f"socket 1 worker, shard 1 crashed at round {CLUSTER_CRASH_ROUND}", hook=crash,
+                num_shards=CLUSTER_SHARDS, num_workers=1, wal_dir=os.path.join(tmp, "socket"))
+        check(r.shard_stats[1]["restarts"] == 1, f"the crashed shard restarted {r.shard_stats[1]['restarts']} times")
+        bitwise("crash -> supervised restart -> WAL replay against the uninterrupted run", r.values, one)
+
+        held = {}
+
+        def hold(driver, w, t):
+            if w == 0 and t == 1:  # worker 0 waits until worker 1 is blocked at the bound
+                clock, deadline = driver.clock, time.monotonic() + 120
+                while not (clock.clocks()[1] == 1 + CLUSTER_SSP_BOUND + 1 and clock.block_counts[1]):
+                    check(time.monotonic() < deadline, "SSP: the fast worker never reached the bound")
+                    time.sleep(0.001)
+                held["lead"] = clock.clocks()[1] - 1 - clock.clocks()[0]  # rounds started ahead
+                held["gauge"] = clock.staleness()
+                time.sleep(0.05)
+                held["after"] = clock.clocks()[1]
+
+        r = run(f"socket SSP bound {CLUSTER_SSP_BOUND}, worker 0 held at round 1", hook=hold,
+                num_shards=CLUSTER_SHARDS, num_workers=2, staleness_bound=CLUSTER_SSP_BOUND)
+        print(f"cluster: SSP: the fast worker started at most {held['lead']} rounds ahead and stopped "
+              f"(staleness gauge {held['gauge']}, completed rounds then {held['after']}); "
+              f"blocks {r.clock['block_counts']}")
+        check(held["lead"] == CLUSTER_SSP_BOUND and held["gauge"] == CLUSTER_SSP_BOUND + 1
+              and held["after"] == 1 + CLUSTER_SSP_BOUND + 1, f"SSP bound not held: {held}")
+        check(r.clock["clocks"] == [CLUSTER_ROUNDS] * 2, f"the SSP run did not complete: {r.clock}")
+        check(bool(np.isfinite(r.values).all()), "the SSP table is not finite")
+        r = run("socket async", num_shards=CLUSTER_SHARDS, num_workers=2, staleness_bound=None)
+        check(r.clock["block_counts"] == [0, 0] and r.clock["clocks"] == [CLUSTER_ROUNDS] * 2,
+              f"the async run blocked or stopped: {r.clock}")
+        check(bool(np.isfinite(r.values).all()), "the async table is not finite")
+
+        procs = run(f"{CLUSTER_PROCS} shard processes, 1 worker", num_shards=CLUSTER_PROCS, num_workers=1,
+                    shard_procs=True, proc_init=CLUSTER_PROC_INIT, init_fn=None)
+        check([s["backend"] for s in procs.shard_stats] == ["numpy"] * CLUSTER_PROCS,
+              "the shard processes do not run the numpy slice")
+        threads = run(f"{CLUSTER_PROCS} shard threads, 1 worker", num_shards=CLUSTER_PROCS, num_workers=1,
+                      proc_init=CLUSTER_PROC_INIT, init_fn=None,
+                      inspect=lambda d: on_card("thread shards", [s.store.table for s in d.shards]))
+        bitwise("shard processes against shard threads", procs.values, threads.values)
+
+        del pulled_on[:]
+        reg = MetricsRegistry()
+        mesh = run("mesh 1 worker", registry=reg, store_backend="mesh", num_shards=CLUSTER_SHARDS,
+                   num_workers=1, inspect=lambda d: on_card("mesh", [d.mesh_store.table]))
+        check(set(pulled_on) == {dev.type}, f"the mesh handed the step rows on {set(pulled_on)}")
+        scatter = [i for i in reg.instruments() if i.name == "meshstore_scatter_seconds"][0]
+        gather = [i for i in reg.instruments() if i.name == "meshstore_gather_seconds"][0]
+        print(f"cluster: mesh scatter {scatter.sum / scatter.count * 1e3:.3f} ms a push ({scatter.count}), "
+              f"gather {gather.sum / gather.count * 1e3:.3f} ms a pull ({gather.count}), each to the end of "
+              f"its device work; {card}")
+        wal = os.path.join(tmp, "mesh")
+        again = run("mesh 1 worker, again, over a WAL", store_backend="mesh", num_shards=CLUSTER_SHARDS,
+                    num_workers=1, wal_dir=tmp)
+        bitwise("mesh 1-worker runs", mesh.values, again.values)
+        rebuilt = MeshParamStore(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, wal_dir=wal, registry=False, device=dev)
+        bitwise("a MeshParamStore rebuilt over the WAL against the run", rebuilt.values(), again.values)
+        check(rebuilt.verify_against_log(), "the rebuilt mesh store fails verify_against_log()")
+        rebuilt.close()
+        r = run(f"mesh BSP {CLUSTER_WORKERS} workers", store_backend="mesh", num_shards=CLUSTER_SHARDS,
+                num_workers=CLUSTER_WORKERS)
+        tables[f"mesh BSP {CLUSTER_WORKERS} workers"] = r.values
+        at_bar(f"mesh BSP {CLUSTER_WORKERS} workers", r.values)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    read_counts("cluster", {})
+    if failures:
+        _f64_errors(torch, dev, stream, init, logic, tables, base)
+    check(not failures, f"the cluster arms {failures} break the reference's bar (rtol 1e-4, atol 1e-6)")
+    print(f"cluster: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -2048,6 +2349,7 @@ def main() -> int:
         phase_driver(torch, dev, card)
         phase_serving(torch, dev, card)
         wl_rows, wl_traces = phase_workloads(torch, dev, card)
+        phase_cluster(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

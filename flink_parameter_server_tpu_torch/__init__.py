@@ -17,7 +17,11 @@ count-min / Bloom / tug-of-war sketches, word2vec SGNS and the
 factorization machine; the event API (``WorkerLogic``,
 ``ParameterServerLogic``, ``transform`` with ``param_init`` /
 ``param_update``) runs the reference system's per-record callbacks on the
-host.  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+host.  The parameter-server cluster (``cluster/``, ``meshstore/``) runs
+the same batched logics against key-partitioned shards behind TCP
+servers, each slice a tensor on the card, or against one table tensor on
+the card (``store_backend="mesh"``), under a BSP / SSP / async clock.
+Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
 
 Quickstart::
@@ -65,6 +69,14 @@ and the event API::
     result = transform(records, MyWorkerLogic, param_init=lambda k: 0.0,
                        param_update=lambda cur, delta: cur + delta)
 
+and a 4-shard, 2-worker BSP cluster over TCP (or ``store_backend="mesh"``)::
+
+    from flink_parameter_server_tpu_torch import ClusterConfig, ClusterDriver
+    with ClusterDriver(logic, capacity=num_items, value_shape=(dim,),
+                       init_fn=init, config=ClusterConfig(
+                           num_shards=4, num_workers=2, staleness_bound=0)) as d:
+        result = d.run(batches)          # result.values: the final table
+
 and one that answers queries while it trains::
 
     service = driver.serve_with(publish_every=4)
@@ -72,6 +84,16 @@ and one that answers queries while it trains::
     ...                                  # driver.run(batches) in a thread
     answer = client.top_k(user, k=10)    # .item_ids, .scores, .staleness
 """
+from .cluster import (
+    ClusterClient,
+    ClusterConfig,
+    ClusterDriver,
+    ConsistentHashPartitioner,
+    ParamShard,
+    RangePartitioner,
+    ShardServer,
+    StalenessClock,
+)
 from .core.api import (
     ParameterServer,
     ParameterServerClient,
@@ -149,6 +171,14 @@ __all__ = [
     "flash_mha",
     "ShardedParamStore",
     "StoreSpec",
+    "ClusterClient",
+    "ClusterConfig",
+    "ClusterDriver",
+    "ConsistentHashPartitioner",
+    "ParamShard",
+    "RangePartitioner",
+    "ShardServer",
+    "StalenessClock",
     "TransformResult",
     "make_scan_train_step",
     "make_train_step",

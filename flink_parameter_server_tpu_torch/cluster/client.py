@@ -1,0 +1,1040 @@
+"""ClusterClient — the worker side of the multi-shard runtime.
+
+A copy of ``flink_parameter_server_tpu/cluster/client.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.  Only the static client is ported: a fixed list of shard
+addresses under one partitioner.  The reference's ``membership`` (elastic
+re-routing and its retry loop), ``replicas`` (replica-chain reads),
+``hedge`` / ``push_hedge`` and ``hotcache`` (the lease cache) wait for
+elastic/, replication/ and hotcache/ (ROADMAP Queue 1 #7), and
+``wire_proto="shm"`` for shmem/.
+
+Implements the :class:`~..core.api.ParameterServerClient` ABC against
+real shard sockets, plus the batch surface the compiled path uses.
+Three bandwidth levers from the reference's sender stack
+(SURVEY.md §2 #6), rebuilt for the wire:
+
+  * **request coalescing** — duplicate ids inside one microbatch
+    collapse to one pull per id (:func:`~..ops.dedup.coalesce_ids`);
+    a Zipf-hot item appearing 300× per batch costs one line, and the
+    answer scatters back to every lane via the inverse map;
+  * **delta aggregation** — duplicate-id push deltas are summed before
+    the bytes move (:func:`~..ops.dedup.aggregate_deltas`) — exactly
+    the store's intra-batch combine semantics, applied at the sender;
+  * **pipelined pulls with an in-flight window** — each shard
+    connection carries up to ``window`` outstanding request frames
+    (responses come back in order, the line-protocol contract), so the
+    client overlaps shard round trips instead of paying RTT per chunk.
+    The live window usage is the ``inflight_pulls`` gauge
+    (``component=cluster``) — the same observability the event API's
+    pull limiter got (:func:`~..core.api.add_pull_limiter`).
+
+Shards are contacted concurrently (persistent fan-out pool workers —
+:class:`_FanoutPool`; nothing is spawned per batch): a pull's wall
+time is the SLOWEST shard's round trip, not the sum.
+
+Binary framing (``wire_proto="auto"``, the default — docs/cluster.md
+"Binary framing"): each connection opens with the ``hello bin v=1``
+handshake; against a binary-capable server the data plane then moves
+raw ``<i8`` ids and raw fp32 (or opt-in bf16, ``wire_format="bf16"``)
+rows in length-prefixed frames — no base64, no ``repr()`` — while an
+old server's ``err bad-request`` leaves that connection on the line
+protocol (``wire_proto="line"`` never negotiates: the compat
+baseline).  ``pr=`` priority and ``t=`` trace tokens ride the frames
+(header fields + TLVs).  ``spawn_grace_s`` bounds a dial-retry window
+for REFUSED connects — a just-spawned shard process (cluster/procs.py)
+racing its own bind is liveness, not a failure.
+
+Overload control (loadgen/overload.py, docs/loadgen.md): a
+``breakers`` board keys one circuit breaker per shard: enough
+transport/shed failures inside the window OPEN the circuit and this
+client's frames to that shard fail fast with no wire traffic until a
+half-open probe succeeds.  A shard's ``err overloaded`` shed answer
+raises the typed ``OverloadedError`` immediately — shed traffic is
+badput to count, never a replay.  ``priority=`` tags every frame
+``pr=<n>`` so the shard edge sheds serving reads before training
+pushes.
+
+Pull RTT lands in a ``cluster_pull_rtt_seconds`` histogram per client
+(p99 is the benchmark's tail-latency column).
+"""
+from __future__ import annotations
+
+import contextlib
+import socket
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..core.api import ParameterServerClient
+from ..loadgen.overload import OverloadedError
+from ..ops.dedup import aggregate_deltas, coalesce_ids
+from ..telemetry.distributed import TraceContext, new_trace
+from ..telemetry.profiler import NULL_PROFILER, resolve_profiler
+from ..telemetry.spans import gen_id
+from ..utils import frames as binf
+from ..utils.net import (
+    PeerHalfClosed,
+    _safe_verb,
+    client_meter,
+    count_half_closed,
+)
+from .partition import Partitioner
+from .shard import format_rows, parse_rows
+
+_NULL_CM = contextlib.nullcontext()
+
+
+class ShardConnection:
+    """One pipelined connection to one shard — line protocol, binary
+    frames (utils/frames.py), or both mixed.
+
+    ``request_many`` keeps up to ``window`` requests outstanding; the
+    shard answers in order, so responses re-associate positionally.
+    Each request is self-describing: a ``str`` goes out as a text line
+    (answered by a text line), ``bytes`` as a binary frame (answered
+    by a binary frame decoded into a :class:`~..utils.frames.Frame`) —
+    which is what lets the data plane go binary while control verbs
+    (``stats``/``flush``) stay greppable text on the SAME connection.
+
+    ``negotiate=True`` sends the ``hello bin v=1`` handshake at dial
+    time; :attr:`proto` is then ``"bin"`` against a binary-capable
+    server and ``"line"`` against an old one (which answered ``err
+    bad-request`` — the downgrade path, docs/cluster.md).  Callers
+    must not send binary frames on a ``"line"`` connection.
+
+    Not thread-safe — each worker owns its connections (the driver
+    builds one client per worker).
+    """
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        *,
+        window: int = 8,
+        timeout: float = 30.0,
+        connect_timeout: Optional[float] = None,
+        negotiate: bool = False,
+    ):
+        # dial and read deadlines are separate levers (failover-grade
+        # failure detection needs a tight dial even when reads may
+        # legitimately wait); None inherits the read timeout, capped
+        # at the old 10 s dial default
+        if connect_timeout is None:
+            connect_timeout = min(float(timeout), 10.0)
+        if window < 1:
+            raise ValueError(f"window={window}: must be >= 1")
+        self.host, self.port = host, port
+        self.window = int(window)
+        self._sock = socket.create_connection(
+            (host, port), timeout=connect_timeout
+        )
+        self._sock.settimeout(timeout)
+        try:
+            # pipelined request frames must leave NOW, not after Nagle
+            # pairs them with a delayed ACK (~40 ms/frame otherwise)
+            self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            pass
+        self._rfile = self._sock.makefile("rb")
+        self.inflight = 0
+        self.requests_sent = 0
+        self.proto = "line"
+        # quantized encodings the peer advertised on its hello answer
+        # (frames.hello_encs): empty until negotiated; a bin server
+        # without the enc= token is assumed bf16-only (PR-13 era) and
+        # q8 frames downgrade to exact f32 on this connection
+        self.encs: frozenset = frozenset()
+        # client-role wire ledger (utils/net.py): bytes/frames per
+        # verb, each direction — the other endpoint of the shard
+        # servers' accounting
+        self._meter = client_meter()
+        if negotiate:
+            self._negotiate()
+
+    def _negotiate(self) -> None:
+        """The per-connection binary handshake: one text round trip at
+        dial time.  ``ok proto=bin`` upgrades; anything else (an old
+        server's ``err bad-request``) leaves the connection on the
+        line protocol — never an error."""
+        resp = self.request_many([binf.HELLO_LINE])[0]
+        if isinstance(resp, str) and resp.startswith("ok proto=bin"):
+            self.proto = "bin"
+            self.encs = binf.hello_encs(resp)
+
+    def _read_exact(self, n: int, what: str) -> bytes:
+        """Exactly ``n`` bytes off the buffered reader, or
+        :class:`PeerHalfClosed` — a short read at EOF is the binary
+        twin of the torn line frame (the peer died mid-frame)."""
+        data = self._rfile.read(n)
+        if data is None:
+            data = b""
+        if len(data) != n:
+            count_half_closed("client")
+            raise PeerHalfClosed(
+                f"shard {self.host}:{self.port} closed mid-{what} "
+                f"({len(data)}/{n} bytes)"
+            )
+        return data
+
+    def _read_bin_response(self):
+        hdr = self._read_exact(binf.HEADER_SIZE, "frame header")
+        total = binf.frame_length(hdr)
+        body = self._read_exact(total - binf.HEADER_SIZE, "frame body")
+        # decode_split keeps header and body separate — joining them
+        # would copy the whole row payload just to view into it
+        frame = binf.decode_split(hdr, body, kind="response")
+        self._meter.count("in", frame.verb_name, total)
+        return frame
+
+    def request_many(self, lines: Sequence) -> List:
+        """Pipelined request/response: send up to ``window`` requests
+        ahead of the reads, return one response per request —
+        positionally, ``str`` for text lines, decoded
+        :class:`~..utils.frames.Frame` for binary frames."""
+        out: List = []
+        pending = 0
+        pending_meta: List[Tuple[str, str]] = []  # (framing, verb)
+        it = iter(lines)
+        sent = 0
+        total = len(lines)
+        while sent < total or pending:
+            while pending < self.window and sent < total:
+                req = next(it)
+                if isinstance(req, (bytes, bytearray, memoryview)):
+                    data = bytes(req)
+                    verb = binf.peek_verb_name(data)
+                    framing = "bin"
+                else:
+                    data = req.encode("utf-8") + b"\n"
+                    verb = _safe_verb(req)
+                    framing = "line"
+                self._sock.sendall(data)
+                self._meter.count("out", verb, len(data))
+                pending_meta.append((framing, verb))
+                pending += 1
+                sent += 1
+                self.inflight = pending
+                self.requests_sent += 1
+            framing, verb = pending_meta.pop(0)
+            if framing == "bin":
+                out.append(self._read_bin_response())
+                pending -= 1
+                self.inflight = pending
+                continue
+            raw = self._rfile.readline()
+            if not raw or not raw.endswith(b"\n"):
+                # empty read = peer half-close: the shard is GONE (died,
+                # was replaced, RST mid-frame), not merely slow — a slow
+                # shard surfaces as socket.timeout from the readline.
+                # A NON-EMPTY read without its newline is the same event
+                # one packet earlier: the peer died MID-FRAME and
+                # readline returned the torn prefix at EOF — treating
+                # that prefix as a response line would hand a truncated
+                # payload to the parser (or worse, a truncated "ok ..."
+                # to _check_ok).  Distinct type + counted, so the
+                # operator can tell a dead peer from a slow one.
+                count_half_closed("client")
+                raise PeerHalfClosed(
+                    f"shard {self.host}:{self.port} closed mid-pipeline "
+                    f"({len(out)}/{total} responses"
+                    + (", torn frame" if raw else "") + ")"
+                )
+            self._meter.count("in", verb, len(raw))
+            out.append(raw.decode("utf-8", "replace").rstrip("\n"))
+            pending -= 1
+            self.inflight = pending
+        return out
+
+    def request(self, line: str) -> str:
+        return self.request_many([line])[0]
+
+    def close(self) -> None:
+        try:
+            # a reader blocked in readline() holds the buffer lock;
+            # rfile.close() would wait on it — shutdown() first makes
+            # the reader return EOF and release it
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._rfile.close()
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+def _frame_status(resp) -> Optional[int]:
+    """The binary status code of a response, or None for text lines —
+    the one switch every classifier below branches on, so each check
+    reads identically over both framings."""
+    return resp.flag if isinstance(resp, binf.Frame) else None
+
+
+def _describe(resp) -> str:
+    if isinstance(resp, binf.Frame):
+        detail = resp.tlv_str(binf.T_ERR) or ""
+        return f"err {resp.status_name}" + (f": {detail}" if detail else "")
+    return resp
+
+
+def _check_ok(resp, what: str):
+    status = _frame_status(resp)
+    if status is not None:
+        if status != binf.STATUS_OK:
+            raise RuntimeError(f"{what} failed: {_describe(resp)}")
+        return resp
+    if not resp.startswith("ok"):
+        raise RuntimeError(f"{what} failed: {resp}")
+    return resp
+
+
+def _is_overloaded(resp) -> bool:
+    """The shard's typed shed answer (loadgen/overload.py
+    ``OverloadGuard``): the request was REJECTED under load pressure,
+    deliberately and cheaply.  The client fails fast with
+    :class:`~..loadgen.overload.OverloadedError` — retrying a shed
+    would feed exactly the storm the shed exists to stop."""
+    status = _frame_status(resp)
+    if status is not None:
+        return status == binf.STATUS_OVERLOADED
+    return resp.startswith("err overloaded")
+
+
+class _PoolWorker:
+    """One persistent fan-out thread (see :class:`_FanoutPool`).
+    Job hand-off state is guarded by ``_lock`` (the condition shares
+    it)."""
+
+    def __init__(self, name: str):
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._job = None
+        self._stopped = False
+        self._thread = threading.Thread(
+            target=self._loop, name=name, daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, fn, errors, errors_lock) -> threading.Event:
+        done = threading.Event()
+        with self._lock:
+            self._job = (fn, errors, errors_lock, done)
+            self._cond.notify()
+        return done
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while self._job is None and not self._stopped:
+                    self._cond.wait(0.2)
+                if self._stopped:
+                    return
+                fn, errors, errors_lock, done = self._job
+                self._job = None
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised by run()
+                with errors_lock:
+                    errors.append(e)
+            finally:
+                done.set()
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            self._cond.notify()
+        self._thread.join(timeout=5)
+
+
+class _FanoutPool:
+    """Persistent threads for the client's per-shard fan-out.
+
+    The batch surface used to SPAWN a fresh thread per contacted shard
+    per ``pull_batch``/``push_batch`` call — ~100 µs of create/start
+    per shard per round, paid thousands of times a second, plus a cold
+    scheduler wakeup right on the latency path.  A client makes the
+    same-shaped fan-out call every round of its life, so the threads
+    are now long-lived: one fan-out runs ``len(jobs)-1`` jobs on pool
+    workers and the LAST one inline on the calling thread (on a busy
+    host that is one fewer handoff on the critical path).  Not
+    thread-safe — owned by one client, which is itself single-caller
+    by contract."""
+
+    def __init__(self, name: str = "fps-fanout"):
+        self._name = name
+        self._workers: List[_PoolWorker] = []
+
+    def run(self, jobs) -> None:
+        if not jobs:
+            return
+        if len(jobs) == 1:
+            jobs[0]()
+            return
+        errors: List[BaseException] = []
+        lock = threading.Lock()
+        while len(self._workers) < len(jobs) - 1:
+            self._workers.append(_PoolWorker(
+                f"{self._name}-{len(self._workers)}"
+            ))
+        waits = [
+            w.submit(fn, errors, lock)
+            for w, fn in zip(self._workers, jobs[:-1])
+        ]
+        try:
+            jobs[-1]()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            with lock:
+                errors.append(e)
+        for done in waits:
+            done.wait()
+        if errors:
+            raise errors[0]
+
+    def close(self) -> None:
+        """Join every worker — a closed client must leak no package
+        threads."""
+        for w in self._workers:
+            w.stop()
+        self._workers = []
+
+
+class ClusterClient(ParameterServerClient):
+    """Worker-side handle over every shard.
+
+    Batch surface (the compiled path): :meth:`pull_batch` /
+    :meth:`push_batch` — coalesced, pipelined, shard-parallel.
+    Event surface (the ABC): :meth:`pull` buffers the id, :meth:`push`
+    buffers the delta; :meth:`drain` flushes both coalesced and
+    delivers pull answers to a callback — the combination-sender
+    semantics per worker.
+    """
+
+    def __init__(
+        self,
+        addresses: Sequence[Tuple[str, int]],
+        partitioner: Partitioner,
+        value_shape: Sequence[int] = (),
+        *,
+        window: int = 8,
+        chunk: int = 512,
+        timeout: float = 30.0,
+        connect_timeout: float = 5.0,
+        wire_format: str = "b64",
+        wire_proto: str = "auto",
+        spawn_grace_s: float = 0.0,
+        registry=None,
+        worker: Optional[str] = None,
+        breakers=None,
+        priority: Optional[int] = None,
+        tracer=None,
+        profiler=None,
+    ):
+        if len(addresses) != partitioner.num_shards:
+            raise ValueError(
+                f"{len(addresses)} shard addresses for a "
+                f"{partitioner.num_shards}-shard partitioner"
+            )
+        self.partitioner = partitioner
+        self._addresses = [tuple(a) for a in addresses]
+        if chunk < 1:
+            raise ValueError(f"chunk={chunk}: must be >= 1")
+        if wire_format not in ("text", "b64", "bf16", "q8"):
+            raise ValueError(
+                f"wire_format={wire_format!r}: "
+                f"'text' | 'b64' | 'bf16' | 'q8'"
+            )
+        if wire_proto not in ("auto", "line", "shm"):
+            raise ValueError(
+                f"wire_proto={wire_proto!r}: 'auto' | 'line' | 'shm'"
+            )
+        if wire_proto == "shm":
+            raise NotImplementedError(
+                "wire_proto='shm': the shared-memory transport (shmem/) "
+                "is not ported yet (ROADMAP Queue 1 #7, shmem); use "
+                "'auto' (binary TCP) or 'line'"
+            )
+        self.value_shape = tuple(int(s) for s in value_shape)
+        self.chunk = int(chunk)
+        # b64 (default): exact fp32 bytes, ~100x cheaper than per-float
+        # text (shard.py module docstring); "text" for debuggability.
+        # Over the binary framing, "text"/"b64" both become raw fp32
+        # (exact); "bf16" halves row bytes (lossy, opt-in — falls back
+        # to b64 on a line-proto connection, which has no bf16).
+        self.wire_format = wire_format
+        # "auto": negotiate binary framing per connection (one hello
+        # round trip at dial time; an old server's err bad-request
+        # downgrades that connection to the line protocol).  "line":
+        # never negotiate — bit-for-bit the pre-binary client, the
+        # compat baseline the cross-version tests pin.
+        self._wire_proto = wire_proto
+        # spawn grace (cluster/procs.py): a just-spawned shard process
+        # may not have bound yet when its first dial arrives — retry
+        # REFUSED dials inside this window instead of failing
+        self._spawn_grace_s = float(spawn_grace_s)
+        self._window = int(window)
+        self._timeout = float(timeout)
+        self._connect_timeout = float(connect_timeout)
+        # overload control (loadgen/overload.py, docs/loadgen.md):
+        # breakers = per-shard circuit BreakerBoard (an open shard's
+        # frames fail fast without touching the wire); priority rides
+        # frames as pr=<n> so the shard-edge guard can shed serving
+        # traffic before training pushes
+        self.breakers = breakers
+        self._priority = None if priority is None else int(priority)
+        self._conns: Dict[Tuple[str, int], ShardConnection] = {}
+        # persistent per-shard fan-out threads (no per-batch spawns)
+        self._pool = _FanoutPool(
+            f"fps-fanout-{worker}" if worker is not None else "fps-fanout"
+        )
+        self.outputs: List[object] = []
+        self._pending_pulls: List[int] = []
+        self._pending_pushes: List[Tuple[int, np.ndarray]] = []
+        self.pulls_coalesced = 0  # duplicate lanes saved from the wire
+        self.pushes_coalesced = 0
+        self.rows_pushed = 0  # unique delta rows acked (the audit ledger)
+        # distributed tracing (telemetry/distributed.py): with a tracer
+        # attached, each pull/push batch becomes one trace, each shard
+        # request a child span whose id rides the frame as t=<tr>:<sp>
+        self._tracer = tracer
+        # unified plane (component=cluster): the pull RTT histogram and
+        # the live in-flight window gauge
+        if registry is not False:
+            from ..telemetry.registry import get_registry
+
+            reg = registry if registry is not None else get_registry()
+            labels = {"worker": worker} if worker is not None else {}
+            self._reg = reg
+            self._labels = dict(labels)
+            self._h_rtt = reg.histogram(
+                "cluster_pull_rtt_seconds", component="cluster", **labels
+            )
+            reg.gauge(
+                "inflight_pulls", component="cluster", fn=self.inflight,
+                **labels,
+            )
+        else:
+            self._reg = None
+            self._labels = {}
+            self._h_rtt = None
+        # per-SHARD pull RTT (timeline plane, docs/observability.md):
+        # the worker-labelled histogram above answers "is this worker
+        # slow"; these lazily-registered per-shard twins answer "WHICH
+        # shard is making it slow"
+        self._h_shard_rtt: Dict[int, Any] = {}
+        # latency-budget phases (telemetry/profiler.py): per-frame
+        # client serialize / round trip / parse — the client side of
+        # the budget.  registry=False implies profiling off too.
+        self._profiler = (
+            NULL_PROFILER if registry is False and profiler is None
+            else resolve_profiler(profiler)
+        )
+        # quantized delta push path (compression/, docs/compression.md):
+        # wire_format "q8"/"bf16" routes every push through an
+        # error-feedback DeltaCompressor — the table ALWAYS receives
+        # exactly the dequantized rows, over any framing (q8/bf16
+        # frames on advertising peers, exact f32 on old ones), so
+        # mixed fleets stay deterministic.  BSP carve-out is the
+        # DRIVER's job (bound-0 worker clients are built with "b64").
+        self._compressor = None
+        self._c_bytes_saved = None
+        if wire_format in ("q8", "bf16"):
+            from ..compression.quantizers import DeltaCompressor
+
+            self._compressor = DeltaCompressor(wire_format)
+            if self._reg is not None:
+                self._c_bytes_saved = self._reg.counter(
+                    "compression_bytes_saved_total",
+                    component="compression", **self._labels,
+                )
+                self._reg.gauge(
+                    "compression_residual_norm",
+                    component="compression",
+                    fn=self._compressor.residuals.norm, **self._labels,
+                )
+
+    # -- observability ------------------------------------------------------
+    def inflight(self) -> int:
+        """Outstanding pull/push frames across every shard connection —
+        the live pipelining depth (<= window × shards)."""
+        return sum(c.inflight for c in list(self._conns.values()))
+
+    # -- connections --------------------------------------------------------
+    def _dial(self, addr: Tuple[str, int]) -> ShardConnection:
+        """Dial one shard (negotiating the binary framing when
+        ``wire_proto="auto"``).  A REFUSED dial inside the spawn grace
+        window is retried with short sleeps: a shard process that was
+        just spawned races its own ``bind`` against the first dial,
+        and that race is liveness, not a failure."""
+        deadline = (
+            time.monotonic() + self._spawn_grace_s
+            if self._spawn_grace_s > 0 else None
+        )
+        while True:
+            try:
+                return ShardConnection(
+                    addr[0], addr[1], window=self._window,
+                    timeout=self._timeout,
+                    connect_timeout=self._connect_timeout,
+                    negotiate=self._wire_proto == "auto",
+                )
+            except ConnectionRefusedError:
+                if deadline is None or time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.02)
+
+    def _conn_for(self, shard: int) -> ShardConnection:
+        addr = self._addresses[shard]
+        conn = self._conns.get(addr)
+        if conn is None:
+            conn = self._dial(addr)
+            self._conns[addr] = conn
+        return conn
+
+    # -- the batch surface --------------------------------------------------
+    def _trace_root(self, name: str):
+        """``(ctx, span_cm)`` opening one distributed trace per logical
+        batch call — ``(None, nullcontext)`` when tracing is off."""
+        tr = self._tracer
+        if tr is None or not tr.enabled:
+            return None, _NULL_CM
+        ctx = new_trace()
+        return ctx, tr.span(
+            name, "cluster", trace_id=ctx.trace_id, span_id=ctx.span_id
+        )
+
+    def pull_batch(
+        self, ids, mask=None, *, dtype=np.float32
+    ) -> np.ndarray:
+        """Pull values for ``ids`` (any shape); returns
+        ``ids.shape + value_shape`` float32.  Duplicate ids cost one
+        wire request; per-shard traffic runs concurrently."""
+        ids_arr = np.asarray(ids)
+        unique, inverse = coalesce_ids(ids_arr, mask)
+        self.pulls_coalesced += int(ids_arr.size - unique.size)
+        width = int(np.prod(self.value_shape)) if self.value_shape else 1
+        flat = np.empty((unique.size, width), dtype)
+        ctx, root_span = self._trace_root("pull_batch")
+        with root_span:
+            def do(s, sids):
+                rows = self._pull_shard(s, sids, ctx)
+                flat[np.searchsorted(unique, sids)] = rows.reshape(
+                    len(sids), width
+                )
+
+            self._for_each_shard(self._split(unique), do)
+        out = flat.reshape(unique.shape + self.value_shape)
+        return out[inverse]
+
+    def push_batch(self, ids, deltas, mask=None) -> int:
+        """Aggregate duplicate-id deltas, push each shard's share (in
+        parallel, pipelined); returns unique ids pushed."""
+        ids_arr = np.asarray(ids)
+        unique, summed = aggregate_deltas(ids_arr, np.asarray(deltas), mask)
+        if unique.size == 0:
+            return 0
+        self.pushes_coalesced += int(
+            (ids_arr.size if mask is None else int(np.asarray(mask).sum()))
+            - unique.size
+        )
+        # quantize ONCE per logical batch (error feedback applied
+        # here): the delivered rows are the dequantized values,
+        # identical over every framing — the q sections are sliced per
+        # shard below
+        q_rows = q_scales = None
+        if self._compressor is not None:
+            summed, q_rows, q_scales = self._compressor.compress(
+                unique, summed
+            )
+            summed = summed.astype(np.float32)
+        ctx, root_span = self._trace_root("push_batch")
+        with root_span:
+            def do(s, sids):
+                # unique is sorted, so each shard's rows (and q
+                # sections) slice by a positional lookup
+                pos = np.searchsorted(unique, sids)
+                qr = qs = None
+                if q_rows is not None:
+                    qr, qs = q_rows[pos], q_scales[pos]
+                self._push_shard(
+                    s, sids, summed[pos], ctx, q_rows=qr, q_scales=qs,
+                )
+
+            self._for_each_shard(self._split(unique), do)
+        self.rows_pushed += int(unique.size)
+        return int(unique.size)
+
+    def flush(self) -> List[str]:
+        """FLUSH every shard (WAL fsync + ack) — the explicit durability
+        barrier a bound-0 round ends with when durability matters."""
+        return [
+            _check_ok(self._conn_for(s).request("flush"), f"flush shard {s}")
+            for s in range(self.partitioner.num_shards)
+        ]
+
+    def shard_stats(self) -> List[dict]:
+        import json
+
+        out = []
+        for s in range(self.partitioner.num_shards):
+            resp = _check_ok(
+                self._conn_for(s).request("stats"), f"stats shard {s}"
+            )
+            out.append(json.loads(resp[3:]))
+        return out
+
+    # -- the event-API surface (ParameterServerClient) ----------------------
+    def pull(self, param_id: int) -> None:
+        """Buffer a pull; answers arrive at the next :meth:`drain` —
+        the asynchronous contract of the ABC, with the microbatch as
+        the combination buffer."""
+        self._pending_pulls.append(int(param_id))
+
+    def push(self, param_id: int, delta) -> None:
+        self._pending_pushes.append((int(param_id), np.asarray(delta)))
+
+    def output(self, w_out) -> None:
+        self.outputs.append(w_out)
+
+    def drain(self, on_pull_recv=None) -> int:
+        """Flush buffered pushes (aggregated) and answer buffered pulls
+        (coalesced); ``on_pull_recv(param_id, value, client)`` is
+        invoked once per buffered pull, in buffering order.  Returns
+        the number of answers delivered."""
+        if self._pending_pushes:
+            ids = np.asarray([i for i, _ in self._pending_pushes], np.int64)
+            deltas = np.stack([d for _, d in self._pending_pushes])
+            self._pending_pushes = []
+            self.push_batch(ids, deltas)
+        n = 0
+        if self._pending_pulls:
+            ids = np.asarray(self._pending_pulls, np.int64)
+            self._pending_pulls = []
+            values = self.pull_batch(ids)
+            for i, pid in enumerate(ids):
+                if on_pull_recv is not None:
+                    on_pull_recv(int(pid), values[i], self)
+                n += 1
+        return n
+
+    def close(self) -> None:
+        for c in list(self._conns.values()):
+            c.close()
+        self._conns = {}
+        self._pool.close()
+
+    # -- internals ----------------------------------------------------------
+    def _split(self, unique_ids: np.ndarray) -> Dict[int, np.ndarray]:
+        shards = self.partitioner.shard_of(unique_ids)
+        return {
+            int(s): unique_ids[shards == s] for s in np.unique(shards)
+        }
+
+    def _for_each_shard(self, by_shard: Dict[int, np.ndarray], fn) -> None:
+        """Run ``fn(shard, ids)`` for every shard concurrently —
+        persistent pool workers for all but one, the last inline on
+        this thread (errors propagate to the caller; see
+        :class:`_FanoutPool` for why nothing is spawned here)."""
+        items = list(by_shard.items())
+        if len(items) == 1:
+            fn(*items[0])
+            return
+        self._pool.run([
+            (lambda s=s, sids=sids: fn(s, sids)) for s, sids in items
+        ])
+
+    def _frame_suffix(self) -> str:
+        if self._priority is None:
+            return ""
+        # overload-plane priority tag (loadgen/overload.py): the
+        # shard-edge guard sheds pr=2 (serving) traffic first and never
+        # sheds pr=0
+        return f" pr={self._priority}"
+
+    def _frame_trace(self, shard: int, name: str, ctx):
+        """Per-shard child span + the BARE trace token its id rides on
+        (``<trace>:<span>`` — the line protocol prefixes ``t=``, the
+        binary framing carries it as a ``T_TRACE`` TLV):
+        ``(token_or_None, span_cm)`` — empties when untraced."""
+        if ctx is None or self._tracer is None or not self._tracer.enabled:
+            return None, _NULL_CM
+        span_id = gen_id(4)
+        tok = TraceContext(ctx.trace_id, span_id).token()
+        cm = self._tracer.span(
+            f"{name}.shard{shard}", "cluster",
+            trace_id=ctx.trace_id, parent_id=ctx.span_id, span_id=span_id,
+        )
+        return tok, cm
+
+    def _request_frames(self, shard: int, build) -> List:
+        """Send one shard's frames, rendered by ``build(conn)`` for the
+        connection's negotiated protocol.  With a breaker board
+        attached, an OPEN shard's frames fail fast WITHOUT touching the
+        wire (the half-open probe is the only traffic an open shard
+        sees), and a transport failure counts against its breaker."""
+        board = self.breakers
+        if board is not None and not board.allow(shard):
+            raise RuntimeError(
+                f"shard {shard}: circuit open — frames fail fast until "
+                f"a half-open probe succeeds"
+            )
+        try:
+            conn = self._conn_for(shard)
+            resps = conn.request_many(build(conn))
+        except OSError:
+            # transport failure feeds the breaker (a dead/wedged shard
+            # opens its circuit after enough of these in the window)
+            if board is not None:
+                board.fail(shard)
+            raise
+        if board is not None:
+            board.ok(shard)
+        return resps
+
+    def _check_shed(self, resp, shard: int, what: str) -> None:
+        """A typed shed answer fails fast (count badput, never retry
+        the storm); the breaker sees it as a failure signal."""
+        if _is_overloaded(resp):
+            if self.breakers is not None:
+                self.breakers.fail(shard)
+            raise OverloadedError(f"{what} shard {shard}: {_describe(resp)}")
+
+    def _observe_shard_rtt(self, shard: int, per: float,
+                           frames: int) -> None:
+        """Per-shard twin of the ``cluster_pull_rtt_seconds``
+        observation: same value, extra ``shard=`` label, registered on
+        first traffic to that shard."""
+        if self._reg is None:
+            return
+        h = self._h_shard_rtt.get(shard)
+        if h is None:
+            h = self._reg.histogram(
+                "cluster_shard_rtt_seconds", component="cluster",
+                shard=str(shard), **self._labels,
+            )
+            self._h_shard_rtt[shard] = h
+        for _ in range(frames):
+            h.observe(per)
+
+    def _bin_enc(self) -> int:
+        """Row encoding for binary READ frames (pull answers): exact
+        fp32 unless the client opted into bf16 (half the row bytes,
+        lossy).  ``q8`` is a PUSH-delta codec only — absolute values
+        carry no residual to re-inject, so quantizing reads would be
+        silent corruption (docs/compression.md)."""
+        return (
+            binf.ENC_BF16 if self.wire_format == "bf16"
+            else binf.ENC_F32
+        )
+
+    @staticmethod
+    def _bin_tlvs(tok: Optional[str]):
+        """The frame TLVs mirroring the line protocol's trailing ``t=``
+        token (priority lives in the fixed header)."""
+        return [] if tok is None else [(binf.T_TRACE, tok.encode())]
+
+    def _parse_rows_any(self, resp, chunk, shard: int):
+        """One pull response's rows, either framing, length-checked."""
+        prof = self._profiler
+        if isinstance(resp, binf.Frame):
+            with prof.timer("pull", "client_parse"):
+                vals = binf.rows_from_payload(
+                    resp.payload, self.value_shape, resp.enc
+                )
+        else:
+            _, _, body = resp.partition(" ")
+            _, _, body = body.partition(" ")  # strip "n=<k>"
+            with prof.timer("pull", "client_parse"):
+                vals = parse_rows(body, self.value_shape)
+        if len(vals) != len(chunk):
+            raise RuntimeError(
+                f"shard {shard} answered {len(vals)} rows for "
+                f"{len(chunk)} ids (pull)"
+            )
+        return vals
+
+    def _pull_shard(
+        self, shard: int, ids: np.ndarray, ctx=None
+    ) -> np.ndarray:
+        chunks = [
+            ids[i: i + self.chunk] for i in range(0, len(ids), self.chunk)
+        ]
+        prof = self._profiler
+        tok, span_cm = self._frame_trace(shard, "pull", ctx)
+        ser_cell = [0.0]
+
+        def build(conn) -> List:
+            """Requests for this connection's protocol — binary frames
+            (raw i8 ids + fp32/bf16 rows, options as TLVs) on a
+            negotiated connection, text lines otherwise."""
+            t_ser = time.perf_counter()
+            if conn.proto != "line":
+                enc = self._bin_enc()
+                tlvs = self._bin_tlvs(tok)
+                reqs = [
+                    binf.encode_request(
+                        binf.VERB_IDS["pull"], ids=c, enc=enc,
+                        priority=self._priority, tlvs=tlvs,
+                    )
+                    for c in chunks
+                ]
+            else:
+                suffix = self._frame_suffix() + (
+                    " t=" + tok if tok is not None else ""
+                )
+                reqs = [
+                    "pull " + ",".join(str(int(i)) for i in c)
+                    + (" text" if self.wire_format == "text" else " b64")
+                    + suffix
+                    for c in chunks
+                ]
+            ser_cell[0] = (
+                (time.perf_counter() - t_ser) / max(1, len(reqs))
+            )
+            return reqs
+
+        # the pull.shard<k> span covers the WHOLE per-shard round —
+        # serialize, wire round trip, response parse — which makes it
+        # the independent oracle the latency-budget phases (observed
+        # separately below) must sum to
+        rows = []
+        with span_cm:
+            t0 = time.perf_counter()
+            resps = self._request_frames(shard, build)
+            # one observation per chunk frame: the pipelined per-frame
+            # turnaround, amortised (total wall / frames); serialize
+            # time was measured inside the builder, net of the dial
+            per = (
+                (time.perf_counter() - t0) / max(1, len(resps))
+                - ser_cell[0]
+            )
+            for _ in resps:
+                if self._h_rtt is not None:
+                    self._h_rtt.observe(per)
+                prof.observe("pull", "rtt", per)
+                prof.observe("pull", "client_serialize", ser_cell[0])
+            self._observe_shard_rtt(shard, per, len(resps))
+            for resp, c in zip(resps, chunks):
+                self._check_shed(resp, shard, "pull")
+                _check_ok(resp, f"pull shard {shard}")
+                rows.append(self._parse_rows_any(resp, c, shard))
+        return np.concatenate(rows) if rows else np.empty(
+            (0,) + self.value_shape, np.float32
+        )
+
+    def _push_shard(
+        self,
+        shard: int,
+        ids: np.ndarray,
+        deltas: np.ndarray,
+        ctx=None,
+        q_rows: Optional[np.ndarray] = None,
+        q_scales: Optional[np.ndarray] = None,
+    ) -> None:
+        prof = self._profiler
+        tok, span_cm = self._frame_trace(shard, "push", ctx)
+        ser_cell = [0.0]
+
+        def build(conn) -> List:
+            t_ser = time.perf_counter()
+            if conn.proto != "line":
+                tlvs = self._bin_tlvs(tok)
+                if q_rows is not None and "q8" in conn.encs:
+                    # the quantized push path: int8 rows + a T_SCALE
+                    # TLV of the per-row f32 scales, per chunk.  The
+                    # rows the shard will apply are bitwise the
+                    # `deltas` (dq) rows — only the bytes differ.
+                    reqs = []
+                    saved = 0
+                    for i in range(0, len(ids), self.chunk):
+                        qc = np.ascontiguousarray(
+                            q_rows[i: i + self.chunk]
+                        )
+                        sc = np.ascontiguousarray(
+                            q_scales[i: i + self.chunk], "<f4"
+                        )
+                        reqs.append(binf.encode_request(
+                            binf.VERB_IDS["push"],
+                            ids=ids[i: i + self.chunk],
+                            payload=qc.tobytes(),
+                            enc=binf.ENC_Q8, priority=self._priority,
+                            tlvs=[(binf.T_SCALE, sc.tobytes())] + tlvs,
+                        ))
+                        saved += 3 * qc.size - sc.nbytes
+                    if self._c_bytes_saved is not None and saved > 0:
+                        self._c_bytes_saved.inc(saved)
+                    ser_cell[0] = (
+                        (time.perf_counter() - t_ser)
+                        / max(1, len(reqs))
+                    )
+                    return reqs
+                enc = (
+                    binf.ENC_BF16 if self.wire_format == "bf16"
+                    else binf.ENC_F32
+                )
+                reqs = [
+                    binf.encode_request(
+                        binf.VERB_IDS["push"],
+                        ids=ids[i: i + self.chunk],
+                        payload=binf.rows_to_payload(
+                            deltas[i: i + self.chunk], enc
+                        ),
+                        enc=enc, priority=self._priority, tlvs=tlvs,
+                    )
+                    for i in range(0, len(ids), self.chunk)
+                ]
+                if (
+                    enc == binf.ENC_BF16
+                    and self._c_bytes_saved is not None
+                ):
+                    # bf16 halves the row bytes vs f32
+                    self._c_bytes_saved.inc(
+                        2 * int(np.asarray(deltas).size)
+                    )
+            else:
+                suffix = self._frame_suffix() + (
+                    " t=" + tok if tok is not None else ""
+                )
+                fmt = (
+                    "text" if self.wire_format == "text" else "b64"
+                )
+                reqs = [
+                    "push "
+                    + ",".join(
+                        str(int(x)) for x in ids[i: i + self.chunk]
+                    )
+                    + " "
+                    + format_rows(deltas[i: i + self.chunk], fmt)
+                    + suffix
+                    for i in range(0, len(ids), self.chunk)
+                ]
+            ser_cell[0] = (
+                (time.perf_counter() - t_ser) / max(1, len(reqs))
+            )
+            return reqs
+
+        # like pull: the push.shard<k> span covers serialize + round
+        # trip, the same window the push phases decompose
+        with span_cm:
+            t0 = time.perf_counter()
+            resps = self._request_frames(shard, build)
+            per = (
+                (time.perf_counter() - t0) / max(1, len(resps))
+                - ser_cell[0]
+            )
+            for _ in resps:
+                prof.observe("push", "rtt", per)
+                prof.observe("push", "client_serialize", ser_cell[0])
+        for resp in resps:
+            self._check_shed(resp, shard, "push")
+            _check_ok(resp, f"push shard {shard}")
+
+
+__all__ = ["ClusterClient", "ShardConnection"]

@@ -1,0 +1,263 @@
+"""Deterministic key→shard maps for the multi-shard runtime.
+
+A copy of ``flink_parameter_server_tpu/cluster/partition.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.
+
+Reference parity: the reference routes every pull/push with
+``hash(paramId) % psParallelism`` (SURVEY.md §2 "Model parallelism") —
+total and balanced, but a resize moves almost every key.  The cluster
+runtime needs the routing decision on the HOST (the client picks a
+socket before any bytes move), deterministic across processes (client
+and shard must agree), and resize-friendly, so two maps are offered:
+
+  * :class:`RangePartitioner` — contiguous key ranges, shard ``i`` owns
+    ``[i·rows, (i+1)·rows)``.  This is the layout
+    :class:`~..core.store.StoreSpec` already gives a mesh-sharded table
+    (row-block sharding over the ``ps`` axis), so a cluster deployed
+    this way is byte-compatible with the single-process sharded store.
+    Locality-friendly (a presorted batch walks shards in order), but a
+    shard-count change moves every boundary.
+
+  * :class:`ConsistentHashPartitioner` — highest-random-weight
+    (rendezvous) hashing over the :func:`~..ops.hashing.fmix32_np`
+    family: ``shard(k) = argmax_s fmix32(mix(k, s, seed))``.  Total and
+    balanced like mod-hash, with the consistent-hash resize property in
+    its strongest form: when a shard is ADDED, every key either stays
+    exactly where it was or moves to the new shard — no key ever moves
+    between pre-existing shards (the invariant
+    ``tests/test_cluster.py`` property-checks).  Unlike a vnode ring
+    there is no placement table to ship: both ends recompute the map
+    from ``(num_shards, seed)``.
+
+Both expose the same surface: ``shard_of(ids)`` (vectorised),
+``owned_ids(shard)`` (the shard's global key slice, ascending — what a
+shard materialises its local table from), and ``to_local(shard, ids)``
+(global → dense local row, so every shard stores exactly its share of
+rows, not a full-capacity table).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..ops.hashing import fmix32_np
+
+_GOLDEN = np.uint32(0x9E3779B1)
+_SHARD_SALT = np.uint32(0x85EBCA6B)
+
+
+def mesh_row_block(capacity: int, n_devices: int, *, window: int = 8) -> int:
+    """Rows one mesh device owns when a ``capacity``-row table is
+    row-block sharded over ``n_devices`` — the same arithmetic as
+    :meth:`~..core.store.StoreSpec.rows_per_shard` (ceil split, then
+    rounded up to the pallas 8-row ``window``).  This is the unit
+    shard boundaries must land on for a range partition to coincide
+    with the device layout (see :meth:`RangePartitioner.block_aligned`)."""
+    if n_devices < 1:
+        raise ValueError(f"n_devices={n_devices}: must be >= 1")
+    per = -(-int(capacity) // int(n_devices))  # ceil
+    return -(-per // int(window)) * int(window)
+
+
+class Partitioner:
+    """Common surface of the two maps (duck-typed; this base holds the
+    local-id machinery both share)."""
+
+    capacity: int
+    num_shards: int
+
+    def shard_of(self, ids) -> np.ndarray:
+        raise NotImplementedError
+
+    # -- derived -----------------------------------------------------------
+    def owned_ids(self, shard: int) -> np.ndarray:
+        """ASCENDING global ids owned by ``shard`` (the shard's local
+        row order: local row ``j`` holds global id ``owned_ids(s)[j]``)."""
+        self._check_shard(shard)
+        all_ids = np.arange(self.capacity, dtype=np.int64)
+        return all_ids[self.shard_of(all_ids) == shard]
+
+    def shard_capacity(self, shard: int) -> int:
+        return len(self.owned_ids(shard))
+
+    def to_local(self, shard: int, ids) -> np.ndarray:
+        """Global ids → dense local rows on ``shard``.  Ids the shard
+        does not own raise — a mis-routed request is a protocol bug,
+        never something to absorb silently."""
+        self._check_shard(shard)
+        owned = self._owned_cache(shard)
+        ids = np.asarray(ids, np.int64)
+        local = np.searchsorted(owned, ids)
+        ok = (local < len(owned)) & (owned[np.minimum(local, len(owned) - 1)] == ids)
+        if not ok.all():
+            bad = ids[~ok]
+            raise KeyError(
+                f"ids {bad[:8].tolist()} not owned by shard {shard} "
+                f"(mis-routed request)"
+            )
+        return local.astype(np.int64)
+
+    def to_global(self, shard: int, local_ids) -> np.ndarray:
+        """Dense local rows on ``shard`` → global ids (inverse of
+        :meth:`to_local`)."""
+        owned = self._owned_cache(shard)
+        return owned[np.asarray(local_ids, np.int64)]
+
+    # -- plumbing ----------------------------------------------------------
+    def _check_shard(self, shard: int) -> None:
+        if not 0 <= shard < self.num_shards:
+            raise ValueError(
+                f"shard {shard} out of range [0, {self.num_shards})"
+            )
+
+    def _owned_cache(self, shard: int) -> np.ndarray:
+        cache = getattr(self, "_owned", None)
+        if cache is None:
+            cache = self._owned = {}
+        if shard not in cache:
+            cache[shard] = self.owned_ids(shard)
+        return cache[shard]
+
+
+class RangePartitioner(Partitioner):
+    """Contiguous ranges: shard ``i`` owns ``[i·rows, (i+1)·rows)`` with
+    ``rows = ceil(capacity / num_shards)`` — exactly the row-block split
+    :meth:`~..core.store.StoreSpec.rows_per_shard` gives the mesh-sharded
+    table, so range-clustered shards ARE the sharded store's blocks."""
+
+    def __init__(self, capacity: int, num_shards: int):
+        if capacity < 1:
+            raise ValueError(f"capacity={capacity}: must be >= 1")
+        if not 1 <= num_shards <= capacity:
+            raise ValueError(
+                f"num_shards={num_shards}: must be in [1, capacity={capacity}]"
+            )
+        self.capacity = int(capacity)
+        self.num_shards = int(num_shards)
+        self.rows_per_shard = -(-self.capacity // self.num_shards)  # ceil
+
+    def shard_of(self, ids) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        if ((ids < 0) | (ids >= self.capacity)).any():
+            raise ValueError(
+                f"ids outside [0, {self.capacity}) cannot be routed"
+            )
+        return (ids // self.rows_per_shard).astype(np.int32)
+
+    def owned_ids(self, shard: int) -> np.ndarray:
+        self._check_shard(shard)
+        lo = shard * self.rows_per_shard
+        hi = min(lo + self.rows_per_shard, self.capacity)
+        return np.arange(lo, hi, dtype=np.int64)
+
+    def to_local(self, shard: int, ids) -> np.ndarray:
+        self._check_shard(shard)
+        ids = np.asarray(ids, np.int64)
+        lo = shard * self.rows_per_shard
+        hi = min(lo + self.rows_per_shard, self.capacity)
+        if ((ids < lo) | (ids >= hi)).any():
+            bad = ids[(ids < lo) | (ids >= hi)]
+            raise KeyError(
+                f"ids {bad[:8].tolist()} not owned by shard {shard} "
+                f"(range [{lo}, {hi}))"
+            )
+        return ids - lo
+
+    def block_aligned(
+        self, n_devices: int, *, window: int = 8
+    ) -> "RangePartitioner":
+        """The same map with ``rows_per_shard`` rounded UP so every
+        shard boundary is a multiple of the mesh row-block
+        (:func:`mesh_row_block`) a ``n_devices``-way device mesh gives
+        this capacity.  Until now that alignment held only by
+        convention (pick num_shards dividing the device count and hope)
+        — a misaligned table silently forces a resharding gather on
+        every pull, because a shard's rows then straddle two devices'
+        blocks.
+
+        The total padded extent ``rows_per_shard * num_shards`` stays
+        a whole number of row-blocks, so the mesh table the store
+        builds over this map needs no extra padding.  Growing the rows
+        can leave TRAILING shards short (or, for extreme
+        capacity/shard/device combinations, empty) — harmless for the
+        mesh backend, where the partitioner is layout arithmetic
+        rather than a socket address, and ``shard_of``/``owned_ids``
+        stay total and disjoint either way."""
+        block = mesh_row_block(self.capacity, n_devices, window=window)
+        aligned = RangePartitioner(self.capacity, self.num_shards)
+        aligned.rows_per_shard = -(-self.rows_per_shard // block) * block
+        aligned.aligned_block = block
+        return aligned
+
+
+class ConsistentHashPartitioner(Partitioner):
+    """Rendezvous (HRW) hashing — the consistent-hash family with the
+    strongest stability guarantee: ``shard_of`` is ``argmax`` over
+    per-shard scores ``fmix32(key·golden ^ salt(shard, seed))``, so
+    adding shard ``N`` only ever RAISES the max toward the new shard;
+    keys whose argmax was an existing shard keep it (property-tested)."""
+
+    def __init__(self, capacity: int, num_shards: int, *, seed: int = 0):
+        if capacity < 1:
+            raise ValueError(f"capacity={capacity}: must be >= 1")
+        if num_shards < 1:
+            raise ValueError(f"num_shards={num_shards}: must be >= 1")
+        self.capacity = int(capacity)
+        self.num_shards = int(num_shards)
+        self.seed = int(seed)
+        # per-shard salts, deterministic in (shard index, seed): both
+        # ends of the wire recompute these — no placement table ships
+        with np.errstate(over="ignore"):
+            idx = np.arange(self.num_shards, dtype=np.uint32)
+            self._salts = fmix32_np(
+                (idx + np.uint32(1)) * _SHARD_SALT
+                + np.uint32(self.seed & 0xFFFFFFFF)
+            )
+
+    def shard_of(self, ids) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        if ((ids < 0) | (ids >= self.capacity)).any():
+            raise ValueError(
+                f"ids outside [0, {self.capacity}) cannot be routed"
+            )
+        with np.errstate(over="ignore"):
+            k = (ids.astype(np.uint32) * _GOLDEN)[..., None]
+            scores = fmix32_np(k ^ self._salts)
+        return np.argmax(scores, axis=-1).astype(np.int32)
+
+    def grown(self, num_shards: int) -> "ConsistentHashPartitioner":
+        """The same map with more shards (same seed) — what a scale-out
+        deploys; existing keys move only onto the new shards."""
+        if num_shards < self.num_shards:
+            raise ValueError(
+                f"grown({num_shards}) must not shrink below "
+                f"{self.num_shards}; use shrunk() to scale in"
+            )
+        return ConsistentHashPartitioner(
+            self.capacity, num_shards, seed=self.seed
+        )
+
+    def shrunk(self, num_shards: int) -> "ConsistentHashPartitioner":
+        """The same map with the HIGHEST-indexed shards removed (same
+        seed) — the scale-in inverse of :meth:`grown`.  Rendezvous
+        scoring makes this exactly symmetric: dropping the last salt
+        only ever LOWERS a key's argmax back onto a survivor, so keys
+        move only OFF the retired shards; every surviving shard keeps
+        exactly its old keys plus inherited ones (the drain-and-retire
+        property migration relies on)."""
+        if not 1 <= num_shards <= self.num_shards:
+            raise ValueError(
+                f"shrunk({num_shards}) must be in [1, {self.num_shards}]"
+            )
+        return ConsistentHashPartitioner(
+            self.capacity, num_shards, seed=self.seed
+        )
+
+
+__all__ = [
+    "Partitioner",
+    "RangePartitioner",
+    "ConsistentHashPartitioner",
+    "mesh_row_block",
+]

@@ -1,0 +1,981 @@
+"""A parameter-server shard: one partition slice, served over TCP.
+
+Counterpart of ``flink_parameter_server_tpu/cluster/shard.py``: the wire
+protocol, the typed errors, the row encoders, the WAL and the supervisor
+are the reference's code.  What changed is the slice: the default
+``store_backend="torch"`` keeps it as the port's
+:class:`~..core.store.ShardedParamStore` on ``device`` (the card unless
+the caller asks for the CPU), pushes scatter into it in place through the
+store's ``"xla"`` arm (``ops/rows.accumulate_rows_``: a stable sort and
+one ordered sum per run on the card, so replay is bitwise), and the host
+read mirror is an explicit copy off the device taken under the shard
+lock.  ``store_backend="numpy"`` (what shard processes run) is the
+reference's host store unchanged.  The tiered backend is not ported yet
+(ROADMAP Queue 1 #7, tierstore).
+
+Only the verbs that :class:`~.driver.ClusterDriver` and the shard
+processes use are served here.  The reference's other verbs wait for the
+modules that send them (ROADMAP Queue 1 #7): ``lease`` / ``revoke`` and
+the piggybacked ``inv=`` invalidations for the hot-key cache (hotcache/),
+``xfer`` / ``load``, epoch fencing, frozen ranges and the exactly-once
+``pid=`` window for live resharding (elastic/), and ``repl`` /
+``replstate`` for replica chains (replication/).  Until then those verbs
+answer ``err bad-request`` and their option tokens are parsed and
+ignored, as an older reference server treats them.
+
+This is the reference's PS subtask made a real process boundary: shard
+``s`` owns exactly the rows ``partitioner.owned_ids(s)`` as a dense
+local :class:`~..core.store.ShardedParamStore` slice, and answers
+PULL / PUSH / FLUSH over the same newline-delimited TCP idiom as the
+serving plane (``serving/server.py``) and the ingest edge
+(``data/socket.py``) — the socket skeleton itself comes from
+:class:`~..utils.net.LineServer`.
+
+Two framings, one protocol (docs/cluster.md "Binary framing"): the
+line protocol below is the bootstrap and compat surface, and a client
+may negotiate the LENGTH-PREFIXED BINARY framing per connection with
+a first ``hello bin v=1`` line — every verb, option token, and error
+reason then maps one-for-one onto ``utils/frames.py`` frames (ids as
+raw ``<i8``, rows as raw ``<f4``/bf16 received zero-copy, options as
+TLVs, ``err <reason>`` as status bytes), dispatched by
+:meth:`ShardServer.respond_frame`.
+
+Wire protocol (one request line → one response line, in order, per
+connection).  Every verb accepts trailing ``key=value`` options;
+``t=<trace>:<span>`` carries the distributed-trace context
+(telemetry/distributed.py; servers without a tracer parse and ignore
+it)::
+
+    pull <id1,id2,...> [text|b64] [t=<tok>]  # ids + answer format
+    push <id1,id2,...> <payload> [t=<tok>]   # deltas
+    flush                                    # fsync the WAL, ack counters
+    stats                                    # one-line JSON shard stats
+
+    ok n=<k> <payload>                    # pull answer
+    ok applied=<k> seq=<n>                # push answer
+    ok pushes=<n> wal_records=<m>         # flush answer
+    err <reason>      # bad-request | crashed | overloaded | internal
+
+Overload shedding (loadgen/overload.py, docs/loadgen.md): with an
+``OverloadGuard`` attached to the server, frames may be answered
+``err overloaded`` BEFORE parsing once the live request depth passes
+the guard's thresholds — serving reads shed first, training pushes
+never (by default).  Frames may carry a ``pr=<n>`` priority option (0
+critical, 1 normal, 2 sheddable).
+
+Row payloads come in two self-describing encodings, both EXACT (a
+pulled row is bitwise the stored fp32 row — what lets a bound-0
+cluster land allclose-tight against the single-process table):
+
+  * text — ``;``-separated rows of ``,``-separated ``repr()`` floats
+    (``repr`` round-trips the fp32 value exactly); the idiom of the
+    serving plane and the one a human types into ``nc``;
+  * ``b64:<base64>`` — little-endian fp32 row-major bytes, base64'd.
+    ~100× cheaper to encode/decode than per-float text, which on a
+    thread-backed single-host cluster is the difference between
+    measuring the runtime and measuring ``repr()``.  The client's
+    default.
+
+Durability + supervised restart (the resilience wiring): every push is
+appended to a per-shard :class:`~..resilience.wal.UpdateWAL` BEFORE it
+is applied, keyed by the shard's monotone push sequence (idempotent on
+replay).  A crash — real, or injected via :meth:`ParamShard.crash` —
+loses the in-memory slice only: :class:`ShardServer` classifies the
+failure, backs off per :class:`~..resilience.recovery.RestartPolicy`,
+rebuilds the slice from its deterministic init, replays the WAL, and
+re-serves the request that found the shard dead.  The recovered slice
+is bitwise the pre-crash one (init is deterministic per id; replay
+re-applies the exact logged deltas in order).
+
+Per-shard telemetry (``component=cluster``, ``shard=<i>`` labels):
+pull/push counters, a live in-flight request-depth gauge, and a
+restarts counter — scrapeable mid-run through the shared
+``/metrics`` endpoint.
+"""
+from __future__ import annotations
+
+import base64
+import json
+import threading
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.transform import to_device, to_host
+from ..utils import frames as binf
+from ..utils.device import DeviceLike, resolve_device
+from ..utils.net import LineServer
+from .partition import Partitioner
+
+_MAX_IDS_PER_REQUEST = 1 << 16  # frames stay line-sized; clients chunk
+
+
+class ShardCrashed(RuntimeError):
+    """The shard's in-memory slice is gone (chaos-injected or real);
+    tagged so :func:`~..resilience.recovery.classify_failure` routes it
+    down the DEVICE branch."""
+
+    failure_class = "device"
+
+
+def format_rows(rows: np.ndarray, encoding: str = "text") -> str:
+    """Encode fp32 rows for the wire (see module docstring): ``text``
+    uses per-float ``repr`` (exact, human-readable), ``b64`` base64s
+    the raw little-endian fp32 bytes (exact, ~100× cheaper)."""
+    if encoding == "b64":
+        arr = np.ascontiguousarray(np.asarray(rows, "<f4"))
+        return "b64:" + base64.b64encode(arr.tobytes()).decode("ascii")
+    if encoding != "text":
+        raise ValueError(f"encoding={encoding!r}: 'text' | 'b64'")
+    rows = np.asarray(rows, np.float64)
+    rows = rows.reshape(rows.shape[0], -1) if rows.ndim > 1 else rows.reshape(-1, 1)
+    return ";".join(",".join(repr(float(v)) for v in row) for row in rows)
+
+
+def parse_rows(body: str, value_shape: Tuple[int, ...]) -> np.ndarray:
+    """Inverse of :func:`format_rows` (either encoding, self-described
+    by the ``b64:`` prefix): ``(n, *value_shape)`` float32."""
+    width = 1
+    for s in value_shape:
+        width *= int(s)
+    if body.startswith("b64:"):
+        raw = base64.b64decode(body[4:].encode("ascii"))
+        flat = np.frombuffer(raw, "<f4")
+        if width == 0 or flat.size % width:
+            raise ValueError(
+                f"b64 payload of {flat.size} floats does not tile value "
+                f"shape {value_shape}"
+            )
+        return flat.reshape((flat.size // width,) + tuple(value_shape)).copy()
+    rows = [
+        [float(v) for v in row.split(",") if v]
+        for row in body.split(";")
+        if row
+    ]
+    arr = np.asarray(rows, np.float32)
+    if arr.ndim != 2 or arr.shape[1] != width:
+        raise ValueError(
+            f"rows of width {arr.shape[1] if arr.ndim == 2 else '?'} do not "
+            f"match value shape {value_shape}"
+        )
+    return arr.reshape((arr.shape[0],) + tuple(value_shape))
+
+
+def parse_ids(tok: str) -> np.ndarray:
+    ids = np.asarray(
+        [int(t) for t in tok.split(",") if t.strip()], np.int64
+    )
+    if ids.size == 0:
+        raise ValueError("need at least one id")
+    if ids.size > _MAX_IDS_PER_REQUEST:
+        raise ValueError(
+            f"{ids.size} ids in one request (max {_MAX_IDS_PER_REQUEST}); "
+            f"chunk the batch"
+        )
+    return ids
+
+
+class _NumpyStore:
+    """A host stand-in for :class:`~..core.store.ShardedParamStore`
+    with the surface :class:`ParamShard` touches (``from_values`` /
+    ``values`` / ``push``) — the store backend shard WORKER PROCESSES
+    run (cluster/procs.py): a spawned shard never touches the card and
+    pays no per-push device dispatch for a µs scatter-add.
+    Single-owner under the shard lock, so ``push`` mutates in place;
+    padding lanes (id −1) and out-of-range ids are dropped, matching
+    ``ShardedParamStore.push``'s sentinel routing."""
+
+    __slots__ = ("_v",)
+
+    def __init__(self, values: np.ndarray):
+        v = np.asarray(values)
+        if not v.flags.writeable:
+            # a read-only view (e.g. over a broadcast init); push
+            # mutates in place
+            v = v.copy()
+        self._v = v
+
+    @classmethod
+    def from_values(cls, values) -> "_NumpyStore":
+        return cls(np.array(values, np.float32))
+
+    def values(self) -> np.ndarray:
+        return self._v
+
+    def push(self, local_ids, deltas) -> "_NumpyStore":
+        ids = np.asarray(local_ids, np.int64)
+        ok = (ids >= 0) & (ids < len(self._v))
+        if not ok.all():
+            ids = ids[ok]
+            deltas = np.asarray(deltas)[ok]
+        np.add.at(self._v, ids, np.asarray(deltas, self._v.dtype))
+        return self
+
+
+class ParamShard:
+    """One shard's state: the local store slice + per-shard WAL.
+
+    Thread-safe: one lock serializes pulls/pushes/restarts (a shard is
+    a single logical owner of its rows — the reference's per-subtask
+    ``HashMap`` had the same serial discipline, enforced by Flink's
+    operator model there and by this lock here).
+
+    ``store_backend`` picks the slice's array runtime: ``"torch"``
+    (the default — the port's store on ``device``, the card unless the
+    caller asks for the CPU) or ``"numpy"`` (plain host arrays; what
+    shard worker PROCESSES run — see :class:`_NumpyStore`).  Both apply
+    identical fp32 scatter-adds over client-deduplicated ids, so the
+    slices stay bitwise-comparable.  ``"jax"`` (the reference's name
+    for the device backend) raises, naming ``"torch"``; ``"tiered"``
+    raises until the tiered store is ported.
+    """
+
+    def __init__(
+        self,
+        shard_id: int,
+        partitioner: Partitioner,
+        value_shape: Sequence[int] = (),
+        *,
+        init_fn=None,
+        dtype=None,
+        wal_dir: Optional[str] = None,
+        wal_fsync_every: int = 0,
+        registry=None,
+        profiler=None,
+        store_backend: str = "torch",
+        device: DeviceLike = None,
+    ):
+        if store_backend == "jax":
+            raise ValueError(
+                "store_backend='jax' is the reference's device backend; "
+                "the port's is store_backend='torch' (the slice on "
+                "device=, the card by default)"
+            )
+        if store_backend == "tiered":
+            raise NotImplementedError(
+                "store_backend='tiered': the tiered hot/cold store is "
+                "not ported yet (ROADMAP Queue 1 #7, tierstore)"
+            )
+        if store_backend not in ("torch", "numpy"):
+            raise ValueError(
+                f"store_backend={store_backend!r}: 'torch' | 'numpy'"
+            )
+        self._backend = store_backend
+        # the numpy backend never touches torch's devices (shard
+        # processes must not initialise CUDA)
+        self._device = (
+            resolve_device(device) if store_backend == "torch" else None
+        )
+        self.shard_id = int(shard_id)
+        self.partitioner = partitioner
+        self.value_shape = tuple(int(s) for s in value_shape)
+        self._init_fn = init_fn
+        self._dtype = dtype
+        self.owned = partitioner.owned_ids(self.shard_id)
+        self._lock = threading.RLock()
+        self._wal = None
+        if wal_dir is not None:
+            from ..resilience.wal import UpdateWAL
+
+            # fsync cadence 0 by default: shard durability here is about
+            # surviving a shard RESTART (process alive, slice lost), the
+            # chaos mode tests exercise; page-cache durability suffices
+            # and per-push fsyncs would dominate small-push latency
+            self._wal = UpdateWAL(wal_dir, fsync_every=wal_fsync_every)
+        # latency-budget phases (telemetry/profiler.py): lock wait =
+        # server_queue_wait (concurrent connections serialize on this
+        # shard's lock), WAL append, scatter/apply — the server side of
+        # the per-round budget.  registry=False implies profiling off.
+        from ..telemetry.profiler import NULL_PROFILER, resolve_profiler
+
+        self._profiler = (
+            NULL_PROFILER if registry is False and profiler is None
+            else resolve_profiler(profiler)
+        )
+        self.pushes_applied = 0
+        self.pulls_served = 0
+        self.mirror_rebuilds = 0
+        self.mirror_rebuild_s = 0.0
+        self.restarts = 0
+        self.rows_applied = 0  # delta rows actually applied
+        self._push_seq = 0
+        self.store = None
+        # host-side read mirror of the slice, rebuilt lazily after each
+        # push: pulls are then one numpy fancy-index instead of a
+        # device gather + transfer per request; with the slice on the
+        # card, the first pull after a push copies the whole slice off
+        # the device
+        self._host_mirror: Optional[np.ndarray] = None
+        self._build()
+        if self._wal is not None and self._wal.last_step_logged is not None:
+            # fresh process over an existing WAL dir: the restart path
+            self._replay()
+        # unified plane: per-shard instruments under component=cluster.
+        # The request-depth counter is bumped by EVERY connection's
+        # handler thread; += on an attribute is not atomic, so it gets
+        # its own tiny lock (fpsanalyze S001) — never nested with
+        # self._lock, so no ordering edge
+        self._active_requests = 0
+        self._depth_lock = threading.Lock()
+        if registry is not False:
+            from ..telemetry.registry import get_registry
+
+            reg = registry if registry is not None else get_registry()
+            sid = str(self.shard_id)
+            self._c_pulls = reg.counter(
+                "cluster_pulls_total", component="cluster", shard=sid
+            )
+            self._c_pushes = reg.counter(
+                "cluster_pushes_total", component="cluster", shard=sid
+            )
+            self._c_restarts = reg.counter(
+                "cluster_shard_restarts_total", component="cluster",
+                shard=sid,
+            )
+            reg.gauge(
+                "cluster_shard_queue_depth", component="cluster", shard=sid,
+                fn=lambda: self._active_requests,
+            )
+        else:
+            self._c_pulls = self._c_pushes = self._c_restarts = None
+
+    # -- construction / recovery -------------------------------------------
+    def _slice_to_host(self) -> np.ndarray:
+        """The whole live slice as a fresh host array: an explicit
+        copy off the device (callers hold the shard lock, so no push
+        lands mid-copy).  The numpy backend hands out its own rows."""
+        if self._backend == "numpy":
+            return self.store.values()
+        return to_host(self.store.values(), copy=True)
+
+    # fpsanalyze: allow[S001] _build writes run under self._lock at every call site (__init__ construction, restart) — the lock is the caller's
+    def _build(self) -> None:
+        """(Re)materialise the local slice from the deterministic init:
+        local row j = init(owned[j]) — observationally the global
+        table's row ``owned[j]`` (same per-id init contract as
+        :func:`~..core.store.create_table`).  Under the numpy backend
+        ``init_fn`` receives (and must return) host arrays — shard
+        worker processes never touch the card; under the torch
+        backend it receives an int32 id tensor on ``device``."""
+        if self._backend == "numpy":
+            ids = np.asarray(self.owned, np.int64)
+            if self._init_fn is not None:
+                values = np.asarray(self._init_fn(ids), np.float32)
+            else:
+                values = np.zeros(
+                    ids.shape + self.value_shape, np.float32
+                )
+            self.store = _NumpyStore(values)
+            self._host_mirror = None
+            return
+        from ..core.store import ShardedParamStore
+
+        ids = to_device(np.asarray(self.owned, np.int32), self._device)
+        if self._init_fn is not None:
+            values = torch.as_tensor(self._init_fn(ids)).to(self._device)
+        else:
+            dtype = self._dtype if self._dtype is not None else torch.float32
+            values = torch.zeros(
+                tuple(ids.shape) + self.value_shape, dtype=dtype,
+                device=self._device,
+            )
+        if self._dtype is not None:
+            values = values.to(self._dtype)
+        self.store = ShardedParamStore.from_values(values, device=self._device)
+        self._host_mirror = None
+
+    def _replay(self) -> int:
+        """Re-apply every intact WAL record in sequence order; returns
+        the number replayed.  Replay bypasses the WAL append (the
+        records are already durable) but goes through the same
+        scatter-add, so the rebuilt slice is bitwise the logged one."""
+        n = 0
+        for rec in self._wal.replay():
+            p = rec.payload
+            self._apply(np.asarray(p["ids"], np.int64), p["deltas"])
+            self._push_seq = rec.end_step
+            n += 1
+        return n
+
+    def _apply(self, global_ids: np.ndarray, deltas: np.ndarray) -> None:
+        local = self.partitioner.to_local(self.shard_id, global_ids)
+        if self._backend == "numpy":
+            # host scatter-add in place: no shape-specialised kernels,
+            # so no pow2 bucketing either — padding existed for XLA's
+            # compile cache, and numpy has none to warm
+            self.store.push(local, deltas)
+            self._host_mirror = None
+            self.pushes_applied += 1
+            return
+        from ..core.store import push as store_push
+
+        # In place through the store's configured arm (the shard owns
+        # its slice, under the lock).  No pow2 padding: it existed for
+        # XLA's compile cache, and eager torch compiles nothing per
+        # shape; padding lanes (id −1) would reach the store's
+        # out-of-range sentinel and change nothing
+        # (tests/test_torch_cluster.py holds both bitwise equal).
+        store_push(
+            self.store.spec, self.store.table,
+            to_device(np.asarray(local, np.int64), self._device),
+            to_device(
+                np.asarray(deltas), self._device, self.store.spec.dtype
+            ),
+        )
+        self._host_mirror = None  # mirror is stale past this point
+        self.pushes_applied += 1
+
+    def _check_alive(self) -> None:
+        if self.store is None:
+            raise ShardCrashed(f"shard {self.shard_id} has no live slice")
+
+    def _rows(self, local: np.ndarray) -> np.ndarray:
+        """Read rows by LOCAL index — the pull-side table access,
+        through the lazily-rebuilt host mirror (one fancy-index per
+        request; the rebuild after a push is one copy of the slice off
+        the device, under the caller's shard lock)."""
+        if self._host_mirror is None:
+            t0 = time.perf_counter()
+            self._host_mirror = self._slice_to_host()
+            self.mirror_rebuilds += 1
+            self.mirror_rebuild_s += time.perf_counter() - t0
+        return self._host_mirror[local]
+
+    # -- the shard protocol ------------------------------------------------
+    def pull(self, global_ids: np.ndarray) -> np.ndarray:
+        prof = self._profiler
+        t_wait = time.perf_counter()
+        with self._lock:
+            prof.observe(
+                "pull", "server_queue_wait",
+                time.perf_counter() - t_wait,
+            )
+            self._check_alive()
+            local = self.partitioner.to_local(
+                self.shard_id, np.asarray(global_ids, np.int64)
+            )
+            with prof.timer("pull", "scatter_apply"):
+                # the pull-side table access: host-mirror fancy-index
+                # (see _rows)
+                vals = self._rows(local)
+            self.pulls_served += 1
+            if self._c_pulls is not None:
+                self._c_pulls.inc()
+            return vals
+
+    def push(self, global_ids: np.ndarray, deltas: np.ndarray) -> int:
+        """WRITE-AHEAD then apply; returns the shard's push sequence
+        number after this push."""
+        prof = self._profiler
+        t_wait = time.perf_counter()
+        with self._lock:
+            prof.observe(
+                "push", "server_queue_wait",
+                time.perf_counter() - t_wait,
+            )
+            self._check_alive()
+            ids = np.asarray(global_ids, np.int64)
+            deltas = np.asarray(deltas, np.float32)
+            # route check first: a mis-routed id must fail the request
+            # BEFORE it is logged (replaying a bad frame would re-raise
+            # forever)
+            self.partitioner.to_local(self.shard_id, ids)
+            if self._wal is not None:
+                with prof.timer("push", "wal_append"):
+                    self._wal.append(
+                        self._push_seq, 1, {"ids": ids, "deltas": deltas}
+                    )
+            self._push_seq += 1
+            with prof.timer("push", "scatter_apply"):
+                self._apply(ids, deltas)
+            self.rows_applied += int(len(ids))
+            if self._c_pushes is not None:
+                self._c_pushes.inc()
+            return self._push_seq
+
+    def flush(self) -> dict:
+        """Make the log durable (fsync) and ack the counters — the wire
+        protocol's explicit durability point.
+
+        The fsync runs OUTSIDE the shard lock (fpsanalyze B001 fix):
+        the WAL serializes appends/syncs internally, so holding the
+        shard lock across the disk wait only stalled every concurrent
+        pull/push behind the platter.  Every push appended before this
+        call's lock window is covered by the sync; a push that slips in
+        after the release is made durable EARLY — never lost."""
+        with self._lock:
+            wal = self._wal
+            pushes = self.pushes_applied
+        wal_records = 0
+        if wal is not None:
+            wal.sync()
+            wal_records = wal.records_appended
+        return {"pushes": pushes, "wal_records": wal_records}
+
+    def values(self) -> np.ndarray:
+        """The local slice, rows ordered by :attr:`owned` (ascending
+        global id) — the shard's contribution to a model dump."""
+        with self._lock:
+            self._check_alive()
+            return np.asarray(self._slice_to_host())
+
+    # -- failure / recovery -------------------------------------------------
+    def crash(self) -> None:
+        """Chaos hook: drop the in-memory slice (the WAL survives — it
+        is the durable part).  Every subsequent request raises
+        :class:`ShardCrashed` until :meth:`restart`."""
+        with self._lock:
+            self.store = None
+            self._host_mirror = None
+
+    def restart(self) -> int:
+        """Rebuild init + replay the WAL; returns records replayed."""
+        with self._lock:
+            self._push_seq = 0
+            self.pushes_applied = 0
+            self._build()
+            replayed = self._replay() if self._wal is not None else 0
+            self.restarts += 1
+            if self._c_restarts is not None:
+                self._c_restarts.inc()
+            return replayed
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "shard": self.shard_id,
+                "rows": int(len(self.owned)),
+                "pulls": self.pulls_served,
+                "pushes": self.pushes_applied,
+                "push_seq": self._push_seq,
+                "restarts": self.restarts,
+                "alive": self.store is not None,
+                "rows_applied": self.rows_applied,
+                # live depth figure the psctl stats view reads: WAL
+                # records durably appended
+                "wal_records": (
+                    0 if self._wal is None else self._wal.records_appended
+                ),
+                # the host mirror's rebuilds (one device-to-host copy
+                # of the slice each) and their summed wall seconds
+                "backend": self._backend,
+                "mirror_rebuilds": self.mirror_rebuilds,
+                "mirror_rebuild_s": self.mirror_rebuild_s,
+            }
+
+    def close(self) -> None:
+        if self._wal is not None:
+            self._wal.close()
+
+
+class ShardServer(LineServer):
+    """TCP front end + restart supervisor for one :class:`ParamShard`.
+
+    The supervisor loop is the shard-side analogue of
+    :class:`~..resilience.recovery.RecoveringDriver`: a request that
+    finds the slice dead triggers backoff (capped exponential, jittered
+    per :class:`~..resilience.recovery.RestartPolicy`) + rebuild-and-
+    replay, then the request is served from the recovered slice — the
+    CLIENT never sees the crash, only latency.  ``supervised=False``
+    turns the same condition into an ``err crashed`` response (the
+    client-visible failure mode).
+    """
+
+    def __init__(
+        self,
+        shard: ParamShard,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        *,
+        supervised: bool = True,
+        restart_policy=None,
+        max_line_bytes: int = 64 << 20,
+        tracer=None,
+        profiler=None,
+        overload=None,
+    ):
+        super().__init__(
+            host, port, name=f"shard-{shard.shard_id}",
+            max_line_bytes=max_line_bytes,
+        )
+        self.shard = shard
+        self.supervised = supervised
+        # overload-plane admission (loadgen/overload.OverloadGuard):
+        # with a guard attached, sheddable frames are answered
+        # ``err overloaded`` BEFORE parse/lock/apply once the live
+        # request depth passes the guard's thresholds — serving
+        # reads shed first, training pushes never (by default).  None
+        # = admit everything (the pre-overload behaviour).
+        self.overload = overload
+        # latency-budget phases (telemetry/profiler.py): whole-request
+        # server wall (the "wire" residual's subtrahend), inbound parse
+        # and response serialize — default to the shard's profiler so
+        # client+server phases land in one budget
+        from ..telemetry.profiler import resolve_profiler
+
+        self.profiler = (
+            shard._profiler if profiler is None
+            else resolve_profiler(profiler)
+        )
+        # server-side spans (telemetry/distributed.py): each request is
+        # wrapped in a span tagged with the inbound t=<trace>:<span>
+        # context, so this process's ring can be merged into the
+        # client's trace by the TraceCollector
+        self.tracer = tracer
+        if restart_policy is None:
+            from ..resilience.recovery import RestartPolicy
+
+            # tight backoff: a shard restart is rebuild+replay, not a
+            # process respawn; tests and thread-backed clusters should
+            # not serialize on seconds of sleep
+            restart_policy = RestartPolicy(
+                max_restarts=3, backoff_base_s=0.01, backoff_cap_s=0.5,
+                seed=shard.shard_id,
+            )
+        self.policy = restart_policy
+        self._rng = np.random.default_rng(self.policy.seed)
+
+    # -- the protocol ------------------------------------------------------
+    @staticmethod
+    def _frame_priority(toks) -> Optional[int]:
+        """The ``pr=<n>`` priority token from a frame's trailing
+        options (scanned from the end, same discipline as
+        :meth:`_inbound_trace`: payload tokens stop the scan).
+        Malformed values yield None — priority must never be able to
+        fail a request."""
+        for t in reversed(toks[1:]):
+            k, sep, v = t.partition("=")
+            if not sep or not k.isalnum():
+                break
+            if k == "pr":
+                try:
+                    return int(v)
+                except ValueError:
+                    return None
+        return None
+
+    def respond(self, line: str) -> str:
+        with self.shard._depth_lock:
+            self.shard._active_requests += 1
+            depth = self.shard._active_requests
+        verb = line.split(None, 1)[0].lower() if line else ""
+        t0 = time.perf_counter()
+        try:
+            guard = self.overload
+            if guard is not None and not guard.admit(
+                verb, self._frame_priority(line.split()), depth
+            ):
+                # typed shed (docs/loadgen.md): rejected before the
+                # request pays parse/lock/apply — overload must make
+                # rejection the CHEAPEST path through the server
+                return "err overloaded"
+            return self._respond_supervised(line)
+        finally:
+            with self.shard._depth_lock:
+                self.shard._active_requests -= 1
+            if verb in ("pull", "push"):
+                # the whole-request server wall: what the client's RTT
+                # minus this equals is the wire cost (profiler budget)
+                self.profiler.observe(
+                    verb, "server_total", time.perf_counter() - t0
+                )
+
+    def _respond_supervised(self, line: str) -> str:
+        attempt = 0
+        while True:
+            try:
+                return self._dispatch(line)
+            except ShardCrashed:
+                if not self.supervised:
+                    return "err crashed"
+                attempt += 1
+                if attempt > self.policy.max_restarts:
+                    return "err crashed: restart budget exhausted"
+                time.sleep(self.policy.backoff_s(attempt, self._rng))
+                self.shard.restart()
+            except (ValueError, KeyError) as e:
+                return f"err bad-request: {e}"
+            except Exception as e:  # noqa: BLE001 — protocol boundary
+                return f"err internal: {type(e).__name__}: {e}"
+
+    @staticmethod
+    def _check_opts(toks) -> None:
+        """Validate trailing ``key=value`` option tokens; their values
+        are read elsewhere (``t=``, ``pr=``) or ignored."""
+        for t in toks:
+            k, sep, _ = t.partition("=")
+            if not sep or not k:
+                raise ValueError(f"bad option token {t!r} (key=value)")
+
+    @staticmethod
+    def _inbound_trace(toks):
+        """The ``t=<trace>:<span>`` token from a frame's trailing
+        options (scanned from the end; payload tokens — which may
+        contain base64 ``=`` padding behind their ``b64:`` prefix —
+        stop the scan).  Malformed tokens yield None, never an error:
+        tracing must not be able to fail a request."""
+        from ..telemetry.distributed import parse_token
+
+        for t in reversed(toks[1:]):
+            k, sep, v = t.partition("=")
+            if not sep or not k.isalnum():
+                break
+            if k == "t":
+                return parse_token(v)
+        return None
+
+    def _dispatch(self, line: str) -> str:
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return self._execute(line)
+        toks = line.split()
+        cmd = toks[0].lower() if toks else "empty"
+        ctx = self._inbound_trace(toks)
+        kwargs = (
+            {"trace_id": ctx.trace_id, "parent_id": ctx.span_id}
+            if ctx is not None else {}
+        )
+        with tr.span(f"shard.{cmd}", "cluster", **kwargs):
+            return self._execute(line)
+
+    def _execute(self, line: str) -> str:
+        toks = line.split()
+        cmd = toks[0].lower()
+        if cmd == "hello":
+            # binary-framing negotiation (docs/cluster.md "Binary
+            # framing", utils/frames.py): "hello bin v=1" → "ok
+            # proto=bin v=1", and the connection accepts binary frames
+            # from then on (the net layer flips the conn ledger's
+            # proto on this exact answer).
+            if len(toks) >= 2 and toks[1].lower() == "bin":
+                # the answer advertises the quantized-encoding
+                # vocabulary (enc=bf16,q8 — docs/compression.md): old
+                # clients check the "ok proto=bin" prefix only, new
+                # clients downgrade unadvertised encodings to f32
+                return binf.hello_ok_line()
+            # "hello shm" (shmem/, not ported yet) gets the err answer
+            # that keeps a client on binary TCP
+            raise ValueError(
+                f"unknown protocol {' '.join(toks[1:])!r} (try: bin)"
+            )
+        if cmd == "pull":
+            if len(toks) < 2:
+                raise ValueError("usage: pull <id1,id2,...> [text|b64]")
+            rest = toks[2:]
+            enc = "text"
+            if rest and rest[0].lower() in ("text", "b64"):
+                enc = rest[0].lower()
+                rest = rest[1:]
+            elif rest and "=" not in rest[0]:
+                raise ValueError(f"pull format {rest[0]!r}: 'text' | 'b64'")
+            self._check_opts(rest)
+            with self.profiler.timer("pull", "server_parse"):
+                ids = parse_ids(toks[1])
+            vals = self.shard.pull(ids)
+            with self.profiler.timer("pull", "response_serialize"):
+                body = format_rows(vals, enc)
+            return f"ok n={len(ids)} {body}"
+        if cmd == "push":
+            if len(toks) < 3:
+                raise ValueError(
+                    "usage: push <id1,id2,...> <row1;row2;...>"
+                )
+            with self.profiler.timer("push", "server_parse"):
+                ids = parse_ids(toks[1])
+                deltas = parse_rows(toks[2], self.shard.value_shape)
+            if len(deltas) != len(ids):
+                raise ValueError(
+                    f"{len(ids)} ids but {len(deltas)} delta rows"
+                )
+            self._check_opts(toks[3:])
+            seq = self.shard.push(ids, deltas)
+            return f"ok applied={len(ids)} seq={seq}"
+        if cmd == "flush":
+            f = self.shard.flush()
+            return f"ok pushes={f['pushes']} wal_records={f['wal_records']}"
+        if cmd == "stats":
+            return "ok " + json.dumps(self.shard.stats())
+        raise ValueError(
+            f"unknown command {cmd!r} (pull|push|flush|stats)"
+        )
+
+    # -- the binary frame protocol (utils/frames.py) -------------------------
+    def respond_frame(self, data: bytes) -> bytes:
+        """One binary request frame → one encoded response frame —
+        the binary twin of :meth:`respond`.  The overload guard admits
+        or sheds on the HEADER alone (verb id + priority byte), before
+        any TLV/id/payload work: under pressure, rejection stays the
+        cheapest path through the server, now without even a text
+        parse in front of it."""
+        with self.shard._depth_lock:
+            self.shard._active_requests += 1
+            depth = self.shard._active_requests
+        verb = "other"
+        t0 = time.perf_counter()
+        try:
+            try:
+                verb_id, _enc, prio, _total = binf.peek_header(data)
+            except binf.FrameError as e:
+                return binf.error_response(
+                    0, binf.STATUS_BAD_REQUEST, str(e)
+                )
+            verb = binf.VERB_NAMES.get(verb_id, "other")
+            guard = self.overload
+            if guard is not None and not guard.admit(
+                verb,
+                None if prio == binf.NO_PRIORITY else int(prio),
+                depth,
+            ):
+                return binf.error_response(
+                    verb_id, binf.STATUS_OVERLOADED
+                )
+            return self._respond_frame_supervised(data, verb_id, verb)
+        finally:
+            with self.shard._depth_lock:
+                self.shard._active_requests -= 1
+            if verb in ("pull", "push"):
+                self.profiler.observe(
+                    verb, "server_total", time.perf_counter() - t0
+                )
+
+    def _respond_frame_supervised(
+        self, data: bytes, verb_id: int, verb: str
+    ) -> bytes:
+        attempt = 0
+        while True:
+            try:
+                req = binf.decode(data, kind="request")
+                return self._dispatch_frame(req)
+            except ShardCrashed:
+                if not self.supervised:
+                    return binf.error_response(
+                        verb_id, binf.STATUS_CRASHED
+                    )
+                attempt += 1
+                if attempt > self.policy.max_restarts:
+                    return binf.error_response(
+                        verb_id, binf.STATUS_CRASHED,
+                        "restart budget exhausted",
+                    )
+                time.sleep(self.policy.backoff_s(attempt, self._rng))
+                self.shard.restart()
+            except (binf.FrameError, ValueError, KeyError) as e:
+                return binf.error_response(
+                    verb_id, binf.STATUS_BAD_REQUEST, str(e)
+                )
+            except Exception as e:  # noqa: BLE001 — protocol boundary
+                return binf.error_response(
+                    verb_id, binf.STATUS_INTERNAL,
+                    f"{type(e).__name__}: {e}",
+                )
+
+    def _dispatch_frame(self, req) -> bytes:
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return self._execute_frame(req)
+        from ..telemetry.distributed import parse_token
+
+        tok = req.tlv_str(binf.T_TRACE)
+        ctx = parse_token(tok) if tok else None
+        kwargs = (
+            {"trace_id": ctx.trace_id, "parent_id": ctx.span_id}
+            if ctx is not None else {}
+        )
+        with tr.span(f"shard.{req.verb_name}", "cluster", **kwargs):
+            return self._execute_frame(req)
+
+    @staticmethod
+    def _frame_ids(req) -> np.ndarray:
+        """The request's id section with the line protocol's bounds
+        (at least one id, frames stay bounded) — ZERO-COPY ``<i8``
+        over the receive buffer."""
+        ids = req.ids
+        if ids is None or ids.size == 0:
+            raise ValueError("need at least one id")
+        if ids.size > _MAX_IDS_PER_REQUEST:
+            raise ValueError(
+                f"{ids.size} ids in one request (max "
+                f"{_MAX_IDS_PER_REQUEST}); chunk the batch"
+            )
+        return ids
+
+    @staticmethod
+    def _row_enc(req) -> int:
+        """The row encoding the answer should use — the request's own
+        (fp32 default; bf16 when the client asked for it)."""
+        return (
+            req.enc if req.enc in (binf.ENC_F32, binf.ENC_BF16)
+            else binf.ENC_F32
+        )
+
+    def _execute_frame(self, req) -> bytes:
+        """The binary dispatch: same verbs, same shard methods, no
+        text — ids arrive as raw ``<i8``, rows as raw ``<f4``/bf16
+        (zero-copy views; the upload to the slice's device copies
+        them), and the answer's rows leave as raw bytes again."""
+        shard = self.shard
+        verb = req.verb
+        if verb == binf.VERB_IDS["pull"]:
+            with self.profiler.timer("pull", "server_parse"):
+                ids = self._frame_ids(req)
+            vals = shard.pull(ids)
+            enc = self._row_enc(req)
+            with self.profiler.timer("pull", "response_serialize"):
+                resp = binf.encode_response(
+                    verb, n=int(ids.size), enc=enc,
+                    payload=binf.rows_to_payload(vals, enc),
+                )
+            return resp
+        if verb == binf.VERB_IDS["push"]:
+            with self.profiler.timer("push", "server_parse"):
+                ids = self._frame_ids(req)
+                if req.enc == binf.ENC_Q8:
+                    # per-row-scaled int8 deltas (the quantized push
+                    # path, docs/compression.md): int8 payload + f32
+                    # scales in the T_SCALE TLV, dequantized host-side
+                    # — the applied rows are exactly the dq values the
+                    # client computed its residual against
+                    from ..compression.quantizers import q8_from_payload
+
+                    deltas = q8_from_payload(
+                        req.payload, req.tlvs.get(binf.T_SCALE),
+                        shard.value_shape,
+                    )
+                else:
+                    deltas = binf.rows_from_payload(
+                        req.payload, shard.value_shape, req.enc
+                    )
+            if len(deltas) != len(ids):
+                raise ValueError(
+                    f"{len(ids)} ids but {len(deltas)} delta rows"
+                )
+            seq = shard.push(ids, deltas)
+            with self.profiler.timer("push", "response_serialize"):
+                resp = binf.encode_response(
+                    verb, aux=seq, n=int(ids.size), enc=binf.ENC_RAW,
+                )
+            return resp
+        if verb == binf.VERB_IDS["flush"]:
+            f = shard.flush()
+            return binf.encode_response(
+                verb, n=int(f["pushes"]), enc=binf.ENC_RAW,
+                tlvs=[(binf.T_WALREC, str(f["wal_records"]).encode())],
+            )
+        if verb == binf.VERB_IDS["stats"]:
+            return binf.encode_response(
+                verb, enc=binf.ENC_RAW,
+                payload=json.dumps(shard.stats()).encode(),
+            )
+        raise ValueError(f"unknown verb id {verb}")
+
+
+__all__ = [
+    "ParamShard",
+    "ShardServer",
+    "ShardCrashed",
+    "format_rows",
+    "parse_rows",
+    "parse_ids",
+]

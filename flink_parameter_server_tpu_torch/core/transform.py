@@ -47,17 +47,31 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def to_device(batch: Any, device: torch.device) -> Any:
-    """Host batch (numpy arrays or tensors) -> tensors on ``device``."""
+def to_device(batch: Any, device: torch.device, dtype: Optional[torch.dtype] = None) -> Any:
+    """Host batch (numpy arrays or tensors) -> tensors on ``device``
+    (cast to ``dtype`` when given).  A read-only array (a frame decoded
+    zero-copy) is copied first, since a tensor cannot wrap it."""
 
     def one(x):
         if isinstance(x, np.ndarray):
+            if not x.flags.writeable:
+                x = x.copy()
             x = torch.from_numpy(np.ascontiguousarray(x))
         if isinstance(x, torch.Tensor):
-            return x.to(device, non_blocking=True)
+            return x.to(device, dtype, non_blocking=True)
         return x
 
     return tree_map(one, batch)
+
+
+def to_host(x: Any, *, copy: bool = False) -> np.ndarray:
+    """A tensor (copied off the card) or host array as a numpy array.
+    ``copy=True`` always returns a fresh array, never a view of a CPU
+    tensor or of the array given."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.to("cpu", copy=True) if copy else x.cpu()).numpy()
+    return np.array(x, copy=True) if copy else np.asarray(x)
 
 
 def _clone(x: Any) -> Any:

@@ -1,0 +1,575 @@
+"""The overload-control plane: shed, budget, break, brown out.
+
+A copy of ``flink_parameter_server_tpu/loadgen/overload.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.
+
+Under sustained offered load past capacity a queueing system has
+exactly two futures: degrade gracefully for everyone, or collapse for
+everyone — queues grow without bound, retries amplify the offered
+load, and p99 explodes for *every* request, not just the excess.  This
+module is the repo's graceful-degradation toolkit, four mechanisms
+that compose (each is independently attachable; the soak A/B in
+``benchmarks/soak_capacity.py`` measures what they buy together):
+
+  * :class:`OverloadGuard` — **priority-aware load shedding at the
+    shard edge**.  Attached to a :class:`~..cluster.shard.ShardServer`,
+    it answers ``err overloaded`` to sheddable traffic (serving/lease
+    reads first, then plain reads) once the live request depth passes
+    a threshold, BEFORE the request pays parse/lock/apply costs.
+    Training pushes are never shed by default — a shed push is a lost
+    update; a shed read is one stale-or-retried lookup.
+  * :class:`LoadShedder` — the same policy at the **serving admission
+    edge** (:class:`~..serving.server.ServingService`): shed at a
+    depth fraction below the hard ``QueueFull`` line so rejection is
+    cheap and early, counted per reason.
+  * :class:`RetryBudget` — a **client-side token bucket**: every retry
+    spends a token, successes slowly refill.  An exhausted budget
+    fails fast (:class:`RetryBudgetExhausted`) instead of feeding the
+    retry storm — the complement of PR 10's decorrelated jitter: jitter
+    spreads the herd in time, the budget caps its total size.
+  * :class:`CircuitBreaker` / :class:`BreakerBoard` — a **per-shard
+    error-rate breaker**: a window of failures opens the circuit
+    (requests fail fast locally), a cooldown later one half-open probe
+    tests the water, success closes it.  The board keys one breaker
+    per shard inside :class:`~..cluster.client.ClusterClient`.
+  * :class:`BrownoutController` — **degrade instead of erroring**:
+    under shed pressure, widen the staleness bound of the PR-11
+    hot-row caches (:meth:`~..hotcache.cache.HotRowCache.set_widen`)
+    so hot reads are served stale-but-bounded at the edge rather than
+    rejected; pressure gone, the bound snaps back.  The
+    ``lease_staleness`` invariant checker still runs — at the widened
+    bound, which stays a real bound.
+
+Wire contract: the shard's shed answer is the typed ``err overloaded``
+reply (docs/cluster.md), which
+:class:`~..cluster.client.ClusterClient` raises as
+:class:`OverloadedError` — a typed failure the caller can count as
+badput and fail fast on, never a retry loop.  Frames may carry a
+``pr=<n>`` option (0 = critical/write-class, 1 = normal read, 2 =
+sheddable serving read); old servers parse and ignore it, the PR-6
+trailing-token contract.
+
+Instruments (``component=loadgen``; catalogued in docs/loadgen.md):
+``overload_shed_total{edge,verb}``, ``retry_budget_tokens``,
+``retry_budget_exhausted_total``, ``overload_breaker_open``,
+``overload_breaker_transitions_total{state}``, ``brownout_active``,
+``overload_brownouts_total``.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+# priority vocabulary for the pr= frame option
+PRIORITY_CRITICAL = 0   # write-class: never shed by default
+PRIORITY_NORMAL = 1     # plain reads
+PRIORITY_SHEDDABLE = 2  # serving/lease reads: shed first
+
+_WRITE_VERBS = frozenset({"push", "load", "repl", "flush"})
+
+
+class OverloadedError(RuntimeError):
+    """The request was SHED (``err overloaded`` on the wire, or a
+    local admission/budget decision): typed so callers can fail fast
+    and count badput instead of retrying into the storm."""
+
+
+class RetryBudgetExhausted(OverloadedError):
+    """The client's retry token bucket ran dry: this request fails
+    fast instead of adding another replay to the herd."""
+
+
+def _reg(registry):
+    if registry is False:
+        return None
+    from ..telemetry.registry import get_registry
+
+    return registry if registry is not None else get_registry()
+
+
+class RetryBudget:
+    """Token bucket over retries: ``try_spend()`` per retry,
+    ``on_success()`` refills ``refill_per_success`` (capped).  Starts
+    full.  Thread-safe — one budget may back every connection of one
+    client (the per-connection granularity the soak uses is one budget
+    per client, which IS per connection-owner here)."""
+
+    def __init__(
+        self,
+        capacity: float = 10.0,
+        *,
+        refill_per_success: float = 0.25,
+        registry=None,
+        worker: Optional[str] = None,
+    ):
+        if capacity <= 0:
+            raise ValueError(f"capacity={capacity}: must be > 0")
+        if refill_per_success < 0:
+            raise ValueError("refill_per_success must be >= 0")
+        self.capacity = float(capacity)
+        self.refill_per_success = float(refill_per_success)
+        self._tokens = float(capacity)
+        self._lock = threading.Lock()
+        self.spent = 0
+        self.exhausted = 0
+        reg = _reg(registry)
+        if reg is not None:
+            labels = {"worker": worker} if worker is not None else {}
+            reg.gauge(
+                "retry_budget_tokens", component="loadgen",
+                fn=self.tokens, **labels,
+            )
+            self._c_exhausted = reg.counter(
+                "retry_budget_exhausted_total", component="loadgen",
+                **labels,
+            )
+        else:
+            self._c_exhausted = None
+
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+    def try_spend(self, n: float = 1.0) -> bool:
+        """Spend ``n`` tokens for a retry; False (and counted) when the
+        bucket cannot cover it — the caller must fail fast."""
+        with self._lock:
+            if self._tokens < n:
+                self.exhausted += 1
+                exhausted = True
+            else:
+                self._tokens -= n
+                self.spent += 1
+                exhausted = False
+        if exhausted and self._c_exhausted is not None:
+            self._c_exhausted.inc()
+        return not exhausted
+
+    def on_success(self) -> None:
+        with self._lock:
+            self._tokens = min(
+                self.capacity, self._tokens + self.refill_per_success
+            )
+
+
+class CircuitBreaker:
+    """Error-rate window → open → half-open probe → closed.
+
+    ``fail()`` / ``ok()`` feed a trailing ``window_s`` event window;
+    when it holds ≥ ``min_failures`` failures AND the failure fraction
+    ≥ ``failure_rate``, the breaker OPENS for ``cooldown_s`` (every
+    ``allow()`` answers False — callers fail fast without touching the
+    wire).  After the cooldown one probe is allowed through
+    (half-open); its ``ok()`` closes the breaker, its ``fail()``
+    reopens it for another cooldown.
+    """
+
+    def __init__(
+        self,
+        *,
+        window_s: float = 1.0,
+        min_failures: int = 5,
+        failure_rate: float = 0.5,
+        cooldown_s: float = 0.25,
+        clock=time.monotonic,
+    ):
+        if window_s <= 0 or cooldown_s <= 0:
+            raise ValueError("window_s and cooldown_s must be > 0")
+        if min_failures < 1:
+            raise ValueError("min_failures must be >= 1")
+        if not 0.0 < failure_rate <= 1.0:
+            raise ValueError("failure_rate in (0, 1]")
+        self.window_s = float(window_s)
+        self.min_failures = int(min_failures)
+        self.failure_rate = float(failure_rate)
+        self.cooldown_s = float(cooldown_s)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._events = []  # (t, ok) inside the window
+        self.state = "closed"  # closed | open | half_open
+        self._opened_at = 0.0
+        self._probe_inflight = False
+        self.transitions: Dict[str, int] = {
+            "open": 0, "half_open": 0, "closed": 0,
+        }
+
+    def _trim(self, now: float) -> None:
+        cutoff = now - self.window_s
+        self._events = [e for e in self._events if e[0] >= cutoff]
+
+    def _to(self, state: str) -> None:
+        self.state = state
+        self.transitions[state] += 1
+
+    def allow(self) -> bool:
+        """May a request go out now?  Closed: yes.  Open: no, until
+        the cooldown elapses — then one half-open probe slot."""
+        now = self._clock()
+        with self._lock:
+            if self.state == "closed":
+                return True
+            if self.state == "open":
+                if now - self._opened_at < self.cooldown_s:
+                    return False
+                self._to("half_open")
+                self._probe_inflight = True
+                return True
+            # half_open: one probe at a time
+            if self._probe_inflight:
+                return False
+            self._probe_inflight = True
+            return True
+
+    def ok(self) -> None:
+        now = self._clock()
+        with self._lock:
+            self._trim(now)
+            self._events.append((now, True))
+            if self.state in ("half_open", "open"):
+                self._probe_inflight = False
+                self._events = []
+                self._to("closed")
+
+    def fail(self) -> None:
+        now = self._clock()
+        with self._lock:
+            self._trim(now)
+            self._events.append((now, False))
+            if self.state == "half_open":
+                self._probe_inflight = False
+                self._opened_at = now
+                self._to("open")
+                return
+            if self.state == "open":
+                return
+            fails = sum(1 for _t, okay in self._events if not okay)
+            total = len(self._events)
+            if (
+                fails >= self.min_failures
+                and fails / total >= self.failure_rate
+            ):
+                self._opened_at = now
+                self._to("open")
+
+
+class BreakerBoard:
+    """One :class:`CircuitBreaker` per shard, created lazily, plus the
+    registry surface (open-breaker gauge, transition counters) — what
+    :class:`~..cluster.client.ClusterClient` consults per request."""
+
+    def __init__(
+        self,
+        *,
+        window_s: float = 1.0,
+        min_failures: int = 5,
+        failure_rate: float = 0.5,
+        cooldown_s: float = 0.25,
+        registry=None,
+        worker: Optional[str] = None,
+        clock=time.monotonic,
+    ):
+        self._kwargs = dict(
+            window_s=window_s, min_failures=min_failures,
+            failure_rate=failure_rate, cooldown_s=cooldown_s,
+            clock=clock,
+        )
+        self._lock = threading.Lock()
+        self._breakers: Dict[int, CircuitBreaker] = {}
+        reg = _reg(registry)
+        if reg is not None:
+            labels = {"worker": worker} if worker is not None else {}
+            reg.gauge(
+                "overload_breaker_open", component="loadgen",
+                fn=self.open_count, **labels,
+            )
+            self._c_trans = {
+                s: reg.counter(
+                    "overload_breaker_transitions_total",
+                    component="loadgen", state=s, **labels,
+                )
+                for s in ("open", "half_open", "closed")
+            }
+        else:
+            self._c_trans = None
+        self._last_trans: Dict[int, Dict[str, int]] = {}
+
+    def _get(self, shard: int) -> CircuitBreaker:
+        with self._lock:
+            br = self._breakers.get(shard)
+            if br is None:
+                br = CircuitBreaker(**self._kwargs)
+                self._breakers[shard] = br
+                self._last_trans[shard] = {
+                    "open": 0, "half_open": 0, "closed": 0,
+                }
+            return br
+
+    def _publish(self, shard: int) -> None:
+        if self._c_trans is None:
+            return
+        br = self._breakers[shard]
+        last = self._last_trans[shard]
+        for s, c in br.transitions.items():
+            if c > last[s]:
+                self._c_trans[s].inc(c - last[s])
+                last[s] = c
+
+    def allow(self, shard: int) -> bool:
+        ok = self._get(shard).allow()
+        self._publish(shard)
+        return ok
+
+    def ok(self, shard: int) -> None:
+        self._get(shard).ok()
+        self._publish(shard)
+
+    def fail(self, shard: int) -> None:
+        self._get(shard).fail()
+        self._publish(shard)
+
+    def state(self, shard: int) -> str:
+        return self._get(shard).state
+
+    def open_count(self) -> int:
+        with self._lock:
+            return sum(
+                1 for b in self._breakers.values() if b.state == "open"
+            )
+
+
+class OverloadGuard:
+    """Shard-edge admission: shed by (verb class, frame priority) at
+    live-depth thresholds.  ``admit`` runs BEFORE the request is
+    parsed — shedding must be the cheapest thing the server does.
+    Over the line protocol that means before the id/payload split;
+    over the binary framing (utils/frames.py) it is cheaper still:
+    the verb id and priority are single header BYTES, so a shed
+    request costs one 24-byte header peek — no TLV, id, or payload
+    work at all (``ShardServer.respond_frame``).
+
+    Effective threshold per request: write-class verbs (push / load /
+    repl / flush) and ``pr=0`` frames use ``write_depth`` (None =
+    never shed — a shed write is a lost update); ``pr=2`` (sheddable,
+    the serving tier's tag) and ``lease`` frames use
+    ``sheddable_depth``; everything else (plain reads) uses
+    ``read_depth``.  A request is shed when the CURRENT depth
+    (including itself) exceeds its threshold.
+    """
+
+    def __init__(
+        self,
+        *,
+        sheddable_depth: int = 8,
+        read_depth: int = 32,
+        write_depth: Optional[int] = None,
+        registry=None,
+        shard: Optional[int] = None,
+    ):
+        if sheddable_depth < 1 or read_depth < 1:
+            raise ValueError("depth thresholds must be >= 1")
+        self.sheddable_depth = int(sheddable_depth)
+        self.read_depth = int(read_depth)
+        self.write_depth = (
+            None if write_depth is None else int(write_depth)
+        )
+        self.sheds = 0
+        self._lock = threading.Lock()
+        reg = _reg(registry)
+        if reg is not None:
+            labels = {"shard": str(shard)} if shard is not None else {}
+            self._counters = {
+                verb: reg.counter(
+                    "overload_shed_total", component="loadgen",
+                    edge="shard", verb=verb, **labels,
+                )
+                for verb in ("pull", "lease", "push", "other")
+            }
+        else:
+            self._counters = None
+
+    def _threshold(self, verb: str, priority: Optional[int]):
+        if verb in _WRITE_VERBS or priority == PRIORITY_CRITICAL:
+            return self.write_depth
+        if verb == "lease" or (
+            priority is not None and priority >= PRIORITY_SHEDDABLE
+        ):
+            return self.sheddable_depth
+        return self.read_depth
+
+    def admit(
+        self, verb: str, priority: Optional[int], depth: int
+    ) -> bool:
+        thr = self._threshold(verb, priority)
+        if thr is None or depth <= thr:
+            return True
+        with self._lock:
+            self.sheds += 1
+        if self._counters is not None:
+            key = verb if verb in ("pull", "lease", "push") else "other"
+            self._counters[key].inc()
+        return False
+
+
+class LoadShedder:
+    """Serving-admission shedding, below the hard ``QueueFull`` line:
+    shed sheddable requests once the queue passes ``shed_at`` of
+    capacity (normal-priority at ``normal_at``), so rejection happens
+    in the submit path — microseconds — instead of after a queue
+    wait."""
+
+    def __init__(
+        self,
+        *,
+        shed_at: float = 0.5,
+        normal_at: float = 0.85,
+        registry=None,
+    ):
+        if not 0.0 < shed_at <= normal_at <= 1.0:
+            raise ValueError(
+                f"need 0 < shed_at ({shed_at}) <= normal_at "
+                f"({normal_at}) <= 1"
+            )
+        self.shed_at = float(shed_at)
+        self.normal_at = float(normal_at)
+        self.sheds = 0
+        self._lock = threading.Lock()
+        reg = _reg(registry)
+        self._c_shed = (
+            reg.counter(
+                "overload_shed_total", component="loadgen",
+                edge="serving", verb="submit",
+            )
+            if reg is not None else None
+        )
+
+    def admit(
+        self, depth: int, max_queue: int,
+        priority: int = PRIORITY_SHEDDABLE,
+    ) -> bool:
+        frac = depth / max(1, max_queue)
+        threshold = (
+            self.shed_at if priority >= PRIORITY_SHEDDABLE
+            else self.normal_at
+        )
+        if priority <= PRIORITY_CRITICAL or frac < threshold:
+            return True
+        with self._lock:
+            self.sheds += 1
+        if self._c_shed is not None:
+            self._c_shed.inc()
+        return False
+
+
+class BrownoutController:
+    """Degrade-not-error: shed pressure widens the hot-row caches'
+    staleness bound by ``widen_factor`` (served entries stay inside
+    ``bound × widen_factor`` ticks — a REAL bound the lease_staleness
+    checker enforces); a quiet period restores it.
+
+    Pressure model: ``note_shed()`` events inside a trailing
+    ``window_s`` window; ≥ ``enter_sheds`` of them enters brownout.
+    Exit when ``exit_quiet_s`` passes without a shed (evaluated on the
+    ``note_ok`` path — a dead-quiet system with no traffic stays
+    browned out until traffic proves recovery, which is the
+    conservative direction).
+    """
+
+    def __init__(
+        self,
+        caches: Iterable = (),
+        *,
+        widen_factor: float = 4.0,
+        enter_sheds: int = 8,
+        window_s: float = 1.0,
+        exit_quiet_s: float = 1.0,
+        registry=None,
+        clock=time.monotonic,
+    ):
+        if widen_factor < 1.0:
+            raise ValueError(
+                f"widen_factor={widen_factor}: must be >= 1"
+            )
+        if enter_sheds < 1:
+            raise ValueError("enter_sheds must be >= 1")
+        self.caches = list(caches)
+        self.widen_factor = float(widen_factor)
+        self.enter_sheds = int(enter_sheds)
+        self.window_s = float(window_s)
+        self.exit_quiet_s = float(exit_quiet_s)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._shed_times = []
+        self._last_shed = 0.0
+        self.active = False
+        self.entries = 0  # brownout episodes entered
+        reg = _reg(registry)
+        if reg is not None:
+            reg.gauge(
+                "brownout_active", component="loadgen",
+                fn=lambda: 1.0 if self.active else 0.0,
+            )
+            self._c_entries = reg.counter(
+                "overload_brownouts_total", component="loadgen"
+            )
+        else:
+            self._c_entries = None
+
+    def attach(self, cache) -> None:
+        with self._lock:
+            self.caches.append(cache)
+            if self.active:
+                cache.set_widen(self.widen_factor)
+
+    def _enter(self) -> None:
+        # caller holds the lock
+        self.active = True
+        self.entries += 1
+        for c in self.caches:
+            c.set_widen(self.widen_factor)
+
+    def _exit(self) -> None:
+        self.active = False
+        for c in self.caches:
+            c.set_widen(1.0)
+
+    def note_shed(self) -> None:
+        now = self._clock()
+        entered = False
+        with self._lock:
+            cutoff = now - self.window_s
+            self._shed_times = [
+                t for t in self._shed_times if t >= cutoff
+            ]
+            self._shed_times.append(now)
+            self._last_shed = now
+            if not self.active and len(
+                self._shed_times
+            ) >= self.enter_sheds:
+                self._enter()
+                entered = True
+        if entered and self._c_entries is not None:
+            self._c_entries.inc()
+
+    def note_ok(self) -> None:
+        now = self._clock()
+        with self._lock:
+            if self.active and now - self._last_shed >= self.exit_quiet_s:
+                self._exit()
+
+
+__all__ = [
+    "BreakerBoard",
+    "BrownoutController",
+    "CircuitBreaker",
+    "LoadShedder",
+    "OverloadGuard",
+    "OverloadedError",
+    "PRIORITY_CRITICAL",
+    "PRIORITY_NORMAL",
+    "PRIORITY_SHEDDABLE",
+    "RetryBudget",
+    "RetryBudgetExhausted",
+]

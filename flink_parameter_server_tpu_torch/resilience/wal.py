@@ -6,10 +6,11 @@ imports JAX.  Modules it names that the port does not have yet are the
 reference's.
 
 In the port the driver logs each batch as its source yielded it (host
-numpy arrays), never a CUDA tensor, so reading the log back needs no card.
-The reference's replication framing (``encode_frame*`` / ``decode_frame*``)
-and keyed ``replay_range`` are left out until the replication and mesh-store
-ports need them (ROADMAP Queue 1 #7, #8).
+numpy arrays), never a CUDA tensor, so reading the log back needs no card;
+the cluster shards and the mesh store journal host arrays too.  The
+reference's replication framing (``encode_frame*`` / ``decode_frame*``) and
+keyed ``replay_range`` are left out until the replication and elastic ports
+need them (ROADMAP Queue 1 #7).
 
 Reference parity gap being closed (SURVEY.md §5, PAPER.md): the
 reference's Flink iteration had no usable checkpointing — a lost worker

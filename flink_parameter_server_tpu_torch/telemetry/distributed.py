@@ -1,0 +1,269 @@
+"""Cross-process request tracing — wire tokens + the ring merger.
+
+A copy of ``flink_parameter_server_tpu/telemetry/distributed.py``, which imports
+no JAX: the port imports nothing of the JAX package, whose ``__init__``
+imports JAX.  Modules it names that the port does not have yet are the
+reference's.
+
+PR 3's span tracer sees ONE process.  A pull that crosses
+``ClusterClient`` → ``ShardServer`` → (hedged retry) → a
+migration-frozen shard is invisible as a single causal story — exactly
+the blind spot the straggler study (arXiv:2308.15482, PAPERS.md) names
+as the source of silent PS throughput loss.  This module closes it
+with three small pieces:
+
+  * :class:`TraceContext` — the identity a request carries:
+    ``(trace_id, span_id)``, serialized on the wire as the compact
+    frame option ``t=<trace>:<span>`` (cluster/shard.py's
+    ``key=value`` trailing-option grammar, so a PR-5-era server
+    ignores the token and answers normally — the protocol versioning
+    is "old peers skip what they don't know");
+  * :func:`parse_token` / :func:`format_token` — tolerant codecs (a
+    malformed token yields ``None``, never a protocol error: tracing
+    must not be able to fail a request);
+  * :class:`TraceCollector` — gathers every participating process's
+    :class:`~.spans.SpanTracer` ring, aligns their clocks, and merges
+    them into ONE Chrome/Perfetto trace where each process is a lane
+    and a hedged pull shows primary and backup racing across lanes.
+
+Clock alignment: each ring anchors its ``perf_counter`` timestamps to
+its own wall clock, and wall clocks drift between hosts.  The
+collector therefore estimates a per-ring offset NTP-style from
+request/response span pairs: a server-side span (child) should sit
+centered inside the client-side span (parent) that issued the request
+— ``offset = midpoint(parent) − midpoint(child)`` per pair, median
+over all pairs between the two rings.  Rings with no pair to an
+already-aligned ring keep their raw wall anchoring (offset 0) — an
+honest fallback, flagged in :meth:`TraceCollector.offsets`.  The
+estimate's error is bounded by the asymmetry of the request's
+out/back network legs (the classic NTP caveat, documented in
+docs/observability.md): on one host it is microseconds; across hosts
+expect ±½ RTT.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from .spans import SpanTracer, gen_id
+
+#: the frame-option key trace tokens ride under (``t=<trace>:<span>``)
+TRACE_OPT = "t"
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """One request's identity: the trace it belongs to and the span
+    that is its direct parent on the far side."""
+
+    trace_id: str
+    span_id: str
+
+    def token(self) -> str:
+        return f"{self.trace_id}:{self.span_id}"
+
+
+def new_trace() -> TraceContext:
+    """A fresh root context (one per logical client request)."""
+    return TraceContext(gen_id(8), gen_id(4))
+
+
+def format_token(ctx: TraceContext) -> str:
+    """The LINE-protocol wire form: ``t=<trace>:<span>``.  The binary
+    framing (utils/frames.py) carries the bare :meth:`TraceContext.
+    token` value as a ``T_TRACE`` TLV instead — same grammar, parsed
+    by the same :func:`parse_token` on the server."""
+    return f"{TRACE_OPT}={ctx.token()}"
+
+
+def parse_token(tok: Optional[str]) -> Optional[TraceContext]:
+    """Inverse of :meth:`TraceContext.token` — tolerant: ``None`` or a
+    malformed token yields ``None`` (a bad trace header must never
+    fail the request it rode in on)."""
+    if not tok or not isinstance(tok, str):
+        return None
+    trace_id, sep, span_id = tok.partition(":")
+    if not sep or not trace_id or not span_id:
+        return None
+    return TraceContext(trace_id, span_id)
+
+
+class TraceCollector:
+    """Merge per-process span rings into one cross-process trace.
+
+    Usage::
+
+        col = TraceCollector()
+        col.add(client_tracer, "client")
+        for i, t in enumerate(shard_tracers):
+            col.add(t, f"shard-{i}")
+        col.export("results/cpu/merged_trace.json")
+
+    Each added ring becomes one Chrome-trace process lane (synthetic
+    lane pids 1..N — several rings usually share one OS pid on the
+    thread-backed runtime, and lanes must not collapse).  Events are
+    clock-aligned (see module docstring) and sorted by timestamp;
+    every ``X`` event's ``args`` carries ``trace_id`` / ``span_id`` /
+    ``parent_id`` keys (``None`` for untraced spans) so the lint
+    (tools/check_metric_lines.py) and the tests can follow causality
+    without heuristics.
+    """
+
+    def __init__(self, *, align: bool = True):
+        self.align = bool(align)
+        self._rings: List[Tuple[SpanTracer, str]] = []
+
+    def add(self, tracer: SpanTracer, name: Optional[str] = None
+            ) -> "TraceCollector":
+        label = (
+            name if name is not None
+            else (tracer.process or f"proc-{len(self._rings)}")
+        )
+        self._rings.append((tracer, label))
+        return self
+
+    # -- alignment ---------------------------------------------------------
+    @staticmethod
+    def _absolute_spans(tracer: SpanTracer) -> List[Dict[str, Any]]:
+        wall, perf = tracer.wall_clock_anchor()
+        out = []
+        for s in tracer.spans():
+            s = dict(s)
+            s["t0"] = wall + (s["start"] - perf)
+            s["t1"] = s["t0"] + s["dur"]
+            out.append(s)
+        return out
+
+    def _estimate_offsets(
+        self, spans_per_ring: Sequence[List[Dict[str, Any]]]
+    ) -> List[float]:
+        """Per-ring additive corrections (seconds).  Ring 0 is the
+        reference; other rings align through parent/child span pairs
+        against any already-aligned ring, in passes, so a chain
+        client → shard → sub-request still aligns end to end."""
+        n = len(spans_per_ring)
+        offsets: List[Optional[float]] = [None] * n
+        if n:
+            offsets[0] = 0.0
+        # span_id → (ring, t0, t1) for every traced span
+        by_span: Dict[str, Tuple[int, float, float]] = {}
+        for r, spans in enumerate(spans_per_ring):
+            for s in spans:
+                if s["span_id"] is not None:
+                    by_span[s["span_id"]] = (r, s["t0"], s["t1"])
+        for _pass in range(n):
+            progressed = False
+            for r, spans in enumerate(spans_per_ring):
+                if offsets[r] is not None:
+                    continue
+                deltas: List[float] = []
+                for s in spans:
+                    # this ring's span is the CHILD of an aligned span
+                    pa = s.get("parent_id")
+                    if pa is not None and pa in by_span:
+                        pr, p0, p1 = by_span[pa]
+                        if pr != r and offsets[pr] is not None:
+                            parent_mid = (p0 + p1) / 2 + offsets[pr]
+                            deltas.append(parent_mid - (s["t0"] + s["t1"]) / 2)
+                    # this ring's span is the PARENT of an aligned span
+                    sp = s.get("span_id")
+                    if sp is None:
+                        continue
+                    for other_r, others in enumerate(spans_per_ring):
+                        if other_r == r or offsets[other_r] is None:
+                            continue
+                        for o in others:
+                            if o.get("parent_id") == sp:
+                                child_mid = (
+                                    (o["t0"] + o["t1"]) / 2
+                                    + offsets[other_r]
+                                )
+                                deltas.append(
+                                    child_mid - (s["t0"] + s["t1"]) / 2
+                                )
+                if deltas:
+                    offsets[r] = float(statistics.median(deltas))
+                    progressed = True
+            if not progressed:
+                break
+        return [o if o is not None else 0.0 for o in offsets]
+
+    # -- the merge ---------------------------------------------------------
+    def offsets(self) -> Dict[str, float]:
+        """Applied per-ring clock corrections, seconds (0.0 = reference
+        or no pair to align through)."""
+        spans_per_ring = [
+            self._absolute_spans(t) for t, _ in self._rings
+        ]
+        offs = (
+            self._estimate_offsets(spans_per_ring)
+            if self.align else [0.0] * len(self._rings)
+        )
+        return {name: off for (_t, name), off in zip(self._rings, offs)}
+
+    def merged_events(self) -> List[Dict[str, Any]]:
+        """The merged Chrome trace-event list: one ``process_name``
+        metadata event per ring, then every span as a ``ph: "X"``
+        event, timestamp-sorted, in microseconds since the earliest
+        aligned span."""
+        spans_per_ring = [
+            self._absolute_spans(t) for t, _ in self._rings
+        ]
+        offs = (
+            self._estimate_offsets(spans_per_ring)
+            if self.align else [0.0] * len(self._rings)
+        )
+        xs: List[Dict[str, Any]] = []
+        for lane, ((_tracer, name), spans, off) in enumerate(
+            zip(self._rings, spans_per_ring, offs), start=1
+        ):
+            for s in spans:
+                xs.append({
+                    "name": s["name"],
+                    "cat": s["component"],
+                    "ph": "X",
+                    "ts": (s["t0"] + off) * 1e6,
+                    "dur": s["dur"] * 1e6,
+                    "pid": lane,
+                    "tid": s["tid"],
+                    "args": {
+                        "depth": s["depth"],
+                        "trace_id": s["trace_id"],
+                        "span_id": s["span_id"],
+                        "parent_id": s["parent_id"],
+                        "process": name,
+                        "clock_offset_us": round(off * 1e6, 3),
+                    },
+                })
+        xs.sort(key=lambda e: e["ts"])
+        t_base = xs[0]["ts"] if xs else 0.0
+        for e in xs:
+            e["ts"] = round(e["ts"] - t_base, 3)
+            e["dur"] = round(e["dur"], 3)
+        meta = [
+            {
+                "name": "process_name", "ph": "M", "pid": lane, "tid": 0,
+                "args": {"name": name},
+            }
+            for lane, (_t, name) in enumerate(self._rings, start=1)
+        ]
+        return meta + xs
+
+    def export(self, path: Optional[str] = None) -> str:
+        doc = json.dumps(self.merged_events())
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(doc)
+        return doc
+
+
+__all__ = [
+    "TRACE_OPT",
+    "TraceContext",
+    "TraceCollector",
+    "format_token",
+    "new_trace",
+    "parse_token",
+]

@@ -611,3 +611,41 @@ def test_pa_sketch_and_fm_steps_match_the_xla_arm(cuda):
     got, want = _one_step_both_arms(cuda, fm.FactorizationMachine(cfg), lambda impl: fm.make_store(
         cfg, scatter_impl=impl, device=cuda), sparse)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("backend", ["socket", "mesh"])
+def test_cluster_on_card_matches_cpu(cuda, backend):
+    """A 2-shard BSP run over TCP (each shard's slice on the card) and a
+    mesh run (the one table on the card), 2 workers each, against the
+    same run with device="cpu": rtol 1e-4 / atol 1e-6 (the reference's
+    cluster bar; two workers' pushes land in either order).  Neither path
+    launches a hand-written kernel."""
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.data.streams import microbatches
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization,
+        SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    nu, ni, dim = 2000, 3000, 32
+    batches = list(microbatches(synthetic_ratings(nu, ni, 8 * 1024, seed=3), 1024))
+    tables = {}
+    wrappers = (scatter_kernel.sorted_scatter_add, mf_kernel.sorted_fused_mf_sgd,
+                fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [fn.launches for fn in wrappers]
+    for dev in (cuda, torch.device("cpu")):
+        logic = OnlineMatrixFactorization(nu, dim, updater=SGDUpdater(0.05), seed=1, device=dev)
+        driver = ClusterDriver(logic, capacity=ni, value_shape=(dim,),
+                               init_fn=ranged_random_factor(7, (dim,)),
+                               config=ClusterConfig(num_shards=2, num_workers=2, store_backend=backend),
+                               registry=False, device=dev)
+        with driver:
+            if backend == "mesh":
+                assert driver.mesh_store.table.device.type == dev.type
+            else:
+                assert all(s.store.table.device.type == dev.type for s in driver.shards)
+            tables[dev.type] = driver.run(batches).values
+    assert [fn.launches for fn in wrappers] == before
+    np.testing.assert_allclose(tables["cuda"], tables["cpu"], rtol=1e-4, atol=1e-6)
