@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the torch port on one NVIDIA card: online MF (bare, through the
-job envelope, answering top-K queries while it trains, and through the
-parameter-server cluster and the mesh store), the other batched workloads
+job envelope, answering top-K queries while it trains, through the
+parameter-server cluster and the mesh store, and resharded live by the
+elastic driver), the registered workloads (MF, PA, count-min) through the
+cluster with their serving verbs, the other batched workloads
 (passive-aggressive, the sketches, word2vec, the factorization machine)
 and the event API, and Transformer LM training through the dense
 parameter server.
@@ -101,6 +103,40 @@ line each; any failure exits non-zero before the last line:
              scatter, and, from a separate range run with a synchronize
              after each step, a worker's round split into pull, step and
              push, beside the card's name and power limit.
+  elastic    registered workloads and live resharding through the entry
+             points a user calls (``workloads.build_cluster_driver``,
+             ``elastic.ElasticClusterDriver``).  ``MFWorkload`` at the MF
+             path's width (100,000 users x 131,072 items, dim 64, its own
+             logic, init and seeded stream of 65,536-rating microbatches, 12
+             rounds; only the run length is cut): a single-process
+             ``StreamingDriver`` anchor over a ``scatter_impl="pallas"``
+             store (K1 once a step and no other kernel); socket BSP 4 shards
+             x 2 workers at the reference's bar (rtol 1e-4, atol 1e-6)
+             against it; under 2-worker BSP traffic over a WAL, a live
+             scale-out 2 -> 3 and a live scale-in 3 -> 2 (each fired when
+             ``cluster_worker_rounds_total`` reaches 4; migration verified
+             bitwise with 0 mismatches, rows moved, the retired shard fully
+             drained) and shard 1 killed and replaced from its WAL, each
+             with the ledger balanced (acked == applied) and at the bar
+             against the static hash run of its final shard count; a hedged
+             pull against a shard that stalls one frame 0.5 s (the hedge
+             wins; one push applied once).  PA (8,192 features, 1,024
+             examples a round, 12 rounds; its stream is a dense host
+             matrix, ~400 MB) through ``build_cluster_driver("pa")``: 2
+             shards x 1 worker twice, bitwise ``oracle_values()``, and
+             ``predict`` over TCP equal to the table's dot products; 2
+             shards x 2 workers within rtol 1e-5 / atol 1e-6 (each worker's
+             combined row lands as its own float32 add).  The count-min
+             sketch (8,192 x 4, 65,536 tokens a round, 12 rounds, q8
+             requested) through ``build_cluster_driver("sketch")``, SSP 2
+             shards x 2 workers: q8 downgraded to float32, the table equal
+             to the numpy bincount, ``query`` and ``topk`` over TCP equal to
+             numpy estimates over the same table.  No cluster or elastic run
+             launches a kernel of the port.  ``elastic:`` lines give rounds/s
+             and updates/s of every run and before, during and after each
+             resize, each migration's rows, bytes and ms, the epoch flip's
+             ms, the hedges fired and won, each workload's rate and the
+             phase's seconds, beside the card's name and power limit.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -1600,6 +1636,381 @@ def phase_cluster(torch, dev, card):
     print(f"cluster: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+ELASTIC_ROUNDS = 12  # only the run length is cut
+ELASTIC_RESIZE_AT = 4  # cluster_worker_rounds_total at which a resize fires (round 2 of 12)
+ELASTIC_PA = dict(rounds=12, batch=1024, num_items=8192)  # a dense 12,288 x 8,192 float32 X: ~400 MB
+ELASTIC_SKETCH = dict(rounds=12, batch=65_536, num_items=4096)  # count-min 8,192 x 4
+ELASTIC_HEDGE_AFTER_S, ELASTIC_HEDGE_DELAY_S = 0.05, 0.5
+PA_TOL = dict(rtol=1e-5, atol=1e-6)  # two workers' rows land as two float32 adds
+
+
+class _SlowOnce:
+    """Mixed into a ShardServer: one pull frame waits ``delay_s`` (the
+    straggler of the reference's tests/test_elastic.py hedging setup),
+    on either framing."""
+
+    def _maybe_stall(self, verb):
+        if verb == "pull" and self.slow.is_set():
+            self.slow.clear()
+            time.sleep(self.delay_s)
+
+    def respond(self, line):
+        self._maybe_stall(line.split(None, 1)[0].lower() if line else "")
+        return super().respond(line)
+
+    def respond_frame(self, data):
+        from flink_parameter_server_tpu_torch.utils import frames
+
+        self._maybe_stall(frames.peek_verb_name(data))
+        return super().respond_frame(data)
+
+
+def _windows(starts, t_run0, t_run1, t0, t1):
+    """Global rounds/s before, during and after a resize, from the round
+    starts of worker 0 (BSP keeps the workers in lockstep); a round is
+    counted in the window its start falls in."""
+    marks = sorted(s for s, w, _t in starts if w == 0)
+    out = {}
+    for name, lo, hi in (("before", t_run0, t0), ("during", t0, t1), ("after", t1, t_run1)):
+        n = sum(lo <= s < hi for s in marks)
+        out[name] = (n, n / (hi - lo) if hi > lo else float("nan"))
+    return out
+
+
+def phase_elastic(torch, dev, card):
+    """Registered workloads and live resharding on the card, through the
+    entry points a user calls (``workloads.build_cluster_driver``,
+    ``elastic.ElasticClusterDriver``).  MF at the main path's width
+    (``MFWorkload``: 100,000 users x 131,072 items, dim 64, its own logic,
+    init and seeded stream of 65,536-rating microbatches, 12 rounds; only
+    the run length is cut): a single-process ``StreamingDriver`` anchor over
+    a ``scatter_impl="pallas"`` store (K1 once a step, no other kernel);
+    socket BSP 4 shards x 2 workers at the reference's bar (rtol 1e-4, atol
+    1e-6) against it; a live scale-out 2 -> 3, a live scale-in 3 -> 2 and a
+    killed shard replaced, each under 2-worker BSP traffic over a WAL, at
+    the bar against the static run of the final shard count, migrations
+    verified bitwise with 0 mismatches and the ledger balanced; a hedged
+    read against a shard that stalls one pull frame.  PA (8,192 features,
+    1,024 examples a round, 12 rounds; a host-memory cut) and the count-min
+    sketch (8,192 x 4, 65,536 tokens a round, 12 rounds, q8 requested), each
+    through ``build_cluster_driver`` with its serving verbs over TCP.  No
+    cluster or elastic run launches a kernel of the port (the shards take
+    the store's ``"xla"`` arm, as the reference's do)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_parameter_server_tpu_torch.cluster import (
+        ClusterClient, ClusterConfig, ParamShard, RangePartitioner, ShardServer,
+    )
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import to_device, to_host
+    from flink_parameter_server_tpu_torch.elastic import (
+        ElasticClusterConfig, ElasticClusterDriver, HedgeBudget, Hedger, MembershipService,
+    )
+    from flink_parameter_server_tpu_torch.elastic import controller as elastic_controller
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.training.driver import DriverConfig, StreamingDriver
+    from flink_parameter_server_tpu_torch.workloads import (
+        WorkloadParams, WorkloadServingClient, build_cluster_driver, create_workload, serve_workload,
+    )
+
+    t_phase = time.perf_counter()
+    mf = create_workload("mf", WorkloadParams(rounds=ELASTIC_ROUNDS, batch=BATCH, num_users=NUM_USERS,
+                                              num_items=NUM_ITEMS, dim=DIM_UNFUSED), device=dev)
+    stream = mf.batches()
+
+    def on_card(what, shards):
+        check(all(s.store.table.device.type == dev.type for s in shards),
+              f"elastic: {what}: not every shard slice is on {dev.type}")
+
+    def rate(what, r, extra=""):
+        print(f"elastic: {what}: {r.rounds} rounds in {r.wall_s:.3f} s: {r.rounds / r.wall_s:.2f} rounds/s, "
+              f"{r.updates_per_sec:.0f} updates/s{extra}; {card}")
+
+    def at_bar(what, vals, ref):
+        err = float(np.abs(vals.astype(np.float64) - ref).max())
+        print(f"elastic: {what}: max_abs_err={err:.3e} (rtol=1e-4 atol=1e-6); {card}")
+        check(bool(np.isfinite(vals).all()) and bool(np.allclose(vals, ref, **CLUSTER_BAR)),
+              f"elastic: {what} breaks the reference's bar (max_abs_err {err:.3e})")
+
+    # the single-process anchor: StreamingDriver over K1 (the second,
+    # counted and timed run is the one kept)
+    for counted in (False, True):
+        store = ShardedParamStore.create(mf.capacity, mf.value_shape, init_fn=mf.init_fn(),
+                                         scatter_impl="pallas", device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        anchor = StreamingDriver(mf.make_logic(), store,
+                                 config=DriverConfig(telemetry=False, dump_model=False)).run(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    read_counts("the elastic phase's single-process MF anchor", {"scatter_add": ELASTIC_ROUNDS})
+    base = to_host(anchor.store.values(), copy=True)
+    del anchor, store
+    check(bool(np.isfinite(base).all()), "elastic: the anchor's table is not finite")
+    print(f"elastic: MFWorkload single-process StreamingDriver (pallas, K1 {ELASTIC_ROUNDS} launches): "
+          f"{ELASTIC_ROUNDS / wall:.2f} rounds/s, {ELASTIC_ROUNDS * BATCH / wall:.0f} updates/s; {card}")
+
+    def static(what, **cfg):
+        zero_counts()
+        d = build_cluster_driver(mf, config=ClusterConfig(num_workers=2, staleness_bound=0, **cfg), registry=False)
+        with d:
+            on_card(what, d.shards)
+            r = d.run(stream, timeout=600)
+        read_counts(f"elastic: {what}", {})
+        rate(what, r)
+        return r.values
+
+    four = static("build_cluster_driver('mf') socket BSP 4x2 (range)", num_shards=4)
+    at_bar("socket BSP 4x2 against the single-process anchor", four, base)
+    statics = {n: static(f"static {n}-shard hash BSP x2", num_shards=n, partition="hash") for n in (2, 3)}
+    for n in (2, 3):
+        at_bar(f"static {n}-shard hash against the single-process anchor", statics[n], base)
+
+    tmp = tempfile.mkdtemp(prefix="elastic-", dir=os.path.join(REPO, "build"))
+    marks = {}
+    execute_moves = elastic_controller.execute_moves
+
+    def timed_moves(*a, **k):  # where the data plane ends and the flip begins
+        t = time.perf_counter()
+        report = execute_moves(*a, **k)
+        marks["moves_s"], marks["moves_end"] = time.perf_counter() - t, time.perf_counter()
+        return report
+
+    def elastic(what, num_shards, action, name):
+        reg = MetricsRegistry()
+        d = build_cluster_driver(
+            mf, config=ElasticClusterConfig(num_shards=num_shards, num_workers=2, wal_dir=os.path.join(tmp, name)),
+            driver_cls=ElasticClusterDriver, registry=reg,
+        )
+        d.start()
+        on_card(what, d.shards)
+        publish = d.membership.publish
+
+        def timed_publish(*a, **k):
+            out = publish(*a, **k)
+            marks["publish_end"] = time.perf_counter()
+            return out
+
+        d.membership.publish = timed_publish
+        rounds_c = reg.counter("cluster_worker_rounds_total", component="cluster")
+        starts, out, errors, win = [], [], [], {}
+
+        def control():
+            try:
+                deadline = time.monotonic() + 300
+                while rounds_c.value < ELASTIC_RESIZE_AT and time.monotonic() < deadline:
+                    time.sleep(0.0005)
+                check(rounds_c.value >= ELASTIC_RESIZE_AT, f"elastic: {what}: the run never reached the resize")
+                win["t0"] = time.perf_counter()
+                out.append(action(d))
+                win["t1"] = time.perf_counter()
+            except BaseException as e:  # re-raised on the main thread below
+                errors.append(e)
+
+        marks.clear()
+        zero_counts()
+        elastic_controller.execute_moves = timed_moves
+        th = threading.Thread(target=control, name="elastic-smoke-control", daemon=True)
+        try:
+            t_run0 = time.perf_counter()
+            th.start()
+            r = d.run(stream, timeout=600, round_hook=lambda w, t: starts.append((time.perf_counter(), w, t)))
+            t_run1 = t_run0 + r.wall_s  # the rounds' end, before the final table's dump
+            th.join(timeout=300)
+            check(not th.is_alive(), f"elastic: {what}: the resize did not finish")
+            if errors:
+                raise errors[0]
+            on_card(f"{what}, after", d.shards)
+            acked = sum(c.rows_pushed for c in d._clients)
+            applied = sum(sh.rows_applied for sh in d.all_shards)
+            retried = sum(c.frames_retried for c in d._clients)
+            stall = [i for i in reg.instruments() if i.name == "elastic_migration_stall_seconds"]
+            stall_ms = stall[0].sum / stall[0].count * 1e3 if stall and stall[0].count else float("nan")
+            epoch = d.membership.current().epoch
+            shards_after = d.partitioner.num_shards
+            retired = [sh for sh, _srv in d._retired]
+        finally:
+            elastic_controller.execute_moves = execute_moves
+            d.stop()
+        read_counts(f"elastic: {what}", {})
+        rate(what, r, f", ledger acked {acked} applied {applied}, {retried} batch replays")
+        check(acked == applied and acked > 0, f"elastic: {what}: ledger acked {acked} != applied {applied}")
+        w = _windows(starts, t_run0, t_run1, win["t0"], win["t1"])
+        print(f"elastic: {what}: rounds/s (updates/s) " + ", ".join(
+            f"{k} {v[1]:.2f} ({v[1] * BATCH:.0f}) over {v[0]} rounds" for k, v in w.items())
+            + f"; the action took {(win['t1'] - win['t0']) * 1e3:.1f} ms; {card}")
+        return out[0], r.values, dict(epoch=epoch, shards=shards_after, retired=retired, marks=dict(marks),
+                                      stall_ms=stall_ms)
+
+    def migration_line(what, report, info):
+        moved_bytes = report.rows_moved * DIM_UNFUSED * 4
+        m = info["marks"]
+        flip_ms = (m["publish_end"] - m["moves_end"]) * 1e3
+        print(f"elastic: {what}: migration moved {report.rows_moved} rows ({moved_bytes} B) in "
+              f"{m['moves_s'] * 1e3:.1f} ms ({report.tail_rows} rows from {report.tail_records} WAL-tail records, "
+              f"{report.pairs_handed_off} dedupe pairs handed off), epoch flip {flip_ms:.1f} ms, freeze-to-flip "
+              f"stall {info['stall_ms']:.1f} ms, verified {report.verified}, {report.mismatches} mismatches; {card}")
+        check(report.verified and report.mismatches == 0 and report.rows_moved > 0,
+              f"elastic: {what}: migration not verified: {report}")
+
+    try:
+        report, vals, info = elastic("live scale-out 2 -> 3 shards", 2, lambda d: d.scale_out(), "out")
+        migration_line("scale-out", report, info)
+        check(info["epoch"] == 1 and info["shards"] == 3, f"elastic: scale-out ended at {info}")
+        at_bar("live scale-out against the static 3-shard run", vals, statics[3])
+
+        report, vals, info = elastic("live scale-in 3 -> 2 shards", 3, lambda d: d.scale_in(), "in")
+        migration_line("scale-in", report, info)
+        check(info["epoch"] == 1 and info["shards"] == 2 and len(info["retired"]) == 1,
+              f"elastic: scale-in ended at {info}")
+        gone = info["retired"][0]
+        check(report.rows_moved == len(gone.owned) and gone.stats()["frozen"] == len(gone.owned),
+              f"elastic: the retired shard was not fully drained ({report.rows_moved} of {len(gone.owned)} rows)")
+        at_bar("live scale-in against the static 2-shard run", vals, statics[2])
+
+        def kill_and_replace(d):
+            d.kill_shard(1)
+            time.sleep(0.05)  # the window in which workers retry against the dead address
+            t = time.perf_counter()
+            replayed = d.replace_shard(1)
+            print(f"elastic: replace_shard(1): {replayed} WAL records replayed in "
+                  f"{(time.perf_counter() - t) * 1e3:.1f} ms; {card}")
+            return replayed
+
+        replayed, vals, info = elastic("shard 1 killed and replaced", 2, kill_and_replace, "replace")
+        check(replayed > 0 and info["epoch"] == 1, f"elastic: replacement replayed {replayed}, {info}")
+        at_bar("kill -> replace against the static 2-shard run", vals, statics[2])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # a hedged read against a shard that stalls one pull frame
+    class SlowServer(_SlowOnce, ShardServer):
+        pass
+
+    part = RangePartitioner(NUM_ITEMS, 1)
+    init = mf.init_fn()
+    shard = ParamShard(0, part, (DIM_UNFUSED,), init_fn=init, registry=False, device=dev)
+    server = SlowServer(shard, supervised=False).start()
+    server.slow, server.delay_s = threading.Event(), ELASTIC_HEDGE_DELAY_S
+    reg = MetricsRegistry()
+    hedger = Hedger(ELASTIC_HEDGE_AFTER_S, budget=HedgeBudget(1.0, burst=16), registry=reg)
+    client = ClusterClient(value_shape=(DIM_UNFUSED,), registry=False, hedge=hedger,
+                           membership=MembershipService(part, [(server.host, server.port)], registry=False))
+    try:
+        ids = np.arange(0, NUM_ITEMS, 16, dtype=np.int64)
+        client.pull_batch(ids[:64])  # warm the primary connection
+        server.slow.set()
+        t0 = time.perf_counter()
+        vals = client.pull_batch(ids)
+        wall = time.perf_counter() - t0
+        want = to_host(init(to_device(ids.astype(np.int32), dev)), copy=True)
+        check(np.array_equal(vals, want), "elastic: the hedged pull is not the slice's rows")
+        push_ids = ids[:512]
+        before = client.pull_batch(push_ids)
+        client.push_batch(push_ids, np.ones((len(push_ids), DIM_UNFUSED), np.float32))
+        after = client.pull_batch(push_ids)
+        counts = {i.name: i.value for i in reg.instruments()}
+        print(f"elastic: hedged pull of {len(ids)} rows against a shard stalling one frame {ELASTIC_HEDGE_DELAY_S} s: "
+              f"{wall * 1e3:.1f} ms, hedges fired {hedger.hedges_issued} frames, won {hedger.hedges_won} "
+              f"(elastic_hedged_pulls_total {counts.get('elastic_hedged_pulls_total')}, "
+              f"elastic_hedges_won_total {counts.get('elastic_hedges_won_total')}); the push applied "
+              f"{shard.rows_applied} rows for {len(push_ids)} pushed; {card}")
+        check(wall < ELASTIC_HEDGE_DELAY_S / 2 and hedger.hedges_won >= 1, "elastic: the hedge did not win")
+        check(shard.rows_applied == len(push_ids) and np.array_equal(after, before + np.float32(1.0)),
+              "elastic: a push was applied other than once")
+    finally:
+        client.close()
+        server.stop()
+        shard.close()
+
+    # PA through build_cluster_driver: bitwise at one worker, twice
+    pa = create_workload("pa", WorkloadParams(**ELASTIC_PA), device=dev)
+    t0 = time.perf_counter()
+    pa_stream = pa.batches()
+    pa.batches = lambda: pa_stream  # the oracle and every arm take this one stream
+    print(f"elastic: PA stream ({ELASTIC_PA}, {pa_stream[0]['ids'].shape[1]} features a padded example) "
+          f"built in {time.perf_counter() - t0:.1f} s; {card}")
+    oracle = pa.oracle_values()
+
+    def pa_run(what, workers):
+        zero_counts()
+        d = build_cluster_driver(pa, config=ClusterConfig(num_shards=2, num_workers=workers, staleness_bound=0),
+                                 registry=False)
+        with d:
+            on_card(what, d.shards)
+            r = d.run(pa_stream, timeout=600)
+            served = None
+            if workers == 1:
+                client = d._make_client(worker="serve")
+                server = serve_workload(pa, client, registry=False)
+                try:
+                    sc = WorkloadServingClient(server.host, server.port)
+                    rng = np.random.default_rng(0)
+                    ex = [[(int(i), float(v)) for i, v in zip(rng.choice(pa.capacity, 5, replace=False),
+                                                              rng.standard_normal(5))] for _ in range(8)]
+                    served = (ex, sc.predict(ex))
+                finally:
+                    server.stop()
+                    client.close()
+        read_counts(f"elastic: {what}", {})
+        rate(what, r)
+        return r.values, served
+
+    one, served = pa_run("build_cluster_driver('pa') BSP 2 shards x 1 worker", 1)
+    again, _ = pa_run("build_cluster_driver('pa') BSP 2 shards x 1 worker, again", 1)
+    print(f"elastic: PA 1-worker cluster tables against oracle_values(): "
+          f"{'bitwise equal' if one.tobytes() == oracle.tobytes() == again.tobytes() else 'DIFFER'}; {card}")
+    check(one.tobytes() == oracle.tobytes() == again.tobytes(), "elastic: PA is not bitwise its oracle")
+    ex, margins = served
+    # the server's own arithmetic: float32 weights dotted with the values
+    # as the client sent them (6 significant digits), answered to 6
+    want = [float(f"{float(one[[i for i, _ in e]] @ np.asarray([float(f'{v:.6g}') for _, v in e], np.float32)):.6g}")
+            for e in ex]
+    check(margins == want, f"elastic: predict over TCP {margins} != the table's dot products {want}")
+    two, _ = pa_run("build_cluster_driver('pa') BSP 2 shards x 2 workers", 2)
+    err = float(np.abs(two - oracle).max())
+    print(f"elastic: PA 2-worker cluster against oracle_values(): max_abs_err={err:.3e} (rtol=1e-5 atol=1e-6: "
+          f"each worker's combined row is its own float32 add); {card}")
+    check(bool(np.allclose(two, oracle, **PA_TOL)), f"elastic: PA 2-worker table off its oracle by {err:.3e}")
+
+    # the count-min sketch through build_cluster_driver: exact, q8 downgraded
+    sk = create_workload("sketch", WorkloadParams(**ELASTIC_SKETCH), device=dev)
+    check((sk.width, sk.depth) == (8192, 4), f"elastic: the sketch is {sk.width} x {sk.depth}")
+    zero_counts()
+    reg = MetricsRegistry()
+    d = build_cluster_driver(sk, config=ClusterConfig(num_shards=2, num_workers=2, staleness_bound=2,
+                                                      wire_format="q8"), registry=reg)
+    with d:
+        on_card("sketch", d.shards)
+        check(all(c.wire_format == "b64" and c._compressor is None for c in d._clients),
+              "elastic: the sketch's q8 request was not downgraded to float32")
+        r = d.run(sk.batches(), timeout=600)
+        client = d._make_client(worker="serve")
+        server = serve_workload(sk, client, registry=reg)
+        try:
+            sc = WorkloadServingClient(server.host, server.port)
+            keys = np.random.default_rng(1).integers(0, sk.vocab, 64)
+            est = sc.query(keys)
+            top = sc.topk(16)
+        finally:
+            server.stop()
+            client.close()
+    read_counts("elastic: sketch", {})
+    rate("build_cluster_driver('sketch') SSP 2 shards x 2 workers, q8 requested", r)
+    oracle = sk.oracle_values()
+    check(np.array_equal(r.values, oracle), "elastic: the sketch table is not the bincount oracle")
+    numpy_est = r.values[sk.cells_np(np.arange(sk.vocab))].min(axis=1)
+    check(est == [int(numpy_est[k]) for k in keys], "elastic: sketch query over TCP != numpy estimates")
+    order = sorted(range(sk.vocab), key=lambda i: (-numpy_est[i], i))[:16]
+    check(top == [(i, int(numpy_est[i])) for i in order], "elastic: sketch topk over TCP != numpy ranking")
+    print(f"elastic: sketch table equals the numpy bincount ({int(oracle.sum())} counts); 64 queries and a "
+          f"top-16 over TCP equal numpy estimates over the same table; {card}")
+    print(f"elastic: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -2350,6 +2761,7 @@ def main() -> int:
         phase_serving(torch, dev, card)
         wl_rows, wl_traces = phase_workloads(torch, dev, card)
         phase_cluster(torch, dev, card)
+        phase_elastic(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

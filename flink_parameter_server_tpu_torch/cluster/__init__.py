@@ -20,7 +20,7 @@ from .partition import (
     RangePartitioner,
 )
 from .procs import RemoteShardStub, ShardProcess, ShardProcSpec
-from .shard import ParamShard, ShardCrashed, ShardServer
+from .shard import FrozenKeys, ParamShard, ShardCrashed, ShardServer, StaleEpoch
 
 __all__ = [
     "ClusterClient",
@@ -28,6 +28,7 @@ __all__ = [
     "ClusterDriver",
     "ClusterResult",
     "ConsistentHashPartitioner",
+    "FrozenKeys",
     "ParamShard",
     "Partitioner",
     "RangePartitioner",
@@ -37,5 +38,6 @@ __all__ = [
     "ShardProcess",
     "ShardCrashed",
     "ShardServer",
+    "StaleEpoch",
     "StalenessClock",
 ]

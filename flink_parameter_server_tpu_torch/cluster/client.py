@@ -3,12 +3,14 @@
 A copy of ``flink_parameter_server_tpu/cluster/client.py``, which imports
 no JAX: the port imports nothing of the JAX package, whose ``__init__``
 imports JAX.  Modules it names that the port does not have yet are the
-reference's.  Only the static client is ported: a fixed list of shard
-addresses under one partitioner.  The reference's ``membership`` (elastic
-re-routing and its retry loop), ``replicas`` (replica-chain reads),
-``hedge`` / ``push_hedge`` and ``hotcache`` (the lease cache) wait for
-elastic/, replication/ and hotcache/ (ROADMAP Queue 1 #7), and
-``wire_proto="shm"`` for shmem/.
+reference's.  Ported: the static client (a fixed list of shard addresses
+under one partitioner) and the elastic one (``membership`` routing with
+its refresh-and-retry loop, the ``pid`` exactly-once token and ``hedge``
+pull races).  The reference's ``replicas`` (replica-chain reads),
+``push_hedge``, ``hotcache`` (the lease cache) and ``retry_budget`` (the
+soak harness's token bucket) raise ``NotImplementedError`` until
+replication/, adaptive/, hotcache/ and the rest of loadgen/ are ported
+(ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/.
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
 real shard sockets, plus the batch surface the compiled path uses.
@@ -58,10 +60,36 @@ pushes.
 
 Pull RTT lands in a ``cluster_pull_rtt_seconds`` histogram per client
 (p99 is the benchmark's tail-latency column).
+
+Elastic routing (the reference's docs/elastic.md): handed a
+``membership`` view (:class:`~..elastic.membership.MembershipService`),
+the client derives its partitioner + shard addresses from the CURRENT
+epoch, tags every pull/push frame with ``e=<epoch>``, and turns shard
+rejections into retries instead of errors:
+
+  * ``err stale-epoch`` — the map flipped under the frame: refresh the
+    membership view (counted in ``elastic_epoch_refreshes_total``),
+    re-route the frame's ids under the new map, replay;
+  * ``err frozen`` — the frame touches a key range mid-migration:
+    back off a few ms and replay (the flip that re-homes the range is
+    imminent);
+  * connection errors — a shard died or was replaced: drop the cached
+    connection, refresh (the controller publishes the replacement's
+    address under a new epoch), replay.  Pushes carry a per-batch
+    ``pid`` token so a replay of a frame whose ack was lost is
+    deduplicated shard-side — latency, never a double-apply.
+
+A client without ``membership`` behaves exactly as before: static
+addresses, no epoch tags, rejections raise.  ``hedge=`` accepts a
+:class:`~..elastic.hedging.Hedger`: pull frames race a budgeted backup
+connection against a slow shard — first answer wins (pulls are
+idempotent; pushes are never hedged).  Retry volume is visible on /metrics as ``client_retries_total{verb,reason}``.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import socket
 import threading
 import time
@@ -86,6 +114,11 @@ from .partition import Partitioner
 from .shard import format_rows, parse_rows
 
 _NULL_CM = contextlib.nullcontext()
+# replay-round backoff (decorrelated jitter between these bounds) and the
+# stale-epoch storm the flight recorder is told about: 25 replay rounds
+# inside 5 s
+_RETRY_SLEEP_S, _RETRY_SLEEP_CAP_S = 0.002, 0.05
+_STORM_RETRIES, _STORM_WINDOW_S = 25, 5.0
 
 
 class ShardConnection:
@@ -296,6 +329,29 @@ def _check_ok(resp, what: str):
     return resp
 
 
+def _is_reject(resp) -> bool:
+    """A shard answer the elastic client treats as retry-after-refresh
+    rather than an error: the map flipped (stale-epoch) or the keys are
+    mid-migration (frozen)."""
+    status = _frame_status(resp)
+    if status is not None:
+        return status in (binf.STATUS_STALE_EPOCH, binf.STATUS_FROZEN)
+    return resp.startswith("err stale-epoch") or resp.startswith(
+        "err frozen"
+    )
+
+
+def _reject_reason(resp) -> str:
+    status = _frame_status(resp)
+    if status is not None:
+        return (
+            "frozen" if status == binf.STATUS_FROZEN else "stale-epoch"
+        )
+    return (
+        "frozen" if resp.startswith("err frozen") else "stale-epoch"
+    )
+
+
 def _is_overloaded(resp) -> bool:
     """The shard's typed shed answer (loadgen/overload.py
     ``OverloadGuard``): the request was REJECTED under load pressure,
@@ -306,6 +362,18 @@ def _is_overloaded(resp) -> bool:
     if status is not None:
         return status == binf.STATUS_OVERLOADED
     return resp.startswith("err overloaded")
+
+
+class _Rejected(Exception):
+    """Internal: carries the ids a shard rejected (stale-epoch/frozen)
+    or could not be reached for, so the batch loop replays exactly
+    those under a refreshed map.  ``reason`` labels the retry counter
+    (stale-epoch | frozen | conn | breaker_open)."""
+
+    def __init__(self, ids: np.ndarray, reason: str = "reject"):
+        super().__init__(f"{len(ids)} ids rejected ({reason})")
+        self.ids = ids
+        self.reason = reason
 
 
 class _PoolWorker:
@@ -419,8 +487,8 @@ class ClusterClient(ParameterServerClient):
 
     def __init__(
         self,
-        addresses: Sequence[Tuple[str, int]],
-        partitioner: Partitioner,
+        addresses: Optional[Sequence[Tuple[str, int]]] = None,
+        partitioner: Optional[Partitioner] = None,
         value_shape: Sequence[int] = (),
         *,
         window: int = 8,
@@ -432,18 +500,49 @@ class ClusterClient(ParameterServerClient):
         spawn_grace_s: float = 0.0,
         registry=None,
         worker: Optional[str] = None,
+        membership=None,
+        replicas=None,
+        hedge=None,
+        push_hedge=None,
+        hotcache=None,
+        retry_timeout: float = 30.0,
+        retry_budget=None,
         breakers=None,
         priority: Optional[int] = None,
         tracer=None,
         profiler=None,
     ):
-        if len(addresses) != partitioner.num_shards:
-            raise ValueError(
-                f"{len(addresses)} shard addresses for a "
-                f"{partitioner.num_shards}-shard partitioner"
-            )
-        self.partitioner = partitioner
-        self._addresses = [tuple(a) for a in addresses]
+        _not_ported = (
+            ("replicas", replicas, "replication/"),
+            ("push_hedge", push_hedge, "adaptive/"),
+            ("hotcache", hotcache, "hotcache/"),
+            ("retry_budget", retry_budget, "loadgen/ (soak)"),
+        )
+        for knob, value, item in _not_ported:
+            if value:
+                raise NotImplementedError(
+                    f"ClusterClient {knob}=: {item} is not ported yet "
+                    f"(ROADMAP Queue 1 #7)"
+                )
+        if membership is None:
+            if addresses is None or partitioner is None:
+                raise ValueError(
+                    "static client needs addresses + partitioner "
+                    "(or pass membership=)"
+                )
+            if len(addresses) != partitioner.num_shards:
+                raise ValueError(
+                    f"{len(addresses)} shard addresses for a "
+                    f"{partitioner.num_shards}-shard partitioner"
+                )
+            self._epoch: Optional[int] = None
+            self.partitioner = partitioner
+            self._addresses = [tuple(a) for a in addresses]
+        else:
+            view = membership.current()
+            self._epoch = view.epoch
+            self.partitioner = view.partitioner
+            self._addresses = [tuple(a) for a in view.addresses]
         if chunk < 1:
             raise ValueError(f"chunk={chunk}: must be >= 1")
         if wire_format not in ("text", "b64", "bf16", "q8"):
@@ -461,6 +560,8 @@ class ClusterClient(ParameterServerClient):
                 "is not ported yet (ROADMAP Queue 1 #7, shmem); use "
                 "'auto' (binary TCP) or 'line'"
             )
+        self.membership = membership
+        self.hedge = hedge
         self.value_shape = tuple(int(s) for s in value_shape)
         self.chunk = int(chunk)
         # b64 (default): exact fp32 bytes, ~100x cheaper than per-float
@@ -477,18 +578,29 @@ class ClusterClient(ParameterServerClient):
         self._wire_proto = wire_proto
         # spawn grace (cluster/procs.py): a just-spawned shard process
         # may not have bound yet when its first dial arrives — retry
-        # REFUSED dials inside this window instead of failing
+        # REFUSED dials inside this window instead of surfacing a
+        # conn-class reject that burns retry budget
         self._spawn_grace_s = float(spawn_grace_s)
         self._window = int(window)
         self._timeout = float(timeout)
         self._connect_timeout = float(connect_timeout)
+        self.retry_timeout = float(retry_timeout)
         # overload control (loadgen/overload.py, docs/loadgen.md):
-        # breakers = per-shard circuit BreakerBoard (an open shard's
-        # frames fail fast without touching the wire); priority rides
-        # frames as pr=<n> so the shard-edge guard can shed serving
-        # traffic before training pushes
+        # breakers = per-shard circuit BreakerBoard (an open
+        # shard's frames fail fast without touching the wire); priority
+        # rides frames as pr=<n> so the shard-edge guard can shed
+        # serving traffic before training pushes
         self.breakers = breakers
         self._priority = None if priority is None else int(priority)
+        # retry backoff state: decorrelated-jitter sleeps need the
+        # previous draw, and each client needs its OWN stream — a herd
+        # of workers replaying into a recovering shard must disperse,
+        # not arrive in lockstep
+        self._retry_rng = np.random.default_rng(
+            (os.getpid() << 16) ^ (id(self) & 0xFFFF_FFFF)
+            ^ (hash(worker) & 0xFFFF if worker is not None else 0)
+        )
+        self._last_retry_sleep: Optional[float] = None
         self._conns: Dict[Tuple[str, int], ShardConnection] = {}
         # persistent per-shard fan-out threads (no per-batch spawns)
         self._pool = _FanoutPool(
@@ -500,10 +612,22 @@ class ClusterClient(ParameterServerClient):
         self.pulls_coalesced = 0  # duplicate lanes saved from the wire
         self.pushes_coalesced = 0
         self.rows_pushed = 0  # unique delta rows acked (the audit ledger)
+        self.frames_retried = 0  # frames replayed after a reject/refresh
+        # per-batch idempotence token base: unique per client instance
+        self._pid_base = f"{os.getpid():x}.{id(self):x}"
+        self._pid_counter = itertools.count()
         # distributed tracing (telemetry/distributed.py): with a tracer
         # attached, each pull/push batch becomes one trace, each shard
         # request a child span whose id rides the frame as t=<tr>:<sp>
         self._tracer = tracer
+        # stale-epoch storms: retry rounds that keep failing to
+        # converge on a servable map trip the flight recorder once
+        if membership is not None:
+            from ..telemetry.flightrec import StormDetector
+
+            self._storm = StormDetector(_STORM_RETRIES, _STORM_WINDOW_S)
+        else:
+            self._storm = None
         # unified plane (component=cluster): the pull RTT histogram and
         # the live in-flight window gauge
         if registry is not False:
@@ -511,6 +635,9 @@ class ClusterClient(ParameterServerClient):
 
             reg = registry if registry is not None else get_registry()
             labels = {"worker": worker} if worker is not None else {}
+            # stash for the on-demand retry counters (_await_retry):
+            # client_retries_total{verb,reason} label pairs are only
+            # known at retry time
             self._reg = reg
             self._labels = dict(labels)
             self._h_rtt = reg.histogram(
@@ -520,14 +647,33 @@ class ClusterClient(ParameterServerClient):
                 "inflight_pulls", component="cluster", fn=self.inflight,
                 **labels,
             )
+            self._c_refresh = (
+                reg.counter(
+                    "elastic_epoch_refreshes_total", component="elastic",
+                    **labels,
+                )
+                if membership is not None
+                else None
+            )
+            self._c_storms = (
+                reg.counter(
+                    "elastic_stale_epoch_storms_total",
+                    component="elastic", **labels,
+                )
+                if membership is not None
+                else None
+            )
         else:
             self._reg = None
             self._labels = {}
             self._h_rtt = None
+            self._c_refresh = None
+            self._c_storms = None
         # per-SHARD pull RTT (timeline plane, docs/observability.md):
         # the worker-labelled histogram above answers "is this worker
         # slow"; these lazily-registered per-shard twins answer "WHICH
-        # shard is making it slow"
+        # shard is making it slow".  Lazy because the shard set is a
+        # runtime variable under the elastic plane.
         self._h_shard_rtt: Dict[int, Any] = {}
         # latency-budget phases (telemetry/profiler.py): per-frame
         # client serialize / round trip / parse — the client side of
@@ -541,7 +687,8 @@ class ClusterClient(ParameterServerClient):
         # error-feedback DeltaCompressor — the table ALWAYS receives
         # exactly the dequantized rows, over any framing (q8/bf16
         # frames on advertising peers, exact f32 on old ones), so
-        # mixed fleets stay deterministic.  BSP carve-out is the
+        # replays, re-routes and mixed fleets stay deterministic and
+        # the exactly-once ledger balances.  BSP carve-out is the
         # DRIVER's job (bound-0 worker clients are built with "b64").
         self._compressor = None
         self._c_bytes_saved = None
@@ -566,7 +713,7 @@ class ClusterClient(ParameterServerClient):
         the live pipelining depth (<= window × shards)."""
         return sum(c.inflight for c in list(self._conns.values()))
 
-    # -- connections --------------------------------------------------------
+    # -- connections / membership -------------------------------------------
     def _dial(self, addr: Tuple[str, int]) -> ShardConnection:
         """Dial one shard (negotiating the binary framing when
         ``wire_proto="auto"``).  A REFUSED dial inside the spawn grace
@@ -590,13 +737,98 @@ class ClusterClient(ParameterServerClient):
                     raise
                 time.sleep(0.02)
 
-    def _conn_for(self, shard: int) -> ShardConnection:
-        addr = self._addresses[shard]
+    def _conn_for_addr(self, addr: Tuple[str, int]) -> ShardConnection:
         conn = self._conns.get(addr)
         if conn is None:
             conn = self._dial(addr)
             self._conns[addr] = conn
         return conn
+
+    def _conn_for(self, shard: int) -> ShardConnection:
+        return self._conn_for_addr(self._addresses[shard])
+
+    def _drop_conn(self, shard: int) -> None:
+        conn = self._conns.pop(self._addresses[shard], None)
+        if conn is not None:
+            conn.close()
+
+    def _refresh_membership(self) -> bool:
+        """Re-read the membership view; adopt a newer epoch's map +
+        addresses (closing connections to addresses that left).
+        Returns True when a new epoch was adopted."""
+        if self.membership is None:
+            return False
+        view = self.membership.current()
+        if view.epoch == self._epoch:
+            return False
+        self._epoch = view.epoch
+        self.partitioner = view.partitioner
+        new_addrs = [tuple(a) for a in view.addresses]
+        keep = set(new_addrs)
+        for addr in list(self._conns):
+            if addr not in keep:
+                self._conns.pop(addr).close()
+        self._addresses = new_addrs
+        if self._c_refresh is not None:
+            self._c_refresh.inc()
+        return True
+
+    def _next_retry_sleep(self, attempt: int) -> float:
+        """The next replay-round sleep: capped exponential with
+        DECORRELATED jitter — ``uniform(base, min(cap, 3 × previous))``
+        with the exponential ceiling as a floor on the range, capped at
+        50 ms.  Per-client seeded draws decorrelate a herd of workers
+        replaying into a recovering shard."""
+        base, cap = _RETRY_SLEEP_S, _RETRY_SLEEP_CAP_S
+        ceiling = min(cap, base * (2 ** min(attempt, 16)))
+        prev = self._last_retry_sleep if self._last_retry_sleep else base
+        hi = min(cap, max(prev * 3.0, ceiling))
+        sleep = float(self._retry_rng.uniform(base, max(base, hi)))
+        sleep = min(cap, sleep)
+        self._last_retry_sleep = sleep
+        return sleep
+
+    def _await_retry(
+        self, deadline: float, attempt: int, what: str,
+        reason: str = "reject",
+    ) -> None:
+        """Between replay rounds: refresh the view; if nothing changed,
+        sleep briefly (the flip/replacement is in flight) — bounded by
+        ``retry_timeout`` so a wedged cluster still surfaces.  Each
+        round is counted (``client_retries_total{verb,reason}``)."""
+        if self.membership is None:
+            raise RuntimeError(
+                f"{what}: shard rejected the frame and no membership "
+                f"view is attached (static client cannot re-route)"
+            )
+        if self._reg is not None:
+            self._reg.counter(
+                "client_retries_total", component="cluster",
+                verb=what, reason=reason, **self._labels,
+            ).inc()
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"{what}: retried past retry_timeout="
+                f"{self.retry_timeout}s without converging on a "
+                f"servable map"
+            )
+        if self._storm is not None and self._storm.note():
+            # many reject-driven retries inside the window: the flip is
+            # NOT converging — blackbox it before a timeout loses the
+            # evidence (one dump per storm, throttled recorder-side)
+            if self._c_storms is not None:
+                self._c_storms.inc()
+            from ..telemetry.flightrec import get_recorder
+
+            rec = get_recorder()
+            if rec is not None:
+                rec.note(
+                    "stale_epoch_storm", epoch=self._epoch, what=what,
+                    retries=self.frames_retried,
+                )
+                rec.dump("stale_epoch_storm")
+        if not self._refresh_membership():
+            time.sleep(self._next_retry_sleep(attempt))
 
     # -- the batch surface --------------------------------------------------
     def _trace_root(self, name: str):
@@ -615,27 +847,55 @@ class ClusterClient(ParameterServerClient):
     ) -> np.ndarray:
         """Pull values for ``ids`` (any shape); returns
         ``ids.shape + value_shape`` float32.  Duplicate ids cost one
-        wire request; per-shard traffic runs concurrently."""
+        wire request; per-shard traffic runs concurrently; rejected
+        shards replay under a refreshed map (elastic mode)."""
         ids_arr = np.asarray(ids)
         unique, inverse = coalesce_ids(ids_arr, mask)
         self.pulls_coalesced += int(ids_arr.size - unique.size)
         width = int(np.prod(self.value_shape)) if self.value_shape else 1
         flat = np.empty((unique.size, width), dtype)
+        todo = unique
+        deadline = time.monotonic() + self.retry_timeout
+        attempt = 0
+        self._last_retry_sleep = None  # fresh backoff ladder per batch
         ctx, root_span = self._trace_root("pull_batch")
         with root_span:
-            def do(s, sids):
-                rows = self._pull_shard(s, sids, ctx)
-                flat[np.searchsorted(unique, sids)] = rows.reshape(
-                    len(sids), width
-                )
+            while todo.size:
+                rejected: List[np.ndarray] = []
+                reasons: List[str] = []
+                rej_lock = threading.Lock()
 
-            self._for_each_shard(self._split(unique), do)
+                def do(s, sids):
+                    try:
+                        rows = self._pull_shard(s, sids, ctx)
+                    except _Rejected as r:
+                        with rej_lock:
+                            rejected.append(r.ids)
+                            reasons.append(r.reason)
+                        return
+                    flat[np.searchsorted(unique, sids)] = rows.reshape(
+                        len(sids), width
+                    )
+
+                self._for_each_shard(self._split(todo), do)
+                todo = (
+                    np.concatenate(rejected) if rejected
+                    else np.empty(0, np.int64)
+                )
+                if todo.size:
+                    attempt += 1
+                    self.frames_retried += 1
+                    self._await_retry(
+                        deadline, attempt, "pull", reason=reasons[0]
+                    )
         out = flat.reshape(unique.shape + self.value_shape)
         return out[inverse]
 
     def push_batch(self, ids, deltas, mask=None) -> int:
         """Aggregate duplicate-id deltas, push each shard's share (in
-        parallel, pipelined); returns unique ids pushed."""
+        parallel, pipelined); returns unique ids pushed.  Under a
+        membership view every frame carries this batch's ``pid`` token,
+        so replays after a lost ack stay exactly-once shard-side."""
         ids_arr = np.asarray(ids)
         unique, summed = aggregate_deltas(ids_arr, np.asarray(deltas), mask)
         if unique.size == 0:
@@ -644,31 +904,69 @@ class ClusterClient(ParameterServerClient):
             (ids_arr.size if mask is None else int(np.asarray(mask).sum()))
             - unique.size
         )
-        # quantize ONCE per logical batch (error feedback applied
-        # here): the delivered rows are the dequantized values,
-        # identical over every framing — the q sections are sliced per
-        # shard below
+        # quantize ONCE per logical batch (error feedback applied here,
+        # never in a retry path): the delivered rows are the
+        # dequantized values, identical over every framing and every
+        # replay — the q sections are sliced per shard below
         q_rows = q_scales = None
         if self._compressor is not None:
             summed, q_rows, q_scales = self._compressor.compress(
                 unique, summed
             )
             summed = summed.astype(np.float32)
+        # one pid per logical batch: (pid, id) identifies each row-push
+        # uniquely (unique is deduped), stable across replays/re-routes
+        pid = (
+            f"{self._pid_base}.{next(self._pid_counter)}"
+            if self.membership is not None
+            else None
+        )
+        todo_ids, todo_rows = unique, summed
+        deadline = time.monotonic() + self.retry_timeout
+        attempt = 0
+        self._last_retry_sleep = None  # fresh backoff ladder per batch
         ctx, root_span = self._trace_root("push_batch")
         with root_span:
-            def do(s, sids):
-                # unique is sorted, so each shard's rows (and q
-                # sections) slice by a positional lookup
-                pos = np.searchsorted(unique, sids)
-                qr = qs = None
-                if q_rows is not None:
-                    qr, qs = q_rows[pos], q_scales[pos]
-                self._push_shard(
-                    s, sids, summed[pos], ctx, q_rows=qr, q_scales=qs,
-                )
+            while todo_ids.size:
+                rejected: List[np.ndarray] = []
+                reasons: List[str] = []
+                rej_lock = threading.Lock()
 
-            self._for_each_shard(self._split(unique), do)
-        self.rows_pushed += int(unique.size)
+                def do(s, sids):
+                    rows = todo_rows[np.searchsorted(todo_ids, sids)]
+                    qr = qs = None
+                    if q_rows is not None:
+                        # unique is sorted and every retry set is a
+                        # subset of it, so the q sections slice by the
+                        # same positional lookup on any replay round
+                        pos = np.searchsorted(unique, sids)
+                        qr, qs = q_rows[pos], q_scales[pos]
+                    try:
+                        self._push_shard(
+                            s, sids, rows, pid, ctx, q_rows=qr,
+                            q_scales=qs,
+                        )
+                    except _Rejected as r:
+                        with rej_lock:
+                            rejected.append(r.ids)
+                            reasons.append(r.reason)
+
+                self._for_each_shard(self._split(todo_ids), do)
+                done = todo_ids.size - sum(len(r) for r in rejected)
+                self.rows_pushed += int(done)
+                if rejected:
+                    retry = np.sort(np.concatenate(rejected))
+                    # keep the sorted-ids invariant: the per-shard row
+                    # lookup above is a searchsorted against todo_ids
+                    todo_rows = todo_rows[np.searchsorted(todo_ids, retry)]
+                    todo_ids = retry
+                    attempt += 1
+                    self.frames_retried += 1
+                    self._await_retry(
+                        deadline, attempt, "push", reason=reasons[0]
+                    )
+                else:
+                    todo_ids = np.empty(0, np.int64)
         return int(unique.size)
 
     def flush(self) -> List[str]:
@@ -729,6 +1027,8 @@ class ClusterClient(ParameterServerClient):
             c.close()
         self._conns = {}
         self._pool.close()
+        if self.hedge is not None:
+            self.hedge.close()
 
     # -- internals ----------------------------------------------------------
     def _split(self, unique_ids: np.ndarray) -> Dict[int, np.ndarray]:
@@ -750,50 +1050,89 @@ class ClusterClient(ParameterServerClient):
             (lambda s=s, sids=sids: fn(s, sids)) for s, sids in items
         ])
 
-    def _frame_suffix(self) -> str:
-        if self._priority is None:
-            return ""
-        # overload-plane priority tag (loadgen/overload.py): the
-        # shard-edge guard sheds pr=2 (serving) traffic first and never
-        # sheds pr=0
-        return f" pr={self._priority}"
+    def _frame_suffix(self, pid: Optional[str] = None) -> str:
+        suffix = ""
+        if pid is not None:
+            suffix += f" pid={pid}"
+        if self._epoch is not None:
+            suffix += f" e={self._epoch}"
+        if self._priority is not None:
+            # overload-plane priority tag (loadgen/overload.py): the
+            # shard-edge guard sheds pr=2 (serving) traffic first and
+            # never sheds pr=0
+            suffix += f" pr={self._priority}"
+        return suffix
 
     def _frame_trace(self, shard: int, name: str, ctx):
         """Per-shard child span + the BARE trace token its id rides on
         (``<trace>:<span>`` — the line protocol prefixes ``t=``, the
         binary framing carries it as a ``T_TRACE`` TLV):
-        ``(token_or_None, span_cm)`` — empties when untraced."""
+        ``(token_or_None, span_cm, span_id)`` — empties when
+        untraced."""
         if ctx is None or self._tracer is None or not self._tracer.enabled:
-            return None, _NULL_CM
+            return None, _NULL_CM, None
         span_id = gen_id(4)
         tok = TraceContext(ctx.trace_id, span_id).token()
         cm = self._tracer.span(
             f"{name}.shard{shard}", "cluster",
             trace_id=ctx.trace_id, parent_id=ctx.span_id, span_id=span_id,
         )
-        return tok, cm
+        return tok, cm, span_id
 
-    def _request_frames(self, shard: int, build) -> List:
+    def _request_frames(
+        self, shard: int, sids: np.ndarray, build, *,
+        hedgeable: bool, trace=None,
+    ) -> List:
         """Send one shard's frames, rendered by ``build(conn)`` for the
-        connection's negotiated protocol.  With a breaker board
-        attached, an OPEN shard's frames fail fast WITHOUT touching the
-        wire (the half-open probe is the only traffic an open shard
-        sees), and a transport failure counts against its breaker."""
+        connection's negotiated protocol (hedged when ``hedgeable`` and
+        a hedger is attached).  A connection-level failure in elastic
+        mode becomes a :class:`_Rejected` (drop the cached connection,
+        let the batch loop refresh + replay) instead of an error — the
+        client sees latency while the controller replaces the shard.
+        With a breaker board attached, an OPEN shard's frames fail fast
+        WITHOUT touching the wire (the half-open probe is the only
+        traffic an open shard sees)."""
         board = self.breakers
         if board is not None and not board.allow(shard):
-            raise RuntimeError(
-                f"shard {shard}: circuit open — frames fail fast until "
-                f"a half-open probe succeeds"
-            )
+            if self.membership is None:
+                raise RuntimeError(
+                    f"shard {shard}: circuit open — frames fail fast "
+                    f"until a half-open probe succeeds"
+                )
+            raise _Rejected(sids, "breaker_open")
         try:
             conn = self._conn_for(shard)
-            resps = conn.request_many(build(conn))
+            reqs = build(conn)
+            if hedgeable and self.hedge is not None:
+                addr = self._addresses[shard]
+
+                def on_backup_won(spare_conn):
+                    # the still-draining primary must never be reused
+                    # (one reader per line-protocol connection): the
+                    # clean spare takes its slot
+                    old = self._conns.pop(addr, None)
+                    if old is not None:
+                        old.close()
+                    self._conns[addr] = spare_conn
+
+                resps = self.hedge.request_many(
+                    conn,
+                    lambda: self._dial(addr),
+                    reqs,
+                    on_backup_won,
+                    trace=trace,
+                )
+            else:
+                resps = conn.request_many(reqs)
         except OSError:
             # transport failure feeds the breaker (a dead/wedged shard
             # opens its circuit after enough of these in the window)
             if board is not None:
                 board.fail(shard)
-            raise
+            if self.membership is None:
+                raise
+            self._drop_conn(shard)
+            raise _Rejected(sids, "conn") from None
         if board is not None:
             board.ok(shard)
         return resps
@@ -835,10 +1174,15 @@ class ClusterClient(ParameterServerClient):
         )
 
     @staticmethod
-    def _bin_tlvs(tok: Optional[str]):
-        """The frame TLVs mirroring the line protocol's trailing ``t=``
-        token (priority lives in the fixed header)."""
-        return [] if tok is None else [(binf.T_TRACE, tok.encode())]
+    def _bin_tlvs(tok: Optional[str], pid: Optional[str] = None):
+        """The frame TLVs mirroring :meth:`_frame_suffix`'s trailing
+        tokens (epoch and priority live in the fixed header)."""
+        tlvs = []
+        if tok is not None:
+            tlvs.append((binf.T_TRACE, tok.encode()))
+        if pid is not None:
+            tlvs.append((binf.T_PID, pid.encode()))
+        return tlvs
 
     def _parse_rows_any(self, resp, chunk, shard: int):
         """One pull response's rows, either framing, length-checked."""
@@ -867,7 +1211,14 @@ class ClusterClient(ParameterServerClient):
             ids[i: i + self.chunk] for i in range(0, len(ids), self.chunk)
         ]
         prof = self._profiler
-        tok, span_cm = self._frame_trace(shard, "pull", ctx)
+        tok, span_cm, span_id = self._frame_trace(shard, "pull", ctx)
+        trace = (
+            (self._tracer, ctx.trace_id, span_id)
+            if span_id is not None else None
+        )
+        rows = []
+        rejected = False
+        reject_reason = "reject"
         ser_cell = [0.0]
 
         def build(conn) -> List:
@@ -881,7 +1232,8 @@ class ClusterClient(ParameterServerClient):
                 reqs = [
                     binf.encode_request(
                         binf.VERB_IDS["pull"], ids=c, enc=enc,
-                        priority=self._priority, tlvs=tlvs,
+                        epoch=self._epoch, priority=self._priority,
+                        tlvs=tlvs,
                     )
                     for c in chunks
                 ]
@@ -904,10 +1256,11 @@ class ClusterClient(ParameterServerClient):
         # serialize, wire round trip, response parse — which makes it
         # the independent oracle the latency-budget phases (observed
         # separately below) must sum to
-        rows = []
         with span_cm:
             t0 = time.perf_counter()
-            resps = self._request_frames(shard, build)
+            resps = self._request_frames(
+                shard, ids, build, hedgeable=True, trace=trace
+            )
             # one observation per chunk frame: the pipelined per-frame
             # turnaround, amortised (total wall / frames); serialize
             # time was measured inside the builder, net of the dial
@@ -923,8 +1276,17 @@ class ClusterClient(ParameterServerClient):
             self._observe_shard_rtt(shard, per, len(resps))
             for resp, c in zip(resps, chunks):
                 self._check_shed(resp, shard, "pull")
+                if _is_reject(resp) and self.membership is not None:
+                    rejected = True
+                    reject_reason = _reject_reason(resp)
+                    continue
                 _check_ok(resp, f"pull shard {shard}")
                 rows.append(self._parse_rows_any(resp, c, shard))
+        if rejected:
+            # partial answers cannot scatter into the output without
+            # per-chunk bookkeeping; pulls are idempotent, so replay
+            # the shard's whole id set under the refreshed map
+            raise _Rejected(ids, reject_reason)
         return np.concatenate(rows) if rows else np.empty(
             (0,) + self.value_shape, np.float32
         )
@@ -934,18 +1296,23 @@ class ClusterClient(ParameterServerClient):
         shard: int,
         ids: np.ndarray,
         deltas: np.ndarray,
+        pid: Optional[str] = None,
         ctx=None,
         q_rows: Optional[np.ndarray] = None,
         q_scales: Optional[np.ndarray] = None,
     ) -> None:
         prof = self._profiler
-        tok, span_cm = self._frame_trace(shard, "push", ctx)
+        tok, span_cm, _span_id = self._frame_trace(shard, "push", ctx)
+        chunks = [
+            ids[i: i + self.chunk]
+            for i in range(0, len(ids), self.chunk)
+        ]
         ser_cell = [0.0]
 
         def build(conn) -> List:
             t_ser = time.perf_counter()
             if conn.proto != "line":
-                tlvs = self._bin_tlvs(tok)
+                tlvs = self._bin_tlvs(tok, pid)
                 if q_rows is not None and "q8" in conn.encs:
                     # the quantized push path: int8 rows + a T_SCALE
                     # TLV of the per-row f32 scales, per chunk.  The
@@ -964,7 +1331,8 @@ class ClusterClient(ParameterServerClient):
                             binf.VERB_IDS["push"],
                             ids=ids[i: i + self.chunk],
                             payload=qc.tobytes(),
-                            enc=binf.ENC_Q8, priority=self._priority,
+                            enc=binf.ENC_Q8, epoch=self._epoch,
+                            priority=self._priority,
                             tlvs=[(binf.T_SCALE, sc.tobytes())] + tlvs,
                         ))
                         saved += 3 * qc.size - sc.nbytes
@@ -986,7 +1354,8 @@ class ClusterClient(ParameterServerClient):
                         payload=binf.rows_to_payload(
                             deltas[i: i + self.chunk], enc
                         ),
-                        enc=enc, priority=self._priority, tlvs=tlvs,
+                        enc=enc, epoch=self._epoch,
+                        priority=self._priority, tlvs=tlvs,
                     )
                     for i in range(0, len(ids), self.chunk)
                 ]
@@ -999,7 +1368,7 @@ class ClusterClient(ParameterServerClient):
                         2 * int(np.asarray(deltas).size)
                     )
             else:
-                suffix = self._frame_suffix() + (
+                suffix = self._frame_suffix(pid) + (
                     " t=" + tok if tok is not None else ""
                 )
                 fmt = (
@@ -1021,10 +1390,11 @@ class ClusterClient(ParameterServerClient):
             return reqs
 
         # like pull: the push.shard<k> span covers serialize + round
-        # trip, the same window the push phases decompose
+        # trip, the same window the push phases decompose.  Pushes are
+        # never hedged: a raced push could apply twice.
         with span_cm:
             t0 = time.perf_counter()
-            resps = self._request_frames(shard, build)
+            resps = self._request_frames(shard, ids, build, hedgeable=False)
             per = (
                 (time.perf_counter() - t0) / max(1, len(resps))
                 - ser_cell[0]
@@ -1032,9 +1402,17 @@ class ClusterClient(ParameterServerClient):
             for _ in resps:
                 prof.observe("push", "rtt", per)
                 prof.observe("push", "client_serialize", ser_cell[0])
-        for resp in resps:
+        rejected: List[np.ndarray] = []
+        reject_reason = "reject"
+        for resp, c_ids in zip(resps, chunks):
             self._check_shed(resp, shard, "push")
+            if _is_reject(resp) and self.membership is not None:
+                rejected.append(c_ids)
+                reject_reason = _reject_reason(resp)
+                continue
             _check_ok(resp, f"push shard {shard}")
+        if rejected:
+            raise _Rejected(np.concatenate(rejected), reject_reason)
 
 
 __all__ = ["ClusterClient", "ShardConnection"]

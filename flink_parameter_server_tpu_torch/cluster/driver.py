@@ -11,7 +11,9 @@ backend the pulled rows are already on the device and the step's push
 goes to the device table without a host round trip.  The knobs that lead
 into modules not ported yet (``hot_keys``, ``hot_cache``, ``adaptive``,
 ``wire_proto="shm"``, ``store_backend="tiered"``) raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming their ROADMAP item.  The elastic driver
+(``elastic/controller.py``) subclasses this one and reuses
+:meth:`ClusterDriver._build_shard` for its spin-ups and replacements.
 
 The multi-process shape of the source paper, finally runnable: shard
 processes own key-partitioned state (:class:`~.shard.ParamShard` behind

@@ -13,15 +13,19 @@ lock.  ``store_backend="numpy"`` (what shard processes run) is the
 reference's host store unchanged.  The tiered backend is not ported yet
 (ROADMAP Queue 1 #7, tierstore).
 
-Only the verbs that :class:`~.driver.ClusterDriver` and the shard
-processes use are served here.  The reference's other verbs wait for the
-modules that send them (ROADMAP Queue 1 #7): ``lease`` / ``revoke`` and
-the piggybacked ``inv=`` invalidations for the hot-key cache (hotcache/),
-``xfer`` / ``load``, epoch fencing, frozen ranges and the exactly-once
-``pid=`` window for live resharding (elastic/), and ``repl`` /
-``replstate`` for replica chains (replication/).  Until then those verbs
-answer ``err bad-request`` and their option tokens are parsed and
-ignored, as an older reference server treats them.
+The verbs served are those :class:`~.driver.ClusterDriver`, the shard
+processes and the elastic control plane (``elastic/``) send: pull, push,
+flush and stats, and for live resharding ``xfer`` / ``load``, epoch
+fencing, frozen ranges and the exactly-once ``pid=`` window.  With the
+slice on the card, ``xfer`` copies its rows off the device under the same
+lock as the sequence number it reports, and ``load``, ``install_epoch``
+and a snapshot replay write the slice tensor on the shard's device and
+drop the host mirror.  The reference's other verbs wait for the modules
+that send them (ROADMAP Queue 1 #7): ``lease`` / ``revoke`` and the
+piggybacked ``inv=`` invalidations for the hot-key cache (hotcache/), and
+``repl`` / ``replstate`` for replica chains (replication/).  Until then
+those verbs answer ``err bad-request`` and their option tokens (``sess=``)
+are parsed and ignored, as an older reference server treats them.
 
 This is the reference's PS subtask made a real process boundary: shard
 ``s`` owns exactly the rows ``partitioner.owned_ids(s)`` as a dense
@@ -46,15 +50,38 @@ connection).  Every verb accepts trailing ``key=value`` options;
 (telemetry/distributed.py; servers without a tracer parse and ignore
 it)::
 
-    pull <id1,id2,...> [text|b64] [t=<tok>]  # ids + answer format
-    push <id1,id2,...> <payload> [t=<tok>]   # deltas
+    pull <id1,id2,...> [text|b64] [e=<n>] [t=<tok>]  # ids + answer format
+    push <id1,id2,...> <payload> [pid=<t>] [e=<n>] [t=<tok>]  # deltas
+    xfer <id1,id2,...> [t=<tok>]             # atomic (rows, seq) snapshot
+    load <id1,id2,...> <payload>             # row ASSIGNMENT (migration)
     flush                                    # fsync the WAL, ack counters
     stats                                    # one-line JSON shard stats
 
     ok n=<k> <payload>                    # pull answer
     ok applied=<k> seq=<n>                # push answer
+    ok n=<k> seq=<s> <payload>            # xfer answer (always b64)
+    ok loaded=<k> seq=<n>                 # load answer
     ok pushes=<n> wal_records=<m>         # flush answer
-    err <reason>      # bad-request | crashed | overloaded | internal
+    err <reason>      # bad-request | crashed | stale-epoch | frozen
+                      # | overloaded | internal
+
+Epoch fencing (the elastic/ membership protocol): a shard pins the
+partition-map epoch it serves.  A push whose frame epoch is OLDER than
+the shard's is rejected with ``err stale-epoch`` — a map flip can
+therefore never mix routings: the client refreshes its membership view
+and replays the frame against the new map.  A frame from a NEWER epoch is
+accepted when its ids route here under either map (the flip is
+mid-flight), and answered ``err stale-epoch`` when they don't.  During a
+key migration the moving range is FROZEN: pushes touching it get ``err
+frozen`` (retry shortly — the flip is imminent); pulls and pushes of
+non-moving keys never block.
+
+Exactly-once pushes: a frame carrying ``pid=<token>`` is deduplicated per
+``(pid, id)`` against a bounded window that survives crashes (the pairs
+ride the WAL records and the install-epoch snapshot, and migration hands
+the moving range's pairs to the new owner), so a client retry after a
+lost ack — shard died AFTER applying, BEFORE answering — is acked without
+double-applying.
 
 Overload shedding (loadgen/overload.py, docs/loadgen.md): with an
 ``OverloadGuard`` attached to the server, frames may be answered
@@ -118,6 +145,24 @@ class ShardCrashed(RuntimeError):
     down the DEVICE branch."""
 
     failure_class = "device"
+
+
+class StaleEpoch(RuntimeError):
+    """Frame epoch vs shard epoch disagree in a way that cannot be
+    served (an old-epoch write, or ids this shard does not own under a
+    mixed-flight flip).  Carries the shard's current epoch so the wire
+    answer tells the client what to catch up to."""
+
+    def __init__(self, shard_epoch: int, detail: str = ""):
+        super().__init__(
+            f"stale epoch (shard at {shard_epoch}){': ' + detail if detail else ''}"
+        )
+        self.shard_epoch = int(shard_epoch)
+
+
+class FrozenKeys(RuntimeError):
+    """The push touches a key range frozen for migration — retry
+    shortly; the epoch flip that re-homes the range is imminent."""
 
 
 def format_rows(rows: np.ndarray, encoding: str = "text") -> str:
@@ -299,8 +344,18 @@ class ParamShard:
         self.mirror_rebuilds = 0
         self.mirror_rebuild_s = 0.0
         self.restarts = 0
-        self.rows_applied = 0  # delta rows actually applied
+        self.rows_applied = 0  # delta rows actually applied (post-dedupe)
+        self.loads_applied = 0  # rows assigned via load (migration)
         self._push_seq = 0
+        # elastic state: the partition-map epoch this shard serves, the
+        # key range frozen for an in-flight migration, rows staged for
+        # keys this shard will own only after the NEXT epoch flip, and
+        # the bounded exactly-once (pid, id) dedupe window
+        self.epoch = 0
+        self._frozen: Optional[np.ndarray] = None
+        self._staged: dict = {}
+        self._applied_pairs: dict = {}  # insertion-ordered set w/ cap
+        self.pid_window = 1 << 16
         self.store = None
         # host-side read mirror of the slice, rebuilt lazily after each
         # push: pulls are then one numpy fancy-index instead of a
@@ -350,6 +405,22 @@ class ParamShard:
             return self.store.values()
         return to_host(self.store.values(), copy=True)
 
+    def _store_from_values(self, values: np.ndarray):
+        """A store of the configured backend over host ``values`` — the
+        one seam every slice re-materialisation (snapshot replay, epoch
+        install) goes through.  Under the torch backend the rows are
+        copied onto the shard's device in the slice's dtype; the caller
+        drops the host mirror."""
+        if self._backend == "numpy":
+            return _NumpyStore.from_values(np.asarray(values))
+        from ..core.store import ShardedParamStore
+
+        dtype = self._dtype if self._dtype is not None else torch.float32
+        return ShardedParamStore.from_values(
+            to_device(np.asarray(values), self._device, dtype),
+            device=self._device,
+        )
+
     # fpsanalyze: allow[S001] _build writes run under self._lock at every call site (__init__ construction, restart) — the lock is the caller's
     def _build(self) -> None:
         """(Re)materialise the local slice from the deterministic init:
@@ -390,14 +461,62 @@ class ParamShard:
         """Re-apply every intact WAL record in sequence order; returns
         the number replayed.  Replay bypasses the WAL append (the
         records are already durable) but goes through the same
-        scatter-add, so the rebuilt slice is bitwise the logged one."""
-        n = 0
-        for rec in self._wal.replay():
+        scatter-add, so the rebuilt slice is bitwise the logged one.
+
+        Records come in three kinds: ``push`` (delta rows — the
+        default), ``load`` (row assignments from a migration), and
+        ``snapshot`` (the full owned slice, written at each epoch
+        flip).  A snapshot SUPERSEDES everything before it — replay
+        starts at the newest one, which is also what makes replay safe
+        across reshardings: pre-flip records may reference ids this
+        shard no longer owns, and the snapshot barrier keeps them out
+        of the replay window."""
+        from ..compression.quantizers import record_deltas
+
+        records = self._wal.replay()
+        start = 0
+        for i, rec in enumerate(records):
             p = rec.payload
-            self._apply(np.asarray(p["ids"], np.int64), p["deltas"])
+            if isinstance(p, dict) and p.get("kind") == "snapshot":
+                start = i
+        n = 0
+        for rec in records[start:]:
+            p = rec.payload
+            kind = p.get("kind", "push")
+            if kind == "snapshot":
+                self._restore_snapshot(p)
+            elif kind == "load":
+                self._assign(
+                    np.asarray(p["ids"], np.int64),
+                    np.asarray(p["values"], np.float32),
+                )
+            else:
+                ids = np.asarray(p["ids"], np.int64)
+                self._apply(ids, record_deltas(p))
+                if p.get("pid") is not None:
+                    self._remember_pairs(p["pid"], ids)
             self._push_seq = rec.end_step
             n += 1
         return n
+
+    def _restore_snapshot(self, payload: dict) -> None:
+        """Rebuild the slice from an epoch-flip snapshot record: the
+        logged ids must be exactly the partitioner's owned set for this
+        shard (the shard was reconstructed with the post-flip map).  The
+        rows go onto the shard's device as a new slice tensor."""
+        ids = np.asarray(payload["ids"], np.int64)
+        if not np.array_equal(ids, self.owned):
+            raise RuntimeError(
+                f"shard {self.shard_id}: WAL snapshot owns {len(ids)} "
+                f"rows but the partitioner assigns {len(self.owned)} — "
+                f"replaying with a different map than the one the "
+                f"snapshot was taken under"
+            )
+        self.store = self._store_from_values(payload["values"])
+        self._host_mirror = None
+        for pair in payload.get("pairs", ()):
+            self._applied_pairs[(pair[0], int(pair[1]))] = None
+        self._trim_pairs()
 
     def _apply(self, global_ids: np.ndarray, deltas: np.ndarray) -> None:
         local = self.partitioner.to_local(self.shard_id, global_ids)
@@ -427,9 +546,57 @@ class ParamShard:
         self._host_mirror = None  # mirror is stale past this point
         self.pushes_applied += 1
 
+    def _assign(self, global_ids: np.ndarray, values: np.ndarray) -> None:
+        """Row ASSIGNMENT (the migration load path): owned ids are set
+        bitwise in the local slice; ids this shard will own only after
+        the next epoch flip are STAGED and folded in at
+        :meth:`install_epoch` (scale-in hands a survivor rows it cannot
+        address under the pre-flip map).  Under the torch backend the
+        owned rows are written into the slice tensor on the device (no
+        delta arithmetic touches them) and the host mirror is dropped."""
+        ids = np.asarray(global_ids, np.int64)
+        values = np.asarray(values, np.float32)
+        mine = self.partitioner.shard_of(ids) == self.shard_id
+        for gid, row in zip(ids[~mine], values[~mine]):
+            self._staged[int(gid)] = np.array(row, np.float32)
+        if not mine.any():
+            return
+        local = self.partitioner.to_local(self.shard_id, ids[mine])
+        if self._backend == "numpy":
+            table = self.store.values()
+            table[local] = values[mine].astype(table.dtype)
+        else:
+            table = self.store.table
+            table[to_device(local, self._device)] = to_device(
+                values[mine], self._device, table.dtype
+            )
+        self._host_mirror = None
+
+    def _remember_pairs(self, pid: str, ids: np.ndarray) -> None:
+        for gid in ids:
+            self._applied_pairs[(pid, int(gid))] = None
+        self._trim_pairs()
+
+    def _trim_pairs(self) -> None:
+        while len(self._applied_pairs) > self.pid_window:
+            self._applied_pairs.pop(next(iter(self._applied_pairs)))
+
     def _check_alive(self) -> None:
         if self.store is None:
             raise ShardCrashed(f"shard {self.shard_id} has no live slice")
+
+    def _route(self, ids: np.ndarray, epoch: Optional[int]) -> np.ndarray:
+        """``to_local`` with epoch-aware failure: a routing miss under a
+        mismatched frame epoch is the mixed-flight flip, not a protocol
+        bug — answer stale-epoch so the client refreshes and replays."""
+        try:
+            return self.partitioner.to_local(self.shard_id, ids)
+        except KeyError:
+            if epoch is not None and epoch != self.epoch:
+                raise StaleEpoch(
+                    self.epoch, "ids not owned under the frame's map"
+                ) from None
+            raise
 
     def _rows(self, local: np.ndarray) -> np.ndarray:
         """Read rows by LOCAL index — the pull-side table access,
@@ -444,7 +611,9 @@ class ParamShard:
         return self._host_mirror[local]
 
     # -- the shard protocol ------------------------------------------------
-    def pull(self, global_ids: np.ndarray) -> np.ndarray:
+    def pull(
+        self, global_ids: np.ndarray, *, epoch: Optional[int] = None
+    ) -> np.ndarray:
         prof = self._profiler
         t_wait = time.perf_counter()
         with self._lock:
@@ -453,9 +622,7 @@ class ParamShard:
                 time.perf_counter() - t_wait,
             )
             self._check_alive()
-            local = self.partitioner.to_local(
-                self.shard_id, np.asarray(global_ids, np.int64)
-            )
+            local = self._route(np.asarray(global_ids, np.int64), epoch)
             with prof.timer("pull", "scatter_apply"):
                 # the pull-side table access: host-mirror fancy-index
                 # (see _rows)
@@ -465,9 +632,19 @@ class ParamShard:
                 self._c_pulls.inc()
             return vals
 
-    def push(self, global_ids: np.ndarray, deltas: np.ndarray) -> int:
+    def push(
+        self,
+        global_ids: np.ndarray,
+        deltas: np.ndarray,
+        *,
+        epoch: Optional[int] = None,
+        pid: Optional[str] = None,
+    ) -> int:
         """WRITE-AHEAD then apply; returns the shard's push sequence
-        number after this push."""
+        number after this push.  ``epoch`` fences against stale maps
+        (old-epoch writes are rejected, never absorbed); ``pid`` makes
+        the push idempotent per ``(pid, id)`` — the already-applied
+        subset of a retried frame is acked without re-applying."""
         prof = self._profiler
         t_wait = time.perf_counter()
         with self._lock:
@@ -476,21 +653,40 @@ class ParamShard:
                 time.perf_counter() - t_wait,
             )
             self._check_alive()
+            if epoch is not None and epoch < self.epoch:
+                raise StaleEpoch(self.epoch, "old-epoch write rejected")
             ids = np.asarray(global_ids, np.int64)
             deltas = np.asarray(deltas, np.float32)
+            if self._frozen is not None and np.isin(
+                ids, self._frozen
+            ).any():
+                raise FrozenKeys(
+                    f"shard {self.shard_id}: push touches a key range "
+                    f"frozen for migration"
+                )
             # route check first: a mis-routed id must fail the request
             # BEFORE it is logged (replaying a bad frame would re-raise
             # forever)
-            self.partitioner.to_local(self.shard_id, ids)
+            self._route(ids, epoch)
+            if pid is not None:
+                fresh = np.asarray(
+                    [(pid, int(g)) not in self._applied_pairs for g in ids]
+                )
+                if not fresh.any():
+                    return self._push_seq  # full duplicate: ack only
+                ids, deltas = ids[fresh], deltas[fresh]
             if self._wal is not None:
+                payload = {"ids": ids, "deltas": deltas}
+                if pid is not None:
+                    payload["pid"] = pid
                 with prof.timer("push", "wal_append"):
-                    self._wal.append(
-                        self._push_seq, 1, {"ids": ids, "deltas": deltas}
-                    )
+                    self._wal.append(self._push_seq, 1, payload)
             self._push_seq += 1
             with prof.timer("push", "scatter_apply"):
                 self._apply(ids, deltas)
             self.rows_applied += int(len(ids))
+            if pid is not None:
+                self._remember_pairs(pid, ids)
             if self._c_pushes is not None:
                 self._c_pushes.inc()
             return self._push_seq
@@ -520,6 +716,179 @@ class ParamShard:
         with self._lock:
             self._check_alive()
             return np.asarray(self._slice_to_host())
+
+    # -- elastic membership / migration -------------------------------------
+    def snapshot_rows(
+        self, global_ids: np.ndarray
+    ) -> Tuple[np.ndarray, int]:
+        """ATOMIC ``(rows, seq)`` read for migration: the returned rows
+        reflect exactly the pushes with sequence ≤ ``seq`` — the WAL
+        tail ``> seq`` is precisely what the new owner still needs
+        (``xfer`` on the wire).  One lock acquisition covers both
+        reads, and the copy off the card (a mirror rebuild when a push
+        dropped it) finishes inside it; rows are a copy."""
+        with self._lock:
+            self._check_alive()
+            local = self.partitioner.to_local(
+                self.shard_id, np.asarray(global_ids, np.int64)
+            )
+            return self._rows(local).copy(), self._push_seq
+
+    def assign_rows(
+        self, global_ids: np.ndarray, values: np.ndarray
+    ) -> int:
+        """WAL-logged row ASSIGNMENT (the ``load`` verb): migrated rows
+        land bitwise-equal — no delta arithmetic touches them — and the
+        log record (kind=``load``) replays the assignment on a crash.
+        Ids this shard only owns under the NEXT map are staged (see
+        :meth:`_assign`); returns the shard's sequence number after."""
+        with self._lock:
+            self._check_alive()
+            ids = np.asarray(global_ids, np.int64)
+            values = np.asarray(values, np.float32)
+            if len(ids) != len(values):
+                raise ValueError(
+                    f"{len(ids)} ids but {len(values)} value rows"
+                )
+            if self._wal is not None:
+                payload = {"kind": "load", "ids": ids, "values": values}
+                self._wal.append(self._push_seq, 1, payload)
+            self._push_seq += 1
+            self._assign(ids, values)
+            self.loads_applied += int(len(ids))
+            return self._push_seq
+
+    def freeze(self, global_ids) -> None:
+        """Freeze a moving key range: pushes touching it raise
+        :class:`FrozenKeys` until :meth:`install_epoch` (or
+        :meth:`unfreeze`).  Pulls, and pushes of every other key, are
+        untouched — non-moving keys never block."""
+        with self._lock:
+            ids = np.unique(np.asarray(global_ids, np.int64))
+            self._frozen = (
+                ids if self._frozen is None
+                else np.union1d(self._frozen, ids)
+            )
+
+    def unfreeze(self) -> None:
+        with self._lock:
+            self._frozen = None
+
+    def install_epoch(self, epoch: int, partitioner: Partitioner) -> None:
+        """The flip: adopt the new partition map at ``epoch``.  The
+        slice is compacted to the new owned set — rows kept bitwise,
+        staged rows (scale-in inheritance) folded in — and rebuilt as a
+        new tensor on the shard's device (the host mirror is dropped, so
+        no pull serves a pre-flip row), the freeze lifts, and a
+        ``snapshot`` barrier record makes the post-flip WAL
+        self-contained (replay never crosses a resharding)."""
+        with self._lock:
+            self._check_alive()
+            if int(epoch) <= self.epoch:
+                raise ValueError(
+                    f"install_epoch({epoch}): shard {self.shard_id} "
+                    f"already at epoch {self.epoch} (epochs are monotone)"
+                )
+            new_owned = partitioner.owned_ids(self.shard_id)
+            current = self._slice_to_host()
+            pos = np.searchsorted(self.owned, new_owned)
+            have = (pos < len(self.owned)) & (
+                self.owned[np.minimum(pos, len(self.owned) - 1)]
+                == new_owned
+            ) if len(self.owned) else np.zeros(len(new_owned), bool)
+            rows = np.empty(
+                (len(new_owned),) + current.shape[1:], current.dtype
+            )
+            rows[have] = current[pos[have]]
+            for j in np.nonzero(~have)[0]:
+                gid = int(new_owned[j])
+                if gid not in self._staged:
+                    raise KeyError(
+                        f"shard {self.shard_id}: epoch {epoch} assigns "
+                        f"id {gid} here but no row was migrated in"
+                    )
+                rows[j] = self._staged[gid]
+            self.partitioner = partitioner
+            self.owned = new_owned
+            self.store = self._store_from_values(rows)
+            self._host_mirror = None
+            self._staged = {}
+            self._frozen = None
+            self.epoch = int(epoch)
+            if self._wal is not None:
+                barrier = self._push_seq
+                payload = {
+                    "kind": "snapshot",
+                    "ids": new_owned,
+                    "values": rows,
+                    "pairs": list(self._applied_pairs),
+                }
+                self._wal.append(barrier, 1, payload)
+                self._push_seq += 1
+                # older segments are fully superseded by the barrier —
+                # best-effort bound on the log (whole segments only)
+                self._wal.truncate_through(barrier)
+
+    def retire(self, epoch: int) -> None:
+        """Drain-and-retire terminal state: the shard stops accepting
+        writes (everything frozen, epoch bumped so old-epoch frames
+        answer stale-epoch) but keeps serving reads until its server is
+        stopped — in-flight old-map pulls drain instead of erroring."""
+        with self._lock:
+            self.epoch = int(epoch)
+            self._frozen = np.asarray(self.owned, np.int64)
+
+    def applied_pairs_for(self, global_ids) -> list:
+        """The exactly-once ``(pid, id)`` pairs covering the given ids
+        — migration hands these to the new owner so a retried push of a
+        moved key stays deduplicated across the flip."""
+        with self._lock:
+            wanted = set(int(g) for g in np.asarray(global_ids).reshape(-1))
+            return [
+                pair for pair in self._applied_pairs if pair[1] in wanted
+            ]
+
+    def merge_applied_pairs(self, pairs) -> None:
+        with self._lock:
+            for pid, gid in pairs:
+                self._applied_pairs[(pid, int(gid))] = None
+            self._trim_pairs()
+
+    def peek_rows(self, global_ids) -> np.ndarray:
+        """Read rows for migration verification regardless of where
+        they live: owned rows from the slice (through the host mirror),
+        incoming rows from the staging area — the pre-flip view of what
+        :meth:`install_epoch` will own."""
+        with self._lock:
+            self._check_alive()
+            ids = np.asarray(global_ids, np.int64)
+            mine = self.partitioner.shard_of(ids) == self.shard_id
+            out = None
+            if mine.any():
+                local = self.partitioner.to_local(self.shard_id, ids[mine])
+                rows = self._rows(local)
+                out = np.empty((len(ids),) + rows.shape[1:], rows.dtype)
+                out[mine] = rows
+            else:
+                out = np.empty((len(ids),) + self.value_shape, np.float32)
+            for j in np.nonzero(~mine)[0]:
+                gid = int(ids[j])
+                if gid not in self._staged:
+                    raise KeyError(
+                        f"shard {self.shard_id}: id {gid} neither owned "
+                        f"nor staged"
+                    )
+                out[j] = self._staged[gid]
+            return out
+
+    def wal_tail(self, after_seq: int, global_ids=None) -> list:
+        """The shard's WAL records after ``after_seq`` (push-sequence
+        space), keyed-filtered to ``global_ids`` — the migration tail
+        (:meth:`~..resilience.wal.UpdateWAL.replay_range`).  Empty when
+        the shard runs without a WAL."""
+        if self._wal is None:
+            return []
+        return self._wal.replay_range(after_seq, global_ids)
 
     # -- failure / recovery -------------------------------------------------
     def crash(self) -> None:
@@ -552,7 +921,16 @@ class ParamShard:
                 "push_seq": self._push_seq,
                 "restarts": self.restarts,
                 "alive": self.store is not None,
+                "epoch": self.epoch,
                 "rows_applied": self.rows_applied,
+                "loads_applied": self.loads_applied,
+                "frozen": (
+                    0 if self._frozen is None else int(len(self._frozen))
+                ),
+                "staged": len(self._staged),
+                # the exactly-once dedupe window's current size (bounded
+                # by pid_window)
+                "dedupe_pairs": len(self._applied_pairs),
                 # live depth figure the psctl stats view reads: WAL
                 # records durably appended
                 "wal_records": (
@@ -695,19 +1073,33 @@ class ShardServer(LineServer):
                     return "err crashed: restart budget exhausted"
                 time.sleep(self.policy.backoff_s(attempt, self._rng))
                 self.shard.restart()
+            except StaleEpoch as e:
+                return f"err stale-epoch epoch={e.shard_epoch}"
+            except FrozenKeys:
+                return "err frozen"
             except (ValueError, KeyError) as e:
                 return f"err bad-request: {e}"
             except Exception as e:  # noqa: BLE001 — protocol boundary
                 return f"err internal: {type(e).__name__}: {e}"
 
     @staticmethod
-    def _check_opts(toks) -> None:
-        """Validate trailing ``key=value`` option tokens; their values
-        are read elsewhere (``t=``, ``pr=``) or ignored."""
+    def _parse_opts(toks) -> dict:
+        """Trailing ``key=value`` option tokens (``e=<epoch>``,
+        ``pid=<token>``; ``t=`` and ``pr=`` are read elsewhere, and
+        ``sess=`` is ignored until hotcache/ is ported)."""
+        opts = {}
         for t in toks:
-            k, sep, _ = t.partition("=")
+            k, sep, v = t.partition("=")
             if not sep or not k:
                 raise ValueError(f"bad option token {t!r} (key=value)")
+            opts[k] = v
+        epoch = opts.pop("e", None)
+        if epoch is not None:
+            try:
+                opts["e"] = int(epoch)
+            except ValueError:
+                raise ValueError(f"e={epoch!r}: epoch must be an integer")
+        return opts
 
     @staticmethod
     def _inbound_trace(toks):
@@ -770,10 +1162,10 @@ class ShardServer(LineServer):
                 rest = rest[1:]
             elif rest and "=" not in rest[0]:
                 raise ValueError(f"pull format {rest[0]!r}: 'text' | 'b64'")
-            self._check_opts(rest)
+            opts = self._parse_opts(rest)
             with self.profiler.timer("pull", "server_parse"):
                 ids = parse_ids(toks[1])
-            vals = self.shard.pull(ids)
+            vals = self.shard.pull(ids, epoch=opts.get("e"))
             with self.profiler.timer("pull", "response_serialize"):
                 body = format_rows(vals, enc)
             return f"ok n={len(ids)} {body}"
@@ -789,16 +1181,37 @@ class ShardServer(LineServer):
                 raise ValueError(
                     f"{len(ids)} ids but {len(deltas)} delta rows"
                 )
-            self._check_opts(toks[3:])
-            seq = self.shard.push(ids, deltas)
+            opts = self._parse_opts(toks[3:])
+            seq = self.shard.push(
+                ids, deltas, epoch=opts.get("e"), pid=opts.get("pid"),
+            )
             return f"ok applied={len(ids)} seq={seq}"
+        if cmd == "xfer":
+            if len(toks) < 2:
+                raise ValueError("usage: xfer <id1,id2,...> [t=<token>]")
+            ids = parse_ids(toks[1])
+            self._parse_opts(toks[2:])  # trace token etc.; validated only
+            vals, seq = self.shard.snapshot_rows(ids)
+            return f"ok n={len(ids)} seq={seq} {format_rows(vals, 'b64')}"
+        if cmd == "load":
+            if len(toks) < 3:
+                raise ValueError("usage: load <id1,id2,...> <payload>")
+            ids = parse_ids(toks[1])
+            vals = parse_rows(toks[2], self.shard.value_shape)
+            if len(vals) != len(ids):
+                raise ValueError(
+                    f"{len(ids)} ids but {len(vals)} value rows"
+                )
+            self._parse_opts(toks[3:])  # validate; load is controller-driven
+            seq = self.shard.assign_rows(ids, vals)
+            return f"ok loaded={len(ids)} seq={seq}"
         if cmd == "flush":
             f = self.shard.flush()
             return f"ok pushes={f['pushes']} wal_records={f['wal_records']}"
         if cmd == "stats":
             return "ok " + json.dumps(self.shard.stats())
         raise ValueError(
-            f"unknown command {cmd!r} (pull|push|flush|stats)"
+            f"unknown command {cmd!r} (pull|push|xfer|load|flush|stats)"
         )
 
     # -- the binary frame protocol (utils/frames.py) -------------------------
@@ -861,6 +1274,13 @@ class ShardServer(LineServer):
                     )
                 time.sleep(self.policy.backoff_s(attempt, self._rng))
                 self.shard.restart()
+            except StaleEpoch as e:
+                return binf.error_response(
+                    verb_id, binf.STATUS_STALE_EPOCH,
+                    tlvs=[(binf.T_EPOCH, str(e.shard_epoch).encode())],
+                )
+            except FrozenKeys:
+                return binf.error_response(verb_id, binf.STATUS_FROZEN)
             except (binf.FrameError, ValueError, KeyError) as e:
                 return binf.error_response(
                     verb_id, binf.STATUS_BAD_REQUEST, str(e)
@@ -917,10 +1337,11 @@ class ShardServer(LineServer):
         them), and the answer's rows leave as raw bytes again."""
         shard = self.shard
         verb = req.verb
+        epoch = None if req.aux == binf.NO_EPOCH else int(req.aux)
         if verb == binf.VERB_IDS["pull"]:
             with self.profiler.timer("pull", "server_parse"):
                 ids = self._frame_ids(req)
-            vals = shard.pull(ids)
+            vals = shard.pull(ids, epoch=epoch)
             enc = self._row_enc(req)
             with self.profiler.timer("pull", "response_serialize"):
                 resp = binf.encode_response(
@@ -951,12 +1372,34 @@ class ShardServer(LineServer):
                 raise ValueError(
                     f"{len(ids)} ids but {len(deltas)} delta rows"
                 )
-            seq = shard.push(ids, deltas)
+            seq = shard.push(
+                ids, deltas, epoch=epoch, pid=req.tlv_str(binf.T_PID),
+            )
             with self.profiler.timer("push", "response_serialize"):
                 resp = binf.encode_response(
                     verb, aux=seq, n=int(ids.size), enc=binf.ENC_RAW,
                 )
             return resp
+        if verb == binf.VERB_IDS["xfer"]:
+            ids = self._frame_ids(req)
+            vals, seq = shard.snapshot_rows(ids)
+            return binf.encode_response(
+                verb, aux=seq, n=int(ids.size), enc=binf.ENC_F32,
+                payload=binf.rows_to_payload(vals, binf.ENC_F32),
+            )
+        if verb == binf.VERB_IDS["load"]:
+            ids = self._frame_ids(req)
+            vals = binf.rows_from_payload(
+                req.payload, shard.value_shape, req.enc
+            )
+            if len(vals) != len(ids):
+                raise ValueError(
+                    f"{len(ids)} ids but {len(vals)} value rows"
+                )
+            seq = shard.assign_rows(ids, vals)
+            return binf.encode_response(
+                verb, aux=seq, n=int(ids.size), enc=binf.ENC_RAW
+            )
         if verb == binf.VERB_IDS["flush"]:
             f = shard.flush()
             return binf.encode_response(
@@ -975,6 +1418,8 @@ __all__ = [
     "ParamShard",
     "ShardServer",
     "ShardCrashed",
+    "StaleEpoch",
+    "FrozenKeys",
     "format_rows",
     "parse_rows",
     "parse_ids",

@@ -3,10 +3,10 @@
 Of the reference's ``loadgen/`` only ``overload.py`` is ported so far: the
 client's typed shed error (``OverloadedError``), the circuit breakers a
 user can attach to a client and the ``OverloadGuard`` a shard server
-takes.  The module is the reference's whole: its retry budget and brownout
-serve the retrying client and the hot cache, which wait for elastic/ and
-hotcache/; the arrival schedules, the Zipf population and the soak runner
-are ROADMAP Queue 1 #7 too.
+takes.  The module is the reference's whole: its retry budget serves the
+soak harness and its brownout the hot cache, which wait for the rest of
+loadgen/ and hotcache/; the arrival schedules, the Zipf population and
+the soak runner are ROADMAP Queue 1 #7 too.
 """
 from .overload import (
     PRIORITY_CRITICAL,

@@ -7,10 +7,10 @@ reference's.
 
 In the port the driver logs each batch as its source yielded it (host
 numpy arrays), never a CUDA tensor, so reading the log back needs no card;
-the cluster shards and the mesh store journal host arrays too.  The
-reference's replication framing (``encode_frame*`` / ``decode_frame*``) and
-keyed ``replay_range`` are left out until the replication and elastic ports
-need them (ROADMAP Queue 1 #7).
+the cluster shards and the mesh store journal host arrays too.  The keyed
+``replay_range`` serves the elastic migration tail; the reference's
+replication framing (``encode_frame*`` / ``decode_frame*``) is left out
+until the replication port needs it (ROADMAP Queue 1 #7).
 
 Reference parity gap being closed (SURVEY.md §5, PAPER.md): the
 reference's Flink iteration had no usable checkpointing — a lost worker
@@ -272,6 +272,51 @@ class UpdateWAL:
                 self._unsynced = 0
             records = self._scan_disk()
         return [r for r in records if r.end_step > after_step]
+
+    def replay_range(
+        self,
+        after_step: int = -(1 << 62),
+        ids=None,
+    ) -> List[WALRecord]:
+        """Keyed range-replay: the records of :meth:`replay` with each
+        payload FILTERED down to the global ids in ``ids`` (``None`` =
+        no filtering).  This is the migration tail: a shard WAL logs
+        ``{"ids": ..., "deltas": ...}`` (and load records log
+        ``{"ids": ..., "values": ...}``); handing a moving key range to
+        a new owner replays exactly the rows in that range, in log
+        order, and nothing else.  Records whose payload carries no id
+        in the range are dropped; records without an ``ids`` payload
+        key pass through untouched (this WAL is schema-agnostic —
+        only keyed payloads can be keyed-filtered)."""
+        records = self.replay(after_step)
+        if ids is None:
+            return records
+        import numpy as np
+
+        wanted = np.unique(np.asarray(ids, np.int64))
+        out: List[WALRecord] = []
+        for rec in records:
+            payload = rec.payload
+            if not isinstance(payload, dict) or "ids" not in payload:
+                out.append(rec)
+                continue
+            rec_ids = np.asarray(payload["ids"], np.int64)
+            keep = np.isin(rec_ids, wanted)
+            if not keep.any():
+                continue
+            filtered = dict(payload)
+            for key, value in payload.items():
+                arr = np.asarray(value) if not np.isscalar(value) else None
+                if (
+                    arr is not None
+                    and arr.ndim >= 1
+                    and arr.shape[0] == rec_ids.shape[0]
+                ):
+                    filtered[key] = arr[keep]
+            out.append(
+                WALRecord(rec.seq, rec.start_step, rec.n_steps, filtered)
+            )
+        return out
 
     def truncate_through(self, step: int) -> int:
         """Drop segments whose every record is covered by the durable

@@ -5,8 +5,9 @@ Copies of the JAX package's ``telemetry/registry.py``, ``spans.py`` and
 ``flightrec.py`` (none of them imports JAX; the flight recorder names its
 results folder after the torch device type), and of ``profiler.py``, the
 latency-budget phase profiler the TCP serving front end times its phases
-with.  The endpoint, report, timeline and hot-key modules come with the
-cluster (ROADMAP Queue 1 #7).
+with.  Of ``timeline.py`` only the windowed-percentile helper the elastic
+controller reads is ported; the endpoint, report, the timeline recorder
+and the hot-key modules wait for ROADMAP Queue 1 #7.
 """
 from .flightrec import FlightRecorder, StormDetector, get_recorder, set_recorder
 from .registry import (

@@ -1,0 +1,110 @@
+"""WorkloadRegistry — drive any registered workload by name.
+
+Counterpart of ``flink_parameter_server_tpu/workloads/registry.py``.  The
+registry is what makes the runtime workload-generic as an OPERATIONAL
+property, not just a type signature: the cluster runtime
+(:func:`~.runtime.build_cluster_driver`), the serving front end and the
+chip smoke resolve workloads through here.
+
+Factories take a :class:`~.base.WorkloadParams` and the ``device`` the
+workload computes on (the port's one addition to the reference's
+contract) and return a fresh :class:`~.base.Workload`; the three paper
+workloads (``mf``, ``pa``, ``sketch``) register at import."""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Optional
+
+from ..utils.device import DeviceLike
+from .base import Workload, WorkloadParams
+
+Factory = Callable[[WorkloadParams, DeviceLike], Workload]
+
+
+class WorkloadRegistry:
+    """Thread-safe name → factory map."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._factories: Dict[str, Factory] = {}
+
+    def register(self, name: str, factory: Factory,
+                 *, replace: bool = False) -> None:
+        with self._lock:
+            if name in self._factories and not replace:
+                raise ValueError(
+                    f"workload {name!r} already registered "
+                    f"(pass replace=True to override)"
+                )
+            self._factories[name] = factory
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._factories)
+
+    def create(self, name: str,
+               params: Optional[WorkloadParams] = None,
+               *, device: DeviceLike = None) -> Workload:
+        with self._lock:
+            factory = self._factories.get(name)
+        if factory is None:
+            raise KeyError(
+                f"unknown workload {name!r} (registered: {self.names()})"
+            )
+        return factory(
+            params if params is not None else WorkloadParams(), device
+        )
+
+
+_REGISTRY = WorkloadRegistry()
+
+
+def get_workload_registry() -> WorkloadRegistry:
+    return _REGISTRY
+
+
+def create_workload(name: str,
+                    params: Optional[WorkloadParams] = None,
+                    *, device: DeviceLike = None) -> Workload:
+    """Resolve ``name`` against the process registry (built for
+    ``device``: the card unless the caller passes ``device="cpu"``)."""
+    return _REGISTRY.create(name, params, device=device)
+
+
+def workload_names() -> List[str]:
+    return _REGISTRY.names()
+
+
+def _register_builtins() -> None:
+    # lazy imports inside the factories keep registry import light;
+    # registration itself is eager so names() is complete at import
+    def mf(params: WorkloadParams, device: DeviceLike) -> Workload:
+        from .mf import MFWorkload
+
+        return MFWorkload(params, device=device)
+
+    def pa(params: WorkloadParams, device: DeviceLike) -> Workload:
+        from .pa import PAClassifierWorkload
+
+        return PAClassifierWorkload(params, device=device)
+
+    def sketch(params: WorkloadParams, device: DeviceLike) -> Workload:
+        from .sketch import SketchWorkload
+
+        return SketchWorkload(params, device=device)
+
+    for name, factory in (("mf", mf), ("pa", pa), ("sketch", sketch)):
+        try:
+            _REGISTRY.register(name, factory)
+        except ValueError:  # re-import (test reloads): keep the first
+            pass
+
+
+_register_builtins()
+
+__all__ = [
+    "WorkloadRegistry",
+    "create_workload",
+    "get_workload_registry",
+    "workload_names",
+]

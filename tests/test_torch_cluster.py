@@ -25,7 +25,9 @@ planner is not ported), and tests/test_transport.py's shard-process tests
 window), and tests/test_loadgen.py's shard-edge overload tests with its
 breaker test.  Knobs whose modules wait for ROADMAP Queue 1 #7 raise
 ``NotImplementedError``, and the verbs they would send answer ``err
-bad-request``; each is held here.
+bad-request``; each is held here (``xfer`` / ``load``, epoch fencing and the
+``pid=`` window came back with elastic/ and are held in
+tests/test_torch_elastic.py).
 """
 import json
 import socket
@@ -612,10 +614,14 @@ class TestWire:
         _shard, server, _part = served_shard
         resps = request_lines(server.host, server.port,
                               ["nope", "pull", "pull 63", "pull 0 hex", "push 1 1,2",
-                               # verbs that wait for hotcache/, elastic/, replication/
-                               "lease 0 b64 sess=s1", "revoke all sess=s1", "xfer 0",
-                               "load 0 1,2,3,4", "repl AAAA", "replstate", "conns"])
+                               "xfer", "load 0", "load 0 1,2,3",
+                               # verbs that wait for hotcache/ and replication/
+                               "lease 0 b64 sess=s1", "revoke all sess=s1",
+                               "repl AAAA", "replstate", "conns"])
         assert all(r.startswith("err bad-request") for r in resps), resps
+        # xfer / load came back with elastic/ (tests/test_torch_elastic.py)
+        xfer, load = request_lines(server.host, server.port, ["xfer 0", "load 0 1,2,3,4"])
+        assert xfer.startswith("ok n=1 seq=0 b64:") and load == "ok loaded=1 seq=1", (xfer, load)
 
     def test_unserved_options_are_ignored(self, served_shard):
         _shard, server, _part = served_shard

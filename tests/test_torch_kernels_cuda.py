@@ -649,3 +649,89 @@ def test_cluster_on_card_matches_cpu(cuda, backend):
             tables[dev.type] = driver.run(batches).values
     assert [fn.launches for fn in wrappers] == before
     np.testing.assert_allclose(tables["cuda"], tables["cpu"], rtol=1e-4, atol=1e-6)
+
+
+def test_dense_combine_on_the_card_is_bitwise_repeatable(cuda):
+    """PA's on-device combine (``DenseCombineLogic``, ``accumulate_rows_``:
+    a stable sort and one ordered sum per run) twice on the same batch:
+    bit for bit equal, and within float32 rtol 1e-5 / atol 1e-6 of the CPU's
+    combine (duplicate features summed in another order)."""
+    from flink_parameter_server_tpu_torch.core.transform import to_device
+    from flink_parameter_server_tpu_torch.workloads import WorkloadParams, create_workload
+
+    p = WorkloadParams(rounds=2, batch=256, num_items=512, seed=0)
+    outs = {}
+    for dev in (cuda, cuda, torch.device("cpu")):
+        pa = create_workload("pa", p, device=dev)
+        logic = pa.make_logic()
+        batch = to_device(pa.batches()[0], dev)
+        pulled = torch.zeros(tuple(batch["ids"].shape), device=dev)
+        _, req, _ = logic.step((), batch, pulled)
+        outs.setdefault(dev.type, []).append((req.deltas.cpu(), req.mask.cpu()))
+    (d1, m1), (d2, m2) = outs["cuda"]
+    assert torch.equal(d1.view(torch.int32), d2.view(torch.int32)) and torch.equal(m1, m2)
+    dc, mc = outs["cpu"][0]
+    assert torch.equal(m1, mc)
+    torch.testing.assert_close(d1, dc, rtol=1e-5, atol=1e-6)
+
+
+def _card_shard(cuda, part, shard_id=0, **kw):
+    from flink_parameter_server_tpu_torch.cluster import ParamShard
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    return ParamShard(shard_id, part, (8,), init_fn=ranged_random_factor(3, (8,)),
+                      registry=False, device=cuda, **kw)
+
+
+def test_snapshot_rows_and_load_round_trip_a_card_slice_bitwise(cuda, tmp_path):
+    """``xfer``'s snapshot copies a CUDA slice off the card under the lock
+    that reads its sequence number; ``load`` writes rows into another
+    shard's CUDA slice: both bitwise, and a pull after the load serves the
+    loaded rows (the host mirror was dropped)."""
+    from flink_parameter_server_tpu_torch.cluster import ConsistentHashPartitioner
+
+    old = ConsistentHashPartitioner(4096, 1, seed=2)
+    new = old.grown(2)
+    src = _card_shard(cuda, old, wal_dir=str(tmp_path / "src"))
+    dst = _card_shard(cuda, new, 1, wal_dir=str(tmp_path / "dst"))
+    rng = np.random.default_rng(0)
+    ids = np.unique(rng.integers(0, 4096, 1500))
+    src.push(ids, rng.normal(size=(len(ids), 8)).astype(np.float32))
+    moving = np.arange(4096)[new.shard_of(np.arange(4096)) == 1]
+    rows, seq = src.snapshot_rows(moving)
+    assert seq == src._push_seq == 1
+    assert np.array_equal(rows, src.store.table[src.partitioner.to_local(0, moving)].cpu().numpy())
+    dst.pull(moving[:4])  # builds a host mirror the load must drop
+    dst.assign_rows(moving, rows)
+    assert dst.store.table.device.type == "cuda"
+    assert np.array_equal(dst.pull(moving), rows)
+    assert np.array_equal(dst.store.table[: len(moving)].cpu().numpy(), rows)
+    src.close()
+    dst.close()
+
+
+def test_install_epoch_rebuilds_the_slice_on_the_card(cuda, tmp_path):
+    """The flip compacts a CUDA slice to the new owned set and rebuilds it
+    as a new tensor on the card; a pull after it serves the post-flip rows
+    (no stale mirror), and a shard rebuilt over the WAL's snapshot record
+    holds the same slice on the card, bitwise."""
+    from flink_parameter_server_tpu_torch.cluster import ConsistentHashPartitioner
+
+    part = ConsistentHashPartitioner(4096, 2, seed=4)
+    sh = _card_shard(cuda, part, wal_dir=str(tmp_path / "wal"))
+    owned = sh.owned.copy()
+    sh.push(owned[:100], np.ones((100, 8), np.float32), pid="a.0")
+    before = sh.pull(owned)  # the mirror now holds the pre-flip slice
+    grown = part.grown(3)
+    keep = grown.owned_ids(0)
+    sh.install_epoch(1, grown)
+    assert sh.store.table.device.type == "cuda"
+    assert len(sh.owned) == len(keep) < len(owned)
+    pos = np.searchsorted(owned, keep)
+    assert np.array_equal(sh.pull(keep), before[pos])
+    assert np.array_equal(sh.values(), before[pos])
+    sh.close()
+    reborn = _card_shard(cuda, grown, wal_dir=str(tmp_path / "wal"))
+    assert reborn.store.table.device.type == "cuda"
+    assert np.array_equal(reborn.values(), before[pos])
+    reborn.close()

@@ -20,14 +20,13 @@ Mirrors tests/test_meshstore.py, 35 tests: here are TestLayout (6, the
 row block held against the port's single-device ``StoreSpec``),
 TestMeshParamStore (9; the ZeRO-1 test checks the one-device byte
 arithmetic and the device-tensor test the device the rows stay on),
-TestMeshClient (2), TestMeshDriverParity's MF, final-values and WAL tests
-(3), TestMeshStalenessSemantics (2, the staleness gauge read off the
-registry), TestMeshConfigGuards (5; the elastic driver is stood in for by
-a subclass) and TestMeshTelemetry (1, driven by MF).  Left for ROADMAP
-Queue 1 #7: the three parity tests that build their drivers through
-``workloads/`` (PA bitwise, PA at the fusion-sensitive shape, sketch
-integer-exact) and TestMeshAbLint's four tests of the benchmark's A/B
-artifact lint.
+TestMeshClient (2), TestMeshDriverParity (6: MF, final values, WAL, and
+the three that build their drivers through ``workloads/``: PA bitwise
+against its streaming oracle, PA at the fusion-sensitive shape, the sketch
+integer-exact against the numpy bincount), TestMeshStalenessSemantics (2,
+the staleness gauge read off the registry), TestMeshConfigGuards (5) and
+TestMeshTelemetry (1, driven by MF).  Left for the benchmark cells (ROADMAP Queue 1):
+TestMeshAbLint's four tests of the benchmark's A/B artifact lint.
 """
 import threading
 import time
@@ -67,12 +66,15 @@ from flink_parameter_server_tpu_torch.models.matrix_factorization import (
 from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
 from flink_parameter_server_tpu_torch.training.driver import DriverConfig, StreamingDriver
 from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+from flink_parameter_server_tpu_torch.workloads import WorkloadParams
 
 torch.set_num_threads(2)
 
 pytestmark = pytest.mark.meshstore
 
 CPU = "cpu"
+# the reference's tests/test_meshstore.py SMALL workload shape
+WL_SMALL = WorkloadParams(rounds=6, batch=48, num_users=24, num_items=32, dim=4, seed=3)
 BAR = dict(rtol=1e-4, atol=1e-6)
 MF_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -379,7 +381,58 @@ def _single_process_table(batches, nu, ni, dim):
     return driver.run(iter(batches), collect_outputs=False).store.values().numpy()
 
 
+def _mesh_workload_driver(wl, **kw):
+    from flink_parameter_server_tpu_torch.workloads import build_cluster_driver
+
+    kw.setdefault("num_shards", 2)
+    kw.setdefault("num_workers", 1)
+    kw.setdefault("staleness_bound", 0)
+    return build_cluster_driver(
+        wl, config=ClusterConfig(store_backend="mesh", **kw), registry=False
+    )
+
+
 class TestMeshDriverParity:
+    def test_pa_bsp_bitwise_vs_streaming_oracle(self):
+        """The PA bitwise bar, same envelope the socket backend pins
+        (one worker: one fp32 add per id per round on both arms)."""
+        from flink_parameter_server_tpu_torch.workloads import create_workload
+
+        pa = create_workload("pa", WL_SMALL, device=CPU)
+        oracle = pa.oracle_values()
+        with _mesh_workload_driver(pa) as driver:
+            result = driver.run(pa.batches(), timeout=120)
+        assert np.array_equal(result.values, oracle), (
+            "mesh-backend BSP PA table is not bitwise the streaming oracle"
+        )
+        v = pa.parity_verdict(result.values, oracle)
+        assert v.ok and "bitwise" in v.detail
+        assert result.shard_stats[0]["backend"] == "mesh"
+        assert result.shard_stats[0]["pushes"] > 0
+
+    def test_pa_bitwise_at_the_fusion_sensitive_shape(self):
+        from flink_parameter_server_tpu_torch.workloads import create_workload
+
+        p = WorkloadParams(rounds=10, batch=64, num_items=48, seed=0)
+        pa = create_workload("pa", p, device=CPU)
+        with _mesh_workload_driver(pa) as driver:
+            result = driver.run(pa.batches(), timeout=120)
+        assert np.array_equal(result.values, pa.oracle_values())
+
+    def test_sketch_integer_exact_two_workers(self):
+        """Counts are integers and integer adds commute: two
+        interleaving workers through the mesh scatter must still land
+        the exact bincount — NO tolerance."""
+        from flink_parameter_server_tpu_torch.workloads import create_workload
+
+        sk = create_workload("sketch", WL_SMALL, device=CPU)
+        with _mesh_workload_driver(sk, num_workers=2) as driver:
+            result = driver.run(sk.batches(), timeout=120)
+        oracle = sk.oracle_values()
+        assert np.array_equal(result.values, oracle)
+        v = sk.parity_verdict(result.values, oracle)
+        assert v.ok, v.detail
+
     def test_mf_bsp_parity_two_workers(self):
         batches, nu, ni, dim = _mf()
         base = _single_process_table(batches, nu, ni, dim)
@@ -483,12 +536,15 @@ class TestMeshConfigGuards:
                           config=ClusterConfig(store_backend="rdma"), registry=False, device=CPU)
 
     def test_elastic_driver_rejects_mesh(self):
-        class ControlPlaneDriver(ClusterDriver):
-            """Stands in for the elastic driver (not ported yet)."""
+        from flink_parameter_server_tpu_torch.elastic.controller import ElasticClusterDriver
+        from flink_parameter_server_tpu_torch.workloads import build_cluster_driver, create_workload
 
-        batches, nu, ni, dim = _mf(rounds=1)
+        pa = create_workload("pa", WL_SMALL, device=CPU)
         with pytest.raises(NotImplementedError, match="mesh"):
-            _mesh_driver(nu, ni, dim, driver_cls=ControlPlaneDriver)
+            build_cluster_driver(
+                pa, config=ClusterConfig(store_backend="mesh", num_shards=2),
+                driver_cls=ElasticClusterDriver, registry=False,
+            )
 
     def test_shard_procs_rejected(self):
         batches, nu, ni, dim = _mf(rounds=1)
