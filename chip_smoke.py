@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the torch port on one NVIDIA card: online MF (bare, through the
 job envelope, answering top-K queries while it trains, through the
-parameter-server cluster and the mesh store, and resharded live by the
-elastic driver), the registered workloads (MF, PA, count-min) through the
-cluster with their serving verbs, the other batched workloads
-(passive-aggressive, the sketches, word2vec, the factorization machine)
-and the event API, and Transformer LM training through the dense
-parameter server.
+parameter-server cluster and the mesh store, resharded live by the
+elastic driver, and failed over across replica chains), the registered
+workloads (MF, PA, count-min) through the cluster with their serving
+verbs, the other batched workloads (passive-aggressive, the sketches,
+word2vec, the factorization machine), the event API and its hybrid
+backend, and Transformer LM training through the dense parameter server,
+dense and with switch-MoE layers.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -46,7 +47,7 @@ line each; any failure exits non-zero before the last line:
              append, the NaN check), each beside the card's name and power
              limit.  A ``profile_dir`` run comes last of the whole script.
   serving    train-while-serve at the same width: ``StreamingDriver(...)
-             .serve_with(publish_every=4, max_batch=64, ...)`` trains ~3 s
+             .serve_with(publish_every=4, max_batch=64, ...)`` trains 400 steps
              over a pool of 32 seeded microbatches while 8 client threads
              send ``top_k(k=10)`` (half with 50 excluded ids).  K1 once a
              step and no other kernel; 32 answers sampled over the run
@@ -137,6 +138,23 @@ line each; any failure exits non-zero before the last line:
              resize, each migration's rows, bytes and ms, the epoch flip's
              ms, the hedges fired and won, each workload's rate and the
              phase's seconds, beside the card's name and power limit.
+  replication  replica chains at the same MF width (``MFWorkload``,
+             100,000 x 131,072, dim 64, lr 0.05, the seed-3 stream of
+             65,536-rating microbatches, 12 rounds) through
+             ``build_cluster_driver(..., driver_cls=ReplicatedClusterDriver)``:
+             2 shards, 1 follower each, 1 BSP worker, while a
+             ``FollowerLookupService`` reader pulls 2,048 rows at a time
+             through the chains.  Before round 4 each follower must be
+             caught up and bitwise its primary; then shard 0's primary is
+             killed and ``ElasticController`` promotes its follower.  The
+             promoted shard bitwise its own log (``verify_against_log`` on
+             the card), the final table bitwise an uninterrupted static
+             2-shard run, no read error, no kernel launch.  ``replication:``
+             lines give failover ms (kill -> membership publish), reads
+             served during the failover, lag, catch-up and salvage counts,
+             each follower's host-mirror rebuilds and their ms, and
+             ``replace_shard`` ms for shard 1 afterwards (the O(log)
+             rebuild), beside the card's name and power limit.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -153,7 +171,20 @@ line each; any failure exits non-zero before the last line:
              torch.profiler.
              Before the LM, small LMs at head_dim 320 (d_model 640, 2
              heads, ``flash_attention="auto"``) in both dtypes must launch
-             the three flash kernels and match ``"off"``.
+             the three flash kernels and match ``"off"``.  After it, the
+             MoE LM: the same Transformer-base with ``num_experts=8`` on
+             every layer and capacity 1,280 an expert (1.25 x 8,192 / 8), 20
+             steps (120 launches of each flash kernel, the loss falls, the
+             first 3 losses within rtol 2e-2 of a ``"off"`` run from the same
+             weights), its tokens/s, step ms and the MoE layers' share of
+             the step.  Then the hybrid backend: the event API's
+             ``MFWorkerLogic`` under ``transform_hybrid`` against a
+             ``scatter_impl="pallas"`` store of 131,072 x 64, two chunks of
+             16,384 ratings (cut from 65,536 for the callbacks' time; K1 once
+             a chunk, the table within rtol 1e-5 / atol 1e-6 of
+             ``index_add_`` of the same pushes), and ``chunk_size=1`` over
+             256 ratings against the event backend (atol 1e-5).  Their
+             launches join the kernels line's counts.
   4. timing  each kernel's median time beside its bound, its plain
              version's time and the library call's (``index_add_`` for
              the scatter-add, ``scaled_dot_product_attention`` forward and
@@ -517,7 +548,13 @@ def phase_driver_trace(torch, dev):
         check(len(k1) >= 1, "the driver's trace holds no K1 kernel event")
 
 
-SERVE_POOL, SERVE_SECONDS = 32, 3.0  # seeded microbatches, cycled; the train-while-serve run's length
+# The counted train-while-serve run is a step count, not a time: this job
+# (plain SGD at lr 0.01, duplicate items' deltas summed) turns its tables
+# non-finite between steps 800 and 850 of the cycled pool, in the reference
+# and the port alike, so a run bounded by the clock could diverge on a card
+# that steps faster.  400 steps take about 3 s beside the clients on an
+# H100.
+SERVE_POOL, SERVE_STEPS = 32, 400  # seeded microbatches, cycled; the train-while-serve run's length
 SERVE_KW = dict(publish_every=4, max_batch=64, max_delay_ms=2.0, max_queue=512)  # benchmarks/serving_qps.py
 SERVE_CLIENTS, SERVE_K, SERVE_EXCLUDE, SERVE_USERS = 8, 10, 50, 256
 SERVE_MAX_B = SERVE_KW["max_batch"]  # the top-K batch timed on its own
@@ -669,7 +706,10 @@ def _oracle_check(record):
         if snap.version != version:
             table, version = snap.table[:NUM_ITEMS].cpu().double().numpy(), snap.version
             versions.add(version)
-        bitten += _against_oracle(ans, table, snap.aux[user].cpu().double().numpy(), exclude)
+            check(np.isfinite(table).all(), f"snapshot v{version}'s item table is not finite: the job diverged")
+        uvec = snap.aux[user].cpu().double().numpy()
+        check(np.isfinite(uvec).all(), f"snapshot v{snap.version}'s vector of user {user} is not finite")
+        bitten += _against_oracle(ans, table, uvec, exclude)
         checked += 1
     check(checked >= 20, f"only {checked} mid-training answers were checked against the oracle")
     return checked, len(versions), bitten
@@ -715,7 +755,7 @@ def phase_serving(torch, dev, card):
     """Train-while-serve at the main path's full width: StreamingDriver
     (100,000 x 131,072, dim 64, scatter_impl="pallas", SGDUpdater(0.01))
     over a pool of 32 seeded 65,536-rating Zipf microbatches cycled for
-    about 3 s, through ``serve_with(publish_every=4, max_batch=64,
+    400 steps, through ``serve_with(publish_every=4, max_batch=64,
     max_delay_ms=2.0, max_queue=512)``, with 8 client threads sending
     ``top_k(k=10)``, half of them with a 50-id exclusion list.  Checks:
     mid-training answers against a float64 oracle on their own snapshots,
@@ -741,17 +781,10 @@ def phase_serving(torch, dev, card):
     _, top50 = query_topk(store, logic.init_state(), torch.from_numpy(users).to(dev), SERVE_EXCLUDE)
     excluded = top50.cpu().numpy()
 
-    def timed(seconds):
-        t_end = time.perf_counter() + seconds
-        i = 0
-        while time.perf_counter() < t_end:
-            yield pool[i % SERVE_POOL]
-            i += 1
-
     # 1. the counted run: K1 once a step, no other kernel
     zero_counts()
     drv, service, result, run_s, record, client_s, spans = _train_while_serving(
-        torch, dev, users, excluded, timed(SERVE_SECONDS))
+        torch, dev, users, excluded, itertools.islice(itertools.cycle(pool), SERVE_STEPS))
     steps = drv.step_idx
     read_counts("train-while-serve", {"scatter_add": steps})
     n = len(record["lat"])
@@ -2011,6 +2044,209 @@ def phase_elastic(torch, dev, card):
     print(f"elastic: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+REPL_ROUNDS = 12  # only the run length is cut
+REPL_KILL_AT = 4  # the round before which shard 0's primary is killed
+REPL_READ_IDS = 2048  # ids a serving lookup reads, every 64th item
+
+
+def phase_replication(torch, dev, card):
+    """Replica chains and failover on the card, through the entry points a
+    user calls (``workloads.build_cluster_driver`` with
+    ``replication.ReplicatedClusterDriver``, ``serving.FollowerLookupService``
+    and ``elastic.ElasticController``): ``MFWorkload`` at the MF path's
+    width (100,000 users x 131,072 items, dim 64, lr 0.05, the seed-3
+    stream of 65,536-rating microbatches, 12 rounds; only the run length is
+    cut), 2 shards with 1 follower each and 1 BSP worker, while a serving
+    reader pulls through the chains (``benchmarks/failover_time.py``'s
+    scenario).  Before round 4 every follower must be caught up and bitwise
+    its primary; then shard 0's primary is killed and the controller
+    promotes its follower.  The promoted shard must be bitwise its own
+    replayed log (``verify_against_log`` on the card), the final table
+    bitwise an uninterrupted static 2-shard run on the same stream, the
+    reader must see no error, and no kernel of the port may launch (every
+    slice takes the store's ``"xla"`` arm, as the reference's do)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig
+    from flink_parameter_server_tpu_torch.elastic import ElasticController, ScalePolicy
+    from flink_parameter_server_tpu_torch.replication import ReplicatedClusterConfig, ReplicatedClusterDriver
+    from flink_parameter_server_tpu_torch.replication.failover import verify_against_log
+    from flink_parameter_server_tpu_torch.serving import FollowerLookupService
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.workloads import WorkloadParams, build_cluster_driver, create_workload
+
+    t_phase = time.perf_counter()
+    mf = create_workload("mf", WorkloadParams(rounds=REPL_ROUNDS, batch=BATCH, num_users=NUM_USERS,
+                                              num_items=NUM_ITEMS, dim=DIM_UNFUSED), device=dev)
+    stream = mf.batches()
+
+    zero_counts()
+    static = build_cluster_driver(mf, config=ClusterConfig(num_shards=2, num_workers=1, partition="hash"),
+                                  registry=False)
+    with static:
+        r = static.run(stream, timeout=600)
+    read_counts("replication: the static 2-shard run", {})
+    base = r.values
+    print(f"replication: static 2-shard hash BSP x1 (the uninterrupted run): {r.rounds} rounds in "
+          f"{r.wall_s:.3f} s, {r.rounds / r.wall_s:.2f} rounds/s; {card}")
+
+    tmp = tempfile.mkdtemp(prefix="replication-", dir=os.path.join(REPO, "build"))
+    reg = MetricsRegistry()
+    zero_counts()
+    d = build_cluster_driver(
+        mf, config=ReplicatedClusterConfig(num_shards=2, num_workers=1, wal_dir=os.path.join(tmp, "wal"),
+                                           replication_factor=1, follower_staleness_bound=None,
+                                           verify_promotion=True),
+        driver_cls=ReplicatedClusterDriver, registry=reg,
+    )
+    d.start()
+    marks, reports, reads, errors, failures = {}, [], [], [], []
+    publish = d.membership.publish
+
+    def timed_publish(*a, **k):
+        out = publish(*a, **k)
+        if "kill" in marks and "publish" not in marks:
+            marks["publish"] = time.perf_counter()
+        return out
+
+    d.membership.publish = timed_publish
+    promote_shard = d.promote_shard
+
+    def recorded_promote(shard_id):
+        reports.append(promote_shard(shard_id))
+        return reports[-1]
+
+    d.promote_shard = recorded_promote
+    controller = ElasticController(d, policy=ScalePolicy(min_shards=2, max_shards=2, min_window_frames=10**9),
+                                   registry=reg)
+    serve = FollowerLookupService(d.membership, (DIM_UNFUSED,), registry=reg, retry_timeout=60.0, device=dev)
+    killed, stop = threading.Event(), threading.Event()
+    read_ids = np.arange(0, NUM_ITEMS, NUM_ITEMS // REPL_READ_IDS, dtype=np.int64)
+    caught = {}
+
+    def followers():
+        return {s: c.followers[0] for s, c in d.chains.chains.items()}
+
+    def kill_hook(w, t):
+        if t != REPL_KILL_AT:
+            return
+        # every record of rounds 0..3 is acked by its primary; wait until
+        # each follower has applied all of them, then hold the slices
+        deadline = time.monotonic() + 120
+        fs = followers()
+        while time.monotonic() < deadline and any(
+                f.repl_state()["applied"] < d.shards[s].head_seq() for s, f in fs.items()):
+            time.sleep(0.002)
+        for s, f in fs.items():
+            caught[s] = (d.shards[s].head_seq(), f.repl_state()["applied"],
+                         d.shards[s].values().tobytes() == f.values().tobytes())
+        marks["kill"] = time.perf_counter()
+        d.kill_shard(0)
+        killed.set()
+
+    def control():
+        try:
+            killed.wait(600)
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                act = controller.step()
+                if act is not None:
+                    marks.setdefault("actions", []).append(act)
+                    if act["action"] == "promote":
+                        return
+                time.sleep(0.002)
+        except BaseException as e:  # re-raised on the main thread below
+            failures.append(e)
+
+    def reader():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                res = serve.lookup(read_ids)
+                if tuple(res.values.shape) != (len(read_ids), DIM_UNFUSED) or res.values.device.type != dev.type:
+                    errors.append(f"a lookup answered {tuple(res.values.shape)} on {res.values.device}")
+                reads.append((t0, time.perf_counter()))
+            except Exception as e:  # noqa: BLE001 — counted and checked below
+                errors.append(f"{type(e).__name__}: {e}")
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=fn, name=f"replication-smoke-{fn.__name__}", daemon=True)
+               for fn in (control, reader)]
+    try:
+        on_card = all(s.store.table.device.type == dev.type for s in d.shards) and all(
+            f.store.table.device.type == dev.type for f in followers().values())
+        check(on_card, f"replication: not every primary and follower slice is on {dev.type}")
+        for th in threads:
+            th.start()
+        r = d.run(stream, timeout=600, round_hook=kill_hook)
+        threads[0].join(timeout=180)
+        stop.set()
+        threads[1].join(timeout=60)
+        check(not any(th.is_alive() for th in threads), "replication: the control or reader thread hung")
+        if failures:
+            raise failures[0]
+        torch.cuda.synchronize()
+        counts = read_counts("replication: the replicated run with a failover", {})
+        # every follower and its mirror (the promoted one is shard 0 now)
+        mirrors = [("promoted (was shard 0's follower)", d.shards[0].stats())] + [
+            (f"shard {s}'s follower" + (" (re-seeded)" if s == 0 else ""), f.stats())
+            for s, f in sorted(followers().items())]
+        t = time.perf_counter()
+        audit = verify_against_log(d.shards[0])
+        audit_ms = (time.perf_counter() - t) * 1e3
+        promoted_role, epoch = d.shards[0].role, d.membership.current().epoch
+        fallbacks = sum(i.value for i in reg.instruments() if i.name == "replication_follower_fallbacks_total")
+        replica_reads = sum(i.value for i in reg.instruments() if i.name == "replication_replica_reads_total")
+        # the O(log) yardstick: shard 1 rebuilt from its whole log
+        d.kill_shard(1)
+        t = time.perf_counter()
+        replayed = d.replace_shard(1)
+        replace_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        stop.set()
+        serve.close()
+        d.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"replication: ReplicatedClusterDriver 2 shards x 1 follower, 1 BSP worker, {r.rounds} rounds in "
+          f"{r.wall_s:.3f} s ({r.rounds / r.wall_s:.2f} rounds/s, {r.updates_per_sec:.0f} updates/s) with a "
+          f"primary killed before round {REPL_KILL_AT}; kernel launches {counts}; {card}")
+    for s, (head, applied, same) in sorted(caught.items()):
+        print(f"replication: before the kill, shard {s}'s follower applied {applied} of its primary's {head} "
+              f"records: {'bitwise equal' if same else 'DIFFERS'}; {card}")
+        check(applied == head and same, f"replication: shard {s}'s caught-up follower is not its primary")
+    check(len(reports) == 1, f"replication: {len(reports)} promotions, actions {marks.get('actions')}")
+    rep = reports[0]
+    failover_ms = (marks["publish"] - marks["kill"]) * 1e3
+    during = [(a, b) for a, b in reads if b >= marks["kill"] and a <= marks["publish"]]
+    print(f"replication: failover of shard 0 (kill -> membership publish) {failover_ms:.1f} ms, promote's own "
+          f"fence -> publish {rep.failover_seconds * 1e3:.1f} ms; lag at promote {rep.lag_records_at_promote} "
+          f"records, caught up {rep.records_caught_up}, salvaged {rep.records_salvaged}; promotion audit "
+          f"{rep.verified} in {rep.verify_seconds * 1e3:.1f} ms; epoch {epoch}; {card}")
+    print(f"replication: serving reader: {len(reads)} lookups of {len(read_ids)} rows, {len(during)} of them "
+          f"during the failover, {len(errors)} errors, {int(replica_reads)} frames answered by followers, "
+          f"{int(fallbacks)} fallbacks to a primary; {card}")
+    for what, st in mirrors:
+        print(f"replication: {what}: {st['pulls']} pulls served, {st['mirror_rebuilds']} host-mirror rebuilds "
+              f"in {st['mirror_rebuild_s'] * 1e3:.1f} ms ({st['mirror_rebuild_s'] * 1e3 / max(1, st['mirror_rebuilds']):.2f} "
+              f"ms each); {card}")
+    print(f"replication: replace_shard(1) afterwards (the O(log) rebuild): {replayed} WAL records replayed in "
+          f"{replace_ms:.1f} ms; verify_against_log on the promoted shard {audit_ms:.1f} ms; {card}")
+    same = r.values.tobytes() == base.tobytes()
+    print(f"replication: final table against the uninterrupted static run: "
+          f"{'bitwise equal' if same else 'DIFFERS'}; promoted shard against its own log: "
+          f"{'bitwise equal' if audit else 'DIFFERS'}; {card}")
+    check(errors == [], f"replication: serving lookups failed: {errors[:3]}")
+    check(len(reads) > 0 and len(during) > 0, "replication: no lookup was served during the failover")
+    check(promoted_role == "primary" and epoch >= 1 and rep.verified, "replication: the promotion did not flip")
+    check(audit, "replication: the promoted shard is not bitwise its replayed log")
+    check(same, "replication: the final table is not bitwise the uninterrupted run")
+    check(replayed > 0, "replication: replace_shard replayed nothing")
+    print(f"replication: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -2376,6 +2612,10 @@ def phase_main(torch, dev):
 
     fused_ms = median_step_ms(stamps)
     launches.update(phase_lm(torch, dev))
+    # the new arms' launches join the kernels line's counts
+    for name, n in phase_moe_lm(torch, dev).items():
+        launches[name] += n
+    launches["scatter_add"] += phase_hybrid(torch, dev, card_line())["scatter_add"]
     # after every counted run, so that no counted run follows a profiler
     # session in this process
     _trace_steps("ps_online_mf", drive_unfused, unfused_ms)
@@ -2564,6 +2804,178 @@ def phase_lm(torch, dev):
     check(all(bool(torch.isfinite(p).all()) for p in final.parameters()), "non-finite LM parameters")
     _trace_lm_steps(torch, final, loss_fn, batches[LM_STEPS:], statistics.median(steps_ms))
     return {name: counts[name] for name in FLASH}
+
+
+MOE_EXPERTS = 8  # examples/transformer_lm.py's MoE setting, on every layer
+MOE_CAPACITY = 1280  # 1.25 x 8,192 tokens / 8 experts: Switch Transformer's training capacity factor
+MOE_OFF_STEPS = 3  # steps of the flash "off" run held against the counted run's first losses
+MOE_OFF_RTOL = 2e-2  # bfloat16: routing is an argmax over gate products that add in another order
+
+
+def phase_moe_lm(torch, dev):
+    """The switch-MoE LM: Transformer-base (bfloat16, ``flash_attention="on"``)
+    with ``num_experts=8`` on every layer and capacity 1,280 an expert, 20
+    steps of 16 x 512 tokens through ``DenseParameterServer(adamw(3e-3))``.
+    The flash kernels launch once a layer a step, the loss falls, and the
+    first 3 losses match a ``flash_attention="off"`` run from the same
+    weights within rtol 2e-2 (bfloat16 throughout; a token whose top two
+    gate probabilities nearly tie may take another expert when the gate
+    product adds in another order).  The MoE layers' share of the step is
+    their forward and backward timed alone at the step's shapes."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch import (
+        DenseParameterServer, TransformerConfig, adamw, init_params, lm_loss, transform_dense,
+    )
+    from flink_parameter_server_tpu_torch.models import moe
+
+    cfg = TransformerConfig(flash_attention="on", num_experts=MOE_EXPERTS, moe_capacity=MOE_CAPACITY)
+    check(cfg.head_dim == LM_D and cfg.n_heads == LM_H, "Transformer-base heads changed")
+    batches = list(bigram_batches(LM_STEPS, LM_B, LM_T, cfg.vocab_size, seed=0))
+    runs = {}
+    for mode, steps in (("off", MOE_OFF_STEPS), ("on", LM_STEPS)):
+        run_cfg = dataclasses.replace(cfg, flash_attention=mode)
+        model = init_params(run_cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        losses, stamps = [], []
+
+        def on_step(i, loss, losses=losses, stamps=stamps):
+            losses.append(float(loss))  # synchronises once a step
+            stamps.append(time.perf_counter())
+
+        zero_counts()
+        result = transform_dense(batches[:steps], lambda m, b, c=run_cfg: lm_loss(m, b, c),
+                                 DenseParameterServer(model, adamw(3e-3)), on_step=on_step)
+        torch.cuda.synchronize()
+        per_run = run_cfg.n_layers * steps if mode == "on" else 0
+        counts = read_counts(f"transform_dense (MoE LM, flash {mode})", {n: per_run for n in FLASH})
+        runs[mode] = (losses, stamps, result.server_outputs[0], counts)
+    losses, stamps, final, counts = runs["on"]
+    off = runs["off"][0]
+    n_params = sum(p.numel() for p in final.parameters())
+    tokens = LM_B * LM_T
+    rate = (LM_STEPS - LM_WARMUP) * tokens / (stamps[-1] - stamps[LM_WARMUP - 1])
+    steps_ms = [round((b - a) * 1e3, 3) for a, b in zip(stamps[LM_WARMUP - 1:], stamps[LM_WARMUP:])]
+    step_ms = statistics.median(steps_ms)
+    first = np.array(losses[:MOE_OFF_STEPS])
+    agree = bool(np.allclose(first, off, rtol=MOE_OFF_RTOL, atol=0))
+    print(f"main: MoE LM Transformer-base, {MOE_EXPERTS} experts a layer, capacity {MOE_CAPACITY} ({n_params} "
+          f"params, bf16, flash on) {LM_STEPS} steps of {LM_B}x{LM_T} tokens, adamw(3e-3): loss by step "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"main: MoE LM first {MOE_OFF_STEPS} losses flash on {first.round(5).tolist()} vs off "
+          f"{np.round(off, 5).tolist()}: max rel diff {float(np.max(np.abs(first - off) / np.abs(off))):.3e} "
+          f"(rtol={MOE_OFF_RTOL}) {'ok' if agree else 'MISMATCH'}")
+    check(len(losses) == LM_STEPS and all(np.isfinite(losses)), "MoE LM losses missing or not finite")
+    check(statistics.fmean(losses[-5:]) < losses[0], "MoE LM loss did not fall")
+    check(agree, "MoE LM flash on disagrees with flash off")
+    check(all(bool(torch.isfinite(p).all()) for p in final.parameters()), "non-finite MoE LM parameters")
+
+    # the MoE layers alone: forward and backward of each layer's moe_dense
+    # at the step's shapes (B*T tokens of d_model, bfloat16), CUDA events
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=MOE_EXPERTS, capacity=MOE_CAPACITY,
+                         dtype=cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(tokens, cfg.d_model, generator=gen, device=dev).to(cfg.dtype).requires_grad_()
+    g = torch.randn(tokens, cfg.d_model, generator=gen, device=dev).to(cfg.dtype)
+    layers = [{k: v.detach().requires_grad_() for k, v in layer.moe.items()} for layer in final.layers]
+
+    def moe_layers():
+        for prm in layers:
+            torch.autograd.backward(moe.moe_dense(prm, h, mcfg), g)
+
+    moe_layers()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        moe_layers()
+    end.record()
+    torch.cuda.synchronize()
+    moe_ms = start.elapsed_time(end) / 5
+    dropped = sum(int((~moe._route(h.detach(), prm["w_gate"], MOE_EXPERTS, MOE_CAPACITY)[2]).sum()) for prm in layers)
+    print(f"main: MoE LM {rate:.0f} tokens/s after {LM_WARMUP} warm-up steps (one sync a step), step ms "
+          f"{steps_ms}; the {cfg.n_layers} MoE layers' forward and backward alone {moe_ms:.3f} ms, "
+          f"{moe_ms / step_ms:.1%} of the median step {step_ms:.3f} ms; {dropped} of {cfg.n_layers * tokens} "
+          f"token-layers over capacity on random inputs")
+    return {name: counts[name] for name in FLASH}
+
+
+# ratings a chunk, two chunks: cut from 65,536, at which the per-record
+# Python callbacks took 190 and 100 s a chunk on the card
+HYBRID_CHUNK = 16_384
+HYBRID_TOL = dict(rtol=1e-5, atol=1e-6)  # K1's ordered run sums against index_add_'s atomics; atol for sums near 0
+HYBRID_PREFIX = 256  # ratings of the chunk_size=1 run held against the event backend
+
+
+def phase_hybrid(torch, dev, card):
+    """The hybrid backend: the event API's ``MFWorkerLogic`` (dim 64, its
+    per-record callbacks in Python, user vectors on the card) under
+    ``transform_hybrid`` against a ``scatter_impl="pallas"`` store at the MF
+    path's item table (131,072 x 64), two chunks of 16,384 ratings (cut
+    from 65,536: the callbacks took 100-190 s a chunk there): K1 once a
+    chunk and no other kernel, and the table within rtol 1e-5 / atol 1e-6
+    of the same chunks' pushes folded into the initial table with
+    ``index_add_`` on the card.  Then ``chunk_size=1`` over the first 256 ratings against the
+    event backend (``transform`` with a keyed store) on the card, within
+    atol 1e-5 (the reference's bar)."""
+    from flink_parameter_server_tpu_torch import MFWorkerLogic, SGDUpdater, SimplePSLogic, transform, transform_hybrid
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    cols = synthetic_ratings(NUM_USERS, NUM_ITEMS, 2 * HYBRID_CHUNK, seed=0)
+    records = list(zip(cols["user"].tolist(), cols["item"].tolist(), cols["rating"].tolist()))
+    init = ranged_random_factor(1, (DIM_UNFUSED,))
+    store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, scatter_impl="pallas", device=dev)
+    table0 = store.table.clone()
+    pushed, chunk_s = [], []
+    push = ShardedParamStore.push
+
+    def recorded_push(self, ids, deltas, mask=None):
+        pushed.append((ids.clone(), deltas.clone()))
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter())
+        return push(self, ids, deltas, mask)
+
+    worker = MFWorkerLogic(DIM_UNFUSED, SGDUpdater(LEARNING_RATE), seed=0, device=dev)
+    ShardedParamStore.push = recorded_push
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        result = transform_hybrid(records, worker, store, chunk_size=HYBRID_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ShardedParamStore.push = push
+    counts = read_counts("transform_hybrid (event MF, pallas store)", {"scatter_add": 2})
+    got = result.store.values()
+    oracle = table0
+    for ids, deltas in pushed:
+        oracle = oracle.index_add(0, ids, deltas)
+    err = float((got - oracle).abs().max())
+    ok = bool(torch.allclose(got, oracle, **HYBRID_TOL))
+    callbacks = [b - a for a, b in zip([t0] + chunk_s, chunk_s)]
+    print(f"main: transform_hybrid MFWorkerLogic dim {DIM_UNFUSED} on a ({NUM_ITEMS},{DIM_UNFUSED}) pallas store, "
+          f"{len(records)} ratings in chunks of {HYBRID_CHUNK}: {wall:.2f} s ({len(records) / wall:.0f} records/s; "
+          f"callbacks and pulls before each push {[round(c, 2) for c in callbacks]} s), K1 {counts['scatter_add']} "
+          f"launches; table against index_add_ of the same pushes max_abs_err={err:.3e} (rtol=1e-5 atol=1e-6) "
+          f"{'ok' if ok else 'MISMATCH'}; {card}")
+    check(len(result.worker_outputs) == len(records), "transform_hybrid lost worker outputs")
+    check(bool(torch.isfinite(got).all()) and ok, "transform_hybrid's table is off its index_add_ oracle")
+
+    prefix = records[:HYBRID_PREFIX]
+    touched = sorted({i for _u, i, _r in prefix})
+    hy = transform_hybrid(prefix, MFWorkerLogic(DIM_UNFUSED, SGDUpdater(LEARNING_RATE), seed=0, device=dev),
+                          ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, scatter_impl="pallas",
+                                                   device=dev), chunk_size=1)
+    ev = transform(prefix, MFWorkerLogic(DIM_UNFUSED, SGDUpdater(LEARNING_RATE), seed=0, device=dev),
+                   SimplePSLogic(init=lambda i: init(torch.tensor([i], device=dev))[0], update=lambda c, dl: c + dl))
+    ev_rows = {i: v for i, v in ev.server_outputs}
+    got = hy.store.values()[torch.tensor(touched, device=dev)]
+    want = torch.stack([ev_rows[i] for i in touched])
+    err = float((got - want).abs().max())
+    print(f"main: transform_hybrid chunk_size=1 over {HYBRID_PREFIX} ratings against the event backend on the card: "
+          f"{len(touched)} rows, max_abs_err={err:.3e} (atol=1e-5); {card}")
+    check(bool(torch.allclose(got, want, rtol=0, atol=1e-5)), "transform_hybrid chunk_size=1 != the event backend")
+    return {"scatter_add": counts["scatter_add"]}
 
 
 def _trace_lm_steps(torch, model, loss_fn, batches, step_ms):
@@ -2762,6 +3174,7 @@ def main() -> int:
         wl_rows, wl_traces = phase_workloads(torch, dev, card)
         phase_cluster(torch, dev, card)
         phase_elastic(torch, dev, card)
+        phase_replication(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

@@ -20,8 +20,12 @@ factorization machine; the event API (``WorkerLogic``,
 host.  The parameter-server cluster (``cluster/``, ``meshstore/``) runs
 the same batched logics against key-partitioned shards behind TCP
 servers, each slice a tensor on the card, or against one table tensor on
-the card (``store_backend="mesh"``), under a BSP / SSP / async clock.
-Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+the card (``store_backend="mesh"``), under a BSP / SSP / async clock;
+the elastic driver resizes it live, and replica chains (``replication/``)
+ship each shard's log to followers on the card that take over when a
+primary dies.  The LM takes switch-MoE layers without a mesh, and
+``transform_hybrid`` runs event-API callbacks against the store on the
+card.  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
 
 Quickstart::
@@ -104,6 +108,7 @@ from .core.api import (
 )
 from .core.batched import BatchedWorkerLogic, PushRequest
 from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
+from .core.hybrid import transform_hybrid
 from .core.optim import adam, adamw, sgd
 from .core.store import ShardedParamStore, StoreSpec
 from .core.transform import (
@@ -184,6 +189,7 @@ __all__ = [
     "make_train_step",
     "transform",
     "transform_batched",
+    "transform_hybrid",
     "transform_with_model_load",
     "DriverConfig",
     "StreamingDriver",

@@ -20,7 +20,15 @@ from .partition import (
     RangePartitioner,
 )
 from .procs import RemoteShardStub, ShardProcess, ShardProcSpec
-from .shard import FrozenKeys, ParamShard, ShardCrashed, ShardServer, StaleEpoch
+from .shard import (
+    FollowerLagging,
+    FrozenKeys,
+    NotPrimary,
+    ParamShard,
+    ShardCrashed,
+    ShardServer,
+    StaleEpoch,
+)
 
 __all__ = [
     "ClusterClient",
@@ -28,7 +36,9 @@ __all__ = [
     "ClusterDriver",
     "ClusterResult",
     "ConsistentHashPartitioner",
+    "FollowerLagging",
     "FrozenKeys",
+    "NotPrimary",
     "ParamShard",
     "Partitioner",
     "RangePartitioner",

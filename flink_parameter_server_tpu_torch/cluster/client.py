@@ -4,13 +4,14 @@ A copy of ``flink_parameter_server_tpu/cluster/client.py``, which imports
 no JAX: the port imports nothing of the JAX package, whose ``__init__``
 imports JAX.  Modules it names that the port does not have yet are the
 reference's.  Ported: the static client (a fixed list of shard addresses
-under one partitioner) and the elastic one (``membership`` routing with
-its refresh-and-retry loop, the ``pid`` exactly-once token and ``hedge``
-pull races).  The reference's ``replicas`` (replica-chain reads),
+under one partitioner), the elastic one (``membership`` routing with its
+refresh-and-retry loop, the ``pid`` exactly-once token and ``hedge`` pull
+races) and replica-chain reads (``replicas=`` / ``read_replicas=`` and the
+view's replica sets, with the fallback to the primary).  The reference's
 ``push_hedge``, ``hotcache`` (the lease cache) and ``retry_budget`` (the
 soak harness's token bucket) raise ``NotImplementedError`` until
-replication/, adaptive/, hotcache/ and the rest of loadgen/ are ported
-(ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/.
+adaptive/, hotcache/ and the rest of loadgen/ are ported (ROADMAP Queue 1
+#7), and ``wire_proto="shm"`` until shmem/.
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
 real shard sockets, plus the batch surface the compiled path uses.
@@ -57,6 +58,16 @@ raises the typed ``OverloadedError`` immediately — shed traffic is
 badput to count, never a replay.  ``priority=`` tags every frame
 ``pr=<n>`` so the shard edge sheds serving reads before training
 pushes.
+
+Replica-chain read routing (replication/, docs/elastic.md): when the
+membership view carries ``replicas`` (or a static ``replicas=`` is
+passed), pulls round-robin across ``[primary] + followers`` per shard.
+A follower that declines (``err lagging`` past its staleness bound,
+``err not-primary`` after a promotion) or cannot be reached FALLS BACK
+to the primary — counted in ``replication_follower_fallbacks_total``,
+never surfaced as an error.  Writes always go to the primary.  With a
+hedger attached, a replica read that stalls races its budgeted backup
+against the primary.
 
 Pull RTT lands in a ``cluster_pull_rtt_seconds`` histogram per client
 (p99 is the benchmark's tail-latency column).
@@ -364,6 +375,21 @@ def _is_overloaded(resp) -> bool:
     return resp.startswith("err overloaded")
 
 
+def _is_follower_reject(resp) -> bool:
+    """A replica-chain follower declining a read: lagging past the
+    staleness bound, or no longer a follower at all.  The client falls
+    back to the primary — NOT a membership refresh (the map is fine;
+    this one replica is stale)."""
+    status = _frame_status(resp)
+    if status is not None:
+        return status in (
+            binf.STATUS_LAGGING, binf.STATUS_NOT_PRIMARY
+        )
+    return resp.startswith("err lagging") or resp.startswith(
+        "err not-primary"
+    )
+
+
 class _Rejected(Exception):
     """Internal: carries the ids a shard rejected (stale-epoch/frozen)
     or could not be reached for, so the batch loop replays exactly
@@ -502,6 +528,7 @@ class ClusterClient(ParameterServerClient):
         worker: Optional[str] = None,
         membership=None,
         replicas=None,
+        read_replicas: bool = True,
         hedge=None,
         push_hedge=None,
         hotcache=None,
@@ -513,7 +540,6 @@ class ClusterClient(ParameterServerClient):
         profiler=None,
     ):
         _not_ported = (
-            ("replicas", replicas, "replication/"),
             ("push_hedge", push_hedge, "adaptive/"),
             ("hotcache", hotcache, "hotcache/"),
             ("retry_budget", retry_budget, "loadgen/ (soak)"),
@@ -538,11 +564,16 @@ class ClusterClient(ParameterServerClient):
             self._epoch: Optional[int] = None
             self.partitioner = partitioner
             self._addresses = [tuple(a) for a in addresses]
+            self._replicas = (
+                [tuple(tuple(a) for a in r) for r in replicas]
+                if replicas else []
+            )
         else:
             view = membership.current()
             self._epoch = view.epoch
             self.partitioner = view.partitioner
             self._addresses = [tuple(a) for a in view.addresses]
+            self._replicas = [tuple(r) for r in view.replicas]
         if chunk < 1:
             raise ValueError(f"chunk={chunk}: must be >= 1")
         if wire_format not in ("text", "b64", "bf16", "q8"):
@@ -584,6 +615,12 @@ class ClusterClient(ParameterServerClient):
         self._window = int(window)
         self._timeout = float(timeout)
         self._connect_timeout = float(connect_timeout)
+        # replica-chain read routing (replication/, docs/elastic.md):
+        # pulls rotate across [primary] + followers; follower rejects
+        # and connection errors fall back to the primary.  Writes
+        # always go to the primary.
+        self._read_replicas = bool(read_replicas)
+        self._rr: Dict[int, int] = {}
         self.retry_timeout = float(retry_timeout)
         # overload control (loadgen/overload.py, docs/loadgen.md):
         # breakers = per-shard circuit BreakerBoard (an open
@@ -663,12 +700,24 @@ class ClusterClient(ParameterServerClient):
                 if membership is not None
                 else None
             )
+            if membership is not None or replicas:
+                self._c_replica_reads = reg.counter(
+                    "replication_replica_reads_total",
+                    component="replication", **labels,
+                )
+                self._c_fallbacks = reg.counter(
+                    "replication_follower_fallbacks_total",
+                    component="replication", **labels,
+                )
+            else:
+                self._c_replica_reads = self._c_fallbacks = None
         else:
             self._reg = None
             self._labels = {}
             self._h_rtt = None
             self._c_refresh = None
             self._c_storms = None
+            self._c_replica_reads = self._c_fallbacks = None
         # per-SHARD pull RTT (timeline plane, docs/observability.md):
         # the worker-labelled histogram above answers "is this worker
         # slow"; these lazily-registered per-shard twins answer "WHICH
@@ -747,15 +796,18 @@ class ClusterClient(ParameterServerClient):
     def _conn_for(self, shard: int) -> ShardConnection:
         return self._conn_for_addr(self._addresses[shard])
 
-    def _drop_conn(self, shard: int) -> None:
-        conn = self._conns.pop(self._addresses[shard], None)
+    def _drop_addr(self, addr: Tuple[str, int]) -> None:
+        conn = self._conns.pop(addr, None)
         if conn is not None:
             conn.close()
 
+    def _drop_conn(self, shard: int) -> None:
+        self._drop_addr(self._addresses[shard])
+
     def _refresh_membership(self) -> bool:
         """Re-read the membership view; adopt a newer epoch's map +
-        addresses (closing connections to addresses that left).
-        Returns True when a new epoch was adopted."""
+        addresses + replica sets (closing connections to addresses
+        that left).  Returns True when a new epoch was adopted."""
         if self.membership is None:
             return False
         view = self.membership.current()
@@ -764,14 +816,36 @@ class ClusterClient(ParameterServerClient):
         self._epoch = view.epoch
         self.partitioner = view.partitioner
         new_addrs = [tuple(a) for a in view.addresses]
+        new_replicas = [tuple(r) for r in view.replicas]
         keep = set(new_addrs)
+        for reps in new_replicas:
+            keep.update(reps)
         for addr in list(self._conns):
             if addr not in keep:
                 self._conns.pop(addr).close()
         self._addresses = new_addrs
+        self._replicas = new_replicas
         if self._c_refresh is not None:
             self._c_refresh.inc()
         return True
+
+    # -- replica-chain read routing ------------------------------------------
+    def _read_target(self, shard: int) -> Tuple[Tuple[str, int], bool]:
+        """Where the next read for ``shard`` goes: round-robin across
+        the primary + its followers (``(addr, is_replica)``)."""
+        primary = self._addresses[shard]
+        reps = (
+            self._replicas[shard]
+            if self._read_replicas and shard < len(self._replicas)
+            else ()
+        )
+        if not reps:
+            return primary, False
+        targets = [primary] + list(reps)
+        i = self._rr.get(shard, 0)
+        self._rr[shard] = i + 1
+        addr = targets[i % len(targets)]
+        return addr, addr != primary
 
     def _next_retry_sleep(self, attempt: int) -> float:
         """The next replay-round sleep: capped exponential with
@@ -1137,6 +1211,66 @@ class ClusterClient(ParameterServerClient):
             board.ok(shard)
         return resps
 
+    def _read_frames(
+        self, shard: int, sids: np.ndarray, build, *, trace=None,
+    ) -> List:
+        """Route one shard's READ frames: a replica when the rotation
+        picks one, the primary otherwise — and always the primary as
+        the fallback when the replica declines (lagging/not-primary)
+        or cannot be reached.  Pulls are idempotent, so the fallback
+        replays the whole frame set."""
+        addr, is_replica = self._read_target(shard)
+        if not is_replica:
+            return self._request_frames(
+                shard, sids, build, hedgeable=True, trace=trace
+            )
+        resps = None
+        try:
+            resps = self._replica_request(shard, addr, build, trace)
+        except OSError:
+            self._drop_addr(addr)
+        if resps is not None and not any(
+            _is_follower_reject(r) for r in resps
+        ):
+            if self._c_replica_reads is not None:
+                self._c_replica_reads.inc(len(resps))
+            return resps
+        if self._c_fallbacks is not None:
+            self._c_fallbacks.inc()
+        return self._request_frames(
+            shard, sids, build, hedgeable=True, trace=trace
+        )
+
+    def _replica_request(
+        self, shard: int, addr: Tuple[str, int], build, trace
+    ) -> List:
+        """One replica's frames — hedged, when a hedger is attached,
+        against the PRIMARY: a straggling replica races the shard's
+        write owner and the first answer wins (the budgeted
+        elastic/hedging.py race, re-aimed across the chain)."""
+        conn = self._conn_for_addr(addr)
+        reqs = build(conn)
+        if self.hedge is None:
+            return conn.request_many(reqs)
+        primary = self._addresses[shard]
+
+        def on_backup_won(spare_conn):
+            # the spare dialed the primary; it takes the primary's
+            # cache slot (the still-draining replica conn is dropped)
+            old = self._conns.pop(primary, None)
+            if old is not None:
+                old.close()
+            self._conns[primary] = spare_conn
+            self._drop_addr(addr)
+
+        return self.hedge.request_many(
+            conn,
+            lambda: self._dial(primary),
+            reqs,
+            on_backup_won,
+            trace=trace,
+        )
+
     def _check_shed(self, resp, shard: int, what: str) -> None:
         """A typed shed answer fails fast (count badput, never retry
         the storm); the breaker sees it as a failure signal."""
@@ -1258,9 +1392,7 @@ class ClusterClient(ParameterServerClient):
         # separately below) must sum to
         with span_cm:
             t0 = time.perf_counter()
-            resps = self._request_frames(
-                shard, ids, build, hedgeable=True, trace=trace
-            )
+            resps = self._read_frames(shard, ids, build, trace=trace)
             # one observation per chunk frame: the pipelined per-frame
             # turnaround, amortised (total wall / frames); serialize
             # time was measured inside the builder, net of the dial

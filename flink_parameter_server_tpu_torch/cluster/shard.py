@@ -14,18 +14,22 @@ reference's host store unchanged.  The tiered backend is not ported yet
 (ROADMAP Queue 1 #7, tierstore).
 
 The verbs served are those :class:`~.driver.ClusterDriver`, the shard
-processes and the elastic control plane (``elastic/``) send: pull, push,
-flush and stats, and for live resharding ``xfer`` / ``load``, epoch
-fencing, frozen ranges and the exactly-once ``pid=`` window.  With the
-slice on the card, ``xfer`` copies its rows off the device under the same
-lock as the sequence number it reports, and ``load``, ``install_epoch``
-and a snapshot replay write the slice tensor on the shard's device and
-drop the host mirror.  The reference's other verbs wait for the modules
-that send them (ROADMAP Queue 1 #7): ``lease`` / ``revoke`` and the
-piggybacked ``inv=`` invalidations for the hot-key cache (hotcache/), and
-``repl`` / ``replstate`` for replica chains (replication/).  Until then
-those verbs answer ``err bad-request`` and their option tokens (``sess=``)
-are parsed and ignored, as an older reference server treats them.
+processes, the elastic control plane (``elastic/``) and the replica
+chains (``replication/``) send: pull, push, flush and stats; for live
+resharding ``xfer`` / ``load``, epoch fencing, frozen ranges and the
+exactly-once ``pid=`` window; for replica chains ``repl`` (one shipped
+WAL record, applied by a follower) and ``replstate``, with the answers
+``err not-primary`` (a write on a follower) and ``err lagging`` (a read
+past a follower's staleness bound).  With the slice on the card, ``xfer``
+copies its rows off the device under the same lock as the sequence number
+it reports, and ``load``, ``install_epoch`` and a snapshot replay write the
+slice tensor on the shard's device and drop the host mirror; a follower's
+slice sits on its device like a primary's and applies each shipped record
+through the same scatter.  The hot-key cache's ``lease`` / ``revoke`` and
+the piggybacked ``inv=`` invalidations wait for hotcache/ (ROADMAP Queue 1
+#7): until then those verbs answer ``err bad-request`` and their option
+tokens (``sess=``) are parsed and ignored, as an older reference server
+treats them.
 
 This is the reference's PS subtask made a real process boundary: shard
 ``s`` owns exactly the rows ``partitioner.owned_ids(s)`` as a dense
@@ -54,6 +58,8 @@ it)::
     push <id1,id2,...> <payload> [pid=<t>] [e=<n>] [t=<tok>]  # deltas
     xfer <id1,id2,...> [t=<tok>]             # atomic (rows, seq) snapshot
     load <id1,id2,...> <payload>             # row ASSIGNMENT (migration)
+    repl <b64-frame> [head=<n>]              # one shipped WAL record
+    replstate                                # one-line JSON repl state
     flush                                    # fsync the WAL, ack counters
     stats                                    # one-line JSON shard stats
 
@@ -61,9 +67,11 @@ it)::
     ok applied=<k> seq=<n>                # push answer
     ok n=<k> seq=<s> <payload>            # xfer answer (always b64)
     ok loaded=<k> seq=<n>                 # load answer
+    ok acked seg=<s> seq=<n>              # repl answer (the follower ack:
+                                          # durable segment + end seq)
     ok pushes=<n> wal_records=<m>         # flush answer
     err <reason>      # bad-request | crashed | stale-epoch | frozen
-                      # | overloaded | internal
+                      # | lagging | not-primary | overloaded | internal
 
 Epoch fencing (the elastic/ membership protocol): a shard pins the
 partition-map epoch it serves.  A push whose frame epoch is OLDER than
@@ -163,6 +171,26 @@ class StaleEpoch(RuntimeError):
 class FrozenKeys(RuntimeError):
     """The push touches a key range frozen for migration — retry
     shortly; the epoch flip that re-homes the range is imminent."""
+
+
+class NotPrimary(RuntimeError):
+    """A write landed on a replica-chain follower.  Followers absorb
+    reads only; the client must route writes to the primary
+    (``err not-primary`` on the wire)."""
+
+
+class FollowerLagging(RuntimeError):
+    """A follower's applied state trails the primary's head past the
+    read-staleness bound, so serving this read would violate the SSP
+    contract — the client falls back to the primary
+    (``err lagging lag=<n>`` on the wire)."""
+
+    def __init__(self, lag: int):
+        super().__init__(
+            f"follower is {lag} records behind the primary head "
+            f"(past the staleness bound)"
+        )
+        self.lag = int(lag)
 
 
 def format_rows(rows: np.ndarray, encoding: str = "text") -> str:
@@ -316,6 +344,12 @@ class ParamShard:
         self.shard_id = int(shard_id)
         self.partitioner = partitioner
         self.value_shape = tuple(int(s) for s in value_shape)
+        # replica-chain role (replication/): a primary absorbs writes
+        # and may ship its WAL records to followers via an attached
+        # sink; followers override the write surface (see
+        # replication/follower.ReplicaShard)
+        self.role = "primary"
+        self._repl_sink = None
         self._init_fn = init_fn
         self._dtype = dtype
         self.owned = partitioner.owned_ids(self.shard_id)
@@ -681,6 +715,7 @@ class ParamShard:
                     payload["pid"] = pid
                 with prof.timer("push", "wal_append"):
                     self._wal.append(self._push_seq, 1, payload)
+                self._repl_offer(self._push_seq, 1, payload)
             self._push_seq += 1
             with prof.timer("push", "scatter_apply"):
                 self._apply(ids, deltas)
@@ -753,6 +788,7 @@ class ParamShard:
             if self._wal is not None:
                 payload = {"kind": "load", "ids": ids, "values": values}
                 self._wal.append(self._push_seq, 1, payload)
+                self._repl_offer(self._push_seq, 1, payload)
             self._push_seq += 1
             self._assign(ids, values)
             self.loads_applied += int(len(ids))
@@ -824,6 +860,7 @@ class ParamShard:
                     "pairs": list(self._applied_pairs),
                 }
                 self._wal.append(barrier, 1, payload)
+                self._repl_offer(barrier, 1, payload)
                 self._push_seq += 1
                 # older segments are fully superseded by the barrier —
                 # best-effort bound on the log (whole segments only)
@@ -889,6 +926,75 @@ class ParamShard:
         if self._wal is None:
             return []
         return self._wal.replay_range(after_seq, global_ids)
+
+    # -- replica chains (replication/) ---------------------------------------
+    def attach_repl_sink(self, sink) -> None:
+        """Attach the replication fan-out: every WAL record this shard
+        appends from here on is also handed to ``sink.offer(start,
+        n_steps, payload)`` — the primary half of the ``repl`` stream.
+        The sink must be non-blocking (it is called under the shard
+        lock); the :class:`~..replication.shipper.ReplHub` queues and
+        lets shipper threads do the socket work."""
+        with self._lock:
+            self._repl_sink = sink
+
+    def detach_repl_sink(self) -> None:
+        with self._lock:
+            self._repl_sink = None
+
+    def _repl_offer(self, start_step: int, n_steps: int, payload) -> None:
+        sink = self._repl_sink
+        if sink is not None:
+            try:
+                sink.offer(start_step, n_steps, payload)
+            except Exception:  # replication must never fail a write
+                pass
+
+    def head_seq(self) -> int:
+        """The primary's current push-sequence head — what a follower's
+        lag is measured against (rides ``repl`` frames as ``head=``)."""
+        with self._lock:
+            return self._push_seq
+
+    def repl_backlog(self, after_seq: int) -> list:
+        """The shippable WAL tail: records with ``end_step >
+        after_seq``, starting no earlier than the newest snapshot
+        barrier (a snapshot supersedes everything before it — shipping
+        pre-barrier records to a follower built under the current map
+        would reference ids it cannot route).  The shipper's resync
+        path: bootstrap (``after_seq=-1``) and reconnect both land
+        here."""
+        if self._wal is None:
+            return []
+        records = self._wal.replay()
+        start = 0
+        for i, rec in enumerate(records):
+            p = rec.payload
+            if isinstance(p, dict) and p.get("kind") == "snapshot":
+                start = i
+        return [r for r in records[start:] if r.end_step > after_seq]
+
+    def apply_repl(self, record, head=None) -> dict:
+        """Receive one shipped WAL record (the ``repl`` verb).  Only a
+        follower accepts the stream; the base (primary) shard rejects
+        it as a routing error — see
+        :class:`~..replication.follower.ReplicaShard`."""
+        raise ValueError(
+            f"shard {self.shard_id} is a {self.role}, not a replication "
+            f"follower — repl frames route to followers only"
+        )
+
+    def repl_state(self) -> dict:
+        """One-line replication state (the ``replstate`` verb): role +
+        the sequence cursors a failover decision reads.  Followers
+        override with their lag figures."""
+        with self._lock:
+            return {
+                "shard": self.shard_id,
+                "role": self.role,
+                "seq": self._push_seq,
+                "epoch": self.epoch,
+            }
 
     # -- failure / recovery -------------------------------------------------
     def crash(self) -> None:
@@ -1077,6 +1183,10 @@ class ShardServer(LineServer):
                 return f"err stale-epoch epoch={e.shard_epoch}"
             except FrozenKeys:
                 return "err frozen"
+            except FollowerLagging as e:
+                return f"err lagging lag={e.lag}"
+            except NotPrimary:
+                return "err not-primary"
             except (ValueError, KeyError) as e:
                 return f"err bad-request: {e}"
             except Exception as e:  # noqa: BLE001 — protocol boundary
@@ -1205,13 +1315,39 @@ class ShardServer(LineServer):
             self._parse_opts(toks[3:])  # validate; load is controller-driven
             seq = self.shard.assign_rows(ids, vals)
             return f"ok loaded={len(ids)} seq={seq}"
+        if cmd == "repl":
+            # the replication stream (replication/shipper.py): one WAL
+            # record, CRC-framed exactly as on disk, applied by a
+            # follower; the response line IS the (segment, seq) ack
+            if len(toks) < 2:
+                raise ValueError("usage: repl <b64-frame> [head=<n>]")
+            from ..resilience.wal import decode_frame
+
+            opts = self._parse_opts(toks[2:])
+            head = opts.get("head")
+            if head is not None:
+                try:
+                    head = int(head)
+                except ValueError:
+                    raise ValueError(
+                        f"head={head!r}: must be an integer"
+                    ) from None
+            rec = decode_frame(toks[1])
+            ack = self.shard.apply_repl(rec, head=head)
+            return (
+                f"ok acked seg={ack['seg']} seq={ack['seq']} "
+                f"applied={ack['applied']}"
+            )
+        if cmd == "replstate":
+            return "ok " + json.dumps(self.shard.repl_state())
         if cmd == "flush":
             f = self.shard.flush()
             return f"ok pushes={f['pushes']} wal_records={f['wal_records']}"
         if cmd == "stats":
             return "ok " + json.dumps(self.shard.stats())
         raise ValueError(
-            f"unknown command {cmd!r} (pull|push|xfer|load|flush|stats)"
+            f"unknown command {cmd!r} "
+            f"(pull|push|xfer|load|repl|replstate|flush|stats)"
         )
 
     # -- the binary frame protocol (utils/frames.py) -------------------------
@@ -1281,6 +1417,15 @@ class ShardServer(LineServer):
                 )
             except FrozenKeys:
                 return binf.error_response(verb_id, binf.STATUS_FROZEN)
+            except FollowerLagging as e:
+                return binf.error_response(
+                    verb_id, binf.STATUS_LAGGING,
+                    tlvs=[(binf.T_LAG, str(e.lag).encode())],
+                )
+            except NotPrimary:
+                return binf.error_response(
+                    verb_id, binf.STATUS_NOT_PRIMARY
+                )
             except (binf.FrameError, ValueError, KeyError) as e:
                 return binf.error_response(
                     verb_id, binf.STATUS_BAD_REQUEST, str(e)
@@ -1400,6 +1545,23 @@ class ShardServer(LineServer):
             return binf.encode_response(
                 verb, aux=seq, n=int(ids.size), enc=binf.ENC_RAW
             )
+        if verb == binf.VERB_IDS["repl"]:
+            # the replication stream: the payload IS the on-disk CRC
+            # record — raw bytes, no base64 (replication/shipper.py)
+            from ..resilience.wal import decode_frame_bytes
+
+            rec = decode_frame_bytes(bytes(req.payload))
+            ack = shard.apply_repl(rec, head=req.tlv_int(binf.T_HEAD))
+            return binf.encode_response(
+                verb, aux=int(ack["seq"]), n=int(ack["applied"]),
+                enc=binf.ENC_RAW,
+                tlvs=[(binf.T_SEG, str(ack["seg"]).encode())],
+            )
+        if verb == binf.VERB_IDS["replstate"]:
+            return binf.encode_response(
+                verb, enc=binf.ENC_RAW,
+                payload=json.dumps(shard.repl_state()).encode(),
+            )
         if verb == binf.VERB_IDS["flush"]:
             f = shard.flush()
             return binf.encode_response(
@@ -1420,6 +1582,8 @@ __all__ = [
     "ShardCrashed",
     "StaleEpoch",
     "FrozenKeys",
+    "NotPrimary",
+    "FollowerLagging",
     "format_rows",
     "parse_rows",
     "parse_ids",

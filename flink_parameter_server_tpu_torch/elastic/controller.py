@@ -9,8 +9,9 @@ driver's BSP and increment carve-outs on the wire format.  What leads into
 modules not ported yet raises ``NotImplementedError`` naming its ROADMAP
 Queue 1 #7 item: ``drain_shard`` (adaptive/rebalance) and the push hedger
 (behind the ``adaptive`` knob, which the cluster driver already rejects);
-the controller replaces a dead shard from its WAL, and promotion over a
-replica chain waits for replication/.  ``store_backend="mesh"`` and
+the controller promotes a follower over a dead shard that has a replica
+chain (``replication/``) and replaces one without a chain from its WAL.
+``store_backend="mesh"`` and
 ``shard_procs=True`` raise under this driver, as the reference's do: the
 control plane drives in-process, socket-fronted shard handles.
 
@@ -406,9 +407,11 @@ class ElasticController:
 
     Decision order per evaluation (first match wins):
 
-      1. a dead shard → ``replace`` (O(log) WAL rebuild; promotion over
-         a replica chain waits for replication/) — ignores cooldown, a
-         dead shard is degrading every batch that routes to it;
+      1. a dead (or heartbeat-silent) shard → ``promote`` when the
+         driver has a replica chain for it (O(lag) failover,
+         replication/failover.py), else ``replace`` (O(log) WAL
+         rebuild) — both ignore cooldown, a dead shard is degrading
+         every batch that routes to it;
       2. windowed pull p99 / max queue depth / staleness spread above
          the scale-out thresholds → ``scale_out`` (until
          ``max_shards``);
@@ -495,8 +498,12 @@ class ElasticController:
         n = self.driver.partitioner.num_shards
         for s in range(n):
             if not self.driver.shard_alive(s):
-                # a dead primary is rebuilt from its full WAL (replace);
-                # promotion over a replica chain waits for replication/
+                # a dead/heartbeat-silent primary with a replica chain
+                # is PROMOTED over (replication/failover.py — O(lag)),
+                # not rebuilt from its full WAL (replace — O(log))
+                can_promote = getattr(self.driver, "can_promote", None)
+                if can_promote is not None and can_promote(s):
+                    return {"action": "promote", "shard": s}
                 return {"action": "replace", "shard": s}
         p99, frames = self._windowed_rtt_p99()
         depth = self._max_queue_depth()
@@ -553,7 +560,7 @@ class ElasticController:
             return None
         now = time.monotonic()
         if (
-            decision["action"] != "replace"
+            decision["action"] not in ("replace", "promote")
             and now - self._last_action_t < self.policy.cooldown_s
         ):
             return None
@@ -562,6 +569,12 @@ class ElasticController:
                 decision["replayed"] = self.driver.replace_shard(
                     decision["shard"]
                 )
+            elif decision["action"] == "promote":
+                report = self.driver.promote_shard(decision["shard"])
+                decision["follower"] = report.follower
+                decision["failover_seconds"] = report.failover_seconds
+                decision["records_caught_up"] = report.records_caught_up
+                decision["records_salvaged"] = report.records_salvaged
             elif decision["action"] == "scale_out":
                 decision["report_rows"] = self.driver.scale_out().rows_moved
             elif decision["action"] == "scale_in":

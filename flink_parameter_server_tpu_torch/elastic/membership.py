@@ -1,9 +1,9 @@
 """Epoch-versioned partition maps — the elastic control plane's truth.
 
 A copy of ``flink_parameter_server_tpu/elastic/membership.py``, which
-imports no JAX, without the per-shard replica sets a view carries for
-replica chains: they come back with replication/ (ROADMAP Queue 1 #7).
-Modules it names that the port does not have yet are the reference's.
+imports no JAX; each view carries the per-shard replica sets of the
+replica chains (``replication/``).  Modules it names that the port does
+not have yet are the reference's.
 
 "Elastic Model Aggregation with Parameter Service" (arXiv:2204.03211)
 frames the core problem of resizing a live PS as a ROUTING problem:
@@ -41,19 +41,41 @@ from typing import Callable, List, Sequence, Tuple
 from ..cluster.partition import Partitioner
 
 
+def _normalize_replicas(replicas) -> Tuple:
+    """Deep-tuple a per-shard replica address structure (None → ())."""
+    if not replicas:
+        return ()
+    return tuple(
+        tuple(tuple(a) for a in shard_addrs) for shard_addrs in replicas
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class PartitionEpoch:
-    """One immutable generation of the cluster's routing truth."""
+    """One immutable generation of the cluster's routing truth.
+
+    ``replicas`` (replication/, docs/elastic.md) carries each shard's
+    follower addresses — the read-only chain members clients may
+    load-balance pulls across; empty (the default) means no chains and
+    every read goes to the primary.  Writes ALWAYS route by
+    ``addresses``."""
 
     epoch: int
     partitioner: Partitioner
     addresses: Tuple[Tuple[str, int], ...]
+    replicas: Tuple[Tuple[Tuple[str, int], ...], ...] = ()
 
     def __post_init__(self):
         if len(self.addresses) != self.partitioner.num_shards:
             raise ValueError(
                 f"epoch {self.epoch}: {len(self.addresses)} addresses "
                 f"for a {self.partitioner.num_shards}-shard map"
+            )
+        if self.replicas and len(self.replicas) != len(self.addresses):
+            raise ValueError(
+                f"epoch {self.epoch}: {len(self.replicas)} replica "
+                f"sets for {len(self.addresses)} shards (pass one "
+                f"tuple per shard — empty for chainless shards)"
             )
 
 
@@ -72,11 +94,13 @@ class MembershipService:
         partitioner: Partitioner,
         addresses: Sequence[Tuple[str, int]],
         *,
+        replicas=None,
         registry=None,
     ):
         self._lock = threading.Lock()
         self._current = PartitionEpoch(
-            0, partitioner, tuple(tuple(a) for a in addresses)
+            0, partitioner, tuple(tuple(a) for a in addresses),
+            _normalize_replicas(replicas),
         )
         self._listeners: List[Callable[[PartitionEpoch], None]] = []
         if registry is not False:
@@ -101,6 +125,8 @@ class MembershipService:
         self,
         partitioner: Partitioner,
         addresses: Sequence[Tuple[str, int]],
+        *,
+        replicas=None,
     ) -> PartitionEpoch:
         """Install the next epoch; returns the published view."""
         with self._lock:
@@ -108,6 +134,7 @@ class MembershipService:
                 self._current.epoch + 1,
                 partitioner,
                 tuple(tuple(a) for a in addresses),
+                _normalize_replicas(replicas),
             )
             self._current = nxt
             listeners = list(self._listeners)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .core.store import ShardedParamStore, StoreSpec
-from .models.transformer import TransformerConfig, TransformerLM
+from .models.transformer import MOE_KEYS, TransformerConfig, TransformerLM
 from .utils.device import DeviceLike, check_mesh, resolve_device
 
 _DTYPES = {
@@ -99,18 +99,23 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
                                   device: DeviceLike = None) -> TransformerLM:
     """The LM from the reference's parameter pytree as numpy (``embed``,
     ``final_norm``, ``layers[i].{attn_norm, wqkv, wo, mlp_norm, w_up,
-    w_down}``; bfloat16 leaves widened to float32).  Layouts are the
-    reference's, so the copy is element for element: weights narrow to
-    ``cfg.dtype``, norm gains stay float32."""
+    w_down}``, or ``layers[i].moe.{w_gate, w_up, w_down}`` in place of the
+    MLP; bfloat16 leaves widened to float32).  Layouts are the reference's,
+    so the copy is element for element: weights narrow to ``cfg.dtype``,
+    norm gains stay float32."""
     dev = resolve_device(device)
 
     def leaf(x, dtype):
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
 
-    layers = [
-        {key: leaf(layer[key], torch.float32 if key.endswith("norm") else cfg.dtype) for key in _LAYER_KEYS}
-        for layer in tree["layers"]
-    ]
+    def block(layer):
+        keys = [k for k in _LAYER_KEYS if not ("moe" in layer and k in ("w_up", "w_down"))]
+        out = {key: leaf(layer[key], torch.float32 if key.endswith("norm") else cfg.dtype) for key in keys}
+        if "moe" in layer:
+            out["moe"] = {key: leaf(layer["moe"][key], cfg.dtype) for key in MOE_KEYS}
+        return out
+
+    layers = [block(layer) for layer in tree["layers"]]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, cfg.n_layers={cfg.n_layers}")
     return TransformerLM(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32),
@@ -119,10 +124,18 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
 
 def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
     """The reference's pytree layout as numpy (bfloat16 widened to float32)."""
+
+    def block(layer):
+        if hasattr(layer, "moe"):
+            out = {key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS if key not in ("w_up", "w_down")}
+            out["moe"] = {key: to_numpy(layer.moe[key]) for key in MOE_KEYS}
+            return out
+        return {key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS}
+
     return {
         "embed": to_numpy(model.embed),
         "final_norm": to_numpy(model.final_norm),
-        "layers": [{key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS} for layer in model.layers],
+        "layers": [block(layer) for layer in model.layers],
     }
 
 

@@ -5,8 +5,10 @@ Counterpart of ``flink_parameter_server_tpu/models/transformer.py``
 :class:`..core.dense.DenseParameterServer`.  Parameters live in an
 ``nn.Module`` whose names and layouts are the reference pytree's
 (``embed``, ``final_norm``, ``layers[i].{attn_norm, wqkv, wo, mlp_norm,
-w_up, w_down}``; ``wqkv`` is ``(d, 3d)`` used as ``h @ W``), so weights
-cross element for element (``interop.transformer_params_from_numpy``).
+w_up, w_down}``, or ``layers[i].moe.{w_gate, w_up, w_down}`` in place of
+the MLP with ``num_experts > 0``; ``wqkv`` is ``(d, 3d)`` used as
+``h @ W``), so weights cross element for element
+(``interop.transformer_params_from_numpy``).
 
 Numerics follow the reference: weights and activations in ``cfg.dtype``
 (bfloat16 by default), RMSNorm and RoPE in float32, norm gains float32,
@@ -14,8 +16,11 @@ tanh-approximated GELU (``jax.nn.gelu``'s default), float32 logits from
 the tied embedding.  Attention goes through the flash kernels
 (``ops/flash_attention.py``) when eligible, else the O(T²) reference.
 
-Single-device: ring attention, tensor / sequence / pipeline parallelism
-(ROADMAP Queue 1 #9) and switch-MoE layers (Queue 1 #10) raise.
+With ``num_experts > 0`` every layer's MLP is a switch-MoE layer
+(``models/moe.py`` ``moe_dense``: top-1 routing, ``moe_capacity`` tokens an
+expert over the whole batch, as the reference's mesh-less path runs it).
+Single-device: ring attention, tensor / sequence / pipeline parallelism and
+expert parallelism (``ep_axis``) raise (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import reference_attention
 from ..utils.device import DeviceLike, check_mesh, resolve_device
+
+MOE_KEYS = ("w_gate", "w_up", "w_down")  # layers[i].moe's leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +72,14 @@ class TransformerConfig:
             raise ValueError(
                 f"flash_attention must be 'auto', 'on' or 'off', got {self.flash_attention!r}"
             )
-        if self.num_experts > 0 or self.ep_axis is not None or self.moe_capacity:
+        if self.ep_axis is not None:
             raise NotImplementedError(
-                "switch-MoE layers (num_experts, ep_axis, moe_capacity) are not ported yet: "
-                "ROADMAP Queue 1 #10"
+                "expert parallelism (ep_axis) is multi-device: ROADMAP Queue 1 #9; "
+                "num_experts with ep_axis=None runs the mesh-less MoE"
+            )
+        if self.num_experts > 0 and self.moe_capacity <= 0:
+            raise ValueError(
+                "num_experts > 0 requires moe_capacity > 0 (capacity 0 would drop every token)"
             )
         if self.dp_axis != "dp" or self.use_ring_attention or self.sp_axis or self.tp_axis or self.pp_axis:
             raise NotImplementedError(
@@ -85,16 +96,23 @@ class TransformerConfig:
 
 
 class TransformerBlock(nn.Module):
-    """One pre-norm residual block's parameters (attention + MLP)."""
+    """One pre-norm residual block's parameters: attention, and either a
+    dense MLP (``w_up``, ``w_down``) or a switch-MoE layer (``moe``: a dict
+    of ``w_gate``, ``w_up``, ``w_down``)."""
 
-    def __init__(self, attn_norm, wqkv, wo, mlp_norm, w_up, w_down):
+    def __init__(self, attn_norm, wqkv, wo, mlp_norm, w_up=None, w_down=None, moe=None):
         super().__init__()
         self.attn_norm = nn.Parameter(attn_norm)
         self.wqkv = nn.Parameter(wqkv)
         self.wo = nn.Parameter(wo)
         self.mlp_norm = nn.Parameter(mlp_norm)
-        self.w_up = nn.Parameter(w_up)
-        self.w_down = nn.Parameter(w_down)
+        if (moe is None) == (w_up is None or w_down is None):
+            raise ValueError("a block takes either w_up and w_down or moe")
+        if moe is None:
+            self.w_up = nn.Parameter(w_up)
+            self.w_down = nn.Parameter(w_down)
+        else:
+            self.moe = nn.ParameterDict({k: nn.Parameter(moe[k]) for k in MOE_KEYS})
 
 
 class TransformerLM(nn.Module):
@@ -112,6 +130,13 @@ class TransformerLM(nn.Module):
         return forward(self, tokens, self.cfg)
 
 
+def _moe_config(cfg: TransformerConfig):
+    from .moe import MoEConfig
+
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=cfg.num_experts,
+                     capacity=cfg.moe_capacity, dtype=cfg.dtype)
+
+
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> TransformerLM:
     """A freshly initialised LM on ``device`` (``cuda`` by default).
@@ -119,8 +144,10 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
     float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
     ``(2·n_layers·f)**-0.5`` (w_down) and 0.02 (the tied embedding), cast
-    to ``cfg.dtype``; norm gains float32 ones.  The draws come from
-    ``generator`` (seed 0 on the CPU if None), not from JAX's keys."""
+    to ``cfg.dtype``; norm gains float32 ones; with ``num_experts > 0``
+    each layer's MLP is ``init_moe_params``' (gate and up ``d**-0.5``, down
+    ``f**-0.5``).  The draws come from ``generator`` (seed 0 on the CPU if
+    None), not from JAX's keys."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     d, f = cfg.d_model, cfg.d_ff
@@ -132,6 +159,13 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     def ones():
         return torch.ones(d, dtype=torch.float32, device=dev)
 
+    def mlp():
+        if cfg.num_experts > 0:
+            from .moe import init_moe_params
+
+            return dict(moe=init_moe_params(gen, _moe_config(cfg), device=dev))
+        return dict(w_up=dense((d, f), d**-0.5), w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5))
+
     embed = dense((cfg.vocab_size, d), 0.02)
     layers = [
         dict(
@@ -139,8 +173,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
             wqkv=dense((d, 3 * d), d**-0.5),
             wo=dense((d, d), (2 * cfg.n_layers * d) ** -0.5),
             mlp_norm=ones(),
-            w_up=dense((d, f), d**-0.5),
-            w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5),
+            **mlp(),
         )
         for _ in range(cfg.n_layers)
     ]
@@ -195,6 +228,11 @@ def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfi
     attn = _unsharded_attention(q, k, v, cfg).reshape(B, T, H * Dh)
     x = x + attn @ layer.wo
     h = _rmsnorm(x, layer.mlp_norm)
+    if cfg.num_experts > 0:
+        from .moe import moe_dense
+
+        y = moe_dense(layer.moe, h.reshape(B * T, cfg.d_model), _moe_config(cfg))
+        return x + y.reshape(B, T, cfg.d_model)
     return x + F.gelu(h @ layer.w_up, approximate="tanh") @ layer.w_down
 
 
@@ -243,6 +281,7 @@ def lm_loss(params: TransformerLM, batch: Dict[str, Any], cfg: TransformerConfig
 
 
 __all__ = [
+    "MOE_KEYS",
     "TransformerConfig",
     "TransformerBlock",
     "TransformerLM",

@@ -1,0 +1,57 @@
+"""replication/ — per-shard replica chains over the elastic cluster.
+
+Counterpart of ``flink_parameter_server_tpu/replication/``: every
+primary and follower slice lives on the driver's device (the card unless
+the caller asks for the CPU), and a follower applies the primary's logged
+records through the same scatter, so a caught-up follower is bitwise its
+primary there too.
+
+The availability subsystem: a dead shard stops
+being a single point of failure because its WAL — already the
+durability story (resilience/wal.py) and the migration stream
+(elastic/migration.py) — is ALSO shipped live to 1–2 followers, which
+serve reads under the SSP staleness bound and stand ready to be
+promoted in O(lag) when the primary dies or goes silent.
+
+  * :mod:`.shipper` — ``ReplHub`` (the primary's append fan-out) +
+    ``WALShipper`` (one leg per follower: CRC-framed ``repl`` lines,
+    ack = durable in the follower's own WAL, lag = head − acked,
+    loss-free resync on reconnect/overflow);
+  * :mod:`.follower` — ``ReplicaShard``: write-ahead log, asynchronous
+    apply, reads rejected past the staleness bound (``err lagging`` →
+    client falls back to the primary), writes rejected always
+    (``err not-primary``);
+  * :mod:`.chain` — ``ReplicaChain``/``ChainManager``: chain
+    lifecycle, follower addresses into the membership view, the
+    primary heartbeat plane (missed beats → the controller promotes);
+  * :mod:`.failover` — ``promote()``: fence the old primary with the
+    stale-epoch machinery, catch the follower up from its own WAL
+    tail, salvage the dead primary's unshipped tail, flip the epoch in
+    one publish, optionally audit bitwise against the replayed log;
+  * :mod:`.driver` — ``ReplicatedClusterDriver``/``Config``: the
+    elastic driver with chains built in, heartbeat-aware liveness, and
+    chain re-seeding across resizes/replacements/promotions.
+
+See docs/elastic.md ("Replica chains") for the chain topology, the
+ack/lag semantics, the promote algorithm, and the read-staleness
+contract; docs/cluster.md documents the ``repl``/``replstate`` wire
+verbs.  Failover time is benchmarked against a full WAL rebuild by
+``benchmarks/failover_time.py``.
+"""
+from .chain import ChainManager, ReplicaChain
+from .driver import ReplicatedClusterConfig, ReplicatedClusterDriver
+from .failover import PromoteReport, promote
+from .follower import ReplicaShard
+from .shipper import ReplHub, WALShipper
+
+__all__ = [
+    "ChainManager",
+    "PromoteReport",
+    "ReplHub",
+    "ReplicaChain",
+    "ReplicaShard",
+    "ReplicatedClusterConfig",
+    "ReplicatedClusterDriver",
+    "WALShipper",
+    "promote",
+]

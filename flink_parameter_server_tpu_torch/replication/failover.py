@@ -1,0 +1,264 @@
+"""Failover — promote the most-caught-up follower in O(lag).
+
+Counterpart of ``flink_parameter_server_tpu/replication/failover.py``.
+Every shard the port's audit builds goes on the promoted shard's own
+device with its own store backend: a card shard replayed on the CPU would
+hold the card's ordered sums against the CPU's, which need not agree to
+the bit, and a CPU shard must never reach for the card.
+
+The contrast with ``elastic/controller.py replace_shard`` is the whole
+point: a replacement rebuilds a dead shard by replaying its ENTIRE WAL
+(recovery time scales with log length, and every read for the range
+stalls meanwhile); a promotion flips an already-warm follower in, and
+the only sequential work is the *lag* — the records the follower had
+logged but not applied, plus whatever unshipped tail can be salvaged
+from the dead primary's surviving disk.  ``benchmarks/failover_time.py``
+measures both on the same log length.
+
+The algorithm (all under the driver's resize lock, one membership
+publish at the end — the same single-flip discipline as every other
+resize):
+
+  1. **fence** — the old primary's server stops and the shard is
+     ``retire``\\ d at the NEW epoch: any straggler write that still
+     reaches it answers ``err stale-epoch``/``err frozen`` (the
+     existing fencing machinery; a client replays against the new map).
+  2. **pick** — the follower with the longest durable log (ack = its
+     own WAL, so "most caught up" is a local read, no quorum round).
+  3. **catch up** — the follower drains its own WAL tail past its
+     applied cursor (:meth:`~.follower.ReplicaShard.catch_up`).
+  4. **salvage** — if the dead primary's WAL directory is readable
+     (this runtime's kill simulation, like a real machine whose disk
+     outlived its process), the records past the follower's log head
+     are ingested — write-ahead logged, then applied, in order.  After
+     this the promoted log IS the primary's log, bitwise.
+  5. **flip** — the follower's role/epoch flip, the driver's shard and
+     server slots swap to the promoted follower, remaining followers
+     re-chain onto the new primary (their shippers resync from their
+     own acked cursors — seq space is continuous), and ONE membership
+     publish moves clients over.
+  6. **verify** (post-flip audit, optional) — rebuild a scratch slice
+     by replaying the promoted shard's WAL and compare bitwise; runs
+     AFTER reads are already flowing, so it prices integrity, not
+     availability.
+
+``failover_seconds`` (kill → publish) lands in the
+``replication_failover_seconds`` histogram — the series the
+``failover`` SLO (telemetry/slo.py) budgets sub-second against.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class PromoteReport:
+    """What one failover did — the audit surface the chaos e2e test
+    and the failover benchmark read."""
+
+    shard: int
+    follower: int
+    epoch: int
+    lag_records_at_promote: int = 0  # logged-but-unapplied at pick time
+    records_caught_up: int = 0  # applied from the follower's own tail
+    records_salvaged: int = 0  # ingested from the dead primary's log
+    failover_seconds: float = 0.0  # fence → publish
+    verified: Optional[bool] = None  # post-flip bitwise audit
+    verify_seconds: Optional[float] = None
+
+
+def salvage_records(wal_dir: str, after_seq: int) -> list:
+    """The dead primary's log tail past ``after_seq`` — read fresh
+    from disk (the primary's in-process handle is gone with it).
+    Missing/empty directories yield nothing: salvage is best-effort by
+    design (a truly lost disk loses its unshipped tail; the exactly-
+    once client replay covers the unacked remainder)."""
+    import os
+
+    from ..resilience.wal import UpdateWAL
+
+    if wal_dir is None or not os.path.isdir(wal_dir):
+        return []
+    try:
+        wal = UpdateWAL(wal_dir, fsync_every=0)
+        try:
+            return wal.replay(after_seq)
+        finally:
+            wal.close()
+    except (OSError, ValueError):
+        return []
+
+
+def verify_against_log(shard) -> bool:
+    """The post-flip audit: replay the promoted shard's own WAL into a
+    scratch slice (deterministic init + the logged records — exactly
+    what ``replace_shard`` would rebuild) and compare bitwise with the
+    live table.  O(log), which is why it runs AFTER the flip.
+
+    Safe under live traffic: the live ``(values, seq)`` pair is read
+    atomically under the shard lock, and the replay applies only
+    records with ``end_step <= seq`` — pushes racing the audit are
+    outside both sides of the comparison (write-ahead ordering makes
+    every record ≤ seq durable by capture time)."""
+    from ..cluster.shard import ParamShard
+
+    with shard._lock:
+        live = np.array(shard._slice_to_host())
+        seq = shard._push_seq
+    shard._wal.sync()  # the captured tail must be readable from disk
+    records = [r for r in shard._wal.replay() if r.end_step <= seq]
+    start = 0
+    for i, rec in enumerate(records):
+        p = rec.payload
+        if isinstance(p, dict) and p.get("kind") == "snapshot":
+            start = i
+    scratch = ParamShard(
+        shard.shard_id, shard.partitioner, shard.value_shape,
+        init_fn=shard._init_fn, dtype=shard._dtype, registry=False,
+        store_backend=shard._backend, device=shard._device,
+    )
+    for rec in records[start:]:
+        p = rec.payload
+        kind = p.get("kind", "push") if isinstance(p, dict) else "push"
+        if kind == "snapshot":
+            scratch._restore_snapshot(p)
+        elif kind == "load":
+            scratch._assign(
+                np.asarray(p["ids"], np.int64),
+                np.asarray(p["values"], np.float32),
+            )
+        else:
+            from ..compression.quantizers import record_deltas
+
+            # quantized records (a q8 replication leg) replay through
+            # the same decode seam the applier used — deterministic
+            # dequantization keeps the audit bitwise either way
+            scratch._apply(
+                np.asarray(p["ids"], np.int64), record_deltas(p)
+            )
+    return bool(np.array_equal(scratch.values(), live))
+
+
+def promote(
+    driver,
+    shard_id: int,
+    *,
+    salvage: bool = True,
+    verify: bool = False,
+    rechain: bool = True,
+) -> PromoteReport:
+    """Run the promotion algorithm (module docstring) on a
+    :class:`~.driver.ReplicatedClusterDriver`.  Returns the report;
+    raises when the shard has no live follower to promote."""
+    t0 = time.perf_counter()
+    with driver._resize_lock:
+        chain = driver.chains.chain(shard_id)
+        if chain is None or not chain.followers:
+            raise RuntimeError(
+                f"shard {shard_id} has no replica chain to promote from"
+            )
+        old_shard = driver.shards[shard_id]
+        old_server = driver.servers[shard_id]
+        new_epoch = driver.membership.current().epoch + 1
+        # 1. fence: stop the front end, pin the old shard above the
+        # flip so any straggler write is rejected, release its WAL
+        chain.stop_shipping()
+        old_shard.detach_repl_sink()
+        old_server.stop()
+        try:
+            old_shard.retire(new_epoch)
+        except Exception:  # the slice may be gone; the fence still holds
+            pass
+        primary_wal_dir = driver._wal_dir_for(shard_id)
+        old_shard.close()
+        # 2. pick the longest durable log
+        idx = chain.most_caught_up()
+        follower = chain.followers[idx]
+        state = follower.repl_state()
+        lag_at_promote = max(0, state["logged"] - state["applied"])
+        # 3. catch up from the follower's own WAL tail — O(lag)
+        caught_up = follower.catch_up()
+        # 4. salvage the dead primary's unshipped tail — O(tail)
+        salvaged = 0
+        if salvage:
+            tail = salvage_records(
+                primary_wal_dir, follower.repl_state()["logged"]
+            )
+            salvaged = follower.ingest(tail)
+        # 5. flip: role + slots + re-seeded chain + ONE publish
+        follower.promote_to_primary(new_epoch)
+        new_server = chain.servers[idx]
+        driver.chains.forget(shard_id)
+        survivors = [
+            (f, srv)
+            for i, (f, srv) in enumerate(
+                zip(chain.followers, chain.servers)
+            )
+            if i != idx
+        ]
+        # surviving followers are retired with the chain; the rebuild
+        # below seeds FRESH followers from the new primary (their
+        # shippers bootstrap through the WAL resync path)
+        for f, srv in survivors:
+            srv.stop()
+            f.close()
+        driver.shards[shard_id] = follower
+        driver.servers[shard_id] = new_server
+        driver.all_shards.append(follower)
+        # the promoted follower's log IS the shard's primary log now —
+        # later salvage/replacement must read THIS directory
+        driver.set_wal_dir(shard_id, follower._wal.directory)
+        # FIRST publish = availability: clients route to the promoted
+        # primary from here.  Re-seeding the chain (fresh followers +
+        # bootstrap) happens AFTER, off the failover critical path,
+        # under a second publish that adds the new replica addresses.
+        driver.membership.publish(
+            driver.partitioner, driver._addresses(),
+            replicas=driver.chains.replica_addresses(),
+        )
+        failover_s = time.perf_counter() - t0
+        if rechain:
+            driver.chains.build_chain(shard_id)
+            driver.membership.publish(
+                driver.partitioner, driver._addresses(),
+                replicas=driver.chains.replica_addresses(),
+            )
+        report = PromoteReport(
+            shard=shard_id, follower=idx, epoch=new_epoch,
+            lag_records_at_promote=lag_at_promote,
+            records_caught_up=caught_up,
+            records_salvaged=salvaged,
+            failover_seconds=failover_s,
+        )
+        if driver._c_failovers is not None:
+            driver._c_failovers.inc()
+        if driver._h_failover is not None:
+            driver._h_failover.observe(failover_s)
+        from ..telemetry.flightrec import get_recorder
+
+        rec = get_recorder()
+        if rec is not None:
+            rec.note(
+                "shard_promote", shard=shard_id, follower=idx,
+                epoch=new_epoch, failover_s=round(failover_s, 4),
+                caught_up=caught_up, salvaged=salvaged,
+            )
+    # 6. post-flip audit (reads are already flowing)
+    if verify:
+        tv = time.perf_counter()
+        report.verified = verify_against_log(follower)
+        report.verify_seconds = time.perf_counter() - tv
+        if not report.verified:
+            raise RuntimeError(
+                f"failover verify failed: shard {shard_id}'s promoted "
+                f"table is not bitwise-equal to its replayed log"
+            )
+    return report
+
+
+__all__ = ["PromoteReport", "promote", "salvage_records",
+           "verify_against_log"]

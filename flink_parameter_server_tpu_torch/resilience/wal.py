@@ -8,9 +8,9 @@ reference's.
 In the port the driver logs each batch as its source yielded it (host
 numpy arrays), never a CUDA tensor, so reading the log back needs no card;
 the cluster shards and the mesh store journal host arrays too.  The keyed
-``replay_range`` serves the elastic migration tail; the reference's
-replication framing (``encode_frame*`` / ``decode_frame*``) is left out
-until the replication port needs it (ROADMAP Queue 1 #7).
+``replay_range`` serves the elastic migration tail, and the record framing
+(``encode_frame*`` / ``decode_frame*``) is the replica chains' stream
+unit (``replication/shipper.py``).
 
 Reference parity gap being closed (SURVEY.md §5, PAPER.md): the
 reference's Flink iteration had no usable checkpointing — a lost worker
@@ -48,6 +48,7 @@ checkpoint callback) — one lock covers both.
 """
 from __future__ import annotations
 
+import base64
 import dataclasses
 import io
 import os
@@ -79,6 +80,61 @@ class WALRecord:
     @property
     def end_step(self) -> int:
         return self.start_step + self.n_steps
+
+
+def encode_frame_bytes(
+    start_step: int, n_steps: int, payload: Any
+) -> bytes:
+    """One WAL record in the exact on-disk framing (``REC_MAGIC`` +
+    header + CRC32 + pickled payload) as RAW bytes — the replication
+    stream's unit over the binary transport (utils/frames.py ``repl``
+    payload): the same CRC that guards a segment against a torn tail
+    guards a shipped record against wire corruption, with no base64
+    round trip in between."""
+    blob = pickle.dumps(payload, protocol=4)
+    return (
+        REC_MAGIC
+        + _REC_HDR.pack(0, int(start_step), int(n_steps), len(blob),
+                        zlib.crc32(blob))
+        + blob
+    )
+
+
+def decode_frame_bytes(raw: bytes) -> WALRecord:
+    """Inverse of :func:`encode_frame_bytes`; raises ``ValueError`` on
+    a bad magic, short frame, or CRC mismatch (a corrupt shipped
+    record must be rejected at the wire, never applied)."""
+    hdr_len = len(REC_MAGIC) + _REC_HDR.size
+    if len(raw) < hdr_len or raw[: len(REC_MAGIC)] != REC_MAGIC:
+        raise ValueError("repl frame: bad record magic")
+    seq, start, n_steps, plen, crc = _REC_HDR.unpack(
+        raw[len(REC_MAGIC): hdr_len]
+    )
+    blob = raw[hdr_len:]
+    if len(blob) != plen or zlib.crc32(blob) != crc:
+        raise ValueError(
+            f"repl frame: CRC mismatch ({len(blob)} of {plen} payload "
+            f"bytes)"
+        )
+    return WALRecord(seq, start, n_steps, pickle.loads(blob))
+
+
+def encode_frame(start_step: int, n_steps: int, payload: Any) -> str:
+    """:func:`encode_frame_bytes`, base64'd — the line-protocol
+    (``repl <b64-frame>``) rendering of the same record."""
+    return base64.b64encode(
+        encode_frame_bytes(start_step, n_steps, payload)
+    ).decode("ascii")
+
+
+def decode_frame(token: str) -> WALRecord:
+    """Inverse of :func:`encode_frame`; raises ``ValueError`` on bad
+    base64 or any :func:`decode_frame_bytes` failure."""
+    try:
+        raw = base64.b64decode(token.encode("ascii"), validate=True)
+    except Exception as e:
+        raise ValueError(f"repl frame is not valid base64: {e}") from None
+    return decode_frame_bytes(raw)
 
 
 class UpdateWAL:
@@ -431,4 +487,11 @@ class UpdateWAL:
         self.close()
 
 
-__all__ = ["UpdateWAL", "WALRecord"]
+__all__ = [
+    "UpdateWAL",
+    "WALRecord",
+    "decode_frame",
+    "decode_frame_bytes",
+    "encode_frame",
+    "encode_frame_bytes",
+]

@@ -23,9 +23,10 @@ Module map::
                 protocol)
   metrics.py    ServingMetrics — QPS, batch-fill ratio, queue depth,
                 p50/p99 request latency, snapshot staleness
-
-The reference's ``follower.py`` (reads routed across replica chains)
-comes with the cluster (ROADMAP Queue 1 #7).
+  follower.py   FollowerLookupService / ChainLookupResult — lookups
+                against a live replicated cluster, routed across each
+                shard's replica chain (replication/), that keep flowing
+                through a failover
 
 Train-while-serve is one call::
 
@@ -37,6 +38,7 @@ Train-while-serve is one call::
 """
 from .batcher import QueueFull, RequestBatcher
 from .engine import LookupResult, NoSnapshotError, QueryEngine, TopKResult
+from .follower import ChainLookupResult, FollowerLookupService
 from .metrics import ServingMetrics
 from .server import ServingClient, ServingServer, ServingService
 from .snapshot import SnapshotManager, TableSnapshot
@@ -54,4 +56,6 @@ __all__ = [
     "ServingServer",
     "SnapshotManager",
     "TableSnapshot",
+    "ChainLookupResult",
+    "FollowerLookupService",
 ]

@@ -615,10 +615,15 @@ class TestWire:
         resps = request_lines(server.host, server.port,
                               ["nope", "pull", "pull 63", "pull 0 hex", "push 1 1,2",
                                "xfer", "load 0", "load 0 1,2,3",
-                               # verbs that wait for hotcache/ and replication/
+                               # verbs that wait for hotcache/; a repl frame
+                               # that is no WAL record (and, to a primary,
+                               # any repl frame)
                                "lease 0 b64 sess=s1", "revoke all sess=s1",
-                               "repl AAAA", "replstate", "conns"])
+                               "repl AAAA", "conns"])
         assert all(r.startswith("err bad-request") for r in resps), resps
+        # replstate came back with replication/ (tests/test_torch_replication.py)
+        (state,) = request_lines(server.host, server.port, ["replstate"])
+        assert state.startswith("ok ") and json.loads(state[3:])["role"] == "primary", state
         # xfer / load came back with elastic/ (tests/test_torch_elastic.py)
         xfer, load = request_lines(server.host, server.port, ["xfer 0", "load 0 1,2,3,4"])
         assert xfer.startswith("ok n=1 seq=0 b64:") and load == "ok loaded=1 seq=1", (xfer, load)

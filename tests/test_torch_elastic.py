@@ -833,8 +833,7 @@ def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="adaptive"):
             d.drain_shard(0)
     part = ConsistentHashPartitioner(16, 1)
-    for kw, item in ((dict(replicas=[[("h", 1)]]), "replication"),
-                     (dict(push_hedge=object()), "adaptive"),
+    for kw, item in ((dict(push_hedge=object()), "adaptive"),
                      (dict(hotcache=object()), "hotcache"),
                      (dict(retry_budget=object()), "loadgen")):
         with pytest.raises(NotImplementedError, match=item):

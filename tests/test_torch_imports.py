@@ -79,6 +79,16 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.telemetry.distributed",
             "flink_parameter_server_tpu_torch.loadgen.overload",
             "flink_parameter_server_tpu_torch.compression.aggregator"} <= set(modules)
+    # replica chains, the mesh-less switch MoE and the hybrid backend
+    assert {"flink_parameter_server_tpu_torch.replication",
+            "flink_parameter_server_tpu_torch.replication.shipper",
+            "flink_parameter_server_tpu_torch.replication.follower",
+            "flink_parameter_server_tpu_torch.replication.chain",
+            "flink_parameter_server_tpu_torch.replication.failover",
+            "flink_parameter_server_tpu_torch.replication.driver",
+            "flink_parameter_server_tpu_torch.serving.follower",
+            "flink_parameter_server_tpu_torch.models.moe",
+            "flink_parameter_server_tpu_torch.core.hybrid"} <= set(modules)
 
 
 _CHILD_SCRIPT = """

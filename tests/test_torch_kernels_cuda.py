@@ -15,7 +15,11 @@ one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 The serving engine on the card against the CPU: ids equal, scores rtol
 1e-6 (both sum the products in float64 and round once to float32).  K1 at
 the other workloads' row shapes: float32 rtol 1e-5 with atol 1e-5 of the
-largest value; sketch-shaped pushes (whole-number counts) exact.
+largest value; sketch-shaped pushes (whole-number counts) exact.  Replica
+chains on the card: a caught-up follower, and a shard replayed from its
+own log, bitwise.  A float32 switch-MoE LM step with flash on against off:
+rtol 1e-4 / atol 1e-6 (the dense LM's bar).  ``transform_hybrid`` over a
+``pallas`` store against an ``"xla"`` one: rtol 1e-5 / atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -735,3 +739,144 @@ def test_install_epoch_rebuilds_the_slice_on_the_card(cuda, tmp_path):
     assert reborn.store.table.device.type == "cuda"
     assert np.array_equal(reborn.values(), before[pos])
     reborn.close()
+
+
+def _chain_on_card(cuda, tmp_path, part, dim):
+    """A primary and its follower, each slice on the card, joined by a
+    shipper over TCP."""
+    from flink_parameter_server_tpu_torch.cluster import ParamShard, ShardServer
+    from flink_parameter_server_tpu_torch.replication import ReplHub, ReplicaShard, WALShipper
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    init = ranged_random_factor(5, (dim,))
+    primary = ParamShard(0, part, (dim,), init_fn=init, wal_dir=str(tmp_path / "p"), registry=False,
+                         device=cuda)
+    follower = ReplicaShard(0, part, (dim,), init_fn=init, wal_dir=str(tmp_path / "f"), registry=False,
+                            device=cuda)
+    fsrv = ShardServer(follower, supervised=False).start()
+    hub = ReplHub()
+    ship = WALShipper(primary, (fsrv.host, fsrv.port), hub.subscribe(), registry=False).start()
+    primary.attach_repl_sink(hub)
+    return primary, follower, fsrv, ship
+
+
+def _wait_applied(follower, head, timeout=60.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while follower.repl_state()["applied"] < head and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert follower.repl_state()["applied"] == head
+
+
+def test_caught_up_follower_is_bitwise_its_primary_on_the_card(cuda, tmp_path):
+    """Zipf pushes with duplicate-free ids a frame and a migration load
+    ship to a follower whose slice is on the card: once caught up it is
+    bitwise its primary (each record goes through the same ``_apply``, one
+    record a call, in log order), and a promoted follower keeps it."""
+    from flink_parameter_server_tpu_torch.cluster import ConsistentHashPartitioner
+
+    part = ConsistentHashPartitioner(8192, 1, seed=1)
+    primary, follower, fsrv, ship = _chain_on_card(cuda, tmp_path, part, 64)
+    rng = np.random.default_rng(0)
+    try:
+        for _ in range(12):
+            ids = np.unique(_zipf_ids(rng, 4096, 8192))
+            primary.push(ids, rng.normal(0, 0.01, (len(ids), 64)).astype(np.float32))
+        primary.assign_rows(np.arange(8), np.ones((8, 64), np.float32))
+        _wait_applied(follower, primary.head_seq())
+        assert follower.store.table.device.type == "cuda"
+        assert primary.values().tobytes() == follower.values().tobytes()
+        assert follower.pull(np.arange(16)).tobytes() == primary.pull(np.arange(16)).tobytes()
+        ship.stop()
+        follower.catch_up()
+        follower.promote_to_primary(1)
+        assert follower.role == "primary"
+        assert primary.values().tobytes() == follower.values().tobytes()
+    finally:
+        ship.stop()
+        fsrv.stop()
+        primary.close()
+        follower.close()
+
+
+def test_verify_against_log_holds_on_a_card_shard(cuda, tmp_path):
+    """The promotion audit rebuilds its scratch slice on the shard's own
+    device: a card shard replayed on the card is bitwise its live slice,
+    across an epoch snapshot barrier, and a corrupted row fails it."""
+    from flink_parameter_server_tpu_torch.cluster import ConsistentHashPartitioner
+    from flink_parameter_server_tpu_torch.replication.failover import verify_against_log
+
+    part = ConsistentHashPartitioner(4096, 2, seed=3)
+    sh = _card_shard(cuda, part, wal_dir=str(tmp_path / "wal"))
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        ids = np.unique(rng.choice(sh.owned, 300))
+        sh.push(ids, rng.normal(size=(len(ids), 8)).astype(np.float32))
+    assert verify_against_log(sh)
+    grown = part.grown(3)
+    sh.install_epoch(1, grown)
+    for _ in range(3):
+        ids = np.unique(rng.choice(sh.owned, 200))
+        sh.push(ids, rng.normal(size=(len(ids), 8)).astype(np.float32))
+    assert sh.store.table.device.type == "cuda"
+    assert verify_against_log(sh)
+    sh.store.table[0, 0] += 1.0
+    sh._host_mirror = None
+    assert not verify_against_log(sh)
+    sh.close()
+
+
+def test_moe_lm_step_with_flash_on_matches_flash_off(cuda):
+    """One step of a switch-MoE LM (float32, 8 experts, capacity 80 of 256
+    tokens: some dropped) launches each flash kernel once a layer and gives
+    the loss and gradients of the reference attention (rtol 1e-4 / atol
+    1e-6, the dense LM's card bar; float32 routing agrees exactly)."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(vocab_size=64, d_model=128, n_heads=2, n_layers=2, d_ff=128, max_seq=128,
+                               dtype=torch.float32, flash_attention="on", num_experts=8, moe_capacity=80)
+    model = tr.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    assert all(hasattr(layer, "moe") for layer in model.layers)
+    tokens = torch.randint(0, 64, (2, 128), generator=torch.Generator().manual_seed(1)).to(cuda)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    loss = tr.lm_loss(model, {"tokens": tokens}, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        c + 2 for c in counts)
+    got = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    off = tr.lm_loss(model, {"tokens": tokens}, dataclasses.replace(cfg, flash_attention="off"))
+    off.backward()
+    torch.testing.assert_close(loss, off, rtol=1e-4, atol=1e-6)
+    for a, p in zip(got, model.parameters()):
+        torch.testing.assert_close(a, p.grad, rtol=1e-4, atol=1e-6)
+
+
+def test_transform_hybrid_launches_k1_once_a_chunk(cuda):
+    """The event MF logic under ``transform_hybrid`` against a
+    ``scatter_impl="pallas"`` store on the card: one K1 launch a chunk, and
+    the table equals the same run against an ``"xla"`` store within rtol
+    1e-5 (K1 sums each run in another order than ``accumulate_rows_``)."""
+    from flink_parameter_server_tpu_torch import MFWorkerLogic, SGDUpdater, transform_hybrid
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    rng = np.random.default_rng(2)
+    records = [(int(u), int(i), float(r)) for u, i, r in
+               zip(rng.integers(0, 50, 600), _zipf_ids(rng, 600, 256), rng.normal(size=600))]
+    tables = {}
+    for impl in ("pallas", "xla"):
+        store = ShardedParamStore.create(256, (16,), init_fn=ranged_random_factor(1, (16,)), scatter_impl=impl,
+                                         device=cuda)
+        before = scatter_kernel.sorted_scatter_add.launches
+        res = transform_hybrid(records, MFWorkerLogic(16, SGDUpdater(0.05), seed=0, device=cuda), store,
+                               chunk_size=200)
+        torch.cuda.synchronize()
+        assert scatter_kernel.sorted_scatter_add.launches - before == (3 if impl == "pallas" else 0)
+        tables[impl] = res.store.values()
+        assert tables[impl].device.type == "cuda"
+    torch.testing.assert_close(tables["pallas"], tables["xla"], rtol=1e-5, atol=1e-6)

@@ -186,11 +186,14 @@ def test_bfloat16_forward_close_to_reference():
 def test_config_validation():
     with pytest.raises(ValueError, match="flash_attention"):
         tr.TransformerConfig(flash_attention="always")
-    for kw in (dict(num_experts=4, moe_capacity=8), dict(ep_axis="ep"), dict(moe_capacity=8)):
-        with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-            tr.TransformerConfig(**kw)
+    # the mesh-less switch MoE came with models/moe.py (tests/test_torch_moe.py);
+    # expert parallelism stays multi-device, and a capacity of 0 drops every token
+    assert tr.TransformerConfig(num_experts=4, moe_capacity=8).num_experts == 4
+    assert tr.TransformerConfig(moe_capacity=8).num_experts == 0  # ignored without experts, as the reference does
+    with pytest.raises(ValueError, match="moe_capacity"):
+        tr.TransformerConfig(num_experts=4)
     for kw in (dict(use_ring_attention=True), dict(sp_axis="sp"), dict(tp_axis="tp"), dict(pp_axis="pp"),
-               dict(dp_axis="data")):
+               dict(dp_axis="data"), dict(ep_axis="ep"), dict(num_experts=4, moe_capacity=8, ep_axis="ep")):
         with pytest.raises(NotImplementedError, match="Queue 1 #9"):
             tr.TransformerConfig(**kw)
     _, cfg = _configs()
