@@ -2,7 +2,8 @@
 """Drive the torch port on one NVIDIA card: online MF (bare, through the
 job envelope, answering top-K queries while it trains, through the
 parameter-server cluster and the mesh store, resharded live by the
-elastic driver, and failed over across replica chains), the registered
+elastic driver, failed over across replica chains, and watched by the
+telemetry plane's hot-key sketches, SLOs and timeline), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -155,6 +156,25 @@ line each; any failure exits non-zero before the last line:
              each follower's host-mirror rebuilds and their ms, and
              ``replace_shard`` ms for shard 1 afterwards (the O(log)
              rebuild), beside the card's name and power limit.
+  telemetry  the telemetry plane's detection half at the cluster phase's
+             MF width (socket BSP 4 shards x 2 workers, 12 rounds of
+             ``zipf_stream(9, 12)``): four timed runs with ``hot_keys`` off,
+             on, on, off; a checked ``hot_keys=True`` run whose shard
+             sketches also count exactly: the aggregator's ``top_k(10)``
+             ranked by ``dense_topk`` on the card equal to a CPU
+             aggregator's and a host sort of ``candidates()``, every count
+             within the reference's bounds, a sketch over the raw item
+             stream naming its 10 most-observed keys, ``stop()``
+             unregistering every sketch; a ``TimelineRecorder`` (a
+             ``SkewTracker`` over the per-shard pull round trips, an EWMA
+             detector) and an ``SLOEngine`` over ``default_slos()`` sampled
+             once a round; then ``ElasticController(slo=)`` on a 2-shard
+             ``ElasticClusterDriver`` (``MFWorkload``), its pull objective a
+             tenth of the run's early p50, firing exactly one scale-out 2 ->
+             3 with the migration verified bitwise.  ``telemetry:`` lines
+             give rounds/s with and without ``hot_keys``, flush ms,
+             ``top_k``'s and ``candidates()``' ms, the recorder's sample ms
+             and the SLO verdicts, beside the card's name and power limit.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -2247,6 +2267,357 @@ def phase_replication(torch, dev, card):
     print(f"replication: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+TELEMETRY_ROUNDS = 12  # only the run length is cut
+TELEMETRY_TIMED = (False, True, True, False)  # hot_keys off / on in turns
+TELEMETRY_TOP = 10
+
+
+class _ExactCounts:
+    """Wraps each sketch as it registers: ``observe`` also bincounts the
+    same ids into an exact per-label array, and each buffered flush is
+    timed.  Shards observe from their server threads, hence the lock."""
+
+    def __init__(self, agg, size):
+        import threading
+
+        self.size, self.lock = size, threading.Lock()
+        self.exact, self.flush_s = {}, []
+        register = agg.register
+
+        def counting_register(label, sketch):
+            self.wrap(label, sketch)
+            return register(label, sketch)
+
+        agg.register = counting_register
+
+    def wrap(self, label, sketch):
+        exact = self.exact.setdefault(label, np.zeros(self.size, np.int64))
+        observe, flush = sketch.observe, sketch._flush_locked
+
+        def counting(ids, counts=None):
+            flat = np.asarray(ids, np.int64).reshape(-1)
+            with self.lock:
+                exact[:] += np.bincount(flat, weights=counts, minlength=self.size).astype(np.int64)
+            return observe(ids, counts)
+
+        def timed_flush():  # only the flushes with ids to fold in
+            if not sketch._pending:
+                return flush()
+            t = time.perf_counter()
+            flush()
+            self.flush_s.append(time.perf_counter() - t)
+
+        sketch.observe, sketch._flush_locked = counting, timed_flush
+
+
+def _check_bounds(what, top, exact, bound):
+    """tests/test_tracing.py's bar: a reported count never underestimates,
+    and overestimates by at most max(its err, the count-min bound)."""
+    for t in top:
+        true = int(exact[t["key"]])
+        check(true <= t["count"] <= true + max(t["err"], bound),
+              f"telemetry: {what}: key {t['key']} reported {t['count']} (err {t['err']}), true {true}, "
+              f"count-min bound {bound}")
+
+
+def _pull_p50(reg):
+    """p50 of every client's ``cluster_pull_rtt_seconds``, bucket counts
+    merged (the registry's in-bin interpolation)."""
+    from flink_parameter_server_tpu_torch.telemetry.timeline import percentile_from_counts
+
+    hs = [i for i in reg.instruments() if i.name == "cluster_pull_rtt_seconds" and i.kind == "histogram"]
+    merged = [sum(c) for c in zip(*(h.bucket_counts() for h in hs))]
+    return percentile_from_counts(hs[0].bounds, merged, 50.0), sum(merged)
+
+
+def phase_telemetry(torch, dev, card):
+    """The telemetry plane's detection half on the card.  The cluster
+    phase's MF at full width (100,000 users x 131,072 items, dim 64, lr
+    0.01, ``zipf_stream(9, 12)``: 65,536 Zipf-1.2 ratings a round; socket
+    BSP 4 shards x 2 workers, range partition; only the run length is cut)
+    through ``ClusterDriver``, four timed runs in turns with ``hot_keys``
+    off, on, on, off, then one checked run with ``hot_keys=True`` whose
+    sketches also count exactly: (a) the aggregator's ``top_k(10)``, ranked
+    with ``dense_topk`` on CUDA tensors, equals a CPU aggregator's over the
+    same sketches and a stable host sort of every ``candidates()`` record
+    by its reported count; (b) every reported count within the
+    reference's bounds of the exact count, every key above a shard's N/K
+    tracked by that shard's sketch, and a ``HotKeySketch`` over the run's
+    raw item stream naming its 10 most-observed keys; (c) ``stop()`` leaves
+    the aggregator empty; (d) a ``TimelineRecorder`` with a ``SkewTracker``
+    over the per-shard pull round trips and an EWMA detector, sampled by
+    hand once a round, yields series for every shard and a JSON payload;
+    (e) an ``SLOEngine`` over ``default_slos()`` gives a verdict for each
+    objective.  Then (f) ``ElasticController(slo=...)`` on an
+    ``ElasticClusterDriver`` built as the elastic phase builds it
+    (``MFWorkload``, 2 shards x 2 workers over a WAL), given a pull-latency
+    objective a tenth of its p50 after 2 worker rounds, fires exactly one
+    scale-out 2 -> 3 whose migration is verified bitwise.  No kernel of the
+    port launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.elastic import (
+        ElasticClusterConfig, ElasticClusterDriver, ElasticController, ScalePolicy,
+    )
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization, SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.telemetry import hotkeys
+    from flink_parameter_server_tpu_torch.telemetry.detectors import EWMADriftDetector
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.telemetry.slo import SLOEngine, default_slos, pull_latency_slo
+    from flink_parameter_server_tpu_torch.telemetry.timeline import SkewTracker, TimelineRecorder
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+    from flink_parameter_server_tpu_torch.workloads import WorkloadParams, build_cluster_driver, create_workload
+
+    t_phase = time.perf_counter()
+    stream = zipf_stream(9, TELEMETRY_ROUNDS)
+    init = ranged_random_factor(1, (DIM_UNFUSED,))
+    cfg = dict(num_shards=CLUSTER_SHARDS, num_workers=CLUSTER_WORKERS, staleness_bound=0)
+    ranked_on = []
+    dense_topk = hotkeys.dense_topk
+
+    def spy(table, queries, k, **kw):  # where the aggregator ranks
+        ranked_on.append(table.device.type)
+        return dense_topk(table, queries, k, **kw)
+
+    def driver(reg, hot_keys):
+        logic = OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), device=dev)
+        return ClusterDriver(logic, capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=init,
+                             config=ClusterConfig(hot_keys=hot_keys, **cfg), registry=reg, device=dev)
+
+    old_agg = hotkeys.get_aggregator()
+    agg = hotkeys.HotKeyAggregator()  # device=None: the card
+    hotkeys.set_aggregator(agg)
+    hotkeys.dense_topk = spy
+    tmp = tempfile.mkdtemp(prefix="telemetry-", dir=os.path.join(REPO, "build"))
+    try:
+        rates = {False: [], True: []}
+        zero_counts()
+        for hot in TELEMETRY_TIMED:
+            with driver(MetricsRegistry(), hot) as d:
+                r = d.run(stream, timeout=600)
+            rates[hot].append(r.rounds / r.wall_s)
+            check(agg.labels() == [], f"telemetry: a timed run left sketches {agg.labels()}")
+        read_counts("telemetry: the timed hot_keys runs", {})
+        off, on = statistics.median(rates[False]), statistics.median(rates[True])
+        print(f"telemetry: socket BSP {CLUSTER_SHARDS}x{CLUSTER_WORKERS}, {TELEMETRY_ROUNDS} rounds, in turns "
+              f"off/on/on/off: hot_keys off {', '.join(f'{x:.2f}' for x in rates[False])} rounds/s, on "
+              f"{', '.join(f'{x:.2f}' for x in rates[True])} rounds/s; medians {off:.2f} / {on:.2f} "
+              f"({(on / off - 1) * 100:+.1f} %); {card}")
+
+        # the checked run: exact counts, the recorder and the SLO engine
+        exact = _ExactCounts(agg, NUM_ITEMS)
+        reg = MetricsRegistry()
+        det = EWMADriftDetector("cluster_shard_rtt_seconds", field="p99")
+        skew = SkewTracker("cluster_shard_rtt_seconds", entity_label="shard", field="p50", min_points=2)
+        rec = TimelineRecorder(reg, detectors=[det], skew=[skew])
+        slo = SLOEngine(default_slos(), registry=reg)
+        sample_s = []
+
+        def tick(w, t):  # by hand, once a round (worker 0's round start)
+            if w == 0:
+                t0 = time.perf_counter()
+                rec.sample()
+                sample_s.append(time.perf_counter() - t0)
+                slo.sample()
+
+        zero_counts()
+        with driver(reg, True) as d:
+            check(agg.labels() == [f"shard-{s}" for s in range(CLUSTER_SHARDS)],
+                  f"telemetry: the checked run registered {agg.labels()}")
+            check(all(s.store.table.device.type == dev.type for s in d.shards),
+                  f"telemetry: not every shard slice is on {dev.type}")
+            r = d.run(stream, timeout=600, round_hook=tick)
+            tick(0, TELEMETRY_ROUNDS)  # the last round's window
+            torch.cuda.synchronize()
+            del ranked_on[:]
+            top = agg.top_k(TELEMETRY_TOP)
+            on_card = list(ranked_on)
+            every = agg.candidates(1 << 20)
+            cpu = hotkeys.HotKeyAggregator(device="cpu")
+            for label in agg.labels():
+                cpu.register(label, agg._sketches[label])
+            cpu_top = cpu.top_k(TELEMETRY_TOP)
+            t_card = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                agg.top_k(TELEMETRY_TOP)
+                t_card.append(time.perf_counter() - t0)
+            t_host = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                agg.candidates(TELEMETRY_TOP)
+                t_host.append(time.perf_counter() - t0)
+            bound = agg.error_bound()
+            shard_sketches = {label: agg._sketches[label] for label in agg.labels()}
+            p50, frames = _pull_p50(reg)
+        read_counts("telemetry: the checked hot_keys run", {})
+        labels_after = agg.labels()
+
+        # (a) the card's ranking
+        check(on_card == ["cuda"] and len(top) == TELEMETRY_TOP,
+              f"telemetry: top_k ranked on {on_card}, {len(top)} keys")
+        host_rank = sorted(every, key=lambda t: -t["count"])[:TELEMETRY_TOP]
+        check(top == cpu_top == host_rank,
+              f"telemetry: top_k on the card {top} differs from the CPU {cpu_top} / host {host_rank} ranking")
+        same10 = [t["count"] for t in top] == [t["count"] for t in every[:TELEMETRY_TOP]]
+        print(f"telemetry: (a) top_k({TELEMETRY_TOP}) ranked on the card equals the CPU aggregator's and a host "
+              f"sort of all {len(every)} candidates by reported count; candidates({TELEMETRY_TOP}) (space-saving "
+              f"order) {'agrees' if same10 else 'differs'} rank for rank; top_k {statistics.median(t_card) * 1e3:.3f} "
+              f"ms (merge on the host + dense_topk on the card), candidates() {statistics.median(t_host) * 1e3:.3f} "
+              f"ms (host), medians of 20; {card}")
+
+        # (b) the bounds against exact counts
+        merged = sum(exact.exact[label] for label in shard_sketches)
+        _check_bounds("merged shard sketches", top, merged, bound)
+        heavy = 0
+        for label, sk in shard_sketches.items():
+            tracked = {t["key"] for t in sk.top_k(None)}
+            over = np.flatnonzero(exact.exact[label] > sk.total // sk.topk.capacity)
+            heavy += len(over)
+            check(set(over.tolist()) <= tracked, f"telemetry: {label} lost a key above N/K")
+        top_true = int(merged.max())
+        print(f"telemetry: (b) every reported count within [true, true + max(err, {bound})]; {heavy} keys above a "
+              f"shard's N/K, all tracked; each frame's ids are deduplicated by the client, so a key counts at most "
+              f"once a frame: the top true count {top_true} is held by {int((merged == top_true).sum())} keys, and "
+              f"the reported 10 have true counts {[int(merged[t['key']]) for t in top]}; {card}")
+        raw = hotkeys.HotKeySketch(ClusterConfig.hot_key_k)
+        raw_agg = hotkeys.HotKeyAggregator()
+        raw_exact = _ExactCounts(raw_agg, NUM_ITEMS)
+        raw_agg.register("stream", raw)
+        for b in stream:
+            raw.observe(b["item"])
+        raw_top = raw_agg.top_k(TELEMETRY_TOP)
+        truth = raw_exact.exact["stream"]
+        order = np.argsort(-truth, kind="stable")
+        check(truth[order[TELEMETRY_TOP - 1]] > truth[order[TELEMETRY_TOP]],
+              "telemetry: the raw stream's 10th and 11th keys tie")
+        check(sorted(t["key"] for t in raw_top) == sorted(order[:TELEMETRY_TOP].tolist()),
+              f"telemetry: the raw-stream sketch's top 10 {[t['key'] for t in raw_top]} are not the 10 "
+              f"most-observed keys {order[:TELEMETRY_TOP].tolist()}")
+        _check_bounds("the raw-stream sketch", raw_top, truth, raw_agg.error_bound())
+        print(f"telemetry: (b) a HotKeySketch({ClusterConfig.hot_key_k}) over the run's {int(truth.sum())} raw item "
+              f"ids names the 10 most-observed keys {order[:TELEMETRY_TOP].tolist()} (ranked on the card), counts "
+              f"{[t['count'] for t in raw_top]} within the bounds; {card}")
+        flush = exact.flush_s
+        print(f"telemetry: sketch flushes in the checked run: {len(flush)}, "
+              f"{statistics.median(flush) * 1e3:.3f} ms median, {max(flush) * 1e3:.3f} ms max; {card}")
+
+        # (c) stop() unregistered every sketch
+        check(labels_after == [], f"telemetry: stop() left {labels_after}")
+
+        # (d) the timeline
+        payload = json.loads(json.dumps(rec.payload()))
+        shards_seen = {s["labels"].get("shard") for s in payload["series"]
+                       if s["metric"] == "cluster_shard_rtt_seconds"}
+        check(shards_seen == {str(s) for s in range(CLUSTER_SHARDS)},
+              f"telemetry: shard round-trip series for {sorted(shards_seen)}")
+        check(payload["samples"] == TELEMETRY_ROUNDS + 1 and payload["skew"][0]["last"] is not None,
+              f"telemetry: {payload['samples']} samples, skew {payload['skew'][0]['last']}")
+        verdict = payload["skew"][0]["last"]
+        print(f"telemetry: (d) TimelineRecorder: {payload['samples']} samples by hand, {len(payload['series'])} "
+              f"series, sample {statistics.median(sample_s) * 1e3:.3f} ms median ({max(sample_s) * 1e3:.3f} max); "
+              f"skew over shard round trips: shard {verdict['entity']} at {verdict['ratio']}x the median "
+              f"(flagged {verdict['flagged']}); {len(payload['anomalies'])} anomalies; {card}")
+
+        # (e) the SLO verdicts
+        verdicts = slo.verdicts()
+        check([v["slo"] for v in verdicts] == [s.name for s in default_slos()]
+              and all(v["verdict"] in ("ok", "burning", "breach", "no_data") for v in verdicts),
+              f"telemetry: SLO verdicts {verdicts}")
+        check(next(v for v in verdicts if v["slo"] == "pull_p99")["window_total"] > 0,
+              "telemetry: the pull objective saw no observation")
+        print("telemetry: (e) SLO verdicts: " + ", ".join(
+            f"{v['slo']} {v['verdict']} (burn {v['burn_short']}/{v['burn_long']})" for v in verdicts)
+            + f"; pull p50 {p50 * 1e3:.3f} ms over {frames} frames; {card}")
+
+        # (f) an SLO breach drives exactly one live scale-out
+        mf = create_workload("mf", WorkloadParams(rounds=TELEMETRY_ROUNDS, batch=BATCH, num_users=NUM_USERS,
+                                                  num_items=NUM_ITEMS, dim=DIM_UNFUSED), device=dev)
+        ereg = MetricsRegistry()
+        ed = build_cluster_driver(
+            mf, config=ElasticClusterConfig(num_shards=2, num_workers=2, wal_dir=os.path.join(tmp, "wal")),
+            driver_cls=ElasticClusterDriver, registry=ereg,
+        )
+        reports, failures, done, made = [], [], threading.Event(), {}
+        scale_out = ed.scale_out
+
+        def recorded_scale_out():
+            reports.append(scale_out())
+            return reports[-1]
+
+        ed.scale_out = recorded_scale_out
+        rounds_c = ereg.counter("cluster_worker_rounds_total", component="cluster")
+
+        def control():
+            try:
+                seen = None
+                while not done.is_set():
+                    v = rounds_c.value
+                    if v >= 2 and v != seen:
+                        seen = v
+                        if not made:
+                            # a tenth of this run's p50 so far (its first frames
+                            # are the slowest): most pulls break the objective;
+                            # the raw thresholds are parked out of reach, so
+                            # only the SLO pressures
+                            made["threshold"] = _pull_p50(ereg)[0] / 10
+                            made["slo"] = SLOEngine([pull_latency_slo(made["threshold"])], registry=ereg,
+                                                    register_gauges=False)
+                            made["ctl"] = ElasticController(ed, slo=made["slo"], registry=ereg, policy=ScalePolicy(
+                                max_shards=3, scale_out_rtt_p99_s=1e9, min_window_frames=10**9,
+                                scale_out_queue_depth=1e9, cooldown_s=0.0))
+                        made["ctl"].step()
+                    time.sleep(0.001)
+            except BaseException as e:  # re-raised on the main thread below
+                failures.append(e)
+
+        zero_counts()
+        ed.start()
+        th = threading.Thread(target=control, name="telemetry-smoke-control", daemon=True)
+        try:
+            th.start()
+            er = ed.run(mf.batches(), timeout=600)
+            done.set()
+            th.join(timeout=300)
+            check(not th.is_alive(), "telemetry: the controller thread hung")
+            if failures:
+                raise failures[0]
+            acked = sum(c.rows_pushed for c in ed._clients)
+            applied = sum(sh.rows_applied for sh in ed.all_shards)
+            shards_after = ed.partitioner.num_shards
+            ep50, _ = _pull_p50(ereg)
+        finally:
+            done.set()
+            ed.stop()
+        read_counts("telemetry: the SLO-driven elastic run", {})
+        check("ctl" in made, "telemetry: the elastic run ended before the controller was made")
+        ctl, engine, threshold = made["ctl"], made["slo"], made["threshold"]
+        outs = [e for e in ctl.events if e["action"] == "scale_out"]
+        check(len(ctl.events) == 1 and len(outs) == 1 and outs[0]["ok"] and outs[0]["slo_breaches"] == ["pull_p99"],
+              f"telemetry: the controller acted {ctl.events}")
+        check(shards_after == 3 and len(reports) == 1, f"telemetry: {shards_after} shards, {len(reports)} reports")
+        rep = reports[0]
+        check(rep.verified and rep.mismatches == 0 and rep.rows_moved > 0,
+              f"telemetry: the SLO-driven migration is not verified: {rep}")
+        check(acked == applied > 0, f"telemetry: ledger acked {acked} != applied {applied}")
+        check(threshold < ep50, f"telemetry: the objective {threshold} is not below the run's p50 {ep50}")
+        print(f"telemetry: (f) pull objective {threshold * 1e3:.3f} ms (a tenth of the elastic run's p50 after "
+              f"2 worker rounds; its whole-run p50 {ep50 * 1e3:.3f} ms): ElasticController(slo=) fired 1 scale-out 2 -> 3 at "
+              f"{outs[0]['frames']} frames, burn {engine.status('pull_p99')['burn_short']}, migration "
+              f"{rep.rows_moved} rows verified {rep.verified} with {rep.mismatches} mismatches; "
+              f"{er.rounds / er.wall_s:.2f} rounds/s, ledger acked {acked} applied {applied}; {card}")
+    finally:
+        hotkeys.dense_topk = dense_topk
+        hotkeys.set_aggregator(old_agg)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"telemetry: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -3175,6 +3546,7 @@ def main() -> int:
         phase_cluster(torch, dev, card)
         phase_elastic(torch, dev, card)
         phase_replication(torch, dev, card)
+        phase_telemetry(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

@@ -9,7 +9,7 @@ it is (PyTorch runs eagerly; nothing is compiled), and what crosses the
 socket wire is copied to and from the host explicitly.  Under the mesh
 backend the pulled rows are already on the device and the step's push
 goes to the device table without a host round trip.  The knobs that lead
-into modules not ported yet (``hot_keys``, ``hot_cache``, ``adaptive``,
+into modules not ported yet (``hot_cache``, ``adaptive``,
 ``wire_proto="shm"``, ``store_backend="tiered"``) raise
 ``NotImplementedError`` naming their ROADMAP item.  The elastic driver
 (``elastic/controller.py``) subclasses this one and reuses
@@ -170,10 +170,13 @@ class ClusterConfig:
     # stamped with t=<trace>:<span> tokens; collect the rings with
     # driver.trace_rings() and merge via TraceCollector
     trace: bool = False
-    # hot-key analytics (telemetry/hotkeys.py) and the hot-key lease
-    # cache (hotcache/ cache, policy): True raises until they are
-    # ported (ROADMAP Queue 1 #7)
+    # hot-key analytics (telemetry/hotkeys.py): one HotKeySketch of
+    # hot_key_k candidates per in-process shard, registered with the
+    # process-wide aggregator as shard-<id> (shard processes get none)
     hot_keys: bool = False
+    hot_key_k: int = 32
+    # the hot-key lease cache (hotcache/ cache, policy): True raises
+    # until it is ported (ROADMAP Queue 1 #7)
     hot_cache: bool = False
     # latency-budget profiler (telemetry/profiler.py): per-phase cost
     # attribution on every pull/push round (client serialize → wire →
@@ -285,7 +288,6 @@ class ClusterDriver:
                 )
         _not_ported = (
             ("hot_cache", cfg.hot_cache, "hotcache cache/policy"),
-            ("hot_keys", cfg.hot_keys, "telemetry/hotkeys.py"),
             ("adaptive", cfg.adaptive, "adaptive/"),
             ("wire_proto='shm'", cfg.wire_proto == "shm", "shmem/"),
         )
@@ -338,6 +340,7 @@ class ClusterDriver:
         # observability plumbing (both off by default — zero overhead)
         self.client_tracer = None
         self.shard_tracers: List = []
+        self._hotkey_labels: List[str] = []
 
     # -- lifecycle ---------------------------------------------------------
     def _wal_dir_for(self, shard_id: int) -> Optional[str]:
@@ -391,6 +394,16 @@ class ClusterDriver:
                 host=cfg.host,
             )).wait_ready()
             return RemoteShardStub(proc), proc
+        hotkeys = None
+        if cfg.hot_keys:
+            from ..telemetry.hotkeys import HotKeySketch, get_aggregator
+
+            hotkeys = HotKeySketch(cfg.hot_key_k)
+            label = f"shard-{shard_id}"
+            # re-registering (shard replacement) starts a fresh window
+            get_aggregator().register(label, hotkeys)
+            if label not in self._hotkey_labels:
+                self._hotkey_labels.append(label)
         tracer = None
         if cfg.trace:
             from ..telemetry.spans import SpanTracer
@@ -404,6 +417,7 @@ class ClusterDriver:
             init_fn=self._init_fn,
             wal_dir=self._wal_dir_for(shard_id),
             registry=self.registry if self.registry is not None else False,
+            hotkeys=hotkeys,
             profiler=None if cfg.profile else False,
             store_backend="torch",
             device=self.device,
@@ -569,6 +583,13 @@ class ClusterDriver:
             self.mesh_store.close()
             self.mesh_store = None
         self._started = False
+        if self._hotkey_labels:
+            from ..telemetry.hotkeys import get_aggregator
+
+            agg = get_aggregator()
+            for label in self._hotkey_labels:
+                agg.unregister(label)
+            self._hotkey_labels = []
 
     def __enter__(self) -> "ClusterDriver":
         return self.start()

@@ -25,11 +25,13 @@ copies its rows off the device under the same lock as the sequence number
 it reports, and ``load``, ``install_epoch`` and a snapshot replay write the
 slice tensor on the shard's device and drop the host mirror; a follower's
 slice sits on its device like a primary's and applies each shipped record
-through the same scatter.  The hot-key cache's ``lease`` / ``revoke`` and
-the piggybacked ``inv=`` invalidations wait for hotcache/ (ROADMAP Queue 1
-#7): until then those verbs answer ``err bad-request`` and their option
-tokens (``sess=``) are parsed and ignored, as an older reference server
-treats them.
+through the same scatter.  With a hot-key sketch attached (``hotkeys=``,
+``telemetry/hotkeys.py``) every pull and push observes its host id array
+inside the lock, before any card work.  The hot-key cache's ``lease`` /
+``revoke`` and the piggybacked ``inv=`` invalidations wait for hotcache/
+(ROADMAP Queue 1 #7): until then those verbs answer ``err bad-request``
+and their option tokens (``sess=``) are parsed and ignored, as an older
+reference server treats them.
 
 This is the reference's PS subtask made a real process boundary: shard
 ``s`` owns exactly the rows ``partitioner.owned_ids(s)`` as a dense
@@ -316,6 +318,7 @@ class ParamShard:
         wal_dir: Optional[str] = None,
         wal_fsync_every: int = 0,
         registry=None,
+        hotkeys=None,
         profiler=None,
         store_backend: str = "torch",
         device: DeviceLike = None,
@@ -363,6 +366,10 @@ class ParamShard:
             # chaos mode tests exercise; page-cache durability suffices
             # and per-push fsyncs would dominate small-push latency
             self._wal = UpdateWAL(wal_dir, fsync_every=wal_fsync_every)
+        # hot-key analytics (telemetry/hotkeys.py): with a sketch
+        # attached, every pulled/pushed id batch is observed — the
+        # host int64 ids, before any card work, never a device tensor
+        self.hotkeys = hotkeys
         # latency-budget phases (telemetry/profiler.py): lock wait =
         # server_queue_wait (concurrent connections serialize on this
         # shard's lock), WAL append, scatter/apply — the server side of
@@ -656,7 +663,10 @@ class ParamShard:
                 time.perf_counter() - t_wait,
             )
             self._check_alive()
-            local = self._route(np.asarray(global_ids, np.int64), epoch)
+            ids = np.asarray(global_ids, np.int64)
+            local = self._route(ids, epoch)
+            if self.hotkeys is not None:
+                self.hotkeys.observe(ids)
             with prof.timer("pull", "scatter_apply"):
                 # the pull-side table access: host-mirror fancy-index
                 # (see _rows)
@@ -702,6 +712,8 @@ class ParamShard:
             # BEFORE it is logged (replaying a bad frame would re-raise
             # forever)
             self._route(ids, epoch)
+            if self.hotkeys is not None:
+                self.hotkeys.observe(ids)
             if pid is not None:
                 fresh = np.asarray(
                     [(pid, int(g)) not in self._applied_pairs for g in ids]

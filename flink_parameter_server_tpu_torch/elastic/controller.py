@@ -30,7 +30,9 @@ Two layers, deliberately separate:
   * :class:`ElasticController` — POLICY.  Watches the telemetry
     registry the cluster already publishes to — windowed
     ``cluster_pull_rtt_seconds`` p99, live shard queue depth, the SSP
-    staleness spread — plus shard liveness, and drives the mechanism:
+    staleness spread, and, when given, an SLO engine's breaches
+    (``slo=``) and a timeline recorder's new anomaly firings
+    (``timeline=``) — plus shard liveness, and drives the mechanism:
     replace dead shards immediately, scale out past the pressure
     thresholds, scale in below the idle threshold, all behind a
     cooldown so one burst doesn't saw the topology.
@@ -426,11 +428,20 @@ class ElasticController:
         policy: Optional[ScalePolicy] = None,
         registry=None,
         interval_s: float = 0.5,
+        slo=None,
+        timeline=None,
     ):
-        # (the reference's slo= and timeline= pressure inputs come with
-        # telemetry/slo.py and the TimelineRecorder, ROADMAP Queue 1 #7)
         self.driver = driver
         self.policy = policy if policy is not None else ScalePolicy()
+        # optional SLO engine (telemetry/slo.py): a breached objective
+        # is a scale-out pressure signal alongside the raw thresholds —
+        # the declarative form of the same policy
+        self.slo = slo
+        # optional timeline recorder (telemetry/timeline.py): NEW
+        # detector firings since the last evaluation are scale-out
+        # pressure alongside SLO breaches
+        self.timeline = timeline
+        self._anomaly_cursor = 0
         self.registry = (
             registry if registry is not None else driver.registry
         )
@@ -508,6 +519,18 @@ class ElasticController:
         p99, frames = self._windowed_rtt_p99()
         depth = self._max_queue_depth()
         staleness = self._staleness()
+        slo_breaches: List[str] = []
+        if self.slo is not None:
+            self.slo.sample()
+            slo_breaches = self.slo.breached()
+        anomalies: List[str] = []
+        if self.timeline is not None:
+            ledger = self.timeline.anomalies()
+            anomalies = [
+                f"{a['metric']}/{a['kind']}"
+                for a in ledger[self._anomaly_cursor:]
+            ]
+            self._anomaly_cursor = len(ledger)
         decision: Optional[dict] = None
         pressured = (
             (
@@ -521,6 +544,8 @@ class ElasticController:
                 and staleness is not None
                 and staleness > pol.scale_out_staleness
             )
+            or bool(slo_breaches)
+            or bool(anomalies)
         )
         idle = (
             p99 is not None
@@ -534,6 +559,8 @@ class ElasticController:
                 decision = {
                     "action": "scale_out", "p99_s": p99, "depth": depth,
                     "staleness": staleness, "frames": frames,
+                    "slo_breaches": slo_breaches,
+                    "timeline_anomalies": anomalies,
                 }
         elif idle:
             # hysteresis: one idle window is a data point, not a

@@ -330,7 +330,7 @@ def test_driver_defaults_to_the_card_and_knobs_that_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ClusterDriver(_logic(nu, dim), capacity=ni, value_shape=(dim,), registry=False)
-    for kw, item in ((dict(hot_cache=True), "hotcache"), (dict(hot_keys=True), "hotkeys"),
+    for kw, item in ((dict(hot_cache=True), "hotcache"),
                      (dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem"),
                      (dict(store_backend="tiered"), "tierstore")):
         with pytest.raises(NotImplementedError, match=item) as e:

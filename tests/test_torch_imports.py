@@ -89,6 +89,11 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.serving.follower",
             "flink_parameter_server_tpu_torch.models.moe",
             "flink_parameter_server_tpu_torch.core.hybrid"} <= set(modules)
+    # the telemetry plane's detection half
+    assert {"flink_parameter_server_tpu_torch.telemetry.hotkeys",
+            "flink_parameter_server_tpu_torch.telemetry.slo",
+            "flink_parameter_server_tpu_torch.telemetry.timeline",
+            "flink_parameter_server_tpu_torch.telemetry.detectors"} <= set(modules)
 
 
 _CHILD_SCRIPT = """

@@ -880,3 +880,55 @@ def test_transform_hybrid_launches_k1_once_a_chunk(cuda):
         tables[impl] = res.store.values()
         assert tables[impl].device.type == "cuda"
     torch.testing.assert_close(tables["pallas"], tables["xla"], rtol=1e-5, atol=1e-6)
+
+
+def test_hot_key_top_k_ranks_on_the_card(cuda, monkeypatch):
+    """A 2-shard cluster on the card with ``hot_keys=True``: the default
+    aggregator (``device=None``, the card) ranks the merged candidates with
+    ``dense_topk`` on CUDA tensors, and its answer equals a stable host sort
+    of every candidate by its reported count (``candidates()`` lists them in
+    the space-saving order) and a CPU aggregator's over the same sketches,
+    exactly."""
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.data.streams import microbatches
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization,
+        SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.telemetry import hotkeys
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    ranked_on = []
+    dense_topk = hotkeys.dense_topk
+
+    def spy(table, queries, k, **kw):
+        ranked_on.append(table.device.type)
+        return dense_topk(table, queries, k, **kw)
+
+    monkeypatch.setattr(hotkeys, "dense_topk", spy)
+    agg = hotkeys.HotKeyAggregator()
+    old = hotkeys.get_aggregator()
+    hotkeys.set_aggregator(agg)
+    try:
+        nu, ni, dim = 2000, 3000, 32
+        batches = list(microbatches(synthetic_ratings(nu, ni, 8 * 1024, seed=3), 1024))
+        driver = ClusterDriver(OnlineMatrixFactorization(nu, dim, updater=SGDUpdater(0.05), seed=1, device=cuda),
+                               capacity=ni, value_shape=(dim,), init_fn=ranged_random_factor(7, (dim,)),
+                               config=ClusterConfig(num_shards=2, num_workers=2, hot_keys=True, hot_key_k=32),
+                               registry=False, device=cuda)
+        with driver:
+            assert all(s.store.table.device.type == "cuda" for s in driver.shards)
+            driver.run(batches)
+            assert agg.labels() == ["shard-0", "shard-1"]
+            top = agg.top_k(10)
+            assert ranked_on == ["cuda"]
+            every = agg.candidates(1 << 20)
+            assert len(top) == 10 and top == sorted(every, key=lambda t: -t["count"])[:10]
+            cpu = hotkeys.HotKeyAggregator(device="cpu")
+            for label in agg.labels():
+                cpu.register(label, agg._sketches[label])
+            assert cpu.top_k(10) == top
+        assert agg.labels() == []
+    finally:
+        hotkeys.set_aggregator(old)

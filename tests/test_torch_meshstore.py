@@ -63,6 +63,7 @@ from flink_parameter_server_tpu_torch.models.matrix_factorization import (
     OnlineMatrixFactorization,
     SGDUpdater,
 )
+from flink_parameter_server_tpu_torch.telemetry.hotkeys import get_aggregator
 from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
 from flink_parameter_server_tpu_torch.training.driver import DriverConfig, StreamingDriver
 from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
@@ -156,10 +157,16 @@ def test_layout_is_one_device_and_a_mesh_raises():
 
 def test_mesh_driver_knobs_that_raise():
     batches, nu, ni, dim = _mf(rounds=1)
-    for kw, item in ((dict(hot_keys=True), "hotkeys"), (dict(adaptive=True), "adaptive"),
-                     (dict(wire_proto="shm"), "shmem")):
+    for kw, item in ((dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem")):
         with pytest.raises(NotImplementedError, match=item):
             _mesh_driver(nu, ni, dim, **kw)
+    # hot_keys is accepted, as the reference's mesh driver accepts it: the
+    # mesh has no shard to observe, so no sketch is registered
+    agg = get_aggregator()
+    before = agg.labels()
+    with _mesh_driver(nu, ni, dim, hot_keys=True) as d:
+        d.run(batches)
+        assert agg.labels() == before
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ClusterDriver(_logic(nu, dim), capacity=ni, value_shape=(dim,),
