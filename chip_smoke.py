@@ -2,8 +2,10 @@
 """Drive the torch port on one NVIDIA card: online MF (bare, through the
 job envelope, answering top-K queries while it trains, through the
 parameter-server cluster and the mesh store, resharded live by the
-elastic driver, failed over across replica chains, and watched by the
-telemetry plane's hot-key sketches, SLOs and timeline), the registered
+elastic driver, failed over across replica chains, watched by the
+telemetry plane's hot-key sketches, SLOs and timeline, and served through
+the hot-key lease cache with ``/metrics``, the run report and the lock
+witness live), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -175,6 +177,32 @@ line each; any failure exits non-zero before the last line:
              give rounds/s with and without ``hot_keys``, flush ms,
              ``top_k``'s and ``candidates()``' ms, the recorder's sample ms
              and the SLO verdicts, beside the card's name and power limit.
+  hotcache   the hot-key lease cache and the telemetry surfaces.  (a) The
+             reference's hot-key storm (``benchmarks/hotcache_storm.py``: 1 %
+             of the keys take 90 % of the requests, 4 ids a request, lease
+             bound 64, one closed-loop reader, a writer pushing hot ids) at
+             131,072 x 64 on a 2-shard cluster whose slices are on the card,
+             arms off, on, on, off (5,000 warm-up and 1,500 measured
+             requests an arm; on localhost, the reference's proxied link
+             delay waits for nemesis/): ``check_lease_staleness`` with hits;
+             then ``CachedLookupService.top_k`` over every id, ranked on the
+             card, equal to a float64 numpy ranking of the shards' rows.  (b)
+             The cluster phase's MF under SSP bound 2 (4 shards x 2 workers)
+             with ``hot_cache`` off, on, on, off; a checked ``hot_cache=True``
+             run (the final table the shards' rows bitwise, every worker
+             cache within its bound, a card-side ``CachedLookupService``
+             reader of the stream's 32 hottest items held to
+             ``check_lease_staleness``); BSP 4 shards x 1 worker with the
+             cache bitwise without it.  (c) A strict HTTP scrape of
+             ``/metrics`` and ``/hot``, ``/hotkeys``, ``/timeline``,
+             ``/healthz`` mid-run, the run report written under a temporary
+             directory (platform ``gpu``), 3 rounds under
+             ``lockwitness.capture()`` with no inversion.  No kernel
+             launches.  ``hotcache:`` lines give each storm arm's p50/p99,
+             wire bytes a request, hit rate, leases and invalidations, the
+             top-K's ms, rounds/s with and without the cache, the caches'
+             counts, scrape, report and witness costs, beside the card's
+             name and power limit.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -2618,6 +2646,471 @@ def phase_telemetry(torch, dev, card):
     print(f"telemetry: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+HOT_STORM_SHARDS = 2
+HOT_STORM_FRAC, HOT_STORM_SHARE, HOT_STORM_IDS = 0.01, 0.9, 4  # 1 % of the keys take 90 % of the requests
+HOT_STORM_BOUND = 64  # lease bound in ticks (one tick a request)
+HOT_STORM_K = 4096  # shard sketch slots: ~3x the 1,310-key hot set, as the reference's 128 clear its 40
+HOT_STORM_WARMUP = 5000  # requests before the measured ones: ~14 sketch counts a hot key (min_count 10)
+HOT_STORM_REQUESTS = 1500  # measured requests an arm
+HOT_STORM_ARMS = ("off", "on", "on", "off")
+HOT_TRAIN_TIMED = (False, True, True, False)  # hot_cache off / on in turns
+HOT_WITNESS_ROUNDS = 3
+HOT_TOP = 32  # ClusterConfig.hot_cache_top_n
+
+
+def _client_wire_bytes(reg):
+    """Client-role bytes on the wire, both directions (``net_bytes_total``,
+    utils/net.py), from ``reg``."""
+    return sum(float(i.value or 0.0) for i in reg.instruments()
+               if i.name == "net_bytes_total" and i.labels.get("role") == "client")
+
+
+def _strict_scrape(host, port):
+    """GET /metrics over ``http.client``: status 200, the exposition
+    content type, Content-Length equal to the body, and every line a
+    ``# TYPE`` line or ``name{labels} value``.  Returns (text, ms)."""
+    import http.client
+    import re
+
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})? '
+                        r'(NaN|[+-]Inf|[-+]?[0-9.]+([eE][-+]?[0-9]+)?)$')
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(host, port, timeout=30)
+    conn.request("GET", "/metrics")
+    resp = conn.getresponse()
+    body = resp.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    conn.close()
+    check(resp.status == 200, f"hotcache: GET /metrics answered {resp.status}")
+    check(resp.getheader("Content-Type") == "text/plain; version=0.0.4; charset=utf-8",
+          f"hotcache: /metrics content type {resp.getheader('Content-Type')}")
+    check(len(body) == int(resp.getheader("Content-Length")), "hotcache: /metrics Content-Length differs")
+    text = body.decode("utf-8")
+    bad = [ln for ln in text.splitlines() if ln and not ln.startswith("# TYPE ") and not sample.match(ln)]
+    check(not bad, f"hotcache: /metrics lines that do not parse: {bad[:3]}")
+    return text, ms
+
+
+def _storm_requests(seed, n, hot_ids):
+    """benchmarks/hotcache_storm.py's stream: each of a request's ids is
+    hot with probability 0.9 (uniform over the hot set), else uniform over
+    the table."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        hot = rng.random(HOT_STORM_IDS) < HOT_STORM_SHARE
+        ids = np.where(hot, rng.choice(hot_ids, size=HOT_STORM_IDS),
+                       rng.integers(0, NUM_ITEMS, size=HOT_STORM_IDS))
+        out.append(ids.astype(np.int64))
+    return out
+
+
+def phase_hotcache(torch, dev, card):
+    """The hot-key lease cache (``hotcache/``) and the telemetry plane's
+    surfaces on the card.  (a) The reference's hot-key storm
+    (benchmarks/hotcache_storm.py: 1 % of the keys take 90 % of the
+    requests, 4 ids a request, lease bound 64 ticks, one closed-loop
+    reader, a writer client pushing 2 hot ids every 50 ms) at the MF item
+    table's width, 131,072 x 64 float32 on a 2-shard ``ClusterDriver``
+    whose slices are CUDA tensors (the reference runs 4,096 x 32); only
+    the request count is cut: 5,000 warm-up requests (so a hot key is seen
+    ~14 times, past the policy's min_count 10) and 1,500 measured requests
+    an arm, arms off, on, on, off.  The reference's ``ChaosProxy`` link
+    delay waits for nemesis/ (ROADMAP Queue 1 #7g): the arms run on
+    localhost.  Then ``CachedLookupService.top_k`` over all 131,072 ids on
+    the card against a float64 numpy ranking of the shards' rows.  (b) The
+    cluster phase's MF (100,000 x 131,072, dim 64, lr 0.01,
+    ``zipf_stream(9, 12)``, socket 4 shards x 2 workers, range partition,
+    SSP bound 2) with ``hot_cache`` off, on, on, off; a checked
+    ``hot_cache=True`` run (the final table the shards' own rows bitwise,
+    every worker cache within its bound; a worker pushes every id it
+    pulls, so its own push drops each leased row in the round it was
+    leased and its cache serves no hit; a ``CachedLookupService`` reader
+    on the card leasing and reading the stream's 32 hottest items while it
+    trains, held to ``check_lease_staleness``); BSP 4 shards x 1 worker
+    (one worker: two workers' adds land in arrival order) with
+    ``hot_cache=True`` (no client cache) bitwise against ``False``.  (c)
+    During the checked run a ``TelemetryServer`` answers a strict HTTP
+    scrape of ``/metrics`` and ``/hot``, ``/hotkeys``, ``/timeline``,
+    ``/healthz``; after it the run report is built and written under a
+    temporary directory; then 3 rounds under ``lockwitness.capture()``
+    against the same 3 rounds unwitnessed.  No kernel of the port
+    launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.cluster.client import ClusterClient
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+    from flink_parameter_server_tpu_torch.hotcache import (
+        CachedLookupService, HotRowCache, LeasePolicy, StaticHotSet, register_cache, unregister_cache,
+    )
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization, SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.nemesis.invariants import check_lease_staleness, check_lock_inversions
+    from flink_parameter_server_tpu_torch.telemetry import hotkeys, lockwitness
+    from flink_parameter_server_tpu_torch.telemetry import report as report_mod
+    from flink_parameter_server_tpu_torch.telemetry.exporter import TelemetryServer, scrape
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry, get_registry, set_registry
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    t_phase = time.perf_counter()
+    old_agg, old_reg = hotkeys.get_aggregator(), get_registry()
+    tmp = tempfile.mkdtemp(prefix="hotcache-", dir=os.path.join(REPO, "build"))
+    try:
+        # ---- (a) the hot-key storm, the serving half ----------------------
+        rng = np.random.default_rng(0)
+        n_hot = int(NUM_ITEMS * HOT_STORM_FRAC)
+        hot_ids = rng.choice(NUM_ITEMS, size=n_hot, replace=False).astype(np.int64)
+        stream = _storm_requests(10, HOT_STORM_WARMUP + HOT_STORM_REQUESTS, hot_ids)
+        init = ranged_random_factor(7, (DIM_UNFUSED,))
+        arms, leased_sets = [], []
+
+        def storm_driver():
+            logic = OnlineMatrixFactorization(64, DIM_UNFUSED, updater=SGDUpdater(0.05), seed=1, device=dev)
+            return ClusterDriver(logic, capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=init,
+                                 config=ClusterConfig(num_shards=HOT_STORM_SHARDS, num_workers=1,
+                                                      staleness_bound=None, hot_keys=True,
+                                                      hot_key_k=HOT_STORM_K),
+                                 registry=False, device=dev)
+
+        zero_counts()
+        for i, arm in enumerate(HOT_STORM_ARMS):
+            reg = MetricsRegistry()
+            set_registry(reg)  # the clients' wire ledger lands here
+            hotkeys.set_aggregator(hotkeys.HotKeyAggregator())
+            d = storm_driver().start()
+            check(all(s.store.table.device.type == dev.type for s in d.shards),
+                  f"hotcache: storm slices not on {dev.type}")
+            addrs = [(s.host, s.port) for s in d.servers]
+            writer = ClusterClient(addrs, d.partitioner, (DIM_UNFUSED,), registry=False, worker="storm-writer")
+            reader = ClusterClient(addrs, d.partitioner, (DIM_UNFUSED,), registry=False, worker=f"storm-{arm}")
+            cache = policy = None
+            if arm == "on":
+                policy = LeasePolicy(hotkeys.get_aggregator(), top_n=max(64, 2 * n_hot), min_count=10,
+                                     refresh_s=0.05)
+                cache = HotRowCache(HOT_STORM_BOUND, capacity=max(64, 2 * n_hot), worker=f"storm-{arm}")
+                reader.attach_hotcache(cache, policy, lease_ttl=2 * HOT_STORM_BOUND)
+            lat = np.empty(HOT_STORM_REQUESTS)
+            stop, writes, errs = threading.Event(), [0], []
+
+            def write_loop():
+                wrng = np.random.default_rng(1)
+                try:
+                    while not stop.is_set():
+                        writer.push_batch(wrng.choice(hot_ids, size=2, replace=False),
+                                          np.full((2, DIM_UNFUSED), 1e-3, np.float32))
+                        writes[0] += 1
+                        stop.wait(0.05)
+                except BaseException as e:  # re-raised below
+                    errs.append(e)
+
+            try:
+                for ids in stream[:HOT_STORM_WARMUP]:
+                    reader.pull_batch(ids)
+                if policy is not None:
+                    t0 = time.perf_counter()
+                    policy.refresh()
+                    refresh_ms = (time.perf_counter() - t0) * 1e3
+                    leased_sets.append(set(policy.hot_keys().tolist()))
+                    refreshes0 = policy.refreshes
+                h0 = None if cache is None else dict(cache.stats())
+                bytes0 = _client_wire_bytes(reg)
+                wt = threading.Thread(target=write_loop, name="hotcache-storm-writer", daemon=True)
+                wt.start()
+                t_arm = time.perf_counter()
+                for j, ids in enumerate(stream[HOT_STORM_WARMUP:]):
+                    t0 = time.perf_counter()
+                    reader.pull_batch(ids)
+                    lat[j] = time.perf_counter() - t0
+                wall = time.perf_counter() - t_arm
+                stop.set()
+                wt.join(timeout=30)
+                check(not wt.is_alive() and not errs, f"hotcache: the storm writer failed: {errs}")
+                wire = _client_wire_bytes(reg) - bytes0
+                res = {"arm": arm, "p50": float(np.percentile(lat, 50)) * 1e3,
+                       "p99": float(np.percentile(lat, 99)) * 1e3, "rps": HOT_STORM_REQUESTS / wall,
+                       "bytes": wire / HOT_STORM_REQUESTS, "writes": writes[0]}
+                if cache is not None:
+                    st = cache.stats()
+                    verdict = check_lease_staleness(st, HOT_STORM_BOUND)
+                    check(verdict.ok, f"hotcache: storm arm {i}: {verdict.detail}")
+                    hits, misses = st["hits"] - h0["hits"], st["misses"] - h0["misses"]
+                    res.update(hit_rate=hits / max(1, hits + misses), leases=reader.leases_acquired,
+                               refresh_ms=refresh_ms, refreshes=policy.refreshes - refreshes0,
+                               revocations=st["revocations"], max_age=st["max_served_age"],
+                               queued=sum(s.leases.stats()["invalidations_queued"] for s in d.shards),
+                               verdict=verdict.detail)
+                arms.append(res)
+                if i == len(HOT_STORM_ARMS) - 1:
+                    # the cross-shard top-K on the card, as of a flush after
+                    # the writer stopped
+                    writer.flush()
+                    truth = np.empty((NUM_ITEMS, DIM_UNFUSED), np.float32)
+                    for s in d.shards:
+                        truth[s.owned] = s.values()
+                    query = truth[int(np.random.default_rng(3).integers(NUM_ITEMS))]
+                    s64 = (truth.astype(np.float64) @ query.astype(np.float64)).astype(np.float32)
+                    want = np.lexsort((np.arange(NUM_ITEMS), -s64))[:10]  # ties lowest id first
+                    svcs = {k: CachedLookupService(addresses=addrs, partitioner=d.partitioner,
+                                                   value_shape=(DIM_UNFUSED,), policy=StaticHotSet(hot_ids),
+                                                   bound=HOT_STORM_BOUND, hedge_after_s=None, registry=False,
+                                                   worker=f"topk-{k}", device=k) for k in ("cuda", "cpu")}
+                    try:
+                        everything = np.arange(NUM_ITEMS, dtype=np.int64)
+                        got = svcs["cuda"].top_k(query, everything, k=10)
+                        check(np.array_equal(got[1], want),
+                              f"hotcache: top_k on the card {got[1].tolist()} != float64 ranking {want.tolist()}")
+                        check(bool(np.allclose(got[0], s64[want], rtol=1e-6, atol=0)),
+                              f"hotcache: top_k scores {got[0]} != {s64[want]}")
+                        times = {}
+                        for k, svc in svcs.items():
+                            ts = []
+                            for _ in range(5):
+                                t0 = time.perf_counter()
+                                svc.top_k(query, everything, k=10)
+                                ts.append(time.perf_counter() - t0)
+                            times[k] = statistics.median(ts) * 1e3
+                        ts = []
+                        for _ in range(5):
+                            t0 = time.perf_counter()
+                            rows = reader.pull_batch(everything)
+                            np.argsort(-(rows.astype(np.float64) @ query.astype(np.float64)))[:10]
+                            ts.append(time.perf_counter() - t0)
+                        times["numpy"] = statistics.median(ts) * 1e3
+                        ties = int(len(np.unique(s64[want])) < 10)
+                    finally:
+                        for svc in svcs.values():
+                            svc.close()
+            finally:
+                stop.set()
+                reader.close()
+                writer.close()
+                d.stop()
+        read_counts("hotcache: the storm arms", {})
+        for res in arms:
+            line = (f"hotcache: (a) storm {res['arm']}: {HOT_STORM_REQUESTS} requests, p50 {res['p50']:.3f} ms "
+                    f"p99 {res['p99']:.3f} ms, {res['rps']:.1f} requests/s, {res['bytes']:.1f} wire bytes a "
+                    f"request (client, both directions), writer pushes {res['writes']}")
+            if "hit_rate" in res:
+                line += (f"; hit rate {res['hit_rate']:.4f}, leases {res['leases']}, revocations "
+                         f"{res['revocations']}, invalidations queued {res['queued']}, worst served age "
+                         f"{res['max_age']} (bound {HOT_STORM_BOUND}); the policy's refresh (the sketches' merge "
+                         f"and candidate ranking on the host) {res['refresh_ms']:.3f} ms, {res['refreshes']} of them "
+                         f"in the measured requests")
+            print(line + f"; {card}")
+        off_b = statistics.median(r["bytes"] for r in arms if r["arm"] == "off")
+        on_b = statistics.median(r["bytes"] for r in arms if r["arm"] == "on")
+        hot_set = set(hot_ids.tolist())
+        print(f"hotcache: (a) wire bytes a request on/off {on_b / off_b:.4f}; the policy leased "
+              f"{[len(s) for s in leased_sets]} keys, {[len(s & hot_set) for s in leased_sets]} of them in the "
+              f"{n_hot}-key hot set; {card}")
+        print(f"hotcache: (a) CachedLookupService.top_k(query, all {NUM_ITEMS} ids, k=10) on the card equals the "
+              f"float64 ranking (ids exact, scores rtol 1e-6; float32 ties in the top 10: {ties}); "
+              f"{times['cuda']:.3f} ms on the card, {times['cpu']:.3f} ms with device='cpu', "
+              f"{times['numpy']:.3f} ms for a pull of every row and a numpy ranking, medians of 5; {card}")
+
+        # ---- (b) training under the hot cache -----------------------------
+        set_registry(old_reg)
+        agg = hotkeys.HotKeyAggregator()  # device=None: the card
+        hotkeys.set_aggregator(agg)
+        mf_stream = zipf_stream(9, CLUSTER_ROUNDS)
+        mf_init = ranged_random_factor(1, (DIM_UNFUSED,))
+        ssp = dict(num_shards=CLUSTER_SHARDS, num_workers=CLUSTER_WORKERS, staleness_bound=CLUSTER_SSP_BOUND)
+
+        def mf_driver(reg, **cfg):
+            logic = OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), device=dev)
+            return ClusterDriver(logic, capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=mf_init,
+                                 config=ClusterConfig(**cfg), registry=reg, device=dev)
+
+        rates = {False: [], True: []}
+        zero_counts()
+        for hot in HOT_TRAIN_TIMED:
+            with mf_driver(MetricsRegistry(), hot_cache=hot, **ssp) as d:
+                r = d.run(mf_stream, timeout=600)
+            rates[hot].append(r.rounds / r.wall_s)
+        off, on = statistics.median(rates[False]), statistics.median(rates[True])
+        print(f"hotcache: (b) socket SSP {CLUSTER_SSP_BOUND} {CLUSTER_SHARDS}x{CLUSTER_WORKERS}, {CLUSTER_ROUNDS} "
+              f"rounds, in turns off/on/on/off: hot_cache off {', '.join(f'{x:.2f}' for x in rates[False])} "
+              f"rounds/s, on {', '.join(f'{x:.2f}' for x in rates[True])} rounds/s; medians {off:.2f} / {on:.2f} "
+              f"({(on / off - 1) * 100:+.1f} %); {card}")
+
+        # the checked run, with the surfaces live
+        reg = MetricsRegistry()
+        items = np.concatenate([b["item"] for b in mf_stream]).astype(np.int64)
+        counts = np.bincount(items, minlength=NUM_ITEMS)
+        true_top = np.lexsort((np.arange(NUM_ITEMS), -counts))[:HOT_TOP]
+        scraped, reader_errs = {}, []
+        tel = TelemetryServer(reg, port=0).start()
+
+        def mid_run(w, t):
+            if w == 0 and t == CLUSTER_ROUNDS // 2:
+                scraped["metrics"], scraped["metrics_ms"] = _strict_scrape(tel.host, tel.port)
+                for path in ("hot", "hotkeys", "timeline", "healthz"):
+                    t0 = time.perf_counter()
+                    scraped[path] = json.loads(scrape(tel.host, tel.port, path, timeout=30))
+                    scraped[f"{path}_ms"] = (time.perf_counter() - t0) * 1e3
+                scraped["shard_stats"] = [s.stats() for s in d.shards]
+
+        d = mf_driver(reg, hot_cache=True, **ssp)
+        svc = None
+        try:
+            with d:
+                check([c.hotcache is not None and c.hotcache.bound == CLUSTER_SSP_BOUND for c in d._clients]
+                      == [True] * CLUSTER_WORKERS, "hotcache: the SSP workers did not get a bound-2 cache")
+                svc = CachedLookupService(addresses=[(s.host, s.port) for s in d.servers], partitioner=d.partitioner,
+                                          value_shape=(DIM_UNFUSED,), policy=StaticHotSet(true_top),
+                                          bound=CLUSTER_SSP_BOUND, hedge_after_s=None, registry=reg,
+                                          worker="reader", device=dev)
+                register_cache("reader", svc.cache)
+                done = threading.Event()
+
+                def read_loop():
+                    rrng = np.random.default_rng(4)
+                    try:
+                        while not done.is_set():
+                            svc.lookup(rrng.choice(true_top, size=HOT_STORM_IDS))
+                    except BaseException as e:  # re-raised below
+                        reader_errs.append(e)
+
+                rt = threading.Thread(target=read_loop, name="hotcache-training-reader", daemon=True)
+                rt.start()
+                try:
+                    r = d.run(mf_stream, timeout=600, round_hook=mid_run)
+                finally:
+                    done.set()
+                    rt.join(timeout=60)
+                check(not rt.is_alive() and not reader_errs, f"hotcache: the training reader failed: {reader_errs}")
+                truth = np.empty((NUM_ITEMS, DIM_UNFUSED), np.float32)
+                for s in d.shards:
+                    truth[s.owned] = s.values()
+                stats = [c.hotcache.stats() for c in d._clients]
+                leases = [c.leases_acquired for c in d._clients]
+                leased = [set(c.lease_policy.hot_keys().tolist()) for c in d._clients]
+                reader_stats = svc.cache.stats()
+                shard_stats = [s.stats() for s in d.shards]
+                t0 = time.perf_counter()
+                report = report_mod.build_run_report(reg, wall_s=r.wall_s)
+                platform = report_mod._default_platform()
+                paths = report_mod.write_run_report(report, results_dir=os.path.join(tmp, "results", platform))
+                report_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if svc is not None:
+                svc.close()
+                unregister_cache("reader")
+            tel.stop()
+        read_counts("hotcache: the hot_cache training runs", {})
+        check(r.values.tobytes() == truth.tobytes(), "hotcache: the final table is not the shards' own rows bitwise")
+        check(bool(np.isfinite(r.values).all()), "hotcache: the SSP hot_cache table is not finite")
+        # the anchor phase_cluster's arms are held against: the single-process table
+        store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=mf_init, device=dev)
+        logic = OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), device=dev)
+        base = transform_batched(mf_stream, logic, store, dump_model=False,
+                                 collect_outputs=False).store.values().cpu().numpy()
+        err = float(np.abs(r.values.astype(np.float64) - base).max())
+        for w, st in enumerate(stats):
+            check(st["max_served_age"] <= CLUSTER_SSP_BOUND, f"hotcache: worker {w} served age {st['max_served_age']}")
+            check(leases[w] > 0 and st["fills"] == leases[w], f"hotcache: worker {w} leased {leases[w]}, {st}")
+        verdict = check_lease_staleness(reader_stats, CLUSTER_SSP_BOUND)
+        check(verdict.ok, f"hotcache: the training reader: {verdict.detail}")
+        print(f"hotcache: (b) checked hot_cache=True run: {r.rounds / r.wall_s:.2f} rounds/s; the final table is "
+              f"the shards' own rows bitwise; max_abs_err against the single-process table {err:.3e} (phase_cluster "
+              f"holds its SSP arm to finite values; the same here); {card}")
+        for w, st in enumerate(stats):
+            print(f"hotcache: (b) worker {w} cache: hits {st['hits']}, misses {st['misses']}, leases {leases[w]}, "
+                  f"fills {st['fills']}, revocations {st['revocations']}, entries {st['entries']}, worst served age "
+                  f"{st['max_served_age']} (bound {CLUSTER_SSP_BOUND}); {len(leased[w] & set(true_top.tolist()))} "
+                  f"of its {len(leased[w])} leased keys are among the stream's true top {HOT_TOP}")
+        print(f"hotcache: (b) reader on the card leasing and reading the stream's {HOT_TOP} hottest items "
+              f"(4 a lookup) while it trains: "
+              f"{verdict.detail}, hit rate {reader_stats['hit_rate']}; shard lease boards: "
+              + ", ".join(f"shard {s['shard']} sessions {s['lease_sessions']} active {s['leases_active']}"
+                          for s in shard_stats) + f"; {card}")
+
+        # BSP with hot_cache=True: no client cache, the table bitwise
+        bsp = dict(num_shards=CLUSTER_SHARDS, num_workers=1, staleness_bound=0)
+        zero_counts()
+        tables = {}
+        for hot in (True, False):
+            with mf_driver(False, hot_cache=hot, **bsp) as d:
+                if hot:
+                    check(all(c.hotcache is None for c in d._clients), "hotcache: a BSP client got a cache")
+                tables[hot] = d.run(mf_stream, timeout=600).values
+        read_counts("hotcache: the BSP runs", {})
+        check(tables[True].tobytes() == tables[False].tobytes(),
+              "hotcache: BSP with hot_cache=True is not bitwise the hot_cache=False table")
+        print(f"hotcache: (b) BSP {CLUSTER_SHARDS}x1 with hot_cache=True: no client cache, the table bitwise the "
+              f"hot_cache=False run's; {card}")
+
+        # ---- (c) the surfaces ----------------------------------------------
+        text = scraped["metrics"]
+        for name in ("fps_hotcache_hits_total", "fps_hotcache_misses_total", "fps_hotcache_revocations_total",
+                     "fps_hotcache_stale_rejects_total", "fps_hotcache_entries", "fps_hotcache_leases_granted_total",
+                     "fps_hotcache_invalidations_total", "fps_hotcache_leases_active", "fps_hot_key_traffic",
+                     "fps_cluster_pull_rtt_seconds_bucket"):
+            check(name in text, f"hotcache: /metrics lacks {name}")
+        for s in range(CLUSTER_SHARDS):
+            check(f'fps_hotcache_leases_active{{component="hotcache",shard="{s}"}}' in text,
+                  f"hotcache: /metrics lacks shard {s}'s leases_active")
+        mid = scraped["shard_stats"]
+        check(all("lease_sessions" in s and "leases_active" in s for s in mid)
+              and sum(s["lease_sessions"] for s in mid) > 0,
+              f"hotcache: the shards' stats mid-run {[(s.get('lease_sessions'), s.get('leases_active')) for s in mid]}")
+        hot = scraped["hot"]["hot"]
+        check(bool(hot["top"]) and {"worker-0", "worker-1", "reader"} <= set(hot["caches"])
+              and all("leased" in row for row in hot["top"]), f"hotcache: /hot payload {hot}")
+        check(bool(scraped["hotkeys"]["hot_keys"]["top"]), "hotcache: /hotkeys has no top keys")
+        check("timeline" in scraped["timeline"] and scraped["healthz"]["status"] == "ok",
+              f"hotcache: /timeline or /healthz {scraped['timeline']}, {scraped['healthz']}")
+        n_lines = sum(1 for ln in text.splitlines() if ln and not ln.startswith("#"))
+        print(f"hotcache: (c) mid-run strict scrape of /metrics: {n_lines} samples parse, "
+              f"{scraped['metrics_ms']:.3f} ms; /hot {scraped['hot_ms']:.3f} ms ({len(hot['top'])} top keys, "
+              f"{sum(1 for row in hot['top'] if row['leased'])} leased), /hotkeys {scraped['hotkeys_ms']:.3f} ms, "
+              f"/timeline {scraped['timeline_ms']:.3f} ms, /healthz {scraped['healthz_ms']:.3f} ms; "
+              f"shards' lease_sessions {[s['lease_sessions'] for s in mid]}, leases_active "
+              f"{[s['leases_active'] for s in mid]}; {card}")
+        with open(paths["json"]) as f:
+            written = json.load(f)
+        check(platform == "gpu" and os.path.dirname(paths["json"]).endswith(os.path.join("results", "gpu")),
+              f"hotcache: the report's platform is {platform}")
+        check(written.get("hot_keys") is not None and written.get("hotcache") is not None
+              and os.path.getsize(paths["md"]) > 0, "hotcache: the run report lacks its hot-key sections")
+        print(f"hotcache: (c) run report: platform {platform}, sections {sorted(written)}, hot-cache hit rate "
+              f"{written['hotcache']['hit_rate']}, built and written in {report_ms:.3f} ms; {card}")
+
+        # the lock witness against the same rounds unwitnessed
+        short = mf_stream[:HOT_WITNESS_ROUNDS]
+        witness_rates = {}
+        zero_counts()
+        for witnessed in (False, True, True, False):
+            if witnessed:
+                with lockwitness.capture() as w:
+                    with mf_driver(False, hot_cache=True, **ssp) as d:
+                        r = d.run(short, timeout=600)
+                inv = check_lock_inversions(w.inversions)
+                check(inv.ok and w.acquisitions > 0, f"hotcache: lock witness: {inv.detail}, "
+                                                     f"{w.acquisitions} acquisitions")
+                acquisitions = w.acquisitions
+            else:
+                with mf_driver(False, hot_cache=True, **ssp) as d:
+                    r = d.run(short, timeout=600)
+            witness_rates.setdefault(witnessed, []).append(r.rounds / r.wall_s)
+        read_counts("hotcache: the lock-witness runs", {})
+        wo, wi = statistics.median(witness_rates[False]), statistics.median(witness_rates[True])
+        print(f"hotcache: (c) lockwitness.capture() over {HOT_WITNESS_ROUNDS} rounds of the SSP hot_cache run: "
+              f"{inv.detail}, {acquisitions} acquisitions witnessed; {', '.join(f'{x:.2f}' for x in witness_rates[True])} "
+              f"rounds/s witnessed against {', '.join(f'{x:.2f}' for x in witness_rates[False])} unwitnessed "
+              f"(medians {wi:.2f} / {wo:.2f}, {(wi / wo - 1) * 100:+.1f} %); {card}")
+    finally:
+        set_registry(old_reg)
+        hotkeys.set_aggregator(old_agg)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"hotcache: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -3547,6 +4040,7 @@ def main() -> int:
         phase_elastic(torch, dev, card)
         phase_replication(torch, dev, card)
         phase_telemetry(torch, dev, card)
+        phase_hotcache(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

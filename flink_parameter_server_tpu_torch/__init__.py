@@ -23,7 +23,9 @@ servers, each slice a tensor on the card, or against one table tensor on
 the card (``store_backend="mesh"``), under a BSP / SSP / async clock;
 the elastic driver resizes it live, and replica chains (``replication/``)
 ship each shard's log to followers on the card that take over when a
-primary dies.  The LM takes switch-MoE layers without a mesh, and
+primary dies.  A hot-key lease cache (``hotcache/``) serves Zipf-hot rows
+at the client edge under a staleness bound, and the telemetry plane
+serves ``/metrics`` and writes the run report.  The LM takes switch-MoE layers without a mesh, and
 ``transform_hybrid`` runs event-API callbacks against the store on the
 card.  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
@@ -143,6 +145,21 @@ from .serving import (
     ServingService,
     SnapshotManager,
 )
+from .telemetry import (
+    MetricsRegistry,
+    SpanTracer,
+    TelemetryServer,
+    build_run_report,
+    get_registry,
+    get_tracer,
+    prometheus_text,
+    write_run_report,
+)
+from .hotcache import (
+    CachedLookupService,
+    HotRowCache,
+    LeasePolicy,
+)
 from .training.checkpoint import load_model
 from .training.driver import DriverConfig, StreamingDriver, TrainingDiverged
 from .utils.initializers import normal_factor, ranged_random_factor, zeros
@@ -205,6 +222,17 @@ __all__ = [
     "ServingServer",
     "ServingService",
     "SnapshotManager",
+    "MetricsRegistry",
+    "SpanTracer",
+    "TelemetryServer",
+    "get_registry",
+    "get_tracer",
+    "prometheus_text",
+    "build_run_report",
+    "write_run_report",
+    "CachedLookupService",
+    "HotRowCache",
+    "LeasePolicy",
     "normal_factor",
     "ranged_random_factor",
     "zeros",

@@ -6,12 +6,13 @@ imports JAX.  Modules it names that the port does not have yet are the
 reference's.  Ported: the static client (a fixed list of shard addresses
 under one partitioner), the elastic one (``membership`` routing with its
 refresh-and-retry loop, the ``pid`` exactly-once token and ``hedge`` pull
-races) and replica-chain reads (``replicas=`` / ``read_replicas=`` and the
-view's replica sets, with the fallback to the primary).  The reference's
-``push_hedge``, ``hotcache`` (the lease cache) and ``retry_budget`` (the
-soak harness's token bucket) raise ``NotImplementedError`` until
-adaptive/, hotcache/ and the rest of loadgen/ are ported (ROADMAP Queue 1
-#7), and ``wire_proto="shm"`` until shmem/.
+races), replica-chain reads (``replicas=`` / ``read_replicas=`` and the
+view's replica sets, with the fallback to the primary) and the hot-key
+lease cache (``hotcache=``, ``lease_policy=``, ``lease_ttl=``; host numpy
+rows, as the wire's are).  The reference's ``push_hedge`` and
+``retry_budget`` (the soak harness's token bucket) raise
+``NotImplementedError`` until adaptive/ and the rest of loadgen/ are
+ported (ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/.
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
 real shard sockets, plus the batch surface the compiled path uses.
@@ -44,10 +45,11 @@ raw ``<i8`` ids and raw fp32 (or opt-in bf16, ``wire_format="bf16"``)
 rows in length-prefixed frames — no base64, no ``repr()`` — while an
 old server's ``err bad-request`` leaves that connection on the line
 protocol (``wire_proto="line"`` never negotiates: the compat
-baseline).  ``pr=`` priority and ``t=`` trace tokens ride the frames
-(header fields + TLVs).  ``spawn_grace_s`` bounds a dial-retry window
-for REFUSED connects — a just-spawned shard process (cluster/procs.py)
-racing its own bind is liveness, not a failure.
+baseline).  ``pr=`` priority, ``sess=`` lease sessions, ``t=`` trace
+tokens and ``inv=`` piggybacks ride the frames (header fields +
+TLVs).  ``spawn_grace_s`` bounds a dial-retry window for REFUSED
+connects — a just-spawned shard process (cluster/procs.py) racing its
+own bind is liveness, not a failure.
 
 Overload control (loadgen/overload.py, docs/loadgen.md): a
 ``breakers`` board keys one circuit breaker per shard: enough
@@ -95,6 +97,22 @@ addresses, no epoch tags, rejections raise.  ``hedge=`` accepts a
 :class:`~..elastic.hedging.Hedger`: pull frames race a budgeted backup
 connection against a slow shard — first answer wins (pulls are
 idempotent; pushes are never hedged).  Retry volume is visible on /metrics as ``client_retries_total{verb,reason}``.
+
+Hot-key lease cache (``hotcache=``, docs/hotcache.md): with a
+:class:`~..hotcache.cache.HotRowCache` and a lease policy attached,
+every ``pull_batch`` is one cache **tick**; rows the cache holds
+within its staleness bound are served locally (zero wire), cold
+misses take the normal pull path (hedged, replica-routed), and HOT
+misses are read via the ``lease`` verb — an atomic read + grant that
+makes the shard queue piggybacked ``inv=`` invalidations when any
+other writer touches the key.  The client strips ``inv=`` tokens from
+every response, invalidates its own pushed ids at push time, clears
+the cache on a membership refresh, and best-effort ``revoke``\\ s its
+session at close.  Leases always route to the PRIMARY and are never
+hedged (the grant is a side effect; a race could double-grant
+harmlessly but would waste budget).  Against a pre-hotcache server the
+first ``err bad-request`` flips the client to plain pulls for good —
+the protocol-versioning downgrade path.
 """
 from __future__ import annotations
 
@@ -375,6 +393,13 @@ def _is_overloaded(resp) -> bool:
     return resp.startswith("err overloaded")
 
 
+def _is_bad_request(resp) -> bool:
+    status = _frame_status(resp)
+    if status is not None:
+        return status == binf.STATUS_BAD_REQUEST
+    return resp.startswith("err bad-request")
+
+
 def _is_follower_reject(resp) -> bool:
     """A replica-chain follower declining a read: lagging past the
     staleness bound, or no longer a follower at all.  The client falls
@@ -400,6 +425,13 @@ class _Rejected(Exception):
         super().__init__(f"{len(ids)} ids rejected ({reason})")
         self.ids = ids
         self.reason = reason
+
+
+class _LeaseUnsupported(Exception):
+    """Internal: the shard answered a ``lease`` frame with
+    ``err bad-request`` — a pre-hotcache server.  The client downgrades
+    to plain pulls for the rest of its life (the versioning contract
+    working in the other direction)."""
 
 
 class _PoolWorker:
@@ -532,6 +564,8 @@ class ClusterClient(ParameterServerClient):
         hedge=None,
         push_hedge=None,
         hotcache=None,
+        lease_policy=None,
+        lease_ttl: int = 16,
         retry_timeout: float = 30.0,
         retry_budget=None,
         breakers=None,
@@ -541,7 +575,6 @@ class ClusterClient(ParameterServerClient):
     ):
         _not_ported = (
             ("push_hedge", push_hedge, "adaptive/"),
-            ("hotcache", hotcache, "hotcache/"),
             ("retry_budget", retry_budget, "loadgen/ (soak)"),
         )
         for knob, value, item in _not_ported:
@@ -653,6 +686,18 @@ class ClusterClient(ParameterServerClient):
         # per-batch idempotence token base: unique per client instance
         self._pid_base = f"{os.getpid():x}.{id(self):x}"
         self._pid_counter = itertools.count()
+        # hot-key lease cache (hotcache/, docs/hotcache.md): attached
+        # here or later via attach_hotcache; None = no caching at all
+        self.hotcache = None
+        self.lease_policy = None
+        self._lease_ttl = int(lease_ttl)
+        self._lease_supported = True
+        self._sess: Optional[str] = None
+        self.leases_acquired = 0  # lease frames answered ok
+        if hotcache is not None:
+            self.attach_hotcache(
+                hotcache, lease_policy, lease_ttl=lease_ttl
+            )
         # distributed tracing (telemetry/distributed.py): with a tracer
         # attached, each pull/push batch becomes one trace, each shard
         # request a child span whose id rides the frame as t=<tr>:<sp>
@@ -762,6 +807,42 @@ class ClusterClient(ParameterServerClient):
         the live pipelining depth (<= window × shards)."""
         return sum(c.inflight for c in list(self._conns.values()))
 
+    # -- hot-key lease cache (hotcache/, docs/hotcache.md) --------------------
+    def attach_hotcache(
+        self, cache, policy=None, *, lease_ttl: int = 16
+    ) -> "ClusterClient":
+        """Attach a :class:`~..hotcache.cache.HotRowCache` (+ lease
+        policy deciding which keys are lease-worthy).  The BSP
+        carve-out is the CALLER's job: a bound-0 worker client must
+        never get a cache (``ClusterDriver`` enforces it — reads must
+        see every previous-round write)."""
+        self.hotcache = cache
+        self.lease_policy = policy
+        self._lease_ttl = int(lease_ttl)
+        self._lease_supported = True
+        # session token: what the shard keys this client's grants and
+        # piggybacked invalidations on (unique per client instance)
+        self._sess = f"c{self._pid_base}"
+        return self
+
+    def _apply_response_options(self, resp):
+        """Apply piggybacked response options (``inv=`` invalidations)
+        to the cache.  Text lines are stripped of their trailing
+        tokens and returned bare; binary frames carry the same payload
+        in a ``T_INV`` TLV and are returned as-is."""
+        from ..hotcache.leases import parse_inv_token, split_response_options
+
+        if isinstance(resp, binf.Frame):
+            inv = resp.tlv_str(binf.T_INV)
+            if inv is not None and self.hotcache is not None:
+                self.hotcache.invalidate(parse_inv_token(inv))
+            return resp
+        body, opts = split_response_options(resp)
+        inv = opts.get("inv")
+        if inv is not None and self.hotcache is not None:
+            self.hotcache.invalidate(parse_inv_token(inv))
+        return body
+
     # -- connections / membership -------------------------------------------
     def _dial(self, addr: Tuple[str, int]) -> ShardConnection:
         """Dial one shard (negotiating the binary framing when
@@ -825,6 +906,11 @@ class ClusterClient(ParameterServerClient):
                 self._conns.pop(addr).close()
         self._addresses = new_addrs
         self._replicas = new_replicas
+        if self.hotcache is not None:
+            # a resharding may have re-homed any cached key: drop
+            # everything (the shards queued inv=* too — this is the
+            # client-side half of the same conservatism)
+            self.hotcache.clear()
         if self._c_refresh is not None:
             self._c_refresh.inc()
         return True
@@ -929,6 +1015,20 @@ class ClusterClient(ParameterServerClient):
         width = int(np.prod(self.value_shape)) if self.value_shape else 1
         flat = np.empty((unique.size, width), dtype)
         todo = unique
+        cache = self.hotcache
+        if cache is not None:
+            # one pull_batch = one cache tick (a worker round / a
+            # serving request); entries within the staleness bound are
+            # served with zero wire, the rest fall through below
+            cache.tick()
+            hits = cache.lookup(unique)
+            if hits:
+                hit_ids = np.fromiter(hits.keys(), np.int64, len(hits))
+                hit_ids.sort()
+                flat[np.searchsorted(unique, hit_ids)] = np.stack(
+                    [hits[int(g)] for g in hit_ids]
+                ).reshape(len(hit_ids), width).astype(dtype)
+                todo = np.setdiff1d(unique, hit_ids, assume_unique=True)
         deadline = time.monotonic() + self.retry_timeout
         attempt = 0
         self._last_retry_sleep = None  # fresh backoff ladder per batch
@@ -978,6 +1078,11 @@ class ClusterClient(ParameterServerClient):
             (ids_arr.size if mask is None else int(np.asarray(mask).sum()))
             - unique.size
         )
+        if self.hotcache is not None:
+            # write-through invalidate: the client's own cached copies
+            # are stale the moment this push applies (other sessions'
+            # copies are the shard lease board's job)
+            self.hotcache.invalidate(unique)
         # quantize ONCE per logical batch (error feedback applied here,
         # never in a retry path): the delivered rows are the
         # dequantized values, identical over every framing and every
@@ -1097,6 +1202,22 @@ class ClusterClient(ParameterServerClient):
         return n
 
     def close(self) -> None:
+        if (
+            self.hotcache is not None
+            and self._sess is not None
+            and self._lease_supported
+        ):
+            # best-effort lease release on live primary connections —
+            # the shard board stops tracking this session; failures
+            # are fine (the board evicts idle sessions on its own)
+            primaries = set(self._addresses)
+            for addr, conn in list(self._conns.items()):
+                if addr not in primaries:
+                    continue
+                try:
+                    conn.request(f"revoke all sess={self._sess}")
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
         for c in list(self._conns.values()):
             c.close()
         self._conns = {}
@@ -1135,6 +1256,10 @@ class ClusterClient(ParameterServerClient):
             # shard-edge guard sheds pr=2 (serving) traffic first and
             # never sheds pr=0
             suffix += f" pr={self._priority}"
+        if self.hotcache is not None and self._sess is not None:
+            # declares a lease-capable session: responses may carry
+            # piggybacked inv= tokens (old servers parse-and-ignore)
+            suffix += f" sess={self._sess}"
         return suffix
 
     def _frame_trace(self, shard: int, name: str, ctx):
@@ -1307,8 +1432,7 @@ class ClusterClient(ParameterServerClient):
             else binf.ENC_F32
         )
 
-    @staticmethod
-    def _bin_tlvs(tok: Optional[str], pid: Optional[str] = None):
+    def _bin_tlvs(self, tok: Optional[str], pid: Optional[str] = None):
         """The frame TLVs mirroring :meth:`_frame_suffix`'s trailing
         tokens (epoch and priority live in the fixed header)."""
         tlvs = []
@@ -1316,10 +1440,14 @@ class ClusterClient(ParameterServerClient):
             tlvs.append((binf.T_TRACE, tok.encode()))
         if pid is not None:
             tlvs.append((binf.T_PID, pid.encode()))
+        if self.hotcache is not None and self._sess is not None:
+            tlvs.append((binf.T_SESS, self._sess.encode()))
         return tlvs
 
-    def _parse_rows_any(self, resp, chunk, shard: int):
-        """One pull response's rows, either framing, length-checked."""
+    def _parse_rows_any(self, resp, chunk, shard: int, what: str = "pull"):
+        """One pull/lease response's rows, either framing,
+        length-checked (a text lease answer's rows are parsed by the
+        lease path itself)."""
         prof = self._profiler
         if isinstance(resp, binf.Frame):
             with prof.timer("pull", "client_parse"):
@@ -1334,11 +1462,172 @@ class ClusterClient(ParameterServerClient):
         if len(vals) != len(chunk):
             raise RuntimeError(
                 f"shard {shard} answered {len(vals)} rows for "
-                f"{len(chunk)} ids (pull)"
+                f"{len(chunk)} ids ({what})"
             )
         return vals
 
     def _pull_shard(
+        self, shard: int, ids: np.ndarray, ctx=None
+    ) -> np.ndarray:
+        """One shard's reads, hot/cold split.  Ids the lease policy
+        marks HOT (all of which already missed the cache) are read via
+        the ``lease`` verb — an atomic read + grant that fills the
+        cache — and the rest via plain ``pull``; both frame kinds go
+        out in ONE pipelined ``request_many`` on the primary, so the
+        hot tier never adds a wire round trip over the plain path.
+        Pure-cold batches keep the full hedged/replica-routed read
+        path.  A reject in either half replays the whole shard set —
+        pulls and leases are both idempotent reads."""
+        cache, policy = self.hotcache, self.lease_policy
+        if cache is None or policy is None or not self._lease_supported:
+            return self._pull_shard_wire(shard, ids, ctx)
+        hot = np.asarray(policy.is_hot(ids), bool)
+        if not hot.any():
+            return self._pull_shard_wire(shard, ids, ctx)
+        out = np.empty(
+            (len(ids),) + self.value_shape, np.float32
+        )
+        try:
+            try:
+                hot_rows, cold_rows = self._lease_pull_shard(
+                    shard, ids[hot], ids[~hot], ctx
+                )
+            except _LeaseUnsupported:
+                # pre-hotcache server: downgrade to plain pulls for the
+                # rest of this client's life (never re-probed)
+                self._lease_supported = False
+                return self._pull_shard_wire(shard, ids, ctx)
+        except _Rejected as r:
+            raise _Rejected(ids, r.reason) from None
+        out[hot] = hot_rows
+        if cold_rows is not None:
+            out[~hot] = cold_rows
+        return out
+
+    def _lease_pull_shard(
+        self,
+        shard: int,
+        hot_ids: np.ndarray,
+        cold_ids: np.ndarray,
+        ctx=None,
+    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``lease`` frames for ``hot_ids`` + ``pull`` frames for
+        ``cold_ids``, pipelined in one request batch on the primary
+        (one round trip); leased rows are installed in the cache at
+        the current tick.  Returns ``(hot_rows, cold_rows-or-None)``;
+        rejects surface as :class:`_Rejected` exactly like pulls."""
+        prof = self._profiler
+        hot_chunks = [
+            hot_ids[i: i + self.chunk]
+            for i in range(0, len(hot_ids), self.chunk)
+        ]
+        cold_chunks = [
+            cold_ids[i: i + self.chunk]
+            for i in range(0, len(cold_ids), self.chunk)
+        ]
+        tok, span_cm, _span_id = self._frame_trace(shard, "lease", ctx)
+        all_ids = np.concatenate([hot_ids, cold_ids])
+        hot_rows: List[np.ndarray] = []
+        cold_rows: List[np.ndarray] = []
+        rejected = False
+        reject_reason = "reject"
+
+        def build(conn) -> List:
+            if conn.proto != "line":
+                enc = self._bin_enc()
+                tlvs = self._bin_tlvs(tok)
+                lease_tlvs = [
+                    (binf.T_TTL, str(self._lease_ttl).encode())
+                ] + tlvs
+                return [
+                    binf.encode_request(
+                        binf.VERB_IDS["lease"], ids=c, enc=enc,
+                        epoch=self._epoch, priority=self._priority,
+                        tlvs=lease_tlvs,
+                    )
+                    for c in hot_chunks
+                ] + [
+                    binf.encode_request(
+                        binf.VERB_IDS["pull"], ids=c, enc=enc,
+                        epoch=self._epoch, priority=self._priority,
+                        tlvs=tlvs,
+                    )
+                    for c in cold_chunks
+                ]
+            suffix = self._frame_suffix() + (
+                " t=" + tok if tok is not None else ""
+            )
+            enc_tok = " text" if self.wire_format == "text" else " b64"
+            return [
+                "lease " + ",".join(str(int(i)) for i in c)
+                + enc_tok + f" ttl={self._lease_ttl}" + suffix
+                for c in hot_chunks
+            ] + [
+                "pull " + ",".join(str(int(i)) for i in c)
+                + enc_tok + suffix
+                for c in cold_chunks
+            ]
+
+        with span_cm:
+            t0 = time.perf_counter()
+            resps = self._request_frames(
+                shard, all_ids, build, hedgeable=False
+            )
+            per = (time.perf_counter() - t0) / max(1, len(resps))
+            for _ in resps:
+                if self._h_rtt is not None:
+                    self._h_rtt.observe(per)
+                prof.observe("pull", "rtt", per)
+            self._observe_shard_rtt(shard, per, len(resps))
+            n_hot = len(hot_chunks)
+            for i, (resp, c) in enumerate(zip(
+                resps, hot_chunks + cold_chunks
+            )):
+                is_lease = i < n_hot
+                what = "lease" if is_lease else "pull"
+                resp = self._apply_response_options(resp)
+                self._check_shed(resp, shard, what)
+                if _is_reject(resp) and self.membership is not None:
+                    rejected = True
+                    reject_reason = _reject_reason(resp)
+                    continue
+                if is_lease and _is_bad_request(resp):
+                    raise _LeaseUnsupported(_describe(resp))
+                _check_ok(resp, f"{what} shard {shard}")
+                if isinstance(resp, binf.Frame) or not is_lease:
+                    vals = self._parse_rows_any(resp, c, shard, what)
+                else:
+                    # text lease answer: ok n=<k> seq=<q> ttl=<r> <body>
+                    parts = resp.split(" ", 4)
+                    if len(parts) < 5:
+                        raise RuntimeError(
+                            f"shard {shard} lease answer malformed: "
+                            f"{resp!r}"
+                        )
+                    with prof.timer("pull", "client_parse"):
+                        vals = parse_rows(parts[4], self.value_shape)
+                    if len(vals) != len(c):
+                        raise RuntimeError(
+                            f"shard {shard} answered {len(vals)} rows "
+                            f"for {len(c)} ids"
+                        )
+                if is_lease:
+                    self.hotcache.fill(c, vals)
+                    self.leases_acquired += len(c)
+                    hot_rows.append(vals)
+                else:
+                    cold_rows.append(vals)
+        if rejected:
+            raise _Rejected(all_ids, reject_reason)
+        hot_out = np.concatenate(hot_rows) if hot_rows else np.empty(
+            (0,) + self.value_shape, np.float32
+        )
+        cold_out = (
+            np.concatenate(cold_rows) if cold_rows else None
+        )
+        return hot_out, cold_out
+
+    def _pull_shard_wire(
         self, shard: int, ids: np.ndarray, ctx=None
     ) -> np.ndarray:
         chunks = [
@@ -1407,6 +1696,10 @@ class ClusterClient(ParameterServerClient):
                 prof.observe("pull", "client_serialize", ser_cell[0])
             self._observe_shard_rtt(shard, per, len(resps))
             for resp, c in zip(resps, chunks):
+                if self.hotcache is not None:
+                    # piggybacked inv= tokens ride any response to a
+                    # lease-capable session — strip and apply first
+                    resp = self._apply_response_options(resp)
                 self._check_shed(resp, shard, "pull")
                 if _is_reject(resp) and self.membership is not None:
                     rejected = True
@@ -1537,6 +1830,8 @@ class ClusterClient(ParameterServerClient):
         rejected: List[np.ndarray] = []
         reject_reason = "reject"
         for resp, c_ids in zip(resps, chunks):
+            if self.hotcache is not None:
+                resp = self._apply_response_options(resp)
             self._check_shed(resp, shard, "push")
             if _is_reject(resp) and self.membership is not None:
                 rejected.append(c_ids)

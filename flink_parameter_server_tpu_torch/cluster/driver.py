@@ -8,10 +8,12 @@ CPU): each round's microbatch goes to the device through
 it is (PyTorch runs eagerly; nothing is compiled), and what crosses the
 socket wire is copied to and from the host explicitly.  Under the mesh
 backend the pulled rows are already on the device and the step's push
-goes to the device table without a host round trip.  The knobs that lead
-into modules not ported yet (``hot_cache``, ``adaptive``,
-``wire_proto="shm"``, ``store_backend="tiered"``) raise
-``NotImplementedError`` naming their ROADMAP item.  The elastic driver
+goes to the device table without a host round trip.  ``hot_cache=True``
+gives each SSP / async worker client a hot-key lease cache (host rows,
+as the wire's are; ``hotcache/``).  The knobs that lead into modules not
+ported yet (``adaptive``, ``wire_proto="shm"``,
+``store_backend="tiered"``) raise ``NotImplementedError`` naming their
+ROADMAP item.  The elastic driver
 (``elastic/controller.py``) subclasses this one and reuses
 :meth:`ClusterDriver._build_shard` for its spin-ups and replacements.
 
@@ -175,9 +177,19 @@ class ClusterConfig:
     # process-wide aggregator as shard-<id> (shard processes get none)
     hot_keys: bool = False
     hot_key_k: int = 32
-    # the hot-key lease cache (hotcache/ cache, policy): True raises
-    # until it is ported (ROADMAP Queue 1 #7)
+    # hot-key lease cache (hotcache/, docs/hotcache.md): per-worker
+    # client-edge caches whose lease grants the live sketches drive
+    # (hot_cache=True implies hot_keys).  BSP carve-out: bound-0
+    # worker clients NEVER get a cache — reads must see every
+    # previous-round write, and the driver enforces it here rather
+    # than trusting each call site.
     hot_cache: bool = False
+    hot_cache_capacity: int = 1024
+    # max cached-entry age in ticks (1 tick = 1 pull_batch = 1 worker
+    # round); None derives it: the SSP staleness bound, or 8 for async
+    hot_cache_bound: Optional[int] = None
+    hot_cache_top_n: int = 32
+    hot_cache_lease_ttl: int = 16
     # latency-budget profiler (telemetry/profiler.py): per-phase cost
     # attribution on every pull/push round (client serialize → wire →
     # queue wait → WAL → scatter → serialize → parse).  On by default —
@@ -287,7 +299,6 @@ class ClusterDriver:
                     f"can align to it (meshstore/layout.py)"
                 )
         _not_ported = (
-            ("hot_cache", cfg.hot_cache, "hotcache cache/policy"),
             ("adaptive", cfg.adaptive, "adaptive/"),
             ("wire_proto='shm'", cfg.wire_proto == "shm", "shmem/"),
         )
@@ -341,6 +352,11 @@ class ClusterDriver:
         self.client_tracer = None
         self.shard_tracers: List = []
         self._hotkey_labels: List[str] = []
+        self._hotcache_labels: List[str] = []
+        # hot_cache lease grants are sketch-driven: without the
+        # measurement there is nothing to lease
+        if self.config.hot_cache:
+            self.config.hot_keys = True
 
     # -- lifecycle ---------------------------------------------------------
     def _wal_dir_for(self, shard_id: int) -> Optional[str]:
@@ -540,7 +556,7 @@ class ClusterDriver:
             "q8", "bf16"
         ):
             wire_format = "b64"
-        return ClusterClient(
+        client = ClusterClient(
             [(srv.host, srv.port) for srv in self.servers],
             self.partitioner,
             self.value_shape,
@@ -558,6 +574,46 @@ class ClusterDriver:
             tracer=self.client_tracer,
             profiler=None if cfg.profile else False,
         )
+        self._attach_hot_cache(client, worker)
+        return client
+
+    def _attach_hot_cache(self, client, worker: Optional[str]) -> None:
+        """Attach the hot-key lease cache to a worker client — UNLESS
+        the clock is BSP (bound 0): a cached read of any age > 0 would
+        miss previous-round writes and break the parity guarantee, so
+        bound-0 clients always bypass (the carve-out table in
+        docs/hotcache.md)."""
+        cfg = self.config
+        if not cfg.hot_cache or cfg.staleness_bound == 0:
+            return
+        from ..hotcache import (
+            HotRowCache,
+            LeasePolicy,
+            register_cache,
+        )
+        from ..telemetry.hotkeys import get_aggregator
+
+        bound = cfg.hot_cache_bound
+        if bound is None:
+            bound = (
+                cfg.staleness_bound
+                if cfg.staleness_bound is not None else 8
+            )
+        cache = HotRowCache(
+            bound,
+            capacity=cfg.hot_cache_capacity,
+            registry=self.registry if self.registry is not None else False,
+            worker=worker,
+        )
+        client.attach_hotcache(
+            cache,
+            LeasePolicy(get_aggregator(), top_n=cfg.hot_cache_top_n),
+            lease_ttl=cfg.hot_cache_lease_ttl,
+        )
+        label = f"worker-{worker}" if worker is not None else "client"
+        register_cache(label, cache)
+        if label not in self._hotcache_labels:
+            self._hotcache_labels.append(label)
 
     def trace_rings(self) -> List:
         """Every per-process span ring this topology records into
@@ -590,6 +646,12 @@ class ClusterDriver:
             for label in self._hotkey_labels:
                 agg.unregister(label)
             self._hotkey_labels = []
+        if self._hotcache_labels:
+            from ..hotcache import unregister_cache
+
+            for label in self._hotcache_labels:
+                unregister_cache(label)
+            self._hotcache_labels = []
 
     def __enter__(self) -> "ClusterDriver":
         return self.start()
@@ -859,6 +921,11 @@ class ClusterDriver:
         :meth:`~..core.store.ShardedParamStore.values`."""
         client = self._clients[0] if self._clients else self._make_client()
         try:
+            if client.hotcache is not None:
+                # the dump is the table of record: drop any cached rows
+                # so every id is read fresh from its shard (leases are
+                # re-granted in passing, which is harmless)
+                client.hotcache.clear()
             # to_host: the mesh client returns the device tensor
             return to_host(client.pull_batch(
                 np.arange(self.capacity, dtype=np.int64)

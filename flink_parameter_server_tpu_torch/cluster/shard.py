@@ -27,11 +27,12 @@ slice tensor on the shard's device and drop the host mirror; a follower's
 slice sits on its device like a primary's and applies each shipped record
 through the same scatter.  With a hot-key sketch attached (``hotkeys=``,
 ``telemetry/hotkeys.py``) every pull and push observes its host id array
-inside the lock, before any card work.  The hot-key cache's ``lease`` /
-``revoke`` and the piggybacked ``inv=`` invalidations wait for hotcache/
-(ROADMAP Queue 1 #7): until then those verbs answer ``err bad-request``
-and their option tokens (``sess=``) are parsed and ignored, as an older
-reference server treats them.
+inside the lock, before any card work.  The hot-key lease board
+(``hotcache/leases.py``) is the reference's: ``lease`` reads its rows and
+grants under one lock acquisition, copying them off the card (a mirror
+rebuild when a push dropped it) under the same lock that reads the
+answered ``seq``; every write path (push, a migration load) notes its
+host ids on the board, and an epoch flip or a restart queues drop-all.
 
 This is the reference's PS subtask made a real process boundary: shard
 ``s`` owns exactly the rows ``partitioner.owned_ids(s)`` as a dense
@@ -58,6 +59,10 @@ it)::
 
     pull <id1,id2,...> [text|b64] [e=<n>] [t=<tok>]  # ids + answer format
     push <id1,id2,...> <payload> [pid=<t>] [e=<n>] [t=<tok>]  # deltas
+    lease <id1,id2,...> [text|b64] sess=<s> [ttl=<r>] [e=<n>]
+                                             # atomic read + lease grant
+                                             # (hotcache/, docs/hotcache.md)
+    revoke <id1,id2,...|all> sess=<s>        # client releases its leases
     xfer <id1,id2,...> [t=<tok>]             # atomic (rows, seq) snapshot
     load <id1,id2,...> <payload>             # row ASSIGNMENT (migration)
     repl <b64-frame> [head=<n>]              # one shipped WAL record
@@ -67,6 +72,8 @@ it)::
 
     ok n=<k> <payload>                    # pull answer
     ok applied=<k> seq=<n>                # push answer
+    ok n=<k> seq=<q> ttl=<r> <payload>    # lease answer (rows as-of seq)
+    ok revoked=<k>                        # revoke answer
     ok n=<k> seq=<s> <payload>            # xfer answer (always b64)
     ok loaded=<k> seq=<n>                 # load answer
     ok acked seg=<s> seq=<n>              # repl answer (the follower ack:
@@ -85,6 +92,16 @@ mid-flight), and answered ``err stale-epoch`` when they don't.  During a
 key migration the moving range is FROZEN: pushes touching it get ``err
 frozen`` (retry shortly — the flip is imminent); pulls and pushes of
 non-moving keys never block.
+
+Hot-key leases (hotcache/, docs/hotcache.md): a frame carrying
+``sess=<token>`` declares a lease-capable client session.  ``lease``
+answers rows AND registers the session's lease (atomically, as-of
+the answered ``seq``); a later push by any OTHER session to a leased
+key queues an invalidation that piggybacks on the session's next answer
+as a trailing ``inv=<id1,id2,...>`` token (``inv=*`` = drop
+everything).  Frames without ``sess=`` never get ``inv=``, so older
+clients see nothing they cannot parse.  The lease board is in-memory and
+best-effort by design: the client-side staleness bound is the contract.
 
 Exactly-once pushes: a frame carrying ``pid=<token>`` is deduplicated per
 ``(pid, id)`` against a bounded window that survives crashes (the pairs
@@ -367,9 +384,16 @@ class ParamShard:
             # and per-push fsyncs would dominate small-push latency
             self._wal = UpdateWAL(wal_dir, fsync_every=wal_fsync_every)
         # hot-key analytics (telemetry/hotkeys.py): with a sketch
-        # attached, every pulled/pushed id batch is observed — the
-        # host int64 ids, before any card work, never a device tensor
+        # attached, every pulled/pushed/leased id batch is observed —
+        # the host int64 ids, before any card work, never a device tensor
         self.hotkeys = hotkeys
+        # hot-key lease board (hotcache/leases.py): grants per client
+        # session + the piggybacked invalidation queues.  In-memory and
+        # best-effort — the client-side staleness bound is the safety
+        # net (docs/hotcache.md)
+        from ..hotcache.leases import LeaseBoard
+
+        self.leases = LeaseBoard(shard=self.shard_id, registry=registry)
         # latency-budget phases (telemetry/profiler.py): lock wait =
         # server_queue_wait (concurrent connections serialize on this
         # shard's lock), WAL append, scatter/apply — the server side of
@@ -676,6 +700,57 @@ class ParamShard:
                 self._c_pulls.inc()
             return vals
 
+    # -- hot-key leases (hotcache/, docs/hotcache.md) -------------------------
+    def lease_rows(
+        self,
+        global_ids: np.ndarray,
+        sess: str,
+        *,
+        epoch: Optional[int] = None,
+        ttl: Optional[int] = None,
+    ) -> Tuple[np.ndarray, int, int]:
+        """ATOMIC read + lease grant (the ``lease`` verb): the returned
+        ``(rows, seq, ttl)`` rows are exactly the state at push
+        sequence ``seq``, and from this moment any OTHER session's
+        write to these keys queues a piggybacked invalidation for
+        ``sess``.  One lock acquisition covers read + grant, so a write
+        can never slip between them unobserved; with the slice on the
+        card, the rows are copied off it (a mirror rebuild when a push
+        dropped the mirror) inside that same acquisition.  ``ttl`` is
+        advisory (capped server-side); the client's staleness bound is
+        the enforced contract."""
+        if not sess:
+            raise ValueError("lease needs a sess=<token> option")
+        granted_ttl = min(int(ttl), 256) if ttl else 16
+        if granted_ttl < 1:
+            raise ValueError(f"ttl={ttl}: must be >= 1")
+        prof = self._profiler
+        t_wait = time.perf_counter()
+        with self._lock:
+            prof.observe(
+                "pull", "server_queue_wait",
+                time.perf_counter() - t_wait,
+            )
+            self._check_alive()
+            ids = np.asarray(global_ids, np.int64)
+            local = self._route(ids, epoch)
+            if self.hotkeys is not None:
+                self.hotkeys.observe(ids)
+            with prof.timer("pull", "scatter_apply"):
+                vals = self._rows(local).copy()
+            self.pulls_served += 1
+            self.leases.grant(sess, ids)
+            if self._c_pulls is not None:
+                self._c_pulls.inc()
+            return vals, self._push_seq, granted_ttl
+
+    def revoke_leases(self, sess: str, global_ids=None) -> int:
+        """Client-requested release (the ``revoke`` verb); ``None`` ids
+        releases the whole session (client shutdown)."""
+        if not sess:
+            raise ValueError("revoke needs a sess=<token> option")
+        return self.leases.revoke(sess, global_ids)
+
     def push(
         self,
         global_ids: np.ndarray,
@@ -683,12 +758,17 @@ class ParamShard:
         *,
         epoch: Optional[int] = None,
         pid: Optional[str] = None,
+        sess: Optional[str] = None,
     ) -> int:
         """WRITE-AHEAD then apply; returns the shard's push sequence
         number after this push.  ``epoch`` fences against stale maps
         (old-epoch writes are rejected, never absorbed); ``pid`` makes
         the push idempotent per ``(pid, id)`` — the already-applied
-        subset of a retried frame is acked without re-applying."""
+        subset of a retried frame is acked without re-applying.
+        ``sess`` names the writer's lease session so its own leases are
+        not invalidation-queued (it invalidated locally at push time;
+        every OTHER holder of a written key gets a piggybacked
+        ``inv=``)."""
         prof = self._profiler
         t_wait = time.perf_counter()
         with self._lock:
@@ -732,6 +812,11 @@ class ParamShard:
             with prof.timer("push", "scatter_apply"):
                 self._apply(ids, deltas)
             self.rows_applied += int(len(ids))
+            # lease invalidation rides the write path: every other
+            # session holding a lease on a written key gets an inv=
+            # queued (board lock nests strictly under the shard lock;
+            # the board takes the host ids, never a device tensor)
+            self.leases.note_write(ids, writer=sess)
             if pid is not None:
                 self._remember_pairs(pid, ids)
             if self._c_pushes is not None:
@@ -804,6 +889,9 @@ class ParamShard:
             self._push_seq += 1
             self._assign(ids, values)
             self.loads_applied += int(len(ids))
+            # a migration load rewrites rows out-of-band of push: any
+            # lease on them is now serving a superseded value
+            self.leases.note_write(ids)
             return self._push_seq
 
     def freeze(self, global_ids) -> None:
@@ -863,6 +951,9 @@ class ParamShard:
             self._staged = {}
             self._frozen = None
             self.epoch = int(epoch)
+            # a resharding may re-home leased keys: queue drop-all for
+            # every session (clients also clear on membership refresh)
+            self.leases.drop_all()
             if self._wal is not None:
                 barrier = self._push_seq
                 payload = {
@@ -1024,6 +1115,10 @@ class ParamShard:
             self.pushes_applied = 0
             self._build()
             replayed = self._replay() if self._wal is not None else 0
+            # the board did not see writes replayed from the WAL —
+            # conservatively drop every remembered session's leases
+            # (holders fall back to their local staleness bound)
+            self.leases.drop_all()
             self.restarts += 1
             if self._c_restarts is not None:
                 self._c_restarts.inc()
@@ -1059,6 +1154,9 @@ class ParamShard:
                 "backend": self._backend,
                 "mirror_rebuilds": self.mirror_rebuilds,
                 "mirror_rebuild_s": self.mirror_rebuild_s,
+                # hot-key lease board depth (hotcache/, psctl hot)
+                "lease_sessions": self.leases.sessions(),
+                "leases_active": self.leases.active_leases(),
             }
 
     def close(self) -> None:
@@ -1207,8 +1305,9 @@ class ShardServer(LineServer):
     @staticmethod
     def _parse_opts(toks) -> dict:
         """Trailing ``key=value`` option tokens (``e=<epoch>``,
-        ``pid=<token>``; ``t=`` and ``pr=`` are read elsewhere, and
-        ``sess=`` is ignored until hotcache/ is ported)."""
+        ``pid=<token>``, ``sess=<token>``, ``ttl=<rounds>``; ``t=`` and
+        ``pr=`` are read elsewhere, and unknown keys parse and are
+        ignored)."""
         opts = {}
         for t in toks:
             k, sep, v = t.partition("=")
@@ -1254,6 +1353,19 @@ class ShardServer(LineServer):
         with tr.span(f"shard.{cmd}", "cluster", **kwargs):
             return self._execute(line)
 
+    def _with_inv(self, resp: str, opts: dict) -> str:
+        """Piggyback pending lease invalidations for the frame's
+        session as a trailing ``inv=`` token (docs/hotcache.md).  Only
+        frames that declared ``sess=`` ever get one, so pre-hotcache
+        clients never see a token they cannot parse."""
+        sess = opts.get("sess")
+        if sess is None:
+            return resp
+        inv = self.shard.leases.take_invalidations(sess)
+        if inv:
+            resp += f" inv={inv}"
+        return resp
+
     def _execute(self, line: str) -> str:
         toks = line.split()
         cmd = toks[0].lower()
@@ -1290,7 +1402,7 @@ class ShardServer(LineServer):
             vals = self.shard.pull(ids, epoch=opts.get("e"))
             with self.profiler.timer("pull", "response_serialize"):
                 body = format_rows(vals, enc)
-            return f"ok n={len(ids)} {body}"
+            return self._with_inv(f"ok n={len(ids)} {body}", opts)
         if cmd == "push":
             if len(toks) < 3:
                 raise ValueError(
@@ -1306,8 +1418,52 @@ class ShardServer(LineServer):
             opts = self._parse_opts(toks[3:])
             seq = self.shard.push(
                 ids, deltas, epoch=opts.get("e"), pid=opts.get("pid"),
+                sess=opts.get("sess"),
             )
-            return f"ok applied={len(ids)} seq={seq}"
+            return self._with_inv(f"ok applied={len(ids)} seq={seq}", opts)
+        if cmd == "lease":
+            # atomic read + lease grant (hotcache/, docs/hotcache.md):
+            # answered rows are exactly the state at the answered seq
+            if len(toks) < 2:
+                raise ValueError(
+                    "usage: lease <id1,id2,...> [text|b64] sess=<token> "
+                    "[ttl=<rounds>] [e=<epoch>]"
+                )
+            rest = toks[2:]
+            enc = "text"
+            if rest and rest[0].lower() in ("text", "b64"):
+                enc = rest[0].lower()
+                rest = rest[1:]
+            elif rest and "=" not in rest[0]:
+                raise ValueError(
+                    f"lease format {rest[0]!r}: 'text' | 'b64'"
+                )
+            opts = self._parse_opts(rest)
+            ids = parse_ids(toks[1])
+            ttl = opts.get("ttl")
+            if ttl is not None:
+                try:
+                    ttl = int(ttl)
+                except ValueError:
+                    raise ValueError(
+                        f"ttl={ttl!r}: must be an integer"
+                    ) from None
+            vals, seq, ttl = self.shard.lease_rows(
+                ids, opts.get("sess"), epoch=opts.get("e"), ttl=ttl,
+            )
+            body = format_rows(vals, enc)
+            return self._with_inv(
+                f"ok n={len(ids)} seq={seq} ttl={ttl} {body}", opts
+            )
+        if cmd == "revoke":
+            if len(toks) < 2:
+                raise ValueError(
+                    "usage: revoke <id1,id2,...|all> sess=<token>"
+                )
+            opts = self._parse_opts(toks[2:])
+            ids = None if toks[1].lower() == "all" else parse_ids(toks[1])
+            n = self.shard.revoke_leases(opts.get("sess"), ids)
+            return f"ok revoked={n}"
         if cmd == "xfer":
             if len(toks) < 2:
                 raise ValueError("usage: xfer <id1,id2,...> [t=<token>]")
@@ -1359,7 +1515,7 @@ class ShardServer(LineServer):
             return "ok " + json.dumps(self.shard.stats())
         raise ValueError(
             f"unknown command {cmd!r} "
-            f"(pull|push|xfer|load|repl|replstate|flush|stats)"
+            f"(pull|push|lease|revoke|xfer|load|repl|replstate|flush|stats)"
         )
 
     # -- the binary frame protocol (utils/frames.py) -------------------------
@@ -1487,6 +1643,15 @@ class ShardServer(LineServer):
             else binf.ENC_F32
         )
 
+    def _inv_tlvs(self, sess: Optional[str]) -> list:
+        """Piggybacked lease invalidations as a response TLV — only
+        for frames that declared a session, exactly like the line
+        protocol's trailing ``inv=`` token (docs/hotcache.md)."""
+        if sess is None:
+            return []
+        inv = self.shard.leases.take_invalidations(sess)
+        return [] if not inv else [(binf.T_INV, inv.encode())]
+
     def _execute_frame(self, req) -> bytes:
         """The binary dispatch: same verbs, same shard methods, no
         text — ids arrive as raw ``<i8``, rows as raw ``<f4``/bf16
@@ -1495,6 +1660,7 @@ class ShardServer(LineServer):
         shard = self.shard
         verb = req.verb
         epoch = None if req.aux == binf.NO_EPOCH else int(req.aux)
+        sess = req.tlv_str(binf.T_SESS)
         if verb == binf.VERB_IDS["pull"]:
             with self.profiler.timer("pull", "server_parse"):
                 ids = self._frame_ids(req)
@@ -1504,6 +1670,7 @@ class ShardServer(LineServer):
                 resp = binf.encode_response(
                     verb, n=int(ids.size), enc=enc,
                     payload=binf.rows_to_payload(vals, enc),
+                    tlvs=self._inv_tlvs(sess),
                 )
             return resp
         if verb == binf.VERB_IDS["push"]:
@@ -1530,13 +1697,31 @@ class ShardServer(LineServer):
                     f"{len(ids)} ids but {len(deltas)} delta rows"
                 )
             seq = shard.push(
-                ids, deltas, epoch=epoch, pid=req.tlv_str(binf.T_PID),
+                ids, deltas, epoch=epoch,
+                pid=req.tlv_str(binf.T_PID), sess=sess,
             )
             with self.profiler.timer("push", "response_serialize"):
                 resp = binf.encode_response(
                     verb, aux=seq, n=int(ids.size), enc=binf.ENC_RAW,
+                    tlvs=self._inv_tlvs(sess),
                 )
             return resp
+        if verb == binf.VERB_IDS["lease"]:
+            ids = self._frame_ids(req)
+            vals, seq, ttl = shard.lease_rows(
+                ids, sess, epoch=epoch, ttl=req.tlv_int(binf.T_TTL),
+            )
+            enc = self._row_enc(req)
+            return binf.encode_response(
+                verb, aux=seq, n=int(ids.size), enc=enc,
+                payload=binf.rows_to_payload(vals, enc),
+                tlvs=[(binf.T_TTL, str(ttl).encode())]
+                + self._inv_tlvs(sess),
+            )
+        if verb == binf.VERB_IDS["revoke"]:
+            ids = None if req.n == 0 else self._frame_ids(req)
+            n = shard.revoke_leases(sess, ids)
+            return binf.encode_response(verb, n=n, enc=binf.ENC_RAW)
         if verb == binf.VERB_IDS["xfer"]:
             ids = self._frame_ids(req)
             vals, seq = shard.snapshot_rows(ids)

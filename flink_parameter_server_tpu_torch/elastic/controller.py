@@ -147,7 +147,7 @@ class ElasticClusterDriver(ClusterDriver):
                     self.registry if self.registry is not None else False
                 ),
             )
-        return ClusterClient(
+        client = ClusterClient(
             value_shape=self.value_shape,
             window=cfg.window,
             chunk=cfg.chunk,
@@ -163,6 +163,10 @@ class ElasticClusterDriver(ClusterDriver):
             tracer=self.client_tracer,
             profiler=None if cfg.profile else False,
         )
+        # same hot-key lease cache wiring (and BSP carve-out) as the
+        # static driver — cluster/driver.py _attach_hot_cache
+        self._attach_hot_cache(client, worker)
+        return client
 
     def stop(self) -> None:
         with self._resize_lock:

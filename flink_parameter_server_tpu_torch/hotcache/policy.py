@@ -1,0 +1,150 @@
+"""Lease policies — which keys are worth a lease?
+
+A copy of ``flink_parameter_server_tpu/hotcache/policy.py``, over the
+port's :mod:`..telemetry.hotkeys`: the refresh reads the aggregator's
+host-only ``candidates`` path, so no lease decision waits on the card.
+
+A lease only pays when the key is read again before the bound expires,
+so grants are driven by the live hot-key measurement PR 6 built
+(:mod:`..telemetry.hotkeys`): :class:`LeasePolicy` reads the sketch
+top-K (a single :class:`~..telemetry.hotkeys.HotKeySketch` or the
+process-wide cross-shard :class:`~..telemetry.hotkeys.HotKeyAggregator`)
+on a refresh cadence and marks those keys leaseable.  With the
+sketches' windowed decay on (``HotKeySketch(decay_window=...)``), the
+hot set tracks *current* skew instead of fossilizing on early-epoch
+keys — the popularity-shift regression in tests/test_hotcache.py pins
+that.
+
+:class:`StaticHotSet` is the deterministic variant (tests, the
+nemesis mid-lease schedule, workloads whose hot set is known a
+priori).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+
+class StaticHotSet:
+    """A fixed leaseable id set — deterministic policy for tests and
+    known-hot workloads."""
+
+    def __init__(self, ids):
+        self._ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+
+    def hot_keys(self) -> np.ndarray:
+        return self._ids
+
+    def is_hot(self, ids) -> np.ndarray:
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if self._ids.size == 0:
+            return np.zeros(ids.size, bool)
+        pos = np.searchsorted(self._ids, ids)
+        return (pos < self._ids.size) & (
+            self._ids[np.minimum(pos, self._ids.size - 1)] == ids
+        )
+
+
+class LeasePolicy:
+    """Sketch-driven lease policy: the current top-``top_n`` keys whose
+    estimated count is at least ``min_count`` are leaseable.
+
+    ``source`` is anything with ``top_k(n) -> [{"key", "count", ...}]``
+    — a :class:`~..telemetry.hotkeys.HotKeySketch` or the process
+    :class:`~..telemetry.hotkeys.HotKeyAggregator`.  The hot set is
+    re-derived at most every ``refresh_s`` seconds (sketch reads merge
+    and sort — cheap, but not per-request cheap)."""
+
+    def __init__(
+        self,
+        source,
+        *,
+        top_n: int = 32,
+        min_count: int = 4,
+        refresh_s: float = 0.25,
+        async_refresh: bool = True,
+    ):
+        if top_n < 1:
+            raise ValueError(f"top_n={top_n}: must be >= 1")
+        self.source = source
+        self.top_n = int(top_n)
+        self.min_count = int(min_count)
+        self.refresh_s = float(refresh_s)
+        # asynchronous refresh (the default): a due re-derive runs on a
+        # short-lived background thread while is_hot answers from the
+        # current hot set — the sketch merge + top-K selection is
+        # ms-scale and must never ride a serving request's tail
+        self.async_refresh = bool(async_refresh)
+        self._lock = threading.Lock()
+        self._hot = np.zeros(0, np.int64)
+        self._last_refresh: Optional[float] = None
+        self._refreshing = False
+        self.refreshes = 0
+
+    def refresh(self) -> np.ndarray:
+        """Synchronously re-derive the hot set from the sketch.
+
+        Prefers the source's device-free ``candidates`` path
+        (``HotKeyAggregator.candidates``) over ``top_k``: the refresh
+        runs next to serving hot paths, and a device dispatch holds
+        the GIL for milliseconds (the reference measured it as the
+        on-arm p99 tail of its hot-key storm benchmark)."""
+        fetch = getattr(self.source, "candidates", None)
+        if fetch is None:
+            fetch = self.source.top_k
+        try:
+            top = fetch(self.top_n)
+        except Exception:  # a broken sketch must not fail a pull
+            top = []
+        keys = np.unique(np.asarray(
+            [int(d["key"]) for d in top
+             if int(d.get("count", 0)) >= self.min_count],
+            np.int64,
+        ))
+        with self._lock:
+            self._hot = keys
+            self._last_refresh = time.monotonic()
+            self._refreshing = False
+            self.refreshes += 1
+        return keys
+
+    def _maybe_refresh(self) -> np.ndarray:
+        with self._lock:
+            hot = self._hot
+            last = self._last_refresh
+            due = (
+                last is None
+                or time.monotonic() - last >= self.refresh_s
+            )
+            if due and self.async_refresh:
+                if self._refreshing:
+                    return hot  # one in flight already
+                self._refreshing = True
+        if not due:
+            return hot
+        if not self.async_refresh:
+            return self.refresh()
+        threading.Thread(
+            target=self.refresh, name="hotcache-policy-refresh",
+            daemon=True,
+        ).start()
+        return hot
+
+    def hot_keys(self) -> np.ndarray:
+        return self._maybe_refresh()
+
+    def is_hot(self, ids) -> np.ndarray:
+        hot = self._maybe_refresh()
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if hot.size == 0:
+            return np.zeros(ids.size, bool)
+        pos = np.searchsorted(hot, ids)
+        return (pos < hot.size) & (
+            hot[np.minimum(pos, hot.size - 1)] == ids
+        )
+
+
+__all__ = ["LeasePolicy", "StaticHotSet"]

@@ -4,9 +4,10 @@ Of the reference's ``loadgen/`` only ``overload.py`` is ported so far: the
 client's typed shed error (``OverloadedError``), the circuit breakers a
 user can attach to a client and the ``OverloadGuard`` a shard server
 takes.  The module is the reference's whole: its retry budget serves the
-soak harness and its brownout the hot cache, which wait for the rest of
-loadgen/ and hotcache/; the arrival schedules, the Zipf population and
-the soak runner are ROADMAP Queue 1 #7 too.
+soak harness, which waits for the rest of loadgen/, and its brownout
+widens the hot cache's staleness bound (``hotcache/``); the arrival
+schedules, the Zipf population and the soak runner are ROADMAP Queue 1
+#7 too.
 """
 from .overload import (
     PRIORITY_CRITICAL,

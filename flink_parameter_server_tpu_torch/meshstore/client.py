@@ -44,6 +44,7 @@ class MeshClient(ParameterServerClient):
     ):
         self.store = store
         self.worker = worker
+        self.hotcache = None  # never cached: reads are device-fresh
         self.outputs: list = []
         self.pulls_coalesced = 0  # structural: the gather dedupes
         self.pushes_coalesced = 0  # structural: the scatter combines

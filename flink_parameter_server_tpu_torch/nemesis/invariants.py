@@ -1,13 +1,16 @@
-"""Cluster invariants — the final-table verdicts.
+"""Cluster invariants — the final-table verdicts and the lease and lock
+checks.
 
-Of the reference's ``nemesis/invariants.py`` only the verdicts a workload
-is judged by are ported: :class:`Verdict`, the exactly-once ledger audit
-(:func:`check_exactly_once`) and the three parity modes
+Of the reference's ``nemesis/invariants.py`` these are ported:
+:class:`Verdict`, :func:`check_no_errors`, the exactly-once ledger audit
+(:func:`check_exactly_once`), the three parity modes
 (:func:`check_parity`, :func:`check_parity_bitwise`,
-:func:`check_count_parity`).  They are copies of the reference's
+:func:`check_count_parity`), the hot-key cache's staleness contract
+(:func:`check_lease_staleness`) and the lock witness's verdict
+(:func:`check_lock_inversions`).  They are copies of the reference's
 functions, which import no JAX.  The live samplers (staleness, adaptive
-bound, tier residency), the serving-budget, lease, lock and thread-leak
-checks wait for ROADMAP Queue 1 #7's ``nemesis/`` item.
+bound, tier residency), the serving-budget, tier and thread-leak checks
+wait for ROADMAP Queue 1 #7's ``nemesis/`` item.
 
 Why each is the right oracle:
 
@@ -25,6 +28,7 @@ Why each is the right oracle:
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -40,6 +44,14 @@ class Verdict:
 
     def as_dict(self) -> dict:
         return {"name": self.name, "ok": self.ok, "detail": self.detail}
+
+
+def check_no_errors(errors: Sequence[str]) -> Verdict:
+    return Verdict(
+        "no_errors",
+        not errors,
+        "clean run" if not errors else "; ".join(errors[:4]),
+    )
 
 
 def check_exactly_once(acked_rows: int, applied_rows: int) -> Verdict:
@@ -127,10 +139,46 @@ def check_count_parity(
     )
 
 
+def check_lease_staleness(
+    cache_stats: dict, bound: int
+) -> Verdict:
+    """The hot-key cache's staleness contract under fault
+    (docs/hotcache.md): every row the client-edge cache SERVED was at
+    most ``bound`` ticks old — through partitions, lost invalidations
+    and shard restarts, because the bound is enforced client-locally.
+    Vacuous passes are rejected: the cache must actually have served
+    (``hits > 0``), otherwise the scenario never exercised the tier it
+    claims to prove."""
+    hits = int(cache_stats.get("hits", 0))
+    worst = int(cache_stats.get("max_served_age", 0))
+    revoked = int(cache_stats.get("revocations", 0))
+    stale = int(cache_stats.get("stale_rejects", 0))
+    ok = hits > 0 and worst <= bound
+    return Verdict(
+        "lease_staleness", ok,
+        f"cache_hits={hits} worst_served_age={worst} bound={bound} "
+        f"revocations={revoked} stale_rejects={stale}"
+        + ("" if worst <= bound else " — BOUND VIOLATED")
+        + ("" if hits else " — cache never served (vacuous)"),
+    )
+
+
+def check_lock_inversions(inversions) -> Verdict:
+    n = len(inversions)
+    return Verdict(
+        "no_lock_inversions", n == 0,
+        "witnessed order is cycle-free" if n == 0
+        else f"{n} inversion(s): {inversions[0]}",
+    )
+
+
 __all__ = [
     "Verdict",
     "check_count_parity",
     "check_exactly_once",
+    "check_lease_staleness",
+    "check_lock_inversions",
+    "check_no_errors",
     "check_parity",
     "check_parity_bitwise",
 ]

@@ -249,15 +249,29 @@ class ReplicaShard(ParamShard):
             return vals
 
     # -- the write surface is the primary's ----------------------------------
-    def push(self, global_ids, deltas, *, epoch=None, pid=None) -> int:
+    def push(
+        self, global_ids, deltas, *, epoch=None, pid=None, sess=None
+    ) -> int:
         if self.role == "follower":
             raise NotPrimary(f"shard {self.shard_id} is a follower")
-        return super().push(global_ids, deltas, epoch=epoch, pid=pid)
+        return super().push(
+            global_ids, deltas, epoch=epoch, pid=pid, sess=sess
+        )
 
     def assign_rows(self, global_ids, values) -> int:
         if self.role == "follower":
             raise NotPrimary(f"shard {self.shard_id} is a follower")
         return super().assign_rows(global_ids, values)
+
+    def lease_rows(self, global_ids, sess, *, epoch=None, ttl=None):
+        # a follower cannot grant hot-key leases: invalidations are
+        # driven by the write path, which lands on the primary — a
+        # grant here would never be revoked (hotcache/, docs/hotcache.md)
+        if self.role == "follower":
+            raise NotPrimary(f"shard {self.shard_id} is a follower")
+        return super().lease_rows(
+            global_ids, sess, epoch=epoch, ttl=ttl
+        )
 
     # -- promotion (replication/failover.py) ---------------------------------
     def catch_up(self) -> int:

@@ -1,9 +1,10 @@
-"""Telemetry plane of the port: measurement and detection.
+"""Telemetry plane of the port: measurement, detection and surfaces.
 
 Copies of the JAX package's ``telemetry/registry.py``, ``spans.py``,
-``flightrec.py`` and ``profiler.py`` (none of them imports JAX; the flight
-recorder names its results folder after the torch device type), and the
-detection half of the plane:
+``flightrec.py``, ``profiler.py``, ``distributed.py`` and
+``lockwitness.py`` (none of them imports JAX; the flight recorder names
+its results folder after the torch device type), the detection half of
+the plane:
 
   * :mod:`.hotkeys` — count-min + space-saving hot-key sketches over
     pull/push/serving key traffic, merged across shards by the
@@ -14,12 +15,27 @@ detection half of the plane:
     bounded per-instrument ring series, plus the :class:`SkewTracker`
     per-entity straggler attribution;
   * :mod:`.detectors` — online anomaly detectors (EWMA drift +
-    rolling-MAD outlier) riding the timeline's samples.
+    rolling-MAD outlier) riding the timeline's samples;
 
-The surfaces that serve them — the ``/metrics`` endpoint, the run report
-and the lock witness — wait for ROADMAP Queue 1 #7b2.
+and the surfaces that serve them:
+
+  * :mod:`.exporter` — Prometheus-text rendering + the TCP ``/metrics``,
+    ``/healthz``, ``/hotkeys``, ``/hot``, ``/budget``, ``/conns``,
+    ``/timeline`` and ``/workloads`` endpoint (``/adaptive`` and
+    ``/tiers`` answer ``null`` until adaptive/ and tierstore/ land);
+  * :mod:`.report` — ``results/<platform>/run_report.{md,json}``;
+  * :mod:`.lockwitness` — the runtime lock-order witness (opt-in; nothing
+    imports it).
 """
 from .detectors import EWMADriftDetector, RollingMADDetector
+from .distributed import (
+    TraceCollector,
+    TraceContext,
+    format_token,
+    new_trace,
+    parse_token,
+)
+from .exporter import TelemetryServer, prometheus_text, scrape
 from .flightrec import FlightRecorder, StormDetector, get_recorder, set_recorder
 from .hotkeys import (
     HotKeyAggregator,
@@ -39,6 +55,14 @@ from .registry import (
     json_line,
     set_registry,
 )
+from .profiler import (
+    PHASES,
+    PhaseProfiler,
+    StackSampler,
+    get_profiler,
+    set_profiler,
+)
+from .report import build_run_report, render_markdown, write_run_report
 from .slo import SLOEngine, SLOSpec, default_slos
 from .spans import SpanTracer, get_tracer, set_tracer, span
 from .timeline import (
@@ -67,6 +91,22 @@ __all__ = [
     "get_tracer",
     "set_tracer",
     "span",
+    "TelemetryServer",
+    "prometheus_text",
+    "scrape",
+    "build_run_report",
+    "render_markdown",
+    "write_run_report",
+    "TraceCollector",
+    "TraceContext",
+    "format_token",
+    "new_trace",
+    "parse_token",
+    "PHASES",
+    "PhaseProfiler",
+    "StackSampler",
+    "get_profiler",
+    "set_profiler",
     "HotKeyAggregator",
     "HotKeySketch",
     "SpaceSavingTopK",

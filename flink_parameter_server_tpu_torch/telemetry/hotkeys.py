@@ -537,7 +537,7 @@ class HotKeyAggregator:
 
     def exposition(self, n: int = 16, prefix: str = "fps_") -> List[str]:
         """Prometheus-text lines for the merged top-K — appended to the
-        ``/metrics`` body by the exporter (ROADMAP Queue 1 #7b2)."""
+        ``/metrics`` body by the exporter (``telemetry/exporter.py``)."""
         top = self.top_k(n)
         if not top:
             return []

@@ -1,0 +1,610 @@
+"""End-of-run report builder.
+
+A copy of ``flink_parameter_server_tpu/telemetry/report.py`` with two
+changes: the platform probe asks torch (``"gpu"`` when a CUDA card is
+available, else ``"cpu"`` — JAX's backend names, so
+``results/<platform>/`` keeps its meaning), and the adaptive section is
+``None``, the reference's answer with no runtime installed (adaptive/,
+ROADMAP Queue 1 #7d, is not ported; ``ClusterConfig(adaptive=True)``
+raises).
+
+One page per run, not a log to grep: steps/sec, pull→push latency
+percentiles, serving QPS/p99, snapshot staleness, ingest reconnects,
+recovery episodes — pulled from the unified registry and written to
+``results/<platform>/run_report.{md,json}``.  docs/perf_status.md's
+rule: future bench deltas cite ``run_report.json``, so every number
+here carries enough context (run_id, platform, wall clock) to be
+compared across rounds without re-deriving provenance.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+from .registry import MetricsRegistry, get_registry
+
+
+def _find(snapshot: Dict[str, Any], name: str, **labels) -> Optional[Any]:
+    """First sample of ``name`` whose labels include ``labels``."""
+    for sample in snapshot.get(name, ()):
+        if all(sample["labels"].get(k) == v for k, v in labels.items()):
+            return sample["value"]
+    return None
+
+
+def _sum_counter(snapshot: Dict[str, Any], name: str) -> float:
+    return float(
+        sum(s["value"] or 0.0 for s in snapshot.get(name, ()))
+    )
+
+
+def _reject_counts(snapshot: Dict[str, Any]) -> tuple:
+    """(total, {reason: n}) for serving_rejected_total: the aggregate
+    (unlabelled) instrument and the per-cause breakdown share the
+    metric name, so a blind name-sum would double-count."""
+    total = 0.0
+    by_reason: Dict[str, int] = {}
+    for s in snapshot.get("serving_rejected_total", ()):
+        reason = (s.get("labels") or {}).get("reason")
+        v = s["value"] or 0.0
+        if reason is None:
+            total += v
+        else:
+            by_reason[reason] = by_reason.get(reason, 0) + int(v)
+    return total, by_reason
+
+
+def _hist_percentiles(registry: MetricsRegistry, name: str) -> Dict[str, Any]:
+    for inst in registry.instruments():
+        if inst.name == name and inst.kind == "histogram" and inst.count:
+            return {
+                "p50_ms": round(inst.percentile(50) * 1e3, 3),
+                "p99_ms": round(inst.percentile(99) * 1e3, 3),
+                "mean_ms": round(inst.sum / inst.count * 1e3, 3),
+                "count": inst.count,
+            }
+    return {"p50_ms": None, "p99_ms": None, "mean_ms": None, "count": 0}
+
+
+def build_run_report(
+    registry: Optional[MetricsRegistry] = None,
+    *,
+    wall_s: Optional[float] = None,
+    extra: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Assemble the cross-component summary dict from the registry.
+
+    ``wall_s`` overrides the elapsed-time base for the steps/sec rate
+    (callers that know the measured window pass it; the default is time
+    since the registry was created).  ``extra`` merges verbatim under
+    ``"extra"`` — the telemetry-overhead bench records its A/B there.
+    """
+    reg = registry if registry is not None else get_registry()
+    snap = reg.snapshot()
+    wall = float(wall_s) if wall_s is not None else max(
+        1e-9, time.time() - reg.created_at
+    )
+    steps = _sum_counter(snap, "train_steps_total")
+    events = _sum_counter(snap, "train_events_total")
+    report: Dict[str, Any] = {
+        "run_id": reg.run_id,
+        "generated_at": time.strftime(
+            "%Y-%m-%dT%H:%M:%SZ", time.gmtime()
+        ),
+        "wall_s": round(wall, 3),
+        "train": {
+            "steps": int(steps),
+            "events": int(events),
+            "steps_per_sec": round(steps / wall, 2),
+            "updates_per_sec": round(events / wall, 1),
+            "pull_push": _hist_percentiles(reg, "pull_push_latency_seconds"),
+            "checkpoints": int(_sum_counter(snap, "checkpoints_total")),
+        },
+        "serving": {
+            "requests": int(_sum_counter(snap, "serving_requests_total")),
+            "rejected": int(_reject_counts(snap)[0]),
+            "rejected_by_reason": _reject_counts(snap)[1],
+            "qps": _find(snap, "serving_qps", component="serving"),
+            "latency": _hist_percentiles(reg, "serving_latency_seconds"),
+            "batch_fill": _find(
+                snap, "serving_batch_fill", component="serving"
+            ),
+            "snapshot_staleness_steps": _find(
+                snap, "snapshot_staleness_steps", component="serving"
+            ),
+        },
+        "ingest": {
+            "batches": int(_sum_counter(snap, "ingest_batches_total")),
+            "reconnects": int(
+                _sum_counter(snap, "ingest_reconnects_total")
+            ),
+            "wal_appends": int(_sum_counter(snap, "wal_appends_total")),
+        },
+        "recovery": {
+            "restarts": int(
+                _sum_counter(snap, "recovery_restarts_total")
+            ),
+            "replayed_steps": int(
+                _sum_counter(snap, "recovery_replayed_steps_total")
+            ),
+            "dropped_steps": int(
+                _sum_counter(snap, "recovery_dropped_steps_total")
+            ),
+            "stall_episodes": int(
+                _sum_counter(snap, "stall_episodes_total")
+            ),
+        },
+        "elastic": {
+            "epoch": _find(snap, "elastic_epoch", component="elastic"),
+            "epoch_flips": int(
+                _sum_counter(snap, "elastic_epoch_flips_total")
+            ),
+            "epoch_refreshes": int(
+                _sum_counter(snap, "elastic_epoch_refreshes_total")
+            ),
+            "rows_migrated": int(
+                _sum_counter(snap, "elastic_rows_migrated_total")
+            ),
+            "migration_stall": _hist_percentiles(
+                reg, "elastic_migration_stall_seconds"
+            ),
+            "hedged_pulls": int(
+                _sum_counter(snap, "elastic_hedged_pulls_total")
+            ),
+            "hedges_won": int(
+                _sum_counter(snap, "elastic_hedges_won_total")
+            ),
+            "shard_replacements": int(
+                _sum_counter(snap, "elastic_shard_replacements_total")
+            ),
+            "stale_epoch_storms": int(
+                _sum_counter(snap, "elastic_stale_epoch_storms_total")
+            ),
+        },
+    }
+    hedged = report["elastic"]["hedged_pulls"]
+    report["elastic"]["hedge_win_rate"] = (
+        round(report["elastic"]["hedges_won"] / hedged, 4)
+        if hedged else None
+    )
+    budget = _latency_budget_section()
+    if budget:
+        report["latency_budget"] = budget
+    net = _net_section(snap)
+    if net:
+        report["net"] = net
+    slo = _slo_section(snap)
+    if slo:
+        report["slo"] = slo
+    hot = _hot_keys_section()
+    if hot is not None:
+        report["hot_keys"] = hot
+    hotcache = _hotcache_section()
+    if hotcache is not None:
+        report["hotcache"] = hotcache
+    meshstore = _meshstore_section(snap, reg)
+    if meshstore is not None:
+        report["meshstore"] = meshstore
+    timeline = _timeline_section()
+    if timeline is not None:
+        report["timeline"] = timeline
+    adaptive = _adaptive_section()
+    if adaptive is not None:
+        report["adaptive"] = adaptive
+    if extra:
+        report["extra"] = dict(extra)
+    return report
+
+
+def _latency_budget_section() -> Dict[str, Any]:
+    """Per-verb phase budgets from the process profiler
+    (telemetry/profiler.py) — empty when no phases were observed.
+    This is the section docs/perf_status.md cites as the required
+    evidence for the ROADMAP item 2 transport rework: it names the
+    top cost center of a round with its % of round time."""
+    from .profiler import get_profiler
+
+    return get_profiler().budget_report()
+
+
+def _net_section(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """Bytes/frames on the wire by (role, direction), summed over
+    verbs (utils/net.py accounting) — the baseline ROADMAP item 4's
+    "bytes down" criterion is judged against."""
+    out: Dict[str, Any] = {}
+    for name, kind in (("net_bytes_total", "bytes"),
+                       ("net_frames_total", "frames")):
+        for s in snap.get(name, ()):
+            role = s["labels"].get("role", "?")
+            direction = s["labels"].get("direction", "?")
+            key = f"{role}_{kind}_{direction}"
+            out[key] = int(out.get(key, 0) + (s["value"] or 0))
+    return out
+
+
+def _slo_section(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """Per-objective verdict roll-up from the SLO engine's probe
+    gauges (telemetry/slo.py) — empty when no engine is attached."""
+    out: Dict[str, Any] = {}
+    for s in snap.get("slo_healthy", ()):
+        name = s["labels"].get("slo")
+        if name is None:
+            continue
+        v = s["value"]
+        out[name] = {
+            "healthy": None if v is None else bool(v),
+        }
+    for s in snap.get("slo_burn_rate", ()):
+        name = s["labels"].get("slo")
+        window = s["labels"].get("window", "short")
+        if name is None:
+            continue
+        out.setdefault(name, {})[f"burn_{window}"] = s["value"]
+    return out
+
+
+def _hot_keys_section(n: int = 10) -> Optional[Dict[str, Any]]:
+    """Merged hot-key sketch snapshot (telemetry/hotkeys.py) — None
+    when no sketch is registered."""
+    from .hotkeys import get_aggregator
+
+    agg = get_aggregator()
+    if not agg.labels():
+        return None
+    return agg.snapshot(n)
+
+
+def _hotcache_section() -> Optional[Dict[str, Any]]:
+    """Hot-key lease cache roll-up (hotcache/, docs/hotcache.md) —
+    per-cache hit/miss/revoke/staleness figures plus the aggregate hit
+    rate; None when no cache is registered."""
+    from ..hotcache.cache import cache_snapshots
+
+    snaps = cache_snapshots()
+    if not snaps:
+        return None
+    hits = sum(s["hits"] for s in snaps.values())
+    misses = sum(s["misses"] for s in snaps.values())
+    return {
+        "caches": {
+            label: {
+                k: s[k]
+                for k in ("hits", "misses", "hit_rate", "entries",
+                          "fills", "revocations", "stale_rejects",
+                          "evictions", "max_served_age", "bound")
+            }
+            for label, s in snaps.items()
+        },
+        "hits": hits,
+        "misses": misses,
+        "hit_rate": (
+            round(hits / (hits + misses), 4) if hits + misses else None
+        ),
+    }
+
+
+def _meshstore_section(
+    snap: Dict[str, Any], reg: MetricsRegistry
+) -> Optional[Dict[str, Any]]:
+    """On-device mesh store roll-up (meshstore/, docs/meshstore.md):
+    pull/push volume, gather/scatter collective latency, the per-kind
+    collective-op ledger and the resident byte gauges.  None when the
+    mesh backend never registered (the usual socket-shard run)."""
+    pulls = _sum_counter(snap, "meshstore_pulls_total")
+    pushes = _sum_counter(snap, "meshstore_pushes_total")
+    if not snap.get("meshstore_pulls_total") and not snap.get(
+        "meshstore_table_bytes"
+    ):
+        return None
+    collective_ops = {}
+    for s in snap.get("meshstore_collective_ops_total", ()):
+        kind = (s.get("labels") or {}).get("kind", "?")
+        collective_ops[kind] = int(
+            collective_ops.get(kind, 0) + (s["value"] or 0)
+        )
+    return {
+        "pulls": int(pulls),
+        "pushes": int(pushes),
+        "rows_pulled": int(
+            _sum_counter(snap, "meshstore_rows_pulled_total")
+        ),
+        "rows_pushed": int(
+            _sum_counter(snap, "meshstore_rows_pushed_total")
+        ),
+        "wal_appends": int(
+            _sum_counter(snap, "meshstore_wal_appends_total")
+        ),
+        "collective_ops": collective_ops,
+        "gather": _hist_percentiles(reg, "meshstore_gather_seconds"),
+        "scatter": _hist_percentiles(reg, "meshstore_scatter_seconds"),
+        "table_bytes": _find(
+            snap, "meshstore_table_bytes", component="meshstore"
+        ),
+        "device_bytes": _find(
+            snap, "meshstore_device_bytes", component="meshstore"
+        ),
+        "opt_state_bytes": _find(
+            snap, "meshstore_opt_state_bytes", component="meshstore"
+        ),
+    }
+
+
+def _timeline_section(max_rows: int = 40) -> Optional[Dict[str, Any]]:
+    """Timeline roll-up (telemetry/timeline.py): per-series
+    min/max/last plus the anomaly-episode ledger from the process
+    recorder — None when no recorder is installed (the opt-in
+    contract, same as the flight recorder's)."""
+    from .timeline import get_timeline
+
+    tl = get_timeline()
+    if tl is None:
+        return None
+    rows = tl.summary()
+    anomalies = tl.anomalies()
+    return {
+        "interval_s": tl.interval_s,
+        "samples": tl._samples,
+        "series": len(rows),
+        "rows": rows[:max_rows],
+        "rows_truncated": max(0, len(rows) - max_rows),
+        "anomalies": anomalies,
+        "skew": [t.snapshot() for t in tl.skew],
+    }
+
+
+def _adaptive_section() -> Optional[Dict[str, Any]]:
+    """Adaptive-runtime roll-up: None, the reference's answer when no
+    runtime is installed — the port cannot install one until adaptive/
+    is ported (ROADMAP Queue 1 #7d)."""
+    return None
+
+
+def _default_platform() -> str:
+    """``"gpu"`` when torch sees a CUDA card, else ``"cpu"`` (the
+    backend names ``results/<platform>/`` uses)."""
+    import torch
+
+    return "gpu" if torch.cuda.is_available() else "cpu"
+
+
+def render_markdown(report: Dict[str, Any]) -> str:
+    t, s = report["train"], report["serving"]
+    i, r = report["ingest"], report["recovery"]
+    e = report.get("elastic", {})
+    pp, sl = t["pull_push"], s["latency"]
+
+    def fmt(v, unit=""):
+        return "—" if v is None else f"{v}{unit}"
+
+    lines = [
+        "# Run report",
+        "",
+        f"run `{report['run_id']}` · generated {report['generated_at']} "
+        f"· wall {report['wall_s']} s",
+        "",
+        "| metric | value |",
+        "|---|---|",
+        f"| train steps | {t['steps']} |",
+        f"| steps/sec | {t['steps_per_sec']} |",
+        f"| updates/sec | {t['updates_per_sec']} |",
+        f"| pull→push p50 / p99 | {fmt(pp['p50_ms'], ' ms')} / "
+        f"{fmt(pp['p99_ms'], ' ms')} |",
+        f"| checkpoints | {t['checkpoints']} |",
+        f"| serving requests (rejected) | {s['requests']} "
+        f"({s['rejected']}) |",
+        f"| serving QPS | {fmt(s['qps'])} |",
+        f"| serving p50 / p99 | {fmt(sl['p50_ms'], ' ms')} / "
+        f"{fmt(sl['p99_ms'], ' ms')} |",
+        f"| snapshot staleness (steps) | "
+        f"{fmt(s['snapshot_staleness_steps'])} |",
+        f"| ingest batches / reconnects | {i['batches']} / "
+        f"{i['reconnects']} |",
+        f"| WAL appends | {i['wal_appends']} |",
+        f"| recovery restarts / replayed / dropped | {r['restarts']} / "
+        f"{r['replayed_steps']} / {r['dropped_steps']} |",
+        f"| stall episodes | {r['stall_episodes']} |",
+    ]
+    if e:
+        ms = e.get("migration_stall", {})
+        win = e.get("hedge_win_rate")
+        lines += [
+            f"| elastic epoch (flips / client refreshes) | "
+            f"{fmt(e['epoch'])} ({e['epoch_flips']} / "
+            f"{e['epoch_refreshes']}) |",
+            f"| rows migrated | {e['rows_migrated']} |",
+            f"| migration stall p50 / p99 | "
+            f"{fmt(ms.get('p50_ms'), ' ms')} / "
+            f"{fmt(ms.get('p99_ms'), ' ms')} |",
+            f"| hedged pulls (won / win rate) | {e['hedged_pulls']} "
+            f"({e['hedges_won']} / {fmt(win)}) |",
+            f"| shard replacements | {e['shard_replacements']} |",
+            f"| stale-epoch storms | {e.get('stale_epoch_storms', 0)} |",
+        ]
+    net = report.get("net")
+    if net:
+        lines.append(
+            f"| wire bytes (server in / out) | "
+            f"{net.get('server_bytes_in', 0)} / "
+            f"{net.get('server_bytes_out', 0)} |"
+        )
+        lines.append(
+            f"| wire frames (server in / out) | "
+            f"{net.get('server_frames_in', 0)} / "
+            f"{net.get('server_frames_out', 0)} |"
+        )
+    budget = report.get("latency_budget")
+    if budget:
+        lines += ["", "## Latency budget", ""]
+        for verb in sorted(budget):
+            b = budget[verb]
+            if not b.get("round_ms"):
+                continue
+            lines.append(
+                f"**{verb}**: round p50 {b['round_ms']} ms over "
+                f"{b['rounds']} frames — top cost center: "
+                f"`{b['top_phase']}` ({b['top_pct']}% of round time, "
+                f"coverage: {b['coverage']})"
+            )
+            lines.append("")
+            lines += ["| phase | p50 ms | mean ms | % of round |",
+                      "|---|---|---|---|"]
+            for p in b["phases"]:
+                lines.append(
+                    f"| {p['phase']} | {p['p50_ms']} | {p['mean_ms']} "
+                    f"| {p['pct']} |"
+                )
+            lines.append("")
+    slo = report.get("slo")
+    if slo:
+        lines += ["", "## SLO verdicts", ""]
+        lines += ["| objective | healthy | burn short / long |",
+                  "|---|---|---|"]
+        for name in sorted(slo):
+            v = slo[name]
+            healthy = v.get("healthy")
+            lines.append(
+                f"| {name} | "
+                f"{'—' if healthy is None else ('yes' if healthy else 'NO')}"
+                f" | {fmt(v.get('burn_short'))} / "
+                f"{fmt(v.get('burn_long'))} |"
+            )
+    hot = report.get("hot_keys")
+    if hot:
+        lines += ["", "## Hot keys", ""]
+        lines.append(
+            f"top keys over {hot['total_observed']} observed "
+            f"(count-min error bound ±{hot['cms_error_bound']}, "
+            f"sketches: {', '.join(hot['sketches'])}):"
+        )
+        lines.append("")
+        lines += ["| key | count | err |", "|---|---|---|"]
+        for item in hot["top"][:10]:
+            lines.append(
+                f"| {item['key']} | {item['count']} | {item['err']} |"
+            )
+    hotcache = report.get("hotcache")
+    if hotcache:
+        lines += ["", "## Hot-key lease cache", ""]
+        lines.append(
+            f"aggregate: {hotcache['hits']} hits / "
+            f"{hotcache['misses']} misses "
+            f"(hit rate {fmt(hotcache['hit_rate'])})"
+        )
+        lines.append("")
+        lines += [
+            "| cache | hits | misses | hit rate | entries | revoked "
+            "| stale rejects | worst served age / bound |",
+            "|---|---|---|---|---|---|---|---|",
+        ]
+        for label in sorted(hotcache["caches"]):
+            c = hotcache["caches"][label]
+            lines.append(
+                f"| {label} | {c['hits']} | {c['misses']} | "
+                f"{fmt(c['hit_rate'])} | {c['entries']} | "
+                f"{c['revocations']} | {c['stale_rejects']} | "
+                f"{c['max_served_age']} / {c['bound']} |"
+            )
+    mesh = report.get("meshstore")
+    if mesh:
+        g, sc = mesh["gather"], mesh["scatter"]
+        ops = mesh.get("collective_ops", {})
+        lines += ["", "## Mesh store", ""]
+        lines += [
+            "| metric | value |",
+            "|---|---|",
+            f"| pulls / pushes | {mesh['pulls']} / {mesh['pushes']} |",
+            f"| rows pulled / pushed | {mesh['rows_pulled']} / "
+            f"{mesh['rows_pushed']} |",
+            f"| WAL appends | {mesh['wal_appends']} |",
+            f"| collective ops (gather / scatter) | "
+            f"{ops.get('gather', 0)} / {ops.get('scatter', 0)} |",
+            f"| gather p50 / p99 | {fmt(g['p50_ms'], ' ms')} / "
+            f"{fmt(g['p99_ms'], ' ms')} |",
+            f"| scatter p50 / p99 | {fmt(sc['p50_ms'], ' ms')} / "
+            f"{fmt(sc['p99_ms'], ' ms')} |",
+            f"| table / per-device / opt-state bytes | "
+            f"{fmt(mesh['table_bytes'])} / {fmt(mesh['device_bytes'])} "
+            f"/ {fmt(mesh['opt_state_bytes'])} |",
+        ]
+    tl = report.get("timeline")
+    if tl:
+        lines += ["", "## Timeline", ""]
+        lines.append(
+            f"{tl['series']} series × {tl['samples']} samples at "
+            f"{tl['interval_s']} s cadence; "
+            f"{len(tl['anomalies'])} anomaly episode(s)"
+        )
+        lines.append("")
+        lines += ["| series | labels | field | min | max | last |",
+                  "|---|---|---|---|---|---|"]
+        for row in tl["rows"]:
+            labels = ",".join(
+                f"{k}={v}" for k, v in sorted(row["labels"].items())
+                if k != "component"
+            ) or "—"
+            lines.append(
+                f"| {row['metric']} | {labels} | {row['field']} | "
+                f"{row['min']:.4g} | {row['max']:.4g} | "
+                f"{row['last']:.4g} |"
+            )
+        if tl.get("rows_truncated"):
+            lines.append(
+                f"| … {tl['rows_truncated']} more series | | | | | |"
+            )
+        if tl["anomalies"]:
+            lines.append("")
+            lines += ["| anomaly ts | metric | kind | score |",
+                      "|---|---|---|---|"]
+            for a in tl["anomalies"][:20]:
+                lines.append(
+                    f"| {a['ts']} | {a['metric']} | {a['kind']} | "
+                    f"{a['score']} |"
+                )
+        for sk in tl.get("skew", ()):
+            last = sk.get("last")
+            if last:
+                lines.append("")
+                lines.append(
+                    f"skew[{sk['metric']} by {sk['entity_label']}]: "
+                    f"top entity `{last['entity']}` at "
+                    f"{last['ratio']}× fleet median"
+                    f"{' **FLAGGED**' if last['flagged'] else ''}"
+                )
+    extra = report.get("extra")
+    if extra:
+        lines += ["", "## Extra", ""]
+        for k in sorted(extra):
+            lines.append(f"- `{k}`: {extra[k]}")
+    return "\n".join(lines) + "\n"
+
+
+def write_run_report(
+    report: Dict[str, Any],
+    *,
+    platform: Optional[str] = None,
+    results_dir: Optional[str] = None,
+) -> Dict[str, str]:
+    """Write ``run_report.md`` + ``run_report.json`` under
+    ``results/<platform>/`` (repo-relative by default) and return the
+    two paths."""
+    if results_dir is None:
+        repo = os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        )
+        results_dir = os.path.join(
+            repo, "results", platform or _default_platform()
+        )
+    os.makedirs(results_dir, exist_ok=True)
+    json_path = os.path.join(results_dir, "run_report.json")
+    md_path = os.path.join(results_dir, "run_report.md")
+    with open(json_path, "w") as f:
+        json.dump(report, f, indent=2)
+        f.write("\n")
+    with open(md_path, "w") as f:
+        f.write(render_markdown(report))
+    return {"json": json_path, "md": md_path}
+
+
+__all__ = ["build_run_report", "render_markdown", "write_run_report"]

@@ -2,8 +2,8 @@
 
 A copy of ``flink_parameter_server_tpu/telemetry/slo.py``, which imports
 no JAX: the port imports nothing of the JAX package, whose ``__init__``
-imports JAX.  The ``/metrics`` endpoint and the run report that read
-its gauges and verdicts are the reference's until ROADMAP Queue 1 #7b2.
+imports JAX.  The port's ``/metrics`` endpoint and run report
+(``exporter.py``, ``report.py``) read its gauges and verdicts.
 
 A threshold alert ("p99 > 25 ms") pages on one bad scrape and sleeps
 through a slow bleed.  The SRE-standard fix is an ERROR BUDGET: an

@@ -28,10 +28,10 @@ series.  Two consumers ride each sample:
     notes the flight recorder (one throttled dump per episode), and is
     scale-out pressure for :class:`~..elastic.controller.ElasticController`.
 
-:meth:`TimelineRecorder.payload` is the JSON window; the reference's
-``/metrics`` ``timeline`` path, ``psctl`` views and run-report section
-that serve it wait for ROADMAP Queue 1 #7b2.  All of this is host code:
-nothing here touches a device.
+:meth:`TimelineRecorder.payload` is the JSON window the exporter's
+``timeline`` path serves (``psctl watch`` / ``psctl timeline`` read it),
+and :meth:`TimelineRecorder.summary` feeds the run report's timeline
+section.  All of this is host code: nothing here touches a device.
 """
 from __future__ import annotations
 

@@ -66,16 +66,35 @@ def annotate_step(fn, name: str = "ps_step"):
     return wrapped
 
 
+# devices whose memory_stats raised — warned once per device, not once
+# per poll (device_memory_stats is on gauge-scrape cadence) and never
+# swallowed silently
+_mem_stats_warned: set = set()
+
+
 def device_memory_stats(device=None) -> dict:
     """Memory stats of the card ``device`` (default: the current CUDA
     device), as ``{"cuda:N": {"bytes_in_use": int, "peak_bytes": int}}``
     from ``torch.cuda.memory_stats``; ``{}`` for a CPU device or when no
-    card is present.  Every entry carries exactly those two keys."""
+    card is present.  Every entry carries exactly those two keys.  A
+    card whose stats query raises is omitted and logged once (an
+    unknown failure must be visible, not silently absorbed)."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return {}
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    stats = torch.cuda.memory_stats(index)
+    try:
+        stats = torch.cuda.memory_stats(index)
+    except Exception as e:  # noqa: BLE001 — log once, keep polling
+        key = f"cuda:{index}"
+        if key not in _mem_stats_warned:
+            _mem_stats_warned.add(key)
+            logger.warning(
+                "device_memory_stats: %s raised %s: %s "
+                "(suppressing further warnings for this device)",
+                key, type(e).__name__, e,
+            )
+        return {}
     return {
         f"cuda:{index}": {
             "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),

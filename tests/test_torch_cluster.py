@@ -24,10 +24,10 @@ planner is not ported), and tests/test_transport.py's shard-process tests
 (proc-vs-thread parity, kill and respawn over the WAL, the spawn grace
 window), and tests/test_loadgen.py's shard-edge overload tests with its
 breaker test.  Knobs whose modules wait for ROADMAP Queue 1 #7 raise
-``NotImplementedError``, and the verbs they would send answer ``err
-bad-request``; each is held here (``xfer`` / ``load``, epoch fencing and the
-``pid=`` window came back with elastic/ and are held in
-tests/test_torch_elastic.py).
+``NotImplementedError``; each is held here (``xfer`` / ``load``, epoch
+fencing and the ``pid=`` window came back with elastic/ and are held in
+tests/test_torch_elastic.py; ``lease`` / ``revoke`` and ``hot_cache`` came
+back with hotcache/ and are held in tests/test_torch_hotcache.py).
 """
 import json
 import socket
@@ -330,8 +330,7 @@ def test_driver_defaults_to_the_card_and_knobs_that_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ClusterDriver(_logic(nu, dim), capacity=ni, value_shape=(dim,), registry=False)
-    for kw, item in ((dict(hot_cache=True), "hotcache"),
-                     (dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem"),
+    for kw, item in ((dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem"),
                      (dict(store_backend="tiered"), "tierstore")):
         with pytest.raises(NotImplementedError, match=item) as e:
             _cluster(nu, ni, dim, init, **kw)
@@ -615,12 +614,16 @@ class TestWire:
         resps = request_lines(server.host, server.port,
                               ["nope", "pull", "pull 63", "pull 0 hex", "push 1 1,2",
                                "xfer", "load 0", "load 0 1,2,3",
-                               # verbs that wait for hotcache/; a repl frame
-                               # that is no WAL record (and, to a primary,
-                               # any repl frame)
-                               "lease 0 b64 sess=s1", "revoke all sess=s1",
+                               # a lease or revoke without its session; a
+                               # repl frame that is no WAL record (and, to
+                               # a primary, any repl frame)
+                               "lease 0 b64", "revoke all",
                                "repl AAAA", "conns"])
         assert all(r.startswith("err bad-request") for r in resps), resps
+        # lease / revoke came back with hotcache/ (tests/test_torch_hotcache.py)
+        lease, revoke = request_lines(server.host, server.port,
+                                      ["lease 0 b64 sess=s1", "revoke all sess=s1"])
+        assert lease.startswith("ok n=1 seq=0 ttl=16 b64:") and revoke == "ok revoked=1", (lease, revoke)
         # replstate came back with replication/ (tests/test_torch_replication.py)
         (state,) = request_lines(server.host, server.port, ["replstate"])
         assert state.startswith("ok ") and json.loads(state[3:])["role"] == "primary", state

@@ -834,7 +834,6 @@ def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
             d.drain_shard(0)
     part = ConsistentHashPartitioner(16, 1)
     for kw, item in ((dict(push_hedge=object()), "adaptive"),
-                     (dict(hotcache=object()), "hotcache"),
                      (dict(retry_budget=object()), "loadgen")):
         with pytest.raises(NotImplementedError, match=item):
             ClusterClient([("h", 1)], part, (4,), registry=False, **kw)

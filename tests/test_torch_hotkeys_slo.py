@@ -2,12 +2,13 @@
 (``telemetry/slo.py``) against the JAX package's, on the CPU.
 
 Mirrors tests/test_tracing.py's TestHotKeys tests that need no endpoint
-(3 of 4: ``test_hot_keys_on_metrics_and_report`` waits for the exporter and
-the run report, ROADMAP Queue 1 #7b2), its TestSLO (3) and
-tests/test_replication.py's ``test_failover_slo_registered_and_fed``.
+(3 of 4: ``test_hot_keys_on_metrics_and_report`` is mirrored with the
+exporter and the run report in tests/test_torch_telemetry_surfaces.py),
+its TestSLO (3) and tests/test_replication.py's
+``test_failover_slo_registered_and_fed``.
 ``test_burn_rate_windows_and_verdicts`` reads the SLO's probe gauges from
-the registry where the reference's reads them off ``/metrics`` and the run
-report (#7b2).  The cluster mirror runs a port ``ClusterDriver`` with
+the registry and, as the reference's does, off ``prometheus_text`` and the
+run report.  The cluster mirror runs a port ``ClusterDriver`` with
 ``device="cpu"``.
 
 Parity with the reference, exact (both sides are numpy and Python, and the
@@ -279,10 +280,9 @@ def test_cluster_sketches_see_what_the_reference_cluster_sees(aggregator):
 
 def test_knobs_of_later_modules_still_raise_beside_hot_keys():
     """``hot_keys=True`` is served now; with it on, the knobs that lead
-    into modules not ported yet still raise naming Queue 1 #7 (the
-    reference's ``hot_cache`` turns ``hot_keys`` on itself)."""
+    into modules not ported yet still raise naming Queue 1 #7."""
     logic = OnlineMatrixFactorization(16, 4, updater=SGDUpdater(0.05), device="cpu")
-    for kw, item in ((dict(hot_cache=True), "hotcache"), (dict(adaptive=True), "adaptive"),
+    for kw, item in ((dict(adaptive=True), "adaptive"),
                      (dict(wire_proto="shm"), "shmem"), (dict(store_backend="tiered"), "tierstore")):
         with pytest.raises(NotImplementedError, match=item) as e:
             ClusterDriver(logic, capacity=32, value_shape=(4,), config=ClusterConfig(hot_keys=True, **kw),
@@ -300,7 +300,7 @@ def _gauges(reg, name):
 
 
 class TestSLO:
-    def test_burn_rate_windows_and_verdicts(self, registry):
+    def test_burn_rate_windows_and_verdicts(self, registry, aggregator):
         t = [0.0]
         engine = SLOEngine(
             [pull_latency_slo(0.025, target=0.9)],
@@ -334,6 +334,14 @@ class TestSLO:
         assert _gauges(registry, "slo_healthy") == {
             (("component", "slo"), ("slo", "pull_p99")): 0.0
         }
+        # the probe gauges render on /metrics under component=slo
+        txt = tm.prometheus_text(registry, include_hot_keys=False)
+        assert 'fps_slo_burn_rate{component="slo"' in txt
+        assert 'fps_slo_healthy{component="slo",slo="pull_p99"} 0' in txt
+        # and the run report carries the verdict roll-up
+        report = tm.build_run_report(registry)
+        assert report["slo"]["pull_p99"]["healthy"] is False
+        assert "SLO verdicts" in tm.render_markdown(report)
 
     def test_bound_kind_over_gauges(self, registry):
         t = [0.0]

@@ -94,6 +94,16 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.telemetry.slo",
             "flink_parameter_server_tpu_torch.telemetry.timeline",
             "flink_parameter_server_tpu_torch.telemetry.detectors"} <= set(modules)
+    # the hot-key lease cache and the telemetry plane's surfaces
+    assert {"flink_parameter_server_tpu_torch.hotcache",
+            "flink_parameter_server_tpu_torch.hotcache.leases",
+            "flink_parameter_server_tpu_torch.hotcache.cache",
+            "flink_parameter_server_tpu_torch.hotcache.policy",
+            "flink_parameter_server_tpu_torch.hotcache.serving",
+            "flink_parameter_server_tpu_torch.telemetry.exporter",
+            "flink_parameter_server_tpu_torch.telemetry.report",
+            "flink_parameter_server_tpu_torch.telemetry.lockwitness",
+            "flink_parameter_server_tpu_torch.nemesis.invariants"} <= set(modules)
 
 
 _CHILD_SCRIPT = """

@@ -19,7 +19,10 @@ largest value; sketch-shaped pushes (whole-number counts) exact.  Replica
 chains on the card: a caught-up follower, and a shard replayed from its
 own log, bitwise.  A float32 switch-MoE LM step with flash on against off:
 rtol 1e-4 / atol 1e-6 (the dense LM's bar).  ``transform_hybrid`` over a
-``pallas`` store against an ``"xla"`` one: rtol 1e-5 / atol 1e-6.
+``pallas`` store against an ``"xla"`` one: rtol 1e-5 / atol 1e-6.  The hot
+cache on the card: ``CachedLookupService.top_k`` against the CPU's, ids
+equal, scores rtol 1e-6; a leased row on a card slice exactly the row at
+the answered ``seq``.
 """
 import numpy as np
 import pytest
@@ -932,3 +935,94 @@ def test_hot_key_top_k_ranks_on_the_card(cuda, monkeypatch):
         assert agg.labels() == []
     finally:
         hotkeys.set_aggregator(old)
+
+
+def test_cached_top_k_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``CachedLookupService.top_k`` scores each shard's candidate rows and
+    merges the partial top-Ks with ``dense_topk`` on CUDA tensors; its
+    answer equals the same service's on the CPU: ids equal, scores rtol
+    1e-6 (both sum in float64 and round once to float32)."""
+    from flink_parameter_server_tpu_torch.cluster import ParamShard, RangePartitioner, ShardServer
+    from flink_parameter_server_tpu_torch.hotcache import CachedLookupService, StaticHotSet
+    from flink_parameter_server_tpu_torch.hotcache import serving
+
+    ranked_on = []
+    dense_topk = serving.dense_topk
+
+    def spy(table, queries, k, **kw):
+        ranked_on.append(table.device.type)
+        return dense_topk(table, queries, k, **kw)
+
+    monkeypatch.setattr(serving, "dense_topk", spy)
+    part = RangePartitioner(4096, 2)
+    shards = [ParamShard(s, part, (64,), registry=False, device=cuda) for s in range(2)]
+    servers = [ShardServer(sh, port=0).start() for sh in shards]
+    addrs = [(sv.host, sv.port) for sv in servers]
+    rng = np.random.default_rng(0)
+    rows = rng.normal(size=(4096, 64)).astype(np.float32)
+    for sh in shards:
+        sh.push(sh.owned, rows[sh.owned])
+    svcs = {dev: CachedLookupService(addresses=addrs, partitioner=part, value_shape=(64,),
+                                     policy=StaticHotSet(np.arange(64)), hedge_after_s=None,
+                                     registry=False, device=dev) for dev in ("cuda", "cpu")}
+    try:
+        for k in (1, 10, 100):
+            q = rng.normal(size=64).astype(np.float32)
+            cand = rng.choice(4096, 3000, replace=False)
+            del ranked_on[:]
+            got = svcs["cuda"].top_k(q, cand, k=k)
+            assert set(ranked_on) == {"cuda"} and len(ranked_on) == 3  # two shards + the merge
+            want = svcs["cpu"].top_k(q, cand, k=k)
+            assert np.array_equal(got[1], want[1])
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+            oracle = np.argsort(-(rows[np.sort(cand)].astype(np.float64) @ q), kind="stable")[:k]
+            assert np.array_equal(got[1], np.sort(cand)[oracle])
+    finally:
+        for svc in svcs.values():
+            svc.close()
+        for sv in servers:
+            sv.stop()
+        for sh in shards:
+            sh.close()
+
+
+def test_leased_rows_on_a_card_shard_are_the_rows_at_the_answered_seq(cuda):
+    """``lease_rows`` on a CUDA slice copies the rows off the card under the
+    lock that reads ``seq``: with a writer adding 1.0 to every leased id
+    per push, each lease's rows equal the initial rows plus its answered
+    ``seq``, exactly, and the board holds the grant."""
+    import threading
+
+    from flink_parameter_server_tpu_torch.cluster import ParamShard, RangePartitioner
+
+    part = RangePartitioner(2048, 1)
+    shard = ParamShard(0, part, (16,), registry=False, device=cuda)
+    ids = np.arange(0, 2048, 7, dtype=np.int64)
+    ones = np.ones((len(ids), 16), np.float32)
+    done, errs = threading.Event(), []
+
+    def writer():
+        try:
+            for _ in range(300):
+                shard.push(ids, ones, sess="writer")
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+        finally:
+            done.set()
+
+    th = threading.Thread(target=writer)
+    th.start()
+    seen = set()
+    while not done.is_set() or len(seen) < 2:
+        rows, seq, ttl = shard.lease_rows(ids, "reader", ttl=8)
+        assert ttl == 8
+        np.testing.assert_array_equal(rows, np.full((len(ids), 16), float(seq), np.float32))
+        seen.add(seq)
+        if done.is_set():
+            break
+    th.join()
+    assert not errs, errs
+    assert len(seen) > 1  # leases landed between pushes, not only at the ends
+    assert shard.leases.holds("reader", int(ids[0]))
+    assert shard.store.table.device.type == "cuda"
+    shard.close()

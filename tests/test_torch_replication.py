@@ -15,10 +15,11 @@ chain-routed reads and the promotion run for real.  Tolerances:
     cluster bar) of the reference's static cluster on that stream.
 
 Mirrors tests/test_replication.py's TestReplFrames (2), TestShipping (6),
-TestReadRouting (4) and TestFailover (3).  TestObservability (the failover
-SLO, the metric-line lint and the ``/metrics`` endpoint) waits for the rest
-of the telemetry plane and the tooling, and TestWitnessedReplicationOracle
-for ``telemetry/lockwitness.py`` (ROADMAP Queue 1 #7b, #7h).
+TestReadRouting (4) and TestFailover (3).  Of TestObservability, the
+failover SLO is mirrored in tests/test_torch_hotkeys_slo.py and the
+``/metrics`` lag gauges in tests/test_torch_telemetry_surfaces.py, with
+TestWitnessedReplicationOracle; the metric-line lint waits for the tooling
+(ROADMAP Queue 1 #7h).
 """
 import base64
 import socket as socket_mod

@@ -4,9 +4,9 @@ against the JAX package's, on the CPU.
 Mirrors 26 of tests/test_timeline.py's 31 tests: TestPercentileFromCounts
 (4), TestDetectorOracles (7), TestTimelineRecorder (9), TestSkewTracker (5)
 and TestElasticPressure (1, through the port's ``ElasticClusterDriver`` with
-``device="cpu"``).  TestSurfaces (2) waits for the ``/metrics`` endpoint and
-psctl's views (ROADMAP Queue 1 #7b2), TestTooling (3) for the lint and the
-committed artifact (#7h).  The mirrors hold the same numpy oracles the
+``device="cpu"``).  TestSurfaces (2) is mirrored with the ``/metrics``
+endpoint in tests/test_torch_telemetry_surfaces.py; TestTooling (3) waits
+for the lint and the committed artifact (ROADMAP Queue 1 #7h).  The mirrors hold the same numpy oracles the
 reference's tests hold; the background-loop mirror polls with a bounded
 deadline and then checks that the thread is gone.
 
