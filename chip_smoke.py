@@ -3,9 +3,10 @@
 job envelope, answering top-K queries while it trains, through the
 parameter-server cluster and the mesh store, resharded live by the
 elastic driver, failed over across replica chains, watched by the
-telemetry plane's hot-key sketches, SLOs and timeline, and served through
+telemetry plane's hot-key sketches, SLOs and timeline, served through
 the hot-key lease cache with ``/metrics``, the run report and the lock
-witness live), the registered
+witness live, steered around a lagged worker by the adaptive runtime, and
+kept in the two-tier store with its hot tier on the card), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -203,6 +204,37 @@ line each; any failure exits non-zero before the last line:
              top-K's ms, rounds/s with and without the cache, the caches'
              counts, scrape, report and witness costs, beside the card's
              name and power limit.
+  adaptive   the straggler-adaptive runtime (``benchmarks/straggler_ab.py``'s
+             scenario): an ``ElasticClusterDriver``, 4 workers x 2 shards, hash
+             partition, SSP bound 2 (ceiling 5), slices on the card, worker 0
+             reaching every shard through a forwarder in this script that
+             delays each chunk 25 ms both ways.  Per workload (MF at 100,000 x
+             131,072, dim 64, 65,536 ratings a round, lr 0.01; PA at 8,192
+             features x 1,024 examples a round) a fixed arm and an adaptive arm
+             (``adaptive=True``, push hedging after 10 ms, a timeline
+             ``SkewTracker`` on the workers' pull p50, ``AdaptiveRuntime`` with
+             a ``RebalancePolicy``, the bound envelope sampled every 2 ms), each
+             under ``run(deadline_s=6)`` after one unmeasured round: the
+             envelope holds, a mechanism fired, adaptive RMSE <= fixed x 1.10
+             against the fault-free oracle, acked == applied.  Then
+             ``drain_shard(0)`` on a 3-shard card cluster, every row bitwise;
+             ``/adaptive`` and the run report's section equal to
+             ``rt.payload()``.  ``adaptive:`` lines give goodput, RMSE, the
+             mechanisms' counts and the drain's rows and ms.  No kernel.
+  tierstore  the two-tier store: (a) ``benchmarks/tierstore_soak.py`` at its
+             size (2**24 x 16 float32, a 2**20-row hot tier, 8,192
+             log-uniform ids a round deduplicated as the client does, 100 +
+             400 rounds) in three arms (the torch store on the card, the hot
+             tier on the card, the hot tier on the host): residency in every
+             round, both tiered tables the dense one's bitwise, the
+             card-tier's peak on the card within the hot tier + 16 MiB; (b)
+             its recovery legs on card-backed tiered shards (parity, WAL
+             replay, a follower promoted and audited, migration), bitwise;
+             (c) MF at full width, BSP 4 x 2 with ``push_aggregate``, tiered
+             (a quarter of each shard hot) against socket, bitwise, ``/tiers``
+             naming both shards.  ``tierstore:`` lines give pull and push
+             p50/p99, hit rate, promotes, demotes, spills, eviction scans,
+             card peak memory, host RSS growth and rounds/s.  No kernel.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -3111,6 +3143,684 @@ def phase_hotcache(torch, dev, card):
     print(f"hotcache: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+ADAPTIVE_WORKERS, ADAPTIVE_SHARDS = 4, 2  # benchmarks/straggler_ab.py's topology
+ADAPTIVE_BOUND, ADAPTIVE_SUBGROUPS = 2, 8  # its declared SSP bound and row groups a worker
+ADAPTIVE_LAG_S = 0.025  # worker 0's symmetric per-chunk link delay (its --lag-ms 25)
+ADAPTIVE_DEADLINE_S = 6.0  # each arm's driver.run(deadline_s=...)
+ADAPTIVE_MF_ROUNDS = 32  # more rounds than either MF arm reaches in the deadline (checked)
+ADAPTIVE_PA = dict(ELASTIC_PA, rounds=20)  # ELASTIC_PA's width; rounds past what an arm reaches (checked)
+ADAPTIVE_METRIC = "cluster_pull_rtt_seconds"
+ADAPTIVE_RMSE_BAR = 1.10  # adaptive RMSE <= fixed RMSE x 1.10, the reference's bar
+ADAPTIVE_DRAIN_SHARDS = 3
+ADAPTIVE_REPORT_DECISIONS = 40  # the run report's decision tail (telemetry/report.py)
+
+
+class _DelayForwarder:
+    """A TCP forwarder that sleeps ``lag_s`` before passing each chunk it
+    reads on, in either direction: worker 0's lagged link in the adaptive
+    phase.  Scaffolding of this script, not a feature of the package: the
+    reference builds the link with ``nemesis/proxy.ChaosProxy``, which the
+    port does not have yet (ROADMAP Queue 1 #7g); the phase switches to it
+    once it lands."""
+
+    def __init__(self, host, port, lag_s):
+        import socket
+        import threading
+
+        self.target, self.lag_s = (host, port), float(lag_s)
+        self._listener = socket.create_server(("127.0.0.1", 0))
+        self.host, self.port = self._listener.getsockname()[:2]
+        self._socks, self._threads = [], []
+        self._lock = threading.Lock()
+        self._spawn(self._accept)
+
+    def _spawn(self, fn, *args):
+        import threading
+
+        t = threading.Thread(target=fn, args=args, name="smoke-lag", daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _accept(self):
+        import socket
+
+        while True:
+            try:
+                down, _ = self._listener.accept()
+            except OSError:
+                return  # stop() closed the listener
+            try:
+                up = socket.create_connection(self.target, timeout=10)
+                up.settimeout(None)
+            except OSError:
+                down.close()
+                continue
+            with self._lock:
+                self._socks += [down, up]
+            for a, b in ((down, up), (up, down)):
+                a.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._spawn(self._pump, a, b)
+
+    def _pump(self, src, dst):
+        import socket
+
+        try:
+            while True:
+                chunk = src.recv(1 << 20)
+                if not chunk:
+                    break
+                time.sleep(self.lag_s)
+                dst.sendall(chunk)
+        except OSError:
+            pass
+        for s in (src, dst):  # either side closing ends both directions
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def stop(self):
+        import socket
+
+        # shutdown wakes the threads blocked in accept() and recv(); a bare
+        # close() does not
+        with self._lock:
+            socks = [self._listener] + list(self._socks)
+        for s in socks:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            s.close()
+        for t in self._threads:
+            t.join(timeout=10)
+        check(not any(t.is_alive() for t in self._threads), "adaptive: a forwarder thread outlived stop()")
+
+
+def _lagged_driver_cls(lag_s):
+    """``benchmarks/straggler_ab.py``'s ``LaggedWorkerDriver``: an elastic
+    cluster whose worker 0 reaches every shard through a delaying link (its
+    client is built against a membership view whose addresses are the
+    forwarders'; the healthy workers and the control plane dial direct)."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch.elastic import ElasticClusterDriver
+
+    class _LaggedMembership:
+        def __init__(self, inner, addresses):
+            self._inner, self._addresses = inner, tuple(tuple(a) for a in addresses)
+
+        def current(self):
+            return dataclasses.replace(self._inner.current(), addresses=self._addresses, replicas=())
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+    class LaggedWorkerDriver(ElasticClusterDriver):
+        def __init__(self, logic, **kwargs):
+            self.forwarders = []
+            super().__init__(logic, **kwargs)
+
+        def _make_client(self, worker=None):
+            if worker != "0":
+                return super()._make_client(worker)
+            real = self.membership
+            for host, port in real.current().addresses:
+                self.forwarders.append(_DelayForwarder(host, port, lag_s))
+            self.membership = _LaggedMembership(real, [(f.host, f.port) for f in self.forwarders])
+            try:
+                return super()._make_client(worker)
+            finally:
+                self.membership = real
+
+        def stop(self):
+            super().stop()
+            for f in self.forwarders:
+                f.stop()
+            self.forwarders = []
+
+    return LaggedWorkerDriver
+
+
+def _rmse(values, oracle) -> float:
+    v, o = np.asarray(values, np.float64), np.asarray(oracle, np.float64)
+    return float(np.sqrt(np.mean((v - o) ** 2)))
+
+
+def _adaptive_surfaces(rt, reg, card):
+    """With the runtime installed: ``/adaptive`` and the run report's
+    adaptive section are non-null and equal ``rt.payload()`` (the report
+    keeps the decision ring's tail)."""
+    from flink_parameter_server_tpu_torch.adaptive import set_adaptive_runtime
+    from flink_parameter_server_tpu_torch.telemetry.exporter import TelemetryServer, scrape
+    from flink_parameter_server_tpu_torch.telemetry.report import build_run_report
+
+    set_adaptive_runtime(rt)
+    tel = TelemetryServer(reg, port=0).start()
+    try:
+        t0 = time.perf_counter()
+        doc = json.loads(scrape(tel.host, tel.port, "adaptive"))
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        section = build_run_report(reg).get("adaptive")
+    finally:
+        tel.stop()
+        set_adaptive_runtime(None)
+    payload = json.loads(json.dumps(rt.payload()))
+    check(doc.get("adaptive") is not None and section is not None,
+          "adaptive: /adaptive or the run report's adaptive section is null with a runtime installed")
+    check(doc["adaptive"] == payload, "adaptive: /adaptive differs from rt.payload()")
+    decisions = payload["decisions"]
+    want = dict(payload, decisions=decisions[-ADAPTIVE_REPORT_DECISIONS:],
+                decisions_truncated=max(0, len(decisions) - ADAPTIVE_REPORT_DECISIONS))
+    check(json.loads(json.dumps(section)) == want, "adaptive: the run report's adaptive section differs from rt.payload()")
+    print(f"adaptive: /adaptive and the run report's section equal rt.payload() ({len(decisions)} decisions, "
+          f"{payload['ticks']} ticks; scrape {scrape_ms:.1f} ms); {card}")
+
+
+def _adaptive_arm(torch, dev, card, wl, batches, oracle, adaptive, surfaces=False):
+    """One arm of the straggler A/B (``benchmarks/straggler_ab.py`` run_arm):
+    an elastic 4-worker x 2-shard hash cluster at SSP bound 2, worker 0
+    lagged, one unmeasured round, then ``driver.run(deadline_s=6)``."""
+    from flink_parameter_server_tpu_torch.adaptive import AdaptiveRuntime, RebalancePolicy, WorkRouter
+    from flink_parameter_server_tpu_torch.elastic import ElasticClusterConfig
+    from flink_parameter_server_tpu_torch.nemesis.invariants import (
+        AdaptiveBoundSampler, check_adaptive_bound, check_exactly_once,
+    )
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.telemetry.timeline import SkewTracker, TimelineRecorder
+    from flink_parameter_server_tpu_torch.workloads import build_cluster_driver
+
+    arm = "adaptive" if adaptive else "fixed"
+    reg = MetricsRegistry()
+    cfg = ElasticClusterConfig(
+        num_shards=ADAPTIVE_SHARDS, num_workers=ADAPTIVE_WORKERS, staleness_bound=ADAPTIVE_BOUND,
+        partition="hash", adaptive=adaptive, adaptive_push_hedge_after_s=0.01 if adaptive else None,
+    )
+    driver = build_cluster_driver(wl, config=cfg, driver_cls=_lagged_driver_cls(ADAPTIVE_LAG_S), registry=reg)
+    tl = rt = None
+    with driver:
+        check(all(s.store.table.device.type == dev.type for s in driver.shards),
+              f"adaptive: {wl.name} {arm}: a shard slice is not on {dev.type}")
+        driver.run(batches[:1], timeout=600)  # the same unmeasured round in both arms
+        if adaptive:
+            tl = TimelineRecorder(
+                reg, interval_s=0.04, include=lambda n: n == ADAPTIVE_METRIC,
+                skew=[SkewTracker(ADAPTIVE_METRIC, entity_label="worker", field="p50",
+                                  min_points=2, warmup_evals=2)],
+            ).start()
+            router = WorkRouter(ADAPTIVE_WORKERS, subgroups=ADAPTIVE_SUBGROUPS)
+            driver.work_router = router
+            rt = AdaptiveRuntime(
+                driver, tl, interval_s=0.04, registry=reg,
+                rebalance=RebalancePolicy(router, persist_evals=2, cooldown_s=0.1,
+                                          max_moves=ADAPTIVE_SUBGROUPS, groups_per_move=4, round_delay=2),
+            ).start()
+        zero_counts()
+        try:
+            with AdaptiveBoundSampler(driver, interval_s=0.002) as sampler:
+                r = driver.run(batches, deadline_s=ADAPTIVE_DEADLINE_S, timeout=600)
+        finally:
+            if rt is not None:
+                rt.stop()
+            if tl is not None:
+                tl.stop()
+        read_counts(f"adaptive: {wl.name} {arm} arm", {})
+        acked = sum(c.rows_pushed for c in driver._clients)
+        applied = sum(s.rows_applied for s in driver.shards)
+        ledger = check_exactly_once(acked, applied)
+        check(ledger.ok, f"adaptive: {wl.name} {arm}: {ledger.detail}")
+        rounds = max(r.clock["clocks"])
+        check(rounds < len(batches), f"adaptive: {wl.name} {arm} ran out of stream ({rounds} rounds): "
+                                     f"the deadline no longer bounds the run")
+        if surfaces:
+            _adaptive_surfaces(rt, reg, card)
+    rmse = _rmse(r.values, oracle)
+    check(bool(np.isfinite(r.values).all()), f"adaptive: {wl.name} {arm}: the table is not finite")
+    print(f"adaptive: {wl.name} {arm}: {r.events} events in {r.wall_s:.3f} s: goodput {r.updates_per_sec:.1f} "
+          f"events/s, worker clocks {r.clock['clocks']} of {len(batches)} rounds, RMSE against the fault-free oracle "
+          f"{rmse:.6g}, acked == applied == {acked} rows; {card}")
+    out = {"goodput": r.updates_per_sec, "rmse": rmse}
+    if adaptive:
+        p = rt.payload()
+        samples = sampler.samples
+        verdict = check_adaptive_bound(samples, ADAPTIVE_BOUND, 2 * ADAPTIVE_BOUND + 1)
+        mech = dict(widenings=p["counts"]["widenings"], narrowings=p["counts"]["narrowings"],
+                    hedged_pushes=p["hedge"]["issued"], push_hedges_won=p["hedge"]["won"],
+                    work_moves=p["rebalance"]["moves"])
+        print(f"adaptive: {wl.name} adaptive mechanisms: {mech}, {len(p['decisions'])} decisions, "
+              f"{p['ticks']} ticks; bound envelope: {verdict.detail}; {card}")
+        check(verdict.ok, f"adaptive: {wl.name}: {verdict.detail}")
+        check(mech["widenings"] + mech["hedged_pushes"] + mech["work_moves"] > 0,
+              f"adaptive: {wl.name}: the adaptive arm fired no mechanism ({mech})")
+    return out
+
+
+def _mf_at_lr(params, dev, lr):
+    """``MFWorkload`` with its SGD step size set to ``lr``: the workload's
+    own 0.05 diverges at the main path's width after 16-24 rounds of
+    65,536 ratings (non-finite by round 32 on the CPU), inside the stream a
+    deadline-bound arm needs; the main path's 0.01 stays finite."""
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import OnlineMatrixFactorization, SGDUpdater
+    from flink_parameter_server_tpu_torch.workloads.mf import MFWorkload
+
+    class _MF(MFWorkload):
+        def make_logic(self):
+            return OnlineMatrixFactorization(self.params.num_users, self.params.dim,
+                                             updater=SGDUpdater(lr), seed=1, device=self.device)
+
+    return _MF(params, device=dev)
+
+
+def phase_adaptive(torch, dev, card):
+    """The straggler-adaptive runtime on the card (``adaptive/``), as
+    ``benchmarks/straggler_ab.py`` runs it: an ``ElasticClusterDriver``
+    with 4 workers x 2 shards, hash partition, SSP bound 2 (ceiling 5),
+    slices on the card; worker 0's links to every shard delay each chunk
+    25 ms both ways (a forwarder in this script).  Per workload a fixed arm
+    and an adaptive arm (``adaptive=True``, push hedging after 10 ms, a
+    ``TimelineRecorder`` at 40 ms with a ``SkewTracker`` on the workers' pull
+    round-trip p50, ``AdaptiveRuntime`` at 40 ms with a ``RebalancePolicy``,
+    ``AdaptiveBoundSampler`` at 2 ms), each under ``run(deadline_s=6)``
+    after one unmeasured round: MF at 100,000 x 131,072, dim 64, 65,536
+    ratings a round, lr 0.01 (the workload's 0.05 diverges at this width
+    within the stream), then PA at the elastic phase's 8,192 features x
+    1,024 examples a round.  Checks: the bound envelope, a mechanism fired,
+    adaptive RMSE <= fixed x 1.10 against the fault-free oracle, acked ==
+    applied, no kernel launch.  Then ``drain_shard(0)`` on a 3-shard elastic
+    MF driver at full width (every row bitwise, shard 0 empty), and
+    ``/adaptive`` and the run report's section equal to ``rt.payload()``."""
+    import shutil
+    import tempfile
+
+    from flink_parameter_server_tpu_torch.elastic import ElasticClusterConfig, ElasticClusterDriver
+    from flink_parameter_server_tpu_torch.workloads import WorkloadParams, build_cluster_driver, create_workload
+
+    t_phase = time.perf_counter()
+    mf = _mf_at_lr(WorkloadParams(rounds=ADAPTIVE_MF_ROUNDS, batch=BATCH, num_users=NUM_USERS, num_items=NUM_ITEMS,
+                                  dim=DIM_UNFUSED, num_workers=ADAPTIVE_WORKERS), dev, LEARNING_RATE)
+    pa = create_workload("pa", WorkloadParams(**ADAPTIVE_PA, num_workers=ADAPTIVE_WORKERS), device=dev)
+    for wl in (mf, pa):
+        t0 = time.perf_counter()
+        batches = wl.batches()
+        oracle = wl.oracle_values()
+        print(f"adaptive: {wl.name} stream ({len(batches)} rounds) and fault-free oracle built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        fixed = _adaptive_arm(torch, dev, card, wl, batches, oracle, adaptive=False)
+        adapt = _adaptive_arm(torch, dev, card, wl, batches, oracle, adaptive=True, surfaces=wl is mf)
+        ratio = adapt["goodput"] / fixed["goodput"]
+        print(f"adaptive: {wl.name}: goodput adaptive / fixed = {adapt['goodput']:.1f} / {fixed['goodput']:.1f} "
+              f"= {ratio:.3f}x; RMSE {adapt['rmse']:.6g} against {fixed['rmse']:.6g} (bar x{ADAPTIVE_RMSE_BAR}); {card}")
+        check(adapt["rmse"] <= fixed["rmse"] * ADAPTIVE_RMSE_BAR,
+              f"adaptive: {wl.name}: adaptive RMSE {adapt['rmse']:.6g} over the fixed arm's "
+              f"{fixed['rmse']:.6g} x {ADAPTIVE_RMSE_BAR}")
+        del batches, oracle
+
+    # drain_shard(0) at weight 0 on a 3-shard elastic MF driver at full width
+    tmp = tempfile.mkdtemp(prefix="adaptive-", dir=os.path.join(REPO, "build"))
+    try:
+        drain_mf = create_workload("mf", WorkloadParams(rounds=2, batch=BATCH, num_users=NUM_USERS,
+                                                        num_items=NUM_ITEMS, dim=DIM_UNFUSED), device=dev)
+        d = build_cluster_driver(
+            drain_mf, config=ElasticClusterConfig(num_shards=ADAPTIVE_DRAIN_SHARDS, num_workers=1,
+                                                  wal_dir=os.path.join(tmp, "drain")),
+            driver_cls=ElasticClusterDriver, registry=False,
+        )
+        with d:
+            zero_counts()
+            d.run(drain_mf.batches(), timeout=600)
+
+            def table():
+                out = np.empty((NUM_ITEMS, DIM_UNFUSED), np.float32)
+                seen = np.zeros(NUM_ITEMS, bool)
+                for s in d.shards:
+                    out[s.owned] = s.values()
+                    seen[s.owned] = True
+                check(bool(seen.all()), "adaptive: drain: a row has no owner")
+                return out
+
+            before = table()
+            t0 = time.perf_counter()
+            report = d.drain_shard(0)
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            after = table()
+            read_counts("adaptive: the drain run", {})
+            check(report.verified and report.mismatches == 0, f"adaptive: drain: {report}")
+            check(len(d.shards[0].owned) == 0 and d.partitioner.owned_ids(0).size == 0,
+                  "adaptive: drain: shard 0 still owns keys")
+            check(all(s.store.table.device.type == dev.type for s in d.shards), "adaptive: drain: a slice left the card")
+            check(before.tobytes() == after.tobytes(), "adaptive: drain: a row changed")
+        print(f"adaptive: drain_shard(0) at weight 0 on {ADAPTIVE_DRAIN_SHARDS} card shards ({NUM_ITEMS:,} x "
+              f"{DIM_UNFUSED}): {report.rows_moved:,} rows moved in {drain_ms:.1f} ms, verified, 0 mismatches, "
+              f"every row bitwise, shard 0 owns 0 keys; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"adaptive: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+TIER_ROWS, TIER_DIM, TIER_HOT = 1 << 24, 16, 1 << 20  # benchmarks/tierstore_soak.py's defaults
+TIER_BATCH, TIER_WARMUP, TIER_ROUNDS = 8192, 100, 400  # its --batch, --warmup, --rounds
+TIER_CARD_SLACK = 16 << 20  # a batch's transients beside the hot tier on the card (index and row tensors)
+TIER_LEG_ROWS, TIER_LEG_DIM = 1 << 12, 4  # its correctness legs' shapes
+TIER_CLUSTER_ROUNDS = 12  # the cluster phase's run length
+
+
+def _log_uniform(rng, n, batch):
+    """benchmarks/tierstore_soak.py's draw: ``id = floor(n^u) - 1``, u ~ U[0, 1)."""
+    return np.minimum(np.exp(rng.random(batch) * np.log(n)).astype(np.int64), n - 1)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _tier_soak_arm(torch, dev, card, arm, stream):
+    """One soak arm over the deduplicated stream: per round one pull (rows
+    to the host, as a shard answers) and one push, timed to the end of the
+    device work; the first ``TIER_WARMUP`` rounds untimed."""
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore, push as store_push
+    from flink_parameter_server_tpu_torch.core.transform import to_device, to_host
+    from flink_parameter_server_tpu_torch.ops.rows import take_rows
+    from flink_parameter_server_tpu_torch.tierstore import TieredStore
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rss0 = _rss_bytes()
+    store = st = None
+    if arm == "dense":
+        store = ShardedParamStore.create(TIER_ROWS, (TIER_DIM,), device=dev)
+    else:
+        st = TieredStore(TIER_ROWS, (TIER_DIM,), hot_rows=TIER_HOT, name_hint=arm,
+                         device=dev if arm == "tiered-card" else "cpu")
+    pulls, pushes, samples = [], [], []
+    for i, (ids, deltas) in enumerate(stream):
+        t = time.perf_counter()
+        if store is not None:
+            rows = to_host(take_rows(store.table, to_device(ids, dev)))
+        else:
+            rows = st.gather(ids)
+        t_pull = time.perf_counter() - t
+        t = time.perf_counter()
+        if store is not None:
+            store_push(store.spec, store.table, to_device(ids, dev), to_device(deltas, dev))
+        else:
+            st.push(ids, deltas)
+        torch.cuda.synchronize()
+        t_push = time.perf_counter() - t
+        if i >= TIER_WARMUP:
+            pulls.append(t_pull)
+            pushes.append(t_push)
+        if st is not None:
+            # the fields stats() reports, read without its flush of the
+            # sketch buffer (which would move the fold out of the timed
+            # window)
+            samples.append({arm: (st.resident, st.hot_rows)})
+        del rows
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    rss = _rss_bytes() - rss0
+    t = time.perf_counter()
+    values = to_host(store.values(), copy=True) if store is not None else st.values()
+    values_s = time.perf_counter() - t
+    pct = lambda xs, q: float(np.percentile(np.asarray(xs), q)) * 1e3  # noqa: E731
+    out = dict(pull50=pct(pulls, 50), pull99=pct(pulls, 99), push50=pct(pushes, 50), push99=pct(pushes, 99),
+               peak=peak, rss=rss, samples=samples)
+    line = (f"tierstore: soak {arm}: pull p50 {out['pull50']:.3f} / p99 {out['pull99']:.3f} ms, push p50 "
+            f"{out['push50']:.3f} / p99 {out['push99']:.3f} ms ({TIER_ROUNDS} timed rounds after {TIER_WARMUP}); "
+            f"card peak {peak / 2**20:.1f} MiB over the arm's start; host RSS +{rss / 2**20:.1f} MiB; "
+            f"values() {values_s:.2f} s")
+    if st is not None:
+        s = st.stats()
+        refs = 2 * sum(ids.size for ids, _ in stream)
+        out.update(hit_rate=s["hits"] / refs, stats=s)
+        scan_ms = s["cum_evict_scan_s"] / max(1, s["evict_scans"]) * 1e3
+        line += (f"; hit rate {out['hit_rate']:.4f} ({s['hits']:,} hits, {s['misses']:,} misses of {refs:,} "
+                 f"references), promotes {s['promotes']:,}, demotes {s['demotes']:,} ({s['demote_writes']:,} "
+                 f"written), spills {s['spills']:,}, {s['evict_scans']} eviction scans ({scan_ms:.1f} ms each, "
+                 f"{s['cum_evict_scan_s']:.2f} s in all), slab {s['slab_rows']:,} rows, {s['decays']} decays")
+        st.close()
+    print(f"{line}; {card}")
+    del store, st
+    return out, values
+
+
+def _tier_legs(torch, dev, card, tmp):
+    """The soak's correctness legs (``benchmarks/tierstore_soak.py``
+    leg_parity_bitwise, leg_wal_replay, the kill -> promote chain,
+    leg_migration) on tiered shards whose hot tiers are on the card."""
+    from flink_parameter_server_tpu_torch.cluster import ConsistentHashPartitioner, RangePartitioner, ShardServer
+    from flink_parameter_server_tpu_torch.cluster.shard import ParamShard
+    from flink_parameter_server_tpu_torch.elastic import execute_moves, plan_moves
+    from flink_parameter_server_tpu_torch.nemesis.invariants import TierResidencySampler, check_tier_residency
+    from flink_parameter_server_tpu_torch.replication import ReplHub, ReplicaShard, WALShipper
+    from flink_parameter_server_tpu_torch.replication.failover import verify_against_log
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    R, D = TIER_LEG_ROWS, TIER_LEG_DIM
+
+    def tiered(sid, part, hot, **kw):
+        return ParamShard(sid, part, (D,), registry=False, store_backend="tiered", tier_hot_rows=hot,
+                          device=dev, **kw)
+
+    t0 = time.perf_counter()
+    with TierResidencySampler(interval_s=0.002) as sampler:
+        # tiered against the reference leg's dense numpy shard over the same
+        # raw pushes (duplicates add in arrival order in both), bitwise
+        part, init = RangePartitioner(R, 1), ranged_random_factor(11, (D,))
+
+        def host_init(ids):
+            return init(torch.from_numpy(np.asarray(ids, np.int64))).numpy()
+
+        a = tiered(0, part, 64, init_fn=init)
+        b = ParamShard(0, part, (D,), init_fn=host_init, registry=False, store_backend="numpy")
+        try:
+            check(a.store._hot.device.type == dev.type, "tierstore: leg parity: the hot tier is not on the card")
+            rng = np.random.default_rng(3)
+            for i in range(40):
+                ids = _log_uniform(rng, R, 256)
+                check(a.pull(ids).tobytes() == b.pull(ids).tobytes(), f"tierstore: leg parity: pull {i} differs")
+                deltas = rng.normal(size=(256, D)).astype(np.float32)
+                a.push(ids, deltas)
+                b.push(ids, deltas)
+            check(a.values().tobytes() == b.values().tobytes(), "tierstore: leg parity: values() differ")
+        finally:
+            a.close()
+            b.close()
+        # WAL replay through the cold rows
+        init = ranged_random_factor(5, (D,))
+        wal = os.path.join(tmp, "leg-wal")
+        s = tiered(0, part, 48, init_fn=init, wal_dir=wal)
+        try:
+            rng = np.random.default_rng(9)
+            for _ in range(30):
+                s.push(_log_uniform(rng, R, 128), rng.normal(size=(128, D)).astype(np.float32))
+            before = s.values().copy()
+            s.crash()
+            check(s.restart() == 30, "tierstore: leg WAL: restart replayed a wrong record count")
+            check(s.values().tobytes() == before.tobytes(), "tierstore: leg WAL: the replayed slice differs")
+        finally:
+            s.close()
+        reborn = tiered(0, part, 48, init_fn=init, wal_dir=wal)
+        try:
+            check(reborn.values().tobytes() == before.tobytes(), "tierstore: leg WAL: a fresh shard over the log differs")
+        finally:
+            reborn.close()
+        # a tiered follower catches up, is promoted and passes the audit
+        hpart, init = ConsistentHashPartitioner(R, 1), ranged_random_factor(13, (D,))
+        primary = tiered(0, hpart, 48, init_fn=init, wal_dir=os.path.join(tmp, "leg-p"))
+        follower = ReplicaShard(0, hpart, (D,), init_fn=init, wal_dir=os.path.join(tmp, "leg-f"), registry=False,
+                                store_backend="tiered", tier_hot_rows=48, device=dev)
+        fsrv = ShardServer(follower, supervised=False).start()
+        hub = ReplHub()
+        ship = WALShipper(primary, (fsrv.host, fsrv.port), hub.subscribe(), registry=False).start()
+        primary.attach_repl_sink(hub)
+        try:
+            rng = np.random.default_rng(9)
+            for _ in range(20):
+                ids = rng.choice(R, 64, replace=False)
+                primary.push(ids, rng.normal(size=(64, D)).astype(np.float32))
+            deadline = time.monotonic() + 60
+            while follower.repl_state()["applied"] != primary.head_seq() and time.monotonic() < deadline:
+                time.sleep(0.005)
+            check(follower.repl_state()["applied"] == primary.head_seq(), "tierstore: leg chain: the follower never caught up")
+            check(primary.values().tobytes() == follower.values().tobytes(), "tierstore: leg chain: follower != primary")
+            ship.stop()
+            follower.catch_up()
+            follower.promote_to_primary(1)
+            check(follower.role == "primary" and verify_against_log(follower),
+                  "tierstore: leg chain: the promoted follower fails verify_against_log")
+        finally:
+            ship.stop()
+            fsrv.stop()
+            primary.close()
+            follower.close()
+        # plan_moves / execute_moves between tiered shards, bitwise at handoff
+        old = ConsistentHashPartitioner(R, 1, seed=2)
+        new = old.grown(2)
+        init = ranged_random_factor(3, (D,))
+        src, dst = tiered(0, old, 64, init_fn=init), tiered(1, new, 64, init_fn=init)
+        servers = [ShardServer(src, supervised=False).start(), ShardServer(dst, supervised=False).start()]
+        try:
+            rng = np.random.default_rng(1)
+            for _ in range(10):
+                src.push(_log_uniform(rng, R, 256), rng.normal(size=(256, D)).astype(np.float32))
+            moves = plan_moves(old, new)
+            pre = {mv.dst: src.snapshot_rows(mv.ids)[0] for mv in moves}
+            report = execute_moves(moves, {0: src, 1: dst},
+                                   {0: (servers[0].host, servers[0].port), 1: (servers[1].host, servers[1].port)},
+                                   (D,), verify=True, registry=False)
+            check(report.verified and report.mismatches == 0
+                  and report.rows_moved == sum(len(m.ids) for m in moves), f"tierstore: leg migration: {report}")
+            for mv in moves:
+                check(dst.peek_rows(mv.ids).tobytes() == pre[mv.dst].tobytes(),
+                      "tierstore: leg migration: a moved row differs at the destination")
+        finally:
+            for srv in servers:
+                srv.stop()
+            src.close()
+            dst.close()
+    verdict = check_tier_residency(sampler.samples)
+    check(verdict.ok, f"tierstore: legs: {verdict.detail}")
+    print(f"tierstore: (b) legs on card-backed tiered shards ({R:,} x {D}, hot tiers of 48-64 rows): tiered == "
+          f"dense numpy bitwise over 40 pulls and raw pushes, WAL replay through cold rows bitwise (restart and a fresh "
+          f"shard), a tiered follower caught up bitwise, promoted, verify_against_log, migration verified with "
+          f"{report.rows_moved:,} rows bitwise at handoff; residency {verdict.detail}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
+def phase_tierstore(torch, dev, card):
+    """The two-tier store on the card (``tierstore/``).  (a) The soak of
+    ``benchmarks/tierstore_soak.py`` at its own size: a 2**24-row x dim-16
+    float32 slice (1 GiB dense) under its log-uniform draw, 8,192 ids a
+    round deduplicated as the client does (``ops/dedup.aggregate_deltas``),
+    100 untimed and 400 timed rounds, three arms: ``dense`` (the port's
+    store on the card), ``tiered-card`` (a 2**20-row hot tier on the card,
+    64 MiB) and ``tiered-host`` (``device="cpu"``, the reference's layout).
+    Checks: residency in every round, both tiered arms' ``values()`` the
+    dense arm's bitwise, ``tiered-card``'s peak on the card at most the hot
+    tier plus 16 MiB.  (b) The soak's recovery legs on card-backed tiered
+    shards.  (c) MF at 100,000 x 131,072, dim 64, BSP 4 workers x 2 shards
+    with ``push_aggregate=True`` (one merged push per shard a round, so
+    both runs apply the same float32 adds in the same order):
+    ``store_backend="tiered"`` with a quarter of each shard's rows hot
+    against ``"socket"``, bitwise, and ``/tiers`` naming both shards.  No
+    kernel launches."""
+    import shutil
+    import tempfile
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig
+    from flink_parameter_server_tpu_torch.nemesis.invariants import TierResidencySampler, check_tier_residency
+    from flink_parameter_server_tpu_torch.ops.dedup import aggregate_deltas
+    from flink_parameter_server_tpu_torch.telemetry.exporter import TelemetryServer, scrape
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.workloads import WorkloadParams, build_cluster_driver, create_workload
+
+    t_phase = time.perf_counter()
+    # (a) the soak
+    rng, drng = np.random.default_rng(0), np.random.default_rng(1)
+    stream = []
+    for _ in range(TIER_WARMUP + TIER_ROUNDS):
+        ids = _log_uniform(rng, TIER_ROWS, TIER_BATCH)
+        stream.append(aggregate_deltas(ids, drng.normal(size=(TIER_BATCH, TIER_DIM)).astype(np.float32)))
+    uniq = np.mean([ids.size for ids, _ in stream])
+    print(f"tierstore: soak stream: {len(stream)} rounds of {TIER_BATCH:,} log-uniform ids over {TIER_ROWS:,} "
+          f"rows, {uniq:.0f} unique a round on average, built in {time.perf_counter() - t_phase:.1f} s")
+    zero_counts()
+    arms = {}
+    dense, dense_values = _tier_soak_arm(torch, dev, card, "dense", stream)
+    for arm in ("tiered-card", "tiered-host"):
+        arms[arm], values = _tier_soak_arm(torch, dev, card, arm, stream)
+        check(values.tobytes() == dense_values.tobytes(), f"tierstore: soak {arm}: values() differ from dense")
+        verdict = check_tier_residency(arms[arm]["samples"])
+        check(verdict.ok, f"tierstore: soak {arm}: {verdict.detail}")
+        del values
+    read_counts("tierstore: the soak", {})
+    del dense_values
+    hot_bytes = TIER_HOT * TIER_DIM * 4
+    card_peak = arms["tiered-card"]["peak"]
+    check(card_peak <= hot_bytes + TIER_CARD_SLACK,
+          f"tierstore: tiered-card peak {card_peak / 2**20:.1f} MiB over the hot tier's "
+          f"{hot_bytes / 2**20:.0f} MiB + {TIER_CARD_SLACK >> 20} MiB")
+    print(f"tierstore: soak: pull p50 tiered-card / dense {arms['tiered-card']['pull50'] / dense['pull50']:.2f}x, "
+          f"tiered-host / dense {arms['tiered-host']['pull50'] / dense['pull50']:.2f}x (the reference's bar 2x); "
+          f"card peak dense {dense['peak'] / 2**20:.1f} / tiered-card {card_peak / 2**20:.1f} / tiered-host "
+          f"{arms['tiered-host']['peak'] / 2**20:.1f} MiB; both tiered values() == dense bitwise; residency held "
+          f"in every round; {card}")
+    del stream
+
+    tmp = tempfile.mkdtemp(prefix="tierstore-", dir=os.path.join(REPO, "build"))
+    try:
+        # (b) the recovery planes
+        zero_counts()
+        _tier_legs(torch, dev, card, tmp)
+        read_counts("tierstore: the legs", {})
+
+        # (c) a tiered cluster against the socket one
+        mf = create_workload("mf", WorkloadParams(rounds=TIER_CLUSTER_ROUNDS, batch=BATCH, num_users=NUM_USERS,
+                                                  num_items=NUM_ITEMS, dim=DIM_UNFUSED), device=dev)
+        batches = mf.batches()
+        hot = NUM_ITEMS // 2 // 4
+        vals, rates = {}, {}
+        for backend in ("socket", "tiered"):
+            reg = MetricsRegistry()
+            d = build_cluster_driver(mf, config=ClusterConfig(
+                num_shards=2, num_workers=4, staleness_bound=0, push_aggregate=True,
+                store_backend=backend, tier_hot_rows=hot), registry=reg)
+            zero_counts()
+            with d:
+                with TierResidencySampler(interval_s=0.005) as sampler:
+                    r = d.run(batches, timeout=600)
+                if backend == "tiered":
+                    check(all(s.store._hot.device.type == dev.type and s.store.hot_rows == hot for s in d.shards),
+                          "tierstore: (c) a shard's hot tier is not on the card")
+                    tel = TelemetryServer(reg, port=0).start()
+                    try:
+                        tiers = json.loads(scrape(tel.host, tel.port, "tiers"))["tiers"]
+                    finally:
+                        tel.stop()
+                    check(tiers is not None and {"shard-0", "shard-1"} <= set(tiers),
+                          f"tierstore: (c) /tiers names {None if tiers is None else sorted(tiers)}")
+                    verdict = check_tier_residency(sampler.samples)
+                    check(verdict.ok, f"tierstore: (c) {verdict.detail}")
+                    print(f"tierstore: (c) /tiers: " + ", ".join(
+                        f"{k}: resident {v['resident_rows']:,}/{v['hot_capacity_rows']:,}, hits {v['hits']:,}, "
+                        f"misses {v['misses']:,}, demotes {v['demotes']:,}, slab {v['slab_rows']:,}"
+                        for k, v in sorted(tiers.items()) if k in ("shard-0", "shard-1"))
+                        + f"; residency {verdict.detail}")
+            read_counts(f"tierstore: (c) {backend}", {})
+            vals[backend], rates[backend] = r.values, r.rounds / r.wall_s
+        check(vals["tiered"].tobytes() == vals["socket"].tobytes(),
+              "tierstore: (c) the tiered cluster's table differs from the socket one")
+        print(f"tierstore: (c) MF {NUM_USERS:,} x {NUM_ITEMS:,} dim {DIM_UNFUSED}, BSP 4 workers x 2 shards, "
+              f"push_aggregate, {TIER_CLUSTER_ROUNDS} rounds: tiered (hot {hot:,} of {NUM_ITEMS // 2:,} rows a "
+              f"shard) {rates['tiered']:.2f} rounds/s against socket {rates['socket']:.2f}; final tables bitwise "
+              f"equal; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tierstore: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -4041,6 +4751,8 @@ def main() -> int:
         phase_replication(torch, dev, card)
         phase_telemetry(torch, dev, card)
         phase_hotcache(torch, dev, card)
+        phase_adaptive(torch, dev, card)
+        phase_tierstore(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

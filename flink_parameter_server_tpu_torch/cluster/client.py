@@ -9,10 +9,12 @@ refresh-and-retry loop, the ``pid`` exactly-once token and ``hedge`` pull
 races), replica-chain reads (``replicas=`` / ``read_replicas=`` and the
 view's replica sets, with the fallback to the primary) and the hot-key
 lease cache (``hotcache=``, ``lease_policy=``, ``lease_ttl=``; host numpy
-rows, as the wire's are).  The reference's ``push_hedge`` and
-``retry_budget`` (the soak harness's token bucket) raise
-``NotImplementedError`` until adaptive/ and the rest of loadgen/ are
-ported (ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/.
+rows, as the wire's are) and the adaptive runtime's push hedging
+(``push_hedge=``, an ``adaptive/hedge.PushHedger``: a push races a
+budgeted backup only when it carries a ``pid``, so the shard's exactly-once
+window absorbs the losing leg).  ``retry_budget`` (the soak harness's
+token bucket) raises ``NotImplementedError`` until the rest of loadgen/ is
+ported (ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/ (#7f).
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
 real shard sockets, plus the batch surface the compiled path uses.
@@ -96,7 +98,8 @@ A client without ``membership`` behaves exactly as before: static
 addresses, no epoch tags, rejections raise.  ``hedge=`` accepts a
 :class:`~..elastic.hedging.Hedger`: pull frames race a budgeted backup
 connection against a slow shard — first answer wins (pulls are
-idempotent; pushes are never hedged).  Retry volume is visible on /metrics as ``client_retries_total{verb,reason}``.
+idempotent; pushes race only through ``push_hedge=``, and only when they
+carry a ``pid``).  Retry volume is visible on /metrics as ``client_retries_total{verb,reason}``.
 
 Hot-key lease cache (``hotcache=``, docs/hotcache.md): with a
 :class:`~..hotcache.cache.HotRowCache` and a lease policy attached,
@@ -573,16 +576,11 @@ class ClusterClient(ParameterServerClient):
         tracer=None,
         profiler=None,
     ):
-        _not_ported = (
-            ("push_hedge", push_hedge, "adaptive/"),
-            ("retry_budget", retry_budget, "loadgen/ (soak)"),
-        )
-        for knob, value, item in _not_ported:
-            if value:
-                raise NotImplementedError(
-                    f"ClusterClient {knob}=: {item} is not ported yet "
-                    f"(ROADMAP Queue 1 #7)"
-                )
+        if retry_budget:
+            raise NotImplementedError(
+                "ClusterClient retry_budget=: loadgen/ (soak) is not "
+                "ported yet (ROADMAP Queue 1 #7)"
+            )
         if membership is None:
             if addresses is None or partitioner is None:
                 raise ValueError(
@@ -626,6 +624,10 @@ class ClusterClient(ParameterServerClient):
             )
         self.membership = membership
         self.hedge = hedge
+        # write-side hedging is only safe when pushes carry a pid (the
+        # (pid,id) dedupe window suppresses the losing leg's apply), so
+        # _push_shard gates on pid presence, not just this handle
+        self.push_hedge = push_hedge
         self.value_shape = tuple(int(s) for s in value_shape)
         self.chunk = int(chunk)
         # b64 (default): exact fp32 bytes, ~100x cheaper than per-float
@@ -1224,6 +1226,8 @@ class ClusterClient(ParameterServerClient):
         self._pool.close()
         if self.hedge is not None:
             self.hedge.close()
+        if self.push_hedge is not None:
+            self.push_hedge.close()
 
     # -- internals ----------------------------------------------------------
     def _split(self, unique_ids: np.ndarray) -> Dict[int, np.ndarray]:
@@ -1280,11 +1284,11 @@ class ClusterClient(ParameterServerClient):
 
     def _request_frames(
         self, shard: int, sids: np.ndarray, build, *,
-        hedgeable: bool, trace=None,
+        hedgeable: bool, hedger=None, trace=None,
     ) -> List:
         """Send one shard's frames, rendered by ``build(conn)`` for the
         connection's negotiated protocol (hedged when ``hedgeable`` and
-        a hedger is attached).  A connection-level failure in elastic
+        a hedger is attached: ``hedger``, else the pull ``hedge``).  A connection-level failure in elastic
         mode becomes a :class:`_Rejected` (drop the cached connection,
         let the batch loop refresh + replay) instead of an error — the
         client sees latency while the controller replaces the shard.
@@ -1302,7 +1306,8 @@ class ClusterClient(ParameterServerClient):
         try:
             conn = self._conn_for(shard)
             reqs = build(conn)
-            if hedgeable and self.hedge is not None:
+            h = hedger if hedger is not None else self.hedge
+            if hedgeable and h is not None:
                 addr = self._addresses[shard]
 
                 def on_backup_won(spare_conn):
@@ -1314,7 +1319,7 @@ class ClusterClient(ParameterServerClient):
                         old.close()
                     self._conns[addr] = spare_conn
 
-                resps = self.hedge.request_many(
+                resps = h.request_many(
                     conn,
                     lambda: self._dial(addr),
                     reqs,
@@ -1815,11 +1820,18 @@ class ClusterClient(ParameterServerClient):
             return reqs
 
         # like pull: the push.shard<k> span covers serialize + round
-        # trip, the same window the push phases decompose.  Pushes are
-        # never hedged: a raced push could apply twice.
+        # trip, the same window the push phases decompose
         with span_cm:
             t0 = time.perf_counter()
-            resps = self._request_frames(shard, ids, build, hedgeable=False)
+            # hedged only when the batch carries a pid: the shard's
+            # (pid,id) dedupe window then absorbs the losing leg's
+            # duplicate apply, the same way it absorbs ambiguous
+            # retries — without a pid a raced push would double-apply
+            resps = self._request_frames(
+                shard, ids, build,
+                hedgeable=(pid is not None and self.push_hedge is not None),
+                hedger=self.push_hedge,
+            )
             per = (
                 (time.perf_counter() - t0) / max(1, len(resps))
                 - ser_cell[0]

@@ -10,10 +10,13 @@ socket wire is copied to and from the host explicitly.  Under the mesh
 backend the pulled rows are already on the device and the step's push
 goes to the device table without a host round trip.  ``hot_cache=True``
 gives each SSP / async worker client a hot-key lease cache (host rows,
-as the wire's are; ``hotcache/``).  The knobs that lead into modules not
-ported yet (``adaptive``, ``wire_proto="shm"``,
-``store_backend="tiered"``) raise ``NotImplementedError`` naming their
-ROADMAP item.  The elastic driver
+as the wire's are; ``hotcache/``).  ``adaptive=True`` builds an
+:class:`~..adaptive.bounds.AdaptiveClock` and honours ``work_router``
+(``adaptive/``); ``store_backend="tiered"`` is the socket topology with
+each shard's slice on the two-tier store, its hot tier on ``device``
+(``tierstore/``).  ``wire_proto="shm"`` raises ``NotImplementedError``
+until the shared-memory transport (shmem/, ROADMAP Queue 1 #7f) is
+ported.  The elastic driver
 (``elastic/controller.py``) subclasses this one and reuses
 :meth:`ClusterDriver._build_shard` for its spin-ups and replacements.
 
@@ -93,9 +96,21 @@ class ClusterConfig:
     # knobs (window, chunk, wire_format, wire_proto, spawn_grace_s,
     # host, timeouts) are then inert, and num_shards becomes layout
     # arithmetic (the block-aligned range partition) rather than a
-    # server count; "tiered" (the hot/cold tier store) raises until
-    # tierstore/ is ported (ROADMAP Queue 1 #7)
+    # server count; "tiered" = the socket topology with each shard's
+    # slice on the two-tier store (tierstore/) — the hot tier a bounded
+    # tensor on the driver's device, cold mutated rows in a host mmap
+    # slab, absent rows recomputed from the deterministic init, the
+    # slice's footprint on the device bounded by tier_hot_rows instead
+    # of the table size
     store_backend: str = "socket"
+    # tiered-store knobs (read only when store_backend="tiered"):
+    # hot-tier capacity per shard in rows; the slab scratch dir (None
+    # = the platform tmpdir — the slab is a cache, never a durability
+    # plane, so it does NOT belong beside the WAL); the sketch decay
+    # window in observed ids (0 derives 8 × tier_hot_rows)
+    tier_hot_rows: int = 65536
+    tier_slab_dir: Optional[str] = None
+    tier_decay_window: int = 0
     # 0 = BSP (parity with the single-process driver), k > 0 = SSP,
     # None = fully asynchronous (never block)
     staleness_bound: Optional[int] = 0
@@ -196,10 +211,21 @@ class ClusterConfig:
     # measured within the ≤3% telemetry overhead bar; False switches
     # every phase timer to the shared no-op.
     profile: bool = True
-    # straggler-adaptive runtime (adaptive/): True raises until it is
-    # ported (ROADMAP Queue 1 #7); False = stock StalenessClock and
-    # identity routing
+    # straggler-adaptive runtime (adaptive/, docs/adaptive.md) — the
+    # kill switch.  When True the driver builds an AdaptiveClock
+    # (per-worker staleness allowances, widened for flagged stragglers
+    # up to adaptive_bound_ceiling and never below staleness_bound)
+    # and honors self.work_router in _worker_mask; elastic drivers
+    # additionally attach a PushHedger to worker clients when
+    # adaptive_push_hedge_after_s is set.  False = stock StalenessClock
+    # and identity routing — byte-for-byte the non-adaptive driver.
     adaptive: bool = False
+    # hard cap on any worker's widened allowance; None = 2*bound + 1
+    # (one full extra SSP window), see adaptive/bounds.py
+    adaptive_bound_ceiling: Optional[int] = None
+    # push-hedge deferral (seconds); None = push hedging off.  Only
+    # effective on membership-backed clients (pid-carrying pushes).
+    adaptive_push_hedge_after_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -258,10 +284,11 @@ class ClusterDriver:
                 f"store_backend={cfg.store_backend!r}: "
                 f"'socket' | 'mesh' | 'tiered'"
             )
-        if cfg.store_backend == "tiered":
-            raise NotImplementedError(
-                "store_backend='tiered': the tiered hot/cold store is "
-                "not ported yet (ROADMAP Queue 1 #7, tierstore)"
+        if cfg.store_backend == "tiered" and cfg.shard_procs:
+            raise ValueError(
+                "store_backend='tiered' with shard_procs=True: shard "
+                "worker processes run the host numpy slice "
+                "(cluster/procs.py); tiered shards are in-process"
             )
         if cfg.store_backend == "mesh":
             # the mesh backend slots under the BASE driver's contracts
@@ -298,16 +325,11 @@ class ClusterDriver:
                     f"row-block sharded, and only contiguous ranges "
                     f"can align to it (meshstore/layout.py)"
                 )
-        _not_ported = (
-            ("adaptive", cfg.adaptive, "adaptive/"),
-            ("wire_proto='shm'", cfg.wire_proto == "shm", "shmem/"),
-        )
-        for knob, on, item in _not_ported:
-            if on:
-                raise NotImplementedError(
-                    f"ClusterConfig {knob}: {item} is not ported yet "
-                    f"(ROADMAP Queue 1 #7)"
-                )
+        if cfg.wire_proto == "shm":
+            raise NotImplementedError(
+                "ClusterConfig wire_proto='shm': shmem/ is not ported yet "
+                "(ROADMAP Queue 1 #7)"
+            )
         if partitioner is not None:
             self.partitioner = partitioner
         elif cfg.partition == "range":
@@ -345,6 +367,10 @@ class ClusterDriver:
         self.servers: List[ShardServer] = []
         self.mesh_store = None  # MeshParamStore when store_backend="mesh"
         self.clock: Optional[StalenessClock] = None
+        # adaptive work re-routing (adaptive/rebalance.py): when set
+        # (and cfg.adaptive), _worker_mask consults it instead of the
+        # static hash route; None = identity (stock routing)
+        self.work_router = None
         self._clients: List[ClusterClient] = []
         self._started = False
         self._step_fn = None
@@ -435,8 +461,16 @@ class ClusterDriver:
             registry=self.registry if self.registry is not None else False,
             hotkeys=hotkeys,
             profiler=None if cfg.profile else False,
-            store_backend="torch",
+            # the "tiered" cluster backend IS the socket topology with
+            # tiered slices — elastic scale-out and replacement shards
+            # built here inherit the tier automatically
+            store_backend=(
+                "tiered" if cfg.store_backend == "tiered" else "torch"
+            ),
             device=self.device,
+            tier_hot_rows=cfg.tier_hot_rows,
+            tier_slab_dir=cfg.tier_slab_dir,
+            tier_decay_window=cfg.tier_decay_window,
         )
         server = ShardServer(
             shard, cfg.host, 0, supervised=cfg.supervised, tracer=tracer
@@ -448,9 +482,20 @@ class ClusterDriver:
         elastic driver creates its membership service here)."""
 
     def _make_clock(self) -> StalenessClock:
-        """One construction point for the SSP clock (start() for both
-        topologies + the fresh-clock-per-run() site)."""
+        """One construction point for the SSP clock so the adaptive
+        kill switch swaps in per-worker allowances everywhere (start()
+        both topologies + the fresh-clock-per-run() site)."""
         cfg = self.config
+        if getattr(cfg, "adaptive", False):
+            from ..adaptive.bounds import AdaptiveClock
+
+            bound = cfg.staleness_bound
+            ceiling = getattr(cfg, "adaptive_bound_ceiling", None)
+            if ceiling is None and bound is not None:
+                ceiling = 2 * bound + 1
+            return AdaptiveClock(
+                cfg.num_workers, bound, bound_ceiling=ceiling
+            )
         return StalenessClock(cfg.num_workers, cfg.staleness_bound)
 
     def _start_mesh(self) -> None:
@@ -676,6 +721,13 @@ class ClusterDriver:
                 f"ClusterConfig.worker_key)"
             )
         keys = np.asarray(batch[cfg.worker_key], np.int64)
+        router = self.work_router
+        if router is not None and getattr(cfg, "adaptive", False):
+            # adaptive re-routing (adaptive/rebalance.py): ownership is
+            # a pure function of (key, round) and every worker asks
+            # about the same round, so exactly-once per row per round
+            # is preserved even while groups migrate
+            return base & router.owner_mask(keys, worker, round_idx)
         owner = fmix32_np(keys) % np.uint32(cfg.num_workers)
         return base & (owner == np.uint32(worker))
 
@@ -828,8 +880,9 @@ class ClusterDriver:
                     if kmask.any():
                         pulled = client.pull_batch(ids, mask=kmask)
                     else:
-                        # a fully masked round owns no rows and must
-                        # cost no wire: coalesce_ids would otherwise
+                        # a fully masked round owns no rows — e.g. a
+                        # drained straggler after adaptive re-routing —
+                        # and must cost no wire: coalesce_ids would otherwise
                         # pull one fill id.  Masked lanes are padding
                         # by the store contract, so zeros feed the step.
                         pulled = torch.zeros(

@@ -10,8 +10,11 @@ store's ``"xla"`` arm (``ops/rows.accumulate_rows_``: a stable sort and
 one ordered sum per run on the card, so replay is bitwise), and the host
 read mirror is an explicit copy off the device taken under the shard
 lock.  ``store_backend="numpy"`` (what shard processes run) is the
-reference's host store unchanged.  The tiered backend is not ported yet
-(ROADMAP Queue 1 #7, tierstore).
+reference's host store unchanged.  ``store_backend="tiered"`` is the
+two-tier store (``tierstore/``): the hot tier a bounded tensor on
+``device``, cold mutated rows in a host mmap slab, absent rows recomputed
+from the deterministic init (on ``device``, as the dense slice is built);
+pulls gather through the hot tier and never build the dense host mirror.
 
 The verbs served are those :class:`~.driver.ClusterDriver`, the shard
 processes, the elastic control plane (``elastic/``) and the replica
@@ -316,12 +319,14 @@ class ParamShard:
 
     ``store_backend`` picks the slice's array runtime: ``"torch"``
     (the default — the port's store on ``device``, the card unless the
-    caller asks for the CPU) or ``"numpy"`` (plain host arrays; what
-    shard worker PROCESSES run — see :class:`_NumpyStore`).  Both apply
-    identical fp32 scatter-adds over client-deduplicated ids, so the
-    slices stay bitwise-comparable.  ``"jax"`` (the reference's name
-    for the device backend) raises, naming ``"torch"``; ``"tiered"``
-    raises until the tiered store is ported.
+    caller asks for the CPU), ``"numpy"`` (plain host arrays; what
+    shard worker PROCESSES run — see :class:`_NumpyStore`) or
+    ``"tiered"`` (the hot tier a ``tier_hot_rows``-row tensor on
+    ``device``, cold rows in an mmap slab, absent rows recomputed from
+    the deterministic init — :mod:`~..tierstore`).  All apply identical
+    fp32 scatter-adds over client-deduplicated ids, so the slices stay
+    bitwise-comparable.  ``"jax"`` (the reference's name for the device
+    backend) raises, naming ``"torch"``.
     """
 
     def __init__(
@@ -339,6 +344,9 @@ class ParamShard:
         profiler=None,
         store_backend: str = "torch",
         device: DeviceLike = None,
+        tier_hot_rows: int = 65536,
+        tier_slab_dir: Optional[str] = None,
+        tier_decay_window: int = 0,
     ):
         if store_backend == "jax":
             raise ValueError(
@@ -346,20 +354,24 @@ class ParamShard:
                 "the port's is store_backend='torch' (the slice on "
                 "device=, the card by default)"
             )
-        if store_backend == "tiered":
-            raise NotImplementedError(
-                "store_backend='tiered': the tiered hot/cold store is "
-                "not ported yet (ROADMAP Queue 1 #7, tierstore)"
-            )
-        if store_backend not in ("torch", "numpy"):
+        if store_backend not in ("torch", "numpy", "tiered"):
             raise ValueError(
-                f"store_backend={store_backend!r}: 'torch' | 'numpy'"
+                f"store_backend={store_backend!r}: "
+                f"'torch' | 'numpy' | 'tiered'"
+            )
+        if store_backend == "tiered" and dtype is not None:
+            raise ValueError(
+                "store_backend='tiered' is fp32-only (the tiers must "
+                "stay bitwise-comparable with the dense backends)"
             )
         self._backend = store_backend
+        self._tier_hot_rows = int(tier_hot_rows)
+        self._tier_slab_dir = tier_slab_dir
+        self._tier_decay_window = int(tier_decay_window)
         # the numpy backend never touches torch's devices (shard
         # processes must not initialise CUDA)
         self._device = (
-            resolve_device(device) if store_backend == "torch" else None
+            None if store_backend == "numpy" else resolve_device(device)
         )
         self.shard_id = int(shard_id)
         self.partitioner = partitioner
@@ -460,13 +472,87 @@ class ParamShard:
             )
         else:
             self._c_pulls = self._c_pushes = self._c_restarts = None
+        if self._backend == "tiered":
+            from ..tierstore import metrics as tier_metrics
+
+            tier_metrics.register_store(self._tier_label(), self.tier_stats)
+            if registry is not False:
+                tier_metrics.register_instruments(
+                    reg, str(self.shard_id), self.tier_stats
+                )
+
+    # -- the tiered backend (tierstore/, docs/tierstore.md) ------------------
+    def _tier_label(self) -> str:
+        """The shard's name on the process-wide ``tiers`` snapshot
+        registry; followers append their chain index."""
+        fidx = getattr(self, "follower_idx", None)
+        label = f"shard-{self.shard_id}"
+        return label if fidx is None else f"{label}-f{fidx}"
+
+    def _tier_row_init(self, local_ids: np.ndarray) -> np.ndarray:
+        """Deterministic init for LOCAL rows as host float32 — row j is
+        the global table's row ``owned[j]``, computed by ``init_fn`` on
+        the shard's device exactly as :meth:`_build` computes a dense
+        slice, so a recomputed cold miss is bitwise the row a dense
+        backend would have materialised."""
+        gids = np.asarray(self.owned)[np.asarray(local_ids, np.int64)]
+        if self._init_fn is None:
+            return np.zeros(gids.shape + self.value_shape, np.float32)
+        ids = to_device(gids.astype(np.int32), self._device)
+        return to_host(
+            torch.as_tensor(self._init_fn(ids)).to(torch.float32)
+        )
+
+    def _tier_pinned_local(self) -> np.ndarray:
+        """Local ids the tier must never evict: keys frozen for an
+        in-flight migration plus every currently-leased key (a lease
+        is an invalidation promise — the row is about to be read or
+        written again).  Runs under the shard lock during eviction
+        scans; the lease board's lock nests strictly under it."""
+        gids = self.leases.leased_ids()
+        if self._frozen is not None:
+            gids = np.union1d(gids, self._frozen)
+        if gids.size == 0:
+            return gids
+        gids = gids[self.partitioner.shard_of(gids) == self.shard_id]
+        if gids.size == 0:
+            return gids
+        return self.partitioner.to_local(self.shard_id, gids)
+
+    def _make_tier_store(self):
+        from ..tierstore.store import TieredStore
+
+        return TieredStore(
+            len(self.owned),
+            self.value_shape,
+            row_init=self._tier_row_init,
+            hot_rows=self._tier_hot_rows,
+            slab_dir=self._tier_slab_dir,
+            decay_window=self._tier_decay_window,
+            pinned_fn=self._tier_pinned_local,
+            name_hint=self._tier_label(),
+            device=self._device,
+        )
+
+    def tier_stats(self):
+        """The tier's instrument snapshot (``None`` on non-tiered
+        backends or while crashed) — the ``component=tierstore`` gauge
+        source and the TelemetryServer ``tiers`` path payload."""
+        with self._lock:
+            if self._backend != "tiered" or self.store is None:
+                return None
+            st = self.store.stats()
+            st["shard"] = self.shard_id
+            st["role"] = self.role
+            return st
 
     # -- construction / recovery -------------------------------------------
     def _slice_to_host(self) -> np.ndarray:
         """The whole live slice as a fresh host array: an explicit
         copy off the device (callers hold the shard lock, so no push
-        lands mid-copy).  The numpy backend hands out its own rows."""
-        if self._backend == "numpy":
+        lands mid-copy).  The numpy backend hands out its own rows; the
+        tiered store materialises init, slab and hot tier on the host."""
+        if self._backend in ("numpy", "tiered"):
             return self.store.values()
         return to_host(self.store.values(), copy=True)
 
@@ -475,7 +561,16 @@ class ParamShard:
         one seam every slice re-materialisation (snapshot replay, epoch
         install) goes through.  Under the torch backend the rows are
         copied onto the shard's device in the slice's dtype; the caller
-        drops the host mirror."""
+        drops the host mirror.  A tiered store is seeded FRESH from the
+        dense rows (only rows differing from init reach the slab) and the
+        old slab file is retired."""
+        if self._backend == "tiered":
+            old = self.store
+            st = self._make_tier_store()
+            st.seed_dense(np.asarray(values, np.float32))
+            if old is not None:
+                old.close()
+            return st
         if self._backend == "numpy":
             return _NumpyStore.from_values(np.asarray(values))
         from ..core.store import ShardedParamStore
@@ -494,7 +589,16 @@ class ParamShard:
         :func:`~..core.store.create_table`).  Under the numpy backend
         ``init_fn`` receives (and must return) host arrays — shard
         worker processes never touch the card; under the torch
-        backend it receives an int32 id tensor on ``device``."""
+        backend it receives an int32 id tensor on ``device``.  The tiered
+        backend builds NO dense slice: init is recomputable per id, so
+        the store starts empty and rows appear as traffic (or WAL
+        replay) touches them."""
+        if self._backend == "tiered":
+            if self.store is not None:
+                self.store.close()
+            self.store = self._make_tier_store()
+            self._host_mirror = None
+            return
         if self._backend == "numpy":
             ids = np.asarray(self.owned, np.int64)
             if self._init_fn is not None:
@@ -585,10 +689,12 @@ class ParamShard:
 
     def _apply(self, global_ids: np.ndarray, deltas: np.ndarray) -> None:
         local = self.partitioner.to_local(self.shard_id, global_ids)
-        if self._backend == "numpy":
-            # host scatter-add in place: no shape-specialised kernels,
-            # so no pow2 bucketing either — padding existed for XLA's
-            # compile cache, and numpy has none to warm
+        if self._backend in ("numpy", "tiered"):
+            # in place: no shape-specialised kernels, so no pow2
+            # bucketing either — padding existed for XLA's compile
+            # cache.  (The tiered push ensures residency first and adds
+            # on its hot tier's device; rows the hot tier cannot take
+            # write through to the slab.)
             self.store.push(local, deltas)
             self._host_mirror = None
             self.pushes_applied += 1
@@ -627,6 +733,12 @@ class ParamShard:
         if not mine.any():
             return
         local = self.partitioner.to_local(self.shard_id, ids[mine])
+        if self._backend == "tiered":
+            # in-place tier write: resident rows update hot (and dirty),
+            # cold rows go straight to the slab — a bulk migration load
+            # must not thrash the hot tier or materialise the dense table
+            self.store.assign(local, values[mine])
+            return
         if self._backend == "numpy":
             table = self.store.values()
             table[local] = values[mine].astype(table.dtype)
@@ -664,10 +776,15 @@ class ParamShard:
             raise
 
     def _rows(self, local: np.ndarray) -> np.ndarray:
-        """Read rows by LOCAL index — the pull-side table access,
-        through the lazily-rebuilt host mirror (one fancy-index per
-        request; the rebuild after a push is one copy of the slice off
-        the device, under the caller's shard lock)."""
+        """Read rows by LOCAL index — the pull-side table access.  Dense
+        backends go through the lazily-rebuilt host mirror (one
+        fancy-index per request; the rebuild after a push is one copy of
+        the slice off the device, under the caller's shard lock); the
+        tiered backend gathers through the hot tier (misses promote from
+        slab/init) and NEVER builds the dense mirror — that allocation is
+        exactly what the tier exists to avoid."""
+        if self._backend == "tiered":
+            return self.store.gather(local)
         if self._host_mirror is None:
             t0 = time.perf_counter()
             self._host_mirror = self._slice_to_host()
@@ -1105,6 +1222,11 @@ class ParamShard:
         is the durable part).  Every subsequent request raises
         :class:`ShardCrashed` until :meth:`restart`."""
         with self._lock:
+            if self._backend == "tiered" and self.store is not None:
+                # the slab is part of the slice (a cache, not a
+                # durability plane) — a crash loses it with the hot
+                # rows, and replay repopulates the mutated set
+                self.store.close()
             self.store = None
             self._host_mirror = None
 
@@ -1126,7 +1248,7 @@ class ParamShard:
 
     def stats(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 "shard": self.shard_id,
                 "rows": int(len(self.owned)),
                 "pulls": self.pulls_served,
@@ -1158,8 +1280,19 @@ class ParamShard:
                 "lease_sessions": self.leases.sessions(),
                 "leases_active": self.leases.active_leases(),
             }
+            if self._backend == "tiered" and self.store is not None:
+                out["tier"] = self.store.stats()
+            return out
 
     def close(self) -> None:
+        if self._backend == "tiered":
+            from ..tierstore import metrics as tier_metrics
+
+            tier_metrics.unregister_store(self._tier_label())
+            with self._lock:
+                if self.store is not None:
+                    self.store.close()
+                    self.store = None
         if self._wal is not None:
             self._wal.close()
 

@@ -5,12 +5,14 @@ mechanism and the policy are the reference's; the shards it resizes keep
 their slices on the driver's device (the card unless the caller passes
 ``device="cpu"``), migrated rows move off and onto the card bitwise
 (``elastic/migration.py``), and the worker clients take the cluster
-driver's BSP and increment carve-outs on the wire format.  What leads into
-modules not ported yet raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 #7 item: ``drain_shard`` (adaptive/rebalance) and the push hedger
-(behind the ``adaptive`` knob, which the cluster driver already rejects);
-the controller promotes a follower over a dead shard that has a replica
-chain (``replication/``) and replaces one without a chain from its WAL.
+driver's BSP and increment carve-outs on the wire format.  With
+``adaptive=True`` and ``adaptive_push_hedge_after_s`` set, worker clients
+get the adaptive runtime's push hedger (``adaptive/hedge.PushHedger``);
+``drain_shard`` lowers one shard's rendezvous weight
+(``adaptive/rebalance.DrainedHashPartitioner``) and moves its keys through
+the same verified migration as a resize.  The controller promotes a
+follower over a dead shard that has a replica chain (``replication/``)
+and replaces one without a chain from its WAL.
 ``store_backend="mesh"`` and
 ``shard_procs=True`` raise under this driver, as the reference's do: the
 control plane drives in-process, socket-fronted shard handles.
@@ -135,13 +137,27 @@ class ElasticClusterDriver(ClusterDriver):
         self.all_shards = list(self.shards)
 
     def _make_client(self, worker: Optional[str] = None) -> ClusterClient:
-        # (the adaptive push hedger would be built here; the cluster
-        # driver rejects ``adaptive=True`` until adaptive/ is ported)
         cfg = self.config
         hedge = None
         if getattr(cfg, "hedge_after_s", None):
             hedge = Hedger(
                 cfg.hedge_after_s,
+                budget=HedgeBudget(cfg.hedge_max_fraction),
+                registry=(
+                    self.registry if self.registry is not None else False
+                ),
+            )
+        push_hedge = None
+        if (getattr(cfg, "adaptive", False)
+                and getattr(cfg, "adaptive_push_hedge_after_s", None)):
+            # write-side twin of the pull hedger (adaptive/hedge.py);
+            # safe here because membership-backed clients stamp a pid
+            # on every push, so the (pid,id) dedupe window suppresses
+            # the losing leg's duplicate apply
+            from ..adaptive.hedge import PushHedger
+
+            push_hedge = PushHedger(
+                cfg.adaptive_push_hedge_after_s,
                 budget=HedgeBudget(cfg.hedge_max_fraction),
                 registry=(
                     self.registry if self.registry is not None else False
@@ -159,6 +175,7 @@ class ElasticClusterDriver(ClusterDriver):
             worker=worker,
             membership=self.membership,
             hedge=hedge,
+            push_hedge=push_hedge,
             retry_timeout=getattr(cfg, "retry_timeout", 30.0),
             tracer=self.client_tracer,
             profiler=None if cfg.profile else False,
@@ -276,16 +293,39 @@ class ElasticClusterDriver(ClusterDriver):
     def drain_shard(
         self, shard_id: int, *, weight: float = 0.0
     ) -> MigrationReport:
-        """Adaptive rebalance actuator (the reference's
-        adaptive/rebalance.py): lower ``shard_id``'s rendezvous weight
-        so its keys migrate onto the healthy shards.  Its weighted
-        partitioner (``DrainedHashPartitioner``) comes with adaptive/,
-        so this raises until then."""
-        raise NotImplementedError(
-            "drain_shard: the weighted drain partitioner "
-            "(adaptive/rebalance.py) is not ported yet (ROADMAP Queue 1 "
-            "#7, adaptive/)"
-        )
+        """Adaptive rebalance actuator (adaptive/rebalance.py): lower
+        ``shard_id``'s rendezvous weight so its keys migrate onto the
+        healthy shards — same verified plan_moves/execute_moves data
+        plane and one-shot epoch flip as a resize, but the shard set is
+        unchanged; the drained shard keeps serving whatever keys its
+        weight still wins (none, at ``weight=0``).  Requires the hash
+        partition family (the weight rides the HRW scores)."""
+        from ..adaptive.rebalance import DrainedHashPartitioner
+
+        with self._resize_lock:
+            if not self._started:
+                raise RuntimeError("drain_shard on a stopped driver")
+            old_part = self.partitioner
+            if not hasattr(old_part, "seed"):
+                raise ValueError(
+                    "drain_shard needs the hash partition family "
+                    "(ClusterConfig.partition='hash'), got "
+                    f"{type(old_part).__name__}"
+                )
+            if not 0 <= shard_id < old_part.num_shards:
+                raise ValueError(f"no shard {shard_id}")
+            new_part = DrainedHashPartitioner.draining(
+                old_part, shard_id, weight
+            )
+            try:
+                return self._migrate_and_flip(
+                    old_part, new_part,
+                    shards=self.shards, servers=self.servers,
+                )
+            except BaseException:
+                for shard in self.shards:
+                    shard.unfreeze()
+                raise
 
     def _migrate_and_flip(
         self, old_part, new_part, *, shards, servers

@@ -1,8 +1,8 @@
 """Straggler hedging — budgeted backup pulls, first answer wins.
 
 A copy of ``flink_parameter_server_tpu/elastic/hedging.py``, which imports
-no JAX.  The adaptive runtime's push hedger (``adaptive/hedge.PushHedger``,
-a subclass) waits for adaptive/ (ROADMAP Queue 1 #7).
+no JAX.  The adaptive runtime's push hedger (``adaptive/hedge.PushHedger``)
+subclasses it and swaps only the counters (``_register_counters``).
 
 The straggler study for iterative-convergent PS training
 (arXiv:2308.15482) and the classic tail-at-scale playbook agree on the

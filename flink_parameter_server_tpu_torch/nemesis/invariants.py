@@ -6,11 +6,15 @@ Of the reference's ``nemesis/invariants.py`` these are ported:
 (:func:`check_exactly_once`), the three parity modes
 (:func:`check_parity`, :func:`check_parity_bitwise`,
 :func:`check_count_parity`), the hot-key cache's staleness contract
-(:func:`check_lease_staleness`) and the lock witness's verdict
-(:func:`check_lock_inversions`).  They are copies of the reference's
-functions, which import no JAX.  The live samplers (staleness, adaptive
-bound, tier residency), the serving-budget, tier and thread-leak checks
-wait for ROADMAP Queue 1 #7's ``nemesis/`` item.
+(:func:`check_lease_staleness`), the lock witness's verdict
+(:func:`check_lock_inversions`), the adaptive bound envelope
+(:func:`check_adaptive_bound` with its live
+:class:`AdaptiveBoundSampler`) and the two-tier store's residency
+contract (:func:`check_tier_residency` with its live
+:class:`TierResidencySampler`).  They are copies of the reference's
+functions, which import no JAX.  The staleness sampler, the
+serving-budget and thread-leak checks wait for ROADMAP Queue 1 #7g's
+``nemesis/`` item.
 
 Why each is the right oracle:
 
@@ -24,11 +28,20 @@ Why each is the right oracle:
     (fp32) to an oracle trained on the SAME stream; bitwise for
     workloads whose combine is structurally deterministic (PA), and
     integer-exact for counters (the sketches).
+  * **adaptive bound envelope** — every live-sampled per-worker
+    effective bound stays within ``[bound, ceiling]``: widening never
+    exceeds the declared ceiling, narrowing never undercuts the
+    correctness bound.
+  * **tier residency** — on tiered runs (tierstore/), every live
+    sample of every tiered store shows ``resident ≤ hot capacity``:
+    demotion pressure, spills and recovery replays may move rows
+    between tiers but never grow the bounded hot set.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import threading
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -163,6 +176,80 @@ def check_lease_staleness(
     )
 
 
+def check_adaptive_bound(
+    samples: Sequence[Sequence[int]],
+    bound: Optional[int],
+    ceiling: Optional[int],
+) -> Verdict:
+    """The adaptive-bounds safety envelope (adaptive/bounds.py): every
+    live-sampled per-worker EFFECTIVE bound stays within
+    ``[bound, ceiling]`` — widening never exceeds the declared ceiling
+    and narrowing never undercuts the correctness bound.  Vacuous
+    passes are rejected the way lease_staleness rejects them: at least
+    one sample must have been taken from a live adaptive clock,
+    otherwise the scenario never exercised the invariant it claims to
+    prove.  Async (bound None) has no allowances to audit and passes
+    on the sampler having seen the clock."""
+    n = len(samples)
+    if bound is None:
+        return Verdict(
+            "adaptive_bound_envelope", n > 0,
+            f"async clock, {n} sample(s)"
+            + ("" if n else " — never sampled (vacuous)"),
+        )
+    low = min(
+        (min(row) for row in samples if len(row)), default=bound
+    )
+    high = max(
+        (max(row) for row in samples if len(row)), default=bound
+    )
+    ok = n > 0 and low >= bound and high <= ceiling
+    return Verdict(
+        "adaptive_bound_envelope", ok,
+        f"samples={n} effective bounds in [{low}, {high}] vs "
+        f"declared [{bound}, {ceiling}]"
+        + ("" if high <= ceiling else " — CEILING VIOLATED")
+        + ("" if low >= bound else " — CORRECTNESS BOUND VIOLATED")
+        + ("" if n else " — never sampled (vacuous)"),
+    )
+
+
+def check_tier_residency(samples: Sequence[dict]) -> Verdict:
+    """The two-tier store's bounded-residency contract (tierstore/,
+    docs/tierstore.md): at EVERY live sample, every tiered shard's
+    resident (hot) row count stays within its configured hot capacity
+    — through demotion storms, kills, promotions and WAL replays,
+    because oversized admissions spill write-through to the cold slab
+    instead of growing the hot tier.  Each sample is
+    ``{label: (resident_rows, hot_capacity_rows)}`` as collected by
+    :class:`TierResidencySampler`.  Vacuous passes are rejected: at
+    least one sample from at least one live tiered store must have
+    been taken, otherwise the scenario never exercised the tier it
+    claims to prove."""
+    n = 0
+    worst_over = 0
+    worst_label = ""
+    peak = 0
+    cap_seen = 0
+    for sample in samples:
+        for label, (resident, cap) in sample.items():
+            n += 1
+            peak = max(peak, int(resident))
+            cap_seen = max(cap_seen, int(cap))
+            over = int(resident) - int(cap)
+            if over > worst_over:
+                worst_over = over
+                worst_label = str(label)
+    ok = n > 0 and worst_over <= 0
+    return Verdict(
+        "tier_residency", ok,
+        f"samples={n} peak_resident={peak} hot_capacity={cap_seen}"
+        + ("" if worst_over <= 0 else
+           f" — CAPACITY EXCEEDED by {worst_over} rows on {worst_label}")
+        + ("" if n else " — never sampled (vacuous)"),
+    )
+
+
 def check_lock_inversions(inversions) -> Verdict:
     n = len(inversions)
     return Verdict(
@@ -172,8 +259,97 @@ def check_lock_inversions(inversions) -> Verdict:
     )
 
 
+class AdaptiveBoundSampler:
+    """Polls the driver clock's per-worker effective bounds while a
+    scenario runs, re-reading ``driver.clock`` every tick (the driver
+    swaps in a fresh clock at run start).  Only adaptive clocks yield samples; a stock clock
+    leaves ``samples`` empty and :func:`check_adaptive_bound` then
+    rejects the run as vacuous."""
+
+    def __init__(self, driver, interval_s: float = 0.002):
+        self._driver = driver
+        self._interval = float(interval_s)
+        self.samples: List[List[int]] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def __enter__(self) -> "AdaptiveBoundSampler":
+        self._thread = threading.Thread(
+            target=self._loop, name="nemesis-adaptive-sampler",
+            daemon=True,
+        )
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            clock = self._driver.clock
+            bounds = getattr(clock, "effective_bounds", None)
+            if bounds is not None:
+                try:
+                    self.samples.append(list(bounds()))
+                except Exception:  # clock mid-swap: skip the tick
+                    pass
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+
+class TierResidencySampler:
+    """Polls every live tiered store's ``(resident, capacity)`` pair
+    while a scenario runs, through the process-wide tiers snapshot
+    registry (tierstore/metrics.py) — which is what covers chain
+    FOLLOWERS too, not just the shards the driver lists.  A store
+    mid-crash/restart yields no entry for that tick (its stats
+    callable answers ``None``); a non-tiered scenario leaves
+    ``samples`` empty and :func:`check_tier_residency` then rejects
+    the run as vacuous."""
+
+    def __init__(self, interval_s: float = 0.005):
+        self._interval = float(interval_s)
+        self.samples: List[dict] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def __enter__(self) -> "TierResidencySampler":
+        self._thread = threading.Thread(
+            target=self._loop, name="nemesis-tier-sampler", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        from ..tierstore.metrics import tiers_snapshot
+
+        while not self._stop.wait(self._interval):
+            snap = tiers_snapshot()
+            if not snap:
+                continue
+            tick = {}
+            for label, st in snap.items():
+                try:
+                    tick[label] = (
+                        int(st["resident_rows"]),
+                        int(st["hot_capacity_rows"]),
+                    )
+                except (KeyError, TypeError, ValueError):
+                    continue
+            if tick:
+                self.samples.append(tick)
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+
 __all__ = [
+    "AdaptiveBoundSampler",
+    "TierResidencySampler",
     "Verdict",
+    "check_adaptive_bound",
     "check_count_parity",
     "check_exactly_once",
     "check_lease_staleness",
@@ -181,4 +357,5 @@ __all__ = [
     "check_no_errors",
     "check_parity",
     "check_parity_bitwise",
+    "check_tier_residency",
 ]

@@ -162,11 +162,18 @@ class ChainManager:
                 registry=(
                     self.registry if self.registry is not None else False
                 ),
-                # followers mirror the primary's store: the slice on
-                # the driver's device, so a promotion changes neither
-                # where the rows live nor the scatter that writes them
-                store_backend="torch",
+                # followers mirror the primary's store: the slice (or
+                # the tiered store's hot tier) on the driver's device,
+                # so a promotion changes neither where the rows live
+                # nor the scatter that writes them
+                store_backend=(
+                    "tiered" if drv.config.store_backend == "tiered"
+                    else "torch"
+                ),
                 device=drv.device,
+                tier_hot_rows=drv.config.tier_hot_rows,
+                tier_slab_dir=drv.config.tier_slab_dir,
+                tier_decay_window=drv.config.tier_decay_window,
             )
             f.epoch = primary.epoch
             srv = ShardServer(

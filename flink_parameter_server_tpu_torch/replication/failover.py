@@ -2,7 +2,8 @@
 
 Counterpart of ``flink_parameter_server_tpu/replication/failover.py``.
 Every shard the port's audit builds goes on the promoted shard's own
-device with its own store backend: a card shard replayed on the CPU would
+device with its own store backend (a dense slice for a tiered shard, as
+the reference's audit builds): a card shard replayed on the CPU would
 hold the card's ordered sums against the CPU's, which need not agree to
 the bit, and a CPU shard must never reach for the card.
 
@@ -116,10 +117,17 @@ def verify_against_log(shard) -> bool:
         p = rec.payload
         if isinstance(p, dict) and p.get("kind") == "snapshot":
             start = i
+    # a tiered shard is audited against a dense scratch on its device
+    # (the reference's scratch is its dense default backend too): the
+    # tiers are bitwise the dense slice, and a scratch tier would take
+    # the shard's name on the process-wide tiers registry
     scratch = ParamShard(
         shard.shard_id, shard.partitioner, shard.value_shape,
         init_fn=shard._init_fn, dtype=shard._dtype, registry=False,
-        store_backend=shard._backend, device=shard._device,
+        store_backend=(
+            "torch" if shard._backend == "tiered" else shard._backend
+        ),
+        device=shard._device,
     )
     for rec in records[start:]:
         p = rec.payload

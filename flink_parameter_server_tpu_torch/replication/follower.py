@@ -7,7 +7,9 @@ the caller asks for the CPU): each logged record goes through the same
 ``ops/rows.accumulate_rows_``, one record per call in log order — so a
 caught-up follower is bitwise its primary on either device.  Quantized
 records decode through ``compression.quantizers.record_deltas`` on the
-host before they reach the device.
+host before they reach the device.  Under a tiered primary the follower
+is tiered too (``store_backend="tiered"``, its hot tier on ``device``), so
+a promotion does not change where the slice lives.
 
 A follower is a :class:`~..cluster.shard.ParamShard` whose state is
 maintained exclusively by the replication stream: each inbound ``repl``
@@ -68,6 +70,9 @@ class ReplicaShard(ParamShard):
         profiler=None,
         store_backend: str = "torch",
         device: DeviceLike = None,
+        tier_hot_rows: int = 65536,
+        tier_slab_dir: Optional[str] = None,
+        tier_decay_window: int = 0,
     ):
         if wal_dir is None:
             raise ValueError(
@@ -75,6 +80,10 @@ class ReplicaShard(ParamShard):
                 "log is both the ack's durability and what a promotion "
                 "catches up from"
             )
+        # set before super().__init__: a tiered follower registers on
+        # the tiers snapshot registry during construction, and its
+        # label (shard-N-fK) must not clobber the primary's (shard-N)
+        self.follower_idx = int(follower_idx)
         # cluster counters off (a follower shares its primary's
         # shard_id — registering the same labels would fork the series);
         # replication-plane instruments below are the follower's own
@@ -83,6 +92,9 @@ class ReplicaShard(ParamShard):
             init_fn=init_fn, dtype=dtype, wal_dir=wal_dir,
             registry=False, profiler=profiler,
             store_backend=store_backend, device=device,
+            tier_hot_rows=tier_hot_rows,
+            tier_slab_dir=tier_slab_dir,
+            tier_decay_window=tier_decay_window,
         )
         self.role = "follower"
         self.staleness_bound = (

@@ -21,8 +21,9 @@ and the surfaces that serve them:
 
   * :mod:`.exporter` — Prometheus-text rendering + the TCP ``/metrics``,
     ``/healthz``, ``/hotkeys``, ``/hot``, ``/budget``, ``/conns``,
-    ``/timeline`` and ``/workloads`` endpoint (``/adaptive`` and
-    ``/tiers`` answer ``null`` until adaptive/ and tierstore/ land);
+    ``/timeline``, ``/workloads``, ``/adaptive`` (the installed
+    adaptive runtime) and ``/tiers`` (the registered tiered stores)
+    endpoint;
   * :mod:`.report` — ``results/<platform>/run_report.{md,json}``;
   * :mod:`.lockwitness` — the runtime lock-order witness (opt-in; nothing
     imports it).

@@ -3,11 +3,10 @@ endpoint.
 
 A copy of ``flink_parameter_server_tpu/telemetry/exporter.py`` (host
 code; the only device step behind it is the hot-key aggregator's top-K,
-on the aggregator's own device).  Two paths read modules the port does
-not have yet: ``/adaptive`` (adaptive/) and ``/tiers`` (tierstore/).
-Their knobs raise until those land, so no runtime or tiered shard can be
-installed, and both paths answer ``null`` — the reference's answer when
-none is installed — without importing anything.
+on the aggregator's own device).  ``/adaptive`` serves the installed
+adaptive runtime's payload (``adaptive/``) and ``/tiers`` the registered
+tiered stores' stats (``tierstore/``); each answers ``null`` when none is
+installed, as the reference's does.
 
 Symmetric to ``serving/server.py``: the serve path answers queries over
 a newline-delimited TCP socket, the telemetry path answers scrapes over
@@ -266,22 +265,34 @@ class TelemetryServer(LineServer):
             ctype = "application/json"
             status = "200 OK"
         elif path.startswith("adaptive"):
-            # the adaptive runtime's live decision surface (adaptive/,
-            # ROADMAP Queue 1 #7d): the port cannot install a runtime
-            # yet (ClusterConfig(adaptive=True) raises), so this is the
-            # reference's answer with none installed — null
+            # the adaptive runtime's live decision surface (adaptive/
+            # controller.py): per-worker effective bounds + skew
+            # ratios, hedged-push wins, rebalance moves, the decision
+            # ring — `psctl adaptive` renders this.  No runtime
+            # installed answers null (opt-in, like `timeline`)
+            from ..adaptive.controller import get_adaptive_runtime
+
+            rt = get_adaptive_runtime()
             body = json.dumps(
-                {"adaptive": None, "run_id": self.registry.run_id}
+                {"adaptive": (
+                    rt.payload() if rt is not None else None
+                ),
+                 "run_id": self.registry.run_id}
             ) + "\n"
             ctype = "application/json"
             status = "200 OK"
         elif path.startswith("tiers"):
-            # the two-tier store's per-shard snapshot (tierstore/,
-            # ROADMAP Queue 1 #7e): no tiered shard can be registered
-            # yet (store_backend="tiered" raises), so this is the
-            # reference's answer with none registered — null
+            # the two-tier store's per-shard snapshot (tierstore/
+            # metrics.py): resident/cold/pinned row counts, slab
+            # bytes, hit/miss/promote/demote/spill counters per
+            # registered tiered store — `psctl tiers` renders this.
+            # No tiered shard registered answers null (the cluster is
+            # not running store_backend="tiered")
+            from ..tierstore.metrics import tiers_snapshot
+
             body = json.dumps(
-                {"tiers": None, "run_id": self.registry.run_id}
+                {"tiers": tiers_snapshot(),
+                 "run_id": self.registry.run_id}
             ) + "\n"
             ctype = "application/json"
             status = "200 OK"

@@ -1,12 +1,9 @@
 """End-of-run report builder.
 
-A copy of ``flink_parameter_server_tpu/telemetry/report.py`` with two
-changes: the platform probe asks torch (``"gpu"`` when a CUDA card is
+A copy of ``flink_parameter_server_tpu/telemetry/report.py`` with one
+change: the platform probe asks torch (``"gpu"`` when a CUDA card is
 available, else ``"cpu"`` — JAX's backend names, so
-``results/<platform>/`` keeps its meaning), and the adaptive section is
-``None``, the reference's answer with no runtime installed (adaptive/,
-ROADMAP Queue 1 #7d, is not ported; ``ClusterConfig(adaptive=True)``
-raises).
+``results/<platform>/`` keeps its meaning).
 
 One page per run, not a log to grep: steps/sec, pull→push latency
 percentiles, serving QPS/p99, snapshot staleness, ingest reconnects,
@@ -354,11 +351,24 @@ def _timeline_section(max_rows: int = 40) -> Optional[Dict[str, Any]]:
     }
 
 
-def _adaptive_section() -> Optional[Dict[str, Any]]:
-    """Adaptive-runtime roll-up: None, the reference's answer when no
-    runtime is installed — the port cannot install one until adaptive/
-    is ported (ROADMAP Queue 1 #7d)."""
-    return None
+def _adaptive_section(
+    max_decisions: int = 40,
+) -> Optional[Dict[str, Any]]:
+    """Adaptive-runtime roll-up (adaptive/controller.py): per-worker
+    effective bounds, hedge wins, rebalance moves, the decision tail —
+    None when no runtime is installed (opt-in, like the timeline)."""
+    from ..adaptive.controller import get_adaptive_runtime
+
+    rt = get_adaptive_runtime()
+    if rt is None:
+        return None
+    payload = rt.payload()
+    decisions = payload.pop("decisions", [])
+    payload["decisions"] = decisions[-max_decisions:]
+    payload["decisions_truncated"] = max(
+        0, len(decisions) - max_decisions
+    )
+    return payload
 
 
 def _default_platform() -> str:

@@ -1,0 +1,814 @@
+"""The port's straggler-adaptive runtime (``adaptive/``) against the JAX package's.
+
+Mirrors tests/test_adaptive.py on the CPU: the per-worker allowance gate
+(``AdaptiveClock``), widen-fast / narrow-slow (``BoundPolicy``), round-
+versioned work routing (``WorkRouter``), the drain property
+(``DrainedHashPartitioner``), earned moves (``RebalancePolicy``), the
+runtime's deterministic ticks (``AdaptiveRuntime.step``) and the surfaces
+(``/adaptive`` and ``psctl adaptive``, the stdlib ``tools/psctl``
+unchanged, against a live 2-shard port cluster).  The mid-frame RST
+scenarios (``TestMidFrameRstAdaptive``) wait for the port's nemesis runner
+and the artifact lints (``TestTooling``) for its tooling.
+
+Parity with the reference, on the same seeded numpy inputs and exactly:
+``WorkRouter.owner_mask`` after the same shifts, ``DrainedHashPartitioner
+.shard_of`` for every weight, and an ``AdaptiveClock``'s allowance trace
+under the same scripted flag sequence through ``BoundPolicy``.  A CPU
+cluster run with ``adaptive=True`` and push hedging armed on the elastic
+driver balances its exactly-once ledger (acked == applied) while the live
+bounds stay inside ``[bound, ceiling]``.
+"""
+import json
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from flink_parameter_server_tpu.adaptive import bounds as ref_bounds
+from flink_parameter_server_tpu.adaptive import rebalance as ref_rebalance
+from flink_parameter_server_tpu.cluster.partition import (
+    ConsistentHashPartitioner as RefHash,
+)
+from flink_parameter_server_tpu_torch.adaptive.bounds import (
+    AdaptiveClock,
+    BoundPolicy,
+)
+from flink_parameter_server_tpu_torch.adaptive.controller import (
+    AdaptiveRuntime,
+    get_adaptive_runtime,
+    set_adaptive_runtime,
+)
+from flink_parameter_server_tpu_torch.adaptive.rebalance import (
+    DrainedHashPartitioner,
+    RebalancePolicy,
+    WorkRouter,
+)
+from flink_parameter_server_tpu_torch.cluster.partition import (
+    ConsistentHashPartitioner,
+)
+from flink_parameter_server_tpu_torch.ops.hashing import fmix32_np
+from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+
+pytestmark = pytest.mark.adaptive
+
+torch.set_num_threads(2)
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = "cpu"
+
+
+# ---------------------------------------------------------------------------
+# AdaptiveClock: the gate
+# ---------------------------------------------------------------------------
+
+
+class TestAdaptiveClock:
+    def test_base_allowances_are_the_stock_ssp_gate(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        for _ in range(2):
+            clock.tick(0)
+        # lead == bound: clear; one more round would exceed it
+        assert clock.wait_for_turn(0, timeout=0.05)
+        clock.tick(0)
+        assert not clock.wait_for_turn(0, timeout=0.05)
+        assert clock.block_counts[0] == 1
+
+    def test_behind_worker_never_blocks(self):
+        clock = AdaptiveClock(3, 2, bound_ceiling=5)
+        for _ in range(3):
+            clock.tick(0)
+        assert not clock.wait_for_turn(0, timeout=0.05)
+        # the workers being led are always clear to run
+        assert clock.wait_for_turn(1, timeout=0.05)
+        assert clock.wait_for_turn(2, timeout=0.05)
+
+    def test_widen_unstalls_leader_without_relaxing_healthy_pairs(self):
+        clock = AdaptiveClock(3, 2, bound_ceiling=5)
+        for _ in range(3):
+            clock.tick(0)
+            clock.tick(1)
+        # both leaders blocked on straggler 2's base allowance
+        assert not clock.wait_for_turn(0, timeout=0.05)
+        assert clock.set_allowance(2, 4) == 4
+        assert clock.wait_for_turn(0, timeout=0.05)
+        assert clock.wait_for_turn(1, timeout=0.05)
+        # the healthy pair still gates at the declared bound: 0 may
+        # not lead 1 by more than allowance[1] == 2
+        clock.tick(0)  # 0 at 4, 1 at 3, 2 at 0
+        assert clock.wait_for_turn(0, timeout=0.05)
+        clock.tick(0)
+        clock.tick(0)  # 0 at 6: leads 1 by 3 > 2
+        assert not clock.wait_for_turn(0, timeout=0.05)
+
+    def test_allowance_clamped_to_bound_and_ceiling(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        assert clock.set_allowance(0, 99) == 5
+        assert clock.set_allowance(0, 0) == 2   # never below the floor
+        assert clock.allowance(0) == 2
+        assert clock.effective_bounds() == [2, 2]
+
+    def test_ceiling_may_not_undercut_bound(self):
+        with pytest.raises(ValueError):
+            AdaptiveClock(2, 3, bound_ceiling=2)
+
+    def test_default_ceiling_is_the_bound(self):
+        clock = AdaptiveClock(2, 2)
+        assert clock.bound_ceiling == 2
+        assert clock.set_allowance(0, 10) == 2
+
+    def test_async_bound_none_keeps_never_block_semantics(self):
+        clock = AdaptiveClock(2, None)
+        assert clock.bound_ceiling is None
+        assert clock.set_allowance(0, 7) == 0
+        for _ in range(100):
+            clock.tick(0)
+        assert clock.wait_for_turn(0, timeout=0.05)
+
+    def test_snapshot_carries_allowances(self):
+        clock = AdaptiveClock(2, 1, bound_ceiling=3)
+        clock.set_allowance(1, 3)
+        snap = clock.snapshot()
+        assert snap["allowances"] == [1, 3]
+        assert snap["bound_ceiling"] == 3
+        assert snap["bound"] == 1
+
+
+# ---------------------------------------------------------------------------
+# BoundPolicy: widen fast, narrow slow
+# ---------------------------------------------------------------------------
+
+
+class TestBoundPolicy:
+    def test_widen_fires_on_the_flagging_evaluation(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=8)
+        policy = BoundPolicy(clock, clear_evals=3)
+        decisions = policy.observe({1: 2.5})
+        # ceil(2.5 × 2) = 5, applied immediately
+        assert clock.allowance(1) == 5
+        assert policy.widenings == 1
+        (d,) = decisions
+        assert d["action"] == "widen" and d["worker"] == 1
+        assert d["from"] == 2 and d["to"] == 5
+
+    def test_widen_is_at_least_one_step(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=8)
+        policy = BoundPolicy(clock)
+        policy.observe({0: 1.01})  # ceil(1.01 × 2) = 3 == cur + 1
+        assert clock.allowance(0) == 3
+        policy.observe({0: 1.01})  # ratio says 3 again: still one step
+        assert clock.allowance(0) == 4
+
+    def test_widen_capped_at_ceiling_counts_only_real_moves(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=4)
+        policy = BoundPolicy(clock)
+        assert policy.observe({0: 10.0})  # clamps to 4
+        assert clock.allowance(0) == 4
+        # already pinned at the ceiling: no move, no count
+        assert policy.observe({0: 10.0}) == []
+        assert policy.widenings == 1
+
+    def test_narrow_needs_consecutive_clean_evaluations(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=8)
+        policy = BoundPolicy(clock, clear_evals=3)
+        policy.observe({1: 2.0})  # widen to 4
+        assert clock.allowance(1) == 4
+        assert policy.observe({}) == []
+        assert policy.observe({}) == []
+        decisions = policy.observe({})  # third clean eval: one step
+        assert clock.allowance(1) == 3
+        (d,) = decisions
+        assert d["action"] == "narrow" and d["from"] == 4 and d["to"] == 3
+        # the streak restarts per step down
+        assert policy.observe({}) == []
+        assert policy.observe({}) == []
+        assert policy.observe({})
+        assert clock.allowance(1) == 2
+        # at the floor nothing more happens
+        for _ in range(5):
+            assert policy.observe({}) == []
+        assert clock.allowance(1) == 2
+        assert policy.narrowings == 2
+
+    def test_reflag_resets_the_clean_streak(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=8)
+        policy = BoundPolicy(clock, clear_evals=3)
+        policy.observe({1: 2.0})
+        policy.observe({})
+        policy.observe({})
+        policy.observe({1: 2.0})  # flapping ratio: streak back to zero
+        assert policy.observe({}) == []
+        assert policy.observe({}) == []
+        assert clock.allowance(1) > 2  # still widened
+
+    def test_clear_evals_validated(self):
+        with pytest.raises(ValueError):
+            BoundPolicy(AdaptiveClock(2, 1), clear_evals=0)
+
+
+# ---------------------------------------------------------------------------
+# WorkRouter: round-versioned ownership
+# ---------------------------------------------------------------------------
+
+
+def _keys(n=512, seed=7):
+    return np.random.default_rng(seed).integers(0, 1 << 31, size=n)
+
+
+class TestWorkRouter:
+    def test_zero_moves_is_the_stock_hash_routing(self):
+        router = WorkRouter(4, subgroups=8)
+        keys = _keys()
+        with np.errstate(over="ignore"):
+            h = fmix32_np(keys.astype(np.uint32))
+        stock = (h % np.uint32(4)).astype(np.int32)
+        for w in range(4):
+            np.testing.assert_array_equal(
+                router.owner_mask(keys, w, 0), stock == w
+            )
+
+    def test_exactly_one_owner_per_key_per_round(self):
+        router = WorkRouter(4, subgroups=8)
+        router.shift(0, 1, effective_round=5, groups=2)
+        router.shift(2, 3, effective_round=9)
+        keys = _keys()
+        for rnd in (0, 4, 5, 6, 9, 50):
+            owners = sum(
+                router.owner_mask(keys, w, rnd).astype(int)
+                for w in range(4)
+            )
+            assert (owners == 1).all(), f"round {rnd}: ownership split"
+
+    def test_moves_take_effect_only_from_the_future_round(self):
+        router = WorkRouter(4, subgroups=8)
+        keys = _keys()
+        before = [router.owner_mask(keys, w, 3) for w in range(4)]
+        recs = router.shift(0, 2, effective_round=4, groups=8)
+        assert recs and all(r["action"] == "reroute" for r in recs)
+        # past rounds never change owner retroactively
+        for w in range(4):
+            np.testing.assert_array_equal(
+                router.owner_mask(keys, w, 3), before[w]
+            )
+        # from the effective round ALL of 0's rows belong to 2
+        assert not router.owner_mask(keys, 0, 4).any()
+        moved = before[0]
+        assert (router.owner_mask(keys, 2, 4) == (moved | before[2])).all()
+        # untouched workers keep their rows bitwise
+        np.testing.assert_array_equal(
+            router.owner_mask(keys, 1, 4), before[1]
+        )
+
+    def test_partial_shift_moves_a_subgroup_slice(self):
+        router = WorkRouter(4, subgroups=8)
+        keys = _keys(4096)
+        owned = router.owner_mask(keys, 0, 0).sum()
+        (rec,) = router.shift(0, 1, effective_round=1)
+        after = router.owner_mask(keys, 0, 1).sum()
+        lost = owned - after
+        assert 0 < lost < owned  # ~1/subgroups of the rows, not all
+        assert rec["group"] in range(8)
+
+    def test_shift_exhausts_free_subgroups(self):
+        router = WorkRouter(3, subgroups=2)
+        assert len(router.shift(0, 1, effective_round=1, groups=2)) == 2
+        assert router.shift(0, 2, effective_round=2) == []
+        assert router.moves_applied == 2
+        assert len(router.assignments()) == 2
+
+    def test_bad_pairs_rejected(self):
+        router = WorkRouter(2)
+        with pytest.raises(ValueError):
+            router.shift(0, 0, effective_round=1)
+        with pytest.raises(ValueError):
+            router.shift(0, 5, effective_round=1)
+        with pytest.raises(ValueError):
+            WorkRouter(0)
+
+
+# ---------------------------------------------------------------------------
+# DrainedHashPartitioner: the drain property
+# ---------------------------------------------------------------------------
+
+
+class TestDrainedHashPartitioner:
+    def test_uniform_weights_match_the_stock_partitioner(self):
+        part = ConsistentHashPartitioner(4096, 4, seed=11)
+        drained = DrainedHashPartitioner(4096, 4, seed=11)
+        ids = np.arange(4096)
+        np.testing.assert_array_equal(
+            part.shard_of(ids), drained.shard_of(ids)
+        )
+
+    @pytest.mark.parametrize("weight", [0.0, 0.25, 0.6])
+    def test_keys_only_ever_leave_the_drained_shard(self, weight):
+        part = ConsistentHashPartitioner(8192, 4, seed=5)
+        drained = DrainedHashPartitioner.draining(part, 2, weight=weight)
+        ids = np.arange(8192)
+        old = part.shard_of(ids)
+        new = drained.shard_of(ids)
+        changed = old != new
+        # every changed key came FROM the drained shard; healthy keys
+        # never shuffle among themselves
+        assert (old[changed] == 2).all()
+        if weight == 0.0:
+            assert not (new == 2).any()
+            assert changed.any()  # a full drain actually moves keys
+
+    def test_bad_weights_rejected(self):
+        with pytest.raises(ValueError):
+            DrainedHashPartitioner(64, 2, weights=[1.0, 1.0, 1.0])
+        with pytest.raises(ValueError):
+            DrainedHashPartitioner(64, 2, weights=[0.0, 0.0])
+        with pytest.raises(ValueError):
+            DrainedHashPartitioner(64, 2, weights=[-1.0, 1.0])
+
+    def test_out_of_range_ids_rejected(self):
+        drained = DrainedHashPartitioner(64, 2)
+        with pytest.raises(ValueError):
+            drained.shard_of([64])
+
+
+# ---------------------------------------------------------------------------
+# RebalancePolicy: moves are earned
+# ---------------------------------------------------------------------------
+
+
+class TestRebalancePolicy:
+    def test_transient_skew_never_moves_data(self):
+        policy = RebalancePolicy(
+            WorkRouter(4), persist_evals=3, cooldown_s=0.0
+        )
+        assert policy.observe({0: 5.0}, now=0.0, current_round=1) == []
+        assert policy.observe({0: 5.0}, now=1.0, current_round=2) == []
+        # an unflagged evaluation resets the streak
+        assert policy.observe({}, now=2.0, current_round=3) == []
+        assert policy.observe({0: 5.0}, now=3.0, current_round=4) == []
+        assert policy.observe({0: 5.0}, now=4.0, current_round=5) == []
+        recs = policy.observe({0: 5.0}, now=5.0, current_round=6)
+        assert recs and policy.moves == 1
+        # effective round lands in the future, per the router contract
+        assert all(r["effective_round"] == 6 + 2 for r in recs)
+
+    def test_cooldown_gates_consecutive_moves(self):
+        policy = RebalancePolicy(
+            WorkRouter(4), persist_evals=1, cooldown_s=10.0
+        )
+        assert policy.observe({0: 5.0}, now=0.0, current_round=0)
+        assert policy.observe({0: 5.0}, now=5.0, current_round=1) == []
+        assert policy.observe({0: 5.0}, now=11.0, current_round=2)
+        assert policy.moves == 2
+
+    def test_max_moves_caps_the_run(self):
+        policy = RebalancePolicy(
+            WorkRouter(4, subgroups=8), persist_evals=1,
+            cooldown_s=0.0, max_moves=2,
+        )
+        for i in range(5):
+            policy.observe({0: 5.0}, now=float(i), current_round=i)
+        assert policy.moves == 2
+
+    def test_destination_is_least_loaded_unflagged_worker(self):
+        router = WorkRouter(4, subgroups=8)
+        policy = RebalancePolicy(router, persist_evals=1, cooldown_s=0.0)
+        recs = policy.observe({0: 5.0, 1: 4.0}, now=0.0, current_round=0)
+        # flagged workers are never destinations: 0 lands on 2 (tie
+        # breaks low), then 1 on 3 (2 already owns a group)
+        assert [(r["src"], r["dst"]) for r in recs] == [(0, 2), (1, 3)]
+        recs = policy.observe({0: 5.0, 1: 4.0}, now=1.0, current_round=1)
+        assert recs[0]["dst"] == 2  # loads equal again: low tie-break
+
+    def test_no_destination_when_everyone_is_flagged(self):
+        policy = RebalancePolicy(WorkRouter(2), persist_evals=1,
+                                 cooldown_s=0.0)
+        assert policy.observe(
+            {0: 5.0, 1: 5.0}, now=0.0, current_round=0
+        ) == []
+        assert policy.moves == 0
+
+    def test_router_none_is_a_noop(self):
+        policy = RebalancePolicy(None, persist_evals=1)
+        assert policy.observe({0: 9.0}, now=0.0, current_round=0) == []
+
+
+# ---------------------------------------------------------------------------
+# AdaptiveRuntime.step(): detection → actuation, deterministic ticks
+# ---------------------------------------------------------------------------
+
+
+class _FakeTracker:
+    """Stands in for telemetry.timeline.SkewTracker: the runtime only
+    reads .metric/.entity_label/.ratio_threshold/.last."""
+
+    def __init__(self, metric="cluster_pull_rtt_seconds", last=None,
+                 ratio_threshold=3.0):
+        self.metric = metric
+        self.entity_label = "worker"
+        self.ratio_threshold = ratio_threshold
+        self.last = last
+
+
+class _FakeTimeline:
+    def __init__(self, trackers=(), anomalies=()):
+        self.skew = list(trackers)
+        self._anoms = list(anomalies)
+
+    def anomalies_since(self, cursor):
+        return self._anoms[cursor:], len(self._anoms)
+
+
+def _fake_driver(clock, clients=()):
+    return types.SimpleNamespace(clock=clock, _clients=list(clients))
+
+
+class TestAdaptiveRuntimeStep:
+    def test_flagged_verdict_widens_the_allowance(self):
+        clock = AdaptiveClock(4, 2, bound_ceiling=5)
+        tracker = _FakeTracker(last={
+            "entity": "3", "flagged": True, "ratio": 2.0,
+            "medians": {"3": 0.2, "0": 0.01, "1": 0.01, "2": 0.01},
+        })
+        rt = AdaptiveRuntime(
+            _fake_driver(clock), _FakeTimeline([tracker]), registry=False,
+        )
+        out = rt.step(now=100.0)
+        assert clock.allowance(3) == 4  # ceil(2.0 × 2)
+        assert out and out[0]["action"] == "widen"
+        assert out[0]["ts"] == 100.0
+        assert rt.decisions[-1] is out[0]
+
+    def test_anomaly_corroboration_overrides_tracker_warmup(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        # warmup suppressed the flag but the ratio is over threshold
+        tracker = _FakeTracker(last={
+            "entity": "1", "flagged": False, "ratio": 4.0,
+            "medians": {"1": 0.4, "0": 0.01},
+        })
+        anom = {"metric": "cluster_pull_rtt_seconds", "kind": "drift"}
+        rt = AdaptiveRuntime(
+            _fake_driver(clock),
+            _FakeTimeline([tracker], anomalies=[anom]),
+            registry=False,
+        )
+        assert rt.step(now=0.0)
+        assert clock.allowance(1) > 2
+        # cursor advanced: the SAME firing never corroborates twice
+        tracker.last = {"entity": "0", "flagged": False, "ratio": 4.0,
+                        "medians": {}}
+        assert rt.step(now=1.0) == []
+
+    def test_non_adaptive_clock_is_a_noop(self):
+        from flink_parameter_server_tpu_torch.cluster.clock import StalenessClock
+
+        rt = AdaptiveRuntime(
+            _fake_driver(StalenessClock(2, 2)),
+            _FakeTimeline([_FakeTracker(last={
+                "entity": "0", "flagged": True, "ratio": 9.0,
+                "medians": {},
+            })]),
+            registry=False,
+        )
+        assert rt.step(now=0.0) == []
+        assert rt.payload()["adaptive"] is False
+
+    def test_fresh_clock_per_run_restarts_the_policy(self):
+        tracker = _FakeTracker(last={
+            "entity": "0", "flagged": True, "ratio": 2.0,
+            "medians": {"0": 0.2, "1": 0.01},
+        })
+        driver = _fake_driver(AdaptiveClock(2, 2, bound_ceiling=5))
+        rt = AdaptiveRuntime(driver, _FakeTimeline([tracker]),
+                             registry=False)
+        rt.step(now=0.0)
+        assert driver.clock.allowance(0) == 4
+        # the driver builds a fresh clock for the next run: the
+        # runtime must follow it, allowances back at base
+        driver.clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        tracker.last = None
+        rt.step(now=1.0)
+        assert driver.clock.effective_bounds() == [2, 2]
+
+    def test_payload_aggregates_every_mechanism(self):
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        router = WorkRouter(2, subgroups=4)
+        rebalance = RebalancePolicy(router, persist_evals=1,
+                                    cooldown_s=0.0)
+        tracker = _FakeTracker(last={
+            "entity": "0", "flagged": True, "ratio": 2.0,
+            "medians": {"0": 0.2, "1": 0.01},
+        })
+        hedge = types.SimpleNamespace(hedges_issued=7, hedges_won=3)
+        client = types.SimpleNamespace(push_hedge=hedge)
+        rt = AdaptiveRuntime(
+            _fake_driver(clock, clients=[client]),
+            _FakeTimeline([tracker]),
+            registry=False, rebalance=rebalance,
+        )
+        rt.step(now=0.0)
+        p = rt.payload()
+        assert p["kind"] == "adaptive" and p["adaptive"] is True
+        assert p["base_bound"] == 2 and p["bound_ceiling"] == 5
+        assert p["hedge"] == {"issued": 7, "won": 3}
+        assert p["counts"]["widenings"] == 1
+        assert p["rebalance"]["moves"] == 1
+        assert p["rebalance"]["assignments"] == router.assignments()
+        assert p["ticks"] == 1
+        by_worker = {w["worker"]: w for w in p["workers"]}
+        assert by_worker[0]["effective_bound"] == 4
+        assert by_worker[0]["skew_ratio"] > by_worker[1]["skew_ratio"]
+
+    def test_registry_counters_track_decisions(self):
+        reg = MetricsRegistry()
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        tracker = _FakeTracker(last={
+            "entity": "0", "flagged": True, "ratio": 2.0,
+            "medians": {"0": 0.2, "1": 0.01},
+        })
+        rt = AdaptiveRuntime(_fake_driver(clock),
+                             _FakeTimeline([tracker]), registry=reg)
+        rt.step(now=0.0)
+        sample = {
+            (inst.name, inst.labels.get("worker")): inst.value
+            for inst in reg.instruments()
+            if inst.labels.get("component") == "adaptive"
+        }
+        assert sample[("adaptive_decisions_total", None)] == 1
+        assert sample[("adaptive_bound_widenings_total", None)] == 1
+        assert sample[("adaptive_effective_bound", "0")] == 4
+        assert sample[("adaptive_effective_bound", "1")] == 2
+
+
+# ---------------------------------------------------------------------------
+# surfaces: the `adaptive` telemetry path + psctl adaptive
+# ---------------------------------------------------------------------------
+
+
+class TestSurfaces:
+    def test_adaptive_endpoint_null_without_runtime(self, capsys):
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from tools.psctl import main as psctl_main, scrape
+
+        reg = MetricsRegistry()
+        prev = get_adaptive_runtime()
+        set_adaptive_runtime(None)  # opt-in: nothing lazy-creates one
+        tsrv = TelemetryServer(reg).start()
+        try:
+            doc = json.loads(scrape(tsrv.host, tsrv.port, "adaptive"))
+            assert doc["adaptive"] is None
+            assert get_adaptive_runtime() is None
+            rc = psctl_main([
+                "adaptive", "--metrics", f"{tsrv.host}:{tsrv.port}",
+            ])
+            assert rc == 1
+            assert "no AdaptiveRuntime" in capsys.readouterr().err
+        finally:
+            tsrv.stop()
+            set_adaptive_runtime(prev)
+
+    def test_psctl_adaptive_live_smoke(self, capsys):
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from flink_parameter_server_tpu_torch.telemetry.report import (
+            build_run_report,
+        )
+        from tools.psctl import main as psctl_main
+
+        clock = AdaptiveClock(2, 2, bound_ceiling=5)
+        tracker = _FakeTracker(last={
+            "entity": "0", "flagged": True, "ratio": 2.0,
+            "medians": {"0": 0.2, "1": 0.01},
+        })
+        hedge = types.SimpleNamespace(hedges_issued=4, hedges_won=1)
+        client = types.SimpleNamespace(push_hedge=hedge)
+        rt = AdaptiveRuntime(
+            _fake_driver(clock, clients=[client]),
+            _FakeTimeline([tracker]), registry=False,
+        )
+        rt.step(now=0.0)  # no thread: deterministic single tick
+        reg = MetricsRegistry()
+        prev = get_adaptive_runtime()
+        tsrv = TelemetryServer(reg).start()
+        try:
+            set_adaptive_runtime(rt)
+            addr = f"{tsrv.host}:{tsrv.port}"
+
+            rc = psctl_main(["adaptive", "--metrics", addr])
+            assert rc == 0
+            out = capsys.readouterr().out
+            assert "psctl adaptive" in out
+            assert "base_bound=2" in out and "ceiling=5" in out
+            assert "hedged pushes=4" in out and "won=1" in out
+            # the per-worker table and the decision ring both render
+            assert "effective bound" in out
+            assert "widen" in out
+
+            rc = psctl_main(["adaptive", "--metrics", addr, "--json"])
+            assert rc == 0
+            doc = json.loads(capsys.readouterr().out)
+            assert doc["adaptive"]["counts"]["widenings"] == 1
+            assert doc["adaptive"]["hedge"] == {"issued": 4, "won": 1}
+            # the endpoint and the run report's section are the payload
+            assert doc["adaptive"] == json.loads(json.dumps(rt.payload()))
+            section = build_run_report(reg)["adaptive"]
+            assert section["decisions_truncated"] == 0
+            assert section == rt.payload() | {"decisions_truncated": 0}
+        finally:
+            set_adaptive_runtime(prev)
+            tsrv.stop()
+
+    def test_psctl_adaptive_live_cluster_smoke(self, capsys):
+        """The whole wiring over a REAL adaptive port cluster on the CPU:
+        the kill switch builds the AdaptiveClock, the runtime reads the
+        live driver, and `psctl adaptive` renders the scrape — no skew
+        injected, so the table shows every worker at the base bound."""
+        from flink_parameter_server_tpu_torch.cluster.driver import ClusterConfig
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from flink_parameter_server_tpu_torch.telemetry.timeline import (
+            SkewTracker,
+            TimelineRecorder,
+        )
+        from flink_parameter_server_tpu_torch.workloads import (
+            WorkloadParams,
+            build_cluster_driver,
+            create_workload,
+        )
+        from tools.psctl import main as psctl_main
+
+        reg = MetricsRegistry()
+        wl = create_workload("mf", WorkloadParams(
+            rounds=4, batch=32, num_users=24, num_items=32, dim=4, seed=3,
+        ), device=CPU)
+        driver = build_cluster_driver(
+            wl,
+            config=ClusterConfig(
+                num_shards=2, num_workers=2, staleness_bound=1,
+                adaptive=True,
+            ),
+            registry=reg,
+        )
+        rec = TimelineRecorder(
+            reg, interval_s=0.02,
+            skew=[SkewTracker(
+                "cluster_pull_rtt_seconds", entity_label="worker",
+                field="p50", min_points=1, warmup_evals=1,
+            )],
+        )
+        prev = get_adaptive_runtime()
+        tsrv = None
+        try:
+            with driver:
+                assert isinstance(driver.clock, AdaptiveClock)
+                rt = AdaptiveRuntime(driver, rec, registry=reg)
+                rec.sample()
+                driver.run(wl.batches())
+                rec.sample()
+                rt.step()  # deterministic tick over the live clock
+                set_adaptive_runtime(rt)
+                tsrv = TelemetryServer(reg).start()
+                addr = f"{tsrv.host}:{tsrv.port}"
+
+                rc = psctl_main(["adaptive", "--metrics", addr])
+                assert rc == 0
+                out = capsys.readouterr().out
+                assert "psctl adaptive" in out
+                assert "base_bound=1" in out and "ceiling=3" in out
+                assert "effective bound" in out
+
+                rc = psctl_main([
+                    "adaptive", "--metrics", addr, "--json",
+                ])
+                assert rc == 0
+                doc = json.loads(capsys.readouterr().out)
+                ad = doc["adaptive"]
+                assert ad["adaptive"] is True
+                assert ad["base_bound"] == 1 and ad["bound_ceiling"] == 3
+                # a healthy run sits at the base bound on every worker
+                assert [w["effective_bound"] for w in ad["workers"]] \
+                    == [1, 1]
+                assert ad["counts"] == {"widenings": 0, "narrowings": 0}
+        finally:
+            set_adaptive_runtime(prev)
+            if tsrv is not None:
+                tsrv.stop()
+
+
+# ---------------------------------------------------------------------------
+# parity with the reference on the same seeded inputs
+# ---------------------------------------------------------------------------
+
+
+class TestParity:
+    def test_owner_mask_equals_the_reference(self):
+        keys = _keys(4096, seed=21)
+        mine, theirs = WorkRouter(4, subgroups=8), ref_rebalance.WorkRouter(4, subgroups=8)
+        for r in (mine, theirs):
+            r.shift(0, 1, effective_round=3, groups=3)
+            r.shift(2, 3, effective_round=5)
+            r.shift(0, 2, effective_round=7, groups=2)
+        assert mine.assignments() == theirs.assignments()
+        for rnd in (0, 3, 4, 5, 7, 20):
+            for w in range(4):
+                np.testing.assert_array_equal(
+                    mine.owner_mask(keys, w, rnd), theirs.owner_mask(keys, w, rnd)
+                )
+
+    def test_drained_shard_of_equals_the_reference(self):
+        ids = np.arange(8192)
+        for seed, shard in ((5, 2), (11, 0)):
+            mine = ConsistentHashPartitioner(8192, 4, seed=seed)
+            theirs = RefHash(8192, 4, seed=seed)
+            np.testing.assert_array_equal(mine.shard_of(ids), theirs.shard_of(ids))
+            for weight in (0.0, 0.25, 0.6, 1.0):
+                got = DrainedHashPartitioner.draining(mine, shard, weight).shard_of(ids)
+                want = ref_rebalance.DrainedHashPartitioner.draining(
+                    theirs, shard, weight
+                ).shard_of(ids)
+                np.testing.assert_array_equal(got, want)
+
+    def test_allowance_trace_equals_the_reference(self):
+        rng = np.random.default_rng(13)
+        flags = []
+        for _ in range(40):
+            flagged = {}
+            for w in range(4):
+                if rng.random() < 0.3:
+                    flagged[w] = float(rng.uniform(1.0, 4.0))
+            flags.append(flagged)
+        traces = []
+        for mod in (types.SimpleNamespace(AdaptiveClock=AdaptiveClock, BoundPolicy=BoundPolicy),
+                    ref_bounds):
+            clock = mod.AdaptiveClock(4, 2, bound_ceiling=6)
+            policy = mod.BoundPolicy(clock, clear_evals=2)
+            trace = []
+            for flagged in flags:
+                decisions = policy.observe(flagged)
+                trace.append((clock.effective_bounds(), decisions))
+            traces.append((trace, policy.widenings, policy.narrowings, clock.snapshot()))
+        assert traces[0] == traces[1]
+        assert traces[0][1] > 0 and traces[0][2] > 0
+
+
+# ---------------------------------------------------------------------------
+# a CPU cluster run: adaptive clock, push hedging armed, ledger balanced
+# ---------------------------------------------------------------------------
+
+
+class TestAdaptiveCluster:
+    def test_push_hedged_adaptive_run_balances_the_ledger(self, tmp_path):
+        from flink_parameter_server_tpu_torch.elastic import (
+            ElasticClusterConfig,
+            ElasticClusterDriver,
+        )
+        from flink_parameter_server_tpu_torch.nemesis.invariants import (
+            AdaptiveBoundSampler,
+            check_adaptive_bound,
+            check_exactly_once,
+        )
+        from flink_parameter_server_tpu_torch.workloads import (
+            WorkloadParams,
+            build_cluster_driver,
+            create_workload,
+        )
+
+        wl = create_workload("mf", WorkloadParams(
+            rounds=8, batch=32, num_users=24, num_items=48, dim=4, seed=3,
+        ), device=CPU)
+        reg = MetricsRegistry()
+        driver = build_cluster_driver(
+            wl,
+            config=ElasticClusterConfig(
+                num_shards=2, num_workers=2, staleness_bound=1,
+                partition="hash", adaptive=True,
+                # a deferral far under one round trip: most pushes race
+                # their backup, and the (pid, id) window absorbs the loser
+                adaptive_push_hedge_after_s=1e-5,
+                hedge_max_fraction=1.0, wal_dir=str(tmp_path),
+            ),
+            driver_cls=ElasticClusterDriver, registry=reg,
+        )
+        with driver:
+            router = WorkRouter(2, subgroups=4)
+            driver.work_router = router
+            router.shift(0, 1, effective_round=3, groups=2)
+            with AdaptiveBoundSampler(driver, interval_s=0.001) as sampler:
+                result = driver.run(wl.batches())
+                driver.clock.set_allowance(0, 99)  # clamped to the ceiling
+            acked = sum(c.rows_pushed for c in driver._clients)
+            applied = sum(s.rows_applied for s in driver.shards)
+            issued = sum(c.push_hedge.hedges_issued for c in driver._clients)
+        assert check_exactly_once(acked, applied).ok, (acked, applied)
+        assert acked > 0 and issued > 0
+        verdict = check_adaptive_bound(sampler.samples, 1, 3)
+        assert verdict.ok, verdict.detail
+        assert bool(np.isfinite(result.values).all())
+        issued_metric = sum(
+            i.value for i in reg.instruments()
+            if i.name == "adaptive_hedged_pushes_total"
+        )
+        assert issued_metric == issued

@@ -253,8 +253,23 @@ def test_shard_backends_and_knobs_that_raise():
     part = RangePartitioner(16, 1)
     with pytest.raises(ValueError, match="torch"):
         ParamShard(0, part, (2,), store_backend="jax", registry=False)
-    with pytest.raises(NotImplementedError, match="tierstore"):
-        ParamShard(0, part, (2,), store_backend="tiered", registry=False)
+    # the tiered store is served: its hot tier a tensor on the device it
+    # was given, float32 only, and it never builds the dense host mirror
+    tier = ParamShard(0, part, (2,), store_backend="tiered", registry=False, device=CPU,
+                      tier_hot_rows=4)
+    try:
+        assert tier.store._hot.device.type == "cpu" and tier.store._hot.shape == (4, 2)
+        tier.push(np.arange(8), np.ones((8, 2), np.float32))
+        assert tier.pull(np.arange(8)).tolist() == [[1.0, 1.0]] * 8
+        assert tier._host_mirror is None and tier.stats()["tier"]["resident_rows"] <= 4
+    finally:
+        tier.close()
+    with pytest.raises(ValueError, match="fp32"):
+        ParamShard(0, part, (2,), store_backend="tiered", dtype=torch.bfloat16, registry=False,
+                   device=CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):  # the hot tier's default is the card
+            ParamShard(0, part, (2,), store_backend="tiered", registry=False)
     # the torch slice lives on the device it was given; numpy on the host
     t = ParamShard(0, part, (2,), registry=False, device=CPU)
     assert isinstance(t.store.table, torch.Tensor) and t.store.table.device.type == "cpu"
@@ -330,11 +345,21 @@ def test_driver_defaults_to_the_card_and_knobs_that_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ClusterDriver(_logic(nu, dim), capacity=ni, value_shape=(dim,), registry=False)
-    for kw, item in ((dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem"),
-                     (dict(store_backend="tiered"), "tierstore")):
-        with pytest.raises(NotImplementedError, match=item) as e:
-            _cluster(nu, ni, dim, init, **kw)
-        assert "Queue 1 #7" in str(e.value)
+    # the shared-memory transport still raises naming its item
+    with pytest.raises(NotImplementedError, match="shmem") as e:
+        _cluster(nu, ni, dim, init, wire_proto="shm")
+    assert "Queue 1 #7" in str(e.value)
+    # adaptive=True builds the adaptive clock (default ceiling 2*bound+1);
+    # store_backend="tiered" puts every shard's hot tier on the driver's device
+    with _cluster(nu, ni, dim, init, adaptive=True, staleness_bound=2, num_workers=2) as d:
+        assert type(d.clock).__name__ == "AdaptiveClock"
+        assert d.clock.bound_ceiling == 5 and d.work_router is None
+    with _cluster(nu, ni, dim, init, num_shards=2, store_backend="tiered", tier_hot_rows=8) as d:
+        assert all(type(s.store).__name__ == "TieredStore" for s in d.shards)
+        assert all(s.store._hot.device.type == "cpu" and s.store.hot_rows == 8 for s in d.shards)
+        d.run(batches)
+    with pytest.raises(ValueError, match="shard_procs"):
+        _cluster(nu, ni, dim, init, store_backend="tiered", shard_procs=True)
     with pytest.raises(ValueError, match="store_backend"):
         _cluster(nu, ni, dim, init, store_backend="rdma")
 

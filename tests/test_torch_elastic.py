@@ -816,7 +816,9 @@ class TestController:
 
 def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
     """The elastic driver runs on the card unless asked for the CPU; what
-    leads into modules not ported yet raises naming its item."""
+    leads into modules not ported yet raises naming its item.  The adaptive
+    knobs are served: ``drain_shard`` moves every key off the drained shard,
+    and worker clients take a push hedger."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ElasticClusterDriver(_logic(8, 4), capacity=16, value_shape=(4,), registry=False)
@@ -828,15 +830,25 @@ def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="shard_procs"):
         d.start()
     d = ElasticClusterDriver(_logic(8, 4), capacity=16, value_shape=(4,), registry=False,
-                             config=ElasticClusterConfig(wal_dir=str(tmp_path)), device=CPU)
+                             config=ElasticClusterConfig(num_shards=2, wal_dir=str(tmp_path),
+                                                         adaptive=True,
+                                                         adaptive_push_hedge_after_s=0.01),
+                             device=CPU)
     with d:
-        with pytest.raises(NotImplementedError, match="adaptive"):
-            d.drain_shard(0)
+        assert all(type(c.push_hedge).__name__ == "PushHedger" for c in d._clients)
+        before = {int(g): row for s in d.shards for g, row in zip(s.owned, s.values())}
+        report = d.drain_shard(0)
+        assert report.verified and report.mismatches == 0
+        assert d.partitioner.owned_ids(0).size == 0 and len(d.shards[0].owned) == 0
+        after = {int(g): row for s in d.shards for g, row in zip(s.owned, s.values())}
+        assert sorted(after) == sorted(before)
+        assert all(after[g].tobytes() == before[g].tobytes() for g in before)
     part = ConsistentHashPartitioner(16, 1)
-    for kw, item in ((dict(push_hedge=object()), "adaptive"),
-                     (dict(retry_budget=object()), "loadgen")):
-        with pytest.raises(NotImplementedError, match=item):
-            ClusterClient([("h", 1)], part, (4,), registry=False, **kw)
+    with pytest.raises(NotImplementedError, match="loadgen"):
+        ClusterClient([("h", 1)], part, (4,), registry=False, retry_budget=object())
+    hedger = object()
+    c = ClusterClient([("h", 1)], part, (4,), registry=False, push_hedge=hedger)
+    assert c.push_hedge is hedger
 
 
 @pytest.mark.parametrize("workload, bound", [("mf", 0), ("sketch", 2)])

@@ -279,15 +279,20 @@ def test_cluster_sketches_see_what_the_reference_cluster_sees(aggregator):
 
 
 def test_knobs_of_later_modules_still_raise_beside_hot_keys():
-    """``hot_keys=True`` is served now; with it on, the knobs that lead
-    into modules not ported yet still raise naming Queue 1 #7."""
+    """``hot_keys=True`` is served now; with it on, the knob that leads
+    into a module not ported yet still raises naming Queue 1 #7, and the
+    adaptive and tiered knobs are served beside it."""
     logic = OnlineMatrixFactorization(16, 4, updater=SGDUpdater(0.05), device="cpu")
-    for kw, item in ((dict(adaptive=True), "adaptive"),
-                     (dict(wire_proto="shm"), "shmem"), (dict(store_backend="tiered"), "tierstore")):
-        with pytest.raises(NotImplementedError, match=item) as e:
-            ClusterDriver(logic, capacity=32, value_shape=(4,), config=ClusterConfig(hot_keys=True, **kw),
+    with pytest.raises(NotImplementedError, match="shmem") as e:
+        ClusterDriver(logic, capacity=32, value_shape=(4,),
+                      config=ClusterConfig(hot_keys=True, wire_proto="shm"), registry=False, device="cpu")
+    assert "Queue 1 #7" in str(e.value)
+    for kw in (dict(adaptive=True), dict(store_backend="tiered", tier_hot_rows=8)):
+        d = ClusterDriver(logic, capacity=32, value_shape=(4,), config=ClusterConfig(hot_keys=True, **kw),
                           registry=False, device="cpu")
-        assert "Queue 1 #7" in str(e.value)
+        with d:
+            assert d.shards[0].hotkeys is not None
+            assert type(d.clock).__name__ == ("AdaptiveClock" if "adaptive" in kw else "StalenessClock")
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,46 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.telemetry.report",
             "flink_parameter_server_tpu_torch.telemetry.lockwitness",
             "flink_parameter_server_tpu_torch.nemesis.invariants"} <= set(modules)
+    # the straggler-adaptive runtime and the two-tier store
+    assert {"flink_parameter_server_tpu_torch.adaptive",
+            "flink_parameter_server_tpu_torch.adaptive.bounds",
+            "flink_parameter_server_tpu_torch.adaptive.rebalance",
+            "flink_parameter_server_tpu_torch.adaptive.hedge",
+            "flink_parameter_server_tpu_torch.adaptive.controller",
+            "flink_parameter_server_tpu_torch.tierstore",
+            "flink_parameter_server_tpu_torch.tierstore.slab",
+            "flink_parameter_server_tpu_torch.tierstore.store",
+            "flink_parameter_server_tpu_torch.tierstore.metrics"} <= set(modules)
+
+
+def test_adaptive_and_tierstore_alone_load_no_jax():
+    """``adaptive`` and ``tierstore`` imported first, on their own, in a
+    fresh interpreter (with everything they import), and driven once: an
+    adaptive clock widened through its policy, a tiered store on the CPU
+    gathering and pushing — no JAX module and nothing of the JAX package
+    is loaded."""
+    script = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from flink_parameter_server_tpu_torch.adaptive import AdaptiveClock, BoundPolicy\n"
+        "from flink_parameter_server_tpu_torch.tierstore import TieredStore\n"
+        "clock = AdaptiveClock(2, 1, bound_ceiling=3)\n"
+        "BoundPolicy(clock).observe({0: 3.0})\n"
+        "st = TieredStore(64, (2,), hot_rows=4, device='cpu')\n"
+        "st.push(np.arange(8), np.ones((8, 2), np.float32))\n"
+        "assert st.gather(np.arange(8)).sum() == 16 and clock.allowance(0) == 3\n"
+        "st.close()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 _CHILD_SCRIPT = """

@@ -22,7 +22,10 @@ rtol 1e-4 / atol 1e-6 (the dense LM's bar).  ``transform_hybrid`` over a
 ``pallas`` store against an ``"xla"`` one: rtol 1e-5 / atol 1e-6.  The hot
 cache on the card: ``CachedLookupService.top_k`` against the CPU's, ids
 equal, scores rtol 1e-6; a leased row on a card slice exactly the row at
-the answered ``seq``.
+the answered ``seq``.  The two-tier store with its hot tier on the card:
+bitwise the same store on the CPU over a seeded Zipf sequence with
+evictions, a card-backed tiered shard bitwise a card-backed torch shard;
+``drain_shard`` over card slices bitwise.
 """
 import numpy as np
 import pytest
@@ -1026,3 +1029,110 @@ def test_leased_rows_on_a_card_shard_are_the_rows_at_the_answered_seq(cuda):
     assert shard.leases.holds("reader", int(ids[0]))
     assert shard.store.table.device.type == "cuda"
     shard.close()
+
+
+def _zipf_rank(rng, n, batch):
+    u = rng.random(batch)
+    return np.minimum(np.exp(u * np.log(n)).astype(np.int64), n - 1)
+
+
+def test_tiered_store_on_the_card_matches_the_cpu(cuda):
+    """The hot tier on the card (``index_select`` reads, one copy each way a
+    batch, pushes through ``accumulate_rows_``) against the same store on the
+    CPU over a seeded Zipf sequence whose batches outgrow the hot tier
+    (evictions and spills every round): every gather, ``values()`` and the
+    counters bitwise / equal."""
+    from flink_parameter_server_tpu_torch.tierstore import TieredStore
+
+    rows, dim, hot = 1 << 14, 16, 512
+    init = lambda ids: (np.cos(np.asarray(ids)[:, None] * 0.01 + np.arange(dim)) * 0.1
+                        ).astype(np.float32)
+    stores = {d: TieredStore(rows, (dim,), row_init=init, hot_rows=hot, device=d)
+              for d in ("cuda", "cpu")}
+    assert stores["cuda"]._hot.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    try:
+        for i in range(40):
+            ids = _zipf_rank(rng, rows, 1024)
+            got = stores["cuda"].gather(ids)
+            assert got.tobytes() == stores["cpu"].gather(ids).tobytes(), i
+            d = rng.normal(size=(1024, dim)).astype(np.float32)
+            for st in stores.values():
+                st.push(ids, d)  # duplicates included: summed in index order
+        assert stores["cuda"].values().tobytes() == stores["cpu"].values().tobytes()
+        a, b = stores["cuda"].stats(), stores["cpu"].stats()
+        drop = ("last_evict_scan_s", "cum_evict_scan_s")
+        assert {k: v for k, v in a.items() if k not in drop} == \
+            {k: v for k, v in b.items() if k not in drop}
+        assert a["evict_scans"] > 0 and a["spills"] > 0
+    finally:
+        for st in stores.values():
+            st.close()
+
+
+def test_tiered_shard_on_the_card_matches_a_torch_shard(cuda, tmp_path):
+    """A card-backed tiered shard (hot tier a quarter of the slice, init
+    recomputed on the card per cold miss) against a card-backed torch shard
+    on the same client-deduplicated pushes: every pull and the final slice
+    bitwise; then a crash and WAL replay through the cold rows, bitwise."""
+    from flink_parameter_server_tpu_torch.cluster import ParamShard, RangePartitioner
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    part = RangePartitioner(8192, 1)
+    init = ranged_random_factor(11, (32,))
+    tiered = ParamShard(0, part, (32,), init_fn=init, registry=False, device=cuda,
+                        store_backend="tiered", tier_hot_rows=2048,
+                        wal_dir=str(tmp_path / "wal"))
+    dense = ParamShard(0, part, (32,), init_fn=init, registry=False, device=cuda)
+    rng = np.random.default_rng(1)
+    try:
+        assert tiered.store._hot.device.type == cuda.type
+        for i in range(30):
+            ids = np.unique(_zipf_rank(rng, 8192, 2048))
+            assert tiered.pull(ids).tobytes() == dense.pull(ids).tobytes(), i
+            d = rng.normal(size=(ids.size, 32)).astype(np.float32)
+            tiered.push(ids, d)
+            dense.push(ids, d)
+        want = dense.values()
+        assert tiered.values().tobytes() == want.tobytes()
+        assert tiered._host_mirror is None
+        tiered.crash()
+        assert tiered.restart() == 30
+        assert tiered.values().tobytes() == want.tobytes()
+    finally:
+        tiered.close()
+        dense.close()
+
+
+def test_drain_shard_on_card_slices_is_bitwise(cuda, tmp_path):
+    """``drain_shard(0)`` at weight 0 on an elastic driver whose slices are
+    on the card: every row bitwise what it was before, shard 0 owns no key,
+    the migration verified with no mismatch."""
+    from flink_parameter_server_tpu_torch.elastic import (
+        ElasticClusterConfig,
+        ElasticClusterDriver,
+    )
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization,
+        SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    logic = OnlineMatrixFactorization(64, 16, updater=SGDUpdater(0.05), seed=1, device=cuda)
+    d = ElasticClusterDriver(logic, capacity=4096, value_shape=(16,),
+                             init_fn=ranged_random_factor(7, (16,)), registry=False,
+                             config=ElasticClusterConfig(num_shards=3, wal_dir=str(tmp_path)),
+                             device=cuda)
+    with d:
+        rng = np.random.default_rng(2)
+        for sh in d.shards:
+            ids = sh.owned[rng.random(len(sh.owned)) < 0.5]
+            sh.push(ids, rng.normal(size=(len(ids), 16)).astype(np.float32))
+        before = {int(g): r for sh in d.shards for g, r in zip(sh.owned, sh.values())}
+        report = d.drain_shard(0)
+        assert report.verified and report.mismatches == 0 and report.rows_moved > 0
+        assert len(d.shards[0].owned) == 0 and d.partitioner.owned_ids(0).size == 0
+        assert all(sh.store.table.device.type == cuda.type for sh in d.shards)
+        after = {int(g): r for sh in d.shards for g, r in zip(sh.owned, sh.values())}
+        assert sorted(after) == sorted(before)
+        assert all(after[g].tobytes() == before[g].tobytes() for g in before)

@@ -157,9 +157,13 @@ def test_layout_is_one_device_and_a_mesh_raises():
 
 def test_mesh_driver_knobs_that_raise():
     batches, nu, ni, dim = _mf(rounds=1)
-    for kw, item in ((dict(adaptive=True), "adaptive"), (dict(wire_proto="shm"), "shmem")):
-        with pytest.raises(NotImplementedError, match=item):
-            _mesh_driver(nu, ni, dim, **kw)
+    with pytest.raises(NotImplementedError, match="shmem"):
+        _mesh_driver(nu, ni, dim, wire_proto="shm")
+    # the mesh topology builds its clock through _make_clock too, so
+    # adaptive=True gives it the adaptive clock, as the reference's does
+    with _mesh_driver(nu, ni, dim, adaptive=True) as d:
+        assert type(d.clock).__name__ == "AdaptiveClock"
+        d.run(batches)
     # hot_keys is accepted, as the reference's mesh driver accepts it: the
     # mesh has no shard to observe, so no sketch is registered
     agg = get_aggregator()

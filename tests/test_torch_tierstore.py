@@ -1,0 +1,872 @@
+"""The port's two-tier store (``tierstore/``) against the JAX package's.
+
+Mirrors tests/test_tierstore.py on the CPU (``device="cpu"``, where the hot
+tier is a CPU tensor — the reference's layout): the mmap cold slab, the
+store against a dense oracle BITWISE through promote/demote/spill churn,
+the residency contract (pinned rows never evicted, the operating batch
+never self-evicted, oversized batches spilled write-through), the
+space-saving churn regression, ``ParamShard(store_backend="tiered")``
+against a dense torch shard, WAL replay through cold rows, a tiered
+follower's catch-up, promotion and audit, the residency invariant and its
+live sampler, and the surfaces (``/tiers`` and ``psctl tiers``, the stdlib
+``tools/psctl`` unchanged, against a live tiered port cluster).  The
+``kill_promote_cold_tier`` scenario waits for the port's nemesis runner and
+the artifact lints (``TestTooling``) for its tooling.
+
+Parity with the reference: the same seeded call sequence (gathers, pushes
+with duplicates, assigns) through the reference's ``TieredStore`` and the
+port's gives bitwise-equal ``gather`` results and ``values()`` and equal
+``stats()`` counters — including a hot tier so small that every batch
+evicts and spills — and the same holds for the two packages' tiered
+``ParamShard``s.
+"""
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from flink_parameter_server_tpu.cluster import RangePartitioner as RefRange
+from flink_parameter_server_tpu.cluster.shard import ParamShard as RefShard
+from flink_parameter_server_tpu.tierstore import TieredStore as RefTieredStore
+from flink_parameter_server_tpu_torch.cluster.partition import (
+    ConsistentHashPartitioner,
+    RangePartitioner,
+)
+from flink_parameter_server_tpu_torch.cluster.shard import ParamShard
+from flink_parameter_server_tpu_torch.telemetry.hotkeys import SpaceSavingTopK
+from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+from flink_parameter_server_tpu_torch.tierstore import (
+    ColdSlab,
+    TieredStore,
+    tiers_snapshot,
+)
+from flink_parameter_server_tpu_torch.tierstore import metrics as tier_metrics
+from flink_parameter_server_tpu_torch.utils.initializers import (
+    ranged_random_factor,
+)
+
+pytestmark = pytest.mark.tierstore
+
+torch.set_num_threads(2)
+
+CPU = "cpu"
+
+
+def _np_init(seed):
+    """The port's per-id init over host ids, as a store's ``row_init``."""
+    init = ranged_random_factor(seed, (DIM,))
+    return lambda ids: init(torch.from_numpy(np.asarray(ids, np.int64))).numpy()
+
+
+def _wait_for(cond, timeout=30.0, interval=0.005, msg="condition"):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(interval)
+    raise AssertionError(f"timed out waiting for {msg}")
+
+
+# ---------------------------------------------------------------------------
+# the cold slab
+# ---------------------------------------------------------------------------
+
+
+class TestColdSlab:
+    def test_write_read_roundtrip_bitwise(self, tmp_path):
+        slab = ColdSlab(256, 4, dir=str(tmp_path))
+        try:
+            ids = np.array([3, 7, 250], np.int64)
+            rows = np.arange(12, dtype=np.float32).reshape(3, 4) * 0.1
+            slab.write(ids, rows)
+            assert np.array_equal(slab.read(ids), rows)
+            got = slab.contains(np.array([3, 4, 250], np.int64))
+            assert got.tolist() == [True, False, True]
+            assert slab.rows == 3
+        finally:
+            slab.close()
+
+    def test_overwrite_in_place(self, tmp_path):
+        slab = ColdSlab(64, 2, dir=str(tmp_path))
+        try:
+            ids = np.array([5, 9], np.int64)
+            slab.write(ids, np.ones((2, 2), np.float32))
+            slab.write(ids, np.full((2, 2), 7.0, np.float32))
+            assert slab.rows == 2  # no new slots for an overwrite
+            assert np.array_equal(
+                slab.read(ids), np.full((2, 2), 7.0, np.float32)
+            )
+        finally:
+            slab.close()
+
+    def test_grow_preserves_rows(self, tmp_path):
+        slab = ColdSlab(4096, 3, dir=str(tmp_path))
+        try:
+            rng = np.random.default_rng(0)
+            want = {}
+            # several batches so the file doubles at least once
+            for lo in range(0, 2048, 256):
+                ids = np.arange(lo, lo + 256, dtype=np.int64)
+                rows = rng.normal(size=(256, 3)).astype(np.float32)
+                slab.write(ids, rows)
+                want[lo] = rows
+            assert slab.rows == 2048
+            for lo, rows in want.items():
+                ids = np.arange(lo, lo + 256, dtype=np.int64)
+                assert np.array_equal(slab.read(ids), rows), lo
+        finally:
+            slab.close()
+
+    def test_drop_frees_and_slots_recycle(self, tmp_path):
+        slab = ColdSlab(64, 2, dir=str(tmp_path))
+        try:
+            ids = np.arange(8, dtype=np.int64)
+            slab.write(ids, np.ones((8, 2), np.float32))
+            nbytes = slab.nbytes
+            assert slab.drop(np.array([1, 3], np.int64)) == 2
+            assert slab.rows == 6
+            assert not slab.contains(np.array([1], np.int64))[0]
+            # freed slots are reused: the file does not grow
+            slab.write(
+                np.array([40, 41], np.int64), np.zeros((2, 2), np.float32)
+            )
+            assert slab.nbytes == nbytes
+        finally:
+            slab.close()
+
+    def test_close_unlinks_file(self, tmp_path):
+        slab = ColdSlab(16, 1, dir=str(tmp_path))
+        slab.write(np.array([0], np.int64), np.ones((1, 1), np.float32))
+        path = slab.path
+        assert os.path.exists(path)
+        slab.close()
+        assert not os.path.exists(path)
+
+
+# ---------------------------------------------------------------------------
+# the tiered store against a dense oracle
+# ---------------------------------------------------------------------------
+
+N_ROWS = 512
+DIM = 4
+
+
+def _mk_store(**kw):
+    kw.setdefault("hot_rows", 32)
+    kw.setdefault("device", CPU)
+    return TieredStore(N_ROWS, (DIM,), **kw)
+
+
+class TestTieredStore:
+    def test_dense_parity_with_duplicates(self):
+        st = _mk_store(row_init=None)
+        dense = np.zeros((N_ROWS, DIM), np.float32)
+        rng = np.random.default_rng(1)
+        try:
+            for i in range(50):
+                ids = rng.integers(0, N_ROWS, 96)  # duplicates likely
+                d = rng.normal(size=(96, DIM)).astype(np.float32)
+                assert np.array_equal(st.gather(ids), dense[ids]), i
+                st.push(ids, d)
+                np.add.at(dense, ids, d)
+            assert np.array_equal(st.values(), dense)
+        finally:
+            st.close()
+
+    def test_untouched_rows_recompute_init_slab_stays_empty(self):
+        init = _np_init(7)
+        st = _mk_store(row_init=lambda ids: init(ids))
+        try:
+            ids = np.array([0, 100, 511], np.int64)
+            want = np.asarray(init(ids), np.float32)
+            assert np.array_equal(st.gather(ids), want)
+            # reads never populate the cold tier: an absent row is
+            # recomputable, so the slab holds MUTATED rows only
+            assert st.slab.rows == 0
+        finally:
+            st.close()
+
+    def test_promote_on_access(self):
+        st = _mk_store(row_init=None)
+        try:
+            ids = np.array([9, 10], np.int64)
+            st.gather(ids)
+            assert st.misses == 2 and st.hits == 0
+            st.gather(ids)
+            assert st.hits == 2  # now resident
+            assert st.promotes == 2
+        finally:
+            st.close()
+
+    def test_resident_bounded_and_oversized_batch_spills(self):
+        st = _mk_store(row_init=None, hot_rows=16)
+        dense = np.zeros((N_ROWS, DIM), np.float32)
+        rng = np.random.default_rng(2)
+        try:
+            # one batch covering 4x the hot capacity, with duplicates
+            ids = rng.integers(0, N_ROWS, 128)
+            d = rng.normal(size=(128, DIM)).astype(np.float32)
+            st.push(ids, d)
+            np.add.at(dense, ids, d)
+            assert st.resident <= 16
+            assert st.spills > 0  # write-through, not a capacity leak
+            assert np.array_equal(st.values(), dense)
+            # pulls across hot + spilled + untouched rows stay bitwise
+            probe = rng.integers(0, N_ROWS, 64)
+            assert np.array_equal(st.gather(probe), dense[probe])
+        finally:
+            st.close()
+
+    def test_pinned_rows_never_evicted(self):
+        pinned = np.array([3, 4, 5], np.int64)
+        st = _mk_store(
+            row_init=None, hot_rows=8, pinned_fn=lambda: pinned
+        )
+        rng = np.random.default_rng(3)
+        try:
+            st.push(pinned, np.ones((3, DIM), np.float32))
+            # hammer enough other ids to force repeated demotion scans
+            for _ in range(30):
+                ids = rng.integers(8, N_ROWS, 16)
+                st.gather(ids)
+            assert (st._slot_of[pinned] >= 0).all(), "pinned row evicted"
+            assert st.resident <= 8
+            assert np.array_equal(
+                st.gather(pinned), np.ones((3, DIM), np.float32)
+            )
+        finally:
+            st.close()
+
+    def test_operating_batch_never_self_evicts(self):
+        st = _mk_store(row_init=None, hot_rows=8)
+        rng = np.random.default_rng(4)
+        dense = np.zeros((N_ROWS, DIM), np.float32)
+        try:
+            for _ in range(20):
+                # every batch exceeds capacity: admission must not
+                # evict rows of the batch currently being served
+                ids = rng.integers(0, N_ROWS, 24)
+                d = rng.normal(size=(24, DIM)).astype(np.float32)
+                assert np.array_equal(st.gather(ids), dense[ids])
+                st.push(ids, d)
+                np.add.at(dense, ids, d)
+                assert st.resident <= 8
+            assert np.array_equal(st.values(), dense)
+        finally:
+            st.close()
+
+    def test_dirty_demotes_write_slab_clean_drops_free(self):
+        init = _np_init(5)
+        st = _mk_store(row_init=lambda ids: init(ids), hot_rows=8)
+        rng = np.random.default_rng(5)
+        try:
+            mutated = np.arange(4, dtype=np.int64)
+            d = rng.normal(size=(4, DIM)).astype(np.float32)
+            st.push(mutated, d)
+            want = np.asarray(init(mutated), np.float32) + d
+            # touch (read-only) enough other rows to evict everything
+            for lo in range(16, 496, 16):
+                st.gather(np.arange(lo, lo + 16, dtype=np.int64))
+            # only the 4 mutated rows ever earned a slab slot: clean
+            # (read-only) victims drop for free
+            assert st.slab.rows == 4
+            assert st.demote_writes == 4
+            assert np.array_equal(st.gather(mutated), want)
+        finally:
+            st.close()
+
+    def test_assign_resident_in_place_cold_to_slab(self):
+        st = _mk_store(row_init=None, hot_rows=8)
+        try:
+            st.gather(np.array([1], np.int64))  # make id 1 resident
+            st.assign(
+                np.array([1, 200], np.int64),
+                np.full((2, DIM), 3.0, np.float32),
+            )
+            assert st._slot_of[1] >= 0  # updated in place
+            assert st._slot_of[200] < 0  # bulk load skips the hot tier
+            assert st.slab.contains(np.array([200], np.int64))[0]
+            got = st.gather(np.array([1, 200], np.int64))
+            assert np.array_equal(got, np.full((2, DIM), 3.0, np.float32))
+        finally:
+            st.close()
+
+    def test_windowed_decay_halves_sketches(self):
+        st = _mk_store(row_init=None, hot_rows=16, decay_window=64)
+        try:
+            ids = np.arange(8, dtype=np.int64)
+            for _ in range(16):
+                st.gather(ids)  # 128 observed ids >= window
+            st._flush_observed()  # deterministic fold for the assert
+            assert st.decays >= 1
+            assert st.topk.total < 128  # halved at least once
+        finally:
+            st.close()
+
+    def test_values_seed_dense_roundtrip_keeps_slab_sparse(self):
+        init = _np_init(9)
+        st = _mk_store(row_init=lambda ids: init(ids), hot_rows=16)
+        rng = np.random.default_rng(6)
+        try:
+            ids = rng.choice(N_ROWS, 24, replace=False)
+            st.push(ids, rng.normal(size=(24, DIM)).astype(np.float32))
+            table = st.values()
+            st2 = _mk_store(row_init=lambda i: init(i), hot_rows=16)
+            try:
+                st2.seed_dense(table)
+                # only mutated rows earn slab slots; init-equal rows
+                # stay absent (recomputable)
+                assert st2.slab.rows == 24
+                assert np.array_equal(st2.values(), table)
+            finally:
+                st2.close()
+        finally:
+            st.close()
+
+    def test_stats_surface_complete(self):
+        st = _mk_store(row_init=None)
+        try:
+            st.gather(np.array([1, 2], np.int64))
+            keys = set(st.stats())
+            assert {
+                "resident_rows", "hot_capacity_rows", "pinned_rows",
+                "slab_rows", "slab_bytes", "hits", "misses",
+                "promotes", "demotes", "demote_writes", "spills",
+                "evict_scans", "last_evict_scan_s",
+                "cum_evict_scan_s", "decays",
+            } <= keys
+        finally:
+            st.close()
+
+    def test_fp32_shape_round_trip(self):
+        st = TieredStore(64, (2, 3), hot_rows=8, device=CPU)
+        try:
+            got = st.gather(np.array([0, 1], np.int64))
+            assert got.shape == (2, 2, 3) and got.dtype == np.float32
+        finally:
+            st.close()
+
+
+# ---------------------------------------------------------------------------
+# the SpaceSaving churn regression (the at-capacity over-admission fix)
+# ---------------------------------------------------------------------------
+
+
+def _per_item_reference(capacity, batches):
+    """Sequential Metwally space-saving, visiting each batch the way
+    the vectorized path commits to: tracked keys accumulate first,
+    then newcomers insert strongest-first (ties by batch order), each
+    displacing the current minimum — (count, key)-ordered, matching
+    the heap."""
+    counts, errs = {}, {}
+    for uniq, c in batches:
+        absent = [
+            (k, n) for k, n in zip(uniq.tolist(), c.tolist())
+            if k not in counts
+        ]
+        for k, n in zip(uniq.tolist(), c.tolist()):
+            if k in counts:
+                counts[k] += n
+        absent.sort(key=lambda t: -t[1])
+        for k, n in absent:
+            if len(counts) < capacity:
+                counts[k] = n
+                errs[k] = 0
+                continue
+            victim = min(counts.items(), key=lambda kv: (kv[1], kv[0]))
+            floor = victim[1]
+            del counts[victim[0]]
+            errs.pop(victim[0], None)
+            counts[k] = floor + n
+            errs[k] = floor
+    return counts, errs
+
+
+class TestSpaceSavingChurn:
+    def test_batch_update_matches_per_item_at_capacity(self):
+        """The PR 11 regression: under heavy churn at capacity, the
+        batch path must admit EXACTLY what per-item insertion admits —
+        the old union-trim could evict incumbents counted above the
+        rolling minimum."""
+        rng = np.random.default_rng(11)
+        topk = SpaceSavingTopK(capacity=16)
+        batches = []
+        for i in range(40):
+            # a few sticky incumbents + a churning novel tail
+            sticky = rng.choice(20, 4, replace=False)
+            novel = rng.integers(1000 + 50 * i, 1000 + 50 * (i + 1), 12)
+            ids = np.concatenate([sticky, novel])
+            uniq, c = np.unique(ids, return_counts=True)
+            batches.append((uniq, c))
+            topk.update(uniq, c, assume_unique=True)
+            assert len(topk._counts) <= 16, "over-admission"
+        ref_counts, ref_errs = _per_item_reference(16, batches)
+        assert topk._counts == ref_counts
+        assert topk._errs == ref_errs
+
+    def test_hot_incumbent_survives_novel_storm(self):
+        topk = SpaceSavingTopK(capacity=8)
+        topk.update(np.array([1]), np.array([1000]))
+        for i in range(20):
+            topk.update(np.arange(100 + 8 * i, 108 + 8 * i))
+        tracked = {k for k, _, _ in topk.items()}
+        assert 1 in tracked, "high-count incumbent evicted by churn"
+
+
+# ---------------------------------------------------------------------------
+# ParamShard over the tier: parity, WAL replay, guards
+# ---------------------------------------------------------------------------
+
+
+class TestParamShardTiered:
+    def test_pull_push_parity_vs_dense_bitwise(self):
+        part = RangePartitioner(256, 1)
+        init = ranged_random_factor(11, (DIM,))
+        tiered = ParamShard(
+            0, part, (DIM,), init_fn=init, registry=False,
+            store_backend="tiered", tier_hot_rows=24, device=CPU,
+        )
+        dense = ParamShard(
+            0, part, (DIM,), init_fn=init, registry=False, device=CPU,
+        )
+        try:
+            rng = np.random.default_rng(7)
+            for i in range(25):
+                ids = rng.integers(0, 256, 48)
+                assert np.array_equal(
+                    tiered.pull(ids), dense.pull(ids)
+                ), i
+                d = rng.normal(size=(48, DIM)).astype(np.float32)
+                tiered.push(ids, d)
+                dense.push(ids, d)
+            assert np.array_equal(tiered.values(), dense.values())
+        finally:
+            tiered.close()
+            dense.close()
+
+    def test_wal_replay_through_cold_rows_bitwise(self, tmp_path):
+        part = RangePartitioner(256, 1)
+        init = ranged_random_factor(5, (DIM,))
+        wal = str(tmp_path / "wal")
+        shard = ParamShard(
+            0, part, (DIM,), init_fn=init, wal_dir=wal, registry=False,
+            store_backend="tiered", tier_hot_rows=16, device=CPU,
+        )
+        try:
+            rng = np.random.default_rng(8)
+            for _ in range(12):
+                ids = rng.integers(0, 256, 32)
+                shard.push(
+                    ids, rng.normal(size=(32, DIM)).astype(np.float32)
+                )
+            before = shard.values().copy()
+            shard.crash()
+            assert shard.restart() == 12
+            assert np.array_equal(shard.values(), before)
+        finally:
+            shard.close()
+        # a fresh process-equivalent over the same log lands identically
+        reborn = ParamShard(
+            0, part, (DIM,), init_fn=init, wal_dir=wal, registry=False,
+            store_backend="tiered", tier_hot_rows=16, device=CPU,
+        )
+        try:
+            assert np.array_equal(reborn.values(), before)
+        finally:
+            reborn.close()
+
+    def test_tiered_is_fp32_only(self):
+        part = RangePartitioner(64, 1)
+        with pytest.raises(ValueError, match="fp32"):
+            ParamShard(
+                0, part, (DIM,), dtype=torch.float16, registry=False,
+                store_backend="tiered", device=CPU,
+            )
+
+    def test_snapshot_and_peek_are_tier_agnostic(self):
+        part = RangePartitioner(128, 1)
+        shard = ParamShard(
+            0, part, (DIM,), registry=False,
+            store_backend="tiered", tier_hot_rows=8, device=CPU,
+        )
+        try:
+            ids = np.arange(40, dtype=np.int64)
+            shard.push(ids, np.ones((40, DIM), np.float32))
+            rows, _ = shard.snapshot_rows(ids)
+            assert np.array_equal(rows, np.ones((40, DIM), np.float32))
+            assert np.array_equal(shard.peek_rows(ids), rows)
+        finally:
+            shard.close()
+
+
+# ---------------------------------------------------------------------------
+# replication over the tier: catch-up, promotion, audit
+# ---------------------------------------------------------------------------
+
+
+class TestReplicationTiered:
+    def test_tiered_follower_catches_up_promotes_and_audits(
+        self, tmp_path
+    ):
+        from flink_parameter_server_tpu_torch.replication import (
+            ReplHub,
+            ReplicaShard,
+            WALShipper,
+        )
+        from flink_parameter_server_tpu_torch.replication.failover import (
+            verify_against_log,
+        )
+
+        part = ConsistentHashPartitioner(64, 1)
+        init = ranged_random_factor(13, (DIM,))
+        primary = ParamShard(
+            0, part, (DIM,), init_fn=init,
+            wal_dir=str(tmp_path / "p"), registry=False,
+            store_backend="tiered", tier_hot_rows=12, device=CPU,
+        )
+        follower = ReplicaShard(
+            0, part, (DIM,), init_fn=init,
+            wal_dir=str(tmp_path / "f"), registry=False,
+            store_backend="tiered", tier_hot_rows=12, device=CPU,
+        )
+        from flink_parameter_server_tpu_torch.cluster import ShardServer
+
+        fsrv = ShardServer(follower, supervised=False).start()
+        hub = ReplHub()
+        ship = WALShipper(
+            primary, (fsrv.host, fsrv.port), hub.subscribe(),
+            registry=False,
+        ).start()
+        primary.attach_repl_sink(hub)
+        try:
+            rng = np.random.default_rng(9)
+            for _ in range(10):
+                ids = rng.choice(64, 8, replace=False)
+                primary.push(
+                    ids, rng.normal(size=(8, DIM)).astype(np.float32)
+                )
+            _wait_for(
+                lambda: follower.repl_state()["applied"]
+                == primary.head_seq(),
+                msg="tiered follower caught up",
+            )
+            # both ends mostly demoted (hot 12 over 64 ids), still
+            # bitwise across hot + slab + untouched rows
+            assert np.array_equal(primary.values(), follower.values())
+            ship.stop()
+            follower.catch_up()
+            follower.promote_to_primary(1)
+            assert follower.role == "primary"
+            # the promote audit: the promoted table is bitwise its own
+            # replayed log, straight through the tier
+            assert verify_against_log(follower)
+        finally:
+            ship.stop()
+            fsrv.stop()
+            primary.close()
+            follower.close()
+
+
+# ---------------------------------------------------------------------------
+# nemesis: the residency invariant + the committed schedule
+# ---------------------------------------------------------------------------
+
+
+class TestNemesisTier:
+    def test_check_tier_residency_verdicts(self):
+        from flink_parameter_server_tpu_torch.nemesis.invariants import (
+            check_tier_residency,
+        )
+
+        # vacuous: a run that never sampled a tiered store proves
+        # nothing and must fail
+        assert not check_tier_residency([]).ok
+        ok = check_tier_residency([
+            {"shard-0": (10, 24), "shard-0-f0": (24, 24)},
+            {"shard-0": (24, 24)},
+        ])
+        assert ok.ok
+        bad = check_tier_residency([{"shard-1": (25, 24)}])
+        assert not bad.ok
+        assert "shard-1" in bad.detail
+
+    def test_sampler_collects_from_live_registry(self):
+        from flink_parameter_server_tpu_torch.nemesis.invariants import (
+            TierResidencySampler,
+            check_tier_residency,
+        )
+
+        tier_metrics.register_store(
+            "fake-shard",
+            lambda: {"resident_rows": 7, "hot_capacity_rows": 24},
+        )
+        try:
+            with TierResidencySampler(interval_s=0.002) as sampler:
+                _wait_for(
+                    lambda: len(sampler.samples) >= 3,
+                    msg="sampler ticks",
+                )
+            assert check_tier_residency(sampler.samples).ok
+            assert sampler.samples[0]["fake-shard"] == (7, 24)
+        finally:
+            tier_metrics.unregister_store("fake-shard")
+
+
+# ---------------------------------------------------------------------------
+# surfaces: the `tiers` telemetry path + psctl tiers
+# ---------------------------------------------------------------------------
+
+
+class TestSurfaces:
+    def test_tiers_endpoint_null_without_store(self, capsys):
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from tools.psctl import main as psctl_main, scrape
+
+        tier_metrics.clear()
+        reg = MetricsRegistry()
+        tsrv = TelemetryServer(reg).start()
+        try:
+            doc = json.loads(scrape(tsrv.host, tsrv.port, "tiers"))
+            assert doc["tiers"] is None
+            rc = psctl_main([
+                "tiers", "--metrics", f"{tsrv.host}:{tsrv.port}",
+            ])
+            assert rc == 1
+            assert "no tiered shard" in capsys.readouterr().err
+        finally:
+            tsrv.stop()
+
+    def test_psctl_tiers_live_smoke(self, capsys):
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from tools.psctl import main as psctl_main
+
+        part = RangePartitioner(256, 1)
+        reg = MetricsRegistry()
+        shard = ParamShard(
+            0, part, (DIM,), registry=reg,
+            store_backend="tiered", tier_hot_rows=16, device=CPU,
+        )
+        tsrv = TelemetryServer(reg).start()
+        try:
+            rng = np.random.default_rng(10)
+            for _ in range(6):
+                ids = rng.integers(0, 256, 32)
+                shard.push(
+                    ids, rng.normal(size=(32, DIM)).astype(np.float32)
+                )
+            addr = f"{tsrv.host}:{tsrv.port}"
+            rc = psctl_main(["tiers", "--metrics", addr, "--json"])
+            assert rc == 0
+            doc = json.loads(capsys.readouterr().out)
+            st = doc["tiers"]["shard-0"]
+            assert st["role"] == "primary"
+            assert 0 < st["resident_rows"] <= 16
+            assert st["hot_capacity_rows"] == 16
+            # one rendered frame of the live table
+            rc = psctl_main([
+                "tiers", "--metrics", addr, "--iterations", "1",
+                "--raw",
+            ])
+            assert rc == 0
+            out = capsys.readouterr().out
+            assert "psctl tiers" in out and "shard-0" in out
+            assert "resident/cap" in out
+            # the component=tierstore gauges are live on the registry
+            tier_gauges = {
+                i.name: i.value for i in reg.instruments()
+                if i.labels.get("component") == "tierstore"
+            }
+            assert tier_gauges["tier_resident_rows"] == (
+                st["resident_rows"]
+            )
+            assert tier_gauges["tier_hot_capacity_rows"] == 16
+        finally:
+            tsrv.stop()
+            shard.close()
+
+    def test_psctl_tiers_live_cluster_smoke(self, capsys):
+        """The whole wiring over a REAL tiered cluster: the driver
+        builds tiered shard slices, training runs, and `psctl tiers`
+        renders every shard's live residency from the scrape."""
+        from flink_parameter_server_tpu_torch.cluster.driver import (
+            ClusterConfig,
+        )
+        from flink_parameter_server_tpu_torch.telemetry.exporter import (
+            TelemetryServer,
+        )
+        from flink_parameter_server_tpu_torch.workloads import (
+            WorkloadParams,
+            build_cluster_driver,
+            create_workload,
+        )
+        from tools.psctl import main as psctl_main
+
+        reg = MetricsRegistry()
+        wl = create_workload("mf", WorkloadParams(
+            rounds=4, batch=32, num_users=24, num_items=32, dim=4,
+            seed=3,
+        ), device=CPU)
+        driver = build_cluster_driver(
+            wl,
+            config=ClusterConfig(
+                num_shards=2, num_workers=1, staleness_bound=0,
+                store_backend="tiered", tier_hot_rows=16,
+            ),
+            registry=reg,
+        )
+        tsrv = TelemetryServer(reg).start()
+        try:
+            with driver:
+                driver.run(wl.batches())
+                addr = f"{tsrv.host}:{tsrv.port}"
+                rc = psctl_main([
+                    "tiers", "--metrics", addr, "--json",
+                ])
+                assert rc == 0
+                doc = json.loads(capsys.readouterr().out)
+                tiers = doc["tiers"]
+                assert set(tiers) == {"shard-0", "shard-1"}
+                for label, st in tiers.items():
+                    assert st["resident_rows"] <= 16, label
+                    assert st["hits"] + st["misses"] > 0, label
+        finally:
+            tsrv.stop()
+
+    def test_config_rejects_tiered_shard_procs(self):
+        from flink_parameter_server_tpu_torch.cluster.driver import (
+            ClusterConfig,
+        )
+        from flink_parameter_server_tpu_torch.workloads import (
+            WorkloadParams,
+            build_cluster_driver,
+            create_workload,
+        )
+
+        wl = create_workload("mf", WorkloadParams(
+            rounds=1, batch=8, num_users=8, num_items=8, dim=2, seed=0,
+        ), device=CPU)
+        with pytest.raises(ValueError, match="shard_procs"):
+            build_cluster_driver(
+                wl,
+                config=ClusterConfig(
+                    num_shards=1, num_workers=1,
+                    store_backend="tiered", shard_procs=True,
+                ),
+            )
+
+
+# ---------------------------------------------------------------------------
+# parity with the reference's store and shard on the same call sequence
+# ---------------------------------------------------------------------------
+
+_COUNTERS = (
+    "resident_rows", "hot_capacity_rows", "pinned_rows", "slab_rows",
+    "slab_bytes", "hits", "misses", "promotes", "demotes",
+    "demote_writes", "spills", "evict_scans", "decays",
+)
+
+
+def _zipf(rng, n, batch):
+    u = rng.random(batch)
+    return np.minimum(np.exp(u * np.log(n)).astype(np.int64), n - 1)
+
+
+def _host_init(ids):
+    """A numpy per-id init both packages' stores take as ``row_init``."""
+    ids = np.asarray(ids, np.int64)
+    return (
+        np.sin(ids[:, None] * 0.37 + np.arange(DIM)) * 0.1
+    ).astype(np.float32)
+
+
+class TestParity:
+    @pytest.mark.parametrize("hot_rows", [8, 48, 600])
+    def test_store_call_sequence_matches_the_reference(self, hot_rows):
+        """hot 8 < every batch's unique ids: every gather and push evicts
+        and spills; 48 evicts every few batches; 600 never evicts."""
+        pinned = np.array([3, 17], np.int64)
+        kw = dict(row_init=_host_init, hot_rows=hot_rows,
+                  decay_window=256, pinned_fn=lambda: pinned)
+        mine = TieredStore(N_ROWS, (DIM,), device=CPU, **kw)
+        theirs = RefTieredStore(N_ROWS, (DIM,), **kw)
+        rng = np.random.default_rng(hot_rows)
+        try:
+            for i in range(60):
+                ids = _zipf(rng, N_ROWS, 64)
+                got, want = mine.gather(ids), theirs.gather(ids)
+                assert got.tobytes() == want.tobytes(), i
+                d = rng.normal(size=(64, DIM)).astype(np.float32)
+                mine.push(ids, d)
+                theirs.push(ids, d)
+                if i % 9 == 4:
+                    a_ids = rng.choice(N_ROWS, 6, replace=False)
+                    rows = rng.normal(size=(6, DIM)).astype(np.float32)
+                    mine.assign(a_ids, rows)
+                    theirs.assign(a_ids, rows)
+            assert mine.values().tobytes() == theirs.values().tobytes()
+            sm, st = mine.stats(), theirs.stats()
+            assert {k: sm[k] for k in _COUNTERS} == {k: st[k] for k in _COUNTERS}
+            if hot_rows == 8:
+                assert sm["spills"] > 0 and sm["evict_scans"] > 0
+            assert mine.pinned_last == theirs.pinned_last
+        finally:
+            mine.close()
+            theirs.close()
+
+    def test_seed_dense_and_fresh_store_match_the_reference(self):
+        rng = np.random.default_rng(4)
+        table = _host_init(np.arange(N_ROWS))
+        touched = rng.choice(N_ROWS, 40, replace=False)
+        table[touched] += 1.0
+        mine = TieredStore(N_ROWS, (DIM,), row_init=_host_init, hot_rows=16, device=CPU)
+        theirs = RefTieredStore(N_ROWS, (DIM,), row_init=_host_init, hot_rows=16)
+        try:
+            mine.seed_dense(table)
+            theirs.seed_dense(table)
+            assert mine.slab.rows == theirs.slab.rows == 40
+            probe = rng.integers(0, N_ROWS, 96)
+            assert mine.gather(probe).tobytes() == theirs.gather(probe).tobytes()
+            assert mine.values().tobytes() == theirs.values().tobytes() == table.tobytes()
+        finally:
+            mine.close()
+            theirs.close()
+
+    def test_tiered_shard_matches_the_reference_shard(self):
+        mine = ParamShard(0, RangePartitioner(256, 1), (DIM,), registry=False,
+                          store_backend="tiered", tier_hot_rows=24, device=CPU)
+        theirs = RefShard(0, RefRange(256, 1), (DIM,), registry=False,
+                          store_backend="tiered", tier_hot_rows=24)
+        rng = np.random.default_rng(5)
+        try:
+            for i in range(20):
+                ids = np.unique(_zipf(rng, 256, 48))
+                assert mine.pull(ids).tobytes() == theirs.pull(ids).tobytes(), i
+                d = rng.normal(size=(ids.size, DIM)).astype(np.float32)
+                mine.push(ids, d)
+                theirs.push(ids, d)
+            assert mine.values().tobytes() == theirs.values().tobytes()
+            sm, st = mine.stats()["tier"], theirs.stats()["tier"]
+            assert {k: sm[k] for k in _COUNTERS} == {k: st[k] for k in _COUNTERS}
+        finally:
+            mine.close()
+            theirs.close()
+
+    def test_hot_tier_takes_the_card_by_default(self):
+        """The device rule: the hot tier's default device is the card, and
+        without one the store raises instead of falling back."""
+        if torch.cuda.is_available():
+            st = TieredStore(16, (DIM,), hot_rows=4)
+            try:
+                assert st._hot.device.type == "cuda"
+            finally:
+                st.close()
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                TieredStore(16, (DIM,), hot_rows=4)
