@@ -5,8 +5,10 @@ parameter-server cluster and the mesh store, resharded live by the
 elastic driver, failed over across replica chains, watched by the
 telemetry plane's hot-key sketches, SLOs and timeline, served through
 the hot-key lease cache with ``/metrics``, the run report and the lock
-witness live, steered around a lagged worker by the adaptive runtime, and
-kept in the two-tier store with its hot tier on the card), the registered
+witness live, steered around a lagged worker by the adaptive runtime,
+kept in the two-tier store with its hot tier on the card, and put through
+the nemesis fault-injection harness's corpus, shrinker and full-width
+schedules), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -184,8 +186,9 @@ line each; any failure exits non-zero before the last line:
              bound 64, one closed-loop reader, a writer pushing hot ids) at
              131,072 x 64 on a 2-shard cluster whose slices are on the card,
              arms off, on, on, off (5,000 warm-up and 1,500 measured
-             requests an arm; on localhost, the reference's proxied link
-             delay waits for nemesis/): ``check_lease_staleness`` with hits;
+             requests an arm; reader and writer behind a ``ChaosProxy``
+             that delays each request frame 1 ms, as the reference's
+             storm): ``check_lease_staleness`` with hits;
              then ``CachedLookupService.top_k`` over every id, ranked on the
              card, equal to a float64 numpy ranking of the shards' rows.  (b)
              The cluster phase's MF under SSP bound 2 (4 shards x 2 workers)
@@ -207,8 +210,8 @@ line each; any failure exits non-zero before the last line:
   adaptive   the straggler-adaptive runtime (``benchmarks/straggler_ab.py``'s
              scenario): an ``ElasticClusterDriver``, 4 workers x 2 shards, hash
              partition, SSP bound 2 (ceiling 5), slices on the card, worker 0
-             reaching every shard through a forwarder in this script that
-             delays each chunk 25 ms both ways.  Per workload (MF at 100,000 x
+             reaching every shard through a ``ChaosProxy`` that delays each
+             frame 25 ms both ways.  Per workload (MF at 100,000 x
              131,072, dim 64, 65,536 ratings a round, lr 0.01; PA at 8,192
              features x 1,024 examples a round) a fixed arm and an adaptive arm
              (``adaptive=True``, push hedging after 10 ms, a timeline
@@ -235,6 +238,21 @@ line each; any failure exits non-zero before the last line:
              naming both shards.  ``tierstore:`` lines give pull and push
              p50/p99, hit rate, promotes, demotes, spills, eviction scans,
              card peak memory, host RSS growth and rounds/s.  No kernel.
+  nemesis    the fault-injection harness (``nemesis/``) with every shard
+             slice, workload and oracle on the card and every shard link
+             behind a ``ChaosProxy``: (a) the committed corpus's 15 schedules
+             at their own shapes (``two_way_partition_heal`` witnessed), held
+             to the reference's acceptance checks (>= 8 passing, all ok; the
+             anchors ran every op; the seven fault classes injected; the
+             seeded corruption caught by parity alone, its artifacts linted);
+             (b) ``shrink`` of the seeded violation to the committed
+             one-op schedule, byte for byte; (c) ``kill_primary_under_
+             partition`` and ``promote_while_client_partitioned`` at MF
+             100,000 x 131,072, dim 64, 65,536 ratings a round, and
+             ``sketch_full_stack`` at the elastic phase's count-min width, 12
+             rounds each, every invariant passing, each oracle finite.
+             ``nemesis:`` lines give each run's verdicts, faults, rounds,
+             seconds and rounds/s.  No kernel.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -2685,6 +2703,7 @@ HOT_STORM_K = 4096  # shard sketch slots: ~3x the 1,310-key hot set, as the refe
 HOT_STORM_WARMUP = 5000  # requests before the measured ones: ~14 sketch counts a hot key (min_count 10)
 HOT_STORM_REQUESTS = 1500  # measured requests an arm
 HOT_STORM_ARMS = ("off", "on", "on", "off")
+HOT_STORM_LINK_MS = 1.0  # the proxied request leg's delay (benchmarks/hotcache_storm.py's link_delay_ms)
 HOT_TRAIN_TIMED = (False, True, True, False)  # hot_cache off / on in turns
 HOT_WITNESS_ROUNDS = 3
 HOT_TOP = 32  # ClusterConfig.hot_cache_top_n
@@ -2747,10 +2766,12 @@ def phase_hotcache(torch, dev, card):
     whose slices are CUDA tensors (the reference runs 4,096 x 32); only
     the request count is cut: 5,000 warm-up requests (so a hot key is seen
     ~14 times, past the policy's min_count 10) and 1,500 measured requests
-    an arm, arms off, on, on, off.  The reference's ``ChaosProxy`` link
-    delay waits for nemesis/ (ROADMAP Queue 1 #7g): the arms run on
-    localhost.  Then ``CachedLookupService.top_k`` over all 131,072 ids on
-    the card against a float64 numpy ranking of the shards' rows.  (b) The
+    an arm, arms off, on, on, off.  As in the reference, the reader and the
+    writer reach every shard through a ``nemesis.ChaosProxy`` that delays
+    each request frame 1 ms (``set_delay(1.0, 0.0, "c2s")``: one LAN round
+    trip a request burst).  Then ``CachedLookupService.top_k`` over all
+    131,072 ids on the card, over the direct links, against a float64 numpy
+    ranking of the shards' rows.  (b) The
     cluster phase's MF (100,000 x 131,072, dim 64, lr 0.01,
     ``zipf_stream(9, 12)``, socket 4 shards x 2 workers, range partition,
     SSP bound 2) with ``hot_cache`` off, on, on, off; a checked
@@ -2782,6 +2803,7 @@ def phase_hotcache(torch, dev, card):
     from flink_parameter_server_tpu_torch.models.matrix_factorization import (
         OnlineMatrixFactorization, SGDUpdater,
     )
+    from flink_parameter_server_tpu_torch.nemesis import ChaosProxy
     from flink_parameter_server_tpu_torch.nemesis.invariants import check_lease_staleness, check_lock_inversions
     from flink_parameter_server_tpu_torch.telemetry import hotkeys, lockwitness
     from flink_parameter_server_tpu_torch.telemetry import report as report_mod
@@ -2817,7 +2839,14 @@ def phase_hotcache(torch, dev, card):
             d = storm_driver().start()
             check(all(s.store.table.device.type == dev.type for s in d.shards),
                   f"hotcache: storm slices not on {dev.type}")
-            addrs = [(s.host, s.port) for s in d.servers]
+            direct = [(s.host, s.port) for s in d.servers]
+            proxies = []
+            for j, (host, port) in enumerate(direct):
+                proxies.append(ChaosProxy(host, port, name=f"nemesis-storm-{arm}-{j}", registry=False).start())
+                # the request leg only: one delay a request burst, however
+                # many frames it pipelines (benchmarks/hotcache_storm.py)
+                proxies[-1].set_delay(HOT_STORM_LINK_MS, 0.0, "c2s")
+            addrs = [(p.host, p.port) for p in proxies]
             writer = ClusterClient(addrs, d.partitioner, (DIM_UNFUSED,), registry=False, worker="storm-writer")
             reader = ClusterClient(addrs, d.partitioner, (DIM_UNFUSED,), registry=False, worker=f"storm-{arm}")
             cache = policy = None
@@ -2887,7 +2916,7 @@ def phase_hotcache(torch, dev, card):
                     query = truth[int(np.random.default_rng(3).integers(NUM_ITEMS))]
                     s64 = (truth.astype(np.float64) @ query.astype(np.float64)).astype(np.float32)
                     want = np.lexsort((np.arange(NUM_ITEMS), -s64))[:10]  # ties lowest id first
-                    svcs = {k: CachedLookupService(addresses=addrs, partitioner=d.partitioner,
+                    svcs = {k: CachedLookupService(addresses=direct, partitioner=d.partitioner,
                                                    value_shape=(DIM_UNFUSED,), policy=StaticHotSet(hot_ids),
                                                    bound=HOT_STORM_BOUND, hedge_after_s=None, registry=False,
                                                    worker=f"topk-{k}", device=k) for k in ("cuda", "cpu")}
@@ -2907,11 +2936,14 @@ def phase_hotcache(torch, dev, card):
                                 ts.append(time.perf_counter() - t0)
                             times[k] = statistics.median(ts) * 1e3
                         ts = []
+                        plain = ClusterClient(direct, d.partitioner, (DIM_UNFUSED,), registry=False,
+                                              worker="topk-numpy")
                         for _ in range(5):
                             t0 = time.perf_counter()
-                            rows = reader.pull_batch(everything)
+                            rows = plain.pull_batch(everything)
                             np.argsort(-(rows.astype(np.float64) @ query.astype(np.float64)))[:10]
                             ts.append(time.perf_counter() - t0)
+                        plain.close()
                         times["numpy"] = statistics.median(ts) * 1e3
                         ties = int(len(np.unique(s64[want])) < 10)
                     finally:
@@ -2921,10 +2953,13 @@ def phase_hotcache(torch, dev, card):
                 stop.set()
                 reader.close()
                 writer.close()
+                for p in proxies:
+                    p.stop()
                 d.stop()
         read_counts("hotcache: the storm arms", {})
         for res in arms:
-            line = (f"hotcache: (a) storm {res['arm']}: {HOT_STORM_REQUESTS} requests, p50 {res['p50']:.3f} ms "
+            line = (f"hotcache: (a) storm {res['arm']} (behind ChaosProxy, {HOT_STORM_LINK_MS} ms on the request "
+                    f"leg): {HOT_STORM_REQUESTS} requests, p50 {res['p50']:.3f} ms "
                     f"p99 {res['p99']:.3f} ms, {res['rps']:.1f} requests/s, {res['bytes']:.1f} wire bytes a "
                     f"request (client, both directions), writer pushes {res['writes']}")
             if "hit_rate" in res:
@@ -3145,7 +3180,7 @@ def phase_hotcache(torch, dev, card):
 
 ADAPTIVE_WORKERS, ADAPTIVE_SHARDS = 4, 2  # benchmarks/straggler_ab.py's topology
 ADAPTIVE_BOUND, ADAPTIVE_SUBGROUPS = 2, 8  # its declared SSP bound and row groups a worker
-ADAPTIVE_LAG_S = 0.025  # worker 0's symmetric per-chunk link delay (its --lag-ms 25)
+ADAPTIVE_LAG_MS = 25.0  # worker 0's symmetric per-frame link delay (its --lag-ms 25)
 ADAPTIVE_DEADLINE_S = 6.0  # each arm's driver.run(deadline_s=...)
 ADAPTIVE_MF_ROUNDS = 32  # more rounds than either MF arm reaches in the deadline (checked)
 ADAPTIVE_PA = dict(ELASTIC_PA, rounds=20)  # ELASTIC_PA's width; rounds past what an arm reaches (checked)
@@ -3155,96 +3190,16 @@ ADAPTIVE_DRAIN_SHARDS = 3
 ADAPTIVE_REPORT_DECISIONS = 40  # the run report's decision tail (telemetry/report.py)
 
 
-class _DelayForwarder:
-    """A TCP forwarder that sleeps ``lag_s`` before passing each chunk it
-    reads on, in either direction: worker 0's lagged link in the adaptive
-    phase.  Scaffolding of this script, not a feature of the package: the
-    reference builds the link with ``nemesis/proxy.ChaosProxy``, which the
-    port does not have yet (ROADMAP Queue 1 #7g); the phase switches to it
-    once it lands."""
-
-    def __init__(self, host, port, lag_s):
-        import socket
-        import threading
-
-        self.target, self.lag_s = (host, port), float(lag_s)
-        self._listener = socket.create_server(("127.0.0.1", 0))
-        self.host, self.port = self._listener.getsockname()[:2]
-        self._socks, self._threads = [], []
-        self._lock = threading.Lock()
-        self._spawn(self._accept)
-
-    def _spawn(self, fn, *args):
-        import threading
-
-        t = threading.Thread(target=fn, args=args, name="smoke-lag", daemon=True)
-        t.start()
-        self._threads.append(t)
-
-    def _accept(self):
-        import socket
-
-        while True:
-            try:
-                down, _ = self._listener.accept()
-            except OSError:
-                return  # stop() closed the listener
-            try:
-                up = socket.create_connection(self.target, timeout=10)
-                up.settimeout(None)
-            except OSError:
-                down.close()
-                continue
-            with self._lock:
-                self._socks += [down, up]
-            for a, b in ((down, up), (up, down)):
-                a.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-                self._spawn(self._pump, a, b)
-
-    def _pump(self, src, dst):
-        import socket
-
-        try:
-            while True:
-                chunk = src.recv(1 << 20)
-                if not chunk:
-                    break
-                time.sleep(self.lag_s)
-                dst.sendall(chunk)
-        except OSError:
-            pass
-        for s in (src, dst):  # either side closing ends both directions
-            try:
-                s.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-
-    def stop(self):
-        import socket
-
-        # shutdown wakes the threads blocked in accept() and recv(); a bare
-        # close() does not
-        with self._lock:
-            socks = [self._listener] + list(self._socks)
-        for s in socks:
-            try:
-                s.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-            s.close()
-        for t in self._threads:
-            t.join(timeout=10)
-        check(not any(t.is_alive() for t in self._threads), "adaptive: a forwarder thread outlived stop()")
-
-
-def _lagged_driver_cls(lag_s):
+def _lagged_driver_cls(lag_ms):
     """``benchmarks/straggler_ab.py``'s ``LaggedWorkerDriver``: an elastic
-    cluster whose worker 0 reaches every shard through a delaying link (its
-    client is built against a membership view whose addresses are the
-    forwarders'; the healthy workers and the control plane dial direct)."""
+    cluster whose worker 0 reaches every shard through a ``ChaosProxy`` that
+    delays each frame ``lag_ms`` both ways (its client is built against a
+    membership view whose addresses are the proxies'; the healthy workers
+    and the control plane dial direct)."""
     import dataclasses
 
     from flink_parameter_server_tpu_torch.elastic import ElasticClusterDriver
+    from flink_parameter_server_tpu_torch.nemesis import ChaosProxy
 
     class _LaggedMembership:
         def __init__(self, inner, addresses):
@@ -3258,7 +3213,7 @@ def _lagged_driver_cls(lag_s):
 
     class LaggedWorkerDriver(ElasticClusterDriver):
         def __init__(self, logic, **kwargs):
-            self.forwarders = []
+            self.lag_proxies = []
             super().__init__(logic, **kwargs)
 
         def _make_client(self, worker=None):
@@ -3266,8 +3221,10 @@ def _lagged_driver_cls(lag_s):
                 return super()._make_client(worker)
             real = self.membership
             for host, port in real.current().addresses:
-                self.forwarders.append(_DelayForwarder(host, port, lag_s))
-            self.membership = _LaggedMembership(real, [(f.host, f.port) for f in self.forwarders])
+                p = ChaosProxy(host, port, name=f"lag-{port}", seed=11, registry=False).start()
+                p.set_delay(lag_ms, 0.0, "both")
+                self.lag_proxies.append(p)
+            self.membership = _LaggedMembership(real, [(p.host, p.port) for p in self.lag_proxies])
             try:
                 return super()._make_client(worker)
             finally:
@@ -3275,9 +3232,9 @@ def _lagged_driver_cls(lag_s):
 
         def stop(self):
             super().stop()
-            for f in self.forwarders:
-                f.stop()
-            self.forwarders = []
+            for p in self.lag_proxies:
+                p.stop()
+            self.lag_proxies = []
 
     return LaggedWorkerDriver
 
@@ -3336,7 +3293,7 @@ def _adaptive_arm(torch, dev, card, wl, batches, oracle, adaptive, surfaces=Fals
         num_shards=ADAPTIVE_SHARDS, num_workers=ADAPTIVE_WORKERS, staleness_bound=ADAPTIVE_BOUND,
         partition="hash", adaptive=adaptive, adaptive_push_hedge_after_s=0.01 if adaptive else None,
     )
-    driver = build_cluster_driver(wl, config=cfg, driver_cls=_lagged_driver_cls(ADAPTIVE_LAG_S), registry=reg)
+    driver = build_cluster_driver(wl, config=cfg, driver_cls=_lagged_driver_cls(ADAPTIVE_LAG_MS), registry=reg)
     tl = rt = None
     with driver:
         check(all(s.store.table.device.type == dev.type for s in driver.shards),
@@ -3415,8 +3372,9 @@ def phase_adaptive(torch, dev, card):
     """The straggler-adaptive runtime on the card (``adaptive/``), as
     ``benchmarks/straggler_ab.py`` runs it: an ``ElasticClusterDriver``
     with 4 workers x 2 shards, hash partition, SSP bound 2 (ceiling 5),
-    slices on the card; worker 0's links to every shard delay each chunk
-    25 ms both ways (a forwarder in this script).  Per workload a fixed arm
+    slices on the card; worker 0's links to every shard cross a
+    ``ChaosProxy`` that delays each frame 25 ms both ways
+    (``set_delay(25, 0, "both")``, as the reference builds the link).  Per workload a fixed arm
     and an adaptive arm (``adaptive=True``, push hedging after 10 ms, a
     ``TimelineRecorder`` at 40 ms with a ``SkewTracker`` on the workers' pull
     round-trip p50, ``AdaptiveRuntime`` at 40 ms with a ``RebalancePolicy``,
@@ -3819,6 +3777,158 @@ def phase_tierstore(torch, dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"tierstore: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+
+NEMESIS_WITNESSED = "two_way_partition_heal"  # the battery's one scenario under lockwitness.capture()
+NEMESIS_ANCHORS = ("asym_partition_during_migration", "kill_primary_under_partition",
+                   "promote_while_client_partitioned")
+NEMESIS_CLASSES = {"partition_both", "partition_c2s", "partition_s2c", "delay_frame", "drip_frame",
+                   "truncate_rst", "half_open"}  # every proxy fault class, injected somewhere in the battery
+NEMESIS_MF_FULL = ("kill_primary_under_partition", "promote_while_client_partitioned")
+NEMESIS_FULL_ROUNDS = 12  # every op of the three full-width schedules sits at round 4 or 9: all kept
+NEMESIS_SHRINK_RUNS = 24  # shrink()'s run budget
+
+
+def _nemesis_line(r) -> str:
+    verdicts = " ".join(f"{v.name}={'ok' if v.ok else 'FAIL'}" for v in r.verdicts)
+    return (f"{r.scenario.name}: ok {r.ok} (expect {r.scenario.expect}), ops {r.ops_executed}/"
+            f"{len(r.scenario.ops)}, rounds {r.rounds}, wall {r.wall_s:.3f} s, faults "
+            f"{dict(sorted(r.faults.items()))}; {verdicts}")
+
+
+def phase_nemesis(torch, dev, card):
+    """The nemesis fault-injection harness on the card (``nemesis/``): every
+    cluster it builds keeps its shards' slices, the workload's logic and the
+    fault-free oracle's run on the card, and every shard link crosses a
+    ``ChaosProxy``.  (a) The committed corpus (15 schedules at their own
+    shapes) as ``benchmarks/nemesis_battery.py`` runs it,
+    ``two_way_partition_heal`` under ``lockwitness.capture()``, failure
+    artifacts under a temporary directory in ``build/``, held to the
+    reference's acceptance checks: at least 8 passing scenarios, all ok; the
+    three anchors ran every op; the seven fault classes injected; the seeded
+    corruption fails ``final_table_parity`` alone and leaves its schedule and
+    a flight-recorder dump that ``check_flightrec`` passes.  (b) ``shrink``
+    of the seeded violation within 24 runs leaves exactly ``corrupt_row``, its
+    JSON the committed ``seeded_corruption.json`` byte for byte.  (c) Full
+    width: ``kill_primary_under_partition`` (elastic kill and replace under a
+    two-way partition, WAL replay on the card) and
+    ``promote_while_client_partitioned`` (a replica chain promoted while the
+    client is cut off) at MF 100,000 x 131,072, dim 64, 65,536 ratings a
+    round, 12 rounds, the workload's lr 0.05; ``sketch_full_stack``
+    (replicated, ``q8`` requested, integer-exact) at the elastic phase's
+    count-min width (8,192 x 4, 65,536 tokens a round, 12 rounds).  Each
+    must satisfy every invariant the runner checks, parity against its
+    oracle on the card included; each oracle's table must be finite.  No
+    kernel launches (the shards take the store's ``"xla"`` arm)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from flink_parameter_server_tpu_torch.nemesis import runner
+    from flink_parameter_server_tpu_torch.nemesis.scenarios import VIOLATION_SCENARIO
+    from tools.check_metric_lines import check_flightrec
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="nemesis-", dir=os.path.join(REPO, "build"))
+    slices = []
+    build_shard = runner._NemesisMeshMixin._build_shard
+
+    def spy(self, shard_id, partitioner=None):  # where each proxied shard's slice lives
+        shard, server = build_shard(self, shard_id, partitioner)
+        table = getattr(shard.store, "table", None)
+        slices.append((table if table is not None else shard.store._hot).device.type)
+        return shard, server
+
+    runner._NemesisMeshMixin._build_shard = spy
+    try:
+        # ---- (a) the corpus battery -------------------------------------
+        corpus = runner.load_corpus()
+        artifacts = os.path.join(tmp, "artifacts")
+        zero_counts()
+        t0 = time.perf_counter()
+        reports = [runner.run_scenario(s, wal_root=tmp, artifact_dir=artifacts, device=dev,
+                                       witness=s.name == NEMESIS_WITNESSED) for s in corpus]
+        battery_s = time.perf_counter() - t0
+        read_counts("nemesis: the corpus battery", {})
+        for r in reports:
+            print(f"nemesis: (a) {_nemesis_line(r)}")
+        by_name = {r.scenario.name: r for r in reports}
+        passing = [r for r in reports if r.scenario.expect == "pass"]
+        check(len(reports) == 15 and len(passing) >= 8, f"nemesis: {len(reports)} schedules, {len(passing)} passing")
+        bad = [(r.scenario.name, [(v.name, v.detail) for v in r.verdicts if not v.ok]) for r in passing if not r.ok]
+        check(not bad, f"nemesis: scenarios failed on the card: {bad}")
+        for name in NEMESIS_ANCHORS:
+            r = by_name[name]
+            check(r.ok and r.ops_executed == len(r.scenario.ops),
+                  f"nemesis: anchor {name} ran {r.ops_executed} of {len(r.scenario.ops)} ops")
+        classes = set().union(*(r.faults for r in reports))
+        check(NEMESIS_CLASSES <= classes, f"nemesis: fault classes never injected: {NEMESIS_CLASSES - classes}")
+        witnessed = [r for r in reports if any(v.name == "no_lock_inversions" for v in r.verdicts)]
+        check([r.scenario.name for r in witnessed] == [NEMESIS_WITNESSED] and witnessed[0].ok,
+              "nemesis: the witnessed scenario is missing or saw an inversion")
+        v = by_name["seeded_corruption"]
+        check(not v.ok and [x.name for x in v.verdicts if not x.ok] == ["final_table_parity"],
+              f"nemesis: the seeded corruption's failing verdicts {[x.name for x in v.verdicts if not x.ok]}")
+        sched = [a for a in v.artifacts if "schedule" in a]
+        frec = [a for a in v.artifacts if "flightrec" in a]
+        check(bool(sched and frec), f"nemesis: the seeded corruption left artifacts {v.artifacts}")
+        with open(sched[0]) as f:
+            check(json.loads(f.read())["name"] == "seeded_corruption", "nemesis: the schedule artifact's name")
+        with open(frec[0]) as f:
+            lint = check_flightrec(json.load(f))
+        check(lint == [], f"nemesis: the flight-recorder artifact fails check_flightrec: {lint}")
+        check(bool(slices) and set(slices) == {dev.type}, f"nemesis: proxied slices on {sorted(set(slices))}")
+        print(f"nemesis: (a) the corpus battery: {len(passing)} passing scenarios all ok, the seeded corruption "
+              f"caught by final_table_parity alone with its schedule and flight-recorder artifacts (check_flightrec "
+              f"clean), fault classes {sorted(classes)}, {len(slices)} proxied shard slices all on {dev.type}, in "
+              f"{battery_s:.1f} s; {card}")
+
+        # ---- (b) the shrinker -------------------------------------------
+        zero_counts()
+        t0 = time.perf_counter()
+        mini, runs = runner.shrink(
+            VIOLATION_SCENARIO, lambda s: not runner.run_scenario(s, wal_root=tmp, device=dev).ok,
+            max_runs=NEMESIS_SHRINK_RUNS)
+        shrink_s = time.perf_counter() - t0
+        read_counts("nemesis: the shrinker", {})
+        with open(os.path.join(runner.CORPUS_DIR, "seeded_corruption.json")) as f:
+            committed = f.read()
+        check(runs <= NEMESIS_SHRINK_RUNS and [o.action for o in mini.ops] == ["corrupt_row"],
+              f"nemesis: shrink left {[o.action for o in mini.ops]} after {runs} runs")
+        check(mini.to_json() + "\n" == committed, "nemesis: the shrunk schedule differs from seeded_corruption.json")
+        print(f"nemesis: (b) shrink({VIOLATION_SCENARIO.name}): {len(VIOLATION_SCENARIO.ops)} ops -> "
+              f"{[o.action for o in mini.ops]} in {runs} runs, {shrink_s:.1f} s; byte-identical to the committed "
+              f"seeded_corruption.json; {card}")
+
+        # ---- (c) full width ---------------------------------------------
+        by_name = {s.name: s for s in corpus}
+        full = [dataclasses.replace(by_name[n], num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED,
+                                    batch=BATCH, rounds=NEMESIS_FULL_ROUNDS) for n in NEMESIS_MF_FULL]
+        full.append(dataclasses.replace(by_name["sketch_full_stack"], **ELASTIC_SKETCH))
+        for s in full:
+            check(max(op.at_round for op in s.ops) < s.rounds, f"nemesis: {s.name}: an op past the run's end")
+            t0 = time.perf_counter()
+            oracle = runner.oracle_values(s, dev)
+            oracle_s = time.perf_counter() - t0
+            check(bool(np.isfinite(oracle).all()), f"nemesis: {s.name}: the oracle's table is not finite")
+            del slices[:]
+            zero_counts()
+            r = runner.run_scenario(s, wal_root=tmp, device=dev)
+            read_counts(f"nemesis: {s.name} at full width", {})
+            print(f"nemesis: (c) {s.workload}, table {oracle.shape}, {s.batch:,} a round: {_nemesis_line(r)}; "
+                  f"{r.rounds / r.wall_s:.3f} rounds/s over the run's wall time; oracle on {dev.type} in "
+                  f"{oracle_s:.1f} s, its largest |value| {float(np.abs(oracle).max()):.6g}; {card}")
+            bad = [(x.name, x.detail) for x in r.verdicts if not x.ok]
+            check(r.ok and not bad, f"nemesis: {s.name} at full width: {bad}")
+            check(r.ops_executed == len(s.ops) and r.rounds == s.rounds,
+                  f"nemesis: {s.name}: {r.ops_executed} of {len(s.ops)} ops, {r.rounds} of {s.rounds} rounds")
+            check(bool(slices) and set(slices) == {dev.type}, f"nemesis: {s.name}: slices on {sorted(set(slices))}")
+            del oracle
+    finally:
+        runner._NemesisMeshMixin._build_shard = build_shard
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"nemesis: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
 def _counters():
@@ -4753,6 +4863,7 @@ def main() -> int:
         phase_hotcache(torch, dev, card)
         phase_adaptive(torch, dev, card)
         phase_tierstore(torch, dev, card)
+        phase_nemesis(torch, dev, card)
         launches = phase_main(torch, dev)
         rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
         for trace in wl_traces:  # after every counted run, as the MF traces are

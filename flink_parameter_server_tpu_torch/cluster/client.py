@@ -146,10 +146,8 @@ from .partition import Partitioner
 from .shard import format_rows, parse_rows
 
 _NULL_CM = contextlib.nullcontext()
-# replay-round backoff (decorrelated jitter between these bounds) and the
-# stale-epoch storm the flight recorder is told about: 25 replay rounds
-# inside 5 s
-_RETRY_SLEEP_S, _RETRY_SLEEP_CAP_S = 0.002, 0.05
+# the stale-epoch storm the flight recorder is told about: 25 replay
+# rounds inside 5 s
 _STORM_RETRIES, _STORM_WINDOW_S = 25, 5.0
 
 
@@ -546,6 +544,10 @@ class ClusterClient(ParameterServerClient):
     semantics per worker.
     """
 
+    # replay-round backoff: decorrelated jitter between these bounds
+    retry_sleep_s = 0.002
+    retry_sleep_cap_s = 0.05
+
     def __init__(
         self,
         addresses: Optional[Sequence[Tuple[str, int]]] = None,
@@ -939,9 +941,9 @@ class ClusterClient(ParameterServerClient):
         """The next replay-round sleep: capped exponential with
         DECORRELATED jitter — ``uniform(base, min(cap, 3 × previous))``
         with the exponential ceiling as a floor on the range, capped at
-        50 ms.  Per-client seeded draws decorrelate a herd of workers
-        replaying into a recovering shard."""
-        base, cap = _RETRY_SLEEP_S, _RETRY_SLEEP_CAP_S
+        ``retry_sleep_cap_s``.  Per-client seeded draws decorrelate a herd
+        of workers replaying into a recovering shard."""
+        base, cap = self.retry_sleep_s, self.retry_sleep_cap_s
         ceiling = min(cap, base * (2 ** min(attempt, 16)))
         prev = self._last_retry_sleep if self._last_retry_sleep else base
         hi = min(cap, max(prev * 3.0, ceiling))

@@ -1,22 +1,19 @@
-"""Cluster invariants — the final-table verdicts and the lease and lock
-checks.
+"""Cluster invariants — what must hold no matter what the network did.
 
-Of the reference's ``nemesis/invariants.py`` these are ported:
-:class:`Verdict`, :func:`check_no_errors`, the exactly-once ledger audit
-(:func:`check_exactly_once`), the three parity modes
-(:func:`check_parity`, :func:`check_parity_bitwise`,
-:func:`check_count_parity`), the hot-key cache's staleness contract
-(:func:`check_lease_staleness`), the lock witness's verdict
-(:func:`check_lock_inversions`), the adaptive bound envelope
-(:func:`check_adaptive_bound` with its live
-:class:`AdaptiveBoundSampler`) and the two-tier store's residency
-contract (:func:`check_tier_residency` with its live
-:class:`TierResidencySampler`).  They are copies of the reference's
-functions, which import no JAX.  The staleness sampler, the
-serving-budget and thread-leak checks wait for ROADMAP Queue 1 #7g's
-``nemesis/`` item.
+Counterpart of ``flink_parameter_server_tpu/nemesis/invariants.py``,
+which imports no JAX: a copy, since the port imports nothing of the JAX
+package (whose ``__init__`` imports JAX).  The checks read host numbers
+(counters, a host copy of the final table, thread names), so nothing here
+touches the card.
 
-Why each is the right oracle:
+Each checker returns a :class:`Verdict` (name, ok, detail) so the
+runner can report ALL violations, not just the first: a Jepsen-style
+post-mortem starts from the full verdict table.  Checkers are split
+into live probes (sampled while the scenario runs — staleness, serving
+errors) and post-hoc audits (run after teardown — ledger, parity,
+thread leaks, lock order).
+
+The invariants, and why each is the right oracle:
 
   * **exactly-once ledger** — every unique delta row a worker client
     counted as acked (``ClusterClient.rows_pushed``) was applied on
@@ -24,26 +21,50 @@ Why each is the right oracle:
     shard EVER live, replacements included).  Retries after torn
     frames/lost acks are deduplicated by the ``(pid, id)`` window, so
     a fault can add latency but never a lost or double-counted update.
-  * **final-table parity** — the run's assembled table is allclose-equal
-    (fp32) to an oracle trained on the SAME stream; bitwise for
-    workloads whose combine is structurally deterministic (PA), and
-    integer-exact for counters (the sketches).
-  * **adaptive bound envelope** — every live-sampled per-worker
-    effective bound stays within ``[bound, ceiling]``: widening never
-    exceeds the declared ceiling, narrowing never undercuts the
-    correctness bound.
-  * **tier residency** — on tiered runs (tierstore/), every live
+  * **final-table parity** — the faulted run's assembled table is
+    allclose-equal (fp32) to a fault-free oracle trained on the SAME
+    stream.  This is the end-to-end consistency oracle: anything that
+    silently mis-routed, re-ordered (under BSP), dropped or corrupted
+    an update shows up here even when every counter balances.
+  * **SSP staleness bound** — the live ``fastest − slowest`` spread
+    never exceeds ``bound + 1`` (the clock gates round STARTS, so the
+    momentary completed-round lead legally tops out one past the
+    bound — cluster/clock.py).  For BSP (bound 0) this plus parity is
+    the read-your-last-round guarantee: the barrier admitted no round
+    whose reads missed the previous round's writes.
+  * **serving error budget** — a reader thread issuing pulls through
+    its own membership client across the whole scenario sees at most
+    ``budget`` errors (default 0: faults are latency, never failures).
+  * **tier residency** — on tiered scenarios (tierstore/), every live
     sample of every tiered store shows ``resident ≤ hot capacity``:
     demotion pressure, spills and recovery replays may move rows
     between tiers but never grow the bounded hot set.
+  * **no leaked threads** — after teardown every thread the PS stack
+    spawned (shards, pumps, workers, shippers, controllers) is gone;
+    a fault that orphans a handler fails here, not three suites later.
+  * **no lock inversions** — the scenario runs under the
+    :mod:`~..telemetry.lockwitness` capture and the witnessed
+    acquisition order stays cycle-free (the runtime half of fpsanalyze
+    L001).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+# thread-name prefixes owned by this package (utils/net.py names
+# handlers "<server>-conn-*", the drivers name their workers, the
+# proxy names its pumps): the leak check is scoped to OUR threads so a
+# persistent torch or library pool never false-positives it
+_OWNED_THREAD_PREFIXES = (
+    "shard-", "nemesis-", "cluster-", "elastic-", "repl-", "serving",
+    "chaos", "line-server", "wal-", "hb-", "ship-", "telemetry",
+    "hotcache-", "loadgen-", "adaptive", "timeline-",
+)
 
 
 @dataclasses.dataclass
@@ -152,27 +173,21 @@ def check_count_parity(
     )
 
 
-def check_lease_staleness(
-    cache_stats: dict, bound: int
+def check_staleness(
+    samples: Sequence[int], bound: Optional[int]
 ) -> Verdict:
-    """The hot-key cache's staleness contract under fault
-    (docs/hotcache.md): every row the client-edge cache SERVED was at
-    most ``bound`` ticks old — through partitions, lost invalidations
-    and shard restarts, because the bound is enforced client-locally.
-    Vacuous passes are rejected: the cache must actually have served
-    (``hits > 0``), otherwise the scenario never exercised the tier it
-    claims to prove."""
-    hits = int(cache_stats.get("hits", 0))
-    worst = int(cache_stats.get("max_served_age", 0))
-    revoked = int(cache_stats.get("revocations", 0))
-    stale = int(cache_stats.get("stale_rejects", 0))
-    ok = hits > 0 and worst <= bound
+    """Sampled live spread ≤ bound + 1 (see module docstring); async
+    (bound None) always passes — there is no bound to exceed."""
+    worst = max(samples) if samples else 0
+    if bound is None:
+        return Verdict(
+            "ssp_staleness_bound", True,
+            f"async clock, worst observed spread {worst}",
+        )
+    ok = worst <= bound + 1
     return Verdict(
-        "lease_staleness", ok,
-        f"cache_hits={hits} worst_served_age={worst} bound={bound} "
-        f"revocations={revoked} stale_rejects={stale}"
-        + ("" if worst <= bound else " — BOUND VIOLATED")
-        + ("" if hits else " — cache never served (vacuous)"),
+        "ssp_staleness_bound", ok,
+        f"worst spread {worst} vs bound {bound} (+1 round in flight)",
     )
 
 
@@ -211,6 +226,40 @@ def check_adaptive_bound(
         + ("" if high <= ceiling else " — CEILING VIOLATED")
         + ("" if low >= bound else " — CORRECTNESS BOUND VIOLATED")
         + ("" if n else " — never sampled (vacuous)"),
+    )
+
+
+def check_serving_budget(
+    served: int, errors: int, *, budget: int = 0
+) -> Verdict:
+    ok = errors <= budget and served > 0
+    return Verdict(
+        "serving_error_budget", ok,
+        f"served={served} errors={errors} budget={budget}",
+    )
+
+
+def check_lease_staleness(
+    cache_stats: dict, bound: int
+) -> Verdict:
+    """The hot-key cache's staleness contract under fault
+    (docs/hotcache.md): every row the client-edge cache SERVED was at
+    most ``bound`` ticks old — through partitions, lost invalidations
+    and shard restarts, because the bound is enforced client-locally.
+    Vacuous passes are rejected: the cache must actually have served
+    (``hits > 0``), otherwise the scenario never exercised the tier it
+    claims to prove."""
+    hits = int(cache_stats.get("hits", 0))
+    worst = int(cache_stats.get("max_served_age", 0))
+    revoked = int(cache_stats.get("revocations", 0))
+    stale = int(cache_stats.get("stale_rejects", 0))
+    ok = hits > 0 and worst <= bound
+    return Verdict(
+        "lease_staleness", ok,
+        f"cache_hits={hits} worst_served_age={worst} bound={bound} "
+        f"revocations={revoked} stale_rejects={stale}"
+        + ("" if worst <= bound else " — BOUND VIOLATED")
+        + ("" if hits else " — cache never served (vacuous)"),
     )
 
 
@@ -259,10 +308,43 @@ def check_lock_inversions(inversions) -> Verdict:
     )
 
 
+class ThreadLedger:
+    """Before/after thread accounting for the leak invariant.
+
+    Snapshot before the topology is built; after teardown,
+    :meth:`check` polls (teardown joins run with timeouts) until every
+    package-owned thread born since the snapshot is gone, or the grace
+    window expires — the survivors are the leak."""
+
+    def __init__(self):
+        self._before = {t.ident for t in threading.enumerate()}
+
+    def _leaked(self) -> List[str]:
+        return sorted(
+            t.name for t in threading.enumerate()
+            if t.ident not in self._before and t.is_alive()
+            and t is not threading.current_thread()
+            and t.name.startswith(_OWNED_THREAD_PREFIXES)
+        )
+
+    def check(self, *, grace_s: float = 5.0) -> Verdict:
+        deadline = time.monotonic() + grace_s
+        leaked = self._leaked()
+        while leaked and time.monotonic() < deadline:
+            time.sleep(0.05)
+            leaked = self._leaked()
+        return Verdict(
+            "no_leaked_threads", not leaked,
+            "all package threads joined" if not leaked
+            else f"leaked: {leaked[:6]}",
+        )
+
+
 class AdaptiveBoundSampler:
     """Polls the driver clock's per-worker effective bounds while a
-    scenario runs, re-reading ``driver.clock`` every tick (the driver
-    swaps in a fresh clock at run start).  Only adaptive clocks yield samples; a stock clock
+    scenario runs (same re-read-every-tick discipline as
+    :class:`StalenessSampler` — the driver swaps in a fresh clock at
+    run start).  Only adaptive clocks yield samples; a stock clock
     leaves ``samples`` empty and :func:`check_adaptive_bound` then
     rejects the run as vacuous."""
 
@@ -345,8 +427,44 @@ class TierResidencySampler:
             self._thread.join(timeout=5)
 
 
+class StalenessSampler:
+    """Polls ``driver.clock.staleness()`` on its own thread while a
+    scenario runs (the driver swaps in a fresh clock at run start, so
+    the sampler re-reads the attribute every tick)."""
+
+    def __init__(self, driver, interval_s: float = 0.002):
+        self._driver = driver
+        self._interval = float(interval_s)
+        self.samples: List[int] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def __enter__(self) -> "StalenessSampler":
+        self._thread = threading.Thread(
+            target=self._loop, name="nemesis-staleness-sampler", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            clock = self._driver.clock
+            if clock is not None:
+                try:
+                    self.samples.append(int(clock.staleness()))
+                except Exception:  # clock mid-swap: skip the tick
+                    pass
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+
 __all__ = [
     "AdaptiveBoundSampler",
+    "StalenessSampler",
+    "ThreadLedger",
     "TierResidencySampler",
     "Verdict",
     "check_adaptive_bound",
@@ -357,5 +475,7 @@ __all__ = [
     "check_no_errors",
     "check_parity",
     "check_parity_bitwise",
+    "check_serving_budget",
+    "check_staleness",
     "check_tier_residency",
 ]

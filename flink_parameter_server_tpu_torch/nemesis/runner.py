@@ -1,0 +1,817 @@
+"""The nemesis runner — proxied clusters, scenario execution, search,
+shrinking, and the committed regression corpus.
+
+Counterpart of ``flink_parameter_server_tpu/nemesis/runner.py``.  Every
+entry point that builds a cluster takes ``device=``: the shards' slices,
+the workload's logic and the fault-free oracle's run live on the card
+unless the caller passes ``device="cpu"``, and asking for the card
+without one raises (``utils/device.resolve_device``).  The device is an
+argument here, never a field of a :class:`~.scenarios.Scenario`: the
+schedule JSON stays byte-identical to the reference's.  The shards push
+through the store's ``xla`` arm (``ops/rows.accumulate_rows_``), as the
+reference's do, so no kernel of the port runs on this path.
+
+Execution model of one scenario (:func:`run_scenario`):
+
+  1. build the fault-free **oracle** table for the scenario's stream
+     (cached per workload shape — every parity scenario on the same
+     stream shares one oracle run);
+  2. build a **proxied** elastic (or replicated) cluster: every shard's
+     front door is a :class:`~.proxy.ChaosProxy`, spliced in by
+     :class:`~.proxy.ProxiedServer` so worker clients, the migration
+     data plane and replication heartbeats all cross the mesh;
+  3. train the scenario's REGISTERED workload (``Scenario.workload`` →
+     workloads/registry.py: MF, the PA classifier, or the count-min
+     sketch layer — the same seeded stream its oracle saw) while a
+     dedicated nemesis thread waits on the ROUND counter and fires the
+     schedule's ops in order, a reader thread issues serving pulls
+     PLUS the workload's own serving probes (predict / query / topk)
+     through its own membership client, and a sampler polls the
+     staleness spread;
+  4. tear everything down and run the invariant checkers
+     (:mod:`.invariants`); on failure, dump the flight recorder and
+     the canonical schedule JSON — the ``(seed, schedule)`` pair any
+     failure replays from.
+
+:func:`search_scenarios` is the randomized layer: seeds →
+:meth:`Scenario.from_seed` schedules → failures, each reproducible by
+its seed.  :func:`shrink` is the delta-debugging layer: greedily drop
+ops while the failure persists, so the corpus commits MINIMAL failing
+schedules.  :func:`replay_corpus` re-runs every committed schedule and
+checks its recorded expectation — pass scenarios must pass every
+checker, violation scenarios must still be CAUGHT (a checker that
+stops catching its seeded violation is itself a regression).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import tempfile
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..elastic.controller import ElasticClusterConfig, ElasticClusterDriver
+from ..replication.driver import (
+    ReplicatedClusterConfig,
+    ReplicatedClusterDriver,
+)
+from ..telemetry import flightrec
+from ..telemetry.registry import MetricsRegistry
+from ..utils.device import DeviceLike, resolve_device
+from .invariants import (
+    AdaptiveBoundSampler,
+    StalenessSampler,
+    ThreadLedger,
+    TierResidencySampler,
+    Verdict,
+    check_adaptive_bound,
+    check_exactly_once,
+    check_lease_staleness,
+    check_lock_inversions,
+    check_no_errors,
+    check_serving_budget,
+    check_staleness,
+    check_tier_residency,
+)
+
+# the cached reader's staleness bound, in ticks (1 tick = 1 reader
+# pull): what the lease_staleness verdict of a hotcache scenario is
+# checked against
+HOTCACHE_READER_BOUND = 3
+from .proxy import ChaosProxy, ProxiedServer
+from .scenarios import (
+    BUILTIN_SCENARIOS,
+    NemesisOp,
+    Scenario,
+    VIOLATION_SCENARIO,
+)
+
+CORPUS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "corpus")
+
+
+# ---------------------------------------------------------------------------
+# proxied drivers — the mesh splice
+# ---------------------------------------------------------------------------
+
+
+class _NemesisMeshMixin:
+    """Route every shard front door through a :class:`ChaosProxy`.
+
+    ``_build_shard`` is the one chokepoint both elastic drivers use
+    for initial spin-up, scale-out and dead-shard replacement — the
+    proxy is created there and the returned server is the
+    :class:`ProxiedServer` façade, so every address the driver ever
+    publishes is a mesh address.  ``mesh`` maps shard id → its CURRENT
+    proxy (replacements swap it); ``mesh_history`` keeps every proxy
+    ever created so fault counts survive replacement."""
+
+    def __init__(self, logic, *, nemesis_seed: int = 0, **kwargs):
+        self.mesh: Dict[int, ChaosProxy] = {}
+        self.mesh_history: List[ChaosProxy] = []
+        self._nemesis_seed = int(nemesis_seed)
+        super().__init__(logic, **kwargs)
+
+    def _build_shard(self, shard_id, partitioner=None):
+        shard, server = super()._build_shard(shard_id, partitioner)
+        proxy = ChaosProxy(
+            server.host, server.port,
+            name=f"nemesis-{shard_id}",
+            seed=self._nemesis_seed + int(shard_id),
+            registry=self.registry if self.registry is not None else False,
+        ).start()
+        self.mesh[int(shard_id)] = proxy
+        self.mesh_history.append(proxy)
+        return shard, ProxiedServer(server, proxy)
+
+    def stop(self) -> None:
+        super().stop()
+        for proxy in self.mesh_history:
+            proxy.stop()  # idempotent; covers promoted-over proxies
+        self.mesh = {}
+
+    def faults_injected(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for proxy in self.mesh_history:
+            for kind, n in proxy.faults.items():
+                out[kind] = out.get(kind, 0) + n
+        return out
+
+
+class NemesisElasticDriver(_NemesisMeshMixin, ElasticClusterDriver):
+    """Elastic cluster with every shard link behind the chaos mesh."""
+
+
+class NemesisReplicatedDriver(_NemesisMeshMixin, ReplicatedClusterDriver):
+    """Replicated cluster (replica chains) behind the chaos mesh —
+    primaries are proxied; follower replication legs dial directly
+    (their stream has its own fault hooks, resilience/chaos.py)."""
+
+
+# ---------------------------------------------------------------------------
+# workload / oracle (workloads/registry.py: any registered learner)
+# ---------------------------------------------------------------------------
+
+_ORACLE_CACHE: Dict[Tuple, np.ndarray] = {}
+
+
+def _make_workload(s: Scenario, device: DeviceLike = None):
+    """Resolve the scenario's workload through the registry, built for
+    ``device`` — the stream/data seed is FIXED (WorkloadParams.seed
+    default) so every scenario on the same shape shares one stream and
+    one oracle; ``s.seed`` seeds the FAULTS, not the data."""
+    from ..workloads import WorkloadParams, create_workload
+
+    return create_workload(s.workload, WorkloadParams(
+        rounds=s.rounds, batch=s.batch, num_users=s.num_users,
+        num_items=s.num_items, dim=s.dim, num_workers=s.num_workers,
+    ), device=device)
+
+
+def oracle_values(s: Scenario, device: DeviceLike = None) -> np.ndarray:
+    """The fault-free final table for the scenario's stream, under the
+    workload's own oracle (workloads/: a static 2-shard BSP cluster
+    run for MF, the StreamingDriver for PA's bitwise bar, a pure-numpy
+    bincount for the sketch's integer counts), run on ``device`` (the
+    card unless the caller passes ``device="cpu"``).  Cached per
+    workload shape AND device: a CPU oracle never answers for a card
+    run, nor the other way round."""
+    dev = resolve_device(device)
+    key = (s.workload, s.rounds, s.batch, s.num_users, s.num_items,
+           s.dim, s.num_workers, str(dev))
+    cached = _ORACLE_CACHE.get(key)
+    if cached is not None:
+        return cached
+    values = np.asarray(_make_workload(s, dev).oracle_values())
+    _ORACLE_CACHE[key] = values
+    return values
+
+
+def _build_driver(s: Scenario, workload, wal_dir: str, registry):
+    common = dict(
+        num_shards=s.num_shards,
+        num_workers=s.num_workers,
+        staleness_bound=s.staleness_bound,
+        wal_dir=wal_dir,
+        wire_format=s.wire_format,
+        request_timeout=s.request_timeout,
+        retry_timeout=s.retry_timeout,
+        connect_timeout=2.0,
+    )
+    if s.adaptive:
+        # the straggler-adaptive kill switch (adaptive/): AdaptiveClock
+        # with the derived ceiling, plus hedged pushes — safe on the
+        # elastic drivers because membership-backed pushes carry a pid
+        common.update(
+            adaptive=True,
+            adaptive_push_hedge_after_s=0.05,
+        )
+    if s.tiered:
+        # the two-tier store (tierstore/): hot tier deliberately
+        # smaller than the slice, so the schedule's recovery paths
+        # must cross the mmap cold slab
+        common.update(
+            store_backend="tiered",
+            tier_hot_rows=s.tier_hot_rows,
+        )
+    if s.replicated:
+        cfg = ReplicatedClusterConfig(replication_factor=1, **common)
+        cls = NemesisReplicatedDriver
+    else:
+        cfg = ElasticClusterConfig(**common)
+        cls = NemesisElasticDriver
+    from ..workloads import build_cluster_driver
+
+    return build_cluster_driver(
+        workload, config=cfg, driver_cls=cls, registry=registry,
+        driver_kwargs={"nemesis_seed": s.seed},
+    )
+
+
+# ---------------------------------------------------------------------------
+# op execution
+# ---------------------------------------------------------------------------
+
+
+def _corrupt_row(driver, gid: int) -> None:
+    """The seeded SILENT violation: perturb one stored row out-of-band
+    (no WAL record, no ledger entry — simulated bit-rot).  Only the
+    final-table parity checker can see it; that is the point.  The
+    slice is copied to the host, the row bumped, and the slice
+    reinstalled through the shard's own ``_store_from_values`` — so it
+    keeps its device and its backend."""
+    owner = int(driver.partitioner.shard_of(np.asarray([gid]))[0])
+    sh = driver.shards[owner]
+    with sh._lock:
+        mirror = sh._slice_to_host()
+        local = sh.partitioner.to_local(
+            sh.shard_id, np.asarray([gid], np.int64)
+        )
+        mirror[local] += 1.0
+        sh.store = sh._store_from_values(mirror)
+        sh._host_mirror = None
+
+
+def _execute_op(driver, op: NemesisOp) -> None:
+    a = op.action
+    if a in ("scale_out", "scale_in", "sleep", "corrupt_row",
+             "kill_shard", "replace_shard", "promote_shard"):
+        if a == "kill_shard":
+            driver.kill_shard(op.shard)
+        elif a == "replace_shard":
+            driver.replace_shard(op.shard)
+        elif a == "promote_shard":
+            driver.promote_shard(op.shard)
+        elif a == "scale_out":
+            driver.scale_out(op.count)
+        elif a == "scale_in":
+            driver.scale_in(op.count)
+        elif a == "sleep":
+            time.sleep(op.ms / 1e3)
+        else:
+            _corrupt_row(driver, op.gid)
+        return
+    proxy = driver.mesh.get(op.shard)
+    if proxy is None:
+        raise RuntimeError(f"no mesh proxy for shard {op.shard}")
+    if a == "partition":
+        proxy.partition(
+            op.mode, duration_s=(op.ms / 1e3) if op.ms > 0 else None
+        )
+    elif a == "heal":
+        proxy.heal()
+    elif a == "delay":
+        proxy.set_delay(op.ms, op.jitter_ms, op.mode)
+    elif a == "clear_delay":
+        proxy.clear_delay()
+    elif a == "drip":
+        proxy.set_drip(op.bytes_per_sec, op.mode)
+    elif a == "clear_drip":
+        proxy.clear_drip()
+    elif a in ("truncate_next", "dup_next", "reorder_next"):
+        direction = op.mode if op.mode != "both" else "s2c"
+        kind = {
+            "truncate_next": "truncate_rst",
+            "dup_next": "dup",
+            "reorder_next": "reorder",
+        }[a]
+        proxy.inject_once(
+            kind, direction, keep_frac=op.keep_frac, count=op.count,
+            cut=op.cut,
+        )
+    elif a == "half_open":
+        proxy.half_open(op.count)
+    else:  # pragma: no cover — scenarios.py validates the vocabulary
+        raise ValueError(f"unknown op action {a!r}")
+
+
+# ---------------------------------------------------------------------------
+# the scenario executor
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ScenarioReport:
+    """One scenario's full outcome — the Jepsen-style verdict table."""
+
+    scenario: Scenario
+    ok: bool                      # every invariant checker passed
+    verdicts: List[Verdict]
+    faults: Dict[str, int]        # injected, per class
+    rounds: int
+    wall_s: float
+    ops_executed: int
+    ops_skipped: int
+    schedule_json: str
+    artifacts: List[str]
+
+    @property
+    def as_expected(self) -> bool:
+        """Did the run match the scenario's recorded expectation?
+        (``pass`` scenarios must be ok; ``violation`` scenarios must be
+        caught, i.e. NOT ok.)"""
+        return self.ok == (self.scenario.expect == "pass")
+
+    def as_dict(self) -> dict:
+        return {
+            "name": self.scenario.name,
+            "seed": self.scenario.seed,
+            "expect": self.scenario.expect,
+            "ok": self.ok,
+            "as_expected": self.as_expected,
+            "verdicts": [v.as_dict() for v in self.verdicts],
+            "faults": dict(sorted(self.faults.items())),
+            "rounds": self.rounds,
+            "wall_s": round(self.wall_s, 3),
+            "ops_executed": self.ops_executed,
+            "ops_skipped": self.ops_skipped,
+        }
+
+
+def run_scenario(
+    scenario: Scenario,
+    *,
+    wal_root: str,
+    registry: Optional[MetricsRegistry] = None,
+    witness: bool = False,
+    artifact_dir: Optional[str] = None,
+    serving_budget: int = 0,
+    timeline=None,
+    device: DeviceLike = None,
+) -> ScenarioReport:
+    """Execute one scenario end to end and check every invariant.
+
+    ``wal_root`` hosts a FRESH per-run WAL directory (a stale log
+    would replay a previous run's updates into this one).
+    ``witness=True`` wraps the whole topology in the lockwitness
+    capture (measurably slower; the battery runs one witnessed
+    scenario, not all).  ``artifact_dir`` enables failure artifacts:
+    the flight-recorder blackbox and the canonical schedule JSON.
+    ``timeline`` is an optional (not-yet-started)
+    :class:`~..telemetry.timeline.TimelineRecorder` built over the
+    SAME registry: it samples for the duration of the run and every
+    executed nemesis op is ``mark()``-ed onto its time axis, so
+    detector firings can be cross-referenced against fault onset (the
+    detection A/B in benchmarks/timeline_detection_ab.py).
+    ``device`` holds the shards' slices, the workload's logic and the
+    oracle's run: the card unless the caller passes ``device="cpu"``."""
+    dev = resolve_device(device)
+    reg = registry if registry is not None else MetricsRegistry()
+    t0 = time.perf_counter()
+    workload = _make_workload(scenario, dev)
+    oracle = oracle_values(scenario, dev) if scenario.parity else None
+    batches = workload.batches()
+    wal_dir = tempfile.mkdtemp(prefix=f"{scenario.name}-", dir=wal_root)
+    ledger = ThreadLedger()
+
+    rec = None
+    prev_rec = flightrec.get_recorder()
+    if artifact_dir is not None:
+        rec = flightrec.FlightRecorder(
+            registry=reg, results_dir=artifact_dir,
+            min_dump_interval_s=0.0,
+        )
+        rec.note("scenario_start", name=scenario.name, seed=scenario.seed)
+    flightrec.set_recorder(rec)
+    if timeline is not None:
+        timeline.mark(
+            "scenario_start", name=scenario.name, seed=scenario.seed
+        )
+        timeline.start()
+
+    errors: List[str] = []
+    served = [0]
+    read_errors = [0]
+    reader_cache_stats: dict = {}
+    progress = {"round": -1, "done": False}
+    cond = threading.Condition()
+    ops_executed = [0]
+    ops_skipped = [0]
+    values: Optional[np.ndarray] = None
+    acked = applied = 0
+    rounds_done = 0
+    samples: List[int] = []
+    bound_samples: List[List[int]] = []
+    tier_samples: List[dict] = []
+    adaptive_rt = None
+    adaptive_tl = None
+    faults: Dict[str, int] = {}
+    inversions: list = []
+
+    if witness:
+        from ..telemetry import lockwitness
+
+        capture_cm = lockwitness.capture()
+    else:
+        capture_cm = contextlib.nullcontext()
+
+    try:
+        with capture_cm as w:
+            driver = _build_driver(scenario, workload, wal_dir, reg)
+            driver.start()
+            if scenario.adaptive:
+                # detection → control: a worker-entity SkewTracker over
+                # the per-worker pull RTT histograms feeds the
+                # AdaptiveRuntime, which drives the driver's
+                # AdaptiveClock allowances through the storm
+                from ..adaptive.controller import AdaptiveRuntime
+                from ..telemetry.timeline import (
+                    SkewTracker, TimelineRecorder,
+                )
+
+                adaptive_tl = TimelineRecorder(
+                    reg, interval_s=0.05,
+                    include=lambda n: n == "cluster_pull_rtt_seconds",
+                    skew=[SkewTracker(
+                        "cluster_pull_rtt_seconds",
+                        entity_label="worker", field="p50",
+                        min_points=2, warmup_evals=2,
+                    )],
+                ).start()
+                adaptive_rt = AdaptiveRuntime(
+                    driver, adaptive_tl, interval_s=0.05, registry=reg,
+                ).start()
+
+            def round_hook(worker: int, rnd: int) -> None:
+                with cond:
+                    if rnd > progress["round"]:
+                        progress["round"] = rnd
+                        cond.notify_all()
+
+            def op_loop() -> None:
+                for op in scenario.ops:
+                    with cond:
+                        cond.wait_for(
+                            lambda: progress["round"] >= op.at_round
+                            or progress["done"],
+                            timeout=120,
+                        )
+                        if progress["done"] and (
+                            progress["round"] < op.at_round
+                        ):
+                            ops_skipped[0] += 1
+                            continue
+                    if rec is not None:
+                        rec.note(
+                            "nemesis_op", action=op.action,
+                            shard=op.shard, at_round=op.at_round,
+                        )
+                    if timeline is not None:
+                        timeline.mark(
+                            "nemesis_op", action=op.action,
+                            shard=op.shard, at_round=op.at_round,
+                        )
+                    try:
+                        _execute_op(driver, op)
+                        ops_executed[0] += 1
+                    except Exception as e:  # noqa: BLE001 — verdicted
+                        errors.append(
+                            f"op {op.action}@r{op.at_round}: "
+                            f"{type(e).__name__}: {e}"
+                        )
+                # settle: nothing stays armed past the schedule
+                for proxy in driver.mesh.values():
+                    proxy.heal()
+                    proxy.clear_delay()
+                    proxy.clear_drip()
+
+            stop_reader = threading.Event()
+
+            def reader_loop() -> None:
+                client = driver._make_client(worker="nemesis-reader")
+                ids = np.arange(
+                    min(8, workload.capacity), dtype=np.int64
+                )
+                # workload serving probes (predict / query / topk —
+                # workloads/serving.py handlers, minus the socket):
+                # the error budget covers the workload's own verbs
+                # through the fault window, not just raw pulls
+                probe_rng = np.random.default_rng(scenario.seed + 17)
+                has_probes = bool(workload.serving_verbs)
+                cache = None
+                if scenario.hotcache:
+                    # the cached serving reader (hotcache/): every read
+                    # id is leaseable, bound enforced client-side — the
+                    # lease_staleness verdict audits what it served
+                    from ..hotcache import HotRowCache, StaticHotSet
+
+                    cache = HotRowCache(
+                        HOTCACHE_READER_BOUND, capacity=64,
+                        registry=reg, worker="nemesis-reader",
+                    )
+                    client.attach_hotcache(
+                        cache, StaticHotSet(ids), lease_ttl=8
+                    )
+                try:
+                    while not stop_reader.is_set():
+                        try:
+                            client.pull_batch(ids)
+                            served[0] += 1
+                        except Exception:  # noqa: BLE001 — budgeted
+                            read_errors[0] += 1
+                        if has_probes:
+                            probe = workload.probe_request(probe_rng)
+                            if probe is not None:
+                                try:
+                                    workload.serve(client, *probe)
+                                    served[0] += 1
+                                except Exception:  # noqa: BLE001
+                                    read_errors[0] += 1
+                        stop_reader.wait(0.004)
+                finally:
+                    if cache is not None:
+                        reader_cache_stats.update(cache.stats())
+                    client.close()
+
+            op_thread = threading.Thread(
+                target=op_loop, name="nemesis-ops", daemon=True
+            )
+            op_thread.start()
+            reader = None
+            if scenario.serving_reads:
+                reader = threading.Thread(
+                    target=reader_loop, name="nemesis-reader-loop",
+                    daemon=True,
+                )
+                reader.start()
+            try:
+                with StalenessSampler(driver) as sampler, \
+                        AdaptiveBoundSampler(driver) as bsampler, \
+                        TierResidencySampler() as tsampler:
+                    try:
+                        result = driver.run(
+                            batches, round_hook=round_hook, timeout=180
+                        )
+                        values = result.values
+                        rounds_done = result.rounds
+                    except BaseException as e:  # noqa: BLE001 — verdicted
+                        errors.append(
+                            f"run: {type(e).__name__}: {e}"
+                        )
+                samples = list(sampler.samples)
+                bound_samples = list(bsampler.samples)
+                tier_samples = list(tsampler.samples)
+            finally:
+                with cond:
+                    progress["done"] = True
+                    cond.notify_all()
+                op_thread.join(timeout=30)
+                stop_reader.set()
+                if reader is not None:
+                    reader.join(timeout=30)
+                # the audit counters live on objects stop() clears
+                acked = sum(c.rows_pushed for c in driver._clients)
+                applied = sum(
+                    sh.rows_applied for sh in driver.all_shards
+                )
+                faults = driver.faults_injected()
+                if adaptive_rt is not None:
+                    adaptive_rt.stop()
+                if adaptive_tl is not None:
+                    adaptive_tl.stop()
+                driver.stop()
+        if witness:
+            inversions = list(w.inversions)
+    finally:
+        if timeline is not None:
+            timeline.sample()  # one final tick: the post-run state
+            timeline.stop()
+            timeline.mark("scenario_end", name=scenario.name)
+        flightrec.set_recorder(prev_rec)
+
+    # under the adaptive runtime, widened allowances legally raise the
+    # live spread up to the CEILING (+1 round in flight) — the stock
+    # bound would false-positive on exactly the behaviour the runtime
+    # exists to produce; the ceiling derivation mirrors _make_clock
+    bound = scenario.staleness_bound
+    ceiling = (
+        2 * bound + 1
+        if scenario.adaptive and bound is not None else bound
+    )
+    verdicts = [
+        check_no_errors(errors),
+        check_exactly_once(acked, applied),
+        check_staleness(samples, ceiling),
+    ]
+    if scenario.adaptive:
+        verdicts.append(
+            check_adaptive_bound(bound_samples, bound, ceiling)
+        )
+    if scenario.tiered:
+        verdicts.append(check_tier_residency(tier_samples))
+    if scenario.parity:
+        if values is None:
+            verdicts.append(Verdict(
+                "final_table_parity", False, "run produced no table"
+            ))
+        else:
+            # the workload declares its own parity bar (workloads/):
+            # allclose fp32 for MF, bitwise for PA, integer-exact for
+            # sketches
+            verdicts.append(workload.parity_verdict(values, oracle))
+    if scenario.serving_reads:
+        verdicts.append(check_serving_budget(
+            served[0], read_errors[0], budget=serving_budget
+        ))
+    if scenario.hotcache:
+        verdicts.append(check_lease_staleness(
+            reader_cache_stats, bound=HOTCACHE_READER_BOUND
+        ))
+    if witness:
+        verdicts.append(check_lock_inversions(inversions))
+    verdicts.append(ledger.check())
+
+    ok = all(v.ok for v in verdicts)
+    artifacts: List[str] = []
+    if not ok and artifact_dir is not None:
+        os.makedirs(artifact_dir, exist_ok=True)
+        sched_path = os.path.join(
+            artifact_dir, f"nemesis_schedule_{scenario.name}.json"
+        )
+        with open(sched_path, "w") as f:
+            f.write(scenario.to_json() + "\n")
+        artifacts.append(sched_path)
+        if rec is not None:
+            for v in verdicts:
+                if not v.ok:
+                    rec.note("invariant_violated", name=v.name,
+                             detail=v.detail)
+            path = rec.dump(f"nemesis_{scenario.name}", force=True)
+            if path:
+                artifacts.append(path)
+    return ScenarioReport(
+        scenario=scenario,
+        ok=ok,
+        verdicts=verdicts,
+        faults=faults,
+        rounds=rounds_done,
+        wall_s=time.perf_counter() - t0,
+        ops_executed=ops_executed[0],
+        ops_skipped=ops_skipped[0],
+        schedule_json=scenario.to_json(),
+        artifacts=artifacts,
+    )
+
+
+# ---------------------------------------------------------------------------
+# randomized search + shrinker
+# ---------------------------------------------------------------------------
+
+
+def search_scenarios(
+    seeds, *, wal_root: str, artifact_dir: Optional[str] = None,
+    device: DeviceLike = None, **overrides
+) -> Tuple[List[ScenarioReport], List[ScenarioReport]]:
+    """Run one sampled scenario per seed on ``device``; returns
+    ``(passed, failed)``.  Every failure is reproducible from its seed
+    alone (``Scenario.from_seed(seed)`` regenerates the schedule) and
+    carries the schedule JSON + flight-recorder artifact when
+    ``artifact_dir`` is set."""
+    passed: List[ScenarioReport] = []
+    failed: List[ScenarioReport] = []
+    for seed in seeds:
+        s = Scenario.from_seed(int(seed), **overrides)
+        report = run_scenario(
+            s, wal_root=wal_root, artifact_dir=artifact_dir,
+            device=device,
+        )
+        (passed if report.ok else failed).append(report)
+    return passed, failed
+
+
+def shrink(
+    scenario: Scenario,
+    fails: Callable[[Scenario], bool],
+    *,
+    max_runs: int = 24,
+) -> Tuple[Scenario, int]:
+    """Minimize a failing schedule: greedily drop ops while ``fails``
+    still holds (delta debugging, one-op granularity — schedules are
+    short).  Returns ``(minimized, runs_used)``; the minimized
+    scenario still fails and every remaining op is load-bearing
+    (removing any one of them was tried and made the failure
+    disappear, or the run budget ran out first).  ``fails`` runs the
+    candidates, on whatever device it passes to :func:`run_scenario`."""
+    ops = list(scenario.ops)
+    runs = 0
+    changed = True
+    while changed and len(ops) > 1:
+        changed = False
+        for i in range(len(ops)):
+            if runs >= max_runs:
+                return scenario.with_ops(ops), runs
+            candidate = scenario.with_ops(ops[:i] + ops[i + 1:])
+            runs += 1
+            if fails(candidate):
+                ops.pop(i)
+                changed = True
+                break
+    return scenario.with_ops(ops), runs
+
+
+# ---------------------------------------------------------------------------
+# the regression corpus
+# ---------------------------------------------------------------------------
+
+
+def write_corpus(
+    scenarios=None, *, directory: str = CORPUS_DIR
+) -> List[str]:
+    """Serialize schedules into the committed corpus (canonical JSON,
+    one file per scenario)."""
+    if scenarios is None:
+        scenarios = list(BUILTIN_SCENARIOS) + [VIOLATION_SCENARIO]
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for s in scenarios:
+        path = os.path.join(directory, f"{s.name}.json")
+        with open(path, "w") as f:
+            f.write(s.to_json() + "\n")
+        paths.append(path)
+    return paths
+
+
+def load_corpus(directory: str = CORPUS_DIR) -> List[Scenario]:
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in sorted(os.listdir(directory)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(directory, name)) as f:
+            out.append(Scenario.from_json(f.read().strip()))
+    return out
+
+
+def replay_corpus(
+    *,
+    wal_root: str,
+    directory: str = CORPUS_DIR,
+    artifact_dir: Optional[str] = None,
+    witness_scenario: Optional[str] = "two_way_partition_heal",
+    device: DeviceLike = None,
+) -> List[ScenarioReport]:
+    """Replay every committed schedule on ``device`` and check its
+    recorded expectation (the tier-1 regression gate).  One scenario
+    runs under the lockwitness capture (``witness_scenario``); raising
+    it to all scenarios is correct but slow.  Raises ``AssertionError``
+    naming every scenario whose outcome no longer matches."""
+    reports = []
+    for s in load_corpus(directory):
+        reports.append(run_scenario(
+            s, wal_root=wal_root, artifact_dir=artifact_dir,
+            witness=(s.name == witness_scenario), device=device,
+        ))
+    mismatched = [r for r in reports if not r.as_expected]
+    if mismatched:
+        lines = []
+        for r in mismatched:
+            bad = [v for v in r.verdicts if not v.ok]
+            lines.append(
+                f"{r.scenario.name} (expect={r.scenario.expect}, "
+                f"ok={r.ok}): "
+                + ("; ".join(f"{v.name}: {v.detail}" for v in bad)
+                   if bad else "unexpectedly clean")
+            )
+        raise AssertionError(
+            "corpus replay mismatched expectations:\n" + "\n".join(lines)
+        )
+    return reports
+
+
+__all__ = [
+    "CORPUS_DIR",
+    "NemesisElasticDriver",
+    "NemesisReplicatedDriver",
+    "ScenarioReport",
+    "load_corpus",
+    "oracle_values",
+    "replay_corpus",
+    "run_scenario",
+    "search_scenarios",
+    "shrink",
+    "write_corpus",
+]

@@ -40,9 +40,10 @@ stack:
     :class:`~.serving.WorkloadServingServer` over a
     :class:`~..cluster.client.ClusterClient`.
 
-The reference's ``probe_request`` (the nemesis serving reader's request)
-and ``soak_read_ids`` / ``soak_push`` (the open-loop soak's surface) come
-with ``nemesis/`` and ``loadgen/``'s soak (ROADMAP Queue 1 #7).
+``probe_request`` is the nemesis serving reader's request
+(``nemesis/runner.py``); the reference's ``soak_read_ids`` / ``soak_push``
+(the open-loop soak's surface) come with ``loadgen/``'s soak (ROADMAP
+Queue 1 #7h).
 """
 from __future__ import annotations
 
@@ -178,6 +179,13 @@ class Workload(abc.ABC):
             f"workload {self.name!r} serves no {cmd!r} "
             f"(verbs: {list(self.serving_verbs)})"
         )
+
+    def probe_request(self, rng: np.random.Generator
+                      ) -> Optional[Tuple[str, str]]:
+        """One representative serving request ``(cmd, arg)`` — what the
+        nemesis serving reader issues.  None when the workload has no
+        serving verbs."""
+        return None
 
     def describe(self) -> Dict[str, Any]:
         return {

@@ -199,5 +199,18 @@ class PAClassifierWorkload(Workload):
             )
         return ",".join(f"{m:.6g}" for m in margins)
 
+    def probe_request(self, rng: np.random.Generator
+                      ) -> Tuple[str, str]:
+        F = self.capacity
+        k = min(3, F)
+        parts = []
+        for _ in range(2):
+            ids = rng.choice(F, size=k, replace=False)
+            vals = rng.standard_normal(k)
+            parts.append(",".join(
+                f"{int(i)}:{v:.4f}" for i, v in zip(ids, vals)
+            ))
+        return "predict", ";".join(parts)
+
 
 __all__ = ["PAClassifierWorkload"]

@@ -174,5 +174,12 @@ class SketchWorkload(Workload):
             )
         return super().serve(client, cmd, arg)
 
+    def probe_request(self, rng: np.random.Generator
+                      ) -> Tuple[str, str]:
+        if rng.random() < 0.5:
+            keys = rng.integers(0, self.vocab, size=3)
+            return "query", ",".join(str(int(k)) for k in keys)
+        return "topk", "4"
+
 
 __all__ = ["SketchWorkload"]

@@ -6,9 +6,10 @@ versioned work routing (``WorkRouter``), the drain property
 (``DrainedHashPartitioner``), earned moves (``RebalancePolicy``), the
 runtime's deterministic ticks (``AdaptiveRuntime.step``) and the surfaces
 (``/adaptive`` and ``psctl adaptive``, the stdlib ``tools/psctl``
-unchanged, against a live 2-shard port cluster).  The mid-frame RST
-scenarios (``TestMidFrameRstAdaptive``) wait for the port's nemesis runner
-and the artifact lints (``TestTooling``) for its tooling.
+unchanged, against a live 2-shard port cluster), and the nemesis
+mid-frame RST scenarios replayed with push hedging armed
+(``TestMidFrameRstAdaptive``, on the port's runner with ``device="cpu"``).
+The artifact lints (``TestTooling``) wait for the port's tooling.
 
 Parity with the reference, on the same seeded numpy inputs and exactly:
 ``WorkRouter.owner_mask`` after the same shifts, ``DrainedHashPartitioner
@@ -18,6 +19,7 @@ cluster run with ``adaptive=True`` and push hedging armed on the elastic
 driver balances its exactly-once ledger (acked == applied) while the live
 bounds stay inside ``[bound, ceiling]``.
 """
+import dataclasses
 import json
 import os
 import types
@@ -537,6 +539,46 @@ class TestAdaptiveRuntimeStep:
         assert sample[("adaptive_bound_widenings_total", None)] == 1
         assert sample[("adaptive_effective_bound", "0")] == 4
         assert sample[("adaptive_effective_bound", "1")] == 2
+
+
+# ---------------------------------------------------------------------------
+# push-hedge dedupe under mid-frame RST, both torn directions
+# ---------------------------------------------------------------------------
+
+
+class TestMidFrameRstAdaptive:
+    """Replay the nemesis mid-frame RST scenarios with ``adaptive=True`` so
+    the runner arms the push hedger — the losing leg of any hedged or
+    replayed push must be absorbed by the (pid, id) dedupe window.  Parity
+    is switched off because widened allowances legally reorder updates
+    (the runner's ceiling carve-out); the invariant hedging must preserve
+    is the exactly-once ledger, audited here in BOTH torn directions."""
+
+    @pytest.mark.parametrize(
+        "name", ["mid_frame_rst_pull", "mid_frame_rst_push"]
+    )
+    def test_ledger_balances_with_hedging_armed(self, name, tmp_path):
+        from flink_parameter_server_tpu_torch.nemesis.runner import run_scenario
+        from flink_parameter_server_tpu_torch.nemesis.scenarios import (
+            BUILTIN_SCENARIOS,
+        )
+
+        base = {s.name: s for s in BUILTIN_SCENARIOS}[name]
+        scenario = dataclasses.replace(base, adaptive=True, parity=False)
+        report = run_scenario(scenario, wal_root=str(tmp_path), device=CPU)
+        verdicts = {v.name: v for v in report.verdicts}
+        assert verdicts["exactly_once_ledger"].ok, (
+            verdicts["exactly_once_ledger"].detail
+        )
+        assert verdicts["adaptive_bound_envelope"].ok, (
+            verdicts["adaptive_bound_envelope"].detail
+        )
+        assert report.ok, [
+            (v.name, v.detail) for v in report.verdicts if not v.ok
+        ]
+        # both cuts actually landed on the wire
+        assert report.ops_executed == len(scenario.ops)
+        assert report.faults.get("truncate_rst", 0) == len(scenario.ops)
 
 
 # ---------------------------------------------------------------------------

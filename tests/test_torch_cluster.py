@@ -22,8 +22,9 @@ ported), the five properties of tests/test_cluster_properties.py (the
 epoch-transition one computes the ownership diff itself: the elastic
 planner is not ported), and tests/test_transport.py's shard-process tests
 (proc-vs-thread parity, kill and respawn over the WAL, the spawn grace
-window), and tests/test_loadgen.py's shard-edge overload tests with its
-breaker test.  Knobs whose modules wait for ROADMAP Queue 1 #7 raise
+window) and its binary mid-frame RST tests (through the port's
+``nemesis.ChaosProxy``), and tests/test_loadgen.py's shard-edge overload
+tests with its breaker test.  Knobs whose modules wait for ROADMAP Queue 1 #7 raise
 ``NotImplementedError``; each is held here (``xfer`` / ``load``, epoch
 fencing and the ``pid=`` window came back with elastic/ and are held in
 tests/test_torch_elastic.py; ``lease`` / ``revoke`` and ``hot_cache`` came
@@ -1111,3 +1112,94 @@ def test_hash_local_ids_are_dense_bijections(capacity, num_shards, seed, data):
     local = p.to_local(s, owned)
     assert np.array_equal(local, np.arange(len(owned)))
     assert np.array_equal(p.to_global(s, local), owned)
+
+
+# ---------------------------------------------------------------------------
+# mid-frame RST inside a binary header / payload, through the chaos proxy
+# ---------------------------------------------------------------------------
+
+
+class TestBinaryMidFrameRST:
+    def _proxied(self, shard_dim=2, wal_dir=None):
+        from flink_parameter_server_tpu_torch.nemesis.proxy import ChaosProxy
+
+        part = RangePartitioner(32, 1)
+        shard = ParamShard(
+            0, part, (shard_dim,), registry=False, wal_dir=wal_dir, device=CPU
+        )
+        srv = ShardServer(shard).start()
+        proxy = ChaosProxy(srv.host, srv.port, registry=False).start()
+        return part, shard, srv, proxy
+
+    @pytest.mark.parametrize("cut", ["header", "payload"])
+    def test_response_torn_inside_binary_frame(self, cut):
+        from flink_parameter_server_tpu_torch.cluster.client import ShardConnection
+        from flink_parameter_server_tpu_torch.utils import frames as binf
+        from flink_parameter_server_tpu_torch.utils.net import PeerHalfClosed
+
+        part, shard, srv, proxy = self._proxied()
+        try:
+            conn = ShardConnection(proxy.host, proxy.port, negotiate=True, timeout=5)
+            assert conn.proto == "bin"
+            proxy.inject_once("truncate_rst", "s2c", cut=cut)
+            with pytest.raises((PeerHalfClosed, OSError)):
+                conn.request_many([binf.encode_request(binf.VERB_IDS["pull"], ids=np.arange(8))])
+            assert proxy.faults.get("truncate_rst") == 1
+            conn.close()
+        finally:
+            proxy.stop()
+            srv.stop()
+
+    @pytest.mark.parametrize("cut", ["header", "payload"])
+    def test_push_torn_request_replays_exactly_once(self, cut, tmp_path):
+        """A binary push torn mid-frame (header or payload) and replayed
+        with the same pid applies EXACTLY once — the (pid, id) ledger
+        absorbs the ambiguity either way."""
+        from flink_parameter_server_tpu_torch.cluster.client import ShardConnection
+        from flink_parameter_server_tpu_torch.utils import frames as binf
+        from flink_parameter_server_tpu_torch.utils.net import PeerHalfClosed
+
+        part, shard, srv, proxy = self._proxied(wal_dir=str(tmp_path / f"wal-{cut}"))
+        try:
+            ids = np.arange(8, dtype=np.int64)
+            deltas = np.ones((8, 2), np.float32)
+            frame = binf.encode_request(
+                binf.VERB_IDS["push"], ids=ids, payload=binf.rows_to_payload(deltas),
+                tlvs=[(binf.T_PID, b"pid.42")],
+            )
+            conn = ShardConnection(proxy.host, proxy.port, negotiate=True, timeout=5)
+            proxy.inject_once("truncate_rst", "c2s", cut=cut)
+            with pytest.raises((PeerHalfClosed, OSError)):
+                conn.request_many([frame])
+            conn.close()
+            # the replay (fresh connection, same pid)
+            conn2 = ShardConnection(proxy.host, proxy.port, negotiate=True, timeout=5)
+            resp = conn2.request_many([frame])[0]
+            assert resp.flag == binf.STATUS_OK
+            # and a duplicate retry after the ack: acked, not re-applied
+            resp2 = conn2.request_many([frame])[0]
+            assert resp2.flag == binf.STATUS_OK
+            vals = shard.pull(ids)
+            assert np.array_equal(vals, deltas)  # exactly once
+            conn2.close()
+        finally:
+            proxy.stop()
+            srv.stop()
+
+    def test_proxy_reassembles_binary_frames(self):
+        """Binary frames (which may contain 0x0A bytes and end without a
+        newline) relay through the byte-level proxy intact."""
+        from flink_parameter_server_tpu_torch.cluster.client import ShardConnection
+        from flink_parameter_server_tpu_torch.utils import frames as binf
+
+        part, shard, srv, proxy = self._proxied()
+        try:
+            conn = ShardConnection(proxy.host, proxy.port, negotiate=True, timeout=5)
+            # 10 == ord("\n"): the id section embeds newline bytes
+            ids = np.asarray([10, 26, 10], np.int64)
+            resp = conn.request_many([binf.encode_request(binf.VERB_IDS["pull"], ids=ids)])[0]
+            assert resp.flag == binf.STATUS_OK and resp.n == 3
+            conn.close()
+        finally:
+            proxy.stop()
+            srv.stop()

@@ -13,10 +13,12 @@ cluster on the same stream.
 
 Mirrors tests/test_compression.py's TestQ8Codec (6), TestErrorFeedback (5),
 TestAggregateBatches (2), TestQuantizedWire (4), TestQuantizedReplication
-(2) and TestDriverIntegration (3).  TestTornQuantizedFrames waits for the
-nemesis proxy and corpus (ROADMAP Queue 1 #7g), TestTooling for psctl, the
-lint and the benchmark artifacts (#7h).
+(2), TestDriverIntegration (3) and TestTornQuantizedFrames (the corpus's
+mid-frame RST schedules over q8, on the port's nemesis runner with
+``device="cpu"``).  TestTooling waits for psctl, the lint and the
+benchmark artifacts (ROADMAP Queue 1 #7h).
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -595,3 +597,41 @@ class TestDriverIntegration:
         )
         with driver:
             assert driver._clients[0]._compressor is not None
+
+
+# ---------------------------------------------------------------------------
+# the mid-frame-RST corpus schedules over a quantized-enc connection
+# ---------------------------------------------------------------------------
+
+
+class TestTornQuantizedFrames:
+    @pytest.mark.parametrize(
+        "name", ["mid_frame_rst_pull", "mid_frame_rst_push"]
+    )
+    def test_corpus_schedule_replays_green_over_q8(
+        self, name, tmp_path
+    ):
+        """The committed mid-frame-RST schedules replayed with a QUANTIZED
+        enc negotiated — a torn quantized frame (cut inside the header or
+        the int8 payload) must dedupe exactly like f32: exactly-once
+        ledger balanced, zero run errors.  Parity is off because the
+        quantized arm needs a non-zero bound (the BSP carve-out would
+        downgrade it to fp32)."""
+        from flink_parameter_server_tpu_torch.nemesis import (
+            load_corpus,
+            run_scenario,
+        )
+
+        corpus = {s.name: s for s in load_corpus()}
+        s = dataclasses.replace(
+            corpus[name],
+            name=f"{name}-q8",
+            wire_format="q8",
+            staleness_bound=2,
+            parity=False,
+        )
+        report = run_scenario(s, wal_root=str(tmp_path), device=CPU)
+        bad = [v for v in report.verdicts if not v.ok]
+        assert report.ok, bad
+        names = {v.name for v in report.verdicts}
+        assert "exactly_once_ledger" in names

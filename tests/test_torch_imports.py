@@ -114,6 +114,11 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.tierstore.slab",
             "flink_parameter_server_tpu_torch.tierstore.store",
             "flink_parameter_server_tpu_torch.tierstore.metrics"} <= set(modules)
+    # the nemesis fault-injection harness
+    assert {"flink_parameter_server_tpu_torch.nemesis",
+            "flink_parameter_server_tpu_torch.nemesis.proxy",
+            "flink_parameter_server_tpu_torch.nemesis.scenarios",
+            "flink_parameter_server_tpu_torch.nemesis.runner"} <= set(modules)
 
 
 def test_adaptive_and_tierstore_alone_load_no_jax():

@@ -25,7 +25,10 @@ equal, scores rtol 1e-6; a leased row on a card slice exactly the row at
 the answered ``seq``.  The two-tier store with its hot tier on the card:
 bitwise the same store on the CPU over a seeded Zipf sequence with
 evictions, a card-backed tiered shard bitwise a card-backed torch shard;
-``drain_shard`` over card slices bitwise.
+``drain_shard`` over card slices bitwise.  The nemesis runner on the card:
+the ``mid_frame_rst_push`` schedule's verdict table (names, order, ``ok``),
+fault classes and executed ops equal the CPU run's, every shard slice a
+CUDA tensor.
 """
 import numpy as np
 import pytest
@@ -1136,3 +1139,29 @@ def test_drain_shard_on_card_slices_is_bitwise(cuda, tmp_path):
         after = {int(g): r for sh in d.shards for g, r in zip(sh.owned, sh.values())}
         assert sorted(after) == sorted(before)
         assert all(after[g].tobytes() == before[g].tobytes() for g in before)
+
+
+def test_nemesis_scenario_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """``run_scenario`` on the card (the default device) against
+    ``device="cpu"``: the same verdicts, fault classes and executed ops,
+    and the card run's shard slices are CUDA tensors."""
+    from flink_parameter_server_tpu_torch.nemesis import runner
+
+    s = {x.name: x for x in runner.load_corpus()}["mid_frame_rst_push"]
+    slices = []
+    build = runner.NemesisElasticDriver._build_shard
+
+    def spy(self, shard_id, partitioner=None):
+        shard, server = build(self, shard_id, partitioner)
+        slices.append(shard.store.table.device.type)
+        return shard, server
+
+    monkeypatch.setattr(runner.NemesisElasticDriver, "_build_shard", spy)
+    card = runner.run_scenario(s, wal_root=str(tmp_path))
+    card_slices, slices[:] = list(slices), []
+    cpu = runner.run_scenario(s, wal_root=str(tmp_path), device="cpu")
+    assert card.ok, [v.as_dict() for v in card.verdicts if not v.ok]
+    assert [(v.name, v.ok) for v in card.verdicts] == [(v.name, v.ok) for v in cpu.verdicts]
+    assert set(card.faults) == set(cpu.faults) and card.ops_executed == cpu.ops_executed == 2
+    assert card_slices and set(card_slices) == {"cuda"}
+    assert slices and set(slices) == {"cpu"}

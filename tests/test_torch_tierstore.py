@@ -9,9 +9,10 @@ space-saving churn regression, ``ParamShard(store_backend="tiered")``
 against a dense torch shard, WAL replay through cold rows, a tiered
 follower's catch-up, promotion and audit, the residency invariant and its
 live sampler, and the surfaces (``/tiers`` and ``psctl tiers``, the stdlib
-``tools/psctl`` unchanged, against a live tiered port cluster).  The
-``kill_promote_cold_tier`` scenario waits for the port's nemesis runner and
-the artifact lints (``TestTooling``) for its tooling.
+``tools/psctl`` unchanged, against a live tiered port cluster), with the
+``kill_promote_cold_tier`` scenario registered in the port's nemesis
+battery and corpus.  The artifact lints (``TestTooling``) wait for the
+port's tooling.
 
 Parity with the reference: the same seeded call sequence (gathers, pushes
 with duplicates, assigns) through the reference's ``TieredStore`` and the
@@ -576,6 +577,27 @@ class TestReplicationTiered:
 
 
 class TestNemesisTier:
+    def test_kill_promote_cold_tier_scenario_registered(self):
+        from flink_parameter_server_tpu_torch.nemesis.scenarios import (
+            BUILTIN_SCENARIOS,
+        )
+
+        (sc,) = [
+            s for s in BUILTIN_SCENARIOS
+            if s.name == "kill_promote_cold_tier"
+        ]
+        assert sc.tiered is True
+        assert sc.tier_hot_rows < 64  # deliberately tiny: crosses cold
+        corpus = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "flink_parameter_server_tpu_torch", "nemesis", "corpus",
+            "kill_promote_cold_tier.json",
+        )
+        assert os.path.exists(corpus), (
+            "corpus schedule missing — regenerate with "
+            "nemesis.runner.write_corpus"
+        )
+
     def test_check_tier_residency_verdicts(self):
         from flink_parameter_server_tpu_torch.nemesis.invariants import (
             check_tier_residency,

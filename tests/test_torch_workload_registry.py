@@ -14,10 +14,10 @@ Tolerances, all on the CPU (the port with ``device="cpu"``):
     the reference's (the reference's cluster bar).
 
 Mirrors tests/test_workloads.py's TestRegistry (4), TestParity (5),
-TestPushSemantics (4) and TestServing (2): 15 of its 22 tests.  TestChaos,
-TestSoakArms, TestPsctl and TestTooling wait for ``nemesis/`` (the
-scenario runner), ``loadgen/`` (the soak), ``telemetry/exporter.py`` and
-``tools/`` (ROADMAP Queue 1 #7).
+TestPushSemantics (4) and TestServing (2): 15 of its 22 tests.  TestChaos
+is mirrored in tests/test_torch_workloads.py (on the port's nemesis
+runner); TestSoakArms, TestPsctl and TestTooling wait for ``loadgen/``'s
+soak and the tooling (ROADMAP Queue 1 #7h).
 """
 import numpy as np
 import pytest

@@ -21,8 +21,10 @@ Tolerances:
 
 Mirrors: tests/test_passive_aggressive.py (3 here, the event-API test in
 tests/test_torch_event_api.py; the sharded test waits for ROADMAP Queue 1
-#9), tests/test_sketches.py (6 of 7; the sharded test waits for #9) and
-tests/test_word2vec_fm.py (all 6).
+#9), tests/test_sketches.py (6 of 7; the sharded test waits for #9),
+tests/test_word2vec_fm.py (all 6) and tests/test_workloads.py's TestChaos
+(the sketch's increments through a mid-frame RST and a kill -> promote,
+integer-exact, on the port's nemesis runner with ``device="cpu"``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -505,3 +507,46 @@ def test_sgns_dedup_scale_stabilizes_high_lr():
                       dump_model=False)
     assert max(losses) < 10.0, max(losses)
     assert np.mean(losses[-5:]) < 0.8 * np.mean(losses[:5])
+
+
+# ---------------------------------------------------------------------------
+# chaos: sketch increments under mid-frame RST + kill->promote replay
+# integer-exact
+# ---------------------------------------------------------------------------
+
+
+class TestChaos:
+    def test_sketch_rst_kill_promote_integer_exact(self, tmp_path):
+        from flink_parameter_server_tpu_torch.nemesis.runner import (
+            run_scenario,
+        )
+        from flink_parameter_server_tpu_torch.nemesis.scenarios import (
+            NemesisOp,
+            Scenario,
+        )
+
+        s = Scenario(
+            "sketch_rst_promote_direct",
+            (
+                NemesisOp(2, "truncate_next", shard=0, mode="c2s",
+                          keep_frac=0.4, cut="payload"),
+                NemesisOp(4, "kill_shard", shard=0),
+                NemesisOp(4, "promote_shard", shard=0),
+            ),
+            seed=207,
+            rounds=8,
+            batch=64,
+            num_items=48,
+            replicated=True,
+            workload="sketch",
+            wire_format="q8",
+        )
+        report = run_scenario(s, wal_root=str(tmp_path), device="cpu")
+        bad = [v for v in report.verdicts if not v.ok]
+        assert report.ok, bad
+        parity = next(
+            v for v in report.verdicts
+            if v.name == "final_table_parity"
+        )
+        assert "integer-exact" in parity.detail
+        assert "mismatched_cells=0" in parity.detail
