@@ -110,6 +110,30 @@ line each; any failure exits non-zero before the last line:
              scatter, and, from a separate range run with a synchronize
              after each step, a worker's round split into pull, step and
              push, beside the card's name and power limit.
+  shmem      the shared-memory transport (``wire_proto="shm"``) at the
+             cluster phase's width and stream: (1) socket BSP 4 shards x 2
+             workers with ``push_aggregate`` (one merged push a round, so two
+             runs are bitwise comparable), range partition, slices on the
+             card, in turns over binary TCP, shm, shm, TCP (the transport
+             A/B, its rate counted after 2 warm-up rounds): every turn
+             bitwise the first, the shm table at the reference's bar
+             against the single-process one; (2) 2 shard processes x 1
+             worker over the ``hashed_uniform`` init, shm against TCP,
+             bitwise, each child's ready message advertising shm; (3) the
+             arm of (1) with a fault-free ``ChaosProxy`` in front of shard
+             0: that shard's connections fall back to binary TCP
+             (``hello-refused`` once a dial through the proxy), bitwise the
+             TCP arm; (4) ``hot_cache=True`` SSP 4 x 2 with
+             ``push_aggregate`` and a fixed lease set (the stream's 256
+             most frequent items) over shm against TCP: values and cache
+             hit counts equal.  Every shm arm: every connection on
+             ``wire == "shm"``, no fallback; the rings' bytes fit
+             ``/dev/shm``; after the phase no ``fps-ring-*`` segment and no
+             ``shm-beat-*`` or ``*-shm-pump`` thread is left.  No kernel
+             launches.  ``shmem:`` lines give each arm's rounds/s,
+             updates/s, ``push_batch`` and ``pull_batch`` p50 / p99 ms,
+             seconds, ring bytes, borrows, spills and oversize detours, and
+             ``/dev/shm``'s size, beside the card's name and power limit.
   elastic    registered workloads and live resharding through the entry
              points a user calls (``workloads.build_cluster_driver``,
              ``elastic.ElasticClusterDriver``).  ``MFWorkload`` at the MF
@@ -185,7 +209,7 @@ line each; any failure exits non-zero before the last line:
              of the keys take 90 % of the requests, 4 ids a request, lease
              bound 64, one closed-loop reader, a writer pushing hot ids) at
              131,072 x 64 on a 2-shard cluster whose slices are on the card,
-             arms off, on, on, off (5,000 warm-up and 1,500 measured
+             arms off, on (5,000 warm-up and 1,500 measured
              requests an arm; reader and writer behind a ``ChaosProxy``
              that delays each request frame 1 ms, as the reference's
              storm): ``check_lease_staleness`` with hits;
@@ -278,7 +302,7 @@ line each; any failure exits non-zero before the last line:
              the step.  Then the hybrid backend: the event API's
              ``MFWorkerLogic`` under ``transform_hybrid`` against a
              ``scatter_impl="pallas"`` store of 131,072 x 64, two chunks of
-             16,384 ratings (cut from 65,536 for the callbacks' time; K1 once
+             8,192 ratings (cut from 65,536 for the callbacks' time; K1 once
              a chunk, the table within rtol 1e-5 / atol 1e-6 of
              ``index_add_`` of the same pushes), and ``chunk_size=1`` over
              256 ratings against the event backend (atol 1e-5).  Their
@@ -301,6 +325,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1767,6 +1792,330 @@ def phase_cluster(torch, dev, card):
     print(f"cluster: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+SHMEM_AB = ("auto", "shm", "shm", "auto")  # the transport A/B's turns
+SHMEM_WARMUP = 2  # rounds an A/B turn runs before its rate is counted
+SHMEM_HOT = 256  # the hot-cache arm's fixed lease set: the stream's most frequent items
+SHMEM_BOUND = 2  # the hot-cache arm's SSP bound (the hot-cache phase's)
+
+
+def _shm_counts(reg) -> dict:
+    """The shmem counters of one arm's registry, summed over labels:
+    fallbacks by reason, borrows and spills."""
+    out = {}
+    for i in reg.instruments():
+        if i.name == "shmem_fallbacks_total":
+            key = f"fallback {i.labels.get('reason')}"
+        elif i.name in ("shmem_borrows_total", "shmem_borrow_spills_total"):
+            key = i.name[len("shmem_"):-len("_total")]
+        else:
+            continue
+        out[key] = out.get(key, 0) + int(i.value)
+    return out
+
+
+def _dev_shm() -> tuple:
+    """``/dev/shm``'s size and free bytes (``os.statvfs``)."""
+    st = os.statvfs("/dev/shm")
+    return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+
+
+def _shm_leftovers(before) -> tuple:
+    """Ring segments and shm threads still alive, given the segments
+    that were there before."""
+    segs = sorted(n for n in os.listdir("/dev/shm") if n.startswith("fps-ring-") and n not in before)
+    names = sorted(t.name for t in threading.enumerate()
+                   if t.name.startswith("shm-beat-") or t.name.endswith("-shm-pump"))
+    return segs, names
+
+
+def _shmem_driver_cls():
+    """A ``ClusterDriver`` whose clients time their ``pull_batch`` /
+    ``push_batch`` calls and keep every connection they dial, optionally
+    reach shard 0 through a fault-free
+    ``ChaosProxy``, and optionally lease a fixed id set (so a hot-cache
+    run repeats: the sketch-driven policy re-derives its set on a clock)."""
+    from flink_parameter_server_tpu_torch.cluster import ClusterDriver
+    from flink_parameter_server_tpu_torch.hotcache import StaticHotSet
+    from flink_parameter_server_tpu_torch.nemesis import ChaosProxy
+
+    class ShmemArmDriver(ClusterDriver):
+        def __init__(self, logic, *, proxied=False, hot_set=None, **kwargs):
+            self.proxied, self.hot_set, self.proxy = proxied, hot_set, None
+            self.timed, self.dialed = {"pull": [], "push": []}, []
+            super().__init__(logic, **kwargs)
+
+        def _make_client(self, worker=None):
+            c = super()._make_client(worker)
+            if self.proxied:
+                if self.proxy is None:
+                    srv = self.servers[0]
+                    self.proxy = ChaosProxy(srv.host, srv.port, name="shmem-proxy", registry=False).start()
+                c._addresses[0] = (self.proxy.host, self.proxy.port)
+            for verb in ("pull", "push"):
+                fn = getattr(c, f"{verb}_batch")
+
+                def call(*a, fn=fn, verb=verb, **k):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    self.timed[verb].append(time.perf_counter() - t0)
+                    return out
+
+                setattr(c, f"{verb}_batch", call)
+            dial = c._dial
+
+            def dial_and_keep(addr):
+                conn = dial(addr)
+                self.dialed.append(conn)  # every connection, closed ones too
+                return conn
+
+            c._dial = dial_and_keep
+            return c
+
+        def _attach_hot_cache(self, client, worker):
+            super()._attach_hot_cache(client, worker)
+            if self.hot_set is not None and client.hotcache is not None:
+                client.lease_policy = StaticHotSet(self.hot_set)
+
+        def stop(self):
+            try:
+                super().stop()
+            finally:
+                if self.proxy is not None:
+                    self.proxy.stop()
+                    self.proxy = None
+
+    return ShmemArmDriver
+
+
+def phase_shmem(torch, dev, card):
+    """The shared-memory transport at the cluster phase's full width and
+    stream (100,000 users x 131,072 items, dim 64, lr 0.01, 12
+    microbatches of 65,536 Zipf-1.2 ratings, ``ranged_random_factor``
+    init; only the run length is cut), every arm through ``ClusterDriver``
+    on the card: (1) thread shards, BSP 4 x 2 with ``push_aggregate``, in
+    turns TCP, shm, shm, TCP (the transport A/B), every turn bitwise the
+    first, the shm table at the reference's bar against the single-process
+    table; (2) 2 shard processes x 1 worker, shm against TCP, bitwise, each
+    child advertising shm; (3) the arm of (1) with a fault-free
+    ``ChaosProxy`` in front of shard 0: the proxied connections fall back
+    to binary TCP, counted, bitwise the TCP arm; (4) ``hot_cache=True`` SSP
+    4 x 2 with ``push_aggregate`` and a fixed lease set over shm against
+    TCP: values bitwise, hit counts equal.  Every shm arm holds every
+    connection on shm with no fallback; nothing is left in ``/dev/shm`` or
+    running afterwards.  No kernel launches: the thread shards take the
+    store's ``xla`` arm, the proc shards numpy."""
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.core.store import ShardedParamStore
+    from flink_parameter_server_tpu_torch.core.transform import transform_batched
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization, SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.shmem import DEFAULT_CAPACITY, available
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    t_phase = time.perf_counter()
+    check(available(), "shmem: shared memory is not available on this machine (/dev/shm missing or read-only)")
+    before = set(os.listdir("/dev/shm"))
+    size, free = _dev_shm()
+    print(f"shmem: /dev/shm {size} bytes, {free} free; a channel's ring pair {2 * DEFAULT_CAPACITY} bytes; {card}")
+    stream = zipf_stream(9, CLUSTER_ROUNDS)
+    init = ranged_random_factor(1, (DIM_UNFUSED,))
+    Driver = _shmem_driver_cls()
+
+    def logic():
+        return OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), device=dev)
+
+    def fits(what, clients, shards):
+        need = clients * shards * 2 * DEFAULT_CAPACITY
+        free_now = _dev_shm()[1]
+        check(need <= free_now, f"shmem: {what}: its rings take up to {need} bytes and /dev/shm has {free_now} "
+              f"free; a tmpfs that fills raises SIGBUS, so the arm is not run")
+        return need
+
+    def proc_driver(proto, shards):
+        reg = MetricsRegistry()
+        return ClusterDriver(logic(), capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=None,
+                             config=ClusterConfig(wire_proto=proto, shard_procs=True, proc_init=CLUSTER_PROC_INIT,
+                                                  num_shards=shards, num_workers=1, staleness_bound=0),
+                             registry=reg, device=dev), reg
+
+    def run(what, proto, *, procs=None, proxied=False, hot_set=None, **cfg):
+        """One arm (``procs``: a shard-process driver built by
+        ``proc_driver``); returns its result, shmem counters and facts."""
+        reg = MetricsRegistry() if procs is None else procs[1]
+        shards, workers = cfg.get("num_shards", CLUSTER_SHARDS), cfg.get("num_workers", CLUSTER_WORKERS)
+        ring_bytes = 0
+        if proto == "shm":
+            ring_bytes = fits(what, workers + bool(cfg.get("push_aggregate")), shards)
+        cfg = dict(dict(num_shards=CLUSTER_SHARDS, num_workers=CLUSTER_WORKERS, staleness_bound=0), **cfg)
+        stamps, info = [], {}
+        t_arm = time.perf_counter()
+        if procs:
+            d = procs[0]
+        else:
+            d = Driver(logic(), capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=init, proxied=proxied,
+                       hot_set=hot_set, config=ClusterConfig(wire_proto=proto, **cfg), registry=reg, device=dev)
+
+        def hook(w, t):
+            if w == 0:
+                stamps.append(time.perf_counter())
+
+        with d:
+            if not procs:
+                check(all(s.store.table.device.type == dev.type for s in d.shards),
+                      f"shmem: {what}: not every slice is on {dev.type}")
+            else:
+                info["advertised"] = [bool(p.shm) for p in d.servers]
+            t_run = time.perf_counter()
+            r = d.run(stream, timeout=600, round_hook=hook)
+            t_end = time.perf_counter()
+            # the combiner's client is closed at the run's end: the arm
+            # driver kept every connection as it was dialled
+            conns = [cc for c in d._clients for cc in c._conns.values()] if procs else list(d.dialed)
+            info["wires"] = [getattr(cc, "wire", "tcp") for cc in conns]
+            info["spills"] = sum(getattr(cc, "spills", 0) for cc in conns)
+            info["borrows"] = sum(getattr(cc, "borrows", 0) for cc in conns)
+            if hot_set is not None:
+                info["hits"] = [c.hotcache.stats()["hits"] for c in d._clients]
+                info["fills"] = [c.hotcache.stats()["fills"] for c in d._clients]
+            if proxied:
+                info["downgrades"] = d.proxy.shm_downgrades
+                info["proxied"] = [cc.port == d.proxy.port for cc in conns]
+                info["proxied_wires"] = [cc.wire for cc in conns if cc.port == d.proxy.port]
+            timed = getattr(d, "timed", None)
+        t_stop = time.perf_counter()
+        counts = _shm_counts(reg)
+        n_pull = CLUSTER_ROUNDS * cfg["num_workers"]  # the rounds' pulls; the final dump's comes after
+        line = (f"shmem: {what}: {r.rounds} rounds in {r.wall_s:.3f} s: {r.rounds / r.wall_s:.2f} rounds/s, "
+                f"{r.updates_per_sec:.0f} updates/s")
+        if len(stamps) > SHMEM_WARMUP:
+            info["rate"] = (CLUSTER_ROUNDS - SHMEM_WARMUP) / (t_end - stamps[SHMEM_WARMUP])
+            line += f", {info['rate']:.2f} rounds/s after {SHMEM_WARMUP} warm-up rounds"
+        if timed is not None:
+            pulls = np.array(timed["pull"][:n_pull]) * 1e3
+            pushes = np.array(timed["push"]) * 1e3
+            info["push_ms"] = float(np.mean(pushes))
+            line += (f"; pull_batch p50 {np.percentile(pulls, 50):.3f} ms p99 {np.percentile(pulls, 99):.3f} ms, "
+                     f"push_batch mean {np.mean(pushes):.3f} ms p50 {np.percentile(pushes, 50):.3f} ms "
+                     f"p99 {np.percentile(pushes, 99):.3f} ms ({len(pushes)} pushes)")
+        line += (f"; the arm {t_stop - t_arm:.2f} s (built and stopped {t_stop - t_arm - (t_end - t_run):.2f} s, the "
+                 f"run and its dump {t_end - t_run:.2f} s)")
+        line += (f"; wires {sorted(set(info['wires']))} on {len(info['wires'])} connections, ring bytes up to "
+                 f"{ring_bytes}, borrows {info['borrows']}, spills {info['spills']}, counters {counts}; {card}")
+        print(line)
+        if proto == "shm" and not proxied:
+            check(info["wires"] and set(info["wires"]) == {"shm"},
+                  f"shmem: {what}: connections not on shm: {info['wires']}")
+            fallbacks = {k: v for k, v in counts.items() if k.startswith("fallback")}
+            check(not fallbacks, f"shmem: {what}: shm fell back: {fallbacks}")
+        if proto != "shm":
+            check(set(info["wires"]) == {"tcp"}, f"shmem: {what}: a TCP arm rode {info['wires']}")
+        return r, counts, info
+
+    def bitwise(what, a, b):
+        same = a.tobytes() == b.tobytes()
+        print(f"shmem: {what}: {'bitwise equal' if same else 'DIFFER'}")
+        check(same, f"shmem: {what} are not bitwise equal")
+
+    def at_bar(what, vals):
+        err = float(np.abs(vals.astype(np.float64) - base).max())
+        ok = bool(np.allclose(vals, base, **CLUSTER_BAR))
+        print(f"shmem: {what} against the single-process table: max_abs_err={err:.3e} (rtol=1e-4 atol=1e-6) "
+              f"{'ok' if ok else 'BREAKS THE BAR'}")
+        check(ok, f"shmem: {what} breaks the reference's bar (rtol 1e-4, atol 1e-6)")
+
+    zero_counts()
+    store = ShardedParamStore.create(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, device=dev)
+    base = transform_batched(stream, logic(), store, dump_model=False,
+                             collect_outputs=False).store.values().cpu().numpy()
+    del store
+    agg = dict(push_aggregate=True)
+    bsp = f"socket range BSP {CLUSTER_SHARDS}x{CLUSTER_WORKERS} push_aggregate"
+    # (1) and (5): thread shards in turns auto, shm, shm, auto (the
+    # transport A/B in one call), every turn bitwise the first
+    ab, tables = [], []
+    for proto in SHMEM_AB:
+        r, _, info = run(f"(1) {bsp}, {proto}", proto, **agg)
+        ab.append((proto, info["rate"], info["push_ms"]))
+        tables.append(r.values)
+    tcp = tables[0]
+    for (proto, _, _), vals in list(zip(ab, tables))[1:]:
+        bitwise(f"(1) the {proto} turn's table and the first (auto) turn's", vals, tcp)
+    at_bar("(1) the shm table", tables[1])
+    rate = {p: statistics.median(x for q, x, _ in ab if q == p) for p in ("auto", "shm")}
+    push = {p: statistics.median(x for q, _, x in ab if q == p) for p in ("auto", "shm")}
+    print(f"shmem: (5) transport A/B in turns {', '.join(f'{p} {x:.3f} rounds/s push_batch {m:.3f} ms' for p, x, m in ab)}"
+          f"; medians shm / auto: {rate['shm'] / rate['auto']:.3f}x rounds/s, push_batch "
+          f"{push['shm'] / push['auto']:.3f}x; {card}")
+    # (2) shard processes; both arms' children spawn side by side (each
+    # imports torch, seconds apiece), then the arms run one after the other
+    pre = {p: proc_driver(p, CLUSTER_PROCS) for p in ("auto", "shm")}
+    t0, spawn_errs = time.perf_counter(), []
+
+    def spawn(d):
+        try:
+            d.start()
+        except BaseException as e:  # re-raised below
+            spawn_errs.append(e)
+
+    starters = [threading.Thread(target=spawn, args=(d,), name=f"shmem-spawn-{p}") for p, (d, _) in pre.items()]
+    for t in starters:
+        t.start()
+    for t in starters:
+        t.join()
+    if spawn_errs:
+        for d, _ in pre.values():
+            d.stop()
+        raise spawn_errs[0]
+    print(f"shmem: (2) {2 * CLUSTER_PROCS} shard processes spawned side by side in "
+          f"{time.perf_counter() - t0:.2f} s; {card}")
+    pt, _, _ = run(f"(2) {CLUSTER_PROCS} shard processes, 1 worker, auto", "auto", procs=pre["auto"],
+                   num_shards=CLUSTER_PROCS, num_workers=1)
+    ps, _, info = run(f"(2) {CLUSTER_PROCS} shard processes, 1 worker, shm", "shm", procs=pre["shm"],
+                      num_shards=CLUSTER_PROCS, num_workers=1)
+    check(info["advertised"] == [True] * CLUSTER_PROCS, f"shmem: (2) the children advertised {info['advertised']}")
+    check([s["backend"] for s in ps.shard_stats] == ["numpy"] * CLUSTER_PROCS,
+          "shmem: (2) the shard processes do not run the numpy slice")
+    bitwise("(2) the shard processes' shm table and their TCP table", ps.values, pt.values)
+    # (3) a fault-free proxy in front of shard 0
+    px, counts, info = run(f"(3) {bsp}, shm, shard 0 behind a ChaosProxy", "shm", proxied=True, **agg)
+    refused = counts.get("fallback hello-refused", 0)
+    others = [w for cc_wire, w in zip(info["proxied"], info["wires"]) if not cc_wire]
+    print(f"shmem: (3) the proxied connections rode {info['proxied_wires']}; hello-refused {refused}, the proxy's "
+          f"downgrades {info['downgrades']}; the other {len(others)} connections rode {sorted(set(others))}; {card}")
+    check(info["proxied_wires"] and set(info["proxied_wires"]) == {"tcp"},
+          f"shmem: (3) a proxied connection rode {info['proxied_wires']}")
+    check(refused == info["downgrades"] == len(info["proxied_wires"]),
+          f"shmem: (3) hello-refused {refused}, downgrades {info['downgrades']}, dials "
+          f"{len(info['proxied_wires'])}: not one a dial through the proxy")
+    check(others and set(others) == {"shm"}, f"shmem: (3) an unproxied connection left shm: {others}")
+    check(set(counts) <= {"fallback hello-refused", "borrows", "borrow_spills"},
+          f"shmem: (3) fallbacks besides the proxy's: {counts}")
+    bitwise("(3) the proxied shm table and the TCP table", px.values, tcp)
+    # (4) the hot cache over shm
+    items = np.concatenate([b["item"] for b in stream]).astype(np.int64)
+    hot = np.lexsort((np.arange(NUM_ITEMS), -np.bincount(items, minlength=NUM_ITEMS)))[:SHMEM_HOT]
+    ssp = dict(staleness_bound=SHMEM_BOUND, hot_cache=True, **agg)
+    what = f"socket range SSP {SHMEM_BOUND} {CLUSTER_SHARDS}x{CLUSTER_WORKERS} push_aggregate hot_cache"
+    ht, _, hinfo_t = run(f"(4) {what}, auto", "auto", hot_set=hot, **ssp)
+    hs, _, hinfo_s = run(f"(4) {what}, shm", "shm", hot_set=hot, **ssp)
+    print(f"shmem: (4) worker cache hits TCP {hinfo_t['hits']} shm {hinfo_s['hits']}, fills TCP {hinfo_t['fills']} "
+          f"shm {hinfo_s['fills']}; {card}")
+    bitwise("(4) the hot-cache shm table and its TCP table", hs.values, ht.values)
+    check(hinfo_s["hits"] == hinfo_t["hits"] and hinfo_s["fills"] == hinfo_t["fills"],
+          f"shmem: (4) the caches' hits or fills differ: {hinfo_t} against {hinfo_s}")
+    read_counts("shmem", {})
+    deadline = time.monotonic() + 10
+    segs, names = _shm_leftovers(before)
+    while (segs or names) and time.monotonic() < deadline:
+        time.sleep(0.05)
+        segs, names = _shm_leftovers(before)
+    print(f"shmem: after the phase: ring segments left {segs}, shm threads alive {names}; {card}")
+    check(not segs and not names, f"shmem: left behind: segments {segs}, threads {names}")
+    print(f"shmem: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
 ELASTIC_ROUNDS = 12  # only the run length is cut
 ELASTIC_RESIZE_AT = 4  # cluster_worker_rounds_total at which a resize fires (round 2 of 12)
 ELASTIC_PA = dict(rounds=12, batch=1024, num_items=8192)  # a dense 12,288 x 8,192 float32 X: ~400 MB
@@ -2702,7 +3051,7 @@ HOT_STORM_BOUND = 64  # lease bound in ticks (one tick a request)
 HOT_STORM_K = 4096  # shard sketch slots: ~3x the 1,310-key hot set, as the reference's 128 clear its 40
 HOT_STORM_WARMUP = 5000  # requests before the measured ones: ~14 sketch counts a hot key (min_count 10)
 HOT_STORM_REQUESTS = 1500  # measured requests an arm
-HOT_STORM_ARMS = ("off", "on", "on", "off")
+HOT_STORM_ARMS = ("off", "on")  # one pair: the second pair (~45 s on the card) went to the shmem phase
 HOT_STORM_LINK_MS = 1.0  # the proxied request leg's delay (benchmarks/hotcache_storm.py's link_delay_ms)
 HOT_TRAIN_TIMED = (False, True, True, False)  # hot_cache off / on in turns
 HOT_WITNESS_ROUNDS = 3
@@ -4584,7 +4933,7 @@ def phase_moe_lm(torch, dev):
 
 # ratings a chunk, two chunks: cut from 65,536, at which the per-record
 # Python callbacks took 190 and 100 s a chunk on the card
-HYBRID_CHUNK = 16_384
+HYBRID_CHUNK = 8_192  # the callbacks run ~230 records/s on the card: two chunks take ~70 s
 HYBRID_TOL = dict(rtol=1e-5, atol=1e-6)  # K1's ordered run sums against index_add_'s atomics; atol for sums near 0
 HYBRID_PREFIX = 256  # ratings of the chunk_size=1 run held against the event backend
 
@@ -4593,8 +4942,9 @@ def phase_hybrid(torch, dev, card):
     """The hybrid backend: the event API's ``MFWorkerLogic`` (dim 64, its
     per-record callbacks in Python, user vectors on the card) under
     ``transform_hybrid`` against a ``scatter_impl="pallas"`` store at the MF
-    path's item table (131,072 x 64), two chunks of 16,384 ratings (cut
-    from 65,536: the callbacks took 100-190 s a chunk there): K1 once a
+    path's item table (131,072 x 64), two chunks of 8,192 ratings (cut
+    from 65,536, where the callbacks took 100-190 s a chunk, and then from
+    16,384, where they took 65-75 s): K1 once a
     chunk and no other kernel, and the table within rtol 1e-5 / atol 1e-6
     of the same chunks' pushes folded into the initial table with
     ``index_add_`` on the card.  Then ``chunk_size=1`` over the first 256 ratings against the
@@ -4848,27 +5198,39 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase: {name} {time.perf_counter() - t:.1f} s")
+        return out
+
     try:
-        phase_build()
-        errs = phase_kernels(torch, dev, gen)
-        phase_determinism(torch, dev)
+        phase("build", phase_build)
+        errs = phase("kernels", phase_kernels, torch, dev, gen)
+        phase("determinism", phase_determinism, torch, dev)
         card = card_line()
-        phase_driver(torch, dev, card)
-        phase_serving(torch, dev, card)
-        wl_rows, wl_traces = phase_workloads(torch, dev, card)
-        phase_cluster(torch, dev, card)
-        phase_elastic(torch, dev, card)
-        phase_replication(torch, dev, card)
-        phase_telemetry(torch, dev, card)
-        phase_hotcache(torch, dev, card)
-        phase_adaptive(torch, dev, card)
-        phase_tierstore(torch, dev, card)
-        phase_nemesis(torch, dev, card)
-        launches = phase_main(torch, dev)
-        rows = phase_timing(torch, dev, gen, launches, errs) + wl_rows
-        for trace in wl_traces:  # after every counted run, as the MF traces are
-            trace()
-        phase_driver_trace(torch, dev)
+        phase("driver", phase_driver, torch, dev, card)
+        phase("serving", phase_serving, torch, dev, card)
+        wl_rows, wl_traces = phase("workloads", phase_workloads, torch, dev, card)
+        phase("cluster", phase_cluster, torch, dev, card)
+        phase("shmem", phase_shmem, torch, dev, card)
+        phase("elastic", phase_elastic, torch, dev, card)
+        phase("replication", phase_replication, torch, dev, card)
+        phase("telemetry", phase_telemetry, torch, dev, card)
+        phase("hotcache", phase_hotcache, torch, dev, card)
+        phase("adaptive", phase_adaptive, torch, dev, card)
+        phase("tierstore", phase_tierstore, torch, dev, card)
+        phase("nemesis", phase_nemesis, torch, dev, card)
+        launches = phase("main (MF, LM, MoE LM, hybrid, MF traces)", phase_main, torch, dev)
+        rows = phase("timing", phase_timing, torch, dev, gen, launches, errs) + wl_rows
+
+        def traces():
+            for trace in wl_traces:  # after every counted run, as the MF traces are
+                trace()
+
+        phase("workload traces", traces)
+        phase("driver trace", phase_driver_trace, torch, dev)
     except (SmokeFailure, RuntimeError, ValueError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

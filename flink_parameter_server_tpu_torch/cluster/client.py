@@ -14,7 +14,8 @@ rows, as the wire's are) and the adaptive runtime's push hedging
 budgeted backup only when it carries a ``pid``, so the shard's exactly-once
 window absorbs the losing leg).  ``retry_budget`` (the soak harness's
 token bucket) raises ``NotImplementedError`` until the rest of loadgen/ is
-ported (ROADMAP Queue 1 #7), and ``wire_proto="shm"`` until shmem/ (#7f).
+ported (ROADMAP Queue 1 #7).  ``wire_proto="shm"`` dials co-located shards
+over a shared-memory ring pair (``shmem/channel.ShmShardConnection``).
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
 real shard sockets, plus the batch surface the compiled path uses.
@@ -618,12 +619,6 @@ class ClusterClient(ParameterServerClient):
             raise ValueError(
                 f"wire_proto={wire_proto!r}: 'auto' | 'line' | 'shm'"
             )
-        if wire_proto == "shm":
-            raise NotImplementedError(
-                "wire_proto='shm': the shared-memory transport (shmem/) "
-                "is not ported yet (ROADMAP Queue 1 #7, shmem); use "
-                "'auto' (binary TCP) or 'line'"
-            )
         self.membership = membership
         self.hedge = hedge
         # write-side hedging is only safe when pushes carry a pid (the
@@ -642,7 +637,11 @@ class ClusterClient(ParameterServerClient):
         # round trip at dial time; an old server's err bad-request
         # downgrades that connection to the line protocol).  "line":
         # never negotiate — bit-for-bit the pre-binary client, the
-        # compat baseline the cross-version tests pin.
+        # compat baseline the cross-version tests pin.  "shm": attempt
+        # the shared-memory hello against co-located shards (shmem/),
+        # falling back per connection to binary TCP (then lines) for
+        # non-local peers, old servers, or a proxied path — each
+        # fallback counted in shmem_fallbacks_total.
         self._wire_proto = wire_proto
         # spawn grace (cluster/procs.py): a just-spawned shard process
         # may not have bound yet when its first dial arrives — retry
@@ -850,7 +849,8 @@ class ClusterClient(ParameterServerClient):
     # -- connections / membership -------------------------------------------
     def _dial(self, addr: Tuple[str, int]) -> ShardConnection:
         """Dial one shard (negotiating the binary framing when
-        ``wire_proto="auto"``).  A REFUSED dial inside the spawn grace
+        ``wire_proto="auto"``, the shared-memory rings first when
+        ``"shm"``).  A REFUSED dial inside the spawn grace
         window is retried with short sleeps: a shard process that was
         just spawned races its own ``bind`` against the first dial,
         and that race is liveness, not a failure."""
@@ -858,13 +858,38 @@ class ClusterClient(ParameterServerClient):
             time.monotonic() + self._spawn_grace_s
             if self._spawn_grace_s > 0 else None
         )
+        use_shm = False
+        if self._wire_proto == "shm":
+            # shared memory only reaches co-located peers; a remote
+            # address is a not-local fallback before any segment exists
+            from ..shmem.channel import shm_usable
+
+            use_shm = shm_usable(addr[0])
+            if not use_shm:
+                from ..shmem.metrics import count_fallback
+
+                count_fallback(
+                    "not-local",
+                    registry=self._reg if self._reg is not None else False,
+                )
         while True:
             try:
+                if use_shm:
+                    from ..shmem.channel import ShmShardConnection
+
+                    return ShmShardConnection(
+                        addr[0], addr[1], window=self._window,
+                        timeout=self._timeout,
+                        connect_timeout=self._connect_timeout,
+                        registry=(
+                            self._reg if self._reg is not None else False
+                        ),
+                    )
                 return ShardConnection(
                     addr[0], addr[1], window=self._window,
                     timeout=self._timeout,
                     connect_timeout=self._connect_timeout,
-                    negotiate=self._wire_proto == "auto",
+                    negotiate=self._wire_proto in ("auto", "shm"),
                 )
             except ConnectionRefusedError:
                 if deadline is None or time.monotonic() >= deadline:
@@ -1540,7 +1565,7 @@ class ClusterClient(ParameterServerClient):
         reject_reason = "reject"
 
         def build(conn) -> List:
-            if conn.proto != "line":
+            if conn.proto != "line":  # bin or shm: same frames
                 enc = self._bin_enc()
                 tlvs = self._bin_tlvs(tok)
                 lease_tlvs = [
@@ -1656,7 +1681,7 @@ class ClusterClient(ParameterServerClient):
             (raw i8 ids + fp32/bf16 rows, options as TLVs) on a
             negotiated connection, text lines otherwise."""
             t_ser = time.perf_counter()
-            if conn.proto != "line":
+            if conn.proto != "line":  # bin or shm: same frames
                 enc = self._bin_enc()
                 tlvs = self._bin_tlvs(tok)
                 reqs = [
@@ -1743,7 +1768,7 @@ class ClusterClient(ParameterServerClient):
 
         def build(conn) -> List:
             t_ser = time.perf_counter()
-            if conn.proto != "line":
+            if conn.proto != "line":  # bin or shm: same frames
                 tlvs = self._bin_tlvs(tok, pid)
                 if q_rows is not None and "q8" in conn.encs:
                     # the quantized push path: int8 rows + a T_SCALE

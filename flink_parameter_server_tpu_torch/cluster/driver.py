@@ -14,9 +14,10 @@ as the wire's are; ``hotcache/``).  ``adaptive=True`` builds an
 :class:`~..adaptive.bounds.AdaptiveClock` and honours ``work_router``
 (``adaptive/``); ``store_backend="tiered"`` is the socket topology with
 each shard's slice on the two-tier store, its hot tier on ``device``
-(``tierstore/``).  ``wire_proto="shm"`` raises ``NotImplementedError``
-until the shared-memory transport (shmem/, ROADMAP Queue 1 #7f) is
-ported.  The elastic driver
+(``tierstore/``).  ``wire_proto="shm"`` moves every co-located client
+connection onto a shared-memory ring pair (``shmem/``; host bytes, as
+every wire's are), falling back per connection to binary TCP.  The
+elastic driver
 (``elastic/controller.py``) subclasses this one and reuses
 :meth:`ClusterDriver._build_shard` for its spin-ups and replacements.
 
@@ -325,11 +326,6 @@ class ClusterDriver:
                     f"row-block sharded, and only contiguous ranges "
                     f"can align to it (meshstore/layout.py)"
                 )
-        if cfg.wire_proto == "shm":
-            raise NotImplementedError(
-                "ClusterConfig wire_proto='shm': shmem/ is not ported yet "
-                "(ROADMAP Queue 1 #7)"
-            )
         if partitioner is not None:
             self.partitioner = partitioner
         elif cfg.partition == "range":

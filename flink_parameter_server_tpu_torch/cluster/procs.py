@@ -146,6 +146,11 @@ class ShardProcSpec:
     supervised: bool = True
     host: str = "127.0.0.1"
     max_line_bytes: int = 64 << 20
+    # advertise the shared-memory transport (shmem/): a co-located
+    # client's "hello shm" hands the data plane to a ring pair — the
+    # proc-shard case is exactly what shm exists for (same host,
+    # different interpreters, no kernel socket between them)
+    shm: bool = True
 
 
 def _build_partitioner(spec: dict):
@@ -195,6 +200,7 @@ def _shard_proc_main(spec: dict, pipe) -> None:
             shard, spec["host"], 0,
             supervised=spec["supervised"],
             max_line_bytes=spec["max_line_bytes"],
+            enable_shm=bool(spec.get("shm", True)),
         ).start()
     except Exception as e:  # noqa: BLE001 — reported to the parent
         try:
@@ -203,7 +209,11 @@ def _shard_proc_main(spec: dict, pipe) -> None:
             pass
         return
     try:
-        pipe.send(("ready", server.host, server.port))
+        # 4th element advertises shm willingness (older parents index
+        # only [1]/[2]; newer parents read it defensively)
+        pipe.send(
+            ("ready", server.host, server.port, bool(server.shm_enabled))
+        )
         while True:
             if pipe.poll(0.25):
                 msg = pipe.recv()
@@ -243,6 +253,7 @@ class ShardProcess:
         child.close()
         self.host: Optional[str] = None
         self.port: Optional[int] = None
+        self.shm = False  # set from the ready message (wait_ready)
 
     def wait_ready(self, timeout: float = 60.0) -> "ShardProcess":
         """Block until the child reports its bound address (or died
@@ -271,6 +282,8 @@ class ShardProcess:
                 f"shard {self.spec.shard_id} process failed: {msg[1]}"
             )
         self.host, self.port = msg[1], int(msg[2])
+        # shm advertisement (absent from pre-shmem children)
+        self.shm = bool(msg[3]) if len(msg) > 3 else False
         return self
 
     @property

@@ -1322,11 +1322,16 @@ class ShardServer(LineServer):
         tracer=None,
         profiler=None,
         overload=None,
+        enable_shm: bool = True,
     ):
         super().__init__(
             host, port, name=f"shard-{shard.shard_id}",
             max_line_bytes=max_line_bytes,
         )
+        # accept "hello shm v=1" (shmem/): co-located clients hand the
+        # data plane to a shared-memory ring pair; False answers the
+        # downgrade err and every client falls back to binary TCP
+        self.shm_enabled = bool(enable_shm)
         self.shard = shard
         self.supervised = supervised
         # overload-plane admission (loadgen/overload.OverloadGuard):
@@ -1514,8 +1519,9 @@ class ShardServer(LineServer):
                 # clients check the "ok proto=bin" prefix only, new
                 # clients downgrade unadvertised encodings to f32
                 return binf.hello_ok_line()
-            # "hello shm" (shmem/, not ported yet) gets the err answer
-            # that keeps a client on binary TCP
+            # "hello shm" lands here only when shm is DISABLED (the
+            # enabled path is intercepted in LineServer._serve_one) —
+            # the err answer is what drives the client's TCP fallback
             raise ValueError(
                 f"unknown protocol {' '.join(toks[1:])!r} (try: bin)"
             )
@@ -1646,9 +1652,13 @@ class ShardServer(LineServer):
             return f"ok pushes={f['pushes']} wal_records={f['wal_records']}"
         if cmd == "stats":
             return "ok " + json.dumps(self.shard.stats())
+        if cmd == "conns":
+            # psctl debug verb: the live per-connection wire ledger
+            # (utils/net.py ConnStats) of THIS shard's front end
+            return "ok " + json.dumps(self.conn_table())
         raise ValueError(
-            f"unknown command {cmd!r} "
-            f"(pull|push|lease|revoke|xfer|load|repl|replstate|flush|stats)"
+            f"unknown command {cmd!r} (pull|push|lease|revoke|xfer|load"
+            f"|repl|replstate|flush|stats|conns)"
         )
 
     # -- the binary frame protocol (utils/frames.py) -------------------------
@@ -1902,6 +1912,11 @@ class ShardServer(LineServer):
             return binf.encode_response(
                 verb, enc=binf.ENC_RAW,
                 payload=json.dumps(shard.stats()).encode(),
+            )
+        if verb == binf.VERB_IDS["conns"]:
+            return binf.encode_response(
+                verb, enc=binf.ENC_RAW,
+                payload=json.dumps(self.conn_table()).encode(),
             )
         raise ValueError(f"unknown verb id {verb}")
 

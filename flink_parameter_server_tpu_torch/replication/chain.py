@@ -189,11 +189,20 @@ class ChainManager:
                 connect_timeout=self._connect_timeout,
                 timeout=self._request_timeout,
                 enc=self.repl_enc,
-            ).start()
+            )
             followers.append(f)
             servers.append(srv)
             shippers.append(ship)
+        # the sink goes on BEFORE any shipper runs: a shipper's first
+        # act is its bootstrap resync (a read of the primary's WAL), and
+        # a push logged between that read and the attach would reach
+        # neither the backlog nor the queue -- a gap the follower's log
+        # accepts and a later promotion loses.  Attached first, every
+        # record is in the backlog, the queue, or both (deduplicated by
+        # end seq).
         primary.attach_repl_sink(hub)
+        for ship in shippers:
+            ship.start()
         chain = ReplicaChain(shard_id, hub, followers, servers, shippers)
         with self._lock:
             self.chains[shard_id] = chain

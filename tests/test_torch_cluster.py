@@ -279,8 +279,13 @@ def test_shard_backends_and_knobs_that_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ParamShard(0, part, (2,), registry=False)  # the default is the card
-    with pytest.raises(NotImplementedError, match="shmem"):
-        ClusterClient([("127.0.0.1", 1)], part, (2,), wire_proto="shm", registry=False)
+    # wire_proto="shm" builds (it dials lazily); a refused dial surfaces
+    # as over TCP, the rings never created
+    c = ClusterClient([("127.0.0.1", 1)], part, (2,), wire_proto="shm", registry=False)
+    with pytest.raises(ConnectionRefusedError):
+        c.pull_batch(np.arange(2))
+    assert c._conns == {}
+    c.close()
 
 
 # ---------------------------------------------------------------------------
@@ -346,10 +351,11 @@ def test_driver_defaults_to_the_card_and_knobs_that_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ClusterDriver(_logic(nu, dim), capacity=ni, value_shape=(dim,), registry=False)
-    # the shared-memory transport still raises naming its item
-    with pytest.raises(NotImplementedError, match="shmem") as e:
-        _cluster(nu, ni, dim, init, wire_proto="shm")
-    assert "Queue 1 #7" in str(e.value)
+    # wire_proto="shm" builds a driver whose connections ride the rings
+    with _cluster(nu, ni, dim, init, num_shards=2, wire_proto="shm") as d:
+        d.run(batches)
+        conns = [cc for c in d._clients for cc in c._conns.values()]
+        assert conns and all(cc.proto == "shm" and cc.wire == "shm" for cc in conns)
     # adaptive=True builds the adaptive clock (default ceiling 2*bound+1);
     # store_backend="tiered" puts every shard's hot tier on the driver's device
     with _cluster(nu, ni, dim, init, adaptive=True, staleness_bound=2, num_workers=2) as d:
@@ -644,8 +650,11 @@ class TestWire:
                                # repl frame that is no WAL record (and, to
                                # a primary, any repl frame)
                                "lease 0 b64", "revoke all",
-                               "repl AAAA", "conns"])
+                               "repl AAAA"])
         assert all(r.startswith("err bad-request") for r in resps), resps
+        # conns came back with shmem/: this connection's own ledger row
+        (conns,) = request_lines(server.host, server.port, ["conns"])
+        assert conns.startswith("ok ") and json.loads(conns[3:])[0]["wire"] == "tcp", conns
         # lease / revoke came back with hotcache/ (tests/test_torch_hotcache.py)
         lease, revoke = request_lines(server.host, server.port,
                                       ["lease 0 b64 sess=s1", "revoke all sess=s1"])

@@ -119,6 +119,13 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.nemesis.proxy",
             "flink_parameter_server_tpu_torch.nemesis.scenarios",
             "flink_parameter_server_tpu_torch.nemesis.runner"} <= set(modules)
+    # the shared-memory transport
+    assert {"flink_parameter_server_tpu_torch.shmem",
+            "flink_parameter_server_tpu_torch.shmem.ring",
+            "flink_parameter_server_tpu_torch.shmem.doorbell",
+            "flink_parameter_server_tpu_torch.shmem.metrics",
+            "flink_parameter_server_tpu_torch.shmem.pump",
+            "flink_parameter_server_tpu_torch.shmem.channel"} <= set(modules)
 
 
 def test_adaptive_and_tierstore_alone_load_no_jax():

@@ -28,7 +28,8 @@ evictions, a card-backed tiered shard bitwise a card-backed torch shard;
 ``drain_shard`` over card slices bitwise.  The nemesis runner on the card:
 the ``mid_frame_rst_push`` schedule's verdict table (names, order, ``ok``),
 fault classes and executed ops equal the CPU run's, every shard slice a
-CUDA tensor.
+CUDA tensor.  The shared-memory transport on the card: a thread-shard
+cluster over shm bitwise its binary-TCP run, every connection on shm.
 """
 import numpy as np
 import pytest
@@ -1165,3 +1166,54 @@ def test_nemesis_scenario_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatc
     assert set(card.faults) == set(cpu.faults) and card.ops_executed == cpu.ops_executed == 2
     assert card_slices and set(card_slices) == {"cuda"}
     assert slices and set(slices) == {"cpu"}
+
+
+def test_shm_cluster_on_card_is_bitwise_its_tcp_run(cuda):
+    """A 2-shard BSP run with 2 workers and ``push_aggregate`` (one merged
+    push a round, so two runs are comparable bit for bit), each slice on
+    the card, over ``wire_proto="shm"`` against ``"auto"``: the tables
+    bitwise, every connection of the shm run (the combiner's too) on
+    shared memory, none of the TCP run's, and no kernel launched."""
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.data.streams import microbatches
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import (
+        OnlineMatrixFactorization,
+        SGDUpdater,
+    )
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    class KeepConns(ClusterDriver):
+        def _make_client(self, worker=None):
+            c = super()._make_client(worker)
+            dial = c._dial
+
+            def keep(addr):
+                conn = dial(addr)
+                self.dialed.append(conn)
+                return conn
+
+            c._dial = keep
+            return c
+
+    nu, ni, dim = 2000, 3000, 32
+    batches = list(microbatches(synthetic_ratings(nu, ni, 8 * 1024, seed=3), 1024))
+    wrappers = (scatter_kernel.sorted_scatter_add, mf_kernel.sorted_fused_mf_sgd,
+                fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [fn.launches for fn in wrappers]
+    tables, wires = {}, {}
+    for proto in ("auto", "shm"):
+        logic = OnlineMatrixFactorization(nu, dim, updater=SGDUpdater(0.05), seed=1, device=cuda)
+        driver = KeepConns(logic, capacity=ni, value_shape=(dim,), init_fn=ranged_random_factor(7, (dim,)),
+                           config=ClusterConfig(num_shards=2, num_workers=2, push_aggregate=True,
+                                                wire_proto=proto),
+                           registry=False, device=cuda)
+        driver.dialed = []
+        with driver:
+            assert all(s.store.table.device.type == "cuda" for s in driver.shards)
+            tables[proto] = driver.run(batches).values
+        wires[proto] = [getattr(c, "wire", "tcp") for c in driver.dialed]
+    assert [fn.launches for fn in wrappers] == before
+    assert len(wires["shm"]) == 6 and set(wires["shm"]) == {"shm"}, wires
+    assert set(wires["auto"]) == {"tcp"}, wires
+    assert tables["shm"].tobytes() == tables["auto"].tobytes()

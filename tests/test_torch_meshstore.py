@@ -157,8 +157,13 @@ def test_layout_is_one_device_and_a_mesh_raises():
 
 def test_mesh_driver_knobs_that_raise():
     batches, nu, ni, dim = _mf(rounds=1)
-    with pytest.raises(NotImplementedError, match="shmem"):
-        _mesh_driver(nu, ni, dim, wire_proto="shm")
+    # wire_proto="shm" is accepted and moves nothing: the mesh's workers
+    # reach the table through a MeshClient, with no shard wire to carry
+    with _mesh_driver(nu, ni, dim, wire_proto="shm") as d:
+        shm = d.run(batches).values
+        assert all(type(c).__name__ == "MeshClient" for c in d._clients)
+    with _mesh_driver(nu, ni, dim) as d:
+        assert d.run(batches).values.tobytes() == shm.tobytes()
     # the mesh topology builds its clock through _make_clock too, so
     # adaptive=True gives it the adaptive clock, as the reference's does
     with _mesh_driver(nu, ni, dim, adaptive=True) as d:

@@ -338,6 +338,54 @@ class TestShipping:
             psrv.stop(); fsrv.stop()
             primary.close(); follower.close()
 
+    def test_chain_built_on_a_live_primary_misses_no_push(self, tmp_path):
+        """A chain (re)built while pushes land -- a resize re-seeds every
+        chain mid-run -- loses none of them: a push logged right after
+        the shipper's bootstrap read of the WAL still reaches the
+        follower, whose table is then bitwise the primary's.  The
+        primary's sink is attached before any shipper starts; attached
+        after, that push fell between the backlog and the queue, and a
+        later promotion lost it (``sketch_full_stack`` lost one 512-row
+        chunk that way)."""
+        batches, init, nu, ni, dim = _mf_fixture()
+        driver = ReplicatedClusterDriver(
+            _logic(nu, dim), capacity=ni, value_shape=(dim,), init_fn=init,
+            config=ReplicatedClusterConfig(
+                num_shards=1, num_workers=1, wal_dir=str(tmp_path / "wal"),
+                replication_factor=1,
+            ),
+            registry=False, device=CPU,
+        )
+        driver.start()
+        try:
+            primary = driver.shards[0]
+            primary.push(np.array([1, 2]), np.ones((2, dim), np.float32))
+            driver.chains.detach_chain(0)
+            read_backlog, attach = primary.repl_backlog, primary.attach_repl_sink
+            pushed = threading.Event()
+
+            def backlog_then_push(after_seq):
+                recs = read_backlog(after_seq)
+                if not pushed.is_set():  # a worker's push, right after the read
+                    primary.push(np.array([3, 4]), np.full((2, dim), 2.0, np.float32))
+                    pushed.set()
+                return recs
+
+            def attach_late(sink):
+                pushed.wait(0.5)  # a shipper already running reads first
+                attach(sink)
+
+            primary.repl_backlog, primary.attach_repl_sink = backlog_then_push, attach_late
+            chain = driver.chains.build_chain(0)
+            assert pushed.wait(10)
+            primary.push(np.array([5]), np.full((1, dim), 3.0, np.float32))
+            follower = chain.followers[0]
+            _wait_for(lambda: follower.repl_state()["applied"] == primary.head_seq() == 3,
+                      msg="follower at the primary's head")
+            assert np.array_equal(follower.values(), primary.values())
+        finally:
+            driver.stop()
+
 
 # ---------------------------------------------------------------------------
 # client read routing across the chain
