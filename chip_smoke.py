@@ -8,7 +8,8 @@ the hot-key lease cache with ``/metrics``, the run report and the lock
 witness live, steered around a lagged worker by the adaptive runtime,
 kept in the two-tier store with its hot tier on the card, and put through
 the nemesis fault-injection harness's corpus, shrinker and full-width
-schedules), the registered
+schedules, fed by the native loader and a reconnecting socket, and held
+under an open-loop soak at twice its capacity), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -277,6 +278,24 @@ line each; any failure exits non-zero before the last line:
              rounds each, every invariant passing, each oracle finite.
              ``nemesis:`` lines give each run's verdicts, faults, rounds,
              seconds and rounds/s.  No kernel.
+  loadgen    the record sources and the open-loop soak: MF at the main
+             path's full width (``scatter_impl="pallas"``) over its first
+             two 65,536-rating microbatches written to a MovieLens file,
+             fed by the native loader (built with g++ under build/native/,
+             its columns and the tables bitwise the in-memory feed's) and,
+             through ``StreamingDriver``, by ``socket_text_stream`` from a
+             ``ChaosLineServer`` that resets the connection every 50,000
+             lines (reconnects, every record once, the tables bitwise); K1
+             twice in each source-fed run, and those 4 launches join the
+             kernels line's K1 count.  Then ``benchmarks/soak_capacity.py``'s
+             headline (2 shards x replication 1, the MF workload at
+             131,072 x 64, 100,000 users): ``closed_loop_capacity`` and the
+             control-on arm at twice that capacity for 15 s over the
+             nemesis schedule (every verdict, the ledger balanced, no
+             error, a promote).  ``loadgen:`` lines give records/s of each
+             feed, the capacity with its closed p50/p99, goodput, its share
+             of capacity, admitted p50/p99, sheds, lates, budget
+             exhaustions, breaker opens and brownouts.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -302,7 +321,7 @@ line each; any failure exits non-zero before the last line:
              the step.  Then the hybrid backend: the event API's
              ``MFWorkerLogic`` under ``transform_hybrid`` against a
              ``scatter_impl="pallas"`` store of 131,072 x 64, two chunks of
-             8,192 ratings (cut from 65,536 for the callbacks' time; K1 once
+             4,096 ratings (cut from 65,536 for the callbacks' time; K1 once
              a chunk, the table within rtol 1e-5 / atol 1e-6 of
              ``index_add_`` of the same pushes), and ``chunk_size=1`` over
              256 ratings against the event backend (atol 1e-5).  Their
@@ -319,6 +338,7 @@ The line before the last is the card's name and power limit, the last is
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -471,9 +491,9 @@ def _driver_parts(torch, dev, **cfg):
     return logic, store, StreamingDriver(logic, store, config=DriverConfig(dump_model=False, **cfg))
 
 
-def _same(torch, what, a, b):
+def _same(torch, what, a, b, phase="driver"):
     equal = bool(torch.equal(a, b))
-    print(f"driver: {what}: bitwise equal: {'yes' if equal else 'NO'}, "
+    print(f"{phase}: {what}: bitwise equal: {'yes' if equal else 'NO'}, "
           f"largest difference {float((a.double() - b.double()).abs().max()):.3e}")
     check(equal, f"{what} differ")
 
@@ -4139,6 +4159,29 @@ NEMESIS_FULL_ROUNDS = 12  # every op of the three full-width schedules sits at r
 NEMESIS_SHRINK_RUNS = 24  # shrink()'s run budget
 
 
+@contextlib.contextmanager
+def _proxied_slices():
+    """While open, records the device type of the slice of every shard the
+    nemesis mesh builds (``_NemesisMeshMixin._build_shard``: the nemesis
+    runner's drivers and the soak's)."""
+    from flink_parameter_server_tpu_torch.nemesis import runner
+
+    slices = []
+    build_shard = runner._NemesisMeshMixin._build_shard
+
+    def spy(self, shard_id, partitioner=None):
+        shard, server = build_shard(self, shard_id, partitioner)
+        table = getattr(shard.store, "table", None)
+        slices.append((table if table is not None else shard.store._hot).device.type)
+        return shard, server
+
+    runner._NemesisMeshMixin._build_shard = spy
+    try:
+        yield slices
+    finally:
+        runner._NemesisMeshMixin._build_shard = build_shard
+
+
 def _nemesis_line(r) -> str:
     verdicts = " ".join(f"{v.name}={'ok' if v.ok else 'FAIL'}" for v in r.verdicts)
     return (f"{r.scenario.name}: ok {r.ok} (expect {r.scenario.expect}), ops {r.ops_executed}/"
@@ -4180,104 +4223,300 @@ def phase_nemesis(torch, dev, card):
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="nemesis-", dir=os.path.join(REPO, "build"))
-    slices = []
-    build_shard = runner._NemesisMeshMixin._build_shard
-
-    def spy(self, shard_id, partitioner=None):  # where each proxied shard's slice lives
-        shard, server = build_shard(self, shard_id, partitioner)
-        table = getattr(shard.store, "table", None)
-        slices.append((table if table is not None else shard.store._hot).device.type)
-        return shard, server
-
-    runner._NemesisMeshMixin._build_shard = spy
-    try:
-        # ---- (a) the corpus battery -------------------------------------
-        corpus = runner.load_corpus()
-        artifacts = os.path.join(tmp, "artifacts")
-        zero_counts()
-        t0 = time.perf_counter()
-        reports = [runner.run_scenario(s, wal_root=tmp, artifact_dir=artifacts, device=dev,
-                                       witness=s.name == NEMESIS_WITNESSED) for s in corpus]
-        battery_s = time.perf_counter() - t0
-        read_counts("nemesis: the corpus battery", {})
-        for r in reports:
-            print(f"nemesis: (a) {_nemesis_line(r)}")
-        by_name = {r.scenario.name: r for r in reports}
-        passing = [r for r in reports if r.scenario.expect == "pass"]
-        check(len(reports) == 15 and len(passing) >= 8, f"nemesis: {len(reports)} schedules, {len(passing)} passing")
-        bad = [(r.scenario.name, [(v.name, v.detail) for v in r.verdicts if not v.ok]) for r in passing if not r.ok]
-        check(not bad, f"nemesis: scenarios failed on the card: {bad}")
-        for name in NEMESIS_ANCHORS:
-            r = by_name[name]
-            check(r.ok and r.ops_executed == len(r.scenario.ops),
-                  f"nemesis: anchor {name} ran {r.ops_executed} of {len(r.scenario.ops)} ops")
-        classes = set().union(*(r.faults for r in reports))
-        check(NEMESIS_CLASSES <= classes, f"nemesis: fault classes never injected: {NEMESIS_CLASSES - classes}")
-        witnessed = [r for r in reports if any(v.name == "no_lock_inversions" for v in r.verdicts)]
-        check([r.scenario.name for r in witnessed] == [NEMESIS_WITNESSED] and witnessed[0].ok,
-              "nemesis: the witnessed scenario is missing or saw an inversion")
-        v = by_name["seeded_corruption"]
-        check(not v.ok and [x.name for x in v.verdicts if not x.ok] == ["final_table_parity"],
-              f"nemesis: the seeded corruption's failing verdicts {[x.name for x in v.verdicts if not x.ok]}")
-        sched = [a for a in v.artifacts if "schedule" in a]
-        frec = [a for a in v.artifacts if "flightrec" in a]
-        check(bool(sched and frec), f"nemesis: the seeded corruption left artifacts {v.artifacts}")
-        with open(sched[0]) as f:
-            check(json.loads(f.read())["name"] == "seeded_corruption", "nemesis: the schedule artifact's name")
-        with open(frec[0]) as f:
-            lint = check_flightrec(json.load(f))
-        check(lint == [], f"nemesis: the flight-recorder artifact fails check_flightrec: {lint}")
-        check(bool(slices) and set(slices) == {dev.type}, f"nemesis: proxied slices on {sorted(set(slices))}")
-        print(f"nemesis: (a) the corpus battery: {len(passing)} passing scenarios all ok, the seeded corruption "
-              f"caught by final_table_parity alone with its schedule and flight-recorder artifacts (check_flightrec "
-              f"clean), fault classes {sorted(classes)}, {len(slices)} proxied shard slices all on {dev.type}, in "
-              f"{battery_s:.1f} s; {card}")
-
-        # ---- (b) the shrinker -------------------------------------------
-        zero_counts()
-        t0 = time.perf_counter()
-        mini, runs = runner.shrink(
-            VIOLATION_SCENARIO, lambda s: not runner.run_scenario(s, wal_root=tmp, device=dev).ok,
-            max_runs=NEMESIS_SHRINK_RUNS)
-        shrink_s = time.perf_counter() - t0
-        read_counts("nemesis: the shrinker", {})
-        with open(os.path.join(runner.CORPUS_DIR, "seeded_corruption.json")) as f:
-            committed = f.read()
-        check(runs <= NEMESIS_SHRINK_RUNS and [o.action for o in mini.ops] == ["corrupt_row"],
-              f"nemesis: shrink left {[o.action for o in mini.ops]} after {runs} runs")
-        check(mini.to_json() + "\n" == committed, "nemesis: the shrunk schedule differs from seeded_corruption.json")
-        print(f"nemesis: (b) shrink({VIOLATION_SCENARIO.name}): {len(VIOLATION_SCENARIO.ops)} ops -> "
-              f"{[o.action for o in mini.ops]} in {runs} runs, {shrink_s:.1f} s; byte-identical to the committed "
-              f"seeded_corruption.json; {card}")
-
-        # ---- (c) full width ---------------------------------------------
-        by_name = {s.name: s for s in corpus}
-        full = [dataclasses.replace(by_name[n], num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED,
-                                    batch=BATCH, rounds=NEMESIS_FULL_ROUNDS) for n in NEMESIS_MF_FULL]
-        full.append(dataclasses.replace(by_name["sketch_full_stack"], **ELASTIC_SKETCH))
-        for s in full:
-            check(max(op.at_round for op in s.ops) < s.rounds, f"nemesis: {s.name}: an op past the run's end")
-            t0 = time.perf_counter()
-            oracle = runner.oracle_values(s, dev)
-            oracle_s = time.perf_counter() - t0
-            check(bool(np.isfinite(oracle).all()), f"nemesis: {s.name}: the oracle's table is not finite")
-            del slices[:]
+    with _proxied_slices() as slices:
+        try:
+            # ---- (a) the corpus battery -------------------------------------
+            corpus = runner.load_corpus()
+            artifacts = os.path.join(tmp, "artifacts")
             zero_counts()
-            r = runner.run_scenario(s, wal_root=tmp, device=dev)
-            read_counts(f"nemesis: {s.name} at full width", {})
-            print(f"nemesis: (c) {s.workload}, table {oracle.shape}, {s.batch:,} a round: {_nemesis_line(r)}; "
-                  f"{r.rounds / r.wall_s:.3f} rounds/s over the run's wall time; oracle on {dev.type} in "
-                  f"{oracle_s:.1f} s, its largest |value| {float(np.abs(oracle).max()):.6g}; {card}")
-            bad = [(x.name, x.detail) for x in r.verdicts if not x.ok]
-            check(r.ok and not bad, f"nemesis: {s.name} at full width: {bad}")
-            check(r.ops_executed == len(s.ops) and r.rounds == s.rounds,
-                  f"nemesis: {s.name}: {r.ops_executed} of {len(s.ops)} ops, {r.rounds} of {s.rounds} rounds")
-            check(bool(slices) and set(slices) == {dev.type}, f"nemesis: {s.name}: slices on {sorted(set(slices))}")
-            del oracle
-    finally:
-        runner._NemesisMeshMixin._build_shard = build_shard
-        shutil.rmtree(tmp, ignore_errors=True)
+            t0 = time.perf_counter()
+            reports = [runner.run_scenario(s, wal_root=tmp, artifact_dir=artifacts, device=dev,
+                                           witness=s.name == NEMESIS_WITNESSED) for s in corpus]
+            battery_s = time.perf_counter() - t0
+            read_counts("nemesis: the corpus battery", {})
+            for r in reports:
+                print(f"nemesis: (a) {_nemesis_line(r)}")
+            by_name = {r.scenario.name: r for r in reports}
+            passing = [r for r in reports if r.scenario.expect == "pass"]
+            check(len(reports) == 15 and len(passing) >= 8, f"nemesis: {len(reports)} schedules, {len(passing)} passing")
+            bad = [(r.scenario.name, [(v.name, v.detail) for v in r.verdicts if not v.ok]) for r in passing if not r.ok]
+            check(not bad, f"nemesis: scenarios failed on the card: {bad}")
+            for name in NEMESIS_ANCHORS:
+                r = by_name[name]
+                check(r.ok and r.ops_executed == len(r.scenario.ops),
+                      f"nemesis: anchor {name} ran {r.ops_executed} of {len(r.scenario.ops)} ops")
+            classes = set().union(*(r.faults for r in reports))
+            check(NEMESIS_CLASSES <= classes, f"nemesis: fault classes never injected: {NEMESIS_CLASSES - classes}")
+            witnessed = [r for r in reports if any(v.name == "no_lock_inversions" for v in r.verdicts)]
+            check([r.scenario.name for r in witnessed] == [NEMESIS_WITNESSED] and witnessed[0].ok,
+                  "nemesis: the witnessed scenario is missing or saw an inversion")
+            v = by_name["seeded_corruption"]
+            check(not v.ok and [x.name for x in v.verdicts if not x.ok] == ["final_table_parity"],
+                  f"nemesis: the seeded corruption's failing verdicts {[x.name for x in v.verdicts if not x.ok]}")
+            sched = [a for a in v.artifacts if "schedule" in a]
+            frec = [a for a in v.artifacts if "flightrec" in a]
+            check(bool(sched and frec), f"nemesis: the seeded corruption left artifacts {v.artifacts}")
+            with open(sched[0]) as f:
+                check(json.loads(f.read())["name"] == "seeded_corruption", "nemesis: the schedule artifact's name")
+            with open(frec[0]) as f:
+                lint = check_flightrec(json.load(f))
+            check(lint == [], f"nemesis: the flight-recorder artifact fails check_flightrec: {lint}")
+            check(bool(slices) and set(slices) == {dev.type}, f"nemesis: proxied slices on {sorted(set(slices))}")
+            print(f"nemesis: (a) the corpus battery: {len(passing)} passing scenarios all ok, the seeded corruption "
+                  f"caught by final_table_parity alone with its schedule and flight-recorder artifacts (check_flightrec "
+                  f"clean), fault classes {sorted(classes)}, {len(slices)} proxied shard slices all on {dev.type}, in "
+                  f"{battery_s:.1f} s; {card}")
+
+            # ---- (b) the shrinker -------------------------------------------
+            zero_counts()
+            t0 = time.perf_counter()
+            mini, runs = runner.shrink(
+                VIOLATION_SCENARIO, lambda s: not runner.run_scenario(s, wal_root=tmp, device=dev).ok,
+                max_runs=NEMESIS_SHRINK_RUNS)
+            shrink_s = time.perf_counter() - t0
+            read_counts("nemesis: the shrinker", {})
+            with open(os.path.join(runner.CORPUS_DIR, "seeded_corruption.json")) as f:
+                committed = f.read()
+            check(runs <= NEMESIS_SHRINK_RUNS and [o.action for o in mini.ops] == ["corrupt_row"],
+                  f"nemesis: shrink left {[o.action for o in mini.ops]} after {runs} runs")
+            check(mini.to_json() + "\n" == committed, "nemesis: the shrunk schedule differs from seeded_corruption.json")
+            print(f"nemesis: (b) shrink({VIOLATION_SCENARIO.name}): {len(VIOLATION_SCENARIO.ops)} ops -> "
+                  f"{[o.action for o in mini.ops]} in {runs} runs, {shrink_s:.1f} s; byte-identical to the committed "
+                  f"seeded_corruption.json; {card}")
+
+            # ---- (c) full width ---------------------------------------------
+            by_name = {s.name: s for s in corpus}
+            full = [dataclasses.replace(by_name[n], num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED,
+                                        batch=BATCH, rounds=NEMESIS_FULL_ROUNDS) for n in NEMESIS_MF_FULL]
+            full.append(dataclasses.replace(by_name["sketch_full_stack"], **ELASTIC_SKETCH))
+            for s in full:
+                check(max(op.at_round for op in s.ops) < s.rounds, f"nemesis: {s.name}: an op past the run's end")
+                t0 = time.perf_counter()
+                oracle = runner.oracle_values(s, dev)
+                oracle_s = time.perf_counter() - t0
+                check(bool(np.isfinite(oracle).all()), f"nemesis: {s.name}: the oracle's table is not finite")
+                del slices[:]
+                zero_counts()
+                r = runner.run_scenario(s, wal_root=tmp, device=dev)
+                read_counts(f"nemesis: {s.name} at full width", {})
+                print(f"nemesis: (c) {s.workload}, table {oracle.shape}, {s.batch:,} a round: {_nemesis_line(r)}; "
+                      f"{r.rounds / r.wall_s:.3f} rounds/s over the run's wall time; oracle on {dev.type} in "
+                      f"{oracle_s:.1f} s, its largest |value| {float(np.abs(oracle).max()):.6g}; {card}")
+                bad = [(x.name, x.detail) for x in r.verdicts if not x.ok]
+                check(r.ok and not bad, f"nemesis: {s.name} at full width: {bad}")
+                check(r.ops_executed == len(s.ops) and r.rounds == s.rounds,
+                      f"nemesis: {s.name}: {r.ops_executed} of {len(s.ops)} ops, {r.rounds} of {s.rounds} rounds")
+                check(bool(slices) and set(slices) == {dev.type}, f"nemesis: {s.name}: slices on {sorted(set(slices))}")
+                del oracle
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"nemesis: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+LOADGEN_RECORDS = BATCHES_PER_EPOCH * BATCH  # phase_main's first epoch: two 65,536-rating microbatches
+LOADGEN_DROP_EVERY = 50_000  # the socket producer's RST period: two drops over 131,072 lines
+LOADGEN_ARM_S = 15.0  # the control-on arm's length
+LOADGEN_CALIB = 100  # closed-loop requests a generator in the calibration
+LOADGEN_SHARDS = 2  # benchmarks/soak_capacity.py's headline topology: 2 shards x replication factor 1
+# benchmarks/soak_capacity.py's _base_config, with the MF table and the
+# population at the main path's width
+LOADGEN_SOAK = dict(
+    generators=6, num_users=NUM_USERS, num_items=NUM_ITEMS, batch_ids=4, dim=DIM_UNFUSED,
+    link_delay_ms=1.0, slo_ms=250.0, cache_bound=48, cache_capacity=512, hot_top_n=64,
+    warmup_requests=96, request_timeout=5.0, connect_timeout=2.0, retry_timeout=10.0, seed=0,
+    num_shards=LOADGEN_SHARDS, replication_factor=1,
+)
+
+
+def _soak_nemesis(duration_s):
+    """benchmarks/soak_capacity.py's _nemesis_schedule: two partitions, a
+    delay window and a kill-primary the controller must promote over,
+    scaled to the arm's length."""
+    from flink_parameter_server_tpu_torch.nemesis.scenarios import NemesisOp
+
+    d = float(duration_s)
+    return (
+        (0.15 * d, NemesisOp(0, "partition", shard=0, mode="both", ms=500.0)),
+        (0.35 * d, NemesisOp(0, "delay", shard=1, ms=3.0, jitter_ms=2.0)),
+        (0.45 * d, NemesisOp(0, "clear_delay", shard=1)),
+        (0.60 * d, NemesisOp(0, "partition", shard=1, mode="s2c", ms=400.0)),
+        (0.80 * d, NemesisOp(0, "kill_shard", shard=0)),
+    )
+
+
+def _rating_lines(data) -> list:
+    """MovieLens ``u.data`` lines (user, item, rating, timestamp; tabs), each
+    rating in the shortest text that parses back to the same float32."""
+    fmt = np.format_float_positional
+    return [f"{u}\t{i}\t{fmt(r, unique=True)}\t{n}"
+            for n, (u, i, r) in enumerate(zip(data["user"].tolist(), data["item"].tolist(), data["rating"]))]
+
+
+def _parse_rating(line):
+    user, item, rating = line.split("\t")[:3]
+    return {"user": np.int32(user), "item": np.int32(item), "rating": np.float32(rating)}
+
+
+def _loadgen_sources(torch, dev, card, tmp):
+    """(1) The record sources at the main path's full width; returns K1's
+    launches in the two source-fed runs."""
+    from flink_parameter_server_tpu_torch import ps_online_mf
+    from flink_parameter_server_tpu_torch.data import native_loader
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.data.socket import batches_from_records, socket_text_stream
+    from flink_parameter_server_tpu_torch.data.streams import microbatches
+    from flink_parameter_server_tpu_torch.resilience.chaos import ChaosLineServer
+
+    t0 = time.perf_counter()
+    native_loader.get_lib()  # raises NativeUnavailable without g++: nothing falls back here
+    build_s = time.perf_counter() - t0
+    data = synthetic_ratings(NUM_USERS, NUM_ITEMS, LOADGEN_RECORDS, seed=0)
+    lines = _rating_lines(data)
+    path = os.path.join(tmp, "u.data")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cols = native_loader.load_ratings(path, compact_ids=False)
+    same = all(np.array_equal(cols[k], data[k]) and cols[k].dtype == data[k].dtype for k in data)
+    print(f"loadgen: (1) native library built in {build_s:.1f} s; load_ratings(compact_ids=False) of "
+          f"{LOADGEN_RECORDS:,} ratings equal to the arrays bitwise: {'yes' if same else 'NO'}")
+    check(same, "loadgen: the native loader's columns differ from the arrays")
+    mf = dict(num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED, learning_rate=LEARNING_RATE,
+              scatter_impl="pallas", device=dev)
+
+    def timed(what, fn):
+        zero_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        k1 = read_counts(f"loadgen: {what}", {"scatter_add": BATCHES_PER_EPOCH})["scatter_add"]
+        print(f"loadgen: (1) {what}: {LOADGEN_RECORDS / s:,.0f} records/s, {s:.3f} s wall; {card}")
+        return out, k1
+
+    ps_online_mf(microbatches(data, BATCH), **mf)  # untimed: the first run at these shapes pays the allocator
+    native, k1_native = timed("ps_online_mf fed by the native loader",
+                              lambda: ps_online_mf(native_loader.stream_batches(path, BATCH), **mf))
+    memory, _ = timed("ps_online_mf fed from memory", lambda: ps_online_mf(microbatches(data, BATCH), **mf))
+    for what, a, b in (("item table", native.store.values(), memory.store.values()),
+                       ("user state", native.worker_state, memory.worker_state)):
+        check(bool(torch.isfinite(a).all()), f"loadgen: the native-fed {what} is not finite")
+        _same(torch, f"native-fed {what} vs the in-memory feed", a, b, "loadgen")
+
+    fed = []
+
+    def tap(batches):
+        for b in batches:
+            fed.append(b)
+            yield b
+
+    server = ChaosLineServer(lines, drop_every=LOADGEN_DROP_EVERY).start()
+    try:
+        stream = socket_text_stream(server.host, server.port)
+        batches = batches_from_records(stream, BATCH, _parse_rating)
+        _, _, drv = _driver_parts(torch, dev)
+        sock, k1_socket = timed("StreamingDriver fed by the reconnecting socket",
+                                lambda: drv.run(tap(batches)))
+    finally:
+        server.stop()
+    _, _, drv = _driver_parts(torch, dev)
+    mem_drv, _ = timed("StreamingDriver fed from memory", lambda: drv.run(microbatches(data, BATCH)))
+    got = {k: np.concatenate([b[k][b["mask"]] for b in fed]) for k in data}
+    once = all(np.array_equal(got[k], data[k]) for k in data)
+    print(f"loadgen: (1) socket: {stream.reconnects} reconnects, {server.drops} drops, {batches.dropped} "
+          f"undecodable records, {len(fed)} batches, every record delivered once in order: "
+          f"{'yes' if once else 'NO'}")
+    check(stream.reconnects >= 1 and server.drops >= 1, "loadgen: the socket feed never reconnected")
+    check(batches.dropped == 0 and once, "loadgen: the socket feed lost, repeated or reordered records")
+    for what, a, b in (("item table", sock.store.values(), mem_drv.store.values()),
+                       ("user state", sock.worker_state, mem_drv.worker_state)):
+        _same(torch, f"socket-fed {what} vs the in-memory feed", a, b, "loadgen")
+    return k1_native + k1_socket
+
+
+def _loadgen_soak(torch, dev, card):
+    """(2) The open-loop soak at full width on the card."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch.elastic.controller import ScalePolicy
+    from flink_parameter_server_tpu_torch.loadgen.soak import SoakConfig, closed_loop_capacity, run_soak
+
+    with _proxied_slices() as slices:
+        base = SoakConfig(**LOADGEN_SOAK)
+        zero_counts()
+        cap = closed_loop_capacity(base, requests_per_generator=LOADGEN_CALIB, device=dev)
+        read_counts("loadgen: closed_loop_capacity", {})
+        print(f"loadgen: (2a) closed-loop capacity, MF {NUM_ITEMS:,} x {DIM_UNFUSED}, {base.num_users:,} users, "
+              f"{LOADGEN_SHARDS} shards x 1 replica: {cap['capacity_rps']} req/s over {cap['requests']} requests, "
+              f"closed p50 {cap['closed_p50_ms']} ms, p99 {cap['closed_p99_ms']} ms, {cap['wall_s']} s; {card}")
+        check(cap["capacity_rps"] > 0, "loadgen: the calibration served nothing")
+        cfg = dataclasses.replace(
+            base, duration_s=LOADGEN_ARM_S, offered_rps=2.0 * cap["capacity_rps"], overload_control=True,
+            nemesis=_soak_nemesis(LOADGEN_ARM_S),
+            controller_policy=ScalePolicy(min_shards=LOADGEN_SHARDS, max_shards=LOADGEN_SHARDS,
+                                          min_window_frames=1 << 30, cooldown_s=3600.0),
+        )
+        zero_counts()
+        rep = run_soak(cfg, device=dev)
+        read_counts("loadgen: the soak", {})
+    s, o = rep.summary, rep.overload
+    actions = [e.get("action") for e in rep.controller_events]
+    verdicts = " ".join(f"{v.name}={'ok' if v.ok else 'FAIL'}" for v in rep.verdicts)
+    print(f"loadgen: (2b) control-on arm at {cfg.offered_rps:.1f} req/s offered (2 x capacity) for "
+          f"{LOADGEN_ARM_S:.0f} s: goodput {s['goodput_rps']} req/s ({s['goodput_rps'] / cap['capacity_rps']:.0%} "
+          f"of capacity), admitted p50 {s['p50_ms']} ms, p99 {s['p99_ms']} ms; arrivals {s['arrivals']} = ok "
+          f"{s['ok']} + late {s['late']} + shed {s['shed']} + error {s['error']}; budget exhaustions "
+          f"{o.get('budget_exhausted')}, breaker opens {o.get('breakers_open_transitions')}, brownouts "
+          f"{o.get('brownouts')}, client-deadline sheds {o.get('client_deadline_sheds')}, shard-edge sheds "
+          f"{o.get('shard_edge_sheds')}; faults {dict(sorted(rep.faults.items()))}; controller {actions}; "
+          f"{verdicts}; {len(slices)} proxied shard slices on {sorted(set(slices))}; wall {rep.wall_s:.1f} s; {card}")
+    bad = [(v.name, v.detail) for v in rep.verdicts if not v.ok]
+    check(not bad, f"loadgen: soak verdicts failed: {bad}")
+    check(s["arrivals"] == s["ok"] + s["late"] + s["shed"] + s["error"], "loadgen: the goodput ledger does not balance")
+    check(s["error"] == 0, f"loadgen: {s['error']} errors in the control-on arm: {s.get('error_samples')}")
+    check(s["latency_anchor"] == "arrival", "loadgen: latency not anchored to the arrival")
+    check(rep.faults.get("partition_both", 0) >= 1, "loadgen: the two-way partition never fired")
+    check("promote" in actions, f"loadgen: no promote after kill_shard(0): {actions}")
+    check(bool(slices) and set(slices) == {dev.type}, f"loadgen: proxied slices on {sorted(set(slices))}")
+    json.dumps(rep.as_dict())
+
+
+def phase_loadgen(torch, dev, card):
+    """The open-loop soak and the record sources on the card.  (1) MF at the
+    main path's full width (100,000 users x 131,072 items, dim 64, lr 0.01,
+    ``scatter_impl="pallas"``) over phase_main's first two 65,536-rating
+    microbatches, written to a MovieLens ``u.data`` file: the native loader
+    (built with g++ under build/native/; a failed build fails the phase)
+    gives columns bitwise the arrays and, through ``stream_batches``, an
+    item table and user state bitwise the in-memory feed's; the same lines
+    served by a ``ChaosLineServer`` that resets the connection every 50,000
+    lines, through ``socket_text_stream`` and ``batches_from_records`` into a
+    ``StreamingDriver``, reconnect, deliver every record once and give the
+    in-memory driver's tables bitwise.  K1 twice in each run.  (2)
+    ``benchmarks/soak_capacity.py``'s headline (2 shards x replication 1,
+    6 generators, Zipf population of 100,000 users over the MF workload at
+    131,072 x 64, 1 ms request legs through the chaos mesh, SLO 250 ms):
+    ``closed_loop_capacity`` with 100 requests a generator, then the
+    control-on arm at twice that capacity for 15 s over the nemesis schedule
+    (two partitions, a delay window, kill-primary -> promote): every verdict
+    ok, the ledger balanced, no error.  No kernel on the soak.  Returns K1's
+    launches in the two source-fed runs."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="loadgen-", dir=os.path.join(REPO, "build"))
+    try:
+        t0 = time.perf_counter()
+        k1 = _loadgen_sources(torch, dev, card, tmp)
+        print(f"loadgen: (1) the sources took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _loadgen_soak(torch, dev, card)
+        print(f"loadgen: (2) the soak took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"loadgen: phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+    return k1
 
 
 def _counters():
@@ -4933,7 +5172,7 @@ def phase_moe_lm(torch, dev):
 
 # ratings a chunk, two chunks: cut from 65,536, at which the per-record
 # Python callbacks took 190 and 100 s a chunk on the card
-HYBRID_CHUNK = 8_192  # the callbacks run ~230 records/s on the card: two chunks take ~70 s
+HYBRID_CHUNK = 4_096  # the callbacks run ~230 records/s on the card: two chunks take ~35 s
 HYBRID_TOL = dict(rtol=1e-5, atol=1e-6)  # K1's ordered run sums against index_add_'s atomics; atol for sums near 0
 HYBRID_PREFIX = 256  # ratings of the chunk_size=1 run held against the event backend
 
@@ -4942,9 +5181,10 @@ def phase_hybrid(torch, dev, card):
     """The hybrid backend: the event API's ``MFWorkerLogic`` (dim 64, its
     per-record callbacks in Python, user vectors on the card) under
     ``transform_hybrid`` against a ``scatter_impl="pallas"`` store at the MF
-    path's item table (131,072 x 64), two chunks of 8,192 ratings (cut
-    from 65,536, where the callbacks took 100-190 s a chunk, and then from
-    16,384, where they took 65-75 s): K1 once a
+    path's item table (131,072 x 64), two chunks of 4,096 ratings (cut
+    from 65,536, where the callbacks took 100-190 s a chunk, then from
+    16,384, where they took 65-75 s, and from 8,192, where the arm took
+    74 s): K1 once a
     chunk and no other kernel, and the table within rtol 1e-5 / atol 1e-6
     of the same chunks' pushes folded into the initial table with
     ``index_add_`` on the card.  Then ``chunk_size=1`` over the first 256 ratings against the
@@ -5222,7 +5462,9 @@ def main() -> int:
         phase("adaptive", phase_adaptive, torch, dev, card)
         phase("tierstore", phase_tierstore, torch, dev, card)
         phase("nemesis", phase_nemesis, torch, dev, card)
+        loadgen_k1 = phase("loadgen", phase_loadgen, torch, dev, card)
         launches = phase("main (MF, LM, MoE LM, hybrid, MF traces)", phase_main, torch, dev)
+        launches["scatter_add"] += loadgen_k1  # the source-fed runs are the main path's MF too
         rows = phase("timing", phase_timing, torch, dev, gen, launches, errs) + wl_rows
 
         def traces():

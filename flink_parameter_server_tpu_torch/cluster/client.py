@@ -12,9 +12,8 @@ lease cache (``hotcache=``, ``lease_policy=``, ``lease_ttl=``; host numpy
 rows, as the wire's are) and the adaptive runtime's push hedging
 (``push_hedge=``, an ``adaptive/hedge.PushHedger``: a push races a
 budgeted backup only when it carries a ``pid``, so the shard's exactly-once
-window absorbs the losing leg).  ``retry_budget`` (the soak harness's
-token bucket) raises ``NotImplementedError`` until the rest of loadgen/ is
-ported (ROADMAP Queue 1 #7).  ``wire_proto="shm"`` dials co-located shards
+window absorbs the losing leg) and the soak harness's ``retry_budget``
+(a ``loadgen/overload.RetryBudget``).  ``wire_proto="shm"`` dials co-located shards
 over a shared-memory ring pair (``shmem/channel.ShmShardConnection``).
 
 Implements the :class:`~..core.api.ParameterServerClient` ABC against
@@ -54,7 +53,11 @@ TLVs).  ``spawn_grace_s`` bounds a dial-retry window for REFUSED
 connects — a just-spawned shard process (cluster/procs.py) racing its
 own bind is liveness, not a failure.
 
-Overload control (loadgen/overload.py, docs/loadgen.md): a
+Overload control (loadgen/overload.py, docs/loadgen.md): an attached
+``retry_budget`` (token bucket) is spent one token per storm-class replay
+round (a connection failure or an open breaker; epoch-flip replays spend
+nothing) and refilled by successes — exhausted, the batch FAILS FAST with
+``RetryBudgetExhausted`` instead of feeding a retry storm.  A
 ``breakers`` board keys one circuit breaker per shard: enough
 transport/shed failures inside the window OPEN the circuit and this
 client's frames to that shard fail fast with no wire traffic until a
@@ -131,7 +134,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.api import ParameterServerClient
-from ..loadgen.overload import OverloadedError
+from ..loadgen.overload import OverloadedError, RetryBudgetExhausted
 from ..ops.dedup import aggregate_deltas, coalesce_ids
 from ..telemetry.distributed import TraceContext, new_trace
 from ..telemetry.profiler import NULL_PROFILER, resolve_profiler
@@ -579,11 +582,6 @@ class ClusterClient(ParameterServerClient):
         tracer=None,
         profiler=None,
     ):
-        if retry_budget:
-            raise NotImplementedError(
-                "ClusterClient retry_budget=: loadgen/ (soak) is not "
-                "ported yet (ROADMAP Queue 1 #7)"
-            )
         if membership is None:
             if addresses is None or partitioner is None:
                 raise ValueError(
@@ -659,10 +657,13 @@ class ClusterClient(ParameterServerClient):
         self._rr: Dict[int, int] = {}
         self.retry_timeout = float(retry_timeout)
         # overload control (loadgen/overload.py, docs/loadgen.md):
-        # breakers = per-shard circuit BreakerBoard (an open
+        # retry_budget = token bucket over replay rounds (exhausted →
+        # RetryBudgetExhausted fails fast instead of feeding a retry
+        # storm); breakers = per-shard circuit BreakerBoard (an open
         # shard's frames fail fast without touching the wire); priority
         # rides frames as pr=<n> so the shard-edge guard can shed
         # serving traffic before training pushes
+        self.retry_budget = retry_budget
         self.breakers = breakers
         self._priority = None if priority is None else int(priority)
         # retry backoff state: decorrelated-jitter sleeps need the
@@ -984,7 +985,9 @@ class ClusterClient(ParameterServerClient):
         """Between replay rounds: refresh the view; if nothing changed,
         sleep briefly (the flip/replacement is in flight) — bounded by
         ``retry_timeout`` so a wedged cluster still surfaces.  Each
-        round is counted (``client_retries_total{verb,reason}``)."""
+        round is counted (``client_retries_total{verb,reason}``) and
+        spends one retry-budget token when a budget is attached; an
+        exhausted budget FAILS FAST instead of feeding the storm."""
         if self.membership is None:
             raise RuntimeError(
                 f"{what}: shard rejected the frame and no membership "
@@ -1000,6 +1003,20 @@ class ClusterClient(ParameterServerClient):
                 f"{what}: retried past retry_timeout="
                 f"{self.retry_timeout}s without converging on a "
                 f"servable map"
+            )
+        # only STORM-CLASS retries spend budget: connection failures
+        # and open breakers are the signals that amplify under
+        # overload.  Epoch-flip replays (stale-epoch/frozen) are the
+        # elastic control plane working as designed — rate-limiting
+        # those would turn every resize into artificial sheds.
+        if (
+            self.retry_budget is not None
+            and reason in ("conn", "breaker_open")
+            and not self.retry_budget.try_spend()
+        ):
+            raise RetryBudgetExhausted(
+                f"{what}: retry budget exhausted after {attempt} "
+                f"replay rounds (reason: {reason}) — failing fast"
             )
         if self._storm is not None and self._storm.note():
             # many reject-driven retries inside the window: the flip is
@@ -1092,6 +1109,8 @@ class ClusterClient(ParameterServerClient):
                         deadline, attempt, "pull", reason=reasons[0]
                     )
         out = flat.reshape(unique.shape + self.value_shape)
+        if self.retry_budget is not None:
+            self.retry_budget.on_success()
         return out[inverse]
 
     def push_batch(self, ids, deltas, mask=None) -> int:
@@ -1175,6 +1194,8 @@ class ClusterClient(ParameterServerClient):
                     )
                 else:
                     todo_ids = np.empty(0, np.int64)
+        if self.retry_budget is not None:
+            self.retry_budget.on_success()
         return int(unique.size)
 
     def flush(self) -> List[str]:

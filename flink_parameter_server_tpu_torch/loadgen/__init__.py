@@ -1,14 +1,36 @@
-"""loadgen/ — the overload-control plane the cluster client raises through.
+"""loadgen — open-loop million-user traffic + the overload-control plane.
 
-Of the reference's ``loadgen/`` only ``overload.py`` is ported so far: the
-client's typed shed error (``OverloadedError``), the circuit breakers a
-user can attach to a client and the ``OverloadGuard`` a shard server
-takes.  The module is the reference's whole: its retry budget serves the
-soak harness, which waits for the rest of loadgen/, and its brownout
-widens the hot cache's staleness bound (``hotcache/``); the arrival
-schedules, the Zipf population and the soak runner are ROADMAP Queue 1
-#7 too.
+Counterpart of ``flink_parameter_server_tpu/loadgen/``, all of it ported
+(docs/loadgen.md):
+
+  * :mod:`.arrivals` — seeded open-loop arrival schedules (Poisson
+    thinning over diurnal / ramp / flash-crowd rate curves), so
+    coordinated omission cannot hide stalls; bitwise the reference's
+    for the same seed;
+  * :mod:`.population` — a Zipf user/item population with regional
+    train/serve traffic mixes;
+  * :mod:`.overload` — the graceful-degradation toolkit: shard- and
+    serving-edge load shedding (``err overloaded``), client retry
+    budgets, per-shard circuit breakers, and brownout (widened
+    hot-cache staleness instead of errors);
+  * :mod:`.soak` — the :class:`~.soak.SoakRunner` driving the full
+    replicated+elastic stack with the nemesis mesh underneath, plus the
+    goodput ledger and the autoscaler-quality score; its shards' slices
+    live on ``device=`` (the card unless the caller passes
+    ``device="cpu"``).
+
+``soak`` pulls in the whole cluster stack; it is imported lazily so
+``from ..loadgen.overload import OverloadedError`` stays cheap inside
+``cluster/client.py`` (no import cycle through the package).
 """
+from .arrivals import (
+    constant_rate,
+    diurnal_rate,
+    flash_crowds,
+    poisson_arrivals,
+    ramp_rate,
+    split_slots,
+)
 from .overload import (
     PRIORITY_CRITICAL,
     PRIORITY_NORMAL,
@@ -22,17 +44,47 @@ from .overload import (
     RetryBudget,
     RetryBudgetExhausted,
 )
+from .population import Region, Request, UserPopulation
+
+_LAZY = {
+    "GoodputLedger", "SoakConfig", "SoakReport", "SoakRunner",
+    "autoscaler_score", "run_soak",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from . import soak
+
+        return getattr(soak, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "BreakerBoard",
     "BrownoutController",
     "CircuitBreaker",
+    "GoodputLedger",
     "LoadShedder",
     "OverloadGuard",
     "OverloadedError",
     "PRIORITY_CRITICAL",
     "PRIORITY_NORMAL",
     "PRIORITY_SHEDDABLE",
+    "Region",
+    "Request",
     "RetryBudget",
     "RetryBudgetExhausted",
+    "SoakConfig",
+    "SoakReport",
+    "SoakRunner",
+    "UserPopulation",
+    "autoscaler_score",
+    "constant_rate",
+    "diurnal_rate",
+    "flash_crowds",
+    "poisson_arrivals",
+    "ramp_rate",
+    "run_soak",
+    "split_slots",
 ]

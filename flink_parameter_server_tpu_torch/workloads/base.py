@@ -41,9 +41,9 @@ stack:
     :class:`~..cluster.client.ClusterClient`.
 
 ``probe_request`` is the nemesis serving reader's request
-(``nemesis/runner.py``); the reference's ``soak_read_ids`` / ``soak_push``
-(the open-loop soak's surface) come with ``loadgen/``'s soak (ROADMAP
-Queue 1 #7h).
+(``nemesis/runner.py``); ``soak_read_ids`` / ``soak_push`` are the
+open-loop soak's surface (``loadgen/soak.py``).  Both return host numpy,
+as the reference's do: the soak ships them over the wire.
 """
 from __future__ import annotations
 
@@ -186,6 +186,23 @@ class Workload(abc.ABC):
         nemesis serving reader issues.  None when the workload has no
         serving verbs."""
         return None
+
+    # -- the open-loop soak surface (loadgen/soak.py) ------------------------
+    def soak_read_ids(self, ids) -> np.ndarray:
+        """Map population-sampled entity ids to pullable store rows
+        (identity for direct-keyed tables; sketches map keys to
+        cells)."""
+        return np.asarray(ids, np.int64)
+
+    def soak_push(self, rng: np.random.Generator, ids
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """One synthetic training push over sampled entity ids:
+        ``(push_ids, deltas)`` shaped for this workload's table."""
+        push_ids = np.asarray(ids, np.int64)
+        deltas = rng.standard_normal(
+            (push_ids.size,) + tuple(self.value_shape)
+        ).astype(np.float32) * 1e-3
+        return push_ids, deltas
 
     def describe(self) -> Dict[str, Any]:
         return {

@@ -181,5 +181,18 @@ class SketchWorkload(Workload):
             return "query", ",".join(str(int(k)) for k in keys)
         return "topk", "4"
 
+    # -- the soak surface ----------------------------------------------------
+    def soak_read_ids(self, ids) -> np.ndarray:
+        return self.cells_np(
+            np.asarray(ids, np.int64) % self.vocab
+        ).reshape(-1)
+
+    def soak_push(self, rng: np.random.Generator, ids
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        cells = self.cells_np(
+            np.asarray(ids, np.int64) % self.vocab
+        ).reshape(-1)
+        return cells, np.ones(cells.shape, np.float32)
+
 
 __all__ = ["SketchWorkload"]

@@ -22,6 +22,7 @@ Queue 1).
 """
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -58,6 +59,7 @@ from flink_parameter_server_tpu_torch.elastic import (
     execute_moves,
     plan_moves,
 )
+from flink_parameter_server_tpu_torch.loadgen.overload import RetryBudget, RetryBudgetExhausted
 from flink_parameter_server_tpu_torch.models.matrix_factorization import (
     OnlineMatrixFactorization,
     SGDUpdater,
@@ -818,7 +820,8 @@ def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
     """The elastic driver runs on the card unless asked for the CPU; what
     leads into modules not ported yet raises naming its item.  The adaptive
     knobs are served: ``drain_shard`` moves every key off the drained shard,
-    and worker clients take a push hedger."""
+    and worker clients take a push hedger.  A client keeps its retry budget
+    and spends it on a storm-class replay round."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ElasticClusterDriver(_logic(8, 4), capacity=16, value_shape=(4,), registry=False)
@@ -844,8 +847,17 @@ def test_elastic_driver_defaults_and_knobs_that_raise(tmp_path):
         assert sorted(after) == sorted(before)
         assert all(after[g].tobytes() == before[g].tobytes() for g in before)
     part = ConsistentHashPartitioner(16, 1)
-    with pytest.raises(NotImplementedError, match="loadgen"):
-        ClusterClient([("h", 1)], part, (4,), registry=False, retry_budget=object())
+    # the retry budget is kept, and a storm-class replay round spends it
+    budget = RetryBudget(1.0, registry=False)
+    view = types.SimpleNamespace(epoch=1, partitioner=part, addresses=[("h", 1)], replicas=[])
+    c = ClusterClient(value_shape=(4,), membership=types.SimpleNamespace(current=lambda: view),
+                      registry=False, retry_budget=budget)
+    assert c.retry_budget is budget
+    c.retry_sleep_s = c.retry_sleep_cap_s = 1e-4
+    c._await_retry(time.monotonic() + 60, 1, "pull", reason="conn")
+    assert budget.tokens() == 0.0
+    with pytest.raises(RetryBudgetExhausted):
+        c._await_retry(time.monotonic() + 60, 2, "pull", reason="conn")
     hedger = object()
     c = ClusterClient([("h", 1)], part, (4,), registry=False, push_hedge=hedger)
     assert c.push_hedge is hedger

@@ -126,6 +126,55 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.shmem.metrics",
             "flink_parameter_server_tpu_torch.shmem.pump",
             "flink_parameter_server_tpu_torch.shmem.channel"} <= set(modules)
+    # the open-loop soak and the record sources
+    assert set(SLICE_18) <= set(modules)
+
+
+SLICE_18 = (
+    "flink_parameter_server_tpu_torch.loadgen.arrivals",
+    "flink_parameter_server_tpu_torch.loadgen.population",
+    "flink_parameter_server_tpu_torch.loadgen.soak",
+    "flink_parameter_server_tpu_torch.data.socket",
+    "flink_parameter_server_tpu_torch.data.native_loader",
+    "flink_parameter_server_tpu_torch.utils.config",
+)
+
+
+def test_loadgen_and_sources_alone_load_no_jax():
+    """The six modules of the soak and the record sources imported first,
+    on their own, in a fresh interpreter (with everything they import), and
+    driven once: an arrival schedule, a population sample, ``Parameters``,
+    a batch from records and the soak's ledger — no JAX module and nothing
+    of the JAX package is loaded."""
+    script = (
+        "import importlib, json, sys\n"
+        f"for m in {SLICE_18!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from flink_parameter_server_tpu_torch.loadgen import SoakConfig, UserPopulation, constant_rate\n"
+        "from flink_parameter_server_tpu_torch.loadgen.arrivals import poisson_arrivals\n"
+        "from flink_parameter_server_tpu_torch.loadgen.soak import GoodputLedger\n"
+        "from flink_parameter_server_tpu_torch.data.socket import batches_from_records\n"
+        "from flink_parameter_server_tpu_torch.utils.config import Parameters\n"
+        "a = poisson_arrivals(*constant_rate(50.0), 2.0, seed=0)\n"
+        "req = UserPopulation(32, 64, seed=1).sample(np.random.default_rng(2))\n"
+        "(b,) = batches_from_records(iter(['1']), 2, lambda s: {'v': np.int32(s)})\n"
+        "led = GoodputLedger(2.0)\n"
+        "led.record(0.5, 'ok', 0.01)\n"
+        "assert a.size and req.ids.size and b['mask'].tolist() == [True, False]\n"
+        "assert led.summary()['ok'] == 1 and SoakConfig().num_shards == 2\n"
+        "assert Parameters.from_args(['--x=1']).get_int('x') == 1\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_adaptive_and_tierstore_alone_load_no_jax():

@@ -30,6 +30,9 @@ the ``mid_frame_rst_push`` schedule's verdict table (names, order, ``ok``),
 fault classes and executed ops equal the CPU run's, every shard slice a
 CUDA tensor.  The shared-memory transport on the card: a thread-shard
 cluster over shm bitwise its binary-TCP run, every connection on shm.
+The record sources on the card: MF fed by the native loader bitwise the
+in-memory feed, with K1 launched once a batch.  A short open-loop soak on
+the card: the goodput ledger balances and every verdict holds.
 """
 import numpy as np
 import pytest
@@ -1217,3 +1220,71 @@ def test_shm_cluster_on_card_is_bitwise_its_tcp_run(cuda):
     assert len(wires["shm"]) == 6 and set(wires["shm"]) == {"shm"}, wires
     assert set(wires["auto"]) == {"tcp"}, wires
     assert tables["shm"].tobytes() == tables["auto"].tobytes()
+
+
+def test_native_fed_mf_on_the_card_is_bitwise_the_in_memory_feed(cuda, tmp_path):
+    """``ps_online_mf(scatter_impl="pallas")`` fed by the native loader's
+    ``stream_batches`` over a MovieLens file against the same call over the
+    in-memory microbatches: the item table and user state bitwise, K1 once
+    a batch in each run."""
+    from flink_parameter_server_tpu_torch import ps_online_mf
+    from flink_parameter_server_tpu_torch.data import native_loader
+    from flink_parameter_server_tpu_torch.data.movielens import synthetic_ratings
+    from flink_parameter_server_tpu_torch.data.streams import microbatches
+
+    native_loader.get_lib()  # no fallback on the card's machine
+    data = synthetic_ratings(500, 1024, 4096, seed=5)
+    path = tmp_path / "u.data"
+    path.write_text("".join(
+        f"{u}\t{i}\t{np.format_float_positional(r, unique=True)}\t0\n"
+        for u, i, r in zip(data["user"].tolist(), data["item"].tolist(), data["rating"])))
+    mf = dict(num_users=500, num_items=1024, dim=16, learning_rate=0.01, scatter_impl="pallas", device=cuda)
+    runs = {}
+    for feed in ("native", "memory"):
+        batches = (native_loader.stream_batches(str(path), 1024) if feed == "native"
+                   else microbatches(data, 1024))
+        before = scatter_kernel.sorted_scatter_add.launches
+        runs[feed] = ps_online_mf(batches, **mf)
+        torch.cuda.synchronize()
+        assert scatter_kernel.sorted_scatter_add.launches - before == 4
+    assert runs["native"].store.values().device.type == "cuda"
+    assert torch.equal(runs["native"].store.values(), runs["memory"].store.values())
+    assert torch.equal(runs["native"].worker_state, runs["memory"].worker_state)
+
+
+def test_short_soak_on_the_card_balances_its_ledger(cuda):
+    """A 3 s open-loop soak with the shards' slices on the card (the
+    default device) and a two-way partition beneath it: every arrival
+    classified once, every verdict ok, the partition injected, and no
+    kernel launched."""
+    from flink_parameter_server_tpu_torch.loadgen.soak import SoakConfig, run_soak
+    from flink_parameter_server_tpu_torch.nemesis import runner
+    from flink_parameter_server_tpu_torch.nemesis.scenarios import NemesisOp
+
+    slices = []
+    build = runner._NemesisMeshMixin._build_shard
+
+    def spy(self, shard_id, partitioner=None):
+        shard, server = build(self, shard_id, partitioner)
+        slices.append(shard.store.table.device.type)
+        return shard, server
+
+    wrappers = (scatter_kernel.sorted_scatter_add, mf_kernel.sorted_fused_mf_sgd,
+                fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [fn.launches for fn in wrappers]
+    runner._NemesisMeshMixin._build_shard = spy
+    try:
+        rep = run_soak(SoakConfig(
+            duration_s=3.0, offered_rps=80.0, generators=2, train_workers=1, num_users=64, num_items=256,
+            dim=4, num_shards=2, link_delay_ms=0.2, slo_ms=200.0, warmup_requests=16, seed=11,
+            nemesis=((0.8, NemesisOp(0, "partition", shard=0, mode="both", ms=250.0)),),
+        ))
+    finally:
+        runner._NemesisMeshMixin._build_shard = build
+    s = rep.summary
+    assert s["arrivals"] == s["ok"] + s["late"] + s["shed"] + s["error"]
+    assert s["latency_anchor"] == "arrival"
+    assert rep.ok, [v.as_dict() for v in rep.verdicts if not v.ok]
+    assert rep.faults.get("partition_both", 0) >= 1
+    assert slices and set(slices) == {"cuda"}
+    assert [fn.launches for fn in wrappers] == before

@@ -1,12 +1,11 @@
 """The port's resilience layer: the WAL, chaos plans, supervised restart
 and health, mirroring tests/test_resilience.py against the port.
 
-``TestWAL`` (6), ``TestChaos`` (5), ``TestRecoveryE2E`` (6) and
-``TestHealth`` (5) are the reference's tests with the port's driver and
-CPU tensors; the recovered tables are held bit for bit against the
-uninterrupted run.  The reference's ``TestSocketReconnect`` and
-``TestServingRestart`` wait for the socket source, the serving stack and
-the cluster (ROADMAP Queue 1 #5-#7).  Port-only: torch's device errors
+``TestWAL`` (6), ``TestChaos`` (5), ``TestRecoveryE2E`` (6),
+``TestSocketReconnect`` (4), ``TestHealth`` (5) and ``TestServingRestart``
+(3) are the reference's tests with the port's driver, socket source,
+serving stack and CPU tensors; the recovered tables are held bit for bit
+against the uninterrupted run.  Port-only: torch's device errors
 classify as DEVICE, the WAL logs host arrays only, and the flight
 recorder names its folder after the torch device type.
 """
@@ -22,6 +21,7 @@ import torch
 
 from flink_parameter_server_tpu_torch.resilience import (
     ChaosError,
+    ChaosLineServer,
     FailureClass,
     FaultPlan,
     HealthMonitor,
@@ -387,6 +387,57 @@ def test_flight_recorder_dumps_under_the_device_type(tmp_path):
     assert doc["reason"] == "crash_device" and doc["events"][0]["kind"] == "crash"
 
 
+class TestSocketReconnect:
+    def test_reconnects_and_delivers_everything(self):
+        from flink_parameter_server_tpu_torch.data.socket import socket_text_stream
+
+        lines = [f"{i},{i % 7},{i * 0.1:.2f}" for i in range(40)]
+        with ChaosLineServer(lines, drop_every=11, drop_delay_s=0.2) as srv:
+            stream = socket_text_stream("127.0.0.1", srv.port, backoff_base_s=0.01, backoff_cap_s=0.05)
+            got = list(stream)
+        assert got == lines
+        assert stream.reconnects >= 3
+        assert srv.drops >= 3
+
+    def test_reconnect_false_preserves_die_on_error(self):
+        from flink_parameter_server_tpu_torch.data.socket import socket_text_stream
+
+        with ChaosLineServer(["a", "b", "c", "d"], drop_every=2, drop_delay_s=0.05) as srv:
+            with pytest.raises(OSError):
+                list(socket_text_stream("127.0.0.1", srv.port, reconnect=False))
+
+    def test_gives_up_after_max_reconnects(self):
+        import socket as pysocket
+
+        from flink_parameter_server_tpu_torch.data.socket import socket_text_stream
+
+        probe = pysocket.socket()
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+        with pytest.raises(ConnectionError, match="gave up"):
+            list(socket_text_stream("127.0.0.1", port, max_reconnects=2, backoff_base_s=0.001,
+                                    backoff_cap_s=0.01, connect_timeout=0.2))
+
+    def test_socket_drop_mid_training_converges(self):
+        from flink_parameter_server_tpu_torch.data.socket import batches_from_records, socket_text_stream
+
+        logic, store = _mf_parts(num_users=16, num_items=32)
+        lines = [f"{i % 16},{(i * 3) % 32},{(i % 5) * 0.1:.2f}" for i in range(64)]
+        with ChaosLineServer(lines, drop_every=20, drop_delay_s=0.2) as srv:
+            stream = socket_text_stream("127.0.0.1", srv.port, backoff_base_s=0.01, backoff_cap_s=0.05)
+
+            def parse(line):
+                u, i, r = line.split(",")
+                return {"user": np.int32(u), "item": np.int32(i), "rating": np.float32(r)}
+
+            drv = StreamingDriver(logic, store, config=DriverConfig(dump_model=False))
+            res = drv.run(batches_from_records(stream, 16, parse), collect_outputs=False)
+        assert stream.reconnects >= 1
+        assert drv.step_idx == 4
+        assert torch.isfinite(res.store.values()).all()
+
+
 class TestHealth:
     def test_watchdog_fires_on_frozen_component(self):
         mon = HealthMonitor()
@@ -437,3 +488,55 @@ class TestHealth:
         with StallWatchdog(mon, 0.02, poll_s=0.01) as wd:
             time.sleep(0.1)
         assert wd.events and wd.events[0]["stall"] == "ingest"
+
+
+class TestServingRestart:
+    def test_stop_start_reopens_admission(self):
+        from flink_parameter_server_tpu_torch.serving import ServingService
+
+        logic, store = _mf_parts()
+        svc = ServingService.for_spec(store.spec, max_batch=4, max_queue=8)
+        svc.on_train_start(store, 0)
+        svc.stop()
+        with pytest.raises(RuntimeError):
+            svc.submit_lookup([1, 2])
+        svc.start()
+        assert svc.submit_lookup([1, 2]).result(10).values.shape[0] == 2
+        svc.stop()
+
+    def test_snapshot_publish_survives_driver_restart(self, tmp_path):
+        stream = _mf_stream()
+        logic, store = _mf_parts()
+        drv = StreamingDriver(logic, store, config=DriverConfig(
+            dump_model=False, checkpoint_every=5, checkpoint_dir=str(tmp_path / "ckpt"),
+            wal_dir=str(tmp_path / "wal")))
+        svc = drv.serve_with(publish_every=1, max_batch=4)
+        drv.add_group_hook(FaultPlan().crash_at(8).driver_hook())
+        rec = RecoveringDriver(drv, stream, policy=_FAST_POLICY)
+        rec.run(collect_outputs=False)
+        assert rec.restarts == 1
+        res = svc.client().top_k(1, k=3)
+        assert res.train_step == drv.step_idx
+        assert len(res.item_ids) == 3
+        svc.stop()
+
+    def test_dispatch_loop_survives_poisoned_batch(self):
+        from flink_parameter_server_tpu_torch.serving import ServingService
+
+        logic, store = _mf_parts()
+        svc = ServingService.for_spec(store.spec, max_batch=4, max_queue=8)
+        svc.on_train_start(store, 0)
+        orig = svc.engine.lookup
+        boom = {"n": 0}
+
+        def flaky(ids):
+            if boom["n"] == 0:
+                boom["n"] += 1
+                raise RuntimeError("transient kernel failure")
+            return orig(ids)
+
+        svc.engine.lookup = flaky
+        with pytest.raises(RuntimeError):
+            svc.submit_lookup([1]).result(10)
+        assert svc.submit_lookup([1]).result(10).values is not None
+        svc.stop()

@@ -1,8 +1,8 @@
 """The port's shared-memory transport (shmem/) against the JAX package's.
 
 Mirrors tests/test_shmem.py on the CPU, every shard built with
-``device="cpu"`` (its ``TestTooling`` waits for the port's loadgen and
-tooling): the ring's edge cases (``TestRing``), the process-local bell
+``device="cpu"`` (its ``TestTooling`` waits for the tooling mirrors,
+ROADMAP Queue 1 #7h): the ring's edge cases (``TestRing``), the process-local bell
 (``TestBell``), negotiation and every refusal path, the ChaosProxy splice
 point included (``TestNegotiation``), the borrow-reclaim lease
 (``TestBorrowReclaim``), the oversize detour, the batch spill and the

@@ -14,10 +14,11 @@ Tolerances, all on the CPU (the port with ``device="cpu"``):
     the reference's (the reference's cluster bar).
 
 Mirrors tests/test_workloads.py's TestRegistry (4), TestParity (5),
-TestPushSemantics (4) and TestServing (2): 15 of its 22 tests.  TestChaos
+TestPushSemantics (4), TestServing (2) and TestSoakArms (2, the port's
+``loadgen/soak.py`` on ``device="cpu"``): 17 of its 22 tests.  TestChaos
 is mirrored in tests/test_torch_workloads.py (on the port's nemesis
-runner); TestSoakArms, TestPsctl and TestTooling wait for ``loadgen/``'s
-soak and the tooling (ROADMAP Queue 1 #7h).
+runner); TestPsctl and TestTooling wait for the tooling mirrors (ROADMAP
+Queue 1 #7h).
 """
 import numpy as np
 import pytest
@@ -414,3 +415,28 @@ class TestServing:
             finally:
                 server.stop()
                 client.close()
+
+
+class TestSoakArms:
+    def test_sketch_soak_q8_bypassed(self):
+        from flink_parameter_server_tpu_torch.loadgen.soak import SoakConfig, run_soak
+
+        rep = run_soak(SoakConfig(
+            duration_s=2.0, offered_rps=60.0, generators=2, num_users=64, num_items=128, warmup_requests=16,
+            link_delay_ms=0.0, workload="sketch", wire_format="q8",
+        ), device=CPU)
+        assert rep.ok, [v.detail for v in rep.verdicts if not v.ok]
+        # increments bypass the codec: nothing saved, nothing lossy
+        assert "compression_bytes_saved" not in rep.overload
+
+    def test_mf_soak_q8_aggregation_arm(self):
+        from flink_parameter_server_tpu_torch.loadgen.soak import SoakConfig, run_soak
+
+        rep = run_soak(SoakConfig(
+            duration_s=2.5, offered_rps=80.0, generators=3, num_users=64, num_items=128, warmup_requests=16,
+            link_delay_ms=0.0, wire_format="q8", push_aggregate=True,
+        ), device=CPU)
+        assert rep.ok, [v.detail for v in rep.verdicts if not v.ok]
+        assert rep.overload["push_aggregate"] is True
+        assert rep.overload["combined_pushes"] > 0
+        assert rep.overload.get("compression_bytes_saved", 0) > 0
