@@ -8,8 +8,9 @@ the hot-key lease cache with ``/metrics``, the run report and the lock
 witness live, steered around a lagged worker by the adaptive runtime,
 kept in the two-tier store with its hot tier on the card, and put through
 the nemesis fault-injection harness's corpus, shrinker and full-width
-schedules, fed by the native loader and a reconnecting socket, and held
-under an open-loop soak at twice its capacity), the registered
+schedules, fed by the native loader and a reconnecting socket, held
+under an open-loop soak at twice its capacity, and row-blocked over a
+mesh of ranks), the registered
 workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
@@ -296,6 +297,19 @@ line each; any failure exits non-zero before the last line:
              feed, the capacity with its closed p50/p99, goodput, its share
              of capacity, admitted p50/p99, sheds, lates, budget
              exhaustions, breaker opens and brownouts.
+  parallel   the parameter server across devices, in child processes of
+             this script (``--parallel-rank``), each spawn under a 300 s
+             limit: (a) a 1 x 1 NCCL mesh, MF at the main path's full width
+             over 4 Zipf microbatches, tables, pulls and the top-K bitwise
+             the unsharded run; (b) a 2 x 2 mesh of 4 ranks on ``cuda:0``
+             over gloo with CUDA tensors (NCCL takes one rank a card), the
+             tables within rtol 1e-5 / atol 1e-6 of (a), pulls and the
+             sharded top-K bitwise the whole table's; (c) the same ranks as
+             a 1 x 4 ps-only mesh, ``fused_mf_sgd_sharded`` at dim 128
+             within the same bar of the unsharded fused step.  K1 once a
+             rank a step, K2 likewise; the ranks' launches join the kernels
+             line's counts.  ``parallel:`` lines give the backend, each
+             rank's pull and push ms and the all-reduce / all-gather ms.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -321,7 +335,7 @@ line each; any failure exits non-zero before the last line:
              the step.  Then the hybrid backend: the event API's
              ``MFWorkerLogic`` under ``transform_hybrid`` against a
              ``scatter_impl="pallas"`` store of 131,072 x 64, two chunks of
-             4,096 ratings (cut from 65,536 for the callbacks' time; K1 once
+             1,024 ratings (cut from 65,536 for the callbacks' time; K1 once
              a chunk, the table within rtol 1e-5 / atol 1e-6 of
              ``index_add_`` of the same pushes), and ``chunk_size=1`` over
              256 ratings against the event backend (atol 1e-5).  Their
@@ -4519,6 +4533,337 @@ def phase_loadgen(torch, dev, card):
     return k1
 
 
+PAR_STEPS = 4  # full-width microbatches each parallel arm trains
+PAR_SEED = 19  # the arms' Zipf stream
+PAR_QUERIES, PAR_TOPK = 64, 10  # the sharded top-K batch
+PAR_TIMEOUT_S = 300  # each spawn's wall-clock limit
+PAR_BAR = dict(rtol=1e-5, atol=1e-6)  # ps > 1 against 1 x 1: K1's run sums split at other tile edges
+PAR_REPS = 5  # timed repeats of each layer operation (median)
+
+
+def _par_time_ms(torch, fn) -> float:
+    """Median wall ms of ``fn`` on this rank, synchronised with the card
+    (a collective's time includes its wait for the other ranks)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(PAR_REPS):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _par_layers(torch, store, batch, mesh, dev) -> dict:
+    """This rank's pull and push ms at the step's shapes (its dp slice of the
+    microbatch pulled, the whole microbatch's request pushed into a copy of
+    its block) and the all-reduce over ps and all-gather over dp of the
+    step's (lanes, 64) float32 payloads."""
+    from flink_parameter_server_tpu_torch.core import store as store_mod
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    dp = axis_size(mesh, "dp")
+    per = BATCH // dp
+    lo = axis_index(mesh, "dp") * per
+    ids = torch.from_numpy(batch["item"]).to(dev)
+    mine = ids[lo:lo + per]
+    deltas = torch.full((BATCH, DIM_UNFUSED), 1e-3, device=dev)
+    table = store.table.clone()
+    local = torch.ones(per, DIM_UNFUSED, device=dev)
+    out = {
+        "pull_ms": _par_time_ms(torch, lambda: store_mod.pull(store.spec, store.table, mine)),
+        "push_ms": _par_time_ms(torch, lambda: store_mod.push(store.spec, table, ids, deltas)),
+        "all_reduce_ms": _par_time_ms(torch, lambda: coll.all_reduce_sum(local, mesh, "ps")),
+    }
+    if dp > 1:
+        out["all_gather_ms"] = _par_time_ms(torch, lambda: coll.all_gather_cat(local, mesh, "dp"))
+    return out
+
+
+def _par_mf(torch, mesh, dev, stream):
+    """The main path's MF over ``stream`` on ``mesh`` (None: one device):
+    (item table, user table, K1 launches, collective calls, wall s)."""
+    from flink_parameter_server_tpu_torch import ps_online_mf
+    from flink_parameter_server_tpu_torch.ops import scatter_kernel
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+
+    if mesh is not None:  # the communicators come up on a first collective, outside the timed run
+        coll.all_reduce_sum(torch.zeros(1, device=dev), mesh, "ps")
+        coll.all_gather_cat(torch.zeros(1, device=dev), mesh, "dp")
+    scatter_kernel.sorted_scatter_add.launches = 0
+    coll.reset_collective_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = ps_online_mf(stream, num_users=NUM_USERS, num_items=NUM_ITEMS, dim=DIM_UNFUSED,
+                       learning_rate=LEARNING_RATE, scatter_impl="pallas", collect_outputs=False,
+                       **({"device": dev} if mesh is None else {"mesh": mesh}))
+    items = res.store.values()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return res, items, scatter_kernel.sorted_scatter_add.launches, coll.collective_counts(), wall
+
+
+def _par_answers(torch, store, users, ids):
+    """A pull of ``ids`` and the top-K of the first 64 users through the
+    store (sharded on a mesh), beside the 1 x 1 answers from the whole
+    table: (bitwise pulls, bitwise top-K ids and scores)."""
+    from flink_parameter_server_tpu_torch.models.topk_recommender import query_topk
+    from flink_parameter_server_tpu_torch.ops.topk import dense_topk
+
+    whole = store.values()
+    uids = torch.arange(PAR_QUERIES, device=ids.device)
+    s_sh, i_sh = query_topk(store, users, uids, PAR_TOPK)
+    s_1, i_1 = dense_topk(whole, users[:PAR_QUERIES], PAR_TOPK, valid_rows=store.spec.capacity)
+    return (bool(torch.equal(store.pull(ids), whole[ids])),
+            bool(torch.equal(i_sh, i_1)) and bool(torch.equal(s_sh, s_1)))
+
+
+def _par_rank_nccl(torch, outdir):
+    """(a): a 1 x 1 NCCL mesh at the main path's full width, timed against
+    the unsharded run in turns after one untimed run of each."""
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = zipf_stream(PAR_SEED, PAR_STEPS)
+    for m in (None, mesh):  # untimed: the process's first-use costs
+        _par_mf(torch, m, dev, stream)
+    walls = {"plain": [], "mesh": []}
+    for m in (None, mesh, mesh, None):  # timed in turns
+        run = _par_mf(torch, m, dev, stream)
+        walls["plain" if m is None else "mesh"].append(run[4])
+        if m is None:
+            one, one_items = run[0], run[1]
+        else:
+            res, items, k1, calls = run[:4]
+    ids = torch.from_numpy(stream[0]["item"]).to(dev)
+    pulls_ok, topk_ok = _par_answers(torch, res.store, res.worker_state, ids)
+    torch.save({"items": items.cpu(), "users": res.worker_state.cpu()}, os.path.join(outdir, "nccl_tables.pt"))
+    return dict(
+        backend=dist.get_backend(), bitwise=bool(torch.equal(items, one_items))
+        and bool(torch.equal(res.worker_state, one.worker_state)),
+        pulls_bitwise=pulls_ok, topk_bitwise=topk_ok, k1=k1, calls=calls, walls=walls,
+        **_par_layers(torch, res.store, stream[0], mesh, dev))
+
+
+def _par_rank_gloo(torch, outdir):
+    """(b) a 2 x 2 mesh and (c) a 1 x 4 ps-only mesh, every rank on card 0,
+    over a gloo group with CUDA tensors."""
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch import OnlineMatrixFactorization, ShardedParamStore, ranged_random_factor
+    from flink_parameter_server_tpu_torch.ops import mf_kernel
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": dist.get_backend()}
+    # (b)
+    mesh = make_mesh(2, 2, device_type="cuda")
+    stream = zipf_stream(PAR_SEED, PAR_STEPS)
+    res, items, k1, calls, wall = _par_mf(torch, mesh, dev, stream)
+    ref = torch.load(os.path.join(outdir, "nccl_tables.pt"))
+    ref_items, ref_users = ref["items"].to(dev), ref["users"].to(dev)
+    ids = torch.from_numpy(stream[0]["item"]).to(dev)
+    pulls_ok, topk_ok = _par_answers(torch, res.store, res.worker_state, ids)
+    out.update(
+        mf_ok=bool(torch.allclose(items, ref_items, **PAR_BAR))
+        and bool(torch.allclose(res.worker_state, ref_users, **PAR_BAR)),
+        mf_err=max(float((items - ref_items).abs().max()), float((res.worker_state - ref_users).abs().max())),
+        mf_bitwise=bool(torch.equal(items, ref_items)), pulls_bitwise=pulls_ok, topk_bitwise=topk_ok,
+        k1=k1, calls=calls, wall_s=wall, block_rows=int(res.store.table.shape[0]),
+        **_par_layers(torch, res.store, stream[0], mesh, dev))
+    del res, items, ref, ref_items, ref_users
+    # (c)
+    ps_mesh = make_mesh(1, dist.get_world_size(), device_type="cuda")
+    init = ranged_random_factor(1, (DIM_FUSED,))
+    block = ShardedParamStore.create(NUM_ITEMS, (DIM_FUSED,), init_fn=init, mesh=ps_mesh).table
+    logic = OnlineMatrixFactorization(NUM_USERS, DIM_FUSED, seed=0, device=dev)
+    users = logic.init_state()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in stream]
+    mf_kernel.sorted_fused_mf_sgd.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    preds = []
+    for b in batches:
+        users, block, pred = mf_kernel.fused_mf_sgd_sharded(
+            users, block, b["user"], b["item"], b["rating"], b["mask"], mesh=ps_mesh,
+            learning_rate=LEARNING_RATE)
+        preds.append(pred)
+    torch.cuda.synchronize()
+    out.update(k2=mf_kernel.sorted_fused_mf_sgd.launches, fused_wall_s=time.perf_counter() - t)
+    items = coll.all_gather_cat(block, ps_mesh, "ps")[:NUM_ITEMS]
+    if dist.get_rank() == 0:  # the unsharded fused step on the whole table
+        whole = ShardedParamStore.create(NUM_ITEMS, (DIM_FUSED,), init_fn=init, device=dev).table
+        u1 = logic.init_state()
+        errs, ok = [], True
+        for b, pred in zip(batches, preds):
+            u1, whole, p1 = mf_kernel.fused_mf_sgd(u1, whole, b["user"], b["item"], b["rating"], b["mask"],
+                                                   learning_rate=LEARNING_RATE)
+            ok &= bool(torch.allclose(pred, p1, **PAR_BAR))
+            errs.append(float((pred - p1).abs().max()))
+        ok &= bool(torch.allclose(items, whole[:NUM_ITEMS], **PAR_BAR)) and bool(torch.allclose(users, u1, **PAR_BAR))
+        errs += [float((items - whole[:NUM_ITEMS]).abs().max()), float((users - u1).abs().max())]
+        out.update(fused_ok=ok, fused_err=max(errs))
+    dist.barrier()
+    return out
+
+
+PAR_PARTS = {"nccl": (_par_rank_nccl, None), "gloo": (_par_rank_gloo, "gloo")}
+
+
+def parallel_rank(argv) -> int:
+    """A rank of ``phase_parallel``: ``--parallel-rank <part> <init> <world>
+    <rank> <outdir>``.  Writes ``<outdir>/<part>.r<rank>.json`` (or the
+    traceback beside it) and exits non-zero on a failure."""
+    import traceback
+
+    import torch
+
+    part, init, world, rank, outdir = argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4]
+    sys.path.insert(0, REPO)
+    path = os.path.join(outdir, f"{part}.r{rank}")
+    try:
+        from flink_parameter_server_tpu_torch.ops import _cuda
+        from flink_parameter_server_tpu_torch.parallel import multihost
+
+        fn, backend = PAR_PARTS[part]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if backend == "gloo":
+            torch.cuda.set_device(0)  # every rank on the one card
+        multihost.initialize(init, world, rank, backend=backend, device_type="cuda", timeout_s=PAR_TIMEOUT_S)
+        for name in ("scatter_add", "fused_mf"):  # built by the parent's phase_build, never here
+            check(_cuda.library_path(name).exists(), f"{name} is not built")
+        out = fn(torch, outdir)
+        torch.distributed.destroy_process_group()
+        with open(path + ".json", "w") as fh:
+            json.dump(out, fh)
+        return 0
+    except Exception:
+        with open(path + ".err", "w") as fh:
+            fh.write(traceback.format_exc())
+        return 1
+
+
+def _spawn_ranks(part: str, world: int, outdir: str) -> list:
+    """Run ``world`` ranks of ``part`` as child processes of this script,
+    each on the one card, under one wall-clock limit; every rank's result,
+    or a failure with the ranks' logs."""
+    init = "file://" + os.path.join(outdir, f"{part}.rendezvous")  # no port to race for
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(os.path.join(outdir, f"{part}.r{r}.log"))
+        with open(logs[-1], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", part, init, str(world), str(r),
+                 outdir], stdout=fh, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results, failures = [], []
+    for r, p in enumerate(procs):
+        base = os.path.join(outdir, f"{part}.r{r}")
+        if p.returncode == 0 and os.path.exists(base + ".json"):
+            with open(base + ".json") as fh:
+                results.append(json.load(fh))
+            continue
+        err = open(base + ".err").read() if os.path.exists(base + ".err") else ""
+        failures.append(f"rank {r} rc {p.returncode}: {err[-2000:]}\n{open(logs[r]).read()[-2000:]}")
+    if failures:
+        raise SmokeFailure(f"phase_parallel {part} ranks failed:\n" + "\n".join(failures))
+    return results
+
+
+def phase_parallel(torch, dev, card):
+    """The parameter server across devices (the ``parallel/`` plane, the
+    sharded store with K1 on each shard, the ps-sharded fused step with K2
+    on each shard, the sharded top-K), in child processes of this script,
+    each spawn under a wall-clock limit.
+
+    (a) A 1 x 1 NCCL mesh (one rank): the main path's MF at full width
+        (100,000 x 131,072, dim 64, ``scatter_impl="pallas"``, lr 0.01) over
+        4 Zipf 1.2 microbatches of 65,536 ratings: item and user tables
+        bitwise ``ps_online_mf`` without a mesh on the same batches (each
+        collective a size-1 NCCL call), and pulls and the top-K of 64
+        users through the mesh path bitwise the plain answers.
+    (b) ps > 1 on the one card: NCCL refuses two ranks on one card, so a
+        2 x 2 mesh of 4 ranks, each on ``cuda:0``, runs over a gloo group
+        with CUDA tensors (gloo stages them through the host) -- an
+        explicit choice of this phase, not a fallback.  The same MF: the
+        tables within rtol 1e-5 / atol 1e-6 of (a)'s, pulls and the
+        sharded top-K bitwise the answers from the whole table; K1 once a
+        rank a step on its ps block.
+    (c) The same 4 ranks as a 1 x 4 ps-only mesh: ``fused_mf_sgd_sharded``
+        at dim 128 over the same microbatches, K2 once a rank a step, the
+        tables and predictions within rtol 1e-5 / atol 1e-6 of the
+        unsharded fused step.
+    Each rank also times its pull and push and the step's all-reduce and
+    all-gather.  Returns the ranks' K1 and K2 launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="parallel-", dir=os.path.join(REPO, "build"))
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        t = time.perf_counter()
+        (a,) = _spawn_ranks("nccl", 1, tmp)
+        a_s = time.perf_counter() - t
+        t = time.perf_counter()
+        b = _spawn_ranks("gloo", 4, tmp)
+        b_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel: (a) 1 x 1 mesh, backend {a['backend']!r} (dist.get_backend()): MF {NUM_USERS} x "
+          f"{NUM_ITEMS} dim {DIM_UNFUSED} pallas, {PAR_STEPS} microbatches of {BATCH}: tables "
+          f"{'bitwise' if a['bitwise'] else 'NOT bitwise'} ps_online_mf without a mesh; pulls "
+          f"{'bitwise' if a['pulls_bitwise'] else 'DIFFER'}, top-{PAR_TOPK} of {PAR_QUERIES} users "
+          f"{'bitwise' if a['topk_bitwise'] else 'DIFFER'}; K1 {a['k1']} launches; collectives {a['calls']}; "
+          f"{PAR_STEPS} steps in turns (without, with, with, without) "
+          f"{[round(w, 4) for w in a['walls']['mesh']]} s with the mesh against "
+          f"{[round(w, 4) for w in a['walls']['plain']]} s without; pull {a['pull_ms']:.3f} ms, "
+          f"push {a['push_ms']:.3f} ms, all_reduce {a['all_reduce_ms']:.3f} ms; spawn and run {a_s:.1f} s; {card}")
+    check(a["backend"] == "nccl", f"(a) ran on {a['backend']}, not NCCL")
+    check(a["bitwise"] and a["pulls_bitwise"] and a["topk_bitwise"], "(a) the 1 x 1 mesh is not the unsharded run")
+    check(a["k1"] == PAR_STEPS, f"(a) K1 launched {a['k1']} times, expected {PAR_STEPS}")
+    for r, res in enumerate(b):
+        print(f"parallel: (b) 2 x 2 mesh rank {r}, backend {res['backend']!r} over CUDA tensors (every rank on "
+              f"cuda:0; NCCL takes one rank a card): tables against (a) max_abs_err={res['mf_err']:.3e} "
+              f"(rtol=1e-5 atol=1e-6) {'ok' if res['mf_ok'] else 'MISMATCH'}, bitwise={res['mf_bitwise']}; "
+              f"pulls {'bitwise' if res['pulls_bitwise'] else 'DIFFER'}, sharded top-{PAR_TOPK} "
+              f"{'bitwise' if res['topk_bitwise'] else 'DIFFER'}; block {res['block_rows']} rows; K1 {res['k1']}; "
+              f"collectives {res['calls']}; MF {res['wall_s']:.3f} s; pull {res['pull_ms']:.3f} ms, push "
+              f"{res['push_ms']:.3f} ms, all_reduce {res['all_reduce_ms']:.3f} ms, all_gather "
+              f"{res['all_gather_ms']:.3f} ms; (c) 1 x 4 fused dim {DIM_FUSED}: K2 {res['k2']}, "
+              f"{res['fused_wall_s']:.3f} s" + (f", against the unsharded fused step max_abs_err="
+                                                f"{res['fused_err']:.3e} {'ok' if res['fused_ok'] else 'MISMATCH'}"
+                                                if "fused_ok" in res else ""))
+        check(res["backend"] == "gloo", f"(b) rank {r} ran on {res['backend']}")
+        check(res["mf_ok"] and res["pulls_bitwise"] and res["topk_bitwise"], f"(b) rank {r} disagrees")
+        check(res["k1"] == PAR_STEPS and res["k2"] == PAR_STEPS, f"(b)/(c) rank {r} launched K1 {res['k1']}, "
+              f"K2 {res['k2']} times, expected {PAR_STEPS} each")
+    check(b[0]["fused_ok"], "(c) the ps-sharded fused step is off the unsharded one")
+    k1 = a["k1"] + sum(res["k1"] for res in b)
+    k2 = sum(res["k2"] for res in b)
+    print(f"parallel: K1 {k1} launches ({a['k1']} + {len(b)} ranks x {PAR_STEPS}), K2 {k2} ({len(b)} x "
+          f"{PAR_STEPS}); (a) {a_s:.1f} s, (b)+(c) {b_s:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}")
+    return {"scatter_add": k1, "fused_mf_sgd": k2}
+
+
 def _counters():
     """Every kernel wrapper of the port, by the name the kernels line uses."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
@@ -5172,7 +5517,7 @@ def phase_moe_lm(torch, dev):
 
 # ratings a chunk, two chunks: cut from 65,536, at which the per-record
 # Python callbacks took 190 and 100 s a chunk on the card
-HYBRID_CHUNK = 4_096  # the callbacks run ~230 records/s on the card: two chunks take ~35 s
+HYBRID_CHUNK = 1_024  # the callbacks run ~180 records/s on the card: two chunks take ~11 s
 HYBRID_TOL = dict(rtol=1e-5, atol=1e-6)  # K1's ordered run sums against index_add_'s atomics; atol for sums near 0
 HYBRID_PREFIX = 256  # ratings of the chunk_size=1 run held against the event backend
 
@@ -5181,10 +5526,11 @@ def phase_hybrid(torch, dev, card):
     """The hybrid backend: the event API's ``MFWorkerLogic`` (dim 64, its
     per-record callbacks in Python, user vectors on the card) under
     ``transform_hybrid`` against a ``scatter_impl="pallas"`` store at the MF
-    path's item table (131,072 x 64), two chunks of 4,096 ratings (cut
+    path's item table (131,072 x 64), two chunks of 1,024 ratings (cut
     from 65,536, where the callbacks took 100-190 s a chunk, then from
-    16,384, where they took 65-75 s, and from 8,192, where the arm took
-    74 s): K1 once a
+    16,384, where they took 65-75 s, from 8,192, where the arm took
+    74 s, and from 4,096, where it took 45.5 s, to pay for the parallel
+    phase): K1 once a
     chunk and no other kernel, and the table within rtol 1e-5 / atol 1e-6
     of the same chunks' pushes folded into the initial table with
     ``index_add_`` on the card.  Then ``chunk_size=1`` over the first 256 ratings against the
@@ -5420,6 +5766,8 @@ def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -5463,8 +5811,11 @@ def main() -> int:
         phase("tierstore", phase_tierstore, torch, dev, card)
         phase("nemesis", phase_nemesis, torch, dev, card)
         loadgen_k1 = phase("loadgen", phase_loadgen, torch, dev, card)
+        parallel = phase("parallel", phase_parallel, torch, dev, card)
         launches = phase("main (MF, LM, MoE LM, hybrid, MF traces)", phase_main, torch, dev)
         launches["scatter_add"] += loadgen_k1  # the source-fed runs are the main path's MF too
+        for name, n in parallel.items():  # the sharded arms' ranks run the main path's MF too
+            launches[name] += n
         rows = phase("timing", phase_timing, torch, dev, gen, launches, errs) + wl_rows
 
         def traces():

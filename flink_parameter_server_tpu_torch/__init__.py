@@ -27,7 +27,10 @@ primary dies.  A hot-key lease cache (``hotcache/``) serves Zipf-hot rows
 at the client edge under a staleness bound, and the telemetry plane
 serves ``/metrics`` and writes the run report.  The LM takes switch-MoE layers without a mesh, and
 ``transform_hybrid`` runs event-API callbacks against the store on the
-card.  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+card.  The parameter server's paths (the store, the batched loop, MF with
+its fused and locality steps, PA, the sketches, top-K serving,
+checkpoints) also run on a ``dp × ps`` mesh of ranks, one a device
+(``parallel/``, ``make_mesh``).  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
 
 Quickstart::
@@ -137,6 +140,7 @@ from .models.transformer import (
     next_token_xent,
 )
 from .ops.flash_attention import flash_mha
+from .parallel.mesh import DP_AXIS, PS_AXIS, make_mesh, single_device_mesh
 from .ops.mf_kernel import make_fused_mf_train_step
 from .serving import (
     QueryEngine,
@@ -217,6 +221,10 @@ __all__ = [
     "SGDUpdater",
     "ps_online_mf",
     "make_fused_mf_train_step",
+    "make_mesh",
+    "single_device_mesh",
+    "DP_AXIS",
+    "PS_AXIS",
     "QueryEngine",
     "ServingClient",
     "ServingServer",

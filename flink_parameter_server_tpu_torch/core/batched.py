@@ -65,5 +65,13 @@ class BatchedWorkerLogic(abc.ABC, Generic[State, Batch, Out]):
         (permute every leaf whose leading dim equals the key count)."""
         return None
 
+    def per_record_outputs(self, out: Out) -> Any:
+        """Optional dp-split contract: a tree of bools with ``out``'s
+        structure, True for the step's per-record outputs, which a train
+        step split over ``dp`` all-gathers (the rest stay the slice's
+        own); ``None`` (the default) keeps the shape rule (every tensor
+        leaf whose leading dim equals the slice's record count)."""
+        return None
+
 
 __all__ = ["PushRequest", "BatchedWorkerLogic"]

@@ -23,7 +23,7 @@ from torch import nn
 
 from .optim import OptimizerFactory
 from .transform import TransformResult, to_device
-from ..utils.device import check_mesh
+from ..utils.device import reject_mesh
 
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
 
@@ -73,7 +73,7 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, shard_opt_state: bool =
     """Fused pull -> grad -> push: ``step(params, opt, batch) -> (params,
     opt, loss)`` with ``opt`` the ``torch.optim`` optimizer over ``params``.
     Updates ``params`` and ``opt`` in place; ``loss`` is detached."""
-    check_mesh(mesh)
+    reject_mesh(mesh, "the dense train step over a mesh (the dp allreduce)")
     if shard_opt_state:
         raise NotImplementedError("ZeRO-1 optimizer-state sharding is multi-device: ROADMAP Queue 1 #9")
 
@@ -111,7 +111,7 @@ def transform_dense(
     was."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call={steps_per_call}: must be >= 1")
-    check_mesh(batch_sharding)
+    reject_mesh(batch_sharding, "transform_dense with a batch sharding (the dp allreduce)")
     params = copy.deepcopy(server.params)
     final = DenseParameterServer(params, server.optimizer, server.opt_state)
     step = make_dense_train_step(loss_fn)

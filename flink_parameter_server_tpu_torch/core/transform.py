@@ -32,7 +32,8 @@ from .entities import Pull, PullAnswer, Push, PSToWorker, WorkerToPS
 from .senders import SIMPLE, BufferingSender, SenderPolicy
 from .store import ShardedParamStore, StoreSpec
 from . import store as store_mod
-from ..utils.device import check_mesh
+from ..parallel import collectives as _coll
+from ..parallel.mesh import DP_AXIS, axis_index, axis_size
 
 WOut = TypeVar("WOut")
 PSOut = TypeVar("PSOut")
@@ -272,8 +273,65 @@ def _instances(factory_or_instance, n: int, what: str) -> List[Any]:
     return [factory_or_instance]
 
 
+def _per_record_map(logic: BatchedWorkerLogic, batch: Any, n: int, fn: Callable) -> Any:
+    """``fn`` applied to the batch's per-record leaves: those
+    ``logic.per_record_leaves`` marks (checked against the record count
+    ``n``), else every leaf whose leading dim is ``n``."""
+    marks = logic.per_record_leaves(batch)
+    if marks is None:
+        return tree_map(
+            lambda x: fn(x) if getattr(x, "ndim", 0) >= 1 and x.shape[0] == n else x, batch
+        )
+
+    def marked(x, m):
+        if not m:
+            return x
+        if getattr(x, "ndim", 0) < 1 or x.shape[0] != n:
+            raise ValueError(
+                f"per_record_leaves declared a leaf of shape "
+                f"{tuple(getattr(x, 'shape', ()))} per-record, but "
+                f"the batch has {n} records"
+            )
+        return fn(x)
+
+    return tree_map(marked, batch, marks)
+
+
+def _per_record_outputs(logic: BatchedWorkerLogic, out: Any, n: int, fn: Callable) -> Any:
+    """``fn`` applied to the per-record leaves of a step's output: those
+    ``logic.per_record_outputs`` marks (checked against the record count
+    ``n``), else every tensor leaf whose leading dim is ``n``."""
+    marks = logic.per_record_outputs(out)
+    if marks is None:
+        return tree_map(
+            lambda x: fn(x) if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == n else x, out
+        )
+
+    def marked(x, m):
+        if not m:
+            return x
+        if not isinstance(x, torch.Tensor) or x.ndim < 1 or x.shape[0] != n:
+            raise ValueError(
+                f"per_record_outputs declared an output leaf of shape "
+                f"{tuple(getattr(x, 'shape', ()))} per-record, but the step "
+                f"had {n} records"
+            )
+        return fn(x)
+
+    return tree_map(marked, out, marks)
+
+
+def _stateless(state: Any) -> bool:
+    return not any(isinstance(x, torch.Tensor) for x in tree_leaves(state))
+
+
 def make_train_step(
-    logic: BatchedWorkerLogic, spec: StoreSpec, *, presort: bool = False
+    logic: BatchedWorkerLogic,
+    spec: StoreSpec,
+    *,
+    presort: bool = False,
+    dp_axis: str = DP_AXIS,
+    gather_outputs: bool = True,
 ) -> Callable:
     """``step(table, state, batch) -> (table, state, out)``: pull, worker
     step, push, with ``table`` and ``state`` updated in place.
@@ -284,11 +342,29 @@ def make_train_step(
     ids it pulled.  Worker outputs then come back in sorted order.  Which
     leaves are per record: those ``logic.per_record_leaves`` marks (checked
     against the record count), else every leaf whose leading dim is the
-    key count."""
+    key count.
+
+    On the store's mesh (``spec.mesh``) every rank passes the same global
+    microbatch, as the reference's jit-compiled step does.  With a ``dp``
+    axis of size D the (presorted) batch splits into D contiguous slices:
+    this rank pulls and steps its slice, and the slices' push requests are
+    all-gathered over ``dp`` in dp order (the global lane order, so a
+    presorted batch stays sorted) and pushed.  With ``gather_outputs``
+    the per-record outputs are all-gathered likewise, so every rank gets
+    the whole batch's: the leaves ``logic.per_record_outputs`` marks
+    (checked against the slice's record count), else every leaf whose
+    leading dim is that count; other leaves stay the slice's own.  Without
+    it each rank keeps its slice's outputs.  The record count must divide
+    by D.  Worker state must be replicated and kept in step by the logic
+    (``OnlineMatrixFactorization(mesh=)``), or the logic stateless."""
+    mesh = spec.mesh
+    dp = axis_size(mesh, dp_axis)
 
     def step(table, state, batch):
-        if presort:
+        if presort or dp > 1:
             ids_pre = logic.keys(batch)
+            n = ids_pre.shape[0]
+        if presort:
             if ids_pre.ndim != 1:
                 raise ValueError(
                     f"presort=True needs 1-D store keys, got shape "
@@ -297,54 +373,46 @@ def make_train_step(
             ids0 = ids_pre.to(torch.int64)
             routed = torch.where(ids0 < 0, spec.padded_capacity, ids0)
             order = torch.argsort(routed, stable=True)
-            n = ids0.shape[0]
-            marks = logic.per_record_leaves(batch)
-            if marks is not None:
-
-                def permute_marked(x, m):
-                    if not m:
-                        return x
-                    if getattr(x, "ndim", 0) < 1 or x.shape[0] != n:
-                        raise ValueError(
-                            f"per_record_leaves declared a leaf of shape "
-                            f"{tuple(getattr(x, 'shape', ()))} per-record, but "
-                            f"the batch has {n} records"
-                        )
-                    return x[order]
-
-                batch = tree_map(permute_marked, batch, marks)
-                if logic.keys(batch) is ids_pre:
-                    raise ValueError(
-                        "per_record_leaves did not mark the leaf that "
-                        "logic.keys(batch) returns — the sort keys themselves "
-                        "must be declared per-record for presort=True"
-                    )
-            else:
-                batch = tree_map(
-                    lambda x: x[order]
-                    if getattr(x, "ndim", 0) >= 1 and x.shape[0] == n
-                    else x,
-                    batch,
+            declared = logic.per_record_leaves(batch) is not None
+            batch = _per_record_map(logic, batch, n, lambda x: x[order])
+            if declared and logic.keys(batch) is ids_pre:
+                raise ValueError(
+                    "per_record_leaves did not mark the leaf that "
+                    "logic.keys(batch) returns — the sort keys themselves "
+                    "must be declared per-record for presort=True"
                 )
+        if dp > 1:
+            if n % dp:
+                raise ValueError(f"a microbatch of {n} records does not split over dp={dp}")
+            per = n // dp
+            lo = axis_index(mesh, dp_axis) * per
+            batch = _per_record_map(logic, batch, n, lambda x: x[lo:lo + per])
         ids = logic.keys(batch)
         pulled = store_mod.pull(spec, table, ids)
         state, req, out = logic.step(state, batch, pulled)
         # the sorted promise holds only if the logic pushes the ids it pulled
-        table = store_mod.push(
-            spec, table, req.ids, req.deltas, req.mask,
-            ids_sorted=presort and (req.ids is ids),
-        )
+        sorted_ids = presort and (req.ids is ids)
+        r_ids, r_deltas, r_mask = req.ids, req.deltas, req.mask
+        if dp > 1:
+            r_ids = _coll.all_gather_cat(r_ids, mesh, dp_axis)
+            r_deltas = _coll.all_gather_cat(r_deltas, mesh, dp_axis)
+            if r_mask is not None:
+                r_mask = _coll.all_gather_cat(r_mask, mesh, dp_axis)
+            if gather_outputs:
+                out = _per_record_outputs(logic, out, per, lambda x: _coll.all_gather_cat(x, mesh, dp_axis))
+        table = store_mod.push(spec, table, r_ids, r_deltas, r_mask, ids_sorted=sorted_ids)
         return table, state, out
 
     return step
 
 
 def make_scan_train_step(
-    logic: BatchedWorkerLogic, spec: StoreSpec, *, presort: bool = False
+    logic: BatchedWorkerLogic, spec: StoreSpec, *, presort: bool = False, dp_axis: str = DP_AXIS,
+    gather_outputs: bool = True,
 ) -> Callable:
     """K train steps per call: ``batches`` holds (K, batch, ...) leaves;
     returns (K, ...)-stacked outputs."""
-    base = make_train_step(logic, spec, presort=presort)
+    base = make_train_step(logic, spec, presort=presort, dp_axis=dp_axis, gather_outputs=gather_outputs)
 
     def step(table, state, batches):
         k = next(x for x in tree_leaves(batches) if isinstance(x, torch.Tensor)).shape[0]
@@ -377,6 +445,7 @@ def transform_batched(
     *,
     rng: Optional[torch.Generator] = None,
     mesh: Optional[Any] = None,
+    dp_axis: str = DP_AXIS,
     collect_outputs: bool = True,
     dump_model: bool = True,
     on_step: Optional[Callable[[int, Any], None]] = None,
@@ -397,9 +466,29 @@ def transform_batched(
     when ``n_steps > 1``).  ``skip_batches`` fast-forwards the iterator;
     ``initial_state`` replaces ``worker_logic.init_state`` (it is copied).
     ``steps_per_call=K`` runs K microbatches per call; a trailing group
-    shorter than K runs one step at a time."""
-    check_mesh(mesh)
+    shorter than K runs one step at a time.
+
+    ``mesh`` (default ``store.spec.mesh``; the store must be built on the
+    same mesh) runs the loop on every rank of a ``dp × ps`` mesh, each
+    rank reading the same stream: the step splits each microbatch over
+    ``dp`` (:func:`make_train_step`) and every rank gets the whole
+    batch's outputs (gathered only when ``collect_outputs`` or a callback
+    reads them).  A logic with worker state or ``dedup_scale`` must look
+    across the ``dp`` slices itself (it is built with ``mesh=``)."""
     spec = store.spec
+    if mesh is None:
+        mesh = spec.mesh
+    elif mesh != spec.mesh:
+        raise ValueError("transform_batched: build the store on the same mesh (ShardedParamStore.create(mesh=))")
+    if axis_size(mesh, dp_axis) > 1 and getattr(worker_logic, "mesh", None) != mesh:
+        # a dp slice sees only its own lanes: worker state and batch-wide
+        # duplicate counts need the logic to look across the slices itself
+        if not _stateless(worker_logic.init_state(rng)) or getattr(worker_logic, "dedup_scale", False):
+            raise ValueError(
+                f"a {type(worker_logic).__name__} with worker state or dedup_scale "
+                f"splits over dp={axis_size(mesh, dp_axis)} only when it looks "
+                f"across the dp slices itself: build it with mesh="
+            )
     device = store.table.device
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call={steps_per_call}: must be >= 1")
@@ -408,8 +497,11 @@ def transform_batched(
             "steps_per_call > 1 cannot surface the live table between "
             "steps; use steps_per_call=1 with state_callback"
         )
-    step = make_train_step(worker_logic, spec, presort=presort)
-    scan_step = make_scan_train_step(worker_logic, spec, presort=presort)
+    # a dp split gathers the slices' outputs only for a reader of them
+    gather = collect_outputs or any(f is not None for f in (on_step, state_callback, group_callback))
+    step = make_train_step(worker_logic, spec, presort=presort, dp_axis=dp_axis, gather_outputs=gather)
+    scan_step = make_scan_train_step(worker_logic, spec, presort=presort, dp_axis=dp_axis,
+                                     gather_outputs=gather)
     state = _clone(initial_state) if initial_state is not None else worker_logic.init_state(rng)
     table = store.table.clone()
     worker_outputs: List[Any] = []

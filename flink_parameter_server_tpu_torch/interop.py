@@ -17,6 +17,11 @@ From the JAX side::
 and back: ``to_numpy(store.table)`` is the reference's physical table
 (``jax.numpy.asarray(arr, spec.dtype)``), ``to_numpy(state)`` its state.
 
+A store sharded over the reference's ``ps`` axis crosses the same way onto
+a port mesh with the same ``ps`` size: ``spec_from_reference(ref_spec,
+mesh=mesh)``, then every rank passes the whole physical table to
+:func:`store_from_numpy` and keeps its row block.
+
 The LM's parameter pytree crosses the same way, leaf for leaf
 (:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`).
 """
@@ -29,7 +34,8 @@ import torch
 
 from .core.store import ShardedParamStore, StoreSpec
 from .models.transformer import MOE_KEYS, TransformerConfig, TransformerLM
-from .utils.device import DeviceLike, check_mesh, resolve_device
+from .parallel.mesh import axis_size
+from .utils.device import DeviceLike, mesh_resolve_device, resolve_device
 
 _DTYPES = {
     "float32": torch.float32,
@@ -52,11 +58,18 @@ def torch_dtype(dtype: Any) -> torch.dtype:
     return _DTYPES[name]
 
 
-def spec_from_reference(ref: Any) -> StoreSpec:
+def spec_from_reference(ref: Any, *, mesh: Any = None) -> StoreSpec:
     """The port's :class:`StoreSpec` for a reference ``StoreSpec`` (read
     by attribute, so nothing of the JAX package is imported).  Only
-    ``update="add"`` crosses: a custom update is a JAX function."""
-    check_mesh(ref.mesh)
+    ``update="add"`` crosses: a custom update is a JAX function.  A
+    reference store sharded over ``ps`` needs a port ``mesh`` with the
+    same ``ps`` size (the shapes then match element for element)."""
+    ref_ps = 1 if ref.mesh is None else int(ref.mesh.shape[ref.ps_axis])
+    if ref_ps != axis_size(mesh, ref.ps_axis):
+        raise ValueError(
+            f"the reference store has {ref_ps} ps shards; pass a port mesh with "
+            f"the same ps size (got {axis_size(mesh, ref.ps_axis)})"
+        )
     if ref.update != "add":
         raise ValueError("only update='add' stores cross between the packages")
     return StoreSpec(
@@ -64,19 +77,24 @@ def spec_from_reference(ref: Any) -> StoreSpec:
         value_shape=tuple(ref.value_shape),
         dtype=torch_dtype(ref.dtype),
         scatter_impl=ref.scatter_impl,
+        mesh=mesh,
+        ps_axis=ref.ps_axis,
         layout=ref.layout,
     )
 
 
 def store_from_numpy(spec: StoreSpec, table: np.ndarray, *, device: DeviceLike = None) -> ShardedParamStore:
-    """A store from the reference's physical table."""
+    """A store from the reference's physical table (the whole table; on
+    a mesh each rank keeps its block of ``rows_per_shard`` rows)."""
     table = np.asarray(table)
     if tuple(table.shape) != tuple(spec.table_shape()):
         raise ValueError(
             f"table shape {tuple(table.shape)} != spec.table_shape() {spec.table_shape()}"
         )
-    t = torch.from_numpy(np.array(table))  # a copy: the source may be read-only
-    return ShardedParamStore(spec, t.to(resolve_device(device), spec.dtype).contiguous())
+    lo = spec.shard_index * spec.rows_per_shard
+    block = np.array(table[lo:lo + spec.rows_per_shard])  # a copy: the source may be read-only
+    dev = mesh_resolve_device(spec.mesh, device)
+    return ShardedParamStore(spec, torch.from_numpy(block).to(dev, spec.dtype).contiguous())
 
 
 def state_from_numpy(state: np.ndarray, *, dtype: Any = torch.float32, device: DeviceLike = None) -> torch.Tensor:

@@ -5,10 +5,10 @@ reference lays the whole parameter table out as ONE global array
 ``jax.NamedSharding(mesh, P("shard"))`` over a 1-D device mesh: row
 blocks of ``mesh_row_block`` rows per device, exactly the split
 :meth:`~..core.store.StoreSpec.rows_per_shard` computes (ceil, rounded
-to the 8-row window).  The port is single-device for now: the "mesh" is
+to the 8-row window).  The port's mesh store is single-device: the "mesh" is
 :class:`StoreLayout`, one device holding the one row block
 (``n_devices == 1``), and a ``devices`` or ``mesh`` argument naming more
-than one device raises (:func:`~..utils.device.check_mesh`, ROADMAP
+than one device raises (:func:`~..utils.device.reject_mesh`, ROADMAP
 Queue 1 #9).  The block arithmetic stays parametrised by ``n_devices``,
 so the alignment rule reads the same as the reference's.  The helpers
 here pin the two layout contracts everything else in :mod:`..meshstore`
@@ -31,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..cluster.partition import RangePartitioner, mesh_row_block
-from ..utils.device import DeviceLike, check_mesh, resolve_device
+from ..utils.device import DeviceLike, reject_mesh, resolve_device
 
 SHARD_AXIS = "shard"
 
@@ -63,13 +63,13 @@ def make_store_mesh(
 ) -> StoreLayout:
     """The store layout over ``devices`` (default: ``device``, the card
     unless the caller asks for the CPU).  More than one device raises
-    through :func:`~..utils.device.check_mesh` (ROADMAP Queue 1 #9)."""
+    through :func:`~..utils.device.reject_mesh` (ROADMAP Queue 1 #9)."""
     if devices is not None:
         devs = list(devices)
         if not devs:
             raise ValueError("make_store_mesh: no devices")
         if len(devs) > 1:
-            check_mesh(devs)
+            reject_mesh(devs, "the mesh store over several devices")
         device = devs[0]
     return StoreLayout(resolve_device(device))
 

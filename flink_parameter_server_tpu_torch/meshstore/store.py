@@ -4,8 +4,8 @@ Counterpart of ``flink_parameter_server_tpu/meshstore/store.py``.  Where
 the socket backend fronts N :class:`~..cluster.shard.ParamShard` slices
 with TCP servers, this store holds the WHOLE table as a single tensor on
 the device (the card unless the caller asks for the CPU; the reference
-row-block shards it over a device mesh, the port is single-device for
-now, ROADMAP Queue 1 #9) and the batch surface becomes two device ops:
+row-block shards it over a device mesh; across devices the port's mesh
+store is ROADMAP Queue 1 #9) and the batch surface becomes two device ops:
 
 * **pull** — :func:`~..core.store.pull`: clip + row gather.  Duplicate
   ids cost one gathered row each, so the host never dedupes.  The result
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..core.transform import to_device, to_host
-from ..utils.device import DeviceLike, check_mesh
+from ..utils.device import DeviceLike, reject_mesh
 from .layout import SHARD_AXIS, StoreLayout, check_alignment, make_store_mesh
 
 
@@ -92,7 +92,7 @@ class MeshParamStore:
         self.capacity = int(capacity)
         self.value_shape = tuple(int(s) for s in value_shape)
         if mesh is not None and not isinstance(mesh, StoreLayout):
-            check_mesh(mesh)  # a device mesh: ROADMAP Queue 1 #9
+            reject_mesh(mesh, "the mesh store over a device mesh")
         self.mesh = (
             mesh if mesh is not None
             else make_store_mesh(devices, device=device)

@@ -8,6 +8,15 @@ user rows locally and push the item deltas.  Duplicate users or items in
 one microbatch combine additively (or by mean with ``dedup_scale``).
 :class:`MFWorkerLogic` is the same model in the event API, one rating at
 a time.
+
+On a ``dp × ps`` mesh (``mesh=``, :mod:`..parallel.mesh`) the item store is
+row-blocked over ``ps`` and each microbatch splits over ``dp``.  The user
+table is replicated on every rank: a rank computes its slice's user deltas
+and applies the dp all-gather of every slice's deltas, in the global lane
+order, and ``dedup_scale`` counts duplicates over every slice's lanes, so
+the sharded step equals the single-device one.
+:func:`make_locality_mf_step` is the alternative that block-shards the
+users over ``dp`` instead, for partition-aligned batches.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ from ..core.store import ShardedParamStore
 from ..ops.dedup import occurrence_scale
 from ..ops.rows import add_rows_, take_rows
 from ..ops.sorted_scatter import sorted_dedup_scatter_add
-from ..utils.device import DeviceLike, check_mesh, resolve_device
+from ..parallel import collectives as _coll
+from ..parallel.mesh import DP_AXIS, PS_AXIS, axis_index, axis_size
+from ..utils.device import DeviceLike, mesh_resolve_device, resolve_device
 from ..utils.initializers import ranged_random_factor
 
 
@@ -67,8 +78,14 @@ class OnlineMatrixFactorization(BatchedWorkerLogic):
         num_items: Optional[int] = None,
         state_scatter: str = "xla",
         device: DeviceLike = None,
+        dp_axis: str = DP_AXIS,
     ):
-        check_mesh(mesh)
+        """``mesh``: a ``dp × ps`` mesh the logic runs on (the user table
+        replicated on every rank, user deltas all-gathered over
+        ``dp_axis``); ``device`` defaults to the mesh's device then."""
+        self.device = mesh_resolve_device(mesh, device)
+        self.mesh = mesh
+        self.dp_axis = dp_axis
         self.num_users = num_users
         self.dim = dim
         self.updater = updater
@@ -76,7 +93,6 @@ class OnlineMatrixFactorization(BatchedWorkerLogic):
         self.init_low = init_low
         self.init_high = init_high
         self.dtype = dtype
-        self.device = resolve_device(device)
         # mean-combine duplicate-id deltas within a batch (ops/dedup.py)
         self.dedup_scale = dedup_scale
         self.num_items = num_items
@@ -107,18 +123,28 @@ class OnlineMatrixFactorization(BatchedWorkerLogic):
 
         user_vecs = take_rows(state, users)
         user_delta, item_delta, pred = self.updater.delta(ratings, user_vecs, pulled)
-        if self.dedup_scale:
-            u_scale = occurrence_scale(users, self.num_users, mask)
-            i_scale = occurrence_scale(batch["item"], self.num_items, mask)
+        if self.dedup_scale:  # counts over the whole microbatch, every dp slice's lanes
+            u_scale = occurrence_scale(users, self.num_users, mask, mesh=self.mesh, axis=self.dp_axis)
+            i_scale = occurrence_scale(batch["item"], self.num_items, mask, mesh=self.mesh,
+                                       axis=self.dp_axis)
             user_delta = user_delta * u_scale.unsqueeze(-1).to(self.dtype)
             item_delta = item_delta * i_scale.unsqueeze(-1).to(self.dtype)
         m = mask.unsqueeze(-1).to(self.dtype)
+        s_users, s_delta, s_mask = users, user_delta * m, mask
+        if axis_size(self.mesh, self.dp_axis) > 1:
+            # every slice's user deltas, in dp (= global lane) order
+            s_users = _coll.all_gather_cat(users, self.mesh, self.dp_axis)
+            s_delta = _coll.all_gather_cat(s_delta, self.mesh, self.dp_axis)
+            s_mask = _coll.all_gather_cat(mask, self.mesh, self.dp_axis)
         if self.state_scatter == "xla_sorted":
-            sorted_dedup_scatter_add(state, users, user_delta * m, mask)
+            sorted_dedup_scatter_add(state, s_users, s_delta, s_mask)
         else:
-            add_rows_(state, users, user_delta * m)
+            add_rows_(state, s_users, s_delta)
         out = {"prediction": pred, "error": (ratings - pred) * mask}
         return state, PushRequest(batch["item"], item_delta, mask), out
+
+    def per_record_outputs(self, out):
+        return {"prediction": True, "error": True}
 
     def finish(self, state: torch.Tensor):
         # close()-time worker dump: the final user factors
@@ -197,11 +223,13 @@ def ps_online_mf(
 
     Returns the :class:`TransformResult`: ``result.store.values()`` is the
     final item-factor matrix, ``result.worker_state`` the user factors.
-    ``state_scatter`` defaults to following ``scatter_impl``."""
+    ``state_scatter`` defaults to following ``scatter_impl``.  ``mesh``:
+    run on every rank of a ``dp × ps`` mesh, each reading the same
+    ``ratings`` (the items row-blocked over ``ps``, each microbatch split
+    over ``dp``; every rank gets the whole result)."""
     from ..core.transform import transform_batched
 
-    check_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh_resolve_device(mesh, device)
     if state_scatter is None:
         state_scatter = "xla_sorted" if scatter_impl == "xla_sorted" else "xla"
     logic = OnlineMatrixFactorization(
@@ -213,16 +241,96 @@ def ps_online_mf(
         num_items=num_items if dedup_scale else None,
         state_scatter=state_scatter,
         device=device,
+        mesh=mesh,
     )
     store = ShardedParamStore.create(
         num_items,
         (dim,),
         init_fn=ranged_random_factor(seed + 1, (dim,)),
         scatter_impl=scatter_impl,
+        mesh=mesh,
         layout=layout,
         device=device,
     )
-    return transform_batched(ratings, logic, store, **transform_kwargs)
+    return transform_batched(ratings, logic, store, mesh=mesh, **transform_kwargs)
 
 
-__all__ = ["SGDUpdater", "OnlineMatrixFactorization", "MFWorkerLogic", "ps_online_mf"]
+def make_locality_mf_step(
+    logic: OnlineMatrixFactorization,
+    spec,
+    mesh,
+    *,
+    dp_axis: str = DP_AXIS,
+    ps_axis: str = PS_AXIS,
+):
+    """The whole MF step as one SPMD body over ``dp × ps``: the alternative
+    to the replicated-user path for partition-aligned batches.
+
+    Contract: batches are aligned by user
+    (:func:`..data.streams.partitioned_microbatches` with ``key="user"``,
+    ``capacity=num_users``), ``num_users`` divides by the dp size, and
+    each rank holds the dp block of the user table, rows ``[d·U/D,
+    (d+1)·U/D)`` of ``logic.init_state()``.  Every rank passes the same
+    global batch (with a ``mask``) and takes its dp slice.  The pull is one
+    all-reduce over ``ps``; the user gather and scatter are local by the
+    contract (users outside the partition are masked: their lanes update
+    nothing); the push is one dp all-gather of (item ids, deltas), then
+    each ps rank adds its own rows.  Dense item tables only.
+
+    ``step(local_table, local_state, batch) -> (local_table, local_state,
+    out)``, both blocks updated in place, ``out`` the whole batch's."""
+    dp = axis_size(mesh, dp_axis)
+    ps = axis_size(mesh, ps_axis)
+    if spec.layout != "dense" or spec.padded_capacity % ps:
+        raise ValueError(
+            f"the locality step takes a dense store built on this mesh "
+            f"(padded capacity {spec.padded_capacity}, ps={ps})"
+        )
+    if logic.num_users % dp:
+        raise ValueError(f"num_users={logic.num_users} does not split over dp={dp}")
+    users_per_shard = logic.num_users // dp
+    updater = logic.updater
+    dtype = logic.dtype
+
+    def step(local_table, local_state, batch):
+        n = batch["user"].shape[0]
+        if n % dp:
+            raise ValueError(f"a microbatch of {n} records does not split over dp={dp}")
+        per = n // dp
+        d = axis_index(mesh, dp_axis)
+        cut = slice(d * per, (d + 1) * per)
+        users = batch["user"][cut].to(torch.int64)
+        items = batch["item"][cut].to(torch.int64)
+        ratings = batch["rating"][cut].to(dtype)
+        mask = batch["mask"][cut]
+
+        # pull: each ps rank answers its rows, one all-reduce assembles
+        pulled = _coll.shard_pull(local_table, items, mesh=mesh, ps_axis=ps_axis)
+
+        # the local user block (alignment contract: this slice's users live here)
+        urel, uvalid = _coll.owned_rows(users, users_per_shard, mesh, dp_axis)
+        uvalid = uvalid & mask
+        user_vecs = local_state.index_select(0, urel.clamp(0, users_per_shard - 1))
+        user_delta, item_delta, pred = updater.delta(ratings, user_vecs, pulled)
+        um = uvalid.unsqueeze(1).to(dtype)
+        add_rows_(local_state, torch.where(uvalid, urel, users_per_shard), user_delta * um)
+
+        # push: the dp all-gather of (ids, deltas), then each ps rank's rows;
+        # an out-of-partition user's item delta came from a wrong user row
+        _coll.shard_push_add(local_table, items, (item_delta * um).to(local_table.dtype), mesh=mesh,
+                             ps_axis=ps_axis, dp_axis=dp_axis)
+
+        out = {"prediction": pred, "error": (ratings - pred) * uvalid}
+        out = {k: _coll.all_gather_cat(v, mesh, dp_axis) for k, v in out.items()}
+        return local_table, local_state, out
+
+    return step
+
+
+__all__ = [
+    "SGDUpdater",
+    "OnlineMatrixFactorization",
+    "MFWorkerLogic",
+    "make_locality_mf_step",
+    "ps_online_mf",
+]

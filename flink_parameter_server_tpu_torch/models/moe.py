@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import DeviceLike, check_mesh, resolve_device
+from ..utils.device import DeviceLike, reject_mesh, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +44,7 @@ def init_moe_params(generator: Optional[torch.Generator], cfg: MoEConfig, mesh: 
     ``generator`` (seed 0 on the CPU if None) times ``d**-0.5`` (gate, up)
     and ``f**-0.5`` (down), cast to ``cfg.dtype`` — the reference's shapes,
     scales and dtypes, not its random keys."""
-    check_mesh(mesh)
+    reject_mesh(mesh, "expert parallelism")
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
 

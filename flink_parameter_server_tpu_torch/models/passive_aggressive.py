@@ -120,7 +120,9 @@ def transform_binary(data, *, num_features: int, rule: PARule = PARule(), mesh=N
                      scatter_impl: str = "xla", layout: str = "dense", device: DeviceLike = None,
                      **kwargs):
     """The reference's ``transformBinary``: returns the TransformResult;
-    ``result.store.values()`` is the final weight vector."""
+    ``result.store.values()`` is the final weight vector.  ``mesh``: a
+    ``dp × ps`` mesh to run on, every rank reading the same ``data``
+    (weights row-blocked over ``ps``, each batch split over ``dp``)."""
     store = ShardedParamStore.create(num_features, (), init_fn=zeros(()), mesh=mesh,
                                      scatter_impl=scatter_impl, layout=layout, device=device)
     return transform_batched(data, PassiveAggressiveBinary(rule), store, mesh=mesh, **kwargs)

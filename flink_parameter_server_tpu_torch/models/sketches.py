@@ -83,7 +83,8 @@ class CountMinSketch(BatchedWorkerLogic):
 
     def make_store(self, *, mesh=None, **store_opts) -> ShardedParamStore:
         """``store_opts`` (``scatter_impl``, ``layout``, ``device``) pass
-        through to :meth:`ShardedParamStore.create`."""
+        through to :meth:`ShardedParamStore.create`; ``mesh`` row-blocks
+        the counters over its ``ps`` axis (integer sums: exact)."""
         return ShardedParamStore.create(
             self.config.capacity, (), init_fn=zeros(()), mesh=mesh, **store_opts
         )

@@ -7,7 +7,9 @@ the item table.  Serving here is :func:`..ops.topk.dense_topk`, exact MIPS
 by one product over the whole table (output parity with the reference's
 LEMP pruning, not mechanism parity).  :func:`query_topk` answers a batch
 of user queries; :func:`make_mf_topk_step` interleaves them with training
-the way the reference interleaves query events in the rating stream.
+the way the reference interleaves query events in the rating stream.  A
+store row-blocked over a mesh's ``ps`` axis ranks through
+:func:`..ops.topk.sharded_topk` on every rank.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from ..core import store as store_mod
 from ..core.store import ShardedParamStore
 from ..ops.packed import unpack_table
 from ..ops.rows import take_rows
-from ..ops.topk import dense_topk, top_k
+from ..ops.topk import dense_topk, sharded_topk, top_k
+from ..parallel.mesh import axis_size
 from .matrix_factorization import OnlineMatrixFactorization
 
 
@@ -28,10 +31,21 @@ def _logical_table(spec, table: torch.Tensor) -> torch.Tensor:
     plus a slice of the pad lanes), (padded_capacity, d); ``valid_rows``
     masks the padding rows at the top-k call sites.  Even at pack == 1
     (widths 65-127) the physical rows are lane-padded to 128, so the gate
-    is the layout alone."""
+    is the layout alone.  On a mesh ``table`` is this rank's block and so
+    is the result."""
     if spec.layout == "packed":
-        return unpack_table(table, spec.padded_capacity, spec.row_width)
+        return unpack_table(table, spec.block_logical[1], spec.row_width)
     return table
+
+
+def _rank(spec, table: torch.Tensor, queries: torch.Tensor, k: int):
+    """Top-k over the logical table: one product, or the sharded ranking
+    when the store is row-blocked over a mesh."""
+    table = _logical_table(spec, table)
+    if spec.mesh is not None:
+        return sharded_topk(table, queries, k, mesh=spec.mesh, ps_axis=spec.ps_axis,
+                            valid_rows=spec.capacity)
+    return dense_topk(table, queries, k, valid_rows=spec.capacity)
 
 
 def query_topk(
@@ -50,12 +64,11 @@ def query_topk(
     """
     spec = item_store.spec
     queries = take_rows(user_vectors, user_ids)
-    table = _logical_table(spec, item_store.table)
     if exclude is None:
-        return dense_topk(table, queries, k, valid_rows=spec.capacity)
+        return _rank(spec, item_store.table, queries, k)
 
     # over-fetch k+E candidates, then drop the excluded ones
-    scores, ids = dense_topk(table, queries, k + exclude.shape[1], valid_rows=spec.capacity)
+    scores, ids = _rank(spec, item_store.table, queries, k + exclude.shape[1])
     exclude = exclude.to(ids.device, torch.int64)
     banned = (ids.unsqueeze(2) == exclude.unsqueeze(1)).any(-1)
     scores = scores.masked_fill(banned, float("-inf"))
@@ -75,7 +88,11 @@ def make_mf_topk_step(logic: OnlineMatrixFactorization, spec, k: int):
     one microbatch, as training pulls) with the post-update user vectors.
     Like :func:`..core.transform.make_train_step`, the step updates
     ``table`` and ``state`` in place; the product reads the table before
-    the push is queued, so stream order keeps the answer pre-push."""
+    the push is queued, so stream order keeps the answer pre-push.  On a
+    mesh it takes a ps-only one: it does not split batches over ``dp``
+    (:func:`..core.transform.make_train_step` does)."""
+    if axis_size(spec.mesh, "dp") > 1:
+        raise ValueError("make_mf_topk_step takes a ps-only mesh; a dp axis needs make_train_step's split")
 
     def step(table: torch.Tensor, state: torch.Tensor, batch: Dict[str, torch.Tensor]):
         ids = logic.keys(batch)
@@ -83,9 +100,7 @@ def make_mf_topk_step(logic: OnlineMatrixFactorization, spec, k: int):
         new_state, req, out = logic.step(state, batch, pulled)
         if "query_user" in batch:
             q = take_rows(new_state, batch["query_user"])
-            scores, top_ids = dense_topk(
-                _logical_table(spec, table), q, k, valid_rows=spec.capacity
-            )
+            scores, top_ids = _rank(spec, table, q, k)
             out = dict(out, topk_scores=scores, topk_ids=top_ids)
         table = store_mod.push(spec, table, req.ids, req.deltas, req.mask)
         return table, new_state, out

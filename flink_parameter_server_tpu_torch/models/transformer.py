@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import reference_attention
-from ..utils.device import DeviceLike, check_mesh, resolve_device
+from ..utils.device import DeviceLike, reject_mesh, resolve_device
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")  # layers[i].moe's leaves
 
@@ -239,7 +239,7 @@ def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfi
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
             mesh: Optional[Any] = None) -> torch.Tensor:
     """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits."""
-    check_mesh(mesh)
+    reject_mesh(mesh, "the LM forward over a mesh (tensor parallelism, ring attention, the pipeline)")
     tokens = torch.as_tensor(tokens, device=params.embed.device)
     T = tokens.shape[1]
     if T > cfg.max_seq:

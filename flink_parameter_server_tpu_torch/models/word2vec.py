@@ -13,7 +13,7 @@ host stream (unigram^0.75) or :func:`sample_negatives` on the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,7 @@ from ..core.batched import BatchedWorkerLogic, PushRequest
 from ..core.store import ShardedParamStore
 from ..core.transform import transform_batched
 from ..ops.dedup import occurrence_scale
+from ..parallel.mesh import DP_AXIS
 from ..utils.device import DeviceLike
 from ..utils.initializers import ranged_random_factor
 
@@ -34,13 +35,17 @@ class SkipGramNS(BatchedWorkerLogic):
 
     ``dedup_scale`` (needs ``vocab_size``): scale each lane's delta by
     1/count(id in the batch), so a Zipf-hot word takes one averaged step
-    a microbatch instead of count× summed steps (:mod:`..ops.dedup`)."""
+    a microbatch instead of count× summed steps (:mod:`..ops.dedup`).
+    ``mesh``: the ``dp × ps`` mesh the logic runs on; the counts are then
+    over the whole microbatch, every ``dp_axis`` slice's lanes."""
 
     def __init__(self, learning_rate: float = 0.025, *, dedup_scale: bool = False,
-                 vocab_size: Optional[int] = None):
+                 vocab_size: Optional[int] = None, mesh: Any = None, dp_axis: str = DP_AXIS):
         self.learning_rate = learning_rate
         self.dedup_scale = dedup_scale
         self.vocab_size = vocab_size
+        self.mesh = mesh
+        self.dp_axis = dp_axis
         if dedup_scale and vocab_size is None:
             raise ValueError("dedup_scale=True requires vocab_size")
 
@@ -80,13 +85,16 @@ class SkipGramNS(BatchedWorkerLogic):
         lane_mask = None if mask is None else mask.unsqueeze(1).expand(B, N + 2)
         keys = self.keys(batch)
         if self.dedup_scale:
-            scale = occurrence_scale(keys, self.vocab_size, lane_mask)
+            scale = occurrence_scale(keys, self.vocab_size, lane_mask, mesh=self.mesh, axis=self.dp_axis)
             deltas = deltas * scale[..., None, None]
 
         loss = -(F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit).sum(dim=-1))
         if mask is not None:
             loss = loss * mask
         return state, PushRequest(keys, deltas, lane_mask), {"loss": loss}
+
+    def per_record_outputs(self, out):
+        return {"loss": True}
 
 
 def make_store(vocab_size: int, dim: int, *, seed: int = 0, mesh=None, init_scale: float = 0.5,
@@ -119,7 +127,7 @@ def train_skipgram(pairs, *, vocab_size: int, dim: int = 64, learning_rate: floa
                    layout: str = "dense", device: DeviceLike = None, **kwargs):
     """SGNS over an iterable of pair microbatches.
     ``result.store.values()`` is the (vocab, 2, dim) embedding table."""
-    logic = SkipGramNS(learning_rate, dedup_scale=dedup_scale, vocab_size=vocab_size)
+    logic = SkipGramNS(learning_rate, dedup_scale=dedup_scale, vocab_size=vocab_size, mesh=mesh)
     store = make_store(vocab_size, dim, seed=seed, mesh=mesh, scatter_impl=scatter_impl,
                        layout=layout, device=device)
     return transform_batched(pairs, logic, store, mesh=mesh, **kwargs)

@@ -10,10 +10,12 @@ duplicate ids before a pull or push goes on the wire.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import axis_index, axis_size
 
 
 def occurrence_counts(
@@ -36,9 +38,29 @@ def occurrence_counts(
 
 
 def occurrence_scale(
-    ids: torch.Tensor, capacity: int, mask: Optional[torch.Tensor] = None
+    ids: torch.Tensor,
+    capacity: int,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    mesh: Any = None,
+    axis: str = "dp",
 ) -> torch.Tensor:
-    """1/count(id) per lane: turns duplicate-id delta *sums* into *means*."""
+    """1/count(id) per lane: turns duplicate-id delta *sums* into *means*.
+
+    ``mesh``: ``ids`` (and ``mask``) are this rank's contiguous slice,
+    along ``axis``, of a batch split over that axis (a train step's dp
+    slice).  The counts are then the whole batch's, as on one device: the
+    slices are all-gathered in axis order and this rank's lanes read back."""
+    if axis_size(mesh, axis) > 1:
+        from ..parallel.collectives import all_gather_cat
+
+        n = ids.shape[0]
+        start = axis_index(mesh, axis) * n
+        counts = occurrence_counts(
+            all_gather_cat(ids, mesh, axis), capacity,
+            None if mask is None else all_gather_cat(mask, mesh, axis),
+        )
+        return 1.0 / counts[start:start + n]
     return 1.0 / occurrence_counts(ids, capacity, mask)
 
 

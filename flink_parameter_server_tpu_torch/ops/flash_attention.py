@@ -45,7 +45,7 @@ from typing import Tuple
 import torch
 
 from . import _cuda
-from ..utils.device import check_mesh
+from ..utils.device import reject_mesh
 
 BLOCK = 64  # query rows and key rows per tile, as in the kernels
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -74,16 +74,17 @@ def eligible(seq_len: int, head_dim: int, device, mesh=None) -> bool:
 
 
 def eligible_dp(seq_len: int, head_dim: int, batch: int, mesh, dp_axis: str = "dp") -> bool:
-    """The dp-mesh gate of the reference; the port has no meshes yet."""
-    check_mesh(mesh)
+    """The dp-mesh gate of the reference: flash attention over a dp mesh
+    is the LM's half of ROADMAP Queue 1 #9."""
+    reject_mesh(mesh, "flash attention over a dp mesh")
     return False
 
 
 def flash_mha_dp(q, k, v, *, mesh, dp_axis: str = "dp"):
-    """Flash attention per dp shard: waits for multi-device support."""
-    check_mesh(mesh)
+    """Flash attention per dp shard: the LM's half of ROADMAP Queue 1 #9."""
+    reject_mesh(mesh, "flash attention over a dp mesh")
     raise NotImplementedError(
-        "flash_mha_dp shards the batch over a dp mesh; the port is single-device "
+        "flash_mha_dp shards the batch over a dp mesh; the LM's half of multi-device "
         "(ROADMAP Queue 1 #9), call flash_mha"
     )
 

@@ -25,6 +25,9 @@ dominate).  Hot runs are split over warps and tiles and recombined in a
 fixed order by ``csrc/runs.cuh``: the result is the same, bit for bit, on
 every run with the same inputs.
 
+:func:`fused_mf_sgd_sharded` runs the kernel once per ps rank on that
+rank's row block of the item table (ps-only meshes, as the reference).
+
 Dispatch: an item table on the CPU takes :func:`fused_mf_sgd_plain`; a
 CUDA table launches the kernel or raises.  ``sorted_fused_mf_sgd.launches``
 counts launches.
@@ -213,6 +216,70 @@ def fused_mf_sgd_packed(
     return user_table, packed_item_table, _finish(user_table, order, s_users, udelta, preds)
 
 
+def fused_mf_sgd_sharded(
+    user_table: torch.Tensor,
+    item_table: torch.Tensor,
+    users: torch.Tensor,
+    items: torch.Tensor,
+    ratings: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    mesh,
+    ps_axis: str = "ps",
+    learning_rate: float = 0.01,
+    regularization: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused step over an item table row-blocked over a ps-only mesh,
+    on every rank: ``item_table`` is this rank's (R, d) dense block, the
+    batch and the user table are the same on every rank.
+
+    Each rank runs the kernel on its block with the lanes outside its rows
+    masked (their item routed to the block's last row with m = 0, so they
+    contribute a zero user delta).  A lane's item lives on exactly one
+    shard, so per-lane user deltas and predictions are zero off the owner
+    and ONE all-reduce over ``ps`` assembles them; every rank then applies
+    the same user deltas, which keeps the user table replicated.  Updates
+    both tables in place; returns ``(user_table, item_table, predictions)``
+    in lane order.
+
+    A mesh with any other axis of size > 1 raises (item blocks replicated
+    over it would diverge).  On invalid lanes only it differs from
+    :func:`fused_mf_sgd`, as the reference's does: a globally out-of-range
+    item predicts 0.0 (no shard owns it)."""
+    from ..parallel.collectives import all_reduce_sum, assemble_owned, owned_rows
+    from ..utils.device import check_mesh
+
+    check_mesh(mesh, item_table.device, ps_axis=ps_axis)
+    for ax, size in zip(mesh.mesh_dim_names, mesh.shape):
+        if ax != ps_axis and size != 1:
+            raise ValueError(
+                f"fused sharded step supports ps-only meshes (item blocks "
+                f"would be replicated over axis {ax!r} (size {size}) and the "
+                f"in-kernel writes would diverge)"
+            )
+    rows = item_table.shape[0]
+    rel, hit = owned_rows(items, rows, mesh, ps_axis)
+    m = hit if mask is None else (hit & mask)
+    order, s_items, s_users, s_r, s_m, s_p = sort_lanes(
+        rows, user_table, users, torch.where(hit, rel, -1), ratings, m
+    )
+    udelta, preds = sorted_fused_mf_sgd(
+        item_table.view(rows, -1), s_items, s_p, s_r, s_m,
+        learning_rate=learning_rate, regularization=regularization,
+    )
+    # back to lane order; a foreign lane's pred (against the routed row) is
+    # dropped, its user delta is already zero (m = 0)
+    n = items.shape[0]
+    lane_udelta = torch.empty_like(udelta)
+    lane_udelta[order] = udelta
+    lane_pred = torch.empty_like(preds)
+    lane_pred[order] = preds
+    lane_udelta = all_reduce_sum(lane_udelta[:n], mesh, ps_axis)
+    lane_pred = assemble_owned(lane_pred[:n], hit, mesh, ps_axis)
+    add_rows_(user_table, users, lane_udelta)
+    return user_table, item_table, lane_pred
+
+
 def make_fused_mf_train_step(
     *,
     learning_rate: float = 0.01,
@@ -263,6 +330,7 @@ __all__ = [
     "sort_lanes",
     "fused_mf_sgd",
     "fused_mf_sgd_packed",
+    "fused_mf_sgd_sharded",
     "fused_mf_sgd_plain",
     "sorted_fused_mf_sgd",
     "make_fused_mf_train_step",

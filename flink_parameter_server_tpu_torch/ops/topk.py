@@ -17,6 +17,9 @@ the port, with two differences that keep its answers the reference's:
     each value's float32 bits (order-preserving) above its inverted index,
     so every key is distinct and ``torch.topk`` has one answer.
 
+:func:`sharded_topk` ranks a table row-blocked over the ``ps`` axis of a
+mesh, one block a rank, and returns the same answer on every rank.
+
 All functions keep a static ``(B, k)`` output: when fewer than ``k`` rows
 exist, the tail is padded with ``-inf`` scores and id ``-1``.  The product
 and the selection are plain torch on both devices: the reference computes
@@ -28,6 +31,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..parallel.collectives import all_gather_cat, block_start
+from ..parallel.mesh import axis_size
 from ..utils.device import check_mesh
 
 _LOW32 = (1 << 32) - 1
@@ -89,12 +94,37 @@ def sharded_topk(
     ps_axis: str = "ps",
     valid_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over a ps-sharded table: needs a device mesh, which the
-    single-device port does not have (ROADMAP Queue 1 #9)."""
-    check_mesh(mesh)
-    raise NotImplementedError(
-        "sharded_topk needs a device mesh (ROADMAP Queue 1 #9); use dense_topk"
-    )
+    """Exact top-k over a ps-sharded table, on every rank of the mesh.
+
+    ``table``: this rank's (rows, dim) block, rows ``[s·rows, (s+1)·rows)``
+    of the logical table; ``queries`` (B, dim), the same on every rank.
+    Each rank scores its block as :func:`dense_topk` does (float64 sums,
+    one rounding), takes a local top-k with GLOBAL row ids, and the
+    candidates are all-gathered over ``ps``; the final top-k over them
+    (in shard order, so ties still come lowest id first) is the same on
+    every rank and the same as :func:`dense_topk` on the whole table.
+    Returns (scores (B,k), ids (B,k)), padded with -inf / -1."""
+    if mesh is None:
+        raise ValueError("sharded_topk needs a mesh; dense_topk ranks one table")
+    check_mesh(mesh, table.device, ps_axis=ps_axis)
+    shards = axis_size(mesh, ps_axis)
+    rows = table.shape[0]
+    lo = block_start(rows, mesh, ps_axis)
+    out = torch.promote_types(queries.dtype, table.dtype)
+    scores = (queries.double() @ table.double().T).to(out)
+    if valid_rows is not None:
+        pad = torch.arange(lo, lo + rows, device=scores.device) >= valid_rows
+        scores = scores.masked_fill(pad.unsqueeze(0), float("-inf"))
+    kk = min(k, rows)
+    local_scores, local_ids = top_k(scores, kk)
+    # (shards * B, kk) in shard order -> (B, shards * kk), shard-major per query
+    all_scores = all_gather_cat(local_scores.contiguous(), mesh, ps_axis)
+    all_ids = all_gather_cat((local_ids + lo).contiguous(), mesh, ps_axis)
+    B = queries.shape[0]
+    all_scores = all_scores.reshape(shards, B, kk).movedim(0, 1).reshape(B, shards * kk)
+    all_ids = all_ids.reshape(shards, B, kk).movedim(0, 1).reshape(B, shards * kk)
+    final_scores, pos = top_k(all_scores, min(k, shards * kk))
+    return _pad_topk(final_scores, all_ids.gather(1, pos), k)
 
 
 __all__ = ["top_k", "dense_topk", "sharded_topk"]

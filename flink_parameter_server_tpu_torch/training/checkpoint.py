@@ -21,6 +21,11 @@ What orbax guarantees is kept by hand:
   * async mode: ``save`` copies the table and state to the host before it
     returns (the step updates them in place right after), and a writer
     thread does the disk work; :meth:`~JobCheckpointManager.wait` joins it.
+
+A store row-blocked over a mesh saves as the same payload: every rank calls
+:func:`save`, the table is gathered over ``ps`` and global rank 0 writes.
+:func:`restore` onto a mesh spec gives each rank its block of the target
+layout, so a job saved at one ``ps`` count restores at another.
 """
 from __future__ import annotations
 
@@ -32,10 +37,11 @@ import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..core.store import ShardedParamStore, StoreSpec
 from ..core.transform import tree_map
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, mesh_resolve_device
 
 PAYLOAD = "payload.pt"
 
@@ -106,9 +112,30 @@ def save(
     extra: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Save (param table, worker state, cursor) atomically under ``path``,
-    replacing what is there."""
+    replacing what is there.  A store on a mesh: every rank calls this,
+    rank 0 writes, and each returns once the checkpoint is committed; if
+    rank 0's write fails, every rank raises (rank 0 its own error)."""
     path = os.path.abspath(path)
     payload = _make_payload(store, worker_state, step, extra)
+    if store.spec.mesh is None:
+        _replace(path, payload)
+        return
+    error: Optional[BaseException] = None
+    if dist.get_rank() == 0:
+        try:
+            _replace(path, payload)
+        except Exception as exc:  # every rank must hear of it before it raises
+            error = exc
+    # rank 0's verdict, summed over the world: also the barrier
+    failed = torch.tensor([0 if error is None else 1], dtype=torch.int32, device=store.table.device)
+    dist.all_reduce(failed)
+    if error is not None:
+        raise error
+    if int(failed.item()):
+        raise RuntimeError(f"checkpoint {path!r} was not committed: rank 0's write failed")
+
+
+def _replace(path: str, payload: Dict[str, Any]) -> None:
     trash = None
     if os.path.exists(path):
         trash = os.path.join(os.path.dirname(path), f".replacing.{os.path.basename(path)}-{uuid.uuid4().hex}")
@@ -135,8 +162,9 @@ def restore(
 def _payload_to_state(
     payload, spec: StoreSpec, device: DeviceLike = None
 ) -> Tuple[ShardedParamStore, Any, Dict[str, Any]]:
-    """Re-place a restored payload onto the target spec and device."""
-    device = resolve_device(device)
+    """Re-place a restored payload onto the target spec and device (by
+    default the card, or the mesh's device for a mesh spec)."""
+    device = mesh_resolve_device(spec.mesh, device)
     meta = payload.get("meta", {})
     capacity = int(meta.get("capacity", spec.capacity))
     values = payload["table"][: min(capacity, spec.capacity)]

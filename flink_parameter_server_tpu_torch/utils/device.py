@@ -3,8 +3,11 @@
 The port runs on the card unless the caller asks for the CPU: every
 entry point takes a ``device`` argument whose default is ``"cuda"``.
 Asking for ``cuda`` on a machine without a card raises — nothing drops
-to the CPU quietly.  The port is single-device for now, so a ``mesh``
-argument that is not ``None`` raises as well.
+to the CPU quietly.  The parameter server's paths take a ``dp × ps``
+``DeviceMesh`` (:mod:`..parallel.mesh`) whose device type matches the
+device (:func:`check_mesh`); what is not multi-device yet raises for any
+mesh (:func:`reject_mesh`): the LM's half, the mesh store and the
+cluster's relayout (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 
@@ -26,13 +29,47 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def check_mesh(mesh: Optional[Any]) -> None:
-    """Reject a device mesh: multi-device support is ROADMAP Queue 1 #9."""
-    if mesh is not None:
+def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str = "ps") -> None:
+    """Accept ``None`` or a torch ``DeviceMesh`` with a ``ps_axis`` axis
+    whose device type matches ``device`` (when given).  Any other mesh (a
+    JAX mesh, an ``ep`` / ``sp`` / ``tp`` layout) raises: those belong to
+    the LM's half of ROADMAP Queue 1 #9."""
+    if mesh is None:
+        return
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or ps_axis not in (mesh.mesh_dim_names or ()):
         raise NotImplementedError(
-            "the torch port is single-device; mesh-sharded stores and "
-            "steps are ROADMAP Queue 1 #9 (multi-device)"
+            f"the torch port's meshes are torch DeviceMeshes with a {ps_axis!r} "
+            f"axis (parallel.mesh.make_mesh), got {type(mesh).__name__}; other "
+            f"layouts are the LM's half of ROADMAP Queue 1 #9 (multi-device)"
+        )
+    if device is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(
+            f"device {device} does not match the mesh's device type {mesh.device_type!r}"
         )
 
 
-__all__ = ["DeviceLike", "resolve_device", "check_mesh"]
+def reject_mesh(mesh: Optional[Any], what: str) -> None:
+    """Raise for any mesh: ``what`` is not multi-device yet (ROADMAP
+    Queue 1 #9)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} is single-device in the torch port; across devices it is "
+            f"ROADMAP Queue 1 #9 (multi-device)"
+        )
+
+
+def mesh_resolve_device(mesh: Optional[Any], device: DeviceLike = None) -> torch.device:
+    """``device`` for an entry point that takes a mesh: with a mesh and no
+    device, this rank's device on it; otherwise :func:`resolve_device`,
+    checked against the mesh."""
+    check_mesh(mesh, device)
+    if mesh is not None and device is None:
+        from ..parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
+    return resolve_device(device)
+
+
+__all__ = ["DeviceLike", "resolve_device", "check_mesh", "reject_mesh", "mesh_resolve_device"]

@@ -5,7 +5,8 @@ Three guards: a fresh interpreter imports every module of the port (and
 no site hook can import JAX first, and checks ``sys.modules``; a spawned
 shard process of the port, having served a push and a pull, has imported no
 JAX and has not initialised CUDA; and an AST
-scan of the sources finds no ``import jax`` / ``from
+scan of the sources (the port, ``chip_smoke.py`` and the mesh battery's
+``tests/_torch_mesh_child.py``) finds no ``import jax`` / ``from
 flink_parameter_server_tpu ...`` (matched by exact module name, since
 ``flink_parameter_server_tpu_torch`` starts with the forbidden one).
 """
@@ -22,7 +23,7 @@ FORBIDDEN = ("jax", "flink_parameter_server_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mesh_child.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -128,6 +129,8 @@ def test_importing_the_port_loads_no_jax():
             "flink_parameter_server_tpu_torch.shmem.channel"} <= set(modules)
     # the open-loop soak and the record sources
     assert set(SLICE_18) <= set(modules)
+    # the parameter server across devices
+    assert set(SLICE_19) <= set(modules)
 
 
 SLICE_18 = (
@@ -138,6 +141,48 @@ SLICE_18 = (
     "flink_parameter_server_tpu_torch.data.native_loader",
     "flink_parameter_server_tpu_torch.utils.config",
 )
+
+
+SLICE_19 = (
+    "flink_parameter_server_tpu_torch.parallel",
+    "flink_parameter_server_tpu_torch.parallel.mesh",
+    "flink_parameter_server_tpu_torch.parallel.collectives",
+    "flink_parameter_server_tpu_torch.parallel.multihost",
+)
+
+
+def test_the_mesh_child_and_the_parallel_plane_load_no_jax(tmp_path):
+    """The mesh battery's child script and the four ``parallel`` modules,
+    imported first in a fresh interpreter, and a one-rank gloo mesh driven
+    through a sharded store and a sharded top-K: no JAX module and nothing
+    of the JAX package is loaded."""
+    script = (
+        "import importlib, json, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_mesh_child\n"
+        f"for m in {SLICE_19!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from flink_parameter_server_tpu_torch.core.store import ShardedParamStore\n"
+        "from flink_parameter_server_tpu_torch.ops.topk import sharded_topk\n"
+        "from flink_parameter_server_tpu_torch.parallel import single_device_mesh\n"
+        "mesh = single_device_mesh(device_type='cpu')\n"
+        "s = ShardedParamStore.create(16, (2,), mesh=mesh).push(torch.tensor([3, 3]), torch.ones(2, 2))\n"
+        "assert s.pull(torch.tensor([3])).tolist() == [[2.0, 2.0]]\n"
+        "assert sharded_topk(s.table, torch.ones(1, 2), 1, mesh=mesh)[1].tolist() == [[3]]\n"
+        "torch.distributed.destroy_process_group()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_loadgen_and_sources_alone_load_no_jax():

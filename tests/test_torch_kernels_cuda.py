@@ -1000,7 +1000,10 @@ def test_leased_rows_on_a_card_shard_are_the_rows_at_the_answered_seq(cuda):
     """``lease_rows`` on a CUDA slice copies the rows off the card under the
     lock that reads ``seq``: with a writer adding 1.0 to every leased id
     per push, each lease's rows equal the initial rows plus its answered
-    ``seq``, exactly, and the board holds the grant."""
+    ``seq``, exactly, and the board holds the grant.  The writer's last
+    push waits for the reader's first lease, and the reader takes one
+    lease after the writer is done, so at least two different ``seq``
+    are leased however the threads are scheduled."""
     import threading
 
     from flink_parameter_server_tpu_torch.cluster import ParamShard, RangePartitioner
@@ -1009,12 +1012,15 @@ def test_leased_rows_on_a_card_shard_are_the_rows_at_the_answered_seq(cuda):
     shard = ParamShard(0, part, (16,), registry=False, device=cuda)
     ids = np.arange(0, 2048, 7, dtype=np.int64)
     ones = np.ones((len(ids), 16), np.float32)
-    done, errs = threading.Event(), []
+    first_lease, done, errs = threading.Event(), threading.Event(), []
 
     def writer():
         try:
             for _ in range(300):
                 shard.push(ids, ones, sess="writer")
+            # one push lands after the reader's first lease, whatever the schedule
+            assert first_lease.wait(60), "the reader never took a lease"
+            shard.push(ids, ones, sess="writer")
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errs.append(e)
         finally:
@@ -1023,12 +1029,14 @@ def test_leased_rows_on_a_card_shard_are_the_rows_at_the_answered_seq(cuda):
     th = threading.Thread(target=writer)
     th.start()
     seen = set()
-    while not done.is_set() or len(seen) < 2:
+    while True:
+        last = done.is_set()  # a lease taken after the writer is done sees its final seq
         rows, seq, ttl = shard.lease_rows(ids, "reader", ttl=8)
         assert ttl == 8
         np.testing.assert_array_equal(rows, np.full((len(ids), 16), float(seq), np.float32))
         seen.add(seq)
-        if done.is_set():
+        first_lease.set()
+        if last:
             break
     th.join()
     assert not errs, errs
