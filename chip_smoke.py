@@ -15,7 +15,8 @@ workloads (MF, PA, count-min) through the cluster with their serving
 verbs, the other batched workloads (passive-aggressive, the sketches,
 word2vec, the factorization machine), the event API and its hybrid
 backend, and Transformer LM training through the dense parameter server,
-dense and with switch-MoE layers.
+dense and with switch-MoE layers, on one device and data-parallel across
+ranks (replicated, ZeRO-1, FSDP), and the mesh store's row blocks.
 
 Run from the repository root on a machine with one CUDA card and the
 CUDA toolkit:
@@ -218,7 +219,7 @@ line each; any failure exits non-zero before the last line:
              then ``CachedLookupService.top_k`` over every id, ranked on the
              card, equal to a float64 numpy ranking of the shards' rows.  (b)
              The cluster phase's MF under SSP bound 2 (4 shards x 2 workers)
-             with ``hot_cache`` off, on, on, off; a checked ``hot_cache=True``
+             with ``hot_cache`` off, on; a checked ``hot_cache=True``
              run (the final table the shards' rows bitwise, every worker
              cache within its bound, a card-side ``CachedLookupService``
              reader of the stream's 32 hottest items held to
@@ -297,9 +298,10 @@ line each; any failure exits non-zero before the last line:
              feed, the capacity with its closed p50/p99, goodput, its share
              of capacity, admitted p50/p99, sheds, lates, budget
              exhaustions, breaker opens and brownouts.
-  parallel   the parameter server across devices, in child processes of
-             this script (``--parallel-rank``), each spawn under a 300 s
-             limit: (a) a 1 x 1 NCCL mesh, MF at the main path's full width
+  parallel   the parameter server across devices: (a) in this process
+             over a one-rank NCCL group, (b) and (c) in child processes of
+             this script (``--parallel-rank``) under a 300 s limit: (a) a
+             1 x 1 NCCL mesh, MF at the main path's full width
              over 4 Zipf microbatches, tables, pulls and the top-K bitwise
              the unsharded run; (b) a 2 x 2 mesh of 4 ranks on ``cuda:0``
              over gloo with CUDA tensors (NCCL takes one rank a card), the
@@ -310,6 +312,22 @@ line each; any failure exits non-zero before the last line:
              rank a step, K2 likewise; the ranks' launches join the kernels
              line's counts.  ``parallel:`` lines give the backend, each
              rank's pull and push ms and the all-reduce / all-gather ms.
+  dense_dp   the dense LM across ranks and the mesh store's row blocks,
+             laid out as ``parallel``: (a) a one-rank NCCL
+             ``("dp",)`` mesh, Transformer-base (bfloat16, flash "on", 16 x
+             512) for 3 steps of ``transform_dense`` replicated, ZeRO-1 and
+             FSDP, each bitwise the unsharded run, K3a/b/c once a layer a
+             step; (b) dp 4 as 4 gloo ranks on ``cuda:0``, the same model
+             in float32 under SGD with momentum for 2 steps (one
+             row-masked batch, unequal valid rows a rank) in the three
+             regimes within rtol 1e-5 / atol 1e-6 of (a)'s unsharded
+             float32 run, ZeRO-1's optimizer bytes
+             and FSDP's parameter plus optimizer bytes at ~1/4 of
+             replicated, the masked loss equal to the unsharded one, each
+             collective's ms; (c) ``store_backend="mesh"`` with 4 row
+             blocks on the card bitwise one block at the MF path's width,
+             ``verify_against_log()``, the momentum velocity 1/4 a block.
+             The ranks' flash launches join the kernels line's counts.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
              dim 128, over 100,000 users x 131,072 items; then the LM:
@@ -3087,7 +3105,7 @@ HOT_STORM_WARMUP = 5000  # requests before the measured ones: ~14 sketch counts 
 HOT_STORM_REQUESTS = 1500  # measured requests an arm
 HOT_STORM_ARMS = ("off", "on")  # one pair: the second pair (~45 s on the card) went to the shmem phase
 HOT_STORM_LINK_MS = 1.0  # the proxied request leg's delay (benchmarks/hotcache_storm.py's link_delay_ms)
-HOT_TRAIN_TIMED = (False, True, True, False)  # hot_cache off / on in turns
+HOT_TRAIN_TIMED = (False, True)  # hot_cache off / on: one pair (the second pair went to the dense_dp phase)
 HOT_WITNESS_ROUNDS = 3
 HOT_TOP = 32  # ClusterConfig.hot_cache_top_n
 
@@ -3149,7 +3167,7 @@ def phase_hotcache(torch, dev, card):
     whose slices are CUDA tensors (the reference runs 4,096 x 32); only
     the request count is cut: 5,000 warm-up requests (so a hot key is seen
     ~14 times, past the policy's min_count 10) and 1,500 measured requests
-    an arm, arms off, on, on, off.  As in the reference, the reader and the
+    an arm, arms off, on.  As in the reference, the reader and the
     writer reach every shard through a ``nemesis.ChaosProxy`` that delays
     each request frame 1 ms (``set_delay(1.0, 0.0, "c2s")``: one LAN round
     trip a request burst).  Then ``CachedLookupService.top_k`` over all
@@ -3157,7 +3175,7 @@ def phase_hotcache(torch, dev, card):
     ranking of the shards' rows.  (b) The
     cluster phase's MF (100,000 x 131,072, dim 64, lr 0.01,
     ``zipf_stream(9, 12)``, socket 4 shards x 2 workers, range partition,
-    SSP bound 2) with ``hot_cache`` off, on, on, off; a checked
+    SSP bound 2) with ``hot_cache`` off, on; a checked
     ``hot_cache=True`` run (the final table the shards' own rows bitwise,
     every worker cache within its bound; a worker pushes every id it
     pulls, so its own push drops each leased row in the round it was
@@ -3384,7 +3402,7 @@ def phase_hotcache(torch, dev, card):
             rates[hot].append(r.rounds / r.wall_s)
         off, on = statistics.median(rates[False]), statistics.median(rates[True])
         print(f"hotcache: (b) socket SSP {CLUSTER_SSP_BOUND} {CLUSTER_SHARDS}x{CLUSTER_WORKERS}, {CLUSTER_ROUNDS} "
-              f"rounds, in turns off/on/on/off: hot_cache off {', '.join(f'{x:.2f}' for x in rates[False])} "
+              f"rounds, in turns off/on: hot_cache off {', '.join(f'{x:.2f}' for x in rates[False])} "
               f"rounds/s, on {', '.join(f'{x:.2f}' for x in rates[True])} rounds/s; medians {off:.2f} / {on:.2f} "
               f"({(on / off - 1) * 100:+.1f} %); {card}")
 
@@ -3566,7 +3584,7 @@ ADAPTIVE_BOUND, ADAPTIVE_SUBGROUPS = 2, 8  # its declared SSP bound and row grou
 ADAPTIVE_LAG_MS = 25.0  # worker 0's symmetric per-frame link delay (its --lag-ms 25)
 ADAPTIVE_DEADLINE_S = 6.0  # each arm's driver.run(deadline_s=...)
 ADAPTIVE_MF_ROUNDS = 32  # more rounds than either MF arm reaches in the deadline (checked)
-ADAPTIVE_PA = dict(ELASTIC_PA, rounds=20)  # ELASTIC_PA's width; rounds past what an arm reaches (checked)
+ADAPTIVE_PA = dict(ELASTIC_PA, rounds=14)  # ELASTIC_PA's width; rounds past what an arm reaches (checked; 5-9 on an H100)
 ADAPTIVE_METRIC = "cluster_pull_rtt_seconds"
 ADAPTIVE_RMSE_BAR = 1.10  # adaptive RMSE <= fixed RMSE x 1.10, the reference's bar
 ADAPTIVE_DRAIN_SHARDS = 3
@@ -4713,15 +4731,253 @@ def _par_rank_gloo(torch, outdir):
     return out
 
 
-PAR_PARTS = {"nccl": (_par_rank_nccl, None), "gloo": (_par_rank_gloo, "gloo")}
+DDP_STEPS = 3  # (a)'s steps in each regime, bfloat16
+DDP_F32_STEPS = 2  # (b)'s steps in each regime, and (a)'s float32 run for it
+DDP_WORLD = 4  # (b)'s gloo ranks, all on cuda:0
+DDP_REGIMES = ("replicated", "zero1", "fsdp")
+DDP_LR = 3e-3  # phase_lm's adamw(3e-3) in (a)
+# (b) and its float32 reference take sgd(0.1, momentum 0.9): at 3e-3 the parameters moved 4.6e-5 at most in
+# the 2 steps, so a rank's share of the update sat near the bar's own size (1e-6 + 1e-5 |p|)
+DDP_F32_LR = 0.1
+# (b) at dp 4 against (a)'s unsharded float32 run: gradients summed in another order.  SGD's update is
+# lr x the gradient, so that rounding stays at its own size; Adam divides by the gradient's own magnitude
+# and lifts it by up to lr/eps on elements at float32 noise (1e-5 seen in a CPU rehearsal at eps 1e-4)
+DDP_F32_BAR = dict(rtol=1e-5, atol=1e-6)
+DDP_MASK = (4, 3, 1, 0)  # valid rows of each dp-4 rank's 4 rows in the masked batch
+DDP_REPS = 3  # timed repeats of each (b) collective at the step's payload (median)
+DDP_BLOCKS, DDP_ROUNDS = 4, 3  # (c): row blocks on cuda:0, BSP rounds
+
+
+def _ddp_masked(n_rows, counts):
+    """A (n_rows,) float mask: each dp rank's contiguous rows hold
+    ``counts[r]`` valid rows (the row mask of ``microbatches``)."""
+    per = n_rows // len(counts)
+    mask = np.zeros(n_rows, np.float32)
+    for r, c in enumerate(counts):
+        mask[r * per:r * per + c] = 1.0
+    return mask
+
+
+def _ddp_batches(n, vocab, mask_at=None):
+    batches = list(bigram_batches(n, LM_B, LM_T, vocab, seed=3))
+    if mask_at is not None:
+        batches[mask_at]["mask"] = _ddp_masked(LM_B, DDP_MASK)
+    return batches
+
+
+def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None):
+    """One regime's ``transform_dense`` of Transformer-base from seed 0
+    (``regime`` "unsharded": no mesh): the losses, the whole final model,
+    every kernel's launches, the collectives' counts, each step's ms, and
+    the bytes of the parameters and of the optimizer state a rank holds at
+    the end.  ``plant(model)``, if given, runs on the model the loss
+    sees at each step (a planted fault)."""
+    from flink_parameter_server_tpu_torch import (
+        DenseParameterServer, fsdp_place, init_params, lm_loss, transform_dense,
+    )
+    from flink_parameter_server_tpu_torch.core.dense import gather_params
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+
+    t_run = time.perf_counter()
+    m = None if regime == "unsharded" else mesh
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if regime == "fsdp":
+        fsdp_place(model, mesh)
+    built = []  # the optimizers the factory builds: the last is the run's
+
+    def factory(params):
+        built.append(make_opt(params))
+        return built[-1]
+
+    server = DenseParameterServer(model, factory)
+    stamps = []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def loss(mm, b):
+        if plant is not None:
+            plant(mm)
+        return lm_loss(mm, b, cfg, mesh=m)
+
+    zero_counts()
+    coll.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = transform_dense(batches, loss, server,
+                          batch_sharding=m if regime in ("replicated", "zero1") else None,
+                          shard_opt_state=regime == "zero1", on_step=on_step)
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    calls = coll.collective_counts()
+    final = res.server_outputs[0]
+    opt_state = [t for st in built[-1].state.values() for t in st.values() if isinstance(t, torch.Tensor)]
+    out = dict(losses=[float(x) for x in res.worker_outputs], launches=launches, calls=calls,
+               steps_ms=[round((b - a) * 1e3, 3) for a, b in zip([t0] + stamps[:-1], stamps)],
+               params_bytes=sum(p.numel() * p.element_size() for p in final.parameters()),
+               opt_bytes=sum(t.numel() * t.element_size() for t in opt_state))
+    out["final"] = gather_params(final)
+    out["run_s"] = round(time.perf_counter() - t_run, 2)
+    return out
+
+
+def _ddp_same(torch, a, b) -> bool:
+    """Two whole models bitwise equal."""
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def _ddp_rank_nccl(torch, outdir):
+    """(a): a one-rank NCCL ``("dp",)`` mesh, Transformer-base in bfloat16,
+    each regime against the unsharded run; then the unsharded float32 run
+    that (b) is held against, saved for it."""
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch import TransformerConfig, adamw, sgd
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_dp_mesh
+
+    mesh = make_dp_mesh(1, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    coll.all_reduce_sum(torch.zeros(1, device=dev), mesh, "dp")  # the communicator comes up outside the runs
+    cfg = TransformerConfig(flash_attention="on")  # Transformer-base, bfloat16, as phase_lm runs it
+    batches = _ddp_batches(DDP_STEPS, cfg.vocab_size)
+    warm = _ddp_run(torch, cfg, "unsharded", batches[:1], mesh, lambda p: adamw(DDP_LR)(p), dev)  # untimed
+    base = _ddp_run(torch, cfg, "unsharded", batches, mesh, lambda p: adamw(DDP_LR)(p), dev)
+    out = {"backend": dist.get_backend(), "unsharded_ms": base["steps_ms"], "base_losses": base["losses"],
+           "run_s": {"warm-up": warm["run_s"], "unsharded": base["run_s"]}}
+    for regime in DDP_REGIMES:
+        run = _ddp_run(torch, cfg, regime, batches, mesh, lambda p: adamw(DDP_LR)(p), dev)
+        out[regime] = dict(bitwise=run["losses"] == base["losses"] and _ddp_same(torch, run["final"], base["final"]),
+                           **{k: run[k] for k in ("losses", "launches", "calls", "steps_ms", "run_s")})
+        del run
+    cfg32 = TransformerConfig(flash_attention="on", dtype=torch.float32)
+    f32 = _ddp_run(torch, cfg32, "unsharded", _ddp_batches(DDP_F32_STEPS, cfg32.vocab_size, mask_at=1), mesh,
+                   lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev)
+    t = time.perf_counter()
+    torch.save({"losses": f32["losses"], "params": [p.detach().cpu() for p in f32["final"].parameters()]},
+               os.path.join(outdir, "dense_f32.pt"))
+    out["f32_losses"] = f32["losses"]
+    out["run_s"].update(float32=f32["run_s"], save=round(time.perf_counter() - t, 2))
+    return out
+
+
+def _ddp_rank_gloo(torch, outdir):
+    """(b): dp 4 as 4 gloo ranks on ``cuda:0``, Transformer-base in float32,
+    each regime against (a)'s unsharded float32 run, with how far the
+    parameters moved from their init; the bar's reach: the replicated run
+    with rank 0's gradients zeroed must fall outside it; the bytes a rank
+    holds; a row-masked batch's loss against the unsharded loss; each
+    collective's ms at the step's payload."""
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch import TransformerConfig, init_params, lm_loss, sgd
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_dp_mesh
+
+    mesh = make_dp_mesh(DDP_WORLD, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = TransformerConfig(flash_attention="on", dtype=torch.float32)
+    ref = torch.load(os.path.join(outdir, "dense_f32.pt"))
+    ref_params = [p.to(dev) for p in ref["params"]]
+    batches = _ddp_batches(DDP_F32_STEPS, cfg.vocab_size, mask_at=1)
+    init = list(init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev).parameters())
+    out = {"backend": dist.get_backend(), "rank": dist.get_rank()}
+
+    def held(run):
+        """Against (a)'s run: (within the bar, max |error|, elements past
+        the bar, max |final - init|)."""
+        got = list(run["final"].parameters())
+        past = sum(int((~torch.isclose(a, b, **DDP_F32_BAR)).sum()) for a, b in zip(got, ref_params))
+        return (past == 0, max(float((a - b).abs().max()) for a, b in zip(got, ref_params)), past,
+                max(float((a - b).abs().max()) for a, b in zip(got, init)))
+
+    model = None
+    for regime in DDP_REGIMES:
+        run = _ddp_run(torch, cfg, regime, batches, mesh, lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev)
+        ok, err, _, moved = held(run)
+        loss_ok = bool(np.allclose(run["losses"], ref["losses"], rtol=1e-4))
+        out[regime] = dict(ok=ok and loss_ok, err=err, moved=moved, losses=run["losses"], ref_losses=ref["losses"],
+                           **{k: run[k] for k in ("launches", "calls", "steps_ms", "params_bytes", "opt_bytes",
+                                                  "run_s")})
+        model = run["final"]
+
+    hooked = set()
+
+    def drop_rank0(m):  # the planted fault: rank 0's gradients never reach the sum
+        for p in m.parameters():
+            if dist.get_rank() == 0 and id(p) not in hooked:
+                hooked.add(id(p))
+                p.register_hook(torch.zeros_like)
+
+    run = _ddp_run(torch, cfg, "replicated", batches, mesh, lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev,
+                   plant=drop_rank0)
+    ok, err, past, _ = held(run)
+    out["planted"] = dict(caught=not ok, err=err, past=past, elements=sum(p.numel() for p in init))
+    del run
+    # the row-masked batch's loss on the final weights: this rank's rows
+    # through lm_loss(mesh=) against the whole batch's unsharded loss
+    masked = {"tokens": torch.from_numpy(batches[1]["tokens"]).to(dev),
+              "mask": torch.from_numpy(batches[1]["mask"]).to(dev)}
+    with torch.no_grad():
+        sharded = float(lm_loss(model, coll.dp_rows(masked, mesh), cfg, mesh=mesh))
+        whole = float(lm_loss(model, masked, cfg))
+    counts = masked["mask"].reshape(DDP_WORLD, -1).sum(1).tolist()
+    out.update(masked=dict(sharded=sharded, whole=whole, rows=counts,
+                           ok=bool(np.isclose(sharded, whole, rtol=1e-5, atol=0.0))))
+    # each collective at the step's payload: the float32 gradients of every
+    # parameter (Transformer-base's leaves all divide by 4)
+    n = sum(p.numel() for p in model.parameters())
+    flat = torch.ones(n, device=dev)
+    own = torch.ones(DDP_WORLD, n // DDP_WORLD, device=dev)
+    out["collective_ms"] = {
+        "all_reduce": _ddp_time_ms(torch, lambda: coll.all_reduce_sum(flat, mesh, "dp")),
+        "reduce_scatter": _ddp_time_ms(torch, lambda: coll.reduce_scatter_sum(own, mesh, "dp")),
+        "all_gather": _ddp_time_ms(torch, lambda: coll.all_gather_cat(own[:1], mesh, "dp")),
+        "payload_bytes": n * 4,
+    }
+    dist.barrier()
+    return out
+
+
+def _ddp_time_ms(torch, fn) -> float:
+    """Median wall ms of ``fn`` over DDP_REPS runs after one untimed run,
+    synchronised with the card."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DDP_REPS):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+# part: (the rank's function, the kernels it launches); every part is a gloo group on cuda:0
+PAR_PARTS = {"gloo": (_par_rank_gloo, ("scatter_add", "fused_mf")),
+             "dense_gloo": (_ddp_rank_gloo, ("flash_attn",))}
+
+
+@contextlib.contextmanager
+def _one_rank_group(torch):
+    """A one-rank NCCL group in this process, over an in-memory store (no
+    port, no child), torn down after: the world of each phase's (a)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def parallel_rank(argv) -> int:
-    """A rank of ``phase_parallel``: ``--parallel-rank <part> <init> <world>
-    <rank> <outdir>``.  Writes ``<outdir>/<part>.r<rank>.json`` (or the
+    """A gloo rank on ``cuda:0`` of ``phase_parallel`` or ``phase_dense_dp``:
+    ``--parallel-rank <part> <init> <world> <rank> <outdir>``.  Writes ``<outdir>/<part>.r<rank>.json`` (or the
     traceback beside it) and exits non-zero on a failure."""
     import traceback
 
+    t0 = time.perf_counter()
     import torch
 
     part, init, world, rank, outdir = argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4]
@@ -4731,14 +4987,17 @@ def parallel_rank(argv) -> int:
         from flink_parameter_server_tpu_torch.ops import _cuda
         from flink_parameter_server_tpu_torch.parallel import multihost
 
-        fn, backend = PAR_PARTS[part]
+        fn, libraries = PAR_PARTS[part]
         torch.backends.cuda.matmul.allow_tf32 = False
-        if backend == "gloo":
-            torch.cuda.set_device(0)  # every rank on the one card
-        multihost.initialize(init, world, rank, backend=backend, device_type="cuda", timeout_s=PAR_TIMEOUT_S)
-        for name in ("scatter_add", "fused_mf"):  # built by the parent's phase_build, never here
+        torch.cuda.set_device(0)  # every rank on the one card
+        t_import = time.perf_counter() - t0
+        multihost.initialize(init, world, rank, backend="gloo", device_type="cuda", timeout_s=PAR_TIMEOUT_S)
+        for name in libraries:  # built by the parent's phase_build, never here
             check(_cuda.library_path(name).exists(), f"{name} is not built")
+        t_group = time.perf_counter() - t0 - t_import
         out = fn(torch, outdir)
+        out["seconds"] = {"import": round(t_import, 2), "group": round(t_group, 2),
+                          "work": round(time.perf_counter() - t0 - t_import - t_group, 2)}
         torch.distributed.destroy_process_group()
         with open(path + ".json", "w") as fh:
             json.dump(out, fh)
@@ -4782,15 +5041,17 @@ def _spawn_ranks(part: str, world: int, outdir: str) -> list:
         err = open(base + ".err").read() if os.path.exists(base + ".err") else ""
         failures.append(f"rank {r} rc {p.returncode}: {err[-2000:]}\n{open(logs[r]).read()[-2000:]}")
     if failures:
-        raise SmokeFailure(f"phase_parallel {part} ranks failed:\n" + "\n".join(failures))
+        raise SmokeFailure(f"the {part} ranks failed:\n" + "\n".join(failures))
     return results
 
 
 def phase_parallel(torch, dev, card):
     """The parameter server across devices (the ``parallel/`` plane, the
     sharded store with K1 on each shard, the ps-sharded fused step with K2
-    on each shard, the sharded top-K), in child processes of this script,
-    each spawn under a wall-clock limit.
+    on each shard, the sharded top-K).  (a) runs in this process over a
+    one-rank NCCL group (no child to start: its import and first-use
+    costs were most of its time), (b) and (c) in child processes of this
+    script under a wall-clock limit.
 
     (a) A 1 x 1 NCCL mesh (one rank): the main path's MF at full width
         (100,000 x 131,072, dim 64, ``scatter_impl="pallas"``, lr 0.01) over
@@ -4820,7 +5081,8 @@ def phase_parallel(torch, dev, card):
     torch.cuda.empty_cache()  # the ranks share the card with this process
     try:
         t = time.perf_counter()
-        (a,) = _spawn_ranks("nccl", 1, tmp)
+        with _one_rank_group(torch):
+            a = _par_rank_nccl(torch, tmp)
         a_s = time.perf_counter() - t
         t = time.perf_counter()
         b = _spawn_ranks("gloo", 4, tmp)
@@ -4862,6 +5124,191 @@ def phase_parallel(torch, dev, card):
           f"{PAR_STEPS}); (a) {a_s:.1f} s, (b)+(c) {b_s:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s; "
           f"{card}")
     return {"scatter_add": k1, "fused_mf_sgd": k2}
+
+
+def _ddp_store(torch, dev, card):
+    """(c): the cluster's mesh backend with DDP_BLOCKS row blocks on the
+    card against one block, at the MF path's width; the store's momentum
+    velocity split over the blocks.  Returns the printed timings."""
+    import shutil
+    import tempfile
+
+    from flink_parameter_server_tpu_torch.cluster import ClusterConfig, ClusterDriver
+    from flink_parameter_server_tpu_torch.meshstore import MeshParamStore, make_store_mesh
+    from flink_parameter_server_tpu_torch.models.matrix_factorization import OnlineMatrixFactorization, SGDUpdater
+    from flink_parameter_server_tpu_torch.telemetry.registry import MetricsRegistry
+    from flink_parameter_server_tpu_torch.utils.initializers import ranged_random_factor
+
+    init = ranged_random_factor(1, (DIM_UNFUSED,))
+    stream = zipf_stream(PAR_SEED, DDP_ROUNDS)
+    tmp = tempfile.mkdtemp(prefix="dense-dp-", dir=os.path.join(REPO, "build"))
+    out = {}
+    try:
+        def run(blocks, wal=None):
+            reg = MetricsRegistry()
+            logic = OnlineMatrixFactorization(NUM_USERS, DIM_UNFUSED, updater=SGDUpdater(LEARNING_RATE), device=dev)
+            cfg = ClusterConfig(store_backend="mesh", mesh_devices=[str(dev)] * blocks, num_shards=CLUSTER_SHARDS,
+                                num_workers=1, wal_dir=wal)
+            with ClusterDriver(logic, capacity=NUM_ITEMS, value_shape=(DIM_UNFUSED,), init_fn=init, config=cfg,
+                               registry=reg, device=dev) as d:
+                zero_counts()
+                r = d.run(stream, timeout=600)
+                read_counts(f"dense_dp: (c) the mesh store at {blocks} blocks", {})
+                st = d.mesh_store.stats()
+                check(st["devices"] == blocks and all(b.device.type == dev.type for b in d.mesh_store.blocks),
+                      f"dense_dp: (c) the store is not {blocks} blocks on the card: {st['block_devices']}")
+                check(d.partitioner.rows_per_shard % d.mesh_store.block_rows == 0,
+                      "dense_dp: (c) the partitioner is not aligned to the blocks")
+                if wal is not None:
+                    check(d.mesh_store.verify_against_log(), "dense_dp: (c) verify_against_log() is False")
+            hist = {i.name: i for i in reg.instruments() if i.name.startswith("meshstore_") and i.name.endswith("seconds")}
+            out[f"pull_ms_{blocks}"] = hist["meshstore_gather_seconds"].sum / hist["meshstore_gather_seconds"].count * 1e3
+            out[f"push_ms_{blocks}"] = hist["meshstore_scatter_seconds"].sum / hist["meshstore_scatter_seconds"].count * 1e3
+            return r
+
+        one = run(1)
+        many = run(DDP_BLOCKS, wal=tmp)
+        check(one.values.tobytes() == many.values.tobytes(),
+              f"dense_dp: (c) {DDP_BLOCKS} blocks are not bitwise one block")
+        # the momentum store: one velocity tensor a block
+        ids = torch.from_numpy(stream[0]["item"]).to(dev)
+        deltas = torch.full((BATCH, DIM_UNFUSED), 1e-3, device=dev)
+        stores = [MeshParamStore(NUM_ITEMS, (DIM_UNFUSED,), init_fn=init, momentum=0.9, registry=False,
+                                 mesh=make_store_mesh([dev] * n)) for n in (1, DDP_BLOCKS)]
+        for st in stores:
+            for _ in range(2):
+                st.push(ids, deltas)
+        s1, sn = (st.stats() for st in stores)
+        split = (sn["opt_state_bytes"] == sn["table_bytes"] == s1["table_bytes"]
+                 and sn["bytes_per_device"] * DDP_BLOCKS == sn["table_bytes"] + sn["opt_state_bytes"]
+                 and all(v.shape == b.shape and v.device == b.device
+                         for v, b in zip(stores[1].opt_state, stores[1].blocks)))
+        check(split, f"dense_dp: (c) the velocity is not split over the blocks: {sn}")
+        check(stores[0].values().tobytes() == stores[1].values().tobytes(),
+              "dense_dp: (c) the momentum store's blocks are not bitwise one block")
+        out["velocity"] = (sn["opt_state_bytes"], sn["bytes_per_device"], s1["bytes_per_device"])
+        for st in stores:
+            st.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dense_dp: (c) ClusterConfig(store_backend='mesh') MF {NUM_USERS} x {NUM_ITEMS} dim {DIM_UNFUSED}, "
+          f"{DDP_ROUNDS} BSP rounds: {DDP_BLOCKS} row blocks on {dev} bitwise 1 block, verify_against_log() over "
+          f"the {DDP_BLOCKS}-block WAL; pull {out['pull_ms_1']:.3f} / {out[f'pull_ms_{DDP_BLOCKS}']:.3f} ms, push "
+          f"{out['push_ms_1']:.3f} / {out[f'push_ms_{DDP_BLOCKS}']:.3f} ms (1 / {DDP_BLOCKS} blocks, means to the "
+          f"end of the device work); momentum 0.9: velocity {out['velocity'][0]} bytes in {DDP_BLOCKS} tensors, "
+          f"{out['velocity'][1]} bytes a block holds with its velocity (1 block: {out['velocity'][2]}), 2 pushes bitwise "
+          f"1 block; {card}")
+    return out
+
+
+def phase_dense_dp(torch, dev, card):
+    """The dense LM across devices and the mesh store's row blocks.
+
+    (a) A one-rank NCCL ``("dp",)`` mesh: Transformer-base at full width
+        (the config defaults, bfloat16, ``flash_attention="on"``, 16 x 512
+        bigram tokens, adamw(3e-3)) for 3 steps through ``transform_dense``
+        in each regime (``batch_sharding=mesh``; ZeRO-1
+        ``shard_opt_state=True``; FSDP ``fsdp_place``), each bitwise the
+        unsharded ``transform_dense`` on the same batches (every
+        collective a size-1 NCCL call); K3a/b/c once a layer a step.
+    (b) dp 4 as 4 gloo ranks on ``cuda:0`` (NCCL takes one rank a card):
+        the same model in float32 (sgd(0.1, momentum 0.9): its moment
+        buffer is the state ZeRO-1 cuts) for 2 steps, the second's batch
+        row-masked so the ranks hold 4, 3, 1 and 0 valid rows, each regime
+        within rtol 1e-5 / atol 1e-6 (and losses rtol 1e-4) of (a)'s
+        unsharded float32 run, beside how far the parameters moved; the
+        replicated run with rank 0's gradients zeroed (a planted fault)
+        past that bar; the bytes of parameters and
+        optimizer state a rank holds; the masked batch's loss through
+        ``lm_loss(mesh=)`` on the ranks' rows equal (rtol 1e-5) to the
+        unsharded loss; K3a/b/c on every rank; each collective's ms.
+    (c) ``ClusterConfig(store_backend="mesh")`` with 4 row blocks on the
+        card (``mesh_devices``) at the MF path's width, bitwise 1 block,
+        ``verify_against_log()``; the momentum velocity 1/4 a block.
+    Returns the ranks' flash launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dense-dp-", dir=os.path.join(REPO, "build"))
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        t = time.perf_counter()
+        with _one_rank_group(torch):
+            a = _ddp_rank_nccl(torch, tmp)
+        a_s = time.perf_counter() - t
+        t = time.perf_counter()
+        b = _spawn_ranks("dense_gloo", DDP_WORLD, tmp)
+        b_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from flink_parameter_server_tpu_torch import TransformerConfig
+
+    layers = TransformerConfig().n_layers
+    per_step = {name: layers * DDP_STEPS for name in FLASH}
+    print(f"dense_dp: (a) one-rank mesh, backend {a['backend']!r}: Transformer-base bf16 flash on, {DDP_STEPS} "
+          f"steps of {LM_B}x{LM_T}: unsharded losses {[round(x, 5) for x in a['base_losses']]}, step ms "
+          f"{a['unsharded_ms']}; runs (s) {a['run_s']}; {card}")
+    check(a["backend"] == "nccl", f"dense_dp: (a) ran on {a['backend']}, not NCCL")
+    flash = dict.fromkeys(FLASH, 0)
+    for regime in DDP_REGIMES:
+        r = a[regime]
+        print(f"dense_dp: (a) {regime}: {'bitwise' if r['bitwise'] else 'NOT bitwise'} the unsharded run; step ms "
+              f"{r['steps_ms']}; collectives {r['calls']}; flash launches "
+              f"{ {k: r['launches'][k] for k in FLASH} }; the run {r['run_s']} s")
+        check(r["bitwise"], f"dense_dp: (a) {regime} is not bitwise the unsharded transform_dense")
+        check({k: r["launches"][k] for k in FLASH} == per_step and r["launches"]["scatter_add"] == 0,
+              f"dense_dp: (a) {regime} launched {r['launches']}, expected {per_step}")
+        for k in FLASH:
+            flash[k] += r["launches"][k]
+    per_rank = {name: layers * DDP_F32_STEPS for name in FLASH}
+    repl = {res["rank"]: res["replicated"] for res in b}
+    for res in b:
+        rank = res["rank"]
+        check(res["backend"] == "gloo", f"dense_dp: (b) rank {rank} ran on {res['backend']}")
+        for regime in DDP_REGIMES:
+            r = res[regime]
+            z = r["opt_bytes"] / repl[rank]["opt_bytes"]
+            total = (r["params_bytes"] + r["opt_bytes"]) / (repl[rank]["params_bytes"] + repl[rank]["opt_bytes"])
+            print(f"dense_dp: (b) rank {rank} {regime}: against (a)'s unsharded float32 run max_abs_err="
+                  f"{r['err']:.3e} (rtol=1e-5 atol=1e-6; the parameters moved up to {r['moved']:.3e}) losses {[round(x, 6) for x in r['losses']]} "
+                  f"against {[round(x, 6) for x in r['ref_losses']]} {'ok' if r['ok'] else 'MISMATCH'}; holds "
+                  f"params {r['params_bytes']} B, optimizer state {r['opt_bytes']} B ({z:.4f} / {total:.4f} of "
+                  f"replicated's optimizer / total); step ms {r['steps_ms']}; collectives {r['calls']}; the run "
+                  f"{r['run_s']} s; {card}")
+            check(r["ok"], f"dense_dp: (b) rank {rank} {regime} is off (a)'s float32 run")
+            check({k: r["launches"][k] for k in FLASH} == per_rank,
+                  f"dense_dp: (b) rank {rank} {regime} launched {r['launches']}, expected {per_rank}")
+            for k in FLASH:
+                flash[k] += r["launches"][k]
+        pl = res["planted"]
+        print(f"dense_dp: (b) rank {rank} the bar's reach: replicated with rank 0's gradients zeroed is "
+              f"max_abs_err={pl['err']:.3e} off (a)'s run, {pl['past']} of {pl['elements']} elements past "
+              f"the bar: {'caught' if pl['caught'] else 'MISSED'}")
+        check(pl["caught"], f"dense_dp: (b) rank {rank}: the bar does not see a rank's gradients dropped")
+        check(0.9 / DDP_WORLD < res["zero1"]["opt_bytes"] / repl[rank]["opt_bytes"] < 1.5 / DDP_WORLD
+              and res["zero1"]["params_bytes"] <= repl[rank]["params_bytes"],
+              f"dense_dp: (b) rank {rank}: ZeRO-1 does not hold 1/{DDP_WORLD} of the optimizer state")
+        fs = res["fsdp"]
+        check(0.9 / DDP_WORLD < (fs["params_bytes"] + fs["opt_bytes"])
+              / (repl[rank]["params_bytes"] + repl[rank]["opt_bytes"]) < 1.8 / DDP_WORLD,
+              f"dense_dp: (b) rank {rank}: FSDP does not hold 1/{DDP_WORLD} of parameters and optimizer state")
+        m = res["masked"]
+        c = res["collective_ms"]
+        print(f"dense_dp: (b) rank {rank} row-masked batch (valid rows a rank {m['rows']}): lm_loss(mesh=) "
+              f"{m['sharded']:.7f} against the unsharded {m['whole']:.7f} {'ok' if m['ok'] else 'MISMATCH'}; "
+              f"gloo over CUDA tensors at {c['payload_bytes']} B of float32 gradients: all_reduce "
+              f"{c['all_reduce']:.1f} ms, reduce_scatter {c['reduce_scatter']:.1f} ms, all_gather (a quarter each) "
+              f"{c['all_gather']:.1f} ms (medians of {DDP_REPS}); {card}")
+        check(m["ok"], f"dense_dp: (b) rank {rank}: the masked loss is off the unsharded one")
+        check(len(set(m["rows"])) > 1, "dense_dp: (b) the masked batch gives every rank the same count")
+    store = _ddp_store(torch, dev, card)
+    print(f"dense_dp: (b) the ranks' seconds (import torch, bring up the group, the work): "
+          f"{[res['seconds'] for res in b]}")
+    print(f"dense_dp: flash launches {flash} ((a) 3 regimes x {DDP_STEPS} steps x {layers} layers + (b) {DDP_WORLD} "
+          f"ranks x 3 regimes x {DDP_F32_STEPS} steps x {layers} layers); (a) {a_s:.1f} s, (b) {b_s:.1f} s; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return flash, store
 
 
 def _counters():
@@ -5063,7 +5510,8 @@ def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
 
 def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
-    shape in bfloat16, at a longer, wider float32 shape, at head_dim 256 in
+    shape in bfloat16, at a dp-4 rank's share of it in float32 (the
+    dense_dp phase's float32 runs), at a longer, wider float32 shape, at head_dim 256 in
     both dtypes (bfloat16 runs the tensor-core kernels, float32 the SIMT
     kernels), and at head_dim 320 and 512 in both dtypes (the column-split
     SIMT kernels).
@@ -5083,7 +5531,8 @@ def _flash_checks(torch, dev, gen):
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (2, 1024, 8, 128, torch.float32),
+    shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (LM_B // DDP_WORLD, LM_T, LM_H, LM_D, torch.float32),
+              (2, 1024, 8, 128, torch.float32),
               (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
                   (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32))
     for B, T, H, D, dtype in shapes:
@@ -5812,9 +6261,12 @@ def main() -> int:
         phase("nemesis", phase_nemesis, torch, dev, card)
         loadgen_k1 = phase("loadgen", phase_loadgen, torch, dev, card)
         parallel = phase("parallel", phase_parallel, torch, dev, card)
+        dense_dp, _ = phase("dense_dp", phase_dense_dp, torch, dev, card)
         launches = phase("main (MF, LM, MoE LM, hybrid, MF traces)", phase_main, torch, dev)
         launches["scatter_add"] += loadgen_k1  # the source-fed runs are the main path's MF too
         for name, n in parallel.items():  # the sharded arms' ranks run the main path's MF too
+            launches[name] += n
+        for name, n in dense_dp.items():  # the dp ranks run the main path's LM too
             launches[name] += n
         rows = phase("timing", phase_timing, torch, dev, gen, launches, errs) + wl_rows
 

@@ -112,7 +112,14 @@ from .core.api import (
     add_pull_limiter,
 )
 from .core.batched import BatchedWorkerLogic, PushRequest
-from .core.dense import DenseParameterServer, make_dense_train_step, transform_dense
+from .core.dense import (
+    DenseParameterServer,
+    fsdp_place,
+    make_dense_train_step,
+    opt_state_zero1_specs,
+    shard_opt_state_constraint,
+    transform_dense,
+)
 from .core.hybrid import transform_hybrid
 from .core.optim import adam, adamw, sgd
 from .core.store import ShardedParamStore, StoreSpec
@@ -183,7 +190,10 @@ __all__ = [
     "BatchedWorkerLogic",
     "PushRequest",
     "DenseParameterServer",
+    "fsdp_place",
     "make_dense_train_step",
+    "opt_state_zero1_specs",
+    "shard_opt_state_constraint",
     "transform_dense",
     "adam",
     "adamw",

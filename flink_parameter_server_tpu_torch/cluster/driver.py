@@ -61,8 +61,9 @@ pipelining are exercised for real.
 ``ClusterConfig(store_backend="mesh")`` swaps the socket topology for
 the device-mesh store (meshstore/): the same round loop, the same clock
 and barrier, the same workload contract — but pulls and pushes become a
-device gather / scatter-add over one table tensor instead of TCP
-frames.
+device gather / scatter-add over one table, row-blocked over the devices
+of ``ClusterConfig.mesh_devices`` (the partitioner aligned to the blocks),
+instead of TCP frames.
 """
 from __future__ import annotations
 
@@ -104,6 +105,13 @@ class ClusterConfig:
     # slice's footprint on the device bounded by tier_hot_rows instead
     # of the table size
     store_backend: str = "socket"
+    # the mesh backend's row-block devices (read only when
+    # store_backend="mesh"), one block an entry, in order; an entry may
+    # repeat ("cpu" 8 times plays the reference's 8 virtual devices, a
+    # card several times its blocks on one card).  None = every visible
+    # card on a cuda driver (the reference takes every device), the
+    # driver's device on the CPU
+    mesh_devices: Optional[Sequence[str]] = None
     # tiered-store knobs (read only when store_backend="tiered"):
     # hot-tier capacity per shard in rows; the slab scratch dir (None
     # = the platform tmpdir — the slab is a cache, never a durability
@@ -304,7 +312,7 @@ class ClusterDriver:
                     f"ClusterDriver only (got {type(self).__name__}: "
                     f"elastic/replication control planes operate on "
                     f"socket-fronted shard handles; a mesh resize is a "
-                    f"device relayout, ROADMAP Queue 1 #9)"
+                    f"device relayout, parked as the reference parks it)"
                 )
             if cfg.shard_procs:
                 raise ValueError(
@@ -494,27 +502,38 @@ class ClusterDriver:
             )
         return StalenessClock(cfg.num_workers, cfg.staleness_bound)
 
+    def _mesh_layout(self):
+        """The mesh backend's layout: ``cfg.mesh_devices``, else every
+        visible card for a cuda driver, else the driver's device."""
+        from ..meshstore import make_store_mesh
+
+        devices = self.config.mesh_devices
+        if devices is None and self.device.type == "cuda":
+            return make_store_mesh()
+        return make_store_mesh(devices if devices is not None else [self.device])
+
     def _start_mesh(self) -> None:
         """The mesh topology: no servers to bind — align the range
-        partition to the device row-blocks (one block: the table lives
-        on one device), materialise the ONE table, and hand every
-        worker a :class:`~..meshstore.MeshClient` over it.  Durability
-        (when configured) journals at ``<wal_dir>/mesh``, beside where
-        the socket topology's ``shard-<i>`` directories would sit."""
+        partition to the device row-blocks (one block a device of the
+        layout), materialise the ONE table, and hand every worker a
+        :class:`~..meshstore.MeshClient` over it.  Durability (when
+        configured) journals at ``<wal_dir>/mesh``, beside where the
+        socket topology's ``shard-<i>`` directories would sit."""
         from ..meshstore import MeshParamStore
 
         cfg = self.config
-        self.partitioner = self.partitioner.block_aligned(1)
+        layout = self._mesh_layout()
+        self.partitioner = self.partitioner.block_aligned(layout.n_devices)
         self.mesh_store = MeshParamStore(
             self.capacity,
             self.value_shape,
             init_fn=self._init_fn,
+            mesh=layout,
             partitioner=self.partitioner,
             wal_dir=(
                 None if cfg.wal_dir is None else f"{cfg.wal_dir}/mesh"
             ),
             registry=self.registry if self.registry is not None else False,
-            device=self.device,
         )
         if self.registry is not None:
             # a mesh run's table lives in device memory — expose the

@@ -23,7 +23,12 @@ mesh=mesh)``, then every rank passes the whole physical table to
 :func:`store_from_numpy` and keeps its row block.
 
 The LM's parameter pytree crosses the same way, leaf for leaf
-(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`).
+(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`),
+onto a dp mesh too: every rank passes the whole tree, and
+:func:`dense_server_from_numpy` builds the dense server on it, FSDP-placed
+when asked (ZeRO-1 needs no placement: the step cuts the optimizer state).
+:func:`transformer_params_to_numpy` of an FSDP-placed model all-gathers its
+slices first, so call it on every rank.
 """
 from __future__ import annotations
 
@@ -114,13 +119,20 @@ _LAYER_KEYS = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_up", "w_down")
 
 
 def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
-                                  device: DeviceLike = None) -> TransformerLM:
+                                  device: DeviceLike = None, mesh: Any = None) -> TransformerLM:
     """The LM from the reference's parameter pytree as numpy (``embed``,
     ``final_norm``, ``layers[i].{attn_norm, wqkv, wo, mlp_norm, w_up,
     w_down}``, or ``layers[i].moe.{w_gate, w_up, w_down}`` in place of the
     MLP; bfloat16 leaves widened to float32).  Layouts are the reference's,
     so the copy is element for element: weights narrow to ``cfg.dtype``,
-    norm gains stay float32."""
+    norm gains stay float32.  With a dp ``mesh`` the model is replicated
+    on this rank's device."""
+    if mesh is not None:
+        from .models.transformer import check_lm_mesh
+        from .parallel.mesh import mesh_device
+
+        check_lm_mesh(mesh, cfg)
+        device = mesh_device(mesh) if device is None else device
     dev = resolve_device(device)
 
     def leaf(x, dtype):
@@ -140,8 +152,28 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
                          layers)
 
 
+def dense_server_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, optimizer, *, mesh: Any = None,
+                            fsdp: bool = False, device: DeviceLike = None):
+    """A :class:`~.core.dense.DenseParameterServer` over the LM carried
+    from the reference's pytree (:func:`transformer_params_from_numpy`),
+    its parameters FSDP-placed over ``mesh``'s dp axis when ``fsdp``."""
+    from .core.dense import DenseParameterServer, fsdp_place
+
+    model = transformer_params_from_numpy(tree, cfg, device=device, mesh=mesh)
+    if fsdp:
+        if mesh is None:
+            raise ValueError("fsdp=True needs the dp mesh")
+        fsdp_place(model, mesh, cfg.dp_axis)
+    return DenseParameterServer(model, optimizer)
+
+
 def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
-    """The reference's pytree layout as numpy (bfloat16 widened to float32)."""
+    """The reference's pytree layout as numpy (bfloat16 widened to float32);
+    an FSDP-placed model is gathered whole first (a collective)."""
+    from .core.dense import fsdp_layout, gather_params
+
+    if fsdp_layout(model) is not None:
+        model = gather_params(model)
 
     def block(layer):
         if hasattr(layer, "moe"):
@@ -159,5 +191,5 @@ def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
 
 __all__ = [
     "torch_dtype", "spec_from_reference", "store_from_numpy", "state_from_numpy", "to_numpy",
-    "transformer_params_from_numpy", "transformer_params_to_numpy",
+    "transformer_params_from_numpy", "transformer_params_to_numpy", "dense_server_from_numpy",
 ]

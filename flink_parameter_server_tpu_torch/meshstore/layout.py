@@ -1,18 +1,24 @@
-"""Layout for the device-mesh store backend, on one device.
+"""Layout for the device-mesh store backend: n row blocks over devices.
 
 Counterpart of ``flink_parameter_server_tpu/meshstore/layout.py``.  The
 reference lays the whole parameter table out as ONE global array
 ``jax.NamedSharding(mesh, P("shard"))`` over a 1-D device mesh: row
 blocks of ``mesh_row_block`` rows per device, exactly the split
 :meth:`~..core.store.StoreSpec.rows_per_shard` computes (ceil, rounded
-to the 8-row window).  The port's mesh store is single-device: the "mesh" is
-:class:`StoreLayout`, one device holding the one row block
-(``n_devices == 1``), and a ``devices`` or ``mesh`` argument naming more
-than one device raises (:func:`~..utils.device.reject_mesh`, ROADMAP
-Queue 1 #9).  The block arithmetic stays parametrised by ``n_devices``,
-so the alignment rule reads the same as the reference's.  The helpers
-here pin the two layout contracts everything else in :mod:`..meshstore`
-assumes:
+to the 8-row window).  The reference is single-controller (one process
+drives every device), and so is the port's mesh store: the "mesh" is a
+:class:`StoreLayout`, a list of ``n`` devices, and block ``i`` (rows
+``[i·R, (i+1)·R)``, ``R = mesh_row_block(capacity, n)``) lives on
+``devices[i]`` as its own tensor, all driven from the one process.
+
+**The same device may appear more than once.**  That is the port's
+counterpart of the reference's device list, not a feature of its own: the
+reference's CPU tests run on 8 virtual devices
+(``--xla_force_host_platform_device_count=8``), the port's on ``8 ×
+"cpu"``; one card is ``n × cuda:0``; a host with n cards is
+``cuda:0 .. cuda:n-1``.  A block plays the part of a device everywhere
+(per-device bytes are per-block bytes).  The helpers here pin the two
+layout contracts everything else in :mod:`..meshstore` assumes:
 
 * **one axis, one name** — ``SHARD_AXIS = "shard"``.  The table's only
   sharded dimension is dim 0 (rows); value lanes replicate.
@@ -31,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..cluster.partition import RangePartitioner, mesh_row_block
-from ..utils.device import DeviceLike, reject_mesh, resolve_device
+from ..utils.device import DeviceLike, resolve_device
 
 SHARD_AXIS = "shard"
 
@@ -43,42 +49,50 @@ class MisalignedTable(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class StoreLayout:
-    """The single-device stand-in for the reference's 1-D store mesh:
-    one device, one row block, the canonical axis name."""
+    """The port's 1-D store mesh: block ``i`` of the table on
+    ``devices[i]`` (devices may repeat), the canonical axis name.
+    ``device`` is the first block's device, where pulls land."""
 
-    device: torch.device
+    devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = (SHARD_AXIS,)
 
     @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
     def shape(self) -> dict:
-        return {SHARD_AXIS: 1}
+        return {SHARD_AXIS: len(self.devices)}
 
     @property
     def n_devices(self) -> int:
-        return 1
+        return len(self.devices)
 
 
 def make_store_mesh(
     devices: Optional[Sequence] = None, *, device: DeviceLike = None
 ) -> StoreLayout:
-    """The store layout over ``devices`` (default: ``device``, the card
-    unless the caller asks for the CPU).  More than one device raises
-    through :func:`~..utils.device.reject_mesh` (ROADMAP Queue 1 #9)."""
+    """The store layout over ``devices``: one row block a list entry, in
+    order (an entry may repeat).  Without ``devices``: ``device`` alone
+    when given, else every visible card, as the reference takes every
+    local device (``cuda`` must be present: nothing drops to the CPU)."""
     if devices is not None:
-        devs = list(devices)
+        devs = [resolve_device(d) for d in devices]
         if not devs:
             raise ValueError("make_store_mesh: no devices")
-        if len(devs) > 1:
-            reject_mesh(devs, "the mesh store over several devices")
-        device = devs[0]
-    return StoreLayout(resolve_device(device))
+    elif device is not None:
+        devs = [resolve_device(device)]
+    else:
+        resolve_device("cuda")
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return StoreLayout(tuple(devs))
 
 
-def table_sharding(mesh: StoreLayout, value_shape: Sequence[int] = ()):
-    """Where the table lives: the layout's one device (rows and value
-    lanes together; the reference's ``P("shard", None...)`` over one
-    device)."""
-    return mesh.device
+def table_sharding(mesh: StoreLayout, value_shape: Sequence[int] = ()) -> Tuple[torch.device, ...]:
+    """Where the table lives: the device of each row block in block
+    order (rows split over the layout, value lanes together; the
+    reference's ``P("shard", None...)``)."""
+    return mesh.devices
 
 
 def aligned_partitioner(

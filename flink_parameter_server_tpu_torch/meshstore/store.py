@@ -1,21 +1,28 @@
-"""MeshParamStore — the parameter table as ONE tensor on the device.
+"""MeshParamStore — the parameter table as ONE table over a device layout.
 
 Counterpart of ``flink_parameter_server_tpu/meshstore/store.py``.  Where
 the socket backend fronts N :class:`~..cluster.shard.ParamShard` slices
-with TCP servers, this store holds the WHOLE table as a single tensor on
-the device (the card unless the caller asks for the CPU; the reference
-row-block shards it over a device mesh; across devices the port's mesh
-store is ROADMAP Queue 1 #9) and the batch surface becomes two device ops:
+with TCP servers, this store holds the WHOLE table in one process as the
+row blocks of a :class:`~.layout.StoreLayout`: block ``i`` (rows ``[i·R,
+(i+1)·R)``) is a tensor on ``devices[i]`` (the reference's one global
+array ``NamedSharding(mesh, P("shard"))``; the card unless the caller asks
+for the CPU), and the batch surface becomes device ops:
 
-* **pull** — :func:`~..core.store.pull`: clip + row gather.  Duplicate
-  ids cost one gathered row each, so the host never dedupes.  The result
-  stays on the device — the worker's step consumes it without a host
-  copy.
-* **push** — :func:`~..core.store.push`: masked scatter-add IN PLACE on
-  the table (the reference donates the buffer to the same effect),
-  through the store's ``"xla"`` arm: ``ops/rows.accumulate_rows_`` sorts
-  the ids stably and sums each run in order on the card, so the same
-  inputs give the same bits (``index_add_``'s atomics would not).
+* **pull** — clip, then each block gathers the lanes whose ids it owns
+  (:func:`~..core.store.pull` on the block) and the rows land in request
+  order on the layout's first device.  Duplicate ids cost one gathered
+  row each, so the host never dedupes.  The result stays on the device —
+  the worker's step consumes it without a host copy.
+* **push** — each lane goes to the block that owns its id (masked lanes
+  too, with a zero delta, as the one-block push keeps them), in lane
+  order, and the block applies them by :func:`~..core.store.push`: a
+  masked scatter-add IN PLACE (the reference donates the buffer to the
+  same effect), through the store's ``"xla"`` arm (``ops/rows.
+  accumulate_rows_``, the reference's ``device_push``), which sorts the
+  ids stably and sums each run in order on the card, so the same inputs
+  give the same bits (``index_add_``'s atomics would not).  A block sees
+  the same run of lanes for each of its rows as the one-block table
+  does, so any block count gives the one-block table's bits.
   Duplicate-id lanes combine inside the one scatter, which is what keeps
   exactly-once structural here: an in-process push either applies or
   raises; there is no retry path that could double-apply, so the socket
@@ -31,22 +38,23 @@ same push, so a rebuilt table is bitwise the logged one
 With ``momentum > 0`` the store keeps a velocity buffer — the optimizer
 state of its dense momentum update (``vel = mu * vel + dense; table +=
 vel``).  The reference pins that buffer to the table's row-block
-sharding (``shard_opt_state_constraint``, ZeRO-1); at one device that
-constraint is the identity and is left out until the multi-device port
-(ROADMAP Queue 1 #9).  ``momentum=0`` (the cluster driver's setting) is
-the plain scatter-add — the socket backend's apply.
+sharding (``shard_opt_state_constraint``, ZeRO-1: the dense server's
+owned-slice rule over the store's axis).  Here each block keeps its own
+velocity tensor on its device, so each device holds 1/n of the optimizer
+state by construction, never a replica.  ``momentum=0`` (the cluster
+driver's setting) is the plain scatter-add — the socket backend's apply.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.transform import to_device, to_host
-from ..utils.device import DeviceLike, reject_mesh
+from ..cluster.partition import mesh_row_block
 from .layout import SHARD_AXIS, StoreLayout, check_alignment, make_store_mesh
 
 
@@ -59,12 +67,17 @@ def _valid_lanes(ids, mask) -> int:
     return int(np.asarray(mask).astype(bool).sum())
 
 
-def _nbytes(t: Optional[torch.Tensor]) -> int:
-    return 0 if t is None else int(t.numel() * t.element_size())
+def _nbytes(t) -> int:
+    """Bytes of a tensor, or of every tensor of a list; 0 for None."""
+    if t is None:
+        return 0
+    if isinstance(t, (list, tuple)):
+        return sum(_nbytes(x) for x in t)
+    return int(t.numel() * t.element_size())
 
 
 class MeshParamStore:
-    """One device table + the host-boundary services around it.
+    """One table over a device layout + the host-boundary services around it.
 
     Thread-safe: one lock serializes device dispatch (pull, push,
     values) — the push updates the table in place, so a pull must never
@@ -92,7 +105,10 @@ class MeshParamStore:
         self.capacity = int(capacity)
         self.value_shape = tuple(int(s) for s in value_shape)
         if mesh is not None and not isinstance(mesh, StoreLayout):
-            reject_mesh(mesh, "the mesh store over a device mesh")
+            raise TypeError(
+                f"the mesh store's mesh is a StoreLayout (meshstore.make_store_mesh), "
+                f"got {type(mesh).__name__}"
+            )
         self.mesh = (
             mesh if mesh is not None
             else make_store_mesh(devices, device=device)
@@ -110,7 +126,10 @@ class MeshParamStore:
             # every pull pays a resharding gather
             check_alignment(partitioner, self.capacity, self.n_devices)
         self.partitioner = partitioner
-        self.spec = StoreSpec(self.capacity, self.value_shape)
+        # the whole table's arithmetic (n blocks of R rows) and one block's
+        self.block_rows = mesh_row_block(self.capacity, self.n_devices)
+        self.spec = StoreSpec(self.block_rows * self.n_devices, self.value_shape)
+        self._block_spec = StoreSpec(self.block_rows, self.value_shape)
         self.momentum = float(momentum)
         if self.momentum and wal_dir is not None:
             raise ValueError(
@@ -127,9 +146,10 @@ class MeshParamStore:
         self.rows_pulled = 0
         self.rows_applied = 0
 
-        self.table = self._create_table()
-        self.opt_state = (
-            torch.zeros_like(self.table) if self.momentum else None
+        self.blocks: Optional[List[torch.Tensor]] = self._create_table()
+        # ZeRO-1: one velocity tensor a block, on the block's device
+        self.opt_state: Optional[List[torch.Tensor]] = (
+            [torch.zeros_like(b) for b in self.blocks] if self.momentum else None
         )
 
         self._wal = None
@@ -142,9 +162,19 @@ class MeshParamStore:
 
         self._register_instruments(registry)
 
+    @property
+    def table(self) -> Optional[torch.Tensor]:
+        """The table tensor of a one-block layout (None once closed); a
+        layout of several blocks has no one tensor: read :attr:`blocks`."""
+        if self.blocks is None:
+            return None
+        if len(self.blocks) != 1:
+            raise AttributeError(f"the table is {len(self.blocks)} row blocks: read .blocks")
+        return self.blocks[0]
+
     # -- construction / recovery ------------------------------------------
-    def _create_table(self) -> torch.Tensor:
-        """Materialise the padded table on the device.
+    def _create_table(self) -> List[torch.Tensor]:
+        """Materialise the padded table's row blocks, each on its device.
 
         ``init_fn`` is the per-id deterministic init contract
         (:func:`~..core.store.create_table`); padding rows past
@@ -170,36 +200,68 @@ class MeshParamStore:
             )
             return torch.where(live, rows, torch.zeros_like(rows))
 
-        return create_table(self.spec, padded_init, device=self.device)
+        R = self.block_rows
+        return [
+            create_table(self._block_spec, lambda ids, lo=b * R: padded_init(ids + lo), device=dev)
+            for b, dev in enumerate(self.mesh.devices)
+        ]
 
     def _sync(self) -> None:
-        """Wait for the device's queued work, so a timer around a
-        dispatch times the device op, not its launch."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the devices' queued work, so a timer around a
+        dispatch times the device ops, not their launch."""
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    def _scatter(self, table, ids, deltas, mask) -> torch.Tensor:
+    def _routes(self, ids: torch.Tensor):
+        """``(block, lanes)`` for each of several blocks that some of the
+        flat ``ids`` (int64, on the first device) reach: the positions of
+        the ids whose rows the block owns, in lane order.  (One block
+        takes every lane whole: its push drops the ids past the table.)"""
+        R = self.block_rows
+        for b in range(self.n_devices):
+            lanes = ((ids >= b * R) & (ids < (b + 1) * R)).nonzero().reshape(-1)
+            if lanes.numel():
+                yield b, lanes
+
+    def _scatter(self, blocks, ids, deltas, mask) -> List[Optional[torch.Tensor]]:
         """One record through the store's in-place push — construction
         replay, the live push and the audit share this seam, which is
-        what makes a rebuilt table bitwise the logged one."""
+        what makes a rebuilt table bitwise the logged one.  Each lane
+        goes to the block that owns its id and the block pushes its lanes
+        in their order.  Returns the blocks the record reached (None for
+        the others)."""
         from ..core.store import push as device_push
 
-        return device_push(
-            self.spec, table,
-            to_device(ids, self.device, torch.int64),
-            to_device(deltas, self.device, torch.float32),
-            None if mask is None else to_device(mask, self.device, torch.bool),
-        )
+        home = self.device
+        ids = to_device(ids, home, torch.int64)
+        deltas = to_device(deltas, home, torch.float32)
+        mask = None if mask is None else to_device(mask, home, torch.bool)
+        if self.n_devices == 1:
+            return [device_push(self._block_spec, blocks[0], ids, deltas, mask)]
+        flat = ids.reshape(-1)
+        d = deltas.reshape((-1,) + self.value_shape)
+        m = None if mask is None else mask.reshape(-1)
+        touched: List[Optional[torch.Tensor]] = [None] * self.n_devices
+        for b, lanes in self._routes(flat):
+            dev = self.mesh.devices[b]
+            touched[b] = device_push(
+                self._block_spec, blocks[b],
+                (flat[lanes] - b * self.block_rows).to(dev),
+                d[lanes].to(dev),
+                None if m is None else m[lanes].to(dev),
+            )
+        return touched
 
     def _apply(self, ids, deltas, mask) -> None:
         if self.momentum:
-            dense = self._scatter(
-                torch.zeros_like(self.table), ids, deltas, mask
-            )
-            self.opt_state = self.momentum * self.opt_state + dense
-            self.table.add_(self.opt_state)
+            dense = [torch.zeros_like(b) for b in self.blocks]
+            self._scatter(dense, ids, deltas, mask)
+            for b, block in enumerate(self.blocks):
+                self.opt_state[b] = self.momentum * self.opt_state[b] + dense[b]
+                block.add_(self.opt_state[b])
         else:
-            self._scatter(self.table, ids, deltas, mask)
+            self._scatter(self.blocks, ids, deltas, mask)
         self._sync()
 
     def _replay(self) -> int:
@@ -221,13 +283,11 @@ class MeshParamStore:
         on the device or a host array.  Returns the DEVICE tensor: the
         worker's step consumes it directly, so the inner loop never
         copies rows to the host."""
-        from ..core.store import pull as device_pull
-
         ids_t = to_device(ids, self.device, torch.int64)
         n = int(ids_t.numel())
         with self._lock:
             t0 = time.perf_counter()
-            out = device_pull(self.spec, self.table, ids_t)
+            out = self._gather(ids_t)
             self._sync()
             dt = time.perf_counter() - t0
             self.pulls_served += 1
@@ -238,6 +298,21 @@ class MeshParamStore:
                 self._c_rows_pulled.inc(n)
                 self._c_gather_ops.inc()
         return out
+
+    def _gather(self, ids: torch.Tensor) -> torch.Tensor:
+        """``table[ids]`` with ids clipped to the padded table, each block
+        gathering the lanes it owns into the answer on the first device."""
+        from ..core.store import pull as device_pull
+
+        if self.n_devices == 1:
+            return device_pull(self._block_spec, self.blocks[0], ids)
+        flat = ids.reshape(-1).clamp(0, self.spec.padded_capacity - 1)
+        out = torch.empty((flat.numel(),) + self.value_shape, dtype=torch.float32, device=self.device)
+        for b, lanes in self._routes(flat):
+            dev = self.mesh.devices[b]
+            rows = device_pull(self._block_spec, self.blocks[b], (flat[lanes] - b * self.block_rows).to(dev))
+            out[lanes] = rows.to(self.device)
+        return out.reshape(tuple(ids.shape) + self.value_shape)
 
     def push(self, ids, deltas, mask=None) -> int:
         """WRITE-AHEAD (when durable) then scatter-add; returns the
@@ -275,7 +350,11 @@ class MeshParamStore:
         global-id order; the dump/checkpoint surface, NOT the inner
         loop."""
         with self._lock:
-            return to_host(self.table[: self.capacity], copy=True)
+            return self._host_rows(self.blocks)
+
+    def _host_rows(self, blocks) -> np.ndarray:
+        """Rows ``[0, capacity)`` of ``blocks`` as one host array (a copy)."""
+        return np.concatenate([to_host(b, copy=True) for b in blocks])[: self.capacity]
 
     def flush(self) -> dict:
         """Make the journal durable (fsync) — the explicit durability
@@ -303,8 +382,7 @@ class MeshParamStore:
                 continue
             p = rec.payload
             self._scatter(scratch, p["ids"], p["deltas"], p.get("mask"))
-        rebuilt = to_host(scratch[: self.capacity])
-        return bool(np.array_equal(rebuilt, live))
+        return bool(np.array_equal(self._host_rows(scratch), live))
 
     # -- observability -----------------------------------------------------
     def _register_instruments(self, registry) -> None:
@@ -351,7 +429,7 @@ class MeshParamStore:
         reg.gauge(
             "meshstore_table_bytes", component="meshstore",
             fn=lambda: (
-                _nbytes(self.table) if self.table is not None else None
+                _nbytes(self.blocks) if self.blocks is not None else None
             ),
         )
         reg.gauge(
@@ -364,11 +442,14 @@ class MeshParamStore:
         )
 
     def _bytes_per_device(self) -> Optional[int]:
-        """The device's resident table (+ optimizer state) bytes: the
-        figure capacity planning reads (one device holds it all)."""
-        if self.table is None:
+        """The largest block's resident bytes, its velocity included: the
+        figure capacity planning reads for each device of the layout (a
+        block plays a device; with the row-block layout this is ``(table +
+        opt state) / n``)."""
+        if self.blocks is None:
             return None
-        return _nbytes(self.table) + _nbytes(self.opt_state)
+        vel = self.opt_state or [None] * len(self.blocks)
+        return max(_nbytes(b) + _nbytes(v) for b, v in zip(self.blocks, vel))
 
     def stats(self) -> dict:
         with self._lock:
@@ -376,9 +457,10 @@ class MeshParamStore:
                 "backend": "mesh",
                 "devices": self.n_devices,
                 "device": str(self.device),
+                "block_devices": [str(d) for d in self.mesh.devices],
                 "rows": self.capacity,
                 "padded_rows": int(self.spec.padded_capacity),
-                "row_block": int(self.spec.rows_per_shard),
+                "row_block": int(self.block_rows),
                 "pulls": self.pulls_served,
                 "pushes": self.pushes_applied,
                 "push_seq": self._push_seq,
@@ -388,18 +470,18 @@ class MeshParamStore:
                     0 if self._wal is None
                     else self._wal.records_appended
                 ),
-                "table_bytes": _nbytes(self.table),
+                "table_bytes": _nbytes(self.blocks),
                 "bytes_per_device": self._bytes_per_device(),
                 "opt_state_bytes": _nbytes(self.opt_state),
                 "momentum": self.momentum,
-                "alive": self.table is not None,
+                "alive": self.blocks is not None,
             }
 
     def close(self) -> None:
         if self._wal is not None:
             self._wal.close()
             self._wal = None
-        self.table = None
+        self.blocks = None
         self.opt_state = None
 
 

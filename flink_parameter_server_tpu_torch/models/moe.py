@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import DeviceLike, reject_mesh, resolve_device
+from ..utils.device import MODEL_PARALLEL, DeviceLike, reject_mesh, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +120,8 @@ def moe_reference(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConf
 def moe_apply(params, x, cfg: MoEConfig, *, mesh, ep_axis: str = "ep", dp_axis: Optional[str] = "dp"):
     """Expert-parallel MoE over an ``ep`` mesh axis: multi-device."""
     raise NotImplementedError(
-        "moe_apply (expert parallelism over an ep mesh axis, two all_to_all "
-        "trips) is multi-device: ROADMAP Queue 1 #9; use moe_dense on one device"
+        f"moe_apply (expert parallelism over an ep mesh axis, two all_to_all "
+        f"trips): {MODEL_PARALLEL}; use moe_dense on one device"
     )
 
 

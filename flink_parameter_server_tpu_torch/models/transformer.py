@@ -19,8 +19,23 @@ the tied embedding.  Attention goes through the flash kernels
 With ``num_experts > 0`` every layer's MLP is a switch-MoE layer
 (``models/moe.py`` ``moe_dense``: top-1 routing, ``moe_capacity`` tokens an
 expert over the whole batch, as the reference's mesh-less path runs it).
-Single-device: ring attention, tensor / sequence / pipeline parallelism and
-expert parallelism (``ep_axis``) raise (ROADMAP Queue 1 #9).
+
+**On a data-parallel mesh** (``mesh=``: a ``DeviceMesh`` with the
+``cfg.dp_axis`` axis and no other axis larger than 1) each rank runs the
+model on ITS rows of the global batch, one rank a device: the ``tokens``
+(and a batch's ``mask``) passed with ``mesh=`` are this rank's rows, as the
+dense step cuts them (``parallel.collectives.dp_rows``), and
+:func:`forward` returns this rank's logits.  Attention never mixes batch
+rows, so the flash kernels run on the rank's rows through ``flash_mha``
+(gated by ``eligible_dp``), with no collective; a reader of the global logits all-gathers them
+(``parallel.collectives.all_gather_cat``).  :func:`lm_loss` divides the
+masked token sum by the WHOLE batch's count of valid tokens
+(``parallel.collectives.global_mean``: one all-reduce of the pair), so
+ranks whose rows hold different counts weight them as the unsharded loss
+does.  Ring attention, tensor / sequence / pipeline parallelism, expert
+parallelism (``ep_axis``) and MoE layers on any mesh raise: they are the
+next port slice (ROADMAP Queue 1 #9).  (MoE's ``moe_capacity`` is a count
+over the whole batch; on a rank's rows it would become a count a rank.)
 """
 from __future__ import annotations
 
@@ -34,7 +49,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import reference_attention
-from ..utils.device import DeviceLike, reject_mesh, resolve_device
+from ..parallel import collectives as _coll
+from ..parallel.mesh import axis_size, mesh_device, only_axis, require_axis
+from ..utils.device import MODEL_PARALLEL, DeviceLike, resolve_device
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")  # layers[i].moe's leaves
 
@@ -50,15 +67,15 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     use_ring_attention: bool = False
     # "auto": the flash kernels when eligible (a CUDA tensor, T % 128 == 0,
-    # head_dim % 64 == 0, no mesh; a head width the kernels lack raises),
-    # else the reference path; "on": the kernels or an error; "off": always
-    # the reference path
+    # head_dim % 64 == 0, no mesh or a dp-only one; a head width the kernels
+    # lack raises), else the reference path; "on": the kernels or an error;
+    # "off": always the reference path
     flash_attention: str = "auto"
     # recompute each block in the backward pass (activation memory per
     # layer O(T·d_model) instead of O(T·d_ff))
     remat: bool = False
-    # the reference's parallelism and MoE fields; anything but these
-    # defaults raises until the Queue item named in __post_init__
+    # the reference's parallelism and MoE fields: dp_axis names the data
+    # axis of a mesh; the model-parallel ones raise (__post_init__)
     dp_axis: Optional[str] = "dp"
     tp_axis: Optional[str] = None
     sp_axis: Optional[str] = None
@@ -74,19 +91,15 @@ class TransformerConfig:
             )
         if self.ep_axis is not None:
             raise NotImplementedError(
-                "expert parallelism (ep_axis) is multi-device: ROADMAP Queue 1 #9; "
-                "num_experts with ep_axis=None runs the mesh-less MoE"
+                f"expert parallelism (ep_axis): {MODEL_PARALLEL}; "
+                f"num_experts with ep_axis=None runs the mesh-less MoE"
             )
         if self.num_experts > 0 and self.moe_capacity <= 0:
             raise ValueError(
                 "num_experts > 0 requires moe_capacity > 0 (capacity 0 would drop every token)"
             )
-        if self.dp_axis != "dp" or self.use_ring_attention or self.sp_axis or self.tp_axis or self.pp_axis:
-            raise NotImplementedError(
-                "ring attention, a dp_axis other than 'dp' and tp/sp/pp model parallelism "
-                "are multi-device: "
-                "ROADMAP Queue 1 #9"
-            )
+        if self.use_ring_attention or self.sp_axis or self.tp_axis or self.pp_axis:
+            raise NotImplementedError(f"ring attention and tp/sp/pp: {MODEL_PARALLEL}")
 
     @property
     def head_dim(self) -> int:
@@ -137,9 +150,39 @@ def _moe_config(cfg: TransformerConfig):
                      capacity=cfg.moe_capacity, dtype=cfg.dtype)
 
 
+def check_lm_mesh(mesh: Any, cfg: TransformerConfig) -> None:
+    """Accept a ``DeviceMesh`` with the ``cfg.dp_axis`` axis and no other
+    axis larger than 1, for a model without MoE layers; a mesh without
+    that axis raises ``ValueError``, any other layout, and MoE layers on
+    any mesh, ``NotImplementedError`` (model parallelism)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise NotImplementedError(
+            f"the LM over a {type(mesh).__name__} mesh: the port's LM takes a dp DeviceMesh; "
+            f"{MODEL_PARALLEL}"
+        )
+    require_axis(mesh, cfg.dp_axis, "the LM over a mesh")
+    if not only_axis(mesh, cfg.dp_axis):
+        raise NotImplementedError(
+            f"the LM over mesh axes {dict(zip(mesh.mesh_dim_names, mesh.shape))}: only "
+            f"{cfg.dp_axis!r} may be larger than 1; {MODEL_PARALLEL}"
+        )
+    if cfg.num_experts > 0:
+        # moe_capacity counts tokens over the whole batch, as the reference
+        # routes them; a rank's rows would get a capacity of their own
+        raise NotImplementedError(
+            f"MoE layers (num_experts={cfg.num_experts}) over a mesh route the whole batch's "
+            f"tokens, with expert parallelism: {MODEL_PARALLEL}"
+        )
+
+
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> TransformerLM:
-    """A freshly initialised LM on ``device`` (``cuda`` by default).
+                device: DeviceLike = None, *, mesh: Optional[Any] = None) -> TransformerLM:
+    """A freshly initialised LM on ``device`` (``cuda`` by default; with a
+    dp ``mesh``, this rank's device on it).  Every rank draws the same
+    weights from the same ``generator`` seed, so the model is replicated
+    over dp.
 
     The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
     float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
@@ -148,6 +191,9 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     each layer's MLP is ``init_moe_params``' (gate and up ``d**-0.5``, down
     ``f**-0.5``).  The draws come from ``generator`` (seed 0 on the CPU if
     None), not from JAX's keys."""
+    if mesh is not None:
+        check_lm_mesh(mesh, cfg)
+        device = mesh_device(mesh) if device is None else device
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     d, f = cfg.d_model, cfg.d_ff
@@ -196,13 +242,18 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _unsharded_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+def _unsharded_attention(q, k, v, cfg: TransformerConfig, mesh: Optional[Any] = None) -> torch.Tensor:
     """The flash kernels when eligible (see TransformerConfig.flash_attention),
-    else the O(T²) reference."""
+    else the O(T²) reference.  Without a mesh the gate is ``eligible``; on a
+    dp-only mesh ``eligible_dp`` over the global batch (``q`` holds this
+    rank's rows), and the kernels run on the rank's rows."""
     T, Dh = q.shape[1], q.shape[3]
     if cfg.flash_attention == "off":
         return reference_attention(q, k, v)
-    if _flash.eligible(T, Dh, q.device):
+    if mesh is None:
+        if _flash.eligible(T, Dh, q.device):
+            return _flash.flash_mha(q, k, v)
+    elif _flash.eligible_dp(T, Dh, q.shape[0] * axis_size(mesh, cfg.dp_axis), mesh, cfg.dp_axis):
         return _flash.flash_mha(q, k, v)
     if cfg.flash_attention == "on":
         # "on" means the kernels or an error: a quiet reference fallback
@@ -210,12 +261,14 @@ def _unsharded_attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
         raise ValueError(
             f"flash_attention='on' but the flash path is ineligible (device={q.device}, "
             f"T={T}, head_dim={Dh}); flash needs a CUDA tensor, T % 128 == 0, "
-            f"head_dim % 64 == 0 and no mesh. Use 'auto' to fall back gracefully."
+            f"head_dim % 64 == 0 and no mesh or a dp-only mesh dividing the batch. "
+            f"Use 'auto' to fall back gracefully."
         )
     return reference_attention(q, k, v)
 
 
-def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfig) -> torch.Tensor:
+def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfig,
+                 mesh: Optional[Any] = None) -> torch.Tensor:
     """One pre-norm residual block (attention + MLP) on (B, T, d)."""
     B, T, _ = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
@@ -225,7 +278,7 @@ def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfi
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = _rope(q, positions)
     k = _rope(k, positions)
-    attn = _unsharded_attention(q, k, v, cfg).reshape(B, T, H * Dh)
+    attn = _unsharded_attention(q, k, v, cfg, mesh).reshape(B, T, H * Dh)
     x = x + attn @ layer.wo
     h = _rmsnorm(x, layer.mlp_norm)
     if cfg.num_experts > 0:
@@ -238,8 +291,10 @@ def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfi
 
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
             mesh: Optional[Any] = None) -> torch.Tensor:
-    """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits."""
-    reject_mesh(mesh, "the LM forward over a mesh (tensor parallelism, ring attention, the pipeline)")
+    """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits.
+    With a dp ``mesh``, ``tokens`` and the logits are this rank's rows."""
+    if mesh is not None:
+        check_lm_mesh(mesh, cfg)
     tokens = torch.as_tensor(tokens, device=params.embed.device)
     T = tokens.shape[1]
     if T > cfg.max_seq:
@@ -247,17 +302,21 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig,
     x = params.embed[tokens.long()]
     for layer in params.layers:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_apply_block, x, layer, cfg, use_reentrant=False)
+            x = checkpoint(_apply_block, x, layer, cfg, mesh, use_reentrant=False)
         else:
-            x = _apply_block(x, layer, cfg)
+            x = _apply_block(x, layer, cfg, mesh)
     x = _rmsnorm(x, params.final_norm)
     return (x @ params.embed.T.to(x.dtype)).to(torch.float32)
 
 
 def next_token_xent(logits: torch.Tensor, tokens: torch.Tensor,
-                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row_mask: Optional[torch.Tensor] = None, *, mesh: Optional[Any] = None,
+                    dp_axis: str = "dp") -> torch.Tensor:
     """Next-token cross entropy: targets are the tokens shifted left, the
-    last position is masked; optional (B,) or (B, T) row mask."""
+    last position is masked; optional (B,) or (B, T) row mask.  With a dp
+    ``mesh`` the arguments are this rank's rows and the result is the whole
+    batch's loss: the masked sum over the count of valid tokens of every
+    rank (``parallel.collectives.global_mean``)."""
     tokens = torch.as_tensor(tokens, device=logits.device).long()
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     logp = torch.log_softmax(logits, dim=-1)
@@ -269,15 +328,19 @@ def next_token_xent(logits: torch.Tensor, tokens: torch.Tensor,
         if row_mask.ndim == 1:  # (B,) row mask from microbatches()
             row_mask = row_mask[:, None]
         mask = mask * row_mask
+    if mesh is not None:
+        return _coll.global_mean(torch.sum(nll * mask), torch.sum(mask), mesh, dp_axis)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def lm_loss(params: TransformerLM, batch: Dict[str, Any], cfg: TransformerConfig, *,
             mesh: Optional[Any] = None) -> torch.Tensor:
-    """Next-token cross entropy through :func:`forward`."""
+    """Next-token cross entropy through :func:`forward`.  With a dp
+    ``mesh`` the batch holds this rank's rows (the dense step passes them)
+    and the loss is the whole batch's (:func:`next_token_xent`)."""
     tokens = batch["tokens"]
     logits = forward(params, tokens, cfg, mesh=mesh)
-    return next_token_xent(logits, tokens, batch.get("mask"))
+    return next_token_xent(logits, tokens, batch.get("mask"), mesh=mesh, dp_axis=cfg.dp_axis)
 
 
 __all__ = [
@@ -285,6 +348,7 @@ __all__ = [
     "TransformerConfig",
     "TransformerBlock",
     "TransformerLM",
+    "check_lm_mesh",
     "init_params",
     "forward",
     "next_token_xent",

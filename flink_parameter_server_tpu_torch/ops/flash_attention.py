@@ -32,6 +32,9 @@ in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded
 back to q's dtype before the kernel (the kernel does not scale; the scale
 stays outside the ``autograd.Function`` so autograd carries its gradient).
 
+On a ``dp`` mesh (:func:`flash_mha_dp`, gated by :func:`eligible_dp`)
+each rank runs the same kernels on its own batch rows.
+
 Dispatch: each wrapper takes its plain torch version (``*_plain``, the same
 tiles and the same float32 arithmetic) for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.  ``<wrapper>.launches`` counts
@@ -45,7 +48,6 @@ from typing import Tuple
 import torch
 
 from . import _cuda
-from ..utils.device import reject_mesh
 
 BLOCK = 64  # query rows and key rows per tile, as in the kernels
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -73,20 +75,83 @@ def eligible(seq_len: int, head_dim: int, device, mesh=None) -> bool:
     return mesh is None and torch.device(device).type == "cuda" and supports_shape(seq_len, head_dim)
 
 
+def _mesh_on_cuda(mesh) -> bool:
+    return getattr(mesh, "device_type", None) == "cuda"
+
+
 def eligible_dp(seq_len: int, head_dim: int, batch: int, mesh, dp_axis: str = "dp") -> bool:
-    """The dp-mesh gate of the reference: flash attention over a dp mesh
-    is the LM's half of ROADMAP Queue 1 #9."""
-    reject_mesh(mesh, "flash attention over a dp mesh")
-    return False
+    """The ``"auto"`` gate on a data-parallel mesh, the reference's: true
+    iff ``mesh`` has ``dp_axis`` and no other axis larger than 1, its ranks
+    are on ``cuda`` (the reference asks for the TPU backend), the shape
+    passes :func:`supports_shape` and ``batch`` (the global batch) divides
+    by dp.  Attention never mixes batch rows, so each rank runs the kernels
+    on its own rows with no collective.  sp / tp / pp meshes are the next
+    port slice and take the reference path."""
+    from ..parallel.mesh import axis_size, only_axis
+
+    return (
+        only_axis(mesh, dp_axis)
+        and _mesh_on_cuda(mesh)
+        and supports_shape(seq_len, head_dim)
+        and batch % axis_size(mesh, dp_axis) == 0
+    )
+
+
+class _TakeRows(torch.autograd.Function):
+    """This rank's dp rows of a global tensor that every rank holds alike;
+    the gradient all-gathers the ranks' row gradients, so every rank gets
+    the whole tensor's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dp_axis):
+        from ..parallel.collectives import dp_rows
+
+        ctx.mesh, ctx.dp_axis = mesh, dp_axis
+        return dp_rows(x, mesh, dp_axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..parallel.collectives import all_gather_cat
+
+        return all_gather_cat(grad.contiguous(), ctx.mesh, ctx.dp_axis), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The dp all-gather of every rank's rows into the global tensor that
+    every rank then holds alike; the gradient of this rank's rows is their
+    part of the global gradient."""
+
+    @staticmethod
+    def forward(ctx, rows, mesh, dp_axis):
+        from ..parallel.collectives import all_gather_cat
+        from ..parallel.mesh import axis_index
+
+        ctx.lo, ctx.n = axis_index(mesh, dp_axis) * rows.shape[0], rows.shape[0]
+        return all_gather_cat(rows, mesh, dp_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.lo:ctx.lo + ctx.n], None, None
 
 
 def flash_mha_dp(q, k, v, *, mesh, dp_axis: str = "dp"):
-    """Flash attention per dp shard: the LM's half of ROADMAP Queue 1 #9."""
-    reject_mesh(mesh, "flash attention over a dp mesh")
-    raise NotImplementedError(
-        "flash_mha_dp shards the batch over a dp mesh; the LM's half of multi-device "
-        "(ROADMAP Queue 1 #9), call flash_mha"
-    )
+    """Causal flash attention with the batch split over ``dp``: this rank
+    runs :func:`flash_mha` (K3a; K3b and K3c in the backward) on its own
+    batch rows.  ``q, k, v`` are the global ``(B, T, H, D)`` tensors, the
+    same on every rank (B must divide by dp), and the output is the global
+    one, all-gathered over dp; in the backward each rank runs the kernels
+    on its rows and the input gradients are all-gathered, so every rank
+    holds the whole gradient.  (The model's forward on a dp mesh, whose
+    activations are already this rank's rows, calls :func:`flash_mha` on
+    them, with no collective.)"""
+    from ..parallel.mesh import axis_size, require_axis
+
+    require_axis(mesh, dp_axis, "flash_mha_dp")
+    B, dp = q.shape[0], axis_size(mesh, dp_axis)
+    if B % dp:
+        raise ValueError(f"flash_mha_dp needs batch {B} divisible by dp={dp}")
+    rows = flash_mha(*(_TakeRows.apply(x, mesh, dp_axis) for x in (q, k, v)))
+    return _GatherRows.apply(rows, mesh, dp_axis)
 
 
 # ---------------------------------------------------------------- plain versions

@@ -28,17 +28,41 @@ Counterpart of ``flink_parameter_server_tpu/parallel/``.  The design:
   locality MF step's, the fused sharded step's, the sharded top-K's)
   takes its block's ids from :func:`.collectives.owned_rows` and
   assembles a pull with :func:`.collectives.assemble_owned`.
-* **Collectives take what both torch 2.11 and 2.13 have**: the list form
-  of ``all_gather`` and ``all_reduce``.  gloo also takes ``cuda`` tensors
-  (staged through the host), which is how more ranks than cards share
-  one card.
+* **Collectives take what both torch 2.11 and 2.13 have**: the list forms
+  of ``all_gather`` and ``reduce_scatter``, and ``all_reduce``.  gloo also
+  takes ``cuda`` tensors (staged through the host), which is how more
+  ranks than cards share one card.
 
-The LM's half (data-parallel allreduce, ZeRO-1, FSDP, expert parallelism,
-ring attention, tensor parallelism and the pipeline) is still to come
-(ROADMAP Queue 1 #9): ``ring_attention`` holds only the unsharded oracle.
+**Two execution models.**
+
+* **The dense LM: one rank a device**, the fabric above, on a ``("dp",)``
+  mesh (:func:`.mesh.make_dp_mesh`) or ``(dp, ps)`` with ps 1.  Every rank
+  reads the same global microbatch and trains on its contiguous rows
+  (:func:`.collectives.dp_rows`); the gradients are summed with an
+  all-reduce (replicated) or a reduce-scatter plus an all-gather of the
+  updated slices (ZeRO-1, FSDP: ``core/dense.py``).  A loss whose
+  normalisation depends on the rows (the LM's count of valid tokens) is
+  the whole batch's through :func:`.collectives.global_mean`.  The flash
+  kernels run on each rank's rows (``ops/flash_attention.flash_mha_dp``).
+* **The mesh store: one process, n row blocks.**  The reference's
+  ``MeshParamStore`` is single-controller, and so is the port's
+  (``meshstore/``): the cluster driver's one process holds block ``i`` on
+  ``devices[i]``, with no process group at all.
+
+Model parallelism (tensor, sequence and pipeline parallelism, ring
+attention and expert parallelism) is the next port slice (ROADMAP Queue 1
+#9): ``ring_attention`` holds only the unsharded oracle.
 """
-from .collectives import all_gather_cat, all_reduce_sum, shard_pull, shard_push_add
-from .mesh import DP_AXIS, PS_AXIS, make_mesh, single_device_mesh
+from .collectives import (
+    all_gather_cat,
+    all_reduce_sum,
+    dp_rows,
+    global_mean,
+    reduce_scatter_sum,
+    shard_pull,
+    shard_push_add,
+)
+from .mesh import DP_AXIS, PS_AXIS, make_dp_mesh, make_mesh, single_device_mesh
 from .multihost import initialize, make_multihost_mesh, process_local_batch_slice
 
 __all__ = [
@@ -46,10 +70,14 @@ __all__ = [
     "PS_AXIS",
     "all_gather_cat",
     "all_reduce_sum",
+    "dp_rows",
+    "global_mean",
     "initialize",
+    "make_dp_mesh",
     "make_mesh",
     "make_multihost_mesh",
     "process_local_batch_slice",
+    "reduce_scatter_sum",
     "shard_pull",
     "shard_push_add",
     "single_device_mesh",

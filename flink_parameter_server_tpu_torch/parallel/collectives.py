@@ -24,27 +24,39 @@ step's and the sharded top-K's.  ``impl="pallas"`` runs K1
 (``ops/scatter_kernel``) on the block; it takes any block shape, so unlike
 the reference's Mosaic gate there is nothing to fall back from.
 
-The list form of ``all_gather`` is used: torch 2.11 and 2.13 both have it,
-for NCCL and for gloo on CPU and CUDA tensors alike (2.13 deprecates
-``all_gather_into_tensor``).  Half-precision values are summed as float32
-(exact for a pull: one value plus zeros), bools gathered as bytes.
-:func:`collective_counts` reports calls and bytes by kind.
+The dense LM's data parallelism adds three pieces, used by
+``core/dense.py`` and ``models/transformer.py``: :func:`reduce_scatter_sum`
+(``lax.psum_scatter(tiled=True)``, the ZeRO-1 / FSDP gradient exchange),
+:func:`dp_rows` (this rank's contiguous rows of a global microbatch) and
+:func:`global_mean` (a mean over the whole batch of sums the dp ranks hold
+in parts: the loss's numerator and denominator in one all-reduce).
+
+The list forms of ``all_gather`` and ``reduce_scatter`` are used: torch
+2.11 and 2.13 both have them, for NCCL and for gloo on CPU and CUDA
+tensors alike (2.13 deprecates ``all_gather_into_tensor``).  So one route
+serves every backend; none is chosen by a ``try``.  Half-precision values
+are summed as float32 (exact for a pull: one value plus zeros), bools
+gathered as bytes.  :func:`collective_counts` reports calls and bytes by
+kind.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import threading
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .mesh import DP_AXIS, PS_AXIS, axis_group, axis_index, axis_size
 
-_COUNTS: Dict[str, int] = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0}
+_COUNTS: Dict[str, int] = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0,
+                           "reduce_scatter": 0, "reduce_scatter_bytes": 0}
 
 
 def collective_counts() -> Dict[str, int]:
-    """Calls and payload bytes of :func:`all_reduce_sum` and
-    :func:`all_gather_cat` in this process."""
+    """Calls and payload bytes of :func:`all_reduce_sum`,
+    :func:`all_gather_cat` and :func:`reduce_scatter_sum` in this process."""
     return dict(_COUNTS)
 
 
@@ -76,6 +88,97 @@ def all_gather_cat(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     _COUNTS["all_gather_bytes"] += src.numel() * src.element_size() * len(parts)
     out = torch.cat(parts, 0)
     return out.to(torch.bool) if boolean else out
+
+
+def reduce_scatter_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)`` over ``axis``: ``x`` (the same
+    shape on each rank, dim 0 a multiple of the axis size n) cut into n
+    equal chunks along dim 0; returns this rank's chunk of the elementwise
+    sum over the axis.  Half precision is summed as float32."""
+    n = axis_size(mesh, axis)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter_sum: dim 0 of {tuple(x.shape)} does not split into {n}")
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    src = (x.to(torch.float32) if wide else x).contiguous()
+    parts = list(src.chunk(n))
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=axis_group(mesh, axis))
+    _COUNTS["reduce_scatter"] += 1
+    _COUNTS["reduce_scatter_bytes"] += src.numel() * src.element_size()
+    return out.to(x.dtype) if wide else out
+
+
+def dp_rows(batch: Any, mesh, axis: str = DP_AXIS) -> Any:
+    """This rank's contiguous rows of a global microbatch: every tensor or
+    array leaf (of a mapping, list or tuple) with a leading dim is cut into
+    ``axis``-size equal slices and slice ``axis_index`` kept; scalars and
+    other leaves pass through.  A leading dim the axis does not divide
+    raises."""
+    n, d = axis_size(mesh, axis), axis_index(mesh, axis)
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cut(v) for v in x)
+        if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0:
+            if x.shape[0] % n:
+                raise ValueError(f"batch of {x.shape[0]} rows does not split into {axis}={n} equal slices")
+            per = x.shape[0] // n
+            return x[d * per:(d + 1) * per]
+        return x
+
+    return cut(batch)
+
+
+class _GlobalMean(torch.autograd.Function):
+    """Value ``total / count``; gradient to ``local_sum`` only, ``1 / count``."""
+
+    @staticmethod
+    def forward(ctx, local_sum, total, count):
+        ctx.save_for_backward(count)
+        return total / count
+
+    @staticmethod
+    def backward(ctx, grad):
+        (count,) = ctx.saved_tensors
+        return grad / count, None, None
+
+
+_SUMMED = "_fps_dp_summed"  # marks a loss whose gradients the dp ranks sum
+_MADE = threading.local()  # .n: the global_mean results this thread has made
+
+
+def global_mean(local_sum: torch.Tensor, local_count: torch.Tensor, mesh, axis: str = DP_AXIS,
+                *, min_count: float = 1.0) -> torch.Tensor:
+    """The mean over the whole batch of a per-row sum the ``axis`` ranks
+    hold in parts: ``(Σ local_sum) / max(Σ local_count, min_count)``, the
+    same value on every rank, from one all-reduce of the pair (the count
+    carries no gradient).  Its gradient is this rank's part,
+    ``∂local_sum / count``: the ranks' gradients SUMMED are the whole
+    batch's.  The result is marked so (:func:`is_global_mean`); the dense
+    step sums such a loss's gradients instead of averaging them.  The mark
+    is on this tensor only: arithmetic on it (an added regulariser) gives
+    an unmarked tensor, which the step refuses (:func:`global_means_made`)."""
+    pair = torch.stack([local_sum.detach(), local_count.detach().to(local_sum.dtype)])
+    both = all_reduce_sum(pair, mesh, axis)
+    out = _GlobalMean.apply(local_sum, both[0], torch.clamp(both[1], min=min_count))
+    setattr(out, _SUMMED, True)
+    _MADE.n = global_means_made() + 1
+    return out
+
+
+def global_means_made() -> int:
+    """How many :func:`global_mean` results this thread has made.  The
+    dense step reads it around ``loss_fn``: a loss_fn that made one but
+    returned another, unmarked, tensor mixes the two gradient routes."""
+    return getattr(_MADE, "n", 0)
+
+
+def is_global_mean(loss: torch.Tensor) -> bool:
+    """True for a loss made by :func:`global_mean` (already the whole
+    batch's value; its gradients are parts to sum over dp)."""
+    return bool(getattr(loss, _SUMMED, False))
 
 
 def block_start(rows: int, mesh, ps_axis: str = PS_AXIS) -> int:
@@ -196,8 +299,13 @@ __all__ = [
     "assemble_owned",
     "block_start",
     "collective_counts",
+    "dp_rows",
+    "global_mean",
+    "global_means_made",
+    "is_global_mean",
     "owned_rows",
     "push_rows_",
+    "reduce_scatter_sum",
     "reset_collective_counts",
     "shard_pull",
     "shard_push_add",

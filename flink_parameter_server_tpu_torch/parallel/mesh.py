@@ -8,6 +8,10 @@ reference system's two parallelism knobs map onto named mesh axes:
   * ``psParallelism``     → the ``ps`` axis: the parameter table is
     row-blocked across it.
 
+The dense LM's data parallelism takes a 1-D ``("dp",)`` mesh
+(:func:`make_dp_mesh`), the layout of the reference's ZeRO-1 and FSDP
+tests, or the ``(dp, ps)`` one with ``ps`` 1.
+
 The reference drives every device from one process through ``shard_map``.
 The port runs one process per device, as PyTorch does on several cards:
 the mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
@@ -46,6 +50,23 @@ def axis_index(mesh: Any, axis: str) -> int:
 def axis_group(mesh: Any, axis: str):
     """The process group of this rank's line along the named axis."""
     return mesh.get_group(axis)
+
+
+def require_axis(mesh: Any, axis: str, what: str) -> None:
+    """Raise ``ValueError`` naming ``axis`` unless ``mesh`` has it (the
+    reference's ``dp_axis=... not in mesh axes`` refusal)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis not in names:
+        raise ValueError(f"{what}: dp_axis={axis!r} not in mesh axes {names}")
+
+
+def only_axis(mesh: Any, axis: str) -> bool:
+    """True iff ``mesh`` has ``axis`` and every other axis has size 1 (the
+    reference's dp-only mesh)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return axis in names and all(
+        int(mesh.shape[i]) == 1 for i, name in enumerate(names) if name != axis
+    )
 
 
 def mesh_device(mesh: Any) -> torch.device:
@@ -99,6 +120,27 @@ def make_mesh(
     return init_device_mesh(device_type, (dp, ps), mesh_dim_names=tuple(axis_names))
 
 
+def make_dp_mesh(dp: Optional[int] = None, *, device_type: str = "cuda"):
+    """The 1-D data-parallel mesh ``("dp",)`` over every rank of the
+    default process group (``dp``, when given, must be the world size):
+    the reference's ``Mesh(devices, ("dp",))``.  The group comes up as
+    :func:`make_mesh`'s does."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .multihost import initialize
+
+    initialize(device_type=device_type)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_dp_mesh needs a process group: launch with torchrun, or call "
+            "parallel.multihost.initialize(init_method, world_size, rank) first"
+        )
+    n = dist.get_world_size()
+    if dp is not None and dp != n:
+        raise ValueError(f"dp={dp} != world size ({n})")
+    return init_device_mesh(device_type, (n,), mesh_dim_names=(DP_AXIS,))
+
+
 def single_device_mesh(
     *, device_type: str = "cuda", axis_names: Tuple[str, str] = (DP_AXIS, PS_AXIS)
 ):
@@ -122,7 +164,10 @@ __all__ = [
     "axis_group",
     "axis_index",
     "axis_size",
+    "make_dp_mesh",
     "make_mesh",
     "mesh_device",
+    "only_axis",
+    "require_axis",
     "single_device_mesh",
 ]

@@ -5,9 +5,10 @@ entry point takes a ``device`` argument whose default is ``"cuda"``.
 Asking for ``cuda`` on a machine without a card raises — nothing drops
 to the CPU quietly.  The parameter server's paths take a ``dp × ps``
 ``DeviceMesh`` (:mod:`..parallel.mesh`) whose device type matches the
-device (:func:`check_mesh`); what is not multi-device yet raises for any
-mesh (:func:`reject_mesh`): the LM's half, the mesh store and the
-cluster's relayout (ROADMAP Queue 1 #9).
+device (:func:`check_mesh`); the dense LM takes a mesh with a ``dp`` axis.
+What is not multi-device yet, model parallelism (tensor, sequence,
+pipeline and expert parallelism), raises for any mesh
+(:func:`reject_mesh`): it is the next port slice (ROADMAP Queue 1 #9).
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str = "ps") -> None:
     """Accept ``None`` or a torch ``DeviceMesh`` with a ``ps_axis`` axis
     whose device type matches ``device`` (when given).  Any other mesh (a
-    JAX mesh, an ``ep`` / ``sp`` / ``tp`` layout) raises: those belong to
-    the LM's half of ROADMAP Queue 1 #9."""
+    JAX mesh, an ``ep`` / ``sp`` / ``tp`` layout) raises: model
+    parallelism is the next port slice (ROADMAP Queue 1 #9)."""
     if mesh is None:
         return
     from torch.distributed.device_mesh import DeviceMesh
@@ -42,7 +43,7 @@ def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str =
         raise NotImplementedError(
             f"the torch port's meshes are torch DeviceMeshes with a {ps_axis!r} "
             f"axis (parallel.mesh.make_mesh), got {type(mesh).__name__}; other "
-            f"layouts are the LM's half of ROADMAP Queue 1 #9 (multi-device)"
+            f"layouts are model parallelism, the next port slice (ROADMAP Queue 1 #9)"
         )
     if device is not None and torch.device(device).type != mesh.device_type:
         raise ValueError(
@@ -50,14 +51,16 @@ def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str =
         )
 
 
+MODEL_PARALLEL = (
+    "model parallelism (tensor, sequence, pipeline and expert parallelism) is the next "
+    "port slice, ROADMAP Queue 1 #9"
+)
+
+
 def reject_mesh(mesh: Optional[Any], what: str) -> None:
-    """Raise for any mesh: ``what`` is not multi-device yet (ROADMAP
-    Queue 1 #9)."""
+    """Raise for any mesh: ``what`` is model parallelism, not ported yet."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"{what} is single-device in the torch port; across devices it is "
-            f"ROADMAP Queue 1 #9 (multi-device)"
-        )
+        raise NotImplementedError(f"{what} is not multi-device in the torch port yet: {MODEL_PARALLEL}")
 
 
 def mesh_resolve_device(mesh: Optional[Any], device: DeviceLike = None) -> torch.device:
@@ -72,4 +75,4 @@ def mesh_resolve_device(mesh: Optional[Any], device: DeviceLike = None) -> torch
     return resolve_device(device)
 
 
-__all__ = ["DeviceLike", "resolve_device", "check_mesh", "reject_mesh", "mesh_resolve_device"]
+__all__ = ["MODEL_PARALLEL", "DeviceLike", "resolve_device", "check_mesh", "reject_mesh", "mesh_resolve_device"]

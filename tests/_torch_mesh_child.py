@@ -25,8 +25,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-# world size and the (dp, ps) mesh of each battery
-BATTERIES = {"grid": (4, (2, 2)), "grid_mf": (4, (2, 2)), "wide": (8, (2, 4)), "pair": (2, (2, 1))}
+# world size and the (dp, ps) mesh of each battery; a 1-tuple is the 1-D
+# ("dp",) mesh of the dense LM's batteries (tests/_torch_dense_cases.py)
+BATTERIES = {"grid": (4, (2, 2)), "grid_mf": (4, (2, 2)), "wide": (8, (2, 4)), "pair": (2, (2, 1)),
+             "dense": (4, (4,)), "dense2": (2, (2,))}
 
 
 def run_battery(battery: str, outdir: Path, *, timeout: float = 150.0) -> dict:
@@ -796,20 +798,29 @@ CASES = {
 }
 
 
+def _cases(battery: str) -> list:
+    if battery in CASES:
+        return CASES[battery]
+    import _torch_dense_cases
+
+    return _torch_dense_cases.CASES[battery]
+
+
 def main(init_method: str, world: int, rank: int, battery: str, outdir: Path) -> int:
     import torch
 
     from flink_parameter_server_tpu_torch.parallel import multihost
-    from flink_parameter_server_tpu_torch.parallel.mesh import axis_index, make_mesh
+    from flink_parameter_server_tpu_torch.parallel.mesh import axis_index, make_dp_mesh, make_mesh
 
     torch.set_num_threads(1)
     multihost.initialize(init_method, world, rank, device_type="cpu", timeout_s=60)
-    dp, ps = BATTERIES[battery][1]
-    mesh = make_mesh(dp, ps, device_type="cpu")
+    shape = BATTERIES[battery][1]
+    dp, ps = (shape[0], 1) if len(shape) == 1 else shape
+    mesh = make_dp_mesh(dp, device_type="cpu") if len(shape) == 1 else make_mesh(dp, ps, device_type="cpu")
     ctx = types.SimpleNamespace(mesh=mesh, rank=rank, world=world, dp=dp, ps=ps, outdir=outdir,
                                 dp_index=axis_index(mesh, "dp"), ps_index=axis_index(mesh, "ps"))
     failed = 0
-    for case in CASES[battery]:
+    for case in _cases(battery):
         name = case.__name__[len("case_"):]
         try:
             out = case(ctx)

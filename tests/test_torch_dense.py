@@ -135,9 +135,49 @@ def test_errors():
     server = dense.DenseParameterServer(tr.init_params(cfg, device="cpu"), optim.sgd(0.1))
     with pytest.raises(ValueError, match="steps_per_call"):
         dense.transform_dense(_batches(1), lambda m, b: tr.lm_loss(m, b, cfg), server, steps_per_call=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    # batch_sharding is the dp DeviceMesh (tests/test_torch_zero1.py and the
+    # one-rank test below run it); ZeRO-1 needs one, as the reference's does
+    with pytest.raises(ValueError, match="DeviceMesh"):
         dense.transform_dense(_batches(1), lambda m, b: tr.lm_loss(m, b, cfg), server, batch_sharding=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(ValueError, match="requires mesh"):
         dense.make_dense_train_step(lambda m, b: 0, shard_opt_state=True)
     with pytest.raises(ValueError, match="gradients for"):
         server.push([torch.zeros(1)])
+
+
+@pytest.fixture()
+def one_rank_mesh():
+    """A one-rank gloo ``("dp",)`` mesh in this process, torn down after."""
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_dp_mesh
+
+    torch.distributed.init_process_group("gloo", store=torch.distributed.HashStore(), world_size=1, rank=0)
+    try:
+        yield make_dp_mesh(device_type="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("regime", ["replicated", "zero1", "fsdp"])
+def test_one_rank_dp_mesh_is_the_unsharded_run(one_rank_mesh, regime):
+    """``transform_dense(batch_sharding=mesh)`` with ``lm_loss(mesh=)`` on a
+    one-rank mesh, in each regime, is bitwise the unsharded run (every
+    collective a copy), a row-masked batch included."""
+    cfg = tr.TransformerConfig(**CFG, dtype=torch.float32)
+    batches = _batches(3)
+    batches[1]["mask"] = np.array([1.0, 0.0], np.float32)
+
+    def server(mesh=None):
+        model = tr.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+        if mesh is not None and regime == "fsdp":
+            dense.fsdp_place(model, mesh)
+        return dense.DenseParameterServer(model, optim.adamw(1e-2))
+
+    want = dense.transform_dense(batches, lambda m, b: tr.lm_loss(m, b, cfg), server())
+    mesh = one_rank_mesh
+    got = dense.transform_dense(batches, lambda m, b: tr.lm_loss(m, b, cfg, mesh=mesh), server(mesh),
+                                batch_sharding=mesh, shard_opt_state=regime == "zero1")
+    assert [float(x) for x in got.worker_outputs] == [float(x) for x in want.worker_outputs]
+    for a, b in zip(interop.transformer_params_to_numpy(got.server_outputs[0])["layers"],
+                    interop.transformer_params_to_numpy(want.server_outputs[0])["layers"]):
+        for k in a:
+            assert a[k].tobytes() == b[k].tobytes(), k

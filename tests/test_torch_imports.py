@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "flink_parameter_server_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mesh_child.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mesh_child.py",
+                                         ROOT / "tests" / "_torch_dense_cases.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -170,6 +171,50 @@ def test_the_mesh_child_and_the_parallel_plane_load_no_jax(tmp_path):
         "s = ShardedParamStore.create(16, (2,), mesh=mesh).push(torch.tensor([3, 3]), torch.ones(2, 2))\n"
         "assert s.pull(torch.tensor([3])).tolist() == [[2.0, 2.0]]\n"
         "assert sharded_topk(s.table, torch.ones(1, 2), 1, mesh=mesh)[1].tolist() == [[3]]\n"
+        "torch.distributed.destroy_process_group()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_dense_cases_and_the_dp_lm_load_no_jax():
+    """The dense batteries' cases and the modules of the LM's data
+    parallelism and the mesh store's blocks, imported first in a fresh
+    interpreter, then a ZeRO-1 LM step on a one-rank ``("dp",)`` gloo mesh,
+    ``flash_mha_dp`` and a two-block mesh store: no JAX module and nothing
+    of the JAX package is loaded."""
+    script = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dense_cases\n"
+        "import torch\n"
+        "from flink_parameter_server_tpu_torch.core import dense, optim\n"
+        "from flink_parameter_server_tpu_torch.meshstore import MeshParamStore, make_store_mesh\n"
+        "from flink_parameter_server_tpu_torch.models import transformer as tr\n"
+        "from flink_parameter_server_tpu_torch.ops import flash_attention as fa\n"
+        "from flink_parameter_server_tpu_torch.parallel.mesh import make_dp_mesh\n"
+        "torch.distributed.init_process_group('gloo', store=torch.distributed.HashStore(), world_size=1, rank=0)\n"
+        "mesh = make_dp_mesh(device_type='cpu')\n"
+        "cfg = tr.TransformerConfig(vocab_size=32, d_model=64, n_heads=1, n_layers=1, d_ff=64, max_seq=128,"
+        " dtype=torch.float32)\n"
+        "server = dense.DenseParameterServer(tr.init_params(cfg, mesh=mesh), optim.adamw(1e-3))\n"
+        "res = dense.transform_dense([{'tokens': torch.zeros(2, 128, dtype=torch.int64)}],"
+        " lambda m, b: tr.lm_loss(m, b, cfg, mesh=mesh), server, batch_sharding=mesh, shard_opt_state=True)\n"
+        "assert torch.isfinite(res.worker_outputs[0])\n"
+        "q = torch.ones(2, 128, 1, 64)\n"
+        "assert fa.flash_mha_dp(q, q, q, mesh=mesh).shape == q.shape\n"
+        "store = MeshParamStore(16, (2,), mesh=make_store_mesh(['cpu', 'cpu']), registry=False)\n"
+        "store.push(torch.tensor([3, 12]), torch.ones(2, 2))\n"
+        "assert store.pull(torch.tensor([12])).tolist() == [[1.0, 1.0]]\n"
         "torch.distributed.destroy_process_group()\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"

@@ -142,13 +142,19 @@ def test_store_matches_the_reference_mesh_store(rng):
 
 
 def test_layout_is_one_device_and_a_mesh_raises():
+    """The layout is a device list, one row block an entry (a device may
+    repeat: tests/test_torch_meshstore_blocks.py runs 8 blocks); a mesh
+    that is not a layout raises."""
     lay = make_store_mesh(device=CPU)
     assert isinstance(lay, StoreLayout) and lay.n_devices == 1
     assert lay.shape == {"shard": 1} and lay.device.type == "cpu"
     assert make_store_mesh([torch.device("cpu")]).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        make_store_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    two = make_store_mesh(["cpu", "cpu"])
+    assert two.n_devices == 2 and two.shape == {"shard": 2} and two.devices == (torch.device("cpu"),) * 2
+    store = MeshParamStore(16, (), mesh=two, registry=False)
+    assert [tuple(b.shape) for b in store.blocks] == [(8,), (8,)] and store.stats()["devices"] == 2
+    store.close()
+    with pytest.raises(TypeError, match="StoreLayout"):
         MeshParamStore(16, (), mesh=object(), registry=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -690,6 +690,10 @@ def test_oracle_values_match_the_reference(name):
     assert runner.oracle_values(s, device=CPU) is got
 
 
+# the one invariant the reference's chain-build race can break
+REFERENCE_CHAIN_RACE_BREAKS = "final_table_parity"
+
+
 @pytest.mark.parametrize("name", [
     "two_way_partition_heal",
     "mid_frame_rst_push",
@@ -699,7 +703,17 @@ def test_oracle_values_match_the_reference(name):
 ])
 def test_scenario_verdicts_match_the_reference(name, tmp_path):
     """The slice as a whole: the same committed schedule through both
-    packages' runners gives the same verdict table."""
+    packages' runners gives the same verdict table.
+
+    ``sketch_full_stack`` is held apart on one invariant.  The
+    reference's chain build starts its WAL shippers before it attaches the
+    primary's sink (``replication/chain.py:173-188``), so now and then a
+    replica misses a push and the promoted table loses increments: its
+    ``final_table_parity`` fails, and only that verdict.  The port
+    attaches the sink first.  So there the port's verdicts must ALL be ok,
+    every other verdict must equal the reference's, and
+    ``final_table_parity`` is compared only when the reference's run kept
+    its increments (its integer-exact check found no mismatched cell)."""
     ours = run_scenario(
         {s.name: s for s in load_corpus()}[name],
         wal_root=str(tmp_path), device=CPU,
@@ -708,10 +722,18 @@ def test_scenario_verdicts_match_the_reference(name, tmp_path):
         {s.name: s for s in ref_runner.load_corpus()}[name],
         wal_root=str(tmp_path),
     )
-    assert [(v.name, v.ok) for v in ours.verdicts] == [
-        (v.name, v.ok) for v in theirs.verdicts
-    ], ([v.as_dict() for v in ours.verdicts],
-        [v.as_dict() for v in theirs.verdicts])
+    table = ([v.as_dict() for v in ours.verdicts],
+             [v.as_dict() for v in theirs.verdicts])
+    mine = [(v.name, v.ok) for v in ours.verdicts]
+    ref = [(v.name, v.ok) for v in theirs.verdicts]
+    if name == "sketch_full_stack":
+        raced = REFERENCE_CHAIN_RACE_BREAKS
+        assert all(ok for _, ok in mine), table
+        kept = all("mismatched_cells=0" in v.detail for v in theirs.verdicts if v.name == raced)
+        if not kept:
+            mine = [(n, ok) for n, ok in mine if n != raced]
+            ref = [(n, ok) for n, ok in ref if n != raced]
+    assert mine == ref, table
     assert set(ours.faults) == set(theirs.faults)
     assert ours.ops_executed == theirs.ops_executed == len(
         ours.scenario.ops
