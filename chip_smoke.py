@@ -327,6 +327,13 @@ line each; any failure exits non-zero before the last line:
              collective's ms; (c) ``store_backend="mesh"`` with 4 row
              blocks on the card bitwise one block at the MF path's width,
              ``verify_against_log()``, the momentum velocity 1/4 a block.
+             Then expert parallelism in the same processes: (a) the MoE LM
+             (bfloat16, 8 experts) on a one-rank ``("dp", "ep")`` NCCL
+             mesh bitwise the mesh-less run; (b) ep 4 on the 4 gloo ranks
+             in float32 within the same bar of the mesh-less run, an ep x
+             expert gradient past it; the dp-only mesh routing the global
+             batch, per-rank routing past the bar; ``moe_apply`` at
+             (2, 2) against its oracle; the all-to-all's ms and bytes.
              The ranks' flash launches join the kernels line's counts.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
@@ -3583,7 +3590,7 @@ ADAPTIVE_WORKERS, ADAPTIVE_SHARDS = 4, 2  # benchmarks/straggler_ab.py's topolog
 ADAPTIVE_BOUND, ADAPTIVE_SUBGROUPS = 2, 8  # its declared SSP bound and row groups a worker
 ADAPTIVE_LAG_MS = 25.0  # worker 0's symmetric per-frame link delay (its --lag-ms 25)
 ADAPTIVE_DEADLINE_S = 6.0  # each arm's driver.run(deadline_s=...)
-ADAPTIVE_MF_ROUNDS = 32  # more rounds than either MF arm reaches in the deadline (checked)
+ADAPTIVE_MF_ROUNDS = 24  # more rounds than either MF arm reaches in the deadline (checked; 9-18 on an H100)
 ADAPTIVE_PA = dict(ELASTIC_PA, rounds=14)  # ELASTIC_PA's width; rounds past what an arm reaches (checked; 5-9 on an H100)
 ADAPTIVE_METRIC = "cluster_pull_rtt_seconds"
 ADAPTIVE_RMSE_BAR = 1.10  # adaptive RMSE <= fixed RMSE x 1.10, the reference's bar
@@ -4780,7 +4787,8 @@ def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None):
 
     t_run = time.perf_counter()
     m = None if regime == "unsharded" else mesh
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    # on the ("dp", "ep") mesh each rank keeps its experts of the same draw
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, mesh=m)
     if regime == "fsdp":
         fsdp_place(model, mesh)
     built = []  # the optimizers the factory builds: the last is the run's
@@ -4861,6 +4869,15 @@ def _ddp_rank_nccl(torch, outdir):
     return out
 
 
+def _held(torch, run, ref_params, init):
+    """A run's whole final model against a reference's parameters: (within
+    DDP_F32_BAR, max |error|, elements past the bar, max |final - init|)."""
+    got = [p.detach() for p in run["final"].parameters()]
+    past = sum(int((~torch.isclose(a, b, **DDP_F32_BAR)).sum()) for a, b in zip(got, ref_params))
+    return (past == 0, max(float((a - b).abs().max()) for a, b in zip(got, ref_params)), past,
+            max(float((a - b.detach()).abs().max()) for a, b in zip(got, init)))
+
+
 def _ddp_rank_gloo(torch, outdir):
     """(b): dp 4 as 4 gloo ranks on ``cuda:0``, Transformer-base in float32,
     each regime against (a)'s unsharded float32 run, with how far the
@@ -4883,18 +4900,10 @@ def _ddp_rank_gloo(torch, outdir):
     init = list(init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev).parameters())
     out = {"backend": dist.get_backend(), "rank": dist.get_rank()}
 
-    def held(run):
-        """Against (a)'s run: (within the bar, max |error|, elements past
-        the bar, max |final - init|)."""
-        got = list(run["final"].parameters())
-        past = sum(int((~torch.isclose(a, b, **DDP_F32_BAR)).sum()) for a, b in zip(got, ref_params))
-        return (past == 0, max(float((a - b).abs().max()) for a, b in zip(got, ref_params)), past,
-                max(float((a - b).abs().max()) for a, b in zip(got, init)))
-
     model = None
     for regime in DDP_REGIMES:
         run = _ddp_run(torch, cfg, regime, batches, mesh, lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev)
-        ok, err, _, moved = held(run)
+        ok, err, _, moved = _held(torch, run, ref_params, init)
         loss_ok = bool(np.allclose(run["losses"], ref["losses"], rtol=1e-4))
         out[regime] = dict(ok=ok and loss_ok, err=err, moved=moved, losses=run["losses"], ref_losses=ref["losses"],
                            **{k: run[k] for k in ("launches", "calls", "steps_ms", "params_bytes", "opt_bytes",
@@ -4911,7 +4920,7 @@ def _ddp_rank_gloo(torch, outdir):
 
     run = _ddp_run(torch, cfg, "replicated", batches, mesh, lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev,
                    plant=drop_rank0)
-    ok, err, past, _ = held(run)
+    ok, err, past, _ = _held(torch, run, ref_params, init)
     out["planted"] = dict(caught=not ok, err=err, past=past, elements=sum(p.numel() for p in init))
     del run
     # the row-masked batch's loss on the final weights: this rank's rows
@@ -4935,6 +4944,11 @@ def _ddp_rank_gloo(torch, outdir):
         "all_gather": _ddp_time_ms(torch, lambda: coll.all_gather_cat(own[:1], mesh, "dp")),
         "payload_bytes": n * 4,
     }
+    del model, flat, own, ref_params, init
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["ep"] = _ep_rank_gloo(torch, outdir)
+    out["ep"]["seconds"] = round(time.perf_counter() - t, 2)
     dist.barrier()
     return out
 
@@ -4953,9 +4967,256 @@ def _ddp_time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+EP_STEPS = 3  # (a)'s MoE LM steps on the one-rank ("dp", "ep") NCCL mesh, bfloat16
+EP_F32_STEPS = 2  # (b)'s ep-4 steps, and (a)'s float32 mesh-less run they are held against
+EP_WORLD = DDP_WORLD  # (b): the gloo children, again, as a (1, 4) ("dp", "ep") mesh
+# (2, 2) at the layer level: 2,048 tokens a dp half, 256 an expert on average, so capacity 192 drops some
+EP_LAYER_TOKENS, EP_LAYER_CAPACITY = 4096, 192
+EP_LAYER_BAR = 1e-4  # float32 against moe_reference: rtol, and atol x the oracle's largest |value|
+# (b)'s dp-only run: the MoE LM on a ("dp",) mesh of the 4 children routes the global batch's 8,192 tokens,
+# 1,024 an expert on average, so capacity 1,024 drops some (a rank's 2,048 alone would drop none)
+EP_DP_STEPS, EP_DP_CAPACITY = 1, 1024
+
+
+def _ep_cfg(**kw):
+    """phase_moe_lm's MoE LM (Transformer-base, 8 experts a layer, capacity
+    1,280) with its experts on the ``ep`` axis of a mesh."""
+    from flink_parameter_server_tpu_torch import TransformerConfig
+
+    return TransformerConfig(num_experts=MOE_EXPERTS, moe_capacity=MOE_CAPACITY, ep_axis="ep", **kw)
+
+
+def _ep_layer_ms(torch, layers, mcfg, mesh, tokens, dev) -> float:
+    """``moe_apply``'s forward and backward over every layer's experts at a
+    step's shapes (``tokens`` x d_model, the model's dtype), alone: CUDA
+    events over 5 runs after one, ms a run."""
+    from flink_parameter_server_tpu_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(tokens, mcfg.d_model, generator=gen, device=dev).to(mcfg.dtype).requires_grad_()
+    g = torch.randn(tokens, mcfg.d_model, generator=gen, device=dev).to(mcfg.dtype)
+
+    def run():
+        for prm in layers:
+            torch.autograd.backward(moe.moe_apply(prm, h, mcfg, mesh=mesh), g)
+
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 5
+
+
+def _ep_rank_nccl(torch, outdir):
+    """(a) of the ep part, in the one-rank NCCL group of (a): the MoE LM on
+    a ``("dp", "ep")`` mesh of one rank (bfloat16, flash "on") for
+    EP_STEPS steps through ``transform_dense(batch_sharding=mesh)``
+    against the same steps without a mesh; the MoE layers' ms alone; the
+    all-to-all's ms at a trip's payload; then the float32 mesh-less runs
+    that (b) is held against (flash "on", as (b) runs it), saved for it:
+    the ep-4 run's, and the dp-only run's at EP_DP_CAPACITY."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch import adamw, sgd
+    from flink_parameter_server_tpu_torch.models import moe
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_mesh, mesh_device
+
+    mesh = make_mesh(1, 1, device_type="cuda", axis_names=("dp", "ep"))
+    dev = mesh_device(mesh)
+    cfg = _ep_cfg(flash_attention="on")  # bfloat16, as phase_moe_lm runs it
+    batches = list(bigram_batches(EP_STEPS, LM_B, LM_T, cfg.vocab_size, seed=0))
+    opt = lambda p: adamw(DDP_LR)(p)  # noqa: E731
+    base = _ddp_run(torch, cfg, "unsharded", batches, mesh, opt, dev)
+    ep = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev)
+    out = {"backend": dist.get_backend(), "bitwise": ep["losses"] == base["losses"] and _ddp_same(
+        torch, ep["final"], base["final"]), "losses": ep["losses"], "base_losses": base["losses"],
+        "max_err": max(float((a.detach().float() - b.detach().float()).abs().max())
+                       for a, b in zip(ep["final"].parameters(), base["final"].parameters())),
+        **{k: ep[k] for k in ("launches", "calls", "steps_ms", "run_s")}, "base_ms": base["steps_ms"]}
+    layers = [{k: v.detach().requires_grad_() for k, v in layer.moe.items()} for layer in ep["final"].layers]
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=MOE_EXPERTS, capacity=MOE_CAPACITY,
+                         dtype=cfg.dtype)
+    out["moe_ms"] = _ep_layer_ms(torch, layers, mcfg, mesh, LM_B * LM_T, dev)
+    del base, ep, layers
+    trip = torch.ones(MOE_EXPERTS, MOE_CAPACITY, cfg.d_model, dtype=cfg.dtype, device=dev)
+    out["a2a_ms"] = _ddp_time_ms(torch, lambda: coll.all_to_all(trip, mesh, "ep"))
+    out["a2a_bytes"] = trip.numel() * trip.element_size()
+    cfg32 = _ep_cfg(flash_attention="on", dtype=torch.float32)
+    batches32 = list(bigram_batches(EP_F32_STEPS, LM_B, LM_T, cfg32.vocab_size))
+    sgd32 = lambda p: sgd(DDP_F32_LR, momentum=0.9)(p)  # noqa: E731
+    for name, c, bs in (("moe_f32", cfg32, batches32),
+                        ("moe_dp_f32", dataclasses.replace(cfg32, moe_capacity=EP_DP_CAPACITY),
+                         batches32[:EP_DP_STEPS])):
+        f32 = _ddp_run(torch, c, "unsharded", bs, mesh, sgd32, dev)
+        torch.save({"losses": f32["losses"], "params": [p.detach().cpu() for p in f32["final"].parameters()]},
+                   os.path.join(outdir, f"{name}.pt"))
+        out[f"{name}_s"] = f32["run_s"]
+        del f32
+    check(moe.local_experts(MOE_EXPERTS, mesh) == slice(0, MOE_EXPERTS), "ep (a): one rank holds every expert")
+    return out
+
+
+def _ep_layer_check(torch, dev):
+    """(2, 2) at the layer level: ``moe_apply`` on this rank's dp half of
+    EP_LAYER_TOKENS float32 tokens at the LM's width, capacity
+    EP_LAYER_CAPACITY a dp half, its output and the gradients of
+    ``sum(out * g)`` against ``moe_reference`` on the same half (the
+    rank's gradients are its half's: each leaf's, the experts' slice)."""
+    from flink_parameter_server_tpu_torch.models import moe
+    from flink_parameter_server_tpu_torch.parallel.mesh import axis_index, make_mesh
+
+    mesh = make_mesh(2, 2, device_type="cuda", axis_names=("dp", "ep"))
+    cfg = _ep_cfg()
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=MOE_EXPERTS, capacity=EP_LAYER_CAPACITY)
+    whole = moe.init_moe_params(torch.Generator(device=dev).manual_seed(5), mcfg, device=dev)
+    mine = moe.init_moe_params(torch.Generator(device=dev).manual_seed(5), mcfg, mesh)
+    sl = moe.local_experts(MOE_EXPERTS, mesh)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(EP_LAYER_TOKENS, mcfg.d_model, generator=gen, device=dev)
+    g = torch.randn(EP_LAYER_TOKENS, mcfg.d_model, generator=gen, device=dev)
+    n = EP_LAYER_TOKENS // 2
+    d = axis_index(mesh, "dp")
+    half, g_half = x[d * n:(d + 1) * n], g[d * n:(d + 1) * n]
+    p = {k: v.clone().requires_grad_() for k, v in mine.items()}
+    q = {k: v.clone().requires_grad_() for k, v in whole.items()}
+    got = moe.moe_apply(p, half, mcfg, mesh=mesh)
+    (got * g_half).sum().backward()
+    want = moe.moe_reference(q, half, mcfg)
+    (want * g_half).sum().backward()
+    pairs = {"out": (got, want), "w_gate": (p["w_gate"].grad, q["w_gate"].grad),
+             "w_up": (p["w_up"].grad, q["w_up"].grad[sl]), "w_down": (p["w_down"].grad, q["w_down"].grad[sl])}
+    errs = {k: float((a - b).abs().max()) for k, (a, b) in pairs.items()}
+    ok = all(torch.allclose(a, b, rtol=EP_LAYER_BAR, atol=EP_LAYER_BAR * float(b.abs().max()))
+             for a, b in pairs.values())
+    kept = int(moe._route(half, whole["w_gate"], MOE_EXPERTS, EP_LAYER_CAPACITY)[2].sum())
+    same_init = all(torch.equal(mine[k], whole[k][slice(None) if k == "w_gate" else sl]) for k in mine)
+    return dict(ok=ok and same_init, errs=errs, kept=kept, tokens=n, experts=[sl.start, sl.stop])
+
+
+def _ep_rank_gloo(torch, outdir):
+    """(b) of the ep part, in each gloo child: ep 4 as a (1, 4)
+    ``("dp", "ep")`` mesh, each rank holding 2 of the 8 experts, the MoE
+    LM in float32 (flash "on": K3a/b/c on the rank's rows) for
+    EP_F32_STEPS steps against (a)'s float32 mesh-less run; the planted
+    fault (the experts' gradients left ep times large: ``moe_apply``'s
+    division by ep taken out) outside that bar.  The same LM on the
+    dp-only ``("dp",)`` mesh of the 4 children at EP_DP_CAPACITY, which
+    routes the global batch: EP_DP_STEPS steps against (a)'s mesh-less run
+    at that capacity, and the rank's logits against the mesh-less forward
+    of the whole batch, where the planted per-rank routing must fall
+    outside the same bar (a forward: a planted training step would cost
+    another all-reduce of every gradient).  Then the (2, 2) layer check
+    and the all-to-all's ms at (b)'s trip payload."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch import forward, init_params, sgd
+    from flink_parameter_server_tpu_torch.models import moe
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_dp_mesh, make_mesh, mesh_device
+
+    mesh = make_mesh(1, EP_WORLD, device_type="cuda", axis_names=("dp", "ep"))
+    dev = mesh_device(mesh)
+    cfg = _ep_cfg(dtype=torch.float32, flash_attention="on")
+    batches = list(bigram_batches(EP_F32_STEPS, LM_B, LM_T, cfg.vocab_size))
+    model0 = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    init = [p.detach() for p in model0.parameters()]
+    opt = lambda p: sgd(DDP_F32_LR, momentum=0.9)(p)  # noqa: E731
+
+    def load(name):
+        ref = torch.load(os.path.join(outdir, f"{name}.pt"))
+        return ref, [p.to(dev) for p in ref["params"]]
+
+    def held(run, ref, ref_params):
+        ok, err, past, moved = _held(torch, run, ref_params, init)
+        return dict(ok=ok and bool(np.allclose(run["losses"], ref["losses"], rtol=1e-4)), err=err, past=past,
+                    moved=moved, losses=run["losses"], ref_losses=ref["losses"],
+                    **{k: run[k] for k in ("launches", "calls", "steps_ms", "run_s")})
+
+    ref, ref_params = load("moe_f32")
+    out = held(_ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev), ref, ref_params)
+    out["experts"] = str(moe.local_experts(MOE_EXPERTS, mesh))
+    real_copies = moe._EpCopies.apply
+    moe._EpCopies.apply = lambda w, ep: w  # the planted fault: each expert sums ep copies of its gradient
+    try:
+        bad = held(_ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev), ref, ref_params)
+    finally:
+        moe._EpCopies.apply = real_copies
+    out["planted"] = dict(caught=not bad["ok"], err=bad["err"], past=bad["past"], elements=sum(p.numel() for p in init))
+
+    dp_cfg = dataclasses.replace(cfg, moe_capacity=EP_DP_CAPACITY)
+    dp_mesh = make_dp_mesh(EP_WORLD, device_type="cuda")
+    ref, ref_params = load("moe_dp_f32")
+    routed, real_route = [], moe._route
+
+    def spy(x, w, E, C):  # the tokens each routing sees and keeps
+        r = real_route(x, w, E, C)
+        routed.append((int(r[2].sum()), int(x.shape[0])))
+        return r
+
+    moe._route = spy
+    try:
+        out["dp"] = held(_ddp_run(torch, dp_cfg, "replicated", batches[:EP_DP_STEPS], dp_mesh, opt, dev), ref,
+                         ref_params)
+    finally:
+        moe._route = real_route
+    out["dp"]["routed"] = routed
+    del ref_params
+    real_mlp = tr._moe_mlp
+
+    def per_rank(layer, h, c, m):  # the planted fault: each rank routes its own rows alone
+        B, T, d = h.shape
+        return moe.moe_dense(layer.moe, h.reshape(B * T, d), tr._moe_config(c)).reshape(B, T, d)
+
+    tokens = torch.from_numpy(batches[0]["tokens"]).to(dev)
+    rows = coll.dp_rows(tokens, dp_mesh)
+    logits = {}
+    with torch.no_grad():
+        logits["want"] = coll.dp_rows(forward(model0, tokens, dp_cfg), dp_mesh).clone()
+        logits["got"] = forward(model0, rows, dp_cfg, mesh=dp_mesh)
+        tr._moe_mlp = per_rank
+        try:
+            logits["planted"] = forward(model0, rows, dp_cfg, mesh=dp_mesh)
+        finally:
+            tr._moe_mlp = real_mlp
+    want = logits.pop("want")
+
+    def past_in_batch(v):  # elements past the bar over every rank's rows (rank 0's rows route first, so
+        # a routing fault may leave them as they were)
+        mine = (~torch.isclose(v, want, **DDP_F32_BAR)).sum().to(torch.float64).reshape(1)
+        return int(coll.all_reduce_sum(mine, dp_mesh, "dp").item())
+
+    out["dp"]["logits"] = {k: dict(err=float((v - want).abs().max()), past=past_in_batch(v))
+                           for k, v in logits.items()}
+    out["dp"]["logits"]["elements"] = want.numel() * EP_WORLD
+    del logits, want, model0, init
+    out["layer"] = _ep_layer_check(torch, dev)
+    trip = torch.ones(MOE_EXPERTS, MOE_CAPACITY, cfg.d_model, device=dev)
+    out["a2a_ms"] = _ddp_time_ms(torch, lambda: coll.all_to_all(trip, mesh, "ep"))
+    out["a2a_bytes"] = trip.numel() * trip.element_size()
+    return out
+
+
 # part: (the rank's function, the kernels it launches); every part is a gloo group on cuda:0
-PAR_PARTS = {"gloo": (_par_rank_gloo, ("scatter_add", "fused_mf")),
-             "dense_gloo": (_ddp_rank_gloo, ("flash_attn",))}
+def _gloo_rank(torch, outdir):
+    """One gloo child of phase_parallel_dense: the parameter server's (b)
+    and (c), then the dense LM's (b) with the ep part's (b).  One spawn
+    serves both, so 4 children's ``import torch`` (about 10 s at once) is
+    paid once."""
+    t = time.perf_counter()
+    par = _par_rank_gloo(torch, outdir)
+    par["work_s"] = round(time.perf_counter() - t, 2)
+    torch.cuda.empty_cache()
+    return {"par": par, "dense": _ddp_rank_gloo(torch, outdir)}
+
+
+GLOO_LIBRARIES = ("scatter_add", "fused_mf", "flash_attn")  # the kernels a gloo child launches
 
 
 @contextlib.contextmanager
@@ -4972,30 +5233,29 @@ def _one_rank_group(torch):
 
 
 def parallel_rank(argv) -> int:
-    """A gloo rank on ``cuda:0`` of ``phase_parallel`` or ``phase_dense_dp``:
-    ``--parallel-rank <part> <init> <world> <rank> <outdir>``.  Writes ``<outdir>/<part>.r<rank>.json`` (or the
+    """A gloo rank on ``cuda:0`` of ``phase_parallel_dense``:
+    ``--parallel-rank <init> <world> <rank> <outdir>``.  Runs :func:`_gloo_rank` and writes ``<outdir>/gloo.r<rank>.json`` (or the
     traceback beside it) and exits non-zero on a failure."""
     import traceback
 
     t0 = time.perf_counter()
     import torch
 
-    part, init, world, rank, outdir = argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4]
+    init, world, rank, outdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
     sys.path.insert(0, REPO)
-    path = os.path.join(outdir, f"{part}.r{rank}")
+    path = os.path.join(outdir, f"gloo.r{rank}")
     try:
         from flink_parameter_server_tpu_torch.ops import _cuda
         from flink_parameter_server_tpu_torch.parallel import multihost
 
-        fn, libraries = PAR_PARTS[part]
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.set_device(0)  # every rank on the one card
         t_import = time.perf_counter() - t0
         multihost.initialize(init, world, rank, backend="gloo", device_type="cuda", timeout_s=PAR_TIMEOUT_S)
-        for name in libraries:  # built by the parent's phase_build, never here
+        for name in GLOO_LIBRARIES:  # built by the parent's phase_build, never here
             check(_cuda.library_path(name).exists(), f"{name} is not built")
         t_group = time.perf_counter() - t0 - t_import
-        out = fn(torch, outdir)
+        out = _gloo_rank(torch, outdir)
         out["seconds"] = {"import": round(t_import, 2), "group": round(t_group, 2),
                           "work": round(time.perf_counter() - t0 - t_import - t_group, 2)}
         torch.distributed.destroy_process_group()
@@ -5008,17 +5268,17 @@ def parallel_rank(argv) -> int:
         return 1
 
 
-def _spawn_ranks(part: str, world: int, outdir: str) -> list:
-    """Run ``world`` ranks of ``part`` as child processes of this script,
+def _spawn_ranks(world: int, outdir: str) -> list:
+    """Run ``world`` gloo ranks (:func:`parallel_rank`) as child processes of this script,
     each on the one card, under one wall-clock limit; every rank's result,
     or a failure with the ranks' logs."""
-    init = "file://" + os.path.join(outdir, f"{part}.rendezvous")  # no port to race for
+    init = "file://" + os.path.join(outdir, "gloo.rendezvous")  # no port to race for
     procs, logs = [], []
     for r in range(world):
-        logs.append(os.path.join(outdir, f"{part}.r{r}.log"))
+        logs.append(os.path.join(outdir, f"gloo.r{r}.log"))
         with open(logs[-1], "w") as fh:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--parallel-rank", part, init, str(world), str(r),
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", init, str(world), str(r),
                  outdir], stdout=fh, stderr=subprocess.STDOUT, cwd=REPO))
     deadline = time.monotonic() + PAR_TIMEOUT_S
     try:
@@ -5033,7 +5293,7 @@ def _spawn_ranks(part: str, world: int, outdir: str) -> list:
                 p.wait()
     results, failures = [], []
     for r, p in enumerate(procs):
-        base = os.path.join(outdir, f"{part}.r{r}")
+        base = os.path.join(outdir, f"gloo.r{r}")
         if p.returncode == 0 and os.path.exists(base + ".json"):
             with open(base + ".json") as fh:
                 results.append(json.load(fh))
@@ -5041,17 +5301,17 @@ def _spawn_ranks(part: str, world: int, outdir: str) -> list:
         err = open(base + ".err").read() if os.path.exists(base + ".err") else ""
         failures.append(f"rank {r} rc {p.returncode}: {err[-2000:]}\n{open(logs[r]).read()[-2000:]}")
     if failures:
-        raise SmokeFailure(f"the {part} ranks failed:\n" + "\n".join(failures))
+        raise SmokeFailure("the gloo ranks failed:\n" + "\n".join(failures))
     return results
 
 
-def phase_parallel(torch, dev, card):
+def _parallel_report(a, a_s, b, b_s, card):
     """The parameter server across devices (the ``parallel/`` plane, the
     sharded store with K1 on each shard, the ps-sharded fused step with K2
-    on each shard, the sharded top-K).  (a) runs in this process over a
-    one-rank NCCL group (no child to start: its import and first-use
-    costs were most of its time), (b) and (c) in child processes of this
-    script under a wall-clock limit.
+    on each shard, the sharded top-K): print and check its runs in
+    phase_parallel_dense.  (a) ran in this process over a one-rank NCCL
+    group (no child to start: its import and first-use costs were most of
+    its time), (b) and (c) in the gloo children (:func:`_gloo_rank`).
 
     (a) A 1 x 1 NCCL mesh (one rank): the main path's MF at full width
         (100,000 x 131,072, dim 64, ``scatter_impl="pallas"``, lr 0.01) over
@@ -5072,23 +5332,6 @@ def phase_parallel(torch, dev, card):
         unsharded fused step.
     Each rank also times its pull and push and the step's all-reduce and
     all-gather.  Returns the ranks' K1 and K2 launches."""
-    import shutil
-    import tempfile
-
-    t_phase = time.perf_counter()
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="parallel-", dir=os.path.join(REPO, "build"))
-    torch.cuda.empty_cache()  # the ranks share the card with this process
-    try:
-        t = time.perf_counter()
-        with _one_rank_group(torch):
-            a = _par_rank_nccl(torch, tmp)
-        a_s = time.perf_counter() - t
-        t = time.perf_counter()
-        b = _spawn_ranks("gloo", 4, tmp)
-        b_s = time.perf_counter() - t
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
     print(f"parallel: (a) 1 x 1 mesh, backend {a['backend']!r} (dist.get_backend()): MF {NUM_USERS} x "
           f"{NUM_ITEMS} dim {DIM_UNFUSED} pallas, {PAR_STEPS} microbatches of {BATCH}: tables "
           f"{'bitwise' if a['bitwise'] else 'NOT bitwise'} ps_online_mf without a mesh; pulls "
@@ -5121,8 +5364,7 @@ def phase_parallel(torch, dev, card):
     k1 = a["k1"] + sum(res["k1"] for res in b)
     k2 = sum(res["k2"] for res in b)
     print(f"parallel: K1 {k1} launches ({a['k1']} + {len(b)} ranks x {PAR_STEPS}), K2 {k2} ({len(b)} x "
-          f"{PAR_STEPS}); (a) {a_s:.1f} s, (b)+(c) {b_s:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s; "
-          f"{card}")
+          f"{PAR_STEPS}); (a) {a_s:.1f} s, (b)+(c) {b_s:.1f} s of the children's work; {card}")
     return {"scatter_add": k1, "fused_mf_sgd": k2}
 
 
@@ -5201,8 +5443,10 @@ def _ddp_store(torch, dev, card):
     return out
 
 
-def phase_dense_dp(torch, dev, card):
-    """The dense LM across devices and the mesh store's row blocks.
+def phase_parallel_dense(torch, dev, card):
+    """The parameter server across devices (:func:`_parallel_report`), the
+    dense LM across devices with expert
+    parallelism, and the mesh store's row blocks.
 
     (a) A one-rank NCCL ``("dp",)`` mesh: Transformer-base at full width
         (the config defaults, bfloat16, ``flash_attention="on"``, 16 x 512
@@ -5225,23 +5469,56 @@ def phase_dense_dp(torch, dev, card):
     (c) ``ClusterConfig(store_backend="mesh")`` with 4 row blocks on the
         card (``mesh_devices``) at the MF path's width, bitwise 1 block,
         ``verify_against_log()``; the momentum velocity 1/4 a block.
-    Returns the ranks' flash launches."""
+    ep  Expert parallelism, in the same group and the same children:
+        (a) phase_moe_lm's MoE LM (Transformer-base, bfloat16, flash "on",
+        8 experts, capacity 1,280) on a one-rank ``("dp", "ep")`` NCCL mesh
+        for 3 steps of 16 x 512 through ``transform_dense(batch_sharding=
+        mesh)``, bitwise the mesh-less run (ep 1: each all-to-all is a
+        size-1 NCCL copy and the expert product the same batched product),
+        K3a/b/c once a layer a step; tokens/s, step ms, the MoE layers' ms.
+        (b) ep 4 as the 4 gloo children on a (1, 4) mesh: the same model in
+        float32 (flash "on") for 2 steps within rtol 1e-5 / atol 1e-6
+        (losses rtol 1e-4) of (a)'s float32 mesh-less run, K3a/b/c once a
+        layer a step on every rank; the experts' gradients left 4 times
+        large (a planted fault) past that bar on every rank; the same
+        model on the dp-only mesh of the 4 children at capacity 1,024 for
+        1 step, routing the global batch with drops, within that bar of
+        the mesh-less run at that capacity, its logits within the bar of
+        the mesh-less forward and each rank routing its own rows (a
+        planted fault) past it; ``moe_apply`` on a (2, 2) mesh
+        against ``moe_reference`` on each dp half, forward and gradients;
+        the all-to-all's ms and bytes.
+    Returns the parameter server's K1 and K2 launches and the ranks' flash
+    launches.
+
+    The two share their processes: the parameter server's (a), then the
+    dense LM's (a) and ep (a), run here over one one-rank NCCL group, and one
+    spawn of 4 gloo children on ``cuda:0`` runs the parameter server's (b)
+    and (c), then the dense LM's (b) and ep (b) (:func:`_gloo_rank`)."""
     import shutil
     import tempfile
 
     t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="dense-dp-", dir=os.path.join(REPO, "build"))
     torch.cuda.empty_cache()  # the ranks share the card with this process
     try:
         t = time.perf_counter()
         with _one_rank_group(torch):
+            par_a = _par_rank_nccl(torch, tmp)
+            par_a_s = time.perf_counter() - t
             a = _ddp_rank_nccl(torch, tmp)
-        a_s = time.perf_counter() - t
+            a_s = time.perf_counter() - t - par_a_s
+            ep_a = _ep_rank_nccl(torch, tmp)
+        ep_a_s = time.perf_counter() - t - par_a_s - a_s
         t = time.perf_counter()
-        b = _spawn_ranks("dense_gloo", DDP_WORLD, tmp)
+        ranks = _spawn_ranks(DDP_WORLD, tmp)
         b_s = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    parallel = _parallel_report(par_a, par_a_s, [res["par"] for res in ranks],
+                                statistics.median(res["par"]["work_s"] for res in ranks), card)
+    b = [dict(res["dense"], seconds=res["seconds"]) for res in ranks]
     from flink_parameter_server_tpu_torch import TransformerConfig
 
     layers = TransformerConfig().n_layers
@@ -5302,13 +5579,83 @@ def phase_dense_dp(torch, dev, card):
               f"{c['all_gather']:.1f} ms (medians of {DDP_REPS}); {card}")
         check(m["ok"], f"dense_dp: (b) rank {rank}: the masked loss is off the unsharded one")
         check(len(set(m["rows"])) > 1, "dense_dp: (b) the masked batch gives every rank the same count")
-    store = _ddp_store(torch, dev, card)
-    print(f"dense_dp: (b) the ranks' seconds (import torch, bring up the group, the work): "
-          f"{[res['seconds'] for res in b]}")
+    _ep_report(ep_a, ep_a_s, [res["ep"] for res in b], layers, flash, card)
+    _ddp_store(torch, dev, card)
+    secs = [dict(res["seconds"], parallel=res["par"]["work_s"], ep=res["dense"]["ep"]["seconds"]) for res in ranks]
+    print(f"dense_dp: the gloo children's seconds (import torch, bring up the group, the work, of which the "
+          f"parameter server's and the ep part's): {secs}")
     print(f"dense_dp: flash launches {flash} ((a) 3 regimes x {DDP_STEPS} steps x {layers} layers + (b) {DDP_WORLD} "
-          f"ranks x 3 regimes x {DDP_F32_STEPS} steps x {layers} layers); (a) {a_s:.1f} s, (b) {b_s:.1f} s; phase took "
+          f"ranks x 3 regimes x {DDP_F32_STEPS} steps x {layers} layers + ep (a) {EP_STEPS} steps x {layers} layers "
+          f"+ ep (b) {EP_WORLD} ranks x ({EP_F32_STEPS} + {EP_DP_STEPS}) steps x {layers} layers); "
+          f"parallel (a) {par_a_s:.1f} s, (a) {a_s:.1f} s, ep (a) {ep_a_s:.1f} s, the children {b_s:.1f} s; phase took "
           f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    return flash, store
+    return parallel, flash
+
+
+def _ep_report(a, a_s, b, layers, flash, card):
+    """Print and check the ep part of phase_parallel_dense; adds the flash
+    launches of (a) and of (b)'s ranks to ``flash``."""
+    per_step = {name: layers * EP_STEPS for name in FLASH}
+    med = statistics.median(a["steps_ms"][1:])
+    print(f"dense_dp: ep (a) one-rank ('dp', 'ep') mesh, backend {a['backend']!r}: MoE LM Transformer-base bf16 "
+          f"flash on, {MOE_EXPERTS} experts, capacity {MOE_CAPACITY}, {EP_STEPS} steps of {LM_B}x{LM_T}: "
+          f"{'bitwise' if a['bitwise'] else 'NOT bitwise'} the mesh-less run (max |error| {a['max_err']:.3e}); "
+          f"losses {[round(x, 5) for x in a['losses']]} against {[round(x, 5) for x in a['base_losses']]}; step ms "
+          f"{a['steps_ms']} (mesh-less {a['base_ms']}); {LM_B * LM_T / med * 1e3:,.0f} tokens/s at the median of "
+          f"steps 2-{EP_STEPS}; the {layers} MoE layers' forward and backward alone {a['moe_ms']:.3f} ms "
+          f"({a['moe_ms'] / med:.1%} of the step); collectives {a['calls']}; all_to_all {a['a2a_ms']:.3f} ms at "
+          f"{a['a2a_bytes']} B (bf16 (E, C, d), NCCL, one rank: a copy); flash launches "
+          f"{ {k: a['launches'][k] for k in FLASH} }; {a_s:.1f} s; {card}")
+    check(a["backend"] == "nccl", f"dense_dp: ep (a) ran on {a['backend']}, not NCCL")
+    check(a["bitwise"], "dense_dp: ep (a) the one-rank ep mesh is not bitwise the mesh-less MoE LM")
+    check({k: a["launches"][k] for k in FLASH} == per_step and a["launches"]["scatter_add"] == 0,
+          f"dense_dp: ep (a) launched {a['launches']}, expected {per_step}")
+    check(a["calls"]["all_to_all"] == 4 * layers * EP_STEPS,
+          f"dense_dp: ep (a) made {a['calls']['all_to_all']} all-to-all trips, expected 4 a layer a step")
+    for k in FLASH:
+        flash[k] += a["launches"][k]
+    for r, res in enumerate(b):
+        pl, ly = res["planted"], res["layer"]
+        print(f"dense_dp: ep (b) rank {r} of a (1, {EP_WORLD}) mesh, experts {res['experts']}: float32 MoE LM "
+              f"{EP_F32_STEPS} steps against (a)'s float32 mesh-less run max_abs_err={res['err']:.3e} (rtol=1e-5 "
+              f"atol=1e-6; the parameters moved up to {res['moved']:.3e}) losses {[round(x, 6) for x in res['losses']]} "
+              f"against {[round(x, 6) for x in res['ref_losses']]} {'ok' if res['ok'] else 'MISMATCH'}; step ms "
+              f"{res['steps_ms']}; collectives {res['calls']}; the planted fault (experts' gradients x{EP_WORLD}) "
+              f"max_abs_err={pl['err']:.3e}, {pl['past']} of {pl['elements']} elements past the bar: "
+              f"{'caught' if pl['caught'] else 'MISSED'}; flash launches {res['launches']}; {card}")
+        dp, lg = res["dp"], res["dp"]["logits"]
+        print(f"dense_dp: ep (b) rank {r} of a ({EP_WORLD},) dp-only mesh: float32 MoE LM at capacity "
+              f"{EP_DP_CAPACITY}, {EP_DP_STEPS} step, routed (kept, tokens) a layer {dp['routed']}: against (a)'s "
+              f"float32 mesh-less run max_abs_err={dp['err']:.3e} (rtol=1e-5 atol=1e-6; the parameters moved up to "
+              f"{dp['moved']:.3e}) losses {[round(x, 6) for x in dp['losses']]} against "
+              f"{[round(x, 6) for x in dp['ref_losses']]} {'ok' if dp['ok'] else 'MISMATCH'}; step ms "
+              f"{dp['steps_ms']}; collectives {dp['calls']}; flash launches {dp['launches']}; the logits against the "
+              f"mesh-less forward of the whole batch: the rank's max_abs_err={lg['got']['err']:.3e}, "
+              f"{lg['got']['past']} of the batch's {lg['elements']} past the bar; the planted fault (each rank "
+              f"routes its rows alone) the rank's max_abs_err={lg['planted']['err']:.3e}, {lg['planted']['past']} "
+              f"of the batch's past the bar: "
+              f"{'caught' if lg['planted']['past'] else 'MISSED'}; {card}")
+        print(f"dense_dp: ep (b) rank {r} (2, 2) moe_apply, experts {ly['experts']}, {ly['kept']} of {ly['tokens']} "
+              f"tokens of its dp half kept at capacity {EP_LAYER_CAPACITY}: max |error| against moe_reference "
+              f"{ {k: f'{v:.3e}' for k, v in ly['errs'].items()} } (rtol={EP_LAYER_BAR}, atol={EP_LAYER_BAR} x the "
+              f"oracle's largest) {'ok' if ly['ok'] else 'MISMATCH'}; gloo all_to_all over CUDA tensors "
+              f"{res['a2a_ms']:.1f} ms at {res['a2a_bytes']} B (float32 (E, C, d), median of {DDP_REPS}); "
+              f"the ep part {res['seconds']} s")
+        check(res["ok"], f"dense_dp: ep (b) rank {r} is off (a)'s float32 mesh-less run")
+        check(pl["caught"], f"dense_dp: ep (b) rank {r}: the bar does not see experts' gradients x{EP_WORLD}")
+        for tag, run, steps in (("ep 4", res, EP_F32_STEPS), ("dp-only", res["dp"], EP_DP_STEPS)):
+            want = {name: layers * steps for name in FLASH}
+            check({k: run["launches"][k] for k in FLASH} == want and run["launches"]["scatter_add"] == 0,
+                  f"dense_dp: ep (b) rank {r} {tag} launched {run['launches']}, expected {want}")
+            for k in FLASH:
+                flash[k] += run["launches"][k]
+        check(dp["ok"], f"dense_dp: ep (b) rank {r}: the dp-only MoE LM is off (a)'s float32 mesh-less run")
+        check(lg["got"]["past"] == 0, f"dense_dp: ep (b) rank {r}: the dp-only logits are off the mesh-less forward")
+        check(lg["planted"]["past"] > 0, f"dense_dp: ep (b) rank {r}: the bar does not see per-rank routing")
+        check(all(n == LM_B * LM_T for _, n in dp["routed"]) and any(k < n for k, n in dp["routed"]),
+              f"dense_dp: ep (b) rank {r}: the dp-only run did not route the global batch with drops: {dp['routed']}")
+        check(ly["ok"], f"dense_dp: ep (b) rank {r}: (2, 2) moe_apply is off moe_reference")
+        check(ly["kept"] < ly["tokens"], f"dense_dp: ep (b) rank {r}: no token dropped at capacity {EP_LAYER_CAPACITY}")
 
 
 def _counters():
@@ -6260,8 +6607,7 @@ def main() -> int:
         phase("tierstore", phase_tierstore, torch, dev, card)
         phase("nemesis", phase_nemesis, torch, dev, card)
         loadgen_k1 = phase("loadgen", phase_loadgen, torch, dev, card)
-        parallel = phase("parallel", phase_parallel, torch, dev, card)
-        dense_dp, _ = phase("dense_dp", phase_dense_dp, torch, dev, card)
+        parallel, dense_dp = phase("parallel and dense_dp", phase_parallel_dense, torch, dev, card)
         launches = phase("main (MF, LM, MoE LM, hybrid, MF traces)", phase_main, torch, dev)
         launches["scatter_add"] += loadgen_k1  # the source-fed runs are the main path's MF too
         for name, n in parallel.items():  # the sharded arms' ranks run the main path's MF too

@@ -642,14 +642,10 @@ class ParamShard:
         of the replay window."""
         from ..compression.quantizers import record_deltas
 
-        records = self._wal.replay()
-        start = 0
-        for i, rec in enumerate(records):
-            p = rec.payload
-            if isinstance(p, dict) and p.get("kind") == "snapshot":
-                start = i
+        from ..resilience.wal import from_newest_snapshot
+
         n = 0
-        for rec in records[start:]:
+        for rec in from_newest_snapshot(self._wal.replay()):
             p = rec.payload
             kind = p.get("kind", "push")
             if kind == "snapshot":
@@ -1186,13 +1182,9 @@ class ParamShard:
         here."""
         if self._wal is None:
             return []
-        records = self._wal.replay()
-        start = 0
-        for i, rec in enumerate(records):
-            p = rec.payload
-            if isinstance(p, dict) and p.get("kind") == "snapshot":
-                start = i
-        return [r for r in records[start:] if r.end_step > after_seq]
+        from ..resilience.wal import from_newest_snapshot
+
+        return [r for r in from_newest_snapshot(self._wal.replay()) if r.end_step > after_seq]
 
     def apply_repl(self, record, head=None) -> dict:
         """Receive one shipped WAL record (the ``repl`` verb).  Only a

@@ -50,6 +50,17 @@ each collective out (``parallel/collectives.py``, counted):
   all-gathers the slices before the forward, reduce-scatters the
   gradients and updates the slices.
 
+**Expert parallelism** (the ``("dp", "ep")`` mesh, ``models/moe.py``):
+the step cuts the batch over ``dp`` only and sums every gradient over
+``dp`` only.  The non-expert leaves and the gate are the same on every
+rank of a dp row; each rank's experts are its own, and ``moe_apply``
+already makes their gradients the dp row's (not ``ep`` times it).  A
+model records such a layout with :func:`set_model_layout` (the LM does on
+an ep mesh); ZeRO-1's and FSDP's specs merge ``dp`` into it, as the
+reference's ``_merged_dp_specs`` merges into each leaf's sharding (an
+expert leaf ``("ep", None, None)`` becomes ``("ep", "dp", None)``), and
+:func:`gather_params` gathers its leaves whole.
+
 A one-rank mesh gives the unsharded step's bits: every collective is then
 a copy.  In the port each of the three regimes is a choice of the step;
 the reference's GSPMD also hands back ZeRO-1's parameters dp-sharded after
@@ -72,6 +83,7 @@ LossFn = Callable[[nn.Module, Any], torch.Tensor]
 Spec = Optional[Tuple[Optional[str], ...]]  # per leaf: the axis names of its dims, or None (replicated)
 
 _FSDP = "_fps_fsdp"  # the attribute fsdp_place sets on the module
+_LAYOUT = "_fps_model_layout"  # the attribute set_model_layout sets on the module
 
 
 class DenseParameterServer:
@@ -137,21 +149,76 @@ def _leaf_spec(shape: Sequence[int], dp: int, dp_axis: str, current: Spec = None
     return None
 
 
+class _ModelLayout:
+    """What :func:`set_model_layout` recorded: the mesh and the spec of
+    each leaf split over a model-parallel axis, by parameter name."""
+
+    def __init__(self, mesh, specs: Dict[str, Spec]):
+        self.mesh, self.specs = mesh, specs
+
+    def __deepcopy__(self, memo):  # a copied module keeps the one mesh
+        return self
+
+
+def set_model_layout(params: nn.Module, mesh, specs: Dict[str, Spec]) -> nn.Module:
+    """Record that this rank holds only its ``mesh`` slice of the named
+    parameters, each along the axes its spec names (e.g. an expert leaf
+    ``("ep", None, None)``: this rank's experts); returns ``params``.  The
+    reference reads a leaf's layout from its sharding; a torch tensor has
+    none, so the module carries it.  :func:`opt_state_zero1_specs` and
+    :func:`fsdp_place` merge ``dp`` into it; :func:`gather_params` gathers
+    those leaves whole."""
+    names = {n for n, _ in params.named_parameters()}
+    unknown = sorted(set(specs) - names)
+    if unknown:
+        raise ValueError(f"set_model_layout: no parameters named {unknown}")
+    setattr(params, _LAYOUT, _ModelLayout(mesh, dict(specs)))
+    return params
+
+
+def model_layout(params: nn.Module) -> Optional[_ModelLayout]:
+    """The layout :func:`set_model_layout` recorded on ``params``, or None."""
+    return getattr(params, _LAYOUT, None)
+
+
+def _current_specs(params: Optional[nn.Module]) -> Dict[int, Spec]:
+    """Each parameter's model-parallel spec, by ``id`` (empty without a
+    recorded layout)."""
+    layout = model_layout(params) if params is not None else None
+    if layout is None:
+        return {}
+    return {id(p): layout.specs.get(n) for n, p in params.named_parameters()}
+
+
 def _opt_params(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p for group in opt.param_groups for p in group["params"]]
 
 
-def opt_state_zero1_specs(opt: torch.optim.Optimizer, mesh, dp_axis: str = DP_AXIS) -> List[Spec]:
+def opt_state_zero1_specs(opt: torch.optim.Optimizer, mesh, dp_axis: str = DP_AXIS, *,
+                          params: Optional[nn.Module] = None) -> List[Spec]:
     """Per-parameter ZeRO-1 specs for the optimizer ``opt`` (one entry per
     parameter, in ``opt.param_groups`` order): the tuple of axis names of
     the parameter's dims with ``dp_axis`` merged into its first free axis
     that divides by dp, or None (left replicated).  Every state tensor of a
     parameter with a spec (Adam's moments: the parameter's shape) is split
     the same way; scalar state (the step count) stays replicated.  Call it
-    with the parameters whole (the step does)."""
+    with the parameters whole (the step does).
+
+    ``params``: the module ``opt`` steps.  Its recorded model-parallel
+    layout (:func:`set_model_layout`) is each leaf's current spec, which
+    ``dp`` merges into, as the reference's specs merge into a placed
+    leaf's sharding; the sizes are this rank's (an expert leaf's local
+    experts).  On a mesh of more than one axis it is required: only the
+    module knows which leaves a model-parallel axis splits."""
     require_axis(mesh, dp_axis, "opt_state_zero1_specs")
+    if params is None and len(mesh.mesh_dim_names) > 1:
+        raise ValueError(
+            f"mesh has axes {mesh.mesh_dim_names}: pass params=<the module opt steps> so dp "
+            f"merges with its recorded model-parallel layout instead of overwriting it"
+        )
     dp = axis_size(mesh, dp_axis)
-    return [_leaf_spec(tuple(p.shape), dp, dp_axis) for p in _opt_params(opt)]
+    current = _current_specs(params)
+    return [_leaf_spec(tuple(p.shape), dp, dp_axis, current.get(id(p))) for p in _opt_params(opt)]
 
 
 def _split_axis(spec: Spec, dp_axis: str) -> Optional[int]:
@@ -180,8 +247,8 @@ def shard_opt_state_constraint(opt: torch.optim.Optimizer, mesh, dp_axis: str = 
         if len(mesh.mesh_dim_names) > 1:
             raise ValueError(
                 f"mesh has axes {mesh.mesh_dim_names}: pass "
-                f"specs=opt_state_zero1_specs(opt, mesh) so dp merges with the "
-                f"model-parallel layout instead of overwriting it"
+                f"specs=opt_state_zero1_specs(opt, mesh, params=model) so dp merges "
+                f"with the model-parallel layout instead of overwriting it"
             )
         specs = opt_state_zero1_specs(opt, mesh, dp_axis)
     dp, d = axis_size(mesh, dp_axis), axis_index(mesh, dp_axis)
@@ -212,7 +279,8 @@ class _FSDPLayout:
 def fsdp_place(params: nn.Module, mesh, dp_axis: str = DP_AXIS) -> nn.Module:
     """FSDP (ZeRO-3): re-place ``params`` so this rank holds only its dp
     slice of each parameter that has an axis dividing by dp (the reference's
-    ``_merged_dp_specs``), in place; returns ``params``.  An optimizer built
+    ``_merged_dp_specs``, merged into a recorded model-parallel layout:
+    :func:`set_model_layout`), in place; returns ``params``.  An optimizer built
     on the placed parameters creates slice-shaped moments, so parameters and
     optimizer state are both 1/dp at rest.  :func:`make_dense_train_step`
     (with or without ``mesh=``) sees the placement and all-gathers the
@@ -222,9 +290,10 @@ def fsdp_place(params: nn.Module, mesh, dp_axis: str = DP_AXIS) -> nn.Module:
     if getattr(params, _FSDP, None) is not None:
         raise ValueError("fsdp_place: the module is placed already")
     dp, d = axis_size(mesh, dp_axis), axis_index(mesh, dp_axis)
+    current = _current_specs(params)
     specs = {}
     for name, p in params.named_parameters():
-        specs[name] = _leaf_spec(tuple(p.shape), dp, dp_axis)
+        specs[name] = _leaf_spec(tuple(p.shape), dp, dp_axis, current.get(id(p)))
         axis = _split_axis(specs[name], dp_axis)
         if axis is not None:
             p.data = _owned(p.data, axis, dp, d)
@@ -247,7 +316,8 @@ def _moved(shape: Sequence[int], axis: int) -> Tuple[int, ...]:
 
 def _gather_slices(leaves: List[Tuple[nn.Parameter, int]], mesh, dp_axis: str) -> None:
     """Replace each parameter's slice (``p.data``, cut along ``axis``) by the
-    whole tensor: one all-gather over dp per dtype of every slice, flat."""
+    whole tensor: one all-gather over ``dp_axis`` (dp, or a model-parallel
+    axis) per dtype of every slice, flat."""
     dp = axis_size(mesh, dp_axis)
     by_dtype: Dict[torch.dtype, List[Tuple[nn.Parameter, int]]] = {}
     for p, axis in leaves:
@@ -306,8 +376,10 @@ def _reduce_grads(params: List[nn.Parameter], axes: List[Optional[int]], mesh, d
 
 def gather_params(params: nn.Module) -> nn.Module:
     """A copy of ``params`` with every parameter whole: an FSDP-placed
-    module's slices all-gathered over its dp axis (a collective: call it on
-    every rank), any other module copied as it is."""
+    module's slices all-gathered over its dp axis, then the leaves of a
+    recorded model-parallel layout (an expert leaf's experts) over their
+    axes (collectives: call it on every rank); any other module is copied
+    as it is."""
     out = copy.deepcopy(params)
     layout = fsdp_layout(out)
     if layout is not None:
@@ -315,6 +387,15 @@ def gather_params(params: nn.Module) -> nn.Module:
         with torch.no_grad():
             _gather_slices([(p, a) for p, a in leaves if a is not None], layout.mesh, layout.dp_axis)
         setattr(out, _FSDP, None)
+    mp = model_layout(out)
+    if mp is not None:
+        axes = sorted({a for spec in mp.specs.values() for a in spec or () if isinstance(a, str)})
+        named = list(out.named_parameters())
+        with torch.no_grad():
+            for axis in axes:
+                _gather_slices([(p, mp.specs[n].index(axis)) for n, p in named if axis in (mp.specs.get(n) or ())],
+                               mp.mesh, axis)
+        setattr(out, _LAYOUT, None)
     return out
 
 
@@ -329,14 +410,15 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, dp_axis: str = DP_AXIS,
     mesh: the whole batch's loss, the same on every rank).
 
     ``mesh``: a ``DeviceMesh`` with a ``dp_axis`` axis (the ``("dp",)``
-    mesh or ``(dp, ps)``); ``batch`` is then the global microbatch and the
-    step trains on this rank's rows (the module docstring has the two loss
-    routes).  ``params`` placed by :func:`fsdp_place` take FSDP on the
+    mesh, ``(dp, ps)`` or ``("dp", "ep")``); ``batch`` is then the global
+    microbatch and the step trains on this rank's dp rows (the module
+    docstring has the two loss routes); gradients are summed over dp only.  ``params`` placed by :func:`fsdp_place` take FSDP on the
     placement's mesh, with or without ``mesh=``.
 
     ``shard_opt_state=True`` (requires ``mesh``): ZeRO-1 through
     :func:`shard_opt_state_constraint`.  On a multi-axis mesh also pass
-    ``opt_specs=opt_state_zero1_specs(opt, mesh)``, as the reference asks."""
+    ``opt_specs=opt_state_zero1_specs(opt, mesh, params=model)``, as the
+    reference asks."""
     if shard_opt_state:
         if mesh is None:
             raise ValueError("shard_opt_state=True requires mesh")
@@ -344,8 +426,8 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, dp_axis: str = DP_AXIS,
         if opt_specs is None and len(mesh.mesh_dim_names) > 1:
             raise ValueError(
                 f"mesh has axes {mesh.mesh_dim_names}: pass "
-                f"opt_specs=opt_state_zero1_specs(server.opt, mesh) so dp merges "
-                f"with the model-parallel layout instead of overwriting it"
+                f"opt_specs=opt_state_zero1_specs(server.opt, mesh, params=server.params) "
+                f"so dp merges with the model-parallel layout instead of overwriting it"
             )
     elif mesh is not None:
         require_axis(mesh, dp_axis, "make_dense_train_step")
@@ -368,6 +450,7 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, dp_axis: str = DP_AXIS,
             with torch.no_grad():
                 _gather_slices([(p, a) for p, a in zip(plist, axes) if a is not None], m, ax)
         elif shard_opt_state:
+            # without opt_specs the mesh has one axis (checked above): no layout to merge
             specs = opt_specs if opt_specs is not None else opt_state_zero1_specs(opt, m, ax)
             by_param = {id(p): s for p, s in zip(_opt_params(opt), specs)}
             axes = [_split_axis(by_param.get(id(p)), ax) for p in plist]
@@ -419,11 +502,13 @@ def transform_dense(
     final model as the server dump.
 
     ``batch_sharding``: the reference shards the batch with a
-    ``NamedSharding(mesh, P("dp"))``; here it is the dp ``DeviceMesh``
-    itself (with a ``"dp"`` axis).  Every rank iterates the same global
-    ``data``, and each step trains on this rank's rows through
-    :func:`make_dense_train_step` (``shard_opt_state`` passes to it; a
-    server whose model :func:`fsdp_place` placed trains FSDP).
+    ``NamedSharding(mesh, P("dp"))``; here it is the ``DeviceMesh`` itself
+    (with a ``"dp"`` axis: the dp mesh or the ``("dp", "ep")`` one).  Every
+    rank iterates the same global ``data``, and each step trains on this
+    rank's rows through :func:`make_dense_train_step` (``shard_opt_state``
+    passes to it, with the specs of the server's model,
+    :func:`opt_state_zero1_specs`; a server whose model :func:`fsdp_place`
+    placed trains FSDP).
     The losses are the whole batch's, the same on every rank; the final
     model keeps the step's layout (:func:`gather_params` makes an FSDP one
     whole).
@@ -448,7 +533,10 @@ def transform_dense(
             )
     params = copy.deepcopy(server.params)
     final = DenseParameterServer(params, server.optimizer, server.opt_state)
-    step = make_dense_train_step(loss_fn, mesh=batch_sharding, shard_opt_state=shard_opt_state)
+    specs = None
+    if shard_opt_state and batch_sharding is not None:
+        specs = opt_state_zero1_specs(final.opt, batch_sharding, params=params)
+    step = make_dense_train_step(loss_fn, mesh=batch_sharding, shard_opt_state=shard_opt_state, opt_specs=specs)
     device = next(params.parameters()).device
     losses: List[torch.Tensor] = []
 
@@ -485,7 +573,9 @@ __all__ = [
     "fsdp_place",
     "gather_params",
     "make_dense_train_step",
+    "model_layout",
     "opt_state_zero1_specs",
+    "set_model_layout",
     "shard_opt_state_constraint",
     "transform_dense",
 ]

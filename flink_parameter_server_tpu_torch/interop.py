@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .core.store import ShardedParamStore, StoreSpec
-from .models.transformer import MOE_KEYS, TransformerConfig, TransformerLM
+from .models.transformer import MOE_KEYS, TransformerConfig, TransformerLM, record_layout
 from .parallel.mesh import axis_size
 from .utils.device import DeviceLike, mesh_resolve_device, resolve_device
 
@@ -125,14 +125,21 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
     w_down}``, or ``layers[i].moe.{w_gate, w_up, w_down}`` in place of the
     MLP; bfloat16 leaves widened to float32).  Layouts are the reference's,
     so the copy is element for element: weights narrow to ``cfg.dtype``,
-    norm gains stay float32.  With a dp ``mesh`` the model is replicated
-    on this rank's device."""
+    norm gains stay float32.  With a ``mesh`` the model is on this rank's
+    device, replicated over dp; on a mesh with ``cfg.ep_axis`` each rank
+    keeps its experts' slice of every MoE layer's whole ``(E, ...)``
+    leaves (``models.moe.local_experts``) and the model records that
+    layout, as ``init_params(mesh=)`` does."""
+    experts = slice(None)
     if mesh is not None:
+        from .models.moe import local_experts
         from .models.transformer import check_lm_mesh
         from .parallel.mesh import mesh_device
 
         check_lm_mesh(mesh, cfg)
         device = mesh_device(mesh) if device is None else device
+        if cfg.ep_axis:
+            experts = local_experts(cfg.num_experts, mesh, cfg.ep_axis)
     dev = resolve_device(device)
 
     def leaf(x, dtype):
@@ -142,14 +149,15 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
         keys = [k for k in _LAYER_KEYS if not ("moe" in layer and k in ("w_up", "w_down"))]
         out = {key: leaf(layer[key], torch.float32 if key.endswith("norm") else cfg.dtype) for key in keys}
         if "moe" in layer:
-            out["moe"] = {key: leaf(layer["moe"][key], cfg.dtype) for key in MOE_KEYS}
+            out["moe"] = {key: leaf(np.asarray(layer["moe"][key])[slice(None) if key == "w_gate" else experts],
+                                    cfg.dtype) for key in MOE_KEYS}
         return out
 
     layers = [block(layer) for layer in tree["layers"]]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, cfg.n_layers={cfg.n_layers}")
-    return TransformerLM(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32),
-                         layers)
+    model = TransformerLM(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32), layers)
+    return record_layout(model, mesh, cfg)
 
 
 def dense_server_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, optimizer, *, mesh: Any = None,
@@ -169,10 +177,11 @@ def dense_server_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, optimi
 
 def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
     """The reference's pytree layout as numpy (bfloat16 widened to float32);
-    an FSDP-placed model is gathered whole first (a collective)."""
-    from .core.dense import fsdp_layout, gather_params
+    an FSDP-placed model, or one whose experts are split over ``ep``, is
+    gathered whole first (collectives: call it on every rank)."""
+    from .core.dense import fsdp_layout, gather_params, model_layout
 
-    if fsdp_layout(model) is not None:
+    if fsdp_layout(model) is not None or model_layout(model) is not None:
         model = gather_params(model)
 
     def block(layer):

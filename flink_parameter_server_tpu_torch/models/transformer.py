@@ -20,22 +20,41 @@ With ``num_experts > 0`` every layer's MLP is a switch-MoE layer
 (``models/moe.py`` ``moe_dense``: top-1 routing, ``moe_capacity`` tokens an
 expert over the whole batch, as the reference's mesh-less path runs it).
 
-**On a data-parallel mesh** (``mesh=``: a ``DeviceMesh`` with the
-``cfg.dp_axis`` axis and no other axis larger than 1) each rank runs the
-model on ITS rows of the global batch, one rank a device: the ``tokens``
-(and a batch's ``mask``) passed with ``mesh=`` are this rank's rows, as the
-dense step cuts them (``parallel.collectives.dp_rows``), and
-:func:`forward` returns this rank's logits.  Attention never mixes batch
-rows, so the flash kernels run on the rank's rows through ``flash_mha``
-(gated by ``eligible_dp``), with no collective; a reader of the global logits all-gathers them
-(``parallel.collectives.all_gather_cat``).  :func:`lm_loss` divides the
-masked token sum by the WHOLE batch's count of valid tokens
-(``parallel.collectives.global_mean``: one all-reduce of the pair), so
-ranks whose rows hold different counts weight them as the unsharded loss
-does.  Ring attention, tensor / sequence / pipeline parallelism, expert
-parallelism (``ep_axis``) and MoE layers on any mesh raise: they are the
-next port slice (ROADMAP Queue 1 #9).  (MoE's ``moe_capacity`` is a count
-over the whole batch; on a rank's rows it would become a count a rank.)
+**On a mesh** (``mesh=``: a ``DeviceMesh``, one rank a device) each rank
+runs the model on ITS rows of the global batch: the ``tokens`` (and a
+batch's ``mask``) passed with ``mesh=`` are this rank's ``cfg.dp_axis``
+rows, as the dense step cuts them (``parallel.collectives.dp_rows``), and
+:func:`forward` returns this rank's logits.  Two layouts
+(:func:`check_lm_mesh`):
+
+* **data parallel**: ``cfg.dp_axis`` is the only axis larger than 1.
+  Attention never mixes batch rows, so the flash kernels run on the rank's
+  rows through ``flash_mha`` (gated by ``eligible_dp``), with no
+  collective; a reader of the global logits all-gathers them
+  (``parallel.collectives.all_gather_cat``).
+* **expert parallel**: the mesh has the ``cfg.ep_axis`` axis (the
+  reference's ``("dp", "ep")`` mesh) and no axis but it and ``dp_axis``
+  is larger than 1.  The ep ranks of a dp row hold the same rows and the
+  same non-expert weights; each holds ``E/ep`` experts of every MoE layer.
+  Attention runs the flash kernels on the rank's rows as on the dp mesh
+  (``eligible_dp`` with ``cfg.ep_axis``).  The reference's flash gate
+  asks for a dp-only mesh and takes its plain attention here; the rows,
+  and so the math, are the same.
+
+MoE layers follow the reference's choice, made by the axis NAME:
+
+* ``cfg.ep_axis`` is an axis of the mesh: ``moe_apply`` on the rank's dp
+  rows, so ``moe_capacity`` counts each dp shard's tokens;
+* a mesh without that axis: ``moe_dense`` over the WHOLE global batch (the
+  rank's rows all-gathered over dp, ``parallel.collectives.gather_rows``),
+  so ``moe_capacity`` counts the global batch's tokens as the mesh-less
+  run does, and the rank keeps its rows of the output.
+
+:func:`lm_loss` divides the masked token sum by the WHOLE batch's count of
+valid tokens (``parallel.collectives.global_mean``: one all-reduce of the
+pair over dp), so ranks whose rows hold different counts weight them as the
+unsharded loss does.  Ring attention and tensor / sequence / pipeline
+parallelism raise: they are the next port slice (ROADMAP Queue 1 #9b).
 """
 from __future__ import annotations
 
@@ -50,7 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import reference_attention
 from ..parallel import collectives as _coll
-from ..parallel.mesh import axis_size, mesh_device, only_axis, require_axis
+from ..parallel.mesh import axis_size, mesh_device, require_axis
 from ..utils.device import MODEL_PARALLEL, DeviceLike, resolve_device
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")  # layers[i].moe's leaves
@@ -67,15 +86,16 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     use_ring_attention: bool = False
     # "auto": the flash kernels when eligible (a CUDA tensor, T % 128 == 0,
-    # head_dim % 64 == 0, no mesh or a dp-only one; a head width the kernels
-    # lack raises), else the reference path; "on": the kernels or an error;
-    # "off": always the reference path
+    # head_dim % 64 == 0, no mesh or one whose axes larger than 1 are dp and
+    # ep; a head width the kernels lack raises), else the reference path;
+    # "on": the kernels or an error; "off": always the reference path
     flash_attention: str = "auto"
     # recompute each block in the backward pass (activation memory per
     # layer O(T·d_model) instead of O(T·d_ff))
     remat: bool = False
     # the reference's parallelism and MoE fields: dp_axis names the data
-    # axis of a mesh; the model-parallel ones raise (__post_init__)
+    # axis of a mesh, ep_axis the experts' axis; tp / sp / pp raise
+    # (__post_init__)
     dp_axis: Optional[str] = "dp"
     tp_axis: Optional[str] = None
     sp_axis: Optional[str] = None
@@ -88,11 +108,6 @@ class TransformerConfig:
         if self.flash_attention not in ("auto", "on", "off"):
             raise ValueError(
                 f"flash_attention must be 'auto', 'on' or 'off', got {self.flash_attention!r}"
-            )
-        if self.ep_axis is not None:
-            raise NotImplementedError(
-                f"expert parallelism (ep_axis): {MODEL_PARALLEL}; "
-                f"num_experts with ep_axis=None runs the mesh-less MoE"
             )
         if self.num_experts > 0 and self.moe_capacity <= 0:
             raise ValueError(
@@ -150,39 +165,59 @@ def _moe_config(cfg: TransformerConfig):
                      capacity=cfg.moe_capacity, dtype=cfg.dtype)
 
 
+def _ep_on(mesh: Any, cfg: TransformerConfig) -> bool:
+    """The reference's choice of ``moe_apply``: ``cfg.ep_axis`` names an
+    axis of the mesh (of any size)."""
+    return mesh is not None and bool(cfg.ep_axis) and cfg.ep_axis in (mesh.mesh_dim_names or ())
+
+
 def check_lm_mesh(mesh: Any, cfg: TransformerConfig) -> None:
-    """Accept a ``DeviceMesh`` with the ``cfg.dp_axis`` axis and no other
-    axis larger than 1, for a model without MoE layers; a mesh without
-    that axis raises ``ValueError``, any other layout, and MoE layers on
-    any mesh, ``NotImplementedError`` (model parallelism)."""
+    """Accept a ``DeviceMesh`` with the ``cfg.dp_axis`` axis whose axes
+    larger than 1 are among ``cfg.dp_axis`` and ``cfg.ep_axis`` (the
+    data-parallel mesh, or the ``("dp", "ep")`` one), with or without MoE
+    layers.  A mesh without that axis raises ``ValueError``; another
+    layout (tp / sp / pp) ``NotImplementedError``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh):
         raise NotImplementedError(
-            f"the LM over a {type(mesh).__name__} mesh: the port's LM takes a dp DeviceMesh; "
-            f"{MODEL_PARALLEL}"
+            f"the LM over a {type(mesh).__name__} mesh: the port's LM takes a DeviceMesh "
+            f"(parallel.mesh.make_mesh); {MODEL_PARALLEL}"
         )
     require_axis(mesh, cfg.dp_axis, "the LM over a mesh")
-    if not only_axis(mesh, cfg.dp_axis):
+    allowed = {cfg.dp_axis} | ({cfg.ep_axis} if cfg.ep_axis else set())
+    if any(int(k) > 1 and n not in allowed for n, k in zip(mesh.mesh_dim_names, mesh.shape)):
         raise NotImplementedError(
             f"the LM over mesh axes {dict(zip(mesh.mesh_dim_names, mesh.shape))}: only "
-            f"{cfg.dp_axis!r} may be larger than 1; {MODEL_PARALLEL}"
+            f"{sorted(allowed)} may be larger than 1; {MODEL_PARALLEL}"
         )
-    if cfg.num_experts > 0:
-        # moe_capacity counts tokens over the whole batch, as the reference
-        # routes them; a rank's rows would get a capacity of their own
-        raise NotImplementedError(
-            f"MoE layers (num_experts={cfg.num_experts}) over a mesh route the whole batch's "
-            f"tokens, with expert parallelism: {MODEL_PARALLEL}"
-        )
+
+
+def record_layout(model: "TransformerLM", mesh: Any, cfg: TransformerConfig) -> "TransformerLM":
+    """Record the model-parallel layout of a model built for ``mesh``
+    (``core.dense.set_model_layout``) and return it: on a mesh with
+    ``cfg.ep_axis`` each MoE layer's ``w_up`` and ``w_down`` are split over
+    that axis on their expert axis (the reference's ``param_shardings``:
+    ``P(ep, None, None)``); nothing else is split.  ZeRO-1's and FSDP's
+    specs merge dp into it; ``gather_params`` gathers those leaves whole."""
+    if not _ep_on(mesh, cfg) or cfg.num_experts == 0:
+        return model
+    from ..core.dense import set_model_layout
+
+    specs = {name: (cfg.ep_axis, None, None) for name, _ in model.named_parameters()
+             if name.endswith(("moe.w_up", "moe.w_down"))}
+    return set_model_layout(model, mesh, specs)
 
 
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, *, mesh: Optional[Any] = None) -> TransformerLM:
     """A freshly initialised LM on ``device`` (``cuda`` by default; with a
-    dp ``mesh``, this rank's device on it).  Every rank draws the same
+    ``mesh``, this rank's device on it).  Every rank draws the same
     weights from the same ``generator`` seed, so the model is replicated
-    over dp.
+    over dp; on a mesh with ``cfg.ep_axis`` each rank keeps its experts
+    of every MoE layer (``init_moe_params(mesh=)``: the whole tensors are
+    drawn on every rank, so the streams stay aligned) and the model
+    records that layout (:func:`record_layout`).
 
     The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
     float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
@@ -209,7 +244,8 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         if cfg.num_experts > 0:
             from .moe import init_moe_params
 
-            return dict(moe=init_moe_params(gen, _moe_config(cfg), device=dev))
+            ep_mesh = mesh if _ep_on(mesh, cfg) else None
+            return dict(moe=init_moe_params(gen, _moe_config(cfg), ep_mesh, cfg.ep_axis or "ep", device=dev))
         return dict(w_up=dense((d, f), d**-0.5), w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5))
 
     embed = dense((cfg.vocab_size, d), 0.02)
@@ -223,7 +259,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         )
         for _ in range(cfg.n_layers)
     ]
-    return TransformerLM(cfg, embed, ones(), layers)
+    return record_layout(TransformerLM(cfg, embed, ones(), layers), mesh, cfg)
 
 
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -245,15 +281,15 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 def _unsharded_attention(q, k, v, cfg: TransformerConfig, mesh: Optional[Any] = None) -> torch.Tensor:
     """The flash kernels when eligible (see TransformerConfig.flash_attention),
     else the O(T²) reference.  Without a mesh the gate is ``eligible``; on a
-    dp-only mesh ``eligible_dp`` over the global batch (``q`` holds this
-    rank's rows), and the kernels run on the rank's rows."""
+    dp or ``("dp", "ep")`` mesh ``eligible_dp`` over the global batch (``q``
+    holds this rank's rows), and the kernels run on the rank's rows."""
     T, Dh = q.shape[1], q.shape[3]
     if cfg.flash_attention == "off":
         return reference_attention(q, k, v)
     if mesh is None:
         if _flash.eligible(T, Dh, q.device):
             return _flash.flash_mha(q, k, v)
-    elif _flash.eligible_dp(T, Dh, q.shape[0] * axis_size(mesh, cfg.dp_axis), mesh, cfg.dp_axis):
+    elif _flash.eligible_dp(T, Dh, q.shape[0] * axis_size(mesh, cfg.dp_axis), mesh, cfg.dp_axis, cfg.ep_axis):
         return _flash.flash_mha(q, k, v)
     if cfg.flash_attention == "on":
         # "on" means the kernels or an error: a quiet reference fallback
@@ -261,7 +297,8 @@ def _unsharded_attention(q, k, v, cfg: TransformerConfig, mesh: Optional[Any] = 
         raise ValueError(
             f"flash_attention='on' but the flash path is ineligible (device={q.device}, "
             f"T={T}, head_dim={Dh}); flash needs a CUDA tensor, T % 128 == 0, "
-            f"head_dim % 64 == 0 and no mesh or a dp-only mesh dividing the batch. "
+            f"head_dim % 64 == 0 and no mesh or a mesh whose axes larger than 1 are "
+            f"dp and ep, dp dividing the batch. "
             f"Use 'auto' to fall back gracefully."
         )
     return reference_attention(q, k, v)
@@ -282,11 +319,29 @@ def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfi
     x = x + attn @ layer.wo
     h = _rmsnorm(x, layer.mlp_norm)
     if cfg.num_experts > 0:
-        from .moe import moe_dense
-
-        y = moe_dense(layer.moe, h.reshape(B * T, cfg.d_model), _moe_config(cfg))
-        return x + y.reshape(B, T, cfg.d_model)
+        return x + _moe_mlp(layer, h, cfg, mesh)
     return x + F.gelu(h @ layer.w_up, approximate="tanh") @ layer.w_down
+
+
+def _moe_mlp(layer: TransformerBlock, h: torch.Tensor, cfg: TransformerConfig, mesh: Optional[Any]) -> torch.Tensor:
+    """The MoE layer on this rank's (B, T, d) rows, by the reference's
+    rule: ``moe_apply`` per dp shard when ``cfg.ep_axis`` is a mesh axis,
+    else ``moe_dense`` over the whole global batch (the rows gathered over
+    dp, the rank's rows of the output kept; :func:`gather_rows`'s backward
+    takes the rank's rows, exact here because a token's output depends
+    only on that token and the weights once the routing is fixed)."""
+    from .moe import moe_apply, moe_dense
+
+    B, T, d = h.shape
+    flat = h.reshape(B * T, d)
+    if _ep_on(mesh, cfg):
+        y = moe_apply(layer.moe, flat, _moe_config(cfg), mesh=mesh, ep_axis=cfg.ep_axis)
+    elif mesh is not None and axis_size(mesh, cfg.dp_axis) > 1:
+        whole = moe_dense(layer.moe, _coll.gather_rows(flat, mesh, cfg.dp_axis), _moe_config(cfg))
+        y = _coll.dp_rows(whole, mesh, cfg.dp_axis)
+    else:
+        y = moe_dense(layer.moe, flat, _moe_config(cfg))
+    return y.reshape(B, T, d)
 
 
 def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -350,6 +405,7 @@ __all__ = [
     "TransformerLM",
     "check_lm_mesh",
     "init_params",
+    "record_layout",
     "forward",
     "next_token_xent",
     "lm_loss",

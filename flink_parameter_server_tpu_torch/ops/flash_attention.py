@@ -32,8 +32,9 @@ in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded
 back to q's dtype before the kernel (the kernel does not scale; the scale
 stays outside the ``autograd.Function`` so autograd carries its gradient).
 
-On a ``dp`` mesh (:func:`flash_mha_dp`, gated by :func:`eligible_dp`)
-each rank runs the same kernels on its own batch rows.
+On a ``dp`` mesh, or a ``("dp", "ep")`` one (:func:`flash_mha_dp`,
+gated by :func:`eligible_dp`), each rank runs the same kernels on its own
+batch rows.
 
 Dispatch: each wrapper takes its plain torch version (``*_plain``, the same
 tiles and the same float32 arithmetic) for tensors on the CPU; a CUDA
@@ -43,7 +44,7 @@ launches.  :func:`flash_mha_plain` runs the plain versions on any device.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -79,59 +80,30 @@ def _mesh_on_cuda(mesh) -> bool:
     return getattr(mesh, "device_type", None) == "cuda"
 
 
-def eligible_dp(seq_len: int, head_dim: int, batch: int, mesh, dp_axis: str = "dp") -> bool:
-    """The ``"auto"`` gate on a data-parallel mesh, the reference's: true
-    iff ``mesh`` has ``dp_axis`` and no other axis larger than 1, its ranks
-    are on ``cuda`` (the reference asks for the TPU backend), the shape
-    passes :func:`supports_shape` and ``batch`` (the global batch) divides
-    by dp.  Attention never mixes batch rows, so each rank runs the kernels
-    on its own rows with no collective.  sp / tp / pp meshes are the next
-    port slice and take the reference path."""
-    from ..parallel.mesh import axis_size, only_axis
+def eligible_dp(seq_len: int, head_dim: int, batch: int, mesh, dp_axis: str = "dp",
+                ep_axis: Optional[str] = None) -> bool:
+    """The ``"auto"`` gate on a data-parallel mesh: true iff ``mesh`` has
+    ``dp_axis`` and no axis but it and ``ep_axis`` is larger than 1, its
+    ranks are on ``cuda`` (the reference asks for the TPU backend), the
+    shape passes :func:`supports_shape` and ``batch`` (the global batch)
+    divides by dp.  Attention never mixes batch rows, so each rank runs
+    the kernels on its own rows with no collective.  On the ``("dp",
+    "ep")`` mesh the ep ranks of a dp row hold the same rows, so each runs
+    the kernels on them as a dp-only rank would (the reference's gate asks
+    for a dp-only mesh and takes its plain attention there; the math is
+    the same).  sp / tp / pp meshes are the next port slice and take the
+    reference path."""
+    from ..parallel.mesh import axis_size
 
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    allowed = {dp_axis} | ({ep_axis} if ep_axis else set())
     return (
-        only_axis(mesh, dp_axis)
+        dp_axis in names
+        and all(int(size) == 1 or name in allowed for name, size in zip(names, mesh.shape))
         and _mesh_on_cuda(mesh)
         and supports_shape(seq_len, head_dim)
         and batch % axis_size(mesh, dp_axis) == 0
     )
-
-
-class _TakeRows(torch.autograd.Function):
-    """This rank's dp rows of a global tensor that every rank holds alike;
-    the gradient all-gathers the ranks' row gradients, so every rank gets
-    the whole tensor's gradient."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, dp_axis):
-        from ..parallel.collectives import dp_rows
-
-        ctx.mesh, ctx.dp_axis = mesh, dp_axis
-        return dp_rows(x, mesh, dp_axis).contiguous()
-
-    @staticmethod
-    def backward(ctx, grad):
-        from ..parallel.collectives import all_gather_cat
-
-        return all_gather_cat(grad.contiguous(), ctx.mesh, ctx.dp_axis), None, None
-
-
-class _GatherRows(torch.autograd.Function):
-    """The dp all-gather of every rank's rows into the global tensor that
-    every rank then holds alike; the gradient of this rank's rows is their
-    part of the global gradient."""
-
-    @staticmethod
-    def forward(ctx, rows, mesh, dp_axis):
-        from ..parallel.collectives import all_gather_cat
-        from ..parallel.mesh import axis_index
-
-        ctx.lo, ctx.n = axis_index(mesh, dp_axis) * rows.shape[0], rows.shape[0]
-        return all_gather_cat(rows, mesh, dp_axis)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad[ctx.lo:ctx.lo + ctx.n], None, None
 
 
 def flash_mha_dp(q, k, v, *, mesh, dp_axis: str = "dp"):
@@ -144,14 +116,15 @@ def flash_mha_dp(q, k, v, *, mesh, dp_axis: str = "dp"):
     holds the whole gradient.  (The model's forward on a dp mesh, whose
     activations are already this rank's rows, calls :func:`flash_mha` on
     them, with no collective.)"""
+    from ..parallel.collectives import gather_rows, take_rows
     from ..parallel.mesh import axis_size, require_axis
 
     require_axis(mesh, dp_axis, "flash_mha_dp")
     B, dp = q.shape[0], axis_size(mesh, dp_axis)
     if B % dp:
         raise ValueError(f"flash_mha_dp needs batch {B} divisible by dp={dp}")
-    rows = flash_mha(*(_TakeRows.apply(x, mesh, dp_axis) for x in (q, k, v)))
-    return _GatherRows.apply(rows, mesh, dp_axis)
+    rows = flash_mha(*(take_rows(x, mesh, dp_axis) for x in (q, k, v)))
+    return gather_rows(rows, mesh, dp_axis)
 
 
 # ---------------------------------------------------------------- plain versions

@@ -29,7 +29,9 @@ Counterpart of ``flink_parameter_server_tpu/parallel/``.  The design:
   takes its block's ids from :func:`.collectives.owned_rows` and
   assembles a pull with :func:`.collectives.assemble_owned`.
 * **Collectives take what both torch 2.11 and 2.13 have**: the list forms
-  of ``all_gather`` and ``reduce_scatter``, and ``all_reduce``.  gloo also
+  of ``all_gather`` and ``reduce_scatter``, ``all_reduce``, and
+  ``all_to_all_single`` (torch 2.11's gloo refuses the list
+  ``all_to_all``).  gloo also
   takes ``cuda`` tensors (staged through the host), which is how more
   ranks than cards share one card.
 
@@ -49,13 +51,20 @@ Counterpart of ``flink_parameter_server_tpu/parallel/``.  The design:
   (``meshstore/``): the cluster driver's one process holds block ``i`` on
   ``devices[i]``, with no process group at all.
 
-Model parallelism (tensor, sequence and pipeline parallelism, ring
-attention and expert parallelism) is the next port slice (ROADMAP Queue 1
-#9): ``ring_attention`` holds only the unsharded oracle.
+**Expert parallelism** runs on the LM's fabric: a ``("dp", "ep")`` mesh
+(``make_mesh(dp, ep, axis_names=("dp", "ep"))``), each rank holding its
+dp rows and ``E/ep`` experts of every MoE layer, the tokens routed to their
+expert's rank and back by two :func:`.collectives.all_to_all` trips over
+``ep`` (``models/moe.moe_apply``); gradients are summed over dp only.
+
+Tensor, sequence and pipeline parallelism and ring attention are the next
+port slice, slice 22 (ROADMAP Queue 1 #9b): ``ring_attention`` holds only
+the unsharded oracle.
 """
 from .collectives import (
     all_gather_cat,
     all_reduce_sum,
+    all_to_all,
     dp_rows,
     global_mean,
     reduce_scatter_sum,
@@ -70,6 +79,7 @@ __all__ = [
     "PS_AXIS",
     "all_gather_cat",
     "all_reduce_sum",
+    "all_to_all",
     "dp_rows",
     "global_mean",
     "initialize",

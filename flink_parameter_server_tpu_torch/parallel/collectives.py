@@ -30,12 +30,22 @@ The dense LM's data parallelism adds three pieces, used by
 :func:`dp_rows` (this rank's contiguous rows of a global microbatch) and
 :func:`global_mean` (a mean over the whole batch of sums the dp ranks hold
 in parts: the loss's numerator and denominator in one all-reduce).
+:func:`gather_rows` / :func:`take_rows` move a tensor's batch rows between
+the rank's share and the global one inside autograd.
+
+Expert parallelism adds :func:`all_to_all` (``lax.all_to_all(split_axis=0,
+concat_axis=0)``), the MoE layer's dispatch and return trips
+(``models/moe.moe_apply``).
 
 The list forms of ``all_gather`` and ``reduce_scatter`` are used: torch
 2.11 and 2.13 both have them, for NCCL and for gloo on CPU and CUDA
-tensors alike (2.13 deprecates ``all_gather_into_tensor``).  So one route
-serves every backend; none is chosen by a ``try``.  Half-precision values
-are summed as float32 (exact for a pull: one value plus zeros), bools
+tensors alike (2.13 deprecates ``all_gather_into_tensor``).  The
+all-to-all is ``all_to_all_single``: on torch 2.11 gloo refuses the list
+``all_to_all`` ("Backend gloo does not support alltoall") for CUDA
+tensors and takes ``all_to_all_single``, which NCCL takes too.  So one
+route serves every backend; none is chosen by a ``try``.  Half-precision
+values are summed as float32 (exact for a pull: one value plus zeros), but
+travel as they are through an all-to-all, which sums nothing; bools are
 gathered as bytes.  :func:`collective_counts` reports calls and bytes by
 kind.
 """
@@ -51,12 +61,14 @@ import torch.distributed as dist
 from .mesh import DP_AXIS, PS_AXIS, axis_group, axis_index, axis_size
 
 _COUNTS: Dict[str, int] = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0,
-                           "reduce_scatter": 0, "reduce_scatter_bytes": 0}
+                           "reduce_scatter": 0, "reduce_scatter_bytes": 0, "all_to_all": 0,
+                           "all_to_all_bytes": 0}
 
 
 def collective_counts() -> Dict[str, int]:
     """Calls and payload bytes of :func:`all_reduce_sum`,
-    :func:`all_gather_cat` and :func:`reduce_scatter_sum` in this process."""
+    :func:`all_gather_cat`, :func:`reduce_scatter_sum` and
+    :func:`all_to_all` (each trip, forward or backward) in this process."""
     return dict(_COUNTS)
 
 
@@ -106,6 +118,84 @@ def reduce_scatter_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     _COUNTS["reduce_scatter"] += 1
     _COUNTS["reduce_scatter_bytes"] += src.numel() * src.element_size()
     return out.to(x.dtype) if wide else out
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    n = axis_size(mesh, axis)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not split into {axis}={n}")
+    src = x.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=axis_group(mesh, axis))
+    _COUNTS["all_to_all"] += 1
+    _COUNTS["all_to_all_bytes"] += src.numel() * src.element_size()
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The trip and its reverse: the cotangent of the chunk received from
+    rank s goes back to rank s, which is the same all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0)`` over ``axis``: ``x``
+    (the same shape on each rank, dim 0 a multiple of the axis size n) is
+    cut into n equal chunks along dim 0, chunk j goes to rank j of the
+    axis, and the result holds the n chunks received, in sender order, in
+    ``x``'s shape and dtype (half precision travels as it is: nothing is
+    summed).  Differentiable: the backward is the reverse trip.  Counted
+    once per trip in :func:`collective_counts` (bytes: this rank's send)."""
+    return _AllToAll.apply(x, mesh, axis)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return dp_rows(x, mesh, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+def take_rows(x: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
+    """This rank's ``axis`` rows of a global tensor that every rank holds
+    alike (:func:`dp_rows`); the gradient all-gathers the ranks' row
+    gradients, so every rank gets the whole tensor's gradient."""
+    return _TakeRows.apply(x, mesh, axis)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, mesh, axis):
+        ctx.lo, ctx.n = axis_index(mesh, axis) * rows.shape[0], rows.shape[0]
+        return all_gather_cat(rows, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.lo:ctx.lo + ctx.n], None, None
+
+
+def gather_rows(rows: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
+    """The ``axis`` all-gather of every rank's rows (equal counts) into the
+    global tensor; its backward takes this rank's rows of the gradient and
+    needs no collective.  That is exact whenever no other rank's loss
+    reaches this rank's rows through the global tensor, which holds for the
+    two callers: ``flash_mha_dp`` (attention never mixes batch rows) and
+    the MoE layer on a dp-only mesh (``models/transformer.py``: given the
+    routing, each token's output depends only on that token and the
+    weights, so the rank's loss sends gradient only to its own tokens)."""
+    return _GatherRows.apply(rows, mesh, axis)
 
 
 def dp_rows(batch: Any, mesh, axis: str = DP_AXIS) -> Any:
@@ -296,10 +386,12 @@ def shard_push_add(
 __all__ = [
     "all_gather_cat",
     "all_reduce_sum",
+    "all_to_all",
     "assemble_owned",
     "block_start",
     "collective_counts",
     "dp_rows",
+    "gather_rows",
     "global_mean",
     "global_means_made",
     "is_global_mean",
@@ -309,4 +401,5 @@ __all__ = [
     "reset_collective_counts",
     "shard_pull",
     "shard_push_add",
+    "take_rows",
 ]

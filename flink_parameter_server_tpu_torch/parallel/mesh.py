@@ -10,7 +10,10 @@ reference system's two parallelism knobs map onto named mesh axes:
 
 The dense LM's data parallelism takes a 1-D ``("dp",)`` mesh
 (:func:`make_dp_mesh`), the layout of the reference's ZeRO-1 and FSDP
-tests, or the ``(dp, ps)`` one with ``ps`` 1.
+tests, or the ``(dp, ps)`` one with ``ps`` 1.  Expert parallelism takes
+the reference's ``("dp", "ep")`` mesh: ``make_mesh(dp, ep,
+axis_names=("dp", "ep"))``, or ``single_device_mesh(axis_names=("dp",
+"ep"))`` for one rank; the second axis is named, the layout is the same.
 
 The reference drives every device from one process through ``shard_map``.
 The port runs one process per device, as PyTorch does on several cards:
@@ -60,15 +63,6 @@ def require_axis(mesh: Any, axis: str, what: str) -> None:
         raise ValueError(f"{what}: dp_axis={axis!r} not in mesh axes {names}")
 
 
-def only_axis(mesh: Any, axis: str) -> bool:
-    """True iff ``mesh`` has ``axis`` and every other axis has size 1 (the
-    reference's dp-only mesh)."""
-    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    return axis in names and all(
-        int(mesh.shape[i]) == 1 for i, name in enumerate(names) if name != axis
-    )
-
-
 def mesh_device(mesh: Any) -> torch.device:
     """The device this rank's tensors live on: the current card of a
     ``cuda`` mesh, the CPU for a ``cpu`` one."""
@@ -84,7 +78,9 @@ def make_mesh(
     device_type: str = "cuda",
     axis_names: Tuple[str, str] = (DP_AXIS, PS_AXIS),
 ):
-    """A ``dp × ps`` mesh over every rank of the default process group.
+    """A ``dp × ps`` mesh over every rank of the default process group
+    (``axis_names`` renames the two axes: ``("dp", "ep")`` is the expert
+    parallel mesh, global rank ``d * ep + e`` at ``(d, e)``).
 
     Defaults as the reference's: every rank is used; if only one degree is
     given the other takes the rest; if neither, all ranks go to ``dp``.
@@ -167,7 +163,6 @@ __all__ = [
     "make_dp_mesh",
     "make_mesh",
     "mesh_device",
-    "only_axis",
     "require_axis",
     "single_device_mesh",
 ]

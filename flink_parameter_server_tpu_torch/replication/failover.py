@@ -55,6 +55,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..resilience.wal import from_newest_snapshot
+
 
 @dataclasses.dataclass
 class PromoteReport:
@@ -74,10 +76,17 @@ class PromoteReport:
 
 def salvage_records(wal_dir: str, after_seq: int) -> list:
     """The dead primary's log tail past ``after_seq`` — read fresh
-    from disk (the primary's in-process handle is gone with it).
-    Missing/empty directories yield nothing: salvage is best-effort by
-    design (a truly lost disk loses its unshipped tail; the exactly-
-    once client replay covers the unacked remainder)."""
+    from disk (the primary's in-process handle is gone with it) —
+    starting no earlier than its newest snapshot barrier
+    (:func:`~..resilience.wal.from_newest_snapshot`), as the shipper's
+    resync does (``ParamShard.repl_backlog``).  A resize writes that
+    barrier and re-seeds the chain, so a follower whose leg has shipped
+    nothing since sits before it; the records before it hold ids of the
+    pre-resize map, which the promoted shard may not own, and the
+    snapshot supersedes them.  Missing/empty directories yield nothing:
+    salvage is best-effort by design (a truly lost disk loses its
+    unshipped tail; the exactly-once client replay covers the unacked
+    remainder)."""
     import os
 
     from ..resilience.wal import UpdateWAL
@@ -87,11 +96,12 @@ def salvage_records(wal_dir: str, after_seq: int) -> list:
     try:
         wal = UpdateWAL(wal_dir, fsync_every=0)
         try:
-            return wal.replay(after_seq)
+            records = wal.replay()
         finally:
             wal.close()
     except (OSError, ValueError):
         return []
+    return [r for r in from_newest_snapshot(records) if r.end_step > after_seq]
 
 
 def verify_against_log(shard) -> bool:
@@ -111,12 +121,7 @@ def verify_against_log(shard) -> bool:
         live = np.array(shard._slice_to_host())
         seq = shard._push_seq
     shard._wal.sync()  # the captured tail must be readable from disk
-    records = [r for r in shard._wal.replay() if r.end_step <= seq]
-    start = 0
-    for i, rec in enumerate(records):
-        p = rec.payload
-        if isinstance(p, dict) and p.get("kind") == "snapshot":
-            start = i
+    records = from_newest_snapshot([r for r in shard._wal.replay() if r.end_step <= seq])
     # a tiered shard is audited against a dense scratch on its device
     # (the reference's scratch is its dense default backend too): the
     # tiers are bitwise the dense slice, and a scratch tier would take
@@ -129,7 +134,7 @@ def verify_against_log(shard) -> bool:
         ),
         device=shard._device,
     )
-    for rec in records[start:]:
+    for rec in records:
         p = rec.payload
         kind = p.get("kind", "push") if isinstance(p, dict) else "push"
         if kind == "snapshot":

@@ -137,6 +137,20 @@ def decode_frame(token: str) -> WALRecord:
     return decode_frame_bytes(raw)
 
 
+def from_newest_snapshot(records: List[WALRecord]) -> List[WALRecord]:
+    """``records`` from the newest ``snapshot`` record on (all of them
+    without one).  A snapshot (a shard's whole owned slice, written at each
+    epoch flip) supersedes everything before it, and records before it may
+    hold ids the shard no longer owns after a resize: a shard's replay, the
+    shipper's resync, a promotion's salvage and its audit all start here."""
+    start = 0
+    for i, rec in enumerate(records):
+        p = rec.payload
+        if isinstance(p, dict) and p.get("kind") == "snapshot":
+            start = i
+    return records[start:]
+
+
 class UpdateWAL:
     """Append/replay/truncate over a directory of bounded segments.
 
@@ -488,6 +502,7 @@ class UpdateWAL:
 
 
 __all__ = [
+    "from_newest_snapshot",
     "UpdateWAL",
     "WALRecord",
     "decode_frame",

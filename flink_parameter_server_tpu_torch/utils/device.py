@@ -5,10 +5,11 @@ entry point takes a ``device`` argument whose default is ``"cuda"``.
 Asking for ``cuda`` on a machine without a card raises — nothing drops
 to the CPU quietly.  The parameter server's paths take a ``dp × ps``
 ``DeviceMesh`` (:mod:`..parallel.mesh`) whose device type matches the
-device (:func:`check_mesh`); the dense LM takes a mesh with a ``dp`` axis.
-What is not multi-device yet, model parallelism (tensor, sequence,
-pipeline and expert parallelism), raises for any mesh
-(:func:`reject_mesh`): it is the next port slice (ROADMAP Queue 1 #9).
+device (:func:`check_mesh`); the dense LM takes a mesh with a ``dp`` axis,
+and an ``ep`` axis for expert parallelism.  What is not multi-device yet,
+tensor, sequence and pipeline parallelism, raises for any mesh
+(:func:`reject_mesh`): it is the next port slice, slice 22 (ROADMAP Queue
+1 #9b).
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str = "ps") -> None:
     """Accept ``None`` or a torch ``DeviceMesh`` with a ``ps_axis`` axis
     whose device type matches ``device`` (when given).  Any other mesh (a
-    JAX mesh, an ``ep`` / ``sp`` / ``tp`` layout) raises: model
-    parallelism is the next port slice (ROADMAP Queue 1 #9)."""
+    JAX mesh, an ``sp`` / ``tp`` layout) raises: tensor and sequence
+    parallelism are the next port slice (ROADMAP Queue 1 #9b)."""
     if mesh is None:
         return
     from torch.distributed.device_mesh import DeviceMesh
@@ -43,7 +44,7 @@ def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str =
         raise NotImplementedError(
             f"the torch port's meshes are torch DeviceMeshes with a {ps_axis!r} "
             f"axis (parallel.mesh.make_mesh), got {type(mesh).__name__}; other "
-            f"layouts are model parallelism, the next port slice (ROADMAP Queue 1 #9)"
+            f"layouts are model parallelism, the next port slice (ROADMAP Queue 1 #9b)"
         )
     if device is not None and torch.device(device).type != mesh.device_type:
         raise ValueError(
@@ -52,8 +53,8 @@ def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str =
 
 
 MODEL_PARALLEL = (
-    "model parallelism (tensor, sequence, pipeline and expert parallelism) is the next "
-    "port slice, ROADMAP Queue 1 #9"
+    "model parallelism (tensor, sequence and pipeline parallelism) is the next "
+    "port slice, ROADMAP Queue 1 #9b (slice 22)"
 )
 
 

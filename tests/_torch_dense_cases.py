@@ -182,7 +182,8 @@ def case_loss_routes(c):
     """A loss_fn that adds a regulariser to ``global_mean``'s result (the
     mark is lost, so neither gradient route fits) raises; the same
     regulariser folded into a mean over equal slices trains.  An LM with
-    MoE layers on the dp mesh raises (its capacity is the whole batch's)."""
+    MoE layers builds and runs on the dp mesh, routing the whole batch:
+    its global logits beside the mesh-less run's on the whole batch."""
     import torch
 
     from flink_parameter_server_tpu_torch.core import dense
@@ -210,14 +211,13 @@ def case_loss_routes(c):
     _, _, loss = step(module, torch.optim.SGD(module.parameters(), 0.1), batch)
     out["mean_route_loss"] = np.float64(float(loss))
     moe_cfg = tr.TransformerConfig(**LM_CFG, dtype=torch.float32, num_experts=4, moe_capacity=64)
-    for name, fn in (("moe_init", lambda: tr.init_params(moe_cfg, mesh=c.mesh)),
-                     ("moe_forward", lambda: tr.forward(None, torch.zeros(1, 8, dtype=torch.int64), moe_cfg,
-                                                        mesh=c.mesh))):
-        try:
-            fn()
-            out[name] = "did not raise"
-        except NotImplementedError as e:
-            out[name] = str(e)
+    model = tr.init_params(moe_cfg, torch.Generator().manual_seed(4), mesh=c.mesh)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, LM_CFG["vocab_size"], (c.world, 16)))
+    with torch.no_grad():
+        rows = tr.forward(model, coll.dp_rows(tokens, c.mesh), moe_cfg, mesh=c.mesh)
+        out["moe_whole"] = _np(tr.forward(model, tokens, moe_cfg))
+    out["moe_forward"] = _np(coll.all_gather_cat(rows, c.mesh, "dp"))
+    out["moe_init"] = np.array(len(model.layers[0].moe["w_up"]))
     return {k: np.array(v) for k, v in out.items()}
 
 

@@ -28,7 +28,11 @@ ROOT = Path(__file__).resolve().parent.parent
 # world size and the (dp, ps) mesh of each battery; a 1-tuple is the 1-D
 # ("dp",) mesh of the dense LM's batteries (tests/_torch_dense_cases.py)
 BATTERIES = {"grid": (4, (2, 2)), "grid_mf": (4, (2, 2)), "wide": (8, (2, 4)), "pair": (2, (2, 1)),
-             "dense": (4, (4,)), "dense2": (2, (2,))}
+             "dense": (4, (4,)), "dense2": (2, (2,)),
+             "ep8": (8, (1, 8)), "ep24": (8, (2, 4)), "moe_dp": (4, (4,))}
+# the axis names of a 2-D battery's mesh, where they are not ("dp", "ps"):
+# expert parallelism's ("dp", "ep") (tests/_torch_moe_cases.py)
+AXES = {"ep8": ("dp", "ep"), "ep24": ("dp", "ep")}
 
 
 def run_battery(battery: str, outdir: Path, *, timeout: float = 150.0) -> dict:
@@ -802,7 +806,10 @@ def _cases(battery: str) -> list:
     if battery in CASES:
         return CASES[battery]
     import _torch_dense_cases
+    import _torch_moe_cases
 
+    if battery in _torch_moe_cases.CASES:
+        return _torch_moe_cases.CASES[battery]
     return _torch_dense_cases.CASES[battery]
 
 
@@ -816,9 +823,12 @@ def main(init_method: str, world: int, rank: int, battery: str, outdir: Path) ->
     multihost.initialize(init_method, world, rank, device_type="cpu", timeout_s=60)
     shape = BATTERIES[battery][1]
     dp, ps = (shape[0], 1) if len(shape) == 1 else shape
-    mesh = make_dp_mesh(dp, device_type="cpu") if len(shape) == 1 else make_mesh(dp, ps, device_type="cpu")
+    axes = AXES.get(battery, ("dp", "ps"))
+    mesh = (make_dp_mesh(dp, device_type="cpu") if len(shape) == 1
+            else make_mesh(dp, ps, device_type="cpu", axis_names=axes))
     ctx = types.SimpleNamespace(mesh=mesh, rank=rank, world=world, dp=dp, ps=ps, outdir=outdir,
-                                dp_index=axis_index(mesh, "dp"), ps_index=axis_index(mesh, "ps"))
+                                dp_index=axis_index(mesh, "dp"), ps_index=axis_index(mesh, "ps"),
+                                ep=ps if axes[1] == "ep" else 1)
     failed = 0
     for case in _cases(battery):
         name = case.__name__[len("case_"):]

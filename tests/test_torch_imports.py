@@ -230,6 +230,47 @@ def test_the_dense_cases_and_the_dp_lm_load_no_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_moe_cases_and_expert_parallelism_load_no_jax():
+    """The expert-parallel batteries' cases and the modules of expert
+    parallelism, imported first in a fresh interpreter, then a ZeRO-1 step
+    of an MoE LM on a one-rank ``("dp", "ep")`` gloo mesh (``moe_apply``
+    and its two all-to-all trips a layer) and the tree gathered back: no
+    JAX module and nothing of the JAX package is loaded."""
+    script = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_moe_cases\n"
+        "import torch\n"
+        "from flink_parameter_server_tpu_torch import interop\n"
+        "from flink_parameter_server_tpu_torch.core import dense, optim\n"
+        "from flink_parameter_server_tpu_torch.models import transformer as tr\n"
+        "from flink_parameter_server_tpu_torch.parallel import collectives as coll\n"
+        "from flink_parameter_server_tpu_torch.parallel.mesh import single_device_mesh\n"
+        "mesh = single_device_mesh(device_type='cpu', axis_names=('dp', 'ep'))\n"
+        "cfg = tr.TransformerConfig(vocab_size=32, d_model=16, n_heads=2, n_layers=1, d_ff=32, max_seq=8,"
+        " dtype=torch.float32, num_experts=4, moe_capacity=4, ep_axis='ep')\n"
+        "server = dense.DenseParameterServer(tr.init_params(cfg, mesh=mesh), optim.adamw(1e-3))\n"
+        "res = dense.transform_dense([{'tokens': torch.zeros(2, 8, dtype=torch.int64)}],"
+        " lambda m, b: tr.lm_loss(m, b, cfg, mesh=mesh), server, batch_sharding=mesh, shard_opt_state=True)\n"
+        "assert torch.isfinite(res.worker_outputs[0])\n"
+        "assert coll.collective_counts()['all_to_all'] == 4\n"
+        "assert interop.transformer_params_to_numpy(res.server_outputs[0])['layers'][0]['moe']['w_up'].shape"
+        " == (4, 16, 32)\n"
+        "torch.distributed.destroy_process_group()\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'flink_parameter_server_tpu' or m.startswith('flink_parameter_server_tpu.'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_loadgen_and_sources_alone_load_no_jax():
     """The six modules of the soak and the record sources imported first,
     on their own, in a fresh interpreter (with everything they import), and

@@ -18,7 +18,8 @@ Mirrors the single-device tests of tests/test_moe.py
 (``test_moe_dense_matches_reference``, ``test_capacity_overflow_drops_tokens``
 through ``moe_dense``, the gradient test against ``jax.grad`` and the
 Transformer test against ``forward(mesh=None)``); the expert-parallel ones
-wait for ROADMAP Queue 1 #9.
+run across gloo ranks in tests/test_torch_moe_ep.py, and here on a
+one-rank ``("dp", "ep")`` mesh.
 """
 import dataclasses
 
@@ -194,17 +195,57 @@ def test_moe_lm_trains_and_init_matches_reference_tree():
 
 
 def test_config_guards():
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tr.TransformerConfig(num_experts=8, moe_capacity=4, ep_axis="ep")
+    """Expert parallelism is ported: the config takes ``ep_axis``, and
+    ``moe_apply`` / ``init_moe_params(mesh=)`` take a torch DeviceMesh (any
+    other mesh raises ``TypeError``)."""
+    assert tr.TransformerConfig(num_experts=8, moe_capacity=4, ep_axis="ep").ep_axis == "ep"
     with pytest.raises(ValueError, match="moe_capacity"):
         tr.TransformerConfig(num_experts=8)
     _, cfg = _cfgs(4)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         moe.moe_apply({}, torch.zeros(2, D), cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         moe.init_moe_params(None, cfg, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             moe.init_moe_params(None, cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             tr.init_params(_lm_configs()[1])
+
+
+@pytest.fixture()
+def one_rank_ep_mesh():
+    """A one-rank gloo ``("dp", "ep")`` mesh in this process, torn down after."""
+    from flink_parameter_server_tpu_torch.parallel.mesh import single_device_mesh
+
+    mesh = single_device_mesh(device_type="cpu", axis_names=("dp", "ep"))
+    try:
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_one_rank_ep_mesh_is_moe_dense(one_rank_ep_mesh):
+    """On a one-rank ``("dp", "ep")`` mesh (the card's NCCL layout) each
+    all-to-all is a copy: ``init_moe_params(mesh=)`` keeps every expert of
+    the same draw, ``moe_apply`` is ``moe_dense`` bitwise (capacity 4 of 48
+    tokens: some drop), and so are its gradients; ``E % ep`` is checked."""
+    _, cfg = _cfgs(4)
+    mesh = one_rank_ep_mesh
+    mine = moe.init_moe_params(torch.Generator().manual_seed(2), cfg, mesh)
+    whole = moe.init_moe_params(torch.Generator().manual_seed(2), cfg, device="cpu")
+    for k in whole:
+        torch.testing.assert_close(mine[k], whole[k], rtol=0, atol=0)
+    _, x = _x(48, 9)
+    grads = []
+    for fn in (lambda p: moe.moe_apply(p, x, cfg, mesh=mesh), lambda p: moe.moe_dense(p, x, cfg)):
+        p = {k: v.clone().requires_grad_() for k, v in whole.items()}
+        y = fn(p)
+        (y ** 2).sum().backward()
+        grads.append((y.detach(), {k: v.grad for k, v in p.items()}))
+    (y_ep, g_ep), (y_dense, g_dense) = grads
+    assert (y_dense.abs().sum(1) == 0).any()
+    torch.testing.assert_close(y_ep, y_dense, rtol=0, atol=0)
+    for k in g_dense:
+        torch.testing.assert_close(g_ep[k], g_dense[k], rtol=0, atol=0)
+    assert moe.local_experts(8, mesh) == slice(0, 8)

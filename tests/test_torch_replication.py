@@ -672,6 +672,55 @@ class TestFailover:
         finally:
             driver.stop()
 
+    def test_promotion_salvages_from_the_newest_snapshot_barrier(self, tmp_path):
+        """A resize re-seeds every chain; a follower whose leg has shipped
+        nothing since (a chaos hook drops every frame: a lagging leg) is
+        then promoted from the dead primary's salvaged log.  The salvage
+        starts no earlier than the primary's newest snapshot barrier, as the
+        shipper's resync does (``repl_backlog``): the records before it hold
+        ids of the pre-resize map, which the promoted shard does not own.
+        Salvaged from the log's start, the promotion raised ``KeyError: ...
+        not owned by shard 1 (mis-routed request)`` and the run lost its
+        table (the corpus's ``pa_full_stack`` under load).  The promoted
+        table is bitwise the dead primary's."""
+        _, init, nu, ni, dim = _mf_fixture()
+        held = threading.Event()
+        driver = ReplicatedClusterDriver(
+            _logic(nu, dim), capacity=ni, value_shape=(dim,), init_fn=init,
+            config=ReplicatedClusterConfig(
+                num_shards=2, num_workers=1, wal_dir=str(tmp_path / "wal"),
+                replication_factor=1, verify_promotion=True,
+                repl_fault_hook=lambda idx: "drop" if held.is_set() else None,
+            ),
+            registry=False, device=CPU,
+        )
+        driver.start()
+        try:
+            ids = np.arange(ni)
+
+            def push_owned(round_):
+                owner = driver.partitioner.shard_of(ids)
+                for s, shard in enumerate(driver.shards):
+                    mine = ids[owner == s]
+                    shard.push(mine, np.full((mine.size, dim), 0.5 + round_, np.float32))
+
+            push_owned(0)
+            held.set()  # from here no leg ships a frame
+            driver.scale_out(1)
+            push_owned(1)
+            follower = driver.chains.chain(1).followers[0]
+            assert follower.repl_state()["logged"] == -1  # the re-seeded follower holds nothing
+            before = driver.shards[1].values().copy()
+            old_owned = np.flatnonzero(np.arange(ni) % 2 == 1)  # a 2-shard hash map's shard 1
+            assert (driver.partitioner.shard_of(old_owned) != 1).any()  # the resize moved some away
+            driver.kill_shard(1)
+            report = driver.promote_shard(1)
+            assert report.records_salvaged >= 2 and report.verified
+            assert driver.shards[1].role == "primary"
+            np.testing.assert_array_equal(driver.shards[1].values(), before)
+        finally:
+            driver.stop()
+
     def test_missed_heartbeats_trigger_promote(self, tmp_path):
         """A WEDGED primary (listening but not answering inside the
         heartbeat budget) is promoted over: shard_alive turns False on

@@ -187,23 +187,25 @@ def test_config_validation():
     with pytest.raises(ValueError, match="flash_attention"):
         tr.TransformerConfig(flash_attention="always")
     # the mesh-less switch MoE came with models/moe.py (tests/test_torch_moe.py);
-    # expert parallelism stays multi-device, and a capacity of 0 drops every token
+    # a capacity of 0 would drop every token
     assert tr.TransformerConfig(num_experts=4, moe_capacity=8).num_experts == 4
     assert tr.TransformerConfig(moe_capacity=8).num_experts == 0  # ignored without experts, as the reference does
     with pytest.raises(ValueError, match="moe_capacity"):
         tr.TransformerConfig(num_experts=4)
     # the data axis may take any name (a dp mesh's, tests/test_torch_dense_dp.py);
-    # model parallelism is the next port slice
+    # expert parallelism is ported (tests/test_torch_moe_ep.py);
+    # tensor, sequence and pipeline parallelism are the next port slice, slice 22
     assert tr.TransformerConfig(dp_axis="data").dp_axis == "data"
-    for kw in (dict(use_ring_attention=True), dict(sp_axis="sp"), dict(tp_axis="tp"), dict(pp_axis="pp"),
-               dict(ep_axis="ep"), dict(num_experts=4, moe_capacity=8, ep_axis="ep")):
-        with pytest.raises(NotImplementedError, match="next port slice, ROADMAP Queue 1 #9"):
+    assert tr.TransformerConfig(ep_axis="ep").ep_axis == "ep"
+    assert tr.TransformerConfig(num_experts=4, moe_capacity=8, ep_axis="ep").num_experts == 4
+    for kw in (dict(use_ring_attention=True), dict(sp_axis="sp"), dict(tp_axis="tp"), dict(pp_axis="pp")):
+        with pytest.raises(NotImplementedError, match="next port slice, ROADMAP Queue 1 #9b \\(slice 22\\)"):
             tr.TransformerConfig(**kw)
     _, cfg = _configs()
     model = tr.init_params(cfg, device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         tr.forward(model, torch.zeros(1, 129, dtype=torch.int64), cfg)
-    with pytest.raises(NotImplementedError, match="next port slice, ROADMAP Queue 1 #9"):
+    with pytest.raises(NotImplementedError, match="next port slice, ROADMAP Queue 1 #9b \\(slice 22\\)"):
         tr.forward(model, torch.zeros(1, 8, dtype=torch.int64), cfg, mesh=object())
 
 
