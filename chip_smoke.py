@@ -334,6 +334,14 @@ line each; any failure exits non-zero before the last line:
              expert gradient past it; the dp-only mesh routing the global
              batch, per-rank routing past the bar; ``moe_apply`` at
              (2, 2) against its oracle; the all-to-all's ms and bytes.
+             Then tensor, sequence and pipeline parallelism there too: (a)
+             one-rank ``("dp", "sp", "tp")`` (flash "on") and ``("dp",
+             "pp")`` (``forward_pipelined``) NCCL meshes bitwise the
+             mesh-less run; (b) tp 4 (K3a/b/c on each rank's 2 heads), sp 4
+             (the ring) and pp 2 x sp 2 in float32 within the same bar,
+             each with a planted fault past it; K3a/b/c against their plain
+             versions at a tp rank's shape on every rank; the tp
+             all-reduce's and the ppermutes' ms.
              The ranks' flash launches join the kernels line's counts.
   3. main   ``ps_online_mf(..., dim=64, scatter_impl="pallas")`` through
              ``transform_batched``, then ``make_fused_mf_train_step`` at
@@ -370,7 +378,9 @@ line each; any failure exits non-zero before the last line:
              the scatter-add, ``scaled_dot_product_attention`` forward and
              backward for the flash kernels; K3b + K3c beside the whole
              backward); the column-split kernels' times at head_dim 320
-             and 512.
+             and 512; the float32 SIMT kernels at head_dim 64 at a dp-4
+             and a tp-4 rank's shares of the LM, beside their bounds and
+             SDPA's float32 forward and backward.
 
 The line before the last is the card's name and power limit, the last is
 ``{"ok": true, "device": {...}}``.
@@ -2107,28 +2117,64 @@ def phase_shmem(torch, dev, card):
     print(f"shmem: (5) transport A/B in turns {', '.join(f'{p} {x:.3f} rounds/s push_batch {m:.3f} ms' for p, x, m in ab)}"
           f"; medians shm / auto: {rate['shm'] / rate['auto']:.3f}x rounds/s, push_batch "
           f"{push['shm'] / push['auto']:.3f}x; {card}")
-    # (2) shard processes; both arms' children spawn side by side (each
-    # imports torch, seconds apiece), then the arms run one after the other
+    # (2) shard processes: both arms' children spawn side by side in the
+    # background (each imports torch, seconds apiece) while (3) and (4) run
+    # in this process; their arms run after (4), one after the other
     pre = {p: proc_driver(p, CLUSTER_PROCS) for p in ("auto", "shm")}
-    t0, spawn_errs = time.perf_counter(), []
+    t0, spawn_errs, spawned = time.perf_counter(), [], {}
 
-    def spawn(d):
+    def spawn(p, d):
         try:
             d.start()
+            spawned[p] = time.perf_counter() - t0
         except BaseException as e:  # re-raised below
             spawn_errs.append(e)
 
-    starters = [threading.Thread(target=spawn, args=(d,), name=f"shmem-spawn-{p}") for p, (d, _) in pre.items()]
+    starters = [threading.Thread(target=spawn, args=(p, d), name=f"shmem-spawn-{p}") for p, (d, _) in pre.items()]
     for t in starters:
         t.start()
-    for t in starters:
-        t.join()
+    ok = False
+    try:
+        # (3) a fault-free proxy in front of shard 0
+        px, counts, info = run(f"(3) {bsp}, shm, shard 0 behind a ChaosProxy", "shm", proxied=True, **agg)
+        refused = counts.get("fallback hello-refused", 0)
+        others = [w for cc_wire, w in zip(info["proxied"], info["wires"]) if not cc_wire]
+        print(f"shmem: (3) the proxied connections rode {info['proxied_wires']}; hello-refused {refused}, the proxy's "
+              f"downgrades {info['downgrades']}; the other {len(others)} connections rode {sorted(set(others))}; {card}")
+        check(info["proxied_wires"] and set(info["proxied_wires"]) == {"tcp"},
+              f"shmem: (3) a proxied connection rode {info['proxied_wires']}")
+        check(refused == info["downgrades"] == len(info["proxied_wires"]),
+              f"shmem: (3) hello-refused {refused}, downgrades {info['downgrades']}, dials "
+              f"{len(info['proxied_wires'])}: not one a dial through the proxy")
+        check(others and set(others) == {"shm"}, f"shmem: (3) an unproxied connection left shm: {others}")
+        check(set(counts) <= {"fallback hello-refused", "borrows", "borrow_spills"},
+              f"shmem: (3) fallbacks besides the proxy's: {counts}")
+        bitwise("(3) the proxied shm table and the TCP table", px.values, tcp)
+        # (4) the hot cache over shm
+        items = np.concatenate([b["item"] for b in stream]).astype(np.int64)
+        hot = np.lexsort((np.arange(NUM_ITEMS), -np.bincount(items, minlength=NUM_ITEMS)))[:SHMEM_HOT]
+        ssp = dict(staleness_bound=SHMEM_BOUND, hot_cache=True, **agg)
+        what = f"socket range SSP {SHMEM_BOUND} {CLUSTER_SHARDS}x{CLUSTER_WORKERS} push_aggregate hot_cache"
+        ht, _, hinfo_t = run(f"(4) {what}, auto", "auto", hot_set=hot, **ssp)
+        hs, _, hinfo_s = run(f"(4) {what}, shm", "shm", hot_set=hot, **ssp)
+        print(f"shmem: (4) worker cache hits TCP {hinfo_t['hits']} shm {hinfo_s['hits']}, fills TCP {hinfo_t['fills']} "
+              f"shm {hinfo_s['fills']}; {card}")
+        bitwise("(4) the hot-cache shm table and its TCP table", hs.values, ht.values)
+        check(hinfo_s["hits"] == hinfo_t["hits"] and hinfo_s["fills"] == hinfo_t["fills"],
+              f"shmem: (4) the caches' hits or fills differ: {hinfo_t} against {hinfo_s}")
+        ok = True
+    finally:
+        t_join = time.perf_counter()
+        for t in starters:
+            t.join()
+        if not ok or spawn_errs:
+            for d, _ in pre.values():
+                d.stop()
     if spawn_errs:
-        for d, _ in pre.values():
-            d.stop()
         raise spawn_errs[0]
-    print(f"shmem: (2) {2 * CLUSTER_PROCS} shard processes spawned side by side in "
-          f"{time.perf_counter() - t0:.2f} s; {card}")
+    print(f"shmem: (2) {2 * CLUSTER_PROCS} shard processes spawned side by side behind arms (3) and (4): ready "
+          f"{ {p: round(x, 2) for p, x in spawned.items()} } s after the spawn began, the wait after (4) "
+          f"{time.perf_counter() - t_join:.2f} s; {card}")
     pt, _, _ = run(f"(2) {CLUSTER_PROCS} shard processes, 1 worker, auto", "auto", procs=pre["auto"],
                    num_shards=CLUSTER_PROCS, num_workers=1)
     ps, _, info = run(f"(2) {CLUSTER_PROCS} shard processes, 1 worker, shm", "shm", procs=pre["shm"],
@@ -2137,33 +2183,6 @@ def phase_shmem(torch, dev, card):
     check([s["backend"] for s in ps.shard_stats] == ["numpy"] * CLUSTER_PROCS,
           "shmem: (2) the shard processes do not run the numpy slice")
     bitwise("(2) the shard processes' shm table and their TCP table", ps.values, pt.values)
-    # (3) a fault-free proxy in front of shard 0
-    px, counts, info = run(f"(3) {bsp}, shm, shard 0 behind a ChaosProxy", "shm", proxied=True, **agg)
-    refused = counts.get("fallback hello-refused", 0)
-    others = [w for cc_wire, w in zip(info["proxied"], info["wires"]) if not cc_wire]
-    print(f"shmem: (3) the proxied connections rode {info['proxied_wires']}; hello-refused {refused}, the proxy's "
-          f"downgrades {info['downgrades']}; the other {len(others)} connections rode {sorted(set(others))}; {card}")
-    check(info["proxied_wires"] and set(info["proxied_wires"]) == {"tcp"},
-          f"shmem: (3) a proxied connection rode {info['proxied_wires']}")
-    check(refused == info["downgrades"] == len(info["proxied_wires"]),
-          f"shmem: (3) hello-refused {refused}, downgrades {info['downgrades']}, dials "
-          f"{len(info['proxied_wires'])}: not one a dial through the proxy")
-    check(others and set(others) == {"shm"}, f"shmem: (3) an unproxied connection left shm: {others}")
-    check(set(counts) <= {"fallback hello-refused", "borrows", "borrow_spills"},
-          f"shmem: (3) fallbacks besides the proxy's: {counts}")
-    bitwise("(3) the proxied shm table and the TCP table", px.values, tcp)
-    # (4) the hot cache over shm
-    items = np.concatenate([b["item"] for b in stream]).astype(np.int64)
-    hot = np.lexsort((np.arange(NUM_ITEMS), -np.bincount(items, minlength=NUM_ITEMS)))[:SHMEM_HOT]
-    ssp = dict(staleness_bound=SHMEM_BOUND, hot_cache=True, **agg)
-    what = f"socket range SSP {SHMEM_BOUND} {CLUSTER_SHARDS}x{CLUSTER_WORKERS} push_aggregate hot_cache"
-    ht, _, hinfo_t = run(f"(4) {what}, auto", "auto", hot_set=hot, **ssp)
-    hs, _, hinfo_s = run(f"(4) {what}, shm", "shm", hot_set=hot, **ssp)
-    print(f"shmem: (4) worker cache hits TCP {hinfo_t['hits']} shm {hinfo_s['hits']}, fills TCP {hinfo_t['fills']} "
-          f"shm {hinfo_s['fills']}; {card}")
-    bitwise("(4) the hot-cache shm table and its TCP table", hs.values, ht.values)
-    check(hinfo_s["hits"] == hinfo_t["hits"] and hinfo_s["fills"] == hinfo_t["fills"],
-          f"shmem: (4) the caches' hits or fills differ: {hinfo_t} against {hinfo_s}")
     read_counts("shmem", {})
     deadline = time.monotonic() + 10
     segs, names = _shm_leftovers(before)
@@ -4772,13 +4791,14 @@ def _ddp_batches(n, vocab, mask_at=None):
     return batches
 
 
-def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None):
+def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None, loss_kw=None):
     """One regime's ``transform_dense`` of Transformer-base from seed 0
     (``regime`` "unsharded": no mesh): the losses, the whole final model,
     every kernel's launches, the collectives' counts, each step's ms, and
     the bytes of the parameters and of the optimizer state a rank holds at
     the end.  ``plant(model)``, if given, runs on the model the loss
-    sees at each step (a planted fault)."""
+    sees at each step (a planted fault); ``loss_kw`` goes to ``lm_loss``
+    (a pipeline model's ``num_microbatches``)."""
     from flink_parameter_server_tpu_torch import (
         DenseParameterServer, fsdp_place, init_params, lm_loss, transform_dense,
     )
@@ -4807,7 +4827,7 @@ def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None):
     def loss(mm, b):
         if plant is not None:
             plant(mm)
-        return lm_loss(mm, b, cfg, mesh=m)
+        return lm_loss(mm, b, cfg, mesh=m, **(loss_kw or {}))
 
     zero_counts()
     coll.reset_collective_counts()
@@ -4819,19 +4839,35 @@ def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None):
     launches = {name: fn.launches for name, fn in _counters().items()}
     calls = coll.collective_counts()
     final = res.server_outputs[0]
+    held = [(n, list(p.shape)) for n, p in list(final.named_parameters())[2:4]]  # layer 0's attn_norm and wqkv
     opt_state = [t for st in built[-1].state.values() for t in st.values() if isinstance(t, torch.Tensor)]
     out = dict(losses=[float(x) for x in res.worker_outputs], launches=launches, calls=calls,
                steps_ms=[round((b - a) * 1e3, 3) for a, b in zip([t0] + stamps[:-1], stamps)],
                params_bytes=sum(p.numel() * p.element_size() for p in final.parameters()),
-               opt_bytes=sum(t.numel() * t.element_size() for t in opt_state))
+               opt_bytes=sum(t.numel() * t.element_size() for t in opt_state), held=held)
     out["final"] = gather_params(final)
     out["run_s"] = round(time.perf_counter() - t_run, 2)
     return out
 
 
+def _lm_leaves(model) -> list:
+    """A whole model's tensors in the mesh-less model's parameter order: a
+    pipeline model's stacked ``(S, per, ...)`` stages give layer ``s·per +
+    j`` as ``[s, j]``."""
+    if not hasattr(model, "stages"):
+        return [p.detach() for p in model.parameters()]
+    from flink_parameter_server_tpu_torch.models.transformer import LAYER_KEYS
+
+    S, per = model.stages["wqkv"].shape[:2]
+    return [model.embed.detach(), model.final_norm.detach()] + [
+        model.stages[k].detach()[i // per, i % per] for i in range(S * per) for k in LAYER_KEYS]
+
+
 def _ddp_same(torch, a, b) -> bool:
-    """Two whole models bitwise equal."""
-    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    """Two whole models bitwise equal (a pipeline model's stages taken as
+    its layers)."""
+    x, y = _lm_leaves(a), _lm_leaves(b)
+    return len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
 
 
 def _ddp_rank_nccl(torch, outdir):
@@ -4872,7 +4908,7 @@ def _ddp_rank_nccl(torch, outdir):
 def _held(torch, run, ref_params, init):
     """A run's whole final model against a reference's parameters: (within
     DDP_F32_BAR, max |error|, elements past the bar, max |final - init|)."""
-    got = [p.detach() for p in run["final"].parameters()]
+    got = _lm_leaves(run["final"])
     past = sum(int((~torch.isclose(a, b, **DDP_F32_BAR)).sum()) for a, b in zip(got, ref_params))
     return (past == 0, max(float((a - b).abs().max()) for a, b in zip(got, ref_params)), past,
             max(float((a - b.detach()).abs().max()) for a, b in zip(got, init)))
@@ -4949,6 +4985,10 @@ def _ddp_rank_gloo(torch, outdir):
     t = time.perf_counter()
     out["ep"] = _ep_rank_gloo(torch, outdir)
     out["ep"]["seconds"] = round(time.perf_counter() - t, 2)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["mp"] = _mp_rank_gloo(torch, outdir)
+    out["mp"]["seconds"] = round(time.perf_counter() - t, 2)
     dist.barrier()
     return out
 
@@ -5201,6 +5241,181 @@ def _ep_rank_gloo(torch, outdir):
     out["a2a_ms"] = _ddp_time_ms(torch, lambda: coll.all_to_all(trip, mesh, "ep"))
     out["a2a_bytes"] = trip.numel() * trip.element_size()
     return out
+
+
+MP_STEPS = DDP_STEPS  # (a)'s steps on each one-rank model-parallel mesh, bfloat16
+MP_WORLD = DDP_WORLD  # (b): the gloo children, again, as tp 4, sp 4 and pp 2 x sp 2 meshes
+MP_MICRO = 2  # (b)'s pp x sp microbatches: a rank's 16 rows in 2 microbatches of 8
+# (b)'s arms: name, the mesh's shape and axes, the config's fields, lm_loss's keywords.  Each runs (a)'s
+# float32 model (the dense_dp phase's dense_f32 run: flash "on", sgd(0.1, momentum 0.9), 2 steps, the second
+# row-masked) and is held to DDP_F32_BAR against it; the ring and the pipeline's stages take the plain
+# attention (the ring is plain products; the stages pin "off", so pp x sp runs "auto")
+MP_ARMS = (
+    ("tp", (1, MP_WORLD), ("dp", "tp"), dict(tp_axis="tp"), {}),
+    ("sp", (1, MP_WORLD), ("dp", "sp"), dict(sp_axis="sp", use_ring_attention=True), {}),
+    ("pp_sp", (1, 2, 2), ("dp", "pp", "sp"),
+     dict(pp_axis="pp", sp_axis="sp", use_ring_attention=True, flash_attention="auto"),
+     dict(num_microbatches=MP_MICRO)),
+)
+
+
+def _mp_rank_nccl(torch, outdir):
+    """(a) of the model-parallel part, in the one-rank NCCL group of (a):
+    Transformer-base (bfloat16) for MP_STEPS steps through
+    ``transform_dense(batch_sharding=mesh)`` on a one-rank ``("dp", "sp",
+    "tp")`` mesh (flash "on") and a one-rank ``("dp", "pp")`` mesh
+    (``forward_pipelined``, 1 microbatch; the stages' plain attention),
+    each against the mesh-less run of the same attention."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from flink_parameter_server_tpu_torch import TransformerConfig, adamw
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_nd_mesh, mesh_device
+
+    meshes = {"sp_tp": make_nd_mesh((1, 1, 1), ("dp", "sp", "tp"), device_type="cuda"),
+              "pp": make_nd_mesh((1, 1), ("dp", "pp"), device_type="cuda")}
+    dev = mesh_device(meshes["pp"])
+    opt = lambda p: adamw(DDP_LR)(p)  # noqa: E731
+    on = TransformerConfig(flash_attention="on")  # Transformer-base, bfloat16, as phase_lm runs it
+    off = dataclasses.replace(on, flash_attention="off")
+    batches = _ddp_batches(MP_STEPS, on.vocab_size)
+    out = {"backend": dist.get_backend()}
+    arms = (("sp_tp", on, dataclasses.replace(on, sp_axis="sp", tp_axis="tp"), {}),
+            ("pp", off, dataclasses.replace(off, pp_axis="pp"), dict(num_microbatches=1)))
+    for name, base_cfg, cfg, kw in arms:
+        base = _ddp_run(torch, base_cfg, "unsharded", batches, None, opt, dev)
+        run = _ddp_run(torch, cfg, "replicated", batches, meshes[name], opt, dev, loss_kw=kw)
+        out[name] = dict(bitwise=run["losses"] == base["losses"] and _ddp_same(torch, run["final"], base["final"]),
+                         base_ms=base["steps_ms"], **{k: run[k] for k in ("losses", "launches", "calls", "steps_ms",
+                                                                          "run_s")})
+        del base, run
+    return out
+
+
+def _mp_rank_gloo(torch, outdir):
+    """(b) of the model-parallel part, in each gloo child: the MP_ARMS on
+    meshes of the 4 children, Transformer-base in float32 for
+    DDP_F32_STEPS steps, each against (a)'s float32 mesh-less run
+    (``dense_f32.pt``) with how far the parameters moved, and each with a
+    planted fault that must fall outside the bar: tp's ``copy_to_tp`` made
+    the identity (the replicated leaves see only the rank's heads), sp's
+    gradient sum over sp dropped, pp x sp's 1/pp weight on the logits
+    dropped (the replicated leaves' gradients counted twice).  On every
+    rank, K3a/b/c against their plain versions at a tp rank's (16, 512, 2,
+    64) float32 shape (:func:`_k3_against_plain`: a mismatch fails the
+    rank).  The ms of a tp all-reduce at the block's (B, T, d)
+    output and of a ppermute at the ring's K/V block and at the pipeline's
+    hand-off."""
+    import dataclasses
+
+    from flink_parameter_server_tpu_torch import TransformerConfig, init_params, sgd
+    from flink_parameter_server_tpu_torch.core import dense
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+    from flink_parameter_server_tpu_torch.parallel import pipeline
+    from flink_parameter_server_tpu_torch.parallel.mesh import make_nd_mesh, mesh_device
+
+    base = TransformerConfig(flash_attention="on", dtype=torch.float32)
+    ref = torch.load(os.path.join(outdir, "dense_f32.pt"))
+    meshes = {name: make_nd_mesh(shape, axes, device_type="cuda") for name, shape, axes, _, _ in MP_ARMS}
+    dev = mesh_device(meshes["tp"])
+    ref_params = [p.to(dev) for p in ref["params"]]
+    batches = _ddp_batches(DDP_F32_STEPS, base.vocab_size, mask_at=1)
+    init = list(init_params(base, torch.Generator(device=dev).manual_seed(0), device=dev).parameters())
+    opt = lambda p: sgd(DDP_F32_LR, momentum=0.9)(p)  # noqa: E731
+    real = {"copy_to_tp": coll.copy_to_tp, "sum": dense._sum_over_model_axes, "scale": pipeline.scale_grad}
+    plants = {"tp": lambda: setattr(coll, "copy_to_tp", lambda x, mesh, axis: x),
+              "sp": lambda: setattr(dense, "_sum_over_model_axes", lambda named, layout: None),
+              "pp_sp": lambda: setattr(pipeline, "scale_grad", lambda x, factor: x)}
+
+    def restore():
+        coll.copy_to_tp, dense._sum_over_model_axes, pipeline.scale_grad = (
+            real["copy_to_tp"], real["sum"], real["scale"])
+
+    out = {}
+    for name, shape, axes, fields, kw in MP_ARMS:
+        cfg = dataclasses.replace(base, **fields)
+        mesh = meshes[name]
+        run = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev, loss_kw=kw)
+        ok, err, past, moved = _held(torch, run, ref_params, init)
+        arm = dict(ok=ok and bool(np.allclose(run["losses"], ref["losses"], rtol=1e-4)), err=err, past=past,
+                   moved=moved, losses=run["losses"], ref_losses=ref["losses"],
+                   **{k: run[k] for k in ("launches", "calls", "steps_ms", "run_s", "held")})
+        del run
+        plants[name]()
+        try:
+            bad = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev, loss_kw=kw)
+        finally:
+            restore()
+        ok, err, past, _ = _held(torch, bad, ref_params, init)
+        arm["planted"] = dict(caught=not ok, err=err, past=past, elements=sum(p.numel() for p in init))
+        del bad
+        out[name] = arm
+    gen = torch.Generator(device=dev).manual_seed(100 + torch.distributed.get_rank())
+    out["tp"]["k3"] = _k3_against_plain(torch, dev, gen, LM_B, LM_T, base.n_heads // MP_WORLD, base.head_dim,
+                                        torch.float32)
+    x = torch.ones(LM_B, LM_T, base.d_model, device=dev)
+    kv = torch.ones(2, LM_B, base.n_heads, LM_T // MP_WORLD, base.head_dim, device=dev)
+    hand = torch.ones(LM_B // MP_MICRO, LM_T // 2, base.d_model, device=dev)
+    out["collective_ms"] = {
+        "tp_all_reduce": _ddp_time_ms(torch, lambda: coll.all_reduce_sum(x, meshes["tp"], "tp")),
+        "tp_bytes": x.numel() * 4,
+        "sp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(kv, meshes["sp"], "sp")),
+        "sp_bytes": kv.numel() * 4,
+        "pp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(hand, meshes["pp_sp"], "pp")),
+        "pp_bytes": hand.numel() * 4,
+    }
+    del ref_params, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_report(a, a_s, b, layers, flash, card):
+    """Print and check the model-parallel part of phase_parallel_dense;
+    adds the flash launches of (a) and of (b)'s tp ranks to ``flash``."""
+    print(f"dense_dp: mp (a) one-rank meshes, backend {a['backend']!r}: Transformer-base bf16, {MP_STEPS} steps of "
+          f"{LM_B}x{LM_T}; {card}")
+    check(a["backend"] == "nccl", f"dense_dp: mp (a) ran on {a['backend']}, not NCCL")
+    want = {"sp_tp": {name: layers * MP_STEPS for name in FLASH}, "pp": dict.fromkeys(FLASH, 0)}
+    for name, what in (("sp_tp", "('dp', 'sp', 'tp') flash on"), ("pp", "('dp', 'pp') forward_pipelined, "
+                                                                        "1 microbatch, flash off")):
+        r = a[name]
+        got = {k: r["launches"][k] for k in FLASH}
+        print(f"dense_dp: mp (a) {what}: {'bitwise' if r['bitwise'] else 'NOT bitwise'} the mesh-less run; losses "
+              f"{[round(x, 5) for x in r['losses']]}; step ms {r['steps_ms']} (mesh-less {r['base_ms']}); "
+              f"collectives {r['calls']}; flash launches {got}; the run {r['run_s']} s")
+        check(r["bitwise"], f"dense_dp: mp (a) {name} is not bitwise the mesh-less transform_dense")
+        check(got == want[name] and r["launches"]["scatter_add"] == 0,
+              f"dense_dp: mp (a) {name} launched {r['launches']}, expected {want[name]}")
+        for k in FLASH:
+            flash[k] += got[k]
+    for r, res in enumerate(b):
+        mp = res["mp"]
+        for name, shape, axes, _, _ in MP_ARMS:
+            arm, pl = mp[name], mp[name]["planted"]
+            got = {k: arm["launches"][k] for k in FLASH}
+            print(f"dense_dp: mp (b) rank {r} {name} on {dict(zip(axes, shape))}: float32 {DDP_F32_STEPS} steps "
+                  f"against (a)'s float32 mesh-less run max_abs_err={arm['err']:.3e} (rtol=1e-5 atol=1e-6; the "
+                  f"parameters moved up to {arm['moved']:.3e}) losses {[round(x, 6) for x in arm['losses']]} against "
+                  f"{[round(x, 6) for x in arm['ref_losses']]} {'ok' if arm['ok'] else 'MISMATCH'}; holds "
+                  f"{arm['held']}; step ms {arm['steps_ms']}; collectives {arm['calls']}; flash "
+                  f"launches {got}; the planted fault max_abs_err={pl['err']:.3e}, {pl['past']} of "
+                  f"{pl['elements']} elements past the bar: {'caught' if pl['caught'] else 'MISSED'}; {card}")
+            check(arm["ok"], f"dense_dp: mp (b) rank {r} {name} is off (a)'s float32 run")
+            check(pl["caught"], f"dense_dp: mp (b) rank {r} {name}: the bar does not see the planted fault")
+            want = {k: layers * DDP_F32_STEPS if name == "tp" else 0 for k in FLASH}
+            check(got == want and arm["launches"]["scatter_add"] == 0,
+                  f"dense_dp: mp (b) rank {r} {name} launched {arm['launches']}, expected {want}")
+            for k in FLASH:
+                flash[k] += got[k]
+        k3, c = mp["tp"]["k3"], mp["collective_ms"]
+        print(f"dense_dp: mp (b) rank {r} K3a/b/c against their plain versions at a tp rank's (B {LM_B}, T {LM_T}, "
+              f"H {LM_H // MP_WORLD}, D {LM_D}) float32: "
+              f"max |error| { {k: f'{v:.3e}' for k, v in k3.items()} } (rtol=1e-5, atol=1e-5 x the largest: a "
+              f"mismatch fails the rank); gloo over CUDA tensors: tp all_reduce {c['tp_all_reduce']:.2f} ms "
+              f"at {c['tp_bytes']} B, sp ppermute {c['sp_ppermute']:.2f} ms at {c['sp_bytes']} B (the ring's K/V "
+              f"block), pp ppermute {c['pp_ppermute']:.2f} ms at {c['pp_bytes']} B (the pipeline's hand-off) "
+              f"(medians of {DDP_REPS}); the part {mp['seconds']} s; {card}")
 
 
 # part: (the rank's function, the kernels it launches); every part is a gloo group on cuda:0
@@ -5488,13 +5703,28 @@ def phase_parallel_dense(torch, dev, card):
         planted fault) past it; ``moe_apply`` on a (2, 2) mesh
         against ``moe_reference`` on each dp half, forward and gradients;
         the all-to-all's ms and bytes.
+    mp  Tensor, sequence and pipeline parallelism, in the same group and
+        the same children: (a) Transformer-base (bfloat16) for 3 steps on
+        a one-rank ``("dp", "sp", "tp")`` NCCL mesh (flash "on", K3a/b/c
+        once a layer a step) and a one-rank ``("dp", "pp")`` mesh
+        (``forward_pipelined``, 1 microbatch), each bitwise the mesh-less
+        run of the same attention.  (b) The same model in float32 for 2
+        steps at tp 4 (flash "on": K3a/b/c once a layer a step on every
+        rank's 2 heads), sp 4 (the ring, 128 positions a rank) and pp 2 x
+        sp 2 (``forward_pipelined``, 2 microbatches), each within rtol
+        1e-5 / atol 1e-6 (losses rtol 1e-4) of (a)'s float32 dp run's
+        mesh-less reference, each with a planted fault past that bar;
+        K3a/b/c against their plain versions at a tp rank's shape; the ms
+        of a tp all-reduce and of a ppermute at the ring's and the
+        pipeline's payloads (:func:`_mp_rank_gloo`).
     Returns the parameter server's K1 and K2 launches and the ranks' flash
     launches.
 
-    The two share their processes: the parameter server's (a), then the
-    dense LM's (a) and ep (a), run here over one one-rank NCCL group, and one
-    spawn of 4 gloo children on ``cuda:0`` runs the parameter server's (b)
-    and (c), then the dense LM's (b) and ep (b) (:func:`_gloo_rank`)."""
+    The parts share their processes: the parameter server's (a), then the
+    dense LM's (a), ep (a) and mp (a), run here over one one-rank NCCL
+    group, and one spawn of 4 gloo children on ``cuda:0`` runs the
+    parameter server's (b) and (c), then the dense LM's (b), ep (b) and mp
+    (b) (:func:`_gloo_rank`)."""
     import shutil
     import tempfile
 
@@ -5510,7 +5740,9 @@ def phase_parallel_dense(torch, dev, card):
             a = _ddp_rank_nccl(torch, tmp)
             a_s = time.perf_counter() - t - par_a_s
             ep_a = _ep_rank_nccl(torch, tmp)
-        ep_a_s = time.perf_counter() - t - par_a_s - a_s
+            ep_a_s = time.perf_counter() - t - par_a_s - a_s
+            mp_a = _mp_rank_nccl(torch, tmp)
+        mp_a_s = time.perf_counter() - t - par_a_s - a_s - ep_a_s
         t = time.perf_counter()
         ranks = _spawn_ranks(DDP_WORLD, tmp)
         b_s = time.perf_counter() - t
@@ -5580,15 +5812,18 @@ def phase_parallel_dense(torch, dev, card):
         check(m["ok"], f"dense_dp: (b) rank {rank}: the masked loss is off the unsharded one")
         check(len(set(m["rows"])) > 1, "dense_dp: (b) the masked batch gives every rank the same count")
     _ep_report(ep_a, ep_a_s, [res["ep"] for res in b], layers, flash, card)
+    _mp_report(mp_a, mp_a_s, b, layers, flash, card)
     _ddp_store(torch, dev, card)
-    secs = [dict(res["seconds"], parallel=res["par"]["work_s"], ep=res["dense"]["ep"]["seconds"]) for res in ranks]
+    secs = [dict(res["seconds"], parallel=res["par"]["work_s"], ep=res["dense"]["ep"]["seconds"],
+                 mp=res["dense"]["mp"]["seconds"]) for res in ranks]
     print(f"dense_dp: the gloo children's seconds (import torch, bring up the group, the work, of which the "
-          f"parameter server's and the ep part's): {secs}")
+          f"parameter server's, the ep part's and the mp part's): {secs}")
     print(f"dense_dp: flash launches {flash} ((a) 3 regimes x {DDP_STEPS} steps x {layers} layers + (b) {DDP_WORLD} "
           f"ranks x 3 regimes x {DDP_F32_STEPS} steps x {layers} layers + ep (a) {EP_STEPS} steps x {layers} layers "
-          f"+ ep (b) {EP_WORLD} ranks x ({EP_F32_STEPS} + {EP_DP_STEPS}) steps x {layers} layers); "
-          f"parallel (a) {par_a_s:.1f} s, (a) {a_s:.1f} s, ep (a) {ep_a_s:.1f} s, the children {b_s:.1f} s; phase took "
-          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+          f"+ ep (b) {EP_WORLD} ranks x ({EP_F32_STEPS} + {EP_DP_STEPS}) steps x {layers} layers + mp (a) "
+          f"{MP_STEPS} steps x {layers} layers + mp (b) {MP_WORLD} tp ranks x {DDP_F32_STEPS} steps x {layers} "
+          f"layers); parallel (a) {par_a_s:.1f} s, (a) {a_s:.1f} s, ep (a) {ep_a_s:.1f} s, mp (a) {mp_a_s:.1f} s, "
+          f"the children {b_s:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s; {card}")
     return parallel, flash
 
 
@@ -5875,38 +6110,46 @@ def _flash_checks(torch, dev, gen):
     output, scaled_dot_product_attention's own error against the same
     plain version is printed: the bar is no looser than the library's
     error."""
-    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
-
     errs = {}
     shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (LM_B // DDP_WORLD, LM_T, LM_H, LM_D, torch.float32),
               (2, 1024, 8, 128, torch.float32),
               (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
                   (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32))
     for B, T, H, D, dtype in shapes:
-        q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
-        o, lse = fa.flash_fwd(q, k, v)
-        dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_fwd_plain(q, k, v)
-        dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o, do, lse)
-        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
-        tol = dict(rtol=2**-7, atol=2**-8) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
-        f32 = dict(rtol=1e-5, atol=1e-5)
-        label = f"(B {B}, T {T}, H {H}, D {D}) {str(dtype).replace('torch.', '')}"
-        found = {
-            "flash_fwd": max(_compare(torch, f"flash_fwd O {label}", o, o_p, **tol),
-                             _compare(torch, f"flash_fwd L {label}", lse, lse_p, **f32)),
-            "flash_bwd_dq": max(_compare(torch, f"flash_bwd_dq dQ {label}", dq, dq_p, **tol),
-                                _compare(torch, f"flash_bwd_dq D {label}", delta, delta_p, **f32)),
-            "flash_bwd_dkv": max(_compare(torch, f"flash_bwd_dkv dK {label}", dk, dk_p, **tol),
-                                 _compare(torch, f"flash_bwd_dkv dV {label}", dv, dv_p, **tol)),
-        }
-        if dtype == torch.bfloat16:
-            _sdpa_yardstick(torch, label, q, k, v, do, {"O": o_p, "dQ": dq_p, "dK": dk_p, "dV": dv_p})
+        found = _k3_against_plain(torch, dev, gen, B, T, H, D, dtype)
         if not errs:  # the LM's shape: the error the kernels line reports
             errs = found
     return errs
+
+
+def _k3_against_plain(torch, dev, gen, B, T, H, D, dtype):
+    """K3a/b/c and their plain versions on identical inputs of one shape at
+    _flash_checks' bars: each kernel's largest error (a mismatch raises);
+    for bfloat16, scaled_dot_product_attention's error beside them."""
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
+    o, lse = fa.flash_fwd(q, k, v)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o, do, lse)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    tol = dict(rtol=2**-7, atol=2**-8) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    f32 = dict(rtol=1e-5, atol=1e-5)
+    label = f"(B {B}, T {T}, H {H}, D {D}) {str(dtype).replace('torch.', '')}"
+    found = {
+        "flash_fwd": max(_compare(torch, f"flash_fwd O {label}", o, o_p, **tol),
+                         _compare(torch, f"flash_fwd L {label}", lse, lse_p, **f32)),
+        "flash_bwd_dq": max(_compare(torch, f"flash_bwd_dq dQ {label}", dq, dq_p, **tol),
+                            _compare(torch, f"flash_bwd_dq D {label}", delta, delta_p, **f32)),
+        "flash_bwd_dkv": max(_compare(torch, f"flash_bwd_dkv dK {label}", dk, dk_p, **tol),
+                             _compare(torch, f"flash_bwd_dkv dV {label}", dv, dv_p, **tol)),
+    }
+    if dtype == torch.bfloat16:
+        _sdpa_yardstick(torch, label, q, k, v, do, {"O": o_p, "dQ": dq_p, "dK": dk_p, "dV": dv_p})
+    return found
 
 
 def _sdpa_yardstick(torch, label, q, k, v, do, plain):
@@ -6524,7 +6767,48 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
           f"against scaled_dot_product_attention's whole backward (dQ, dK, dV) {sdpa_bwd:.4f} ms "
           f"({(dq_ms + dkv_ms) / sdpa_bwd:.2f}x)")
     _split_timing(torch, dev, gen, flush)
+    _f32_rank_timing(torch, dev, gen, flush)
     return rows
+
+
+def _f32_rank_timing(torch, dev, gen, flush):
+    """The float32 SIMT instances at head_dim 64, at the shapes the gloo
+    ranks of phase_parallel_dense give them (a dp-4 rank's (4, 512, 8, 64),
+    a tp-4 rank's (16, 512, 2, 64)): each kernel's median time beside its
+    bound (the bytes, or the kept tiles' products over the float32 peak
+    outside the tensor cores) and scaled_dot_product_attention's float32
+    forward or whole backward, in PERF.md's table's terms."""
+    import torch.nn.functional as F
+
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    for B, H, who in ((LM_B // DDP_WORLD, LM_H, "dp-4 rank"), (LM_B, LM_H // MP_WORLD, "tp-4 rank")):
+        T, D = LM_T, LM_D
+        q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, torch.float32)
+        o, lse = fa.flash_fwd(q, k, v)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+        elems, stat = B * T * H * D * 4, B * H * T * 4
+        n = T // BOUND_TILE
+        tile_products = n * (n + 1) // 2 * B * H * 2 * BOUND_TILE * BOUND_TILE * D
+        heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
+        sdpa = {"fwd": gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+            *(t.detach() for t in heads), is_causal=True, scale=1.0), flush),
+            "bwd": gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do.transpose(1, 2), retain_graph=True),
+                          flush)}
+        cases = (("flash_fwd", lambda: fa.flash_fwd(q, k, v), 4 * elems + stat, 2 * tile_products, "fwd"),
+                 ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse), 6 * elems + 2 * stat,
+                  3 * tile_products, "bwd"),
+                 ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), 6 * elems + 2 * stat,
+                  4 * tile_products, "bwd"))
+        for name, fn, nbytes, flops, lib in cases:
+            k_ms = gpu_ms(torch, fn, flush)
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
+            bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+            print(f"timing: {name} (B {B}, T {T}, H {H}, D {D}) f32, {SIMT}, a {who}'s share of the LM: kernel "
+                  f"{k_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes} B, {flops} flops in kept tiles), "
+                  f"scaled_dot_product_attention float32 {'forward' if lib == 'fwd' else 'whole backward'} "
+                  f"{sdpa[lib]:.4f} ms")
 
 
 def _split_timing(torch, dev, gen, flush):

@@ -30,7 +30,8 @@ serves ``/metrics`` and writes the run report.  The LM takes switch-MoE layers w
 card.  The parameter server's paths (the store, the batched loop, MF with
 its fused and locality steps, PA, the sketches, top-K serving,
 checkpoints) also run on a ``dp × ps`` mesh of ranks, one a device
-(``parallel/``, ``make_mesh``).  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+(``parallel/``, ``make_mesh``), and the LM on data, expert, tensor,
+sequence (ring attention) and pipeline parallel meshes (``make_nd_mesh``).  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
 
 Quickstart::
@@ -142,12 +143,13 @@ from .models.transformer import (
     TransformerConfig,
     TransformerLM,
     forward,
+    forward_pipelined,
     init_params,
     lm_loss,
     next_token_xent,
 )
 from .ops.flash_attention import flash_mha
-from .parallel.mesh import DP_AXIS, PS_AXIS, make_mesh, single_device_mesh
+from .parallel.mesh import DP_AXIS, PS_AXIS, make_mesh, make_nd_mesh, single_device_mesh
 from .ops.mf_kernel import make_fused_mf_train_step
 from .serving import (
     QueryEngine,
@@ -201,6 +203,7 @@ __all__ = [
     "TransformerConfig",
     "TransformerLM",
     "forward",
+    "forward_pipelined",
     "init_params",
     "lm_loss",
     "next_token_xent",
@@ -232,6 +235,7 @@ __all__ = [
     "ps_online_mf",
     "make_fused_mf_train_step",
     "make_mesh",
+    "make_nd_mesh",
     "single_device_mesh",
     "DP_AXIS",
     "PS_AXIS",

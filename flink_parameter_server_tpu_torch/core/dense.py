@@ -50,16 +50,21 @@ each collective out (``parallel/collectives.py``, counted):
   all-gathers the slices before the forward, reduce-scatters the
   gradients and updates the slices.
 
-**Expert parallelism** (the ``("dp", "ep")`` mesh, ``models/moe.py``):
-the step cuts the batch over ``dp`` only and sums every gradient over
-``dp`` only.  The non-expert leaves and the gate are the same on every
-rank of a dp row; each rank's experts are its own, and ``moe_apply``
-already makes their gradients the dp row's (not ``ep`` times it).  A
-model records such a layout with :func:`set_model_layout` (the LM does on
-an ep mesh); ZeRO-1's and FSDP's specs merge ``dp`` into it, as the
-reference's ``_merged_dp_specs`` merges into each leaf's sharding (an
-expert leaf ``("ep", None, None)`` becomes ``("ep", "dp", None)``), and
-:func:`gather_params` gathers its leaves whole.
+**Model parallelism** (``models/transformer.py``, ``models/moe.py``): the
+step cuts the batch over ``dp`` only and sums every gradient over ``dp``.
+A model records its layout with :func:`set_model_layout` (the LM does on
+an ep, tp, sp or pp mesh): the leaves split over a model-parallel axis (an
+expert leaf ``("ep", None, None)``, Megatron's ``wqkv`` ``(None, "tp")``, a
+pipeline stage's ``("pp", None, ...)``), and the axes whose ranks hold
+different tokens or stages (``sp``, ``pp``): every leaf not split over
+such an axis has its gradient summed over it too.  A split leaf keeps its
+local gradient; a tp-replicated leaf needs no tp sum (Megatron's conjugate
+pair already makes its gradient whole on every tp rank), and an expert's
+gradient is already its dp row's (``moe_apply``).  ZeRO-1's and FSDP's
+specs merge ``dp`` into the layout, as the reference's
+``_merged_dp_specs`` merges into each leaf's sharding (``wqkv`` becomes
+``("dp", "tp")``, ``wo`` ``("tp", "dp")``), and :func:`gather_params`
+gathers the split leaves whole.
 
 A one-rank mesh gives the unsharded step's bits: every collective is then
 a copy.  In the port each of the three regimes is a choice of the step;
@@ -150,29 +155,40 @@ def _leaf_spec(shape: Sequence[int], dp: int, dp_axis: str, current: Spec = None
 
 
 class _ModelLayout:
-    """What :func:`set_model_layout` recorded: the mesh and the spec of
-    each leaf split over a model-parallel axis, by parameter name."""
+    """What :func:`set_model_layout` recorded: the mesh, the spec of each
+    leaf split over a model-parallel axis and the group count of a grouped
+    split, by parameter name, and the axes whose gradients are summed."""
 
-    def __init__(self, mesh, specs: Dict[str, Spec]):
-        self.mesh, self.specs = mesh, specs
+    def __init__(self, mesh, specs: Dict[str, Spec], sum_axes: Tuple[str, ...] = (),
+                 groups: Optional[Dict[str, int]] = None):
+        self.mesh, self.specs, self.sum_axes, self.groups = mesh, specs, tuple(sum_axes), dict(groups or {})
 
     def __deepcopy__(self, memo):  # a copied module keeps the one mesh
         return self
 
 
-def set_model_layout(params: nn.Module, mesh, specs: Dict[str, Spec]) -> nn.Module:
+def set_model_layout(params: nn.Module, mesh, specs: Dict[str, Spec], *, sum_axes: Sequence[str] = (),
+                     groups: Optional[Dict[str, int]] = None) -> nn.Module:
     """Record that this rank holds only its ``mesh`` slice of the named
     parameters, each along the axes its spec names (e.g. an expert leaf
     ``("ep", None, None)``: this rank's experts); returns ``params``.  The
     reference reads a leaf's layout from its sharding; a torch tensor has
     none, so the module carries it.  :func:`opt_state_zero1_specs` and
     :func:`fsdp_place` merge ``dp`` into it; :func:`gather_params` gathers
-    those leaves whole."""
+    those leaves whole.
+
+    ``sum_axes``: axes whose ranks compute different parts of the loss
+    (sp: other tokens; pp: other stages): the dense step sums the gradient
+    of every leaf not split over such an axis over it.  ``groups``: a leaf
+    whose split dim is ``g`` groups side by side, each split over the axis
+    alike (Megatron's ``wqkv``: a rank holds its columns of each of q, k
+    and v), by name; the gather interleaves the ranks' blocks group by
+    group."""
     names = {n for n, _ in params.named_parameters()}
-    unknown = sorted(set(specs) - names)
+    unknown = sorted((set(specs) | set(groups or {})) - names)
     if unknown:
         raise ValueError(f"set_model_layout: no parameters named {unknown}")
-    setattr(params, _LAYOUT, _ModelLayout(mesh, dict(specs)))
+    setattr(params, _LAYOUT, _ModelLayout(mesh, dict(specs), tuple(sum_axes), groups))
     return params
 
 
@@ -314,10 +330,13 @@ def _moved(shape: Sequence[int], axis: int) -> Tuple[int, ...]:
     return (shape[axis],) + shape[:axis] + shape[axis + 1:]
 
 
-def _gather_slices(leaves: List[Tuple[nn.Parameter, int]], mesh, dp_axis: str) -> None:
+def _gather_slices(leaves: List[Tuple[nn.Parameter, int]], mesh, dp_axis: str,
+                   groups: Optional[Dict[int, int]] = None) -> None:
     """Replace each parameter's slice (``p.data``, cut along ``axis``) by the
     whole tensor: one all-gather over ``dp_axis`` (dp, or a model-parallel
-    axis) per dtype of every slice, flat."""
+    axis) per dtype of every slice, flat.  ``groups`` (by ``id`` of the
+    parameter): its slice is g groups along ``axis``, and the whole tensor
+    is group after group, each the ranks' parts in axis order."""
     dp = axis_size(mesh, dp_axis)
     by_dtype: Dict[torch.dtype, List[Tuple[nn.Parameter, int]]] = {}
     for p, axis in leaves:
@@ -328,9 +347,10 @@ def _gather_slices(leaves: List[Tuple[nn.Parameter, int]], mesh, dp_axis: str) -
         off = 0
         for p, axis in group:
             n = p.numel()
-            full = _moved(p.shape, axis)
-            full = (full[0] * dp,) + full[1:]
-            p.data = whole[:, off:off + n].reshape(full).movedim(0, axis).contiguous()
+            moved = _moved(p.shape, axis)
+            g = (groups or {}).get(id(p), 1)
+            part = whole[:, off:off + n].reshape((dp, g, moved[0] // g) + moved[1:]).transpose(0, 1)
+            p.data = part.reshape((moved[0] * dp,) + moved[1:]).movedim(0, axis).contiguous()
             off += n
 
 
@@ -391,12 +411,30 @@ def gather_params(params: nn.Module) -> nn.Module:
     if mp is not None:
         axes = sorted({a for spec in mp.specs.values() for a in spec or () if isinstance(a, str)})
         named = list(out.named_parameters())
+        groups = {id(p): mp.groups[n] for n, p in named if n in mp.groups}
         with torch.no_grad():
             for axis in axes:
                 _gather_slices([(p, mp.specs[n].index(axis)) for n, p in named if axis in (mp.specs.get(n) or ())],
-                               mp.mesh, axis)
+                               mp.mesh, axis, groups)
         setattr(out, _LAYOUT, None)
     return out
+
+
+def _sum_over_model_axes(named: List[Tuple[str, nn.Parameter]], layout: Optional[_ModelLayout]) -> None:
+    """Sum the gradients over the layout's ``sum_axes``: over each, one flat
+    all-reduce of the gradients of every leaf not split over that axis (a
+    gradient of None counts as zeros)."""
+    if layout is None:
+        return
+    for axis in layout.sum_axes:
+        leaves = [p for n, p in named if axis not in (layout.specs.get(n) or ())]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        wide = torch.float64 if any(g.dtype == torch.float64 for g in grads) else torch.float32
+        red = _coll.all_reduce_sum(torch.cat([g.reshape(-1).to(wide) for g in grads]), layout.mesh, axis)
+        off = 0
+        for p, g in zip(leaves, grads):
+            p.grad = red[off:off + g.numel()].reshape(g.shape).to(p.dtype)
+            off += g.numel()
 
 
 # ------------------------------------------------------------------ the step
@@ -410,10 +448,13 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, dp_axis: str = DP_AXIS,
     mesh: the whole batch's loss, the same on every rank).
 
     ``mesh``: a ``DeviceMesh`` with a ``dp_axis`` axis (the ``("dp",)``
-    mesh, ``(dp, ps)`` or ``("dp", "ep")``); ``batch`` is then the global
-    microbatch and the step trains on this rank's dp rows (the module
-    docstring has the two loss routes); gradients are summed over dp only.  ``params`` placed by :func:`fsdp_place` take FSDP on the
-    placement's mesh, with or without ``mesh=``.
+    mesh, ``(dp, ps)``, or one with model-parallel axes: ep, tp, sp, pp);
+    ``batch`` is then the global microbatch and the step trains on this
+    rank's dp rows (the module docstring has the two loss routes);
+    gradients are summed over dp, and over the model's recorded
+    ``sum_axes`` (:func:`set_model_layout`).  ``params`` placed by
+    :func:`fsdp_place` take FSDP on the placement's mesh, with or without
+    ``mesh=``.
 
     ``shard_opt_state=True`` (requires ``mesh``): ZeRO-1 through
     :func:`shard_opt_state_constraint`.  On a multi-axis mesh also pass
@@ -471,6 +512,7 @@ def make_dense_train_step(loss_fn: LossFn, *, mesh=None, dp_axis: str = DP_AXIS,
         dp = axis_size(m, ax)
         (loss if summed else loss / dp).backward()
         with torch.no_grad():
+            _sum_over_model_axes(named, model_layout(params))
             total = _reduce_grads(plist, axes, m, ax, None if summed else loss)
         opt.step()
         if layout is None and shard_opt_state:

@@ -24,11 +24,13 @@ mesh=mesh)``, then every rank passes the whole physical table to
 
 The LM's parameter pytree crosses the same way, leaf for leaf
 (:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`),
-onto a dp mesh too: every rank passes the whole tree, and
+onto any mesh the LM takes too: every rank passes the whole tree and keeps
+its share (its experts, its tp columns and rows, its pp stage), and
 :func:`dense_server_from_numpy` builds the dense server on it, FSDP-placed
 when asked (ZeRO-1 needs no placement: the step cuts the optimizer state).
-:func:`transformer_params_to_numpy` of an FSDP-placed model all-gathers its
-slices first, so call it on every rank.
+:func:`transformer_params_to_numpy` of a model split over a mesh
+all-gathers it first (``wqkv`` back in the reference's ``[q | k | v]``
+order, the stages back into layers), so call it on every rank.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from .core.store import ShardedParamStore, StoreSpec
-from .models.transformer import MOE_KEYS, TransformerConfig, TransformerLM, record_layout
+from .models.transformer import LAYER_KEYS, MOE_KEYS, TransformerConfig, TransformerLM, build_lm
 from .parallel.mesh import axis_size
 from .utils.device import DeviceLike, mesh_resolve_device, resolve_device
 
@@ -115,9 +117,6 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-_LAYER_KEYS = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_up", "w_down")
-
-
 def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
                                   device: DeviceLike = None, mesh: Any = None) -> TransformerLM:
     """The LM from the reference's parameter pytree as numpy (``embed``,
@@ -128,8 +127,10 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
     norm gains stay float32.  With a ``mesh`` the model is on this rank's
     device, replicated over dp; on a mesh with ``cfg.ep_axis`` each rank
     keeps its experts' slice of every MoE layer's whole ``(E, ...)``
-    leaves (``models.moe.local_experts``) and the model records that
-    layout, as ``init_params(mesh=)`` does."""
+    leaves (``models.moe.local_experts``), on a tp mesh its heads' columns
+    of ``wqkv`` (of each of q, k and v), its rows of ``wo`` and its share
+    of the MLP, on a pp mesh its stage's layers stacked; the model records
+    that layout, as ``init_params(mesh=)`` does (``build_lm``)."""
     experts = slice(None)
     if mesh is not None:
         from .models.moe import local_experts
@@ -146,7 +147,7 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
 
     def block(layer):
-        keys = [k for k in _LAYER_KEYS if not ("moe" in layer and k in ("w_up", "w_down"))]
+        keys = [k for k in LAYER_KEYS if not ("moe" in layer and k in ("w_up", "w_down"))]
         out = {key: leaf(layer[key], torch.float32 if key.endswith("norm") else cfg.dtype) for key in keys}
         if "moe" in layer:
             out["moe"] = {key: leaf(np.asarray(layer["moe"][key])[slice(None) if key == "w_gate" else experts],
@@ -156,8 +157,7 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
     layers = [block(layer) for layer in tree["layers"]]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, cfg.n_layers={cfg.n_layers}")
-    model = TransformerLM(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32), layers)
-    return record_layout(model, mesh, cfg)
+    return build_lm(cfg, leaf(tree["embed"], cfg.dtype), leaf(tree["final_norm"], torch.float32), layers, mesh)
 
 
 def dense_server_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, optimizer, *, mesh: Any = None,
@@ -177,8 +177,10 @@ def dense_server_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, optimi
 
 def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
     """The reference's pytree layout as numpy (bfloat16 widened to float32);
-    an FSDP-placed model, or one whose experts are split over ``ep``, is
-    gathered whole first (collectives: call it on every rank)."""
+    an FSDP-placed model, or one split over a model-parallel axis (experts
+    over ``ep``, Megatron's columns and rows over ``tp``, stages over
+    ``pp``), is gathered whole first (collectives: call it on every rank),
+    and a pipeline model's stacked stages become its layers again."""
     from .core.dense import fsdp_layout, gather_params, model_layout
 
     if fsdp_layout(model) is not None or model_layout(model) is not None:
@@ -186,15 +188,21 @@ def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
 
     def block(layer):
         if hasattr(layer, "moe"):
-            out = {key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS if key not in ("w_up", "w_down")}
+            out = {key: to_numpy(getattr(layer, key)) for key in LAYER_KEYS if key not in ("w_up", "w_down")}
             out["moe"] = {key: to_numpy(layer.moe[key]) for key in MOE_KEYS}
             return out
-        return {key: to_numpy(getattr(layer, key)) for key in _LAYER_KEYS}
+        return {key: to_numpy(getattr(layer, key)) for key in LAYER_KEYS}
 
+    if hasattr(model, "stages"):  # (S, per, ...) whole: layer s·per + j is [s, j]
+        stacked = {k: to_numpy(v) for k, v in model.stages.items()}
+        S, per = stacked["wqkv"].shape[:2]
+        layers = [{k: v[s, j] for k, v in stacked.items()} for s in range(S) for j in range(per)]
+    else:
+        layers = [block(layer) for layer in model.layers]
     return {
         "embed": to_numpy(model.embed),
         "final_norm": to_numpy(model.final_norm),
-        "layers": [block(layer) for layer in model.layers],
+        "layers": layers,
     }
 
 

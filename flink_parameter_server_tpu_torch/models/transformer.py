@@ -21,44 +21,65 @@ With ``num_experts > 0`` every layer's MLP is a switch-MoE layer
 expert over the whole batch, as the reference's mesh-less path runs it).
 
 **On a mesh** (``mesh=``: a ``DeviceMesh``, one rank a device) each rank
-runs the model on ITS rows of the global batch: the ``tokens`` (and a
+runs the model on ITS share of the global batch: the ``tokens`` (and a
 batch's ``mask``) passed with ``mesh=`` are this rank's ``cfg.dp_axis``
-rows, as the dense step cuts them (``parallel.collectives.dp_rows``), and
-:func:`forward` returns this rank's logits.  Two layouts
-(:func:`check_lm_mesh`):
+rows at full length, as the dense step cuts them
+(``parallel.collectives.dp_rows``), and :func:`forward` returns this
+rank's logits.  The layouts (:func:`check_lm_mesh`), each named by the
+config's axis fields:
 
-* **data parallel**: ``cfg.dp_axis`` is the only axis larger than 1.
-  Attention never mixes batch rows, so the flash kernels run on the rank's
-  rows through ``flash_mha`` (gated by ``eligible_dp``), with no
-  collective; a reader of the global logits all-gathers them
+* **data parallel** (``cfg.dp_axis``): attention never mixes batch rows,
+  so the flash kernels run on the rank's rows (gated by ``eligible_dp``),
+  with no collective; a reader of the global logits all-gathers them
   (``parallel.collectives.all_gather_cat``).
-* **expert parallel**: the mesh has the ``cfg.ep_axis`` axis (the
-  reference's ``("dp", "ep")`` mesh) and no axis but it and ``dp_axis``
-  is larger than 1.  The ep ranks of a dp row hold the same rows and the
-  same non-expert weights; each holds ``E/ep`` experts of every MoE layer.
-  Attention runs the flash kernels on the rank's rows as on the dp mesh
-  (``eligible_dp`` with ``cfg.ep_axis``).  The reference's flash gate
-  asks for a dp-only mesh and takes its plain attention here; the rows,
-  and so the math, are the same.
+* **expert parallel** (``cfg.ep_axis``, the reference's ``("dp", "ep")``
+  mesh): the ep ranks of a dp row hold the same rows and the same
+  non-expert weights; each holds ``E/ep`` experts of every MoE layer.
+* **tensor parallel** (``cfg.tp_axis``, Megatron's layout, the reference's
+  ``param_shardings``): ``wqkv`` and ``w_up`` column-parallel, ``wo`` and
+  ``w_down`` row-parallel, the rest replicated.  A rank holds whole heads,
+  ``H/tp`` of them: its columns of each of q, k and v (so its ``wqkv`` is
+  ``(d, 3d/tp)``, ``[q | k | v]`` of its heads; the reference's
+  ``P(None, "tp")`` names the layout, GSPMD cuts it), the matching rows of
+  ``wo``, and ``d_ff/tp`` of the MLP.  The block is ``copy_to_tp`` →
+  local ``qkv`` → RoPE → attention on the rank's heads → local ``wo`` →
+  ``reduce_from_tp``, the MLP the same way.  Attention never mixes heads,
+  so the flash kernels run on the rank's ``(B/dp, T, H/tp, D)`` tensors
+  (``eligible_dp`` with ``tp_axis``).  Heads and ``d_ff`` must divide by
+  tp (GSPMD would take any split).
+* **sequence parallel** (``cfg.sp_axis`` with ``use_ring_attention``): rank
+  ``i`` of sp keeps positions ``[i·T/sp, (i+1)·T/sp)`` of its rows, RoPE
+  takes global positions, attention is ``ring_attention_inner``, and the
+  logits are the rank's positions (a reader all-gathers them over sp).  It
+  composes with tp (each rank runs the ring on its heads).
+* **pipeline parallel** (``cfg.pp_axis``): the model built for the mesh
+  holds its stage's layers as stacked leaves (``stages``: ``(1, per, ...)``,
+  :func:`..parallel.pipeline.stack_stage_params`) and runs through
+  :func:`forward_pipelined` (GPipe over pp, the ring inside each stage with
+  an sp axis).  Tensor parallelism and MoE layers inside stages raise: the
+  reference's stages run with ``mesh=None``.
+
+The dense step sums each gradient over dp, and over sp and pp where the
+ranks hold different tokens or stages (the model records which,
+``core.dense.set_model_layout``); tp-replicated leaves need no tp sum
+(the conjugate pair makes their gradients whole on every tp rank).
 
 MoE layers follow the reference's choice, made by the axis NAME:
-
-* ``cfg.ep_axis`` is an axis of the mesh: ``moe_apply`` on the rank's dp
-  rows, so ``moe_capacity`` counts each dp shard's tokens;
-* a mesh without that axis: ``moe_dense`` over the WHOLE global batch (the
-  rank's rows all-gathered over dp, ``parallel.collectives.gather_rows``),
-  so ``moe_capacity`` counts the global batch's tokens as the mesh-less
-  run does, and the rank keeps its rows of the output.
+``moe_apply`` on the rank's dp rows when ``cfg.ep_axis`` is an axis of the
+mesh (``moe_capacity`` counts each dp shard's tokens), else ``moe_dense``
+over the WHOLE global batch (the rank's rows all-gathered over dp,
+``parallel.collectives.gather_rows``; the rank keeps its rows of the
+output).
 
 :func:`lm_loss` divides the masked token sum by the WHOLE batch's count of
 valid tokens (``parallel.collectives.global_mean``: one all-reduce of the
-pair over dp), so ranks whose rows hold different counts weight them as the
-unsharded loss does.  Ring attention and tensor / sequence / pipeline
-parallelism raise: they are the next port slice (ROADMAP Queue 1 #9b).
+pair over dp, and over sp when the sequence is split), so ranks whose
+rows hold different counts weight them as the unsharded loss does.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -67,12 +88,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as _flash
-from ..parallel.ring_attention import reference_attention
 from ..parallel import collectives as _coll
-from ..parallel.mesh import axis_size, mesh_device, require_axis
-from ..utils.device import MODEL_PARALLEL, DeviceLike, resolve_device
+from ..parallel.mesh import axis_index, axis_size, mesh_device, require_axis
+from ..parallel.ring_attention import reference_attention, ring_attention_inner
+from ..utils.device import DeviceLike, resolve_device
 
 MOE_KEYS = ("w_gate", "w_up", "w_down")  # layers[i].moe's leaves
+LAYER_KEYS = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_up", "w_down")  # a dense block's leaves, in order
+# Megatron's tp layout of a dense block: the dim each leaf is split on
+TP_DIMS = {"wqkv": 1, "wo": 0, "w_up": 1, "w_down": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,16 +110,17 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     use_ring_attention: bool = False
     # "auto": the flash kernels when eligible (a CUDA tensor, T % 128 == 0,
-    # head_dim % 64 == 0, no mesh or one whose axes larger than 1 are dp and
-    # ep; a head width the kernels lack raises), else the reference path;
-    # "on": the kernels or an error; "off": always the reference path
+    # head_dim % 64 == 0, no mesh or one whose axes larger than 1 are dp, ep
+    # and tp; a head width the kernels lack raises), else the reference path;
+    # "on": the kernels or an error; "off": always the reference path.  Ring
+    # attention (an sp axis with use_ring_attention) takes precedence: this
+    # knob governs the rest
     flash_attention: str = "auto"
     # recompute each block in the backward pass (activation memory per
     # layer O(T·d_model) instead of O(T·d_ff))
     remat: bool = False
-    # the reference's parallelism and MoE fields: dp_axis names the data
-    # axis of a mesh, ep_axis the experts' axis; tp / sp / pp raise
-    # (__post_init__)
+    # the reference's parallelism and MoE fields: each names a mesh axis
+    # (check_lm_mesh says which layouts run)
     dp_axis: Optional[str] = "dp"
     tp_axis: Optional[str] = None
     sp_axis: Optional[str] = None
@@ -113,8 +138,6 @@ class TransformerConfig:
             raise ValueError(
                 "num_experts > 0 requires moe_capacity > 0 (capacity 0 would drop every token)"
             )
-        if self.use_ring_attention or self.sp_axis or self.tp_axis or self.pp_axis:
-            raise NotImplementedError(f"ring attention and tp/sp/pp: {MODEL_PARALLEL}")
 
     @property
     def head_dim(self) -> int:
@@ -144,15 +167,21 @@ class TransformerBlock(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The LM's parameters; ``model(tokens)`` is :func:`forward`."""
+    """The LM's parameters; ``model(tokens)`` is :func:`forward`.  A model
+    built for a pipeline mesh holds no ``layers``: its stage's blocks are
+    ``stages``, one leaf a key of :data:`LAYER_KEYS`, each ``(1, per,
+    ...)`` (this rank's block of :func:`..parallel.pipeline.
+    stack_stage_params`)."""
 
     def __init__(self, cfg: TransformerConfig, embed: torch.Tensor, final_norm: torch.Tensor,
-                 layers: List[Dict[str, torch.Tensor]]):
+                 layers: List[Dict[str, torch.Tensor]], stages: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(embed)
         self.final_norm = nn.Parameter(final_norm)
         self.layers = nn.ModuleList(TransformerBlock(**layer) for layer in layers)
+        if stages is not None:
+            self.stages = nn.ParameterDict({k: nn.Parameter(stages[k]) for k in LAYER_KEYS})
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)
@@ -165,59 +194,133 @@ def _moe_config(cfg: TransformerConfig):
                      capacity=cfg.moe_capacity, dtype=cfg.dtype)
 
 
-def _ep_on(mesh: Any, cfg: TransformerConfig) -> bool:
-    """The reference's choice of ``moe_apply``: ``cfg.ep_axis`` names an
-    axis of the mesh (of any size)."""
-    return mesh is not None and bool(cfg.ep_axis) and cfg.ep_axis in (mesh.mesh_dim_names or ())
+def _on(mesh: Any, axis: Optional[str]) -> bool:
+    """``axis`` is set and names an axis of ``mesh`` (of any size): the
+    reference's test for each layout (``moe_apply`` on the ep axis's name,
+    the ring on the sp axis's, ...)."""
+    return mesh is not None and bool(axis) and axis in (mesh.mesh_dim_names or ())
+
+
+def _ring_on(mesh: Any, cfg: TransformerConfig) -> bool:
+    return cfg.use_ring_attention and _on(mesh, cfg.sp_axis)
 
 
 def check_lm_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     """Accept a ``DeviceMesh`` with the ``cfg.dp_axis`` axis whose axes
-    larger than 1 are among ``cfg.dp_axis`` and ``cfg.ep_axis`` (the
-    data-parallel mesh, or the ``("dp", "ep")`` one), with or without MoE
-    layers.  A mesh without that axis raises ``ValueError``; another
-    layout (tp / sp / pp) ``NotImplementedError``."""
+    larger than 1 are among the config's dp, ep, tp, sp and pp axes, in a
+    layout the reference runs; raise ``ValueError`` for anything else:
+
+    * tp > 1 needs ``n_heads`` and ``d_ff`` divisible by tp, and no MoE
+      layers (the reference's tp covers the dense MLP);
+    * sp > 1 needs ``use_ring_attention`` (the rank holds only its slice
+      of the sequence; the reference would gather it for its plain
+      attention);
+    * a pp axis needs ``n_layers`` divisible by pp, and no tp > 1 and no
+      MoE layers inside the stages (the reference's stages run with
+      ``mesh=None``);
+    * ep > 1 runs with dp only beside it."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh):
-        raise NotImplementedError(
-            f"the LM over a {type(mesh).__name__} mesh: the port's LM takes a DeviceMesh "
-            f"(parallel.mesh.make_mesh); {MODEL_PARALLEL}"
+        raise ValueError(
+            f"the LM over a {type(mesh).__name__} mesh: the port's LM takes a torch DeviceMesh "
+            f"(parallel.mesh.make_mesh / make_nd_mesh)"
         )
     require_axis(mesh, cfg.dp_axis, "the LM over a mesh")
-    allowed = {cfg.dp_axis} | ({cfg.ep_axis} if cfg.ep_axis else set())
-    if any(int(k) > 1 and n not in allowed for n, k in zip(mesh.mesh_dim_names, mesh.shape)):
-        raise NotImplementedError(
-            f"the LM over mesh axes {dict(zip(mesh.mesh_dim_names, mesh.shape))}: only "
-            f"{sorted(allowed)} may be larger than 1; {MODEL_PARALLEL}"
-        )
+    named = {a for a in (cfg.dp_axis, cfg.ep_axis, cfg.tp_axis, cfg.sp_axis, cfg.pp_axis) if a}
+    sizes = dict(zip(mesh.mesh_dim_names, (int(k) for k in mesh.shape)))
+    stray = {n: k for n, k in sizes.items() if k > 1 and n not in named}
+    if stray:
+        raise ValueError(f"the LM over mesh axes {sizes}: {sorted(stray)} name none of the config's axes "
+                         f"(dp_axis, ep_axis, tp_axis, sp_axis, pp_axis)")
+    tp, sp, ep, pp = (axis_size(mesh, a) if a else 1 for a in (cfg.tp_axis, cfg.sp_axis, cfg.ep_axis, cfg.pp_axis))
+    if tp > 1 and (cfg.n_heads % tp or cfg.d_ff % tp):
+        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads} and d_ff={cfg.d_ff} (a rank holds whole heads)")
+    if tp > 1 and cfg.num_experts:
+        raise ValueError("MoE layers with tp > 1: the reference's tensor parallelism splits the dense MLP")
+    if sp > 1 and not cfg.use_ring_attention:
+        raise ValueError(f"sp={sp} needs use_ring_attention=True: a rank holds only its slice of the sequence")
+    if ep > 1 and (tp > 1 or sp > 1):
+        raise ValueError("expert parallelism runs beside dp only")
+    if _on(mesh, cfg.pp_axis):
+        if tp > 1 or cfg.num_experts:
+            raise ValueError("tensor parallelism and MoE layers inside pipeline stages: the reference's stages "
+                             "run with mesh=None")
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers={cfg.n_layers} does not split into pp={pp} stages")
 
 
 def record_layout(model: "TransformerLM", mesh: Any, cfg: TransformerConfig) -> "TransformerLM":
     """Record the model-parallel layout of a model built for ``mesh``
-    (``core.dense.set_model_layout``) and return it: on a mesh with
-    ``cfg.ep_axis`` each MoE layer's ``w_up`` and ``w_down`` are split over
-    that axis on their expert axis (the reference's ``param_shardings``:
-    ``P(ep, None, None)``); nothing else is split.  ZeRO-1's and FSDP's
-    specs merge dp into it; ``gather_params`` gathers those leaves whole."""
-    if not _ep_on(mesh, cfg) or cfg.num_experts == 0:
-        return model
+    (``core.dense.set_model_layout``) and return it, the counterpart of the
+    reference's ``param_shardings``: on an ep mesh each MoE layer's
+    ``w_up`` and ``w_down`` split over ep on their expert axis; on a tp
+    mesh ``wqkv`` / ``w_up`` on their columns and ``wo`` / ``w_down`` on
+    their rows (``wqkv``'s columns in 3 groups, q, k and v, so the gather
+    puts them back in the reference's ``[q | k | v]`` order); on a pp mesh
+    the stage leaves on their stage axis.  The gradients of every leaf not
+    split over sp or pp are summed over those axes by the dense step.
+    ZeRO-1's and FSDP's specs merge dp into the layout; ``gather_params``
+    gathers the split leaves whole."""
     from ..core.dense import set_model_layout
 
-    specs = {name: (cfg.ep_axis, None, None) for name, _ in model.named_parameters()
-             if name.endswith(("moe.w_up", "moe.w_down"))}
-    return set_model_layout(model, mesh, specs)
+    specs, groups = {}, {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if _on(mesh, cfg.ep_axis) and name.endswith(("moe.w_up", "moe.w_down")):
+            specs[name] = (cfg.ep_axis, None, None)
+        elif _on(mesh, cfg.tp_axis) and name.startswith("layers.") and leaf in TP_DIMS:
+            specs[name] = tuple(cfg.tp_axis if d == TP_DIMS[leaf] else None for d in range(p.ndim))
+            if leaf == "wqkv":
+                groups[name] = 3
+        elif name.startswith("stages."):
+            specs[name] = (cfg.pp_axis,) + (None,) * (p.ndim - 1)
+    sums = tuple(a for a in (cfg.sp_axis, cfg.pp_axis) if _on(mesh, a))
+    if not specs and not sums:
+        return model
+    return set_model_layout(model, mesh, specs, sum_axes=sums, groups=groups)
+
+
+def _tp_cut(layer: Dict[str, torch.Tensor], cfg: TransformerConfig, mesh: Any) -> Dict[str, torch.Tensor]:
+    """This rank's tp share of a whole dense block: its heads' columns of
+    each of q, k and v, the matching rows of ``wo``, its ``d_ff`` slice."""
+    tp, r = axis_size(mesh, cfg.tp_axis), axis_index(mesh, cfg.tp_axis)
+    out = dict(layer)
+    d = layer["wqkv"].shape[0]
+    out["wqkv"] = layer["wqkv"].reshape(d, 3, tp, -1)[:, :, r].reshape(d, -1)
+    for key in ("wo", "w_up", "w_down"):
+        out[key] = _coll.block_of(layer[key], mesh, cfg.tp_axis, TP_DIMS[key])
+    return {k: v.contiguous().clone() if k in TP_DIMS else v for k, v in out.items()}
+
+
+def build_lm(cfg: TransformerConfig, embed: torch.Tensor, final_norm: torch.Tensor,
+             layers: List[Dict[str, Any]], mesh: Any = None) -> TransformerLM:
+    """The LM from WHOLE leaves (the reference's layouts), placed for
+    ``mesh``: this rank's tp share of every dense block, its pp stage's
+    blocks stacked (:func:`..parallel.pipeline.stack_stage_params`), the
+    layout recorded (:func:`record_layout`).  MoE leaves arrive already cut
+    to the rank's experts."""
+    stages = None
+    if mesh is not None:
+        check_lm_mesh(mesh, cfg)
+        if _on(mesh, cfg.tp_axis):
+            layers = [_tp_cut(layer, cfg, mesh) for layer in layers]
+        if _on(mesh, cfg.pp_axis):
+            from ..parallel.pipeline import stack_stage_params
+
+            stacked = stack_stage_params(layers, axis_size(mesh, cfg.pp_axis), mesh=mesh, pp_axis=cfg.pp_axis)
+            stages, layers = {k: v.contiguous() for k, v in stacked.items()}, []
+    return record_layout(TransformerLM(cfg, embed, final_norm, layers, stages), mesh, cfg)
 
 
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, *, mesh: Optional[Any] = None) -> TransformerLM:
     """A freshly initialised LM on ``device`` (``cuda`` by default; with a
-    ``mesh``, this rank's device on it).  Every rank draws the same
-    weights from the same ``generator`` seed, so the model is replicated
-    over dp; on a mesh with ``cfg.ep_axis`` each rank keeps its experts
-    of every MoE layer (``init_moe_params(mesh=)``: the whole tensors are
-    drawn on every rank, so the streams stay aligned) and the model
-    records that layout (:func:`record_layout`).
+    ``mesh``, this rank's device on it).  Every rank draws the same whole
+    weights from the same ``generator`` seed and keeps its share
+    (:func:`build_lm`: its tp columns and rows, its pp stage; with
+    ``cfg.ep_axis`` its experts of every MoE layer, ``init_moe_params(
+    mesh=)``), so the generator streams stay aligned across ranks.
 
     The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
     float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
@@ -244,7 +347,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         if cfg.num_experts > 0:
             from .moe import init_moe_params
 
-            ep_mesh = mesh if _ep_on(mesh, cfg) else None
+            ep_mesh = mesh if _on(mesh, cfg.ep_axis) else None
             return dict(moe=init_moe_params(gen, _moe_config(cfg), ep_mesh, cfg.ep_axis or "ep", device=dev))
         return dict(w_up=dense((d, f), d**-0.5), w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5))
 
@@ -259,7 +362,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         )
         for _ in range(cfg.n_layers)
     ]
-    return record_layout(TransformerLM(cfg, embed, ones(), layers), mesh, cfg)
+    return build_lm(cfg, embed, ones(), layers, mesh)
 
 
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -281,15 +384,16 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 def _unsharded_attention(q, k, v, cfg: TransformerConfig, mesh: Optional[Any] = None) -> torch.Tensor:
     """The flash kernels when eligible (see TransformerConfig.flash_attention),
     else the O(T²) reference.  Without a mesh the gate is ``eligible``; on a
-    dp or ``("dp", "ep")`` mesh ``eligible_dp`` over the global batch (``q``
-    holds this rank's rows), and the kernels run on the rank's rows."""
+    mesh ``eligible_dp`` over the global batch (``q`` holds this rank's rows,
+    and its heads on a tp mesh), and the kernels run on the rank's tensors."""
     T, Dh = q.shape[1], q.shape[3]
     if cfg.flash_attention == "off":
         return reference_attention(q, k, v)
     if mesh is None:
         if _flash.eligible(T, Dh, q.device):
             return _flash.flash_mha(q, k, v)
-    elif _flash.eligible_dp(T, Dh, q.shape[0] * axis_size(mesh, cfg.dp_axis), mesh, cfg.dp_axis, cfg.ep_axis):
+    elif _flash.eligible_dp(T, Dh, q.shape[0] * axis_size(mesh, cfg.dp_axis), mesh, cfg.dp_axis, cfg.ep_axis,
+                            cfg.tp_axis):
         return _flash.flash_mha(q, k, v)
     if cfg.flash_attention == "on":
         # "on" means the kernels or an error: a quiet reference fallback
@@ -298,29 +402,45 @@ def _unsharded_attention(q, k, v, cfg: TransformerConfig, mesh: Optional[Any] = 
             f"flash_attention='on' but the flash path is ineligible (device={q.device}, "
             f"T={T}, head_dim={Dh}); flash needs a CUDA tensor, T % 128 == 0, "
             f"head_dim % 64 == 0 and no mesh or a mesh whose axes larger than 1 are "
-            f"dp and ep, dp dividing the batch. "
+            f"dp, ep and tp, dp dividing the batch. "
             f"Use 'auto' to fall back gracefully."
         )
     return reference_attention(q, k, v)
 
 
-def _apply_block(x: torch.Tensor, layer: TransformerBlock, cfg: TransformerConfig,
-                 mesh: Optional[Any] = None) -> torch.Tensor:
-    """One pre-norm residual block (attention + MLP) on (B, T, d)."""
+def _apply_block(x: torch.Tensor, layer: Any, cfg: TransformerConfig, mesh: Optional[Any] = None,
+                 ring_mesh: Optional[Any] = None, pos_offset: int = 0) -> torch.Tensor:
+    """One pre-norm residual block (attention + MLP) on (B, T, d).
+
+    ``mesh``: the LM's mesh (tp, ep, the flash gate), None inside pipeline
+    stages.  ``ring_mesh``: the mesh whose ``cfg.sp_axis`` the ring runs
+    over, and ``pos_offset`` the global position of the block's first
+    token (RoPE takes global positions)."""
     B, T, _ = x.shape
-    H, Dh = cfg.n_heads, cfg.head_dim
-    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    tp = _on(mesh, cfg.tp_axis)
+    heads = cfg.n_heads // (axis_size(mesh, cfg.tp_axis) if tp else 1)
+    Dh = cfg.head_dim
+    positions = (torch.arange(T, dtype=torch.int32, device=x.device) + pos_offset)[None].expand(B, T)
     h = _rmsnorm(x, layer.attn_norm)
-    qkv = (h @ layer.wqkv).reshape(B, T, 3, H, Dh)
+    if tp:
+        h = _coll.copy_to_tp(h, mesh, cfg.tp_axis)
+    qkv = (h @ layer.wqkv).reshape(B, T, 3, heads, Dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = _rope(q, positions)
     k = _rope(k, positions)
-    attn = _unsharded_attention(q, k, v, cfg, mesh).reshape(B, T, H * Dh)
-    x = x + attn @ layer.wo
+    if ring_mesh is not None:
+        attn = ring_attention_inner(q, k, v, mesh=ring_mesh, sp_axis=cfg.sp_axis)
+    else:
+        attn = _unsharded_attention(q, k, v, cfg, mesh)
+    out = attn.reshape(B, T, heads * Dh) @ layer.wo
+    x = x + (_coll.reduce_from_tp(out, mesh, cfg.tp_axis) if tp else out)
     h = _rmsnorm(x, layer.mlp_norm)
     if cfg.num_experts > 0:
         return x + _moe_mlp(layer, h, cfg, mesh)
-    return x + F.gelu(h @ layer.w_up, approximate="tanh") @ layer.w_down
+    if tp:
+        h = _coll.copy_to_tp(h, mesh, cfg.tp_axis)
+    out = F.gelu(h @ layer.w_up, approximate="tanh") @ layer.w_down
+    return x + (_coll.reduce_from_tp(out, mesh, cfg.tp_axis) if tp else out)
 
 
 def _moe_mlp(layer: TransformerBlock, h: torch.Tensor, cfg: TransformerConfig, mesh: Optional[Any]) -> torch.Tensor:
@@ -334,7 +454,7 @@ def _moe_mlp(layer: TransformerBlock, h: torch.Tensor, cfg: TransformerConfig, m
 
     B, T, d = h.shape
     flat = h.reshape(B * T, d)
-    if _ep_on(mesh, cfg):
+    if _on(mesh, cfg.ep_axis):
         y = moe_apply(layer.moe, flat, _moe_config(cfg), mesh=mesh, ep_axis=cfg.ep_axis)
     elif mesh is not None and axis_size(mesh, cfg.dp_axis) > 1:
         whole = moe_dense(layer.moe, _coll.gather_rows(flat, mesh, cfg.dp_axis), _moe_config(cfg))
@@ -344,69 +464,147 @@ def _moe_mlp(layer: TransformerBlock, h: torch.Tensor, cfg: TransformerConfig, m
     return y.reshape(B, T, d)
 
 
-def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            mesh: Optional[Any] = None) -> torch.Tensor:
-    """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits.
-    With a dp ``mesh``, ``tokens`` and the logits are this rank's rows."""
-    if mesh is not None:
-        check_lm_mesh(mesh, cfg)
+def _embed_slice(params: TransformerLM, tokens: Any, cfg: TransformerConfig, mesh: Optional[Any]):
+    """The rank's token embeddings and the global position of its first
+    token: on an sp mesh its ``[i·T/sp, (i+1)·T/sp)`` slice of every row."""
     tokens = torch.as_tensor(tokens, device=params.embed.device)
     T = tokens.shape[1]
     if T > cfg.max_seq:
         raise ValueError(f"sequence length {T} > max_seq {cfg.max_seq}")
-    x = params.embed[tokens.long()]
-    for layer in params.layers:
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_apply_block, x, layer, cfg, mesh, use_reentrant=False)
-        else:
-            x = _apply_block(x, layer, cfg, mesh)
+    offset = 0
+    if _on(mesh, cfg.sp_axis):
+        tokens = _coll.block_of(tokens, mesh, cfg.sp_axis, 1)
+        offset = axis_index(mesh, cfg.sp_axis) * tokens.shape[1]
+    return params.embed[tokens.long()], offset
+
+
+def _logits(params: TransformerLM, x: torch.Tensor) -> torch.Tensor:
     x = _rmsnorm(x, params.final_norm)
     return (x @ params.embed.T.to(x.dtype)).to(torch.float32)
 
 
+def forward(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            mesh: Optional[Any] = None) -> torch.Tensor:
+    """Causal LM forward: (B, T) int tokens -> (B, T, vocab) float32 logits.
+    With a ``mesh``, ``tokens`` are this rank's dp rows at full length and
+    the logits are this rank's: its rows, and its positions on an sp mesh."""
+    if mesh is not None:
+        check_lm_mesh(mesh, cfg)
+    if hasattr(params, "stages"):
+        raise ValueError("a model built for a pipeline mesh runs through forward_pipelined")
+    x, offset = _embed_slice(params, tokens, cfg, mesh)
+    ring = mesh if _ring_on(mesh, cfg) else None
+    for layer in params.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_apply_block, x, layer, cfg, mesh, ring, offset, use_reentrant=False)
+        else:
+            x = _apply_block(x, layer, cfg, mesh, ring, offset)
+    return _logits(params, x)
+
+
+def forward_pipelined(params: TransformerLM, tokens: torch.Tensor, cfg: TransformerConfig, *, mesh: Any,
+                      num_microbatches: int = 4) -> torch.Tensor:
+    """Causal LM forward with the layer stack pipelined over ``cfg.pp_axis``
+    (the GPipe schedule, :func:`..parallel.pipeline.pipeline_apply`), on
+    every rank of the mesh.  ``params`` is built for the mesh (its
+    ``stages`` hold this rank's stage); ``tokens`` are this rank's dp rows
+    at full length; ``num_microbatches`` must divide them.  Embed, final
+    norm and logits run outside the pipeline on every rank; the logits, the
+    same on every pp rank, are this rank's rows (and positions, with an sp
+    axis and ``cfg.use_ring_attention``: each stage then runs the ring on
+    its sp slice).  Inside the stages attention is the plain reference
+    path, as the reference pins it: ``flash_attention="on"`` raises.
+
+    Every pp rank computes the same loss from the logits, so their
+    gradient is scaled by ``1/pp`` (:func:`..parallel.pipeline.
+    scale_grad`): the pipeline's backward sums the cotangents over pp, and
+    the dense step sums the replicated leaves' gradients over pp, each then
+    counted once."""
+    from ..parallel.pipeline import pipeline_apply, scale_grad
+
+    check_lm_mesh(mesh, cfg)
+    if not _on(mesh, cfg.pp_axis) or not hasattr(params, "stages"):
+        raise ValueError(f"forward_pipelined needs a mesh with the pp_axis {cfg.pp_axis!r} and a model built "
+                         f"for it (init_params(mesh=) or interop.transformer_params_from_numpy(mesh=))")
+    if cfg.flash_attention == "on":
+        raise ValueError(
+            "flash_attention='on' is not supported in forward_pipelined (the pipeline's stages run the plain "
+            "attention, as the reference pins them); use 'auto' or 'off'"
+        )
+    block_cfg = dataclasses.replace(cfg, flash_attention="off")
+    ring = mesh if _ring_on(mesh, cfg) else None
+    x, offset = _embed_slice(params, tokens, cfg, mesh if ring is not None else None)
+
+    def stage_fn(stage, x_mb):
+        for j in range(stage["wqkv"].shape[0]):
+            layer = types.SimpleNamespace(**{k: v[j] for k, v in stage.items()})
+            x_mb = _apply_block(x_mb, layer, block_cfg, None, ring, offset)
+        return x_mb
+
+    x = pipeline_apply(dict(params.stages), x, stage_fn, mesh=mesh, pp_axis=cfg.pp_axis,
+                       num_microbatches=num_microbatches)
+    return scale_grad(_logits(params, x), 1.0 / axis_size(mesh, cfg.pp_axis))
+
+
 def next_token_xent(logits: torch.Tensor, tokens: torch.Tensor,
                     row_mask: Optional[torch.Tensor] = None, *, mesh: Optional[Any] = None,
-                    dp_axis: str = "dp") -> torch.Tensor:
+                    dp_axis: str = "dp", sp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy: targets are the tokens shifted left, the
-    last position is masked; optional (B,) or (B, T) row mask.  With a dp
-    ``mesh`` the arguments are this rank's rows and the result is the whole
-    batch's loss: the masked sum over the count of valid tokens of every
-    rank (``parallel.collectives.global_mean``)."""
+    last position is masked; optional (B,) or (B, T) row mask.  With a
+    ``mesh`` the arguments are this rank's dp rows (``tokens`` and a (B, T)
+    mask at full length) and the result is the whole batch's loss: the
+    masked sum over the count of valid tokens of every rank
+    (``parallel.collectives.global_mean``).  On an sp mesh (``sp_axis``)
+    ``logits`` hold the rank's positions: the target of its last position
+    is the next slice's first token, and only the global last position is
+    masked."""
     tokens = torch.as_tensor(tokens, device=logits.device).long()
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    mask = torch.ones_like(nll)
+    mask = torch.ones(tokens.shape, dtype=logits.dtype, device=logits.device)
     mask[:, -1] = 0.0
     if row_mask is not None:
-        row_mask = torch.as_tensor(row_mask, device=logits.device).to(nll.dtype)
+        row_mask = torch.as_tensor(row_mask, device=logits.device).to(mask.dtype)
         if row_mask.ndim == 1:  # (B,) row mask from microbatches()
             row_mask = row_mask[:, None]
         mask = mask * row_mask
+    axes = (dp_axis,)
+    if _on(mesh, sp_axis):
+        targets, mask = (_coll.block_of(t, mesh, sp_axis, 1) for t in (targets, mask))
+        axes = (dp_axis, sp_axis)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     if mesh is not None:
-        return _coll.global_mean(torch.sum(nll * mask), torch.sum(mask), mesh, dp_axis)
+        return _coll.global_mean(torch.sum(nll * mask), torch.sum(mask), mesh, axes)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def lm_loss(params: TransformerLM, batch: Dict[str, Any], cfg: TransformerConfig, *,
-            mesh: Optional[Any] = None) -> torch.Tensor:
-    """Next-token cross entropy through :func:`forward`.  With a dp
-    ``mesh`` the batch holds this rank's rows (the dense step passes them)
-    and the loss is the whole batch's (:func:`next_token_xent`)."""
+            mesh: Optional[Any] = None, num_microbatches: int = 4) -> torch.Tensor:
+    """Next-token cross entropy through :func:`forward`, or through
+    :func:`forward_pipelined` (``num_microbatches``) for a model built for
+    a pipeline mesh.  With a ``mesh`` the batch holds this rank's dp rows
+    (the dense step passes them) and the loss is the whole batch's
+    (:func:`next_token_xent`)."""
     tokens = batch["tokens"]
-    logits = forward(params, tokens, cfg, mesh=mesh)
-    return next_token_xent(logits, tokens, batch.get("mask"), mesh=mesh, dp_axis=cfg.dp_axis)
+    if hasattr(params, "stages"):
+        logits = forward_pipelined(params, tokens, cfg, mesh=mesh, num_microbatches=num_microbatches)
+    else:
+        logits = forward(params, tokens, cfg, mesh=mesh)
+    return next_token_xent(logits, tokens, batch.get("mask"), mesh=mesh, dp_axis=cfg.dp_axis, sp_axis=cfg.sp_axis)
 
 
 __all__ = [
+    "LAYER_KEYS",
     "MOE_KEYS",
     "TransformerConfig",
     "TransformerBlock",
     "TransformerLM",
+    "build_lm",
     "check_lm_mesh",
     "init_params",
     "record_layout",
     "forward",
+    "forward_pipelined",
     "next_token_xent",
     "lm_loss",
 ]

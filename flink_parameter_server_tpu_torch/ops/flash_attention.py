@@ -32,9 +32,9 @@ in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded
 back to q's dtype before the kernel (the kernel does not scale; the scale
 stays outside the ``autograd.Function`` so autograd carries its gradient).
 
-On a ``dp`` mesh, or a ``("dp", "ep")`` one (:func:`flash_mha_dp`,
-gated by :func:`eligible_dp`), each rank runs the same kernels on its own
-batch rows.
+On a ``dp`` mesh, a ``("dp", "ep")`` one or one with a Megatron ``tp``
+axis (gated by :func:`eligible_dp`), each rank runs the same kernels on its
+own batch rows (:func:`flash_mha_dp`) and, on a tp mesh, its own heads.
 
 Dispatch: each wrapper takes its plain torch version (``*_plain``, the same
 tiles and the same float32 arithmetic) for tensors on the CPU; a CUDA
@@ -81,22 +81,25 @@ def _mesh_on_cuda(mesh) -> bool:
 
 
 def eligible_dp(seq_len: int, head_dim: int, batch: int, mesh, dp_axis: str = "dp",
-                ep_axis: Optional[str] = None) -> bool:
-    """The ``"auto"`` gate on a data-parallel mesh: true iff ``mesh`` has
-    ``dp_axis`` and no axis but it and ``ep_axis`` is larger than 1, its
-    ranks are on ``cuda`` (the reference asks for the TPU backend), the
-    shape passes :func:`supports_shape` and ``batch`` (the global batch)
-    divides by dp.  Attention never mixes batch rows, so each rank runs
-    the kernels on its own rows with no collective.  On the ``("dp",
-    "ep")`` mesh the ep ranks of a dp row hold the same rows, so each runs
-    the kernels on them as a dp-only rank would (the reference's gate asks
-    for a dp-only mesh and takes its plain attention there; the math is
-    the same).  sp / tp / pp meshes are the next port slice and take the
-    reference path."""
+                ep_axis: Optional[str] = None, tp_axis: Optional[str] = None) -> bool:
+    """The ``"auto"`` gate on a mesh: true iff ``mesh`` has ``dp_axis`` and
+    no axis but it, ``ep_axis`` and ``tp_axis`` is larger than 1, its ranks
+    are on ``cuda`` (the reference asks for the TPU backend), the shape
+    passes :func:`supports_shape` and ``batch`` (the global batch) divides
+    by dp.  Attention never mixes batch rows, so each rank runs the kernels
+    on its own rows with no collective.  On the ``("dp", "ep")`` mesh the
+    ep ranks of a dp row hold the same rows, so each runs the kernels on
+    them as a dp-only rank would.  Attention never mixes heads either, so a
+    Megatron tp rank, which holds whole heads (``H/tp`` of them) over its
+    full sequence, runs them on its ``(B/dp, T, H/tp, D)`` tensors: exactly
+    the reference's attention of those heads.  The reference's gate asks
+    for a dp-only mesh and takes its plain attention on ep and tp meshes;
+    the math is the same.  sp meshes run the ring and pp stages the plain
+    attention, as the reference's do."""
     from ..parallel.mesh import axis_size
 
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    allowed = {dp_axis} | ({ep_axis} if ep_axis else set())
+    allowed = {dp_axis} | {a for a in (ep_axis, tp_axis) if a}
     return (
         dp_axis in names
         and all(int(size) == 1 or name in allowed for name, size in zip(names, mesh.shape))

@@ -6,8 +6,8 @@ Counterpart of ``flink_parameter_server_tpu/parallel/``.  The design:
 * **One process per device.**  The reference is single-controller: one
   process drives every device through ``shard_map``.  The port runs one
   rank per device under ``torch.distributed`` (NCCL on ``cuda``, gloo on
-  ``cpu``), the fabric the LM's data, tensor and pipeline parallelism
-  will need too.  Each rank runs what the ``shard_map`` body runs:
+  ``cpu``), the fabric of the LM's data, expert, tensor, sequence and
+  pipeline parallelism too.  Each rank runs what the ``shard_map`` body runs:
   ``mesh.get_local_rank("ps")`` plays ``axis_index``, an ``all_reduce``
   on the ``ps`` group plays ``psum``, and an ``all_gather`` on the ``dp``
   group plays ``all_gather(tiled=True)`` (:mod:`.collectives`).
@@ -57,21 +57,34 @@ dp rows and ``E/ep`` experts of every MoE layer, the tokens routed to their
 expert's rank and back by two :func:`.collectives.all_to_all` trips over
 ``ep`` (``models/moe.moe_apply``); gradients are summed over dp only.
 
-Tensor, sequence and pipeline parallelism and ring attention are the next
-port slice, slice 22 (ROADMAP Queue 1 #9b): ``ring_attention`` holds only
-the unsharded oracle.
+**Tensor, sequence and pipeline parallelism** run on the same fabric, on
+meshes of any number of axes (:func:`.mesh.make_nd_mesh`):
+
+* tp: Megatron's column- and row-parallel products around the conjugate
+  pair :func:`.collectives.copy_to_tp` / :func:`.collectives.reduce_from_tp`
+  (``models/transformer.py``); the flash kernels run on each rank's heads.
+* sp: :mod:`.ring_attention`, ``S − 1`` :func:`.collectives.ppermute`
+  trips of the K/V blocks around the sp ring under an online softmax.
+* pp: :mod:`.pipeline`, the GPipe tick schedule with one ``ppermute`` a
+  tick, its backward the reverse schedule.
+
+``ppermute`` rides ``all_to_all_single`` with one non-empty split each way,
+so it runs on NCCL and on gloo over CUDA tensors alike.
 """
 from .collectives import (
     all_gather_cat,
     all_reduce_sum,
     all_to_all,
+    copy_to_tp,
     dp_rows,
     global_mean,
+    ppermute,
+    reduce_from_tp,
     reduce_scatter_sum,
     shard_pull,
     shard_push_add,
 )
-from .mesh import DP_AXIS, PS_AXIS, make_dp_mesh, make_mesh, single_device_mesh
+from .mesh import DP_AXIS, PS_AXIS, make_dp_mesh, make_mesh, make_nd_mesh, single_device_mesh
 from .multihost import initialize, make_multihost_mesh, process_local_batch_slice
 
 __all__ = [
@@ -80,13 +93,17 @@ __all__ = [
     "all_gather_cat",
     "all_reduce_sum",
     "all_to_all",
+    "copy_to_tp",
     "dp_rows",
     "global_mean",
     "initialize",
     "make_dp_mesh",
     "make_mesh",
     "make_multihost_mesh",
+    "make_nd_mesh",
+    "ppermute",
     "process_local_batch_slice",
+    "reduce_from_tp",
     "reduce_scatter_sum",
     "shard_pull",
     "shard_push_add",

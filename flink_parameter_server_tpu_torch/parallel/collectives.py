@@ -37,13 +37,25 @@ Expert parallelism adds :func:`all_to_all` (``lax.all_to_all(split_axis=0,
 concat_axis=0)``), the MoE layer's dispatch and return trips
 (``models/moe.moe_apply``).
 
+Tensor, sequence and pipeline parallelism add :func:`ppermute`
+(``lax.ppermute`` by a shift around an axis: the ring's K/V rotation and
+the pipeline's stage hand-off), Megatron's conjugate pair
+:func:`copy_to_tp` / :func:`reduce_from_tp` (identity one way, an
+all-reduce the other), and :func:`take_block` / :func:`gather_block`, the
+row helpers along any dim (a sequence slice over ``sp``, a head slice over
+``tp``).  :func:`global_mean` takes several axes (dp and sp hold the loss's
+tokens in parts).
+
 The list forms of ``all_gather`` and ``reduce_scatter`` are used: torch
 2.11 and 2.13 both have them, for NCCL and for gloo on CPU and CUDA
 tensors alike (2.13 deprecates ``all_gather_into_tensor``).  The
 all-to-all is ``all_to_all_single``: on torch 2.11 gloo refuses the list
 ``all_to_all`` ("Backend gloo does not support alltoall") for CUDA
 tensors and takes ``all_to_all_single``, which NCCL takes too.  So one
-route serves every backend; none is chosen by a ``try``.  Half-precision
+route serves every backend; none is chosen by a ``try``.  :func:`ppermute`
+rides the same call with one non-empty split each way (a send to one rank,
+a receive from another), its payload viewed as bytes: gloo's ``send`` /
+``recv`` take CPU tensors only, and bytes are summed by nobody.  Half-precision
 values are summed as float32 (exact for a pull: one value plus zeros), but
 travel as they are through an all-to-all, which sums nothing; bools are
 gathered as bytes.  :func:`collective_counts` reports calls and bytes by
@@ -62,13 +74,14 @@ from .mesh import DP_AXIS, PS_AXIS, axis_group, axis_index, axis_size
 
 _COUNTS: Dict[str, int] = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0, "all_gather_bytes": 0,
                            "reduce_scatter": 0, "reduce_scatter_bytes": 0, "all_to_all": 0,
-                           "all_to_all_bytes": 0}
+                           "all_to_all_bytes": 0, "ppermute": 0, "ppermute_bytes": 0}
 
 
 def collective_counts() -> Dict[str, int]:
     """Calls and payload bytes of :func:`all_reduce_sum`,
-    :func:`all_gather_cat`, :func:`reduce_scatter_sum` and
-    :func:`all_to_all` (each trip, forward or backward) in this process."""
+    :func:`all_gather_cat`, :func:`reduce_scatter_sum`, :func:`all_to_all`
+    and :func:`ppermute` (each trip, forward or backward) in this
+    process."""
     return dict(_COUNTS)
 
 
@@ -89,16 +102,16 @@ def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return buf.to(x.dtype) if wide else buf
 
 
-def all_gather_cat(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def all_gather_cat(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """``lax.all_gather(tiled=True)`` over ``axis``: every rank's ``x``
-    (same shape on each) concatenated along dim 0 in axis order."""
+    (same shape on each) concatenated along ``dim`` in axis order."""
     boolean = x.dtype == torch.bool
     src = (x.to(torch.uint8) if boolean else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(axis_size(mesh, axis))]
     dist.all_gather(parts, src, group=axis_group(mesh, axis))
     _COUNTS["all_gather"] += 1
     _COUNTS["all_gather_bytes"] += src.numel() * src.element_size() * len(parts)
-    out = torch.cat(parts, 0)
+    out = torch.cat(parts, dim)
     return out.to(torch.bool) if boolean else out
 
 
@@ -157,33 +170,132 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
-class _TakeRows(torch.autograd.Function):
+def _ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    src = x.contiguous().reshape(-1).view(torch.uint8)
+    sends, recvs = [0] * n, [0] * n
+    sends[(i + shift) % n] = recvs[(i - shift) % n] = src.numel()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, output_split_sizes=recvs, input_split_sizes=sends,
+                           group=axis_group(mesh, axis))
+    _COUNTS["ppermute"] += 1
+    _COUNTS["ppermute_bytes"] += src.numel()
+    return out.view(x.dtype).reshape(x.shape)
+
+
+class _PPermute(torch.autograd.Function):
+    """The shift and its transpose, the reverse shift."""
+
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return dp_rows(x, mesh, axis).contiguous()
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _ppermute(x, mesh, axis, shift)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather_cat(grad.contiguous(), ctx.mesh, ctx.axis), None, None
+        return _ppermute(grad, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` with the permutation ``i -> (i + shift) mod n`` over
+    ``axis``: this rank's ``x`` goes to rank ``i + shift`` of the axis and
+    the result is what rank ``i - shift`` sent (same shape and dtype on
+    every rank; the bits travel as they are).  Differentiable: the
+    backward is the reverse shift.  Every rank of the axis must call it
+    the same number of times in the same order, forward and backward.
+    Counted once per trip in :func:`collective_counts`."""
+    return _PPermute.apply(x, mesh, axis, int(shift))
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce_sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's ``f``: the identity forward, an all-reduce over ``axis``
+    backward.  It goes before the column-parallel products of a tensor
+    parallel block, whose input every ``tp`` rank holds alike: each rank's
+    product sends back the gradient of its columns only, and the sum is the
+    input's whole gradient, the same on every rank."""
+    return _CopyToTp.apply(x, mesh, axis)
+
+
+def reduce_from_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Megatron's ``g``: an all-reduce over ``axis`` forward (the row-parallel
+    products' partial sums), the identity backward."""
+    return _ReduceFromTp.apply(x, mesh, axis)
+
+
+def block_of(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's contiguous ``axis`` block of ``x`` along ``dim`` (a view;
+    the dim must divide by the axis size)."""
+    n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into {axis}={n} equal blocks")
+    per = x.shape[dim] // n
+    return x.narrow(dim, i * per, per)
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return block_of(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def take_block(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's ``axis`` block along ``dim`` of a global tensor that
+    every rank of the axis holds alike; the gradient all-gathers the
+    ranks' block gradients, so every rank gets the whole tensor's
+    gradient."""
+    return _TakeBlock.apply(x, mesh, axis, dim)
 
 
 def take_rows(x: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
     """This rank's ``axis`` rows of a global tensor that every rank holds
-    alike (:func:`dp_rows`); the gradient all-gathers the ranks' row
-    gradients, so every rank gets the whole tensor's gradient."""
-    return _TakeRows.apply(x, mesh, axis)
+    alike (:func:`dp_rows`): :func:`take_block` along dim 0."""
+    return _TakeBlock.apply(x, mesh, axis, 0)
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rows, mesh, axis):
-        ctx.lo, ctx.n = axis_index(mesh, axis) * rows.shape[0], rows.shape[0]
-        return all_gather_cat(rows, mesh, axis)
+    def forward(ctx, rows, mesh, axis, dim):
+        ctx.lo, ctx.n, ctx.dim = axis_index(mesh, axis) * rows.shape[dim], rows.shape[dim], dim
+        return all_gather_cat(rows, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad[ctx.lo:ctx.lo + ctx.n], None, None
+        return grad.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None
+
+
+def gather_block(rows: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ``axis`` all-gather along ``dim`` of every rank's block (equal
+    sizes) into the global tensor; its backward takes this rank's block of
+    the gradient, with no collective: exact when every rank's loss is the
+    same function of the global tensor, or when no other rank's loss
+    reaches this rank's block (:func:`gather_rows`)."""
+    return _GatherBlock.apply(rows, mesh, axis, dim)
 
 
 def gather_rows(rows: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
@@ -195,7 +307,7 @@ def gather_rows(rows: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
     the MoE layer on a dp-only mesh (``models/transformer.py``: given the
     routing, each token's output depends only on that token and the
     weights, so the rank's loss sends gradient only to its own tokens)."""
-    return _GatherRows.apply(rows, mesh, axis)
+    return _GatherBlock.apply(rows, mesh, axis, 0)
 
 
 def dp_rows(batch: Any, mesh, axis: str = DP_AXIS) -> Any:
@@ -239,19 +351,21 @@ _SUMMED = "_fps_dp_summed"  # marks a loss whose gradients the dp ranks sum
 _MADE = threading.local()  # .n: the global_mean results this thread has made
 
 
-def global_mean(local_sum: torch.Tensor, local_count: torch.Tensor, mesh, axis: str = DP_AXIS,
+def global_mean(local_sum: torch.Tensor, local_count: torch.Tensor, mesh, axis: Any = DP_AXIS,
                 *, min_count: float = 1.0) -> torch.Tensor:
     """The mean over the whole batch of a per-row sum the ``axis`` ranks
     hold in parts: ``(Σ local_sum) / max(Σ local_count, min_count)``, the
-    same value on every rank, from one all-reduce of the pair (the count
-    carries no gradient).  Its gradient is this rank's part,
+    same value on every rank, from one all-reduce of the pair over each
+    axis (``axis`` names one, or is a tuple: ``("dp", "sp")`` when the
+    sequence is split too; the count carries no gradient).  Its gradient is this rank's part,
     ``∂local_sum / count``: the ranks' gradients SUMMED are the whole
     batch's.  The result is marked so (:func:`is_global_mean`); the dense
     step sums such a loss's gradients instead of averaging them.  The mark
     is on this tensor only: arithmetic on it (an added regulariser) gives
     an unmarked tensor, which the step refuses (:func:`global_means_made`)."""
-    pair = torch.stack([local_sum.detach(), local_count.detach().to(local_sum.dtype)])
-    both = all_reduce_sum(pair, mesh, axis)
+    both = torch.stack([local_sum.detach(), local_count.detach().to(local_sum.dtype)])
+    for name in ((axis,) if isinstance(axis, str) else tuple(axis)):
+        both = all_reduce_sum(both, mesh, name)
     out = _GlobalMean.apply(local_sum, both[0], torch.clamp(both[1], min=min_count))
     setattr(out, _SUMMED, True)
     _MADE.n = global_means_made() + 1
@@ -388,18 +502,24 @@ __all__ = [
     "all_reduce_sum",
     "all_to_all",
     "assemble_owned",
+    "block_of",
     "block_start",
     "collective_counts",
+    "copy_to_tp",
     "dp_rows",
+    "gather_block",
     "gather_rows",
     "global_mean",
     "global_means_made",
     "is_global_mean",
     "owned_rows",
+    "ppermute",
     "push_rows_",
+    "reduce_from_tp",
     "reduce_scatter_sum",
     "reset_collective_counts",
     "shard_pull",
     "shard_push_add",
+    "take_block",
     "take_rows",
 ]

@@ -14,6 +14,11 @@ tests, or the ``(dp, ps)`` one with ``ps`` 1.  Expert parallelism takes
 the reference's ``("dp", "ep")`` mesh: ``make_mesh(dp, ep,
 axis_names=("dp", "ep"))``, or ``single_device_mesh(axis_names=("dp",
 "ep"))`` for one rank; the second axis is named, the layout is the same.
+Tensor, sequence and pipeline parallelism take meshes of any number of
+axes (the reference's ``("dp", "sp")``, ``("dp", "pp")``, ``("dp", "sp",
+"tp")``, ``("dp", "pp", "sp")``): :func:`make_nd_mesh`, whose rank ``r``
+sits at the row-major coordinates of ``r``, as
+``np.array(devices).reshape(shape)`` lays the reference's devices out.
 
 The reference drives every device from one process through ``shard_map``.
 The port runs one process per device, as PyTorch does on several cards:
@@ -26,8 +31,9 @@ for ``cuda`` meshes and gloo for ``cpu`` ones (:mod:`.multihost`).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -86,8 +92,6 @@ def make_mesh(
     given the other takes the rest; if neither, all ranks go to ``dp``.
     The group comes up from a launcher's environment if it is not up yet
     (:func:`.multihost.initialize`); without one, this raises."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     from .multihost import initialize
 
     initialize(device_type=device_type)
@@ -113,7 +117,34 @@ def make_mesh(
         raise ValueError(
             f"worker_parallelism({dp}) * ps_parallelism({ps}) != world size ({n})"
         )
-    return init_device_mesh(device_type, (dp, ps), mesh_dim_names=tuple(axis_names))
+    return make_nd_mesh((dp, ps), axis_names, device_type=device_type)
+
+
+def make_nd_mesh(shape: Sequence[int], axis_names: Sequence[str], *, device_type: str = "cuda"):
+    """A mesh of ``len(shape)`` named axes over every rank of the default
+    process group (the product of ``shape`` must be the world size):
+    global rank ``r`` sits at the row-major coordinates of ``r`` in
+    ``shape``, the layout of the reference's ``Mesh(np.array(devices)
+    .reshape(shape), axis_names)``.  :func:`axis_size`, :func:`axis_index`
+    and :func:`axis_group` work on every axis.  The group comes up as
+    :func:`make_mesh`'s does."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .multihost import initialize
+
+    shape, axis_names = tuple(int(k) for k in shape), tuple(axis_names)
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"make_nd_mesh: shape {shape} needs as many distinct axis names, got {axis_names}")
+    initialize(device_type=device_type)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_nd_mesh needs a process group: launch with torchrun, or call "
+            "parallel.multihost.initialize(init_method, world_size, rank) first"
+        )
+    n = dist.get_world_size()
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"mesh shape {shape} does not hold the world size ({n})")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axis_names)
 
 
 def make_dp_mesh(dp: Optional[int] = None, *, device_type: str = "cuda"):
@@ -121,8 +152,6 @@ def make_dp_mesh(dp: Optional[int] = None, *, device_type: str = "cuda"):
     default process group (``dp``, when given, must be the world size):
     the reference's ``Mesh(devices, ("dp",))``.  The group comes up as
     :func:`make_mesh`'s does."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     from .multihost import initialize
 
     initialize(device_type=device_type)
@@ -134,14 +163,16 @@ def make_dp_mesh(dp: Optional[int] = None, *, device_type: str = "cuda"):
     n = dist.get_world_size()
     if dp is not None and dp != n:
         raise ValueError(f"dp={dp} != world size ({n})")
-    return init_device_mesh(device_type, (n,), mesh_dim_names=(DP_AXIS,))
+    return make_nd_mesh((n,), (DP_AXIS,), device_type=device_type)
 
 
 def single_device_mesh(
-    *, device_type: str = "cuda", axis_names: Tuple[str, str] = (DP_AXIS, PS_AXIS)
+    *, device_type: str = "cuda", axis_names: Sequence[str] = (DP_AXIS, PS_AXIS)
 ):
-    """The 1 × 1 mesh.  In a plain process it brings up a one-rank group
-    first, over an in-memory store (NCCL for ``cuda``, gloo for ``cpu``)."""
+    """The one-rank mesh with ``axis_names`` (each of size 1; two by
+    default: the 1 × 1 mesh).  In a plain process it brings up a one-rank
+    group first, over an in-memory store (NCCL for ``cuda``, gloo for
+    ``cpu``)."""
     if not dist.is_initialized():
         if device_type == "cuda":
             torch.cuda.set_device(torch.cuda.current_device())
@@ -151,7 +182,7 @@ def single_device_mesh(
         raise ValueError(
             f"single_device_mesh needs a world of one rank, not {dist.get_world_size()}"
         )
-    return make_mesh(1, 1, device_type=device_type, axis_names=axis_names)
+    return make_nd_mesh((1,) * len(axis_names), axis_names, device_type=device_type)
 
 
 __all__ = [
@@ -162,6 +193,7 @@ __all__ = [
     "axis_size",
     "make_dp_mesh",
     "make_mesh",
+    "make_nd_mesh",
     "mesh_device",
     "require_axis",
     "single_device_mesh",

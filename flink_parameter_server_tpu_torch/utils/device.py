@@ -5,11 +5,8 @@ entry point takes a ``device`` argument whose default is ``"cuda"``.
 Asking for ``cuda`` on a machine without a card raises — nothing drops
 to the CPU quietly.  The parameter server's paths take a ``dp × ps``
 ``DeviceMesh`` (:mod:`..parallel.mesh`) whose device type matches the
-device (:func:`check_mesh`); the dense LM takes a mesh with a ``dp`` axis,
-and an ``ep`` axis for expert parallelism.  What is not multi-device yet,
-tensor, sequence and pipeline parallelism, raises for any mesh
-(:func:`reject_mesh`): it is the next port slice, slice 22 (ROADMAP Queue
-1 #9b).
+device (:func:`check_mesh`); the dense LM takes a mesh with a ``dp`` axis
+and its model-parallel axes (``models/transformer.check_lm_mesh``).
 """
 from __future__ import annotations
 
@@ -34,8 +31,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str = "ps") -> None:
     """Accept ``None`` or a torch ``DeviceMesh`` with a ``ps_axis`` axis
     whose device type matches ``device`` (when given).  Any other mesh (a
-    JAX mesh, an ``sp`` / ``tp`` layout) raises: tensor and sequence
-    parallelism are the next port slice (ROADMAP Queue 1 #9b)."""
+    JAX mesh, a mesh without the ``ps`` axis) raises: the parameter
+    server's tables are row-blocked over ``ps`` (ROADMAP Queue 1 #9 ported
+    that layout; the model-parallel axes are the LM's)."""
     if mesh is None:
         return
     from torch.distributed.device_mesh import DeviceMesh
@@ -43,25 +41,13 @@ def check_mesh(mesh: Optional[Any], device: DeviceLike = None, *, ps_axis: str =
     if not isinstance(mesh, DeviceMesh) or ps_axis not in (mesh.mesh_dim_names or ()):
         raise NotImplementedError(
             f"the torch port's meshes are torch DeviceMeshes with a {ps_axis!r} "
-            f"axis (parallel.mesh.make_mesh), got {type(mesh).__name__}; other "
-            f"layouts are model parallelism, the next port slice (ROADMAP Queue 1 #9b)"
+            f"axis (parallel.mesh.make_mesh), got {type(mesh).__name__}; the table's "
+            f"layout is the ps row blocks of ROADMAP Queue 1 #9"
         )
     if device is not None and torch.device(device).type != mesh.device_type:
         raise ValueError(
             f"device {device} does not match the mesh's device type {mesh.device_type!r}"
         )
-
-
-MODEL_PARALLEL = (
-    "model parallelism (tensor, sequence and pipeline parallelism) is the next "
-    "port slice, ROADMAP Queue 1 #9b (slice 22)"
-)
-
-
-def reject_mesh(mesh: Optional[Any], what: str) -> None:
-    """Raise for any mesh: ``what`` is model parallelism, not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what} is not multi-device in the torch port yet: {MODEL_PARALLEL}")
 
 
 def mesh_resolve_device(mesh: Optional[Any], device: DeviceLike = None) -> torch.device:
@@ -76,4 +62,4 @@ def mesh_resolve_device(mesh: Optional[Any], device: DeviceLike = None) -> torch
     return resolve_device(device)
 
 
-__all__ = ["MODEL_PARALLEL", "DeviceLike", "resolve_device", "check_mesh", "reject_mesh", "mesh_resolve_device"]
+__all__ = ["DeviceLike", "resolve_device", "check_mesh", "mesh_resolve_device"]

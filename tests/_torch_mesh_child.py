@@ -29,10 +29,12 @@ ROOT = Path(__file__).resolve().parent.parent
 # ("dp",) mesh of the dense LM's batteries (tests/_torch_dense_cases.py)
 BATTERIES = {"grid": (4, (2, 2)), "grid_mf": (4, (2, 2)), "wide": (8, (2, 4)), "pair": (2, (2, 1)),
              "dense": (4, (4,)), "dense2": (2, (2,)),
-             "ep8": (8, (1, 8)), "ep24": (8, (2, 4)), "moe_dp": (4, (4,))}
+             "ep8": (8, (1, 8)), "ep24": (8, (2, 4)), "moe_dp": (4, (4,)), "mp": (8, (2, 4))}
 # the axis names of a 2-D battery's mesh, where they are not ("dp", "ps"):
-# expert parallelism's ("dp", "ep") (tests/_torch_moe_cases.py)
-AXES = {"ep8": ("dp", "ep"), "ep24": ("dp", "ep")}
+# expert parallelism's ("dp", "ep") (tests/_torch_moe_cases.py), sequence
+# parallelism's ("dp", "sp") (tests/_torch_mp_cases.py, whose cases build
+# their other meshes over the same ranks)
+AXES = {"ep8": ("dp", "ep"), "ep24": ("dp", "ep"), "mp": ("dp", "sp")}
 
 
 def run_battery(battery: str, outdir: Path, *, timeout: float = 150.0) -> dict:
@@ -807,9 +809,11 @@ def _cases(battery: str) -> list:
         return CASES[battery]
     import _torch_dense_cases
     import _torch_moe_cases
+    import _torch_mp_cases
 
-    if battery in _torch_moe_cases.CASES:
-        return _torch_moe_cases.CASES[battery]
+    for module in (_torch_moe_cases, _torch_mp_cases):
+        if battery in module.CASES:
+            return module.CASES[battery]
     return _torch_dense_cases.CASES[battery]
 
 
