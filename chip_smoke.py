@@ -33,13 +33,17 @@ line each; any failure exits non-zero before the last line:
              65,536-lane Zipf microbatch), float32, bfloat16, int32 and
              packed tables, and in float32 twice on the same inputs, which
              must agree bit for bit; the flash-attention forward, dQ and dK/dV at
-             the LM's shape (B 16, T 512, H 8, D 64, bfloat16), at B 2,
-             T 1024, H 8, D 128 in float32, at head_dim 256 (B 2, T 1024,
-             H 4) in both dtypes, and at head_dim 320 and 512 (B 2,
-             T 1024, H 2; the column-split kernels) in both dtypes; for
-             each bfloat16 output the error of scaled_dot_product_attention
-             against the same plain version is printed beside the
-             kernel's, as a yardstick.
+             the LM's shape (B 16, T 512, H 8, D 64, bfloat16), at a dp-4
+             and a tp-4 rank's shares of it in float32, at B 2, T 1024,
+             H 8, D 128 in float32, at head_dim 256 (B 2, T 1024, H 4) in
+             both dtypes, and at head_dim 320 and 512 (B 2, T 1024, H 2;
+             the column-split kernels) in both dtypes; for each bfloat16
+             output the error of scaled_dot_product_attention against the
+             same plain version is printed beside the kernel's, as a
+             yardstick.  A ``route:`` line for each dtype and head width
+             names the three kernels it launched, read from torch.profiler
+             (float32 dQ and dK/dV at head_dim 64-256 must take the 3xTF32
+             kernels, every other pair its own).
   determinism  ``ps_online_mf`` twice on the same full-width stream (8
              microbatches) under each ``scatter_impl``: the item table and
              the user state must agree bit for bit; ``index_add_`` and
@@ -378,9 +382,12 @@ line each; any failure exits non-zero before the last line:
              the scatter-add, ``scaled_dot_product_attention`` forward and
              backward for the flash kernels; K3b + K3c beside the whole
              backward); the column-split kernels' times at head_dim 320
-             and 512; the float32 SIMT kernels at head_dim 64 at a dp-4
-             and a tp-4 rank's shares of the LM, beside their bounds and
-             SDPA's float32 forward and backward.
+             and 512 in both dtypes beside their bounds and SDPA's
+             forward and whole backward; the float32 kernels at a dp-4
+             and a tp-4 rank's shares of the LM (head_dim 64) and at a
+             dp-4 share's width in heads of 128 and 256, beside their
+             bounds (3xTF32 on the tensor cores, and the CUDA cores'
+             figure) and SDPA's float32 forward and whole backward.
 
 The line before the last is the card's name and power limit, the last is
 ``{"ok": true, "device": {...}}``.
@@ -405,6 +412,7 @@ LEARNING_RATE = 0.01
 BATCHES_PER_EPOCH, EPOCHS = 2, 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense: a float32 product in 3xTF32 takes three
 BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
 LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
 LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
@@ -416,8 +424,9 @@ MF_FAMILIES = (("K1/K2 pass 1", ("scatter_tile_pass", "mf_tile_pass")),
                ("gather/scatter", ("index", "gather", "scatter")), ("copy", ("copy", "memcpy", "memset")))
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPLIT_DS = (320, 512)  # head widths past 256: the column-split kernels
-BOUND_TILE = 64  # the causal tiling the flash bound counts, fixed to the work, not to a kernel's tiles
 TENSOR_CORES, SIMT = "tensor cores (bf16 mma.sync)", "SIMT (float32 FMA)"
+TF32 = "tensor cores (3xTF32 mma.sync)"
+FLASH_OWN_DS = (64, 128, 192, 256)  # head widths with a template of their own
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -6092,14 +6101,17 @@ def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
 
 def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
-    shape in bfloat16, at a dp-4 rank's share of it in float32 (the
-    dense_dp phase's float32 runs), at a longer, wider float32 shape, at head_dim 256 in
-    both dtypes (bfloat16 runs the tensor-core kernels, float32 the SIMT
-    kernels), and at head_dim 320 and 512 in both dtypes (the column-split
-    SIMT kernels).
+    shape in bfloat16, at a dp-4 and a tp-4 rank's shares of it in float32
+    (the dense_dp phase's float32 runs), at a longer, wider float32 shape,
+    at head_dim 256 in both dtypes (bfloat16 runs the tensor-core kernels,
+    float32 the SIMT forward and the 3xTF32 backward), and at head_dim 320
+    and 512 in both dtypes (the column-split SIMT kernels); then the route
+    each (dtype, head_dim) takes (:func:`_flash_routes`).
 
     Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
     for K1: both sides sum the same float32 products in another order.
+    The 3xTF32 backward carries each float32 product to about 2**-21 of
+    itself, a few units of float32's last place, so it keeps that bar.
     bfloat16: the outputs (O, dQ, dK, dV) are rounded to bfloat16 from
     float32 values that differ only in summation order (the forward's P
     split into two bf16 operands carries it to about 2**-16; the dQ kernel
@@ -6112,14 +6124,50 @@ def _flash_checks(torch, dev, gen):
     error."""
     errs = {}
     shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (LM_B // DDP_WORLD, LM_T, LM_H, LM_D, torch.float32),
-              (2, 1024, 8, 128, torch.float32),
+              (LM_B, LM_T, LM_H // MP_WORLD, LM_D, torch.float32), (2, 1024, 8, 128, torch.float32),
               (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
                   (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32))
     for B, T, H, D, dtype in shapes:
         found = _k3_against_plain(torch, dev, gen, B, T, H, D, dtype)
         if not errs:  # the LM's shape: the error the kernels line reports
             errs = found
+    _flash_routes(torch, dev, gen)
     return errs
+
+
+def _flash_routes(torch, dev, gen):
+    """The kernels each (dtype, head_dim) launches for the forward, dQ and
+    dK/dV at (B 1, T 128, H 1), by the names torch.profiler records: a
+    ``route:`` line each.  float32 dQ and dK/dV at head_dim 64-256 must
+    take the 3xTF32 kernels; bfloat16 there the bf16 tensor-core kernels,
+    the float32 forward the SIMT kernel, and every wider head the
+    column-split kernels."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in FLASH_OWN_DS + SPLIT_DS:
+            q, k, v, do = flash_inputs(torch, dev, gen, 1, 128, 1, D, dtype)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                o, lse = fa.flash_fwd(q, k, v)
+                _, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+                fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+                torch.cuda.synchronize()
+            took = sorted({m.group(1) for ev in prof.key_averages()
+                           for m in [re.search(r"fps::(flash_\w+(?:<[^>]*>)?)", ev.key)] if m})
+            f32, own = dtype == torch.float32, D in FLASH_OWN_DS
+            fwd, bwd = ("" if f32 else "mma_", "tf32_" if f32 else "mma_") if own else ("split_", "split_")
+            want = {"flash_fwd": f"flash_fwd_{fwd}kernel<", "flash_bwd_dq": f"flash_bwd_dq_{bwd}kernel<",
+                    "flash_bwd_dkv": f"flash_bwd_dkv_{bwd}kernel<"}
+            label = str(dtype).replace("torch.", "")
+            print(f"route: {label} D {D}: {', '.join(took) or 'no kernel names in the trace'}")
+            for name, prefix in want.items():
+                hits = [t for t in took if t.startswith(name + "_")]
+                check(len(hits) == 1 and hits[0].startswith(prefix),
+                      f"{label} D {D} {name} took {hits}, not {prefix}...>")
 
 
 def _k3_against_plain(torch, dev, gen, B, T, H, D, dtype):
@@ -6720,115 +6768,147 @@ def phase_timing(torch, dev, gen, launches, errs):
 def _flash_timing(torch, dev, gen, flush, launches, errs):
     """K3a/b/c at the LM's shape (bfloat16).  Bound: the larger of the
     bytes (each input read once, each output written once) over 3.35 TB/s
-    and the products of the 64 x 64 tiles the causal mask keeps over the
-    bfloat16 tensor-core peak.  Library: scaled_dot_product_attention,
+    and the products over the (query, key) pairs the causal mask keeps
+    over the bfloat16 tensor-core peak.  Library: scaled_dot_product_attention,
     forward for K3a and its backward (dQ, dK and dV together) for K3b and
     K3c; it is timed here only and the port never calls it."""
-    import torch.nn.functional as F
-
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 
     B, T, H, D = LM_B, LM_T, LM_H, LM_D
     q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, torch.bfloat16)
     o, lse = fa.flash_fwd(q, k, v)
     dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
-    elems, stat = B * T * H * D * q.element_size(), B * H * T * 4
-    n = T // BOUND_TILE
-    tile_products = n * (n + 1) // 2 * B * H * 2 * BOUND_TILE * BOUND_TILE * D  # flops of one product per kept tile
-
-    heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]  # (B, H, T, D) views
-    out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
-    do_h = do.transpose(1, 2)
-    sdpa_fwd = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-        *(t.detach() for t in heads), is_causal=True, scale=1.0), flush)
-    sdpa_bwd = gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do_h, retain_graph=True), flush)
+    sdpa = _sdpa_ms(torch, q, k, v, do, flush)
+    work = _flash_work(B, T, H, D, q.element_size())
     cases = [
-        ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v), sdpa_fwd,
-         4 * elems + stat, 2 * tile_products, ":1137 forward", TENSOR_CORES),
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v), sdpa["fwd"],
+         ":1137 forward"),
         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
-         lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse), sdpa_bwd,
-         6 * elems + 2 * stat, 3 * tile_products, ":1635 dQ", TENSOR_CORES),
+         lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse), sdpa["bwd"], ":1635 dQ"),
         ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
-         lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), sdpa_bwd,
-         6 * elems + 2 * stat, 4 * tile_products, ":2196 dK/dV", TENSOR_CORES),
+         lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta), sdpa["bwd"], ":2196 dK/dV"),
     ]
     rows = []
-    for name, kernel, plain, l_ms, nbytes, flops, splash, design in cases:
+    for name, kernel, plain, l_ms, splash in cases:
+        nbytes, flops = work[name]
         k_ms = gpu_ms(torch, kernel, flush)
         p_ms = gpu_ms(torch, plain, flush, reps=5)
         rows.append(_row(
             name, "flink_parameter_server_tpu_torch/csrc/flash_attn.cu",
             f"flink_parameter_server_tpu/ops/flash_attention.py:117 (splash_attention_kernel.py{splash})",
             launches, errs, k_ms, p_ms, l_ms, nbytes, flops / BF16_OPS_PER_S,
-            f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in kept tiles, "
-            f"{launches[name] // LM_STEPS} launches a step", design))
+            f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in causal pairs, "
+            f"{launches[name] // LM_STEPS} launches a step", TENSOR_CORES))
     dq_ms, dkv_ms = rows[1]["ms"], rows[2]["ms"]
     print(f"timing: the backward, K3b + K3c {dq_ms:.4f} + {dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms "
-          f"against scaled_dot_product_attention's whole backward (dQ, dK, dV) {sdpa_bwd:.4f} ms "
-          f"({(dq_ms + dkv_ms) / sdpa_bwd:.2f}x)")
+          f"against scaled_dot_product_attention's whole backward (dQ, dK, dV) {sdpa['bwd']:.4f} ms "
+          f"({(dq_ms + dkv_ms) / sdpa['bwd']:.2f}x)")
     _split_timing(torch, dev, gen, flush)
     _f32_rank_timing(torch, dev, gen, flush)
     return rows
 
 
-def _f32_rank_timing(torch, dev, gen, flush):
-    """The float32 SIMT instances at head_dim 64, at the shapes the gloo
-    ranks of phase_parallel_dense give them (a dp-4 rank's (4, 512, 8, 64),
-    a tp-4 rank's (16, 512, 2, 64)): each kernel's median time beside its
-    bound (the bytes, or the kept tiles' products over the float32 peak
-    outside the tensor cores) and scaled_dot_product_attention's float32
-    forward or whole backward, in PERF.md's table's terms."""
+def _flash_bound(nbytes, flops, dtype):
+    """``(bound ms, "bytes" or "operations", CUDA-core ms)`` of one flash
+    kernel's work: the bytes (each input read once, each output written
+    once) over 3.35 TB/s, or the causal pairs' products over the fastest
+    rate for the dtype: bfloat16 on its tensor cores, float32 as 3xTF32
+    (three TF32 products each) on the TF32 tensor cores.  The third value
+    is the products over the CUDA cores' float32 peak, the bound that
+    float32 took while its kernels ran on the CUDA cores."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (flops / BF16_OPS_PER_S if dtype == "bf16" else 3 * flops / TF32_OPS_PER_S) * 1e3
+    bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return bound, by, flops / F32_OPS_PER_S * 1e3
+
+
+def _flash_work(B, T, H, D, elem_bytes):
+    """Bytes and flops of K3a, K3b and K3c at (B, T, H, D): the three
+    kernels' inputs and outputs, and 2, 3 and 4 products over the T (T +
+    1) / 2 (query, key) pairs the causal mask keeps in each head, 2 D flops
+    a pair."""
+    elems, stat = B * T * H * D * elem_bytes, B * H * T * 4
+    product = B * H * T * (T + 1) // 2 * 2 * D
+    return {"flash_fwd": (4 * elems + stat, 2 * product),
+            "flash_bwd_dq": (6 * elems + 2 * stat, 3 * product),
+            "flash_bwd_dkv": (6 * elems + 2 * stat, 4 * product)}
+
+
+def _sdpa_ms(torch, q, k, v, do, flush):
+    """scaled_dot_product_attention's causal forward and whole backward
+    (dQ, dK, dV) on the same inputs, timed here only: the port never
+    calls it."""
     import torch.nn.functional as F
 
+    heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]  # (B, H, T, D) views
+    out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
+    return {"fwd": gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+        *(t.detach() for t in heads), is_causal=True, scale=1.0), flush),
+        "bwd": gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do.transpose(1, 2), retain_graph=True),
+                      flush)}
+
+
+def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
+    """The three kernels at one shape: each one's median time beside its
+    bound, the share of the bound it reaches (never past 100 %), its
+    plain version's time, and SDPA's forward or whole backward in the same
+    dtype."""
     from flink_parameter_server_tpu_torch.ops import flash_attention as fa
 
-    for B, H, who in ((LM_B // DDP_WORLD, LM_H, "dp-4 rank"), (LM_B, LM_H // MP_WORLD, "tp-4 rank")):
-        T, D = LM_T, LM_D
-        q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, torch.float32)
-        o, lse = fa.flash_fwd(q, k, v)
-        dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
-        elems, stat = B * T * H * D * 4, B * H * T * 4
-        n = T // BOUND_TILE
-        tile_products = n * (n + 1) // 2 * B * H * 2 * BOUND_TILE * BOUND_TILE * D
-        heads = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*heads, is_causal=True, scale=1.0)
-        sdpa = {"fwd": gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-            *(t.detach() for t in heads), is_causal=True, scale=1.0), flush),
-            "bwd": gpu_ms(torch, lambda: torch.autograd.grad(out, heads, do.transpose(1, 2), retain_graph=True),
-                          flush)}
-        cases = (("flash_fwd", lambda: fa.flash_fwd(q, k, v), 4 * elems + stat, 2 * tile_products, "fwd"),
-                 ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, o, do, lse), 6 * elems + 2 * stat,
-                  3 * tile_products, "bwd"),
-                 ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), 6 * elems + 2 * stat,
-                  4 * tile_products, "bwd"))
-        for name, fn, nbytes, flops, lib in cases:
-            k_ms = gpu_ms(torch, fn, flush)
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_OPS_PER_S * 1e3
-            bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-            print(f"timing: {name} (B {B}, T {T}, H {H}, D {D}) f32, {SIMT}, a {who}'s share of the LM: kernel "
-                  f"{k_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes} B, {flops} flops in kept tiles), "
-                  f"scaled_dot_product_attention float32 {'forward' if lib == 'fwd' else 'whole backward'} "
-                  f"{sdpa[lib]:.4f} ms")
+    q, k, v, do = flash_inputs(torch, dev, gen, B, T, H, D, dtype)
+    o, lse = fa.flash_fwd(q, k, v)
+    _, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    sdpa = _sdpa_ms(torch, q, k, v, do, flush)
+    short = "f32" if dtype == torch.float32 else "bf16"
+    own = D in FLASH_OWN_DS
+    fns = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v)),
+           "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
+                            lambda: fa.flash_bwd_dq_plain(q, k, v, o, do, lse)),
+           "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
+                             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta))}
+    times = {}
+    for name, (nbytes, flops) in _flash_work(B, T, H, D, q.element_size()).items():
+        design = ("column-split SIMT" if not own else TENSOR_CORES if short == "bf16"
+                  else SIMT if name == "flash_fwd" else TF32)
+        kernel, plain = fns[name]
+        k_ms = times[name] = gpu_ms(torch, kernel, flush)
+        p_ms = gpu_ms(torch, plain, flush, reps=5)
+        bound, by, cuda_cores = _flash_bound(nbytes, flops, short)
+        lib = "forward" if name == "flash_fwd" else "whole backward"
+        print(f"timing: {name} (B {B}, T {T}, H {H}, D {D}) {short}, {design}, {who}: kernel {k_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}, {nbytes} B, {flops} flops in causal pairs; {bound / k_ms:.1%} of it "
+              f"reached; over the CUDA cores' float32 peak {cuda_cores:.4f} ms), plain {p_ms:.4f} ms, "
+              f"scaled_dot_product_attention {short} {lib} {sdpa['fwd' if name == 'flash_fwd' else 'bwd']:.4f} ms")
+        check(k_ms >= bound, f"{name} at (B {B}, T {T}, H {H}, D {D}) {short} ran past its bound")
+    if short == "f32" and own:
+        pair = times["flash_bwd_dq"] + times["flash_bwd_dkv"]
+        print(f"timing: the float32 backward at (B {B}, T {T}, H {H}, D {D}), {who}: K3b + K3c "
+              f"{times['flash_bwd_dq']:.4f} + {times['flash_bwd_dkv']:.4f} = {pair:.4f} ms against "
+              f"scaled_dot_product_attention's whole float32 backward {sdpa['bwd']:.4f} ms "
+              f"({pair / sdpa['bwd']:.2f}x)")
+
+
+def _f32_rank_timing(torch, dev, gen, flush):
+    """The float32 instances (the SIMT forward, the 3xTF32 backward) at
+    the shapes the gloo ranks of phase_parallel_dense give them (a dp-4
+    rank's (4, 512, 8, 64), a tp-4 rank's (16, 512, 2, 64)), and at a dp-4
+    rank's width in heads of 128 and 256 ((4, 512, 4, 128), (4, 512, 2,
+    256)), in PERF.md's table's terms."""
+    for B, H, D, who in ((LM_B // DDP_WORLD, LM_H, LM_D, "a dp-4 rank's share of the LM"),
+                         (LM_B, LM_H // MP_WORLD, LM_D, "a tp-4 rank's share of the LM"),
+                         (LM_B // DDP_WORLD, LM_H // 2, 2 * LM_D, "a dp-4 share's width at head_dim 128"),
+                         (LM_B // DDP_WORLD, LM_H // 4, 4 * LM_D, "a dp-4 share's width at head_dim 256")):
+        _flash_kernel_times(torch, dev, gen, flush, B, LM_T, H, D, torch.float32, who)
 
 
 def _split_timing(torch, dev, gen, flush):
-    """The column-split kernels (head widths past 256) at B 2, T 1024, H 2:
-    each kernel's median time, beside the same kernel at head_dim 256 (its
-    own template) for scale."""
-    from flink_parameter_server_tpu_torch.ops import flash_attention as fa
-
+    """The column-split kernels (head widths past 256) at B 2, T 1024, H 2
+    in both dtypes, beside the same kernels at head_dim 256 (their own
+    templates) for scale: each kernel's time, bound and SDPA's forward or
+    whole backward."""
     for dtype in (torch.bfloat16, torch.float32):
         for D in (256,) + SPLIT_DS:
-            q, k, v, do = flash_inputs(torch, dev, gen, 2, 1024, 2, D, dtype)
-            o, lse = fa.flash_fwd(q, k, v)
-            dq, delta = fa.flash_bwd_dq(q, k, v, o, do, lse)
-            times = [gpu_ms(torch, fn, flush) for fn in (
-                lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_bwd_dq(q, k, v, o, do, lse),
-                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))]
-            route = "column-split SIMT" if D in SPLIT_DS else "own template"
-            print(f"timing: (B 2, T 1024, H 2, D {D}) {str(dtype).replace('torch.', '')}, {route}: "
-                  f"flash_fwd {times[0]:.4f} ms, flash_bwd_dq {times[1]:.4f} ms, "
-                  f"flash_bwd_dkv {times[2]:.4f} ms")
+            _flash_kernel_times(torch, dev, gen, flush, 2, 1024, 2, D, dtype, "B 2, T 1024, H 2")
 
 
 def _row(name, source, replaces, launches, errs, k_ms, p_ms, l_ms, nbytes, ops_s, detail, design=SIMT):

@@ -8,16 +8,20 @@
 //
 // One std::thread per CUDA thread, blocks one after another; std::barrier
 // for __syncthreads, __syncthreads_count and the warp-collective
-// instructions; float4 as a 16-byte aligned struct; cp.async
-// copies deferred until the cp.async.wait_group that covers them; ldmatrix
-// and mma.m16n8k16 (bf16 in, float32 sums) with the PTX ISA's fragment
-// layouts.  Shared memory is filled with NaN before each block, and every
-// ldmatrix and cp.async address is checked for 16-byte alignment and for
-// lying in shared memory.  A launch runs to its end before it returns.
+// instructions; float2 and float4 as 8- and 16-byte aligned structs;
+// cp.async copies deferred until the cp.async.wait_group that covers them;
+// ldmatrix, mma.m16n8k16 (bf16 in, float32 sums) and mma.m16n8k8 (TF32 in,
+// float32 sums, truncating as the tensor cores do) with the PTX ISA's
+// fragment layouts; the TF32 rounding of mma.cuh's to_tf32.  Shared memory
+// is filled with NaN before each block, and every ldmatrix and cp.async
+// address is checked for 16-byte alignment and for lying in shared memory.
+// A launch runs to its end before it returns.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include <barrier>
 #include <cassert>
@@ -72,7 +76,21 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }
 inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short s) { return {s}; }
 inline int64_t min(int64_t a, int64_t b) { return a < b ? a : b; }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
@@ -90,9 +108,12 @@ struct Block {
   int count = 0;
   uint32_t a[32][32][4];
   uint32_t b[32][32][2];
+  uint32_t tf32_a[2][32][32][4];  // mma_tf32's operands, two buffers in turn
+  uint32_t tf32_b[2][32][32][2];
 };
 inline Block* block;
 inline thread_local int lane, warp;
+inline thread_local int tf32_buffer;  // the buffer this lane's next mma_tf32 fills
 inline void warp_sync() { block->warp_bar[warp]->arrive_and_wait(); }
 
 struct Copy {
@@ -261,6 +282,47 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     d[e] = sum;
   }
   emu::warp_sync();
+}
+
+// TF32 rounding as mma.cuh's to_tf32 does it on the card, and as
+// cvt.rna.tf32.f32 does for finite x only: to nearest, ties away from zero
+// (add half a TF32 unit to the magnitude, then drop the 13 low bits).
+inline uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// d += A B, m16n8k8 TF32: A[r][k] sits in register (r >= 8) + 2 (k >= 4) of
+// lane 4 (r % 8) + k % 4, B[k][n] in register (k >= 4) of lane 4 n + k % 4.
+// Each register is read as TF32, its 13 low bits cleared.  The eight
+// products and d are summed exactly (in double) and the sum rounded toward
+// zero: the tensor cores' adds truncate, so a sum carried through d drifts
+// toward zero as on the card.  The operands go through two buffers in
+// turn, so a call waits once: a lane fills a buffer again only after its
+// whole warp has reached the next call's barrier, which each lane reaches
+// after reading that buffer.
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  const int w = emu::warp, l = emu::lane, p = emu::tf32_buffer;
+  emu::tf32_buffer ^= 1;
+  auto& ea = emu::block->tf32_a[p][w];
+  auto& eb = emu::block->tf32_b[p][w];
+  for (int i = 0; i < 4; ++i) ea[l][i] = a[i];
+  eb[l][0] = b0;
+  eb[l][1] = b1;
+  emu::warp_sync();
+  const int g = l / 4, t = l % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    double sum = d[e];
+    for (int k = 0; k < 8; ++k)
+      sum += static_cast<double>(__uint_as_float(ea[4 * (row % 8) + k % 4][(row >= 8) + 2 * (k >= 4)] & 0xffffe000u)) *
+             __uint_as_float(eb[4 * col + k % 4][k >= 4] & 0xffffe000u);
+    float r = static_cast<float>(sum);
+    if (std::fabs(static_cast<double>(r)) > std::fabs(sum)) r = std::nextafter(r, 0.f);
+    d[e] = r;
+  }
+}
+
+inline void mma_tf32_from_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  d[0] = d[1] = d[2] = d[3] = 0.f;
+  mma_tf32(d, a, b0, b1);
 }
 
 }  // namespace fps

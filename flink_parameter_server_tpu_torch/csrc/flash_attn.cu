@@ -21,11 +21,13 @@
 // tensor-core kernels (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma):
 // bf16 mma.sync m16n8k16 with float32 sums, operands fed by ldmatrix from
 // bf16 tiles that cp.async streams through a two-stage ring.  float32
-// inputs take the SIMT kernels: float32 FMAs on the CUDA cores.  The tensor
-// cores have no mode that keeps float32's digits (TF32 keeps about three
-// decimal digits; the float32 bar is rtol 1e-5), so float32 stays on the
-// CUDA cores.  Every wider multiple of 64 takes the column-split SIMT
-// kernels in both dtypes (see there).
+// inputs take the SIMT forward (float32 FMAs on the CUDA cores) and the
+// 3xTF32 backward (flash_bwd_dq_tf32, flash_bwd_dkv_tf32): TF32 mma.sync
+// m16n8k8, each float32 product as three TF32 products of the operands'
+// big and small halves (mma.cuh), which keeps float32's bar (rtol 1e-5)
+// where one TF32 product keeps about three decimal digits.  Every wider
+// multiple of 64 takes the column-split SIMT kernels in both dtypes (see
+// there).
 //
 // q arrives scaled by 1/sqrt(D) (the wrapper scales it, as splash's caller
 // does), so no kernel scales.  Every score, softmax statistic and sum is
@@ -40,8 +42,13 @@
 //
 // What bounds them on an H100.  At the LM's shape (B 16, T 512, H 8, D 64,
 // bf16) the bytes (q, k, v, O in and out once, ~34 MB, ~10 us) outweigh
-// the tensor-core time of the kept 64 x 64 tiles (~5 us forward, ~7 us
-// with the forward's third product).  What the designs do:
+// the tensor-core time of the (query, key) pairs the causal mask keeps
+// (~4.4 us forward, ~6.5 us with the forward's third product).  In
+// float32 at a dp-4 or tp-4 rank's share of it (4 or 16 x 512 x 8 or 2 x
+// 64) the backward's products bound it: three TF32 products each of the
+// causal pairs' 1.6 (dQ) and 2.2 (dK/dV) GFLOP over 495 TFLOP/s, 0.0098
+// and 0.013 ms, against 0.0075 ms of bytes.
+// What the designs do:
 //
 //   tensor-core kernels: a block owns 64 rows (4 warps x 16; where a
 //   warp's float32 accumulators would crowd out its score fragments, two
@@ -52,12 +59,14 @@
 //   a product's accumulators into the next product's A operand without
 //   shared memory.  Tile rows are padded by 16 B so the eight rows of an
 //   ldmatrix fall in eight different banks.
+//   3xTF32 kernels: the same shape in float32 (see there), each streamed
+//   tile split into its TF32 halves once, when it lands.
 //   SIMT kernels: a kT x kT (query x key) tile in shared memory, kT 64 or,
 //   where 64-row float tiles outgrow shared memory, 32; rows padded by one
 //   float so the 16 rows a warp reads fall in 16 banks.
 //
 // All skip tiles wholly above the causal diagonal (never loaded or
-// computed), mask only the diagonal tile, and schedule the longest query
+// computed), mask only at the diagonal, and schedule the longest query
 // rows first.
 //
 // SIMT thread layout: 256 threads as 16 x 16 (ty, tx).  A thread owns rows
@@ -178,19 +187,11 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide
 
 template <int D, int kT>
 constexpr int fwd_smem_floats() { return 3 * kT * (D + 1) + kT * (kT + 1); }
-template <int D, int kT>
-constexpr int dq_smem_floats() { return 4 * kT * (D + 1) + kT * (kT + 1); }
-template <int D, int kT>
-constexpr int dkv_smem_floats() { return 4 * kT * (D + 1) + 2 * kT * (kT + 1) + 2 * kT; }
 
-// Tile rows of each SIMT kernel: 64, or 32 where 64-row float tiles do not
-// fit in shared memory (dQ and dK/dV at D 256).
+// Tile rows of the SIMT forward: 64, or 32 where 64-row float tiles do not
+// fit in shared memory.
 template <int D>
 constexpr int fwd_tile() { return fwd_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
-template <int D>
-constexpr int dq_tile() { return dq_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
-template <int D>
-constexpr int dkv_tile() { return dkv_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
 
 // grid (T / kT, B * H): block x takes query tile T/kT - 1 - x (longest first).
 template <typename T, int D, int kT>
@@ -268,133 +269,6 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layou
     if (tx == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
   }
   store_rows<T, D, kT>(o, acc, b, h, H, T_len, D, 0, qt * kT, ty, tx);
-}
-
-// grid (T / kT, B * H): block x takes query tile T/kT - 1 - x.  Also writes
-// delta = rowsum(dO * O) for the dK/dV kernel.
-template <typename T, int D, int kT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* q, const T* k, const T* v, const T* o, const T* dout, Layout lq,
-                    Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse, float* delta,
-                    T* dq, int H, int T_len) {
-  constexpr int P = kT / kSide, C = D / kSide;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kT * (D + 1);
-  float* Ks = dOs + kT * (D + 1);
-  float* Vs = Ks + kT * (D + 1);
-  float* Ss = Vs + kT * (D + 1);
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT;
-
-  load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
-  load_tile<T, D, kT>(dOs, dout, ldo, b, h, qt * kT);
-  load_tile<T, D, kT>(Ks, o, lo, b, h, qt * kT);  // O, for delta only
-  __syncthreads();
-  float L[P], Di[P], acc[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int r = ty + kSide * i;
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) part += dOs[r * (D + 1) + tx + kSide * c] * Ks[r * (D + 1) + tx + kSide * c];
-    Di[i] = row_sum(part);
-    L[i] = lse[stat0 + r];
-    if (tx == 0) delta[stat0 + r] = Di[i];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
-    load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
-    __syncthreads();
-    float s[P][P], dp[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D, kT>(s, Qs, Ks, ty, tx);
-    tile_abt<D, kT>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const bool masked = kt == qt && tx + kSide * j > ty + kSide * i;
-        const float p = masked ? 0.f : expf(s[i][j] - L[i]);
-        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = rounded<T>(p * (dp[i][j] - Di[i]));
-      }
-    __syncthreads();
-    tile_sv<D, kT>(acc, Ss, Ks, ty, tx);
-  }
-  store_rows<T, D, kT>(dq, acc, b, h, H, T_len, D, 0, qt * kT, ty, tx);
-}
-
-// grid (T / kT, B * H): block x takes key tile x (the lowest tiles see the
-// most query tiles, so they start first).  Thread rows are key rows.
-template <typename T, int D, int kT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* q, const T* k, const T* v, const T* dout, Layout lq, Layout lk,
-                     Layout lv, Layout ldo, const float* lse, const float* delta, T* dk, T* dv,
-                     int H, int T_len) {
-  constexpr int P = kT / kSide, C = D / kSide;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kT * (D + 1);
-  float* Qs = Vs + kT * (D + 1);
-  float* dOs = Qs + kT * (D + 1);
-  float* Pt = dOs + kT * (D + 1);  // P^T: key row x query column
-  float* dSt = Pt + kT * (kT + 1);  // dS^T
-  float* Ls = dSt + kT * (kT + 1);
-  float* Ds = Ls + kT;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int kt = blockIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-
-  load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
-  load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
-  float dK[P][C], dV[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dK[i][c] = dV[i][c] = 0.f;
-
-  for (int qt = kt; qt < static_cast<int>(gridDim.x); ++qt) {  // query tiles at or below the diagonal
-    __syncthreads();
-    load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
-    load_tile<T, D, kT>(dOs, dout, ldo, b, h, qt * kT);
-    if (threadIdx.x < kT) {
-      const int64_t at = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + threadIdx.x;
-      Ls[threadIdx.x] = lse[at];
-      Ds[threadIdx.x] = delta[at];
-    }
-    __syncthreads();
-    float s[P][P], dp[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_abt<D, kT>(s, Ks, Qs, ty, tx);    // s[i][j] = k[key i] . q[query j]
-    tile_abt<D, kT>(dp, Vs, dOs, ty, tx);  // dp[i][j] = v[key i] . dO[query j]
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int key = ty + kSide * i, query = tx + kSide * j;
-        const bool masked = qt == kt && key > query;
-        const float p = masked ? 0.f : expf(s[i][j] - Ls[query]);
-        Pt[key * (kT + 1) + query] = rounded<T>(p);
-        dSt[key * (kT + 1) + query] = rounded<T>(p * (dp[i][j] - Ds[query]));
-      }
-    __syncthreads();
-    tile_sv<D, kT>(dV, Pt, dOs, ty, tx);
-    tile_sv<D, kT>(dK, dSt, Qs, ty, tx);
-  }
-  store_rows<T, D, kT>(dk, dK, b, h, H, T_len, D, 0, kt * kT, ty, tx);
-  store_rows<T, D, kT>(dv, dV, b, h, H, T_len, D, 0, kt * kT, ty, tx);
 }
 
 // ---- column-split SIMT kernels (head widths past 256, D a runtime multiple of 64) ----
@@ -1115,6 +989,384 @@ flash_bwd_dkv_mma_kernel(const bf16* q, const bf16* k, const bf16* v, const bf16
   }
 }
 
+// ---- float32 tensor-core kernels (3xTF32 mma.sync, backward) ----
+//
+// The shape of the bf16 backward kernels, in float32, with every product
+// three TF32 mma.m16n8k8 (mma.cuh, "3xTF32").  A block owns kM rows (warps
+// of 16); the other side streams past in kS-row tiles through a two-stage
+// cp.async ring, so the next tile's load overlaps this tile's products.
+// Splitting a float into its TF32 halves costs ALU work, and every warp
+// reads the whole streamed tile as a B operand, so each tile is split once,
+// in place, when it lands: a "big" plane (x rounded to TF32) and a "small"
+// plane (x - big) that all warps then read with no further work.  The
+// block's own rows are the A operands, split as each warp loads them.
+// Operands of the score products (rows with d contiguous) come by
+// ldmatrix, which moves float32 rows as pairs of bf16; a product's
+// accumulators become the next product's A operand in registers, its k
+// index permuted (acc_to_a_tf32), and that product's B rows are read as
+// scalars in the same order.  Rows are padded to D + 4 floats: the eight
+// rows of an ldmatrix start 16 B apart in the bank cycle, and a warp's
+// scalar reads of rows 2t and 2t + 1 at column g fall in banks 8t + g, all
+// different.
+
+// Row stride in shared memory, in floats.
+template <int D>
+__host__ __device__ constexpr int f32_stride() { return D + 4; }
+// Rows a block owns, and rows of each streamed tile: halved above D 128,
+// so that the own tiles and two stages of split streamed tiles fit.
+template <int D>
+__host__ __device__ constexpr int f32_own() { return D <= 128 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int f32_step() { return D <= 128 ? 32 : 16; }
+template <int D>
+constexpr int f32_smem_bytes() {  // two own tiles, two stages of two split tiles, statistics
+  return (2 * f32_own<D>() + 8 * f32_step<D>()) * f32_stride<D>() * 4 + 4 * f32_step<D>() * 4 +
+         f32_own<D>() * 4;
+}
+
+// Rows [row0, row0 + kR) of head (b, h) into shared memory with cp.async,
+// 16 B (four floats) a thread per copy, kN threads.  Needs 16-byte aligned
+// rows (the wrapper checks the pointers and strides).
+template <int D, int kR, int kN>
+__device__ __forceinline__ void tile_async_f32(float* dst, const float* src, const Layout& lay, int b, int h,
+                                               int row0) {
+  constexpr int kChunks = D / 4;  // 16-byte pieces of a row
+  const float* base = src + b * lay.b + h * lay.h + static_cast<int64_t>(row0) * lay.t;
+  for (int i = threadIdx.x; i < kR * kChunks; i += kN) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    cp_async_16(dst + r * f32_stride<D>() + c, base + r * lay.t + c);
+  }
+}
+
+// A landed kR-row tile split in place: big keeps x rounded to TF32, small
+// takes x - big.  kN threads, four floats each a step.
+template <int D, int kR, int kN>
+__device__ __forceinline__ void split_tile_f32(float* big, float* small) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < kR * kChunks; i += kN) {
+    const int at = (i / kChunks) * f32_stride<D>() + (i % kChunks) * 4;
+    float4 x = *reinterpret_cast<const float4*>(big + at), lo;
+    float* xs = &x.x;
+    float* ls = &lo.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float hi = __uint_as_float(to_tf32(xs[e]));
+      ls[e] = xs[e] - hi;
+      xs[e] = hi;
+    }
+    *reinterpret_cast<float4*>(big + at) = x;
+    *reinterpret_cast<float4*>(small + at) = lo;
+  }
+}
+
+// Lanes of a float32 ldmatrix_x4 (Lanes' rows, its columns in floats):
+// A operand at (row a_row, column a_col) of a 16 x 8 piece, B operand with
+// rows = n at (b_row, b_col) of a 16 x 8 piece (two n-tiles).
+struct LanesF32 {
+  int a_row, a_col, b_row, b_col, g, t4;
+  __device__ __forceinline__ explicit LanesF32(int lane)
+      : a_row(lane % 16), a_col(4 * (lane / 16)), b_row(8 * (lane / 16) + lane % 8),
+        b_col(4 * (lane / 8 % 2)), g(lane / 4), t4(lane % 4) {}
+};
+
+// A split streamed tile: its big and small planes.
+struct PlanesF32 {
+  const float* big;
+  const float* small;
+};
+
+// acc[n] = X Y^T and acc2[n] = X2 Y2^T over the full D for a warp's 16
+// rows (w0..) of the own tiles X and X2 against the N n-tiles of the
+// split streamed tiles Y and Y2: the two score products of the backward.
+// Two 8-column steps of d chain through the tensor cores (six truncating
+// adds, too few to drift), then join the sums in the CUDA cores.
+template <int D, int N>
+__device__ __forceinline__ void scores_tf32(float (&acc)[N][4], float (&acc2)[N][4], const float* Xs,
+                                            const float* X2s, PlanesF32 Y, PlanesF32 Y2, int w0,
+                                            const LanesF32& ln) {
+  constexpr int S = f32_stride<D>();
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = acc2[n][e] = 0.f;
+#pragma unroll 1
+  for (int kd0 = 0; kd0 < D / 8; kd0 += 2) {
+    float t[N][4], t2[N][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kd = kd0 + i;
+      uint32_t xr[4], x2r[4];
+      ldmatrix_x4(xr, Xs + (w0 + ln.a_row) * S + 8 * kd + ln.a_col);
+      ldmatrix_x4(x2r, X2s + (w0 + ln.a_row) * S + 8 * kd + ln.a_col);
+      const Split<4> xa = split4(xr), x2a = split4(x2r);
+#pragma unroll
+      for (int n = 0; n < N; n += 2) {  // an ldmatrix_x4 holds B of two n-tiles
+        const int at = (8 * n + ln.b_row) * S + 8 * kd + ln.b_col;
+        Split<4> yb, y2b;
+        ldmatrix_x4(yb.big, Y.big + at);
+        ldmatrix_x4(yb.small, Y.small + at);
+        ldmatrix_x4(y2b.big, Y2.big + at);
+        ldmatrix_x4(y2b.small, Y2.small + at);
+        if (i == 0) {
+          mma_3xtf32_chain<false, 2>(t, n, xa, yb);
+          mma_3xtf32_chain<false, 2>(t2, n, x2a, y2b);
+        } else {
+          mma_3xtf32_chain<true, 2>(t, n, xa, yb);
+          mma_3xtf32_chain<true, 2>(t2, n, x2a, y2b);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] += t[n][e];
+        acc2[n][e] += t2[n][e];
+      }
+  }
+}
+
+// out[n] += C Z for the 16 x 8 accumulator tile c (its columns = rows z0 ..
+// z0 + 7 of the split tile Z) and Z's columns c0 + 8 n: the lane reads rows
+// z0 + 2t, z0 + 2t + 1 at column g, the k order acc_to_a_tf32 gives; four
+// n-tiles at a time.
+template <int D, int N>
+__device__ __forceinline__ void acc_times_rows(float (&out)[N][4], const float (&c)[4], PlanesF32 Z, int z0,
+                                               int c0, const LanesF32& ln) {
+  constexpr int S = f32_stride<D>(), J = 4;
+  static_assert(N % J == 0, "output columns come in groups of four n-tiles");
+  const Split<4> a = acc_to_a_tf32(c);
+  const int at = (z0 + 2 * ln.t4) * S + c0 + ln.g;
+#pragma unroll
+  for (int n = 0; n < N; n += J) {
+    Split<2 * J> b;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      b.big[2 * j] = __float_as_uint(Z.big[at + 8 * (n + j)]);
+      b.small[2 * j] = __float_as_uint(Z.small[at + 8 * (n + j)]);
+      b.big[2 * j + 1] = __float_as_uint(Z.big[at + S + 8 * (n + j)]);
+      b.small[2 * j + 1] = __float_as_uint(Z.small[at + S + 8 * (n + j)]);
+    }
+    mma_3xtf32<J>(out, n, a, b);
+  }
+}
+
+// The dQ kernel's warp sets: above D 128 two sets split dQ's columns, both
+// computing the same S and dP, so that a lane holds at most 64 dQ sums.
+template <int D>
+__host__ __device__ constexpr int dq_f32_splits() { return D <= 128 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int dq_f32_threads() { return 2 * f32_own<D>() * dq_f32_splits<D>(); }
+
+// grid (B * H, T / kM), dq_f32_threads threads: block (x, y) takes head x's
+// query tile T/kM - 1 - y, so that every head's longest tiles start first.  Warp w owns query rows 16 (w % (kM / 16))
+// .. + 15 and dQ's columns (w / (kM / 16)) D / splits onwards; lane (g, t4)
+// holds rows g and g + 8 of them.  What flash_bwd_dq_mma_kernel computes,
+// in float32: delta = rowsum(dO * O), written for the dK/dV kernel, and
+// over the keys at or below the diagonal P = exp(q k^T - L), dP = dO v^T,
+// dS = P (dP - delta), dQ += dS k.
+template <int D>
+__global__ void __launch_bounds__(dq_f32_threads<D>(), 1)
+flash_bwd_dq_tf32_kernel(const float* q, const float* k, const float* v, const float* o, const float* dout,
+                         Layout lq, Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse,
+                         float* delta, float* dq, int H, int T_len) {
+  constexpr int kM = f32_own<D>(), kS = f32_step<D>(), kN = dq_f32_threads<D>(), kRowWarps = kM / 16;
+  constexpr int DS = D / dq_f32_splits<D>(), S = f32_stride<D>(), kPlane = kS * S;
+  static_assert(kM % kS == 0 && kS % 16 == 0 && D % 16 == 0, "tiles of whole n-tile pairs and d-step pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + kM * S;
+  float* ring = dOs + kM * S;  // stage st: K big, K small, V big, V small
+  float* Ds = ring + 8 * kPlane;  // delta of the tile's rows
+  const LanesF32 ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % kRowWarps), c0 = DS * (warp / kRowWarps);  // query rows and dQ columns
+  const int qt = gridDim.y - 1 - blockIdx.y, steps = (qt + 1) * (kM / kS);  // key tiles at or below the diagonal
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.x) * T_len + qt * kM;
+
+  tile_async_f32<D, kM, kN>(Qs, q, lq, b, h, qt * kM);
+  tile_async_f32<D, kM, kN>(dOs, dout, ldo, b, h, qt * kM);
+  tile_async_f32<D, kS, kN>(ring, k, lk, b, h, 0);
+  tile_async_f32<D, kS, kN>(ring + 2 * kPlane, v, lv, b, h, 0);
+  cp_async_commit();
+
+  {  // delta while the tiles stream in: kN / kM neighbouring threads share a row
+    constexpr int kParts = kN / kM, kCols = D / kParts;
+    const int r = threadIdx.x / kParts, c = (threadIdx.x % kParts) * kCols;
+    const int64_t row = qt * kM + r;
+    const float4* ow = reinterpret_cast<const float4*>(o + b * lo.b + h * lo.h + row * lo.t + c);
+    const float4* dw = reinterpret_cast<const float4*>(dout + b * ldo.b + h * ldo.h + row * ldo.t + c);
+    float part = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < kCols / 4; ++j) {
+      const float4 x = ow[j], y = dw[j];
+      part += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+    }
+#pragma unroll
+    for (int off = kParts / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (threadIdx.x % kParts == 0) {
+      Ds[r] = part;
+      delta[stat0 + r] = part;
+    }
+  }
+  __syncthreads();
+  float L[2], Di[2];  // rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    L[i] = lse[stat0 + w0 + ln.g + 8 * i];
+    Di[i] = Ds[w0 + ln.g + 8 * i];
+  }
+  float acc[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {  // keys j kS .. + kS - 1
+    float* stage = ring + (j & 1) * 4 * kPlane;
+    cp_async_wait<0>();
+    __syncthreads();  // this stage landed; every warp is done with the other one
+    split_tile_f32<D, kS, kN>(stage, stage + kPlane);
+    split_tile_f32<D, kS, kN>(stage + 2 * kPlane, stage + 3 * kPlane);
+    __syncthreads();
+    if (j + 1 < steps) {  // the next tile streams in while this one is used
+      float* next = ring + ((j + 1) & 1) * 4 * kPlane;
+      tile_async_f32<D, kS, kN>(next, k, lk, b, h, (j + 1) * kS);
+      tile_async_f32<D, kS, kN>(next + 2 * kPlane, v, lv, b, h, (j + 1) * kS);
+      cp_async_commit();
+    }
+    const PlanesF32 Kt{stage, stage + kPlane}, Vt{stage + 2 * kPlane, stage + 3 * kPlane};
+
+    float s[kS / 8][4], dp[kS / 8][4];  // S = q k^T and dP = dO v^T: 16 rows x kS keys
+    scores_tf32<D, kS / 8>(s, dp, Qs, dOs, Kt, Vt, w0, ln);
+    // P = exp(S - L), masked above the diagonal; dS = P (dP - delta), into dp
+#pragma unroll
+    for (int n = 0; n < kS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = qt * kM + w0 + ln.g + 8 * (e >> 1), key = j * kS + 8 * n + 2 * ln.t4 + (e & 1);
+        const float p = key > row ? 0.f : expf(s[n][e] - L[e >> 1]);
+        dp[n][e] = p * (dp[n][e] - Di[e >> 1]);
+      }
+    // dQ += dS k, eight keys a step
+#pragma unroll
+    for (int kk = 0; kk < kS / 8; ++kk) acc_times_rows<D, DS / 8>(acc, dp[kk], Kt, 8 * kk, c0, ln);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = qt * kM + w0 + ln.g + 8 * i;
+    float* dst = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// The dK/dV kernel's warp sets: D / 64 sets of warps split the output
+// columns, each holding 64 columns of dK and dV, all computing the same
+// S^T and dP^T.
+template <int D>
+__host__ __device__ constexpr int dkv_f32_splits() { return D / 64; }
+template <int D>
+__host__ __device__ constexpr int dkv_f32_threads() { return 2 * f32_own<D>() * dkv_f32_splits<D>(); }
+
+// grid (B * H, T / kM), dkv_f32_threads threads: block (x, y) takes head x's
+// key tile y (the lowest tiles see the most query tiles, so every head's
+// start first).  Warp
+// w owns key rows 16 (w % (kM / 16)) .. + 15 and output columns 64 (w /
+// (kM / 16)) onwards.  What flash_bwd_dkv_mma_kernel computes, in float32:
+// over the queries at or below the diagonal dV += P^T dO, dK += dS^T q.
+template <int D>
+__global__ void __launch_bounds__(dkv_f32_threads<D>(), 1)
+flash_bwd_dkv_tf32_kernel(const float* q, const float* k, const float* v, const float* dout, Layout lq,
+                          Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta, float* dk,
+                          float* dv, int H, int T_len) {
+  constexpr int kM = f32_own<D>(), kS = f32_step<D>(), kN = dkv_f32_threads<D>(), kRowWarps = kM / 16;
+  constexpr int DS = 64, S = f32_stride<D>(), kPlane = kS * S;
+  static_assert(kM % kS == 0 && kS % 16 == 0 && D % 64 == 0, "tiles of whole n-tile pairs and warp sets");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kM * S;
+  float* ring = Vs + kM * S;      // stage st: q big, q small, dO big, dO small
+  float* Ls = ring + 8 * kPlane;  // two stages of kS
+  float* Ds = Ls + 2 * kS;        // two stages of kS
+  const LanesF32 ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % kRowWarps), c0 = DS * (warp / kRowWarps);  // key rows and output columns
+  const int kt = blockIdx.y, first = kt * (kM / kS), steps = T_len / kS - first;  // query tiles at or below
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.x) * T_len;
+
+  // q, dO, L and D of query tile qs into stage st
+  auto load_queries = [&](int qs, int st) {
+    float* stage = ring + st * 4 * kPlane;
+    tile_async_f32<D, kS, kN>(stage, q, lq, b, h, qs * kS);
+    tile_async_f32<D, kS, kN>(stage + 2 * kPlane, dout, ldo, b, h, qs * kS);
+    const int i = threadIdx.x;
+    if (i < kS / 4) cp_async_16(Ls + st * kS + 4 * i, lse + stat0 + qs * kS + 4 * i);
+    else if (i < kS / 2) cp_async_16(Ds + st * kS + 4 * (i - kS / 4), delta + stat0 + qs * kS + 4 * (i - kS / 4));
+  };
+  tile_async_f32<D, kM, kN>(Ks, k, lk, b, h, kt * kM);
+  tile_async_f32<D, kM, kN>(Vs, v, lv, b, h, kt * kM);
+  load_queries(first, 0);
+  cp_async_commit();
+
+  float dK[DS / 8][4], dV[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {  // queries (first + j) kS .. + kS - 1
+    const int qs = first + j, st = j & 1;
+    float* stage = ring + st * 4 * kPlane;
+    cp_async_wait<0>();
+    __syncthreads();  // this stage landed; every warp is done with the other one
+    split_tile_f32<D, kS, kN>(stage, stage + kPlane);
+    split_tile_f32<D, kS, kN>(stage + 2 * kPlane, stage + 3 * kPlane);
+    __syncthreads();
+    if (j + 1 < steps) {  // the next tile streams in while this one is used
+      load_queries(qs + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const PlanesF32 Qt{stage, stage + kPlane}, dOt{stage + 2 * kPlane, stage + 3 * kPlane};
+    const float* Lt = Ls + st * kS;
+    const float* Dt = Ds + st * kS;
+
+    float s[kS / 8][4], dp[kS / 8][4];  // S^T = k q^T and dP^T = v dO^T: 16 keys x kS queries
+    scores_tf32<D, kS / 8>(s, dp, Ks, Vs, Qt, dOt, w0, ln);
+    // P^T = exp(S^T - L), masked above the diagonal; dS^T = P^T (dP^T - D)
+#pragma unroll
+    for (int n = 0; n < kS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * kM + w0 + ln.g + 8 * (e >> 1), query = 8 * n + 2 * ln.t4 + (e & 1);
+        const float p = key > qs * kS + query ? 0.f : expf(s[n][e] - Lt[query]);
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Dt[query]);
+      }
+    // dV += P^T dO and dK += dS^T q, eight queries a step
+#pragma unroll
+    for (int kk = 0; kk < kS / 8; ++kk) {
+      acc_times_rows<D, DS / 8>(dV, s[kk], dOt, 8 * kk, c0, ln);
+      acc_times_rows<D, DS / 8>(dK, dp[kk], Qt, 8 * kk, c0, ln);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = kt * kM + w0 + ln.g + 8 * i;
+    const int64_t at = ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(dK[n][2 * i], dK[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) = make_float2(dV[n][2 * i], dV[n][2 * i + 1]);
+    }
+  }
+}
+
 // ---- launchers ----
 
 // kernel<<<grid, threads, smem, stream>>>: the CPU emulation defines its own
@@ -1173,15 +1425,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
         layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<bf16*>(dq), H,
         T_len);
   } else {
-    constexpr int kT = dq_tile<D>(), smem = dq_smem_floats<D, kT>() * 4;
+    constexpr int smem = f32_smem_bytes<D>();
     static_assert(smem <= kSmemLimit, "dQ tiles outgrow shared memory");
-    const auto kernel = flash_bwd_dq_kernel<T, D, kT>;
+    const auto kernel = flash_bwd_dq_tf32_kernel<D>;
     int err = prepare(kernel, smem);
     if (err != 0) return err;
-    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
-        layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H,
+    FPS_LAUNCH(kernel, dim3(B * H, T_len / f32_own<D>()), dq_f32_threads<D>(), smem, stream)(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(o), static_cast<const float*>(dout), layout_at(st, 0), layout_at(st, 1),
+        layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<float*>(dq), H,
         T_len);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1202,15 +1454,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
         static_cast<const bf16*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
         layout_at(st, 3), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T_len);
   } else {
-    constexpr int kT = dkv_tile<D>(), smem = dkv_smem_floats<D, kT>() * 4;
+    constexpr int smem = f32_smem_bytes<D>();
     static_assert(smem <= kSmemLimit, "dK/dV tiles outgrow shared memory");
-    const auto kernel = flash_bwd_dkv_kernel<T, D, kT>;
+    const auto kernel = flash_bwd_dkv_tf32_kernel<D>;
     int err = prepare(kernel, smem);
     if (err != 0) return err;
-    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
-        layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len);
+    FPS_LAUNCH(kernel, dim3(B * H, T_len / f32_own<D>()), dkv_f32_threads<D>(), smem, stream)(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
+        layout_at(st, 3), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, T_len);
   }
   return static_cast<int>(cudaGetLastError());
 }

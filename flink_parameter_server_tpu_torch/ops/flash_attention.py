@@ -18,12 +18,15 @@ in ``csrc/flash_attn.cu``:
   splash rounds them.
 
 Routes.  At head widths 64, 128, 192 and 256 bfloat16 takes tensor-core
-kernels (bf16 ``mma.sync``, ``cp.async`` tile ring) and float32 SIMT
-kernels (float32 FMAs), since the tensor cores have no mode that keeps
-float32's digits.  Every wider head width the reference's gate takes (a
-multiple of 64) runs column-split SIMT kernels in both dtypes: one block
-per 64 output columns, the scores built over the full width in 64-column
-chunks.  Every kernel skips the tiles wholly above the causal diagonal and
+kernels (bf16 ``mma.sync``, ``cp.async`` tile ring).  float32 takes a SIMT
+forward (float32 FMAs) and a tensor-core backward in 3xTF32: each float32
+product is three TF32 ``mma.sync`` products of the operands' big and small
+TF32 halves, which keeps the float32 bar where one TF32 product keeps about
+three decimal digits; its bound is three TF32 products over the (query,
+key) pairs the causal mask keeps, at the card's TF32 rate.  Every wider head width the reference's gate
+takes (a multiple of 64) runs column-split SIMT kernels in both dtypes: one
+block per 64 output columns, the scores built over the full width in
+64-column chunks.  Every kernel skips the tiles wholly above the causal diagonal and
 keeps scores, softmax statistics and sums in float32.  Its bound on an
 H100 and its design are in the source.
 

@@ -1,8 +1,10 @@
 """The flash kernels' CUDA source, run on the CPU under an emulation.
 
 ``csrc/flash_attn.cu`` is built by g++ against ``csrc/emulation/cuda_emu.h``
-(one thread per CUDA thread; ldmatrix and mma.m16n8k16 with the PTX ISA's
-fragment layouts; cp.async copies deferred to the wait that covers them)
+(one thread per CUDA thread; ldmatrix, mma.m16n8k16 (bf16) and
+mma.m16n8k8 (TF32, its sums truncated as the card's are) with the PTX
+ISA's fragment layouts, TF32 rounding; cp.async copies deferred to the
+wait that covers them)
 into a library with the same C interface as the card's, and its output
 is held against the plain versions on the same inputs.  This checks the
 kernels' indexing, fragment layouts, masking and tile ring without a card;
@@ -10,7 +12,9 @@ speed and the real instructions are checked on the card only.  Skips
 where there is no g++.
 
 Tolerances, those of the card tests: float32 rtol 1e-5 with atol 1e-5 of
-the largest value (sums in another order); bfloat16 outputs one bfloat16
+the largest value (sums in another order; the backward's 3xTF32 products,
+whose tensor-core sums the emulation truncates as the card does, carry
+float32 to about 2**-21); bfloat16 outputs one bfloat16
 unit, rtol 2**-7 with atol 2**-8 of the largest value; L and D float32.
 """
 import ctypes
@@ -74,10 +78,13 @@ def _close(got, want, dtype):
         (1, 192, 1, 128, torch.bfloat16),  # three tiles: the cp.async ring refills a used stage
         (1, 128, 1, 256, torch.bfloat16),  # two warp sets split O, dQ, dK and dV; 16-query passes
         (1, 192, 1, 256, torch.bfloat16),  # three tiles with two warp sets: dQ's ring refilled
-        (1, 128, 1, 192, torch.float32),   # SIMT, 64-row tiles
-        (1, 128, 1, 256, torch.float32),   # SIMT, 32-row tiles for dQ and dK/dV
+        (1, 128, 1, 192, torch.float32),   # 3xTF32: 32 own rows, 16-row streamed tiles, 2 dQ / 3 dK/dV warp sets
+        (1, 128, 1, 256, torch.float32),   # 3xTF32: 32 own rows, 16-row streamed tiles, 2 dQ / 4 dK/dV warp sets
         (1, 128, 1, 320, torch.float32),   # the column-split route: five 64-column slices
         (1, 128, 1, 320, torch.bfloat16),  # the same, rounding dS (and P in dK/dV) as splash does
+        (1, 128, 2, 64, torch.float32),    # 3xTF32 backward: 64 own rows, 32-row streamed tiles split in place
+        (1, 192, 1, 64, torch.float32),    # six streamed tiles: the cp.async ring refills a used stage
+        (1, 128, 1, 128, torch.float32),   # 3xTF32: two dK/dV warp sets
     ],
 )
 def test_emulated_kernels_match_plain(lib, B, T, H, D, dtype):

@@ -10,7 +10,8 @@ suite.)  Tolerances: float32 1e-5 relative (the kernel splits a hot run
 over warps and tiles, so its sums are added in another order than the
 plain version's, though always the same order); bfloat16 one unit in the
 last place of the table's values; int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
-largest value (float32 dot products in another order); bfloat16 outputs
+largest value (float32 dot products in another order; the backward's
+3xTF32 products carry each float32 product to about 2**-21); bfloat16 outputs
 one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 The serving engine on the card against the CPU: ids equal, scores rtol
 1e-6 (both sum the products in float64 and round once to float32).  K1 at
@@ -261,11 +262,13 @@ def _close(got, want, dtype):
     "B,T,H,D,dtype",
     [(1, 64, 1, 64, torch.float32), (2, 192, 3, 64, torch.float32), (1, 256, 2, 128, torch.float32),
      (2, 128, 2, 64, torch.bfloat16), (1, 192, 2, 128, torch.bfloat16),
-     (1, 192, 2, 192, torch.float32), (1, 256, 1, 256, torch.float32),  # SIMT, 64- and 32-row tiles
+     (1, 192, 2, 192, torch.float32), (1, 256, 1, 256, torch.float32),  # 3xTF32 backward, 32-row tiles
      (1, 192, 2, 192, torch.bfloat16), (2, 256, 1, 256, torch.bfloat16),  # tensor cores, split warps
      (1, 1024, 2, 64, torch.bfloat16),  # sixteen tiles a side: the ring refilled many times
      (1, 128, 2, 320, torch.float32), (1, 192, 1, 320, torch.bfloat16),  # column-split SIMT kernels
-     (1, 128, 1, 512, torch.float32), (2, 128, 1, 512, torch.bfloat16)],
+     (1, 128, 1, 512, torch.float32), (2, 128, 1, 512, torch.bfloat16),
+     (4, 512, 8, 64, torch.float32), (16, 512, 2, 64, torch.float32),  # a dp-4 and a tp-4 rank's share
+     (1, 192, 3, 64, torch.float32)],  # odd B * H, three tiles
 )
 def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + D)
@@ -288,6 +291,21 @@ def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
         _close(got, want, torch.float32)
     for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
         _close(got, want, dtype)
+
+
+def test_flash_float32_backward_is_bitwise_repeatable(cuda):
+    """Two float32 backward calls on the same inputs: no atomics and one
+    summation order, so dQ, D, dK and dV agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = ((torch.randn(4, 512, 8, 64, generator=g, device=cuda) * 0.8) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    first = [*fa.flash_bwd_dq(q, k, v, o, do, lse)]
+    first += fa.flash_bwd_dkv(q, k, v, do, lse, first[1])
+    again = [*fa.flash_bwd_dq(q, k, v, o, do, lse)]
+    again += fa.flash_bwd_dkv(q, k, v, do, lse, again[1])
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernels_take_rows_off_a_16_byte_boundary(cuda):
@@ -350,8 +368,8 @@ def test_lm_at_a_head_width_off_the_gate_takes_no_kernel(cuda):
      (640, 2, "auto", torch.float32), (640, 2, "auto", torch.bfloat16)],
 )
 def test_lm_at_wide_heads_goes_through_the_flash_kernels(cuda, d_model, n_heads, mode, dtype):
-    """head_dim 256 (d_model 512, 2 heads: SIMT for float32, the tensor-core
-    kernels for bfloat16) and head_dim 320 under "auto" (d_model 640, 2
+    """head_dim 256 (d_model 512, 2 heads: the SIMT forward and the 3xTF32
+    backward for float32, the tensor-core kernels for bfloat16) and head_dim 320 under "auto" (d_model 640, 2
     heads: the column-split kernels in both dtypes) run the three kernels
     and match flash_attention="off" (the reference attention).  float32:
     rtol 1e-4 / atol 1e-6, as at head_dim 64.  bfloat16: the two paths
