@@ -424,8 +424,13 @@ MF_FAMILIES = (("K1/K2 pass 1", ("scatter_tile_pass", "mf_tile_pass")),
                ("gather/scatter", ("index", "gather", "scatter")), ("copy", ("copy", "memcpy", "memset")))
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPLIT_DS = (320, 512)  # head widths past 256: the column-split kernels
+# wider splits, checked only: two forward slices (640), and q streamed beside k where its rows no longer
+# fit whole (1,344 in float32, 2,496 in bfloat16)
+SPLIT_WIDE = ((640, "bfloat16"), (640, "float32"), (1344, "float32"), (2496, "bfloat16"))
 TENSOR_CORES, SIMT = "tensor cores (bf16 mma.sync)", "SIMT (float32 FMA)"
 TF32 = "tensor cores (3xTF32 mma.sync)"
+SPLIT_FWD = "column-split, tensor cores ({})"  # the forward past head_dim 256, by dtype
+FWD_ROUTES = "tensor cores: bf16 mma.sync, float32 3xTF32 mma.sync, column-split past head_dim 256 in both"
 FLASH_OWN_DS = (64, 128, 192, 256)  # head widths with a template of their own
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -6103,15 +6108,17 @@ def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
     shape in bfloat16, at a dp-4 and a tp-4 rank's shares of it in float32
     (the dense_dp phase's float32 runs), at a longer, wider float32 shape,
-    at head_dim 256 in both dtypes (bfloat16 runs the tensor-core kernels,
-    float32 the SIMT forward and the 3xTF32 backward), and at head_dim 320
-    and 512 in both dtypes (the column-split SIMT kernels); then the route
-    each (dtype, head_dim) takes (:func:`_flash_routes`).
+    at head_dim 256 in both dtypes (bfloat16 runs the bf16 tensor-core
+    kernels, float32 the 3xTF32 ones), at head_dim 320 and 512 in both
+    dtypes (the column-split forward on the tensor cores, the column-split
+    SIMT backward) and at the wider ``SPLIT_WIDE`` (two forward slices; q
+    streamed beside k); then the route each (dtype, head_dim) takes
+    (:func:`_flash_routes`).
 
     Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
     for K1: both sides sum the same float32 products in another order.
-    The 3xTF32 backward carries each float32 product to about 2**-21 of
-    itself, a few units of float32's last place, so it keeps that bar.
+    The 3xTF32 kernels carry each float32 product to about 2**-21 of
+    itself, a few units of float32's last place, so they keep that bar.
     bfloat16: the outputs (O, dQ, dK, dV) are rounded to bfloat16 from
     float32 values that differ only in summation order (the forward's P
     split into two bf16 operands carries it to about 2**-16; the dQ kernel
@@ -6126,7 +6133,8 @@ def _flash_checks(torch, dev, gen):
     shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (LM_B // DDP_WORLD, LM_T, LM_H, LM_D, torch.float32),
               (LM_B, LM_T, LM_H // MP_WORLD, LM_D, torch.float32), (2, 1024, 8, 128, torch.float32),
               (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
-                  (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32))
+                  (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32)) + tuple(
+                  (1, 512, 2, D, getattr(torch, dtype)) for D, dtype in SPLIT_WIDE)
     for B, T, H, D, dtype in shapes:
         found = _k3_against_plain(torch, dev, gen, B, T, H, D, dtype)
         if not errs:  # the LM's shape: the error the kernels line reports
@@ -6138,10 +6146,10 @@ def _flash_checks(torch, dev, gen):
 def _flash_routes(torch, dev, gen):
     """The kernels each (dtype, head_dim) launches for the forward, dQ and
     dK/dV at (B 1, T 128, H 1), by the names torch.profiler records: a
-    ``route:`` line each.  float32 dQ and dK/dV at head_dim 64-256 must
-    take the 3xTF32 kernels; bfloat16 there the bf16 tensor-core kernels,
-    the float32 forward the SIMT kernel, and every wider head the
-    column-split kernels."""
+    ``route:`` line each.  float32 at head_dim 64-256 must take the 3xTF32
+    kernels, bfloat16 there the bf16 tensor-core kernels, and every wider
+    head the column-split forward on the tensor cores and the column-split
+    SIMT backward."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -6159,7 +6167,9 @@ def _flash_routes(torch, dev, gen):
             took = sorted({m.group(1) for ev in prof.key_averages()
                            for m in [re.search(r"fps::(flash_\w+(?:<[^>]*>)?)", ev.key)] if m})
             f32, own = dtype == torch.float32, D in FLASH_OWN_DS
-            fwd, bwd = ("" if f32 else "mma_", "tf32_" if f32 else "mma_") if own else ("split_", "split_")
+            fwd, bwd = ("tf32_", "tf32_") if f32 else ("mma_", "mma_")
+            if not own:
+                fwd, bwd = "split_mma_", "split_"
             want = {"flash_fwd": f"flash_fwd_{fwd}kernel<", "flash_bwd_dq": f"flash_bwd_dq_{bwd}kernel<",
                     "flash_bwd_dkv": f"flash_bwd_dkv_{bwd}kernel<"}
             label = str(dtype).replace("torch.", "")
@@ -6798,7 +6808,7 @@ def _flash_timing(torch, dev, gen, flush, launches, errs):
             f"flink_parameter_server_tpu/ops/flash_attention.py:117 (splash_attention_kernel.py{splash})",
             launches, errs, k_ms, p_ms, l_ms, nbytes, flops / BF16_OPS_PER_S,
             f"(B {B}, T {T}, H {H}, D {D}) bf16, {flops} flops in causal pairs, "
-            f"{launches[name] // LM_STEPS} launches a step", TENSOR_CORES))
+            f"{launches[name] // LM_STEPS} launches a step", FWD_ROUTES if name == "flash_fwd" else TENSOR_CORES))
     dq_ms, dkv_ms = rows[1]["ms"], rows[2]["ms"]
     print(f"timing: the backward, K3b + K3c {dq_ms:.4f} + {dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms "
           f"against scaled_dot_product_attention's whole backward (dQ, dK, dV) {sdpa['bwd']:.4f} ms "
@@ -6868,8 +6878,9 @@ def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
                              lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta))}
     times = {}
     for name, (nbytes, flops) in _flash_work(B, T, H, D, q.element_size()).items():
-        design = ("column-split SIMT" if not own else TENSOR_CORES if short == "bf16"
-                  else SIMT if name == "flash_fwd" else TF32)
+        design = (TENSOR_CORES if short == "bf16" else TF32) if own else (
+            SPLIT_FWD.format("bf16 mma.sync" if short == "bf16" else "3xTF32 mma.sync")
+            if name == "flash_fwd" else "column-split SIMT")
         kernel, plain = fns[name]
         k_ms = times[name] = gpu_ms(torch, kernel, flush)
         p_ms = gpu_ms(torch, plain, flush, reps=5)
@@ -6880,6 +6891,11 @@ def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
               f"reached; over the CUDA cores' float32 peak {cuda_cores:.4f} ms), plain {p_ms:.4f} ms, "
               f"scaled_dot_product_attention {short} {lib} {sdpa['fwd' if name == 'flash_fwd' else 'bwd']:.4f} ms")
         check(k_ms >= bound, f"{name} at (B {B}, T {T}, H {H}, D {D}) {short} ran past its bound")
+    if short == "f32" or not own:
+        what = "the float32 forward" if own else f"the column-split forward in {short}"
+        print(f"timing: {what} at (B {B}, T {T}, H {H}, D {D}), {who}: K3a {times['flash_fwd']:.4f} ms "
+              f"against scaled_dot_product_attention's {short} forward {sdpa['fwd']:.4f} ms "
+              f"({times['flash_fwd'] / sdpa['fwd']:.2f}x)")
     if short == "f32" and own:
         pair = times["flash_bwd_dq"] + times["flash_bwd_dkv"]
         print(f"timing: the float32 backward at (B {B}, T {T}, H {H}, D {D}), {who}: K3b + K3c "
@@ -6889,7 +6905,7 @@ def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
 
 
 def _f32_rank_timing(torch, dev, gen, flush):
-    """The float32 instances (the SIMT forward, the 3xTF32 backward) at
+    """The float32 instances (the 3xTF32 forward and backward) at
     the shapes the gloo ranks of phase_parallel_dense give them (a dp-4
     rank's (4, 512, 8, 64), a tp-4 rank's (16, 512, 2, 64)), and at a dp-4
     rank's width in heads of 128 and 256 ((4, 512, 4, 128), (4, 512, 2,
@@ -6903,9 +6919,9 @@ def _f32_rank_timing(torch, dev, gen, flush):
 
 def _split_timing(torch, dev, gen, flush):
     """The column-split kernels (head widths past 256) at B 2, T 1024, H 2
-    in both dtypes, beside the same kernels at head_dim 256 (their own
+    in both dtypes, beside the kernels at head_dim 256 (their own
     templates) for scale: each kernel's time, bound and SDPA's forward or
-    whole backward."""
+    whole backward, and the forward against SDPA's in one line."""
     for dtype in (torch.bfloat16, torch.float32):
         for D in (256,) + SPLIT_DS:
             _flash_kernel_times(torch, dev, gen, flush, 2, 1024, 2, D, dtype, "B 2, T 1024, H 2")

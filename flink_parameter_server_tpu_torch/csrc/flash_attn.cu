@@ -21,13 +21,14 @@
 // tensor-core kernels (flash_fwd_mma, flash_bwd_dq_mma, flash_bwd_dkv_mma):
 // bf16 mma.sync m16n8k16 with float32 sums, operands fed by ldmatrix from
 // bf16 tiles that cp.async streams through a two-stage ring.  float32
-// inputs take the SIMT forward (float32 FMAs on the CUDA cores) and the
-// 3xTF32 backward (flash_bwd_dq_tf32, flash_bwd_dkv_tf32): TF32 mma.sync
-// m16n8k8, each float32 product as three TF32 products of the operands'
-// big and small halves (mma.cuh), which keeps float32's bar (rtol 1e-5)
-// where one TF32 product keeps about three decimal digits.  Every wider
-// multiple of 64 takes the column-split SIMT kernels in both dtypes (see
-// there).
+// inputs take the 3xTF32 kernels (flash_fwd_tf32, flash_bwd_dq_tf32,
+// flash_bwd_dkv_tf32): TF32 mma.sync m16n8k8, each float32 product as
+// three TF32 products of the operands' big and small halves (mma.cuh),
+// which keeps float32's bar (rtol 1e-5) where one TF32 product keeps about
+// three decimal digits.  Every wider multiple of 64 takes, in both dtypes,
+// the column-split forward on the tensor cores (flash_fwd_split_mma: bf16
+// mma.sync or 3xTF32) and the column-split SIMT backward (float32 FMAs on
+// the CUDA cores; see each).
 //
 // q arrives scaled by 1/sqrt(D) (the wrapper scales it, as splash's caller
 // does), so no kernel scales.  Every score, softmax statistic and sum is
@@ -45,9 +46,12 @@
 // the tensor-core time of the (query, key) pairs the causal mask keeps
 // (~4.4 us forward, ~6.5 us with the forward's third product).  In
 // float32 at a dp-4 or tp-4 rank's share of it (4 or 16 x 512 x 8 or 2 x
-// 64) the backward's products bound it: three TF32 products each of the
-// causal pairs' 1.6 (dQ) and 2.2 (dK/dV) GFLOP over 495 TFLOP/s, 0.0098
-// and 0.013 ms, against 0.0075 ms of bytes.
+// 64) the products bound all three: three TF32 products each of the causal
+// pairs' 1.1 (forward), 1.6 (dQ) and 2.2 (dK/dV) GFLOP over 495 TFLOP/s,
+// 0.0065, 0.0098 and 0.013 ms, against 0.005-0.0075 ms of bytes.  Past D
+// 256 (B 2, T 1024, H 2) the forward's bytes bound it in bf16 (0.0031 ms
+// at D 320) and its 3xTF32 products in float32 (0.0163 ms).
+//
 // What the designs do:
 //
 //   tensor-core kernels: a block owns 64 rows (4 warps x 16; where a
@@ -59,20 +63,22 @@
 //   a product's accumulators into the next product's A operand without
 //   shared memory.  Tile rows are padded by 16 B so the eight rows of an
 //   ldmatrix fall in eight different banks.
-//   3xTF32 kernels: the same shape in float32 (see there), each streamed
-//   tile split into its TF32 halves once, when it lands.
-//   SIMT kernels: a kT x kT (query x key) tile in shared memory, kT 64 or,
-//   where 64-row float tiles outgrow shared memory, 32; rows padded by one
-//   float so the 16 rows a warp reads fall in 16 banks.
+//   3xTF32 kernels: the same shape in float32 (see there), 64 or 32 own
+//   rows, each streamed tile split into its TF32 halves once, when it
+//   lands.
+//   column-split forward: q held whole (or, past where it fits, streamed
+//   beside k), k and the block's V columns streamed in 64 x 64 pieces,
+//   the scores built once a block and shared by its warps through shared
+//   memory (see there).
+//   column-split SIMT backward: 64 x 64 (query x key) tiles in shared
+//   memory, rows padded by one float so the 16 rows a warp reads fall in
+//   16 banks; 256 threads as 16 x 16 (ty, tx), a thread owning rows ty +
+//   16 i and columns tx + 16 j of a tile and output columns tx + 16 c of
+//   its rows, so row reductions are four xor shuffles in a half-warp.
 //
 // All skip tiles wholly above the causal diagonal (never loaded or
 // computed), mask only at the diagonal, and schedule the longest query
 // rows first.
-//
-// SIMT thread layout: 256 threads as 16 x 16 (ty, tx).  A thread owns rows
-// ty + 16 i and columns tx + 16 j (i, j < kT / 16) of a tile, and output
-// columns tx + 16 c (c < D / 16) of its rows.  The 16 threads of a row sit
-// in one half-warp, so row reductions are four xor shuffles.
 #include "mma.cuh"
 #include "runs.cuh"
 
@@ -84,7 +90,7 @@ namespace fps {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSide = 16;  // threads per side of the SIMT kernels' 16 x 16 block
+constexpr int kSide = 16;  // threads per side of the SIMT backward's 16 x 16 block
 constexpr int kThreads = kSide * kSide;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on an H100
 
@@ -106,19 +112,14 @@ __device__ __forceinline__ float rounded(float v) {
   return v;
 }
 
-// Sum (or max) over the 16 threads of a row: lanes tx = 0..15 of one half-warp.
+// Sum over the 16 threads of a row: lanes tx = 0..15 of one half-warp.
 __device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
   for (int off = kSide / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
-// ---- SIMT kernels (float32 FMAs) ----
+// ---- SIMT helpers of the column-split backward (float32 FMAs) ----
 
 // Rows [row0, row0 + kT) of head (b, h) into shared memory as float, row
 // stride D + 1.  Consecutive threads read consecutive columns.
@@ -185,187 +186,20 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide
   }
 }
 
-template <int D, int kT>
-constexpr int fwd_smem_floats() { return 3 * kT * (D + 1) + kT * (kT + 1); }
-
-// Tile rows of the SIMT forward: 64, or 32 where 64-row float tiles do not
-// fit in shared memory.
-template <int D>
-constexpr int fwd_tile() { return fwd_smem_floats<D, 64>() * 4 <= kSmemLimit ? 64 : 32; }
-
-// grid (T / kT, B * H): block x takes query tile T/kT - 1 - x (longest first).
-template <typename T, int D, int kT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layout lv, T* o,
-                 float* lse, int H, int T_len) {
-  constexpr int P = kT / kSide, C = D / kSide;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kT * (D + 1);
-  float* Vs = Ks + kT * (D + 1);
-  float* Ps = Vs + kT * (D + 1);
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-
-  load_tile<T, D, kT>(Qs, q, lq, b, h, qt * kT);
-  float m[P], l[P], acc[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {  // key tiles above the diagonal are skipped
-    __syncthreads();  // the previous tile's Ks, Vs, Ps are consumed
-    load_tile<T, D, kT>(Ks, k, lk, b, h, kt * kT);
-    load_tile<T, D, kT>(Vs, v, lv, b, h, kt * kT);
-    __syncthreads();
-    float s[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = 0.f;
-    tile_abt<D, kT>(s, Qs, Ks, ty, tx);
-    if (kt == qt) {  // the diagonal tile: key column > query row is masked
-#pragma unroll
-      for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j)
-          if (tx + kSide * j > ty + kSide * i) s[i][j] = -INFINITY;
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < P; ++j) mx = fmaxf(mx, s[i][j]);
-      // every row keeps key 0 of tile 0, so m_new is finite from the first tile on
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < P; ++j) Ps[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = s[i][j];
-    }
-    __syncthreads();
-    tile_sv<D, kT>(acc, Ps, Vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] *= inv;
-    if (tx == 0) lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
-  }
-  store_rows<T, D, kT>(o, acc, b, h, H, T_len, D, 0, qt * kT, ty, tx);
-}
-
-// ---- column-split SIMT kernels (head widths past 256, D a runtime multiple of 64) ----
+// ---- column-split SIMT backward (head widths past 256, D a runtime multiple of 64) ----
 //
 // One block per (64-row tile, head, 64-column slice of the output): grid
 // (T / 64, B * H, D / 64).  Each block builds its scores over the full D in
 // 64-column chunks through shared memory, so shared memory does not grow
 // with D, and writes only its own 64 columns.  Every slice computes the
-// same scores in the same order, so the softmax statistics agree; slice 0
-// writes L and delta.  The score work is repeated D / 64 times.
+// same scores in the same order; slice 0 writes delta.  The score work is
+// repeated D / 64 times.
 constexpr int kSplit = 64;  // tile rows and output columns of a column-split block
 constexpr int kSplitTile = kSplit * (kSplit + 1);  // floats of a 64 x 64 tile, rows padded by one
-// shared memory: forward q and k chunks, v, P; dQ q, dO, k and v chunks, dS;
-// dK/dV k, v, q and dO chunks, P^T, dS^T, L and D
-constexpr int fwd_split_smem_bytes() { return 4 * kSplitTile * 4; }
+// shared memory: dQ q, dO, k and v chunks, dS; dK/dV k, v, q and dO
+// chunks, P^T, dS^T, L and D
 constexpr int dq_split_smem_bytes() { return 5 * kSplitTile * 4; }
 constexpr int dkv_split_smem_bytes() { return (6 * kSplitTile + 2 * kSplit) * 4; }
-
-// grid (T / 64, B * H, D / 64): block x takes query tile T/64 - 1 - x.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_split_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layout lv, T* o,
-                       float* lse, int H, int T_len, int D) {
-  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
-  extern __shared__ float smem[];
-  float* Qc = smem;
-  float* Kc = Qc + kSplitTile;
-  float* Vs = Kc + kSplitTile;
-  float* Ps = Vs + kSplitTile;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int qt = gridDim.x - 1 - blockIdx.x, col0 = kSplit * blockIdx.z;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-
-  float m[P], l[P], acc[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    float s[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S = q k^T over the full D
-      __syncthreads();  // also: the previous tile's Vs and Ps are consumed
-      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
-      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
-      __syncthreads();
-      tile_abt<kSplit, kT>(s, Qc, Kc, ty, tx);
-    }
-    load_tile<T, kSplit, kT>(Vs, v + col0, lv, b, h, kt * kT);
-    if (kt == qt) {
-#pragma unroll
-      for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j)
-          if (tx + kSide * j > ty + kSide * i) s[i][j] = -INFINITY;
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < P; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < P; ++j) Ps[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = s[i][j];
-    }
-    __syncthreads();
-    tile_sv<kSplit, kT>(acc, Ps, Vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] *= inv;
-    if (blockIdx.z == 0 && tx == 0)
-      lse[static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + ty + kSide * i] = m[i] + logf(l[i]);
-  }
-  store_rows<T, kSplit, kT>(o, acc, b, h, H, T_len, D, col0, qt * kT, ty, tx);
-}
 
 // grid (T / 64, B * H, D / 64): block x takes query tile T/64 - 1 - x.
 template <typename T>
@@ -552,6 +386,49 @@ struct Lanes {
         g(lane / 4), t4(lane % 4) {}
 };
 
+// One step of the online softmax over a warp's N 16 x 8 score tiles (rows
+// g and g + 8 of each lane; the four lanes of a row group, xor 1 and 2,
+// share them): the running max m and sum l move on, the scores become
+// exp(s - m) and the NO output tiles are scaled to the new max.  Every row
+// keeps key 0 of the first step, so m is finite from there on.
+template <int N, int NO>
+__device__ __forceinline__ void softmax_step(float (&s)[N][4], float (&acc)[NO][4], float (&m)[2],
+                                             float (&l)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = expf(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - mx[e >> 1]);
+      sum[e >> 1] += s[n][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    l[i] = l[i] * alpha[i] + sum[i];
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+}
+
 // The forward's shape by head width, from ptxas's register report (no
 // spills): at D 256 two sets of four warps split O's columns, both
 // computing the same S, so that a lane holds 64 O accumulators, not 128;
@@ -635,40 +512,7 @@ flash_fwd_mma_kernel(const bf16* q, const bf16* k, const bf16* v, Layout lq, Lay
           for (int e = 0; e < 4; ++e)
             if (kc + 8 * n + 2 * ln.t4 + (e & 1) > w0 + ln.g + 8 * (e >> 1)) s[n][e] = -INFINITY;
       }
-      // online softmax; the four lanes of a row group (xor 1, 2) share its rows
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int n = 0; n < KS / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        alpha[i] = expf(m[i] - mx[i]);  // every row keeps key 0 of tile 0, so mx is finite
-        m[i] = mx[i];
-      }
-#pragma unroll
-      for (int n = 0; n < KS / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = expf(s[n][e] - mx[e >> 1]);
-          sum[e >> 1] += s[n][e];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-        l[i] = l[i] * alpha[i] + sum[i];
-      }
-#pragma unroll
-      for (int n = 0; n < DS / 8; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
+      softmax_step(s, acc, m, l);
       // O += P v with P = hi + lo, both bf16: P keeps float32's digits
 #pragma unroll
       for (int kk = 0; kk < KS / 16; ++kk) {  // keys kc + 16 kk .. + 15
@@ -1075,54 +919,62 @@ struct PlanesF32 {
   const float* small;
 };
 
-// acc[n] = X Y^T and acc2[n] = X2 Y2^T over the full D for a warp's 16
-// rows (w0..) of the own tiles X and X2 against the N n-tiles of the
-// split streamed tiles Y and Y2: the two score products of the backward.
-// Two 8-column steps of d chain through the tensor cores (six truncating
-// adds, too few to drift), then join the sums in the CUDA cores.
-template <int D, int N>
-__device__ __forceinline__ void scores_tf32(float (&acc)[N][4], float (&acc2)[N][4], const float* Xs,
-                                            const float* X2s, PlanesF32 Y, PlanesF32 Y2, int w0,
-                                            const LanesF32& ln) {
+// acc[i][n] = X_i Y_i^T over the full D for a warp's 16 rows (w0..) of the
+// own tiles X_i against the N n-tiles of the split streamed tiles Y_i, for
+// P products at once: the forward's score (P 1), the backward's two (S
+// and dP).  Two 8-column steps of d chain through the tensor cores (six
+// truncating adds, too few to drift), then join the sums in the CUDA
+// cores.  A loop trip takes kU such pairs, so that kU chains are in
+// flight: the forward's one product leaves the registers for two.
+template <int D, int N, int P, int kU = 1>
+__device__ __forceinline__ void scores_tf32(float (&acc)[P][N][4], const float* const (&X)[P],
+                                            const PlanesF32 (&Y)[P], int w0, const LanesF32& ln) {
   constexpr int S = f32_stride<D>();
+  static_assert(D % (16 * kU) == 0, "whole pairs of d steps a trip");
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = acc2[n][e] = 0.f;
-#pragma unroll 1
-  for (int kd0 = 0; kd0 < D / 8; kd0 += 2) {
-    float t[N][4], t2[N][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int kd = kd0 + i;
-      uint32_t xr[4], x2r[4];
-      ldmatrix_x4(xr, Xs + (w0 + ln.a_row) * S + 8 * kd + ln.a_col);
-      ldmatrix_x4(x2r, X2s + (w0 + ln.a_row) * S + 8 * kd + ln.a_col);
-      const Split<4> xa = split4(xr), x2a = split4(x2r);
-#pragma unroll
-      for (int n = 0; n < N; n += 2) {  // an ldmatrix_x4 holds B of two n-tiles
-        const int at = (8 * n + ln.b_row) * S + 8 * kd + ln.b_col;
-        Split<4> yb, y2b;
-        ldmatrix_x4(yb.big, Y.big + at);
-        ldmatrix_x4(yb.small, Y.small + at);
-        ldmatrix_x4(y2b.big, Y2.big + at);
-        ldmatrix_x4(y2b.small, Y2.small + at);
-        if (i == 0) {
-          mma_3xtf32_chain<false, 2>(t, n, xa, yb);
-          mma_3xtf32_chain<false, 2>(t2, n, x2a, y2b);
-        } else {
-          mma_3xtf32_chain<true, 2>(t, n, xa, yb);
-          mma_3xtf32_chain<true, 2>(t2, n, x2a, y2b);
-        }
-      }
-    }
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int n = 0; n < N; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[n][e] += t[n][e];
-        acc2[n][e] += t2[n][e];
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+#pragma unroll 1
+  for (int kd1 = 0; kd1 < D / 8; kd1 += 2 * kU) {
+#pragma unroll
+    for (int pair = 0; pair < kU; ++pair) {
+      const int kd0 = kd1 + 2 * pair;
+      float t[P][N][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kd = kd0 + half;
+        uint32_t xr[P][4];
+#pragma unroll
+        for (int i = 0; i < P; ++i) ldmatrix_x4(xr[i], X[i] + (w0 + ln.a_row) * S + 8 * kd + ln.a_col);
+        Split<4> xa[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) xa[i] = split4(xr[i]);
+#pragma unroll
+        for (int n = 0; n < N; n += 2) {  // an ldmatrix_x4 holds B of two n-tiles
+          const int at = (8 * n + ln.b_row) * S + 8 * kd + ln.b_col;
+          Split<4> yb[P];
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            ldmatrix_x4(yb[i].big, Y[i].big + at);
+            ldmatrix_x4(yb[i].small, Y[i].small + at);
+          }
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            if (half == 0) mma_3xtf32_chain<false, 2>(t[i], n, xa[i], yb[i]);
+            else mma_3xtf32_chain<true, 2>(t[i], n, xa[i], yb[i]);
+          }
+        }
       }
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < P; ++i) acc[i][n][e] += t[i][n][e];
+    }
   }
 }
 
@@ -1157,6 +1009,108 @@ template <int D>
 __host__ __device__ constexpr int dq_f32_splits() { return D <= 128 ? 1 : 2; }
 template <int D>
 __host__ __device__ constexpr int dq_f32_threads() { return 2 * f32_own<D>() * dq_f32_splits<D>(); }
+// The forward's shape by head width: at D 64 a block owns 64 query rows
+// in one warp set; past it, 32 rows and two warp sets that split O's
+// columns, both computing the same S, so that a lane holds at most 64 O
+// sums.  Shared memory holds the q tile and two stages of split K and V
+// tiles (f32_step rows: 32, or 16 past D 128): 87 KB at D 64, 152 KB at D
+// 128, 166 KB at D 256.
+template <int D>
+__host__ __device__ constexpr int fwd_f32_splits() { return D <= 64 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int fwd_f32_own() { return D <= 64 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int fwd_f32_threads() { return 2 * fwd_f32_own<D>() * fwd_f32_splits<D>(); }
+template <int D>
+constexpr int fwd_f32_smem_bytes() { return (fwd_f32_own<D>() + 8 * f32_step<D>()) * f32_stride<D>() * 4; }
+
+// grid (B * H, T / kM), fwd_f32_threads threads: block (x, y) takes head x's
+// query tile T/kM - 1 - y, so that every head's longest tiles start first.
+// Warp w owns query rows 16 (w % (kM / 16)) .. + 15 and O's columns (w /
+// (kM / 16)) D / splits onwards; lane (g, t4) holds rows g and g + 8 of
+// them.  What flash_fwd_mma_kernel computes, in float32: over the keys at
+// or below the diagonal, S = q k^T, the online softmax, O += P v.  Both
+// products are 3xTF32: S from q (split as each warp loads it) against the
+// split K planes; P v with P's accumulators as the A operand
+// (acc_to_a_tf32) against the split V planes.  Each 3xTF32 product of P v
+// starts from zero and joins O in a float32 add.
+//
+// Why 32 rows past D 64 (the backward keeps 64 up to D 128): a dp-4
+// rank's width at head_dim 256, (4, 512, 2, 256), then has 8 heads x 16
+// tiles = 128 blocks of four warps for the 132 SMs, where 64-row tiles
+// left 64 blocks, and at head_dim 128 the 256 blocks of four warps,
+// longest first, ran faster than 128 blocks of eight (timed against each
+// other on the card; PERF.md §6).  At D 64 two blocks share an SM.
+template <int D>
+__global__ void __launch_bounds__(fwd_f32_threads<D>(), 1)
+flash_fwd_tf32_kernel(const float* q, const float* k, const float* v, Layout lq, Layout lk, Layout lv,
+                      float* o, float* lse, int H, int T_len) {
+  constexpr int kM = fwd_f32_own<D>(), kS = f32_step<D>(), kN = fwd_f32_threads<D>(), kRowWarps = kM / 16;
+  constexpr int DS = D / fwd_f32_splits<D>(), S = f32_stride<D>(), kPlane = kS * S;
+  static_assert(kM % kS == 0 && kS % 16 == 0 && DS % 32 == 0, "tiles of whole n-tile pairs and groups");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = Qs + kM * S;  // stage st: K big, K small, V big, V small
+  const LanesF32 ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32;
+  const int w0 = 16 * (warp % kRowWarps), c0 = DS * (warp / kRowWarps);  // query rows and O columns
+  const int qt = gridDim.y - 1 - blockIdx.y, steps = (qt + 1) * (kM / kS);  // key tiles at or below the diagonal
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int row0 = qt * kM + w0;  // the warp's first query row
+
+  tile_async_f32<D, kM, kN>(Qs, q, lq, b, h, qt * kM);
+  tile_async_f32<D, kS, kN>(ring, k, lk, b, h, 0);
+  tile_async_f32<D, kS, kN>(ring + 2 * kPlane, v, lv, b, h, 0);
+  cp_async_commit();
+
+  float acc[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  for (int j = 0; j < steps; ++j) {  // keys j kS .. + kS - 1
+    float* stage = ring + (j & 1) * 4 * kPlane;
+    cp_async_wait<0>();
+    __syncthreads();  // this stage landed; every warp is done with the other one
+    split_tile_f32<D, kS, kN>(stage, stage + kPlane);
+    split_tile_f32<D, kS, kN>(stage + 2 * kPlane, stage + 3 * kPlane);
+    __syncthreads();
+    if (j + 1 < steps) {  // the next tile streams in while this one is used
+      float* next = ring + ((j + 1) & 1) * 4 * kPlane;
+      tile_async_f32<D, kS, kN>(next, k, lk, b, h, (j + 1) * kS);
+      tile_async_f32<D, kS, kN>(next + 2 * kPlane, v, lv, b, h, (j + 1) * kS);
+      cp_async_commit();
+    }
+    if (j * kS > row0 + 15) continue;  // every key of the step lies above the warp's rows
+    const PlanesF32 Kt{stage, stage + kPlane}, Vt{stage + 2 * kPlane, stage + 3 * kPlane};
+
+    float sd[1][kS / 8][4];  // S = q k^T: 16 rows x kS keys
+    scores_tf32<D, kS / 8, 1, 2>(sd, {Qs}, {Kt}, w0, ln);
+    float(&s)[kS / 8][4] = sd[0];
+#pragma unroll
+    for (int n = 0; n < kS / 8; ++n)  // keys above the diagonal are masked
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j * kS + 8 * n + 2 * ln.t4 + (e & 1) > row0 + ln.g + 8 * (e >> 1)) s[n][e] = -INFINITY;
+    softmax_step(s, acc, m, l);
+    // O += P v, eight keys a step
+#pragma unroll
+    for (int kk = 0; kk < kS / 8; ++kk) acc_times_rows<D, DS / 8>(acc, s[kk], Vt, 8 * kk, c0, ln);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + ln.g + 8 * i;
+    const float inv = 1.f / l[i];
+    float* dst = o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0 + 2 * ln.t4;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (c0 == 0 && ln.t4 == 0) lse[static_cast<int64_t>(blockIdx.x) * T_len + row] = m[i] + logf(l[i]);
+  }
+}
 
 // grid (B * H, T / kM), dq_f32_threads threads: block (x, y) takes head x's
 // query tile T/kM - 1 - y, so that every head's longest tiles start first.  Warp w owns query rows 16 (w % (kM / 16))
@@ -1238,8 +1192,10 @@ flash_bwd_dq_tf32_kernel(const float* q, const float* k, const float* v, const f
     }
     const PlanesF32 Kt{stage, stage + kPlane}, Vt{stage + 2 * kPlane, stage + 3 * kPlane};
 
-    float s[kS / 8][4], dp[kS / 8][4];  // S = q k^T and dP = dO v^T: 16 rows x kS keys
-    scores_tf32<D, kS / 8>(s, dp, Qs, dOs, Kt, Vt, w0, ln);
+    float sd[2][kS / 8][4];  // S = q k^T and dP = dO v^T: 16 rows x kS keys
+    scores_tf32<D, kS / 8, 2>(sd, {Qs, dOs}, {Kt, Vt}, w0, ln);
+    float(&s)[kS / 8][4] = sd[0];
+    float(&dp)[kS / 8][4] = sd[1];
     // P = exp(S - L), masked above the diagonal; dS = P (dP - delta), into dp
 #pragma unroll
     for (int n = 0; n < kS / 8; ++n)
@@ -1335,8 +1291,10 @@ flash_bwd_dkv_tf32_kernel(const float* q, const float* k, const float* v, const 
     const float* Lt = Ls + st * kS;
     const float* Dt = Ds + st * kS;
 
-    float s[kS / 8][4], dp[kS / 8][4];  // S^T = k q^T and dP^T = v dO^T: 16 keys x kS queries
-    scores_tf32<D, kS / 8>(s, dp, Ks, Vs, Qt, dOt, w0, ln);
+    float sd[2][kS / 8][4];  // S^T = k q^T and dP^T = v dO^T: 16 keys x kS queries
+    scores_tf32<D, kS / 8, 2>(sd, {Ks, Vs}, {Qt, dOt}, w0, ln);
+    float(&s)[kS / 8][4] = sd[0];
+    float(&dp)[kS / 8][4] = sd[1];
     // P^T = exp(S^T - L), masked above the diagonal; dS^T = P^T (dP^T - D)
 #pragma unroll
     for (int n = 0; n < kS / 8; ++n)
@@ -1364,6 +1322,386 @@ flash_bwd_dkv_tf32_kernel(const float* q, const float* k, const float* v, const 
       *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(dK[n][2 * i], dK[n][2 * i + 1]);
       *reinterpret_cast<float2*>(dv + at + 8 * n) = make_float2(dV[n][2 * i], dV[n][2 * i + 1]);
     }
+  }
+}
+
+// ---- column-split forward on the tensor cores (head widths past 256, D a runtime multiple of 64) ----
+//
+// Both dtypes: bf16 mma.sync m16n8k16 with P as two bf16 operands, hi +
+// lo, or 3xTF32 m16n8k8.  A block owns kM query rows and one column slice
+// of O.  Steps of 64 keys stream past in 64 x 64 pieces through a two-slot
+// cp.async ring: first the D / 64 pieces of k, then only the V pieces of
+// the block's slice, a slot holding up to 8 pieces (bf16) or 4 (float32).
+// The block holds its q rows whole in shared memory, loaded once, where
+// they fit beside the ring (float32 up to D 1,280, bf16 up to D 2,432);
+// past that each k piece streams with q's 64 columns beside it, a slot
+// holding half as many k pieces.  The block's warps are kM / 16 row warps
+// times 4 column sets, and it builds the scores once: warp (r, c) builds S
+// for rows 16 r .. + 15 and keys 16 c .. + 15 of the step over the full
+// D, the rows' max and sum meet in shared memory, and P goes to shared
+// memory (bf16 hi and lo planes, or TF32 big and small planes), from where
+// every warp of the rows reads it for O += P v on its 16 columns of each V
+// piece.  A lane holds 8 pieces x 16 columns = 64 O sums, so a slice has
+// at most 8 pieces, and the ceil(D / 512) slices of a query tile each
+// rebuild the scores: that is the recompute factor, where the SIMT design
+// had D / 64.
+//
+// Why 4 column sets, so a factor of 1 up to D 512: at B 2, T 1024, H 2
+// (the shape the timings use) 4 sets give 128 blocks of eight warps, the
+// scores built once; 2 sets give 256 blocks of four warps, the scores
+// built twice, and were slower in both dtypes at D 320 and 512, timed in
+// one call (PERF.md §6).
+//
+// What bounds it there: each block's warps wait on chains of dependent
+// mma.sync between barriers, and the longest query tile's block sets the
+// kernel's time (one block an SM, all started at once: a per-block
+// globaltimer trace).  So a slot holds many pieces (two barriers a step
+// for its pieces, where a barrier a piece was slower), each piece's
+// scores go to one of two sums and bf16 keeps lo's products apart from
+// hi's, so that independent chains are in flight, and bf16 reads P's
+// operands once a step.  float32 splits q and the k and v pieces into
+// their TF32 halves as each warp reads them; P is split once, when it is
+// written.  Each 3xTF32 product chains two 8-wide steps in the tensor
+// cores and then joins its sum in a float32 add.  The statistics are
+// summed over the column sets in a fixed order, so every warp of a row
+// holds the same m and l and every slice the same L; slice 0 writes L.
+constexpr int kSplitKeys = 64;   // keys of a step; rows and columns of a ring piece
+constexpr int kSplitSets = 4;    // column sets: a warp takes 16 keys of a step and 16 columns of a V piece
+static_assert(16 * kSplitSets == kSplitKeys, "a 16-key unit and a 16-column share a warp");
+constexpr int kSplitPieces = 8;  // V pieces a slice: a lane's 8 x 16 columns, 64 O sums
+constexpr int kSplitPStride = kSplitKeys + 8;  // P's rows: float2 reads of rows g at column 2 t are conflict-free
+
+// Row padding of q and of the ring's pieces: rows 16 B apart in the bank cycle.
+template <typename T>
+__host__ __device__ constexpr int split_pad() { return 16 / static_cast<int>(sizeof(T)); }
+template <typename T>
+__host__ __device__ constexpr int split_piece() { return kSplitKeys * (kSplitKeys + split_pad<T>()); }
+// Pieces a ring slot; the ring's two slots are one in flight while one is used.
+template <typename T>
+__host__ __device__ constexpr int split_slot() { return sizeof(T) == 2 ? 8 : 4; }
+constexpr int kSplitSlots = 2;
+
+// q whole (where q_whole), the ring, P's two planes, the rows' max and sum by column set
+template <typename T>
+int fwd_split_smem_bytes(int D, int kM, bool q_whole) {
+  const int elems = (q_whole ? kM * (D + split_pad<T>()) : 0) + kSplitSlots * split_slot<T>() * split_piece<T>() +
+                    2 * kM * kSplitPStride;
+  return elems * static_cast<int>(sizeof(T)) + 2 * kSplitSets * kM * 4;
+}
+
+// grid (B * H, T / kM, slices), kM / 16 x 4 warps: block (x, y, z) takes
+// head x's query tile T/kM - 1 - y and slice z of O's columns.  q_whole: q's
+// rows held whole in shared memory; else streamed beside each k piece.
+template <typename T>
+__global__ void __launch_bounds__(64 * kSplitSets, 1)
+flash_fwd_split_mma_kernel(const T* q, const T* k, const T* v, Layout lq, Layout lk, Layout lv, T* o,
+                           float* lse, int H, int T_len, int D, bool q_whole) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int C = kSplitSets, NT = kSplitKeys / C / 8;  // n-tiles of a V piece a warp
+  constexpr int kMaxPieces = kSplitPieces, PAD = split_pad<T>(), SP = kSplitKeys + PAD, SPP = kSplitPStride;
+  constexpr int PIECE = split_piece<T>(), SLOT = split_slot<T>(), NSL = kSplitSlots;
+  static_assert(kMaxPieces % SLOT == 0 && SLOT % 2 == 0, "whole slots of V pieces; k and q pieces in pairs");
+  using Ln = typename std::conditional<kF32, LanesF32, Lanes>::type;
+  const int RW = blockDim.x / (32 * C), kM = 16 * RW, SQ = D + PAD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + (q_whole ? kM * SQ : 0);
+  T* P0 = ring + NSL * SLOT * PIECE;  // P's hi (bf16) or big (TF32) plane
+  T* P1 = P0 + kM * SPP;                   // lo or small
+  float* red_max = reinterpret_cast<float*>(P1 + kM * SPP);  // [column set][row]
+  float* red_sum = red_max + C * kM;
+  const Ln ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32, c = warp / RW, w0 = 16 * (warp % RW);
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int row0 = qt * kM + w0;  // the warp's first query row
+  const int cs = 16 * c;          // the set's keys in each step and columns in each V piece
+  // the slice: pieces spread evenly over gridDim.z slices
+  const int nK = D / kSplitKeys, z = blockIdx.z, base = nK / gridDim.z, extra = nK % gridDim.z;
+  const int nV = base + (z < extra ? 1 : 0), v0 = kSplitKeys * (z * base + (z < extra ? z : extra));
+  // k pieces a slot: a whole slot, or half of one with q's piece beside each (at + KP pieces)
+  const int KP = q_whole ? SLOT : SLOT / 2, SQP = q_whole ? SQ : SP;  // SQP: the row stride q is read at
+  const int kSlots = (nK + KP - 1) / KP, per = kSlots + (nV + SLOT - 1) / SLOT;  // slots of a step
+  const int steps = ((qt + 1) * kM - 1) / kSplitKeys + 1, total = steps * per;
+  const T* q_blk = q + b * lq.b + h * lq.h + static_cast<int64_t>(qt * kM) * lq.t;
+
+  // q's rows of the block, columns c0 .. c0 + n - 1, into dst (row stride ld)
+  constexpr int E = 16 / sizeof(T), CH = kSplitKeys / E;  // elements a 16-byte copy; copies a piece row
+  auto load_q = [&](T* dst, int ld, int c0, int n) {
+    const int chunks = n / E;
+    for (int i = threadIdx.x; i < kM * chunks; i += blockDim.x) {
+      const int r = i / chunks, cc = (i % chunks) * E;
+      cp_async_16(dst + r * ld + cc, q_blk + r * lq.t + c0 + cc);
+    }
+  };
+  if (q_whole) load_q(Qs, SQ, 0, D);
+  // A piece is 64 rows of 64 columns; thread i copies 16 bytes of rows i / CH, + rstep, ... at column
+  // (i % CH) E, from pointers set up once, so that a copy costs an add or two.
+  const int rstep = blockDim.x / CH, pr = threadIdx.x / CH, pc = (threadIdx.x % CH) * E;
+  const T* k_thr = k + b * lk.b + h * lk.h + pr * lk.t + pc;
+  const T* v_thr = v + b * lv.b + h * lv.h + pr * lv.t + pc + v0;
+  const int64_t k_step = rstep * lk.t, v_step = rstep * lv.t;
+  auto load_piece = [&](T* dst, const T* src, int64_t step) {
+    dst += pr * SP + pc;
+    for (int r = pr; r < kSplitKeys; r += rstep, dst += rstep * SP, src += step) cp_async_16(dst, src);
+  };
+  // slot i of the block's sequence (step i / per: its k pieces, KP a slot, then its V pieces, SLOT a
+  // slot) into ring slot i % NSL; one commit a slot, empty past the end, so that the wait below counts
+  // slots
+  auto load_slot = [&](int i) {
+    if (i < total) {
+      const int j = i / per, sl = i % per;
+      T* dst = ring + (i % NSL) * SLOT * PIECE;
+      const int64_t row = static_cast<int64_t>(kSplitKeys) * j;
+      if (sl < kSlots) {
+        for (int p = KP * sl; p < KP * (sl + 1) && p < nK; ++p) {
+          load_piece(dst + (p - KP * sl) * PIECE, k_thr + row * lk.t + kSplitKeys * p, k_step);
+          if (!q_whole) load_q(dst + (KP + p - KP * sl) * PIECE, SP, kSplitKeys * p, kSplitKeys);
+        }
+      } else {
+        const int p0 = SLOT * (sl - kSlots);
+        for (int p = p0; p < p0 + SLOT && p < nV; ++p)
+          load_piece(dst + (p - p0) * PIECE, v_thr + row * lv.t + kSplitKeys * p, v_step);
+      }
+    }
+    cp_async_commit();
+  };
+  // slot i, landed for every thread; the previous slot's readers are done, so its ring slot refills
+  auto next_slot = [&](int i) -> const T* {
+    cp_async_wait<NSL - 2>();
+    __syncthreads();
+    load_slot(i + NSL - 1);
+    return ring + (i % NSL) * SLOT * PIECE;
+  };
+
+  for (int i = 0; i < NSL - 1; ++i) load_slot(i);  // a whole q joins slot 0's group
+
+  float acc[kMaxPieces][NT][4];
+#pragma unroll
+  for (int p = 0; p < kMaxPieces; ++p)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  int slot = 0;
+  for (int j = 0; j < steps; ++j) {  // keys 64 j .. + 63
+    const int key0 = kSplitKeys * j;
+    // the set's 16 keys, skipped (their scores masked) where every one is above the warp's rows
+    const bool live = key0 + cs <= row0 + 15;
+    float sp[2][2][4];  // the scores of even and odd pieces, summed apart
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[hf][n][e] = 0.f;
+    for (int sl = 0; sl < kSlots; ++sl) {  // S = q k^T over the full D, KP pieces a slot
+      const T* Ks = next_slot(slot++);
+      if (!live) continue;
+#pragma unroll
+      for (int hf = 0; hf < SLOT; ++hf) {
+        const int p = KP * sl + hf;
+        if (hf >= KP || p >= nK) break;
+        const T* Kp = Ks + hf * PIECE + (cs + ln.b_row) * SP + ln.b_col;
+        const T* Qp = (q_whole ? Qs + kSplitKeys * p : Ks + (KP + hf) * PIECE) + (w0 + ln.a_row) * SQP + ln.a_col;
+        if constexpr (kF32) {
+#pragma unroll
+          for (int kd0 = 0; kd0 < kSplitKeys / 8; kd0 += 2) {
+            float t[2][4];
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int kd = kd0 + half;
+              uint32_t xr[4], yr[4];
+              ldmatrix_x4(xr, Qp + 8 * kd);
+              ldmatrix_x4(yr, Kp + 8 * kd);
+              const Split<4> xa = split4(xr), yb = split4(yr);
+              if (half == 0) mma_3xtf32_chain<false, 2>(t, 0, xa, yb);
+              else mma_3xtf32_chain<true, 2>(t, 0, xa, yb);
+            }
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sp[hf & 1][n][e] += t[n][e];
+          }
+        } else {
+#pragma unroll
+          for (int kd = 0; kd < kSplitKeys / 16; ++kd) {
+            uint32_t a[4], bb[4];
+            ldmatrix_x4(a, Qp + 16 * kd);
+            ldmatrix_x4(bb, Kp + 16 * kd);
+            mma_bf16(sp[hf & 1][0], a, bb[0], bb[1]);
+            mma_bf16(sp[hf & 1][1], a, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+
+    // keys above the diagonal masked; each set's max of the rows, then the rows' max over the sets
+    float s[2][4], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = sp[0][n][e] + sp[1][n][e];
+        if (key0 + cs + 8 * n + 2 * ln.t4 + (e & 1) > row0 + ln.g + 8 * (e >> 1)) s[n][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (ln.t4 == 0) red_max[c * kM + w0 + ln.g + 8 * i] = mx[i];
+    }
+    __syncthreads();
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mn = m[i];  // every row keeps key 0 of the first step, so mn is finite
+      for (int cc = 0; cc < C; ++cc) mn = fmaxf(mn, red_max[cc * kM + w0 + ln.g + 8 * i]);
+      alpha[i] = expf(m[i] - mn);
+      m[i] = mn;
+    }
+    // P = exp(S - m) into shared memory, split into two operands
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float p0 = expf(s[n][2 * i] - m[i]), p1 = expf(s[n][2 * i + 1] - m[i]);
+        sum[i] += p0 + p1;
+        const int at = (w0 + ln.g + 8 * i) * SPP + cs + 8 * n + 2 * ln.t4;
+        if constexpr (kF32) {
+          const float b0 = __uint_as_float(to_tf32(p0)), b1 = __uint_as_float(to_tf32(p1));
+          *reinterpret_cast<float2*>(P0 + at) = make_float2(b0, b1);
+          *reinterpret_cast<float2*>(P1 + at) = make_float2(p0 - b0, p1 - b1);
+        } else {
+          const uint32_t hi = pack_bf16(p0, p1);
+          *reinterpret_cast<uint32_t*>(P0 + at) = hi;
+          *reinterpret_cast<uint32_t*>(P1 + at) = pack_bf16(p0 - bf16_lo(hi), p1 - bf16_hi(hi));
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      if (ln.t4 == 0) red_sum[c * kM + w0 + ln.g + 8 * i] = sum[i];
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[p][n][0] *= alpha[0];
+        acc[p][n][1] *= alpha[0];
+        acc[p][n][2] *= alpha[1];
+        acc[p][n][3] *= alpha[1];
+      }
+    __syncthreads();  // P and the sums are written
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tot = 0.f;
+      for (int cc = 0; cc < C; ++cc) tot += red_sum[cc * kM + w0 + ln.g + 8 * i];
+      l[i] = l[i] * alpha[i] + tot;
+    }
+
+    // O += P v on the set's columns of each V piece, SLOT pieces a slot; 16 keys above every row of the
+    // warp add nothing
+    const int live_keys = row0 + 16 - key0 < kSplitKeys ? row0 + 16 - key0 : kSplitKeys;
+    uint32_t phi[kSplitKeys / 16][4], plo[kSplitKeys / 16][4];  // bf16: P's A operands, read once a step
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int kk = 0; kk < kSplitKeys / 16; ++kk) {
+        ldmatrix_x4(phi[kk], P0 + (w0 + ln.a_row) * SPP + 16 * kk + ln.a_col);
+        ldmatrix_x4(plo[kk], P1 + (w0 + ln.a_row) * SPP + 16 * kk + ln.a_col);
+      }
+    }
+#pragma unroll
+    for (int p2 = 0; p2 < kMaxPieces; p2 += SLOT) {
+      if (p2 >= nV) break;
+      const T* Vs = next_slot(slot++);
+#pragma unroll
+      for (int hf = 0; hf < SLOT; ++hf) {
+        const int p = p2 + hf;
+        if (p >= nV) break;
+        const T* Vp = Vs + hf * PIECE;
+        if constexpr (kF32) {
+#pragma unroll
+          for (int kk = 0; kk < kSplitKeys / 8; kk += 2) {
+            if (8 * kk >= live_keys) break;
+            float t[NT][4];
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int key = 8 * (kk + half);
+              // A = P with its k permuted (k = t: key 2t, k = t + 4: key 2t + 1), as acc_to_a_tf32 does
+              const float2 x0 = *reinterpret_cast<const float2*>(P0 + (w0 + ln.g) * SPP + key + 2 * ln.t4);
+              const float2 x1 = *reinterpret_cast<const float2*>(P0 + (w0 + ln.g + 8) * SPP + key + 2 * ln.t4);
+              const float2 y0 = *reinterpret_cast<const float2*>(P1 + (w0 + ln.g) * SPP + key + 2 * ln.t4);
+              const float2 y1 = *reinterpret_cast<const float2*>(P1 + (w0 + ln.g + 8) * SPP + key + 2 * ln.t4);
+              Split<4> a;
+              a.big[0] = __float_as_uint(x0.x), a.big[1] = __float_as_uint(x1.x);
+              a.big[2] = __float_as_uint(x0.y), a.big[3] = __float_as_uint(x1.y);
+              a.small[0] = __float_as_uint(y0.x), a.small[1] = __float_as_uint(y1.x);
+              a.small[2] = __float_as_uint(y0.y), a.small[3] = __float_as_uint(y1.y);
+              Split<2 * NT> bv;  // V's rows key + 2t and key + 2t + 1 at column g, in the same order
+              const T* vr = Vp + (key + 2 * ln.t4) * SP + cs + ln.g;
+#pragma unroll
+              for (int n = 0; n < NT; ++n) {
+                split_tf32(vr[8 * n], bv.big[2 * n], bv.small[2 * n]);
+                split_tf32(vr[SP + 8 * n], bv.big[2 * n + 1], bv.small[2 * n + 1]);
+              }
+              if (half == 0) mma_3xtf32_chain<false, NT>(t, 0, a, bv);
+              else mma_3xtf32_chain<true, NT>(t, 0, a, bv);
+            }
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[p][n][e] += t[n][e];
+          }
+        } else {
+          float lo_sum[NT][4];  // lo's products, apart from hi's, then added
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) lo_sum[n][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < kSplitKeys / 16; ++kk) {
+            if (16 * kk >= live_keys) break;
+#pragma unroll
+            for (int n = 0; n < NT; n += 2) {
+              uint32_t bb[4];
+              ldmatrix_x4_trans(bb, Vp + (16 * kk + ln.t_row) * SP + cs + 8 * n + ln.t_col);
+              mma_bf16(acc[p][n], phi[kk], bb[0], bb[1]);
+              mma_bf16(lo_sum[n], plo[kk], bb[0], bb[1]);
+              mma_bf16(acc[p][n + 1], phi[kk], bb[2], bb[3]);
+              mma_bf16(lo_sum[n + 1], plo[kk], bb[2], bb[3]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[p][n][e] += lo_sum[n][e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the end
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + ln.g + 8 * i;
+    const float inv = 1.f / l[i];
+    T* dst = o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + v0 + cs + 2 * ln.t4;
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p) {
+      if (p >= nV) break;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float x = acc[p][n][2 * i] * inv, y = acc[p][n][2 * i + 1] * inv;
+        if constexpr (kF32) *reinterpret_cast<float2*>(dst + kSplitKeys * p + 8 * n) = make_float2(x, y);
+        else *reinterpret_cast<uint32_t*>(dst + kSplitKeys * p + 8 * n) = pack_bf16(x, y);
+      }
+    }
+    if (z == 0 && c == 0 && ln.t4 == 0) lse[static_cast<int64_t>(blockIdx.x) * T_len + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -1397,14 +1735,14 @@ int launch_fwd(const void* q, const void* k, const void* v, const int64_t* st, v
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<bf16*>(o), lse, H, T_len);
   } else {
-    constexpr int kT = fwd_tile<D>(), smem = fwd_smem_floats<D, kT>() * 4;
+    constexpr int smem = fwd_f32_smem_bytes<D>();
     static_assert(smem <= kSmemLimit, "forward tiles outgrow shared memory");
-    const auto kernel = flash_fwd_kernel<T, D, kT>;
+    const auto kernel = flash_fwd_tf32_kernel<D>;
     int err = prepare(kernel, smem);
     if (err != 0) return err;
-    FPS_LAUNCH(kernel, dim3(T_len / kT, B * H), kThreads, smem, stream)(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len);
+    FPS_LAUNCH(kernel, dim3(B * H, T_len / fwd_f32_own<D>()), fwd_f32_threads<D>(), smem, stream)(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        layout_at(st, 0), layout_at(st, 1), layout_at(st, 2), static_cast<float*>(o), lse, H, T_len);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1467,17 +1805,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// The column-split route: head widths past 256, any multiple of 64.
+// The column-split route: head widths past 256, any multiple of 64.  The
+// forward's blocks own 16 query rows in float32 (as fast as 32 at D 320
+// and faster at 512, timed at B 2, T 1024, H 2) and 32 in bf16, or 16
+// where 32 rows of q do not fit whole; q is held whole where it fits and
+// streamed beside k past that (float32 past D 1,280, bf16 past D 2,432).
 template <typename T>
 int launch_fwd_split(const void* q, const void* k, const void* v, const int64_t* st, void* o, float* lse,
                      int B, int T_len, int H, int D, cudaStream_t stream) {
-  constexpr int smem = fwd_split_smem_bytes();
-  const auto kernel = flash_fwd_split_kernel<T>;
+  const int kM = sizeof(T) == 2 && fwd_split_smem_bytes<T>(D, 32, true) <= kSmemLimit ? 32 : 16;
+  const bool q_whole = fwd_split_smem_bytes<T>(D, kM, true) <= kSmemLimit;
+  const int smem = fwd_split_smem_bytes<T>(D, kM, q_whole);
+  const int slices = (D / kSplitKeys + kSplitPieces - 1) / kSplitPieces;
+  const auto kernel = flash_fwd_split_mma_kernel<T>;
   int err = prepare(kernel, smem);
   if (err != 0) return err;
-  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+  FPS_LAUNCH(kernel, dim3(B * H, T_len / kM, slices), kM / 16 * kSplitSets * 32, smem, stream)(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), layout_at(st, 0),
-      layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len, D);
+      layout_at(st, 1), layout_at(st, 2), static_cast<T*>(o), lse, H, T_len, D, q_whole);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,17 +18,22 @@ in ``csrc/flash_attn.cu``:
   splash rounds them.
 
 Routes.  At head widths 64, 128, 192 and 256 bfloat16 takes tensor-core
-kernels (bf16 ``mma.sync``, ``cp.async`` tile ring).  float32 takes a SIMT
-forward (float32 FMAs) and a tensor-core backward in 3xTF32: each float32
-product is three TF32 ``mma.sync`` products of the operands' big and small
-TF32 halves, which keeps the float32 bar where one TF32 product keeps about
-three decimal digits; its bound is three TF32 products over the (query,
-key) pairs the causal mask keeps, at the card's TF32 rate.  Every wider head width the reference's gate
-takes (a multiple of 64) runs column-split SIMT kernels in both dtypes: one
-block per 64 output columns, the scores built over the full width in
-64-column chunks.  Every kernel skips the tiles wholly above the causal diagonal and
-keeps scores, softmax statistics and sums in float32.  Its bound on an
-H100 and its design are in the source.
+kernels (bf16 ``mma.sync``, ``cp.async`` tile ring), and float32 takes
+tensor-core kernels in 3xTF32: each float32 product is three TF32
+``mma.sync`` products of the operands' big and small TF32 halves, which
+keeps the float32 bar where one TF32 product keeps about three decimal
+digits; their bound is three TF32 products over the (query, key) pairs the
+causal mask keeps, at the card's TF32 rate.  Every wider head width the
+reference's gate takes (a multiple of 64) runs, in both dtypes, a
+column-split forward on the tensor cores (q held whole in shared memory,
+``k`` and the block's columns of ``v`` streamed in 64-column pieces, the
+scores built once a block and shared by its warps; past float32's head_dim
+1,280 and bfloat16's 2,432, where q's rows no longer fit, q streams beside
+``k``) and a column-split SIMT backward (one block per 64 output columns, the
+scores built over the full width in 64-column chunks).  Every kernel skips
+the tiles wholly above the causal diagonal and keeps scores, softmax
+statistics and sums in float32.  Its bound on an H100 and its design are
+in the source.
 
 Contract of :func:`flash_mha` (that of the reference's): ``(B, T, H, D)``
 in and out, causal, ``q`` scaled by ``1/sqrt(D)`` in float32 and rounded

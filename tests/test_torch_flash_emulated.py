@@ -85,6 +85,15 @@ def _close(got, want, dtype):
         (1, 128, 2, 64, torch.float32),    # 3xTF32 backward: 64 own rows, 32-row streamed tiles split in place
         (1, 192, 1, 64, torch.float32),    # six streamed tiles: the cp.async ring refills a used stage
         (1, 128, 1, 128, torch.float32),   # 3xTF32: two dK/dV warp sets
+        (1, 512, 1, 64, torch.float32),    # eight key tiles: a sum chained through truncating adds would drift
+        (1, 128, 1, 384, torch.float32),   # the column-split route at a width neither 320 nor 512
+        (1, 128, 1, 384, torch.bfloat16),
+        (1, 192, 1, 512, torch.float32),   # three key tiles: the split forward's ring refills used stages
+        (1, 192, 1, 512, torch.bfloat16),
+        (1, 128, 1, 640, torch.float32),   # ten pieces: two column slices of five, each rebuilding S
+        (1, 128, 1, 640, torch.bfloat16),
+        (1, 128, 1, 1344, torch.float32),  # past where q's rows fit whole: q streamed beside each k piece
+        (1, 64, 1, 2496, torch.bfloat16),
     ],
 )
 def test_emulated_kernels_match_plain(lib, B, T, H, D, dtype):
@@ -117,3 +126,4 @@ def test_emulated_library_refuses_a_width_it_lacks(lib):
         err = lib.fps_flash_fwd(_cuda.DTYPE_CODES[dtype], 96, x.data_ptr(), x.data_ptr(), x.data_ptr(),
                                 fa._strides(x, x, x), x.data_ptr(), lse.data_ptr(), 1, 64, 1, None)
         assert err != 0
+

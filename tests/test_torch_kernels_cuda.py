@@ -10,8 +10,8 @@ suite.)  Tolerances: float32 1e-5 relative (the kernel splits a hot run
 over warps and tiles, so its sums are added in another order than the
 plain version's, though always the same order); bfloat16 one unit in the
 last place of the table's values; int32 exact.  The flash kernels: float32 rtol 1e-5 with atol 1e-5 of the
-largest value (float32 dot products in another order; the backward's
-3xTF32 products carry each float32 product to about 2**-21); bfloat16 outputs
+largest value (float32 dot products in another order; the 3xTF32
+products carry each float32 product to about 2**-21); bfloat16 outputs
 one bfloat16 unit (rtol 2**-7) with atol 2**-8 of the largest value.
 The serving engine on the card against the CPU: ids equal, scores rtol
 1e-6 (both sum the products in float64 and round once to float32).  K1 at
@@ -265,10 +265,12 @@ def _close(got, want, dtype):
      (1, 192, 2, 192, torch.float32), (1, 256, 1, 256, torch.float32),  # 3xTF32 backward, 32-row tiles
      (1, 192, 2, 192, torch.bfloat16), (2, 256, 1, 256, torch.bfloat16),  # tensor cores, split warps
      (1, 1024, 2, 64, torch.bfloat16),  # sixteen tiles a side: the ring refilled many times
-     (1, 128, 2, 320, torch.float32), (1, 192, 1, 320, torch.bfloat16),  # column-split SIMT kernels
+     (1, 128, 2, 320, torch.float32), (1, 192, 1, 320, torch.bfloat16),  # column-split kernels
      (1, 128, 1, 512, torch.float32), (2, 128, 1, 512, torch.bfloat16),
      (4, 512, 8, 64, torch.float32), (16, 512, 2, 64, torch.float32),  # a dp-4 and a tp-4 rank's share
-     (1, 192, 3, 64, torch.float32)],  # odd B * H, three tiles
+     (1, 192, 3, 64, torch.float32),  # odd B * H, three tiles
+     (1, 128, 1, 640, torch.float32), (1, 192, 1, 640, torch.bfloat16),  # two forward slices
+     (1, 128, 1, 1344, torch.float32), (1, 128, 1, 2496, torch.bfloat16)],  # q streamed beside k
 )
 def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + D)
