@@ -383,7 +383,8 @@ line each; any failure exits non-zero before the last line:
              backward for the flash kernels; K3b + K3c beside the whole
              backward); the column-split kernels' times at head_dim 320
              and 512 in both dtypes beside their bounds and SDPA's
-             forward and whole backward; the float32 kernels at a dp-4
+             forward and whole backward (K3a beside the one, K3b + K3c
+             beside the other); the float32 kernels at a dp-4
              and a tp-4 rank's shares of the LM (head_dim 64) and at a
              dp-4 share's width in heads of 128 and 256, beside their
              bounds (3xTF32 on the tensor cores, and the CUDA cores'
@@ -429,7 +430,7 @@ SPLIT_DS = (320, 512)  # head widths past 256: the column-split kernels
 SPLIT_WIDE = ((640, "bfloat16"), (640, "float32"), (1344, "float32"), (2496, "bfloat16"))
 TENSOR_CORES, SIMT = "tensor cores (bf16 mma.sync)", "SIMT (float32 FMA)"
 TF32 = "tensor cores (3xTF32 mma.sync)"
-SPLIT_FWD = "column-split, tensor cores ({})"  # the forward past head_dim 256, by dtype
+SPLIT_TC = "column-split, tensor cores ({})"  # the three kernels past head_dim 256, by dtype
 FWD_ROUTES = "tensor cores: bf16 mma.sync, float32 3xTF32 mma.sync, column-split past head_dim 256 in both"
 FLASH_OWN_DS = (64, 128, 192, 256)  # head widths with a template of their own
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -6110,9 +6111,10 @@ def _flash_checks(torch, dev, gen):
     (the dense_dp phase's float32 runs), at a longer, wider float32 shape,
     at head_dim 256 in both dtypes (bfloat16 runs the bf16 tensor-core
     kernels, float32 the 3xTF32 ones), at head_dim 320 and 512 in both
-    dtypes (the column-split forward on the tensor cores, the column-split
-    SIMT backward) and at the wider ``SPLIT_WIDE`` (two forward slices; q
-    streamed beside k); then the route each (dtype, head_dim) takes
+    dtypes (the column-split kernels, all three on the tensor cores) and at
+    the wider ``SPLIT_WIDE`` (two forward and dQ slices, three dK/dV
+    slices; q streamed beside k, and the backward's own rows streamed beside
+    each piece); then the route each (dtype, head_dim) takes
     (:func:`_flash_routes`).
 
     Tolerances.  float32: rtol 1e-5 and atol 1e-5 of the largest value, as
@@ -6148,8 +6150,7 @@ def _flash_routes(torch, dev, gen):
     dK/dV at (B 1, T 128, H 1), by the names torch.profiler records: a
     ``route:`` line each.  float32 at head_dim 64-256 must take the 3xTF32
     kernels, bfloat16 there the bf16 tensor-core kernels, and every wider
-    head the column-split forward on the tensor cores and the column-split
-    SIMT backward."""
+    head the column-split kernels on the tensor cores."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -6169,7 +6170,7 @@ def _flash_routes(torch, dev, gen):
             f32, own = dtype == torch.float32, D in FLASH_OWN_DS
             fwd, bwd = ("tf32_", "tf32_") if f32 else ("mma_", "mma_")
             if not own:
-                fwd, bwd = "split_mma_", "split_"
+                fwd = bwd = "split_mma_"
             want = {"flash_fwd": f"flash_fwd_{fwd}kernel<", "flash_bwd_dq": f"flash_bwd_dq_{bwd}kernel<",
                     "flash_bwd_dkv": f"flash_bwd_dkv_{bwd}kernel<"}
             label = str(dtype).replace("torch.", "")
@@ -6878,9 +6879,8 @@ def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
                              lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta))}
     times = {}
     for name, (nbytes, flops) in _flash_work(B, T, H, D, q.element_size()).items():
-        design = (TENSOR_CORES if short == "bf16" else TF32) if own else (
-            SPLIT_FWD.format("bf16 mma.sync" if short == "bf16" else "3xTF32 mma.sync")
-            if name == "flash_fwd" else "column-split SIMT")
+        design = (TENSOR_CORES if short == "bf16" else TF32) if own else SPLIT_TC.format(
+            "bf16 mma.sync" if short == "bf16" else "3xTF32 mma.sync")
         kernel, plain = fns[name]
         k_ms = times[name] = gpu_ms(torch, kernel, flush)
         p_ms = gpu_ms(torch, plain, flush, reps=5)
@@ -6896,11 +6896,11 @@ def _flash_kernel_times(torch, dev, gen, flush, B, T, H, D, dtype, who):
         print(f"timing: {what} at (B {B}, T {T}, H {H}, D {D}), {who}: K3a {times['flash_fwd']:.4f} ms "
               f"against scaled_dot_product_attention's {short} forward {sdpa['fwd']:.4f} ms "
               f"({times['flash_fwd'] / sdpa['fwd']:.2f}x)")
-    if short == "f32" and own:
         pair = times["flash_bwd_dq"] + times["flash_bwd_dkv"]
-        print(f"timing: the float32 backward at (B {B}, T {T}, H {H}, D {D}), {who}: K3b + K3c "
+        what = "the float32 backward" if own else f"the column-split backward in {short}"
+        print(f"timing: {what} at (B {B}, T {T}, H {H}, D {D}), {who}: K3b + K3c "
               f"{times['flash_bwd_dq']:.4f} + {times['flash_bwd_dkv']:.4f} = {pair:.4f} ms against "
-              f"scaled_dot_product_attention's whole float32 backward {sdpa['bwd']:.4f} ms "
+              f"scaled_dot_product_attention's whole {short} backward {sdpa['bwd']:.4f} ms "
               f"({pair / sdpa['bwd']:.2f}x)")
 
 

@@ -26,9 +26,9 @@
 // three TF32 products of the operands' big and small halves (mma.cuh),
 // which keeps float32's bar (rtol 1e-5) where one TF32 product keeps about
 // three decimal digits.  Every wider multiple of 64 takes, in both dtypes,
-// the column-split forward on the tensor cores (flash_fwd_split_mma: bf16
-// mma.sync or 3xTF32) and the column-split SIMT backward (float32 FMAs on
-// the CUDA cores; see each).
+// the column-split kernels on the tensor cores (flash_fwd_split_mma,
+// flash_bwd_dq_split_mma, flash_bwd_dkv_split_mma: bf16 mma.sync or
+// 3xTF32; see each).  No kernel runs on the CUDA cores alone.
 //
 // q arrives scaled by 1/sqrt(D) (the wrapper scales it, as splash's caller
 // does), so no kernel scales.  Every score, softmax statistic and sum is
@@ -49,8 +49,10 @@
 // 64) the products bound all three: three TF32 products each of the causal
 // pairs' 1.1 (forward), 1.6 (dQ) and 2.2 (dK/dV) GFLOP over 495 TFLOP/s,
 // 0.0065, 0.0098 and 0.013 ms, against 0.005-0.0075 ms of bytes.  Past D
-// 256 (B 2, T 1024, H 2) the forward's bytes bound it in bf16 (0.0031 ms
-// at D 320) and its 3xTF32 products in float32 (0.0163 ms).
+// 256 (B 2, T 1024, H 2, D 320) the bytes bound the bf16 forward and dQ
+// (0.0031 and 0.0047 ms) and the products bf16 dK/dV (0.0054 ms); in
+// float32 the 3xTF32 products bound all three (0.0163, 0.0244 and 0.0326
+// ms).
 //
 // What the designs do:
 //
@@ -66,15 +68,11 @@
 //   3xTF32 kernels: the same shape in float32 (see there), 64 or 32 own
 //   rows, each streamed tile split into its TF32 halves once, when it
 //   lands.
-//   column-split forward: q held whole (or, past where it fits, streamed
-//   beside k), k and the block's V columns streamed in 64 x 64 pieces,
-//   the scores built once a block and shared by its warps through shared
-//   memory (see there).
-//   column-split SIMT backward: 64 x 64 (query x key) tiles in shared
-//   memory, rows padded by one float so the 16 rows a warp reads fall in
-//   16 banks; 256 threads as 16 x 16 (ty, tx), a thread owning rows ty +
-//   16 i and columns tx + 16 j of a tile and output columns tx + 16 c of
-//   its rows, so row reductions are four xor shuffles in a half-warp.
+//   column-split kernels: a block's own rows held whole (or, past where
+//   they fit, streamed beside each piece), the other side streamed in 64
+//   x 64 pieces, the scores built once a block and shared by its warps
+//   through shared memory, the output columns split into slices of up to
+//   8 pieces (4 for dK/dV, which holds two outputs) (see there).
 //
 // All skip tiles wholly above the causal diagonal (never loaded or
 // computed), mask only at the diagonal, and schedule the longest query
@@ -90,262 +88,12 @@ namespace fps {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kSide = 16;  // threads per side of the SIMT backward's 16 x 16 block
-constexpr int kThreads = kSide * kSide;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on an H100
 
 // Element strides of one (B, T, H, D) tensor; the last dimension is contiguous.
 struct Layout {
   int64_t b, t, h;
 };
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// v rounded to T and back: where T is bf16, splash rounds dS (and P in
-// dK/dV) to it before their products; for float32 nothing changes.
-template <typename T>
-__device__ __forceinline__ float rounded(float v) {
-  if constexpr (std::is_same<T, bf16>::value) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
-// Sum over the 16 threads of a row: lanes tx = 0..15 of one half-warp.
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ---- SIMT helpers of the column-split backward (float32 FMAs) ----
-
-// Rows [row0, row0 + kT) of head (b, h) into shared memory as float, row
-// stride D + 1.  Consecutive threads read consecutive columns.
-template <typename T, int D, int kT>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, const Layout& lay, int b, int h,
-                                          int row0) {
-  const T* base = src + b * lay.b + h * lay.h + static_cast<int64_t>(row0) * lay.t;
-  for (int i = threadIdx.x; i < kT * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = load_f(base + r * lay.t + c);
-  }
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d]   (A B^T on a kT x kT tile)
-template <int D, int kT>
-__device__ __forceinline__ void tile_abt(float (&acc)[kT / kSide][kT / kSide], const float* A,
-                                         const float* B, int ty, int tx) {
-  constexpr int P = kT / kSide;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[P], b[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) a[i] = A[(ty + kSide * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < P; ++j) b[j] = B[(tx + kSide * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// out[i][c] += sum_kk S[ty + 16 i][kk] * V[kk][tx + 16 c]   (S V with S kT x kT, row stride kT + 1)
-template <int D, int kT>
-__device__ __forceinline__ void tile_sv(float (&out)[kT / kSide][D / kSide], const float* S,
-                                        const float* V, int ty, int tx) {
-  constexpr int P = kT / kSide;
-#pragma unroll 4
-  for (int kk = 0; kk < kT; ++kk) {
-    float s[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) s[i] = S[(ty + kSide * i) * (kT + 1) + kk];
-#pragma unroll
-    for (int c = 0; c < D / kSide; ++c) {
-      const float v = V[kk * (D + 1) + tx + kSide * c];
-#pragma unroll
-      for (int i = 0; i < P; ++i) out[i][c] += s[i] * v;
-    }
-  }
-}
-
-// Write a thread's rows of a kT x W float tile to columns [col0, col0 + W)
-// of a contiguous (B, T, H, D) output.
-template <typename T, int W, int kT>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[kT / kSide][W / kSide], int b,
-                                           int h, int H, int T_len, int D, int col0, int row0, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < kT / kSide; ++i) {
-    const int64_t row = row0 + ty + kSide * i;
-    T* dst = out + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + col0;
-#pragma unroll
-    for (int c = 0; c < W / kSide; ++c) store_f(dst + tx + kSide * c, acc[i][c]);
-  }
-}
-
-// ---- column-split SIMT backward (head widths past 256, D a runtime multiple of 64) ----
-//
-// One block per (64-row tile, head, 64-column slice of the output): grid
-// (T / 64, B * H, D / 64).  Each block builds its scores over the full D in
-// 64-column chunks through shared memory, so shared memory does not grow
-// with D, and writes only its own 64 columns.  Every slice computes the
-// same scores in the same order; slice 0 writes delta.  The score work is
-// repeated D / 64 times.
-constexpr int kSplit = 64;  // tile rows and output columns of a column-split block
-constexpr int kSplitTile = kSplit * (kSplit + 1);  // floats of a 64 x 64 tile, rows padded by one
-// shared memory: dQ q, dO, k and v chunks, dS; dK/dV k, v, q and dO
-// chunks, P^T, dS^T, L and D
-constexpr int dq_split_smem_bytes() { return 5 * kSplitTile * 4; }
-constexpr int dkv_split_smem_bytes() { return (6 * kSplitTile + 2 * kSplit) * 4; }
-
-// grid (T / 64, B * H, D / 64): block x takes query tile T/64 - 1 - x.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_split_kernel(const T* q, const T* k, const T* v, const T* o, const T* dout, Layout lq,
-                          Layout lk, Layout lv, Layout lo, Layout ldo, const float* lse, float* delta,
-                          T* dq, int H, int T_len, int D) {
-  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
-  extern __shared__ float smem[];
-  float* Qc = smem;
-  float* dOc = Qc + kSplitTile;
-  float* Kc = dOc + kSplitTile;
-  float* Vc = Kc + kSplitTile;
-  float* Ss = Vc + kSplitTile;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int qt = gridDim.x - 1 - blockIdx.x, col0 = kSplit * blockIdx.z;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT;
-
-  float part[P], L[P], Di[P], acc[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    part[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-  for (int c0 = 0; c0 < D; c0 += kSplit) {  // delta = rowsum(dO * O) over the full D
-    __syncthreads();
-    load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
-    load_tile<T, kSplit, kT>(Qc, o + c0, lo, b, h, qt * kT);  // O, for delta only
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int at = (ty + kSide * i) * (kSplit + 1) + tx + kSide * c;
-        part[i] += dOc[at] * Qc[at];
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int r = ty + kSide * i;
-    Di[i] = row_sum(part[i]);
-    L[i] = lse[stat0 + r];
-    if (blockIdx.z == 0 && tx == 0) delta[stat0 + r] = Di[i];
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    float s[P][P], dp[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S = q k^T and dP = dO v^T over the full D
-      __syncthreads();
-      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
-      load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
-      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
-      load_tile<T, kSplit, kT>(Vc, v + c0, lv, b, h, kt * kT);
-      __syncthreads();
-      tile_abt<kSplit, kT>(s, Qc, Kc, ty, tx);
-      tile_abt<kSplit, kT>(dp, dOc, Vc, ty, tx);
-    }
-    __syncthreads();  // the last chunk is consumed before Kc takes the block's columns of k
-    load_tile<T, kSplit, kT>(Kc, k + col0, lk, b, h, kt * kT);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const bool masked = kt == qt && tx + kSide * j > ty + kSide * i;
-        const float p = masked ? 0.f : expf(s[i][j] - L[i]);
-        Ss[(ty + kSide * i) * (kT + 1) + tx + kSide * j] = rounded<T>(p * (dp[i][j] - Di[i]));
-      }
-    __syncthreads();
-    tile_sv<kSplit, kT>(acc, Ss, Kc, ty, tx);
-  }
-  store_rows<T, kSplit, kT>(dq, acc, b, h, H, T_len, D, col0, qt * kT, ty, tx);
-}
-
-// grid (T / 64, B * H, D / 64): block x takes key tile x.  Thread rows are key rows.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_split_kernel(const T* q, const T* k, const T* v, const T* dout, Layout lq, Layout lk,
-                           Layout lv, Layout ldo, const float* lse, const float* delta, T* dk, T* dv,
-                           int H, int T_len, int D) {
-  constexpr int kT = kSplit, P = kT / kSide, C = kSplit / kSide;
-  extern __shared__ float smem[];
-  float* Kc = smem;
-  float* Vc = Kc + kSplitTile;
-  float* Qc = Vc + kSplitTile;
-  float* dOc = Qc + kSplitTile;
-  float* Pt = dOc + kSplitTile;  // P^T: key row x query column
-  float* dSt = Pt + kSplitTile;  // dS^T
-  float* Ls = dSt + kSplitTile;
-  float* Ds = Ls + kT;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const int kt = blockIdx.x, col0 = kSplit * blockIdx.z;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-
-  float dK[P][C], dV[P][C];
-#pragma unroll
-  for (int i = 0; i < P; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dK[i][c] = dV[i][c] = 0.f;
-
-  for (int qt = kt; qt < static_cast<int>(gridDim.x); ++qt) {
-    float s[P][P], dp[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kSplit) {  // S^T = k q^T and dP^T = v dO^T over the full D
-      __syncthreads();
-      load_tile<T, kSplit, kT>(Kc, k + c0, lk, b, h, kt * kT);
-      load_tile<T, kSplit, kT>(Vc, v + c0, lv, b, h, kt * kT);
-      load_tile<T, kSplit, kT>(Qc, q + c0, lq, b, h, qt * kT);
-      load_tile<T, kSplit, kT>(dOc, dout + c0, ldo, b, h, qt * kT);
-      if (c0 == 0 && threadIdx.x < kT) {
-        const int64_t at = static_cast<int64_t>(blockIdx.y) * T_len + qt * kT + threadIdx.x;
-        Ls[threadIdx.x] = lse[at];
-        Ds[threadIdx.x] = delta[at];
-      }
-      __syncthreads();
-      tile_abt<kSplit, kT>(s, Kc, Qc, ty, tx);
-      tile_abt<kSplit, kT>(dp, Vc, dOc, ty, tx);
-    }
-    __syncthreads();  // the last chunk is consumed before Qc and dOc take the block's columns
-    load_tile<T, kSplit, kT>(Qc, q + col0, lq, b, h, qt * kT);
-    load_tile<T, kSplit, kT>(dOc, dout + col0, ldo, b, h, qt * kT);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int key = ty + kSide * i, query = tx + kSide * j;
-        const bool masked = qt == kt && key > query;
-        const float p = masked ? 0.f : expf(s[i][j] - Ls[query]);
-        Pt[key * (kT + 1) + query] = rounded<T>(p);
-        dSt[key * (kT + 1) + query] = rounded<T>(p * (dp[i][j] - Ds[query]));
-      }
-    __syncthreads();
-    tile_sv<kSplit, kT>(dV, Pt, dOc, ty, tx);
-    tile_sv<kSplit, kT>(dK, dSt, Qc, ty, tx);
-  }
-  store_rows<T, kSplit, kT>(dk, dK, b, h, H, T_len, D, col0, kt * kT, ty, tx);
-  store_rows<T, kSplit, kT>(dv, dV, b, h, H, T_len, D, col0, kt * kT, ty, tx);
-}
 
 // ---- tensor-core kernels (bf16 mma.sync) ----
 
@@ -1705,6 +1453,486 @@ flash_fwd_split_mma_kernel(const T* q, const T* k, const T* v, Layout lq, Layout
   }
 }
 
+// ---- column-split backward on the tensor cores (head widths past 256, D a runtime multiple of 64) ----
+//
+// The split forward's parts, for splash's two backward kernels, in both
+// dtypes (bf16 mma.sync m16n8k16, or 3xTF32 m16n8k8).  A block owns kM
+// rows, query rows for dQ and key rows for dK/dV, and holds them whole in
+// shared memory (dQ: q and dO; dK/dV: k and v), loaded once, where they
+// fit beside the ring: dQ up to D 640 in float32 and 1,216 in bf16, dK/dV
+// (twice the rows) up to 576 in bf16 and at no split width in float32.
+// Past that each streamed piece has the own rows' 64 columns beside it.  The other side streams past in steps of 64 rows
+// (dQ: keys; dK/dV: queries), each step's D / 64 column pieces of both
+// streamed tensors (dQ: k and v; dK/dV: q and dO) through a two-slot
+// cp.async ring of 8 (bf16) or 4 (float32) pieces a slot.  Warp (r, c) of
+// kM / 16 row warps times 4 column sets builds S and dP for its 16 own
+// rows and 16 of the step's 64 streamed rows over the full D, so the
+// scores are built once a block: dQ takes P = exp(S - L) and dS = P (dP -
+// delta), dK/dV P^T and dS^T the same way, and each goes to shared memory,
+// from where every warp of the rows reads it as the A operand of its
+// output products on its 16 columns of each of the slice's pieces: dQ +=
+// dS k; dK += dS^T q and dV += P^T dO.  In bf16 what goes to shared memory
+// is the bf16 rounding of dS (and of P in dK/dV), the rounding splash
+// makes before those products; in float32 its TF32 big and small planes.
+//
+// Recompute factor.  A lane holds 64 output sums: 8 pieces x 16 columns of
+// dQ, so a dQ slice has at most 8 pieces and its score work runs ceil(D /
+// 512) times; 4 pieces x 16 columns of both dK and dV, so a dK/dV slice
+// has at most 4 and its score work runs ceil(D / 256) times.
+//
+// Reuse.  The score columns run in an order that ends with the slice's
+// own, and a step's partial score slot comes first, so its last score slot
+// holds the slice's streamed pieces that the output products need (dQ:
+// k's; dK/dV: q's and dO's), as many as it has room for; those are read
+// from it before the ring moves on, and only the rest stream in again.
+//
+// Statistics.  dQ reads L and computes delta = rowsum(dO O) of its rows
+// once a block, every slice alike (slice 0 writes it); dK/dV loads each
+// lane's queries' L and delta at the start of a step and uses them after
+// the scores.  No atomics: every sum has one owner and a fixed order.
+//
+// Own rows and the grid.  dQ owns 16 rows a block and dK/dV 32, in both
+// dtypes.  At B 2, T 1024, H 2 (the shape the timings use) that gives 256
+// blocks of each for the 132 SMs, one block an SM; the longest tiles start
+// first (dQ: the last query tile; dK/dV: key tile 0), with the slices of
+// one tile side by side in the grid's x, so that the short tiles fill in
+// behind the long ones.  Timed against each other in one call
+// (tools/flash_bwd_variants.py; PERF.md §6): 32 dK/dV rows took
+// 0.58-0.74x the time of 16 (a step's streamed pieces serve twice the
+// rows), even in float32, where 32 rows of k and v no longer fit whole and
+// stream; 32 dQ rows tied in bf16 and took 1.28-1.32x in float32 (there q
+// and dO stream).  Reading the last score slot's pieces again made the
+// pair 0.92-0.93x as slow as streaming them anew in bf16 and 0.97x in
+// float32 at D 320, 1.01x at D 512 (where it saves no slot); float32
+// scores summed in even and odd halves were 1.6-2.5 % slower and spilled;
+// bf16 slots of 4 pieces (two dQ blocks an SM) were 1.06-1.17x slower
+// than slots of 8.
+
+// outputs a block holds: dQ; or dK and dV
+template <bool kDKV>
+__host__ __device__ constexpr int bwd_split_outputs() { return kDKV ? 2 : 1; }
+// planes of the outputs' A operands: one in bf16, TF32 big and small in float32
+template <typename T, bool kDKV>
+__host__ __device__ constexpr int bwd_split_planes() { return bwd_split_outputs<kDKV>() * (sizeof(T) == 2 ? 1 : 2); }
+// own rows a block: 16 for dQ, 32 for dK/dV (see above: "Own rows and the grid")
+template <bool kDKV>
+__host__ __device__ constexpr int bwd_split_rows() { return kDKV ? 32 : 16; }
+
+// the own rows whole (where held), the ring, the A planes, dQ's delta of the rows
+template <typename T, bool kDKV>
+int bwd_split_smem_bytes(int D, int kM, bool held) {
+  const int elems = (held ? 2 * kM * (D + split_pad<T>()) : 0) + kSplitSlots * split_slot<T>() * split_piece<T>() +
+                    bwd_split_planes<T, kDKV>() * kM * kSplitPStride;
+  return elems * static_cast<int>(sizeof(T)) + (kDKV ? 0 : kM * 4);
+}
+
+// acc += A Y on one output piece, bf16: A (the warp's 16 rows x the step's
+// 64 streamed rows) in registers, read from its plane once a step; Y the
+// piece, of which the warp takes columns cs .. cs + 15.  Only streamed rows
+// klo .. khi - 1 are read: A is 0 elsewhere for these rows.  Odd 16-row
+// units sum apart, so that two chains are in flight.
+__device__ __forceinline__ void split_out_bf16(float (&acc)[2][4], const uint32_t (&a)[kSplitKeys / 16][4],
+                                               const bf16* Yp, int cs, int klo, int khi, const Lanes& ln) {
+  constexpr int SP = kSplitKeys + split_pad<bf16>();
+  float odd[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) odd[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kSplitKeys / 16; ++kk) {
+    if (16 * kk < klo || 16 * kk >= khi) continue;
+    uint32_t bb[4];
+    ldmatrix_x4_trans(bb, Yp + (16 * kk + ln.t_row) * SP + cs + ln.t_col);
+    float(&d)[2][4] = kk & 1 ? odd : acc;
+    mma_bf16(d[0], a[kk], bb[0], bb[1]);
+    mma_bf16(d[1], a[kk], bb[2], bb[3]);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += odd[n][e];
+}
+
+// The same in 3xTF32: A from its big and small planes with its k permuted
+// (k = t: streamed row 2t, k = t + 4: row 2t + 1, as acc_to_a_tf32 does),
+// Y's rows read in that order and split as read; each product chains two
+// 8-row steps in the tensor cores and joins acc in a float32 add.
+__device__ __forceinline__ void split_out_tf32(float (&acc)[2][4], const float* big, const float* small, int w0,
+                                               const float* Yp, int cs, int klo, int khi, const LanesF32& ln) {
+  constexpr int SP = kSplitKeys + split_pad<float>(), SPP = kSplitPStride, NT = 2;
+#pragma unroll
+  for (int kk = 0; kk < kSplitKeys / 8; kk += 2) {
+    if (8 * kk < klo || 8 * kk >= khi) continue;
+    float t[NT][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = 8 * (kk + half), r0 = (w0 + ln.g) * SPP + key + 2 * ln.t4, r1 = r0 + 8 * SPP;
+      const float2 x0 = *reinterpret_cast<const float2*>(big + r0), x1 = *reinterpret_cast<const float2*>(big + r1);
+      const float2 y0 = *reinterpret_cast<const float2*>(small + r0), y1 = *reinterpret_cast<const float2*>(small + r1);
+      Split<4> a;
+      a.big[0] = __float_as_uint(x0.x), a.big[1] = __float_as_uint(x1.x);
+      a.big[2] = __float_as_uint(x0.y), a.big[3] = __float_as_uint(x1.y);
+      a.small[0] = __float_as_uint(y0.x), a.small[1] = __float_as_uint(y1.x);
+      a.small[2] = __float_as_uint(y0.y), a.small[3] = __float_as_uint(y1.y);
+      Split<2 * NT> yb;
+      const float* yr = Yp + (key + 2 * ln.t4) * SP + cs + ln.g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        split_tf32(yr[8 * n], yb.big[2 * n], yb.small[2 * n]);
+        split_tf32(yr[SP + 8 * n], yb.big[2 * n + 1], yb.small[2 * n + 1]);
+      }
+      if (half == 0) mma_3xtf32_chain<false, NT>(t, 0, a, yb);
+      else mma_3xtf32_chain<true, NT>(t, 0, a, yb);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
+  }
+}
+
+// The body of both kernels.  x0, x1: the own rows' tensors (dQ: q, dO;
+// dK/dV: k, v); y0, y1: the streamed ones (dQ: k, v; dK/dV: q, dO); S = x0
+// y0^T and dP = x1 y1^T.  Output o is A plane o times y piece o: dQ = dS
+// k; dK = dS^T q and dV = P^T dO.  grid (B * H * slices, T / kM), kM / 16 x
+// 4 warps: block (x, y) takes head x / slices, column slice x % slices and
+// the own tile y places longest first (dQ: T/kM - 1 - y; dK/dV: y).  held:
+// the own rows whole in shared memory, else streamed beside each piece.
+template <typename T, bool kDKV>
+__device__ __forceinline__ void bwd_split(const T* x0, const T* x1, const T* y0, const T* y1, Layout lx0, Layout lx1,
+                                          Layout ly0, Layout ly1, const T* o, Layout lo, const float* lse,
+                                          const float* delta_in, float* delta_out, T* out0, T* out1, int H,
+                                          int T_len, int D, bool held) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int C = kSplitSets, NT = kSplitKeys / C / 8;  // n-tiles of a warp's 16 columns of a piece
+  constexpr int NO = bwd_split_outputs<kDKV>(), kPer = kSplitPieces / NO;  // outputs; pieces a slice
+  constexpr int NPL = kF32 ? 2 : 1, PAD = split_pad<T>(), SP = kSplitKeys + PAD, SPP = kSplitPStride;
+  constexpr int PIECE = split_piece<T>(), SLOT = split_slot<T>(), NSL = kSplitSlots;
+  static_assert(NT == 2 && SLOT % 4 == 0, "a slot holds whole score columns of four pieces");
+  using Ln = typename std::conditional<kF32, LanesF32, Lanes>::type;
+  const int RW = blockDim.x / (32 * C), kM = 16 * RW, SX = D + PAD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* X0s = reinterpret_cast<T*>(smem_raw);
+  T* X1s = X0s + (held ? kM * SX : 0);
+  T* ring = X1s + (held ? kM * SX : 0);
+  T* planes = ring + NSL * SLOT * PIECE;  // output o's A operand at NPL o kM SPP (float32: big, then small)
+  float* Ds = reinterpret_cast<float*>(planes + NO * NPL * kM * SPP);  // dQ: delta of the own rows
+  const Ln ln(threadIdx.x % 32);
+  const int warp = threadIdx.x / 32, c = warp / RW, w0 = 16 * (warp % RW);
+  const int cs = 16 * c;  // the set's streamed rows in each step and columns in each output piece
+  const int nK = D / kSplitKeys, slices = (nK + kPer - 1) / kPer;
+  const int bh = blockIdx.x / slices, z = blockIdx.x % slices, b = bh / H, h = bh % H;
+  const int own0 = kM * (kDKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y), row0 = own0 + w0;
+  const int64_t stat0 = static_cast<int64_t>(bh) * T_len;
+  // the slice: pieces c0 .. c0 + nV - 1, spread evenly over the slices
+  const int base = nK / slices, extra = nK % slices;
+  const int nV = base + (z < extra ? 1 : 0), c0 = z * base + (z < extra ? z : extra);
+  // score slots: W pieces a column (y0, y1, then x0, x1 where the own rows stream), KP columns a slot, the
+  // partial slot first; columns c0 + nV, c0 + nV + 1, ... (mod nK), so that the slice's own come last
+  const int W = held ? 2 : 4, KP = SLOT / W;
+  const int kSlots = (nK + KP - 1) / KP, rem = nK - KP * (kSlots - 1), last = kSlots == 1 ? nK : KP;
+  const int r = nV < last ? nV : last;  // the slice's last r pieces come from the last score slot
+  const int OC = SLOT / NO, oSlots = (nV - r + OC - 1) / OC, per = kSlots + oSlots;  // output slots: OC columns
+  const int first = kDKV ? own0 / kSplitKeys : 0;  // steps whose pairs are not all masked
+  const int steps = kDKV ? T_len / kSplitKeys - first : (own0 + kM - 1) / kSplitKeys + 1, total = steps * per;
+
+  constexpr int E = 16 / sizeof(T), CH = kSplitKeys / E;  // elements a 16-byte copy; copies a piece row
+  // the own rows' columns col .. col + n - 1 into dst (row stride ld)
+  auto load_own = [&](T* dst, int ld, const T* src, const Layout& lay, int col, int n) {
+    const T* blk = src + b * lay.b + h * lay.h + static_cast<int64_t>(own0) * lay.t + col;
+    const int chunks = n / E;
+    for (int i = threadIdx.x; i < kM * chunks; i += blockDim.x) {
+      const int rr = i / chunks, cc = (i % chunks) * E;
+      cp_async_16(dst + rr * ld + cc, blk + rr * lay.t + cc);
+    }
+  };
+  // A piece is 64 rows of 64 columns; thread i copies 16 bytes of rows i / CH, + rstep, ... at column
+  // (i % CH) E, from pointers set up once
+  const int rstep = blockDim.x / CH, pr = threadIdx.x / CH, pc = (threadIdx.x % CH) * E;
+  const T* y0_thr = y0 + b * ly0.b + h * ly0.h + pr * ly0.t + pc;
+  const T* y1_thr = y1 + b * ly1.b + h * ly1.h + pr * ly1.t + pc;
+  const int64_t y0_step = rstep * ly0.t, y1_step = rstep * ly1.t;
+  auto load_piece = [&](T* dst, const T* src, int64_t step) {
+    dst += pr * SP + pc;
+    for (int rr = pr; rr < kSplitKeys; rr += rstep, dst += rstep * SP, src += step) cp_async_16(dst, src);
+  };
+  // slot i of the block's sequence (step i / per: its score slots, then its output slots) into ring slot
+  // i % NSL; one commit a slot, empty past the end, so that the wait below counts slots
+  auto load_slot = [&](int i) {
+    if (i < total) {
+      const int sl = i % per;
+      const int64_t row = static_cast<int64_t>(kSplitKeys) * (first + i / per);
+      T* dst = ring + (i % NSL) * SLOT * PIECE;
+      if (sl < kSlots) {
+        const int p0 = sl == 0 ? 0 : rem + KP * (sl - 1), n = sl == 0 ? rem : KP;
+        for (int l = 0; l < n; ++l, dst += W * PIECE) {
+          const int col = kSplitKeys * ((c0 + nV + p0 + l) % nK);
+          load_piece(dst, y0_thr + row * ly0.t + col, y0_step);
+          load_piece(dst + PIECE, y1_thr + row * ly1.t + col, y1_step);
+          if (!held) {
+            load_own(dst + 2 * PIECE, SP, x0, lx0, col, kSplitKeys);
+            load_own(dst + 3 * PIECE, SP, x1, lx1, col, kSplitKeys);
+          }
+        }
+      } else {
+        for (int l = 0, i0 = OC * (sl - kSlots); l < OC && i0 + l < nV - r; ++l) {
+          const int col = kSplitKeys * (c0 + i0 + l);
+          load_piece(dst + NO * l * PIECE, y0_thr + row * ly0.t + col, y0_step);
+          if constexpr (kDKV) load_piece(dst + (NO * l + 1) * PIECE, y1_thr + row * ly1.t + col, y1_step);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // slot i, landed for every thread; the previous slot's readers are done, so its ring slot refills
+  auto next_slot = [&](int i) -> const T* {
+    cp_async_wait<NSL - 2>();
+    __syncthreads();
+    load_slot(i + NSL - 1);
+    return ring + (i % NSL) * SLOT * PIECE;
+  };
+  // an output's A operand at at and at + 1 of its plane: bf16, or TF32 big and small
+  auto put = [&](T* plane, int at, const float (&x)[2]) {
+    if constexpr (kF32) {
+      const float b0 = __uint_as_float(to_tf32(x[0])), b1 = __uint_as_float(to_tf32(x[1]));
+      *reinterpret_cast<float2*>(plane + at) = make_float2(b0, b1);
+      *reinterpret_cast<float2*>(plane + kM * SPP + at) = make_float2(x[0] - b0, x[1] - b1);
+    } else {
+      *reinterpret_cast<uint32_t*>(plane + at) = pack_bf16(x[0], x[1]);
+    }
+  };
+
+  if (held) {
+    load_own(X0s, SX, x0, lx0, 0, D);
+    load_own(X1s, SX, x1, lx1, 0, D);
+  }
+  for (int i = 0; i < NSL - 1; ++i) load_slot(i);  // the held rows join slot 0's group
+
+  float L[2] = {0.f, 0.f}, Di[2] = {0.f, 0.f};  // dQ: L and delta of rows g and g + 8
+  if constexpr (!kDKV) {  // delta = rowsum(dO O) while slot 0 streams in: 8 neighbouring threads a row
+    constexpr int kParts = 2 * C;
+    const int kCols = D / kParts, rr = threadIdx.x / kParts, col = (threadIdx.x % kParts) * kCols;
+    const int64_t row = own0 + rr;
+    const T* op = o + b * lo.b + h * lo.h + row * lo.t + col;
+    const T* dw = x1 + b * lx1.b + h * lx1.h + row * lx1.t + col;
+    float part = 0.f;
+    if constexpr (kF32) {
+      for (int j = 0; j < kCols; j += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(op + j), y = *reinterpret_cast<const float4*>(dw + j);
+        part += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+      }
+    } else {
+      for (int j = 0; j < kCols; j += 2) {
+        const uint32_t x = *reinterpret_cast<const uint32_t*>(op + j), y = *reinterpret_cast<const uint32_t*>(dw + j);
+        part += bf16_lo(x) * bf16_lo(y) + bf16_hi(x) * bf16_hi(y);
+      }
+    }
+#pragma unroll
+    for (int off = kParts / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (threadIdx.x % kParts == 0) {
+      Ds[rr] = part;
+      if (z == 0) delta_out[stat0 + row] = part;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      L[i] = lse[stat0 + row0 + ln.g + 8 * i];
+      Di[i] = Ds[w0 + ln.g + 8 * i];
+    }
+  }
+
+  float acc[NO][kPer][NT][4];
+#pragma unroll
+  for (int oo = 0; oo < NO; ++oo)
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[oo][p][n][e] = 0.f;
+
+  int slot = 0;
+  for (int j = first; j < first + steps; ++j) {
+    const int s0 = kSplitKeys * j;  // the step's first streamed row: a key (dQ) or a query (dK/dV)
+    // the set's 16 streamed rows, skipped (their pairs masked) where none pairs with the warp's rows
+    const bool live = kDKV ? s0 + cs + 15 >= row0 : s0 + cs <= row0 + 15;
+    // S and dP; in bf16 each with its even and odd columns summed apart, so that four chains are in
+    // flight (float32 chains only two 8-wide steps in the tensor cores and sums in the CUDA cores)
+    constexpr int NPAR = kF32 ? 1 : 2;
+    float sp[2][NPAR][NT][4];
+#pragma unroll
+    for (int pi = 0; pi < 2; ++pi)
+#pragma unroll
+      for (int hf = 0; hf < NPAR; ++hf)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[pi][hf][n][e] = 0.f;
+    for (int sl = 0; sl < kSlots; ++sl) {  // S and dP over the full D
+      const T* Ys = next_slot(slot++);
+      if (!live) continue;
+      const int p0 = sl == 0 ? 0 : rem + KP * (sl - 1), n = sl == 0 ? rem : KP;
+#pragma unroll
+      for (int l = 0; l < SLOT / 2; ++l) {
+        if (l >= n) break;
+        const int col = kSplitKeys * ((c0 + nV + p0 + l) % nK), SXP = held ? SX : SP;
+        const T* yp[2] = {Ys + W * l * PIECE + (cs + ln.b_row) * SP + ln.b_col,
+                          Ys + (W * l + 1) * PIECE + (cs + ln.b_row) * SP + ln.b_col};
+        const T* xp[2] = {(held ? X0s + col : Ys + (W * l + 2) * PIECE) + (w0 + ln.a_row) * SXP + ln.a_col,
+                          (held ? X1s + col : Ys + (W * l + 3) * PIECE) + (w0 + ln.a_row) * SXP + ln.a_col};
+        if constexpr (kF32) {
+#pragma unroll
+          for (int kd0 = 0; kd0 < kSplitKeys / 8; kd0 += 2) {
+            float t[2][NT][4];
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int pi = 0; pi < 2; ++pi) {
+                uint32_t xr[4], yr[4];
+                ldmatrix_x4(xr, xp[pi] + 8 * (kd0 + half));
+                ldmatrix_x4(yr, yp[pi] + 8 * (kd0 + half));
+                const Split<4> xa = split4(xr), yb = split4(yr);
+                if (half == 0) mma_3xtf32_chain<false, 2>(t[pi], 0, xa, yb);
+                else mma_3xtf32_chain<true, 2>(t[pi], 0, xa, yb);
+              }
+#pragma unroll
+            for (int pi = 0; pi < 2; ++pi)
+#pragma unroll
+              for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sp[pi][0][nn][e] += t[pi][nn][e];
+          }
+        } else {
+#pragma unroll
+          for (int kd = 0; kd < kSplitKeys / 16; ++kd)
+#pragma unroll
+            for (int pi = 0; pi < 2; ++pi) {
+              uint32_t a[4], bb[4];
+              ldmatrix_x4(a, xp[pi] + 16 * kd);
+              ldmatrix_x4(bb, yp[pi] + 16 * kd);
+              mma_bf16(sp[pi][l % NPAR][0], a, bb[0], bb[1]);
+              mma_bf16(sp[pi][l % NPAR][1], a, bb[2], bb[3]);
+            }
+        }
+      }
+    }
+
+    float Lq[NT][2], Dq[NT][2];  // dK/dV: L and delta of the lane's queries 8 n + 2 t4 (+ 1) of the set
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float2 lv = make_float2(0.f, 0.f), dv = lv;
+      if (kDKV && live) {
+        lv = *reinterpret_cast<const float2*>(lse + stat0 + s0 + cs + 8 * n + 2 * ln.t4);
+        dv = *reinterpret_cast<const float2*>(delta_in + stat0 + s0 + cs + 8 * n + 2 * ln.t4);
+      }
+      Lq[n][0] = lv.x, Lq[n][1] = lv.y, Dq[n][0] = dv.x, Dq[n][1] = dv.y;
+    }
+    // P = exp(S - L) (dK/dV: P^T with the queries' L), 0 where the key lies past the query; dS = P (dP -
+    // delta); dS into plane 0, P^T into plane 1
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * i + e1, own = row0 + ln.g + 8 * i, other = s0 + cs + 8 * n + 2 * ln.t4 + e1;
+          const bool masked = kDKV ? own > other : other > own;
+          const float lv = kDKV ? Lq[n][e1] : L[i], dl = kDKV ? Dq[n][e1] : Di[i];
+          float s = 0.f, dp = 0.f;
+#pragma unroll
+          for (int hf = 0; hf < NPAR; ++hf) s += sp[0][hf][n][e], dp += sp[1][hf][n][e];
+          pv[e1] = masked ? 0.f : expf(s - lv);
+          dsv[e1] = pv[e1] * (dp - dl);
+        }
+        const int at = (w0 + ln.g + 8 * i) * SPP + cs + 8 * n + 2 * ln.t4;
+        put(planes, at, dsv);
+        if constexpr (kDKV) put(planes + NPL * kM * SPP, at, pv);
+      }
+    __syncthreads();  // the planes are written
+
+    // the output products: streamed rows klo .. khi - 1 of the step pair with some of the warp's rows
+    const int klo = kDKV && row0 > s0 ? row0 - s0 : 0;
+    const int khi = !kDKV && row0 + 16 - s0 < kSplitKeys ? row0 + 16 - s0 : kSplitKeys;
+    uint32_t pa[NO][kSplitKeys / 16][4];  // bf16: the A operands, read once a step
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int oo = 0; oo < NO; ++oo)
+#pragma unroll
+        for (int kk = 0; kk < kSplitKeys / 16; ++kk)
+          ldmatrix_x4(pa[oo][kk], planes + oo * kM * SPP + (w0 + ln.a_row) * SPP + 16 * kk + ln.a_col);
+    }
+    auto out_piece = [&](float (&a)[NT][4], int oo, const T* Yp) {
+      if constexpr (kF32) {
+        const T* big = planes + NPL * oo * kM * SPP;
+        split_out_tf32(a, big, big + kM * SPP, w0, Yp, cs, klo, khi, ln);
+      } else {
+        split_out_bf16(a, pa[oo], Yp, cs, klo, khi, ln);
+      }
+    };
+    // the slice's pieces still in the last score slot, read before the ring moves on
+    const T* last_slot = ring + ((slot - 1) % NSL) * SLOT * PIECE;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (i >= nV) break;
+      if (i < nV - r) continue;
+      const T* col = last_slot + W * (last - nV + i) * PIECE;  // its column's pieces in that slot
+#pragma unroll
+      for (int oo = 0; oo < NO; ++oo) out_piece(acc[oo][i], oo, col + oo * PIECE);
+    }
+    // the rest, streamed again, OC columns a slot
+    const T* Os = ring;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (i >= nV - r) break;
+      if (i % OC == 0) Os = next_slot(slot++);
+#pragma unroll
+      for (int oo = 0; oo < NO; ++oo) out_piece(acc[oo][i], oo, Os + (NO * (i % OC) + oo) * PIECE);
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the end
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t row = row0 + ln.g + 8 * i;
+#pragma unroll
+    for (int oo = 0; oo < NO; ++oo) {
+      T* dst = (oo == 0 ? out0 : out1) + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + kSplitKeys * c0 +
+               cs + 2 * ln.t4;
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+        if (p >= nV) break;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float x = acc[oo][p][n][2 * i], y = acc[oo][p][n][2 * i + 1];
+          if constexpr (kF32) *reinterpret_cast<float2*>(dst + kSplitKeys * p + 8 * n) = make_float2(x, y);
+          else *reinterpret_cast<uint32_t*>(dst + kSplitKeys * p + 8 * n) = pack_bf16(x, y);
+        }
+      }
+    }
+  }
+}
+
+// dQ and delta: what flash_bwd_dq_mma_kernel computes, past head_dim 256, in both dtypes.
+template <typename T>
+__global__ void __launch_bounds__(64 * kSplitSets, 1)
+flash_bwd_dq_split_mma_kernel(const T* q, const T* k, const T* v, const T* o, const T* dout, Layout lq, Layout lk,
+                              Layout lv, Layout lo, Layout ldo, const float* lse, float* delta, T* dq, int H,
+                              int T_len, int D, bool held) {
+  bwd_split<T, false>(q, dout, k, v, lq, ldo, lk, lv, o, lo, lse, nullptr, delta, dq, nullptr, H, T_len, D, held);
+}
+
+// dK and dV: what flash_bwd_dkv_mma_kernel computes, past head_dim 256, in both dtypes.
+template <typename T>
+__global__ void __launch_bounds__(64 * kSplitSets, 1)
+flash_bwd_dkv_split_mma_kernel(const T* q, const T* k, const T* v, const T* dout, Layout lq, Layout lk, Layout lv,
+                               Layout ldo, const float* lse, const float* delta, T* dk, T* dv, int H, int T_len,
+                               int D, bool held) {
+  bwd_split<T, true>(k, v, q, dout, lk, lv, lq, ldo, nullptr, Layout{0, 0, 0}, lse, delta, nullptr, dk, dv, H, T_len,
+                     D, held);
+}
+
 // ---- launchers ----
 
 // kernel<<<grid, threads, smem, stream>>>: the CPU emulation defines its own
@@ -1826,18 +2054,35 @@ int launch_fwd_split(const void* q, const void* k, const void* v, const int64_t*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The column-split backward (see there): bwd_split_rows own rows a block, the own rows held whole where
+// they fit, a dQ slice of up to 8 pieces and a dK/dV slice of up to 4, the slices of a tile side by side
+// in the grid's x.
+template <typename T, bool kDKV>
+struct BwdSplitShape {
+  int kM = bwd_split_rows<kDKV>(), slices, smem;
+  bool held;
+  explicit BwdSplitShape(int D)
+      : slices((D / kSplitKeys * bwd_split_outputs<kDKV>() + kSplitPieces - 1) / kSplitPieces),
+        held(bwd_split_smem_bytes<T, kDKV>(D, bwd_split_rows<kDKV>(), true) <= kSmemLimit) {
+    smem = bwd_split_smem_bytes<T, kDKV>(D, kM, held);
+  }
+  dim3 grid(int B, int H, int T_len) const { return dim3(B * H * slices, T_len / kM); }
+  int threads() const { return kM / 16 * kSplitSets * 32; }
+};
+
 template <typename T>
 int launch_dq_split(const void* q, const void* k, const void* v, const void* o, const void* dout,
                     const int64_t* st, const float* lse, float* delta, void* dq, int B, int T_len, int H,
                     int D, cudaStream_t stream) {
-  constexpr int smem = dq_split_smem_bytes();
-  const auto kernel = flash_bwd_dq_split_kernel<T>;
-  int err = prepare(kernel, smem);
+  const BwdSplitShape<T, false> sh(D);
+  const auto kernel = flash_bwd_dq_split_mma_kernel<T>;
+  int err = prepare(kernel, sh.smem);
   if (err != 0) return err;
-  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+  FPS_LAUNCH(kernel, sh.grid(B, H, T_len), sh.threads(), sh.smem, stream)(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1),
-      layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H, T_len, D);
+      layout_at(st, 2), layout_at(st, 3), layout_at(st, 4), lse, delta, static_cast<T*>(dq), H, T_len, D,
+      sh.held);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1845,14 +2090,14 @@ template <typename T>
 int launch_dkv_split(const void* q, const void* k, const void* v, const void* dout, const int64_t* st,
                      const float* lse, const float* delta, void* dk, void* dv, int B, int T_len, int H,
                      int D, cudaStream_t stream) {
-  constexpr int smem = dkv_split_smem_bytes();
-  const auto kernel = flash_bwd_dkv_split_kernel<T>;
-  int err = prepare(kernel, smem);
+  const BwdSplitShape<T, true> sh(D);
+  const auto kernel = flash_bwd_dkv_split_mma_kernel<T>;
+  int err = prepare(kernel, sh.smem);
   if (err != 0) return err;
-  FPS_LAUNCH(kernel, dim3(T_len / kSplit, B * H, D / kSplit), kThreads, smem, stream)(
+  FPS_LAUNCH(kernel, sh.grid(B, H, T_len), sh.threads(), sh.smem, stream)(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), layout_at(st, 0), layout_at(st, 1), layout_at(st, 2),
-      layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, D);
+      layout_at(st, 3), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, D, sh.held);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1868,7 +2113,7 @@ int launch_dkv_split(const void* q, const void* k, const void* v, const void* do
       case 192: return f32 ? CALL(float, 192) : CALL(fps::bf16, 192);     \
       case 256: return f32 ? CALL(float, 256) : CALL(fps::bf16, 256);     \
       default:                                                            \
-        if (head_dim > 256 && head_dim % fps::kSplit == 0)                \
+        if (head_dim > 256 && head_dim % fps::kSplitKeys == 0)            \
           return f32 ? SPLIT(float) : SPLIT(fps::bf16);                   \
     }                                                                     \
   }                                                                       \

@@ -24,13 +24,13 @@ tensor-core kernels in 3xTF32: each float32 product is three TF32
 keeps the float32 bar where one TF32 product keeps about three decimal
 digits; their bound is three TF32 products over the (query, key) pairs the
 causal mask keeps, at the card's TF32 rate.  Every wider head width the
-reference's gate takes (a multiple of 64) runs, in both dtypes, a
-column-split forward on the tensor cores (q held whole in shared memory,
-``k`` and the block's columns of ``v`` streamed in 64-column pieces, the
-scores built once a block and shared by its warps; past float32's head_dim
-1,280 and bfloat16's 2,432, where q's rows no longer fit, q streams beside
-``k``) and a column-split SIMT backward (one block per 64 output columns, the
-scores built over the full width in 64-column chunks).  Every kernel skips
+reference's gate takes (a multiple of 64) runs, in both dtypes,
+column-split kernels on the tensor cores: a block holds its own rows whole
+in shared memory (the forward q; dQ q and dO; dK/dV k and v) and streams
+the other side in 64 x 64 pieces, builds the scores once a block and
+shares them with its warps, and writes a slice of the output columns (up
+to 512; 256 for dK/dV, which holds two outputs); where the own rows no
+longer fit whole, they stream beside each piece.  Every kernel skips
 the tiles wholly above the causal diagonal and keeps scores, softmax
 statistics and sums in float32.  Its bound on an H100 and its design are
 in the source.

@@ -94,6 +94,14 @@ def _close(got, want, dtype):
         (1, 128, 1, 640, torch.bfloat16),
         (1, 128, 1, 1344, torch.float32),  # past where q's rows fit whole: q streamed beside each k piece
         (1, 64, 1, 2496, torch.bfloat16),
+        # the column-split backward's boundaries
+        (1, 64, 1, 576, torch.float32),    # dQ in two slices (5 + 4 pieces), dK/dV in three (3 + 3 + 3)
+        (1, 64, 1, 576, torch.bfloat16),   # bf16 dK/dV's widest with k and v held whole (640 streams them)
+        (1, 64, 1, 704, torch.float32),    # float32 dQ past where q and dO fit whole (640): streamed
+        (1, 64, 1, 1216, torch.bfloat16),  # bf16 dQ's widest with q and dO held whole
+        (1, 64, 1, 1280, torch.bfloat16),  # bf16 dQ streams q and dO
+        (1, 192, 1, 320, torch.float32),   # three key tiles: the backward's ring refills used slots
+        (1, 192, 1, 320, torch.bfloat16),
     ],
 )
 def test_emulated_kernels_match_plain(lib, B, T, H, D, dtype):

@@ -270,7 +270,11 @@ def _close(got, want, dtype):
      (4, 512, 8, 64, torch.float32), (16, 512, 2, 64, torch.float32),  # a dp-4 and a tp-4 rank's share
      (1, 192, 3, 64, torch.float32),  # odd B * H, three tiles
      (1, 128, 1, 640, torch.float32), (1, 192, 1, 640, torch.bfloat16),  # two forward slices
-     (1, 128, 1, 1344, torch.float32), (1, 128, 1, 2496, torch.bfloat16)],  # q streamed beside k
+     (1, 128, 1, 1344, torch.float32), (1, 128, 1, 2496, torch.bfloat16),  # q streamed beside k
+     (1, 192, 1, 320, torch.float32),  # the split backward's ring refilled
+     (1, 192, 1, 576, torch.float32), (1, 128, 1, 576, torch.bfloat16),  # dQ in 2 slices, dK/dV in 3
+     (1, 128, 1, 704, torch.float32),  # float32 dQ streams q and dO
+     (1, 128, 1, 1216, torch.bfloat16), (1, 128, 1, 1280, torch.bfloat16)],  # bf16 dQ held whole, then streamed
 )
 def test_flash_kernels_match_plain(cuda, B, T, H, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(T + D)
@@ -300,6 +304,26 @@ def test_flash_float32_backward_is_bitwise_repeatable(cuda):
     summation order, so dQ, D, dK and dV agree bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = ((torch.randn(4, 512, 8, 64, generator=g, device=cuda) * 0.8) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    first = [*fa.flash_bwd_dq(q, k, v, o, do, lse)]
+    first += fa.flash_bwd_dkv(q, k, v, do, lse, first[1])
+    again = [*fa.flash_bwd_dq(q, k, v, o, do, lse)]
+    again += fa.flash_bwd_dkv(q, k, v, do, lse, again[1])
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [320, 512, 704, 1280])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_backward_is_bitwise_repeatable(cuda, D, dtype):
+    """The column-split backward twice on the same inputs: no atomics, and
+    every slice builds its scores in one fixed order, so dQ, D, dK and dV
+    agree bit for bit, with the own rows held whole and streamed (dQ
+    streams q and dO at 704 in float32 and 1,280 in bfloat16; dK/dV streams
+    k and v in float32 and from 640 in bfloat16)."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = ((torch.randn(2, 512, 2, D, generator=g, device=cuda) * 0.5).to(dtype) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     first = [*fa.flash_bwd_dq(q, k, v, o, do, lse)]
     first += fa.flash_bwd_dkv(q, k, v, do, lse, first[1])
@@ -370,9 +394,10 @@ def test_lm_at_a_head_width_off_the_gate_takes_no_kernel(cuda):
      (640, 2, "auto", torch.float32), (640, 2, "auto", torch.bfloat16)],
 )
 def test_lm_at_wide_heads_goes_through_the_flash_kernels(cuda, d_model, n_heads, mode, dtype):
-    """head_dim 256 (d_model 512, 2 heads: the SIMT forward and the 3xTF32
-    backward for float32, the tensor-core kernels for bfloat16) and head_dim 320 under "auto" (d_model 640, 2
-    heads: the column-split kernels in both dtypes) run the three kernels
+    """head_dim 256 (d_model 512, 2 heads: the 3xTF32 kernels for float32,
+    the bf16 tensor-core kernels for bfloat16) and head_dim 320 under
+    "auto" (d_model 640, 2 heads: the column-split kernels on the tensor
+    cores in both dtypes) run the three kernels
     and match flash_attention="off" (the reference attention).  float32:
     rtol 1e-4 / atol 1e-6, as at head_dim 64.  bfloat16: the two paths
     round in other places (the kernels keep float32 inside, the reference
