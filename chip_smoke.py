@@ -417,6 +417,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense: a float32 product
 BF16_OPS_PER_S = 989e12  # H100 SXM, bfloat16 tensor cores, dense
 LM_B, LM_T, LM_H, LM_D = 16, 512, 8, 64  # bench_lm's TPU shape; Transformer-base heads
 LM_STEPS, LM_WARMUP, LM_TRACED = 20, 5, 4
+MOE_EXPERTS = 8  # examples/transformer_lm.py's MoE setting, on every layer
+MOE_CAPACITY = 1280  # 1.25 x 8,192 tokens / 8 experts: Switch Transformer's training capacity factor
 MF_TRACED = 4  # MF steps under torch.profiler, after the counted runs
 LM_FAMILIES = (("flash", ("fps::flash_",)), ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
                ("softmax", ("softmax",)), ("optimizer", ("multi_tensor",)), ("copy", ("copy",)))
@@ -4806,14 +4808,17 @@ def _ddp_batches(n, vocab, mask_at=None):
     return batches
 
 
-def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None, loss_kw=None):
+def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None, loss_kw=None, chunk_rows=None):
     """One regime's ``transform_dense`` of Transformer-base from seed 0
     (``regime`` "unsharded": no mesh): the losses, the whole final model,
     every kernel's launches, the collectives' counts, each step's ms, and
     the bytes of the parameters and of the optimizer state a rank holds at
     the end.  ``plant(model)``, if given, runs on the model the loss
     sees at each step (a planted fault); ``loss_kw`` goes to ``lm_loss``
-    (a pipeline model's ``num_microbatches``)."""
+    (a pipeline model's ``num_microbatches``); ``chunk_rows`` (mesh-less
+    only) runs the forward on each ``chunk_rows`` rows of the batch alone,
+    so an MoE layer routes each chunk as a pipeline stage routes its
+    microbatch (:func:`_chunked_loss`)."""
     from flink_parameter_server_tpu_torch import (
         DenseParameterServer, fsdp_place, init_params, lm_loss, transform_dense,
     )
@@ -4842,6 +4847,8 @@ def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None, loss_
     def loss(mm, b):
         if plant is not None:
             plant(mm)
+        if chunk_rows:
+            return _chunked_loss(torch, mm, b, cfg, chunk_rows)
         return lm_loss(mm, b, cfg, mesh=m, **(loss_kw or {}))
 
     zero_counts()
@@ -4865,6 +4872,17 @@ def _ddp_run(torch, cfg, regime, batches, mesh, make_opt, dev, plant=None, loss_
     return out
 
 
+def _chunked_loss(torch, model, batch, cfg, rows):
+    """``lm_loss`` of the mesh-less ``model`` with the forward run on each
+    ``rows`` rows of the batch alone and the logits put back together: the
+    loss a pipeline computes when its stages route each microbatch."""
+    from flink_parameter_server_tpu_torch import forward, next_token_xent
+
+    tokens = torch.as_tensor(batch["tokens"], device=model.embed.device)
+    logits = torch.cat([forward(model, t, cfg) for t in tokens.split(rows)])
+    return next_token_xent(logits, tokens, batch.get("mask"))
+
+
 def _lm_leaves(model) -> list:
     """A whole model's tensors in the mesh-less model's parameter order: a
     pipeline model's stacked ``(S, per, ...)`` stages give layer ``s·per +
@@ -4873,9 +4891,13 @@ def _lm_leaves(model) -> list:
         return [p.detach() for p in model.parameters()]
     from flink_parameter_server_tpu_torch.models.transformer import LAYER_KEYS
 
-    S, per = model.stages["wqkv"].shape[:2]
+    leaves = dict(model.stages.named_parameters())
+    # the stages' moe ParameterDict is built as a mesh-less block's is, so it keeps its leaves' order
+    moe = model.stages["moe"].keys() if "moe" in model.stages else ()
+    keys = [k for k in LAYER_KEYS if k in leaves] + [f"moe.{k}" for k in moe]
+    S, per = leaves["wqkv"].shape[:2]
     return [model.embed.detach(), model.final_norm.detach()] + [
-        model.stages[k].detach()[i // per, i % per] for i in range(S * per) for k in LAYER_KEYS]
+        leaves[k].detach()[i // per, i % per] for i in range(S * per) for k in keys]
 
 
 def _ddp_same(torch, a, b) -> bool:
@@ -5259,19 +5281,58 @@ def _ep_rank_gloo(torch, outdir):
 
 
 MP_STEPS = DDP_STEPS  # (a)'s steps on each one-rank model-parallel mesh, bfloat16
-MP_WORLD = DDP_WORLD  # (b): the gloo children, again, as tp 4, sp 4 and pp 2 x sp 2 meshes
-MP_MICRO = 2  # (b)'s pp x sp microbatches: a rank's 16 rows in 2 microbatches of 8
-# (b)'s arms: name, the mesh's shape and axes, the config's fields, lm_loss's keywords.  Each runs (a)'s
-# float32 model (the dense_dp phase's dense_f32 run: flash "on", sgd(0.1, momentum 0.9), 2 steps, the second
-# row-masked) and is held to DDP_F32_BAR against it; the ring and the pipeline's stages take the plain
-# attention (the ring is plain products; the stages pin "off", so pp x sp runs "auto")
+MP_WORLD = DDP_WORLD  # (b): the gloo children, again, as tp 4, sp 4, pp 2 x sp 2, ... meshes
+MP_MICRO = 2  # (b)'s pipeline microbatches: a dp rank's rows in 2
+# (b)'s MoE arms (8 experts a layer) route at capacities that must drop tokens under each arm's rule: the
+# global batch's 8,192 tokens at tp 4, ep 2 x tp 2 and ep 2 x sp 2 (dp 1) at 896 (8 x 896 < 8,192), a
+# pipeline microbatch's 4 x 512 = 2,048 at pp 2 x dp 2 at 224 (8 x 224 < 2,048)
+MP_MOE_CAPACITY, MP_PP_CAPACITY = 896, 224
+MP_PP_ROWS = LM_B // 2 // MP_MICRO  # the rows of one of pp 2 x dp 2's microbatches
+MP_ROUTED = {"moe_tp": LM_B * LM_T, "moe_ep_tp": LM_B * LM_T, "moe_ep_sp": LM_B * LM_T,
+             "moe_pp": MP_PP_ROWS * LM_T}  # the tokens each routing call of an MoE arm routes together
+
+
+def _mp_moe(capacity):
+    return dict(num_experts=MOE_EXPERTS, moe_capacity=capacity)
+
+
+# (b)'s arms: name, the mesh's shape and axes, the config's fields, lm_loss's keywords, the float32 mesh-less
+# run it is held to (saved by (a)), the planted fault.  Each is held to DDP_F32_BAR against that run: the dense
+# arms against the dense_dp phase's dense_f32 run (flash "on", sgd(0.1, momentum 0.9), 2 steps, the second
+# row-masked), the MoE arms against the same steps of the MoE LM at their capacity, routed by their rule (the
+# whole batch; the pipeline's each 4-row microbatch alone).  The ring and the pipeline's stages take the plain
+# attention (the ring is plain products; the stages pin "off", so the pipeline arms run "auto").  The faults,
+# each planted in a second run of the arm's steps that must fall outside that bar: "copy" makes copy_to_tp the identity (the replicated leaves see only the rank's heads),
+# "sum" drops the dense step's sum over sp, "scale" drops the pipeline's 1/pp weight on the logits (the
+# replicated leaves counted twice), "tp_sum" sums over tp the gradients every tp rank already holds whole
+# (the experts', the stages'), "slice" routes each sp rank's positions alone, "shard" routes a pipeline
+# stage's MoE over the whole dp shard (1 microbatch) instead of each microbatch
 MP_ARMS = (
-    ("tp", (1, MP_WORLD), ("dp", "tp"), dict(tp_axis="tp"), {}),
-    ("sp", (1, MP_WORLD), ("dp", "sp"), dict(sp_axis="sp", use_ring_attention=True), {}),
+    ("tp", (1, MP_WORLD), ("dp", "tp"), dict(tp_axis="tp"), {}, "dense_f32", "copy"),
+    ("sp", (1, MP_WORLD), ("dp", "sp"), dict(sp_axis="sp", use_ring_attention=True), {}, "dense_f32", "sum"),
     ("pp_sp", (1, 2, 2), ("dp", "pp", "sp"),
      dict(pp_axis="pp", sp_axis="sp", use_ring_attention=True, flash_attention="auto"),
-     dict(num_microbatches=MP_MICRO)),
+     dict(num_microbatches=MP_MICRO), "dense_f32", "scale"),
+    ("moe_tp", (1, MP_WORLD), ("dp", "tp"), dict(tp_axis="tp", **_mp_moe(MP_MOE_CAPACITY)), {}, "moe_mp_f32",
+     "tp_sum"),
+    ("moe_ep_tp", (1, 2, 2), ("dp", "ep", "tp"), dict(ep_axis="ep", tp_axis="tp", **_mp_moe(MP_MOE_CAPACITY)), {},
+     "moe_mp_f32", "tp_sum"),
+    ("moe_ep_sp", (1, 2, 2), ("dp", "ep", "sp"),
+     dict(ep_axis="ep", sp_axis="sp", use_ring_attention=True, **_mp_moe(MP_MOE_CAPACITY)), {}, "moe_mp_f32",
+     "slice"),
+    ("moe_pp", (2, 2), ("dp", "pp"), dict(pp_axis="pp", flash_attention="auto", **_mp_moe(MP_PP_CAPACITY)),
+     dict(num_microbatches=MP_MICRO), "moe_pp_f32", "shard"),
+    ("pp_tp", (1, 2, 2), ("dp", "pp", "tp"), dict(pp_axis="pp", tp_axis="tp", flash_attention="auto"),
+     dict(num_microbatches=MP_MICRO), "dense_f32", "tp_sum"),
 )
+MP_EARLIER = ("tp", "sp", "pp_sp")  # the dense tp, sp and pp x sp arms; the rest came with the MoE and pp x tp layouts
+# the float32 mesh-less runs (a) saves for the MoE arms: capacity, the rows each forward routes together
+MP_REFERENCES = {"moe_mp_f32": (MP_MOE_CAPACITY, None), "moe_pp_f32": (MP_PP_CAPACITY, MP_PP_ROWS)}
+
+
+def _mp_flash_arm(axes) -> bool:
+    """An arm whose attention is K3a/b/c: tp without the ring or a pipeline."""
+    return "tp" in axes and "sp" not in axes and "pp" not in axes
 
 
 def _mp_rank_nccl(torch, outdir):
@@ -5279,108 +5340,168 @@ def _mp_rank_nccl(torch, outdir):
     Transformer-base (bfloat16) for MP_STEPS steps through
     ``transform_dense(batch_sharding=mesh)`` on a one-rank ``("dp", "sp",
     "tp")`` mesh (flash "on") and a one-rank ``("dp", "pp")`` mesh
-    (``forward_pipelined``, 1 microbatch; the stages' plain attention),
-    each against the mesh-less run of the same attention."""
+    (``forward_pipelined``, 1 microbatch; the stages' plain attention), and
+    the phase's MoE LM (8 experts, capacity 1,280) on a one-rank ``("dp",
+    "ep", "tp")`` mesh (flash "on") and a one-rank ``("dp", "pp")`` mesh
+    (1 microbatch, flash "auto"), each against the mesh-less run of the
+    same attention; then the float32 mesh-less MoE runs (b)'s MoE arms are
+    held against (MP_REFERENCES), saved for them."""
     import dataclasses
 
     import torch.distributed as dist
 
-    from flink_parameter_server_tpu_torch import TransformerConfig, adamw
+    from flink_parameter_server_tpu_torch import TransformerConfig, adamw, sgd
     from flink_parameter_server_tpu_torch.parallel.mesh import make_nd_mesh, mesh_device
 
     meshes = {"sp_tp": make_nd_mesh((1, 1, 1), ("dp", "sp", "tp"), device_type="cuda"),
-              "pp": make_nd_mesh((1, 1), ("dp", "pp"), device_type="cuda")}
+              "pp": make_nd_mesh((1, 1), ("dp", "pp"), device_type="cuda"),
+              "moe_ep_tp": make_nd_mesh((1, 1, 1), ("dp", "ep", "tp"), device_type="cuda")}
+    meshes["moe_pp"] = meshes["pp"]
     dev = mesh_device(meshes["pp"])
     opt = lambda p: adamw(DDP_LR)(p)  # noqa: E731
     on = TransformerConfig(flash_attention="on")  # Transformer-base, bfloat16, as phase_lm runs it
     off = dataclasses.replace(on, flash_attention="off")
+    moe_on = _ep_cfg(flash_attention="on")  # phase_moe_lm's MoE LM, its experts named on "ep"
+    moe_off = dataclasses.replace(moe_on, flash_attention="off")
     batches = _ddp_batches(MP_STEPS, on.vocab_size)
-    out = {"backend": dist.get_backend()}
+    out = {"backend": dist.get_backend(), "run_s": {}}
     arms = (("sp_tp", on, dataclasses.replace(on, sp_axis="sp", tp_axis="tp"), {}),
-            ("pp", off, dataclasses.replace(off, pp_axis="pp"), dict(num_microbatches=1)))
+            ("pp", off, dataclasses.replace(off, pp_axis="pp"), dict(num_microbatches=1)),
+            ("moe_ep_tp", moe_on, dataclasses.replace(moe_on, tp_axis="tp"), {}),
+            ("moe_pp", moe_off, dataclasses.replace(moe_on, pp_axis="pp", flash_attention="auto"),
+             dict(num_microbatches=1)))
     for name, base_cfg, cfg, kw in arms:
+        t = time.perf_counter()
         base = _ddp_run(torch, base_cfg, "unsharded", batches, None, opt, dev)
         run = _ddp_run(torch, cfg, "replicated", batches, meshes[name], opt, dev, loss_kw=kw)
         out[name] = dict(bitwise=run["losses"] == base["losses"] and _ddp_same(torch, run["final"], base["final"]),
                          base_ms=base["steps_ms"], **{k: run[k] for k in ("losses", "launches", "calls", "steps_ms",
                                                                           "run_s")})
+        out["run_s"][name] = round(time.perf_counter() - t, 2)
         del base, run
+    cfg32 = TransformerConfig(flash_attention="on", dtype=torch.float32)
+    batches32 = _ddp_batches(DDP_F32_STEPS, cfg32.vocab_size, mask_at=1)
+    for name, (capacity, rows) in MP_REFERENCES.items():
+        c = dataclasses.replace(cfg32, **_mp_moe(capacity))
+        f32 = _ddp_run(torch, c, "unsharded", batches32, None, lambda p: sgd(DDP_F32_LR, momentum=0.9)(p), dev,
+                       chunk_rows=rows)
+        torch.save({"losses": f32["losses"], "params": [p.detach().cpu() for p in f32["final"].parameters()]},
+                   os.path.join(outdir, f"{name}.pt"))
+        out["run_s"][name] = f32["run_s"]
+        del f32
     return out
 
 
 def _mp_rank_gloo(torch, outdir):
     """(b) of the model-parallel part, in each gloo child: the MP_ARMS on
-    meshes of the 4 children, Transformer-base in float32 for
-    DDP_F32_STEPS steps, each against (a)'s float32 mesh-less run
-    (``dense_f32.pt``) with how far the parameters moved, and each with a
-    planted fault that must fall outside the bar: tp's ``copy_to_tp`` made
-    the identity (the replicated leaves see only the rank's heads), sp's
-    gradient sum over sp dropped, pp x sp's 1/pp weight on the logits
-    dropped (the replicated leaves' gradients counted twice).  On every
-    rank, K3a/b/c against their plain versions at a tp rank's (16, 512, 2,
-    64) float32 shape (:func:`_k3_against_plain`: a mismatch fails the
-    rank).  The ms of a tp all-reduce at the block's (B, T, d)
-    output and of a ppermute at the ring's K/V block and at the pipeline's
-    hand-off."""
+    meshes of the 4 children, Transformer-base (the MoE arms: with 8
+    experts a layer) in float32 for DDP_F32_STEPS steps, each against its
+    float32 mesh-less run saved by (a) with how far the parameters moved,
+    the MoE arms' routing calls (tokens, kept) counted; each arm's planted
+    fault in a second run of its steps, which must fall outside that bar.
+    On every rank, K3a/b/c against their plain versions at a tp-4
+    rank's (16, 512, 2, 64) float32 shape (:func:`_k3_against_plain`: a
+    mismatch fails the rank).  The ms of a tp all-reduce at the block's
+    (B, T, d) output and of a ppermute at the ring's K/V block and at the
+    pipeline's hand-off."""
     import dataclasses
 
     from flink_parameter_server_tpu_torch import TransformerConfig, init_params, sgd
     from flink_parameter_server_tpu_torch.core import dense
+    from flink_parameter_server_tpu_torch.models import moe
+    from flink_parameter_server_tpu_torch.models import transformer as tr
     from flink_parameter_server_tpu_torch.parallel import collectives as coll
     from flink_parameter_server_tpu_torch.parallel import pipeline
     from flink_parameter_server_tpu_torch.parallel.mesh import make_nd_mesh, mesh_device
 
     base = TransformerConfig(flash_attention="on", dtype=torch.float32)
-    ref = torch.load(os.path.join(outdir, "dense_f32.pt"))
-    meshes = {name: make_nd_mesh(shape, axes, device_type="cuda") for name, shape, axes, _, _ in MP_ARMS}
-    dev = mesh_device(meshes["tp"])
-    ref_params = [p.to(dev) for p in ref["params"]]
+    meshes = {}
+    for name, shape, axes, *_ in MP_ARMS:
+        meshes.setdefault((shape, axes), make_nd_mesh(shape, axes, device_type="cuda"))
+    dev = mesh_device(meshes[(1, MP_WORLD), ("dp", "tp")])
     batches = _ddp_batches(DDP_F32_STEPS, base.vocab_size, mask_at=1)
-    init = list(init_params(base, torch.Generator(device=dev).manual_seed(0), device=dev).parameters())
     opt = lambda p: sgd(DDP_F32_LR, momentum=0.9)(p)  # noqa: E731
-    real = {"copy_to_tp": coll.copy_to_tp, "sum": dense._sum_over_model_axes, "scale": pipeline.scale_grad}
-    plants = {"tp": lambda: setattr(coll, "copy_to_tp", lambda x, mesh, axis: x),
-              "sp": lambda: setattr(dense, "_sum_over_model_axes", lambda named, layout: None),
-              "pp_sp": lambda: setattr(pipeline, "scale_grad", lambda x, factor: x)}
+    real = {"copy_to_tp": coll.copy_to_tp, "sum": dense._sum_over_model_axes, "scale": pipeline.scale_grad,
+            "axes": tr._moe_token_axes, "route": moe._route}
+    def tp_sum(named, layout):  # the planted fault: the leaves every tp rank holds whole summed over tp too
+        for n, p in named:
+            if ".moe." in n or n.startswith("stages."):
+                p.grad = coll.all_reduce_sum(p.grad, layout.mesh, "tp")
+        real["sum"](named, layout)
+
+    plants = {"copy": lambda: setattr(coll, "copy_to_tp", lambda x, mesh, axis: x),
+              "sum": lambda: setattr(dense, "_sum_over_model_axes", lambda named, layout: None),
+              "scale": lambda: setattr(pipeline, "scale_grad", lambda x, factor: x),
+              "slice": lambda: setattr(tr, "_moe_token_axes", lambda m, c: [
+                  a for a in real["axes"](m, c) if a[0] != c.sp_axis]),
+              "tp_sum": lambda: setattr(dense, "_sum_over_model_axes", tp_sum), "shard": lambda: None}
 
     def restore():
         coll.copy_to_tp, dense._sum_over_model_axes, pipeline.scale_grad = (
             real["copy_to_tp"], real["sum"], real["scale"])
+        tr._moe_token_axes, moe._route = real["axes"], real["route"]
 
-    out = {}
-    for name, shape, axes, fields, kw in MP_ARMS:
+    routed = []
+
+    def spy(x, w, E, C):  # the tokens each routing call routes together, and keeps
+        r = real["route"](x, w, E, C)
+        routed.append((int(x.shape[0]), int(r[2].sum())))
+        return r
+
+    out, refs = {}, {}
+    for name, shape, axes, fields, kw, ref_name, fault in MP_ARMS:
+        t = time.perf_counter()
         cfg = dataclasses.replace(base, **fields)
-        mesh = meshes[name]
-        run = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev, loss_kw=kw)
+        mesh = meshes[shape, axes]
+        if ref_name not in refs:
+            ref = torch.load(os.path.join(outdir, f"{ref_name}.pt"))
+            capacity = MP_REFERENCES.get(ref_name, (None,))[0]
+            ref_cfg = dataclasses.replace(base, **_mp_moe(capacity)) if capacity else base
+            init = list(init_params(ref_cfg, torch.Generator(device=dev).manual_seed(0), device=dev).parameters())
+            refs[ref_name] = (ref, [p.to(dev) for p in ref["params"]], [p.detach() for p in init])
+            del init
+        ref, ref_params, init = refs[ref_name]
+        routed.clear()
+        moe._route = spy
+        try:
+            run = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev, loss_kw=kw)
+        finally:
+            restore()
         ok, err, past, moved = _held(torch, run, ref_params, init)
         arm = dict(ok=ok and bool(np.allclose(run["losses"], ref["losses"], rtol=1e-4)), err=err, past=past,
-                   moved=moved, losses=run["losses"], ref_losses=ref["losses"],
+                   moved=moved, losses=run["losses"], ref_losses=ref["losses"], routed=sorted(set(routed)),
+                   dropped=sum(n - k for n, k in routed), routing_calls=len(routed),
                    **{k: run[k] for k in ("launches", "calls", "steps_ms", "run_s", "held")})
         del run
-        plants[name]()
+        plants[fault]()
         try:
-            bad = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev, loss_kw=kw)
+            bad = _ddp_run(torch, cfg, "replicated", batches, mesh, opt, dev,
+                           loss_kw=dict(kw, num_microbatches=1) if fault == "shard" else kw)
         finally:
             restore()
         ok, err, past, _ = _held(torch, bad, ref_params, init)
         arm["planted"] = dict(caught=not ok, err=err, past=past, elements=sum(p.numel() for p in init))
         del bad
+        arm["arm_s"] = round(time.perf_counter() - t, 2)
         out[name] = arm
+        torch.cuda.empty_cache()
+    del refs
     gen = torch.Generator(device=dev).manual_seed(100 + torch.distributed.get_rank())
     out["tp"]["k3"] = _k3_against_plain(torch, dev, gen, LM_B, LM_T, base.n_heads // MP_WORLD, base.head_dim,
                                         torch.float32)
     x = torch.ones(LM_B, LM_T, base.d_model, device=dev)
     kv = torch.ones(2, LM_B, base.n_heads, LM_T // MP_WORLD, base.head_dim, device=dev)
     hand = torch.ones(LM_B // MP_MICRO, LM_T // 2, base.d_model, device=dev)
+    tp_mesh, sp_mesh = meshes[(1, MP_WORLD), ("dp", "tp")], meshes[(1, MP_WORLD), ("dp", "sp")]
+    pp_mesh = meshes[(1, 2, 2), ("dp", "pp", "sp")]
     out["collective_ms"] = {
-        "tp_all_reduce": _ddp_time_ms(torch, lambda: coll.all_reduce_sum(x, meshes["tp"], "tp")),
+        "tp_all_reduce": _ddp_time_ms(torch, lambda: coll.all_reduce_sum(x, tp_mesh, "tp")),
         "tp_bytes": x.numel() * 4,
-        "sp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(kv, meshes["sp"], "sp")),
+        "sp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(kv, sp_mesh, "sp")),
         "sp_bytes": kv.numel() * 4,
-        "pp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(hand, meshes["pp_sp"], "pp")),
+        "pp_ppermute": _ddp_time_ms(torch, lambda: coll.ppermute(hand, pp_mesh, "pp")),
         "pp_bytes": hand.numel() * 4,
     }
-    del ref_params, init
     torch.cuda.empty_cache()
     return out
 
@@ -5388,49 +5509,64 @@ def _mp_rank_gloo(torch, outdir):
 def _mp_report(a, a_s, b, layers, flash, card):
     """Print and check the model-parallel part of phase_parallel_dense;
     adds the flash launches of (a) and of (b)'s tp ranks to ``flash``."""
-    print(f"dense_dp: mp (a) one-rank meshes, backend {a['backend']!r}: Transformer-base bf16, {MP_STEPS} steps of "
-          f"{LM_B}x{LM_T}; {card}")
+    print(f"dense_dp: mp (a) one-rank meshes, backend {a['backend']!r}: Transformer-base bf16 (MoE: {MOE_EXPERTS} "
+          f"experts, capacity {MOE_CAPACITY}), {MP_STEPS} steps of {LM_B}x{LM_T}; {card}")
     check(a["backend"] == "nccl", f"dense_dp: mp (a) ran on {a['backend']}, not NCCL")
-    want = {"sp_tp": {name: layers * MP_STEPS for name in FLASH}, "pp": dict.fromkeys(FLASH, 0)}
-    for name, what in (("sp_tp", "('dp', 'sp', 'tp') flash on"), ("pp", "('dp', 'pp') forward_pipelined, "
-                                                                        "1 microbatch, flash off")):
+    on = {name: layers * MP_STEPS for name in FLASH}
+    want = {"sp_tp": on, "pp": dict.fromkeys(FLASH, 0), "moe_ep_tp": on, "moe_pp": dict.fromkeys(FLASH, 0)}
+    for name, what in (("sp_tp", "('dp', 'sp', 'tp') flash on"),
+                       ("pp", "('dp', 'pp') forward_pipelined, 1 microbatch, flash off"),
+                       ("moe_ep_tp", "MoE LM on ('dp', 'ep', 'tp') flash on"),
+                       ("moe_pp", "MoE LM on ('dp', 'pp') forward_pipelined, 1 microbatch, flash auto")):
         r = a[name]
         got = {k: r["launches"][k] for k in FLASH}
         print(f"dense_dp: mp (a) {what}: {'bitwise' if r['bitwise'] else 'NOT bitwise'} the mesh-less run; losses "
               f"{[round(x, 5) for x in r['losses']]}; step ms {r['steps_ms']} (mesh-less {r['base_ms']}); "
-              f"collectives {r['calls']}; flash launches {got}; the run {r['run_s']} s")
+              f"collectives {r['calls']}; flash launches {got}; the run {r['run_s']} s, with the mesh-less one "
+              f"{a['run_s'][name]} s")
         check(r["bitwise"], f"dense_dp: mp (a) {name} is not bitwise the mesh-less transform_dense")
         check(got == want[name] and r["launches"]["scatter_add"] == 0,
               f"dense_dp: mp (a) {name} launched {r['launches']}, expected {want[name]}")
         for k in FLASH:
             flash[k] += got[k]
+    print(f"dense_dp: mp (a) the float32 mesh-less MoE runs for (b), s: "
+          f"{ {k: a['run_s'][k] for k in MP_REFERENCES} }; the part {a_s:.1f} s; {card}")
     for r, res in enumerate(b):
         mp = res["mp"]
-        for name, shape, axes, _, _ in MP_ARMS:
+        for name, shape, axes, fields, _, ref_name, fault in MP_ARMS:
             arm, pl = mp[name], mp[name]["planted"]
             got = {k: arm["launches"][k] for k in FLASH}
+            moe = (f"capacity {fields['moe_capacity']}: {arm['routing_calls']} routing calls of (tokens, kept) "
+                   f"{arm['routed']}, {arm['dropped']} tokens dropped; " if "moe_capacity" in fields else "")
             print(f"dense_dp: mp (b) rank {r} {name} on {dict(zip(axes, shape))}: float32 {DDP_F32_STEPS} steps "
-                  f"against (a)'s float32 mesh-less run max_abs_err={arm['err']:.3e} (rtol=1e-5 atol=1e-6; the "
-                  f"parameters moved up to {arm['moved']:.3e}) losses {[round(x, 6) for x in arm['losses']]} against "
-                  f"{[round(x, 6) for x in arm['ref_losses']]} {'ok' if arm['ok'] else 'MISMATCH'}; holds "
-                  f"{arm['held']}; step ms {arm['steps_ms']}; collectives {arm['calls']}; flash "
-                  f"launches {got}; the planted fault max_abs_err={pl['err']:.3e}, {pl['past']} of "
-                  f"{pl['elements']} elements past the bar: {'caught' if pl['caught'] else 'MISSED'}; {card}")
+                  f"against (a)'s float32 mesh-less run {ref_name} max_abs_err={arm['err']:.3e} (rtol=1e-5 atol=1e-6; "
+                  f"the parameters moved up to {arm['moved']:.3e}) losses {[round(x, 6) for x in arm['losses']]} "
+                  f"against {[round(x, 6) for x in arm['ref_losses']]} {'ok' if arm['ok'] else 'MISMATCH'}; {moe}"
+                  f"holds {arm['held']}; step ms {arm['steps_ms']}; collectives {arm['calls']}; flash launches {got}; "
+                  f"the planted fault ({fault}) max_abs_err={pl['err']:.3e}, {pl['past']} of {pl['elements']} "
+                  f"elements past the bar: {'caught' if pl['caught'] else 'MISSED'}; the arm {arm['arm_s']} s; {card}")
             check(arm["ok"], f"dense_dp: mp (b) rank {r} {name} is off (a)'s float32 run")
             check(pl["caught"], f"dense_dp: mp (b) rank {r} {name}: the bar does not see the planted fault")
-            want = {k: layers * DDP_F32_STEPS if name == "tp" else 0 for k in FLASH}
+            if name in MP_ROUTED:
+                check(arm["dropped"] > 0 and all(n == MP_ROUTED[name] for n, _ in arm["routed"]),
+                      f"dense_dp: mp (b) rank {r} {name}: routing calls {arm['routed']} do not route "
+                      f"{MP_ROUTED[name]} tokens each with drops")
+            want = {k: layers * DDP_F32_STEPS if _mp_flash_arm(axes) else 0 for k in FLASH}
             check(got == want and arm["launches"]["scatter_add"] == 0,
                   f"dense_dp: mp (b) rank {r} {name} launched {arm['launches']}, expected {want}")
             for k in FLASH:
                 flash[k] += got[k]
         k3, c = mp["tp"]["k3"], mp["collective_ms"]
+        earlier = sum(mp[n]["arm_s"] for n in MP_EARLIER)
+        later = sum(mp[n]["arm_s"] for n, *_ in MP_ARMS if n not in MP_EARLIER)
         print(f"dense_dp: mp (b) rank {r} K3a/b/c against their plain versions at a tp rank's (B {LM_B}, T {LM_T}, "
               f"H {LM_H // MP_WORLD}, D {LM_D}) float32: "
               f"max |error| { {k: f'{v:.3e}' for k, v in k3.items()} } (rtol=1e-5, atol=1e-5 x the largest: a "
               f"mismatch fails the rank); gloo over CUDA tensors: tp all_reduce {c['tp_all_reduce']:.2f} ms "
               f"at {c['tp_bytes']} B, sp ppermute {c['sp_ppermute']:.2f} ms at {c['sp_bytes']} B (the ring's K/V "
               f"block), pp ppermute {c['pp_ppermute']:.2f} ms at {c['pp_bytes']} B (the pipeline's hand-off) "
-              f"(medians of {DDP_REPS}); the part {mp['seconds']} s; {card}")
+              f"(medians of {DDP_REPS}); the part {mp['seconds']} s, of which the arms {MP_EARLIER} {earlier:.2f} s "
+              f"and the later arms {later:.2f} s; {card}")
 
 
 # part: (the rank's function, the kernels it launches); every part is a gloo group on cuda:0
@@ -5718,20 +5854,24 @@ def phase_parallel_dense(torch, dev, card):
         planted fault) past it; ``moe_apply`` on a (2, 2) mesh
         against ``moe_reference`` on each dp half, forward and gradients;
         the all-to-all's ms and bytes.
-    mp  Tensor, sequence and pipeline parallelism, in the same group and
-        the same children: (a) Transformer-base (bfloat16) for 3 steps on
-        a one-rank ``("dp", "sp", "tp")`` NCCL mesh (flash "on", K3a/b/c
-        once a layer a step) and a one-rank ``("dp", "pp")`` mesh
-        (``forward_pipelined``, 1 microbatch), each bitwise the mesh-less
-        run of the same attention.  (b) The same model in float32 for 2
-        steps at tp 4 (flash "on": K3a/b/c once a layer a step on every
-        rank's 2 heads), sp 4 (the ring, 128 positions a rank) and pp 2 x
-        sp 2 (``forward_pipelined``, 2 microbatches), each within rtol
-        1e-5 / atol 1e-6 (losses rtol 1e-4) of (a)'s float32 dp run's
-        mesh-less reference, each with a planted fault past that bar;
-        K3a/b/c against their plain versions at a tp rank's shape; the ms
-        of a tp all-reduce and of a ppermute at the ring's and the
-        pipeline's payloads (:func:`_mp_rank_gloo`).
+    mp  Tensor, sequence and pipeline parallelism, and MoE layers beside
+        them, in the same group and the same children: (a) Transformer-base
+        (bfloat16) for 3 steps on a one-rank ``("dp", "sp", "tp")`` NCCL
+        mesh (flash "on", K3a/b/c once a layer a step) and a one-rank
+        ``("dp", "pp")`` mesh (``forward_pipelined``, 1 microbatch), and
+        the MoE LM (8 experts, capacity 1,280) on a one-rank ``("dp",
+        "ep", "tp")`` mesh (flash "on") and a one-rank ``("dp", "pp")``
+        mesh (1 microbatch, flash "auto"), each bitwise the mesh-less run
+        of the same attention.  (b) In float32 for 2 steps (MP_ARMS): the
+        dense model at tp 4 (flash "on": K3a/b/c once a layer a step on
+        every rank's 2 heads), sp 4 (the ring, 128 positions a rank), pp 2
+        x sp 2 and pp 2 x tp 2 (``forward_pipelined``, 2 microbatches),
+        and the MoE LM at tp 4 and ep 2 x tp 2 (K3a/b/c on each rank's
+        heads), ep 2 x sp 2 and pp 2 x dp 2 (2 microbatches), at
+        capacities that drop tokens under each layout's rule; each within
+        rtol 1e-5 / atol 1e-6 (losses rtol 1e-4) of its float32 mesh-less
+        run, each with a planted fault past that bar; the ms of a tp all-reduce and of a ppermute at the
+        ring's and the pipeline's payloads (:func:`_mp_rank_gloo`).
     Returns the parameter server's K1 and K2 launches and the ranks' flash
     launches.
 
@@ -5833,11 +5973,12 @@ def phase_parallel_dense(torch, dev, card):
                  mp=res["dense"]["mp"]["seconds"]) for res in ranks]
     print(f"dense_dp: the gloo children's seconds (import torch, bring up the group, the work, of which the "
           f"parameter server's, the ep part's and the mp part's): {secs}")
+    tp_arms = sum(_mp_flash_arm(axes) for _, _, axes, *_ in MP_ARMS)
     print(f"dense_dp: flash launches {flash} ((a) 3 regimes x {DDP_STEPS} steps x {layers} layers + (b) {DDP_WORLD} "
           f"ranks x 3 regimes x {DDP_F32_STEPS} steps x {layers} layers + ep (a) {EP_STEPS} steps x {layers} layers "
-          f"+ ep (b) {EP_WORLD} ranks x ({EP_F32_STEPS} + {EP_DP_STEPS}) steps x {layers} layers + mp (a) "
-          f"{MP_STEPS} steps x {layers} layers + mp (b) {MP_WORLD} tp ranks x {DDP_F32_STEPS} steps x {layers} "
-          f"layers); parallel (a) {par_a_s:.1f} s, (a) {a_s:.1f} s, ep (a) {ep_a_s:.1f} s, mp (a) {mp_a_s:.1f} s, "
+          f"+ ep (b) {EP_WORLD} ranks x ({EP_F32_STEPS} + {EP_DP_STEPS}) steps x {layers} layers + mp (a) 2 arms x "
+          f"{MP_STEPS} steps x {layers} layers + mp (b) {MP_WORLD} ranks x {tp_arms} tp arms x {DDP_F32_STEPS} steps "
+          f"x {layers} layers); parallel (a) {par_a_s:.1f} s, (a) {a_s:.1f} s, ep (a) {ep_a_s:.1f} s, mp (a) {mp_a_s:.1f} s, "
           f"the children {b_s:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s; {card}")
     return parallel, flash
 
@@ -6107,8 +6248,8 @@ def flash_inputs(torch, dev, gen, B, T, H, D, dtype):
 
 def _flash_checks(torch, dev, gen):
     """K3a/b/c vs their plain versions on identical inputs, at the LM's
-    shape in bfloat16, at a dp-4 and a tp-4 rank's shares of it in float32
-    (the dense_dp phase's float32 runs), at a longer, wider float32 shape,
+    shape in bfloat16, at a dp-4, a tp-4 and a tp-2 rank's shares of it in
+    float32 (the dense_dp phase's float32 runs), at a longer, wider float32 shape,
     at head_dim 256 in both dtypes (bfloat16 runs the bf16 tensor-core
     kernels, float32 the 3xTF32 ones), at head_dim 320 and 512 in both
     dtypes (the column-split kernels, all three on the tensor cores) and at
@@ -6133,7 +6274,8 @@ def _flash_checks(torch, dev, gen):
     error."""
     errs = {}
     shapes = ((LM_B, LM_T, LM_H, LM_D, torch.bfloat16), (LM_B // DDP_WORLD, LM_T, LM_H, LM_D, torch.float32),
-              (LM_B, LM_T, LM_H // MP_WORLD, LM_D, torch.float32), (2, 1024, 8, 128, torch.float32),
+              (LM_B, LM_T, LM_H // MP_WORLD, LM_D, torch.float32), (LM_B, LM_T, LM_H // 2, LM_D, torch.float32),
+              (2, 1024, 8, 128, torch.float32),
               (2, 1024, 4, 256, torch.bfloat16), (2, 1024, 4, 256, torch.float32)) + tuple(
                   (2, 1024, 2, D, dtype) for D in SPLIT_DS for dtype in (torch.bfloat16, torch.float32)) + tuple(
                   (1, 512, 2, D, getattr(torch, dtype)) for D, dtype in SPLIT_WIDE)
@@ -6521,8 +6663,6 @@ def phase_lm(torch, dev):
     return {name: counts[name] for name in FLASH}
 
 
-MOE_EXPERTS = 8  # examples/transformer_lm.py's MoE setting, on every layer
-MOE_CAPACITY = 1280  # 1.25 x 8,192 tokens / 8 experts: Switch Transformer's training capacity factor
 MOE_OFF_STEPS = 3  # steps of the flash "off" run held against the counted run's first losses
 MOE_OFF_RTOL = 2e-2  # bfloat16: routing is an argmax over gate products that add in another order
 

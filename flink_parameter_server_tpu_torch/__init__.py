@@ -25,13 +25,16 @@ the elastic driver resizes it live, and replica chains (``replication/``)
 ship each shard's log to followers on the card that take over when a
 primary dies.  A hot-key lease cache (``hotcache/``) serves Zipf-hot rows
 at the client edge under a staleness bound, and the telemetry plane
-serves ``/metrics`` and writes the run report.  The LM takes switch-MoE layers without a mesh, and
+serves ``/metrics`` and writes the run report.  The LM takes switch-MoE layers, and
 ``transform_hybrid`` runs event-API callbacks against the store on the
 card.  The parameter server's paths (the store, the batched loop, MF with
 its fused and locality steps, PA, the sketches, top-K serving,
 checkpoints) also run on a ``dp × ps`` mesh of ranks, one a device
-(``parallel/``, ``make_mesh``), and the LM on data, expert, tensor,
-sequence (ring attention) and pipeline parallel meshes (``make_nd_mesh``).  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
+(``parallel/``, ``make_mesh``), and the LM, MoE layers included, on data,
+expert, tensor, sequence (ring attention) and pipeline parallel meshes
+and every mix of them that the reference runs (``make_nd_mesh``;
+``models.transformer.check_lm_mesh`` gives each layout's MoE capacity
+rule).  Entry points run on ``cuda`` unless given ``device="cpu"``; on the
 CPU each kernel's plain torch version runs instead.
 
 Quickstart::

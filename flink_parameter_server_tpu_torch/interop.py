@@ -125,21 +125,23 @@ def transformer_params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, 
     MLP; bfloat16 leaves widened to float32).  Layouts are the reference's,
     so the copy is element for element: weights narrow to ``cfg.dtype``,
     norm gains stay float32.  With a ``mesh`` the model is on this rank's
-    device, replicated over dp; on a mesh with ``cfg.ep_axis`` each rank
-    keeps its experts' slice of every MoE layer's whole ``(E, ...)``
-    leaves (``models.moe.local_experts``), on a tp mesh its heads' columns
-    of ``wqkv`` (of each of q, k and v), its rows of ``wo`` and its share
-    of the MLP, on a pp mesh its stage's layers stacked; the model records
-    that layout, as ``init_params(mesh=)`` does (``build_lm``)."""
+    device, replicated over dp; on a mesh with ``cfg.ep_axis`` (and no pp
+    axis) each rank keeps its experts' slice of every MoE layer's whole
+    ``(E, ...)`` leaves (``models.moe.local_experts``), on a tp mesh its
+    heads' columns of ``wqkv`` (of each of q, k and v), its rows of ``wo``
+    and its share of a dense MLP (an MoE layer whole), on a pp mesh its
+    stage's layers stacked and whole, experts included; the model records
+    that layout, as ``init_params(mesh=)`` does (``build_lm``,
+    ``check_lm_mesh``)."""
     experts = slice(None)
     if mesh is not None:
         from .models.moe import local_experts
-        from .models.transformer import check_lm_mesh
+        from .models.transformer import _experts_split, check_lm_mesh
         from .parallel.mesh import mesh_device
 
         check_lm_mesh(mesh, cfg)
         device = mesh_device(mesh) if device is None else device
-        if cfg.ep_axis:
+        if _experts_split(mesh, cfg):
             experts = local_experts(cfg.num_experts, mesh, cfg.ep_axis)
     dev = resolve_device(device)
 
@@ -194,9 +196,16 @@ def transformer_params_to_numpy(model: TransformerLM) -> Dict[str, Any]:
         return {key: to_numpy(getattr(layer, key)) for key in LAYER_KEYS}
 
     if hasattr(model, "stages"):  # (S, per, ...) whole: layer s·per + j is [s, j]
-        stacked = {k: to_numpy(v) for k, v in model.stages.items()}
+        stacked = {k: to_numpy(v) for k, v in model.stages.named_parameters()}
         S, per = stacked["wqkv"].shape[:2]
-        layers = [{k: v[s, j] for k, v in stacked.items()} for s in range(S) for j in range(per)]
+
+        def unstack(s, j):
+            layer = {k: v[s, j] for k, v in stacked.items() if not k.startswith("moe.")}
+            if "moe.w_gate" in stacked:
+                layer["moe"] = {k: stacked["moe." + k][s, j] for k in MOE_KEYS}
+            return layer
+
+        layers = [unstack(s, j) for s in range(S) for j in range(per)]
     else:
         layers = [block(layer) for layer in model.layers]
     return {

@@ -185,7 +185,12 @@ def moe_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, 
     the mesh).  Returns the gated expert outputs for ``x``'s tokens (0 for
     dropped ones), to add to the residual stream.  ``cfg.capacity`` counts
     per shard: N tokens.  ``dp_axis`` is accepted for the reference's
-    signature; the tokens are already this rank's.
+    signature; the tokens are already this rank's.  On a mesh with tp or
+    sp beside ep, each (tp, sp) coordinate has its own ep group, whose
+    ranks all hold the dp shard's whole tokens (the LM gathers a rank's
+    positions over sp first): each expert's owner then runs identical
+    copies of its buckets on its tp and sp peers, as the reference's
+    layout does.
 
     The rank routes its tokens, buckets them into (E, C, d) (the spare-row
     bucketing of :func:`moe_dense`), and the dispatch trip

@@ -26,7 +26,7 @@ batch's ``mask``) passed with ``mesh=`` are this rank's ``cfg.dp_axis``
 rows at full length, as the dense step cuts them
 (``parallel.collectives.dp_rows``), and :func:`forward` returns this
 rank's logits.  The layouts (:func:`check_lm_mesh`), each named by the
-config's axis fields:
+config's axis fields, and any mix of them:
 
 * **data parallel** (``cfg.dp_axis``): attention never mixes batch rows,
   so the flash kernels run on the rank's rows (gated by ``eligible_dp``),
@@ -34,7 +34,9 @@ config's axis fields:
   (``parallel.collectives.all_gather_cat``).
 * **expert parallel** (``cfg.ep_axis``, the reference's ``("dp", "ep")``
   mesh): the ep ranks of a dp row hold the same rows and the same
-  non-expert weights; each holds ``E/ep`` experts of every MoE layer.
+  non-expert weights; each holds ``E/ep`` experts of every MoE layer.  It
+  composes with tp and sp: the experts split over ep, the attention over
+  tp or along the ring.
 * **tensor parallel** (``cfg.tp_axis``, Megatron's layout, the reference's
   ``param_shardings``): ``wqkv`` and ``w_up`` column-parallel, ``wo`` and
   ``w_down`` row-parallel, the rest replicated.  A rank holds whole heads,
@@ -45,8 +47,10 @@ config's axis fields:
   local ``qkv`` → RoPE → attention on the rank's heads → local ``wo`` →
   ``reduce_from_tp``, the MLP the same way.  Attention never mixes heads,
   so the flash kernels run on the rank's ``(B/dp, T, H/tp, D)`` tensors
-  (``eligible_dp`` with ``tp_axis``).  Heads and ``d_ff`` must divide by
-  tp (GSPMD would take any split).
+  (``eligible_dp`` with ``tp_axis``).  Heads, and a dense MLP's ``d_ff``,
+  must divide by tp (GSPMD would take any split).  An MoE layer is not
+  split over tp (the reference keeps the experts on ep or whole): every tp
+  rank runs it whole on the tp-replicated activations.
 * **sequence parallel** (``cfg.sp_axis`` with ``use_ring_attention``): rank
   ``i`` of sp keeps positions ``[i·T/sp, (i+1)·T/sp)`` of its rows, RoPE
   takes global positions, attention is ``ring_attention_inner``, and the
@@ -56,20 +60,28 @@ config's axis fields:
   holds its stage's layers as stacked leaves (``stages``: ``(1, per, ...)``,
   :func:`..parallel.pipeline.stack_stage_params`) and runs through
   :func:`forward_pipelined` (GPipe over pp, the ring inside each stage with
-  an sp axis).  Tensor parallelism and MoE layers inside stages raise: the
-  reference's stages run with ``mesh=None``.
+  an sp axis).  The stages run as the reference's do, with ``mesh=None``:
+  whole on every tp rank, with no tp collective, and an MoE layer's
+  experts whole on every ep rank.
 
 The dense step sums each gradient over dp, and over sp and pp where the
 ranks hold different tokens or stages (the model records which,
 ``core.dense.set_model_layout``); tp-replicated leaves need no tp sum
-(the conjugate pair makes their gradients whole on every tp rank).
+(the conjugate pair makes their gradients whole on every tp rank; an MoE
+layer and a pipeline stage compute the same gradients on every tp rank).
 
-MoE layers follow the reference's choice, made by the axis NAME:
-``moe_apply`` on the rank's dp rows when ``cfg.ep_axis`` is an axis of the
-mesh (``moe_capacity`` counts each dp shard's tokens), else ``moe_dense``
-over the WHOLE global batch (the rank's rows all-gathered over dp,
-``parallel.collectives.gather_rows``; the rank keeps its rows of the
-output).
+MoE layers follow the reference's routing, whose capacity rule depends on
+the layout (:func:`_moe_mlp`): ``moe_capacity`` counts
+
+* the whole global batch without an ep axis (the reference's
+  ``moe_dense`` under GSPMD): the rank's rows all-gathered over dp and its
+  positions over sp, the rank keeping its block of the output;
+* each dp shard's tokens, the whole sequence, when ``cfg.ep_axis`` is an
+  axis of the mesh (``moe_apply`` per dp shard, the shard's positions
+  gathered over sp first);
+* inside pipeline stages, the stage's input alone: the rank's microbatch,
+  and with the ring its sp slice of it (``moe_dense``, as the reference's
+  stages run it with ``mesh=None``).
 
 :func:`lm_loss` divides the masked token sum by the WHOLE batch's count of
 valid tokens (``parallel.collectives.global_mean``: one all-reduce of the
@@ -169,9 +181,10 @@ class TransformerBlock(nn.Module):
 class TransformerLM(nn.Module):
     """The LM's parameters; ``model(tokens)`` is :func:`forward`.  A model
     built for a pipeline mesh holds no ``layers``: its stage's blocks are
-    ``stages``, one leaf a key of :data:`LAYER_KEYS`, each ``(1, per,
-    ...)`` (this rank's block of :func:`..parallel.pipeline.
-    stack_stage_params`)."""
+    ``stages``, a block's leaves each ``(1, per, ...)`` (this rank's block
+    of :func:`..parallel.pipeline.stack_stage_params`): the keys of
+    :data:`LAYER_KEYS`, or with MoE layers the four of attention and norms
+    beside ``stages["moe"]``, the stacked :data:`MOE_KEYS`."""
 
     def __init__(self, cfg: TransformerConfig, embed: torch.Tensor, final_norm: torch.Tensor,
                  layers: List[Dict[str, torch.Tensor]], stages: Optional[Dict[str, torch.Tensor]] = None):
@@ -181,7 +194,9 @@ class TransformerLM(nn.Module):
         self.final_norm = nn.Parameter(final_norm)
         self.layers = nn.ModuleList(TransformerBlock(**layer) for layer in layers)
         if stages is not None:
-            self.stages = nn.ParameterDict({k: nn.Parameter(stages[k]) for k in LAYER_KEYS})
+            self.stages = nn.ParameterDict({k: nn.Parameter(v) for k, v in stages.items() if k != "moe"})
+            if "moe" in stages:
+                self.stages["moe"] = nn.ParameterDict({k: nn.Parameter(stages["moe"][k]) for k in MOE_KEYS})
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)
@@ -205,20 +220,41 @@ def _ring_on(mesh: Any, cfg: TransformerConfig) -> bool:
     return cfg.use_ring_attention and _on(mesh, cfg.sp_axis)
 
 
+def _experts_split(mesh: Any, cfg: TransformerConfig) -> bool:
+    """The MoE layers' experts split over ``cfg.ep_axis``: an ep axis on
+    the mesh, outside a pipeline (the reference's stages hold them whole)."""
+    return cfg.num_experts > 0 and _on(mesh, cfg.ep_axis) and not _on(mesh, cfg.pp_axis)
+
+
 def check_lm_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     """Accept a ``DeviceMesh`` with the ``cfg.dp_axis`` axis whose axes
-    larger than 1 are among the config's dp, ep, tp, sp and pp axes, in a
-    layout the reference runs; raise ``ValueError`` for anything else:
+    larger than 1 are among the config's dp, ep, tp, sp and pp axes, in
+    any mix the reference runs; raise ``ValueError`` for anything else:
 
-    * tp > 1 needs ``n_heads`` and ``d_ff`` divisible by tp, and no MoE
-      layers (the reference's tp covers the dense MLP);
+    * tp > 1 outside a pipeline needs ``n_heads`` divisible by tp, and
+      ``d_ff`` too with dense MLPs (a rank holds whole heads and its share
+      of the dense MLP; the experts of an MoE layer are not split over
+      tp);
     * sp > 1 needs ``use_ring_attention`` (the rank holds only its slice
       of the sequence; the reference would gather it for its plain
       attention);
-    * a pp axis needs ``n_layers`` divisible by pp, and no tp > 1 and no
-      MoE layers inside the stages (the reference's stages run with
-      ``mesh=None``);
-    * ep > 1 runs with dp only beside it."""
+    * a pp axis needs ``n_layers`` divisible by pp;
+    * a mesh axis larger than 1 that no config axis names.
+
+    (:func:`forward` raises for a model built for a pipeline mesh.)
+
+    Where each leaf lives and what ``moe_capacity`` counts, by layout:
+
+    * dp, ep, tp, sp, in any mix: the non-expert leaves on every rank,
+      ``wqkv`` / ``wo`` (and a dense MLP's ``w_up`` / ``w_down``) cut over
+      tp; the experts split over ep, else whole on every rank.  Capacity
+      counts each dp shard's tokens, the whole sequence, with an ep axis
+      (``moe_apply``), else the whole global batch (``moe_dense``).
+    * with pp: every leaf of a stage's blocks on that stage's ranks,
+      whole (not cut over tp, the experts not split over ep); embed and
+      the final norm on every rank.  Inside a stage capacity counts the
+      stage's input: the rank's microbatch of its dp shard, and with the
+      ring its sp slice of it."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh):
@@ -233,33 +269,30 @@ def check_lm_mesh(mesh: Any, cfg: TransformerConfig) -> None:
     if stray:
         raise ValueError(f"the LM over mesh axes {sizes}: {sorted(stray)} name none of the config's axes "
                          f"(dp_axis, ep_axis, tp_axis, sp_axis, pp_axis)")
-    tp, sp, ep, pp = (axis_size(mesh, a) if a else 1 for a in (cfg.tp_axis, cfg.sp_axis, cfg.ep_axis, cfg.pp_axis))
-    if tp > 1 and (cfg.n_heads % tp or cfg.d_ff % tp):
-        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads} and d_ff={cfg.d_ff} (a rank holds whole heads)")
-    if tp > 1 and cfg.num_experts:
-        raise ValueError("MoE layers with tp > 1: the reference's tensor parallelism splits the dense MLP")
+    tp, sp, pp = (axis_size(mesh, a) if a else 1 for a in (cfg.tp_axis, cfg.sp_axis, cfg.pp_axis))
+    piped = _on(mesh, cfg.pp_axis)
+    if tp > 1 and not piped and (cfg.n_heads % tp or (not cfg.num_experts and cfg.d_ff % tp)):
+        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads}" + ("" if cfg.num_experts else
+                         f" and d_ff={cfg.d_ff}") + " (a rank holds whole heads)")
     if sp > 1 and not cfg.use_ring_attention:
         raise ValueError(f"sp={sp} needs use_ring_attention=True: a rank holds only its slice of the sequence")
-    if ep > 1 and (tp > 1 or sp > 1):
-        raise ValueError("expert parallelism runs beside dp only")
-    if _on(mesh, cfg.pp_axis):
-        if tp > 1 or cfg.num_experts:
-            raise ValueError("tensor parallelism and MoE layers inside pipeline stages: the reference's stages "
-                             "run with mesh=None")
-        if cfg.n_layers % pp:
-            raise ValueError(f"n_layers={cfg.n_layers} does not split into pp={pp} stages")
+    if piped and cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} does not split into pp={pp} stages")
 
 
 def record_layout(model: "TransformerLM", mesh: Any, cfg: TransformerConfig) -> "TransformerLM":
     """Record the model-parallel layout of a model built for ``mesh``
     (``core.dense.set_model_layout``) and return it, the counterpart of the
-    reference's ``param_shardings``: on an ep mesh each MoE layer's
-    ``w_up`` and ``w_down`` split over ep on their expert axis; on a tp
-    mesh ``wqkv`` / ``w_up`` on their columns and ``wo`` / ``w_down`` on
-    their rows (``wqkv``'s columns in 3 groups, q, k and v, so the gather
-    puts them back in the reference's ``[q | k | v]`` order); on a pp mesh
-    the stage leaves on their stage axis.  The gradients of every leaf not
-    split over sp or pp are summed over those axes by the dense step.
+    reference's ``param_shardings``: on a pp mesh every stage leaf (a MoE
+    stage's experts too) on its stage axis and nothing else; else on an ep
+    mesh each MoE layer's ``w_up`` and ``w_down`` over ep on their expert
+    axis, and on a tp mesh ``wqkv`` / a dense MLP's ``w_up`` on their
+    columns and ``wo`` / a dense ``w_down`` on their rows (``wqkv``'s
+    columns in 3 groups, q, k and v, so the gather puts them back in the
+    reference's ``[q | k | v]`` order).  An MoE layer's leaves have no tp
+    spec: every tp rank holds them whole and computes the same gradients,
+    which the dense step must not sum over tp.  The gradients of every leaf
+    not split over sp or pp are summed over those axes by the dense step.
     ZeRO-1's and FSDP's specs merge dp into the layout; ``gather_params``
     gathers the split leaves whole."""
     from ..core.dense import set_model_layout
@@ -267,49 +300,52 @@ def record_layout(model: "TransformerLM", mesh: Any, cfg: TransformerConfig) -> 
     specs, groups = {}, {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if _on(mesh, cfg.ep_axis) and name.endswith(("moe.w_up", "moe.w_down")):
+        if name.startswith("stages."):
+            specs[name] = (cfg.pp_axis,) + (None,) * (p.ndim - 1)
+        elif _experts_split(mesh, cfg) and name.endswith(("moe.w_up", "moe.w_down")):
             specs[name] = (cfg.ep_axis, None, None)
-        elif _on(mesh, cfg.tp_axis) and name.startswith("layers.") and leaf in TP_DIMS:
+        elif _on(mesh, cfg.tp_axis) and name.startswith("layers.") and ".moe." not in name and leaf in TP_DIMS:
             specs[name] = tuple(cfg.tp_axis if d == TP_DIMS[leaf] else None for d in range(p.ndim))
             if leaf == "wqkv":
                 groups[name] = 3
-        elif name.startswith("stages."):
-            specs[name] = (cfg.pp_axis,) + (None,) * (p.ndim - 1)
     sums = tuple(a for a in (cfg.sp_axis, cfg.pp_axis) if _on(mesh, a))
     if not specs and not sums:
         return model
     return set_model_layout(model, mesh, specs, sum_axes=sums, groups=groups)
 
 
-def _tp_cut(layer: Dict[str, torch.Tensor], cfg: TransformerConfig, mesh: Any) -> Dict[str, torch.Tensor]:
-    """This rank's tp share of a whole dense block: its heads' columns of
-    each of q, k and v, the matching rows of ``wo``, its ``d_ff`` slice."""
+def _tp_cut(layer: Dict[str, Any], cfg: TransformerConfig, mesh: Any) -> Dict[str, Any]:
+    """This rank's tp share of a whole block: its heads' columns of each
+    of q, k and v, the matching rows of ``wo``, its ``d_ff`` slice of a
+    dense MLP (an MoE layer stays whole)."""
     tp, r = axis_size(mesh, cfg.tp_axis), axis_index(mesh, cfg.tp_axis)
     out = dict(layer)
     d = layer["wqkv"].shape[0]
     out["wqkv"] = layer["wqkv"].reshape(d, 3, tp, -1)[:, :, r].reshape(d, -1)
     for key in ("wo", "w_up", "w_down"):
-        out[key] = _coll.block_of(layer[key], mesh, cfg.tp_axis, TP_DIMS[key])
+        if key in layer:
+            out[key] = _coll.block_of(layer[key], mesh, cfg.tp_axis, TP_DIMS[key])
     return {k: v.contiguous().clone() if k in TP_DIMS else v for k, v in out.items()}
 
 
 def build_lm(cfg: TransformerConfig, embed: torch.Tensor, final_norm: torch.Tensor,
              layers: List[Dict[str, Any]], mesh: Any = None) -> TransformerLM:
     """The LM from WHOLE leaves (the reference's layouts), placed for
-    ``mesh``: this rank's tp share of every dense block, its pp stage's
-    blocks stacked (:func:`..parallel.pipeline.stack_stage_params`), the
-    layout recorded (:func:`record_layout`).  MoE leaves arrive already cut
-    to the rank's experts."""
+    ``mesh`` (:func:`check_lm_mesh` says where each leaf lives): on a pp
+    mesh its stage's blocks stacked (:func:`..parallel.pipeline.
+    stack_stage_params`, MoE layers' experts whole), else this rank's tp
+    share of every block; the layout recorded (:func:`record_layout`).  MoE
+    leaves arrive already cut to the rank's experts where ep splits them."""
     stages = None
     if mesh is not None:
         check_lm_mesh(mesh, cfg)
-        if _on(mesh, cfg.tp_axis):
-            layers = [_tp_cut(layer, cfg, mesh) for layer in layers]
         if _on(mesh, cfg.pp_axis):
             from ..parallel.pipeline import stack_stage_params
 
             stacked = stack_stage_params(layers, axis_size(mesh, cfg.pp_axis), mesh=mesh, pp_axis=cfg.pp_axis)
-            stages, layers = {k: v.contiguous() for k, v in stacked.items()}, []
+            stages, layers = stacked, []
+        elif _on(mesh, cfg.tp_axis):
+            layers = [_tp_cut(layer, cfg, mesh) for layer in layers]
     return record_layout(TransformerLM(cfg, embed, final_norm, layers, stages), mesh, cfg)
 
 
@@ -319,8 +355,9 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     ``mesh``, this rank's device on it).  Every rank draws the same whole
     weights from the same ``generator`` seed and keeps its share
     (:func:`build_lm`: its tp columns and rows, its pp stage; with
-    ``cfg.ep_axis`` its experts of every MoE layer, ``init_moe_params(
-    mesh=)``), so the generator streams stay aligned across ranks.
+    ``cfg.ep_axis`` on a mesh without pp its experts of every MoE layer,
+    ``init_moe_params(mesh=)``), so the generator streams stay aligned
+    across ranks.
 
     The reference's shapes, scales and dtypes: weights ``N(0, 1)`` in
     float32 times ``d**-0.5`` (wqkv, w_up), ``(2·n_layers·d)**-0.5`` (wo),
@@ -347,7 +384,7 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
         if cfg.num_experts > 0:
             from .moe import init_moe_params
 
-            ep_mesh = mesh if _on(mesh, cfg.ep_axis) else None
+            ep_mesh = mesh if _experts_split(mesh, cfg) else None
             return dict(moe=init_moe_params(gen, _moe_config(cfg), ep_mesh, cfg.ep_axis or "ep", device=dev))
         return dict(w_up=dense((d, f), d**-0.5), w_down=dense((f, d), (2 * cfg.n_layers * f) ** -0.5))
 
@@ -443,25 +480,57 @@ def _apply_block(x: torch.Tensor, layer: Any, cfg: TransformerConfig, mesh: Opti
     return x + (_coll.reduce_from_tp(out, mesh, cfg.tp_axis) if tp else out)
 
 
-def _moe_mlp(layer: TransformerBlock, h: torch.Tensor, cfg: TransformerConfig, mesh: Optional[Any]) -> torch.Tensor:
-    """The MoE layer on this rank's (B, T, d) rows, by the reference's
-    rule: ``moe_apply`` per dp shard when ``cfg.ep_axis`` is a mesh axis,
-    else ``moe_dense`` over the whole global batch (the rows gathered over
-    dp, the rank's rows of the output kept; :func:`gather_rows`'s backward
-    takes the rank's rows, exact here because a token's output depends
-    only on that token and the weights once the routing is fixed)."""
+def _moe_token_axes(mesh: Any, cfg: TransformerConfig) -> List[tuple]:
+    """The ``(axis, dim)`` all-gathers, innermost first, that give a rank's
+    MoE layer the tokens it routes together (:func:`_moe_mlp`): its
+    positions over sp (dim 1), then without an ep axis its rows over dp
+    (dim 0).  Axes of size 1 need none."""
+    axes = [(cfg.sp_axis, 1)] if _on(mesh, cfg.sp_axis) else []
+    if not _on(mesh, cfg.ep_axis):
+        axes.append((cfg.dp_axis, 0))
+    return [(a, dim) for a, dim in axes if axis_size(mesh, a) > 1]
+
+
+def _moe_mlp(layer: Any, h: torch.Tensor, cfg: TransformerConfig, mesh: Optional[Any]) -> torch.Tensor:
+    """The MoE layer on this rank's (B, T, d) activations, by the
+    reference's rule for the layout:
+
+    * no mesh (the mesh-less model, and a pipeline stage, which the
+      reference runs with ``mesh=None``): ``moe_dense`` on ``h`` alone, so
+      capacity counts the stage's microbatch (its sp slice with the ring);
+    * an ep axis on the mesh: ``moe_apply`` on the rank's dp shard, its
+      positions gathered over sp first, so capacity counts each dp
+      shard's tokens over the whole sequence;
+    * else ``moe_dense`` over the whole global batch: the rank's positions
+      gathered over sp, then its rows over dp.
+
+    Every rank routes the tokens in the reference's flattened ``(b, t)``
+    order (a slot goes to the first token that claims it), then keeps its
+    rows and positions of the output.  On a tp mesh every tp rank runs the
+    layer whole on the same activations and computes the same expert
+    gradients.  Each gather's backward takes the rank's block of the
+    gradient (``collectives.gather_block``): exact, because once the
+    routing is fixed a token's output depends only on that token and the
+    weights, so the gradient reaching the gathered tokens is zero off the
+    rank's own."""
     from .moe import moe_apply, moe_dense
 
     B, T, d = h.shape
-    flat = h.reshape(B * T, d)
+    if mesh is None:
+        return moe_dense(layer.moe, h.reshape(B * T, d), _moe_config(cfg)).reshape(B, T, d)
+    axes = _moe_token_axes(mesh, cfg)
+    whole = h
+    for axis, dim in axes:
+        whole = _coll.gather_block(whole, mesh, axis, dim)
+    flat = whole.reshape(-1, d)
     if _on(mesh, cfg.ep_axis):
         y = moe_apply(layer.moe, flat, _moe_config(cfg), mesh=mesh, ep_axis=cfg.ep_axis)
-    elif mesh is not None and axis_size(mesh, cfg.dp_axis) > 1:
-        whole = moe_dense(layer.moe, _coll.gather_rows(flat, mesh, cfg.dp_axis), _moe_config(cfg))
-        y = _coll.dp_rows(whole, mesh, cfg.dp_axis)
     else:
         y = moe_dense(layer.moe, flat, _moe_config(cfg))
-    return y.reshape(B, T, d)
+    y = y.reshape(whole.shape)
+    for axis, dim in reversed(axes):
+        y = _coll.block_of(y, mesh, axis, dim)
+    return y
 
 
 def _embed_slice(params: TransformerLM, tokens: Any, cfg: TransformerConfig, mesh: Optional[Any]):
@@ -515,6 +584,13 @@ def forward_pipelined(params: TransformerLM, tokens: torch.Tensor, cfg: Transfor
     its sp slice).  Inside the stages attention is the plain reference
     path, as the reference pins it: ``flash_attention="on"`` raises.
 
+    The stages run their blocks with no mesh, as the reference's do: each
+    leaf whole on every tp and ep rank of the stage (those ranks compute
+    the same thing), and an MoE layer's ``moe_dense`` on the stage's
+    input alone, so its capacity counts the microbatch (with the ring, the
+    rank's sp slice of it).  The routing is a function of that input, so
+    the pipeline's backward recomputes it as the forward made it.
+
     Every pp rank computes the same loss from the logits, so their
     gradient is scaled by ``1/pp`` (:func:`..parallel.pipeline.
     scale_grad`): the pipeline's backward sums the cotangents over pp, and
@@ -537,11 +613,13 @@ def forward_pipelined(params: TransformerLM, tokens: torch.Tensor, cfg: Transfor
 
     def stage_fn(stage, x_mb):
         for j in range(stage["wqkv"].shape[0]):
-            layer = types.SimpleNamespace(**{k: v[j] for k, v in stage.items()})
+            leaves = {k: v[j] for k, v in stage.items()}
+            moe = {k: leaves.pop("moe." + k) for k in MOE_KEYS if "moe." + k in leaves}
+            layer = types.SimpleNamespace(**leaves, **({"moe": moe} if moe else {}))
             x_mb = _apply_block(x_mb, layer, block_cfg, None, ring, offset)
         return x_mb
 
-    x = pipeline_apply(dict(params.stages), x, stage_fn, mesh=mesh, pp_axis=cfg.pp_axis,
+    x = pipeline_apply(dict(params.stages.named_parameters()), x, stage_fn, mesh=mesh, pp_axis=cfg.pp_axis,
                        num_microbatches=num_microbatches)
     return scale_grad(_logits(params, x), 1.0 / axis_size(mesh, cfg.pp_axis))
 

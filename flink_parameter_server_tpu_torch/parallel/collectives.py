@@ -302,11 +302,12 @@ def gather_rows(rows: torch.Tensor, mesh, axis: str = DP_AXIS) -> torch.Tensor:
     """The ``axis`` all-gather of every rank's rows (equal counts) into the
     global tensor; its backward takes this rank's rows of the gradient and
     needs no collective.  That is exact whenever no other rank's loss
-    reaches this rank's rows through the global tensor, which holds for the
-    two callers: ``flash_mha_dp`` (attention never mixes batch rows) and
-    the MoE layer on a dp-only mesh (``models/transformer.py``: given the
-    routing, each token's output depends only on that token and the
-    weights, so the rank's loss sends gradient only to its own tokens)."""
+    reaches this rank's rows through the global tensor, which holds for its
+    caller ``flash_mha_dp`` (attention never mixes batch rows) and for the
+    MoE layer's gathers over dp and sp (``models/transformer.py``, through
+    :func:`gather_block`: given the routing, each token's output depends
+    only on that token and the weights, so the rank's loss sends gradient
+    only to its own tokens)."""
     return _GatherBlock.apply(rows, mesh, axis, 0)
 
 

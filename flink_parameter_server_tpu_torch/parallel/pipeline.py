@@ -135,14 +135,17 @@ def pipeline_apply(stage_params: Dict[str, torch.Tensor], x: torch.Tensor,
     return _Pipeline.apply(x, local, keys, mesh, pp_axis, int(num_microbatches), *leaves)
 
 
-def stack_stage_params(layer_params_list: Sequence[Dict[str, torch.Tensor]], num_stages: int, *,
-                       mesh: Any = None, pp_axis: str = "pp") -> Dict[str, torch.Tensor]:
+def stack_stage_params(layer_params_list: Sequence[Dict[str, Any]], num_stages: int, *,
+                       mesh: Any = None, pp_axis: str = "pp") -> Dict[str, Any]:
     """Group per-layer dicts of leaves into ``num_stages`` stacked stages:
     each leaf gains leading dims ``(num_stages, layers_per_stage)``, stage
-    ``s`` holding layers ``[s·per, (s+1)·per)``.  With a ``mesh`` a rank
-    keeps only its stage's ``(1, per, ...)`` block (rank ``s`` of
-    ``pp_axis``), built from its own layers: the whole stack never exists
-    on a rank.  Differentiable (a stack of the layers' tensors)."""
+    ``s`` holding layers ``[s·per, (s+1)·per)``.  A value that is itself a
+    dict of leaves (an MoE layer's ``moe``) is stacked leaf by leaf into a
+    dict of the same keys, as the reference's ``tree.map`` stacks every
+    leaf of the pytree.  With a ``mesh`` a rank keeps only its stage's
+    ``(1, per, ...)`` block (rank ``s`` of ``pp_axis``), built from its
+    own layers: the whole stack never exists on a rank.  Differentiable (a
+    stack of the layers' tensors)."""
     n = len(layer_params_list)
     if num_stages < 1 or n % num_stages:
         raise ValueError(f"{n} layers do not split into {num_stages} stages")
@@ -153,9 +156,13 @@ def stack_stage_params(layer_params_list: Sequence[Dict[str, torch.Tensor]], num
             raise ValueError(f"num_stages={num_stages} but the mesh's {pp_axis} axis has "
                              f"{axis_size(mesh, pp_axis)} ranks")
         stages = [axis_index(mesh, pp_axis)]
-    keys = list(layer_params_list[0])
-    return {k: torch.stack([torch.stack([layer_params_list[s * per + j][k] for j in range(per)])
-                            for s in stages]) for k in keys}
+
+    def stack(layers):
+        return {k: stack([layer[k] for layer in layers]) if isinstance(v, dict) else
+                torch.stack([torch.stack([layers[s * per + j][k] for j in range(per)]) for s in stages])
+                for k, v in layers[0].items()}
+
+    return stack(list(layer_params_list))
 
 
 def scale_grad(x: torch.Tensor, factor: float) -> torch.Tensor:

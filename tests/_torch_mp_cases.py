@@ -1,5 +1,5 @@
-"""Tensor, sequence (ring) and pipeline parallelism's cases, run by
-``tests/_torch_mesh_child.py``.
+"""Tensor, sequence (ring) and pipeline parallelism's cases, and MoE
+layers beside them, run by ``tests/_torch_mesh_child.py``.
 
 Each case runs on every rank of the ``mp`` battery (8 gloo ranks) and
 returns numpy arrays.  The base mesh is ``("dp", "sp")`` at (2, 4); a case
@@ -24,8 +24,36 @@ LR, EPS = 1e-2, 1e-4  # tests/test_torch_dense.py's adamw arm
 REGIMES = ("replicated", "zero1", "fsdp")
 SWEEP = ((2, 2), (4, 1), (4, 4), (8, 2))  # tests/test_property_extras.py:79's (S, M)
 RING_SWEEP = ((1, 16, 1, 4, 8), (3, 64, 2, 16, 4), (2, 24, 5, 8, 2))  # :63's (B, T, H, D, sp)
-# the trees the test writes: name -> (n_layers, JAX key)
-TREES = {"tp": (2, 1), "sp": (2, 2), "pp": (4, 4), "ppsp": (4, 6), "ppspg": (2, 8), "train": (2, 0)}
+# the trees the test writes: name -> (n_layers, JAX key); "moe" has MoE layers (MOE_EXPERTS experts)
+TREES = {"tp": (2, 1), "sp": (2, 2), "pp": (4, 4), "ppsp": (4, 6), "ppspg": (2, 8), "train": (2, 0), "moe": (2, 10)}
+MOE_EXPERTS = 4
+NO_DROP = 128  # the batch's 128 tokens: no routing drops a token at this capacity
+# the LM layouts the reference runs beside the earlier ones, each on its tree ("moe", or "tp" for the dense
+# pp x tp) and the (8, 16) moe_tokens: name -> (mesh shape, axes, config fields, microbatches (None: forward),
+# a capacity that drops tokens under the layout's rule (None: dense), the planted fault).  The faults:
+# "tp_sum" sums over tp the gradients every tp rank already holds whole (the experts', or the stages');
+# "slice" routes each sp rank's positions alone (the port before the sp gather); "shard" routes a pipeline
+# stage's MoE over the whole dp shard (1 microbatch) instead of each microbatch
+LAYOUTS = {
+    "moe_tp": ((2, 4), ("dp", "tp"), dict(tp_axis="tp"), None, 8, "tp_sum"),
+    "moe_ep_tp": ((2, 2, 2), ("dp", "ep", "tp"), dict(ep_axis="ep", tp_axis="tp"), None, 8, "tp_sum"),
+    "moe_ep_sp": ((2, 2, 2), ("dp", "ep", "sp"), dict(ep_axis="ep", sp_axis="sp", use_ring_attention=True), None, 8,
+                  "slice"),
+    "moe_sp": ((2, 4), ("dp", "sp"), dict(sp_axis="sp", use_ring_attention=True), None, 8, "slice"),
+    "moe_pp": ((4, 2), ("dp", "pp"), dict(pp_axis="pp"), 2, 4, "shard"),
+    "moe_pp_ep": ((2, 2, 2), ("dp", "pp", "ep"), dict(pp_axis="pp", ep_axis="ep"), 2, 4, "shard"),
+    "moe_pp_sp": ((2, 2, 2), ("dp", "pp", "sp"), dict(pp_axis="pp", sp_axis="sp", use_ring_attention=True), 2, 4,
+                  "shard"),
+    "pp_tp": ((2, 2, 2), ("dp", "pp", "tp"), dict(pp_axis="pp", tp_axis="tp"), 2, None, "tp_sum"),
+}
+MOE_REGIMES = ("moe_tp", "moe_ep_tp")  # the layouts trained in each of REGIMES, at their dropping capacity
+
+
+def layout_capacities(name):
+    """The capacities a layout runs at: its dropping one and NO_DROP (a
+    dense layout: None)."""
+    drop = LAYOUTS[name][4]
+    return (None,) if drop is None else (drop, NO_DROP)
 
 _MESHES = {}
 
@@ -34,7 +62,11 @@ def pack(tree, prefix):
     """A reference LM pytree (numpy leaves) as flat ``inputs.npz`` entries."""
     out = {f"{prefix}_embed": tree["embed"], f"{prefix}_final_norm": tree["final_norm"]}
     for i, layer in enumerate(tree["layers"]):
-        out.update({f"{prefix}_layer{i}_{k}": v for k, v in layer.items()})
+        for k, v in layer.items():
+            if k == "moe":
+                out.update({f"{prefix}_layer{i}_moe_{m}": w for m, w in v.items()})
+            else:
+                out[f"{prefix}_layer{i}_{k}"] = v
     return out
 
 
@@ -42,7 +74,9 @@ def unpack(z, prefix, n_layers):
     layers = []
     for i in range(n_layers):
         head = f"{prefix}_layer{i}_"
-        layers.append({k[len(head):]: np.asarray(z[k]) for k in z.files if k.startswith(head)})
+        layer = {k[len(head):]: np.asarray(z[k]) for k in z.files if k.startswith(head)}
+        moe = {k[len("moe_"):]: layer.pop(k) for k in list(layer) if k.startswith("moe_")}
+        layers.append(dict(layer, **({"moe": moe} if moe else {})))
     return {"embed": np.asarray(z[f"{prefix}_embed"]), "final_norm": np.asarray(z[f"{prefix}_final_norm"]),
             "layers": layers}
 
@@ -545,11 +579,125 @@ def case_tp_regimes(c):
     return out
 
 
+# ---------------------------------------------------------------- MoE, tp and pp beside each other
+
+
+def _layout_cfg(name, capacity):
+    moe = dict(num_experts=MOE_EXPERTS, moe_capacity=capacity) if capacity else {}
+    return _cfg(**LAYOUTS[name][2], **moe)
+
+
+def _layout_run(c, name, capacity, plant=None):
+    """One layout's run from the reference's tree: the global logits, the
+    gradients of ``mean(log_softmax(logits)[..., 0])`` summed by the dense
+    step's rule (gathered whole), and each routing call's (tokens, kept)
+    in the forward.  ``plant``: "slice", "shard" or "tp_sum" (LAYOUTS)."""
+    import torch
+
+    from flink_parameter_server_tpu_torch import interop
+    from flink_parameter_server_tpu_torch.models import moe as moe_mod
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+    from flink_parameter_server_tpu_torch.parallel import collectives as coll
+
+    shape, axes, fields, micro, _, _ = LAYOUTS[name]
+    mesh = _mesh(shape, axes)
+    cfg = _layout_cfg(name, capacity)
+    z = _inputs(c)
+    model = interop.transformer_params_from_numpy(unpack(z, "moe" if capacity else "tp", 2), cfg, mesh=mesh)
+    rows = _rows(torch.from_numpy(z["moe_tokens"]).long(), mesh)
+    routed, real_route, real_axes = [], moe_mod._route, tr._moe_token_axes
+
+    def spy(x, w, E, C):
+        r = real_route(x, w, E, C)
+        routed.append((int(x.shape[0]), int(r[2].sum())))
+        return r
+
+    moe_mod._route = spy
+    if plant == "slice":
+        tr._moe_token_axes = lambda m, cf: [a for a in real_axes(m, cf) if a[0] != cf.sp_axis]
+    try:
+        if micro:
+            logits = tr.forward_pipelined(model, rows, cfg, mesh=mesh,
+                                          num_microbatches=1 if plant == "shard" else micro)
+        else:
+            logits = tr.forward(model, rows, cfg, mesh=mesh)
+    finally:
+        moe_mod._route, tr._moe_token_axes = real_route, real_axes
+    sp = tr._ring_on(mesh, cfg)
+    _mean_logp0(logits, mesh, ("dp", "sp") if sp else ("dp",)).backward()
+    if plant == "tp_sum":
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if ".moe." in n or n.startswith("stages."):
+                    p.grad = coll.all_reduce_sum(p.grad, mesh, "tp")
+    gathered = _gather(logits.detach(), mesh, *((("sp", 1),) if sp else ()), ("dp", 0))
+    return _np(gathered), _summed_grads(model, mesh), np.array(routed, np.int64).reshape(-1, 2)
+
+
+def case_layouts(c):
+    """Each of LAYOUTS on its mesh of the 8 ranks, at its dropping capacity
+    and at NO_DROP: the global logits, the summed gradients and the
+    routing calls' (tokens, kept) (the capacity rule: the tokens each call
+    routes together); at the dropping capacity its planted fault's logits
+    ("slice", "shard") or gradients ("tp_sum")."""
+    out = {}
+    for name, (shape, axes, fields, micro, drop, fault) in LAYOUTS.items():
+        for cap in layout_capacities(name):
+            tag = f"{name}_c{cap or 0}"
+            logits, grads, routed = _layout_run(c, name, cap)
+            out[f"{tag}_logits"], out[f"{tag}_routed"] = logits, routed
+            out.update(pack(grads, f"{tag}_grad"))
+        logits, grads, _ = _layout_run(c, name, drop, plant=fault)
+        if fault == "tp_sum":
+            out.update(pack(grads, f"{name}_fault_grad"))
+        else:
+            out[f"{name}_fault_logits"] = logits
+    return out
+
+
+def case_moe_regimes(c):
+    """The MoE LM on each of MOE_REGIMES's meshes, at its dropping
+    capacity, for 2 steps of ``transform_dense(batch_sharding=mesh)``,
+    replicated, ZeRO-1 and FSDP, from the reference's tree: the losses and
+    the whole trained tree; the shape a rank holds of ``w_up`` (FSDP: cut
+    over dp) and of its ZeRO-1 Adam moment."""
+    import torch
+
+    from flink_parameter_server_tpu_torch import interop
+    from flink_parameter_server_tpu_torch.core import dense, optim
+    from flink_parameter_server_tpu_torch.models import transformer as tr
+
+    z = _inputs(c)
+    tree = unpack(z, "moe", 2)
+    batches = [{"tokens": z[f"train_tokens{i}"]} for i in range(2)]
+    out = {}
+    for name in MOE_REGIMES:
+        shape, axes, _, _, drop, _ = LAYOUTS[name]
+        mesh = _mesh(shape, axes)
+        cfg = _layout_cfg(name, drop)
+        for regime in REGIMES:
+            server = interop.dense_server_from_numpy(tree, cfg, optim.adamw(LR, eps=EPS), mesh=mesh,
+                                                     fsdp=regime == "fsdp")
+            res = dense.transform_dense(batches, lambda m, b: tr.lm_loss(m, b, cfg, mesh=mesh), server,
+                                        batch_sharding=None if regime == "fsdp" else mesh,
+                                        shard_opt_state=regime == "zero1")
+            out[f"{name}_{regime}_loss"] = np.array([float(x) for x in res.worker_outputs])
+            out.update(pack(interop.transformer_params_to_numpy(res.server_outputs[0]), f"{name}_{regime}"))
+            out[f"{name}_{regime}_held_w_up"] = np.array(res.server_outputs[0].layers[0].moe["w_up"].shape)
+        server = interop.dense_server_from_numpy(tree, cfg, optim.adamw(LR, eps=EPS), mesh=mesh)
+        step = dense.make_dense_train_step(lambda m, b: tr.lm_loss(m, b, cfg, mesh=mesh), mesh=mesh,
+                                           shard_opt_state=True,
+                                           opt_specs=dense.opt_state_zero1_specs(server.opt, mesh, params=server.params))
+        p, o, _ = step(server.params, server.opt, {"tokens": torch.from_numpy(batches[0]["tokens"])})
+        out[f"{name}_zero1_mu_w_up"] = np.array(o.state[p.layers[0].moe["w_up"]]["exp_avg"].shape)
+    return out
+
+
 def case_refusals(c):
     """Layouts the reference does not run raise ``ValueError`` naming why:
-    tp not dividing the heads, tp inside pipeline stages, sp > 1 without
-    the ring, a mesh axis the config does not name, and the plain forward
-    of a pipeline model."""
+    tp not dividing the heads, sp > 1 without the ring, a mesh axis the
+    config does not name, and the plain forward of a pipeline model.  tp
+    inside pipeline stages, which the reference runs, builds and runs."""
     import torch
 
     from flink_parameter_server_tpu_torch.models import transformer as tr
@@ -557,7 +705,9 @@ def case_refusals(c):
     pp_tp = _mesh((2, 2, 2), ("dp", "pp", "tp"))
     tries = {
         "heads": lambda: tr.init_params(_cfg(n_heads=2, tp_axis="tp"), mesh=_mesh((2, 4), ("dp", "tp"))),
-        "pp_tp": lambda: tr.init_params(_cfg(pp_axis="pp", tp_axis="tp"), mesh=pp_tp),
+        "pp_tp": lambda: tr.forward_pipelined(tr.init_params(_cfg(pp_axis="pp", tp_axis="tp"), mesh=pp_tp),
+                                              torch.zeros(2, 8, dtype=torch.int64), _cfg(pp_axis="pp", tp_axis="tp"),
+                                              mesh=pp_tp, num_microbatches=2),
         "no_ring": lambda: tr.init_params(_cfg(sp_axis="sp"), mesh=c.mesh),
         "stray": lambda: tr.init_params(_cfg(), mesh=c.mesh),
         "plain_forward": lambda: tr.forward(tr.init_params(_cfg(pp_axis="pp"), mesh=_mesh((4, 2), ("dp", "pp"))),
@@ -566,12 +716,14 @@ def case_refusals(c):
     out = {}
     for name, fn in tries.items():
         try:
-            fn()
-            out[name] = np.array("did not raise")
+            got = fn()
+            out[name] = np.array(f"did not raise: {tuple(got.shape)}" if isinstance(got, torch.Tensor)
+                                 else "did not raise")
         except ValueError as e:
             out[name] = np.array(str(e))
     return out
 
 
 CASES = {"mp": [case_ring, case_ring_sweep, case_tp, case_tp_flash, case_sp_lm, case_sp_tp, case_pp, case_pp_grads, case_pp_sp,
-                case_pipeline_sweep, case_stack, case_zero1_tp_specs, case_tp_regimes, case_refusals]}
+                case_pipeline_sweep, case_stack, case_zero1_tp_specs, case_tp_regimes, case_refusals, case_layouts,
+                case_moe_regimes]}

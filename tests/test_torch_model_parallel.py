@@ -34,7 +34,16 @@ Mirrors, each at the reference test's own bar:
   same mesh (losses rtol 1e-5, parameters rtol 1e-4 / atol 1e-6 + 1e-3·lr,
   tests/test_torch_zero1.py's LM bars);
 * weights cross both ways: the reference's tree onto tp and pp ranks and
-  back, bitwise, ``wqkv``'s ``[q | k | v]`` order included.
+  back, bitwise, ``wqkv``'s ``[q | k | v]`` order included;
+* the layouts beside those (``_torch_mp_cases.LAYOUTS``): MoE layers beside
+  tp, ep beside tp and sp, MoE on an sp ring without ep, MoE in pipeline
+  stages (alone, beside an ep axis, under the ring) and dense tp inside
+  stages, each against the reference's run of the same layout on its 8
+  devices at a capacity that drops tokens under the layout's rule and at
+  one that drops none (logits atol 3e-4, gradients atol 5e-5, the bars of
+  :293 and :327), each with a planted fault outside the bar; the MoE LM's
+  replicated, ZeRO-1 and FSDP steps on (dp 2, tp 4) and (dp 2, ep 2, tp 2)
+  against the reference's same regimes (the LM bars above).
 
 The port runs in 8 spawned gloo ranks on the CPU (``tests/_torch_mesh_child.py``
 with ``tests/_torch_mp_cases.py``: the ``mp`` battery, one spawn); inputs
@@ -67,7 +76,8 @@ def _ref_cfg(**kw):
 
 def _tree(name):
     n_layers, key = mc.TREES[name]
-    params = ref_tr.init_params(jax.random.PRNGKey(key), _ref_cfg(n_layers=n_layers))
+    moe = dict(num_experts=mc.MOE_EXPERTS, moe_capacity=mc.NO_DROP) if name == "moe" else {}
+    params = ref_tr.init_params(jax.random.PRNGKey(key), _ref_cfg(n_layers=n_layers, **moe))
     return jax.tree.map(lambda x: np.asarray(x, np.float32), params)
 
 
@@ -83,7 +93,8 @@ def _tokens():
            "sp_tokens": np.random.default_rng(1).integers(0, 64, (4, 32)).astype(np.int32),
            "pp_tokens": np.random.default_rng(3).integers(0, 64, (8, 16)).astype(np.int32),
            "ppsp_tokens": np.random.default_rng(7).integers(0, 64, (8, 16)).astype(np.int32),
-           "ppspg_tokens": np.random.default_rng(9).integers(0, 64, (4, 16)).astype(np.int32)}
+           "ppspg_tokens": np.random.default_rng(9).integers(0, 64, (4, 16)).astype(np.int32),
+           "moe_tokens": np.random.default_rng(11).integers(0, 64, (8, 16)).astype(np.int32)}
     for i in range(2):
         out[f"train_tokens{i}"] = rng.integers(0, 64, (8, 16)).astype(np.int32)
     return out
@@ -473,14 +484,177 @@ def test_stack_stage_params_sharded_matches_unsharded(mp):
 
 
 def test_layouts_the_reference_does_not_run_raise(mp):
-    """``check_lm_mesh``: tp must divide the heads; tp inside pipeline
-    stages raises (the reference's stages run with ``mesh=None``); sp > 1
-    needs the ring (a rank holds only its slice); an axis larger than 1
-    that the config does not name raises; a pipeline model's plain forward
-    points to ``forward_pipelined``."""
-    want = {"heads": "must divide n_heads", "pp_tp": "inside pipeline stages",
+    """``check_lm_mesh``: tp must divide the heads; sp > 1 needs the ring
+    (a rank holds only its slice); an axis larger than 1 that the config
+    does not name raises; a pipeline model's plain forward points to
+    ``forward_pipelined``.  tp inside pipeline stages, which the reference
+    runs (its stages run whole with ``mesh=None``), no longer raises: the
+    model builds and ``forward_pipelined`` gives the rank's logits."""
+    want = {"heads": "must divide n_heads", "pp_tp": "did not raise: (2, 8, 64)",
             "no_ring": "needs use_ring_attention=True", "stray": "name none of the config's axes",
             "plain_forward": "runs through forward_pipelined"}
     for out in case(mp, "refusals"):
         for name, text in want.items():
             assert text in str(out[name]), (name, out[name])
+
+
+# ---------------------------------------------------------------- MoE, tp and pp beside each other
+
+# what one routing call routes together under each layout's capacity rule, of the (8, 16) moe_tokens
+ROUTED_TOKENS = {"moe_tp": 128, "moe_ep_tp": 64, "moe_ep_sp": 64, "moe_sp": 128, "moe_pp": 16, "moe_pp_ep": 32,
+                 "moe_pp_sp": 16}
+LOGITS_ATOL, GRAD_ATOL = 3e-4, 5e-5  # the float32 bars of the tests above (:293, :327)
+_REF_LAYOUTS = {}
+
+
+def _ref_layout(name, capacity):
+    """The reference's run of a layout: its logits on the layout's mesh
+    of 8 host devices (``forward``, or ``forward_pipelined`` with the
+    layout's microbatches), and ``jax.grad`` of ``mean(log_softmax(logits)
+    [..., 0])`` through it, as numpy trees."""
+    key = (name, capacity)
+    if key not in _REF_LAYOUTS:
+        shape, axes, fields, micro, _, _ = mc.LAYOUTS[name]
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(shape), axes)
+        moe = dict(num_experts=mc.MOE_EXPERTS, moe_capacity=capacity) if capacity else {}
+        cfg = _ref_cfg(**fields, **moe)
+        seq = "sp" if "sp" in axes and not micro else None
+        tokens = jax.device_put(jnp.asarray(TOKENS["moe_tokens"]), NamedSharding(mesh, P("dp", seq)))
+
+        def loss(p):
+            if micro:
+                lg = ref_tr.forward_pipelined(p, tokens, cfg, mesh=mesh, num_microbatches=micro)
+            else:
+                lg = ref_tr.forward(p, tokens, cfg, mesh=mesh)
+            return jnp.mean(jax.nn.log_softmax(lg)[..., 0]), lg
+
+        (_, logits), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(_jtree(_tree("moe" if capacity else "tp")))
+        _REF_LAYOUTS[key] = (np.asarray(logits), jax.tree.map(lambda x: np.asarray(x, np.float32), grads))
+    return _REF_LAYOUTS[key]
+
+
+LAYOUT_RUNS = [(name, cap) for name in mc.LAYOUTS for cap in mc.layout_capacities(name)]
+
+
+@pytest.mark.parametrize("name,capacity", LAYOUT_RUNS, ids=[f"{n}-cap{c}" for n, c in LAYOUT_RUNS])
+def test_layout_matches_the_reference(mp, name, capacity):
+    """MoE layers beside tp (dp 2, tp 4), ep beside tp and sp (each (2, 2,
+    2)), MoE on an sp ring without ep (dp 2, sp 4), MoE in pipeline stages
+    ((dp 4, pp 2), (2, 2, 2) with an ep or an sp axis) and dense tp inside
+    stages ((2, 2, 2)): the global logits (atol 3e-4) and the gradients
+    summed by the dense step's rule (atol 5e-5) against the reference's
+    run of the same layout, at a capacity that drops tokens under the
+    layout's rule and at one that drops none; every rank alike."""
+    logits, grads = _ref_layout(name, capacity)
+    tag = f"{name}_c{capacity or 0}"
+    for r, out in enumerate(case(mp, "layouts")):
+        np.testing.assert_allclose(out[f"{tag}_logits"], logits, atol=LOGITS_ATOL, err_msg=f"{tag} rank {r}")
+        assert_tree(out, f"{tag}_grad", grads, f"{tag} rank {r}", atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("name", [n for n in mc.LAYOUTS if n in ROUTED_TOKENS])
+def test_layout_capacity_rule(mp, name):
+    """Each routing call of an MoE layout's forward routes the tokens its
+    rule names (the global batch's 128, a dp shard's 64, a pipeline
+    microbatch's, or its sp slice's), drops some at the layout's dropping
+    capacity and none at 128."""
+    drop = mc.LAYOUTS[name][4]
+    for r, out in enumerate(case(mp, "layouts")):
+        for cap in (drop, mc.NO_DROP):
+            routed = out[f"{name}_c{cap}_routed"]
+            assert len(routed) and (routed[:, 0] == ROUTED_TOKENS[name]).all(), (name, cap, r, routed)
+            dropped = int((routed[:, 0] - routed[:, 1]).sum())
+            assert (dropped > 0) == (cap == drop), (name, cap, r, dropped)
+
+
+@pytest.mark.parametrize("name", list(mc.LAYOUTS))
+def test_layout_planted_fault_falls_outside_the_bar(mp, name):
+    """Each layout's planted fault, at its dropping capacity, lands
+    outside the bar it is held to: an sp rank's MoE routing its own
+    positions alone (the logits), a pipeline stage's MoE routing the whole
+    dp shard instead of its microbatch (the logits), the tp-replicated
+    experts' or stages' gradients summed over tp (the gradients)."""
+    drop, fault = mc.LAYOUTS[name][4:]
+    logits, grads = _ref_layout(name, drop)
+    for r, out in enumerate(case(mp, "layouts")):
+        if fault == "tp_sum":
+            err = max(np.abs(out[k] - np.asarray(v)).max() for k, v in mc.pack(grads, f"{name}_fault_grad").items())
+            assert err > 10 * GRAD_ATOL, (name, r, err)
+        else:
+            err = np.abs(out[f"{name}_fault_logits"] - logits).max()
+            assert err > 10 * LOGITS_ATOL, (name, r, err)
+
+
+def test_sp_moe_routes_the_global_batch(mp):
+    """MoE layers on an sp ring without ep route the whole global batch, as
+    the reference's ``moe_dense`` under GSPMD does: on (dp 2, sp 4) at
+    capacity 8 (each of the 8 ranks holds 2 rows of 4 positions) the
+    logits match the reference's sp-mesh forward and its mesh-less forward
+    within 3e-4; routing each rank's slice alone misses by far more."""
+    cfg = _ref_cfg(num_experts=mc.MOE_EXPERTS, moe_capacity=8)
+    whole = np.asarray(ref_tr.forward(_jtree(_tree("moe")), jnp.asarray(TOKENS["moe_tokens"]), cfg))
+    on_mesh, _ = _ref_layout("moe_sp", 8)
+    for r, out in enumerate(case(mp, "layouts")):
+        np.testing.assert_allclose(out["moe_sp_c8_logits"], on_mesh, atol=LOGITS_ATOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(out["moe_sp_c8_logits"], whole, atol=LOGITS_ATOL, err_msg=f"rank {r}")
+        assert np.abs(out["moe_sp_fault_logits"] - whole).max() > 10 * LOGITS_ATOL
+
+
+@pytest.fixture(scope="module")
+def reference_moe_runs():
+    """The reference's 2 steps of the MoE LM on each of MOE_REGIMES's
+    meshes in each regime: {(layout, regime): (losses, final tree)}."""
+    runs = {}
+    opt = optax.adamw(mc.LR, eps=mc.EPS)
+    for name in mc.MOE_REGIMES:
+        shape, axes, fields, _, drop, _ = mc.LAYOUTS[name]
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(shape), axes)
+        cfg = _ref_cfg(**fields, num_experts=mc.MOE_EXPERTS, moe_capacity=drop)
+        sh = NamedSharding(mesh, P("dp"))
+
+        def loss_fn(p, b, cfg=cfg, mesh=mesh):
+            return ref_tr.lm_loss(p, b, cfg, mesh=mesh)
+
+        for regime in mc.REGIMES:
+            params = ref_tr.init_params(jax.random.PRNGKey(mc.TREES["moe"][1]), cfg, mesh)
+            batches = [{"tokens": jax.device_put(jnp.asarray(TOKENS[f"train_tokens{i}"]), sh)} for i in range(2)]
+            if regime == "zero1":
+                specs = ref_dense.opt_state_zero1_specs(opt.init(params), mesh)
+                step = jax.jit(ref_dense.make_dense_train_step(loss_fn, opt, mesh=mesh, shard_opt_state=True,
+                                                               opt_specs=specs))
+                p, o, losses = params, opt.init(params), []
+                for b in batches:
+                    p, o, lo = step(p, o, b)
+                    losses.append(float(lo))
+                runs[name, regime] = (np.array(losses), p)
+                continue
+            if regime == "fsdp":
+                params = ref_dense.fsdp_place(params, mesh)
+            res = ref_dense.transform_dense(batches, loss_fn, ref_dense.DenseParameterServer(params, opt))
+            runs[name, regime] = (np.array([float(x) for x in res.worker_outputs]), res.server_outputs[0])
+    return runs
+
+
+@pytest.mark.parametrize("name", mc.MOE_REGIMES)
+@pytest.mark.parametrize("regime", mc.REGIMES)
+def test_moe_regimes_match_the_reference(mp, reference_moe_runs, name, regime):
+    """2 steps of ``transform_dense`` of the MoE LM on (dp 2, tp 4) and on
+    (dp 2, ep 2, tp 2), capacity 8 (tokens drop under each rule), against
+    the reference's same regime on the same mesh: losses rtol 1e-5, the
+    whole trained tree at the LM bar; every rank alike; a rank holds the
+    experts of its ep rank whole over tp (FSDP: cut over dp on the first
+    free axis), and under ZeRO-1 its moment cut the same way."""
+    losses, params = reference_moe_runs[name, regime]
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), params)
+    experts = mc.MOE_EXPERTS // (2 if "ep" in name else 1)
+    per_rank = case(mp, "moe_regimes")
+    for r, out in enumerate(per_rank):
+        err = f"{name} {regime} rank {r}"
+        np.testing.assert_allclose(out[f"{name}_{regime}_loss"], losses, rtol=1e-5, err_msg=err)
+        assert_tree(out, f"{name}_{regime}", tree, err, **LM_BAR)
+        for k in mc.pack(tree, f"{name}_{regime}"):
+            np.testing.assert_array_equal(out[k], per_rank[0][k], err_msg=f"{k} rank {r}")
+        # dp merges into the first free axis: the expert axis without ep, the next one beside ep's
+        cut = (2, 16, 64) if "ep" in name else (2, 32, 64)
+        assert tuple(out[f"{name}_{regime}_held_w_up"]) == (cut if regime == "fsdp" else (experts, 32, 64))
+        assert tuple(out[f"{name}_zero1_mu_w_up"]) == cut
